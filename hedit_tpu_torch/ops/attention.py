@@ -1,0 +1,113 @@
+"""Attention dispatch with control hooks (port of ``hedit_tpu/ops/attention.py``).
+
+* fused path: ``softmax(q k^T) v`` without materialised probabilities.  A CUDA
+  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernel;
+  everything else to the plain version.  The P2P self edit (a q/k
+  row-select, ``map_qkv``) and cross edit (a linear map over the token axis,
+  ``linear_token_edit``) both ride this path.
+* probability path: only at the P2P store layers, and only for the
+  (cond_start, cond_start + 1) row pair of each image; the other rows ride
+  the fused path.
+
+Batch layout under a control with ``num_images`` images: rows are grouped by
+image, ``rows = num_images * group``, and each control edit reads row
+``cond_start`` and writes row ``cond_start + 1`` of its own group only (the
+JAX package gets this grouping from ``vmap``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from hedit_tpu_torch.control.base import NO_CONTROL, LayerTag
+from hedit_tpu_torch.ops.flash_attention import flash_attention_cuda, reference_attention
+
+# Shortest query and key length routed to the CUDA flash kernel.
+FLASH_MIN_SEQ = 1024
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, S, H*D] -> contiguous [B, H, S, D]"""
+    b, s, hd = x.shape
+    return x.reshape(b, s, heads, hd // heads).transpose(1, 2).contiguous()
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] -> [B, S, H*D]"""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Materialised softmax(q k^T / sqrt(d)) in float32: [B, H, Sq, Sk]."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (q.shape[-1] ** 0.5)
+    return torch.softmax(s, dim=-1)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] attention routed by device and sequence length."""
+    if q.is_cuda and q.shape[2] >= FLASH_MIN_SEQ and k.shape[2] >= FLASH_MIN_SEQ:
+        return flash_attention_cuda(q, k, v)
+    return reference_attention(q, k, v)
+
+
+def _groups(control, rows: int) -> Tuple[int, int, int]:
+    n = control.num_images
+    cs = control.cond_start
+    if rows % n or cs + 2 > rows // n:
+        raise ValueError(f"{rows} rows do not hold {n} images with cond_start={cs}")
+    return n, rows // n, cs
+
+
+def controlled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         heads: int, layer: LayerTag, control=NO_CONTROL
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Multi-head attention with control hooks.
+
+    q/k/v: [B, S, H*D] projections.  Returns ([B, Sq, H*D], stored maps)."""
+    q, k, v = control.map_qkv(q, k, v, layer)
+
+    def fused(qp, kp, vp):
+        return merge_heads(fused_attention(split_heads(qp, heads), split_heads(kp, heads),
+                                           split_heads(vp, heads)))
+
+    le = control.linear_token_edit(layer)
+    if le is not None:
+        # Cross edit as a token-axis linear map (P2PControl.linear_token_edit):
+        # the edit row's values become b * v_edit in the main call, and one
+        # extra call (q_base, k_base, A @ v_edit) adds into the edit row.
+        A, b = le                                       # [n, 77, 77], [n, 77]
+        n, g, cs = _groups(control, q.shape[0])
+        vg = v.reshape(n, g, *v.shape[1:])
+        v_e = vg[:, cs + 1].float()
+        v_mod = vg.clone()
+        v_mod[:, cs + 1] = (b[:, :, None] * v_e).to(v.dtype)
+        out = fused(q, k, v_mod.reshape(v.shape)).to(q.dtype)
+        va = torch.matmul(A, v_e).to(v.dtype)
+        qg, kg = q.reshape(n, g, *q.shape[1:]), k.reshape(n, g, *k.shape[1:])
+        extra = fused(qg[:, cs], kg[:, cs], va)
+        out = out.reshape(n, g, *out.shape[1:])
+        out[:, cs + 1] += extra.to(q.dtype)
+        return out.reshape(q.shape[0], *out.shape[2:]), {}
+
+    if control.needs_probs(layer):
+        # Row split: probabilities only for each image's (base, edit) pair.
+        n, g, cs = _groups(control, q.shape[0])
+        qg, kg, vg = (t.reshape(n, g, *t.shape[1:]) for t in (q, k, v))
+        pair = lambda t: split_heads(t[:, cs:cs + 2].reshape(2 * n, *t.shape[2:]), heads)  # noqa: E731
+        probs = attention_probs(pair(qg), pair(kg))
+        probs = probs.reshape(n, 2, *probs.shape[1:])   # [n, 2, H, Q, K]
+        new_repl, store = control.edit_pair(probs[:, 0], probs[:, 1], layer)
+        out_edit = merge_heads(torch.matmul(new_repl.to(v.dtype),
+                                            split_heads(vg[:, cs + 1], heads)))
+        keep = [r for r in range(g) if r != cs + 1]
+        flat = lambda t: t[:, keep].reshape(n * (g - 1), *t.shape[2:])  # noqa: E731
+        out_rest = fused(flat(qg), flat(kg), flat(vg))
+        out = torch.empty((n, g) + out_rest.shape[1:], dtype=q.dtype, device=q.device)
+        out[:, keep] = out_rest.reshape(n, g - 1, *out_rest.shape[1:]).to(q.dtype)
+        out[:, cs + 1] = out_edit.to(q.dtype)
+        return out.reshape(n * g, *out.shape[2:]), store
+
+    return fused(q, k, v).to(q.dtype), {}
