@@ -2,7 +2,9 @@
 
 The CUDA sources under ``csrc/`` are compiled by ``nvcc`` into one shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
-headers, so a build takes seconds.  The library lands in
+headers, so a build takes seconds.  Each ``.cu`` is compiled to an object by
+its own ``nvcc``, all started together, and one more call links them.  The
+library lands in
 ``hedit_tpu_torch/_build/`` (git-ignored), named by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Triton's compile cache is pointed at the same directory.
@@ -25,7 +27,21 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# every pointer and the stream as c_void_p: ctypes would pass a bare Python
+# int as a 32-bit int and cut the pointer
+ARGTYPES = {
+    # q, k, v, out | bh, sq, sk, d, dtype | stream
+    "hedit_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_P],
+    # q, k, v, out, lse | bh, sq, sk, d, dtype | stream
+    "hedit_flash_attention_fwd_lse": [_P] * 5 + [_I] * 5 + [_P],
+    # q, k, v, dout, lse, delta, dq | bh, sq, sk, d, dtype | stream
+    "hedit_flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, dout, lse, delta, dk, dv | bh, sq, sk, d, dtype | stream
+    "hedit_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -58,22 +74,35 @@ def cuda_library() -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libhedit_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(p) for p in srcs if p.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        _compile([p for p in srcs if p.suffix == ".cu"], so)
     lib = ctypes.CDLL(str(so))
-    fn = lib.hedit_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def _compile(cus, so: Path) -> None:
+    """One ``nvcc -c`` a source, all running at once, then the link."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (p.stem + ".o") for p in cus]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", str(o)] for p, o in zip(cus, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        results = [(c, p, *p.communicate()) for c, p in zip(cmds, procs)]  # waits for every one
+        out = Path(tmp) / so.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *(str(o) for o in objs)]
+        if all(p.returncode == 0 for _, p, _, _ in results):
+            p = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, p, p.stdout, p.stderr))
+        failed = [(c, p, o, e) for c, p, o, e in results if p.returncode != 0]
+        if failed:
+            raise RuntimeError("\n".join(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}\n{e}"
+                                         for c, p, o, e in failed))
+        os.replace(out, so)  # atomic: a concurrent loader never sees half a file
 
 
 def configure_triton_cache() -> None:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hedit_tpu_torch.control import p2p_prep
 from hedit_tpu_torch.control.base import LayerTag
 
 MAX_LEN = 77
@@ -131,8 +132,6 @@ def build_p2p_control(*, num_steps: int, cross_replace_steps, self_replace_steps
                       prompts, tokenizer, is_replace: bool, eq_params: Optional[dict] = None,
                       cond_start: int = 1, blend_px: int = 256) -> P2PControl:
     """One image's control (``make_controller``, ``ptp_controller_utils.py:106-134``)."""
-    from hedit_tpu.control import p2p_prep
-
     cross_alpha = p2p_prep.get_time_words_attention_alpha(
         prompts, num_steps, cross_replace_steps, tokenizer)[:, 0, :]
     if is_replace:
@@ -195,14 +194,12 @@ class LocalBlendState:
 def init_local_blend(prompts, words, tokenizer, *, num_steps: int, heads: int,
                      res: int = 16, start_blend: float = 0.2,
                      threshold: float = 0.3) -> LocalBlendState:
-    from hedit_tpu.control.p2p_prep import get_word_inds
-
     alpha = np.zeros((len(prompts), MAX_LEN), dtype=np.float32)
     for i, (prompt, words_) in enumerate(zip(prompts, words)):
         if isinstance(words_, str):
             words_ = [words_]
         for word in words_:
-            alpha[i, get_word_inds(prompt, word, tokenizer)] = 1.0
+            alpha[i, p2p_prep.get_word_inds(prompt, word, tokenizer)] = 1.0
     return LocalBlendState(
         alpha_layers=torch.from_numpy(alpha)[None],
         store_sum=torch.zeros(1, 5, 2, heads, res * res, MAX_LEN),

@@ -45,6 +45,8 @@ class Schedule:
     @staticmethod
     def create(num_inference_steps: int, num_train_timesteps: int = 1000,
                steps_offset: int = 1) -> "Schedule":
+        """steps_offset: 1 for the DDPM modes, 0 for the DDIM modes (the JAX CLI
+        builds its pipeline so, ``hedit_tpu/cli/main_p2p.py:348-349``)."""
         betas = scaled_linear_betas(num_train_timesteps)
         alphas = (1.0 - betas).astype(np.float32)
         abar = np.cumprod(alphas, dtype=np.float32)
@@ -76,18 +78,36 @@ class Schedule:
         return ((1.0 - abar_prev) / (1.0 - abar_t)) * (1.0 - abar_t / abar_prev)
 
     def reverse_step(self, eps, t, sample, *, eta: float = 0.0,
-                     variance_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One DDPM posterior step x_t -> x_{t-1} (``inversion_utils.py:58-127``).
-        The DDIM-inversion variant arrives with the h_edit_D modes."""
+                     variance_noise: Optional[torch.Tensor] = None,
+                     is_ddim_inversion: bool = False) -> torch.Tensor:
+        """One posterior step x_t -> x_{t-1} (``inversion_utils.py:58-127``).
+
+        is_ddim_inversion=False, the DDPM form: direction
+        sqrt(1 - abar_prev - eta^2 var), noise + eta sqrt(var) z.  True:
+        direction sqrt(1 - abar_prev), noise added un-normalised (+ eta z)."""
         abar_t = self.abar(t)
         abar_prev = self.abar_prev(t)
         pred_x0 = (sample - torch.sqrt(1.0 - abar_t) * eps) / torch.sqrt(abar_t)
         var = self.variance(t)
-        direction = torch.sqrt(1.0 - abar_prev - (eta**2) * var) * eps
+        if is_ddim_inversion:
+            direction = torch.sqrt(1.0 - abar_prev) * eps
+        else:
+            direction = torch.sqrt(1.0 - abar_prev - (eta**2) * var) * eps
         mu = torch.sqrt(abar_prev) * pred_x0 + direction
         if variance_noise is None:
             return mu
+        if is_ddim_inversion:
+            return mu + eta * variance_noise
         return mu + eta * torch.sqrt(var) * variance_noise
+
+    def next_step(self, eps, t, sample) -> torch.Tensor:
+        """DDIM forward-inversion Euler step (``ddim_inversion.py:8-29``): maps x
+        at timestep t - step_ratio to x at timestep t."""
+        abar_cur = self.abar_prev(t)
+        abar_next = self.abar(t)
+        x0 = (sample - torch.sqrt(1.0 - abar_cur) * eps) / torch.sqrt(abar_cur)
+        direction = torch.sqrt(1.0 - abar_next) * eps
+        return torch.sqrt(abar_next) * x0 + direction
 
     def h_edit_coeff(self, t, tt, eta):
         """sqrt(1 - abar_tt - omega^2_{t,tt}) - sqrt(1 - abar_t) * sqrt(abar_tt) / sqrt(abar_t)

@@ -1,11 +1,18 @@
-// Flash-attention forward for Hopper (sm_90a): softmax(q k^T / sqrt(d)) v.
+// Flash-attention forward for Hopper (sm_90a): softmax(q k^T / sqrt(d)) v,
+// and the same forward with the per-query log-sum-exp as a second output.
 //
-// Replaces the TPU kernel hedit_tpu/ops/flash_attention.py:_flash_bounded_kernel
+// Replaces the TPU kernels hedit_tpu/ops/flash_attention.py:_flash_bounded_kernel
 // (wrapper flash_attention_bounded, reached through
-// hedit_tpu/ops/attention.py:fused_attention).
+// hedit_tpu/ops/attention.py:fused_attention) and, with the second output,
+// _flash_bounded_lse_kernel (wrapper _flash_bounded_fwd_lse, the forward of
+// flash_attention_diff).  One template serves both: the online softmax
+// already carries the running row max m and row sum l in base-2 units, so the
+// log-sum-exp the backward kernels need is lse2 = m + log2(l), written only
+// when the caller passes a buffer for it.
 //
 // Contract: q [BH, Sq, D], k and v [BH, Sk, D], contiguous, all of one dtype
-// (float32 or bfloat16); out [BH, Sq, D] in that dtype.  Any Sq, Sk
+// (float32 or bfloat16); out [BH, Sq, D] in that dtype; lse2 [BH, Sq] float32
+// or null.  Any Sq, Sk
 // >= 1 (ragged tails are masked here); D is one of the head dims of SD-1.5:
 // 40 and 80 (UNet self-attention) or 512 (VAE mid-block).  Each has its own
 // tile shape below, and any other D is refused.
@@ -37,30 +44,14 @@
 // tk + TK*c (c < NC) of its rows.  The TK threads that share a row are
 // consecutive lanes of one warp, so row max and row sum are warp shuffles.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math_constants.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Shared-memory row strides.  Q and K rows are read with a stride across the
-// lanes of a warp, so their stride is made odd (conflict-free); V rows are
+// lanes of a warp, so their stride is odd (odd_stride); V rows are
 // read along the row and hold DV = TK * NC columns, which launch() checks to
 // be D.
-__host__ __device__ __forceinline__ int odd_stride(int d) { return d | 1; }
-
 template <int TQ, int TK, int RQ, int RK, int NC>
 struct Tile {
   static constexpr int BQ = TQ * RQ;
@@ -79,8 +70,8 @@ struct Tile {
 template <typename T, int TQ, int TK, int RQ, int RK, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-                 int d, float qscale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, int d, float qscale) {
   using Cfg = Tile<TQ, TK, RQ, RK, NC>;
   constexpr int BQ = Cfg::BQ, BK = Cfg::BK, DV = Cfg::DV, PS = Cfg::PS;
 
@@ -201,11 +192,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) {
       og[size_t(r) * d + tk + TK * c] = from_float<T>(acc[i][c] * inv_l);
     }
+    if (lse != nullptr && tk == 0) lse[size_t(bh) * sq + q0 + r] = m_i[i] + log2f(l_i[i]);
   }
 }
 
 template <typename T, int TQ, int TK, int RQ, int RK, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
                    int bh, int sq, int sk, int d, cudaStream_t stream) {
   using Cfg = Tile<TQ, TK, RQ, RK, NC>;
   auto kernel = flash_fwd_kernel<T, TQ, TK, RQ, RK, NC>;
@@ -218,7 +210,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const float qscale = kLog2e / sqrtf(float(d));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, d, qscale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, d, qscale);
   return cudaGetLastError();
 }
 
@@ -227,31 +219,46 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // block): 16 queries x 32 keys, 4 x 1 scores and 4 x 16 outputs a thread,
 // which keeps shared memory under 170 KB.
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
                      int bh, int sq, int sk, int d, cudaStream_t s) {
   switch (d) {
-    case 40: return launch<T, 16, 8, 4, 8, 5>(q, k, v, out, bh, sq, sk, d, s);
-    case 80: return launch<T, 16, 8, 4, 8, 10>(q, k, v, out, bh, sq, sk, d, s);
-    case 512: return launch<T, 4, 32, 4, 1, 16>(q, k, v, out, bh, sq, sk, d, s);
+    case 40: return launch<T, 16, 8, 4, 8, 5>(q, k, v, out, lse, bh, sq, sk, d, s);
+    case 80: return launch<T, 16, 8, 4, 8, 10>(q, k, v, out, lse, bh, sq, sk, d, s);
+    case 512: return launch<T, 4, 32, 4, 1, 16>(q, k, v, out, lse, bh, sq, sk, d, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+int forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+            int sq, int sk, int d, int dtype, void* stream) {
+  if (bh < 1 || sq < 1 || sk < 1 || bh > 65535) return -1;
+  if (d != 40 && d != 80 && d != 512) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return int(dispatch<float>(q, k, v, out, lse, bh, sq, sk, d, s));
+    case 1: return int(dispatch<__nv_bfloat16>(q, k, v, out, lse, bh, sq, sk, d, s));
+    default: return -1;
   }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype: 0 float32, 1 bfloat16.
-// Returns 0 on success, a cudaError_t code from the launch, or -1 for
+// Plain C entry points for ctypes.  dtype: 0 float32, 1 bfloat16.
+// Each returns 0 on success, a cudaError_t code from the launch, or -1 for
 // arguments the kernel does not take.
 extern "C" int hedit_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* out, int bh,
                                          int sq, int sk, int d, int dtype,
                                          void* stream) {
-  if (bh < 1 || sq < 1 || sk < 1 || bh > 65535) return -1;
-  if (d != 40 && d != 80 && d != 512) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return int(dispatch<float>(q, k, v, out, bh, sq, sk, d, s));
-    case 1: return int(dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, sk, d, s));
-    default: return -1;
-  }
+  return forward(q, k, v, out, nullptr, bh, sq, sk, d, dtype, stream);
+}
+
+// The same forward, also writing lse2 [BH, Sq] float32 (base-2 log-sum-exp of
+// the scaled scores of each query).
+extern "C" int hedit_flash_attention_fwd_lse(const void* q, const void* k,
+                                             const void* v, void* out, void* lse,
+                                             int bh, int sq, int sk, int d,
+                                             int dtype, void* stream) {
+  if (lse == nullptr) return -1;
+  return forward(q, k, v, out, static_cast<float*>(lse), bh, sq, sk, d, dtype, stream);
 }

@@ -4,7 +4,9 @@ The port's parameter names are the diffusers / transformers ``state_dict``
 keys, which ``hedit_tpu/io_utils/weights.py`` (numpy only) maps to Flax
 trees: ``convert_unet``, ``convert_vae`` and ``convert_clip_text``.  The
 converters here are their exact inverses.  Each walks the port module's own
-keys, finds each key's Flax path with the same ``torch_key_to_flax`` rule,
+keys, finds each key's Flax path with the same ``torch_key_to_flax`` rule
+(kept here as an own copy, with the three ``*_FIXUPS`` tables; a test holds
+it to the JAX package's on every key of the three towers),
 and undoes its transposition (Dense kernel [in, out] -> weight [out, in];
 conv kernel HWIO -> OIHW).  So ``convert_unet(unet_state_dict(params,
 model))`` gives ``params`` back, and both packages compute the same thing
@@ -14,15 +16,78 @@ its keys are already the port's.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import re
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from hedit_tpu.io_utils.weights import (
-    CLIP_TEXT_FIXUPS, UNET_FIXUPS, VAE_FIXUPS, _flatten_tree, torch_key_to_flax,
-)
+# Key mapping rules (diffusers / HF torch -> the JAX package's Flax trees):
+# ``.N`` list indices -> ``_N`` module-name suffixes; Dense ``weight``
+# [out, in] -> ``kernel`` [in, out]; conv ``weight`` OIHW -> ``kernel`` HWIO;
+# norm ``weight`` (1-D) -> ``scale``; embedding ``weight`` -> ``embedding``.
+
+UNET_FIXUPS: List[Tuple[str, str]] = []  # the UNet's keys need only the general rules
+
+VAE_FIXUPS: List[Tuple[str, str]] = [
+    # encoder / decoder block flattening: down_blocks_0.resnets_0 -> down_blocks_0_resnets_0
+    (r"(down_blocks_\d+)\.(resnets_\d+)", r"\1_\2"),
+    (r"(down_blocks_\d+)\.(downsamplers_\d+)", r"\1_\2"),
+    (r"(up_blocks_\d+)\.(resnets_\d+)", r"\1_\2"),
+    (r"(up_blocks_\d+)\.(upsamplers_\d+)", r"\1_\2"),
+    # legacy diffusers VAE attention names -> to_q / to_k / to_v / to_out_0
+    (r"mid_block\.attentions_0\.query", "mid_block.attentions_0.to_q"),
+    (r"mid_block\.attentions_0\.key", "mid_block.attentions_0.to_k"),
+    (r"mid_block\.attentions_0\.value", "mid_block.attentions_0.to_v"),
+    (r"mid_block\.attentions_0\.proj_attn", "mid_block.attentions_0.to_out_0"),
+    (r"mid_block\.attentions_0\.q\.", "mid_block.attentions_0.to_q."),
+    (r"mid_block\.attentions_0\.k\.", "mid_block.attentions_0.to_k."),
+    (r"mid_block\.attentions_0\.v\.", "mid_block.attentions_0.to_v."),
+    (r"mid_block\.attentions_0\.proj_out", "mid_block.attentions_0.to_out_0"),
+]
+
+CLIP_TEXT_FIXUPS: List[Tuple[str, str]] = [
+    (r"^text_model\.", ""),
+    (r"^encoder\.", ""),
+    (r"embeddings\.token_embedding", "token_embedding"),
+    (r"embeddings\.position_embedding\.weight", "position_embedding"),
+    (r"\.mlp\.fc1", ".mlp_fc1"),
+    (r"\.mlp\.fc2", ".mlp_fc2"),
+]
+
+
+def torch_key_to_flax(key: str, arr: np.ndarray,
+                      fixups: Optional[List[Tuple[str, str]]] = None
+                      ) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """Map one flat torch key / tensor to a Flax path / tensor."""
+    k = re.sub(r"\.(\d+)", r"_\1", key)  # 'down_blocks.0.x' -> 'down_blocks_0.x'
+    for pat, rep in fixups or []:
+        k = re.sub(pat, rep, k)
+    parts = k.split(".")
+    leaf = parts[-1]
+    if leaf == "weight":
+        if "token_embedding" in k or k.endswith("embedding.weight"):
+            leaf = "embedding"
+        elif arr.ndim == 4:
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif arr.ndim == 2:
+            leaf, arr = "kernel", arr.T
+        elif arr.ndim == 1:
+            leaf = "scale"
+        else:
+            leaf = "kernel"
+    return tuple(parts[:-1] + [leaf]), np.asarray(arr)
+
+
+def _flatten_tree(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten_tree(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
 
 
 def _to_torch(path: Tuple[str, ...], arr: np.ndarray, ndim: int) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Attention dispatch with control hooks (port of ``hedit_tpu/ops/attention.py``).
 
 * fused path: ``softmax(q k^T) v`` without materialised probabilities.  A CUDA
-  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernel;
+  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernels (the
+  forward alone, or forward and backward when a gradient is being recorded);
   everything else to the plain version.  The P2P self edit (a q/k
   row-select, ``map_qkv``) and cross edit (a linear map over the token axis,
   ``linear_token_edit``) both ride this path.
@@ -22,9 +23,19 @@ from typing import Dict, Tuple
 import torch
 
 from hedit_tpu_torch.control.base import NO_CONTROL, LayerTag
-from hedit_tpu_torch.ops.flash_attention import flash_attention_cuda, reference_attention
+from hedit_tpu_torch.ops.flash_attention import (
+    flash_attention_cuda, flash_attention_diff, reference_attention,
+)
 
-# Shortest query and key length routed to the CUDA flash kernel.
+# Shortest query and key length routed to the CUDA flash kernels, with or
+# without a recorded gradient.  For the differentiated call, ``chip_smoke.py``
+# on an H100 80GB HBM3 at 700 W (bfloat16) read the backward kernels at about
+# the time of the plain version at both of the UNet's lengths (dq + dk/dv
+# 3.74 against 4.16 ms at [1, 8, 4096, 40], 0.55 against 0.47-0.61 ms at
+# [1, 8, 1024, 80]), while the plain version keeps the [8, S, S]
+# probabilities between forward and backward where the kernels keep the
+# output and one float a row: no measured reason for a second, longer
+# threshold.
 FLASH_MIN_SEQ = 1024
 
 
@@ -47,8 +58,14 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[B, H, S, D] attention routed by device and sequence length."""
-    if q.is_cuda and q.shape[2] >= FLASH_MIN_SEQ and k.shape[2] >= FLASH_MIN_SEQ:
+    """[B, H, S, D] attention routed by device and sequence length.  Under a
+    recorded gradient the kernel path is ``flash_attention_diff`` (the LSE
+    forward, dq and dk / dv kernels); the plain version's gradient is
+    PyTorch's own autograd (the cross-attentions, Sk = 77, and the short
+    self-attentions)."""
+    if q.is_cuda and min(q.shape[2], k.shape[2]) >= FLASH_MIN_SEQ:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return flash_attention_diff(q, k, v)
         return flash_attention_cuda(q, k, v)
     return reference_attention(q, k, v)
 

@@ -18,6 +18,12 @@ E[x^2] - E[x]^2 of the TPU kernel drifts enough to break the 50-step
 reconstruction identity at atol 1e-3.  With only B * 32 programs, the
 full-resolution VAE layers (C=128 at 512x512, 1M elements a group) leave most
 of the 132 SMs idle; splitting a span over several programs is the next step.
+
+The gradient.  The TPU kernel has no backward kernel (the JAX package
+differentiates its XLA form), so ``group_norm`` under a recorded gradient is a
+``torch.autograd.Function`` whose forward is the kernel and whose backward is
+plain tensor code (``group_norm_backward_reference``): it recomputes mean and
+rstd from the saved input, so the forward saves nothing but its inputs.
 """
 
 from __future__ import annotations
@@ -51,6 +57,39 @@ def group_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     if act == "silu":
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def group_norm_backward_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                                  dy: torch.Tensor, *, groups: int, eps: float = 1e-5,
+                                  act: Optional[str] = None, affine_grads: bool = True):
+    """(dx, dweight, dbias) of GroupNorm(+SiLU) by the explicit formulas, in
+    float32 from the saved input: with xhat = (x - mean) * rstd and
+    z = xhat * w + b,  dz = dy * silu'(z),  g = dz * w,
+    dx = rstd * (g - mean_group(g) - xhat * mean_group(g * xhat)),
+    dweight = sum(dz * xhat),  dbias = sum(dz)  over batch and pixels;
+    both None with ``affine_grads=False`` (frozen weights)."""
+    b, c = x.shape[:2]
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    x32 = x.float().reshape(b, groups, -1)
+    mean = x32.mean(dim=2, keepdim=True)
+    d = x32 - mean
+    rstd = torch.rsqrt((d * d).mean(dim=2, keepdim=True) + eps)
+    xhat = (d * rstd).reshape(x.shape)
+    w32 = weight.float().reshape(shape)
+    dz = dy.float()
+    if act == "silu":
+        z = xhat * w32 + bias.float().reshape(shape)
+        sig = torch.sigmoid(z)
+        dz = dz * (sig * (1.0 + z * (1.0 - sig)))
+    g = (dz * w32).reshape(b, groups, -1)
+    xh = xhat.reshape(b, groups, -1)
+    dx = rstd * (g - g.mean(dim=2, keepdim=True) - xh * (g * xh).mean(dim=2, keepdim=True))
+    dx = dx.reshape(x.shape).to(x.dtype)
+    if not affine_grads:
+        return dx, None, None
+    reduce_dims = (0,) + tuple(range(2, x.dim()))
+    return (dx, (dz * xhat).sum(dim=reduce_dims).to(weight.dtype),
+            dz.sum(dim=reduce_dims).to(bias.dtype))
 
 
 def _build_kernel():
@@ -127,13 +166,41 @@ def group_norm_triton(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def _forward(x, weight, bias, groups, eps, act):
+    fn = group_norm_triton if x.is_cuda else group_norm_reference
+    return fn(x, weight, bias, groups=groups, eps=eps, act=act)
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """Forward: the Triton kernel (CUDA) or the plain version (CPU).
+    Backward: ``group_norm_backward_reference`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, act):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (groups, eps, act)
+        return _forward(x, weight, bias, groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        groups, eps, act = ctx.args
+        need = ctx.needs_input_grad
+        dx, dw, db = group_norm_backward_reference(*ctx.saved_tensors, dy, groups=groups,
+                                                   eps=eps, act=act,
+                                                   affine_grads=need[1] or need[2])
+        return (dx if need[0] else None, dw if need[1] else None, db if need[2] else None,
+                None, None, None)
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
                groups: int, eps: float = 1e-5, act: Optional[str] = None) -> torch.Tensor:
     """GroupNorm(+SiLU) over NCHW: the Triton kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if x.is_cuda:
-        return group_norm_triton(x, weight, bias, groups=groups, eps=eps, act=act)
-    return group_norm_reference(x, weight, bias, groups=groups, eps=eps, act=act)
+    plain version for CPU tensors; with a gradient when one is being
+    recorded for x, weight or bias."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormFn.apply(x, weight, bias, groups, eps, act)
+    return _forward(x, weight, bias, groups, eps, act)
 
 
 class FusedGroupNorm(nn.Module):

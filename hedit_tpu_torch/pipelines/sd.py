@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from hedit_tpu_torch.core.schedule import Schedule
+from hedit_tpu_torch.io_utils.safetensors_io import load_safetensors
 from hedit_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from hedit_tpu_torch.models.unet_sd import UNet2DCondition, UNetConfig
 from hedit_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -74,8 +75,6 @@ def _find_ckpt(subdir: str) -> str:
 
 def load_sd_weights(weights_dir: str, unet, vae, text) -> None:
     """Load a local diffusers directory into the three towers (strict keys)."""
-    from hedit_tpu.io_utils.safetensors_io import load_safetensors
-
     for sub, model in (("unet", unet), ("vae", vae), ("text_encoder", text)):
         state = load_safetensors(_find_ckpt(os.path.join(weights_dir, sub)))
         state = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()
@@ -86,8 +85,9 @@ def load_sd_weights(weights_dir: str, unet, vae, text) -> None:
 def create_sd_pipeline(weights_dir: Optional[str] = None, *, tiny: bool = False,
                        num_inference_steps: int = 50, seed: int = 0,
                        dtype: torch.dtype = torch.float32,
-                       device="cpu") -> SDPipeline:
-    """Build the pipeline on ``device`` in ``dtype``.
+                       device="cuda") -> SDPipeline:
+    """Build the pipeline on ``device`` in ``dtype``.  The default device is
+    the card; the CPU is taken only when asked for (``device="cpu"``).
 
     weights_dir: diffusers-layout directory, or None for the seeded init.
     tiny: the small test configuration of every tower."""

@@ -54,7 +54,7 @@ def _share_cores():
 
 @pytest.fixture(scope="module")
 def pipe():
-    return create_sd_pipeline(tiny=True, num_inference_steps=S, seed=0)
+    return create_sd_pipeline(tiny=True, num_inference_steps=S, seed=0, device="cpu")
 
 
 def _image(seed):
@@ -206,7 +206,7 @@ def test_cli_tiny_writes_finite_images(tmp_path):
     assert main(argv + ["--resume"]) == 0   # every output exists: all skipped
     assert [os.path.getmtime(p) for p in pngs] == mtimes
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--mode", "ef", "--tiny", "--image", str(pngs[0])])
+        main(["--mode", "ef", "--tiny", "--device", "cpu", "--image", str(pngs[0])])
 
 
 _GUARD = r"""
@@ -220,7 +220,7 @@ from hedit_tpu_torch.edit.h_edit import HEditConfig
 from hedit_tpu_torch.edit.h_edit_p2p import h_edit_p2p_flagship
 from hedit_tpu_torch.invert.ddpm import sample_xts_from_x0
 from hedit_tpu_torch.pipelines.sd import create_sd_pipeline
-pipe = create_sd_pipeline(tiny=True, num_inference_steps=2)
+pipe = create_sd_pipeline(tiny=True, num_inference_steps=2, device="cpu")
 ids = np.random.RandomState(0).randint(0, 1000, (4, 77))
 ctx4 = pipe.encode_token_ids(ids).reshape(1, 4, 77, -1)
 x0 = pipe.vae_encode(torch.rand(1, 64, 64, 3) * 2 - 1)
@@ -230,7 +230,23 @@ out = h_edit_p2p_flagship(pipe.unet, pipe.schedule, HEditConfig(), xts=xts, ctx4
                           local_blend=neutral_blend(2, 2, 2), after_skip_steps=2)
 img = pipe.vae_decode(out)
 assert img.shape == (1, 64, 64, 3) and bool(torch.isfinite(img).all())
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules
+
+# the CLI, both ported modes, with the JAX package still blocked; it alone
+# needs regex (the tokenizer) and PIL (image files)
+del sys.modules["regex"], sys.modules["PIL"]
+import os, tempfile
+from PIL import Image
+from hedit_tpu_torch.cli.main_p2p import main
+with tempfile.TemporaryDirectory() as tmp:
+    src = os.path.join(tmp, "im.png")
+    Image.fromarray(np.random.RandomState(0).randint(0, 255, (64, 64, 3), dtype=np.uint8)).save(src)
+    common = ["--num_diffusion_steps", "2", "--image", src, "--source_prompt", "a green lizard",
+              "--target_prompt", "a brown lizard", "--tiny", "--device", "cpu"]
+    for flags in (["--mode", "h_edit_R_p2p", "--implicit"], ["--mode", "nmg_p2p", "--eta", "0"]):
+        out = os.path.join(tmp, flags[1])
+        assert main(flags + common + ["--output_path", out]) == 0
+        assert any(f.endswith(".png") for _, _, fs in os.walk(out) for f in fs), flags
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "hedit_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("GUARD_OK")
 """
@@ -239,7 +255,8 @@ print("GUARD_OK")
 def test_main_path_imports_without_jax_flax_regex_pil():
     """The machine with the card has no jax, flax or regex and maybe no PIL:
     the port's main path and chip_smoke.py must import and run without them,
-    and without the JAX package itself."""
+    and without the JAX package itself; the CLI runs both ported modes with
+    the JAX package blocked (it alone needs regex and PIL)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS=str(torch.get_num_threads()))
     proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=root, env=env,
@@ -253,7 +270,7 @@ def test_flagship_rejects_other_configurations(pipe, images):
     for flags in ([], ["--implicit", "--cfg_src", "2"],
                   ["--implicit", "--optimization_steps", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--tiny", "--image", "unused.png", *flags])
+            main(["--tiny", "--device", "cpu", "--image", "unused.png", *flags])
     with pytest.raises(ValueError):
         _port_run(pipe, images[:1], **dict(CFG, eta=0.0))
     xts, ctx4, control, blend = _port_inputs(images)

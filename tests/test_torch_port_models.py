@@ -226,7 +226,7 @@ def test_pipeline_loads_a_local_diffusers_directory(tmp_path):
     ``position_ids`` buffer is skipped)."""
     from hedit_tpu_torch.pipelines.sd import create_sd_pipeline
 
-    src = create_sd_pipeline(tiny=True, seed=3)
+    src = create_sd_pipeline(tiny=True, seed=3, device="cpu")
     for sub, name, model in (("unet", "diffusion_pytorch_model", src.unet),
                              ("vae", "diffusion_pytorch_model", src.vae),
                              ("text_encoder", "model", src.text_model)):
@@ -234,7 +234,7 @@ def test_pipeline_loads_a_local_diffusers_directory(tmp_path):
         if sub == "text_encoder":
             state["text_model.embeddings.position_ids"] = np.arange(77, dtype=np.int64)[None]
         _write_safetensors(tmp_path / sub / f"{name}.safetensors", state)
-    got = create_sd_pipeline(str(tmp_path), tiny=True, seed=4)
+    got = create_sd_pipeline(str(tmp_path), tiny=True, seed=4, device="cpu")
     for a, b in ((src.unet, got.unet), (src.vae, got.vae), (src.text_model, got.text_model)):
         for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
             assert ka == kb
