@@ -1,6 +1,6 @@
 """End-to-end smoke of the PyTorch port on one CUDA GPU (an NVIDIA H100).
 
-    python3 chip_smoke.py              # the smoke, phases 1-9
+    python3 chip_smoke.py              # the smoke, phases 1-12
     python3 chip_smoke.py --profile    # where a flagship step's time goes
 
 Phases, each printed on its own lines; any failure exits non-zero without
@@ -9,31 +9,45 @@ the final result line:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the CUDA flash-attention library from ``hedit_tpu_torch/csrc`` and
    the Triton GroupNorm kernel, timed;
-3. each of the five kernels against its plain PyTorch version at the main
+3. each of the six kernels against its plain PyTorch version at the main
    paths' shapes: max abs error against a stated tolerance; CUDA-event time
    of the kernel, of the plain version and of the one PyTorch library call
    for the same function (a yardstick only, the port never calls it); the
-   least time the card could take (``bound_ms``).  Then the GroupNorm
-   gradient;
+   least time the card could take (``bound_ms``).  For the packed-head
+   forward also the time of what it replaces on the path (three head-split
+   copies, the head-split kernel, the merge).  Then the GroupNorm gradient;
 4. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
    with a non-neutral control and an active LocalBlend -> VAE decode; checks
-   finite [2, 512, 512, 3] outputs and that its two kernels were launched;
+   finite [2, 512, 512, 3] outputs, that its kernels were launched and that
+   the head-split forward served the VAE's one-head attention only;
 5. the NMG path: the same pipeline on the DDIM grid, one seeded image, CLIP
    encode -> VAE encode -> 50-step DDIM inversion -> 50 NMG + P2P steps, each
    differentiating through the UNet, with a non-neutral control and an active
    LocalBlend -> VAE decode; checks a finite [1, 512, 512, 3] output and that
-   all five kernels were launched; prints the time split and peak memory;
-6. the golden identity in float32 (TF32 off): target = source,
-   cfg_tar == cfg_src_edit and a neutral control reproduce xts[0];
-7. the UNet gradient at full width in float32: d loss / d x of one NMG step
+   every kernel was launched; prints the time split and peak memory;
+6. the h-Edit-D path, as ``main_p2p --mode h_edit_D_p2p --eta 0 --implicit
+   --optimization_steps 2`` runs it: one image, 50-step DDIM inversion, then
+   50 steps of the general h-Edit + P2P loop (one base call and two controlled
+   4-row calls a step, residuals derived in the loop), same control and blend;
+7. the EF path, as ``main_p2p --mode ef_p2p --eta 1 --cfg_src 3.5`` runs it:
+   one image, the DDPM inversion's residual pass at 20 rows a call, then 50
+   indexed 3-row steps with cond_start = 1;
+8. the golden identity in float32 (TF32 off): target = source,
+   cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through the
+   general loop under the flagship configuration;
+9. the UNet gradient at full width in float32: d loss / d x of one NMG step
    with the kernels against the same gradient with the plain versions
    substituted here;
-8. the NMG loop in float32 under a neutral control: its edit branch equals
-   plain DDIM sampling computed here;
-9. a JSON line of the kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+10. the NMG loop in float32 under a neutral control: its edit branch equals
+    plain DDIM sampling computed here;
+11. in float32: the EF pair loop without a stored trajectory on the DDPM
+    inversion's residuals reconstructs the source latent; explicit h-Edit-D
+    with target = source, cfg_tar == cfg_src_edit and a neutral control
+    returns the source latent;
+12. a JSON line of the kernels, then the result line
+    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
 
@@ -68,11 +82,11 @@ from hedit_tpu_torch.control.p2p import (  # noqa: E402
     stack_controls,
 )
 from hedit_tpu_torch.core.schedule import Schedule  # noqa: E402
-from hedit_tpu_torch.edit.baselines import nmg_gradient, nmg_p2p  # noqa: E402
+from hedit_tpu_torch.edit.baselines import ef_or_pnp_inv_p2p, nmg_gradient, nmg_p2p  # noqa: E402
 from hedit_tpu_torch.edit.h_edit import HEditConfig  # noqa: E402
-from hedit_tpu_torch.edit.h_edit_p2p import h_edit_p2p_flagship  # noqa: E402
+from hedit_tpu_torch.edit.h_edit_p2p import h_edit_p2p, h_edit_p2p_flagship  # noqa: E402
 from hedit_tpu_torch.invert.ddim import invert_ddim  # noqa: E402
-from hedit_tpu_torch.invert.ddpm import sample_xts_from_x0  # noqa: E402
+from hedit_tpu_torch.invert.ddpm import invert_ddpm, sample_xts_from_x0  # noqa: E402
 from hedit_tpu_torch.ops import attention as attn  # noqa: E402
 from hedit_tpu_torch.ops import flash_attention as flash  # noqa: E402
 from hedit_tpu_torch.ops import groupnorm as gn  # noqa: E402
@@ -110,6 +124,12 @@ UNET_GRAD_TOL = 1e-3
 # batch-4 and a batch-2 UNet call differ in the last bits, and 50 free-running
 # CFG steps carry that along; the golden identity's bound.
 NMG_EDIT_TOL = 1e-3
+# The EF reconstruction and the h-Edit-D identity, float32, relative to the
+# largest latent: 50 reverse steps that each land on the stored trajectory by
+# its own residual; what is left is the float32 difference between the
+# inversion's UNet call (10 or 1 rows) and the loop's (4 or 1), as in the
+# golden identity.
+RECON_TOL = 1e-3
 # --profile traces edit steps 0-11: inside the self-edit window (steps 0-16),
 # with LocalBlend active from step 10
 PROFILE_STEPS = 12
@@ -152,13 +172,25 @@ def bound(flops, nbytes, dtype):
 
 def reset_launches():
     flash.launches = flash.launches_lse = flash.launches_bwd_dq = flash.launches_bwd_dkv = 0
+    flash.launches_packed = 0
     gn.launches = 0
 
 
 def read_launches():
     return {"flash_attention": flash.launches, "groupnorm": gn.launches,
             "flash_attention_lse": flash.launches_lse, "flash_bwd_dq": flash.launches_bwd_dq,
-            "flash_bwd_dkv": flash.launches_bwd_dkv}
+            "flash_bwd_dkv": flash.launches_bwd_dkv, "flash_packed": flash.launches_packed}
+
+
+def check_forward_routing(counts, path, failures):
+    """On a path without a gradient every UNet attention of kernel size reads
+    the packed projections; the head-split forward serves only the VAE's
+    one-head attention, one launch in the encoder and one in the decoder."""
+    if counts["flash_packed"] <= 0 or counts["groupnorm"] <= 0:
+        failures.append(f"a kernel was not launched on the {path} path: {counts}")
+    if counts["flash_attention"] != 2:
+        failures.append(f"the head-split forward was launched {counts['flash_attention']} times "
+                        f"on the {path} path, not by the two VAE attentions alone")
 
 
 def phase_card():
@@ -230,6 +262,48 @@ def _flash_forward_cases(g, rows, failures):
              plain_ms=cuda_ms(lambda: flash.reference_attention(q, k, v)),
              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
              bound_ms=bound_ms, bound_by=by)
+
+
+def _flash_packed_cases(g, rows, failures):
+    """Kernel 6: the forward on packed heads [B, S, H*D], against the plain
+    version in float32 on the same input values; beside it the route it
+    replaces on the path (three head-split copies, kernel 1, the merge)."""
+    cases = [(8, 4096, 4096, 320, torch.bfloat16, False),   # controlled call, 2 images
+             (4, 1024, 1024, 640, torch.bfloat16, False),
+             (2, 4096, 4096, 320, torch.float32, False),
+             (4, 1024, 1024, 640, torch.float32, False),
+             (2, 1000, 1064, 320, torch.bfloat16, False),   # ragged, Sq != Sk
+             (2, 1000, 1064, 640, torch.float32, False),
+             (4, 1024, 1024, 640, torch.bfloat16, True),    # a row slice of a larger batch
+             (4, 4096, 4096, 320, torch.float32, True)]
+    heads = 8
+    for b, sq, sk, hd, dtype, strided in cases:
+        groups = 3 if strided else 1
+        q, k, v = (torch.randn(b, groups, s, hd, generator=g, device="cuda")
+                   .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
+        got = flash.flash_attention_packed_cuda(q, k, v, heads)
+        want = flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), heads)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
+        bound_ms, by = bound(4 * b * sq * sk * hd, q.element_size() * b * hd * 2 * (sq + sk), dtype)
+        split = lambda t: t.reshape(b, -1, heads, hd // heads).transpose(1, 2)  # noqa: E731
+        _row(rows, failures, "flash_packed",
+             f"flash packed q[{b}, {sq}, {hd}] sk={sk} {str(dtype)[6:]}"
+             f"{' batch-strided' if strided else ''}",
+             err <= tol and bool(torch.isfinite(got).all()) and got.is_contiguous(),
+             max_abs_err=err, tol=tol,
+             ms=cuda_ms(lambda: flash.flash_attention_packed_cuda(q, k, v, heads)),
+             plain_ms=cuda_ms(lambda: flash.flash_attention_packed_reference(q, k, v, heads)),
+             # the library call reads the same packed tensors through strided head views
+             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k),
+                                                                       split(v))),
+             bound_ms=bound_ms, bound_by=by,
+             split_path_ms=cuda_ms(lambda: attn.merge_heads(flash.flash_attention_cuda(
+                 attn.split_heads(q, heads), attn.split_heads(k, heads),
+                 attn.split_heads(v, heads)))))
+        print(f"  the head-split route at the same shape (3 copies + kernel 1 + merge): "
+              f"{rows[-1]['split_path_ms']:.3f} ms")
 
 
 def _flash_gradient_cases(g, rows, failures):
@@ -368,6 +442,7 @@ def phase_kernels():
     g = torch.Generator(device="cuda").manual_seed(1234)
     rows, failures = [], []
     _flash_forward_cases(g, rows, failures)
+    _flash_packed_cases(g, rows, failures)
     _flash_gradient_cases(g, rows, failures)
     _groupnorm_cases(g, rows, failures)
     return rows, failures
@@ -430,6 +505,7 @@ def phase_flagship_path(pipe, images, ids, control, blend):
     cfg = HEditConfig()
 
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ctx4 = pipe.encode_token_ids(ids.reshape(-1, MAX_LEN)).reshape(N_IMAGES, 4, MAX_LEN, -1)
@@ -449,7 +525,8 @@ def phase_flagship_path(pipe, images, ids, control, blend):
     counts = read_launches()
     per_image = (t3 - t0) / N_IMAGES
     print(f"flagship path: {per_image:.3f} s/image over {N_IMAGES} images "
-          f"(encode {t1 - t0:.2f} s, {STEPS}-step loop {t2 - t1:.2f} s, decode {t3 - t2:.2f} s)")
+          f"(encode {t1 - t0:.2f} s, {STEPS}-step loop {t2 - t1:.2f} s, decode {t3 - t2:.2f} s); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, weights included")
     print(f"flagship path launches: {json.dumps(counts)}")
     finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(edited).all())
     moved = (edited - xts[:, 0]).abs().max().item()
@@ -457,8 +534,7 @@ def phase_flagship_path(pipe, images, ids, control, blend):
           f"max|edited - source latent| {moved:.3e}")
     if tuple(out.shape) != (N_IMAGES, 512, 512, 3) or not finite:
         failures.append("flagship path output is not finite [2, 512, 512, 3]")
-    if min(counts["flash_attention"], counts["groupnorm"]) <= 0:
-        failures.append(f"a kernel was not launched on the flagship path: {counts}")
+    check_forward_routing(counts, "flagship", failures)
     return counts, failures
 
 
@@ -503,6 +579,10 @@ def phase_nmg_path(pipe, images, ids):
         failures.append("NMG path output is not finite [1, 512, 512, 3]")
     if min(counts.values()) <= 0:
         failures.append(f"a kernel was not launched on the NMG path: {counts}")
+    if (counts["flash_attention_lse"], counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) != (
+            10 * STEPS,) * 3:
+        failures.append(f"the NMG path's gradient kernels were not launched once for each of "
+                        f"10 layers a step: {counts}")
 
     # where a step's time goes: its two UNet calls alone, host clock, synchronised
     t = int(pipe.schedule.timesteps[0])
@@ -517,6 +597,87 @@ def phase_nmg_path(pipe, images, ids):
           f"{parts[0]:.1f} ms (the same row forward only {parts[1]:.1f} ms), controlled call, "
           f"4 rows {parts[2]:.1f} ms")
     return counts, failures
+
+
+def _one_image_path(name, pipe, images, ids, invert, edit, invert_label):
+    """Drive one image through encode -> ``invert`` -> ``edit`` -> decode with
+    the launch counts at 0 before and read after; returns (counts, failures)."""
+    failures = []
+    control, blend = (state.to("cuda") for state in _edit_control(STEPS, 8, 0))
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx3 = pipe.encode_token_ids(ids[0, [0, 1, 3]]).reshape(1, 3, MAX_LEN, -1)  # uncond, src, tar
+    x0 = pipe.vae_encode(images[:1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    inv = invert(pipe, x0, ctx3)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    edited, recon = edit(pipe, inv, ctx3, control, blend)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out = pipe.vae_decode(edited)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{name} path: {t4 - t0:.3f} s/image over 1 image (encode {t1 - t0:.2f} s, "
+          f"{invert_label} {t2 - t1:.2f} s, {STEPS}-step loop {t3 - t2:.2f} s = "
+          f"{(t3 - t2) / STEPS * 1e3:.1f} ms a step, decode {t4 - t3:.2f} s); peak memory "
+          f"{peak:.2f} GiB, weights included")
+    print(f"{name} path launches: {json.dumps(counts)}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, edited, recon, inv.xts))
+    print(f"{name} path output {list(out.shape)} finite={finite} max|edited - source latent| "
+          f"{(edited - x0).abs().max().item():.3e} max|reconstruction - source latent| "
+          f"{(recon - x0).abs().max().item():.3e}")
+    if tuple(out.shape) != (1, 512, 512, 3) or not finite:
+        failures.append(f"{name} path output is not finite [1, 512, 512, 3]")
+    check_forward_routing(counts, name, failures)
+    return counts, failures
+
+
+def phase_hedit_d_path(pipe, images, ids):
+    """h-Edit-D + P2P, implicit with two optimisation steps, as ``main_p2p
+    --mode h_edit_D_p2p --eta 0 --implicit --optimization_steps 2`` runs it:
+    the DDIM grid, a DDIM inversion without a residual pass (the loop derives
+    them), then eta = 1 with is_ddim_inversion."""
+    pipe = dataclasses.replace(pipe, schedule=Schedule.create(STEPS, steps_offset=0))
+    cfg = HEditConfig(eta=1.0, is_ddim_inversion=True, implicit=True, optimization_steps=2)
+
+    def invert(pipe, x0, ctx3):
+        return invert_ddim(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0],
+                           src_ctx=ctx3[:, 1], cfg_scale=cfg.cfg_src, skip_zs=True)
+
+    def edit(pipe, inv, ctx3, control, blend):
+        return h_edit_p2p(pipe.unet, pipe.schedule, inv.xts[:, STEPS], None, ctx3=ctx3, cfg=cfg,
+                          after_skip_steps=STEPS, control=control, local_blend=blend,
+                          xts=inv.xts, derive_zs=True)
+
+    return _one_image_path("h-Edit-D", pipe, images, ids, invert, edit,
+                           f"{STEPS}-step DDIM inversion")
+
+
+def phase_ef_path(pipe, images, ids):
+    """EF + P2P at cfg_src 3.5, as ``main_p2p --mode ef_p2p --eta 1 --cfg_src
+    3.5`` runs it: the DDPM inversion with its residual pass (10 steps a call,
+    uncond and cond halves: 20 rows), then the indexed 3-row steps."""
+    cfg_src = 3.5
+
+    def invert(pipe, x0, ctx3):
+        return invert_ddpm(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0],
+                           src_ctx=ctx3[:, 1], cfg_scale_src=cfg_src, eta=1.0,
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           step_chunk=10)
+
+    def edit(pipe, inv, ctx3, control, blend):
+        return ef_or_pnp_inv_p2p(pipe.unet, pipe.schedule, inv.xts[:, STEPS], inv.zs, ctx3=ctx3,
+                                 cfg_src=cfg_src, cfg_tar=7.5, eta=1.0, after_skip_steps=STEPS,
+                                 control=control, local_blend=blend, xts=inv.xts)
+
+    return _one_image_path("EF", pipe, images, ids, invert, edit,
+                           "DDPM inversion, 5 calls of 20 rows,")
 
 
 def phase_golden(pipe):
@@ -547,6 +708,7 @@ def plain_versions():
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (attn, "flash_attention_cuda", flash.reference_attention),
+                (attn, "flash_attention_packed_cuda", flash.flash_attention_packed_reference),
                 (flash, "flash_attention_lse_cuda", flash.flash_attention_lse_reference),
                 (flash, "flash_attention_backward_cuda", flash.flash_attention_backward_reference),
                 (gn, "group_norm_triton", gn.group_norm_reference)):
@@ -615,6 +777,58 @@ def phase_nmg_identity(pipe):
           f"DDIM sampling| / max|x| {err:.3e} (tol {NMG_EDIT_TOL:g}; max|x| {scale:.3e}) "
           f"{'OK' if ok else 'FAIL'}")
     return [] if ok else [f"NMG identity error {err:.3e}"]
+
+
+def phase_reconstructions(pipe):
+    """Two float32 identities of the loops this script's bf16 paths cannot
+    show.  (a) The EF pair loop WITHOUT a stored trajectory (4 rows an image,
+    cond_start = 2) on the DDPM inversion's stored residuals: its source
+    branch re-walks the q-sampled trajectory and ends on the source latent.
+    (b) Explicit h-Edit-D + P2P with target = source, cfg_tar == cfg_src_edit
+    and a neutral control: the correction vanishes and the edit, stepped with
+    the DDIM inversion's un-normalised residuals, returns the source latent."""
+    failures = []
+    g = torch.Generator(device="cuda").manual_seed(19)
+    x0 = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
+    ids = torch.from_numpy(_token_ids(np.random.RandomState(19), 1))
+    ctx3 = pipe.encode_token_ids(ids[0, [0, 1, 3]]).reshape(1, 3, MAX_LEN, -1)
+    neutral = dict(control=neutral_control(STEPS, 256, cond_start=2).to("cuda"),
+                   local_blend=neutral_blend(STEPS, 8, 16).to("cuda"))
+
+    t0 = time.perf_counter()
+    inv = invert_ddpm(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0], src_ctx=ctx3[:, 1],
+                      cfg_scale_src=1.0, eta=1.0, generator=g, step_chunk=10)
+    _, recon = ef_or_pnp_inv_p2p(pipe.unet, pipe.schedule, inv.xT, inv.zs, ctx3=ctx3, cfg_src=1.0,
+                                 cfg_tar=7.5, eta=1.0, after_skip_steps=STEPS, **neutral)
+    torch.cuda.synchronize()
+    scale = inv.xts.abs().max().item()
+    err = (recon - x0).abs().max().item() / scale
+    ok = err <= RECON_TOL and bool(torch.isfinite(recon).all())
+    print(f"EF reconstruction (f32, TF32 off, {STEPS} steps, {time.perf_counter() - t0:.1f} s): "
+          f"max|x_orig - x0| / max|xts| {err:.3e} (tol {RECON_TOL:g}; max|xts| {scale:.3e}) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"EF reconstruction error {err:.3e}")
+
+    t0 = time.perf_counter()
+    schedule = Schedule.create(STEPS, steps_offset=0)
+    same = ctx3[:, [0, 1, 1]]                       # target = source
+    inv = invert_ddim(pipe.unet, schedule, x0, uncond_ctx=same[:, 0], src_ctx=same[:, 1],
+                      cfg_scale=1.0, step_chunk=10)
+    cfg = HEditConfig(cfg_src_edit=5.0, cfg_tar=5.0, eta=1.0, is_ddim_inversion=True,
+                      implicit=False)
+    edited, _ = h_edit_p2p(pipe.unet, schedule, inv.xT, inv.zs, ctx3=same, cfg=cfg,
+                           after_skip_steps=STEPS, xts=inv.xts, **neutral)
+    torch.cuda.synchronize()
+    scale = inv.xts.abs().max().item()
+    err = (edited - x0).abs().max().item() / scale
+    ok = err <= RECON_TOL and bool(torch.isfinite(edited).all())
+    print(f"h-Edit-D identity (f32, TF32 off, explicit, {STEPS} + {STEPS} steps, "
+          f"{time.perf_counter() - t0:.1f} s): max|edited - x0| / max|xts| {err:.3e} "
+          f"(tol {RECON_TOL:g}; max|xts| {scale:.3e}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"h-Edit-D identity error {err:.3e}")
+    return failures
 
 
 # Device-time classes of a flagship step, by kernel name (first match wins).
@@ -727,6 +941,10 @@ def main(argv=None) -> int:
     failures += bad
     nmg_counts, bad = phase_nmg_path(*inputs[:3])
     failures += bad
+    hedit_d_counts, bad = phase_hedit_d_path(*inputs[:3])
+    failures += bad
+    ef_counts, bad = phase_ef_path(*inputs[:3])
+    failures += bad
     del inputs
     torch.cuda.empty_cache()
     pipe = create_sd_pipeline(tiny=False, num_inference_steps=STEPS, seed=0,
@@ -734,6 +952,7 @@ def main(argv=None) -> int:
     failures += phase_golden(pipe)
     failures += phase_unet_gradient(pipe)
     failures += phase_nmg_identity(pipe)
+    failures += phase_reconstructions(pipe)
 
     def entry(name, route, source, replaces, path_counts):
         """The kernel's first comparison (a shape of its main path) and its
@@ -741,10 +960,11 @@ def main(argv=None) -> int:
         mine = [r for r in rows if r["name"] == name]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": path_counts[name],
-                "launches_by_path": {"flagship": flagship_counts[name], "nmg": nmg_counts[name]},
+                "launches_by_path": {"flagship": flagship_counts[name], "nmg": nmg_counts[name],
+                                     "h_edit_d": hedit_d_counts[name], "ef": ef_counts[name]},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
-                **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms", "plain_covers") if k in mine[0]}}
+                **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                           "plain_covers", "split_path_ms") if k in mine[0]}}
 
     fwd_cu, bwd_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                       "hedit_tpu_torch/csrc/flash_attention_bwd.cu")
@@ -755,7 +975,8 @@ def main(argv=None) -> int:
               "hedit_tpu/ops/groupnorm.py:100", flagship_counts),
         entry("flash_attention_lse", "cuda", fwd_cu, f"{jax_flash}:464", nmg_counts),
         entry("flash_bwd_dq", "cuda", bwd_cu, f"{jax_flash}:553", nmg_counts),
-        entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", nmg_counts)]}))
+        entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", nmg_counts),
+        entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", flagship_counts)]}))
     if failures:
         print("FAILED: " + "; ".join(failures))
         return 1

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every pointer and the stream as c_void_p: ctypes would pass a bare Python
 # int as a 32-bit int and cut the pointer
 ARGTYPES = {
@@ -37,6 +37,8 @@ ARGTYPES = {
     "hedit_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # q, k, v, out, lse | bh, sq, sk, d, dtype | stream
     "hedit_flash_attention_fwd_lse": [_P] * 5 + [_I] * 5 + [_P],
+    # q, k, v, out | b, h, sq, sk, d | batch strides of q, k, v | dtype | stream
+    "hedit_flash_attention_fwd_packed": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_I, _P],
     # q, k, v, dout, lse, delta, dq | bh, sq, sk, d, dtype | stream
     "hedit_flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dk, dv | bh, sq, sk, d, dtype | stream

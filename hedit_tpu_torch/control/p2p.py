@@ -40,6 +40,7 @@ class P2PControl:
     use_reweight: bool = False
     self_replace_until: int = 0    # int(sa * num_steps)
     cond_start: int = 1            # row of the cond base within an image's group
+    save_attn: bool = True         # False: apply the edits, store nothing
     blend_px: int = 256            # nominal (sample / 4)^2 store filter
 
     @property
@@ -89,7 +90,7 @@ class P2PControl:
         return A, b
 
     def _is_store_layer(self, layer: LayerTag) -> bool:
-        return (layer.is_cross and layer.num_pixels == self.blend_px
+        return (self.save_attn and layer.is_cross and layer.num_pixels == self.blend_px
                 and layer.place in ("down", "up"))
 
     def edit_pair(self, base: torch.Tensor, repl: torch.Tensor, layer: LayerTag):

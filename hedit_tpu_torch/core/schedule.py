@@ -109,14 +109,17 @@ class Schedule:
         direction = torch.sqrt(1.0 - abar_next) * eps
         return torch.sqrt(abar_next) * x0 + direction
 
-    def h_edit_coeff(self, t, tt, eta):
+    def h_edit_coeff(self, t, tt, eta, *, is_ddim_inversion: bool = False):
         """sqrt(1 - abar_tt - omega^2_{t,tt}) - sqrt(1 - abar_t) * sqrt(abar_tt) / sqrt(abar_t)
-        (``inversion_utils.py:168-195``, ``p2p_h_edit.py:141-142``)."""
+        (``inversion_utils.py:168-195``, ``p2p_h_edit.py:141-142``); omega is
+        zero after a DDIM inversion."""
         abar_t = self.alphas_cumprod[t]
         abar_tt = self.alphas_cumprod[tt]
         sigma_t = torch.sqrt(1.0 - abar_t)
         sigma_tt = torch.sqrt(1.0 - abar_tt)
         omega = eta * (sigma_tt / (sigma_t * torch.sqrt(abar_tt))) * torch.sqrt(abar_tt - abar_t)
+        if is_ddim_inversion:
+            omega = torch.zeros_like(omega)
         full = torch.sqrt(1.0 - abar_tt - omega**2)
         ratio_alpha = torch.sqrt(abar_tt) / torch.sqrt(abar_t)  # JAX's association
         return full - sigma_t * ratio_alpha

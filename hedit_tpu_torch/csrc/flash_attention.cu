@@ -10,9 +10,27 @@
 // log-sum-exp the backward kernels need is lse2 = m + log2(l), written only
 // when the caller passes a buffer for it.
 //
-// Contract: q [BH, Sq, D], k and v [BH, Sk, D], contiguous, all of one dtype
-// (float32 or bfloat16); out [BH, Sq, D] in that dtype; lse2 [BH, Sq] float32
-// or null.  Any Sq, Sk
+// It also replaces _flash_packed_kernel (wrapper flash_attention_packed) of
+// the same file: the forward on the packed projections q [B, Sq, H*D], k and
+// v [B, Sk, H*D] -> out [B, Sq, H*D], head h in columns h*D .. (h+1)*D.  The
+// TPU program owned one batch row, looped over the heads in Python and kept
+// K/V of all heads resident in VMEM; here a block still owns 64 queries of
+// one (batch row, head), and the only change is in addressing: the template
+// takes the element strides (batch, head, row) of q, k, v and out, so the
+// head-split layout (head stride 0 with BH as the batch, row stride D) and the
+// packed one (head stride D, row stride H*D) are the same code, and no
+// [B, H, S, D] copy exists before or after the packed call.  A head's row is
+// D elements (80 bytes at D = 40 in bf16), neither a multiple of a 128-byte
+// line nor 16-byte aligned for every head, so the loaders stay element-wise:
+// no vector load wider than the alignment proves.  The kernel is bound by
+// arithmetic (below), and the extra sectors of the unaligned rows do not
+// show: both layouts take the same time at the same shape.
+//
+// Contract, head-split entry points: q [BH, Sq, D], k and v [BH, Sk, D],
+// contiguous, all of one dtype (float32 or bfloat16); out [BH, Sq, D] in that
+// dtype; lse2 [BH, Sq] float32 or null.  Packed entry point: each [S, H*D]
+// image dense, the images of q, k and v a batch stride apart (so a row slice
+// of a larger batch needs no copy); out dense.  Any Sq, Sk
 // >= 1 (ragged tails are masked here); D is one of the head dims of SD-1.5:
 // 40 and 80 (UNet self-attention) or 512 (VAE mid-block).  Each has its own
 // tile shape below, and any other D is refused.
@@ -44,9 +62,26 @@
 // tk + TK*c (c < NC) of its rows.  The TK threads that share a row are
 // consecutive lanes of one warp, so row max and row sum are warp shuffles.
 
+#include <climits>
+
 #include "flash_common.cuh"
 
 namespace {
+
+// Element strides of one operand seen as [batch, head, row, D]; D is dense.
+// One (batch, head) image spans fewer than 2^31 elements (the entry points
+// refuse more), so offsets inside it are 32-bit.
+struct Strides {
+  long long batch, head;
+  int row;
+};
+
+// The grid's second axis (bh = batch rows * heads, head fastest) and the
+// strides of the four operands.
+struct Layout {
+  int bh, heads;
+  Strides q, k, v, out;
+};
 
 // Shared-memory row strides.  Q and K rows are read with a stride across the
 // lanes of a warp, so their stride is odd (odd_stride); V rows are
@@ -71,11 +106,16 @@ template <typename T, int TQ, int TK, int RQ, int RK, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int sq, int sk, int d, float qscale) {
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
+                 int heads, int sq, int sk, int d, float qscale) {
   using Cfg = Tile<TQ, TK, RQ, RK, NC>;
   constexpr int BQ = Cfg::BQ, BK = Cfg::BK, DV = Cfg::DV, PS = Cfg::PS;
 
   extern __shared__ float smem[];
+  // launch() checks d == DV.  The loaders divide by the compile-time D: with
+  // the run-time d their index math (a division an element) cost the whole
+  // kernel a fifth of its time once the strides came in.
+  constexpr int D = DV;
   const int dp = odd_stride(d);
   float* q_s = smem;              // [BQ][dp], pre-scaled
   float* k_s = q_s + BQ * dp;     // [BK][dp]
@@ -88,13 +128,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
 
-  const T* qg = q + (size_t(bh) * sq + q0) * d;
-  const T* kg = k + size_t(bh) * sk * d;
-  const T* vg = v + size_t(bh) * sk * d;
+  const int b = bh / heads, h = bh - b * heads;
 
-  for (int e = tid; e < BQ * d; e += kThreads) {
-    const int r = e / d, c = e - r * d;
-    q_s[r * dp + c] = (q0 + r < sq) ? to_float(qg[e]) * qscale : 0.f;
+  const T* qg = q + b * qs.batch + h * qs.head + (long long)q0 * qs.row;
+  const T* kg = k + b * ks.batch + h * ks.head;
+  const T* vg = v + b * vs.batch + h * vs.head;
+
+  for (int e = tid; e < BQ * D; e += kThreads) {
+    const int r = e / D, c = e - r * D;
+    q_s[r * dp + c] = (q0 + r < sq) ? to_float(qg[r * qs.row + c]) * qscale : 0.f;
   }
 
   float acc[RQ][NC];
@@ -109,12 +151,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < sk; k0 += BK) {
     __syncthreads();  // previous tile's k_s / v_s / p_s reads are done
-    for (int e = tid; e < BK * d; e += kThreads) {
-      const int r = e / d, c = e - r * d;
+    for (int e = tid; e < BK * D; e += kThreads) {
+      const int r = e / D, c = e - r * D;
       const bool ok = k0 + r < sk;
-      const size_t g = size_t(k0) * d + e;
-      k_s[r * dp + c] = ok ? to_float(kg[g]) : 0.f;
-      v_s[r * DV + c] = ok ? to_float(vg[g]) : 0.f;
+      k_s[r * dp + c] = ok ? to_float(kg[(k0 + r) * ks.row + c]) : 0.f;
+      v_s[r * DV + c] = ok ? to_float(vg[(k0 + r) * vs.row + c]) : 0.f;
     }
     __syncthreads();
 
@@ -182,7 +223,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* og = out + (size_t(bh) * sq + q0) * d;
+  T* og = out + b * os.batch + h * os.head + (long long)q0 * os.row;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = tq * RQ + i;
@@ -190,7 +231,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv_l = 1.f / l_i[i];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      og[size_t(r) * d + tk + TK * c] = from_float<T>(acc[i][c] * inv_l);
+      og[r * os.row + tk + TK * c] = from_float<T>(acc[i][c] * inv_l);
     }
     if (lse != nullptr && tk == 0) lse[size_t(bh) * sq + q0 + r] = m_i[i] + log2f(l_i[i]);
   }
@@ -198,7 +239,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int TQ, int TK, int RQ, int RK, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   int bh, int sq, int sk, int d, cudaStream_t stream) {
+                   const Layout& lay, int sq, int sk, int d, cudaStream_t stream) {
   using Cfg = Tile<TQ, TK, RQ, RK, NC>;
   auto kernel = flash_fwd_kernel<T, TQ, TK, RQ, RK, NC>;
   if (d != Cfg::DV) return cudaErrorInvalidValue;
@@ -206,11 +247,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + Cfg::BQ - 1) / Cfg::BQ, bh);
+  const dim3 grid((sq + Cfg::BQ - 1) / Cfg::BQ, lay.bh);
   const float qscale = kLog2e / sqrtf(float(d));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, d, qscale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, lay.q, lay.k, lay.v, lay.out,
+      lay.heads, sq, sk, d, qscale);
   return cudaGetLastError();
 }
 
@@ -220,25 +262,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 // which keeps shared memory under 170 KB.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
-                     int bh, int sq, int sk, int d, cudaStream_t s) {
+                     const Layout& lay, int sq, int sk, int d, cudaStream_t s) {
   switch (d) {
-    case 40: return launch<T, 16, 8, 4, 8, 5>(q, k, v, out, lse, bh, sq, sk, d, s);
-    case 80: return launch<T, 16, 8, 4, 8, 10>(q, k, v, out, lse, bh, sq, sk, d, s);
-    case 512: return launch<T, 4, 32, 4, 1, 16>(q, k, v, out, lse, bh, sq, sk, d, s);
+    case 40: return launch<T, 16, 8, 4, 8, 5>(q, k, v, out, lse, lay, sq, sk, d, s);
+    case 80: return launch<T, 16, 8, 4, 8, 10>(q, k, v, out, lse, lay, sq, sk, d, s);
+    case 512: return launch<T, 4, 32, 4, 1, 16>(q, k, v, out, lse, lay, sq, sk, d, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-int forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-            int sq, int sk, int d, int dtype, void* stream) {
-  if (bh < 1 || sq < 1 || sk < 1 || bh > 65535) return -1;
+int forward(const void* q, const void* k, const void* v, void* out, float* lse,
+            const Layout& lay, int sq, int sk, int d, int dtype, void* stream) {
+  if (lay.bh < 1 || sq < 1 || sk < 1 || lay.bh > 65535) return -1;
   if (d != 40 && d != 80 && d != 512) return -1;
+  const long long longest = sq > sk ? sq : sk;
+  if (longest * lay.q.row > INT_MAX || longest * lay.k.row > INT_MAX) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(dispatch<float>(q, k, v, out, lse, bh, sq, sk, d, s));
-    case 1: return int(dispatch<__nv_bfloat16>(q, k, v, out, lse, bh, sq, sk, d, s));
+    case 0: return int(dispatch<float>(q, k, v, out, lse, lay, sq, sk, d, s));
+    case 1: return int(dispatch<__nv_bfloat16>(q, k, v, out, lse, lay, sq, sk, d, s));
     default: return -1;
   }
+}
+
+// [BH, S, D] contiguous: BH plays the batch, one head a batch row.
+Layout head_split(int bh, int sq, int sk, int d) {
+  const Strides qo{(long long)sq * d, 0, d}, kv{(long long)sk * d, 0, d};
+  return Layout{bh, 1, qo, kv, kv, qo};
 }
 
 }  // namespace
@@ -250,7 +300,7 @@ extern "C" int hedit_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* out, int bh,
                                          int sq, int sk, int d, int dtype,
                                          void* stream) {
-  return forward(q, k, v, out, nullptr, bh, sq, sk, d, dtype, stream);
+  return forward(q, k, v, out, nullptr, head_split(bh, sq, sk, d), sq, sk, d, dtype, stream);
 }
 
 // The same forward, also writing lse2 [BH, Sq] float32 (base-2 log-sum-exp of
@@ -260,5 +310,28 @@ extern "C" int hedit_flash_attention_fwd_lse(const void* q, const void* k,
                                              int bh, int sq, int sk, int d,
                                              int dtype, void* stream) {
   if (lse == nullptr) return -1;
-  return forward(q, k, v, out, static_cast<float*>(lse), bh, sq, sk, d, dtype, stream);
+  return forward(q, k, v, out, static_cast<float*>(lse), head_split(bh, sq, sk, d), sq, sk, d,
+                 dtype, stream);
+}
+
+// The forward on packed heads: q [B, Sq, H*D], k and v [B, Sk, H*D], each
+// [S, H*D] image dense and the images q_bs, k_bs, v_bs elements apart (0: one
+// image read by every batch row); out [B, Sq, H*D] contiguous.  Head h of a
+// row is its columns h*D .. (h+1)*D, on both sides.
+extern "C" int hedit_flash_attention_fwd_packed(const void* q, const void* k,
+                                                const void* v, void* out, int b,
+                                                int h, int sq, int sk, int d,
+                                                long long q_bs, long long k_bs,
+                                                long long v_bs, int dtype,
+                                                void* stream) {
+  if (b < 1 || h < 1 || sq < 1 || sk < 1 || (long long)b * h > 65535) return -1;
+  if ((long long)h * d > INT_MAX) return -1;
+  const int row = h * d;
+  const long long q_img = (long long)sq * row, kv_img = (long long)sk * row;
+  // images that overlap, or lie before the pointer, are not a batch
+  if ((q_bs != 0 && q_bs < q_img) || (k_bs != 0 && k_bs < kv_img) ||
+      (v_bs != 0 && v_bs < kv_img))
+    return -1;
+  const Layout lay{b * h, h, {q_bs, d, row}, {k_bs, d, row}, {v_bs, d, row}, {q_img, d, row}};
+  return forward(q, k, v, out, nullptr, lay, sq, sk, d, dtype, stream);
 }

@@ -1,7 +1,16 @@
-"""Noise Map Guidance + P2P, batched over images
-(port of ``hedit_tpu/edit/baselines.py:nmg_p2p``).
+"""Baseline editing methods with P2P, batched over images: EF / PnP-Inv pair
+sampling and Noise Map Guidance (port of ``hedit_tpu/edit/baselines.py``).
 
-Parity: the reference's ``inversion/p2p_baselines.py:195-293``.  eta = 0
+``ef_or_pnp_inv_p2p``: the reference's ``inversion/p2p_baselines.py:102-188``.
+Per step one controlled call of 4 rows an image, [x_orig, x_edit, x_orig,
+x_edit] under [uncond, uncond, src, tar] with cond_start = 2: both uncond
+rows are consumed (a CFG combination for each branch).  The source branch
+steps with eta; the edited branch with eta = 0 for PnP-Inv
+(``is_ddim_inversion``) and with eta otherwise (:176-181).  With a stored
+trajectory ``xts`` the source branch is indexed and the call drops to 3 rows,
+[x_edit, x_orig, x_edit] under [uncond, src, tar] with cond_start = 1.
+
+``nmg_p2p``: the reference's ``inversion/p2p_baselines.py:195-293``.  eta = 0
 throughout.  Per step, for B images:
 
 1. the NMG gradient step on the reconstruction branch: the L1 distance
@@ -19,13 +28,13 @@ throughout.  Per step, for B images:
    scale on both rows (the reference's quirk, kept); eta = 0 steps of both
    branches; LocalBlend on the pair.
 
-``ef_or_pnp_inv_p2p`` of the same JAX module is still to be ported.
+The EF baseline without control is ``edit/h_edit.py:ef_sample``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +42,100 @@ from hedit_tpu_torch.control.p2p import (
     LocalBlendState, P2PControl, accumulate_store, apply_local_blend,
 )
 from hedit_tpu_torch.core.schedule import Schedule
+from hedit_tpu_torch.edit.h_edit import _check_batch, cfg_pair, make_step_grid, traj_inputs
+from hedit_tpu_torch.edit.h_edit_p2p import rows
+
+
+def _with_step(control, i: int, **kw):
+    """dataclasses.replace(control, step=i, **kw) keeping only the fields the
+    control has, so the pair baselines drive any control through one path."""
+    fields = {f.name for f in dataclasses.fields(control)}
+    return dataclasses.replace(
+        control, **{k: v for k, v in dict(step=i, **kw).items() if k in fields})
+
+
+@torch.no_grad()
+def ef_or_pnp_inv_p2p(unet, schedule: Schedule, xT: torch.Tensor, zs: Optional[torch.Tensor], *,
+                      ctx3: torch.Tensor, cfg_src: float, cfg_tar: float, eta: float = 1.0,
+                      is_ddim_inversion: bool = False, after_skip_steps: int, control,
+                      local_blend: Optional[LocalBlendState] = None,
+                      xts: Optional[torch.Tensor] = None, derive_zs: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EF + P2P, or PnP-Inv + P2P with ``is_ddim_inversion``, for B images.
+
+    xT [B, H, W, C] (NHWC); zs [B, S, H, W, C] or None with ``derive_zs``; ctx3
+    [B, 3, 77, D] rows [uncond, src, tar]; control / local_blend: per-image
+    state with B images (no blend when None).
+
+    xts: optional stored inversion trajectories [B, N+1, H, W, C] with
+    xts[:, N] == xT.  The source branch is then indexed (the reconstruction
+    identity of ``h_edit_p2p``) and the call drops from 4 to 3 rows an image:
+    the controller-base row stays (P2P reads its attention, LocalBlend stores
+    its maps), the two rows that only fed the source branch's CFG step go.
+    Exact for P2P only: a control that consumes the uncond source row must not
+    be given xts.
+
+    derive_zs (needs xts): the controller-base row's output is
+    eps(xts[t], t, src), which P2P leaves untouched: this step's inversion
+    evaluation.  The residual z is rebuilt from it and the inversion's residual
+    pass is not needed (zs=None).  The inversion took its residuals from CFG
+    source noise and this row is pure cond(src), so the two agree only at
+    cfg_src == 1; after a DDIM inversion the edit branch is an eta = 0 step
+    that reads no z."""
+    N = after_skip_steps
+    B = _check_batch(xT, zs, ctx3, N)
+    traj = traj_inputs(xts, N)
+    if traj is not None and not hasattr(control, "edit_pair"):
+        raise ValueError("indexed-source fast path (xts) is only exact for P2P: this "
+                         "control may consume the uncond source row")
+    if derive_zs and not (traj is not None and (is_ddim_inversion
+                                                or (eta > 0 and cfg_src == 1.0))):
+        raise ValueError("derive_zs needs xts and, for DDPM, eta > 0 and cfg_src == 1.0")
+    if zs is None and not derive_zs:
+        raise ValueError("no residuals: give zs or derive them in the loop (derive_zs)")
+    if control.num_images != B or (local_blend is not None
+                                   and local_blend.store_sum.shape[0] != B):
+        raise ValueError(f"control / local_blend must hold {B} images")
+    grid = make_step_grid(schedule, zs, N)
+    unc, src, tar = ctx3[:, 0], ctx3[:, 1], ctx3[:, 2]
+    ctx = rows(unc, src, tar) if traj is not None else rows(unc, unc, src, tar)
+    lb = local_blend
+    x_orig = x_edit = xT.float()
+    for i, t in enumerate(grid.ts):
+        z = None if grid.zs is None else grid.zs[:, i]
+        store: Dict[str, torch.Tensor] = {}
+        if traj is not None:
+            x_orig, x_prev_orig = traj[0][:, i], traj[1][:, i]
+            ctrl = _with_step(control, i, save_attn=True, cond_start=1)
+            eps3 = unet(rows(x_edit, x_orig, x_edit), t, ctx, ctrl, store).float()
+            eps3 = eps3.reshape(B, 3, *eps3.shape[1:])
+            eps_tar = cfg_pair(eps3[:, 0], eps3[:, 2], cfg_tar)
+            if derive_zs and eta > 0:
+                # both denominators scale with eta; at eta == 0 the edit step
+                # below reads no z, so nothing is divided
+                mu = schedule.reverse_step(eps3[:, 1], t, x_orig, eta=eta,
+                                           is_ddim_inversion=is_ddim_inversion)
+                denom = eta if is_ddim_inversion else eta * torch.sqrt(schedule.variance(t))
+                z = (x_prev_orig - mu) / denom
+        else:
+            ctrl = _with_step(control, i, save_attn=True, cond_start=2)
+            eps4 = unet(rows(x_orig, x_edit, x_orig, x_edit), t, ctx, ctrl, store).float()
+            eps4 = eps4.reshape(B, 4, *eps4.shape[1:])
+            eps_src = cfg_pair(eps4[:, 0], eps4[:, 2], cfg_src)
+            eps_tar = cfg_pair(eps4[:, 1], eps4[:, 3], cfg_tar)
+            x_prev_orig = schedule.reverse_step(eps_src, t, x_orig, eta=eta, variance_noise=z,
+                                                is_ddim_inversion=is_ddim_inversion)
+        if is_ddim_inversion:
+            # PnP-Inv's edited branch: a pure DDIM step, eta = 0 (:176-178)
+            x_prev_edit = schedule.reverse_step(eps_tar, t, x_edit, eta=0.0)
+        else:
+            x_prev_edit = schedule.reverse_step(eps_tar, t, x_edit, eta=eta, variance_noise=z)
+        x_orig, x_edit = x_prev_orig, x_prev_edit
+        if lb is not None:
+            lb = accumulate_store(lb, store)
+            pair = apply_local_blend(lb, torch.stack([x_orig, x_edit], dim=1), i)
+            x_orig, x_edit = pair[:, 0], pair[:, 1]
+    return x_edit, x_orig
 
 
 def nmg_gradient(unet, schedule: Schedule, x: torch.Tensor, t: int, uncond_ctx: torch.Tensor,

@@ -8,24 +8,16 @@ algebraically the identity, so the steps are independent and run
 ``step_chunk`` rows a UNet call.
 
 The residuals are consumed downstream with eta = 1 and
-``is_ddim_inversion=True``.  NMG reads only the trajectory: its caller passes
-``skip_zs=True`` and phase 2 does not run.
+``is_ddim_inversion=True``.  A caller that reads only the trajectory (NMG, a
+loop that derives its residuals itself) passes ``skip_zs=True`` and phase 2
+does not run.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
-
 import torch
 
-
-class InversionResult(NamedTuple):
-    """What an inversion returns (``hedit_tpu/invert/ddpm.py:InversionResult``),
-    with a leading image axis B."""
-
-    xT: torch.Tensor                # [B, H, W, C]: xts[:, S]
-    zs: Optional[torch.Tensor]      # [B, S, H, W, C] residuals, zs[:, S-1] the first step's
-    xts: torch.Tensor               # [B, S+1, H, W, C], xts[:, 0] = x0
+from hedit_tpu_torch.invert.ddpm import InversionResult
 
 
 @torch.no_grad()

@@ -1,9 +1,12 @@
 """Attention dispatch with control hooks (port of ``hedit_tpu/ops/attention.py``).
 
 * fused path: ``softmax(q k^T) v`` without materialised probabilities.  A CUDA
-  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernels (the
-  forward alone, or forward and backward when a gradient is being recorded);
-  everything else to the plain version.  The P2P self edit (a q/k
+  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernels:
+  with several heads and no recorded gradient to the packed forward, which
+  reads the ``[B, S, H*D]`` projections as they are (no head-split copies);
+  with one head (the VAE, whose head split is a view) to the head-split
+  forward; under a recorded gradient to the head-split forward and backward.
+  Everything else goes to the plain version.  The P2P self edit (a q/k
   row-select, ``map_qkv``) and cross edit (a linear map over the token axis,
   ``linear_token_edit``) both ride this path.
 * probability path: only at the P2P store layers, and only for the
@@ -24,7 +27,8 @@ import torch
 
 from hedit_tpu_torch.control.base import NO_CONTROL, LayerTag
 from hedit_tpu_torch.ops.flash_attention import (
-    flash_attention_cuda, flash_attention_diff, reference_attention,
+    flash_attention_cuda, flash_attention_diff, flash_attention_packed_cuda,
+    reference_attention,
 )
 
 # Shortest query and key length routed to the CUDA flash kernels, with or
@@ -57,6 +61,10 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.softmax(s, dim=-1)
 
 
+def _records_gradient(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[B, H, S, D] attention routed by device and sequence length.  Under a
     recorded gradient the kernel path is ``flash_attention_diff`` (the LSE
@@ -64,10 +72,23 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     PyTorch's own autograd (the cross-attentions, Sk = 77, and the short
     self-attentions)."""
     if q.is_cuda and min(q.shape[2], k.shape[2]) >= FLASH_MIN_SEQ:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if _records_gradient(q, k, v):
             return flash_attention_diff(q, k, v)
         return flash_attention_cuda(q, k, v)
     return reference_attention(q, k, v)
+
+
+def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           heads: int) -> torch.Tensor:
+    """[B, S, H*D] attention -> [B, Sq, H*D].  A CUDA tensor of several heads
+    and kernel-sized sequences without a recorded gradient goes to the packed
+    kernel as it is; everything else is split into heads (a view for one
+    head) and routed by ``fused_attention``."""
+    if (q.is_cuda and heads > 1 and min(q.shape[1], k.shape[1]) >= FLASH_MIN_SEQ
+            and not _records_gradient(q, k, v)):
+        return flash_attention_packed_cuda(q, k, v, heads)
+    return merge_heads(fused_attention(split_heads(q, heads), split_heads(k, heads),
+                                       split_heads(v, heads)))
 
 
 def _groups(control, rows: int) -> Tuple[int, int, int]:
@@ -87,8 +108,7 @@ def controlled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = control.map_qkv(q, k, v, layer)
 
     def fused(qp, kp, vp):
-        return merge_heads(fused_attention(split_heads(qp, heads), split_heads(kp, heads),
-                                           split_heads(vp, heads)))
+        return fused_attention_packed(qp, kp, vp, heads)
 
     le = control.linear_token_edit(layer)
     if le is not None:

@@ -5,6 +5,10 @@ Port of ``hedit_tpu/ops/flash_attention.py``.
 
 * ``flash_attention_cuda``: the forward without a gradient.  The TPU kernel
   ``_flash_bounded_kernel`` becomes ``csrc/flash_attention.cu``.
+* ``flash_attention_packed_cuda``: the same forward on the packed
+  projections ``[B, S, H*D]``, heads addressed in the kernel (the TPU kernel
+  ``_flash_packed_kernel``): a second entry point of the same CUDA template,
+  which takes the strides of both layouts.
 * ``flash_attention_diff``: the forward with a gradient, a
   ``torch.autograd.Function``.  Its forward is the same CUDA template with a
   second output, the base-2 log-sum-exp of each query row (the TPU kernel
@@ -14,15 +18,17 @@ Port of ``hedit_tpu/ops/flash_attention.py``.
 
 The notes at the head of the two sources give the designs and what bounds
 them on the H100.  Beside each kernel stands its plain PyTorch version:
-``reference_attention`` (softmax in float32), ``flash_attention_lse_reference``
-and ``flash_attention_backward_reference`` (the backward by its explicit
+``reference_attention`` (softmax in float32),
+``flash_attention_packed_reference``, ``flash_attention_lse_reference`` and
+``flash_attention_backward_reference`` (the backward by its explicit
 formulas, not by autograd of the forward).  The TPU kernels' VMEM residency
 rule (``flash_kv_fits``) has no counterpart: the CUDA kernels stream tiles
 through shared memory and have a tile shape for each head dimension they
 take.
 
-``ops/attention.py:fused_attention`` routes a CUDA tensor by its sequence
-lengths to a kernel or to the plain version (``FLASH_MIN_SEQ``); a kernel
+``ops/attention.py`` routes a CUDA tensor by its sequence lengths, its heads
+and whether a gradient is recorded to a kernel or to the plain version
+(``FLASH_MIN_SEQ``); a kernel
 wrapper raises on anything it does not take and never falls back.
 """
 
@@ -34,7 +40,8 @@ from typing import Tuple
 import torch
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
-launches = 0          # forward without the log-sum-exp
+launches = 0          # forward without the log-sum-exp, head-split layout
+launches_packed = 0   # the same forward on packed heads
 launches_lse = 0      # forward with the log-sum-exp
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
@@ -57,6 +64,18 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (d ** 0.5)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v).to(q.dtype)
+
+
+def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     heads: int) -> torch.Tensor:
+    """Plain version of the packed forward: q [B, Sq, H*D], k / v [B, Sk, H*D] ->
+    [B, Sq, H*D]; head h is columns h*D .. (h+1)*D of a row."""
+    def split(x):
+        b, s, hd = x.shape
+        return x.reshape(b, s, heads, hd // heads).transpose(1, 2)
+
+    out = reference_attention(split(q), split(k), split(v))
+    return out.transpose(1, 2).reshape(q.shape)
 
 
 def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -92,12 +111,16 @@ def flash_attention_backward_reference(q, k, v, out, lse2, do
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_qkv(q, k, v, head_dims, what: str) -> Tuple[int, int, int, int, int]:
-    """Raise on anything the kernels do not take; returns (b, h, sq, sk, d)."""
+def _check_device_dtype(q, k, v, what: str) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{what} needs CUDA tensors")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _check_qkv(q, k, v, head_dims, what: str) -> Tuple[int, int, int, int, int]:
+    """Raise on anything the kernels do not take; returns (b, h, sq, sk, d)."""
+    _check_device_dtype(q, k, v, what)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
     b, h, sq, d = q.shape
@@ -134,6 +157,43 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     out = torch.empty_like(q)
     _launch("hedit_flash_attention_fwd", q, (q, k, v, out), (b * h, sq, sk, d))
     launches += 1
+    return out
+
+
+def _image_stride(t: torch.Tensor, name: str) -> int:
+    """The batch stride of a [B, S, H*D] tensor whose every [S, H*D] image is
+    dense (a batch of one has no stride to speak of); raises otherwise."""
+    b, s, hd = t.shape
+    if t.stride(2) != 1 or t.stride(1) != hd:
+        raise ValueError(f"{name}: every [S, H*D] image must be dense, got strides {t.stride()}")
+    return t.stride(0) if b > 1 else s * hd
+
+
+def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                heads: int) -> torch.Tensor:
+    """Launch the forward kernel on packed heads: q [B, Sq, H*D], k / v
+    [B, Sk, H*D] -> contiguous [B, Sq, H*D].  The batch rows of an input may
+    lie any stride apart (a row slice of a larger batch is taken as it is).
+    Raises on any input the kernel does not take, and if the launch is
+    refused."""
+    global launches_packed
+    what = "flash_attention_packed_cuda"
+    _check_device_dtype(q, k, v, what)
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be [B, S, H*D]")
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    if k.shape != (b, sk, hd) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if (heads < 1 or hd % heads or hd // heads not in HEAD_DIMS or sq < 1 or sk < 1
+            or b * heads > 65535):
+        raise ValueError(f"{what} does not take q{tuple(q.shape)} k{tuple(k.shape)} with "
+                         f"{heads} heads: head dim must be one of {HEAD_DIMS}")
+    strides = [_image_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
+    _launch("hedit_flash_attention_fwd_packed", q, (q, k, v, out),
+            (b, heads, sq, sk, hd // heads, *strides))
+    launches_packed += 1
     return out
 
 

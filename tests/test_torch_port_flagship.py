@@ -205,8 +205,10 @@ def test_cli_tiny_writes_finite_images(tmp_path):
     mtimes = [os.path.getmtime(p) for p in pngs]
     assert main(argv + ["--resume"]) == 0   # every output exists: all skipped
     assert [os.path.getmtime(p) for p in pngs] == mtimes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--mode", "ef", "--tiny", "--device", "cpu", "--image", str(pngs[0])])
+    # a mode beside the flagship, on one of the written images
+    assert main(["--mode", "ef", "--tiny", "--device", "cpu", "--image", str(pngs[0]),
+                 "--num_diffusion_steps", "3", "--output_path", str(out)]) == 0
+    assert len(list(out.rglob("*.png"))) == 4
 
 
 _GUARD = r"""
@@ -231,7 +233,7 @@ out = h_edit_p2p_flagship(pipe.unet, pipe.schedule, HEditConfig(), xts=xts, ctx4
 img = pipe.vae_decode(out)
 assert img.shape == (1, 64, 64, 3) and bool(torch.isfinite(img).all())
 
-# the CLI, both ported modes, with the JAX package still blocked; it alone
+# the CLI, a DDPM and a DDIM mode, with the JAX package still blocked; it alone
 # needs regex (the tokenizer) and PIL (image files)
 del sys.modules["regex"], sys.modules["PIL"]
 import os, tempfile
@@ -265,12 +267,13 @@ def test_main_path_imports_without_jax_flax_regex_pil():
 
 
 def test_flagship_rejects_other_configurations(pipe, images):
-    from hedit_tpu_torch.cli.main_p2p import main
-
-    for flags in ([], ["--implicit", "--cfg_src", "2"],
-                  ["--implicit", "--optimization_steps", "3"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--tiny", "--device", "cpu", "--image", "unused.png", *flags])
+    """``h_edit_p2p_flagship`` takes the flagship configuration only (the other
+    configurations of ``h_edit_R_p2p`` run through ``h_edit_p2p`` and the CLI:
+    ``tests/test_torch_main_p2p_modes.py``) and refuses mismatched batches."""
+    with pytest.raises(ValueError):
+        _port_run(pipe, images[:1], **dict(CFG, cfg_src=2.0))   # derive_zs needs cfg_src 1
+    with pytest.raises(ValueError):
+        _port_run(pipe, images[:1], **dict(CFG, implicit=False))
     with pytest.raises(ValueError):
         _port_run(pipe, images[:1], **dict(CFG, eta=0.0))
     xts, ctx4, control, blend = _port_inputs(images)

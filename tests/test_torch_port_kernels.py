@@ -15,8 +15,12 @@ import torch
 
 from hedit_tpu_torch.ops import flash_attention as flash_mod
 from hedit_tpu_torch.ops import groupnorm as gn_mod
-from hedit_tpu_torch.ops.attention import FLASH_MIN_SEQ, fused_attention
-from hedit_tpu_torch.ops.flash_attention import reference_attention
+from hedit_tpu_torch.ops.attention import (
+    FLASH_MIN_SEQ, fused_attention, fused_attention_packed, merge_heads, split_heads,
+)
+from hedit_tpu_torch.ops.flash_attention import (
+    flash_attention_packed_reference, reference_attention,
+)
 
 
 @pytest.fixture
@@ -218,3 +222,95 @@ def test_groupnorm_gradient_matches_autograd_of_plain_on_card(cuda, dtype, shape
     rel = 1e-4 if dtype == torch.float32 else 2.0 ** -8
     for a, c in zip(got, want):
         torch.testing.assert_close(a.float(), c, rtol=0, atol=rel * c.abs().max().item())
+
+
+def _launch_counts():
+    return (flash_mod.launches, flash_mod.launches_packed, flash_mod.launches_lse,
+            flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
+
+
+def test_packed_wrapper_takes_plain_version_on_cpu():
+    """A CPU tensor of packed heads takes the plain versions even at
+    kernel-sized sequences and launches nothing; the CUDA entry point refuses
+    CPU tensors instead of falling back."""
+    q = torch.randn(1, FLASH_MIN_SEQ, 2 * 8)
+    before = _launch_counts()
+    torch.testing.assert_close(fused_attention_packed(q, q, q, 2),
+                               flash_attention_packed_reference(q, q, q, 2), rtol=0, atol=0)
+    assert _launch_counts() == before
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention_packed_cuda(q, q, q, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,sq,sk,d", [(2, 8, 1024, 1024, 40), (2, 8, 1024, 1024, 80),
+                                             (2, 3, 300, 300, 40), (2, 2, 128, 400, 80)])
+def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
+    """The packed-head kernel against the plain version in float32 on the same
+    input values, ragged and Sq != Sk included, contiguous and as a row slice
+    of a larger batch (a batch stride, no copy).  Tolerances as the head-split
+    forward's: float32 1e-4, bfloat16 one output ulp at the largest output."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, 3, sq, heads * d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, 3, sk, heads * d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, 2, sk, heads * d, generator=g, device=cuda).to(dtype)
+    for qs, ks, vs in ((q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()),
+                       (q[:, 1], k[:, 2], v[:, 1])):
+        before = _launch_counts()
+        got = flash_mod.flash_attention_packed_cuda(qs, ks, vs, heads)
+        torch.cuda.synchronize()
+        assert _launch_counts() == (before[0], before[1] + 1) + before[2:]
+        assert got.shape == qs.shape and got.is_contiguous()
+        want = flash_attention_packed_reference(qs.float(), ks.float(), vs.float(), heads)
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8 * want.abs().max().item()
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+def test_packed_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(2, 1024, 8 * 40, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_mod.flash_attention_packed_cuda(q, q, q, 5)            # d = 64
+    with pytest.raises(ValueError, match="dense"):
+        flash_mod.flash_attention_packed_cuda(q[:, ::2], q[:, ::2], q[:, ::2], 8)
+    with pytest.raises(ValueError, match="shape"):
+        flash_mod.flash_attention_packed_cuda(q, q[:1], q[:1], 8)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_mod.flash_attention_packed_cuda(q, q.double(), q, 8)
+
+
+@pytest.mark.gpu
+def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
+    """``fused_attention_packed``: the packed kernel at ``FLASH_MIN_SEQ`` tokens
+    with 8 heads and no recorded gradient; kernels 3-5 (head-split) under a
+    recorded gradient; the head-split forward for one head; the plain version
+    below the threshold.  Every route gives the plain version's output."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    S = FLASH_MIN_SEQ
+    q8 = torch.randn(2, S, 8 * 40, generator=g, device=cuda)
+    q1 = torch.randn(1, S, 512, generator=g, device=cuda)
+    short = torch.randn(2, S // 2, 8 * 40, generator=g, device=cuda)
+    # (inputs, heads, recorded gradient) -> which counter moves: launches,
+    # launches_packed, launches_lse
+    for x, heads, grad, moved in ((q8, 8, False, (0, 1, 0)), (q8, 8, True, (0, 0, 1)),
+                                  (q1, 1, False, (1, 0, 0)), (short, 8, False, (0, 0, 0))):
+        x = x.clone().requires_grad_(grad)
+        before = _launch_counts()
+        with torch.set_grad_enabled(grad):
+            got = fused_attention_packed(x, x, x, heads)
+        torch.cuda.synchronize()
+        assert _launch_counts()[:3] == tuple(b + m for b, m in zip(before[:3], moved))
+        want = flash_attention_packed_reference(x.detach(), x.detach(), x.detach(), heads)
+        torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-4)
+    # a tensor that requires a gradient, with recording off: the packed kernel
+    x = q8.clone().requires_grad_(True)
+    before = _launch_counts()
+    with torch.no_grad():
+        fused_attention_packed(x, x, x, 8)
+    assert _launch_counts()[1] == before[1] + 1
+    # head split and merge around the head-split kernel give the same values
+    with torch.no_grad():
+        a = fused_attention_packed(q8, q8, q8, 8)
+        b = merge_heads(flash_mod.flash_attention_cuda(*(split_heads(q8, 8),) * 3))
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
