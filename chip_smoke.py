@@ -1,6 +1,6 @@
 """End-to-end smoke of the PyTorch port on one CUDA GPU (an NVIDIA H100).
 
-    python3 chip_smoke.py              # the smoke, phases 1-12
+    python3 chip_smoke.py              # the smoke, phases 1-15
     python3 chip_smoke.py --profile    # where a flagship step's time goes
 
 Phases, each printed on its own lines; any failure exits non-zero without
@@ -9,13 +9,15 @@ the final result line:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the CUDA flash-attention library from ``hedit_tpu_torch/csrc`` and
    the Triton GroupNorm kernel, timed;
-3. each of the six kernels against its plain PyTorch version at the main
-   paths' shapes: max abs error against a stated tolerance; CUDA-event time
-   of the kernel, of the plain version and of the one PyTorch library call
-   for the same function (a yardstick only, the port never calls it); the
-   least time the card could take (``bound_ms``).  For the packed-head
-   forward also the time of what it replaces on the path (three head-split
-   copies, the head-split kernel, the merge).  Then the GroupNorm gradient;
+3. each of the seven kernels against its plain PyTorch version at the paths'
+   shapes: max abs error against a stated tolerance; CUDA-event time of the
+   kernel, of the plain version and of the one PyTorch library call for the
+   same function (a yardstick only, the port never calls it); the least time
+   the card could take (``bound_ms``).  The bounded (max-free) and the exact
+   head-split forward are timed at the same shapes, and a saturating input
+   shows the two forms apart.  For the packed-head forward also the time of
+   what it replaces on the path (three head-split copies, the head-split
+   kernel, the merge).  Then the GroupNorm gradient;
 4. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
@@ -26,7 +28,7 @@ the final result line:
    encode -> VAE encode -> 50-step DDIM inversion -> 50 NMG + P2P steps, each
    differentiating through the UNet, with a non-neutral control and an active
    LocalBlend -> VAE decode; checks a finite [1, 512, 512, 3] output and that
-   every kernel was launched; prints the time split and peak memory;
+   each of its kernels was launched; prints the time split and peak memory;
 6. the h-Edit-D path, as ``main_p2p --mode h_edit_D_p2p --eta 0 --implicit
    --optimization_steps 2`` runs it: one image, 50-step DDIM inversion, then
    50 steps of the general h-Edit + P2P loop (one base call and two controlled
@@ -34,20 +36,30 @@ the final result line:
 7. the EF path, as ``main_p2p --mode ef_p2p --eta 1 --cfg_src 3.5`` runs it:
    one image, the DDPM inversion's residual pass at 20 rows a call, then 50
    indexed 3-row steps with cond_start = 1;
-8. the golden identity in float32 (TF32 off): target = source,
-   cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through the
-   general loop under the flagship configuration;
-9. the UNet gradient at full width in float32: d loss / d x of one NMG step
-   with the kernels against the same gradient with the plain versions
-   substituted here;
-10. the NMG loop in float32 under a neutral control: its edit branch equals
+8. the MasaCtrl path, as ``main_masactrl --mode h_edit_R_masactrl`` runs it
+   at its defaults: one image, the empty source prompt, the DDPM inversion's
+   residual pass at 10 rows a call, then 50 steps of one 1-row base call, one
+   1-row source call and one 4-row MasaCtrl call; checks the launches of the
+   bounded head-split, GroupNorm and packed kernels against the prediction;
+9. the exact head-split forward's own path (no editing path runs it): one
+   call at each shape of JAX ``flash_attention``'s callers;
+10. the golden identity in float32 (TF32 off): target = source,
+    cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through
+    the general loop under the flagship configuration;
+11. the UNet gradient at full width in float32: d loss / d x of one NMG step
+    with the kernels against the same gradient with the plain versions
+    substituted here;
+12. the NMG loop in float32 under a neutral control: its edit branch equals
     plain DDIM sampling computed here;
-11. in float32: the EF pair loop without a stored trajectory on the DDPM
+13. in float32: the EF pair loop without a stored trajectory on the DDPM
     inversion's residuals reconstructs the source latent; explicit h-Edit-D
     with target = source, cfg_tar == cfg_src_edit and a neutral control
     returns the source latent;
-12. a JSON line of the kernels, then the result line
-    ``{"ok": true, "device": {...}}``.
+14. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
+    source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
+15. a JSON line of the kernels (each with its launches on its path: rows 1,
+    2 and 7 on the MasaCtrl path, 3-5 on the NMG path, 6 on its own), then
+    the result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
 
@@ -63,6 +75,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -84,6 +97,7 @@ from hedit_tpu_torch.control.p2p import (  # noqa: E402
 from hedit_tpu_torch.core.schedule import Schedule  # noqa: E402
 from hedit_tpu_torch.edit.baselines import ef_or_pnp_inv_p2p, nmg_gradient, nmg_p2p  # noqa: E402
 from hedit_tpu_torch.edit.h_edit import HEditConfig  # noqa: E402
+from hedit_tpu_torch.edit.h_edit_ctrl import h_edit_masactrl  # noqa: E402
 from hedit_tpu_torch.edit.h_edit_p2p import h_edit_p2p, h_edit_p2p_flagship  # noqa: E402
 from hedit_tpu_torch.invert.ddim import invert_ddim  # noqa: E402
 from hedit_tpu_torch.invert.ddpm import invert_ddpm, sample_xts_from_x0  # noqa: E402
@@ -172,14 +186,15 @@ def bound(flops, nbytes, dtype):
 
 def reset_launches():
     flash.launches = flash.launches_lse = flash.launches_bwd_dq = flash.launches_bwd_dkv = 0
-    flash.launches_packed = 0
+    flash.launches_packed = flash.launches_exact = 0
     gn.launches = 0
 
 
 def read_launches():
     return {"flash_attention": flash.launches, "groupnorm": gn.launches,
             "flash_attention_lse": flash.launches_lse, "flash_bwd_dq": flash.launches_bwd_dq,
-            "flash_bwd_dkv": flash.launches_bwd_dkv, "flash_packed": flash.launches_packed}
+            "flash_bwd_dkv": flash.launches_bwd_dkv, "flash_packed": flash.launches_packed,
+            "flash_attention_exact": flash.launches_exact}
 
 
 def check_forward_routing(counts, path, failures):
@@ -234,34 +249,105 @@ def _qkv(g, qshape, sk, dtype):
     return q, k, v
 
 
+def _saturating_qkv(g, dtype):
+    """q, k, v [1, 8, 4096, 40]: every query's score with a key is set by the
+    key's first component.  The anchor window (the first 512 keys) scores a
+    few log2 units; key 600 scores ~146, more than 116 above the window's max,
+    so the bounded form clamps it to 2^100; keys 700-763 score ~109, below the
+    clamp.  Exact attention is key 600's value row; the bounded form gives the
+    64 keys about a tenth of the weight."""
+    q = torch.randn(1, 8, 4096, 40, generator=g, device="cuda") * 0.1
+    q[..., 0] = 8.0
+    k = torch.randn(1, 8, 4096, 40, generator=g, device="cuda") * 0.5
+    v = torch.randn(1, 8, 4096, 40, generator=g, device="cuda")
+    k[:, :, 600, 0] = 80.0
+    k[:, :, 700:764, 0] = 60.0
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _forward_plain(q, k, v, exact):
+    """The plain version a forward kernel is held to: the exact one in float32
+    on the same input values (the exact kernel keeps float32 scores and p);
+    the bounded one in the inputs' dtype (it rounds q * scale, p and the output
+    to bf16 at the kernel's steps)."""
+    if exact:
+        return flash.reference_attention(q.float(), k.float(), v.float())
+    return flash.flash_attention_bounded_reference(q, k, v).float()
+
+
 def _flash_forward_cases(g, rows, failures):
-    """Kernel 1: the forward without a gradient."""
-    cases = [((8, 8, 4096, 40), 4096, torch.bfloat16),   # controlled call, 2 images
-             ((4, 8, 4096, 40), 4096, torch.bfloat16),   # controlled call, 1 image
-             ((4, 8, 1024, 80), 1024, torch.bfloat16),
-             ((1, 1, 4096, 512), 4096, torch.bfloat16),  # VAE mid block
+    """Kernels 1 (bounded) and 6 (exact), head-split, each against its plain
+    version and timed at the same shapes; the first case of each is its row's
+    shape in the kernels line (kernel 1: the VAE's attention, its only use on
+    the paths; kernel 6: the UNet's self-attention at 64^2, where JAX's
+    ``flash_attention`` callers time it).  Then the saturating case."""
+    cases = [((1, 1, 4096, 512), 4096, torch.bfloat16),  # VAE mid block
+             ((8, 8, 4096, 40), 4096, torch.bfloat16),   # UNet 64^2 self-attention, 8 rows
+             ((4, 8, 1024, 80), 1024, torch.bfloat16),   # UNet 32^2, 4 rows
              ((1, 8, 1000, 80), 1064, torch.bfloat16),   # ragged, Sq != Sk
              ((2, 8, 4096, 40), 4096, torch.float32),
              ((2, 8, 1000, 40), 1000, torch.float32),    # ragged Sq and Sk
              ((4, 8, 1024, 80), 1024, torch.float32),
              ((1, 8, 1000, 80), 1064, torch.float32),
              ((1, 1, 4096, 512), 4096, torch.float32)]
-    for qshape, sk, dtype in cases:
-        q, k, v = _qkv(g, qshape, sk, dtype)
-        got = flash.flash_attention_cuda(q, k, v)
-        want = flash.reference_attention(q.float(), k.float(), v.float())
+    exact_first = [cases[1]] + cases[:1] + cases[2:]
+    for name, wrapper, exact, order in (
+            ("flash_attention", flash.flash_attention_cuda, False, cases),
+            ("flash_attention_exact", flash.flash_attention_exact_cuda, True, exact_first)):
+        for qshape, sk, dtype in order:
+            q, k, v = _qkv(g, qshape, sk, dtype)
+            got = wrapper(q, k, v)
+            want = _forward_plain(q, k, v, exact)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
+            bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
+            bound_ms, by = bound(4 * bh * sq * sk * d,
+                                 q.element_size() * bh * d * 2 * (sq + sk), dtype)
+            plain = (flash.reference_attention if exact
+                     else flash.flash_attention_bounded_reference)
+            _row(rows, failures, name,
+                 f"flash {'exact' if exact else 'bounded'} q{list(qshape)} sk={sk} "
+                 f"{str(dtype)[6:]}",
+                 err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
+                 ms=cuda_ms(lambda: wrapper(q, k, v)),
+                 plain_ms=cuda_ms(lambda: plain(q, k, v)),
+                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                 bound_ms=bound_ms, bound_by=by, shape=list(qshape), dtype=str(dtype)[6:])
+    for qshape in ((8, 8, 4096, 40), (1, 1, 4096, 512), (4, 8, 1024, 80)):
+        b_ms, e_ms = (next(r["ms"] for r in rows if r["name"] == n and r["shape"] == list(qshape)
+                           and r["dtype"] == "bfloat16")
+                      for n in ("flash_attention", "flash_attention_exact"))
+        print(f"bounded vs exact q{list(qshape)} bfloat16: {b_ms:.3f} ms vs {e_ms:.3f} ms "
+              f"(bounded / exact {b_ms / e_ms:.3f})")
+
+    # saturation: the bounded kernels follow their plain versions, the exact
+    # kernel exact attention, and the two forms are far apart
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _saturating_qkv(g, dtype)
+        bounded = flash.flash_attention_cuda(q, k, v).float()
+        out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
+        exact = flash.flash_attention_exact_cuda(q, k, v).float()
+        want_out, want_lse = flash.flash_attention_lse_reference(q, k, v)
+        want_exact = flash.reference_attention(q.float(), k.float(), v.float())
         torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
-        bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
-        bound_ms, by = bound(4 * bh * sq * sk * d, q.element_size() * bh * d * 2 * (sq + sk), dtype)
-        _row(rows, failures, "flash_attention",
-             f"flash q{list(qshape)} sk={sk} {str(dtype)[6:]}",
-             err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
-             ms=cuda_ms(lambda: flash.flash_attention_cuda(q, k, v)),
-             plain_ms=cuda_ms(lambda: flash.reference_attention(q, k, v)),
-             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-             bound_ms=bound_ms, bound_by=by)
+        want_out = want_out.float()
+        tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want_out.abs().max().item()
+        tol_e = F32_TOL if dtype == torch.float32 else BF16_ULP * want_exact.abs().max().item()
+        errs = [(bounded - want_out).abs().max().item(),
+                (out.float() - want_out).abs().max().item(),
+                (exact - want_exact).abs().max().item()]
+        err_lse = ((lse2 - want_lse).abs() / want_lse.abs()).max().item()
+        gap = (bounded - exact).abs().max().item()
+        ok = (errs[0] <= tol and errs[1] <= tol and errs[2] <= tol_e and err_lse <= 1e-5
+              and gap > 20 * tol and lse2.min().item() > 100.0)
+        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded / LSE / exact "
+              f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol {tol:.3g}), "
+              f"lse2 relative {err_lse:.3e} (tol 1e-5, min lse2 {lse2.min().item():.2f}); "
+              f"max|bounded - exact| {gap:.3e} (must exceed {20 * tol:.3g}) "
+              f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash saturating case {dtype}")
 
 
 def _flash_packed_cases(g, rows, failures):
@@ -307,9 +393,10 @@ def _flash_packed_cases(g, rows, failures):
 
 
 def _flash_gradient_cases(g, rows, failures):
-    """Kernels 3-5: the LSE forward (out, lse2) and dq, dk / dv, through
-    ``flash_attention_diff`` and autograd, against the plain versions in
-    float32 on the same input values."""
+    """Kernels 3-5: the bounded LSE forward (out, lse2) against its plain
+    version in the inputs' dtype, and dq, dk / dv through
+    ``flash_attention_diff`` and autograd against the plain backward in
+    float32 on the same input values, fed that forward's out and lse2."""
     cases = [((1, 8, 4096, 40), 4096, torch.bfloat16),   # the NMG gradient call, 1 image
              ((1, 8, 1024, 80), 1024, torch.bfloat16),
              ((1, 8, 4096, 40), 4096, torch.float32),
@@ -327,7 +414,10 @@ def _flash_gradient_cases(g, rows, failures):
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         dq, dk, dv = torch.autograd.grad(flash.flash_attention_diff(*leaves), leaves, do)
-        want_out, want_lse = flash.flash_attention_lse_reference(q.float(), k.float(), v.float())
+        # the bounded plain forward in the inputs' dtype rounds at the kernel's
+        # steps; the backward's plain version in float32 reads its out and lse2
+        want_out, want_lse = flash.flash_attention_lse_reference(q, k, v)
+        want_out = want_out.float()
         want_dq, want_dk, want_dv = flash.flash_attention_backward_reference(
             q.float(), k.float(), v.float(), want_out, want_lse, do.float())
         torch.cuda.synchronize()
@@ -345,7 +435,10 @@ def _flash_gradient_cases(g, rows, failures):
 
         err_o, tol_o = gap(out, want_out)
         err_l = (lse2 - want_lse).abs().max().item()
-        tol_l = F32_TOL * want_lse.abs().max().item()
+        # float32: 1e-4 of the largest; bf16: a rounding of one p that falls
+        # the other way moves a row's sum by at most one ulp of its largest term
+        tol_l = (F32_TOL * want_lse.abs().max().item() if dtype == torch.float32
+                 else math.log2(1 + BF16_ULP))
         bound_ms, by = bound(4 * bh * sq * sk * d, es * bh * d * 2 * (sq + sk) + 4 * bh * sq, dtype)
         print(f"flash lse {label}: lse2 max_abs_err {err_l:.3e} (tol {tol_l:.3g})")
         _row(rows, failures, "flash_attention_lse", f"flash lse {label}",
@@ -577,8 +670,8 @@ def phase_nmg_path(pipe, images, ids):
           f"{(recon - x0).abs().max().item():.3e}")
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         failures.append("NMG path output is not finite [1, 512, 512, 3]")
-    if min(counts.values()) <= 0:
-        failures.append(f"a kernel was not launched on the NMG path: {counts}")
+    if min(v for k, v in counts.items() if k != "flash_attention_exact") <= 0:
+        failures.append(f"a kernel of the NMG path was not launched: {counts}")
     if (counts["flash_attention_lse"], counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) != (
             10 * STEPS,) * 3:
         failures.append(f"the NMG path's gradient kernels were not launched once for each of "
@@ -599,16 +692,17 @@ def phase_nmg_path(pipe, images, ids):
     return counts, failures
 
 
-def _one_image_path(name, pipe, images, ids, invert, edit, invert_label):
+def _one_image_path(name, pipe, images, ids, invert, edit, invert_label, ctx_rows=(0, 1, 3)):
     """Drive one image through encode -> ``invert`` -> ``edit`` -> decode with
-    the launch counts at 0 before and read after; returns (counts, failures)."""
+    the launch counts at 0 before and read after; ``ctx_rows`` pick [uncond,
+    src, tar] of the image's token ids.  Returns (counts, failures)."""
     failures = []
     control, blend = (state.to("cuda") for state in _edit_control(STEPS, 8, 0))
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ctx3 = pipe.encode_token_ids(ids[0, [0, 1, 3]]).reshape(1, 3, MAX_LEN, -1)  # uncond, src, tar
+    ctx3 = pipe.encode_token_ids(ids[0, list(ctx_rows)]).reshape(1, 3, MAX_LEN, -1)
     x0 = pipe.vae_encode(images[:1])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -680,6 +774,73 @@ def phase_ef_path(pipe, images, ids):
                            "DDPM inversion, 5 calls of 20 rows,")
 
 
+def phase_masactrl_path(pipe, images, ids):
+    """h-Edit-R + MasaCtrl, as ``main_masactrl --mode h_edit_R_masactrl`` runs
+    it at its defaults (eta 1, cfg_src 1, cfg_src_edit 5, cfg_tar 7.5, --step 4
+    --layer 10): the empty source prompt, the DDPM inversion with its residual
+    pass (5 calls of 10 rows), then 50 steps of one 1-row base call, one 1-row
+    source call and one 4-row MasaCtrl call on the trajectory.  Every one of
+    those calls runs the 10 self-attentions of >= 1024 tokens on the packed
+    kernel, the remapped k / v of MasaCtrl's layers included."""
+    cfg = HEditConfig(eta=1.0, cfg_src=1.0, cfg_src_edit=5.0, cfg_tar=7.5)
+
+    def invert(pipe, x0, ctx3):
+        return invert_ddpm(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0],
+                           src_ctx=ctx3[:, 1], cfg_scale_src=cfg.cfg_src, eta=cfg.eta,
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           step_chunk=10)
+
+    def edit(pipe, inv, ctx3, control, blend):
+        return h_edit_masactrl(pipe.unet, pipe.schedule, inv.xts[:, STEPS], inv.zs, ctx3=ctx3,
+                               cfg=cfg, after_skip_steps=STEPS, start_step=4, start_layer=10,
+                               xts=inv.xts)
+
+    # [uncond, src, tar]: MasaCtrl's source prompt is the empty one, uncond's
+    counts, failures = _one_image_path("MasaCtrl", pipe, images, ids, invert, edit,
+                                       "DDPM inversion, 5 calls of 10 rows,", ctx_rows=(0, 0, 3))
+    want = 3 * 10 * STEPS + 5 * 10
+    print(f"MasaCtrl path: packed-kernel launches {counts['flash_packed']} (predicted "
+          f"{want}: 3 UNet calls a step x 10 + the residual pass's 5 calls x 10), head-split "
+          f"bounded {counts['flash_attention']} (predicted 2)")
+    if counts["flash_packed"] != want:
+        failures.append(f"the MasaCtrl path launched the packed kernel "
+                        f"{counts['flash_packed']} times, not {want}")
+    return counts, failures
+
+
+# JAX's public exact ``flash_attention`` is called by the JAX package's kernel
+# probes only (scripts/flash_profile.py, scripts/micro_bench2.py): the UNet's
+# self-attention at 64^2 and 32^2 and the 64^2 cross-attention, 4 rows, bf16
+EXACT_CALLER_SHAPES = (((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
+                       ((4, 8, 4096, 40), 77))
+
+
+def phase_exact_path():
+    """Kernel 6's own path: no editing path of either package runs the exact
+    head-split forward, so it is driven as JAX's ``flash_attention`` callers
+    drive theirs, once at each of their shapes, the counts at 0 before and
+    read after; each output checked finite and within tolerance of
+    ``reference_attention``."""
+    failures = []
+    g = torch.Generator(device="cuda").manual_seed(23)
+    inputs = [_qkv(g, qshape, sk, torch.bfloat16) for qshape, sk in EXACT_CALLER_SHAPES]
+    reset_launches()
+    outs = [flash.flash_attention_exact_cuda(q, k, v) for q, k, v in inputs]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    for (q, k, v), out in zip(inputs, outs):
+        want = flash.reference_attention(q.float(), k.float(), v.float())
+        err = (out.float() - want).abs().max().item()
+        if not (bool(torch.isfinite(out).all()) and err <= BF16_ULP * want.abs().max().item()):
+            failures.append(f"exact forward path q{list(q.shape)} k{list(k.shape)}: err {err:.3e}")
+    print(f"exact forward path (JAX flash_attention's callers' shapes "
+          f"{[list(q.shape) + [k.shape[2]] for q, k, _ in inputs]}): launches "
+          f"{json.dumps(counts)} {'OK' if not failures else 'FAIL'}")
+    if counts["flash_attention_exact"] != len(inputs):
+        failures.append(f"exact forward launches {counts['flash_attention_exact']}")
+    return counts, failures
+
+
 def phase_golden(pipe):
     """README golden numerics on the card, SD-1.5 widths in float32."""
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -707,7 +868,7 @@ def plain_versions():
     itself has no switch for this, and no CUDA path of it ever does so."""
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
-                (attn, "flash_attention_cuda", flash.reference_attention),
+                (attn, "flash_attention_cuda", flash.flash_attention_bounded_reference),
                 (attn, "flash_attention_packed_cuda", flash.flash_attention_packed_reference),
                 (flash, "flash_attention_lse_cuda", flash.flash_attention_lse_reference),
                 (flash, "flash_attention_backward_cuda", flash.flash_attention_backward_reference),
@@ -831,6 +992,36 @@ def phase_reconstructions(pipe):
     return failures
 
 
+def phase_masactrl_identity(pipe):
+    """h-Edit-R + MasaCtrl in float32 with target = source = uncond = the empty
+    prompt and cfg_tar == cfg_src_edit, MasaCtrl active at its defaults (from
+    step 4, pair 10 on): x_opt starts at the trajectory, so MasaCtrl's remap
+    maps equal rows onto each other, the correction vanishes, and the edit
+    returns the source latent xts[0]."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    x0 = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
+    ids = torch.from_numpy(_token_ids(np.random.RandomState(29), 1))
+    ctx3 = pipe.encode_token_ids(ids[0, [0, 0, 0]]).reshape(1, 3, MAX_LEN, -1)
+    t0 = time.perf_counter()
+    inv = invert_ddpm(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0], src_ctx=ctx3[:, 1],
+                      cfg_scale_src=1.0, eta=1.0, generator=g, step_chunk=10)
+    reset_launches()
+    edited, _ = h_edit_masactrl(pipe.unet, pipe.schedule, inv.xT, inv.zs, ctx3=ctx3,
+                                cfg=HEditConfig(cfg_src_edit=5.0, cfg_tar=5.0),
+                                after_skip_steps=STEPS, start_step=4, start_layer=10,
+                                xts=inv.xts)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    scale = inv.xts.abs().max().item()
+    err = (edited - inv.xts[:, 0]).abs().max().item() / scale
+    ok = err <= GOLDEN_TOL and bool(torch.isfinite(edited).all()) and counts["flash_packed"] > 0
+    print(f"MasaCtrl identity (f32, TF32 off, {STEPS} + {STEPS} steps, "
+          f"{time.perf_counter() - t0:.1f} s): max|edited - xts[0]| / max|xts| {err:.3e} "
+          f"(tol {GOLDEN_TOL:g}; max|xts| {scale:.3e}); loop launches {json.dumps(counts)} "
+          f"{'OK' if ok else 'FAIL'}")
+    return [] if ok else [f"MasaCtrl identity error {err:.3e}"]
+
+
 # Device-time classes of a flagship step, by kernel name (first match wins).
 KERNEL_CLASSES = (("flash kernel", r"flash_fwd_kernel"),
                   ("GroupNorm kernel", r"_group_norm_kernel"),
@@ -945,7 +1136,11 @@ def main(argv=None) -> int:
     failures += bad
     ef_counts, bad = phase_ef_path(*inputs[:3])
     failures += bad
+    masactrl_counts, bad = phase_masactrl_path(*inputs[:3])
+    failures += bad
     del inputs
+    exact_counts, bad = phase_exact_path()
+    failures += bad
     torch.cuda.empty_cache()
     pipe = create_sd_pipeline(tiny=False, num_inference_steps=STEPS, seed=0,
                               dtype=torch.float32, device="cuda")
@@ -953,30 +1148,37 @@ def main(argv=None) -> int:
     failures += phase_unet_gradient(pipe)
     failures += phase_nmg_identity(pipe)
     failures += phase_reconstructions(pipe)
+    failures += phase_masactrl_identity(pipe)
+    paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
+             "ef": ef_counts, "masactrl": masactrl_counts, "exact_forward": exact_counts}
 
-    def entry(name, route, source, replaces, path_counts):
-        """The kernel's first comparison (a shape of its main path) and its
-        launches on that path; max_abs_err is the largest of all its cases."""
+    def entry(name, route, source, replaces, path):
+        """The kernel's first comparison (a shape of its path) and its launches
+        on ``path``, one of ``paths``; max_abs_err is the largest of all its
+        cases."""
         mine = [r for r in rows if r["name"] == name]
+        if paths[path][name] <= 0:
+            failures.append(f"{name} was not launched on the {path} path")
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": path_counts[name],
-                "launches_by_path": {"flagship": flagship_counts[name], "nmg": nmg_counts[name],
-                                     "h_edit_d": hedit_d_counts[name], "ef": ef_counts[name]},
+                "launches": paths[path][name], "path": path,
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                           "plain_covers", "split_path_ms") if k in mine[0]}}
+                                           "plain_covers", "split_path_ms", "shape")
+                   if k in mine[0]}}
 
     fwd_cu, bwd_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                       "hedit_tpu_torch/csrc/flash_attention_bwd.cu")
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
-        entry("flash_attention", "cuda", fwd_cu, f"{jax_flash}:220", flagship_counts),
+        entry("flash_attention", "cuda", fwd_cu, f"{jax_flash}:220", "masactrl"),
         entry("groupnorm", "triton", "hedit_tpu_torch/ops/groupnorm.py",
-              "hedit_tpu/ops/groupnorm.py:100", flagship_counts),
-        entry("flash_attention_lse", "cuda", fwd_cu, f"{jax_flash}:464", nmg_counts),
-        entry("flash_bwd_dq", "cuda", bwd_cu, f"{jax_flash}:553", nmg_counts),
-        entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", nmg_counts),
-        entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", flagship_counts)]}))
+              "hedit_tpu/ops/groupnorm.py:100", "masactrl"),
+        entry("flash_attention_lse", "cuda", fwd_cu, f"{jax_flash}:464", "nmg"),
+        entry("flash_bwd_dq", "cuda", bwd_cu, f"{jax_flash}:553", "nmg"),
+        entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", "nmg"),
+        entry("flash_attention_exact", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
+        entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", "masactrl")]}))
     if failures:
         print("FAILED: " + "; ".join(failures))
         return 1

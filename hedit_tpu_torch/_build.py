@@ -33,10 +33,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every pointer and the stream as c_void_p: ctypes would pass a bare Python
 # int as a 32-bit int and cut the pointer
 ARGTYPES = {
+    # q, k, v, out | bh, sq, sk, d, anchor, dtype | stream
+    "hedit_flash_attention_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    # q, k, v, out, lse | bh, sq, sk, d, anchor, dtype | stream
+    "hedit_flash_attention_fwd_lse": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, out | bh, sq, sk, d, dtype | stream
-    "hedit_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_P],
-    # q, k, v, out, lse | bh, sq, sk, d, dtype | stream
-    "hedit_flash_attention_fwd_lse": [_P] * 5 + [_I] * 5 + [_P],
+    "hedit_flash_attention_fwd_exact": [_P] * 4 + [_I] * 5 + [_P],
     # q, k, v, out | b, h, sq, sk, d | batch strides of q, k, v | dtype | stream
     "hedit_flash_attention_fwd_packed": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_I, _P],
     # q, k, v, dout, lse, delta, dq | bh, sq, sk, d, dtype | stream

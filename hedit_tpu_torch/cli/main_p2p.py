@@ -19,12 +19,15 @@ PIL; both are imported only here, when the CLI runs.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 
 import numpy as np
 import torch
+
+from hedit_tpu_torch.cli.common import (
+    add_common_args, build_pipeline, clean_prompt, dataset_samples, run_batches, token_ids,
+)
 
 MODES = ["h_edit_R", "h_edit_D_p2p", "h_edit_R_p2p", "ef", "ef_p2p", "nmg", "nmg_p2p",
          "pnp_inv_p2p"]
@@ -39,17 +42,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="h-edit text-guided editing (PyTorch port)")
     p.add_argument("--mode", type=str, default="h_edit_R_p2p", choices=MODES)
     p.add_argument("--device_num", type=int, default=0)
-    p.add_argument("--data_path", type=str, default="data")
-    p.add_argument("--output_path", type=str, default="results")
-    p.add_argument("--mapping_file", type=str, default=None)
-    p.add_argument("--image", type=str, default=None, help="single-image mode")
     p.add_argument("--source_prompt", type=str, default=None)
-    p.add_argument("--target_prompt", type=str, default=None)
     p.add_argument("--blended_word", type=str, default="")
-    p.add_argument("--edit_category_list", nargs="+", type=str,
-                   default=["0", "1", "2", "3", "4", "5", "6", "7", "8", "9"])
-    p.add_argument("--num_diffusion_steps", type=int, default=50)
-    p.add_argument("--skip", type=int, default=0)
     p.add_argument("--eta", type=float, default=1.0)
     p.add_argument("--cfg_src", type=float, default=1.0)
     p.add_argument("--cfg_src_edit", type=float, default=5.0)
@@ -68,17 +62,7 @@ def parse_args(argv=None):
     p.add_argument("--load_trajectory", type=str, default=None, metavar="NPZ",
                    help="inject a captured trajectory instead of inverting (this "
                         "package's, the JAX package's or an NCHW capture)")
-    p.add_argument("--data_parallel", type=int, default=0, metavar="B",
-                   help="edit B images per batched UNet call on one device")
-    p.add_argument("--resume", action="store_true",
-                   help="skip a sample whose output file already exists")
-    p.add_argument("--weights", type=str, default=os.environ.get("HEDIT_SD_WEIGHTS"),
-                   help="diffusers-layout checkpoint dir (unet/ vae/ text_encoder/)")
-    p.add_argument("--tiny", action="store_true",
-                   help="seeded tiny random-init model (no pretrained weights)")
-    p.add_argument("--bf16", action="store_true", help="bfloat16 model compute")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; the CPU only when asked for (--device cpu)")
+    add_common_args(p)
     args = p.parse_args(argv)
     if args.mode in ("h_edit_R", "h_edit_R_p2p", "ef", "ef_p2p"):
         assert args.eta > 0, f"{args.mode} requires eta > 0 (DDPM inversion)"
@@ -103,27 +87,7 @@ def iter_samples(args):
                          "editing_prompt": args.target_prompt or "",
                          "blended_word": args.blended_word, "editing_type_id": "0"}
         return
-    from hedit_tpu_torch.io_utils.images import dataset_from_json
-
-    mapping = args.mapping_file or os.path.join(args.data_path, "mapping_file.json")
-    for key, item in dataset_from_json(mapping).items():
-        if item.get("editing_type_id", "0") not in args.edit_category_list:
-            continue
-        item = dict(item)
-        if not os.path.isabs(item["image_path"]):
-            item["image_path"] = os.path.join(args.data_path, "annotation_images",
-                                              item["image_path"])
-        yield key, item
-
-
-def _clean(prompt: str) -> str:
-    return prompt.replace("[", "").replace("]", "")
-
-
-def token_ids(tokenizer, pipe, prompts, tiny: bool) -> np.ndarray:
-    """CLIP BPE ids [len(prompts), 77]; the tiny model folds them into its toy vocab."""
-    ids = np.asarray(tokenizer(prompts))
-    return ids % pipe.text_model.cfg.vocab_size if tiny else ids
+    yield from dataset_samples(args)
 
 
 def build_sample_controls(args, pipe, key, item, N, tokenizer, blend_res):
@@ -140,7 +104,7 @@ def build_sample_controls(args, pipe, key, item, N, tokenizer, blend_res):
     if args.tiny or not args.mode.endswith("p2p"):
         return (neutral_control(N, nominal * nominal, cond_start=2),
                 neutral_blend(N, heads, blend_res))
-    src, tar = _clean(item["original_prompt"]), _clean(item["editing_prompt"])
+    src, tar = clean_prompt(item["original_prompt"]), clean_prompt(item["editing_prompt"])
     blended = item.get("blended_word", "")
     blended = blended.split(" ") if blended else []
     prompts = [src, tar]
@@ -161,10 +125,6 @@ def build_sample_controls(args, pipe, key, item, N, tokenizer, blend_res):
     else:
         blend = neutral_blend(N, heads, blend_res)
     return control, blend
-
-
-def _out_path(out_dir, item):
-    return os.path.join(out_dir, os.path.basename(item["image_path"]).rsplit(".", 1)[0] + ".png")
 
 
 def load_injected(args, pipe, x0s):
@@ -215,9 +175,9 @@ def edit_batch(args, pipe, batch, img_size, tokenizer):
     N = args.num_diffusion_steps - args.skip
     images = np.concatenate([load_image(it["image_path"], size=img_size) for _, it in batch])
     x0s = pipe.vae_encode(torch.from_numpy(images))
-    ids = np.concatenate([token_ids(tokenizer, pipe, ["", _clean(it["original_prompt"]),
-                                                      _clean(it["editing_prompt"])], args.tiny)
-                          for _, it in batch])
+    ids = np.concatenate([token_ids(tokenizer, pipe, ["", clean_prompt(it["original_prompt"]),
+                                                      clean_prompt(it["editing_prompt"])],
+                                    args.tiny) for _, it in batch])
     ctx3 = pipe.encode_token_ids(ids).reshape(len(batch), 3, 77, -1)  # [uncond, src, tar]
 
     # Inversion-free stepping: an h-Edit P2P loop rebuilds the residuals from
@@ -274,24 +234,11 @@ def edit_batch(args, pipe, batch, img_size, tokenizer):
 
 def main(argv=None):
     args = parse_args(argv)
-    from hedit_tpu_torch.core.schedule import Schedule
-    from hedit_tpu_torch.pipelines.sd import create_sd_pipeline
-
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device found; the port runs on the card unless "
-                           "--device cpu is given")
-    pipe = create_sd_pipeline(None if args.tiny else args.weights, tiny=args.tiny,
-                              num_inference_steps=args.num_diffusion_steps,
-                              dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                              device=args.device)
-    if args.eta == 0:  # the DDIM modes build their schedule without the offset
-        pipe = dataclasses.replace(pipe, schedule=Schedule.create(args.num_diffusion_steps,
-                                                                   steps_offset=0))
-    from hedit_tpu_torch.io_utils.images import to_pil
     from hedit_tpu_torch.models.tokenizer import CLIPTokenizer
 
+    # the DDIM modes build their schedule without the offset
+    pipe = build_pipeline(args, steps_offset=0 if args.eta == 0 else 1)
     tokenizer = CLIPTokenizer()
-
     weight_str = (f"eta_{args.eta}_src_orig_{args.cfg_src}_src_edit_{args.cfg_src_edit}"
                   f"_tar_scale_{args.cfg_tar}_w_rec_{args.weight_reconstruction}"
                   f"_n_opts_{args.optimization_steps}")
@@ -299,23 +246,9 @@ def main(argv=None):
     out_dir = os.path.join(args.output_path,
                            f"{args.mode}_total_steps_{args.num_diffusion_steps}_skip_"
                            f"{args.skip}_{weight_str}_{xa_sa}")
-    os.makedirs(out_dir, exist_ok=True)
     img_size = pipe.vae.cfg.sample_size if args.tiny else 512
-    B = max(args.data_parallel, 1)
-    todo = []
-    for key, item in iter_samples(args):
-        if args.resume and os.path.exists(_out_path(out_dir, item)):
-            print(f"[{key}] output exists, skipping (--resume)")
-            continue
-        todo.append((key, item))
-    for start in range(0, len(todo), B):
-        batch = todo[start:start + B]
-        images = edit_batch(args, pipe, batch, img_size, tokenizer)
-        for (key, item), img in zip(batch, images.cpu().numpy()):
-            path = _out_path(out_dir, item)
-            to_pil(img[None]).save(path)
-            print(f"[{key}] saved {path}")
-    print(f"done: {len(todo)} samples -> {out_dir}")
+    run_batches(args, iter_samples(args), out_dir,
+                lambda batch: edit_batch(args, pipe, batch, img_size, tokenizer))
     return 0
 
 

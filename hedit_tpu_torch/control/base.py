@@ -8,10 +8,13 @@ control object, per call:
 2. ``linear_token_edit`` - the P2P cross edit as a linear map over the token
                            axis, or None;
 3. ``needs_probs``       - whether this layer must materialise attention
-                           probabilities (only the P2P store layers).
+                           probabilities (the P2P store layers, and a store
+                           control's, whose ``edit_probs`` returns the maps).
 
-The hooks of the other controls (MasaCtrl's ``override_attention``, PnP's
-``map_features``) arrive with those controls.
+A control that intervenes in logit space (mask-guided MasaCtrl) also has
+``override_attention``: it gets the head-split views of q / k / v before
+``map_qkv`` and returns the attention output, or None to take the paths
+above.  PnP's ``map_features`` arrives with that control.
 """
 
 from __future__ import annotations

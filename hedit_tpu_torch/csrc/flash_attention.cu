@@ -1,30 +1,51 @@
 // Flash-attention forward for Hopper (sm_90a): softmax(q k^T / sqrt(d)) v,
-// and the same forward with the per-query log-sum-exp as a second output.
+// optionally with the per-query base-2 log-sum-exp as a second output, in
+// one of two softmax modes chosen at compile time (Mode below).
 //
-// Replaces the TPU kernels hedit_tpu/ops/flash_attention.py:_flash_bounded_kernel
-// (wrapper flash_attention_bounded, reached through
-// hedit_tpu/ops/attention.py:fused_attention) and, with the second output,
-// _flash_bounded_lse_kernel (wrapper _flash_bounded_fwd_lse, the forward of
-// flash_attention_diff).  One template serves both: the online softmax
-// already carries the running row max m and row sum l in base-2 units, so the
-// log-sum-exp the backward kernels need is lse2 = m + log2(l), written only
-// when the caller passes a buffer for it.
+// Bounded (max-free) replaces the TPU kernels of
+// hedit_tpu/ops/flash_attention.py
+//   row 1: _flash_bounded_kernel (wrapper flash_attention_bounded, reached
+//          through hedit_tpu/ops/attention.py:fused_attention); entry point
+//          hedit_flash_attention_fwd, wrapper flash_attention_cuda;
+//   row 3: _flash_bounded_lse_kernel (wrapper _flash_bounded_fwd_lse, the
+//          forward of flash_attention_diff); entry point
+//          hedit_flash_attention_fwd_lse, wrapper flash_attention_lse_cuda.
+// A prologue takes each query row's max m0 over its anchor window, the first
+// `anchor` keys (the key block the JAX wrapper picks at that shape, passed in
+// by the wrapper; not this kernel's own key tile, or the saturation would
+// land on other keys than on the TPU).  Then one pass over all keys with
+// shift = m0 + 16 and p = exp2(min(s - shift, 100)): no running max, no
+// rescale, no dependency between key tiles but the sum.  As in the TPU
+// kernel, q * scale is rounded to the input dtype, and p is rounded to it
+// before both the PV product and the row sum (the TPU kernel sums p through
+// a ones-column of v); the sum is floored at 1.2e-38, and
+// lse2 = shift + log2(sum).  The two modes agree wherever no key scores more
+// than 116 log2 units above its row's anchor max; beyond that the bounded
+// form saturates such keys at 2^100 as the TPU kernel does.
 //
-// It also replaces _flash_packed_kernel (wrapper flash_attention_packed) of
-// the same file: the forward on the packed projections q [B, Sq, H*D], k and
-// v [B, Sk, H*D] -> out [B, Sq, H*D], head h in columns h*D .. (h+1)*D.  The
-// TPU program owned one batch row, looped over the heads in Python and kept
-// K/V of all heads resident in VMEM; here a block still owns 64 queries of
-// one (batch row, head), and the only change is in addressing: the template
-// takes the element strides (batch, head, row) of q, k, v and out, so the
-// head-split layout (head stride 0 with BH as the batch, row stride D) and the
-// packed one (head stride D, row stride H*D) are the same code, and no
-// [B, H, S, D] copy exists before or after the packed call.  A head's row is
-// D elements (80 bytes at D = 40 in bf16), neither a multiple of a 128-byte
-// line nor 16-byte aligned for every head, so the loaders stay element-wise:
-// no vector load wider than the alignment proves.  The kernel is bound by
-// arithmetic (below), and the extra sectors of the unaligned rows do not
-// show: both layouts take the same time at the same shape.
+// Exact (running max m and rescale of the accumulator and the row sum l)
+// replaces
+//   row 6: _flash_kernel (wrapper flash_attention, JAX's public exact
+//          forward, on no editing path of either package); entry point
+//          hedit_flash_attention_fwd_exact, wrapper flash_attention_exact_cuda;
+//   row 7: _flash_packed_kernel (wrapper flash_attention_packed); entry point
+//          hedit_flash_attention_fwd_packed, wrapper flash_attention_packed_cuda.
+// q * scale stays float32 and p float32 here.
+//
+// Packed heads (row 7): q [B, Sq, H*D], k and v [B, Sk, H*D] -> out
+// [B, Sq, H*D], head h in columns h*D .. (h+1)*D.  The TPU program owned one
+// batch row, looped over the heads in Python and kept K/V of all heads
+// resident in VMEM; here a block still owns 64 queries of one (batch row,
+// head), and the only change is in addressing: the template takes the
+// element strides (batch, head, row) of q, k, v and out, so the head-split
+// layout (head stride 0 with BH as the batch, row stride D) and the packed
+// one (head stride D, row stride H*D) are the same code, and no [B, H, S, D]
+// copy exists before or after the packed call.  A head's row is D elements
+// (80 bytes at D = 40 in bf16), neither a multiple of a 128-byte line nor
+// 16-byte aligned for every head, so the loaders stay element-wise: no vector
+// load wider than the alignment proves.  The kernel is bound by arithmetic
+// (below), and the extra sectors of the unaligned rows do not show: both
+// layouts take the same time at the same shape.
 //
 // Contract, head-split entry points: q [BH, Sq, D], k and v [BH, Sk, D],
 // contiguous, all of one dtype (float32 or bfloat16); out [BH, Sq, D] in that
@@ -35,11 +56,8 @@
 // 40 and 80 (UNet self-attention) or 512 (VAE mid-block).  Each has its own
 // tile shape below, and any other D is refused.
 //
-// Softmax form: exact online softmax (running row max and rescale) in base 2,
-// with the scale 1/sqrt(d) * log2(e) folded into q.  The TPU kernel's
-// max-free "bounded" shift was a VPU-saving trick; it agrees with this form
-// wherever no key scores 116 log2-units above block 0's row max, and this
-// form needs no such premise.
+// In both modes the scale 1/sqrt(d) * log2(e) is folded into q, so scores
+// are in base 2 and every exponential is an exp2.
 //
 // What bounds it on the H100.  The UNet's self-attention at [rows, 8, 4096,
 // 40] does 2 * 4096 * 4096 * 40 * 2 FLOP per (row, head) against 1.3 MB of
@@ -53,7 +71,9 @@
 // the output, so every shared-memory word it loads feeds several FMAs, and
 // the output accumulator never leaves registers.  Odd row strides keep the
 // strided shared-memory reads free of bank conflicts.  Tensor cores (mma /
-// wgmma) and TMA loads are the next step.
+// wgmma) and TMA loads are the next step.  The bounded prologue computes the
+// anchor window's scores a second time (no V, no exp2): anchor / Sk more
+// QK^T work, 1/8 at the UNet's 4096 keys and 1/4 for the VAE's.
 //
 // Block layout: 128 threads as a TQ x TK grid (tid = tq * TK + tk).  A block
 // owns BQ = TQ * RQ query rows of one (batch, head) and loops over key tiles
@@ -63,6 +83,7 @@
 // consecutive lanes of one warp, so row max and row sum are warp shuffles.
 
 #include <climits>
+#include <cmath>
 
 #include "flash_common.cuh"
 
@@ -102,14 +123,22 @@ struct Tile {
   }
 };
 
-template <typename T, int TQ, int TK, int RQ, int RK, int NC>
+// The softmax form of a forward; see the head of this file.
+enum class Mode { Exact, Bounded };
+
+constexpr float kShiftMargin = 16.f;   // shift = anchor max + 16 (base 2)
+constexpr float kSaturate = 100.f;     // p = exp2(min(s - shift, 100))
+constexpr float kDenomFloor = 1.2e-38f;
+
+template <typename T, Mode M, int TQ, int TK, int RQ, int RK, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
-                 int heads, int sq, int sk, int d, float qscale) {
+                 int heads, int sq, int sk, int d, float qscale, int anchor) {
   using Cfg = Tile<TQ, TK, RQ, RK, NC>;
   constexpr int BQ = Cfg::BQ, BK = Cfg::BK, DV = Cfg::DV, PS = Cfg::PS;
+  constexpr bool kBounded = M == Mode::Bounded;
 
   extern __shared__ float smem[];
   // launch() checks d == DV.  The loaders divide by the compile-time D: with
@@ -134,33 +163,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kg = k + b * ks.batch + h * ks.head;
   const T* vg = v + b * vs.batch + h * vs.head;
 
+  // bounded: q * scale in the input dtype, as the TPU kernel scales q
+  const float qsc = kBounded ? to_float(from_float<T>(qscale)) : qscale;
   for (int e = tid; e < BQ * D; e += kThreads) {
     const int r = e / D, c = e - r * D;
-    q_s[r * dp + c] = (q0 + r < sq) ? to_float(qg[r * qs.row + c]) * qscale : 0.f;
+    float x = 0.f;
+    if (q0 + r < sq) {
+      x = to_float(qg[r * qs.row + c]) * qsc;
+      if (kBounded) x = to_float(from_float<T>(x));
+    }
+    q_s[r * dp + c] = x;
   }
 
-  float acc[RQ][NC];
-  float m_i[RQ], l_i[RQ];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m_i[i] = -CUDART_INF_F;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < sk; k0 += BK) {
-    __syncthreads();  // previous tile's k_s / v_s / p_s reads are done
+  // K rows k0 .. k0 + BK (and V's unless only the scores are wanted) into
+  // shared memory; rows at or past `end` read as 0
+  auto load_tile = [&](int k0, int end, bool with_v) {
     for (int e = tid; e < BK * D; e += kThreads) {
       const int r = e / D, c = e - r * D;
-      const bool ok = k0 + r < sk;
+      const bool ok = k0 + r < end;
       k_s[r * dp + c] = ok ? to_float(kg[(k0 + r) * ks.row + c]) : 0.f;
-      v_s[r * DV + c] = ok ? to_float(vg[(k0 + r) * vs.row + c]) : 0.f;
+      if (with_v) v_s[r * DV + c] = ok ? to_float(vg[(k0 + r) * vs.row + c]) : 0.f;
     }
-    __syncthreads();
-
-    // scores (base 2): s[i][j] = q_s[row i] . k_s[col j]
-    float s[RQ][RK];
+  };
+  // scores (base 2) of the tile in k_s: s[i][j] = q_s[row i] . k_s[col j]
+  auto tile_scores = [&](float (&s)[RQ][RK]) {
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -176,10 +202,72 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < RK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
+  };
 
-    // online softmax per row; the TK lanes of a row reduce by shuffles
+  float acc[RQ][NC];
+  // Exact: running max m_i.  Bounded: the fixed shift of each row.
+  float m_i[RQ], l_i[RQ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    m_i[i] = -CUDART_INF_F;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  if (kBounded) {
+    // prologue: the max of each row over its anchor window
+    const int a_end = anchor < sk ? anchor : sk;
+    for (int k0 = 0; k0 < a_end; k0 += BK) {
+      __syncthreads();  // q_s written / previous tile's k_s reads done
+      load_tile(k0, a_end, false);
+      __syncthreads();
+      float s[RQ][RK];
+      tile_scores(s);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < RK; ++j)
+          if (k0 + tk + TK * j < a_end) m_i[i] = fmaxf(m_i[i], s[i][j]);
+    }
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
+#pragma unroll
+      for (int off = TK / 2; off > 0; off >>= 1)
+        m_i[i] = fmaxf(m_i[i], __shfl_xor_sync(0xffffffffu, m_i[i], off));
+      m_i[i] += kShiftMargin;  // key 0 is in the window (sk, anchor >= 1): finite
+    }
+  }
+
+  for (int k0 = 0; k0 < sk; k0 += BK) {
+    __syncthreads();  // previous tile's k_s / v_s / p_s reads are done
+    load_tile(k0, sk, true);
+    __syncthreads();
+
+    float s[RQ][RK];
+    tile_scores(s);
+
+    // softmax weights per row; the TK lanes of a row reduce by shuffles
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      if (kBounded) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < RK; ++j) {
+          float p = 0.f;
+          if (k0 + tk + TK * j < sk) {
+            p = exp2f(fminf(s[i][j] - m_i[i], kSaturate));
+            p = to_float(from_float<T>(p));  // p in the input dtype, as on the TPU
+          }
+          p_s[(tq * RQ + i) * PS + tk + TK * j] = p;
+          sum += p;
+        }
+#pragma unroll
+        for (int off = TK / 2; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        l_i[i] += sum;
+        continue;
+      }
       float mx = -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
@@ -228,31 +316,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RQ; ++i) {
     const int r = tq * RQ + i;
     if (q0 + r >= sq) continue;
-    const float inv_l = 1.f / l_i[i];
+    const float l = kBounded ? fmaxf(l_i[i], kDenomFloor) : l_i[i];
+    const float inv_l = 1.f / l;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       og[r * os.row + tk + TK * c] = from_float<T>(acc[i][c] * inv_l);
     }
-    if (lse != nullptr && tk == 0) lse[size_t(bh) * sq + q0 + r] = m_i[i] + log2f(l_i[i]);
+    // m_i is the running max (Exact) or the shift (Bounded)
+    if (lse != nullptr && tk == 0) lse[size_t(bh) * sq + q0 + r] = m_i[i] + log2f(l);
   }
 }
 
-template <typename T, int TQ, int TK, int RQ, int RK, int NC>
+template <typename T, Mode M, int TQ, int TK, int RQ, int RK, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   const Layout& lay, int sq, int sk, int d, cudaStream_t stream) {
+                   const Layout& lay, int sq, int sk, int d, int anchor, cudaStream_t stream) {
   using Cfg = Tile<TQ, TK, RQ, RK, NC>;
-  auto kernel = flash_fwd_kernel<T, TQ, TK, RQ, RK, NC>;
+  auto kernel = flash_fwd_kernel<T, M, TQ, TK, RQ, RK, NC>;
   if (d != Cfg::DV) return cudaErrorInvalidValue;
   const size_t smem = Cfg::smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + Cfg::BQ - 1) / Cfg::BQ, lay.bh);
-  const float qscale = kLog2e / sqrtf(float(d));
+  // Bounded: JAX's constant, (1 / sqrt(d)) * log2(e) in double, then rounded
+  const float qscale = M == Mode::Bounded ? float(1.0 / sqrt(double(d)) * 1.4426950408889634)
+                                          : kLog2e / sqrtf(float(d));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, lay.q, lay.k, lay.v, lay.out,
-      lay.heads, sq, sk, d, qscale);
+      lay.heads, sq, sk, d, qscale, anchor);
   return cudaGetLastError();
 }
 
@@ -260,27 +352,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 // keys, 4 x 8 scores and 4 x d/8 outputs a thread.  d=512 (the VAE mid
 // block): 16 queries x 32 keys, 4 x 1 scores and 4 x 16 outputs a thread,
 // which keeps shared memory under 170 KB.
-template <typename T>
+template <typename T, Mode M>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
-                     const Layout& lay, int sq, int sk, int d, cudaStream_t s) {
+                     const Layout& lay, int sq, int sk, int d, int anchor, cudaStream_t s) {
   switch (d) {
-    case 40: return launch<T, 16, 8, 4, 8, 5>(q, k, v, out, lse, lay, sq, sk, d, s);
-    case 80: return launch<T, 16, 8, 4, 8, 10>(q, k, v, out, lse, lay, sq, sk, d, s);
-    case 512: return launch<T, 4, 32, 4, 1, 16>(q, k, v, out, lse, lay, sq, sk, d, s);
+    case 40: return launch<T, M, 16, 8, 4, 8, 5>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
+    case 80: return launch<T, M, 16, 8, 4, 8, 10>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
+    case 512: return launch<T, M, 4, 32, 4, 1, 16>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// anchor: the bounded mode's anchor window (>= 1); the exact mode reads none.
+template <Mode M>
 int forward(const void* q, const void* k, const void* v, void* out, float* lse,
-            const Layout& lay, int sq, int sk, int d, int dtype, void* stream) {
+            const Layout& lay, int sq, int sk, int d, int anchor, int dtype, void* stream) {
   if (lay.bh < 1 || sq < 1 || sk < 1 || lay.bh > 65535) return -1;
   if (d != 40 && d != 80 && d != 512) return -1;
+  if (M == Mode::Bounded && anchor < 1) return -1;
   const long long longest = sq > sk ? sq : sk;
   if (longest * lay.q.row > INT_MAX || longest * lay.k.row > INT_MAX) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(dispatch<float>(q, k, v, out, lse, lay, sq, sk, d, s));
-    case 1: return int(dispatch<__nv_bfloat16>(q, k, v, out, lse, lay, sq, sk, d, s));
+    case 0: return int(dispatch<float, M>(q, k, v, out, lse, lay, sq, sk, d, anchor, s));
+    case 1: return int(dispatch<__nv_bfloat16, M>(q, k, v, out, lse, lay, sq, sk, d, anchor, s));
     default: return -1;
   }
 }
@@ -296,28 +391,40 @@ Layout head_split(int bh, int sq, int sk, int d) {
 // Plain C entry points for ctypes.  dtype: 0 float32, 1 bfloat16.
 // Each returns 0 on success, a cudaError_t code from the launch, or -1 for
 // arguments the kernel does not take.
+
+// Row 1: the bounded forward, head-split; anchor: the anchor window in keys.
 extern "C" int hedit_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* out, int bh,
-                                         int sq, int sk, int d, int dtype,
+                                         int sq, int sk, int d, int anchor, int dtype,
                                          void* stream) {
-  return forward(q, k, v, out, nullptr, head_split(bh, sq, sk, d), sq, sk, d, dtype, stream);
+  return forward<Mode::Bounded>(q, k, v, out, nullptr, head_split(bh, sq, sk, d), sq, sk, d,
+                                anchor, dtype, stream);
 }
 
-// The same forward, also writing lse2 [BH, Sq] float32 (base-2 log-sum-exp of
-// the scaled scores of each query).
+// Row 3: the same forward, also writing lse2 [BH, Sq] float32 (base-2
+// log-sum-exp of the scaled scores of each query, shift + log2(sum)).
 extern "C" int hedit_flash_attention_fwd_lse(const void* q, const void* k,
                                              const void* v, void* out, void* lse,
-                                             int bh, int sq, int sk, int d,
+                                             int bh, int sq, int sk, int d, int anchor,
                                              int dtype, void* stream) {
   if (lse == nullptr) return -1;
-  return forward(q, k, v, out, static_cast<float*>(lse), head_split(bh, sq, sk, d), sq, sk, d,
-                 dtype, stream);
+  return forward<Mode::Bounded>(q, k, v, out, static_cast<float*>(lse),
+                                head_split(bh, sq, sk, d), sq, sk, d, anchor, dtype, stream);
 }
 
-// The forward on packed heads: q [B, Sq, H*D], k and v [B, Sk, H*D], each
-// [S, H*D] image dense and the images q_bs, k_bs, v_bs elements apart (0: one
-// image read by every batch row); out [B, Sq, H*D] contiguous.  Head h of a
-// row is its columns h*D .. (h+1)*D, on both sides.
+// Row 6: the exact forward, head-split.
+extern "C" int hedit_flash_attention_fwd_exact(const void* q, const void* k,
+                                               const void* v, void* out, int bh,
+                                               int sq, int sk, int d, int dtype,
+                                               void* stream) {
+  return forward<Mode::Exact>(q, k, v, out, nullptr, head_split(bh, sq, sk, d), sq, sk, d, 0,
+                              dtype, stream);
+}
+
+// Row 7: the exact forward on packed heads: q [B, Sq, H*D], k and v
+// [B, Sk, H*D], each [S, H*D] image dense and the images q_bs, k_bs, v_bs
+// elements apart (0: one image read by every batch row); out [B, Sq, H*D]
+// contiguous.  Head h of a row is its columns h*D .. (h+1)*D, on both sides.
 extern "C" int hedit_flash_attention_fwd_packed(const void* q, const void* k,
                                                 const void* v, void* out, int b,
                                                 int h, int sq, int sk, int d,
@@ -333,5 +440,5 @@ extern "C" int hedit_flash_attention_fwd_packed(const void* q, const void* k,
       (v_bs != 0 && v_bs < kv_img))
     return -1;
   const Layout lay{b * h, h, {q_bs, d, row}, {k_bs, d, row}, {v_bs, d, row}, {q_img, d, row}};
-  return forward(q, k, v, out, nullptr, lay, sq, sk, d, dtype, stream);
+  return forward<Mode::Exact>(q, k, v, out, nullptr, lay, sq, sk, d, 0, dtype, stream);
 }

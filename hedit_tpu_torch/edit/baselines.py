@@ -48,7 +48,8 @@ from hedit_tpu_torch.edit.h_edit_p2p import rows
 
 def _with_step(control, i: int, **kw):
     """dataclasses.replace(control, step=i, **kw) keeping only the fields the
-    control has, so the pair baselines drive any control through one path."""
+    control has, so the pair baselines drive P2P and MasaCtrl (whose only
+    per-step field is ``step``) through one path."""
     fields = {f.name for f in dataclasses.fields(control)}
     return dataclasses.replace(
         control, **{k: v for k, v in dict(step=i, **kw).items() if k in fields})
@@ -61,7 +62,9 @@ def ef_or_pnp_inv_p2p(unet, schedule: Schedule, xT: torch.Tensor, zs: Optional[t
                       local_blend: Optional[LocalBlendState] = None,
                       xts: Optional[torch.Tensor] = None, derive_zs: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """EF + P2P, or PnP-Inv + P2P with ``is_ddim_inversion``, for B images.
+    """EF + P2P, or PnP-Inv + P2P with ``is_ddim_inversion``, for B images;
+    with a ``MasaCtrlControl`` (``num_images`` B) the modes ``ef_masactrl``
+    and ``pnp_inv_masactrl``.
 
     xT [B, H, W, C] (NHWC); zs [B, S, H, W, C] or None with ``derive_zs``; ctx3
     [B, 3, 77, D] rows [uncond, src, tar]; control / local_blend: per-image
@@ -86,8 +89,9 @@ def ef_or_pnp_inv_p2p(unet, schedule: Schedule, xT: torch.Tensor, zs: Optional[t
     B = _check_batch(xT, zs, ctx3, N)
     traj = traj_inputs(xts, N)
     if traj is not None and not hasattr(control, "edit_pair"):
-        raise ValueError("indexed-source fast path (xts) is only exact for P2P: this "
-                         "control may consume the uncond source row")
+        raise ValueError("indexed-source fast path (xts) is only exact for P2P: MasaCtrl "
+                         "consumes the uncond source row, so it takes the 4-row pair step "
+                         "(give no xts)")
     if derive_zs and not (traj is not None and (is_ddim_inversion
                                                 or (eta > 0 and cfg_src == 1.0))):
         raise ValueError("derive_zs needs xts and, for DDPM, eta > 0 and cfg_src == 1.0")

@@ -9,9 +9,11 @@
   Everything else goes to the plain version.  The P2P self edit (a q/k
   row-select, ``map_qkv``) and cross edit (a linear map over the token axis,
   ``linear_token_edit``) both ride this path.
-* probability path: only at the P2P store layers, and only for the
-  (cond_start, cond_start + 1) row pair of each image; the other rows ride
-  the fused path.
+* probability path: at the P2P store layers only for the (cond_start,
+  cond_start + 1) row pair of each image, the other rows riding the fused
+  path; for a control without ``edit_pair`` (a store of maps) every row.
+* override: a control with ``override_attention`` (mask-guided MasaCtrl)
+  gets head-split views of q / k / v first and may return the output itself.
 
 Batch layout under a control with ``num_images`` images: rows are grouped by
 image, ``rows = num_images * group``, and each control edit reads row
@@ -53,6 +55,12 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """[B, H, S, D] -> [B, S, H*D]"""
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _head_view(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, S, H*D] -> a [B, H, S, D] view (no copy)"""
+    b, s, hd = x.shape
+    return x.reshape(b, s, heads, hd // heads).transpose(1, 2)
 
 
 def attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -105,6 +113,12 @@ def controlled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Multi-head attention with control hooks.
 
     q/k/v: [B, S, H*D] projections.  Returns ([B, Sq, H*D], stored maps)."""
+    override = getattr(control, "override_attention", None)
+    if override is not None:
+        out = override(*(_head_view(t, heads) for t in (q, k, v)), layer)
+        if out is not None:
+            return merge_heads(out).to(q.dtype), {}
+
     q, k, v = control.map_qkv(q, k, v, layer)
 
     def fused(qp, kp, vp):
@@ -129,8 +143,14 @@ def controlled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out[:, cs + 1] += extra.to(q.dtype)
         return out.reshape(q.shape[0], *out.shape[2:]), {}
 
+    if control.needs_probs(layer) and not hasattr(control, "edit_pair"):
+        # A store of maps (no edit): probabilities for every row.
+        qh, kh, vh = (split_heads(t, heads) for t in (q, k, v))
+        probs, store = control.edit_probs(attention_probs(qh, kh), layer)
+        return merge_heads(torch.matmul(probs.to(vh.dtype), vh)).to(q.dtype), store
+
     if control.needs_probs(layer):
-        # Row split: probabilities only for each image's (base, edit) pair.
+        # P2P's row split: probabilities only for each image's (base, edit) pair.
         n, g, cs = _groups(control, q.shape[0])
         qg, kg, vg = (t.reshape(n, g, *t.shape[1:]) for t in (q, k, v))
         pair = lambda t: split_heads(t[:, cs:cs + 2].reshape(2 * n, *t.shape[2:]), heads)  # noqa: E731

@@ -1,25 +1,39 @@
 """Flash attention, forward and backward: hand-written CUDA kernels and
 their plain versions.
 
-Port of ``hedit_tpu/ops/flash_attention.py``.
+Port of ``hedit_tpu/ops/flash_attention.py``.  One CUDA forward template
+(``csrc/flash_attention.cu``) in two softmax modes:
 
-* ``flash_attention_cuda``: the forward without a gradient.  The TPU kernel
-  ``_flash_bounded_kernel`` becomes ``csrc/flash_attention.cu``.
-* ``flash_attention_packed_cuda``: the same forward on the packed
-  projections ``[B, S, H*D]``, heads addressed in the kernel (the TPU kernel
-  ``_flash_packed_kernel``): a second entry point of the same CUDA template,
-  which takes the strides of both layouts.
-* ``flash_attention_diff``: the forward with a gradient, a
-  ``torch.autograd.Function``.  Its forward is the same CUDA template with a
-  second output, the base-2 log-sum-exp of each query row (the TPU kernel
-  ``_flash_bounded_lse_kernel``); its backward launches the dq and the dk / dv
-  kernels of ``csrc/flash_attention_bwd.cu`` (the TPU kernels
-  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``).
+* **bounded** (max-free): the TPU kernels ``_flash_bounded_kernel`` and
+  ``_flash_bounded_lse_kernel``.  Each query row's shift is anchored on the
+  first ``anchor`` keys (``bounded_anchor``: the key block the JAX wrapper
+  picks at that shape), ``shift = m0 + 16`` in base-2 units, and every key
+  contributes ``p = exp2(min(s - shift, 100))`` with no running max and no
+  rescale; the denominator is floored at ``1.2e-38``.
+
+  - ``flash_attention_cuda``: the forward without a gradient (the VAE's
+    one-head attention on the paths);
+  - ``flash_attention_lse_cuda``: the same with the base-2 log-sum-exp
+    ``lse2 = shift + log2(denom)`` of each row, the forward of
+    ``flash_attention_diff``, whose backward launches the dq and the dk / dv
+    kernels of ``csrc/flash_attention_bwd.cu`` (the TPU kernels
+    ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``).
+
+* **exact** (running max and rescale): the TPU kernels ``_flash_kernel``
+  (``flash_attention_exact_cuda``, head-split) and ``_flash_packed_kernel``
+  (``flash_attention_packed_cuda``: the packed projections ``[B, S, H*D]``,
+  heads addressed in the kernel).
+
+The two modes agree wherever no key scores more than 116 log2 units above
+its row's anchor maximum; beyond that the bounded form saturates those keys
+at 2^100 as the TPU kernel does.
 
 The notes at the head of the two sources give the designs and what bounds
-them on the H100.  Beside each kernel stands its plain PyTorch version:
-``reference_attention`` (softmax in float32),
-``flash_attention_packed_reference``, ``flash_attention_lse_reference`` and
+them on the H100.  Beside each kernel stands its plain PyTorch version
+(the head-split forward wrappers take theirs for CPU tensors):
+``flash_attention_bounded_reference`` and ``flash_attention_lse_reference``
+(bounded, JAX's arithmetic step by step), ``reference_attention`` (exact,
+softmax in float32), ``flash_attention_packed_reference`` and
 ``flash_attention_backward_reference`` (the backward by its explicit
 formulas, not by autograd of the forward).  The TPU kernels' VMEM residency
 rule (``flash_kv_fits``) has no counterpart: the CUDA kernels stream tiles
@@ -28,21 +42,22 @@ take.
 
 ``ops/attention.py`` routes a CUDA tensor by its sequence lengths, its heads
 and whether a gradient is recorded to a kernel or to the plain version
-(``FLASH_MIN_SEQ``); a kernel
-wrapper raises on anything it does not take and never falls back.
+(``FLASH_MIN_SEQ``); a kernel wrapper raises on any CUDA input it does not
+take and never falls back.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
-launches = 0          # forward without the log-sum-exp, head-split layout
-launches_packed = 0   # the same forward on packed heads
-launches_lse = 0      # forward with the log-sum-exp
+launches = 0          # bounded forward without the log-sum-exp, head-split
+launches_exact = 0    # exact forward, head-split
+launches_packed = 0   # exact forward on packed heads
+launches_lse = 0      # bounded forward with the log-sum-exp
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
 
@@ -52,10 +67,22 @@ HEAD_DIMS = (40, 80, 512)
 BWD_HEAD_DIMS = (40, 80)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
+DENOM_FLOOR = 1.2e-38
+
+
+def bounded_anchor(sk: int, d: int) -> int:
+    """The bounded forward's anchor window: the key block ``blk_k`` that the
+    JAX wrappers pick at this shape with their default blocks
+    (``_shrink_blocks``, then ``min(blk_k, max(128, Sk))``): 512 keys for the
+    UNet's head dims, 1024 above d = 128 (the VAE's 512).  The shift of each
+    query row is anchored on its first ``min(anchor, Sk)`` keys, so the
+    saturation falls on the same keys as on the TPU."""
+    return min(1024 if d > 128 else 512, max(128, sk))
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v with float32 scores and softmax.
+    """softmax(q k^T / sqrt(d)) v with float32 scores and softmax: the exact
+    form, plain version of the exact kernels.
 
     q [B, H, Sq, D]; k, v [B, H, Sk, D] -> [B, H, Sq, D] in q's dtype.  The
     probabilities are cast to v's dtype before the PV product, as the JAX
@@ -64,6 +91,43 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (d ** 0.5)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v).to(q.dtype)
+
+
+def _bounded(q, k, v, anchor):
+    """(out [B, H, Sq, D] in q's dtype, lse2 [B, H, Sq] float32) of the bounded
+    forward, in the TPU kernel's arithmetic: q scaled by sm_scale * log2(e) in
+    the input dtype, scores in float32, the shift from the first ``anchor``
+    keys, p cast to the input dtype before both the PV product and the
+    denominator (the TPU kernel sums p through a ones-column of v)."""
+    d, sk = q.shape[-1], k.shape[-2]
+    anchor = bounded_anchor(sk, d) if anchor is None else anchor
+    qs = q * torch.tensor(1.0 / d ** 0.5 * _LOG2E, dtype=q.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    shift = s[..., :min(anchor, sk)].amax(dim=-1, keepdim=True) + 16.0
+    p = torch.exp2(torch.clamp(s - shift, max=100.0)).to(v.dtype).float()
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=DENOM_FLOOR)
+    out = (torch.matmul(p, v.float()) / denom).to(q.dtype)
+    return out, (shift + torch.log2(denom))[..., 0]
+
+
+def flash_attention_bounded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      anchor: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the bounded forward (``_flash_bounded_kernel``):
+    q [B, H, Sq, D], k / v [B, H, Sk, D] -> [B, H, Sq, D] in q's dtype.
+    ``anchor`` defaults to ``bounded_anchor(Sk, D)``."""
+    return _bounded(q, k, v, anchor)[0]
+
+
+def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  anchor: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the bounded forward with the log-sum-exp
+    (``_flash_bounded_lse_kernel``): (out [B, H, Sq, D] in q's dtype, lse2
+    [B*H, 1, Sq] float32), lse2 = shift + log2(denom) in base-2 units of the
+    scaled scores.  ``anchor`` as ``flash_attention_bounded_reference``."""
+    b, h, sq, _ = q.shape
+    out, lse2 = _bounded(q, k, v, anchor)
+    return out, lse2.reshape(b * h, 1, sq)
 
 
 def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -76,20 +140,6 @@ def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.
 
     out = reference_attention(split(q), split(k), split(v))
     return out.transpose(1, 2).reshape(q.shape)
-
-
-def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward with the log-sum-exp: (out [B, H, Sq, D] in
-    q's dtype, lse2 [B*H, 1, Sq] float32), lse2 = log2(sum_k exp2(s2)) with
-    s2 = q k^T / sqrt(d) * log2(e), all in float32."""
-    b, h, sq, d = q.shape
-    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (_LOG2E / d ** 0.5)
-    m = s2.amax(dim=-1, keepdim=True)
-    e = torch.exp2(s2 - m)
-    l = e.sum(dim=-1, keepdim=True)
-    out = torch.matmul(e / l, v.float()).to(q.dtype)
-    return out, (m + torch.log2(l)).reshape(b * h, 1, sq)
 
 
 def flash_attention_backward_reference(q, k, v, out, lse2, do
@@ -109,6 +159,10 @@ def flash_attention_backward_reference(q, k, v, out, lse2, do
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
 
 
 def _check_device_dtype(q, k, v, what: str) -> None:
@@ -150,13 +204,34 @@ def _launch(name: str, q: torch.Tensor, pointers, ints) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel on the current stream.  Raises on any input
-    the kernel does not take, and if the launch is refused."""
+    """The bounded forward: a CPU tensor takes the plain version, a CUDA
+    tensor launches the kernel on the current stream with the anchor of
+    ``bounded_anchor``.  Raises on any CUDA input the kernel does not take,
+    and if the launch is refused."""
     global launches
+    if _on_cpu(q, k, v):
+        return flash_attention_bounded_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_cuda")
     out = torch.empty_like(q)
-    _launch("hedit_flash_attention_fwd", q, (q, k, v, out), (b * h, sq, sk, d))
+    _launch("hedit_flash_attention_fwd", q, (q, k, v, out),
+            (b * h, sq, sk, d, bounded_anchor(sk, d)))
     launches += 1
+    return out
+
+
+def flash_attention_exact_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                               ) -> torch.Tensor:
+    """The exact forward (running max and rescale; the TPU kernel
+    ``_flash_kernel`` of JAX's public ``flash_attention``): a CPU tensor takes
+    ``reference_attention``, a CUDA tensor launches the kernel.  Raises as
+    ``flash_attention_cuda`` does."""
+    global launches_exact
+    if _on_cpu(q, k, v):
+        return reference_attention(q, k, v)
+    b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_exact_cuda")
+    out = torch.empty_like(q)
+    _launch("hedit_flash_attention_fwd_exact", q, (q, k, v, out), (b * h, sq, sk, d))
+    launches_exact += 1
     return out
 
 
@@ -199,13 +274,17 @@ def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel with its second output: (out, lse2
-    [B*H, 1, Sq] float32).  Raises as ``flash_attention_cuda`` does."""
+    """The bounded forward with its second output: (out, lse2 [B*H, 1, Sq]
+    float32).  CPU tensors take ``flash_attention_lse_reference``; otherwise
+    as ``flash_attention_cuda``."""
     global launches_lse
+    if _on_cpu(q, k, v):
+        return flash_attention_lse_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_lse_cuda")
     out = torch.empty_like(q)
     lse2 = torch.empty((b * h, 1, sq), dtype=torch.float32, device=q.device)
-    _launch("hedit_flash_attention_fwd_lse", q, (q, k, v, out, lse2), (b * h, sq, sk, d))
+    _launch("hedit_flash_attention_fwd_lse", q, (q, k, v, out, lse2),
+            (b * h, sq, sk, d, bounded_anchor(sk, d)))
     launches_lse += 1
     return out, lse2
 
@@ -257,14 +336,13 @@ def flash_attention_backward_cuda(q, k, v, out, lse2, do
 
 
 class _FlashAttentionDiff(torch.autograd.Function):
-    """Forward saves (q, k, v, out, lse2); backward rebuilds the probabilities
-    from lse2.  CUDA tensors launch the kernels, CPU tensors take the plain
-    versions."""
+    """Forward (bounded) saves (q, k, v, out, lse2); backward rebuilds the
+    probabilities from lse2.  CUDA tensors launch the kernels, CPU tensors
+    take the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        fwd = flash_attention_lse_cuda if q.is_cuda else flash_attention_lse_reference
-        out, lse2 = fwd(q, k, v)
+        out, lse2 = flash_attention_lse_cuda(q, k, v)
         ctx.save_for_backward(q, k, v, out, lse2)
         return out
 

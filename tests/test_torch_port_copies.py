@@ -47,6 +47,8 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     word-bounded)."""
     files = _port_files()
     assert len(files) > 20
+    assert {"masactrl.py", "masactrl_mask.py", "masactrl_auto.py", "h_edit_ctrl.py",
+            "main_masactrl.py", "common.py"} <= {os.path.basename(f) for f in files}
     hits = [f"{os.path.relpath(f, ROOT)}: {m.group(0).strip()}"
             for f in files for m in _IMPORT.finditer(open(f).read())]
     assert not hits, hits

@@ -233,8 +233,8 @@ out = h_edit_p2p_flagship(pipe.unet, pipe.schedule, HEditConfig(), xts=xts, ctx4
 img = pipe.vae_decode(out)
 assert img.shape == (1, 64, 64, 3) and bool(torch.isfinite(img).all())
 
-# the CLI, a DDPM and a DDIM mode, with the JAX package still blocked; it alone
-# needs regex (the tokenizer) and PIL (image files)
+# the CLIs, main_p2p in a DDPM and a DDIM mode and main_masactrl, with the JAX
+# package still blocked; they alone need regex (the tokenizer) and PIL (image files)
 del sys.modules["regex"], sys.modules["PIL"]
 import os, tempfile
 from PIL import Image
@@ -248,6 +248,12 @@ with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, flags[1])
         assert main(flags + common + ["--output_path", out]) == 0
         assert any(f.endswith(".png") for _, _, fs in os.walk(out) for f in fs), flags
+    from hedit_tpu_torch.cli.main_masactrl import main as main_masactrl
+    out = os.path.join(tmp, "masactrl")
+    assert main_masactrl(["--mode", "h_edit_D_masactrl", "--step", "1", "--num_diffusion_steps",
+                          "2", "--image", src, "--target_prompt", "a brown lizard", "--tiny",
+                          "--device", "cpu", "--output_path", out]) == 0
+    assert any(f.endswith(".png") for _, _, fs in os.walk(out) for f in fs)
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "hedit_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("GUARD_OK")
@@ -257,8 +263,9 @@ print("GUARD_OK")
 def test_main_path_imports_without_jax_flax_regex_pil():
     """The machine with the card has no jax, flax or regex and maybe no PIL:
     the port's main path and chip_smoke.py must import and run without them,
-    and without the JAX package itself; the CLI runs both ported modes with
-    the JAX package blocked (it alone needs regex and PIL)."""
+    and without the JAX package itself; the CLIs (main_p2p in a DDPM and a
+    DDIM mode, main_masactrl) run with the JAX package blocked (they alone
+    need regex and PIL)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS=str(torch.get_num_threads()))
     proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=root, env=env,

@@ -10,6 +10,8 @@ Tests marked ``gpu`` need a CUDA device and skip without one; the others
 check that a CPU tensor takes the plain version and launches nothing.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -19,7 +21,8 @@ from hedit_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ, fused_attention, fused_attention_packed, merge_heads, split_heads,
 )
 from hedit_tpu_torch.ops.flash_attention import (
-    flash_attention_packed_reference, reference_attention,
+    bounded_anchor, flash_attention_bounded_reference, flash_attention_packed_reference,
+    reference_attention,
 )
 
 
@@ -34,34 +37,92 @@ def cuda():
 
 def test_flash_wrapper_takes_plain_version_on_cpu():
     """A CPU tensor takes the plain version even at kernel-sized sequences
-    and launches nothing; the CUDA entry point refuses CPU tensors instead
-    of falling back."""
+    and launches nothing: the routing takes the exact plain version, as the
+    JAX package's routing off the TPU does, and the bounded forward's wrapper
+    its own bounded plain version."""
     q = torch.randn(1, 1, FLASH_MIN_SEQ, 8)
     before = flash_mod.launches
     torch.testing.assert_close(fused_attention(q, q, q), reference_attention(q, q, q),
                                rtol=0, atol=0)
+    torch.testing.assert_close(flash_mod.flash_attention_cuda(q, q, q),
+                               flash_attention_bounded_reference(q, q, q), rtol=0, atol=0)
     assert flash_mod.launches == before
-    with pytest.raises(ValueError):
-        flash_mod.flash_attention_cuda(q, q, q)
+
+
+def _plain_on_card(fn, *ts):
+    """A plain version on the card: float32 inputs run in float32; bfloat16
+    inputs run the bounded plain versions in bf16 (they round q * scale, p
+    and the output at the kernel's steps) and the exact one in float32 on the
+    same values (the exact kernel keeps float32 scores and p)."""
+    return fn(*ts) if fn is not reference_attention else fn(*(t.float() for t in ts))
+
+
+def _tol(dtype, want):
+    """float32: 1e-4 (summation order); bfloat16: one output ulp at the
+    largest output, 2^-8 * max|out|: the kernel and its plain version round
+    at the same steps and a rounding may fall the other way."""
+    return 1e-4 if dtype == torch.float32 else 2.0 ** -8 * want.float().abs().max().item()
+
+
+def _saturating(device, dtype):
+    """q [1, 8, 1024, 40], k / v [1, 8, 1024, 40]: every query's score with
+    a key is set by the key's first component.  The anchor window (512 keys)
+    scores a few log2 units; key 600 scores ~146, more than 116 above the
+    window's max (clamped to 2^100 by the bounded form), keys 700-763 ~109
+    (below the clamp): exact attention is key 600's value row, the bounded
+    form mixes in the 64 keys."""
+    g = torch.Generator(device=device).manual_seed(5)
+    q = torch.randn(1, 8, 1024, 40, generator=g, device=device) * 0.1
+    q[..., 0] = 8.0
+    k = torch.randn(1, 8, 1024, 40, generator=g, device=device) * 0.5
+    v = torch.randn(1, 8, 1024, 40, generator=g, device=device)
+    k[:, :, 600, 0] = 80.0
+    k[:, :, 700:764, 0] = 60.0
+    return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 8, 1024, 40), (1, 8, 1000, 80), (1, 1, 1024, 512)])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
-    """CUDA kernel against the plain version in float32 on the same input
-    values.  float32: 1e-4 (summation order); bfloat16: one output ulp at the
-    largest output, 2^-8 * max|out|, since the kernel computes in float32 and
-    rounds once to bf16 (half an ulp)."""
+    """The bounded kernel (kernel 1) against its plain version with the same
+    anchor, and the exact kernel (kernel 6) against ``reference_attention``
+    (tolerances of ``_tol``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
-    before = flash_mod.launches
-    got = flash_mod.flash_attention_cuda(q, k, v)
+    for wrapper, plain, counter in (
+            (flash_mod.flash_attention_cuda, flash_attention_bounded_reference, "launches"),
+            (flash_mod.flash_attention_exact_cuda, reference_attention, "launches_exact")):
+        before = getattr(flash_mod, counter)
+        got = wrapper(q, k, v)
+        torch.cuda.synchronize()
+        assert getattr(flash_mod, counter) == before + 1
+        want = _plain_on_card(plain, q, k, v).float()
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bounded_kernels_saturate_as_their_plain_versions_on_card(cuda, dtype):
+    """Keys beyond the anchor window far above its max: the bounded kernels
+    (forward and LSE forward) match the bounded plain versions, the exact
+    kernel matches exact attention, and the two forms differ by far more
+    than the tolerance."""
+    q, k, v = _saturating(cuda, dtype)
+    assert bounded_anchor(1024, 40) == 512
+    bounded = flash_mod.flash_attention_cuda(q, k, v).float()
+    out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
+    exact = flash_mod.flash_attention_exact_cuda(q, k, v).float()
+    want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v)
+    want_exact = reference_attention(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
-    assert flash_mod.launches == before + 1
-    want = reference_attention(q.float(), k.float(), v.float())
-    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8 * want.abs().max().item()
-    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    tol = _tol(dtype, want_out)
+    torch.testing.assert_close(bounded, want_out.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse2, want_lse, rtol=1e-5, atol=1e-4)   # ~120: float32 ulps
+    torch.testing.assert_close(exact, want_exact, rtol=0, atol=_tol(dtype, want_exact))
+    assert (bounded - exact).abs().max().item() > 20 * tol
+    assert lse2.min().item() > 100.0
 
 
 @pytest.mark.gpu
@@ -105,8 +166,9 @@ def test_groupnorm_kernel_matches_plain_on_card(cuda, dtype, shape):
 
 def test_flash_diff_on_cpu_takes_plain_versions():
     """``flash_attention_diff`` on CPU tensors: forward and backward are the
-    plain versions, nothing is launched, and the backward kernels' entry
-    points refuse CPU tensors."""
+    plain versions (the bounded forward's wrapper gives its plain version),
+    nothing is launched, and the backward kernels' entry points refuse CPU
+    tensors."""
     q, k, v = (torch.randn(1, 2, 48, 8, requires_grad=True) for _ in range(3))
     before = (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
     out = flash_mod.flash_attention_diff(q, k, v)
@@ -114,8 +176,10 @@ def test_flash_diff_on_cpu_takes_plain_versions():
     assert before == (flash_mod.launches_lse, flash_mod.launches_bwd_dq,
                       flash_mod.launches_bwd_dkv)
     torch.testing.assert_close(out, reference_attention(q, k, v), rtol=0, atol=1e-6)
-    with pytest.raises(ValueError):
-        flash_mod.flash_attention_lse_cuda(q, k, v)
+    want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v)
+    got_out, got_lse = flash_mod.flash_attention_lse_cuda(q, k, v)
+    torch.testing.assert_close(got_out, want_out, rtol=0, atol=0)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=0)
     with pytest.raises(ValueError):
         flash_mod.flash_attention_backward_cuda(q, k, v, out, torch.zeros(2, 1, 48), out)
 
@@ -134,9 +198,10 @@ def _bwd_tols(dtype, wants):
 @pytest.mark.parametrize("shape,sk", [((1, 8, 1024, 40), 1024), ((2, 4, 1024, 80), 1024),
                                       ((1, 8, 1000, 80), 1064), ((1, 2, 300, 40), 140)])
 def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, sk):
-    """The LSE forward (out, lse2) and dq, dk, dv through
-    ``flash_attention_diff`` against the plain versions in float32 on the same
-    input values, ragged Sq != Sk included: padded keys must not leak into
+    """The LSE forward (out, lse2) against its bounded plain version in the
+    inputs' dtype, and dq, dk, dv through ``flash_attention_diff`` against the
+    plain backward in float32 on the same input values, fed that forward's
+    out and lse2; ragged Sq != Sk included: padded keys must not leak into
     dq, padded queries not into dk / dv."""
     g = torch.Generator(device=cuda).manual_seed(0)
     kshape = shape[:2] + (sk, shape[3])
@@ -151,13 +216,19 @@ def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, 
     assert (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv) == (
         before[0] + 2, before[1] + 1, before[2] + 1)
     qf, kf, vf = (t.detach().float() for t in (q, k, v))
-    want_out, want_lse = flash_mod.flash_attention_lse_reference(qf, kf, vf)
+    # the bounded plain version in the inputs' dtype rounds at the kernel's steps
+    want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
+                                                                 v.detach())
+    want_out = want_out.float()
     wants = flash_mod.flash_attention_backward_reference(qf, kf, vf, want_out, want_lse,
                                                          do.float())
     tol_out, = _bwd_tols(dtype, [want_out])
     torch.testing.assert_close(out.float(), want_out, rtol=0, atol=tol_out)
-    # lse2 is float32 for either dtype: 1e-4 absolute on values of ~10
-    torch.testing.assert_close(lse2, want_lse, rtol=0, atol=1e-4)
+    # lse2 is float32 for either dtype: 1e-4 absolute on values of ~10; in
+    # bf16 a rounding of one p that falls the other way moves it by at most
+    # log2(1 + 2^-8)
+    lse_tol = 1e-4 if dtype == torch.float32 else math.log2(1 + 2.0 ** -8)
+    torch.testing.assert_close(lse2, want_lse, rtol=0, atol=lse_tol)
     for a, b, tol in zip(got, wants, _bwd_tols(dtype, wants)):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a.float(), b, rtol=0, atol=tol)
@@ -309,8 +380,9 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
     with torch.no_grad():
         fused_attention_packed(x, x, x, 8)
     assert _launch_counts()[1] == before[1] + 1
-    # head split and merge around the head-split kernel give the same values
+    # head split and merge around the head-split exact kernel (the same
+    # arithmetic) give the same values
     with torch.no_grad():
         a = fused_attention_packed(q8, q8, q8, 8)
-        b = merge_heads(flash_mod.flash_attention_cuda(*(split_heads(q8, 8),) * 3))
+        b = merge_heads(flash_mod.flash_attention_exact_cuda(*(split_heads(q8, 8),) * 3))
     torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
