@@ -1,6 +1,6 @@
 """End-to-end smoke of the PyTorch port on one CUDA GPU (an NVIDIA H100).
 
-    python3 chip_smoke.py              # the smoke, phases 1-15
+    python3 chip_smoke.py              # the smoke, phases 1-16
     python3 chip_smoke.py --profile    # where a flagship step's time goes
 
 Phases, each printed on its own lines; any failure exits non-zero without
@@ -9,56 +9,70 @@ the final result line:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the CUDA flash-attention library from ``hedit_tpu_torch/csrc`` and
    the Triton GroupNorm kernel, timed;
-3. each of the seven kernels against its plain PyTorch version at the paths'
+3. each kernel of the paths against its plain PyTorch version at the paths'
    shapes: max abs error against a stated tolerance; CUDA-event time of the
    kernel, of the plain version and of the one PyTorch library call for the
    same function (a yardstick only, the port never calls it); the least time
    the card could take (``bound_ms``).  The bounded (max-free) and the exact
-   head-split forward are timed at the same shapes, and a saturating input
-   shows the two forms apart.  For the packed-head forward also the time of
-   what it replaces on the path (three head-split copies, the head-split
-   kernel, the merge).  Then the GroupNorm gradient;
-4. the flagship path: the SD-1.5 pipeline at full width with seeded weights
+   forward are timed at the same shapes, head-split and packed, and a
+   saturating input shows the two forms apart, also laid out packed through
+   ``fused_attention_packed``.  For the packed-head forwards also the time of
+   the head-split route (three head-split copies, kernel 1, the merge).  The
+   backward at the VAE's head dim [1, 1, 4096, 512], also through
+   ``fused_attention`` under a gradient.  Then the GroupNorm gradient;
+4. the probes (TPU kernels 10 and 11): the three bounded forwards with the
+   packed transposed output and the pipelined exact exp2 forward against
+   their plain versions at the probes' shapes (and a saturating input), then
+   the probes' own entry points (``hedit_tpu_torch.probes.flash_nhd_variants``,
+   ``...flash_v4_variants``), each driven once with the counts at 0 before
+   and read after;
+5. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
    with a non-neutral control and an active LocalBlend -> VAE decode; checks
-   finite [2, 512, 512, 3] outputs, that its kernels were launched and that
-   the head-split forward served the VAE's one-head attention only;
-5. the NMG path: the same pipeline on the DDIM grid, one seeded image, CLIP
+   finite [2, 512, 512, 3] outputs, that its kernels were launched as
+   predicted and that the head-split forward served the VAE's one-head
+   attention only;
+6. the NMG path: the same pipeline on the DDIM grid, one seeded image, CLIP
    encode -> VAE encode -> 50-step DDIM inversion -> 50 NMG + P2P steps, each
    differentiating through the UNet, with a non-neutral control and an active
    LocalBlend -> VAE decode; checks a finite [1, 512, 512, 3] output and that
    each of its kernels was launched; prints the time split and peak memory;
-6. the h-Edit-D path, as ``main_p2p --mode h_edit_D_p2p --eta 0 --implicit
+7. the h-Edit-D path, as ``main_p2p --mode h_edit_D_p2p --eta 0 --implicit
    --optimization_steps 2`` runs it: one image, 50-step DDIM inversion, then
    50 steps of the general h-Edit + P2P loop (one base call and two controlled
    4-row calls a step, residuals derived in the loop), same control and blend;
-7. the EF path, as ``main_p2p --mode ef_p2p --eta 1 --cfg_src 3.5`` runs it:
+8. the EF path, as ``main_p2p --mode ef_p2p --eta 1 --cfg_src 3.5`` runs it:
    one image, the DDPM inversion's residual pass at 20 rows a call, then 50
    indexed 3-row steps with cond_start = 1;
-8. the MasaCtrl path, as ``main_masactrl --mode h_edit_R_masactrl`` runs it
+9. the MasaCtrl path, as ``main_masactrl --mode h_edit_R_masactrl`` runs it
    at its defaults: one image, the empty source prompt, the DDPM inversion's
    residual pass at 10 rows a call, then 50 steps of one 1-row base call, one
    1-row source call and one 4-row MasaCtrl call; checks the launches of the
-   bounded head-split, GroupNorm and packed kernels against the prediction;
-9. the exact head-split forward's own path (no editing path runs it): one
-   call at each shape of JAX ``flash_attention``'s callers;
-10. the golden identity in float32 (TF32 off): target = source,
+   bounded head-split, GroupNorm and bounded packed kernels against the
+   prediction (every path: the bounded packed kernel serves each UNet
+   self-attention of >= 1024 tokens without a gradient, the exact packed one
+   none);
+10. the exact forwards' own path (no editing path runs them): one call of
+    the head-split one at each shape of JAX ``flash_attention``'s callers,
+    one of the packed one at each shape of ``flash_attention_packed``'s;
+11. the golden identity in float32 (TF32 off): target = source,
     cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through
     the general loop under the flagship configuration;
-11. the UNet gradient at full width in float32: d loss / d x of one NMG step
+12. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
     substituted here;
-12. the NMG loop in float32 under a neutral control: its edit branch equals
+13. the NMG loop in float32 under a neutral control: its edit branch equals
     plain DDIM sampling computed here;
-13. in float32: the EF pair loop without a stored trajectory on the DDPM
+14. in float32: the EF pair loop without a stored trajectory on the DDPM
     inversion's residuals reconstructs the source latent; explicit h-Edit-D
     with target = source, cfg_tar == cfg_src_edit and a neutral control
     returns the source latent;
-14. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
+15. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
-15. a JSON line of the kernels (each with its launches on its path: rows 1,
-    2 and 7 on the MasaCtrl path, 3-5 on the NMG path, 6 on its own), then
+16. a JSON line of the kernels (each with its launches on its path: rows 1,
+    2 and the bounded packed mode on the MasaCtrl path, 3-5 on the NMG path,
+    6 and 7 on their own, 10 and 11 on their probes' entry points), then
     the result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
@@ -103,8 +117,10 @@ from hedit_tpu_torch.invert.ddim import invert_ddim  # noqa: E402
 from hedit_tpu_torch.invert.ddpm import invert_ddpm, sample_xts_from_x0  # noqa: E402
 from hedit_tpu_torch.ops import attention as attn  # noqa: E402
 from hedit_tpu_torch.ops import flash_attention as flash  # noqa: E402
+from hedit_tpu_torch.ops import flash_probes as fp  # noqa: E402
 from hedit_tpu_torch.ops import groupnorm as gn  # noqa: E402
 from hedit_tpu_torch.pipelines.sd import create_sd_pipeline  # noqa: E402
+from hedit_tpu_torch.probes.timing import cuda_ms  # noqa: E402
 
 STEPS = 50
 N_IMAGES = 2
@@ -153,18 +169,6 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-def cuda_ms(fn, reps=10, warmup=2):
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def wall_ms(fn, reps=3):
     """Host-clock mean of ``fn`` ended by a synchronise, after one warm-up."""
     fn()
@@ -184,25 +188,42 @@ def bound(flops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {"flash_attention": (flash, "launches"), "groupnorm": (gn, "launches"),
+            "flash_attention_lse": (flash, "launches_lse"),
+            "flash_bwd_dq": (flash, "launches_bwd_dq"),
+            "flash_bwd_dkv": (flash, "launches_bwd_dkv"),
+            "flash_packed": (flash, "launches_packed"),
+            "flash_attention_exact": (flash, "launches_exact"),
+            "flash_packed_bounded": (flash, "launches_packed_bounded"),
+            "flash_packed_t": (fp, "launches_packed_t"),
+            "flash_packed_t_sminor": (fp, "launches_packed_t_sminor"),
+            "flash_packed_t_all_sminor": (fp, "launches_packed_t_all_sminor"),
+            "flash_exp2_t": (fp, "launches_exp2_t")}
+
+
 def reset_launches():
-    flash.launches = flash.launches_lse = flash.launches_bwd_dq = flash.launches_bwd_dkv = 0
-    flash.launches_packed = flash.launches_exact = 0
-    gn.launches = 0
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_launches():
-    return {"flash_attention": flash.launches, "groupnorm": gn.launches,
-            "flash_attention_lse": flash.launches_lse, "flash_bwd_dq": flash.launches_bwd_dq,
-            "flash_bwd_dkv": flash.launches_bwd_dkv, "flash_packed": flash.launches_packed,
-            "flash_attention_exact": flash.launches_exact}
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
-def check_forward_routing(counts, path, failures):
+def check_forward_routing(counts, path, failures, packed):
     """On a path without a gradient every UNet attention of kernel size reads
-    the packed projections; the head-split forward serves only the VAE's
-    one-head attention, one launch in the encoder and one in the decoder."""
-    if counts["flash_packed"] <= 0 or counts["groupnorm"] <= 0:
-        failures.append(f"a kernel was not launched on the {path} path: {counts}")
+    the packed projections through the bounded packed kernel, ``packed``
+    launches (10 self-attentions of >= 1024 tokens a UNet call), and the
+    exact packed kernel never runs; the head-split forward serves only
+    the VAE's one-head attention, one launch in the encoder and one in the
+    decoder."""
+    if counts["groupnorm"] <= 0:
+        failures.append(f"the GroupNorm kernel was not launched on the {path} path: {counts}")
+    if counts["flash_packed_bounded"] != packed or counts["flash_packed"] != 0:
+        failures.append(f"the {path} path launched the bounded packed kernel "
+                        f"{counts['flash_packed_bounded']} times (expected {packed}) and the "
+                        f"exact packed kernel {counts['flash_packed']} times (expected 0)")
     if counts["flash_attention"] != 2:
         failures.append(f"the head-split forward was launched {counts['flash_attention']} times "
                         f"on the {path} path, not by the two VAE attentions alone")
@@ -351,9 +372,15 @@ def _flash_forward_cases(g, rows, failures):
 
 
 def _flash_packed_cases(g, rows, failures):
-    """Kernel 6: the forward on packed heads [B, S, H*D], against the plain
-    version in float32 on the same input values; beside it the route it
-    replaces on the path (three head-split copies, kernel 1, the merge)."""
+    """The forwards on packed heads [B, S, H*D]: kernel 7 (exact, on no path)
+    against its plain version in float32 on the same input values, and the
+    bounded one, the route of every UNet self-attention on the paths,
+    against its plain version in the inputs' dtype (it rounds q * scale, p
+    and the output at the kernel's steps); beside each the head-split route
+    at the same shape (three head-split copies, kernel 1, the merge).  Then
+    the saturating input laid out packed through ``fused_attention_packed``:
+    the bounded plain version within one output ulp, exact attention far
+    off."""
     cases = [(8, 4096, 4096, 320, torch.bfloat16, False),   # controlled call, 2 images
              (4, 1024, 1024, 640, torch.bfloat16, False),
              (2, 4096, 4096, 320, torch.float32, False),
@@ -363,33 +390,63 @@ def _flash_packed_cases(g, rows, failures):
              (4, 1024, 1024, 640, torch.bfloat16, True),    # a row slice of a larger batch
              (4, 4096, 4096, 320, torch.float32, True)]
     heads = 8
-    for b, sq, sk, hd, dtype, strided in cases:
-        groups = 3 if strided else 1
-        q, k, v = (torch.randn(b, groups, s, hd, generator=g, device="cuda")
-                   .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
-        got = flash.flash_attention_packed_cuda(q, k, v, heads)
-        want = flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), heads)
+    for name, wrapper, plain, exact in (
+            ("flash_packed", flash.flash_attention_packed_cuda,
+             flash.flash_attention_packed_reference, True),
+            ("flash_packed_bounded", flash.flash_attention_packed_bounded_cuda,
+             flash.flash_attention_packed_bounded_reference, False)):
+        for b, sq, sk, hd, dtype, strided in cases:
+            groups = 3 if strided else 1
+            q, k, v = (torch.randn(b, groups, s, hd, generator=g, device="cuda")
+                       .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
+            got = wrapper(q, k, v, heads)
+            want = (plain(q.float(), k.float(), v.float(), heads) if exact
+                    else plain(q, k, v, heads).float())
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
+            bound_ms, by = bound(4 * b * sq * sk * hd, q.element_size() * b * hd * 2 * (sq + sk),
+                                 dtype)
+            split = lambda t: t.reshape(b, -1, heads, hd // heads).transpose(1, 2)  # noqa: E731
+            _row(rows, failures, name,
+                 f"flash packed {'exact' if exact else 'bounded'} q[{b}, {sq}, {hd}] sk={sk} "
+                 f"{str(dtype)[6:]}{' batch-strided' if strided else ''}",
+                 err <= tol and bool(torch.isfinite(got).all()) and got.is_contiguous(),
+                 max_abs_err=err, tol=tol, ms=cuda_ms(lambda: wrapper(q, k, v, heads)),
+                 plain_ms=cuda_ms(lambda: plain(q, k, v, heads)),
+                 # the library call reads the same packed tensors through strided head views
+                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                     split(q), split(k), split(v))),
+                 bound_ms=bound_ms, bound_by=by, shape=[b, sq, hd], dtype=str(dtype)[6:],
+                 split_path_ms=cuda_ms(lambda: attn.merge_heads(flash.flash_attention_cuda(
+                     attn.split_heads(q, heads), attn.split_heads(k, heads),
+                     attn.split_heads(v, heads)))))
+            print(f"  the head-split route at the same shape (3 copies + kernel 1 + merge): "
+                  f"{rows[-1]['split_path_ms']:.3f} ms")
+    for shape in ([8, 4096, 320], [4, 1024, 640]):
+        b_ms, e_ms = (next(r["ms"] for r in rows if r["name"] == n and r["shape"] == shape
+                           and r["dtype"] == "bfloat16")
+                      for n in ("flash_packed_bounded", "flash_packed"))
+        print(f"bounded vs exact packed q{shape} bfloat16: {b_ms:.3f} ms vs {e_ms:.3f} ms "
+              f"(bounded / exact {b_ms / e_ms:.3f})")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (attn.merge_heads(t).contiguous() for t in _saturating_qkv(g, dtype))
+        before = flash.launches_packed_bounded
+        with torch.no_grad():
+            got = attn.fused_attention_packed(q, k, v, 8).float()
+        want = flash.flash_attention_packed_bounded_reference(q, k, v, 8).float()
+        exact = flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), 8)
         torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
         tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
-        bound_ms, by = bound(4 * b * sq * sk * hd, q.element_size() * b * hd * 2 * (sq + sk), dtype)
-        split = lambda t: t.reshape(b, -1, heads, hd // heads).transpose(1, 2)  # noqa: E731
-        _row(rows, failures, "flash_packed",
-             f"flash packed q[{b}, {sq}, {hd}] sk={sk} {str(dtype)[6:]}"
-             f"{' batch-strided' if strided else ''}",
-             err <= tol and bool(torch.isfinite(got).all()) and got.is_contiguous(),
-             max_abs_err=err, tol=tol,
-             ms=cuda_ms(lambda: flash.flash_attention_packed_cuda(q, k, v, heads)),
-             plain_ms=cuda_ms(lambda: flash.flash_attention_packed_reference(q, k, v, heads)),
-             # the library call reads the same packed tensors through strided head views
-             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k),
-                                                                       split(v))),
-             bound_ms=bound_ms, bound_by=by,
-             split_path_ms=cuda_ms(lambda: attn.merge_heads(flash.flash_attention_cuda(
-                 attn.split_heads(q, heads), attn.split_heads(k, heads),
-                 attn.split_heads(v, heads)))))
-        print(f"  the head-split route at the same shape (3 copies + kernel 1 + merge): "
-              f"{rows[-1]['split_path_ms']:.3f} ms")
+        err, gap = (got - want).abs().max().item(), (got - exact).abs().max().item()
+        ok = err <= tol and gap > 20 * tol and flash.launches_packed_bounded == before + 1
+        print(f"flash packed saturating q[1, 4096, 320] {str(dtype)[6:]} through "
+              f"fused_attention_packed: max_abs_err {err:.3e} against the bounded plain version "
+              f"(tol {tol:.3g}), max|routed - exact| {gap:.3e} (must exceed {20 * tol:.3g}) "
+              f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash packed saturating case {dtype}")
 
 
 def _flash_gradient_cases(g, rows, failures):
@@ -401,7 +458,9 @@ def _flash_gradient_cases(g, rows, failures):
              ((1, 8, 1024, 80), 1024, torch.bfloat16),
              ((1, 8, 4096, 40), 4096, torch.float32),
              ((1, 8, 1024, 80), 1024, torch.float32),
-             ((1, 8, 1000, 80), 1064, torch.float32)]    # ragged, Sq != Sk
+             ((1, 8, 1000, 80), 1064, torch.float32),    # ragged, Sq != Sk
+             ((1, 1, 4096, 512), 4096, torch.bfloat16),  # the VAE mid block (style reward)
+             ((1, 1, 4096, 512), 4096, torch.float32)]
     for qshape, sk, dtype in cases:
         q, k, v = _qkv(g, qshape, sk, dtype)
         do = torch.randn(qshape, generator=g, device="cuda").to(dtype)
@@ -476,6 +535,22 @@ def _flash_gradient_cases(g, rows, failures):
         print(f"flash backward {label}: dq + dk/dv kernels {both:.3f} ms, plain version "
               f"{plain_bwd:.3f} ms, library {lib_bwd:.3f} ms")
 
+        if qshape[3] == 512:
+            # the style reward's route: fused_attention under a recorded gradient
+            before = (flash.launches_lse, flash.launches_bwd_dq, flash.launches_bwd_dkv)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            got = torch.autograd.grad(attn.fused_attention(*leaves), leaves, do)
+            torch.cuda.synchronize()
+            moved = tuple(a - b for a, b in zip(
+                (flash.launches_lse, flash.launches_bwd_dq, flash.launches_bwd_dkv), before))
+            gaps = [gap(a, w) for a, w in zip(got, (want_dq, want_dk, want_dv))]
+            ok = moved == (1, 1, 1) and all(e <= t for e, t in gaps) and finite(*got)
+            print(f"flash fused_attention gradient {label}: dq / dk / dv max_abs_err "
+                  f"{' / '.join(f'{e:.3e} (tol {t:.3g})' for e, t in gaps)}, launches "
+                  f"LSE / dq / dk-dv {moved} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"fused_attention gradient {label}")
+
 
 def _groupnorm_cases(g, rows, failures):
     """Kernel 2, and the gradient of its autograd wrapper (forward the kernel,
@@ -539,6 +614,127 @@ def phase_kernels():
     _flash_gradient_cases(g, rows, failures)
     _groupnorm_cases(g, rows, failures)
     return rows, failures
+
+
+# The probes' shapes (scripts/flash_nhd_variants.py: B=16, S=4096, H=8,
+# D=40; scripts/flash_v4_variants.py: [4, 32, 4096, 40]), bf16, and one
+# float32 case each at a smaller batch.
+NHD_SHAPES = (((16, 8, 4096, 40), torch.bfloat16), ((2, 8, 4096, 40), torch.float32))
+V4_SHAPES = (((4, 32, 4096, 40), torch.bfloat16), ((1, 8, 4096, 40), torch.float32))
+
+
+def _sminor(t):
+    return t.transpose(-1, -2).contiguous()
+
+
+def _probe_kernel_cases(g, rows, failures):
+    """TPU kernels 11 (three layouts) and 10 (both loops) against their plain
+    versions at the probes' shapes: bf16 within one output ulp, float32
+    within 1e-4; the library call is SDPA on the same [B, H, S, D] values,
+    the bound 4 B H S^2 D operations over the bf16 (or float32) peak.  Then
+    kernel 11 on the saturating input (anchor 512, key 600 beyond it)."""
+    def hold(name, label, got, want, dtype, ms, plain_ms, library_ms, shape, **extra):
+        want = want.float()
+        err = (got.float() - want).abs().max().item()
+        tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
+        b, h, sq, d = shape
+        bound_ms, by = bound(4 * b * h * sq * sq * d, 4 * b * h * sq * d * got.element_size(),
+                             dtype)
+        _row(rows, failures, name, label, err <= tol and bool(torch.isfinite(got).all()),
+             max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound_ms, bound_by=by, shape=list(shape), **extra)
+
+    for shape, dtype in NHD_SHAPES:
+        q, k, v = _qkv(g, shape, shape[2], dtype)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        for layout, args in (("packed_t", (q, k, v)),
+                             ("packed_t_sminor", (_sminor(q), _sminor(k), v)),
+                             ("packed_t_all_sminor", (_sminor(q), _sminor(k), _sminor(v)))):
+            wrapper = getattr(fp, f"flash_{layout}_cuda")
+            plain = getattr(fp, f"flash_{layout}_reference")
+            got = wrapper(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            hold(f"flash_{layout}", f"flash {layout} q{list(shape)} {str(dtype)[6:]}", got, want,
+                 dtype, cuda_ms(lambda: wrapper(*args)), cuda_ms(lambda: plain(*args)), lib,
+                 shape)
+            del got, want
+            torch.cuda.empty_cache()
+        del q, k, v, args
+
+    for shape, dtype in V4_SHAPES:
+        q, k, v = _qkv(g, shape, shape[2], dtype)
+        got, got_pipe = (fp.flash_exp2_t_cuda(q, k, v, pipe) for pipe in (False, True))
+        want = fp.flash_exp2_t_reference(q, k, v)
+        torch.cuda.synchronize()
+        pipe_err = (got_pipe.float() - want.float()).abs().max().item()
+        same = bool(torch.equal(got, got_pipe))
+        # the TPU wrapper's 512-key blocks round p against other points
+        blk512 = (got.float() - fp.flash_exp2_t_reference(q, k, v, blk_k=fp.BLK_K).float()
+                  ).abs().max().item()
+        print(f"flash exp2_t q{list(shape)} {str(dtype)[6:]}: pipe=True max_abs_err "
+              f"{pipe_err:.3e}, identical to pipe=False: {same}; against the plain version "
+              f"with 512-key blocks {blk512:.3e}")
+        hold("flash_exp2_t", f"flash exp2_t q{list(shape)} {str(dtype)[6:]} pipe=False", got,
+             want, dtype, cuda_ms(lambda: fp.flash_exp2_t_cuda(q, k, v, False)),
+             cuda_ms(lambda: fp.flash_exp2_t_reference(q, k, v)),
+             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), shape,
+             pipe_ms=cuda_ms(lambda: fp.flash_exp2_t_cuda(q, k, v, True)),
+             pipe_max_abs_err=pipe_err)
+        print(f"  pipe=True {rows[-1]['pipe_ms']:.3f} ms against pipe=False "
+              f"{rows[-1]['ms']:.3f} ms")
+        if not same:
+            failures.append(f"flash exp2_t {shape} {dtype}: the two loops differ")
+        del q, k, v, got, got_pipe, want
+        torch.cuda.empty_cache()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _saturating_qkv(g, dtype)
+        exact = fp._packed_t(flash.reference_attention(q.float(), k.float(), v.float()))
+        for layout, args in (("packed_t", (q, k, v)),
+                             ("packed_t_sminor", (_sminor(q), _sminor(k), v)),
+                             ("packed_t_all_sminor", (_sminor(q), _sminor(k), _sminor(v)))):
+            got = getattr(fp, f"flash_{layout}_cuda")(*args).float()
+            want = getattr(fp, f"flash_{layout}_reference")(*args).float()
+            torch.cuda.synchronize()
+            tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
+            err, gap = (got - want).abs().max().item(), (got - exact).abs().max().item()
+            ok = err <= tol and gap > 20 * tol
+            print(f"flash {layout} saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: max_abs_err "
+                  f"{err:.3e} (tol {tol:.3g}), max|probe - exact| {gap:.3e} (must exceed "
+                  f"{20 * tol:.3g}) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash {layout} saturating case {dtype}")
+
+
+def phase_probes(rows):
+    """Kernels 10 and 11 against their plain versions, then their own path:
+    the two probe entry points (``hedit_tpu_torch.probes``), each driven once
+    with the counts at 0 before and read after.  Returns ({probe: counts},
+    failures)."""
+    from hedit_tpu_torch.probes import flash_nhd_variants, flash_v4_variants
+
+    failures = []
+    _probe_kernel_cases(torch.Generator(device="cuda").manual_seed(31), rows, failures)
+    torch.cuda.empty_cache()
+    counts = {}
+    for name, module in (("flash_nhd_variants", flash_nhd_variants),
+                         ("flash_v4_variants", flash_v4_variants)):
+        reset_launches()
+        t0 = time.perf_counter()
+        results = module.run()
+        torch.cuda.synchronize()
+        counts[name] = read_launches()
+        print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
+        print(f"probe {name} launches: {json.dumps(counts[name])}")
+    nhd = counts["flash_nhd_variants"]
+    if min(nhd["flash_packed_t"], nhd["flash_packed_t_sminor"],
+           nhd["flash_packed_t_all_sminor"], nhd["flash_packed_bounded"]) <= 0:
+        failures.append(f"a kernel of flash_nhd_variants was not launched: {nhd}")
+    if counts["flash_v4_variants"]["flash_exp2_t"] <= 0:
+        failures.append(f"flash_v4_variants launched no exp2_t kernel: {counts}")
+    torch.cuda.empty_cache()
+    return counts, failures
 
 
 def _token_ids(rng, n_images):
@@ -627,7 +823,7 @@ def phase_flagship_path(pipe, images, ids, control, blend):
           f"max|edited - source latent| {moved:.3e}")
     if tuple(out.shape) != (N_IMAGES, 512, 512, 3) or not finite:
         failures.append("flagship path output is not finite [2, 512, 512, 3]")
-    check_forward_routing(counts, "flagship", failures)
+    check_forward_routing(counts, "flagship", failures, packed=2 * 10 * STEPS)
     return counts, failures
 
 
@@ -670,12 +866,12 @@ def phase_nmg_path(pipe, images, ids):
           f"{(recon - x0).abs().max().item():.3e}")
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         failures.append("NMG path output is not finite [1, 512, 512, 3]")
-    if min(v for k, v in counts.items() if k != "flash_attention_exact") <= 0:
-        failures.append(f"a kernel of the NMG path was not launched: {counts}")
     if (counts["flash_attention_lse"], counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) != (
             10 * STEPS,) * 3:
         failures.append(f"the NMG path's gradient kernels were not launched once for each of "
                         f"10 layers a step: {counts}")
+    # the inversion's 50 one-row calls and the controlled call of each step
+    check_forward_routing(counts, "NMG", failures, packed=10 * (STEPS + STEPS))
 
     # where a step's time goes: its two UNet calls alone, host clock, synchronised
     t = int(pipe.schedule.timesteps[0])
@@ -692,10 +888,12 @@ def phase_nmg_path(pipe, images, ids):
     return counts, failures
 
 
-def _one_image_path(name, pipe, images, ids, invert, edit, invert_label, ctx_rows=(0, 1, 3)):
+def _one_image_path(name, pipe, images, ids, invert, edit, invert_label, packed,
+                    ctx_rows=(0, 1, 3)):
     """Drive one image through encode -> ``invert`` -> ``edit`` -> decode with
     the launch counts at 0 before and read after; ``ctx_rows`` pick [uncond,
-    src, tar] of the image's token ids.  Returns (counts, failures)."""
+    src, tar] of the image's token ids; ``packed``: the bounded packed
+    kernel's expected launches.  Returns (counts, failures)."""
     failures = []
     control, blend = (state.to("cuda") for state in _edit_control(STEPS, 8, 0))
     reset_launches()
@@ -728,7 +926,7 @@ def _one_image_path(name, pipe, images, ids, invert, edit, invert_label, ctx_row
           f"{(recon - x0).abs().max().item():.3e}")
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         failures.append(f"{name} path output is not finite [1, 512, 512, 3]")
-    check_forward_routing(counts, name, failures)
+    check_forward_routing(counts, name, failures, packed)
     return counts, failures
 
 
@@ -749,8 +947,10 @@ def phase_hedit_d_path(pipe, images, ids):
                           after_skip_steps=STEPS, control=control, local_blend=blend,
                           xts=inv.xts, derive_zs=True)
 
+    # 10 self-attentions of >= 1024 tokens a UNet call: the inversion's 50
+    # one-row calls, then one base and two controlled calls a step
     return _one_image_path("h-Edit-D", pipe, images, ids, invert, edit,
-                           f"{STEPS}-step DDIM inversion")
+                           f"{STEPS}-step DDIM inversion", packed=10 * (STEPS + 3 * STEPS))
 
 
 def phase_ef_path(pipe, images, ids):
@@ -770,8 +970,9 @@ def phase_ef_path(pipe, images, ids):
                                  cfg_src=cfg_src, cfg_tar=7.5, eta=1.0, after_skip_steps=STEPS,
                                  control=control, local_blend=blend, xts=inv.xts)
 
+    # the residual pass's 5 calls, then one indexed call a step
     return _one_image_path("EF", pipe, images, ids, invert, edit,
-                           "DDPM inversion, 5 calls of 20 rows,")
+                           "DDPM inversion, 5 calls of 20 rows,", packed=10 * (5 + STEPS))
 
 
 def phase_masactrl_path(pipe, images, ids):
@@ -796,15 +997,13 @@ def phase_masactrl_path(pipe, images, ids):
                                xts=inv.xts)
 
     # [uncond, src, tar]: MasaCtrl's source prompt is the empty one, uncond's
-    counts, failures = _one_image_path("MasaCtrl", pipe, images, ids, invert, edit,
-                                       "DDPM inversion, 5 calls of 10 rows,", ctx_rows=(0, 0, 3))
     want = 3 * 10 * STEPS + 5 * 10
-    print(f"MasaCtrl path: packed-kernel launches {counts['flash_packed']} (predicted "
-          f"{want}: 3 UNet calls a step x 10 + the residual pass's 5 calls x 10), head-split "
-          f"bounded {counts['flash_attention']} (predicted 2)")
-    if counts["flash_packed"] != want:
-        failures.append(f"the MasaCtrl path launched the packed kernel "
-                        f"{counts['flash_packed']} times, not {want}")
+    counts, failures = _one_image_path("MasaCtrl", pipe, images, ids, invert, edit,
+                                       "DDPM inversion, 5 calls of 10 rows,", packed=want,
+                                       ctx_rows=(0, 0, 3))
+    print(f"MasaCtrl path: bounded packed-kernel launches {counts['flash_packed_bounded']} "
+          f"(predicted {want}: 3 UNet calls a step x 10 + the residual pass's 5 calls x 10), "
+          f"head-split bounded {counts['flash_attention']} (predicted 2)")
     return counts, failures
 
 
@@ -813,19 +1012,25 @@ def phase_masactrl_path(pipe, images, ids):
 # self-attention at 64^2 and 32^2 and the 64^2 cross-attention, 4 rows, bf16
 EXACT_CALLER_SHAPES = (((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
                        ((4, 8, 4096, 40), 77))
+# JAX's exact ``flash_attention_packed`` has one caller, its oracle test
+# (tests/test_models.py:test_flash_attention_packed_oracle), float32:
+# (batch, heads, Sq, Sk, D)
+EXACT_PACKED_CALLER_SHAPES = ((2, 3, 300, 300, 40), (1, 8, 256, 256, 40), (2, 2, 128, 400, 80))
 
 
 def phase_exact_path():
-    """Kernel 6's own path: no editing path of either package runs the exact
-    head-split forward, so it is driven as JAX's ``flash_attention`` callers
-    drive theirs, once at each of their shapes, the counts at 0 before and
-    read after; each output checked finite and within tolerance of
-    ``reference_attention``."""
+    """Kernels 6 and 7's own path: no editing path of either package runs
+    the exact forwards, so each is driven as JAX's callers drive its twin,
+    once at each of their shapes, the counts at 0 before and read after; each
+    output checked finite and within tolerance of ``reference_attention``."""
     failures = []
     g = torch.Generator(device="cuda").manual_seed(23)
     inputs = [_qkv(g, qshape, sk, torch.bfloat16) for qshape, sk in EXACT_CALLER_SHAPES]
+    packed = [[torch.randn(b, s, h * d, generator=g, device="cuda") for s in (sq, sk, sk)] + [h]
+              for b, h, sq, sk, d in EXACT_PACKED_CALLER_SHAPES]
     reset_launches()
     outs = [flash.flash_attention_exact_cuda(q, k, v) for q, k, v in inputs]
+    packed_outs = [flash.flash_attention_packed_cuda(*args) for args in packed]
     torch.cuda.synchronize()
     counts = read_launches()
     for (q, k, v), out in zip(inputs, outs):
@@ -833,11 +1038,17 @@ def phase_exact_path():
         err = (out.float() - want).abs().max().item()
         if not (bool(torch.isfinite(out).all()) and err <= BF16_ULP * want.abs().max().item()):
             failures.append(f"exact forward path q{list(q.shape)} k{list(k.shape)}: err {err:.3e}")
+    for args, out in zip(packed, packed_outs):
+        err = (out - flash.flash_attention_packed_reference(*args)).abs().max().item()
+        if not (bool(torch.isfinite(out).all()) and err <= F32_TOL):
+            failures.append(f"exact packed path q{list(args[0].shape)}: err {err:.3e}")
     print(f"exact forward path (JAX flash_attention's callers' shapes "
-          f"{[list(q.shape) + [k.shape[2]] for q, k, _ in inputs]}): launches "
+          f"{[list(q.shape) + [k.shape[2]] for q, k, _ in inputs]}, bf16; flash_attention_packed's "
+          f"{[list(s) for s in EXACT_PACKED_CALLER_SHAPES]}, f32): launches "
           f"{json.dumps(counts)} {'OK' if not failures else 'FAIL'}")
-    if counts["flash_attention_exact"] != len(inputs):
-        failures.append(f"exact forward launches {counts['flash_attention_exact']}")
+    if (counts["flash_attention_exact"], counts["flash_packed"]) != (len(inputs), len(packed)):
+        failures.append(f"exact forward launches {counts['flash_attention_exact']}, exact packed "
+                        f"{counts['flash_packed']}")
     return counts, failures
 
 
@@ -869,7 +1080,8 @@ def plain_versions():
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (attn, "flash_attention_cuda", flash.flash_attention_bounded_reference),
-                (attn, "flash_attention_packed_cuda", flash.flash_attention_packed_reference),
+                (attn, "flash_attention_packed_bounded_cuda",
+                 flash.flash_attention_packed_bounded_reference),
                 (flash, "flash_attention_lse_cuda", flash.flash_attention_lse_reference),
                 (flash, "flash_attention_backward_cuda", flash.flash_attention_backward_reference),
                 (gn, "group_norm_triton", gn.group_norm_reference)):
@@ -1014,7 +1226,8 @@ def phase_masactrl_identity(pipe):
     counts = read_launches()
     scale = inv.xts.abs().max().item()
     err = (edited - inv.xts[:, 0]).abs().max().item() / scale
-    ok = err <= GOLDEN_TOL and bool(torch.isfinite(edited).all()) and counts["flash_packed"] > 0
+    ok = (err <= GOLDEN_TOL and bool(torch.isfinite(edited).all())
+          and counts["flash_packed_bounded"] > 0)
     print(f"MasaCtrl identity (f32, TF32 off, {STEPS} + {STEPS} steps, "
           f"{time.perf_counter() - t0:.1f} s): max|edited - xts[0]| / max|xts| {err:.3e} "
           f"(tol {GOLDEN_TOL:g}; max|xts| {scale:.3e}); loop launches {json.dumps(counts)} "
@@ -1127,6 +1340,8 @@ def main(argv=None) -> int:
         return 0
     rows, bad = phase_kernels()
     failures += bad
+    probe_counts, bad = phase_probes(rows)
+    failures += bad
     inputs = _main_path_inputs()
     flagship_counts, bad = phase_flagship_path(*inputs)
     failures += bad
@@ -1150,7 +1365,8 @@ def main(argv=None) -> int:
     failures += phase_reconstructions(pipe)
     failures += phase_masactrl_identity(pipe)
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
-             "ef": ef_counts, "masactrl": masactrl_counts, "exact_forward": exact_counts}
+             "ef": ef_counts, "masactrl": masactrl_counts, "exact_forward": exact_counts,
+             **probe_counts}
 
     def entry(name, route, source, replaces, path):
         """The kernel's first comparison (a shape of its path) and its launches
@@ -1164,11 +1380,12 @@ def main(argv=None) -> int:
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                           "plain_covers", "split_path_ms", "shape")
+                                           "plain_covers", "split_path_ms", "pipe_ms", "shape")
                    if k in mine[0]}}
 
-    fwd_cu, bwd_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
-                      "hedit_tpu_torch/csrc/flash_attention_bwd.cu")
+    fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
+                                 "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
+                                 "hedit_tpu_torch/csrc/flash_probes.cu")
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
         entry("flash_attention", "cuda", fwd_cu, f"{jax_flash}:220", "masactrl"),
@@ -1178,7 +1395,16 @@ def main(argv=None) -> int:
         entry("flash_bwd_dq", "cuda", bwd_cu, f"{jax_flash}:553", "nmg"),
         entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", "nmg"),
         entry("flash_attention_exact", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
-        entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", "masactrl")]}))
+        entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
+        entry("flash_packed_bounded", "cuda", fwd_cu, f"{jax_flash}:220", "masactrl"),
+        entry("flash_packed_t", "cuda", probes_cu, "scripts/flash_nhd_variants.py:93",
+              "flash_nhd_variants"),
+        entry("flash_packed_t_sminor", "cuda", probes_cu, "scripts/flash_nhd_variants.py:101",
+              "flash_nhd_variants"),
+        entry("flash_packed_t_all_sminor", "cuda", probes_cu,
+              "scripts/flash_nhd_variants.py:136", "flash_nhd_variants"),
+        entry("flash_exp2_t", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
+              "flash_v4_variants")]}))
     if failures:
         print("FAILED: " + "; ".join(failures))
         return 1

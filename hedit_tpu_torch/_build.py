@@ -41,10 +41,16 @@ ARGTYPES = {
     "hedit_flash_attention_fwd_exact": [_P] * 4 + [_I] * 5 + [_P],
     # q, k, v, out | b, h, sq, sk, d | batch strides of q, k, v | dtype | stream
     "hedit_flash_attention_fwd_packed": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_I, _P],
+    # q, k, v, out | b, h, sq, sk, d, anchor | batch strides of q, k, v | dtype | stream
+    "hedit_flash_attention_fwd_packed_bounded": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
     # q, k, v, dout, lse, delta, dq | bh, sq, sk, d, dtype | stream
     "hedit_flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dk, dv | bh, sq, sk, d, dtype | stream
     "hedit_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+    # q, k, v, out | bh, sq, sk, d, anchor, layout, dtype | stream
+    "hedit_flash_packed_t": [_P] * 4 + [_I] * 7 + [_P],
+    # q, k, v, out | bh, sq, sk, d, pipe, dtype | stream
+    "hedit_flash_exp2_t": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

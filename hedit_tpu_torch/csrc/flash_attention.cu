@@ -9,7 +9,11 @@
 //          hedit_flash_attention_fwd, wrapper flash_attention_cuda;
 //   row 3: _flash_bounded_lse_kernel (wrapper _flash_bounded_fwd_lse, the
 //          forward of flash_attention_diff); entry point
-//          hedit_flash_attention_fwd_lse, wrapper flash_attention_lse_cuda.
+//          hedit_flash_attention_fwd_lse, wrapper flash_attention_lse_cuda;
+// and, on packed heads (below), row 1 as the paths reach it: JAX sends every
+// UNet self-attention of >= 1024 tokens to flash_attention_diff, whose primal
+// is row 1; entry point hedit_flash_attention_fwd_packed_bounded, wrapper
+// flash_attention_packed_bounded_cuda.
 // A prologue takes each query row's max m0 over its anchor window, the first
 // `anchor` keys (the key block the JAX wrapper picks at that shape, passed in
 // by the wrapper; not this kernel's own key tile, or the saturation would
@@ -28,15 +32,16 @@
 //   row 6: _flash_kernel (wrapper flash_attention, JAX's public exact
 //          forward, on no editing path of either package); entry point
 //          hedit_flash_attention_fwd_exact, wrapper flash_attention_exact_cuda;
-//   row 7: _flash_packed_kernel (wrapper flash_attention_packed); entry point
-//          hedit_flash_attention_fwd_packed, wrapper flash_attention_packed_cuda.
+//   row 7: _flash_packed_kernel (wrapper flash_attention_packed, on no path
+//          of either package); entry point hedit_flash_attention_fwd_packed,
+//          wrapper flash_attention_packed_cuda.
 // q * scale stays float32 and p float32 here.
 //
-// Packed heads (row 7): q [B, Sq, H*D], k and v [B, Sk, H*D] -> out
-// [B, Sq, H*D], head h in columns h*D .. (h+1)*D.  The TPU program owned one
-// batch row, looped over the heads in Python and kept K/V of all heads
-// resident in VMEM; here a block still owns 64 queries of one (batch row,
-// head), and the only change is in addressing: the template takes the
+// Packed heads (row 7, and row 1 on the paths): q [B, Sq, H*D], k and v
+// [B, Sk, H*D] -> out [B, Sq, H*D], head h in columns h*D .. (h+1)*D.  The
+// TPU program owned one batch row, looped over the heads in Python and kept
+// K/V of all heads resident in VMEM; here a block still owns 64 queries of
+// one (batch row, head), and the only change is in addressing: the template takes the
 // element strides (batch, head, row) of q, k, v and out, so the head-split
 // layout (head stride 0 with BH as the batch, row stride D) and the packed
 // one (head stride D, row stride H*D) are the same code, and no [B, H, S, D]
@@ -49,7 +54,7 @@
 //
 // Contract, head-split entry points: q [BH, Sq, D], k and v [BH, Sk, D],
 // contiguous, all of one dtype (float32 or bfloat16); out [BH, Sq, D] in that
-// dtype; lse2 [BH, Sq] float32 or null.  Packed entry point: each [S, H*D]
+// dtype; lse2 [BH, Sq] float32 or null.  Packed entry points: each [S, H*D]
 // image dense, the images of q, k and v a batch stride apart (so a row slice
 // of a larger batch needs no copy); out dense.  Any Sq, Sk
 // >= 1 (ragged tails are masked here); D is one of the head dims of SD-1.5:
@@ -386,6 +391,25 @@ Layout head_split(int bh, int sq, int sk, int d) {
   return Layout{bh, 1, qo, kv, kv, qo};
 }
 
+// Packed heads: q [B, Sq, H*D], k and v [B, Sk, H*D], each [S, H*D] image
+// dense and the images q_bs, k_bs, v_bs elements apart (0: one image read by
+// every batch row); out [B, Sq, H*D] contiguous.  Head h of a row is its
+// columns h*D .. (h+1)*D, on both sides.  False for arguments that are not
+// such a batch.
+bool packed_layout(int b, int h, int sq, int sk, int d, long long q_bs, long long k_bs,
+                   long long v_bs, Layout* lay) {
+  if (b < 1 || h < 1 || sq < 1 || sk < 1 || (long long)b * h > 65535) return false;
+  if ((long long)h * d > INT_MAX) return false;
+  const int row = h * d;
+  const long long q_img = (long long)sq * row, kv_img = (long long)sk * row;
+  // images that overlap, or lie before the pointer, are not a batch
+  if ((q_bs != 0 && q_bs < q_img) || (k_bs != 0 && k_bs < kv_img) ||
+      (v_bs != 0 && v_bs < kv_img))
+    return false;
+  *lay = Layout{b * h, h, {q_bs, d, row}, {k_bs, d, row}, {v_bs, d, row}, {q_img, d, row}};
+  return true;
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  dtype: 0 float32, 1 bfloat16.
@@ -421,24 +445,27 @@ extern "C" int hedit_flash_attention_fwd_exact(const void* q, const void* k,
                               dtype, stream);
 }
 
-// Row 7: the exact forward on packed heads: q [B, Sq, H*D], k and v
-// [B, Sk, H*D], each [S, H*D] image dense and the images q_bs, k_bs, v_bs
-// elements apart (0: one image read by every batch row); out [B, Sq, H*D]
-// contiguous.  Head h of a row is its columns h*D .. (h+1)*D, on both sides.
+// Row 7: the exact forward on packed heads.
 extern "C" int hedit_flash_attention_fwd_packed(const void* q, const void* k,
                                                 const void* v, void* out, int b,
                                                 int h, int sq, int sk, int d,
                                                 long long q_bs, long long k_bs,
                                                 long long v_bs, int dtype,
                                                 void* stream) {
-  if (b < 1 || h < 1 || sq < 1 || sk < 1 || (long long)b * h > 65535) return -1;
-  if ((long long)h * d > INT_MAX) return -1;
-  const int row = h * d;
-  const long long q_img = (long long)sq * row, kv_img = (long long)sk * row;
-  // images that overlap, or lie before the pointer, are not a batch
-  if ((q_bs != 0 && q_bs < q_img) || (k_bs != 0 && k_bs < kv_img) ||
-      (v_bs != 0 && v_bs < kv_img))
-    return -1;
-  const Layout lay{b * h, h, {q_bs, d, row}, {k_bs, d, row}, {v_bs, d, row}, {q_img, d, row}};
+  Layout lay;
+  if (!packed_layout(b, h, sq, sk, d, q_bs, k_bs, v_bs, &lay)) return -1;
   return forward<Mode::Exact>(q, k, v, out, nullptr, lay, sq, sk, d, 0, dtype, stream);
+}
+
+// Row 1 on packed heads: the bounded forward; anchor as in
+// hedit_flash_attention_fwd.
+extern "C" int hedit_flash_attention_fwd_packed_bounded(const void* q, const void* k,
+                                                        const void* v, void* out, int b,
+                                                        int h, int sq, int sk, int d,
+                                                        int anchor, long long q_bs,
+                                                        long long k_bs, long long v_bs,
+                                                        int dtype, void* stream) {
+  Layout lay;
+  if (!packed_layout(b, h, sq, sk, d, q_bs, k_bs, v_bs, &lay)) return -1;
+  return forward<Mode::Bounded>(q, k, v, out, nullptr, lay, sq, sk, d, anchor, dtype, stream);
 }

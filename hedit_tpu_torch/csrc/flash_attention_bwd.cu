@@ -15,16 +15,17 @@
 //   ds = p * (dp - delta)
 //   dq = ds k * scale      dk = ds^T q * scale      dv = p^T dO
 //
-// The port's forward is an exact online softmax, so p here is exactly the
-// forward's p: there is no saturation clamp to ignore, as the TPU backward had
-// to ignore the one of its bounded forward.
+// The forward (row 3) is the bounded, max-free one, and this backward, like
+// the TPU's, ignores its clamp: p is rebuilt as exp2(s2 - lse2) from the
+// forward's lse2, which is the forward's p wherever no key saturates.  Both
+// packages do the same.
 //
 // Contract: q, dO [BH, Sq, D]; k, v [BH, Sk, D]; lse2, delta [BH, Sq]
 // float32; all contiguous; q, k, v, dO of one dtype (float32 or bfloat16);
 // dq, dk, dv in that dtype.  Any Sq, Sk >= 1: padded keys are masked out of
-// dq and padded queries out of dk and dv.  D is 40 or 80, the head dims of the
-// UNet's self-attention; D = 512 (the VAE) is never differentiated and is
-// refused.
+// dq and padded queries out of dk and dv.  D is 40 or 80 (the UNet's
+// self-attention) or 512 (the VAE's mid-block attention, which the style
+// reward differentiates through the decoder); any other D is refused.
 //
 // What bounds them on the H100.  dq is three products over the Sq x Sk score
 // grid (s, dp, ds k) and dk/dv four (s, dp, p^T dO, ds^T q): 14 * Sq * Sk * D
@@ -39,20 +40,29 @@
 // word feeds several FMAs and the gradients accumulate in registers.  Tensor
 // cores and TMA are the next step.
 //
-// The TPU programs keep K/V (dq) or Q/dO (dk, dv) of a whole (batch, head)
-// resident in VMEM and walk 512 x 512 blocks.  Here a block owns 64 rows of
-// the gradient it writes and streams 64-row tiles of the other side through
-// shared memory:
+// D = 512 cannot keep that tile: 4 x 64 floats an output, two outputs in
+// dk/dv, is more than a thread's 255 registers.  Its blocks own 16 rows, not
+// 64, and stream 32-row tiles; a warp's 32 lanes share one score row each
+// (4 x 1 scores a thread) and split the 512 output columns (4 x 16 of each
+// output a thread: 64 registers for dq, 128 for dk and dv).  The four
+// [rows][513] float32 tiles then take ~197 KB of shared memory, so one block
+// runs on an SM at a time: a simple design, held to the plain version, whose
+// speed is for a later change.
 //
-// * dq: a block owns 64 queries of one (batch, head) and loops over key tiles;
-// * dk, dv: a block owns 64 keys and loops over query tiles.
+// The TPU programs keep K/V (dq) or Q/dO (dk, dv) of a whole (batch, head)
+// resident in VMEM and walk 512 x 512 blocks.  Here a block owns 64 rows (16
+// at D = 512) of the gradient it writes and streams tiles of the other side
+// through shared memory:
+//
+// * dq: a block owns queries of one (batch, head) and loops over key tiles;
+// * dk, dv: a block owns keys and loops over query tiles.
 //
 // Every output element is written by exactly one thread of one block: no
 // atomics and no reduction across blocks, so results do not change from run
 // to run.
 //
 // Block layout (both kernels): 128 threads as a TR x TC grid (tid = tr * TC +
-// tc).  Thread (tr, tc) owns rows tr*RR + i (i < RR) of the block's own 64
+// tc).  Thread (tr, tc) owns rows tr*RR + i (i < RR) of the block's own
 // rows, columns tc + TC*j (j < RC) of the streamed tile, and output columns
 // tc + TC*c (c < NC = D / TC) of its rows.
 
@@ -307,14 +317,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// One tile shape for both kernels and both head dims: 64 own rows x 64
-// streamed rows, 4 x 8 of the score grid and 4 x D/8 of each output a thread.
-template <typename T, int NC>
+// Tile <TR, TC, RR, RC, NC> of both kernels a head dim.  d = 40, 80: 64 own
+// rows x 64 streamed rows, 4 x 8 of the score grid and 4 x D/8 of each output
+// a thread.  d = 512: 16 own rows x 32 streamed rows, 4 x 1 scores and 4 x 16
+// of each output a thread.
+template <typename T, int TR, int TC, int RR, int RC, int NC>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
                       cudaStream_t stream) {
-  using Cfg = BwdTile<16, 8, 4, 8, NC>;
-  auto kernel = flash_bwd_dq_kernel<T, 16, 8, 4, 8, NC>;
+  using Cfg = BwdTile<TR, TC, RR, RC, NC>;
+  auto kernel = flash_bwd_dq_kernel<T, TR, TC, RR, RC, NC>;
   const size_t smem = Cfg::dq_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -327,12 +339,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <typename T, int NC>
+template <typename T, int TR, int TC, int RR, int RC, int NC>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv, int bh,
                        int sq, int sk, cudaStream_t stream) {
-  using Cfg = BwdTile<16, 8, 4, 8, NC>;
-  auto kernel = flash_bwd_dkv_kernel<T, 16, 8, 4, 8, NC>;
+  using Cfg = BwdTile<TR, TC, RR, RC, NC>;
+  auto kernel = flash_bwd_dkv_kernel<T, TR, TC, RR, RC, NC>;
   const size_t smem = Cfg::dkv_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -345,8 +357,35 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t dq_for(int d, const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
+                   cudaStream_t s) {
+  switch (d) {
+    case 40: return launch_dq<T, 16, 8, 4, 8, 5>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
+    case 80: return launch_dq<T, 16, 8, 4, 8, 10>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
+    case 512: return launch_dq<T, 4, 32, 4, 1, 16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dkv_for(int d, const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
+                    int sk, cudaStream_t s) {
+  switch (d) {
+    case 40:
+      return launch_dkv<T, 16, 8, 4, 8, 5>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, s);
+    case 80:
+      return launch_dkv<T, 16, 8, 4, 8, 10>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, s);
+    case 512:
+      return launch_dkv<T, 4, 32, 4, 1, 16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 bool takes(int bh, int sq, int sk, int d, int dtype) {
-  return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && (d == 40 || d == 80) &&
+  return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && (d == 40 || d == 80 || d == 512) &&
          (dtype == 0 || dtype == 1);
 }
 
@@ -354,7 +393,7 @@ bool takes(int bh, int sq, int sk, int d, int dtype) {
 
 // Plain C entry points for ctypes.  dtype: 0 float32, 1 bfloat16.  Each
 // returns 0 on success, a cudaError_t code from the launch, or -1 for
-// arguments the kernel does not take (among them D = 512).
+// arguments the kernel does not take.
 extern "C" int hedit_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse,
                                             const void* delta, void* dq, int bh, int sq,
@@ -363,12 +402,8 @@ extern "C" int hedit_flash_attention_bwd_dq(const void* q, const void* k, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (dtype == 0) {
-    return int(d == 40 ? launch_dq<float, 5>(q, k, v, dout, l, dl, dq, bh, sq, sk, s)
-                       : launch_dq<float, 10>(q, k, v, dout, l, dl, dq, bh, sq, sk, s));
-  }
-  return int(d == 40 ? launch_dq<__nv_bfloat16, 5>(q, k, v, dout, l, dl, dq, bh, sq, sk, s)
-                     : launch_dq<__nv_bfloat16, 10>(q, k, v, dout, l, dl, dq, bh, sq, sk, s));
+  return int(dtype == 0 ? dq_for<float>(d, q, k, v, dout, l, dl, dq, bh, sq, sk, s)
+                        : dq_for<__nv_bfloat16>(d, q, k, v, dout, l, dl, dq, bh, sq, sk, s));
 }
 
 extern "C" int hedit_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -379,11 +414,7 @@ extern "C" int hedit_flash_attention_bwd_dkv(const void* q, const void* k, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (dtype == 0) {
-    return int(d == 40 ? launch_dkv<float, 5>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, s)
-                       : launch_dkv<float, 10>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, s));
-  }
-  return int(d == 40
-                 ? launch_dkv<__nv_bfloat16, 5>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, s)
-                 : launch_dkv<__nv_bfloat16, 10>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, s));
+  return int(dtype == 0
+                 ? dkv_for<float>(d, q, k, v, dout, l, dl, dk, dv, bh, sq, sk, s)
+                 : dkv_for<__nv_bfloat16>(d, q, k, v, dout, l, dl, dk, dv, bh, sq, sk, s));
 }

@@ -11,7 +11,8 @@ and undoes its transposition (Dense kernel [in, out] -> weight [out, in];
 conv kernel HWIO -> OIHW).  So ``convert_unet(unet_state_dict(params,
 model))`` gives ``params`` back, and both packages compute the same thing
 from one set of weights.  A local diffusers directory loads directly, since
-its keys are already the port's.
+its keys are already the port's, once ``legacy_vae_state`` has renamed the
+legacy VAE attention keys the JAX package also reads.
 """
 
 from __future__ import annotations
@@ -87,6 +88,32 @@ def _flatten_tree(tree, prefix=()):
             out.update(_flatten_tree(v, prefix + (k,)))
         else:
             out[prefix + (k,)] = v
+    return out
+
+
+# Legacy VAE attention names -> the port's keys: the torch-key form of the
+# legacy rules of ``VAE_FIXUPS`` (diffusers' query / key / value / proj_attn
+# and the LDM names q / k / v / proj_out of the mid-block attention).
+VAE_LEGACY_KEYS: List[Tuple[str, str]] = [
+    (r"(mid_block\.attentions\.0)\.(?:query|q)\.", r"\1.to_q."),
+    (r"(mid_block\.attentions\.0)\.(?:key|k)\.", r"\1.to_k."),
+    (r"(mid_block\.attentions\.0)\.(?:value|v)\.", r"\1.to_v."),
+    (r"(mid_block\.attentions\.0)\.(?:proj_attn|proj_out)\.", r"\1.to_out.0."),
+]
+
+
+def legacy_vae_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A VAE ``state_dict`` with legacy attention keys renamed to the port's
+    (``VAE_LEGACY_KEYS``), and the mid-block attention's 1x1-conv weights
+    ``[C, C, 1, 1]`` squeezed to the linear ``[C, C]``, as the JAX package's
+    ``convert_vae`` squeezes them; other keys pass unchanged."""
+    out = {}
+    for key, t in state.items():
+        for pat, rep in VAE_LEGACY_KEYS:
+            key = re.sub(pat, rep, key)
+        if "mid_block.attentions.0." in key and t.dim() == 4 and tuple(t.shape[2:]) == (1, 1):
+            t = t.reshape(t.shape[0], t.shape[1])
+        out[key] = t
     return out
 
 

@@ -1,12 +1,15 @@
 """Attention dispatch with control hooks (port of ``hedit_tpu/ops/attention.py``).
 
 * fused path: ``softmax(q k^T) v`` without materialised probabilities.  A CUDA
-  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernels:
-  with several heads and no recorded gradient to the packed forward, which
-  reads the ``[B, S, H*D]`` projections as they are (no head-split copies);
-  with one head (the VAE, whose head split is a view) to the head-split
-  forward; under a recorded gradient to the head-split forward and backward.
-  Everything else goes to the plain version.  The P2P self edit (a q/k
+  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernels, all
+  in the bounded (max-free) form the JAX package's ``flash_attention_diff``
+  computes there: with several heads and no recorded gradient to the packed
+  bounded forward, which reads the ``[B, S, H*D]`` projections as they are
+  (no head-split copies); with one head (the VAE, whose head split is a
+  view) to the head-split forward; under a recorded gradient to the
+  head-split LSE forward and the backward.  Everything else, the CPU
+  included, goes to the exact plain version, as the JAX package's routing
+  does off the TPU.  The P2P self edit (a q/k
   row-select, ``map_qkv``) and cross edit (a linear map over the token axis,
   ``linear_token_edit``) both ride this path.
 * probability path: at the P2P store layers only for the (cond_start,
@@ -29,7 +32,7 @@ import torch
 
 from hedit_tpu_torch.control.base import NO_CONTROL, LayerTag
 from hedit_tpu_torch.ops.flash_attention import (
-    flash_attention_cuda, flash_attention_diff, flash_attention_packed_cuda,
+    flash_attention_cuda, flash_attention_diff, flash_attention_packed_bounded_cuda,
     reference_attention,
 )
 
@@ -90,11 +93,11 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int) -> torch.Tensor:
     """[B, S, H*D] attention -> [B, Sq, H*D].  A CUDA tensor of several heads
     and kernel-sized sequences without a recorded gradient goes to the packed
-    kernel as it is; everything else is split into heads (a view for one
-    head) and routed by ``fused_attention``."""
+    bounded kernel as it is; everything else is split into heads (a view for
+    one head) and routed by ``fused_attention``."""
     if (q.is_cuda and heads > 1 and min(q.shape[1], k.shape[1]) >= FLASH_MIN_SEQ
             and not _records_gradient(q, k, v)):
-        return flash_attention_packed_cuda(q, k, v, heads)
+        return flash_attention_packed_bounded_cuda(q, k, v, heads)
     return merge_heads(fused_attention(split_heads(q, heads), split_heads(k, heads),
                                        split_heads(v, heads)))
 

@@ -11,8 +11,12 @@ Port of ``hedit_tpu/ops/flash_attention.py``.  One CUDA forward template
   contributes ``p = exp2(min(s - shift, 100))`` with no running max and no
   rescale; the denominator is floored at ``1.2e-38``.
 
-  - ``flash_attention_cuda``: the forward without a gradient (the VAE's
-    one-head attention on the paths);
+  - ``flash_attention_cuda``: the forward without a gradient, head-split
+    (the VAE's one-head attention on the paths);
+  - ``flash_attention_packed_bounded_cuda``: the same forward on the packed
+    projections ``[B, S, H*D]``, heads addressed in the kernel: every UNet
+    self-attention without a gradient on the paths (JAX sends those to
+    ``flash_attention_diff``, whose primal is ``_flash_bounded_kernel``);
   - ``flash_attention_lse_cuda``: the same with the base-2 log-sum-exp
     ``lse2 = shift + log2(denom)`` of each row, the forward of
     ``flash_attention_diff``, whose backward launches the dq and the dk / dv
@@ -21,8 +25,8 @@ Port of ``hedit_tpu/ops/flash_attention.py``.  One CUDA forward template
 
 * **exact** (running max and rescale): the TPU kernels ``_flash_kernel``
   (``flash_attention_exact_cuda``, head-split) and ``_flash_packed_kernel``
-  (``flash_attention_packed_cuda``: the packed projections ``[B, S, H*D]``,
-  heads addressed in the kernel).
+  (``flash_attention_packed_cuda``, packed heads).  Neither lies on a path of
+  either package.
 
 The two modes agree wherever no key scores more than 116 log2 units above
 its row's anchor maximum; beyond that the bounded form saturates those keys
@@ -30,10 +34,12 @@ at 2^100 as the TPU kernel does.
 
 The notes at the head of the two sources give the designs and what bounds
 them on the H100.  Beside each kernel stands its plain PyTorch version
-(the head-split forward wrappers take theirs for CPU tensors):
-``flash_attention_bounded_reference`` and ``flash_attention_lse_reference``
-(bounded, JAX's arithmetic step by step), ``reference_attention`` (exact,
-softmax in float32), ``flash_attention_packed_reference`` and
+(the bounded and the head-split exact forward wrappers take theirs for CPU
+tensors): ``flash_attention_bounded_reference``,
+``flash_attention_lse_reference`` and
+``flash_attention_packed_bounded_reference`` (bounded, JAX's arithmetic
+step by step), ``reference_attention`` (exact, softmax in float32),
+``flash_attention_packed_reference`` and
 ``flash_attention_backward_reference`` (the backward by its explicit
 formulas, not by autograd of the forward).  The TPU kernels' VMEM residency
 rule (``flash_kv_fits``) has no counterpart: the CUDA kernels stream tiles
@@ -57,14 +63,16 @@ import torch
 launches = 0          # bounded forward without the log-sum-exp, head-split
 launches_exact = 0    # exact forward, head-split
 launches_packed = 0   # exact forward on packed heads
+launches_packed_bounded = 0   # bounded forward on packed heads
 launches_lse = 0      # bounded forward with the log-sum-exp
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
 
 # UNet self-attention (40, 80) and the VAE mid-block (512); others are refused
 HEAD_DIMS = (40, 80, 512)
-# the backward has no tile shape for the VAE's 512: nothing differentiates the VAE
-BWD_HEAD_DIMS = (40, 80)
+# the backward's: the same, the VAE's 512 with a tile of its own (the style
+# reward differentiates through the decoder's mid-block attention)
+BWD_HEAD_DIMS = (40, 80, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
 DENOM_FLOOR = 1.2e-38
@@ -130,16 +138,34 @@ def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return out, lse2.reshape(b * h, 1, sq)
 
 
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, s, hd = x.shape
+    return x.reshape(b, s, heads, hd // heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
 def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      heads: int) -> torch.Tensor:
     """Plain version of the packed forward: q [B, Sq, H*D], k / v [B, Sk, H*D] ->
     [B, Sq, H*D]; head h is columns h*D .. (h+1)*D of a row."""
-    def split(x):
-        b, s, hd = x.shape
-        return x.reshape(b, s, heads, hd // heads).transpose(1, 2)
+    return _merge_heads(reference_attention(_split_heads(q, heads), _split_heads(k, heads),
+                                            _split_heads(v, heads)))
 
-    out = reference_attention(split(q), split(k), split(v))
-    return out.transpose(1, 2).reshape(q.shape)
+
+def flash_attention_packed_bounded_reference(q: torch.Tensor, k: torch.Tensor,
+                                             v: torch.Tensor, heads: int,
+                                             anchor: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the bounded forward on packed heads: q [B, Sq, H*D],
+    k / v [B, Sk, H*D] -> [B, Sq, H*D] in q's dtype; the heads split, the
+    bounded forward (``anchor`` as ``flash_attention_bounded_reference``),
+    the heads merged."""
+    out = _bounded(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
+                   anchor)[0]
+    return _merge_heads(out)
 
 
 def flash_attention_backward_reference(q, k, v, out, lse2, do
@@ -244,15 +270,9 @@ def _image_stride(t: torch.Tensor, name: str) -> int:
     return t.stride(0) if b > 1 else s * hd
 
 
-def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                heads: int) -> torch.Tensor:
-    """Launch the forward kernel on packed heads: q [B, Sq, H*D], k / v
-    [B, Sk, H*D] -> contiguous [B, Sq, H*D].  The batch rows of an input may
-    lie any stride apart (a row slice of a larger batch is taken as it is).
-    Raises on any input the kernel does not take, and if the launch is
-    refused."""
-    global launches_packed
-    what = "flash_attention_packed_cuda"
+def _check_packed(q, k, v, heads: int, what: str):
+    """Raise on packed inputs the kernels do not take; returns the entry
+    points' integer arguments (b, h, sq, sk, d, batch strides of q, k, v)."""
     _check_device_dtype(q, k, v, what)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be [B, S, H*D]")
@@ -265,10 +285,44 @@ def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
         raise ValueError(f"{what} does not take q{tuple(q.shape)} k{tuple(k.shape)} with "
                          f"{heads} heads: head dim must be one of {HEAD_DIMS}")
     strides = [_image_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
-    out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
-    _launch("hedit_flash_attention_fwd_packed", q, (q, k, v, out),
-            (b, heads, sq, sk, hd // heads, *strides))
+    return b, heads, sq, sk, hd // heads, *strides
+
+
+def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                heads: int) -> torch.Tensor:
+    """Launch the exact forward kernel on packed heads: q [B, Sq, H*D], k / v
+    [B, Sk, H*D] -> contiguous [B, Sq, H*D].  The batch rows of an input may
+    lie any stride apart (a row slice of a larger batch is taken as it is).
+    Raises on any input the kernel does not take, and if the launch is
+    refused."""
+    global launches_packed
+    b, h, sq, sk, d, *strides = _check_packed(q, k, v, heads, "flash_attention_packed_cuda")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch("hedit_flash_attention_fwd_packed", q, (q, k, v, out), (b, h, sq, sk, d, *strides))
     launches_packed += 1
+    return out
+
+
+def flash_attention_packed_bounded_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        heads: int, anchor: Optional[int] = None
+                                        ) -> torch.Tensor:
+    """The bounded forward on packed heads, layouts as
+    ``flash_attention_packed_cuda``: a CPU tensor takes
+    ``flash_attention_packed_bounded_reference``, a CUDA tensor launches the
+    kernel with ``anchor`` (default ``bounded_anchor(Sk, D)``).  Raises on any
+    CUDA input the kernel does not take, and if the launch is refused."""
+    global launches_packed_bounded
+    if _on_cpu(q, k, v):
+        return flash_attention_packed_bounded_reference(q, k, v, heads, anchor)
+    b, h, sq, sk, d, *strides = _check_packed(q, k, v, heads,
+                                              "flash_attention_packed_bounded_cuda")
+    anchor = bounded_anchor(sk, d) if anchor is None else anchor
+    if anchor < 1:
+        raise ValueError(f"anchor must be positive, got {anchor}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch("hedit_flash_attention_fwd_packed_bounded", q, (q, k, v, out),
+            (b, h, sq, sk, d, anchor, *strides))
+    launches_packed_bounded += 1
     return out
 
 
@@ -304,8 +358,8 @@ def _check_bwd(q, k, v, do, lse2, delta, what: str) -> Tuple[int, int, int, int]
 
 def flash_bwd_dq_cuda(q, k, v, do, lse2, delta) -> torch.Tensor:
     """Launch the dq kernel.  lse2 and delta = rowsum(dO * out) hold one
-    float32 per (batch, head, query).  Raises on what the kernel does not take
-    (among it head dim 512)."""
+    float32 per (batch, head, query).  Raises on what the kernel does not
+    take."""
     global launches_bwd_dq
     dims = _check_bwd(q, k, v, do, lse2, delta, "flash_bwd_dq_cuda")
     dq = torch.empty_like(q)
@@ -356,6 +410,5 @@ class _FlashAttentionDiff(torch.autograd.Function):
 def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Attention with a gradient through the flash kernels (port of
     ``flash_attention_diff``): q [B, H, Sq, D], k / v [B, H, Sk, D] ->
-    [B, H, Sq, D].  On CUDA tensors D must be 40 or 80 by the time the
-    backward runs."""
+    [B, H, Sq, D].  On CUDA tensors D is one of ``BWD_HEAD_DIMS``."""
     return _FlashAttentionDiff.apply(q, k, v)

@@ -2,7 +2,8 @@
 (port of ``hedit_tpu/pipelines/sd.py``).
 
 Weights come from a local diffusers-layout directory (``unet/``, ``vae/``,
-``text_encoder/``), whose keys are the port's own, or from a seeded random
+``text_encoder/``), read in the JAX package's order (``*.safetensors``, then
+``*.bin``) and with its legacy VAE attention names, or from a seeded random
 init: every linear and conv weight N(0, 1/fan_in) with bias 0, embeddings
 N(0, 0.02), norms weight 1 and bias 0, drawn in module order from one
 ``torch.Generator``.
@@ -12,13 +13,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from hedit_tpu_torch.core.schedule import Schedule
 from hedit_tpu_torch.io_utils.safetensors_io import load_safetensors
+from hedit_tpu_torch.io_utils.weights import legacy_vae_state
 from hedit_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from hedit_tpu_torch.models.unet_sd import UNet2DCondition, UNetConfig
 from hedit_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -65,20 +67,40 @@ def seeded_init_(module: torch.nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
+# checkpoint file names, in the order the JAX package looks for them
+CKPT_NAMES = ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin",
+              "model.safetensors", "pytorch_model.bin")
+
+
 def _find_ckpt(subdir: str) -> str:
-    for name in ("diffusion_pytorch_model.safetensors", "model.safetensors"):
+    for name in CKPT_NAMES:
         path = os.path.join(subdir, name)
         if os.path.exists(path):
             return path
-    raise FileNotFoundError(f"no safetensors checkpoint under {subdir}")
+    raise FileNotFoundError(f"no checkpoint found under {subdir}")
+
+
+def _read_ckpt(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file's tensors as float32: safetensors by the port's own
+    reader, ``*.bin`` by ``torch.load`` with ``weights_only`` (tensors, no
+    code), unwrapping a ``state_dict`` entry as the JAX package does."""
+    if path.endswith(".safetensors"):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                for k, v in load_safetensors(path).items()}
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v.detach().float() for k, v in obj.items()}
 
 
 def load_sd_weights(weights_dir: str, unet, vae, text) -> None:
-    """Load a local diffusers directory into the three towers (strict keys)."""
+    """Load a local diffusers directory into the three towers (strict keys,
+    after the VAE's legacy attention keys are renamed)."""
     for sub, model in (("unet", unet), ("vae", vae), ("text_encoder", text)):
-        state = load_safetensors(_find_ckpt(os.path.join(weights_dir, sub)))
-        state = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()
-                 if not k.endswith("position_ids")}
+        state = _read_ckpt(_find_ckpt(os.path.join(weights_dir, sub)))
+        state = {k: v for k, v in state.items() if not k.endswith("position_ids")}
+        if sub == "vae":
+            state = legacy_vae_state(state)
         model.load_state_dict(state, strict=True)
 
 

@@ -177,3 +177,31 @@ def test_wrappers_take_the_plain_versions_on_cpu():
     np.testing.assert_array_equal(flash_mod.flash_attention_exact_cuda(q, k, v).numpy(),
                                   flash_mod.reference_attention(q, k, v).numpy())
     assert counts == (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_exact)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_packed_bounded_plain_version_matches_jax_on_saturating_input(dtype):
+    """The bounded forward on packed heads, the route of every UNet
+    self-attention on the card: its plain version on the saturating input
+    laid out packed ([1, S, 2 * 40]) equals JAX's ``flash_attention_bounded``
+    with its heads merged (tolerances of ``_tol``), and differs from exact
+    attention by far more.  On the CPU the packed wrapper gives this plain
+    version and the routing, like the JAX package's off the TPU, the exact
+    one."""
+    from hedit_tpu_torch.ops.attention import fused_attention_packed, merge_heads
+
+    (q, k, v), (jq, jk, jv) = _saturating(dtype)
+    qp, kp, vp = (merge_heads(t).contiguous() for t in (q, k, v))
+    got = _f32(flash_mod.flash_attention_packed_bounded_reference(qp, kp, vp, 2, ANCHOR))
+    want = np.asarray(flash_attention_bounded(jq, jk, jv, blk_q=128, blk_k=128,
+                                              interpret=True).astype(jnp.float32))
+    want = want.transpose(0, 2, 1, 3).reshape(got.shape)
+    tol = _tol(dtype, want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    exact = _f32(fused_attention_packed(qp, kp, vp, 2))
+    np.testing.assert_array_equal(exact, _f32(merge_heads(flash_mod.reference_attention(q, k, v))))
+    assert np.abs(got - exact).max() > 20 * tol
+    count = flash_mod.launches_packed_bounded
+    np.testing.assert_array_equal(
+        _f32(flash_mod.flash_attention_packed_bounded_cuda(qp, kp, vp, 2, ANCHOR)), got)
+    assert flash_mod.launches_packed_bounded == count

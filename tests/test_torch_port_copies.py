@@ -26,7 +26,8 @@ from hedit_tpu_torch.models.unet_sd import UNet2DCondition, UNetConfig
 from hedit_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|hedit_tpu)\b(?!_)", re.M)
+_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|hedit_tpu|scripts)\b(?!_)",
+                     re.M)
 
 PROMPTS = ["a photo of a green lizard on a rock", "a photo of a brown lizard on a rock",
            "A cat's whiskers, 3 dogs & an über-long   sentence!", ""]
@@ -42,17 +43,22 @@ def _port_files():
 
 def test_no_port_file_imports_jax_flax_or_the_jax_package():
     """Every ``*.py`` under ``hedit_tpu_torch/`` and ``chip_smoke.py``: no
-    import statement, at any indentation, names jax, flax or a module of
-    ``hedit_tpu`` (``hedit_tpu_torch`` itself passes: the match is
-    word-bounded)."""
+    import statement, at any indentation, names jax, flax, a module of
+    ``hedit_tpu`` or the JAX package's ``scripts/`` (``hedit_tpu_torch``
+    itself passes: the match is word-bounded).  The probes' ports are among
+    the files scanned."""
     files = _port_files()
     assert len(files) > 20
     assert {"masactrl.py", "masactrl_mask.py", "masactrl_auto.py", "h_edit_ctrl.py",
-            "main_masactrl.py", "common.py"} <= {os.path.basename(f) for f in files}
+            "main_masactrl.py", "common.py", "flash_probes.py"} <= {
+                os.path.basename(f) for f in files}
+    assert {os.path.join(ROOT, "hedit_tpu_torch", "probes", f"{n}.py")
+            for n in ("flash_nhd_variants", "flash_v4_variants")} <= set(files)
     hits = [f"{os.path.relpath(f, ROOT)}: {m.group(0).strip()}"
             for f in files for m in _IMPORT.finditer(open(f).read())]
     assert not hits, hits
     assert _IMPORT.search("    from hedit_tpu.io_utils import x") and \
+        _IMPORT.search("import scripts.flash_nhd_variants") and \
         not _IMPORT.search("from hedit_tpu_torch.ops import y")
 
 

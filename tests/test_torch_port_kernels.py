@@ -260,11 +260,37 @@ def test_differentiated_attention_routes_by_length_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_flash_backward_refuses_the_vae_head_dim(cuda):
-    q = torch.randn(1, 1, 1024, 512, device=cuda, requires_grad=True)
-    out = flash_mod.flash_attention_diff(q, q, q)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
+    """The VAE's head dim, which the backward once refused, now has its own
+    tile: dq, dk, dv of the mid-block attention [1, 1, 4096, 512] through
+    ``fused_attention`` under a recorded gradient (the style reward's route)
+    launch the LSE forward and both backward kernels and match the plain
+    backward in float32 on the same input values, fed the bounded plain
+    forward's out and lse2 (tolerances of ``_bwd_tols``); a head dim the
+    kernels have no tile for is still refused."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (1, 1, 4096, 512)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype).requires_grad_()
+               for _ in range(3))
+    do = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    assert 512 in flash_mod.BWD_HEAD_DIMS
+    before = (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
+    got = torch.autograd.grad(fused_attention(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
+                                                                 v.detach())
+    wants = flash_mod.flash_attention_backward_reference(
+        *(t.detach().float() for t in (q, k, v)), want_out.float(), want_lse, do.float())
+    for a, b, tol in zip(got, wants, _bwd_tols(dtype, wants)):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b, rtol=0, atol=tol)
+    x = torch.randn(1, 1, 1024, 64, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        out.sum().backward()
+        flash_mod.flash_attention_backward_cuda(x, x, x, x, torch.zeros(1, 1, 1024, device=cuda),
+                                                x)
 
 
 @pytest.mark.gpu
@@ -297,7 +323,8 @@ def test_groupnorm_gradient_matches_autograd_of_plain_on_card(cuda, dtype, shape
 
 def _launch_counts():
     return (flash_mod.launches, flash_mod.launches_packed, flash_mod.launches_lse,
-            flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
+            flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv,
+            flash_mod.launches_packed_bounded)
 
 
 def test_packed_wrapper_takes_plain_version_on_cpu():
@@ -308,6 +335,9 @@ def test_packed_wrapper_takes_plain_version_on_cpu():
     before = _launch_counts()
     torch.testing.assert_close(fused_attention_packed(q, q, q, 2),
                                flash_attention_packed_reference(q, q, q, 2), rtol=0, atol=0)
+    torch.testing.assert_close(flash_mod.flash_attention_packed_bounded_cuda(q, q, q, 2),
+                               flash_mod.flash_attention_packed_bounded_reference(q, q, q, 2),
+                               rtol=0, atol=0)
     assert _launch_counts() == before
     with pytest.raises(ValueError):
         flash_mod.flash_attention_packed_cuda(q, q, q, 2)
@@ -352,26 +382,74 @@ def test_packed_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,sq,sk,d", [(2, 8, 1024, 1024, 40), (2, 8, 1024, 1024, 80),
+                                             (2, 3, 300, 300, 40), (2, 2, 128, 400, 80)])
+def test_packed_bounded_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
+    """The bounded packed-head kernel against its plain version in the inputs'
+    dtype (it rounds q * scale, p and the output at the kernel's steps), with
+    JAX's anchor and with a short one that leaves keys beyond the window,
+    contiguous and as a row slice of a larger batch.  Tolerances of
+    ``_tol``."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, 3, sq, heads * d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, 3, sk, heads * d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, 2, sk, heads * d, generator=g, device=cuda).to(dtype)
+    for (qs, ks, vs), anchor in (((q[:, 0].contiguous(), k[:, 0].contiguous(),
+                                   v[:, 0].contiguous()), None),
+                                  ((q[:, 1], k[:, 2], v[:, 1]), 100)):
+        before = _launch_counts()
+        got = flash_mod.flash_attention_packed_bounded_cuda(qs, ks, vs, heads, anchor)
+        torch.cuda.synchronize()
+        assert _launch_counts() == before[:5] + (before[5] + 1,)
+        assert got.shape == qs.shape and got.is_contiguous()
+        want = flash_mod.flash_attention_packed_bounded_reference(qs, ks, vs, heads,
+                                                                  anchor).float()
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_bounded_kernel_saturates_as_its_plain_version_on_card(cuda, dtype):
+    """The saturating input laid out packed ([1, 1024, 8 * 40]): the routed
+    attention (the bounded packed kernel) matches the bounded plain version
+    within one output ulp and differs from exact attention by far more."""
+    q, k, v = (merge_heads(t).contiguous() for t in _saturating(cuda, dtype))
+    before = flash_mod.launches_packed_bounded
+    with torch.no_grad():
+        got = fused_attention_packed(q, k, v, 8).float()
+    torch.cuda.synchronize()
+    assert flash_mod.launches_packed_bounded == before + 1
+    want = flash_mod.flash_attention_packed_bounded_reference(q, k, v, 8).float()
+    exact = flash_attention_packed_reference(q.float(), k.float(), v.float(), 8)
+    tol = _tol(dtype, want)
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert (got - exact).abs().max().item() > 20 * tol
+
+
+@pytest.mark.gpu
 def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
-    """``fused_attention_packed``: the packed kernel at ``FLASH_MIN_SEQ`` tokens
-    with 8 heads and no recorded gradient; kernels 3-5 (head-split) under a
-    recorded gradient; the head-split forward for one head; the plain version
+    """``fused_attention_packed``: the bounded packed kernel at
+    ``FLASH_MIN_SEQ`` tokens with 8 heads and no recorded gradient, and never
+    the exact packed kernel; kernels 3-5 (head-split) under a recorded
+    gradient; the head-split bounded forward for one head; the plain version
     below the threshold.  Every route gives the plain version's output."""
     g = torch.Generator(device=cuda).manual_seed(0)
     S = FLASH_MIN_SEQ
     q8 = torch.randn(2, S, 8 * 40, generator=g, device=cuda)
     q1 = torch.randn(1, S, 512, generator=g, device=cuda)
     short = torch.randn(2, S // 2, 8 * 40, generator=g, device=cuda)
-    # (inputs, heads, recorded gradient) -> which counter moves: launches,
-    # launches_packed, launches_lse
-    for x, heads, grad, moved in ((q8, 8, False, (0, 1, 0)), (q8, 8, True, (0, 0, 1)),
-                                  (q1, 1, False, (1, 0, 0)), (short, 8, False, (0, 0, 0))):
+    # (inputs, heads, recorded gradient) -> how far each of launches,
+    # launches_packed, launches_lse, launches_packed_bounded moves
+    for x, heads, grad, moved in ((q8, 8, False, (0, 0, 0, 1)), (q8, 8, True, (0, 0, 1, 0)),
+                                  (q1, 1, False, (1, 0, 0, 0)), (short, 8, False, (0, 0, 0, 0))):
         x = x.clone().requires_grad_(grad)
         before = _launch_counts()
         with torch.set_grad_enabled(grad):
             got = fused_attention_packed(x, x, x, heads)
         torch.cuda.synchronize()
-        assert _launch_counts()[:3] == tuple(b + m for b, m in zip(before[:3], moved))
+        after = _launch_counts()
+        assert tuple(after[i] - before[i] for i in (0, 1, 2, 5)) == moved
         want = flash_attention_packed_reference(x.detach(), x.detach(), x.detach(), heads)
         torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-4)
     # a tensor that requires a gradient, with recording off: the packed kernel
@@ -379,10 +457,85 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
     before = _launch_counts()
     with torch.no_grad():
         fused_attention_packed(x, x, x, 8)
-    assert _launch_counts()[1] == before[1] + 1
-    # head split and merge around the head-split exact kernel (the same
+    assert _launch_counts()[5] == before[5] + 1
+    # head split and merge around the head-split bounded kernel (the same
     # arithmetic) give the same values
     with torch.no_grad():
         a = fused_attention_packed(q8, q8, q8, 8)
-        b = merge_heads(flash_mod.flash_attention_exact_cuda(*(split_heads(q8, 8),) * 3))
+        b = merge_heads(flash_mod.flash_attention_cuda(*(split_heads(q8, 8),) * 3))
     torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def _probe_inputs(dtype, shape=(2, 3, 256, 40), seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
+
+
+def _sminor(t):
+    return t.transpose(-1, -2).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["packed_t", "packed_t_sminor", "packed_t_all_sminor"])
+@pytest.mark.parametrize("shape,anchor", [((2, 3, 256, 40), 128), ((1, 2, 512, 80), 512),
+                                          ((1, 2, 1024, 40), 512)])
+def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, anchor):
+    """TPU kernel 11's three layouts against their plain versions in the
+    inputs' dtype (tolerances of ``_tol``), one launch each; the saturating
+    input (a 512-key anchor, keys beyond it far above) included."""
+    from hedit_tpu_torch.ops import flash_probes as fp
+
+    q, k, v = _probe_inputs(dtype, shape)
+    if shape[2] == 1024:
+        q, k, v = _saturating(cuda, dtype)
+    args = {"packed_t": (q, k, v), "packed_t_sminor": (_sminor(q), _sminor(k), v),
+            "packed_t_all_sminor": (_sminor(q), _sminor(k), _sminor(v))}[layout]
+    wrapper = getattr(fp, f"flash_{layout}_cuda")
+    plain = getattr(fp, f"flash_{layout}_reference")
+    counter = f"launches_{layout}"
+    before = getattr(fp, counter)
+    got = wrapper(*args, anchor)
+    torch.cuda.synchronize()
+    assert getattr(fp, counter) == before + 1
+    b, h, s, d = q.shape
+    assert got.shape == (b, h * d, s)
+    want = plain(*args, anchor).float()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pipe", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3, 256, 40), (1, 2, 576, 80), (1, 1, 64, 40)])
+def test_probe_exp2_kernel_matches_plain_on_card(cuda, dtype, pipe, shape):
+    """TPU kernel 10, both key loops, against its plain version in the
+    inputs' dtype (with the kernel's 64-key blocks of the running max;
+    tolerances of ``_tol``); the two loops give the same values."""
+    from hedit_tpu_torch.ops import flash_probes as fp
+
+    q, k, v = _probe_inputs(dtype, shape)
+    before = fp.launches_exp2_t
+    got = fp.flash_exp2_t_cuda(q, k, v, pipe)
+    other = fp.flash_exp2_t_cuda(q, k, v, not pipe)
+    torch.cuda.synchronize()
+    assert fp.launches_exp2_t == before + 2
+    assert got.shape == (shape[0] * shape[1], shape[3], shape[2])
+    want = fp.flash_exp2_t_reference(q, k, v).float()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
+    torch.testing.assert_close(got, other, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_probe_kernels_refuse_what_they_do_not_take(cuda):
+    from hedit_tpu_torch.ops import flash_probes as fp
+
+    q = torch.randn(1, 2, 256, 40, device=cuda)
+    with pytest.raises(ValueError, match="multiples"):
+        fp.flash_packed_t_cuda(q[:, :, :200], q[:, :, :200], q[:, :, :200], 128)
+    with pytest.raises(ValueError, match="anchor"):
+        fp.flash_packed_t_cuda(q, q, q, 192)
+    with pytest.raises(ValueError, match="head dim"):
+        fp.flash_exp2_t_cuda(*(torch.randn(1, 2, 256, 64, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="shape"):
+        fp.flash_packed_t_sminor_cuda(q, q, q, 128)
