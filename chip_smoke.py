@@ -20,12 +20,17 @@ the final result line:
    the head-split route (three head-split copies, kernel 1, the merge).  The
    backward at the VAE's head dim [1, 1, 4096, 512], also through
    ``fused_attention`` under a gradient.  Then the GroupNorm gradient;
-4. the probes (TPU kernels 10 and 11): the three bounded forwards with the
-   packed transposed output and the pipelined exact exp2 forward against
-   their plain versions at the probes' shapes (and a saturating input), then
-   the probes' own entry points (``hedit_tpu_torch.probes.flash_nhd_variants``,
-   ``...flash_v4_variants``), each driven once with the counts at 0 before
-   and read after;
+4. the probes (TPU kernels 10, 11, 8, 9 and 12): the three bounded forwards
+   with the packed transposed output and the pipelined exact exp2 forward
+   (and a saturating input), the three ablations of the bounded loop (the
+   ``dots`` one held element by element to its conditioning, the rows it
+   excuses counted), the exact float32 forward in its three layouts and
+   with a bf16 PV product, and the nudged-matmul loop in its nine cases
+   (all-ones outputs held bit for bit), each against its plain version at
+   its probe's shapes; then the probes' own entry points
+   (``hedit_tpu_torch.probes.flash_nhd_variants``, ``...flash_v4_variants``,
+   ``...flash_ablate``, ``...flash_variants``, ``...mm_probe``), each driven
+   once with the counts at 0 before and read after;
 5. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
@@ -72,7 +77,7 @@ the final result line:
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
 16. a JSON line of the kernels (each with its launches on its path: rows 1,
     2 and the bounded packed mode on the MasaCtrl path, 3-5 on the NMG path,
-    6 and 7 on their own, 10 and 11 on their probes' entry points), then
+    6 and 7 on their own, 8-12 on their probes' entry points), then
     the result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
@@ -88,6 +93,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -119,6 +125,7 @@ from hedit_tpu_torch.ops import attention as attn  # noqa: E402
 from hedit_tpu_torch.ops import flash_attention as flash  # noqa: E402
 from hedit_tpu_torch.ops import flash_probes as fp  # noqa: E402
 from hedit_tpu_torch.ops import groupnorm as gn  # noqa: E402
+from hedit_tpu_torch.ops import mm_probe as mp  # noqa: E402
 from hedit_tpu_torch.pipelines.sd import create_sd_pipeline  # noqa: E402
 from hedit_tpu_torch.probes.timing import cuda_ms  # noqa: E402
 
@@ -180,11 +187,16 @@ def wall_ms(fn, reps=3):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound(flops, nbytes, dtype):
+def bound(nbytes, *work):
     """(bound_ms, bound_by): the least time the card could take, the larger of
-    operations over the peak rate of the inputs' type and bytes (each input
-    read once, each output written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_S
+    bytes (each input read once, each output written once) over the memory
+    rate and the operations over the peak rate of the type their arithmetic
+    runs in.  ``work``: (flops, type) pairs, one for each part of the
+    function that runs in its own type (a product of bf16 values into
+    float32 at the bf16 rate, a product the function upcasts first at the
+    float32 rate)."""
+    t_ops = sum(flops / PEAK_FLOPS[dtype] for flops, dtype in work)
+    t_bytes = nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -199,7 +211,10 @@ COUNTERS = {"flash_attention": (flash, "launches"), "groupnorm": (gn, "launches"
             "flash_packed_t": (fp, "launches_packed_t"),
             "flash_packed_t_sminor": (fp, "launches_packed_t_sminor"),
             "flash_packed_t_all_sminor": (fp, "launches_packed_t_all_sminor"),
-            "flash_exp2_t": (fp, "launches_exp2_t")}
+            "flash_exp2_t": (fp, "launches_exp2_t"),
+            **{f"flash_ablate_{m}": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_MODES},
+            **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "abcd"},
+            **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS}}
 
 
 def reset_launches():
@@ -323,8 +338,8 @@ def _flash_forward_cases(g, rows, failures):
             err = (got.float() - want).abs().max().item()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
             bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
-            bound_ms, by = bound(4 * bh * sq * sk * d,
-                                 q.element_size() * bh * d * 2 * (sq + sk), dtype)
+            bound_ms, by = bound(q.element_size() * bh * d * 2 * (sq + sk),
+                                 (4 * bh * sq * sk * d, dtype))
             plain = (flash.reference_attention if exact
                      else flash.flash_attention_bounded_reference)
             _row(rows, failures, name,
@@ -405,8 +420,8 @@ def _flash_packed_cases(g, rows, failures):
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
-            bound_ms, by = bound(4 * b * sq * sk * hd, q.element_size() * b * hd * 2 * (sq + sk),
-                                 dtype)
+            bound_ms, by = bound(q.element_size() * b * hd * 2 * (sq + sk),
+                                 (4 * b * sq * sk * hd, dtype))
             split = lambda t: t.reshape(b, -1, heads, hd // heads).transpose(1, 2)  # noqa: E731
             _row(rows, failures, name,
                  f"flash packed {'exact' if exact else 'bounded'} q[{b}, {sq}, {hd}] sk={sk} "
@@ -498,7 +513,8 @@ def _flash_gradient_cases(g, rows, failures):
         # the other way moves a row's sum by at most one ulp of its largest term
         tol_l = (F32_TOL * want_lse.abs().max().item() if dtype == torch.float32
                  else math.log2(1 + BF16_ULP))
-        bound_ms, by = bound(4 * bh * sq * sk * d, es * bh * d * 2 * (sq + sk) + 4 * bh * sq, dtype)
+        bound_ms, by = bound(es * bh * d * 2 * (sq + sk) + 4 * bh * sq,
+                             (4 * bh * sq * sk * d, dtype))
         print(f"flash lse {label}: lse2 max_abs_err {err_l:.3e} (tol {tol_l:.3g})")
         _row(rows, failures, "flash_attention_lse", f"flash lse {label}",
              err_o <= tol_o and err_l <= tol_l and finite(out, lse2), max_abs_err=err_o,
@@ -512,7 +528,7 @@ def _flash_gradient_cases(g, rows, failures):
         plain_bwd = cuda_ms(lambda: flash.flash_attention_backward_reference(q, k, v, out, lse2, do))
         in_bytes = es * bh * d * 2 * (sq + sk) + 8 * bh * sq  # q, dO, k, v; lse2, delta
         err, tol = gap(dq, want_dq)
-        bound_ms, by = bound(6 * bh * sq * sk * d, in_bytes + es * bh * sq * d, dtype)
+        bound_ms, by = bound(in_bytes + es * bh * sq * d, (6 * bh * sq * sk * d, dtype))
         _row(rows, failures, "flash_bwd_dq", f"flash dq {label}", err <= tol and finite(dq),
              max_abs_err=err, tol=tol,
              ms=cuda_ms(lambda: flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)),
@@ -521,7 +537,7 @@ def _flash_gradient_cases(g, rows, failures):
         (err_k, tol_k), (err_v, tol_v) = gap(dk, want_dk), gap(dv, want_dv)
         print(f"flash dk/dv {label}: dk max_abs_err {err_k:.3e} (tol {tol_k:.3g}), "
               f"dv {err_v:.3e} (tol {tol_v:.3g})")
-        bound_ms, by = bound(8 * bh * sq * sk * d, in_bytes + es * bh * 2 * sk * d, dtype)
+        bound_ms, by = bound(in_bytes + es * bh * 2 * sk * d, (8 * bh * sq * sk * d, dtype))
         worst = max((err_k, tol_k), (err_v, tol_v), key=lambda et: et[0] / et[1])
         _row(rows, failures, "flash_bwd_dkv", f"flash dk/dv {label}",
              err_k <= tol_k and err_v <= tol_v and finite(dk, dv), max_abs_err=worst[0],
@@ -571,8 +587,8 @@ def _groupnorm_cases(g, rows, failures):
                        else 2.0 ** -7 * want.float().abs().max().item())
                 # two passes for the statistics, normalise, affine, SiLU: ~12
                 # operations an element; x read once, y written once
-                bound_ms, by = bound(12 * x.numel(), x.element_size() * (2 * x.numel() + 2 * shape[1]),
-                                     torch.float32)
+                bound_ms, by = bound(x.element_size() * (2 * x.numel() + 2 * shape[1]),
+                                     (12 * x.numel(), torch.float32))
                 _row(rows, failures, "groupnorm",
                      f"groupnorm+silu {list(shape)} {str(dtype)[6:]} eps={eps:g}",
                      err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
@@ -638,8 +654,8 @@ def _probe_kernel_cases(g, rows, failures):
         err = (got.float() - want).abs().max().item()
         tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
         b, h, sq, d = shape
-        bound_ms, by = bound(4 * b * h * sq * sq * d, 4 * b * h * sq * d * got.element_size(),
-                             dtype)
+        bound_ms, by = bound(4 * b * h * sq * d * got.element_size(),
+                             (4 * b * h * sq * sq * d, dtype))
         _row(rows, failures, name, label, err <= tol and bool(torch.isfinite(got).all()),
              max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
              bound_ms=bound_ms, bound_by=by, shape=list(shape), **extra)
@@ -707,22 +723,183 @@ def _probe_kernel_cases(g, rows, failures):
                 failures.append(f"flash {layout} saturating case {dtype}")
 
 
+# The cost probes' shapes (scripts/flash_ablate.py: [4, 32, 4096, 40];
+# scripts/flash_variants.py: [4 * 8, 4096, 40]), bf16, and one float32 case
+# each at a smaller batch; mm_probe.py's nine cases (hedit_tpu_torch/probes/
+# mm_probe.py:CASES) in bf16 and the first case of each layout in float32.
+ABLATE_SHAPES = (((4, 32, 4096, 40), torch.bfloat16), ((1, 8, 4096, 40), torch.float32))
+VARIANT_SHAPES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.float32))
+# the largest share of rows the dots ablation's check may excuse
+EXCUSED_SHARE = 1e-3
+
+
+def _ablate_cases(g, rows, failures):
+    """TPU kernel 8, each mode, against its plain version, inputs drawn as
+    the probe draws them (q, k * 0.05).  exp, noprolog: bf16 within one
+    output ulp, float32 within 1e-4.  dots: the sum of p is as often
+    negative as positive (then the floor makes the output acc * 1e30), so
+    each element is held within ``ablate_dots_tolerance`` (in bf16 the plain
+    version's scores are the kernel's bit for bit), and the rows whose sum
+    lies within its reach of zero are excused and counted: at most 0.1%.
+    Library call: SDPA with scale = ln 2 (softmax(s ln 2) = exp2(s) / sum:
+    the exp function up to p's rounding and the layout); none computes dots."""
+    for shape, dtype in ABLATE_SHAPES:
+        b, h, s, d = shape
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") * c for c in (0.05, 0.05, 1.0))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=math.log(2.0)))
+        bound_ms, by = bound(4 * b * h * s * d * q.element_size(), (4 * b * h * s * s * d, dtype))
+        for mode in fp.ABLATE_MODES:
+            got = fp.flash_ablate_t_cuda(q, k, v, mode)
+            want = fp.flash_ablate_t_reference(q, k, v, mode)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            label = f"flash ablate {mode} q{list(shape)} {str(dtype)[6:]}"
+            extra = {}
+            if mode == "dots":
+                tol, excused = fp.ablate_dots_tolerance(q, k, v, want,
+                                                        same_scores=dtype == torch.bfloat16)
+                ratio = torch.where(excused[:, None, :], torch.zeros_like(err), err / tol)
+                worst = int(ratio.argmax())
+                share = excused.float().mean().item()
+                ok = ratio.max().item() <= 1.0 and share <= EXCUSED_SHARE
+                max_err, tol_at = err.flatten()[worst].item(), tol.flatten()[worst].item()
+                extra = {"max_err_over_tol": ratio.max().item(), "excused_rows": int(excused.sum()),
+                         "row_count": excused.numel(), "negative_sum_rows": int((
+                             got.float().abs().amax(dim=1) > 1e20).sum())}
+                print(f"{label}: {extra['excused_rows']} of {extra['row_count']} rows excused "
+                      f"({100 * share:.4f}%, at most {100 * EXCUSED_SHARE}%), "
+                      f"{extra['negative_sum_rows']} rows floored (sum of p <= 0); largest "
+                      f"err / tol {extra['max_err_over_tol']:.3f}; no library call computes dots")
+                del tol, excused, ratio
+            else:
+                max_err = err.max().item()
+                tol_at = (F32_TOL if dtype == torch.float32
+                          else BF16_ULP * want.float().abs().max().item())
+                ok = max_err <= tol_at
+            _row(rows, failures, f"flash_ablate_{mode}", label,
+                 ok and bool(torch.isfinite(got).all()), max_abs_err=max_err, tol=tol_at,
+                 ms=cuda_ms(lambda: fp.flash_ablate_t_cuda(q, k, v, mode)),
+                 plain_ms=cuda_ms(lambda: fp.flash_ablate_t_reference(q, k, v, mode), reps=3),
+                 library_ms=None if mode == "dots" else lib, bound_ms=bound_ms, bound_by=by,
+                 shape=list(shape), **extra)
+            del got, want, err
+            torch.cuda.empty_cache()
+        del q, k, v
+
+
+def _variant_cases(g, rows, failures):
+    """TPU kernel 9's layouts a, b, c and a with pv_bf16 (d) against their
+    plain versions (d with the kernel's 64-key blocks of the running max):
+    bf16 within one output ulp, float32 within 1e-4.  The function is
+    float32 arithmetic (the TPU kernels upcast q, k, v before both
+    products), so a, b and c are bound at the float32 rate; d's PV product
+    takes bf16 p and v (bf16 inputs) at the bf16 rate.  Library call: SDPA
+    on the float32-upcast inputs (a, b, c), SDPA in the inputs' dtype (d)."""
+    for shape, dtype in VARIANT_SHAPES:
+        bh, s, d = shape
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3))
+        # as [1, B*H, S, D]: SDPA's fused backends take 4-D inputs only
+        q32, k32, v32 = (t.float()[None] for t in (q, k, v))
+        lib32 = cuda_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+        del q32, k32, v32
+        nbytes = 4 * bh * s * d * q.element_size()
+        product = 2 * bh * s * s * d
+        for name in ("a", "b", "c", "d"):
+            if name in "ad":
+                kernel = functools.partial(fp.flash_variant_a_cuda, pv_bf16=name == "d")
+                plain = functools.partial(fp.flash_variant_a_reference, pv_bf16=name == "d")
+            else:
+                kernel = getattr(fp, f"flash_variant_{name}_cuda")
+                plain = getattr(fp, f"flash_variant_{name}_reference")
+            got, want = kernel(q, k, v), plain(q, k, v)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.float().abs().max().item()
+            pv_type = dtype if name == "d" else torch.float32
+            bound_ms, by = bound(nbytes, (product, torch.float32), (product, pv_type))
+            _row(rows, failures, f"flash_variant_{name}",
+                 f"flash variant {name} q{list(shape)} {str(dtype)[6:]}",
+                 err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
+                 ms=cuda_ms(lambda: kernel(q, k, v)), plain_ms=cuda_ms(lambda: plain(q, k, v)),
+                 library_ms=lib if name == "d" else lib32, bound_ms=bound_ms, bound_by=by,
+                 shape=list(shape))
+            del got, want
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def _mm_loop_cases(g, rows, failures):
+    """TPU kernel 12 in mm_probe.py's nine cases, bf16: on the probe's
+    all-ones input every output is exactly K * 2080, held bit for bit; on
+    seeded input within 4 sqrt(64 K) 2^-24 times the sum of the magnitudes
+    of each output's terms (float32 reordering; bf16 products are exact).
+    Then the first case of each layout in float32 on seeded input.  Timed on
+    the ones.  Library call: one bf16 torch.matmul of the 64 nudged A
+    concatenated along K against B repeated 64 times (the same sums as one
+    M x N x 64K product; timing only)."""
+    from hedit_tpu_torch.probes.mm_probe import CASES, contraction
+
+    firsts = {}
+    for name, (a_shape, b_shape, layout) in CASES.items():
+        firsts.setdefault(layout, name)
+        kk = contraction(name)
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if firsts[layout] == name else ()):
+            a1 = torch.ones(a_shape, dtype=dtype, device="cuda")
+            b1 = torch.ones(b_shape, dtype=dtype, device="cuda")
+            ones = mp.mm_loop_cuda(a1, b1, layout)
+            a = torch.randn(a_shape, generator=g, device="cuda").to(dtype)
+            b = torch.randn(b_shape, generator=g, device="cuda").to(dtype)
+            got, want = mp.mm_loop_cuda(a, b, layout), mp.mm_loop_reference(a, b, layout)
+            tol = 4 * math.sqrt(mp.REPS * kk) * 2.0 ** -24 * mp.mm_loop_magnitude(a, b, layout)
+            torch.cuda.synchronize()
+            exact = bool((ones == kk * mp.REPS * (mp.REPS + 1) // 2).all())
+            ratio = ((got - want).abs() / tol).max().item()
+            am, bk = mp._canonical(a1, b1, layout)
+            a_cat = torch.cat([mp.nudged(am, i).to(dtype) for i in range(mp.REPS)], dim=1)
+            b_rep = bk.repeat(mp.REPS, 1).contiguous()
+            m, n = ones.shape
+            bound_ms, by = bound(a1.numel() * a1.element_size() + b1.numel() * b1.element_size()
+                                 + 4 * m * n, (2 * mp.REPS * m * n * kk, dtype))
+            label = f"mm_loop {name} ({layout}, K={kk}) {str(dtype)[6:]}"
+            print(f"{label}: all-ones output exactly K * 2080: {exact}; seeded input "
+                  f"largest err / tol {ratio:.3e}")
+            _row(rows, failures, f"mm_loop_{layout}", label, exact and ratio <= 1.0,
+                 max_abs_err=(got - want).abs().max().item(), tol=tol.max().item(),
+                 ms=cuda_ms(lambda: mp.mm_loop_cuda(a1, b1, layout)),
+                 plain_ms=cuda_ms(lambda: mp.mm_loop_reference(a1, b1, layout), reps=3),
+                 library_ms=cuda_ms(lambda: torch.matmul(a_cat, b_rep)), bound_ms=bound_ms,
+                 bound_by=by, shape=[name, list(a_shape), list(b_shape)],
+                 resident=kk <= 128, ones_exact=exact)
+            del a_cat, b_rep
+
+
 def phase_probes(rows):
-    """Kernels 10 and 11 against their plain versions, then their own path:
-    the two probe entry points (``hedit_tpu_torch.probes``), each driven once
-    with the counts at 0 before and read after.  Returns ({probe: counts},
-    failures)."""
-    from hedit_tpu_torch.probes import flash_nhd_variants, flash_v4_variants
+    """Kernels 10, 11, 8, 9 and 12 against their plain versions, then their
+    own path: the five probe entry points (``hedit_tpu_torch.probes``), each
+    driven once with the counts at 0 before and read after.  Returns
+    ({probe: counts}, failures)."""
+    from hedit_tpu_torch.probes import (
+        flash_ablate, flash_nhd_variants, flash_v4_variants, flash_variants, mm_probe,
+    )
 
     failures = []
-    _probe_kernel_cases(torch.Generator(device="cuda").manual_seed(31), rows, failures)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    _probe_kernel_cases(g, rows, failures)
     torch.cuda.empty_cache()
-    counts = {}
+    _ablate_cases(g, rows, failures)
+    _variant_cases(g, rows, failures)
+    _mm_loop_cases(g, rows, failures)
+    torch.cuda.empty_cache()
+    counts, results_of = {}, {}
     for name, module in (("flash_nhd_variants", flash_nhd_variants),
-                         ("flash_v4_variants", flash_v4_variants)):
+                         ("flash_v4_variants", flash_v4_variants),
+                         ("flash_ablate", flash_ablate), ("flash_variants", flash_variants),
+                         ("mm_probe", mm_probe)):
         reset_launches()
         t0 = time.perf_counter()
-        results = module.run()
+        results = results_of[name] = module.run()
         torch.cuda.synchronize()
         counts[name] = read_launches()
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
@@ -733,6 +910,15 @@ def phase_probes(rows):
         failures.append(f"a kernel of flash_nhd_variants was not launched: {nhd}")
     if counts["flash_v4_variants"]["flash_exp2_t"] <= 0:
         failures.append(f"flash_v4_variants launched no exp2_t kernel: {counts}")
+    for probe, kernels in (("flash_ablate", [f"flash_ablate_{m}" for m in fp.ABLATE_MODES]),
+                           ("flash_variants", [f"flash_variant_{v}" for v in "abcd"]),
+                           ("mm_probe", [f"mm_loop_{lay}" for lay in mp.LAYOUTS])):
+        if min(counts[probe][name] for name in kernels) <= 0:
+            failures.append(f"a kernel of {probe} was not launched: {counts[probe]}")
+    if not all(r["exact"] for r in results_of["mm_probe"].values()):
+        failures.append(f"mm_probe: an all-ones output is not K * 2080: {results_of['mm_probe']}")
+    if not all(results_of["flash_ablate"][m]["finite"] for m in fp.ABLATE_MODES):
+        failures.append(f"flash_ablate: an output is not finite: {results_of['flash_ablate']}")
     torch.cuda.empty_cache()
     return counts, failures
 
@@ -1380,12 +1566,16 @@ def main(argv=None) -> int:
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                           "plain_covers", "split_path_ms", "pipe_ms", "shape")
+                                           "plain_covers", "split_path_ms", "pipe_ms", "shape",
+                                           "max_err_over_tol", "excused_rows", "row_count", "resident")
                    if k in mine[0]}}
 
     fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                                  "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "hedit_tpu_torch/csrc/flash_probes.cu")
+    variants_cu, mm_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
+                          "hedit_tpu_torch/csrc/mm_probe.cu")
+    variant_lines = {"a": 31, "b": 61, "c": 87, "d": 31}
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
         entry("flash_attention", "cuda", fwd_cu, f"{jax_flash}:220", "masactrl"),
@@ -1404,7 +1594,14 @@ def main(argv=None) -> int:
         entry("flash_packed_t_all_sminor", "cuda", probes_cu,
               "scripts/flash_nhd_variants.py:136", "flash_nhd_variants"),
         entry("flash_exp2_t", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
-              "flash_v4_variants")]}))
+              "flash_v4_variants"),
+        *(entry(f"flash_ablate_{m}", "cuda", probes_cu, "scripts/flash_ablate.py:34",
+                "flash_ablate") for m in fp.ABLATE_MODES),
+        *(entry(f"flash_variant_{v}", "cuda", variants_cu,
+                f"scripts/flash_variants.py:{line}", "flash_variants")
+          for v, line in variant_lines.items()),
+        *(entry(f"mm_loop_{lay}", "cuda", mm_cu, "scripts/mm_probe.py:37", "mm_probe")
+          for lay in mp.LAYOUTS)]}))
     if failures:
         print("FAILED: " + "; ".join(failures))
         return 1

@@ -51,6 +51,12 @@ ARGTYPES = {
     "hedit_flash_packed_t": [_P] * 4 + [_I] * 7 + [_P],
     # q, k, v, out | bh, sq, sk, d, pipe, dtype | stream
     "hedit_flash_exp2_t": [_P] * 4 + [_I] * 6 + [_P],
+    # q, k, v, out | bh, sq, sk, d, mode, dtype | stream
+    "hedit_flash_ablate_t": [_P] * 4 + [_I] * 6 + [_P],
+    # q, k, v, out | bh, sq, sk, d, variant, dtype | stream
+    "hedit_flash_variant": [_P] * 4 + [_I] * 6 + [_P],
+    # a, b, o | m, n, k, reps, layout, dtype | stream
+    "hedit_mm_loop": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

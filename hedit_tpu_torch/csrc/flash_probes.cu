@@ -1,7 +1,7 @@
-// The flash-attention layout and pipelining probes for Hopper (sm_90a): four
-// forwards that write the transposed output [BH, D, Sq] (the same memory as
-// the packed transposed [B, H*D, Sq]: head h of batch row b is rows
-// h*D .. (h+1)*D of that row's [H*D, Sq] image, bh = b * H + h).
+// The flash-attention layout, pipelining and ablation probes for Hopper
+// (sm_90a): seven forwards that write the transposed output [BH, D, Sq] (the
+// same memory as the packed transposed [B, H*D, Sq]: head h of batch row b is
+// rows h*D .. (h+1)*D of that row's [H*D, Sq] image, bh = b * H + h).
 //
 // Bounded (max-free), replacing the TPU kernels of scripts/flash_nhd_variants.py
 // (entry point hedit_flash_packed_t, wrappers in ops/flash_probes.py):
@@ -26,6 +26,18 @@
 // tile 0's scores, an epilogue drains the last tile), with K and V tiles
 // double-buffered in shared memory so tile t loads while tile t - 1's V is
 // still read.  Both loops give the same function.
+//
+// The ablations, replacing scripts/flash_ablate.py:make_kernel(mode) (entry
+// point hedit_flash_ablate_t, wrapper flash_ablate_t_cuda): the bounded
+// loop cut down to measure its floor.  q is NOT scaled (no sm_scale, no
+// log2 e), there is no prologue, no running max and no shift but a
+// constant; p is rounded to the input dtype and summed through the TPU
+// kernel's ones-column of v, and the sum is floored at 1e-30:
+//   dots      p = s                       (the products and the cast alone)
+//   exp       p = exp2(s)
+//   noprolog  p = exp2(min(s - 12.34, 100))
+// In `dots` the sum of p can be negative or near zero; the floor then makes
+// the output acc * 1e30, as on the TPU.
 //
 // S-minor operands ([D, S], S contiguous) are read as D rows of a tile's 64
 // contiguous elements: coalesced in global memory, and stored transposed
@@ -52,7 +64,9 @@
 namespace {
 
 // The probe a kernel instance computes; see the head of this file.
-enum class Probe { PackedT, PackedTSMinor, PackedTAllSMinor, Exp2, Exp2Pipe };
+enum class Probe {
+  PackedT, PackedTSMinor, PackedTAllSMinor, Exp2, Exp2Pipe, AblateDots, AblateExp, AblateNoProlog
+};
 
 constexpr int TQ = 16, TK = 8, RQ = 4, RK = 8;
 constexpr int BQ = TQ * RQ, BK = TK * RK;  // 64 x 64
@@ -60,6 +74,8 @@ constexpr int PS = BK + 1;                 // odd P row stride
 constexpr float kShiftMargin = 16.f;
 constexpr float kSaturate = 100.f;
 constexpr float kDenomFloor = 1.2e-38f;
+constexpr float kAblateFloor = 1e-30f;     // flash_ablate.py's floor
+constexpr float kAblateShift = 12.34f;     // flash_ablate.py's constant shift (noprolog)
 constexpr float kNegInf = -1e30f;          // the TPU kernel's initial running max
 
 template <Probe P>
@@ -67,10 +83,25 @@ struct Traits {
   static constexpr bool q_sminor = P == Probe::PackedTSMinor || P == Probe::PackedTAllSMinor;
   static constexpr bool k_sminor = q_sminor;
   static constexpr bool v_sminor = P == Probe::PackedTAllSMinor;
-  static constexpr bool bounded = P != Probe::Exp2 && P != Probe::Exp2Pipe;
+  static constexpr bool running_max = P == Probe::Exp2 || P == Probe::Exp2Pipe;
+  static constexpr bool ablate =
+      P == Probe::AblateDots || P == Probe::AblateExp || P == Probe::AblateNoProlog;
+  static constexpr bool bounded = !running_max && !ablate;  // anchored shift, prologue
   static constexpr bool pipe = P == Probe::Exp2Pipe;
   static constexpr int buffers = pipe ? 2 : 1;
+  static constexpr float floor = bounded ? kDenomFloor : ablate ? kAblateFloor : 0.f;
 };
+
+// One score's softmax weight before it is rounded to the input dtype; ref is
+// the row's shift (bounded) or running max (exact).
+template <Probe P>
+__device__ __forceinline__ float weight(float s, float ref) {
+  if (P == Probe::AblateDots) return s;
+  if (P == Probe::AblateExp) return exp2f(s);
+  if (P == Probe::AblateNoProlog) return exp2f(fminf(s - kAblateShift, kSaturate));
+  if (Traits<P>::running_max) return exp2f(s - ref);
+  return exp2f(fminf(s - ref, kSaturate));
+}
 
 template <int D>
 struct Smem {
@@ -155,7 +186,8 @@ flash_probe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const T* kg = k + size_t(bh) * sk * D;
   const T* vg = v + size_t(bh) * sk * D;
 
-  load_tile<T, D, Tr::q_sminor>(q_s, qg, sq, q0, to_float(from_float<T>(qscale)));
+  load_tile<T, D, Tr::q_sminor>(q_s, qg, sq, q0,
+                                Tr::ablate ? 0.f : to_float(from_float<T>(qscale)));
 
   auto k_buf = [&](int b) { return kv_s + b * 2 * Sm::tile; };
   auto v_buf = [&](int b) { return kv_s + b * 2 * Sm::tile + Sm::tile; };
@@ -196,13 +228,13 @@ flash_probe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 
   // The softmax weights of one tile's scores into p_s (rounded to T), the
-  // row sums and (exact) the rescale, then acc += p v from V buffer b.
+  // row sums and (running max) the rescale, then acc += p v from V buffer b.
   // Starts after every read of p_s and of the buffer's previous tile is done.
   auto softmax_pv = [&](float (&s)[RQ][RK], int b) {
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       float ref = m_i[i], alpha = 1.f;
-      if (!Tr::bounded) {
+      if (Tr::running_max) {
         float mx = s[i][0];
 #pragma unroll
         for (int j = 1; j < RK; ++j) mx = fmaxf(mx, s[i][j]);
@@ -216,8 +248,7 @@ flash_probe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
-        const float e = Tr::bounded ? fminf(s[i][j] - ref, kSaturate) : s[i][j] - ref;
-        const float p = to_float(from_float<T>(exp2f(e)));  // p in the input dtype
+        const float p = to_float(from_float<T>(weight<P>(s[i][j], ref)));  // in the input dtype
         p_s[(tq * RQ + i) * PS + tk + TK * j] = p;
         sum += p;
       }
@@ -283,7 +314,7 @@ flash_probe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   float* o_s = smem;  // [D][OS]
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const float l = Tr::bounded ? fmaxf(l_i[i], kDenomFloor) : l_i[i];
+    const float l = Tr::floor > 0.f ? fmaxf(l_i[i], Tr::floor) : l_i[i];
 #pragma unroll
     for (int c = 0; c < NC; ++c) o_s[(tk + TK * c) * Sm::OS + tq * RQ + i] = acc[i][c] / l;
   }
@@ -359,4 +390,17 @@ extern "C" int hedit_flash_exp2_t(const void* q, const void* k, const void* v, v
   if (pipe != 0 && pipe != 1) return -1;
   return pipe ? probe<Probe::Exp2Pipe>(q, k, v, out, bh, sq, sk, d, 0, dtype, stream)
               : probe<Probe::Exp2>(q, k, v, out, bh, sq, sk, d, 0, dtype, stream);
+}
+
+// Row 8: the ablations, q, k, v [BH, S, D] -> out [BH, D, Sq]; mode 0 dots,
+// 1 exp, 2 noprolog.
+extern "C" int hedit_flash_ablate_t(const void* q, const void* k, const void* v, void* out,
+                                    int bh, int sq, int sk, int d, int mode, int dtype,
+                                    void* stream) {
+  switch (mode) {
+    case 0: return probe<Probe::AblateDots>(q, k, v, out, bh, sq, sk, d, 0, dtype, stream);
+    case 1: return probe<Probe::AblateExp>(q, k, v, out, bh, sq, sk, d, 0, dtype, stream);
+    case 2: return probe<Probe::AblateNoProlog>(q, k, v, out, bh, sq, sk, d, 0, dtype, stream);
+    default: return -1;
+  }
 }

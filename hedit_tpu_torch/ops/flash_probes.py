@@ -1,7 +1,7 @@
-"""The flash-attention probes: four hand-written CUDA forwards that write the
-transposed output, and their plain versions.
+"""The flash-attention probes: hand-written CUDA forwards of the JAX
+package's attention cost probes, and their plain versions.
 
-Port of the TPU kernels of two cost probes of the JAX package (the probes'
+Port of the TPU kernels of four cost probes of the JAX package (the probes'
 harnesses have their own port under ``hedit_tpu_torch/probes/``):
 
 * ``scripts/flash_nhd_variants.py``: three bounded (max-free) forwards that
@@ -19,6 +19,24 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   dtype and a ``[B*H, D, Sq]`` output (``kern_exp2``); ``pipe=True`` runs
   the software-pipelined key loop.
 
+* ``scripts/flash_ablate.py``: ``flash_ablate_t_cuda(q, k, v, mode)``, the
+  bounded loop cut down to its floor (``make_kernel(mode)``): q unscaled, no
+  prologue, p = s (``dots``), exp2(s) (``exp``) or exp2(min(s - 12.34, 100))
+  (``noprolog``) rounded to the input dtype, the sum of p floored at 1e-30,
+  a ``[B*H, D, Sq]`` output (``csrc/flash_probes.cu``).
+
+* ``scripts/flash_variants.py``: exact forwards entirely in float32 on the
+  script's ``[B*H, S, D]`` operands, in three layouts
+  (``csrc/flash_variants.cu``):
+
+  - ``flash_variant_a_cuda``: ``[Sq, D]`` accumulator and output
+    (``kern_a``); ``pv_bf16=True`` rounds p to bf16 for the PV product (the
+    script's ``d_bf16pv``);
+  - ``flash_variant_b_cuda``: a transposed ``[D, Sq]`` accumulator and
+    output (``kern_b``);
+  - ``flash_variant_c_cuda``: key-major scores, softmax down the key axis,
+    transposed output (``kern_c``).
+
 ``[B*H, D, Sq]`` and ``[B, H*D, Sq]`` are the same memory: head h of batch
 row b is rows ``h*D .. (h+1)*D`` of that row's image, so the kernels write
 either form with the same stores; the wrappers return the TPU wrappers' form.
@@ -27,7 +45,9 @@ As on the TPU, a probe covers only whole blocks: Sq and Sk must be multiples
 of 64 (the CUDA tile), and for the bounded probes Sk a multiple of the anchor,
 itself a multiple of 64; anything else raises, whatever the device.  A CPU
 tensor takes the plain version (``flash_packed_t_reference`` etc.), a CUDA
-tensor launches the kernel of ``csrc/flash_probes.cu`` or raises.
+tensor launches the kernel or raises.  The plain versions of the ablations
+and the float32 variants work through ``B*H`` in chunks: the float32 scores
+of the probes' shapes take 2-8.6 GB.
 """
 
 from __future__ import annotations
@@ -45,8 +65,20 @@ launches_packed_t = 0
 launches_packed_t_sminor = 0
 launches_packed_t_all_sminor = 0
 launches_exp2_t = 0
+launches_ablate_dots = 0
+launches_ablate_exp = 0
+launches_ablate_noprolog = 0
+launches_variant_a = 0
+launches_variant_d = 0      # kern_a with pv_bf16 (the script's d_bf16pv)
+launches_variant_b = 0
+launches_variant_c = 0
 
 PROBE_HEAD_DIMS = (40, 80)
+VARIANT_HEAD_DIM = 40       # flash_variants.py's D; the only one its kernel takes
+ABLATE_MODES = ("dots", "exp", "noprolog")
+ABLATE_FLOOR = 1e-30        # flash_ablate.py's floor of the sum of p
+_ABLATE_SHIFT = 12.34       # flash_ablate.py's constant shift (noprolog)
+_CHUNK_SCORES = 2 ** 28     # float32 scores a chunk of the plain versions holds (1 GiB)
 TILE = 64          # rows of the kernels' query and key tiles
 BLK_K = 512        # the TPU wrappers' default key block
 _LOG2E = math.log2(math.e)
@@ -204,3 +236,232 @@ def flash_exp2_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("hedit_flash_exp2_t", q, (q, k, v, out), (b * h, sq, sk, d, int(bool(pipe))))
     launches_exp2_t += 1
     return out
+
+
+def _chunks(bh: int, sq: int, sk: int):
+    """Slices of the B*H rows whose float32 scores fit in ``_CHUNK_SCORES``."""
+    step = max(1, _CHUNK_SCORES // (sq * sk))
+    return [slice(i, min(i + step, bh)) for i in range(0, bh, step)]
+
+
+def _ablate_weights(s: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "dots":
+        return s
+    if mode == "exp":
+        return torch.exp2(s)
+    return torch.exp2(torch.clamp(s - _ABLATE_SHIFT, max=100.0))
+
+
+def _scores_in_order(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [n, Sq, D] k^T in float32, summed over D in order, one rounding a
+    term: the CUDA kernel's FMA chain.  Bit for bit the kernel's scores for
+    bf16 inputs (their products are exact in float32); float32 products
+    may round once more here."""
+    qf, kf = q.float(), k.float()
+    s = torch.zeros((q.shape[0], q.shape[1], k.shape[1]), device=q.device)
+    for c in range(q.shape[-1]):
+        s.addcmul_(qf[:, :, c, None], kf[:, None, :, c])
+    return s
+
+
+def _ablate_rows(q, k, v, mode: str):
+    """Per chunk of B*H rows: (rows, scores, p in float32 after its rounding
+    to the input dtype, v in float32) of the ablation ``mode``."""
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
+    b, h, sq, d = q.shape
+    qf, kf, vf = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    for rows in _chunks(b * h, sq, kf.shape[1]):
+        s = _scores_in_order(qf[rows], kf[rows])
+        yield rows, s, _ablate_weights(s, mode).to(q.dtype).float(), vf[rows].float()
+
+
+def flash_ablate_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             mode: str) -> torch.Tensor:
+    """Plain version of ``make_kernel(mode)``: q, k, v [B, H, S, D] -> [B*H,
+    D, Sq] in q's dtype.  Scores of the unscaled q in float32 (summed over D
+    in the kernel's order), p of ``mode`` rounded to the input dtype,
+    out = (p v) / max(sum(p), 1e-30)."""
+    b, h, sq, d = q.shape
+    out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
+    for rows, _, p, vf in _ablate_rows(q, k, v, mode):
+        den = torch.clamp(p.sum(dim=-1, keepdim=True), min=ABLATE_FLOOR)
+        out[rows] = (torch.matmul(p, vf) / den).to(q.dtype).transpose(-1, -2)
+    return out
+
+
+def _ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One unit in the last place of each element of x in ``dtype``."""
+    bits = 8 if dtype == torch.bfloat16 else 24
+    exponent = torch.frexp(x.float()).exponent
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - bits)
+
+
+def ablate_dots_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          want: torch.Tensor, same_scores: bool = False):
+    """(tol [B*H, D, Sq], excused [B*H, Sq]) for the ``dots`` ablation, whose
+    sum of p (the denominator) is as often negative as positive.
+
+    Two computations of the same function differ in float32 summation order.
+    Each Sk-term sum moves by at most gamma = 4 sqrt(Sk) 2^-24 times the sum
+    of its terms' magnitudes.  Unless ``same_scores`` (the other side sums
+    the scores in the plain version's order: the CUDA kernel on bf16
+    inputs), each score moves too, by up to ds = 4 sqrt(D) 2^-24 sum_c
+    |q_c k_c|, and p, rounded to the input dtype, can land on either
+    neighbour: u_k = p(s + ds) - p(s - ds); those moves are independent, so
+    their sum is taken as 4 sqrt(sum u^2).  The denominator may so move by
+    e_den = gamma sum|p| + 4 sqrt(sum u^2), the numerator by gamma sum|p v| +
+    4 sqrt(sum u^2 v^2).  An element of ``want`` (the plain version's output)
+    is held within ulp(want) + (the numerator's move + |want| e_den) /
+    (den - e_den) where the denominator is positive; where it is negative
+    both sides divide by the floor (1e-30), and the |want| term drops.  Rows
+    whose denominator lies within e_den of zero can fall on either side of
+    the floor: they are excused, and counted by the caller."""
+    b, h, sq, d = q.shape
+    gamma = 4.0 * math.sqrt(k.shape[2]) * 2.0 ** -24
+    gamma_d = 4.0 * math.sqrt(d) * 2.0 ** -24
+    tol = torch.empty((b * h, d, sq), device=q.device)
+    excused = torch.empty((b * h, sq), dtype=torch.bool, device=q.device)
+    w = want.float()
+    qf, kf = (t.reshape(b * h, -1, d) for t in (q, k))
+    for rows, s, p, vf in _ablate_rows(q, k, v, "dots"):
+        e_den = gamma * p.abs().sum(dim=-1)[:, None, :]                    # [n, 1, Sq]
+        e_num = gamma * torch.matmul(p.abs(), vf.abs()).transpose(-1, -2)  # [n, D, Sq]
+        if not same_scores:
+            ds = gamma_d * torch.matmul(qf[rows].float().abs(),
+                                        kf[rows].float().abs().transpose(-1, -2))
+            u2 = ((s + ds).to(q.dtype).float() - (s - ds).to(q.dtype).float()).square()
+            del ds
+            e_den = e_den + 4.0 * u2.sum(dim=-1).sqrt()[:, None, :]
+            e_num = e_num + 4.0 * torch.matmul(u2, vf.square()).sqrt().transpose(-1, -2)
+            del u2
+        del s
+        den = p.sum(dim=-1)[:, None, :]
+        positive = den > e_den
+        divisor = torch.clamp(torch.where(positive, den - e_den, torch.zeros_like(den)),
+                              min=ABLATE_FLOOR)
+        slack = e_num + torch.where(positive, w[rows].abs() * e_den, torch.zeros_like(e_num))
+        tol[rows] = _ulp(w[rows], want.dtype) + slack / divisor
+        excused[rows] = (den.abs() <= e_den)[:, 0]
+    return tol, excused
+
+
+def flash_ablate_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mode: str) -> torch.Tensor:
+    """``make_kernel(mode)``: q, k, v [B, H, S, D] -> [B*H, D, Sq]; ``mode``
+    one of ``ABLATE_MODES``."""
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
+    b, h, sq, sk, d = _dims(q, k, v, (False, False, False), "flash_ablate_t_cuda")
+    if _on_cpu(q, k, v):
+        return flash_ablate_t_reference(q, k, v, mode)
+    _check_cuda(q, k, v, b, h, d, "flash_ablate_t_cuda")
+    out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
+    _launch("hedit_flash_ablate_t", q, (q, k, v, out),
+            (b * h, sq, sk, d, ABLATE_MODES.index(mode)))
+    globals()[f"launches_ablate_{mode}"] += 1
+    return out
+
+
+def _exact_f32(q, k, v, pv_bf16: bool, blk_k: int) -> torch.Tensor:
+    """q, k, v [BH, S, D] -> [BH, Sq, D] in q's dtype: ``kern_a``'s exact
+    softmax in float32 (q upcast and times sm_scale, not rounded).  Without
+    ``pv_bf16`` one softmax over all keys (the key blocks move it by
+    rounding only); with it the loop over ``blk_k``-key blocks of the running
+    max, p rounded to bf16 for the PV product and unrounded in the sum."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32)
+    out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
+    for rows in _chunks(bh, sq, sk):
+        qs = q[rows].float() * scale
+        if not pv_bf16:
+            s = torch.matmul(qs, k[rows].float().transpose(-1, -2))
+            p = torch.exp(s - torch.clamp(s.amax(dim=-1, keepdim=True), min=_NEG_INF))
+            out[rows] = (torch.matmul(p, v[rows].float()) / p.sum(dim=-1, keepdim=True)
+                         ).to(q.dtype)
+            continue
+        m = torch.full((qs.shape[0], sq, 1), _NEG_INF, device=q.device)
+        denom = torch.zeros_like(m)
+        acc = torch.zeros_like(qs)
+        for k0 in range(0, sk, blk_k):
+            s = torch.matmul(qs, k[rows, k0:k0 + blk_k].float().transpose(-1, -2))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            denom = denom * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(),
+                                             v[rows, k0:k0 + blk_k].float())
+            m = m_new
+        out[rows] = (acc / denom).to(q.dtype)
+    return out
+
+
+def flash_variant_a_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              pv_bf16: bool = False, blk_k: int = TILE) -> torch.Tensor:
+    """Plain version of ``kern_a``: q, k, v [BH, S, D] -> [BH, Sq, D] in q's
+    dtype.  ``blk_k`` is the key block of the running max, which decides the
+    point p is rounded against with ``pv_bf16``: the CUDA kernel's 64-key
+    tile by default, the TPU kernel's ``BLK_K`` is 512."""
+    return _exact_f32(q, k, v, pv_bf16, blk_k)
+
+
+def flash_variant_b_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                              ) -> torch.Tensor:
+    """Plain version of ``kern_b`` (and of ``kern_c``, the same function):
+    q, k, v [BH, S, D] -> the transposed [BH, D, Sq] in q's dtype."""
+    return _exact_f32(q, k, v, False, TILE).transpose(-1, -2).contiguous()
+
+
+flash_variant_c_reference = flash_variant_b_reference
+
+
+# each variant's entry-point code and whether its output is transposed
+_VARIANTS = {"a": (0, False), "d": (1, False), "b": (2, True), "c": (3, True)}
+
+
+def _variant(q, k, v, name: str) -> torch.Tensor:
+    what = f"flash_variant_{'a' if name == 'd' else name}_cuda"
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{what}: q, k, v must be [B*H, S, D]")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (bh, sk, d) or v.shape != k.shape:
+        raise ValueError(f"{what}: shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if sq % TILE or sk % TILE or sq < TILE or sk < TILE:
+        raise ValueError(f"{what}: Sq = {sq} and Sk = {sk} must be multiples of {TILE}: "
+                         f"the probe covers whole blocks and masks nothing")
+    code, transposed = _VARIANTS[name]
+    if _on_cpu(q, k, v):
+        return (flash_variant_b_reference(q, k, v) if transposed
+                else flash_variant_a_reference(q, k, v, pv_bf16=name == "d"))
+    _check_device_dtype(q, k, v, what)
+    if d != VARIANT_HEAD_DIM or bh > 65535:
+        raise ValueError(f"{what} does not take q{tuple(q.shape)}: head dim must be "
+                         f"{VARIANT_HEAD_DIM}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{what}: q, k, v must be contiguous")
+    out = torch.empty((bh, d, sq) if transposed else (bh, sq, d), dtype=q.dtype,
+                      device=q.device)
+    _launch("hedit_flash_variant", q, (q, k, v, out), (bh, sq, sk, d, code))
+    globals()[f"launches_variant_{name}"] += 1
+    return out
+
+
+def flash_variant_a_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pv_bf16: bool = False) -> torch.Tensor:
+    """``kern_a``: q, k, v [BH, S, D] -> [BH, Sq, D].  The kernel moves its
+    running max once a 64-key tile: its plain version is
+    ``flash_variant_a_reference`` with its default block."""
+    return _variant(q, k, v, "d" if pv_bf16 else "a")
+
+
+def flash_variant_b_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``kern_b``: q, k, v [BH, S, D] -> [BH, D, Sq], a transposed accumulator."""
+    return _variant(q, k, v, "b")
+
+
+def flash_variant_c_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``kern_c``: q, k, v [BH, S, D] -> [BH, D, Sq], key-major scores."""
+    return _variant(q, k, v, "c")

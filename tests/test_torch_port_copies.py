@@ -53,7 +53,9 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
             "main_masactrl.py", "common.py", "flash_probes.py"} <= {
                 os.path.basename(f) for f in files}
     assert {os.path.join(ROOT, "hedit_tpu_torch", "probes", f"{n}.py")
-            for n in ("flash_nhd_variants", "flash_v4_variants")} <= set(files)
+            for n in ("flash_nhd_variants", "flash_v4_variants", "flash_ablate",
+                      "flash_variants", "mm_probe")} <= set(files)
+    assert os.path.join(ROOT, "hedit_tpu_torch", "ops", "mm_probe.py") in files
     hits = [f"{os.path.relpath(f, ROOT)}: {m.group(0).strip()}"
             for f in files for m in _IMPORT.finditer(open(f).read())]
     assert not hits, hits

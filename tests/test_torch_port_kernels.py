@@ -539,3 +539,113 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         fp.flash_exp2_t_cuda(*(torch.randn(1, 2, 256, 64, device=cuda),) * 3)
     with pytest.raises(ValueError, match="shape"):
         fp.flash_packed_t_sminor_cuda(q, q, q, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dots", "exp", "noprolog"])
+@pytest.mark.parametrize("shape", [(1, 4, 1024, 40), (1, 2, 256, 80)])
+def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
+    """TPU kernel 8, each mode, against its plain version (q and k scaled by
+    0.05 as the probe draws them).  ``exp`` and ``noprolog``: tolerances of
+    ``_tol``.  ``dots``: each element within ``ablate_dots_tolerance`` (in
+    bf16 the plain version's scores are the kernel's bit for bit), rows whose
+    sum of p lies within its reach of zero excused (under 1% here)."""
+    from hedit_tpu_torch.ops import flash_probes as fp
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) * s for s in (0.05, 0.05, 1.0))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    counter = f"launches_ablate_{mode}"
+    before = getattr(fp, counter)
+    got = fp.flash_ablate_t_cuda(q, k, v, mode)
+    torch.cuda.synchronize()
+    assert getattr(fp, counter) == before + 1
+    b, h, s, d = shape
+    assert got.shape == (b * h, d, s) and got.dtype == dtype
+    want = fp.flash_ablate_t_reference(q, k, v, mode)
+    err = (got.float() - want.float()).abs()
+    if mode != "dots":
+        assert err.max().item() <= _tol(dtype, want)
+        return
+    tol, excused = fp.ablate_dots_tolerance(q, k, v, want, same_scores=dtype == torch.bfloat16)
+    assert excused.float().mean().item() < 1e-2
+    assert bool(((err <= tol) | excused[:, None, :]).all()), (err / tol).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["a", "b", "c", "d"])
+@pytest.mark.parametrize("bh,s,same", [(2, 256, False), (3, 1024, True), (1, 64, False)])
+def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, same):
+    """TPU kernel 9's three layouts and ``pv_bf16`` (d) against their plain
+    versions (d with the kernel's 64-key blocks of the running max;
+    tolerances of ``_tol``); ``same``: q = k = v, as the probe feeds them."""
+    from hedit_tpu_torch.ops import flash_probes as fp
+
+    q, k, v = _probe_inputs(dtype, (bh, s, 40), seed=bh)
+    if same:
+        k = v = q
+    counter = f"launches_variant_{variant}"
+    before = getattr(fp, counter)
+    if variant in "ad":
+        got = fp.flash_variant_a_cuda(q, k, v, pv_bf16=variant == "d")
+        want = fp.flash_variant_a_reference(q, k, v, pv_bf16=variant == "d")
+    else:
+        got = getattr(fp, f"flash_variant_{variant}_cuda")(q, k, v)
+        want = fp.flash_variant_b_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert getattr(fp, counter) == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_tol(dtype, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nn", "tl", "tr", "tm"])
+@pytest.mark.parametrize("m,n,k", [(100, 70, 40), (64, 64, 300), (3, 130, 128)])
+def test_mm_loop_kernel_matches_plain_on_card(cuda, dtype, layout, m, n, k):
+    """TPU kernel 12 under each dimension numbers, ragged M and N, resident
+    (K <= 128) and streamed K: all-ones inputs give exactly K * (1 + ... +
+    reps); seeded inputs agree with the plain version within 4 sqrt(reps K)
+    2^-24 times the sum of each output's term magnitudes."""
+    from hedit_tpu_torch.ops import mm_probe as mp
+
+    reps = 5
+    _, a_t, b_t = mp.LAYOUTS[layout]
+    a_shape, b_shape = ((k, m) if a_t else (m, k)), ((n, k) if b_t else (k, n))
+    before = getattr(mp, f"launches_{layout}")
+    ones = mp.mm_loop_cuda(torch.ones(a_shape, dtype=dtype, device=cuda),
+                           torch.ones(b_shape, dtype=dtype, device=cuda), layout, reps)
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    a = torch.randn(a_shape, generator=g, device=cuda).to(dtype)
+    b = torch.randn(b_shape, generator=g, device=cuda).to(dtype)
+    got = mp.mm_loop_cuda(a, b, layout, reps)
+    torch.cuda.synchronize()
+    assert getattr(mp, f"launches_{layout}") == before + 2
+    assert ones.shape == (m, n) and ones.dtype == torch.float32
+    assert bool((ones == k * reps * (reps + 1) // 2).all())
+    want = mp.mm_loop_reference(a, b, layout, reps)
+    tol = 4 * math.sqrt(reps * k) * 2.0 ** -24 * mp.mm_loop_magnitude(a, b, layout, reps)
+    assert bool(((got - want).abs() <= tol).all()), ((got - want).abs() / tol).max().item()
+
+
+@pytest.mark.gpu
+def test_cost_probe_kernels_refuse_what_they_do_not_take(cuda):
+    from hedit_tpu_torch.ops import flash_probes as fp
+    from hedit_tpu_torch.ops import mm_probe as mp
+
+    q = torch.randn(1, 2, 256, 40, device=cuda)
+    with pytest.raises(ValueError, match="mode"):
+        fp.flash_ablate_t_cuda(q, q, q, "softmax")
+    with pytest.raises(ValueError, match="head dim"):
+        fp.flash_ablate_t_cuda(*(torch.randn(1, 2, 256, 64, device=cuda),) * 3, "exp")
+    with pytest.raises(ValueError, match="head dim"):
+        fp.flash_variant_b_cuda(*(torch.randn(2, 256, 80, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="multiples"):
+        fp.flash_variant_a_cuda(*(torch.randn(2, 200, 40, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="dtypes"):
+        mp.mm_loop_cuda(torch.ones(8, 40, device=cuda), torch.ones(40, 8, device=cuda,
+                                                                   dtype=torch.bfloat16), "nn")
+    with pytest.raises(ValueError, match="contiguous"):
+        mp.mm_loop_cuda(torch.ones(40, 8, device=cuda).t(), torch.ones(40, 8, device=cuda), "nn")
