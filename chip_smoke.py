@@ -13,7 +13,12 @@ the final result line:
    shapes: max abs error against a stated tolerance; CUDA-event time of the
    kernel, of the plain version and of the one PyTorch library call for the
    same function (a yardstick only, the port never calls it); the least time
-   the card could take (``bound_ms``).  The bounded (max-free) and the exact
+   the card could take (``bound_ms``).  The bounded (max-free) forward runs
+   bf16 on the tensor cores (``csrc/flash_attention_tc.cu``) and float32 on
+   the CUDA-core template (``csrc/flash_attention.cu``); the tensor-core
+   kernel is also timed beside the CUDA-core template (row 3's LSE entry) at
+   the same head-split inputs, and its wrappers' refusals (a misaligned
+   pointer, an odd stride, float16) are checked.  The bounded and the exact
    forward are timed at the same shapes, head-split and packed, and a
    saturating input shows the two forms apart, also laid out packed through
    ``fused_attention_packed``.  For the packed-head forwards also the time of
@@ -55,15 +60,17 @@ the final result line:
    residual pass at 10 rows a call, then 50 steps of one 1-row base call, one
    1-row source call and one 4-row MasaCtrl call; checks the launches of the
    bounded head-split, GroupNorm and bounded packed kernels against the
-   prediction (every path: the bounded packed kernel serves each UNet
-   self-attention of >= 1024 tokens without a gradient, the exact packed one
-   none);
+   prediction (every bf16 path: the tensor-core packed kernel serves each
+   UNet self-attention of >= 1024 tokens without a gradient, the tensor-core
+   head-split one the VAE's two attentions; the CUDA-core bounded entries and
+   the exact packed kernel none);
 10. the exact forwards' own path (no editing path runs them): one call of
     the head-split one at each shape of JAX ``flash_attention``'s callers,
     one of the packed one at each shape of ``flash_attention_packed``'s;
 11. the golden identity in float32 (TF32 off): target = source,
     cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through
-    the general loop under the flagship configuration;
+    the general loop under the flagship configuration; the edit decoded: the
+    float32 path of the CUDA-core bounded template, its launches counted;
 12. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
     substituted here;
@@ -75,10 +82,11 @@ the final result line:
     returns the source latent;
 15. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
-16. a JSON line of the kernels (each with its launches on its path: rows 1,
-    2 and the bounded packed mode on the MasaCtrl path, 3-5 on the NMG path,
-    6 and 7 on their own, 8-12 on their probes' entry points), then
-    the result line ``{"ok": true, "device": {...}}``.
+16. a JSON line of the kernels (each with its launches on its path: rows 1
+    and 1p, the tensor-core kernel, on the flagship path, row 2 on the
+    MasaCtrl path, the CUDA-core bounded template on the float32 golden path,
+    3-5 on the NMG path, 6 and 7 on their own, 8-12 on their probes' entry
+    points), then the result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
 
@@ -141,7 +149,17 @@ SOT, EOT = 49406, 49407  # CLIP's start- and end-of-text ids
 # the bf16 inputs and round once, so each output is held to the plain version
 # run in float32 on the same input values, within one bf16 ulp at its largest
 # value, 2^-8 * max (the rounding is half an ulp; the backward also reads the
-# forward's bf16-rounded output through delta).  lse2 is float32 for either
+# forward's bf16-rounded output through delta).  The bounded forwards round
+# q * scale and p to bf16 as the TPU kernel does: the plain version takes
+# those roundings in bf16 and leaves out only the final one of its output
+# (``out_dtype=float32``).  The tensor-core kernel sums its products in
+# another order than cuBLAS does for the plain version, so the two float32
+# outputs differ in their last bits and, rounded to bf16, by one ulp of an
+# element where it lies near a rounding boundary; on the saturating input
+# (thousands of near-equal rows) that one ulp lands in the top binade of
+# some element, above 2^-8 * max, even for the float64 bounded function
+# rounded once.  Held to the output before its rounding, a kernel is within
+# half an ulp (<= 2^-8 * max) plus its float32 error.  lse2 is float32 for either
 # dtype.  bfloat16 GroupNorm: one output ulp, 2^-7 * max|y|, against the plain
 # version in bf16: both normalise in float32 and round once.
 F32_TOL = 1e-4
@@ -201,13 +219,15 @@ def bound(nbytes, *work):
 
 
 # each kernel's launch counter: (module, attribute)
-COUNTERS = {"flash_attention": (flash, "launches"), "groupnorm": (gn, "launches"),
+COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launches"),
+            "flash_attention_core": (flash, "launches"),
             "flash_attention_lse": (flash, "launches_lse"),
             "flash_bwd_dq": (flash, "launches_bwd_dq"),
             "flash_bwd_dkv": (flash, "launches_bwd_dkv"),
             "flash_packed": (flash, "launches_packed"),
             "flash_attention_exact": (flash, "launches_exact"),
-            "flash_packed_bounded": (flash, "launches_packed_bounded"),
+            "flash_packed_bounded": (flash, "launches_packed_bounded_tc"),
+            "flash_packed_bounded_core": (flash, "launches_packed_bounded"),
             "flash_packed_t": (fp, "launches_packed_t"),
             "flash_packed_t_sminor": (fp, "launches_packed_t_sminor"),
             "flash_packed_t_all_sminor": (fp, "launches_packed_t_all_sminor"),
@@ -227,21 +247,27 @@ def read_launches():
 
 
 def check_forward_routing(counts, path, failures, packed):
-    """On a path without a gradient every UNet attention of kernel size reads
-    the packed projections through the bounded packed kernel, ``packed``
-    launches (10 self-attentions of >= 1024 tokens a UNet call), and the
-    exact packed kernel never runs; the head-split forward serves only
-    the VAE's one-head attention, one launch in the encoder and one in the
-    decoder."""
+    """On a bf16 path every UNet self-attention of kernel size without a
+    gradient reads the packed projections through the tensor-core packed
+    kernel, ``packed`` launches (10 self-attentions of >= 1024 tokens a UNet
+    call); the tensor-core head-split kernel serves only the VAE's one-head
+    attention, one launch in the encoder and one in the decoder; the
+    CUDA-core bounded entries (float32) and the exact packed kernel never
+    run.  (Row 3, the CUDA-core LSE forward, has its own counter.)"""
     if counts["groupnorm"] <= 0:
         failures.append(f"the GroupNorm kernel was not launched on the {path} path: {counts}")
     if counts["flash_packed_bounded"] != packed or counts["flash_packed"] != 0:
-        failures.append(f"the {path} path launched the bounded packed kernel "
+        failures.append(f"the {path} path launched the tensor-core packed kernel "
                         f"{counts['flash_packed_bounded']} times (expected {packed}) and the "
                         f"exact packed kernel {counts['flash_packed']} times (expected 0)")
     if counts["flash_attention"] != 2:
-        failures.append(f"the head-split forward was launched {counts['flash_attention']} times "
-                        f"on the {path} path, not by the two VAE attentions alone")
+        failures.append(f"the tensor-core head-split forward was launched "
+                        f"{counts['flash_attention']} times on the {path} path, not by the two "
+                        f"VAE attentions alone")
+    if counts["flash_attention_core"] or counts["flash_packed_bounded_core"]:
+        failures.append(f"the {path} path launched the CUDA-core bounded entries "
+                        f"{counts['flash_attention_core']} / "
+                        f"{counts['flash_packed_bounded_core']} times in bf16 (expected 0)")
 
 
 def phase_card():
@@ -302,34 +328,43 @@ def _saturating_qkv(g, dtype):
 
 
 def _forward_plain(q, k, v, exact):
-    """The plain version a forward kernel is held to: the exact one in float32
-    on the same input values (the exact kernel keeps float32 scores and p);
-    the bounded one in the inputs' dtype (it rounds q * scale, p and the output
-    to bf16 at the kernel's steps)."""
+    """The plain version a forward kernel is held to, in float32: the exact
+    one on the same input values (the exact kernel keeps float32 scores and
+    p); the bounded one with q * scale and p rounded to the inputs' dtype at
+    the kernel's steps and its output left unrounded (see ``BF16_ULP``)."""
     if exact:
         return flash.reference_attention(q.float(), k.float(), v.float())
-    return flash.flash_attention_bounded_reference(q, k, v).float()
+    return flash.flash_attention_bounded_reference(q, k, v, out_dtype=torch.float32)
+
+
+# shapes at which the tensor-core forward is also timed against the CUDA-core
+# bounded template (row 3's LSE entry: the same work and one float a row)
+CORE_SHAPES = ((8, 8, 4096, 40), (4, 8, 1024, 80), (1, 1, 4096, 512))
 
 
 def _flash_forward_cases(g, rows, failures):
-    """Kernels 1 (bounded) and 6 (exact), head-split, each against its plain
-    version and timed at the same shapes; the first case of each is its row's
-    shape in the kernels line (kernel 1: the VAE's attention, its only use on
-    the paths; kernel 6: the UNet's self-attention at 64^2, where JAX's
-    ``flash_attention`` callers time it).  Then the saturating case."""
+    """Kernels 1 (bounded: bf16 on the tensor cores, float32 on the CUDA
+    cores) and 6 (exact), head-split, each against its plain version and
+    timed at the same shapes; the first case of each is its row's shape in
+    the kernels line (kernel 1: the VAE's attention, its only use on the
+    paths; kernel 6: the UNet's self-attention at 64^2, where JAX's
+    ``flash_attention`` callers time it).  At ``CORE_SHAPES`` the
+    tensor-core kernel is timed beside the CUDA-core template.  Then the
+    saturating case."""
     cases = [((1, 1, 4096, 512), 4096, torch.bfloat16),  # VAE mid block
              ((8, 8, 4096, 40), 4096, torch.bfloat16),   # UNet 64^2 self-attention, 8 rows
              ((4, 8, 1024, 80), 1024, torch.bfloat16),   # UNet 32^2, 4 rows
              ((1, 8, 1000, 80), 1064, torch.bfloat16),   # ragged, Sq != Sk
+             ((1, 1, 1000, 512), 4096, torch.bfloat16),  # ragged Sq at the VAE's width
+             ((1, 8, 1024, 40), 1000, torch.bfloat16),   # ragged Sk
              ((2, 8, 4096, 40), 4096, torch.float32),
              ((2, 8, 1000, 40), 1000, torch.float32),    # ragged Sq and Sk
              ((4, 8, 1024, 80), 1024, torch.float32),
              ((1, 8, 1000, 80), 1064, torch.float32),
              ((1, 1, 4096, 512), 4096, torch.float32)]
     exact_first = [cases[1]] + cases[:1] + cases[2:]
-    for name, wrapper, exact, order in (
-            ("flash_attention", flash.flash_attention_cuda, False, cases),
-            ("flash_attention_exact", flash.flash_attention_exact_cuda, True, exact_first)):
+    for wrapper, exact, order in ((flash.flash_attention_cuda, False, cases),
+                                  (flash.flash_attention_exact_cuda, True, exact_first)):
         for qshape, sk, dtype in order:
             q, k, v = _qkv(g, qshape, sk, dtype)
             got = wrapper(q, k, v)
@@ -342,20 +377,28 @@ def _flash_forward_cases(g, rows, failures):
                                  (4 * bh * sq * sk * d, dtype))
             plain = (flash.reference_attention if exact
                      else flash.flash_attention_bounded_reference)
-            _row(rows, failures, name,
-                 f"flash {'exact' if exact else 'bounded'} q{list(qshape)} sk={sk} "
-                 f"{str(dtype)[6:]}",
+            tc = not exact and dtype == torch.bfloat16
+            name, form = (("flash_attention_exact", "exact (CUDA cores)") if exact else
+                          ("flash_attention", "bounded (tensor cores)") if tc else
+                          ("flash_attention_core", "bounded (CUDA cores)"))
+            extra = ({"core_ms": cuda_ms(lambda: flash.flash_attention_lse_cuda(q, k, v))}
+                     if tc and qshape in CORE_SHAPES and sk == qshape[2] else {})
+            _row(rows, failures, name, f"flash {form} q{list(qshape)} sk={sk} {str(dtype)[6:]}",
                  err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
                  ms=cuda_ms(lambda: wrapper(q, k, v)),
                  plain_ms=cuda_ms(lambda: plain(q, k, v)),
                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-                 bound_ms=bound_ms, bound_by=by, shape=list(qshape), dtype=str(dtype)[6:])
-    for qshape in ((8, 8, 4096, 40), (1, 1, 4096, 512), (4, 8, 1024, 80)):
+                 bound_ms=bound_ms, bound_by=by, shape=list(qshape), dtype=str(dtype)[6:], **extra)
+            if extra:
+                print(f"  the CUDA-core bounded template (row 3's LSE entry) at the same inputs: "
+                      f"{extra['core_ms']:.3f} ms, tensor cores {rows[-1]['ms']:.3f} ms "
+                      f"({extra['core_ms'] / rows[-1]['ms']:.2f}x faster)")
+    for qshape in CORE_SHAPES:
         b_ms, e_ms = (next(r["ms"] for r in rows if r["name"] == n and r["shape"] == list(qshape)
                            and r["dtype"] == "bfloat16")
                       for n in ("flash_attention", "flash_attention_exact"))
-        print(f"bounded vs exact q{list(qshape)} bfloat16: {b_ms:.3f} ms vs {e_ms:.3f} ms "
-              f"(bounded / exact {b_ms / e_ms:.3f})")
+        print(f"tensor-core bounded vs CUDA-core exact q{list(qshape)} bfloat16: {b_ms:.3f} ms vs "
+              f"{e_ms:.3f} ms (bounded / exact {b_ms / e_ms:.3f})")
 
     # saturation: the bounded kernels follow their plain versions, the exact
     # kernel exact attention, and the two forms are far apart
@@ -365,37 +408,65 @@ def _flash_forward_cases(g, rows, failures):
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         exact = flash.flash_attention_exact_cuda(q, k, v).float()
         want_out, want_lse = flash.flash_attention_lse_reference(q, k, v)
+        want_bounded = _forward_plain(q, k, v, exact=False)
         want_exact = flash.reference_attention(q.float(), k.float(), v.float())
         torch.cuda.synchronize()
         want_out = want_out.float()
         tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want_out.abs().max().item()
         tol_e = F32_TOL if dtype == torch.float32 else BF16_ULP * want_exact.abs().max().item()
-        errs = [(bounded - want_out).abs().max().item(),
+        errs = [(bounded - want_bounded).abs().max().item(),
                 (out.float() - want_out).abs().max().item(),
                 (exact - want_exact).abs().max().item()]
         err_lse = ((lse2 - want_lse).abs() / want_lse.abs()).max().item()
         gap = (bounded - exact).abs().max().item()
         ok = (errs[0] <= tol and errs[1] <= tol and errs[2] <= tol_e and err_lse <= 1e-5
               and gap > 20 * tol and lse2.min().item() > 100.0)
-        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded / LSE / exact "
+        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded "
+              f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores) / LSE / exact "
               f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol {tol:.3g}), "
               f"lse2 relative {err_lse:.3e} (tol 1e-5, min lse2 {lse2.min().item():.2f}); "
               f"max|bounded - exact| {gap:.3e} (must exceed {20 * tol:.3g}) "
               f"{'OK' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash saturating case {dtype}")
+        if dtype == torch.bfloat16:
+            _rounding_diagnostic(q, k, v, bounded, want_out, tol)
+
+
+def _rounding_diagnostic(q, k, v, got, want_rounded, tol):
+    """Why bf16 bounded outputs are held to the plain version before its
+    final rounding (``BF16_ULP``): on the saturating input the float64
+    bounded function (q * scale and p rounded to bf16 as the kernels do,
+    everything else in float64), rounded once, misses the plain version
+    rounded to bf16 by one ulp at some elements, as the tensor-core kernel
+    does.  Printed, not checked."""
+    d, sk = q.shape[-1], k.shape[-2]
+    qs = q * torch.tensor(1.0 / d ** 0.5 * math.log2(math.e), dtype=q.dtype)
+    s64 = torch.matmul(qs.double(), k.double().transpose(-1, -2))
+    shift = s64[..., :flash.bounded_anchor(sk, d)].amax(dim=-1, keepdim=True) + 16.0
+    p = torch.exp2(torch.clamp(s64 - shift, max=100.0)).to(v.dtype).double()
+    exact = (torch.matmul(p, v.double()) / p.sum(dim=-1, keepdim=True)).to(q.dtype).float()
+    for label, x in (("the float64 bounded function", exact), ("the tensor-core kernel", got)):
+        e = (x - want_rounded).abs()
+        print(f"  rounding: {label} rounded once against the plain version rounded to bf16: "
+              f"max {e.max().item():.3e}, {int((e > tol).sum())} of {e.numel()} elements beyond "
+              f"{tol:.3g}, {int((e > 0).sum())} differ")
+    del s64, p
 
 
 def _flash_packed_cases(g, rows, failures):
     """The forwards on packed heads [B, S, H*D]: kernel 7 (exact, on no path)
     against its plain version in float32 on the same input values, and the
-    bounded one, the route of every UNet self-attention on the paths,
-    against its plain version in the inputs' dtype (it rounds q * scale, p
-    and the output at the kernel's steps); beside each the head-split route
-    at the same shape (three head-split copies, kernel 1, the merge).  Then
-    the saturating input laid out packed through ``fused_attention_packed``:
-    the bounded plain version within one output ulp, exact attention far
-    off."""
+    bounded one (bf16 on the tensor cores: the route of every UNet
+    self-attention on the paths; float32 on the CUDA cores) against its
+    plain version, which rounds q * scale and p at the kernel's steps, with
+    its output before the final rounding (``BF16_ULP``); beside each the
+    head-split route at the same shape (three head-split copies, kernel 1,
+    the merge).  Then the saturating input laid out packed through
+    ``fused_attention_packed``: the bounded plain version within one output
+    ulp, exact attention far off, one launch of the dtype's kernel.  Then the
+    tensor-core wrappers' refusals: a misaligned pointer, an odd stride,
+    float16."""
     cases = [(8, 4096, 4096, 320, torch.bfloat16, False),   # controlled call, 2 images
              (4, 1024, 1024, 640, torch.bfloat16, False),
              (2, 4096, 4096, 320, torch.float32, False),
@@ -405,10 +476,9 @@ def _flash_packed_cases(g, rows, failures):
              (4, 1024, 1024, 640, torch.bfloat16, True),    # a row slice of a larger batch
              (4, 4096, 4096, 320, torch.float32, True)]
     heads = 8
-    for name, wrapper, plain, exact in (
-            ("flash_packed", flash.flash_attention_packed_cuda,
-             flash.flash_attention_packed_reference, True),
-            ("flash_packed_bounded", flash.flash_attention_packed_bounded_cuda,
+    for wrapper, plain, exact in (
+            (flash.flash_attention_packed_cuda, flash.flash_attention_packed_reference, True),
+            (flash.flash_attention_packed_bounded_cuda,
              flash.flash_attention_packed_bounded_reference, False)):
         for b, sq, sk, hd, dtype, strided in cases:
             groups = 3 if strided else 1
@@ -416,7 +486,11 @@ def _flash_packed_cases(g, rows, failures):
                        .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
             got = wrapper(q, k, v, heads)
             want = (plain(q.float(), k.float(), v.float(), heads) if exact
-                    else plain(q, k, v, heads).float())
+                    else plain(q, k, v, heads, out_dtype=torch.float32))
+            name, form = (("flash_packed", "exact") if exact else
+                          ("flash_packed_bounded", "bounded (tensor cores)")
+                          if dtype == torch.bfloat16 else
+                          ("flash_packed_bounded_core", "bounded (CUDA cores)"))
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
@@ -424,7 +498,7 @@ def _flash_packed_cases(g, rows, failures):
                                  (4 * b * sq * sk * hd, dtype))
             split = lambda t: t.reshape(b, -1, heads, hd // heads).transpose(1, 2)  # noqa: E731
             _row(rows, failures, name,
-                 f"flash packed {'exact' if exact else 'bounded'} q[{b}, {sq}, {hd}] sk={sk} "
+                 f"flash packed {form} q[{b}, {sq}, {hd}] sk={sk} "
                  f"{str(dtype)[6:]}{' batch-strided' if strided else ''}",
                  err <= tol and bool(torch.isfinite(got).all()) and got.is_contiguous(),
                  max_abs_err=err, tol=tol, ms=cuda_ms(lambda: wrapper(q, k, v, heads)),
@@ -442,26 +516,58 @@ def _flash_packed_cases(g, rows, failures):
         b_ms, e_ms = (next(r["ms"] for r in rows if r["name"] == n and r["shape"] == shape
                            and r["dtype"] == "bfloat16")
                       for n in ("flash_packed_bounded", "flash_packed"))
-        print(f"bounded vs exact packed q{shape} bfloat16: {b_ms:.3f} ms vs {e_ms:.3f} ms "
-              f"(bounded / exact {b_ms / e_ms:.3f})")
+        print(f"tensor-core bounded vs CUDA-core exact packed q{shape} bfloat16: {b_ms:.3f} ms "
+              f"vs {e_ms:.3f} ms (bounded / exact {b_ms / e_ms:.3f})")
 
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (attn.merge_heads(t).contiguous() for t in _saturating_qkv(g, dtype))
-        before = flash.launches_packed_bounded
+        before = read_launches()
         with torch.no_grad():
             got = attn.fused_attention_packed(q, k, v, 8).float()
-        want = flash.flash_attention_packed_bounded_reference(q, k, v, 8).float()
+        want = flash.flash_attention_packed_bounded_reference(q, k, v, 8, out_dtype=torch.float32)
         exact = flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), 8)
         torch.cuda.synchronize()
+        moved = {n: c - before[n] for n, c in read_launches().items() if c != before[n]}
+        kernel = "flash_packed_bounded" if dtype == torch.bfloat16 else "flash_packed_bounded_core"
         tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
         err, gap = (got - want).abs().max().item(), (got - exact).abs().max().item()
-        ok = err <= tol and gap > 20 * tol and flash.launches_packed_bounded == before + 1
+        ok = err <= tol and gap > 20 * tol and moved == {kernel: 1}
         print(f"flash packed saturating q[1, 4096, 320] {str(dtype)[6:]} through "
               f"fused_attention_packed: max_abs_err {err:.3e} against the bounded plain version "
-              f"(tol {tol:.3g}), max|routed - exact| {gap:.3e} (must exceed {20 * tol:.3g}) "
-              f"{'OK' if ok else 'FAIL'}")
+              f"(tol {tol:.3g}), max|routed - exact| {gap:.3e} (must exceed {20 * tol:.3g}), "
+              f"launches {moved} {'OK' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash packed saturating case {dtype}")
+    _tc_refusals(g, failures)
+
+
+def _tc_refusals(g, failures):
+    """The tensor-core wrappers raise, and launch nothing, on a pointer that
+    is not 16-byte aligned, a batch stride that is not a multiple of 8, and
+    float16; they never hand such an input to the CUDA-core template."""
+    buf = torch.randn(2 * 1024 * 320 + 8, generator=g, device="cuda").to(torch.bfloat16)
+    misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)             # 2 bytes off
+    odd = buf.as_strided((2, 1024, 320), (1024 * 320 + 3, 320, 1))     # batch stride 327,683
+    head = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)
+    cases = (("misaligned pointer, packed", flash.flash_attention_packed_bounded_cuda,
+              (misaligned,) * 3 + (8,)),
+             ("misaligned pointer, head-split", flash.flash_attention_cuda, (head,) * 3),
+             ("odd batch stride, packed", flash.flash_attention_packed_bounded_cuda,
+              (odd,) * 3 + (8,)),
+             ("float16", flash.flash_attention_cuda, (head.contiguous().half(),) * 3))
+    for label, wrapper, args in cases:
+        before = read_launches()
+        try:
+            wrapper(*args)
+            refused = False
+        except ValueError as e:
+            refused, why = True, str(e)
+        torch.cuda.synchronize()
+        ok = refused and read_launches() == before
+        print(f"tensor-core refusal, {label}: {'refused: ' + why if refused else 'TAKEN'}; "
+              f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"tensor-core wrapper took {label}")
 
 
 def _flash_gradient_cases(g, rows, failures):
@@ -1187,9 +1293,9 @@ def phase_masactrl_path(pipe, images, ids):
     counts, failures = _one_image_path("MasaCtrl", pipe, images, ids, invert, edit,
                                        "DDPM inversion, 5 calls of 10 rows,", packed=want,
                                        ctx_rows=(0, 0, 3))
-    print(f"MasaCtrl path: bounded packed-kernel launches {counts['flash_packed_bounded']} "
+    print(f"MasaCtrl path: tensor-core packed-kernel launches {counts['flash_packed_bounded']} "
           f"(predicted {want}: 3 UNet calls a step x 10 + the residual pass's 5 calls x 10), "
-          f"head-split bounded {counts['flash_attention']} (predicted 2)")
+          f"tensor-core head-split {counts['flash_attention']} (predicted 2)")
     return counts, failures
 
 
@@ -1239,24 +1345,39 @@ def phase_exact_path():
 
 
 def phase_golden(pipe):
-    """README golden numerics on the card, SD-1.5 widths in float32."""
+    """README golden numerics on the card, SD-1.5 widths in float32, then the
+    edit decoded: the float32 path of the CUDA-core bounded template (the
+    UNet's packed self-attentions, the VAE's head-split one), its launches
+    counted from 0.  Returns (counts, failures)."""
     g = torch.Generator(device="cuda").manual_seed(11)
     x0 = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
     xts = sample_xts_from_x0(pipe.schedule, x0, g)[None]
     ids = torch.from_numpy(_token_ids(np.random.RandomState(11), 1))
     ids[:, 3] = ids[:, 1]  # target = source
     ctx4 = pipe.encode_token_ids(ids.reshape(-1, MAX_LEN)).reshape(1, 4, MAX_LEN, -1)
+    reset_launches()
     t0 = time.perf_counter()
     edited = h_edit_p2p_flagship(
         pipe.unet, pipe.schedule, HEditConfig(cfg_src_edit=5.0, cfg_tar=5.0), xts=xts,
         ctx4=ctx4, control=neutral_control(STEPS, 256, cond_start=2).to("cuda"),
         local_blend=neutral_blend(STEPS, 8, 16).to("cuda"), after_skip_steps=STEPS)
+    image = pipe.vae_decode(edited)
     torch.cuda.synchronize()
+    counts = read_launches()
     err = (edited - xts[:, 0]).abs().max().item()
-    ok = err <= GOLDEN_TOL
+    finite = bool(torch.isfinite(image).all())
+    ok = (err <= GOLDEN_TOL and finite and counts["flash_attention_core"] == 1
+          and counts["flash_packed_bounded_core"] == 2 * 10 * STEPS
+          and counts["flash_attention"] == counts["flash_packed_bounded"] == 0)
     print(f"golden identity (f32, TF32 off, {STEPS} steps, {time.perf_counter() - t0:.1f} s): "
-          f"max|edited - xts[0]| {err:.3e} (tol {GOLDEN_TOL:g}) {'OK' if ok else 'FAIL'}")
-    return [] if ok else [f"golden identity error {err:.3e}"]
+          f"max|edited - xts[0]| {err:.3e} (tol {GOLDEN_TOL:g}); decoded {list(image.shape)} "
+          f"finite={finite}; CUDA-core bounded launches head-split "
+          f"{counts['flash_attention_core']} (predicted 1), packed "
+          f"{counts['flash_packed_bounded_core']} (predicted {2 * 10 * STEPS}: two UNet calls "
+          f"a step x 10), tensor-core "
+          f"{counts['flash_attention']} / {counts['flash_packed_bounded']} (predicted 0) "
+          f"{'OK' if ok else 'FAIL'}")
+    return counts, [] if ok else [f"golden identity error {err:.3e}, launches {counts}"]
 
 
 @contextlib.contextmanager
@@ -1413,7 +1534,7 @@ def phase_masactrl_identity(pipe):
     scale = inv.xts.abs().max().item()
     err = (edited - inv.xts[:, 0]).abs().max().item() / scale
     ok = (err <= GOLDEN_TOL and bool(torch.isfinite(edited).all())
-          and counts["flash_packed_bounded"] > 0)
+          and counts["flash_packed_bounded_core"] > 0)
     print(f"MasaCtrl identity (f32, TF32 off, {STEPS} + {STEPS} steps, "
           f"{time.perf_counter() - t0:.1f} s): max|edited - xts[0]| / max|xts| {err:.3e} "
           f"(tol {GOLDEN_TOL:g}; max|xts| {scale:.3e}); loop launches {json.dumps(counts)} "
@@ -1422,7 +1543,8 @@ def phase_masactrl_identity(pipe):
 
 
 # Device-time classes of a flagship step, by kernel name (first match wins).
-KERNEL_CLASSES = (("flash kernel", r"flash_fwd_kernel"),
+KERNEL_CLASSES = (("flash kernel (tensor cores)", r"flash_fwd_tc_kernel"),
+                  ("flash kernel (CUDA cores)", r"flash_fwd_kernel"),
                   ("GroupNorm kernel", r"_group_norm_kernel"),
                   ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
                   ("convolutions", r"fprop|conv|dgrad"),
@@ -1545,13 +1667,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pipe = create_sd_pipeline(tiny=False, num_inference_steps=STEPS, seed=0,
                               dtype=torch.float32, device="cuda")
-    failures += phase_golden(pipe)
+    golden_counts, bad = phase_golden(pipe)
+    failures += bad
     failures += phase_unet_gradient(pipe)
     failures += phase_nmg_identity(pipe)
     failures += phase_reconstructions(pipe)
     failures += phase_masactrl_identity(pipe)
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
              "ef": ef_counts, "masactrl": masactrl_counts, "exact_forward": exact_counts,
+             "golden_f32": golden_counts,
              **probe_counts}
 
     def entry(name, route, source, replaces, path):
@@ -1567,9 +1691,11 @@ def main(argv=None) -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                            "plain_covers", "split_path_ms", "pipe_ms", "shape",
+                                           "core_ms",
                                            "max_err_over_tol", "excused_rows", "row_count", "resident")
                    if k in mine[0]}}
 
+    tc_cu, tc_route = "hedit_tpu_torch/csrc/flash_attention_tc.cu", "cuda (mma.sync, bf16)"
     fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                                  "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "hedit_tpu_torch/csrc/flash_probes.cu")
@@ -1578,7 +1704,7 @@ def main(argv=None) -> int:
     variant_lines = {"a": 31, "b": 61, "c": 87, "d": 31}
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
-        entry("flash_attention", "cuda", fwd_cu, f"{jax_flash}:220", "masactrl"),
+        entry("flash_attention", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
         entry("groupnorm", "triton", "hedit_tpu_torch/ops/groupnorm.py",
               "hedit_tpu/ops/groupnorm.py:100", "masactrl"),
         entry("flash_attention_lse", "cuda", fwd_cu, f"{jax_flash}:464", "nmg"),
@@ -1586,7 +1712,9 @@ def main(argv=None) -> int:
         entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", "nmg"),
         entry("flash_attention_exact", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
-        entry("flash_packed_bounded", "cuda", fwd_cu, f"{jax_flash}:220", "masactrl"),
+        entry("flash_packed_bounded", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
+        entry("flash_attention_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
+        entry("flash_packed_bounded_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
         entry("flash_packed_t", "cuda", probes_cu, "scripts/flash_nhd_variants.py:93",
               "flash_nhd_variants"),
         entry("flash_packed_t_sminor", "cuda", probes_cu, "scripts/flash_nhd_variants.py:101",

@@ -43,6 +43,10 @@ ARGTYPES = {
     "hedit_flash_attention_fwd_packed": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_I, _P],
     # q, k, v, out | b, h, sq, sk, d, anchor | batch strides of q, k, v | dtype | stream
     "hedit_flash_attention_fwd_packed_bounded": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
+    # hedit_flash_attention_fwd and ..._packed_bounded in bf16 on the tensor
+    # cores (flash_attention_tc.cu), the same arguments
+    "hedit_flash_attention_fwd_tc": [_P] * 4 + [_I] * 6 + [_P],
+    "hedit_flash_attention_fwd_packed_bounded_tc": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
     # q, k, v, dout, lse, delta, dq | bh, sq, sk, d, dtype | stream
     "hedit_flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dk, dv | bh, sq, sk, d, dtype | stream

@@ -1,19 +1,22 @@
-// Flash-attention forward for Hopper (sm_90a): softmax(q k^T / sqrt(d)) v,
-// optionally with the per-query base-2 log-sum-exp as a second output, in
-// one of two softmax modes chosen at compile time (Mode below).
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores (float32
+// FMAs): softmax(q k^T / sqrt(d)) v, optionally with the per-query base-2
+// log-sum-exp as a second output, in one of two softmax modes chosen at
+// compile time (Mode below).  It serves float32 inputs, row 3 (either
+// dtype) and the exact mode; bf16 inputs of row 1 go to the tensor-core
+// kernel of flash_attention_tc.cu (the wrappers dispatch by dtype).
 //
 // Bounded (max-free) replaces the TPU kernels of
 // hedit_tpu/ops/flash_attention.py
-//   row 1: _flash_bounded_kernel (wrapper flash_attention_bounded, reached
-//          through hedit_tpu/ops/attention.py:fused_attention); entry point
-//          hedit_flash_attention_fwd, wrapper flash_attention_cuda;
+//   row 1 in float32: _flash_bounded_kernel (wrapper flash_attention_bounded,
+//          reached through hedit_tpu/ops/attention.py:fused_attention); entry
+//          point hedit_flash_attention_fwd, wrapper flash_attention_cuda;
 //   row 3: _flash_bounded_lse_kernel (wrapper _flash_bounded_fwd_lse, the
-//          forward of flash_attention_diff); entry point
+//          forward of flash_attention_diff on the NMG path); entry point
 //          hedit_flash_attention_fwd_lse, wrapper flash_attention_lse_cuda;
-// and, on packed heads (below), row 1 as the paths reach it: JAX sends every
-// UNet self-attention of >= 1024 tokens to flash_attention_diff, whose primal
-// is row 1; entry point hedit_flash_attention_fwd_packed_bounded, wrapper
-// flash_attention_packed_bounded_cuda.
+// and, on packed heads (below), row 1 in float32 as the paths reach it: JAX
+// sends every UNet self-attention of >= 1024 tokens to flash_attention_diff,
+// whose primal is row 1; entry point hedit_flash_attention_fwd_packed_bounded,
+// wrapper flash_attention_packed_bounded_cuda.
 // A prologue takes each query row's max m0 over its anchor window, the first
 // `anchor` keys (the key block the JAX wrapper picks at that shape, passed in
 // by the wrapper; not this kernel's own key tile, or the saturation would
@@ -68,15 +71,16 @@
 // 40] does 2 * 4096 * 4096 * 40 * 2 FLOP per (row, head) against 1.3 MB of
 // q, k, v and out in bf16: about 2,000 FLOP per byte, far above the ~295
 // FLOP/byte balance point of an H100 SXM (data sheet, 700 W), so the kernel
-// is bound by arithmetic, not by device memory.  This first version does its
+// is bound by arithmetic, not by device memory.  This template does its
 // arithmetic in float32 on the CUDA cores (67 TFLOP/s peak on the data
 // sheet), not on the tensor cores (989 TFLOP/s bf16): its limit is the rate at
 // which shared memory feeds the FMAs.  The design answers that with register
 // tiling: each thread owns an RQ x RK tile of scores and an RQ x NC tile of
 // the output, so every shared-memory word it loads feeds several FMAs, and
 // the output accumulator never leaves registers.  Odd row strides keep the
-// strided shared-memory reads free of bank conflicts.  Tensor cores (mma /
-// wgmma) and TMA loads are the next step.  The bounded prologue computes the
+// strided shared-memory reads free of bank conflicts.  bf16 row 1 runs on the
+// tensor cores (flash_attention_tc.cu); row 3 and the exact mode follow it
+// in a later change.  The bounded prologue computes the
 // anchor window's scores a second time (no V, no exp2): anchor / Sk more
 // QK^T work, 1/8 at the UNet's 4096 keys and 1/4 for the VAE's.
 //
@@ -87,27 +91,11 @@
 // tk + TK*c (c < NC) of its rows.  The TK threads that share a row are
 // consecutive lanes of one warp, so row max and row sum are warp shuffles.
 
-#include <climits>
 #include <cmath>
 
 #include "flash_common.cuh"
 
 namespace {
-
-// Element strides of one operand seen as [batch, head, row, D]; D is dense.
-// One (batch, head) image spans fewer than 2^31 elements (the entry points
-// refuse more), so offsets inside it are 32-bit.
-struct Strides {
-  long long batch, head;
-  int row;
-};
-
-// The grid's second axis (bh = batch rows * heads, head fastest) and the
-// strides of the four operands.
-struct Layout {
-  int bh, heads;
-  Strides q, k, v, out;
-};
 
 // Shared-memory row strides.  Q and K rows are read with a stride across the
 // lanes of a warp, so their stride is odd (odd_stride); V rows are
@@ -375,39 +363,13 @@ int forward(const void* q, const void* k, const void* v, void* out, float* lse,
   if (lay.bh < 1 || sq < 1 || sk < 1 || lay.bh > 65535) return -1;
   if (d != 40 && d != 80 && d != 512) return -1;
   if (M == Mode::Bounded && anchor < 1) return -1;
-  const long long longest = sq > sk ? sq : sk;
-  if (longest * lay.q.row > INT_MAX || longest * lay.k.row > INT_MAX) return -1;
+  if (!rows_fit(lay, sq, sk)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return int(dispatch<float, M>(q, k, v, out, lse, lay, sq, sk, d, anchor, s));
     case 1: return int(dispatch<__nv_bfloat16, M>(q, k, v, out, lse, lay, sq, sk, d, anchor, s));
     default: return -1;
   }
-}
-
-// [BH, S, D] contiguous: BH plays the batch, one head a batch row.
-Layout head_split(int bh, int sq, int sk, int d) {
-  const Strides qo{(long long)sq * d, 0, d}, kv{(long long)sk * d, 0, d};
-  return Layout{bh, 1, qo, kv, kv, qo};
-}
-
-// Packed heads: q [B, Sq, H*D], k and v [B, Sk, H*D], each [S, H*D] image
-// dense and the images q_bs, k_bs, v_bs elements apart (0: one image read by
-// every batch row); out [B, Sq, H*D] contiguous.  Head h of a row is its
-// columns h*D .. (h+1)*D, on both sides.  False for arguments that are not
-// such a batch.
-bool packed_layout(int b, int h, int sq, int sk, int d, long long q_bs, long long k_bs,
-                   long long v_bs, Layout* lay) {
-  if (b < 1 || h < 1 || sq < 1 || sk < 1 || (long long)b * h > 65535) return false;
-  if ((long long)h * d > INT_MAX) return false;
-  const int row = h * d;
-  const long long q_img = (long long)sq * row, kv_img = (long long)sk * row;
-  // images that overlap, or lie before the pointer, are not a batch
-  if ((q_bs != 0 && q_bs < q_img) || (k_bs != 0 && k_bs < kv_img) ||
-      (v_bs != 0 && v_bs < kv_img))
-    return false;
-  *lay = Layout{b * h, h, {q_bs, d, row}, {k_bs, d, row}, {v_bs, d, row}, {q_img, d, row}};
-  return true;
 }
 
 }  // namespace

@@ -1,38 +1,46 @@
 """Flash attention, forward and backward: hand-written CUDA kernels and
 their plain versions.
 
-Port of ``hedit_tpu/ops/flash_attention.py``.  One CUDA forward template
-(``csrc/flash_attention.cu``) in two softmax modes:
+Port of ``hedit_tpu/ops/flash_attention.py``.  Two CUDA forward sources:
 
-* **bounded** (max-free): the TPU kernels ``_flash_bounded_kernel`` and
-  ``_flash_bounded_lse_kernel``.  Each query row's shift is anchored on the
-  first ``anchor`` keys (``bounded_anchor``: the key block the JAX wrapper
-  picks at that shape), ``shift = m0 + 16`` in base-2 units, and every key
-  contributes ``p = exp2(min(s - shift, 100))`` with no running max and no
-  rescale; the denominator is floored at ``1.2e-38``.
+* ``csrc/flash_attention_tc.cu``: the **bounded** (max-free) forward in
+  bfloat16 on the tensor cores (``mma.sync``), the TPU kernel
+  ``_flash_bounded_kernel`` as every bf16 path runs it.  Each query row's
+  shift is anchored on the first ``anchor`` keys (``bounded_anchor``: the key
+  block the JAX wrapper picks at that shape), ``shift = m0 + 16`` in base-2
+  units, and every key contributes ``p = exp2(min(s - shift, 100))`` with no
+  running max and no rescale; the denominator is floored at ``1.2e-38``.
+* ``csrc/flash_attention.cu``: one CUDA-core template (float32 FMAs) that
+  serves the same bounded forward for **float32** inputs, the bounded
+  forward with the log-sum-exp (``_flash_bounded_lse_kernel``, either
+  dtype), and the **exact** mode (running max and rescale: the TPU kernels
+  ``_flash_kernel`` and ``_flash_packed_kernel``, on no path of either
+  package).
 
-  - ``flash_attention_cuda``: the forward without a gradient, head-split
-    (the VAE's one-head attention on the paths);
-  - ``flash_attention_packed_bounded_cuda``: the same forward on the packed
-    projections ``[B, S, H*D]``, heads addressed in the kernel: every UNet
-    self-attention without a gradient on the paths (JAX sends those to
-    ``flash_attention_diff``, whose primal is ``_flash_bounded_kernel``);
-  - ``flash_attention_lse_cuda``: the same with the base-2 log-sum-exp
-    ``lse2 = shift + log2(denom)`` of each row, the forward of
-    ``flash_attention_diff``, whose backward launches the dq and the dk / dv
-    kernels of ``csrc/flash_attention_bwd.cu`` (the TPU kernels
-    ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``).
+The wrappers:
 
-* **exact** (running max and rescale): the TPU kernels ``_flash_kernel``
-  (``flash_attention_exact_cuda``, head-split) and ``_flash_packed_kernel``
-  (``flash_attention_packed_cuda``, packed heads).  Neither lies on a path of
-  either package.
+* ``flash_attention_cuda``: the bounded forward without a gradient,
+  head-split (the VAE's one-head attention on the paths);
+* ``flash_attention_packed_bounded_cuda``: the same forward on the packed
+  projections ``[B, S, H*D]``, heads addressed in the kernel: every UNet
+  self-attention without a gradient on the paths (JAX sends those to
+  ``flash_attention_diff``, whose primal is ``_flash_bounded_kernel``).
+  Both send a bf16 CUDA input to the tensor-core kernel and a float32 one to
+  the CUDA-core template (``bounded_entry``); the tensor-core kernel's
+  operands must pass ``check_tc_operands``;
+* ``flash_attention_lse_cuda``: the bounded forward with the base-2
+  log-sum-exp ``lse2 = shift + log2(denom)`` of each row (CUDA-core
+  template), the forward of ``flash_attention_diff``, whose backward launches
+  the dq and the dk / dv kernels of ``csrc/flash_attention_bwd.cu`` (the TPU
+  kernels ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``);
+* ``flash_attention_exact_cuda`` (head-split) and
+  ``flash_attention_packed_cuda`` (packed heads): the exact mode.
 
 The two modes agree wherever no key scores more than 116 log2 units above
 its row's anchor maximum; beyond that the bounded form saturates those keys
 at 2^100 as the TPU kernel does.
 
-The notes at the head of the two sources give the designs and what bounds
+The notes at the head of the sources give the designs and what bounds
 them on the H100.  Beside each kernel stands its plain PyTorch version
 (the bounded and the head-split exact forward wrappers take theirs for CPU
 tensors): ``flash_attention_bounded_reference``,
@@ -60,10 +68,12 @@ from typing import Optional, Tuple
 import torch
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
-launches = 0          # bounded forward without the log-sum-exp, head-split
+launches = 0          # bounded forward without the log-sum-exp, head-split, CUDA cores
+launches_tc = 0       # the same in bf16 on the tensor cores
 launches_exact = 0    # exact forward, head-split
 launches_packed = 0   # exact forward on packed heads
-launches_packed_bounded = 0   # bounded forward on packed heads
+launches_packed_bounded = 0      # bounded forward on packed heads, CUDA cores
+launches_packed_bounded_tc = 0   # the same in bf16 on the tensor cores
 launches_lse = 0      # bounded forward with the log-sum-exp
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
@@ -76,6 +86,42 @@ BWD_HEAD_DIMS = (40, 80, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
 DENOM_FLOOR = 1.2e-38
+# the tensor-core kernel copies 16 bytes at a time (cp.async): every operand's
+# address a multiple of 16 bytes, every element stride a multiple of 8
+TC_ALIGN_BYTES = 16
+TC_STRIDE_MULTIPLE = 8
+
+
+def bounded_entry(dtype: torch.dtype, packed: bool) -> str:
+    """The CUDA entry point of the bounded forward for an input of ``dtype``
+    (head-split or ``packed`` heads): bfloat16 the tensor-core kernel
+    (``csrc/flash_attention_tc.cu``), float32 the CUDA-core template
+    (``csrc/flash_attention.cu``).  Raises for any other dtype."""
+    if dtype == torch.bfloat16:
+        return ("hedit_flash_attention_fwd_packed_bounded_tc" if packed
+                else "hedit_flash_attention_fwd_tc")
+    if dtype == torch.float32:
+        return ("hedit_flash_attention_fwd_packed_bounded" if packed
+                else "hedit_flash_attention_fwd")
+    raise ValueError(f"the bounded forward takes float32 or bfloat16, got {dtype}")
+
+
+def check_tc_operands(d: int, addresses, strides) -> None:
+    """Raise unless the tensor-core kernel takes these operands: head dim
+    ``d`` one of ``HEAD_DIMS``, every address (``data_ptr()``) a multiple of
+    ``TC_ALIGN_BYTES`` and every element stride a multiple of
+    ``TC_STRIDE_MULTIPLE``.  The kernel refuses the same; the wrappers raise
+    first, and never fall back to the CUDA-core template."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the tensor-core forward takes head dims {HEAD_DIMS}, got {d}")
+    bad = [a for a in addresses if a % TC_ALIGN_BYTES]
+    if bad:
+        raise ValueError(f"the tensor-core forward needs {TC_ALIGN_BYTES}-byte aligned "
+                         f"operands, got addresses {[hex(a) for a in bad]}")
+    bad = [s for s in strides if s % TC_STRIDE_MULTIPLE]
+    if bad:
+        raise ValueError(f"the tensor-core forward needs element strides that are multiples "
+                         f"of {TC_STRIDE_MULTIPLE}, got {bad}")
 
 
 def bounded_anchor(sk: int, d: int) -> int:
@@ -101,12 +147,13 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.matmul(p.to(v.dtype), v).to(q.dtype)
 
 
-def _bounded(q, k, v, anchor):
-    """(out [B, H, Sq, D] in q's dtype, lse2 [B, H, Sq] float32) of the bounded
-    forward, in the TPU kernel's arithmetic: q scaled by sm_scale * log2(e) in
-    the input dtype, scores in float32, the shift from the first ``anchor``
-    keys, p cast to the input dtype before both the PV product and the
-    denominator (the TPU kernel sums p through a ones-column of v)."""
+def _bounded(q, k, v, anchor, out_dtype=None):
+    """(out [B, H, Sq, D] in ``out_dtype``, default q's dtype; lse2 [B, H, Sq]
+    float32) of the bounded forward, in the TPU kernel's arithmetic: q scaled
+    by sm_scale * log2(e) in the input dtype, scores in float32, the shift
+    from the first ``anchor`` keys, p cast to the input dtype before both the
+    PV product and the denominator (the TPU kernel sums p through a
+    ones-column of v)."""
     d, sk = q.shape[-1], k.shape[-2]
     anchor = bounded_anchor(sk, d) if anchor is None else anchor
     qs = q * torch.tensor(1.0 / d ** 0.5 * _LOG2E, dtype=q.dtype)
@@ -114,16 +161,18 @@ def _bounded(q, k, v, anchor):
     shift = s[..., :min(anchor, sk)].amax(dim=-1, keepdim=True) + 16.0
     p = torch.exp2(torch.clamp(s - shift, max=100.0)).to(v.dtype).float()
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=DENOM_FLOOR)
-    out = (torch.matmul(p, v.float()) / denom).to(q.dtype)
+    out = (torch.matmul(p, v.float()) / denom).to(out_dtype or q.dtype)
     return out, (shift + torch.log2(denom))[..., 0]
 
 
 def flash_attention_bounded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                      anchor: Optional[int] = None) -> torch.Tensor:
+                                      anchor: Optional[int] = None,
+                                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of the bounded forward (``_flash_bounded_kernel``):
-    q [B, H, Sq, D], k / v [B, H, Sk, D] -> [B, H, Sq, D] in q's dtype.
+    q [B, H, Sq, D], k / v [B, H, Sk, D] -> [B, H, Sq, D] in q's dtype, or
+    in ``out_dtype`` (float32: the output before its final rounding).
     ``anchor`` defaults to ``bounded_anchor(Sk, D)``."""
-    return _bounded(q, k, v, anchor)[0]
+    return _bounded(q, k, v, anchor, out_dtype)[0]
 
 
 def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,13 +207,15 @@ def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.
 
 def flash_attention_packed_bounded_reference(q: torch.Tensor, k: torch.Tensor,
                                              v: torch.Tensor, heads: int,
-                                             anchor: Optional[int] = None) -> torch.Tensor:
+                                             anchor: Optional[int] = None,
+                                             out_dtype: Optional[torch.dtype] = None
+                                             ) -> torch.Tensor:
     """Plain version of the bounded forward on packed heads: q [B, Sq, H*D],
-    k / v [B, Sk, H*D] -> [B, Sq, H*D] in q's dtype; the heads split, the
-    bounded forward (``anchor`` as ``flash_attention_bounded_reference``),
-    the heads merged."""
+    k / v [B, Sk, H*D] -> [B, Sq, H*D] in q's dtype (or ``out_dtype``); the
+    heads split, the bounded forward (``anchor`` as
+    ``flash_attention_bounded_reference``), the heads merged."""
     out = _bounded(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
-                   anchor)[0]
+                   anchor, out_dtype)[0]
     return _merge_heads(out)
 
 
@@ -231,17 +282,23 @@ def _launch(name: str, q: torch.Tensor, pointers, ints) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The bounded forward: a CPU tensor takes the plain version, a CUDA
-    tensor launches the kernel on the current stream with the anchor of
-    ``bounded_anchor``.  Raises on any CUDA input the kernel does not take,
-    and if the launch is refused."""
-    global launches
+    tensor launches the kernel of ``bounded_entry`` on the current stream
+    with the anchor of ``bounded_anchor``.  Raises on any CUDA input the
+    kernel does not take, and if the launch is refused."""
+    global launches, launches_tc
     if _on_cpu(q, k, v):
         return flash_attention_bounded_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_cuda")
     out = torch.empty_like(q)
-    _launch("hedit_flash_attention_fwd", q, (q, k, v, out),
-            (b * h, sq, sk, d, bounded_anchor(sk, d)))
-    launches += 1
+    entry = bounded_entry(q.dtype, packed=False)
+    tc = entry.endswith("_tc")
+    if tc:
+        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq * d, sk * d, d])
+    _launch(entry, q, (q, k, v, out), (b * h, sq, sk, d, bounded_anchor(sk, d)))
+    if tc:
+        launches_tc += 1
+    else:
+        launches += 1
     return out
 
 
@@ -309,9 +366,10 @@ def flash_attention_packed_bounded_cuda(q: torch.Tensor, k: torch.Tensor, v: tor
     """The bounded forward on packed heads, layouts as
     ``flash_attention_packed_cuda``: a CPU tensor takes
     ``flash_attention_packed_bounded_reference``, a CUDA tensor launches the
-    kernel with ``anchor`` (default ``bounded_anchor(Sk, D)``).  Raises on any
-    CUDA input the kernel does not take, and if the launch is refused."""
-    global launches_packed_bounded
+    kernel of ``bounded_entry`` with ``anchor`` (default
+    ``bounded_anchor(Sk, D)``).  Raises on any CUDA input the kernel does not
+    take, and if the launch is refused."""
+    global launches_packed_bounded, launches_packed_bounded_tc
     if _on_cpu(q, k, v):
         return flash_attention_packed_bounded_reference(q, k, v, heads, anchor)
     b, h, sq, sk, d, *strides = _check_packed(q, k, v, heads,
@@ -320,9 +378,15 @@ def flash_attention_packed_bounded_cuda(q: torch.Tensor, k: torch.Tensor, v: tor
     if anchor < 1:
         raise ValueError(f"anchor must be positive, got {anchor}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("hedit_flash_attention_fwd_packed_bounded", q, (q, k, v, out),
-            (b, h, sq, sk, d, anchor, *strides))
-    launches_packed_bounded += 1
+    entry = bounded_entry(q.dtype, packed=True)
+    tc = entry.endswith("_tc")
+    if tc:
+        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [h * d, *strides])
+    _launch(entry, q, (q, k, v, out), (b, h, sq, sk, d, anchor, *strides))
+    if tc:
+        launches_packed_bounded_tc += 1
+    else:
+        launches_packed_bounded += 1
     return out
 
 

@@ -50,17 +50,23 @@ def test_flash_wrapper_takes_plain_version_on_cpu():
 
 
 def _plain_on_card(fn, *ts):
-    """A plain version on the card: float32 inputs run in float32; bfloat16
-    inputs run the bounded plain versions in bf16 (they round q * scale, p
-    and the output at the kernel's steps) and the exact one in float32 on the
-    same values (the exact kernel keeps float32 scores and p)."""
-    return fn(*ts) if fn is not reference_attention else fn(*(t.float() for t in ts))
+    """A plain version on the card, in float32: float32 inputs run in
+    float32; bfloat16 inputs run the bounded plain versions with q * scale
+    and p rounded to bf16 at the kernel's steps and the output before its
+    final rounding (the tensor-core kernel sums in another order than cuBLAS,
+    so the two float32 outputs may round to neighbouring bf16 values), and
+    the exact one in float32 on the same values (the exact kernel keeps
+    float32 scores and p)."""
+    if fn is reference_attention:
+        return fn(*(t.float() for t in ts))
+    return fn(*ts, out_dtype=torch.float32)
 
 
 def _tol(dtype, want):
     """float32: 1e-4 (summation order); bfloat16: one output ulp at the
-    largest output, 2^-8 * max|out|: the kernel and its plain version round
-    at the same steps and a rounding may fall the other way."""
+    largest output, 2^-8 * max|out|: the kernel rounds its output once (half
+    an ulp) and q * scale and p at the plain version's steps, where a
+    rounding may fall the other way."""
     return 1e-4 if dtype == torch.float32 else 2.0 ** -8 * want.float().abs().max().item()
 
 
@@ -85,13 +91,15 @@ def _saturating(device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 8, 1024, 40), (1, 8, 1000, 80), (1, 1, 1024, 512)])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
-    """The bounded kernel (kernel 1) against its plain version with the same
-    anchor, and the exact kernel (kernel 6) against ``reference_attention``
-    (tolerances of ``_tol``)."""
+    """The bounded kernel (kernel 1: bf16 on the tensor cores, float32 on the
+    CUDA cores) against its plain version with the same anchor, and the exact
+    kernel (kernel 6) against ``reference_attention`` (tolerances of
+    ``_tol``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    bounded = "launches_tc" if dtype == torch.bfloat16 else "launches"
     for wrapper, plain, counter in (
-            (flash_mod.flash_attention_cuda, flash_attention_bounded_reference, "launches"),
+            (flash_mod.flash_attention_cuda, flash_attention_bounded_reference, bounded),
             (flash_mod.flash_attention_exact_cuda, reference_attention, "launches_exact")):
         before = getattr(flash_mod, counter)
         got = wrapper(q, k, v)
@@ -117,7 +125,8 @@ def test_bounded_kernels_saturate_as_their_plain_versions_on_card(cuda, dtype):
     want_exact = reference_attention(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
     tol = _tol(dtype, want_out)
-    torch.testing.assert_close(bounded, want_out.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(bounded, _plain_on_card(flash_attention_bounded_reference, q, k, v),
+                               rtol=0, atol=tol)
     torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse2, want_lse, rtol=1e-5, atol=1e-4)   # ~120: float32 ulps
     torch.testing.assert_close(exact, want_exact, rtol=0, atol=_tol(dtype, want_exact))
@@ -324,7 +333,8 @@ def test_groupnorm_gradient_matches_autograd_of_plain_on_card(cuda, dtype, shape
 def _launch_counts():
     return (flash_mod.launches, flash_mod.launches_packed, flash_mod.launches_lse,
             flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv,
-            flash_mod.launches_packed_bounded)
+            flash_mod.launches_packed_bounded, flash_mod.launches_tc,
+            flash_mod.launches_packed_bounded_tc)
 
 
 def test_packed_wrapper_takes_plain_version_on_cpu():
@@ -386,8 +396,8 @@ def test_packed_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("b,heads,sq,sk,d", [(2, 8, 1024, 1024, 40), (2, 8, 1024, 1024, 80),
                                              (2, 3, 300, 300, 40), (2, 2, 128, 400, 80)])
 def test_packed_bounded_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
-    """The bounded packed-head kernel against its plain version in the inputs'
-    dtype (it rounds q * scale, p and the output at the kernel's steps), with
+    """The bounded packed-head kernel (bf16 on the tensor cores, float32 on
+    the CUDA cores) against its plain version (``_plain_on_card``), with
     JAX's anchor and with a short one that leaves keys beyond the window,
     contiguous and as a row slice of a larger batch.  Tolerances of
     ``_tol``."""
@@ -401,10 +411,11 @@ def test_packed_bounded_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, 
         before = _launch_counts()
         got = flash_mod.flash_attention_packed_bounded_cuda(qs, ks, vs, heads, anchor)
         torch.cuda.synchronize()
-        assert _launch_counts() == before[:5] + (before[5] + 1,)
+        moved = 7 if dtype == torch.bfloat16 else 5
+        assert _launch_counts() == tuple(c + (i == moved) for i, c in enumerate(before))
         assert got.shape == qs.shape and got.is_contiguous()
-        want = flash_mod.flash_attention_packed_bounded_reference(qs, ks, vs, heads,
-                                                                  anchor).float()
+        want = flash_mod.flash_attention_packed_bounded_reference(qs, ks, vs, heads, anchor,
+                                                                  out_dtype=torch.float32)
         torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
 
 
@@ -412,15 +423,19 @@ def test_packed_bounded_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_bounded_kernel_saturates_as_its_plain_version_on_card(cuda, dtype):
     """The saturating input laid out packed ([1, 1024, 8 * 40]): the routed
-    attention (the bounded packed kernel) matches the bounded plain version
-    within one output ulp and differs from exact attention by far more."""
+    attention (the bounded packed kernel of the dtype: bf16 on the tensor
+    cores, which moves their counter and not the CUDA-core one) matches the
+    bounded plain version within one output ulp and differs from exact
+    attention by far more."""
     q, k, v = (merge_heads(t).contiguous() for t in _saturating(cuda, dtype))
-    before = flash_mod.launches_packed_bounded
+    before = _launch_counts()
     with torch.no_grad():
         got = fused_attention_packed(q, k, v, 8).float()
     torch.cuda.synchronize()
-    assert flash_mod.launches_packed_bounded == before + 1
-    want = flash_mod.flash_attention_packed_bounded_reference(q, k, v, 8).float()
+    moved = 7 if dtype == torch.bfloat16 else 5
+    assert _launch_counts() == tuple(c + (i == moved) for i, c in enumerate(before))
+    want = flash_mod.flash_attention_packed_bounded_reference(q, k, v, 8,
+                                                              out_dtype=torch.float32)
     exact = flash_attention_packed_reference(q.float(), k.float(), v.float(), 8)
     tol = _tol(dtype, want)
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
@@ -449,7 +464,7 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
             got = fused_attention_packed(x, x, x, heads)
         torch.cuda.synchronize()
         after = _launch_counts()
-        assert tuple(after[i] - before[i] for i in (0, 1, 2, 5)) == moved
+        assert tuple(after[i] - before[i] for i in (0, 1, 2, 5, 6, 7)) == moved + (0, 0)
         want = flash_attention_packed_reference(x.detach(), x.detach(), x.detach(), heads)
         torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-4)
     # a tensor that requires a gradient, with recording off: the packed kernel
@@ -464,6 +479,73 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
         a = fused_attention_packed(q8, q8, q8, 8)
         b = merge_heads(flash_mod.flash_attention_cuda(*(split_heads(q8, 8),) * 3))
     torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,sk", [((2, 8, 1024, 40), 1024), ((2, 4, 1024, 80), 1024),
+                                      ((1, 1, 2048, 512), 2048), ((1, 8, 1000, 80), 1064),
+                                      ((1, 8, 1024, 40), 1000), ((1, 1, 1000, 512), 1100),
+                                      ((1, 2, 77, 40), 300)])
+def test_tc_kernel_matches_bf16_plain_on_card(cuda, shape, sk):
+    """The tensor-core forward, head-split, at d = 40, 80 and 512, ragged Sq
+    and Sk included, against the bounded plain version (``_plain_on_card``)
+    within one output ulp; one launch of its counter and none of the
+    CUDA-core template's."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(shape[:2] + (sk, shape[3]), generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    before = _launch_counts()
+    got = flash_mod.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert _launch_counts() == tuple(c + (i == 6) for i, c in enumerate(before))
+    want = _plain_on_card(flash_attention_bounded_reference, q, k, v)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(torch.bfloat16, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,heads,sq,sk,d", [(2, 8, 1024, 1024, 40), (2, 8, 1024, 1024, 80),
+                                             (1, 8, 1000, 1064, 40), (2, 3, 300, 300, 80)])
+def test_tc_packed_kernel_matches_bf16_plain_on_card(cuda, b, heads, sq, sk, d):
+    """The tensor-core forward on packed heads, contiguous and as a
+    batch-strided row slice of a larger batch, against the bounded plain
+    version within one output ulp."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(b, 3, sq, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn(b, 3, sk, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn(b, 2, sk, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+    for qs, ks, vs in ((q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()),
+                       (q[:, 1], k[:, 2], v[:, 1])):
+        before = _launch_counts()
+        got = flash_mod.flash_attention_packed_bounded_cuda(qs, ks, vs, heads)
+        torch.cuda.synchronize()
+        assert _launch_counts() == tuple(c + (i == 7) for i, c in enumerate(before))
+        want = flash_mod.flash_attention_packed_bounded_reference(qs, ks, vs, heads,
+                                                                  out_dtype=torch.float32)
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(torch.bfloat16, want))
+
+
+@pytest.mark.gpu
+def test_tc_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    """A pointer that is not 16-byte aligned, a batch stride that is not a
+    multiple of 8 and float16 are refused before any launch: no fallback to
+    the CUDA-core template."""
+    buf = torch.randn(2 * 1024 * 320 + 8, device=cuda).to(torch.bfloat16)
+    misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)
+    odd = buf.as_strided((2, 1024, 320), (1024 * 320 + 3, 320, 1))
+    head = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)
+    before = _launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        flash_mod.flash_attention_packed_bounded_cuda(misaligned, misaligned, misaligned, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_mod.flash_attention_cuda(head, head, head)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_mod.flash_attention_packed_bounded_cuda(odd, odd, odd, 8)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_mod.flash_attention_cuda(*(head.contiguous().half(),) * 3)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
 
 
 def _probe_inputs(dtype, shape=(2, 3, 256, 40), seed=0):
