@@ -7,8 +7,8 @@ Phases, each printed on its own lines; any failure exits non-zero without
 the final result line:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build: the CUDA flash-attention library from ``hedit_tpu_torch/csrc`` and
-   the Triton GroupNorm kernel, timed;
+2. build: the CUDA library from ``hedit_tpu_torch/csrc`` (flash attention,
+   the probes' kernels, GroupNorm), timed;
 3. each kernel of the paths against its plain PyTorch version at the paths'
    shapes: max abs error against a stated tolerance; CUDA-event time of the
    kernel, of the plain version and of the one PyTorch library call for the
@@ -24,7 +24,12 @@ the final result line:
    ``fused_attention_packed``.  For the packed-head forwards also the time of
    the head-split route (three head-split copies, kernel 1, the merge).  The
    backward at the VAE's head dim [1, 1, 4096, 512], also through
-   ``fused_attention`` under a gradient.  Then the GroupNorm gradient;
+   ``fused_attention`` under a gradient.  Then GroupNorm + SiLU
+   (``csrc/group_norm.cu``) on channels-last inputs at every GroupNorm shape
+   of the paths' table (``GN_SHAPES``), bf16 and float32, eps 1e-5 and
+   1e-6, with its regime and cluster, two launches bit-identical, a float32
+   input at 1e3 + N(0, 1) against the float64 function, its refusals, and
+   its gradient (dx channels-last);
 4. the probes (TPU kernels 10, 11, 8, 9 and 12): the three bounded forwards
    with the packed transposed output and the pipelined exact exp2 forward
    (and a saturating input), the three ablations of the bounded loop (the
@@ -41,8 +46,8 @@ the final result line:
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
    with a non-neutral control and an active LocalBlend -> VAE decode; checks
    finite [2, 512, 512, 3] outputs, that its kernels were launched as
-   predicted and that the head-split forward served the VAE's one-head
-   attention only;
+   predicted (GroupNorm: 6,152 calls, every input channels-last) and that
+   the head-split forward served the VAE's one-head attention only;
 6. the NMG path: the same pipeline on the DDIM grid, one seeded image, CLIP
    encode -> VAE encode -> 50-step DDIM inversion -> 50 NMG + P2P steps, each
    differentiating through the UNet, with a non-neutral control and an active
@@ -83,8 +88,8 @@ the final result line:
 15. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
 16. a JSON line of the kernels (each with its launches on its path: rows 1
-    and 1p, the tensor-core kernel, on the flagship path, row 2 on the
-    MasaCtrl path, the CUDA-core bounded template on the float32 golden path,
+    and 1p, the tensor-core kernel, and row 2 in both its regimes on the
+    flagship path, the CUDA-core bounded template on the float32 golden path,
     3-5 on the NMG path, 6 and 7 on their own, 8-12 on their probes' entry
     points), then the result line ``{"ok": true, "device": {...}}``.
 
@@ -135,7 +140,7 @@ from hedit_tpu_torch.ops import flash_probes as fp  # noqa: E402
 from hedit_tpu_torch.ops import groupnorm as gn  # noqa: E402
 from hedit_tpu_torch.ops import mm_probe as mp  # noqa: E402
 from hedit_tpu_torch.pipelines.sd import create_sd_pipeline  # noqa: E402
-from hedit_tpu_torch.probes.timing import cuda_ms  # noqa: E402
+from hedit_tpu_torch.probes.timing import cuda_graph_ms, cuda_ms  # noqa: E402
 
 STEPS = 50
 N_IMAGES = 2
@@ -220,6 +225,7 @@ def bound(nbytes, *work):
 
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launches"),
+            "groupnorm_streamed": (gn, "launches_streamed"),
             "flash_attention_core": (flash, "launches"),
             "flash_attention_lse": (flash, "launches_lse"),
             "flash_bwd_dq": (flash, "launches_bwd_dq"),
@@ -237,9 +243,29 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS}}
 
 
+# GroupNorm calls of the bf16 pipeline's UNet and VAE, and of those the
+# calls whose input was channels-last (forward pre-hooks, ``hook_groupnorm``)
+GN_INPUTS = {"calls": 0, "channels_last": 0}
+# GroupNorm calls of each path (flagship: 61 a UNet call x 100 calls + 22 in
+# the VAE encoder + 30 in the decoder)
+GN_CALLS = {"flagship": 6152, "NMG": 9202, "h-Edit-D": 12252, "EF": 3407, "MasaCtrl": 9507}
+
+
 def reset_launches():
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
+    GN_INPUTS.update(calls=0, channels_last=0)
+
+
+def hook_groupnorm(*models):
+    """Count every GroupNorm input of ``models``, and the channels-last ones."""
+    def hook(_, args):
+        GN_INPUTS["calls"] += 1
+        GN_INPUTS["channels_last"] += args[0].is_contiguous(memory_format=torch.channels_last)
+    for model in models:
+        for m in model.modules():
+            if isinstance(m, gn.FusedGroupNorm):
+                m.register_forward_pre_hook(hook)
 
 
 def read_launches():
@@ -253,9 +279,18 @@ def check_forward_routing(counts, path, failures, packed):
     call); the tensor-core head-split kernel serves only the VAE's one-head
     attention, one launch in the encoder and one in the decoder; the
     CUDA-core bounded entries (float32) and the exact packed kernel never
-    run.  (Row 3, the CUDA-core LSE forward, has its own counter.)"""
-    if counts["groupnorm"] <= 0:
-        failures.append(f"the GroupNorm kernel was not launched on the {path} path: {counts}")
+    run.  (Row 3, the CUDA-core LSE forward, has its own counter.)
+    GroupNorm: ``GN_CALLS[path]`` kernel calls, each on a channels-last
+    input, and the streamed regime in the VAE."""
+    if (counts["groupnorm"], GN_INPUTS["calls"], GN_INPUTS["channels_last"]) != (
+            GN_CALLS[path],) * 3 or counts["groupnorm_streamed"] <= 0:
+        failures.append(f"the {path} path called the GroupNorm kernel {counts['groupnorm']} "
+                        f"times (streamed {counts['groupnorm_streamed']}), on "
+                        f"{GN_INPUTS['channels_last']} channels-last of {GN_INPUTS['calls']} "
+                        f"inputs (expected {GN_CALLS[path]} of {GN_CALLS[path]})")
+    print(f"{path} path GroupNorm: {counts['groupnorm']} kernel calls ({GN_CALLS[path]} "
+          f"predicted), {counts['groupnorm_streamed']} of them streamed, "
+          f"{GN_INPUTS['channels_last']} of {GN_INPUTS['calls']} inputs channels-last")
     if counts["flash_packed_bounded"] != packed or counts["flash_packed"] != 0:
         failures.append(f"the {path} path launched the tensor-core packed kernel "
                         f"{counts['flash_packed_bounded']} times (expected {packed}) and the "
@@ -282,14 +317,8 @@ def phase_card():
 def phase_build():
     t0 = time.perf_counter()
     _build.cuda_library()
-    t1 = time.perf_counter()
-    x = torch.randn(1, 64, 8, 8, device="cuda")
-    w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
-    gn.group_norm_triton(x, w, b, groups=32, act="silu")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"build: nvcc csrc/*.cu and load {t1 - t0:.1f} s, "
-          f"triton groupnorm compile and first launch {t2 - t1:.1f} s")
+    print(f"build: nvcc csrc/*.cu (one nvcc a source, in parallel) and load "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _row(rows, failures, name, label, ok, **numbers):
@@ -674,40 +703,126 @@ def _flash_gradient_cases(g, rows, failures):
                 failures.append(f"fused_attention gradient {label}")
 
 
+# Every GroupNorm shape of the paths' table (PERF.md section 6, row 2): the
+# controlled and base calls' 320-channel levels, up_blocks[3]'s and [2]'s
+# norm1, the bottom levels, the VAE's mid block and its two largest levels
+# (streamed; the full resolution first, the kernels line's shape)
+GN_SHAPES = ((8, 320, 64, 64), (2, 320, 64, 64), (8, 960, 64, 64), (8, 640, 64, 64),
+             (8, 1920, 32, 32), (8, 1280, 8, 8), (8, 2560, 8, 8), (2, 512, 64, 64),
+             (2, 128, 512, 512), (2, 256, 256, 256))
+
+
+def _gn_inputs(g, shape, dtype, scale=2.0, offset=0.5):
+    x = (torch.randn(shape, generator=g, device="cuda") * scale + offset).to(dtype)
+    w = torch.randn(shape[1], generator=g, device="cuda").to(dtype)
+    b = torch.randn(shape[1], generator=g, device="cuda").to(dtype)
+    return x.contiguous(memory_format=torch.channels_last), w, b
+
+
+def _gn_float64(x, w, b, eps):
+    """The two-pass GroupNorm + SiLU in float64."""
+    shape = (1, x.shape[1], 1, 1)
+    xd = x.double().reshape(x.shape[0], 32, -1)
+    d = xd - xd.mean(dim=2, keepdim=True)
+    y = (d * torch.rsqrt((d * d).mean(dim=2, keepdim=True) + eps)).reshape(x.shape)
+    y = y * w.double().reshape(shape) + b.double().reshape(shape)
+    return y * torch.sigmoid(y)
+
+
 def _groupnorm_cases(g, rows, failures):
-    """Kernel 2, and the gradient of its autograd wrapper (forward the kernel,
-    backward plain tensor code) against autograd of the plain version in
-    float32 on the same input values."""
-    for shape in ((8, 320, 64, 64), (4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 8, 8)):
-        for dtype in (torch.bfloat16, torch.float32):
+    """Kernel 2 on channels-last inputs at every shape of ``GN_SHAPES``,
+    bf16 and float32, eps 1e-5 and 1e-6, against its plain version; two
+    launches bit-identical; the cancellation case; the refusals; and the
+    gradient of its autograd wrapper (forward the kernel, backward plain
+    tensor code) against autograd of the plain version in float32 on the
+    same input values."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in GN_SHAPES:
+            bsz, c, h, w_ = shape
+            tile = gn.plan(bsz, h * w_, c, 32, dtype.itemsize, sms)
             for eps in (1e-5, 1e-6):
-                x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
-                w = torch.randn(shape[1], generator=g, device="cuda").to(dtype)
-                b = torch.randn(shape[1], generator=g, device="cuda").to(dtype)
+                x, w, b = _gn_inputs(g, shape, dtype)
                 call = dict(groups=32, eps=eps, act="silu")
-                got = gn.group_norm_triton(x, w, b, **call)
+                got = gn.group_norm_cuda(x, w, b, **call)
+                again = gn.group_norm_cuda(x, w, b, **call)
                 want = gn.group_norm_reference(x, w, b, **call)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 tol = (F32_TOL if dtype == torch.float32
                        else 2.0 ** -7 * want.float().abs().max().item())
+                same = torch.equal(got, again)
+                layout = got.is_contiguous(memory_format=torch.channels_last)
                 # two passes for the statistics, normalise, affine, SiLU: ~12
                 # operations an element; x read once, y written once
-                bound_ms, by = bound(x.element_size() * (2 * x.numel() + 2 * shape[1]),
-                                     (12 * x.numel(), torch.float32))
-                _row(rows, failures, "groupnorm",
-                     f"groupnorm+silu {list(shape)} {str(dtype)[6:]} eps={eps:g}",
-                     err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
-                     ms=cuda_ms(lambda: gn.group_norm_triton(x, w, b, **call)),
-                     plain_ms=cuda_ms(lambda: gn.group_norm_reference(x, w, b, **call)),
-                     library_ms=cuda_ms(lambda: F.silu(F.group_norm(x, 32, w, b, eps))),
-                     bound_ms=bound_ms, bound_by=by)
+                nbytes = x.element_size() * (2 * x.numel() + 2 * c)
+                bound_ms, by = bound(nbytes, (12 * x.numel(), torch.float32))
+                extra = {}
+                if tile.regime == "streamed":  # x read twice: the kernel's own traffic
+                    extra["traffic_bound_ms"] = (nbytes + x.element_size() * x.numel()) \
+                        / HBM_BYTES_S * 1e3
+                # device time, CUDA-graph replays: launched from Python one at a
+                # time, a call of ~10-60 us takes the host's pace (eager_ms)
+                kernel = lambda: gn.group_norm_cuda(x, w, b, **call)  # noqa: E731
+                ms, eager_ms = cuda_graph_ms(kernel), cuda_ms(kernel)
+                name = "groupnorm" if tile.regime == "resident" else "groupnorm_streamed"
+                _row(rows, failures, name,
+                     f"groupnorm+silu {list(shape)} {str(dtype)[6:]} eps={eps:g} {tile.regime} "
+                     f"cb={tile.cb} x {tile.pixels} px, cluster {tile.cluster}, share of the "
+                     f"bound {bound_ms / ms:.1%}, eager {eager_ms:.4f} ms; "
+                     f"bit-identical twice {same}, y channels-last {layout}",
+                     err <= tol and same and layout and bool(torch.isfinite(got).all()),
+                     max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
+                     plain_ms=cuda_graph_ms(lambda: gn.group_norm_reference(x, w, b, **call)),
+                     library_ms=cuda_graph_ms(lambda: F.silu(F.group_norm(x, 32, w, b, eps))),
+                     bound_ms=bound_ms, bound_by=by, regime=tile.regime, cluster=tile.cluster,
+                     cb=tile.cb, shape=list(shape), **extra)
+                del x, got, again, want
+    # cancellation: x = 1e3 + N(0, 1) in float32, against the float64
+    # function.  A float32 mean near 1e3 can be no closer to the exact one
+    # than half an ulp of 1e3 (2^-14 is one), and an error e of the mean
+    # moves y by e * rstd * |w|: the tolerance is F32_TOL plus one such ulp.
+    # A one-pass variance E[x^2] - E[x]^2 cannot pass: one ulp of E[x^2] ~ 1e6
+    # is 0.0625, 6% of the variance.
+    for shape in ((8, 320, 64, 64), (2, 128, 512, 512)):
+        x, w, b = _gn_inputs(g, shape, torch.float32, scale=1.0, offset=1e3)
+        got = gn.group_norm_cuda(x, w, b, groups=32, eps=1e-6, act="silu")
+        want = _gn_float64(x, w, b, 1e-6)
+        plain = gn.group_norm_reference(x, w, b, groups=32, eps=1e-6, act="silu")
+        xd = x.double().reshape(shape[0], 32, -1)
+        rstd = torch.rsqrt(xd.var(dim=2, unbiased=False) + 1e-6).max().item()
+        tol = F32_TOL + 2.0 ** -14 * rstd * w.abs().max().item()
+        err = (got.double() - want).abs().max().item()
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        print(f"groupnorm+silu {list(shape)} float32 at 1e3 + N(0, 1): max_abs_err against the "
+              f"float64 function {err:.3e} (tol {tol:.3e}; the plain float32 version's "
+              f"{(plain.double() - want).abs().max().item():.3e}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"groupnorm cancellation {shape}")
+        del x, got, want, plain, xd
+    x, w, b = _gn_inputs(g, (2, 64, 8, 8), torch.float32)
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    refusals = {
+        "NCHW-contiguous x": lambda: gn.group_norm_cuda(x.contiguous(), w, b, groups=32),
+        "float16": lambda: gn.group_norm_cuda(x.half(), w.half(), b.half(), groups=32),
+        "C % G != 0": lambda: gn.group_norm_cuda(x, w, b, groups=48),
+        "misaligned view": lambda: gn.group_norm_cuda(
+            flat[1:].view(2, 8, 8, 64).permute(0, 3, 1, 2), w, b, groups=32)}
+    took = []
+    for what, fn in refusals.items():
+        try:
+            fn()
+        except ValueError:
+            continue
+        took.append(what)
+    print(f"groupnorm refusals ({', '.join(refusals)}): "
+          f"{'OK' if not took else 'FAIL: took ' + ', '.join(took)}")
+    failures += [f"group_norm_cuda took a {what}" for what in took]
     for shape in ((1, 320, 64, 64), (1, 1280, 8, 8)):
         for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
-            w = torch.randn(shape[1], generator=g, device="cuda").to(dtype)
-            b = torch.randn(shape[1], generator=g, device="cuda").to(dtype)
-            dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            x, w, b = _gn_inputs(g, shape, dtype)
+            dy = torch.randn(shape, generator=g, device="cuda").to(dtype).contiguous(
+                memory_format=torch.channels_last)
             before = gn.launches
             dx, = torch.autograd.grad(
                 gn.group_norm(x.requires_grad_(), w, b, groups=32, act="silu"), x, dy)
@@ -718,9 +833,12 @@ def _groupnorm_cases(g, rows, failures):
             torch.cuda.synchronize()
             err = (dx.float() - want).abs().max().item()
             tol = (F32_TOL if dtype == torch.float32 else BF16_ULP) * want.abs().max().item()
-            ok = err <= tol and bool(torch.isfinite(dx).all()) and gn.launches == before + 1
+            layout = dx.is_contiguous(memory_format=torch.channels_last)
+            ok = (err <= tol and bool(torch.isfinite(dx).all()) and gn.launches == before + 1
+                  and layout)
             print(f"groupnorm+silu gradient {list(shape)} {str(dtype)[6:]}: dx max_abs_err "
-                  f"{err:.3e} (tol {tol:.3g}) {'OK' if ok else 'FAIL'}")
+                  f"{err:.3e} (tol {tol:.3g}), dx channels-last {layout} "
+                  f"{'OK' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"groupnorm gradient {shape} {dtype}")
 
@@ -1069,6 +1187,7 @@ def _main_path_inputs():
     t0 = time.perf_counter()
     pipe = create_sd_pipeline(tiny=False, num_inference_steps=STEPS, seed=0,
                               dtype=torch.bfloat16, device="cuda")
+    hook_groupnorm(pipe.unet, pipe.vae)
     torch.cuda.synchronize()
     print(f"main paths: SD-1.5 bf16 pipeline on the card in {time.perf_counter() - t0:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1391,7 +1510,7 @@ def plain_versions():
                  flash.flash_attention_packed_bounded_reference),
                 (flash, "flash_attention_lse_cuda", flash.flash_attention_lse_reference),
                 (flash, "flash_attention_backward_cuda", flash.flash_attention_backward_reference),
-                (gn, "group_norm_triton", gn.group_norm_reference)):
+                (gn, "group_norm_cuda", gn.group_norm_reference)):
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
@@ -1545,7 +1664,7 @@ def phase_masactrl_identity(pipe):
 # Device-time classes of a flagship step, by kernel name (first match wins).
 KERNEL_CLASSES = (("flash kernel (tensor cores)", r"flash_fwd_tc_kernel"),
                   ("flash kernel (CUDA cores)", r"flash_fwd_kernel"),
-                  ("GroupNorm kernel", r"_group_norm_kernel"),
+                  ("GroupNorm kernel", r"gn_slice_kernel|gn_apply_kernel"),
                   ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
                   ("convolutions", r"fprop|conv|dgrad"),
                   ("GEMMs", r"gemm|nvjet|cutlass"),
@@ -1692,7 +1811,9 @@ def main(argv=None) -> int:
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                            "plain_covers", "split_path_ms", "pipe_ms", "shape",
                                            "core_ms",
-                                           "max_err_over_tol", "excused_rows", "row_count", "resident")
+                                           "max_err_over_tol", "excused_rows", "row_count", "resident",
+                                           "regime", "cluster", "cb", "traffic_bound_ms",
+                                           "eager_ms")
                    if k in mine[0]}}
 
     tc_cu, tc_route = "hedit_tpu_torch/csrc/flash_attention_tc.cu", "cuda (mma.sync, bf16)"
@@ -1701,12 +1822,14 @@ def main(argv=None) -> int:
                                  "hedit_tpu_torch/csrc/flash_probes.cu")
     variants_cu, mm_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
                           "hedit_tpu_torch/csrc/mm_probe.cu")
+    gn_cu = "hedit_tpu_torch/csrc/group_norm.cu"
     variant_lines = {"a": 31, "b": 61, "c": 87, "d": 31}
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
         entry("flash_attention", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
-        entry("groupnorm", "triton", "hedit_tpu_torch/ops/groupnorm.py",
-              "hedit_tpu/ops/groupnorm.py:100", "masactrl"),
+        entry("groupnorm", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100", "flagship"),
+        entry("groupnorm_streamed", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100",
+              "flagship"),
         entry("flash_attention_lse", "cuda", fwd_cu, f"{jax_flash}:464", "nmg"),
         entry("flash_bwd_dq", "cuda", bwd_cu, f"{jax_flash}:553", "nmg"),
         entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", "nmg"),

@@ -2,9 +2,10 @@
 
 Module paths mirror ``hedit_tpu/`` so each counterpart is easy to find.  The
 JAX package stays the reference; this package imports ``torch`` and never
-``jax``.  Hand-written kernels: ``csrc/flash_attention.cu`` (CUDA C++, built
-by ``_build.py`` at first use) and the GroupNorm+SiLU kernel in
-``ops/groupnorm.py`` (Triton).  See README.md, "PyTorch/CUDA port".
+``jax``.  Hand-written kernels: CUDA C++ for sm_90a under ``csrc/`` (flash
+attention, the probes' kernels, GroupNorm+SiLU over channels-last
+activations), built by ``_build.py`` at first use.  See README.md,
+"PyTorch/CUDA port".
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,6 @@ its own ``nvcc``, all started together, and one more call links them.  The
 library lands in
 ``hedit_tpu_torch/_build/`` (git-ignored), named by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
-Triton's compile cache is pointed at the same directory.
 
 Everything happens at first use, never at import: the CPU-only test
 environment imports every module of the port and has no ``nvcc``.
@@ -29,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # every pointer and the stream as c_void_p: ctypes would pass a bare Python
 # int as a 32-bit int and cut the pointer
 ARGTYPES = {
@@ -61,6 +60,11 @@ ARGTYPES = {
     "hedit_flash_variant": [_P] * 4 + [_I] * 6 + [_P],
     # a, b, o | m, n, k, reps, layout, dtype | stream
     "hedit_mm_loop": [_P] * 3 + [_I] * 6 + [_P],
+    # x, w, b, y, partials | batch, hw, c, groups, cb, cluster, pixels, threads,
+    # apply_pixels, apply_threads | eps | silu, dtype | stream
+    "hedit_group_norm_nhwc": [_P] * 5 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+    # hw, c, groups, cb, cluster, pixels, threads, dtype | out (int *)
+    "hedit_group_norm_active_clusters": [_I] * 8 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -124,7 +128,3 @@ def _compile(cus, so: Path) -> None:
                                          for c, p, o, e in failed))
         os.replace(out, so)  # atomic: a concurrent loader never sees half a file
 
-
-def configure_triton_cache() -> None:
-    """Keep Triton's compiled kernels beside the CUDA library."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

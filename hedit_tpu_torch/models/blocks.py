@@ -1,8 +1,12 @@
 """Building blocks of the SD UNet and VAE (port of ``hedit_tpu/models/blocks.py``).
 
-Inside the models tensors are contiguous NCHW, so that a GroupNorm group is
-one contiguous span for the Triton kernel; the transformer blocks work on
-[B, HW, C] tokens.  Module and parameter names are the diffusers
+Inside the models activations are logical NCHW tensors in
+``torch.channels_last`` (physically [B, H, W, C], the JAX package's NHWC):
+cuDNN's convolutions take them without a layout transpose, and the
+GroupNorm kernel takes exactly that layout.  Every op here keeps the format
+of its input (``Conv2d`` convolves in NCHW on the CPU only); the
+transformer blocks work on [B, HW, C] tokens, which are a view of such a
+tensor.  Module and parameter names are the diffusers
 ``state_dict`` keys (``down_blocks.0.attentions.1.transformer_blocks.0.attn1.to_q``),
 which ``io_utils/weights.py`` maps to and from the JAX parameter trees.
 
@@ -49,6 +53,23 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(x)))
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose output keeps its input's memory format.  On the
+    card it convolves channels-last (cuDNN's NHWC kernels, no transposes).
+    On the CPU it convolves in NCHW: PyTorch's CPU channels-last
+    convolution sums in another order that lands further from the float64
+    result, so the CPU numerics stay those the tests' tolerances were set
+    on."""
+
+    def forward(self, x):
+        if x.is_cuda:
+            return super().forward(x)
+        y = self._conv_forward(x.contiguous(), self.weight.contiguous(), self.bias)
+        if x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous():
+            return y.contiguous(memory_format=torch.channels_last)
+        return y
+
+
 class ResnetBlock2D(nn.Module):
     """GN32+SiLU+conv twice, optional timestep projection and skip conv."""
 
@@ -56,13 +77,13 @@ class ResnetBlock2D(nn.Module):
                  groups: int = 32, eps: float = 1e-5):
         super().__init__()
         self.norm1 = FusedGroupNorm(groups, in_channels, eps, act="silu")
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_dim is not None:
             self.time_emb_proj = nn.Linear(temb_dim, out_channels)
         self.norm2 = FusedGroupNorm(groups, out_channels, eps, act="silu")
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.conv_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, temb=None):
         h = self.conv1(self.norm1(x))
@@ -80,7 +101,7 @@ class Downsample2D(nn.Module):
     def __init__(self, channels: int, asymmetric_pad: bool = False):
         super().__init__()
         self.asymmetric_pad = asymmetric_pad
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
+        self.conv = Conv2d(channels, channels, 3, stride=2,
                               padding=0 if asymmetric_pad else 1)
 
     def forward(self, x):
@@ -92,7 +113,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -178,17 +199,17 @@ class Transformer2D(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.norm = FusedGroupNorm(32, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, inner, 1)
+        self.proj_in = Conv2d(channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, context_dim, self_tag, cross_tag)
             for _ in range(depth)])
-        self.proj_out = nn.Conv2d(inner, channels, 1)
+        self.proj_out = Conv2d(inner, channels, 1)
 
     def forward(self, x, context, control=NO_CONTROL, store=None):
         b, _, h, w = x.shape
         t = self.proj_in(self.norm(x))
-        t = t.permute(0, 2, 3, 1).reshape(b, h * w, -1)
+        t = t.permute(0, 2, 3, 1).reshape(b, h * w, -1)  # a view: t is channels-last
         for blk in self.transformer_blocks:
             t = blk(t, context, control, store)
-        t = t.reshape(b, h, w, -1).permute(0, 3, 1, 2).contiguous()
+        t = t.reshape(b, h, w, -1).permute(0, 3, 1, 2)  # channels-last again, a view
         return self.proj_out(t) + x

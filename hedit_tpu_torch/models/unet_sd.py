@@ -1,7 +1,8 @@
 """SD-1.x UNet2DConditionModel (port of ``hedit_tpu/models/unet_sd.py``).
 
 The public ``forward`` takes and returns NHWC latents, like the JAX model;
-inside, activations are contiguous NCHW.  Every attention layer carries the
+inside, activations are NCHW tensors in ``torch.channels_last`` (the NHWC
+input permuted is one already).  Every attention layer carries the
 same static ``LayerTag`` as in the JAX model (``_build_tags``), so a control
 addresses layers identically in both packages.  Parameter names are the
 diffusers ``state_dict`` keys.
@@ -17,8 +18,8 @@ from torch import nn
 
 from hedit_tpu_torch.control.base import NO_CONTROL, LayerTag
 from hedit_tpu_torch.models.blocks import (
-    Downsample2D, ModuleBag, ResnetBlock2D, TimestepEmbedding, Transformer2D, Upsample2D,
-    timestep_embedding,
+    Conv2d, Downsample2D, ModuleBag, ResnetBlock2D, TimestepEmbedding, Transformer2D,
+    Upsample2D, timestep_embedding,
 )
 from hedit_tpu_torch.ops.groupnorm import FusedGroupNorm
 
@@ -99,7 +100,7 @@ class UNet2DCondition(nn.Module):
             return Transformer2D(ch, heads, ch // heads, ctx, self_tag=tag_pair[0],
                                  cross_tag=tag_pair[1])
 
-        self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(b0, temb_dim)
 
         skip_ch = [b0]
@@ -143,7 +144,7 @@ class UNet2DCondition(nn.Module):
             self.up_blocks.append(blk)
 
         self.conv_norm_out = FusedGroupNorm(32, b0, eps=1e-5, act="silu")
-        self.conv_out = nn.Conv2d(b0, cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(b0, cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
                 control=NO_CONTROL,
@@ -160,7 +161,8 @@ class UNet2DCondition(nn.Module):
         temb = self.time_embedding(temb.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
 
-        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous())
+        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last))
         skips = [h]
         for blk in self.down_blocks:
             for li, rn in enumerate(blk.resnets):

@@ -2,7 +2,8 @@
 
 ``encode_mode`` is ``vae.encode(image).latent_dist.mode() * 0.18215`` and
 ``decode`` is ``vae.decode(w / 0.18215)`` (``text-guided/main_p2p.py:159,
-262-266``); both take and return NHWC.  The mid-block attention is one head
+262-266``); both take and return NHWC, and inside carry NCHW tensors in
+``torch.channels_last``.  The mid-block attention is one head
 of d = 512 over 4096 tokens at 512 px, which the CUDA flash kernel takes on
 a GPU.
 """
@@ -12,10 +13,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import torch
 from torch import nn
 
 from hedit_tpu_torch.control.base import LayerTag
-from hedit_tpu_torch.models.blocks import Downsample2D, ModuleBag, ResnetBlock2D, Upsample2D
+from hedit_tpu_torch.models.blocks import (
+    Conv2d, Downsample2D, ModuleBag, ResnetBlock2D, Upsample2D,
+)
 from hedit_tpu_torch.ops.attention import controlled_attention
 from hedit_tpu_torch.ops.groupnorm import FusedGroupNorm
 
@@ -53,12 +57,12 @@ class VAEAttention(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
-        y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)  # a view
         tag = LayerTag(place="vae", is_cross=False, num_pixels=h * w, index=-1)
         out, _ = controlled_attention(self.to_q(y), self.to_k(y), self.to_v(y),
                                       heads=1, layer=tag)
         out = self.to_out[0](out)
-        return out.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous() + x
+        return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + x  # channels-last
 
 
 class MidBlockVAE(nn.Module):
@@ -76,7 +80,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chans, g = cfg.block_out_channels, cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
         cin = chans[0]
         for bi, ch in enumerate(chans):
@@ -90,7 +94,7 @@ class Encoder(nn.Module):
             self.down_blocks.append(blk)
         self.mid_block = MidBlockVAE(chans[-1], g)
         self.conv_norm_out = FusedGroupNorm(g, chans[-1], eps=1e-6, act="silu")
-        self.conv_out = nn.Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_out = Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -106,7 +110,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         rev, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = MidBlockVAE(rev[0], g)
         self.up_blocks = nn.ModuleList()
         cin = rev[0]
@@ -120,7 +124,7 @@ class Decoder(nn.Module):
                 blk.upsamplers = nn.ModuleList([Upsample2D(ch)])
             self.up_blocks.append(blk)
         self.conv_norm_out = FusedGroupNorm(g, rev[-1], eps=1e-6, act="silu")
-        self.conv_out = nn.Conv2d(rev[-1], cfg.in_channels, 3, padding=1)
+        self.conv_out = Conv2d(rev[-1], cfg.in_channels, 3, padding=1)
 
     def forward(self, z):
         h = self.mid_block(self.conv_in(z))
@@ -138,11 +142,13 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        self.quant_conv = Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
+        self.post_quant_conv = Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
 
     def _nchw(self, x):
-        return x.to(self.quant_conv.weight.dtype).permute(0, 3, 1, 2).contiguous()
+        """NHWC -> logical NCHW in channels-last (a view of a contiguous x)."""
+        return x.to(self.quant_conv.weight.dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
 
     def encode_mode(self, x):
         """NHWC images in [-1, 1] -> scaled posterior means, NHWC."""

@@ -130,7 +130,8 @@ def create_sd_pipeline(weights_dir: Optional[str] = None, *, tiny: bool = False,
         for m in towers:
             seeded_init_(m, g)
     for m in towers:
-        m.to(dtype).eval().requires_grad_(False)
+        # channels-last conv weights: the towers carry channels-last activations
+        m.to(dtype, memory_format=torch.channels_last).eval().requires_grad_(False)
     return SDPipeline(unet=unet, vae=vae, text_model=text,
                       schedule=Schedule.create(num_inference_steps),
                       device=device)

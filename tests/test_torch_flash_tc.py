@@ -89,7 +89,8 @@ def test_check_tc_operands_refuses(d, addresses, strides, match):
 def _c_entry_points():
     """{name: [ctypes type of each parameter]} of every ``extern "C"``
     function in ``csrc/*.cu``, read from the source text."""
-    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
     found = {}
     for path in _build.CSRC.glob("*.cu"):
         text = path.read_text()

@@ -150,27 +150,58 @@ def test_groupnorm_module_on_cpu_takes_plain_version():
         rtol=0, atol=0)
     assert gn_mod.launches == before
     with pytest.raises(ValueError):
-        gn_mod.group_norm_triton(x, m.weight, m.bias, groups=32)
+        gn_mod.group_norm_cuda(x.contiguous(memory_format=torch.channels_last), m.weight, m.bias,
+                               groups=32)
+
+
+# every GroupNorm shape of the paths' table (PERF.md section 6, row 2); the
+# last two take the streamed regime
+GN_PATH_SHAPES = [(8, 320, 64, 64), (2, 320, 64, 64), (8, 960, 64, 64), (8, 640, 64, 64),
+                  (8, 1920, 32, 32), (8, 1280, 8, 8), (8, 2560, 8, 8), (2, 512, 64, 64),
+                  (2, 128, 512, 512), (2, 256, 256, 256)]
+
+
+def _gn_inputs(device, shape, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    w = torch.randn(shape[1], generator=g, device=device).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=device).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last), w, b
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 320, 64, 64), (4, 640, 32, 32), (4, 1280, 8, 8)])
+@pytest.mark.parametrize("shape", GN_PATH_SHAPES)
 def test_groupnorm_kernel_matches_plain_on_card(cuda, dtype, shape):
-    """Triton kernel against the plain version on the card: float32 1e-4
-    absolute (summation order); bfloat16 one output ulp, 2^-7 * max|y|, since
-    both normalise in float32 and round once."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
-    w = torch.randn(shape[1], generator=g, device=cuda).to(dtype)
-    b = torch.randn(shape[1], generator=g, device=cuda).to(dtype)
+    """The CUDA kernel against the plain version on the card, channels-last:
+    float32 1e-4 absolute (summation order); bfloat16 one output ulp,
+    2^-7 * max|y|, since both normalise in float32 and round once.  Two
+    launches give the same bits, and y is channels-last."""
+    x, w, b = _gn_inputs(cuda, shape, dtype)
     before = gn_mod.launches
     got = gn_mod.group_norm(x, w, b, groups=32, eps=1e-5, act="silu")
+    again = gn_mod.group_norm(x, w, b, groups=32, eps=1e-5, act="silu")
     torch.cuda.synchronize()
-    assert gn_mod.launches == before + 1
+    assert gn_mod.launches == before + 2
+    assert torch.equal(got, again) and got.is_contiguous(memory_format=torch.channels_last)
     want = gn_mod.group_norm_reference(x, w, b, groups=32, eps=1e-5, act="silu").float()
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * want.abs().max().item()
     torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+def test_groupnorm_kernel_refuses_what_it_does_not_take(cuda):
+    """NCHW-contiguous x, float16, C % G != 0, a misaligned view: ValueError,
+    nothing launched, no copy into the layout."""
+    x, w, b = _gn_inputs(cuda, (2, 64, 8, 8), torch.float32)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    before = gn_mod.launches
+    for args, groups in (((x.contiguous(), w, b), 32), ((x.half(), w.half(), b.half()), 32),
+                         ((x, w, b), 48),
+                         ((flat[1:].view(2, 8, 8, 64).permute(0, 3, 1, 2), w, b), 32)):
+        with pytest.raises(ValueError):
+            gn_mod.group_norm_cuda(*args, groups=groups)
+    assert gn_mod.launches == before
 
 
 def test_flash_diff_on_cpu_takes_plain_versions():
@@ -307,20 +338,18 @@ def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
 @pytest.mark.parametrize("shape,act", [((1, 320, 64, 64), "silu"), ((2, 1280, 8, 8), "silu"),
                                        ((1, 640, 32, 32), None)])
 def test_groupnorm_gradient_matches_autograd_of_plain_on_card(cuda, dtype, shape, act):
-    """The autograd wrapper around the Triton kernel (forward the kernel,
-    backward plain tensor code from the saved input) against
-    ``torch.autograd`` of ``group_norm_reference`` in float32 on the same
-    input values: dx, dweight, dbias within 1e-4 (float32) or one bf16 ulp
-    (2^-8, bfloat16) of each gradient's largest value."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype).requires_grad_()
-    w = torch.randn(shape[1], generator=g, device=cuda).to(dtype).requires_grad_()
-    b = torch.randn(shape[1], generator=g, device=cuda).to(dtype).requires_grad_()
-    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    """The autograd wrapper around the CUDA kernel (forward the kernel,
+    backward plain tensor code from the saved input), channels-last,
+    against ``torch.autograd`` of ``group_norm_reference`` in float32 on the
+    same input values: dx, dweight, dbias within 1e-4 (float32) or one bf16
+    ulp (2^-8, bfloat16) of each gradient's largest value; dx channels-last."""
+    x, w, b = (t.requires_grad_() for t in _gn_inputs(cuda, shape, dtype))
+    dy = _gn_inputs(cuda, shape, dtype, seed=1)[0]
     before = gn_mod.launches
     got = torch.autograd.grad(gn_mod.group_norm(x, w, b, groups=32, eps=1e-5, act=act),
                               (x, w, b), dy)
     assert gn_mod.launches == before + 1
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
     xf, wf, bf = (t.detach().float().requires_grad_() for t in (x, w, b))
     want = torch.autograd.grad(
         gn_mod.group_norm_reference(xf, wf, bf, groups=32, eps=1e-5, act=act), (xf, wf, bf),

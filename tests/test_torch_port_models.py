@@ -85,14 +85,18 @@ def jax_tiny():
 
 
 def _port(model, state):
+    """The port's tower with ``state``, its conv weights channels-last as
+    ``create_sd_pipeline`` lays them out."""
     model.load_state_dict(state, strict=True)
-    return model.eval()
+    return model.to(memory_format=torch.channels_last).eval()
 
 
-def _require_contiguous_groupnorm_inputs(model):
-    """The Triton GroupNorm takes contiguous NCHW only: check every call site."""
+def _require_channels_last_groupnorm_inputs(model):
+    """The GroupNorm kernel takes channels-last inputs only: check every
+    call site."""
     def hook(_, args):
-        assert args[0].is_contiguous(), "GroupNorm input is not contiguous NCHW"
+        assert args[0].is_contiguous(memory_format=torch.channels_last), \
+            "GroupNorm input is not channels-last"
     return [m.register_forward_pre_hook(hook) for m in model.modules()
             if isinstance(m, FusedGroupNorm)]
 
@@ -158,7 +162,7 @@ def test_unet_tiny_parity(jax_tiny):
     junet, params = jax_tiny["unet"]
     model = _port(UNet2DCondition(UNetConfig.tiny()),
                   unet_state_dict(params, UNet2DCondition(UNetConfig.tiny())))
-    hooks = _require_contiguous_groupnorm_inputs(model)
+    hooks = _require_channels_last_groupnorm_inputs(model)
     rng = np.random.RandomState(21)
     x = rng.randn(2, 16, 16, 4).astype(np.float32)
     t = np.array([3, 7], np.int64)
@@ -176,7 +180,7 @@ def test_vae_tiny_parity(jax_tiny):
     jvae, params = jax_tiny["vae"]
     model = _port(AutoencoderKL(VAEConfig.tiny()),
                   vae_state_dict(params, AutoencoderKL(VAEConfig.tiny())))
-    hooks = _require_contiguous_groupnorm_inputs(model)
+    hooks = _require_channels_last_groupnorm_inputs(model)
     rng = np.random.RandomState(23)
     x = (rng.rand(1, 32, 32, 3) * 2 - 1).astype(np.float32)
     z = (rng.rand(1, 4, 4, 4) * 2 - 1).astype(np.float32)

@@ -122,19 +122,25 @@ def test_flash_plain_matches_jax(sq, sk, d):
 
 # ----------------------------------------------------------------- groupnorm #
 
-@pytest.mark.parametrize("c", [128, 320])
+@pytest.mark.parametrize("c,layout", [(128, "nchw"), (320, "nchw"), (128, "channels_last")],
+                         ids=["128", "320", "128-channels_last"])
 @pytest.mark.parametrize("act", [None, "silu"])
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
-def test_groupnorm_plain_matches_jax(c, act, eps):
-    """The plain two-pass version (NCHW) against ``group_norm_reference``
-    (NHWC), and at C=128 the Pallas kernel in interpret mode; float32, with
-    the JAX package's own kernel-vs-oracle tolerance (rtol 2e-4, atol 2e-5)."""
+def test_groupnorm_plain_matches_jax(c, layout, act, eps):
+    """The plain two-pass version (NCHW-contiguous, or channels-last as the
+    models carry it) against ``group_norm_reference`` (NHWC), and at C=128
+    the Pallas kernel in interpret mode; float32, with the JAX package's own
+    kernel-vs-oracle tolerance (rtol 2e-4, atol 2e-5)."""
     rng = np.random.RandomState(c)
     x = (rng.randn(2, 8, 8, c) * 3 + 1).astype(np.float32)
     scale, bias = rng.randn(c).astype(np.float32), rng.randn(c).astype(np.float32)
-    got = _np(gn_mod.group_norm_reference(
-        torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), torch.from_numpy(scale),
-        torch.from_numpy(bias), groups=32, eps=eps, act=act)).transpose(0, 2, 3, 1)
+    tx = torch.from_numpy(x).permute(0, 3, 1, 2)  # a channels-last view
+    tx = tx.contiguous() if layout == "nchw" else tx
+    y = gn_mod.group_norm_reference(tx, torch.from_numpy(scale), torch.from_numpy(bias),
+                                    groups=32, eps=eps, act=act)
+    assert y.is_contiguous(memory_format=(torch.contiguous_format if layout == "nchw"
+                                          else torch.channels_last))
+    got = _np(y.permute(0, 2, 3, 1))
     jargs = (jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
     want = np.asarray(j_group_norm_reference(*jargs, groups=32, eps=eps, act=act))
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
