@@ -23,8 +23,14 @@ the final result line:
    saturating input shows the two forms apart, also laid out packed through
    ``fused_attention_packed``.  For the packed-head forwards also the time of
    the head-split route (three head-split copies, kernel 1, the merge).  The
-   backward at the VAE's head dim [1, 1, 4096, 512], also through
-   ``fused_attention`` under a gradient.  Then GroupNorm + SiLU
+   LSE forward and the backward at the NMG gradient call's shapes and a
+   ragged one: bf16 dq and dk / dv on the tensor cores
+   (``csrc/flash_attention_bwd_tc.cu``), timed beside the CUDA-core template
+   (``csrc/flash_attention_bwd.cu``) on the same inputs, float32 on the
+   template; the backward at the VAE's head dim [1, 1, 4096, 512] (the
+   template in either dtype), also through ``fused_attention`` under a
+   gradient; the backward wrappers' refusals (a misaligned pointer,
+   float16).  Then GroupNorm + SiLU
    (``csrc/group_norm.cu``) on channels-last inputs at every GroupNorm shape
    of the paths' table (``GN_SHAPES``), bf16 and float32, eps 1e-5 and
    1e-6, with its regime and cluster, two launches bit-identical, a float32
@@ -52,7 +58,9 @@ the final result line:
    encode -> VAE encode -> 50-step DDIM inversion -> 50 NMG + P2P steps, each
    differentiating through the UNet, with a non-neutral control and an active
    LocalBlend -> VAE decode; checks a finite [1, 512, 512, 3] output and that
-   each of its kernels was launched; prints the time split and peak memory;
+   each of its kernels was launched (the tensor-core backward 500 times each,
+   the CUDA-core template's backward never); prints the time split and peak
+   memory;
 7. the h-Edit-D path, as ``main_p2p --mode h_edit_D_p2p --eta 0 --implicit
    --optimization_steps 2`` runs it: one image, 50-step DDIM inversion, then
    50 steps of the general h-Edit + P2P loop (one base call and two controlled
@@ -80,7 +88,8 @@ the final result line:
     with the kernels against the same gradient with the plain versions
     substituted here;
 13. the NMG loop in float32 under a neutral control: its edit branch equals
-    plain DDIM sampling computed here;
+    plain DDIM sampling computed here; its launches counted (the LSE forward
+    and the CUDA-core template's backward, 500 each);
 14. in float32: the EF pair loop without a stored trajectory on the DDPM
     inversion's residuals reconstructs the source latent; explicit h-Edit-D
     with target = source, cfg_tar == cfg_src_edit and a neutral control
@@ -90,15 +99,18 @@ the final result line:
 16. a JSON line of the kernels (each with its launches on its path: rows 1
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
     flagship path, the CUDA-core bounded template on the float32 golden path,
-    3-5 on the NMG path, 6 and 7 on their own, 8-12 on their probes' entry
-    points), then the result line ``{"ok": true, "device": {...}}``.
+    3-5 on the NMG path (4 and 5 the tensor-core backward; the CUDA-core
+    template's on the float32 NMG loop), 6 and 7 on their own, 8-12 on their
+    probes' entry points), then the result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
 
 ``--profile`` runs phases 1 and 2, then times flagship steps of the main
-path (the same SD-1.5 bf16 inputs, 2 images) on the host clock and under
-``torch.profiler``, and prints the device time by kernel class, the top
-kernels and the device's idle share, all read from one trace.
+path (the same SD-1.5 bf16 inputs, 2 images), then NMG + P2P steps (1
+image: the gradient call and the controlled call), each on the host clock
+and under ``torch.profiler``, and prints the device time by kernel class,
+the top kernels and the device's idle share, each path read from one
+trace.
 """
 
 from __future__ import annotations
@@ -150,14 +162,13 @@ SOT, EOT = 49406, 49407  # CLIP's start- and end-of-text ids
 # kernels, whose outputs of these inputs reach 0.03-0.15 (flash) and ~5
 # (GroupNorm), and relative to the largest value of each output for the LSE
 # forward and the gradients (dq, dk reach ~1e-2, dv ~0.3, lse2 ~10).
-# bfloat16 flash, forward and backward: the kernels compute in float32 from
-# the bf16 inputs and round once, so each output is held to the plain version
-# run in float32 on the same input values, within one bf16 ulp at its largest
-# value, 2^-8 * max (the rounding is half an ulp; the backward also reads the
-# forward's bf16-rounded output through delta).  The bounded forwards round
-# q * scale and p to bf16 as the TPU kernel does: the plain version takes
-# those roundings in bf16 and leaves out only the final one of its output
-# (``out_dtype=float32``).  The tensor-core kernel sums its products in
+# bfloat16 flash, forward and backward: the kernels round to bf16 where the
+# TPU kernels do (the bounded forwards q * scale and p; the backward qs, ks,
+# ds and p for dv), and so do the plain versions, which leave out only the
+# final rounding of their outputs (``out_dtype=float32``); each output is
+# held to that within 2^-8 of its largest value.  (The LSE forward and the
+# exact forward, CUDA-core kernels, are held to their plain versions
+# rounded, or run in float32 on the same input values.)  The tensor-core kernel sums its products in
 # another order than cuBLAS does for the plain version, so the two float32
 # outputs differ in their last bits and, rounded to bf16, by one ulp of an
 # element where it lies near a rounding boundary; on the saturating input
@@ -228,8 +239,10 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "groupnorm_streamed": (gn, "launches_streamed"),
             "flash_attention_core": (flash, "launches"),
             "flash_attention_lse": (flash, "launches_lse"),
-            "flash_bwd_dq": (flash, "launches_bwd_dq"),
-            "flash_bwd_dkv": (flash, "launches_bwd_dkv"),
+            "flash_bwd_dq": (flash, "launches_bwd_dq_tc"),
+            "flash_bwd_dkv": (flash, "launches_bwd_dkv_tc"),
+            "flash_bwd_dq_core": (flash, "launches_bwd_dq"),
+            "flash_bwd_dkv_core": (flash, "launches_bwd_dkv"),
             "flash_packed": (flash, "launches_packed"),
             "flash_attention_exact": (flash, "launches_exact"),
             "flash_packed_bounded": (flash, "launches_packed_bounded_tc"),
@@ -599,16 +612,44 @@ def _tc_refusals(g, failures):
             failures.append(f"tensor-core wrapper took {label}")
 
 
+BWD_NAMES = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_core",
+             "flash_bwd_dkv_core")
+
+
+def _bwd_template_ms(part, q, k, v, do, lse2, delta):
+    """CUDA-event ms of the CUDA-core template's backward entry ``part`` (0
+    dq, 1 dk / dv) on inputs that the wrappers send to the tensor cores: the
+    template's time beside the tensor-core kernel's (``core_ms``).  Launched
+    by its entry point directly, as no path launches it so."""
+    bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+    outs = (torch.empty_like(q),) if part == 0 else (torch.empty_like(k), torch.empty_like(v))
+    entry = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")[part]
+    return cuda_ms(lambda: flash._launch(entry, q, (q, k, v, do, lse2, delta, *outs),
+                                         (bh, sq, sk, d)))
+
+
 def _flash_gradient_cases(g, rows, failures):
     """Kernels 3-5: the bounded LSE forward (out, lse2) against its plain
     version in the inputs' dtype, and dq, dk / dv through
-    ``flash_attention_diff`` and autograd against the plain backward in
-    float32 on the same input values, fed that forward's out and lse2."""
-    cases = [((1, 8, 4096, 40), 4096, torch.bfloat16),   # the NMG gradient call, 1 image
-             ((1, 8, 1024, 80), 1024, torch.bfloat16),
+    ``flash_attention_diff`` and autograd against the plain backward on the
+    same inputs, fed that forward's out and lse2, before its final rounding
+    (``out_dtype=float32``).  bf16 at the UNet's head dims runs the
+    tensor-core backward (``flash_bwd_dq`` / ``flash_bwd_dkv``), timed beside
+    the CUDA-core template on the same inputs (``core_ms``); float32 and the
+    VAE's d = 512 run the template (``flash_bwd_dq_core`` /
+    ``flash_bwd_dkv_core``).  bf16 tolerance: both sides round qs, ks, ds
+    and p (for dv) to bf16 as the TPU kernels do; the kernels sum in another
+    order, so a ds (or p) value may round to the other bf16 neighbour, and
+    one such flip moves an output by at most 2^-7 |ds| |k| (or |q|), a small
+    part of a sum over hundreds of terms; with half an ulp of the kernel's
+    own rounding, each output is held within 2^-8 of its largest value.
+    Then the tensor-core backward's refusals."""
+    cases = [((1, 8, 4096, 40), 4096, torch.bfloat16),   # the NMG gradient call, 64^2 level
+             ((1, 8, 1024, 80), 1024, torch.bfloat16),   # its 32^2 level
+             ((1, 8, 1000, 80), 1064, torch.bfloat16),   # ragged, Sq != Sk
              ((1, 8, 4096, 40), 4096, torch.float32),
              ((1, 8, 1024, 80), 1024, torch.float32),
-             ((1, 8, 1000, 80), 1064, torch.float32),    # ragged, Sq != Sk
+             ((1, 8, 1000, 80), 1064, torch.float32),
              ((1, 1, 4096, 512), 4096, torch.bfloat16),  # the VAE mid block (style reward)
              ((1, 1, 4096, 512), 4096, torch.float32)]
     for qshape, sk, dtype in cases:
@@ -617,18 +658,26 @@ def _flash_gradient_cases(g, rows, failures):
         label = f"q{list(qshape)} sk={sk} {str(dtype)[6:]}"
         bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
         es = q.element_size()
+        tc = flash.bwd_entry(dtype, d)[0].endswith("_tc")
         rel = F32_TOL if dtype == torch.float32 else BF16_ULP
         finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
 
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = read_launches()
         dq, dk, dv = torch.autograd.grad(flash.flash_attention_diff(*leaves), leaves, do)
+        torch.cuda.synchronize()
+        moved = {n: read_launches()[n] - before[n] for n in BWD_NAMES}
+        routed = {"flash_attention_lse": 1, "flash_bwd_dq": int(tc), "flash_bwd_dkv": int(tc),
+                  "flash_bwd_dq_core": int(not tc), "flash_bwd_dkv_core": int(not tc)}
+        if moved != routed:
+            failures.append(f"flash_attention_diff {label} launched {moved}, expected {routed}")
         # the bounded plain forward in the inputs' dtype rounds at the kernel's
-        # steps; the backward's plain version in float32 reads its out and lse2
+        # steps; the plain backward reads the kernel forward's out and lse2
         want_out, want_lse = flash.flash_attention_lse_reference(q, k, v)
         want_out = want_out.float()
         want_dq, want_dk, want_dv = flash.flash_attention_backward_reference(
-            q.float(), k.float(), v.float(), want_out, want_lse, do.float())
+            q, k, v, out, lse2, do, out_dtype=torch.float32)
         torch.cuda.synchronize()
 
         def gap(got, want):  # (largest error, tolerance) of one output
@@ -662,45 +711,80 @@ def _flash_gradient_cases(g, rows, failures):
         together = "plain_ms and library_ms are of dq, dk and dv together"
         plain_bwd = cuda_ms(lambda: flash.flash_attention_backward_reference(q, k, v, out, lse2, do))
         in_bytes = es * bh * d * 2 * (sq + sk) + 8 * bh * sq  # q, dO, k, v; lse2, delta
+        suffix, form = ("", "tensor cores") if tc else ("_core", "CUDA cores")
         err, tol = gap(dq, want_dq)
         bound_ms, by = bound(in_bytes + es * bh * sq * d, (6 * bh * sq * sk * d, dtype))
-        _row(rows, failures, "flash_bwd_dq", f"flash dq {label}", err <= tol and finite(dq),
-             max_abs_err=err, tol=tol,
+        core = {"core_ms": _bwd_template_ms(0, q, k, v, do, lse2, delta)} if tc else {}
+        _row(rows, failures, "flash_bwd_dq" + suffix, f"flash dq ({form}) {label}",
+             err <= tol and finite(dq), max_abs_err=err, tol=tol,
              ms=cuda_ms(lambda: flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)),
              plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-             plain_covers=together)
+             plain_covers=together, **core)
         (err_k, tol_k), (err_v, tol_v) = gap(dk, want_dk), gap(dv, want_dv)
         print(f"flash dk/dv {label}: dk max_abs_err {err_k:.3e} (tol {tol_k:.3g}), "
               f"dv {err_v:.3e} (tol {tol_v:.3g})")
         bound_ms, by = bound(in_bytes + es * bh * 2 * sk * d, (8 * bh * sq * sk * d, dtype))
         worst = max((err_k, tol_k), (err_v, tol_v), key=lambda et: et[0] / et[1])
-        _row(rows, failures, "flash_bwd_dkv", f"flash dk/dv {label}",
+        core = {"core_ms": _bwd_template_ms(1, q, k, v, do, lse2, delta)} if tc else {}
+        _row(rows, failures, "flash_bwd_dkv" + suffix, f"flash dk/dv ({form}) {label}",
              err_k <= tol_k and err_v <= tol_v and finite(dk, dv), max_abs_err=worst[0],
              tol=worst[1], ms=cuda_ms(lambda: flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)),
              plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-             plain_covers=together)
+             plain_covers=together, **core)
 
         # dq and dk / dv share one plain version and one library call, so the
         # two are read together: both kernels against each
         both = rows[-2]["ms"] + rows[-1]["ms"]
-        print(f"flash backward {label}: dq + dk/dv kernels {both:.3f} ms, plain version "
-              f"{plain_bwd:.3f} ms, library {lib_bwd:.3f} ms")
+        print(f"flash backward {label}: dq + dk/dv kernels ({form}) {both:.3f} ms"
+              + (f" (the CUDA-core template on the same inputs "
+                 f"{rows[-2]['core_ms'] + rows[-1]['core_ms']:.3f} ms)" if tc else "")
+              + f", plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms")
 
         if qshape[3] == 512:
             # the style reward's route: fused_attention under a recorded gradient
-            before = (flash.launches_lse, flash.launches_bwd_dq, flash.launches_bwd_dkv)
+            before = read_launches()
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             got = torch.autograd.grad(attn.fused_attention(*leaves), leaves, do)
             torch.cuda.synchronize()
-            moved = tuple(a - b for a, b in zip(
-                (flash.launches_lse, flash.launches_bwd_dq, flash.launches_bwd_dkv), before))
+            moved = {n: read_launches()[n] - before[n] for n in BWD_NAMES}
             gaps = [gap(a, w) for a, w in zip(got, (want_dq, want_dk, want_dv))]
-            ok = moved == (1, 1, 1) and all(e <= t for e, t in gaps) and finite(*got)
+            ok = moved == routed and all(e <= t for e, t in gaps) and finite(*got)
             print(f"flash fused_attention gradient {label}: dq / dk / dv max_abs_err "
                   f"{' / '.join(f'{e:.3e} (tol {t:.3g})' for e, t in gaps)}, launches "
-                  f"LSE / dq / dk-dv {moved} {'OK' if ok else 'FAIL'}")
+                  f"{moved} {'OK' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"fused_attention gradient {label}")
+    _bwd_refusals(g, failures)
+
+
+def _bwd_refusals(g, failures):
+    """The backward wrappers raise, and launch nothing, on a bf16 operand
+    that is not 16-byte aligned (the tensor-core kernels copy 16 bytes at a
+    time) and on float16; they never hand such an input to the CUDA-core
+    template."""
+    buf = torch.randn(2 * 1024 * 40 + 16, generator=g, device="cuda").to(torch.bfloat16)
+    misaligned = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)   # 2 bytes off
+    aligned = buf[8:8 + 1024 * 40].view(1, 1, 1024, 40)      # 16 bytes on
+    lse2 = torch.zeros(1, 1, 1024, device="cuda")
+    delta = torch.zeros(1, 1024, device="cuda")
+    half = aligned.half()
+    cases = (("misaligned q", (misaligned, aligned, aligned, aligned)),
+             ("misaligned dO", (aligned, aligned, aligned, misaligned)),
+             ("float16", (half, half, half, half)))
+    for label, (q, k, v, do) in cases:
+        for wrapper in (flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda):
+            before = read_launches()
+            try:
+                wrapper(q, k, v, do, lse2, delta)
+                refused = False
+            except ValueError as e:
+                refused, why = True, str(e)
+            torch.cuda.synchronize()
+            ok = refused and read_launches() == before
+            print(f"backward refusal, {label}, {wrapper.__name__}: "
+                  f"{'refused: ' + why if refused else 'TAKEN'}; {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{wrapper.__name__} took {label}")
 
 
 # Every GroupNorm shape of the paths' table (PERF.md section 6, row 2): the
@@ -1277,10 +1361,11 @@ def phase_nmg_path(pipe, images, ids):
           f"{(recon - x0).abs().max().item():.3e}")
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         failures.append("NMG path output is not finite [1, 512, 512, 3]")
-    if (counts["flash_attention_lse"], counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) != (
-            10 * STEPS,) * 3:
+    # the gradient call's 10 self-attentions a step: the LSE forward and the
+    # tensor-core backward, never the CUDA-core template's backward
+    if tuple(counts[n] for n in BWD_NAMES) != (10 * STEPS,) * 3 + (0, 0):
         failures.append(f"the NMG path's gradient kernels were not launched once for each of "
-                        f"10 layers a step: {counts}")
+                        f"10 layers a step, on the tensor cores: {counts}")
     # the inversion's 50 one-row calls and the controlled call of each step
     check_forward_routing(counts, "NMG", failures, packed=10 * (STEPS + STEPS))
 
@@ -1533,8 +1618,9 @@ def phase_unet_gradient(pipe):
     substituted = read_launches() == counts
     rel = ((grad_k - grad_p).abs().max() / grad_p.abs().max()).item()
     rel_eps = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
-    launched = all(counts[k] > 0 for k in ("groupnorm", "flash_attention_lse", "flash_bwd_dq",
-                                           "flash_bwd_dkv"))
+    launched = (all(counts[k] > 0 for k in ("groupnorm", "flash_attention_lse",
+                                            "flash_bwd_dq_core", "flash_bwd_dkv_core"))
+                and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0)
     ok = (rel <= UNET_GRAD_TOL and substituted and launched
           and bool(torch.isfinite(grad_k).all()))
     print(f"UNet gradient (f32, TF32 off, t={t}): max|dx kernels - dx plain| / max|dx plain| "
@@ -1556,6 +1642,7 @@ def phase_nmg_identity(pipe):
     xts = torch.randn(1, STEPS + 1, 64, 64, 4, generator=g, device="cuda")
     ids = torch.from_numpy(_token_ids(np.random.RandomState(17), 1))
     ctx3 = pipe.encode_token_ids(ids[0, [0, 1, 1]]).reshape(1, 3, MAX_LEN, -1)
+    reset_launches()
     t0 = time.perf_counter()
     edited, _ = nmg_p2p(pipe.unet, schedule, xts=xts, ctx3=ctx3, cfg_tar=7.5,
                         control=neutral_control(STEPS, 256, cond_start=2).to("cuda"),
@@ -1563,6 +1650,7 @@ def phase_nmg_identity(pipe):
                         after_skip_steps=STEPS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    counts = read_launches()
     x = xts[:, STEPS]
     with torch.no_grad():
         for t in schedule.timesteps.tolist():
@@ -1575,7 +1663,12 @@ def phase_nmg_identity(pipe):
     print(f"NMG identity (f32, TF32 off, {STEPS} steps, loop {t1 - t0:.1f} s): max|x_edit - "
           f"DDIM sampling| / max|x| {err:.3e} (tol {NMG_EDIT_TOL:g}; max|x| {scale:.3e}) "
           f"{'OK' if ok else 'FAIL'}")
-    return [] if ok else [f"NMG identity error {err:.3e}"]
+    # float32: the LSE forward and the CUDA-core backward, 10 layers a step
+    bwd = {n: counts[n] for n in BWD_NAMES}
+    print(f"NMG identity launches: {bwd}")
+    if tuple(bwd.values()) != (10 * STEPS, 0, 0, 10 * STEPS, 10 * STEPS):
+        ok = False
+    return counts, [] if ok else [f"NMG identity error {err:.3e}, launches {bwd}"]
 
 
 def phase_reconstructions(pipe):
@@ -1661,9 +1754,12 @@ def phase_masactrl_identity(pipe):
     return [] if ok else [f"MasaCtrl identity error {err:.3e}"]
 
 
-# Device-time classes of a flagship step, by kernel name (first match wins).
+# Device-time classes of a step, by kernel name (first match wins).  On the
+# bf16 paths the CUDA-core forward template runs only as row 3's LSE forward.
 KERNEL_CLASSES = (("flash kernel (tensor cores)", r"flash_fwd_tc_kernel"),
-                  ("flash kernel (CUDA cores)", r"flash_fwd_kernel"),
+                  ("flash backward (tensor cores)", r"flash_bwd_(dq|dkv)_tc_kernel"),
+                  ("flash backward (CUDA cores)", r"flash_bwd_(dq|dkv)_kernel"),
+                  ("flash LSE forward (CUDA cores)", r"flash_fwd_kernel"),
                   ("GroupNorm kernel", r"gn_slice_kernel|gn_apply_kernel"),
                   ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
                   ("convolutions", r"fprop|conv|dgrad"),
@@ -1680,29 +1776,13 @@ def _union_us(intervals):
     return busy
 
 
-def phase_profile(steps, trace_path):
-    """Where a flagship step's time goes, at the main path's inputs: edit
-    steps 0 to ``steps`` - 1 (the P2P edits follow the step; the UNet's work
-    does not depend on the timestep, so the last ``steps`` timesteps of the
-    50-step grid serve), after a warm-up run: host wall a step without the
-    profiler, then one
-    torch.profiler trace of the same run, read for device time by kernel
-    class, the top kernels, and the device's idle share (1 - union of the
-    device's kernel, copy and set intervals / the traced span, which ends
-    with a torch.cuda.synchronize())."""
+def _profile_steps(label, run, steps, images, trace_path):
+    """Where a step's time goes: ``run`` (``steps`` steps, ending in a
+    synchronise) once as a warm-up, three times on the host clock without the
+    profiler, then once under one torch.profiler trace, read for device time
+    by kernel class, the top kernels, and the device's idle share (1 - union
+    of the device's kernel, copy and set intervals / the traced span)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    pipe, images, ids, control, blend = _main_path_inputs()
-    ctx4 = pipe.encode_token_ids(ids.reshape(-1, MAX_LEN)).reshape(N_IMAGES, 4, MAX_LEN, -1)
-    x0s = pipe.vae_encode(images)
-    xts = torch.stack([sample_xts_from_x0(pipe.schedule, x[None],
-                                          torch.Generator(device="cuda").manual_seed(i))
-                       for i, x in enumerate(x0s)])[:, :steps + 1]
-
-    def run():
-        h_edit_p2p_flagship(pipe.unet, pipe.schedule, HEditConfig(), xts=xts, ctx4=ctx4,
-                            control=control, local_blend=blend, after_skip_steps=steps)
-        torch.cuda.synchronize()
 
     run()
     walls = []
@@ -1711,7 +1791,7 @@ def phase_profile(steps, trace_path):
         run()
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("flagship_steps"):
+        with record_function(label):
             run()
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
@@ -1719,10 +1799,10 @@ def phase_profile(steps, trace_path):
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
         raise RuntimeError("the trace holds no device activity")
-    span = next((e for e in events if e.get("name") == "flagship_steps"
+    span = next((e for e in events if e.get("name") == label
                  and e.get("cat") == "user_annotation"), None)
     if span is None:
-        print("profile: no host span in the trace; the window is the device's own extent")
+        print(f"profile {label}: no host span in the trace; the window is the device's own extent")
         lo, hi = min(e["ts"] for e in dev), max(e["ts"] + e["dur"] for e in dev)
     else:
         lo, hi = span["ts"], span["ts"] + span["dur"]
@@ -1735,22 +1815,61 @@ def phase_profile(steps, trace_path):
         by_class[cls] = by_class.get(cls, 0.0) + e["dur"]
         by_name[name] = by_name.get(name, 0.0) + e["dur"]
     total = sum(by_class.values())
-    print(f"profile: {N_IMAGES} images, {steps} steps; host wall without the profiler "
+    print(f"profile {label}: {images} images, {steps} steps; host wall without the profiler "
           f"{', '.join(f'{w:.2f}' for w in walls)} ms a step; traced span "
           f"{(hi - lo) / 1e3 / steps:.2f} ms a step, device busy {busy / 1e3 / steps:.2f} ms "
           f"a step, idle share {1 - busy / (hi - lo):.4f}; {len(dev)} device events")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"profile class {cls}: {us / 1e3 / steps:.3f} ms a step, "
+        print(f"profile {label} class {cls}: {us / 1e3 / steps:.3f} ms a step, "
               f"{100 * us / total:.2f}% of device time")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"profile kernel {us / 1e3 / steps:8.3f} ms a step  {name[:150]}")
-    print(f"profile trace: {trace_path}")
+        print(f"profile {label} kernel {us / 1e3 / steps:8.3f} ms a step  {name[:150]}")
+    print(f"profile {label} trace: {trace_path}")
+
+
+def phase_profile(steps, trace_path):
+    """Where a step's time goes on two paths, at the main paths' inputs.
+    The flagship: edit steps 0 to ``steps`` - 1 of N_IMAGES images (the P2P
+    edits follow the step; the UNet's work does not depend on the timestep,
+    so the last ``steps`` timesteps of the 50-step grid serve).  NMG + P2P:
+    ``steps`` steps of one image, each the gradient call (one 1-row UNet
+    forward and backward through the LSE forward and the backward kernels)
+    and the 4-row controlled call, from a seeded trajectory (the work does
+    not depend on its values).  Each after a warm-up run (``_profile_steps``);
+    the NMG trace is written beside ``trace_path``."""
+    pipe, images, ids, control, blend = _main_path_inputs()
+    ctx4 = pipe.encode_token_ids(ids.reshape(-1, MAX_LEN)).reshape(N_IMAGES, 4, MAX_LEN, -1)
+    x0s = pipe.vae_encode(images)
+    xts = torch.stack([sample_xts_from_x0(pipe.schedule, x[None],
+                                          torch.Generator(device="cuda").manual_seed(i))
+                       for i, x in enumerate(x0s)])[:, :steps + 1]
+
+    def flagship():
+        h_edit_p2p_flagship(pipe.unet, pipe.schedule, HEditConfig(), xts=xts, ctx4=ctx4,
+                            control=control, local_blend=blend, after_skip_steps=steps)
+        torch.cuda.synchronize()
+
+    _profile_steps("flagship_steps", flagship, steps, N_IMAGES, trace_path)
+
+    ddim = Schedule.create(STEPS, steps_offset=0)
+    ctx3 = ctx4[:1, [0, 1, 3]]  # uncond, src, tar, as the NMG path
+    one_control, one_blend = (state.to("cuda") for state in _edit_control(STEPS, 8, 0))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    nmg_xts = torch.randn(1, steps + 1, 64, 64, 4, generator=g, device="cuda")
+
+    def nmg():
+        nmg_p2p(pipe.unet, ddim, xts=nmg_xts, ctx3=ctx3, cfg_tar=7.5, control=one_control,
+                local_blend=one_blend, after_skip_steps=steps)
+        torch.cuda.synchronize()
+
+    root, ext = os.path.splitext(trace_path)
+    _profile_steps("nmg_steps", nmg, steps, 1, f"{root}_nmg{ext}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile flagship steps instead of running the smoke")
+                    help="profile flagship and NMG steps instead of running the smoke")
     ap.add_argument("--trace", default=os.path.join(_build.BUILD_DIR, "flagship_trace.json"),
                     help="where --profile writes its chrome trace")
     args = ap.parse_args(argv)
@@ -1789,12 +1908,13 @@ def main(argv=None) -> int:
     golden_counts, bad = phase_golden(pipe)
     failures += bad
     failures += phase_unet_gradient(pipe)
-    failures += phase_nmg_identity(pipe)
+    nmg_f32_counts, bad = phase_nmg_identity(pipe)
+    failures += bad
     failures += phase_reconstructions(pipe)
     failures += phase_masactrl_identity(pipe)
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
              "ef": ef_counts, "masactrl": masactrl_counts, "exact_forward": exact_counts,
-             "golden_f32": golden_counts,
+             "golden_f32": golden_counts, "nmg_f32": nmg_f32_counts,
              **probe_counts}
 
     def entry(name, route, source, replaces, path):
@@ -1805,6 +1925,7 @@ def main(argv=None) -> int:
         if paths[path][name] <= 0:
             failures.append(f"{name} was not launched on the {path} path")
         return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "cores": "tensor (mma.sync, bf16)" if source in (tc_cu, bwd_tc_cu) else "CUDA",
                 "launches": paths[path][name], "path": path,
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -1816,7 +1937,9 @@ def main(argv=None) -> int:
                                            "eager_ms")
                    if k in mine[0]}}
 
-    tc_cu, tc_route = "hedit_tpu_torch/csrc/flash_attention_tc.cu", "cuda (mma.sync, bf16)"
+    tc_cu, bwd_tc_cu = ("hedit_tpu_torch/csrc/flash_attention_tc.cu",
+                        "hedit_tpu_torch/csrc/flash_attention_bwd_tc.cu")
+    tc_route = "cuda"
     fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                                  "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "hedit_tpu_torch/csrc/flash_probes.cu")
@@ -1831,8 +1954,10 @@ def main(argv=None) -> int:
         entry("groupnorm_streamed", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100",
               "flagship"),
         entry("flash_attention_lse", "cuda", fwd_cu, f"{jax_flash}:464", "nmg"),
-        entry("flash_bwd_dq", "cuda", bwd_cu, f"{jax_flash}:553", "nmg"),
-        entry("flash_bwd_dkv", "cuda", bwd_cu, f"{jax_flash}:593", "nmg"),
+        entry("flash_bwd_dq", tc_route, bwd_tc_cu, f"{jax_flash}:553", "nmg"),
+        entry("flash_bwd_dkv", tc_route, bwd_tc_cu, f"{jax_flash}:593", "nmg"),
+        entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "nmg_f32"),
+        entry("flash_bwd_dkv_core", "cuda", bwd_cu, f"{jax_flash}:593", "nmg_f32"),
         entry("flash_attention_exact", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
         entry("flash_packed_bounded", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),

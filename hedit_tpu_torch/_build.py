@@ -50,6 +50,9 @@ ARGTYPES = {
     "hedit_flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dk, dv | bh, sq, sk, d, dtype | stream
     "hedit_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+    # the same two in bf16 on the tensor cores (flash_attention_bwd_tc.cu)
+    "hedit_flash_attention_bwd_dq_tc": [_P] * 7 + [_I] * 5 + [_P],
+    "hedit_flash_attention_bwd_dkv_tc": [_P] * 8 + [_I] * 5 + [_P],
     # q, k, v, out | bh, sq, sk, d, anchor, layout, dtype | stream
     "hedit_flash_packed_t": [_P] * 4 + [_I] * 7 + [_P],
     # q, k, v, out | bh, sq, sk, d, pipe, dtype | stream

@@ -4,7 +4,9 @@
 // Replaces the TPU kernels hedit_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel
 // and _flash_bwd_dkv_kernel (wrapper _flash_bwd_pallas, the backward of
 // flash_attention_diff), which carry every mode that differentiates through
-// the UNet (NMG, null-text, the style and face rewards).
+// the UNet (NMG, null-text, the style and face rewards), for float32 inputs
+// and for the VAE's D = 512; the wrappers send bf16 at the UNet's D = 40 and
+// 80 to the tensor-core kernels of flash_attention_bwd_tc.cu (bwd_entry).
 //
 // With s2 = (q k^T) * scale * log2(e), lse2 the forward's base-2 log-sum-exp
 // of each query row and delta = rowsum(dO * O) (computed outside, in plain
@@ -14,6 +16,12 @@
 //   dp = dO v^T
 //   ds = p * (dp - delta)
 //   dq = ds k * scale      dk = ds^T q * scale      dv = p^T dO
+//
+// bf16 inputs take the TPU kernels' roundings: q * scale * log2(e) in dq and
+// k * scale * log2(e) in dk/dv rounded to bf16 at load (the scale itself
+// rounded first), ds rounded to bf16 before its product on each side, and p
+// rounded to bf16 for dv = p^T dO only; everything else float32.  In float32
+// nothing is rounded.
 //
 // The forward (row 3) is the bounded, max-free one, and this backward, like
 // the TPU's, ignores its clamp: p is rebuilt as exp2(s2 - lse2) from the
@@ -32,13 +40,13 @@
 // FLOP a (batch, head) against the forward's 4.  At [1, 8, 4096, 40] that is
 // 75 GFLOP over 21 MB of inputs and outputs in bf16, about 3,500 FLOP per
 // byte, far above the ~295 FLOP/byte balance point of an H100 SXM (data sheet,
-// 700 W): both kernels are bound by arithmetic.  Like the forward, this first
-// version does its arithmetic in float32 on the CUDA cores (67 TFLOP/s peak),
-// so its limit is the rate at which shared memory feeds the FMAs, and the
-// design is the forward's register tiling: each thread owns a 4 x 8 tile of
-// the score grid and a 4 x D/8 tile of each output, so every shared-memory
-// word feeds several FMAs and the gradients accumulate in registers.  Tensor
-// cores and TMA are the next step.
+// 700 W): both kernels are bound by arithmetic.  This template does its
+// arithmetic in float32 on the CUDA cores (67 TFLOP/s peak), so its limit is
+// the rate at which shared memory feeds the FMAs, and the design is the
+// forward's register tiling: each thread owns a 4 x 8 tile of the score grid
+// and a 4 x D/8 tile of each output, so every shared-memory word feeds
+// several FMAs and the gradients accumulate in registers.  In bf16 at D = 40
+// and 80 the tensor-core kernels of flash_attention_bwd_tc.cu replace it.
 //
 // D = 512 cannot keep that tile: 4 x 64 floats an output, two outputs in
 // dk/dv, is more than a thread's 255 registers.  Its blocks own 16 rows, not
@@ -88,13 +96,24 @@ struct BwdTile {
   }
 };
 
-// dst [rows][dp] <- src [valid][d] * scale; rows past `valid` are zero
+// x rounded to T and back: the TPU kernels' bf16 roundings of ds and of p
+// (for p^T dO); nothing in float32
+__device__ __forceinline__ float round_as(float x, float) { return x; }
+__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// dst [rows][dp] <- src [valid][d] * scale; rows past `valid` are zero.  In
+// bf16 the scale is rounded to bf16 and so is each product, as the TPU
+// kernels form qs and ks (scale 1 leaves the values as they are); in
+// float32 the product stays float32.
 template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int valid,
                                           int rows, int d, int dp, float scale) {
+  const float sc = round_as(scale, T());
   for (int e = threadIdx.x; e < rows * d; e += kThreads) {
     const int r = e / d, c = e - r * d;
-    dst[r * dp + c] = r < valid ? to_float(src[e]) * scale : 0.f;
+    dst[r * dp + c] = r < valid ? round_as(to_float(src[e]) * sc, T()) : 0.f;
   }
 }
 
@@ -187,7 +206,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int col = tk + TK * j;
         // a padded key has p = 0 and so adds nothing to dq
         const float p = k0 + col < sk ? exp2f(s[i][j] - lse_r[i]) : 0.f;
-        ds_s[(row0 + i) * PS + col] = p * (dpv[i][j] - delta_r[i]);
+        ds_s[(row0 + i) * PS + col] = round_as(p * (dpv[i][j] - delta_r[i]), T());
       }
     __syncthreads();
 
@@ -276,8 +295,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         // key row is never stored, and p = 0 keeps it finite
         const bool ok = q0 + col < sq && k0 + row0 + i < sk;
         const float p = ok ? exp2f(s[i][j] - lse_s[col]) : 0.f;
-        p_s[(row0 + i) * PS + col] = p;
-        ds_s[(row0 + i) * PS + col] = p * (dpv[i][j] - delta_s[col]);
+        p_s[(row0 + i) * PS + col] = round_as(p, T());
+        ds_s[(row0 + i) * PS + col] = round_as(p * (dpv[i][j] - delta_s[col]), T());
       }
     __syncthreads();
 

@@ -38,10 +38,10 @@ from hedit_tpu_torch.ops.flash_attention import (
 
 # Shortest query and key length routed to the CUDA flash kernels, with or
 # without a recorded gradient.  For the differentiated call, ``chip_smoke.py``
-# on an H100 80GB HBM3 at 700 W (bfloat16) read the backward kernels at about
-# the time of the plain version at both of the UNet's lengths (dq + dk/dv
-# 3.74 against 4.16 ms at [1, 8, 4096, 40], 0.55 against 0.47-0.61 ms at
-# [1, 8, 1024, 80]), while the plain version keeps the [8, S, S]
+# on an H100 80GB HBM3 at 700 W (bfloat16) read the tensor-core backward
+# kernels well below the plain version at both of the UNet's lengths (dq +
+# dk/dv 0.311 against 7.975 ms at [1, 8, 4096, 40], 0.091 against 0.772 ms
+# at [1, 8, 1024, 80]), and the plain version keeps the [8, S, S]
 # probabilities between forward and backward where the kernels keep the
 # output and one float a row: no measured reason for a second, longer
 # threshold.

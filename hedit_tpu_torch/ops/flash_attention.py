@@ -31,8 +31,11 @@ The wrappers:
 * ``flash_attention_lse_cuda``: the bounded forward with the base-2
   log-sum-exp ``lse2 = shift + log2(denom)`` of each row (CUDA-core
   template), the forward of ``flash_attention_diff``, whose backward launches
-  the dq and the dk / dv kernels of ``csrc/flash_attention_bwd.cu`` (the TPU
-  kernels ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``);
+  a dq and a dk / dv kernel (the TPU kernels ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``; ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``):
+  bf16 at the UNet's head dims on the tensor cores
+  (``csrc/flash_attention_bwd_tc.cu``), float32 and the VAE's d = 512 on the
+  CUDA-core template (``csrc/flash_attention_bwd.cu``), by ``bwd_entry``;
 * ``flash_attention_exact_cuda`` (head-split) and
   ``flash_attention_packed_cuda`` (packed heads): the exact mode.
 
@@ -75,14 +78,19 @@ launches_packed = 0   # exact forward on packed heads
 launches_packed_bounded = 0      # bounded forward on packed heads, CUDA cores
 launches_packed_bounded_tc = 0   # the same in bf16 on the tensor cores
 launches_lse = 0      # bounded forward with the log-sum-exp
-launches_bwd_dq = 0
-launches_bwd_dkv = 0
+launches_bwd_dq = 0      # backward dq, CUDA cores (float32; bf16 at d = 512)
+launches_bwd_dkv = 0     # backward dk / dv, CUDA cores
+launches_bwd_dq_tc = 0   # backward dq in bf16 on the tensor cores (d = 40, 80)
+launches_bwd_dkv_tc = 0  # backward dk / dv in bf16 on the tensor cores
 
 # UNet self-attention (40, 80) and the VAE mid-block (512); others are refused
 HEAD_DIMS = (40, 80, 512)
 # the backward's: the same, the VAE's 512 with a tile of its own (the style
 # reward differentiates through the decoder's mid-block attention)
 BWD_HEAD_DIMS = (40, 80, 512)
+# the head dims of the bf16 backward on the tensor cores
+# (``csrc/flash_attention_bwd_tc.cu``); d = 512 stays on the template
+TC_BWD_HEAD_DIMS = (40, 80)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
 DENOM_FLOOR = 1.2e-38
@@ -106,21 +114,37 @@ def bounded_entry(dtype: torch.dtype, packed: bool) -> str:
     raise ValueError(f"the bounded forward takes float32 or bfloat16, got {dtype}")
 
 
+def bwd_entry(dtype: torch.dtype, d: int) -> Tuple[str, str]:
+    """The CUDA entry points (dq, dk / dv) of the backward for an input of
+    ``dtype`` and head dim ``d``: bfloat16 at ``TC_BWD_HEAD_DIMS`` the
+    tensor-core kernels (``csrc/flash_attention_bwd_tc.cu``); float32, and
+    bfloat16 at the VAE's 512, the CUDA-core template
+    (``csrc/flash_attention_bwd.cu``).  Raises for any other dtype or head
+    dim."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward takes head dims {BWD_HEAD_DIMS}, got {d}")
+    if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS:
+        return "hedit_flash_attention_bwd_dq_tc", "hedit_flash_attention_bwd_dkv_tc"
+    if dtype in (torch.float32, torch.bfloat16):
+        return "hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv"
+    raise ValueError(f"the backward takes float32 or bfloat16, got {dtype}")
+
+
 def check_tc_operands(d: int, addresses, strides) -> None:
-    """Raise unless the tensor-core kernel takes these operands: head dim
+    """Raise unless a tensor-core kernel takes these operands: head dim
     ``d`` one of ``HEAD_DIMS``, every address (``data_ptr()``) a multiple of
     ``TC_ALIGN_BYTES`` and every element stride a multiple of
-    ``TC_STRIDE_MULTIPLE``.  The kernel refuses the same; the wrappers raise
+    ``TC_STRIDE_MULTIPLE``.  The kernels refuse the same; the wrappers raise
     first, and never fall back to the CUDA-core template."""
     if d not in HEAD_DIMS:
-        raise ValueError(f"the tensor-core forward takes head dims {HEAD_DIMS}, got {d}")
+        raise ValueError(f"the tensor-core kernels take head dims {HEAD_DIMS}, got {d}")
     bad = [a for a in addresses if a % TC_ALIGN_BYTES]
     if bad:
-        raise ValueError(f"the tensor-core forward needs {TC_ALIGN_BYTES}-byte aligned "
+        raise ValueError(f"the tensor-core kernels need {TC_ALIGN_BYTES}-byte aligned "
                          f"operands, got addresses {[hex(a) for a in bad]}")
     bad = [s for s in strides if s % TC_STRIDE_MULTIPLE]
     if bad:
-        raise ValueError(f"the tensor-core forward needs element strides that are multiples "
+        raise ValueError(f"the tensor-core kernels need element strides that are multiples "
                          f"of {TC_STRIDE_MULTIPLE}, got {bad}")
 
 
@@ -219,23 +243,44 @@ def flash_attention_packed_bounded_reference(q: torch.Tensor, k: torch.Tensor,
     return _merge_heads(out)
 
 
-def flash_attention_backward_reference(q, k, v, out, lse2, do
+def flash_attention_backward_reference(q, k, v, out, lse2, do,
+                                       out_dtype: Optional[torch.dtype] = None
                                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the backward, by the formulas of the kernels (float32):
+    """Plain version of the backward, by the formulas of the kernels:
     p = exp2(s2 - lse2), dp = dO v^T, delta = rowsum(dO * out),
     ds = p * (dp - delta); dq = ds k * scale, dk = ds^T q * scale,
-    dv = p^T dO.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    dv = p^T dO.  Returns (dq, dk, dv) in the inputs' dtypes, or in
+    ``out_dtype`` (float32: the outputs before their final rounding).
+
+    float32 inputs: float32 throughout.  bfloat16 inputs take the roundings
+    of the TPU kernels ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``:
+    the dq side scores ``qs k`` with qs = q * c rounded to bf16 (c = scale *
+    log2(e) rounded to bf16 first, as the forward forms it), the dk / dv side
+    ``q ks`` with ks = k * c rounded likewise, so the two sides see
+    differently rounded scores; ds is rounded to bf16 on each side before
+    its product, p to bf16 for ``p^T dO`` only; products of bf16 values sum
+    in float32."""
     b, h, sq, d = q.shape
     scale = 1.0 / d ** 0.5
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s2 = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * _LOG2E)
-    p = torch.exp2(s2 - lse2.reshape(b, h, sq, 1))
+    lse = lse2.reshape(b, h, sq, 1)
+    dof = do.float()
     delta = (dof * out.float()).sum(dim=-1, keepdim=True)
-    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    dv = torch.matmul(p.transpose(-1, -2), dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    qf, kf = q.float(), k.float()
+    if q.dtype == torch.bfloat16:
+        c = torch.tensor(scale * _LOG2E, dtype=q.dtype)
+        p_q = torch.exp2(torch.matmul((q * c).float(), kf.transpose(-1, -2)) - lse)  # dq side
+        p_k = torch.exp2(torch.matmul(qf, (k * c).float().transpose(-1, -2)) - lse)  # dk / dv
+        ds_q = (p_q * (dp - delta)).to(q.dtype).float()
+        ds_k = (p_k * (dp - delta)).to(q.dtype).float()
+        p_v = p_k.to(q.dtype).float()
+    else:
+        p_v = torch.exp2(torch.matmul(qf, kf.transpose(-1, -2)) * (scale * _LOG2E) - lse)
+        ds_q = ds_k = p_v * (dp - delta)
+    dq = torch.matmul(ds_q, kf) * scale
+    dk = torch.matmul(ds_k.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p_v.transpose(-1, -2), dof)
+    return tuple(t.to(out_dtype or x.dtype) for t, x in ((dq, q), (dk, k), (dv, v)))
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -408,6 +453,7 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def _check_bwd(q, k, v, do, lse2, delta, what: str) -> Tuple[int, int, int, int]:
+    """Raise on what the backward kernels do not take; returns (bh, sq, sk, d)."""
     b, h, sq, sk, d = _check_qkv(q, k, v, BWD_HEAD_DIMS, what)
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_cuda or not do.is_contiguous():
         raise ValueError(f"dO must be a contiguous CUDA {q.dtype} tensor of q's shape, got "
@@ -420,25 +466,41 @@ def _check_bwd(q, k, v, do, lse2, delta, what: str) -> Tuple[int, int, int, int]
     return b * h, sq, sk, d
 
 
+def _bwd_launch(part: int, q, k, v, do, lse2, delta, outs, what: str) -> bool:
+    """Launch backward kernel ``part`` (0 dq, 1 dk / dv) of ``bwd_entry`` into
+    ``outs``; the tensor-core one only on operands that pass
+    ``check_tc_operands``.  Returns whether it was the tensor-core one."""
+    bh, sq, sk, d = _check_bwd(q, k, v, do, lse2, delta, what)
+    entry = bwd_entry(q.dtype, d)[part]
+    tc = entry.endswith("_tc")
+    if tc:
+        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, do, *outs)], [sq * d, sk * d, d])
+    _launch(entry, q, (q, k, v, do, lse2, delta, *outs), (bh, sq, sk, d))
+    return tc
+
+
 def flash_bwd_dq_cuda(q, k, v, do, lse2, delta) -> torch.Tensor:
-    """Launch the dq kernel.  lse2 and delta = rowsum(dO * out) hold one
-    float32 per (batch, head, query).  Raises on what the kernel does not
-    take."""
-    global launches_bwd_dq
-    dims = _check_bwd(q, k, v, do, lse2, delta, "flash_bwd_dq_cuda")
+    """Launch the dq kernel of ``bwd_entry``.  lse2 and delta = rowsum(dO *
+    out) hold one float32 per (batch, head, query).  Raises on what the
+    kernel does not take."""
+    global launches_bwd_dq, launches_bwd_dq_tc
     dq = torch.empty_like(q)
-    _launch("hedit_flash_attention_bwd_dq", q, (q, k, v, do, lse2, delta, dq), dims)
-    launches_bwd_dq += 1
+    if _bwd_launch(0, q, k, v, do, lse2, delta, (dq,), "flash_bwd_dq_cuda"):
+        launches_bwd_dq_tc += 1
+    else:
+        launches_bwd_dq += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse2, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk / dv kernel; arguments as ``flash_bwd_dq_cuda``."""
-    global launches_bwd_dkv
-    dims = _check_bwd(q, k, v, do, lse2, delta, "flash_bwd_dkv_cuda")
+    """Launch the dk / dv kernel of ``bwd_entry``; arguments as
+    ``flash_bwd_dq_cuda``."""
+    global launches_bwd_dkv, launches_bwd_dkv_tc
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("hedit_flash_attention_bwd_dkv", q, (q, k, v, do, lse2, delta, dk, dv), dims)
-    launches_bwd_dkv += 1
+    if _bwd_launch(1, q, k, v, do, lse2, delta, (dk, dv), "flash_bwd_dkv_cuda"):
+        launches_bwd_dkv_tc += 1
+    else:
+        launches_bwd_dkv += 1
     return dk, dv
 
 

@@ -1,6 +1,6 @@
 """Plain versions of the differentiable flash attention, the GroupNorm
 gradient and the DDIM step math of the PyTorch port against the JAX package,
-on the CPU in float32.
+on the CPU in float32 (the flash backward in bf16 too).
 
 The same numpy-seeded inputs go through both.  The JAX Pallas kernels run in
 interpret mode, as the JAX package's own tests run them; tolerances are
@@ -83,6 +83,37 @@ def test_flash_backward_plain_matches_jax_kernels_and_vjp(sq, sk, d):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=3e-5)
         np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=2e-4, atol=3e-5)
         np.testing.assert_array_equal(a.numpy(), e.numpy())
+
+
+def test_flash_backward_plain_matches_jax_kernels_in_bf16():
+    """bf16 inputs at (Sq, Sk, D) = (256, 256, 40), (140, 260, 40) and (256,
+    256, 80), one item (pytest-xdist's loadfile scheduler queues files by
+    their number of items): the port's plain LSE forward and plain backward against
+    ``_flash_bounded_fwd_lse`` and the JAX dq and dk / dv kernels in
+    interpret mode, which round qs = q * c and ks = k * c, ds on each side
+    and p for ``p^T dO`` to bf16.  Both sides round each output to bf16 from
+    float32 values that differ only by summation order and by the ulps in
+    which the two LSE forwards' outputs differ (delta), so they agree except
+    where those values straddle a rounding boundary: at most 2^-8 of each
+    output's largest value apart, and at most 2% of the elements differing
+    at all.  That is tighter than the gap a plain backward that computes in
+    float32 from the bf16 inputs and rounds once leaves: such a version
+    fails every case here."""
+    for sq, sk, d in ((256, 256, 40), (140, 260, 40), (256, 256, 80)):
+        rng = np.random.RandomState(sq + sk + d)
+        arrays = [rng.randn(1, 2, s, d).astype(np.float32) for s in (sq, sk, sk, sq)]
+        tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+        out, lse2 = flash_mod.flash_attention_lse_reference(tq, tk, tv)
+        got = flash_mod.flash_attention_backward_reference(tq, tk, tv, out, lse2, tdo)
+        jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
+        jout, jlse = _flash_bounded_fwd_lse(jq, jk, jv, interpret=True)
+        kernels = _flash_bwd_pallas(jq, jk, jv, jout, jlse, jdo, interpret=True)
+        for a, b in zip(got, kernels):
+            assert a.dtype == torch.bfloat16
+            a, b = a.float().numpy(), np.asarray(b.astype(jnp.float32))
+            np.testing.assert_allclose(a, b, rtol=0, atol=2.0 ** -8 * np.abs(b).max(),
+                                       err_msg=f"{(sq, sk, d)}")
+            assert np.mean(a != b) <= 0.02, (sq, sk, d)
 
 
 @pytest.mark.parametrize("act", ["silu", None])

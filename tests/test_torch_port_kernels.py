@@ -226,11 +226,22 @@ def test_flash_diff_on_cpu_takes_plain_versions():
 
 def _bwd_tols(dtype, wants):
     """float32: 1e-4 of each output's largest value (summation order, exp2
-    rounding).  bfloat16: the kernels compute in float32 from the bf16 inputs
-    and round once, so each is held to the plain version in float32 on the
-    same input values within one bf16 ulp of its largest value, 2^-8 * max."""
+    rounding).  bfloat16: the kernels round qs, ks, ds and p (for dv) to bf16
+    as the TPU kernels do, and so does the plain version; each output is held
+    to the plain version before its final rounding (``out_dtype=float32``)
+    within 2^-8 of its largest value.  That is half an ulp for the kernel's
+    own rounding of the output, and room for the few ds (or p) values whose
+    float32 inputs, summed in another order on the tensor cores, round to
+    the other bf16 neighbour: one such flip moves an output by one bf16 ulp
+    of that term (<= 2^-7 |ds| |k|, or |q|), and one term is a small part of
+    a sum over hundreds of keys or queries."""
     rel = 1e-4 if dtype == torch.float32 else 2.0 ** -8
     return [rel * w.abs().max().item() for w in wants]
+
+
+def _bwd_counts():
+    return (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv,
+            flash_mod.launches_bwd_dq_tc, flash_mod.launches_bwd_dkv_tc)
 
 
 @pytest.mark.gpu
@@ -240,28 +251,29 @@ def _bwd_tols(dtype, wants):
 def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, sk):
     """The LSE forward (out, lse2) against its bounded plain version in the
     inputs' dtype, and dq, dk, dv through ``flash_attention_diff`` against the
-    plain backward in float32 on the same input values, fed that forward's
-    out and lse2; ragged Sq != Sk included: padded keys must not leak into
-    dq, padded queries not into dk / dv."""
+    plain backward on the same inputs, fed the kernel forward's out and lse2,
+    before its final rounding; ragged Sq != Sk included: padded keys must not
+    leak into dq, padded queries not into dk / dv.  bf16 runs the
+    tensor-core backward, float32 the CUDA-core template (``bwd_entry``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     kshape = shape[:2] + (sk, shape[3])
     q = torch.randn(shape, generator=g, device=cuda).to(dtype).requires_grad_()
     k = torch.randn(kshape, generator=g, device=cuda).to(dtype).requires_grad_()
     v = torch.randn(kshape, generator=g, device=cuda).to(dtype).requires_grad_()
     do = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    before = (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
+    before = _bwd_counts()
     out, lse2 = flash_mod.flash_attention_lse_cuda(q.detach(), k.detach(), v.detach())
     got = torch.autograd.grad(flash_mod.flash_attention_diff(q, k, v), (q, k, v), do)
     torch.cuda.synchronize()
-    assert (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv) == (
-        before[0] + 2, before[1] + 1, before[2] + 1)
-    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    tc = dtype == torch.bfloat16
+    assert _bwd_counts() == (before[0] + 2, before[1] + (not tc), before[2] + (not tc),
+                             before[3] + tc, before[4] + tc)
     # the bounded plain version in the inputs' dtype rounds at the kernel's steps
     want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
                                                                  v.detach())
     want_out = want_out.float()
-    wants = flash_mod.flash_attention_backward_reference(qf, kf, vf, want_out, want_lse,
-                                                         do.float())
+    wants = flash_mod.flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), out, lse2, do, out_dtype=torch.float32)
     tol_out, = _bwd_tols(dtype, [want_out])
     torch.testing.assert_close(out.float(), want_out, rtol=0, atol=tol_out)
     # lse2 is float32 for either dtype: 1e-4 absolute on values of ~10; in
@@ -305,25 +317,26 @@ def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
     """The VAE's head dim, which the backward once refused, now has its own
     tile: dq, dk, dv of the mid-block attention [1, 1, 4096, 512] through
     ``fused_attention`` under a recorded gradient (the style reward's route)
-    launch the LSE forward and both backward kernels and match the plain
-    backward in float32 on the same input values, fed the bounded plain
-    forward's out and lse2 (tolerances of ``_bwd_tols``); a head dim the
-    kernels have no tile for is still refused."""
+    launch the LSE forward and both backward kernels of the CUDA-core
+    template, in bf16 too (the tensor-core backward takes 40 and 80 only),
+    and match the plain backward on the same inputs before its final
+    rounding, fed the bounded plain forward's out and lse2 (tolerances of
+    ``_bwd_tols``); a head dim the kernels have no tile for is still
+    refused."""
     g = torch.Generator(device=cuda).manual_seed(3)
     shape = (1, 1, 4096, 512)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype).requires_grad_()
                for _ in range(3))
     do = torch.randn(shape, generator=g, device=cuda).to(dtype)
     assert 512 in flash_mod.BWD_HEAD_DIMS
-    before = (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
+    before = _bwd_counts()
     got = torch.autograd.grad(fused_attention(q, k, v), (q, k, v), do)
     torch.cuda.synchronize()
-    assert (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv) == (
-        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert _bwd_counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3], before[4])
     want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
                                                                  v.detach())
     wants = flash_mod.flash_attention_backward_reference(
-        *(t.detach().float() for t in (q, k, v)), want_out.float(), want_lse, do.float())
+        q.detach(), k.detach(), v.detach(), want_out, want_lse, do, out_dtype=torch.float32)
     for a, b, tol in zip(got, wants, _bwd_tols(dtype, wants)):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a.float(), b, rtol=0, atol=tol)
