@@ -16,21 +16,28 @@ the final result line:
    the card could take (``bound_ms``).  The bounded (max-free) forward runs
    bf16 on the tensor cores (``csrc/flash_attention_tc.cu``) and float32 on
    the CUDA-core template (``csrc/flash_attention.cu``); the tensor-core
-   kernel is also timed beside the CUDA-core template (row 3's LSE entry) at
-   the same head-split inputs, and its wrappers' refusals (a misaligned
-   pointer, an odd stride, float16) are checked.  The bounded and the exact
-   forward are timed at the same shapes, head-split and packed, and a
-   saturating input shows the two forms apart, also laid out packed through
-   ``fused_attention_packed``.  For the packed-head forwards also the time of
-   the head-split route (three head-split copies, kernel 1, the merge).  The
-   LSE forward and the backward at the NMG gradient call's shapes and a
-   ragged one: bf16 dq and dk / dv on the tensor cores
-   (``csrc/flash_attention_bwd_tc.cu``), timed beside the CUDA-core template
-   (``csrc/flash_attention_bwd.cu``) on the same inputs, float32 on the
-   template; the backward at the VAE's head dim [1, 1, 4096, 512] (the
-   template in either dtype), also through ``fused_attention`` under a
-   gradient; the backward wrappers' refusals (a misaligned pointer,
-   float16).  Then GroupNorm + SiLU
+   kernel is also timed beside the CUDA-core template's LSE entry (in bf16,
+   row 3 before this moved it) at the same head-split inputs, and its
+   wrappers' refusals (a misaligned pointer, an odd stride, float16) are
+   checked.  The bounded and the exact forward are timed at the same shapes,
+   head-split and packed (the exact kernels held to
+   ``flash_attention_exact_reference`` at their key tile, JAX's bf16
+   roundings included), and a saturating input shows the two forms apart,
+   also laid out packed through ``fused_attention_packed``.  For the
+   packed-head forwards also the time of the head-split route (three
+   head-split copies, kernel 1, the merge).  The LSE forward (bf16 on the
+   tensor cores, ``csrc/flash_attention_tc.cu``, timed beside the CUDA-core
+   template on the same inputs; float32 on the template) and the backward
+   at the NMG gradient call's shapes and a ragged one: bf16 dq and dk / dv
+   on the tensor cores (``csrc/flash_attention_bwd_tc.cu``), timed beside
+   the CUDA-core template (``csrc/flash_attention_bwd.cu``) on the same
+   inputs, float32 on the template; ``flash_attention_diff``'s backward
+   routed as JAX routes it on the TPU (the kernels from 2048 tokens, the
+   gradient of ``reference_attention`` below); the backward at the VAE's
+   head dim [1, 1, 4096, 512] (the template in either dtype), also through
+   ``fused_attention`` under a gradient (bf16: the kernels; float32:
+   ``reference_attention``, outside the K/V budget); the backward wrappers'
+   refusals (a misaligned pointer, float16).  Then GroupNorm + SiLU
    (``csrc/group_norm.cu``) on channels-last inputs at every GroupNorm shape
    of the paths' table (``GN_SHAPES``), bf16 and float32, eps 1e-5 and
    1e-6, with its regime and cluster, two launches bit-identical, a float32
@@ -58,8 +65,10 @@ the final result line:
    encode -> VAE encode -> 50-step DDIM inversion -> 50 NMG + P2P steps, each
    differentiating through the UNet, with a non-neutral control and an active
    LocalBlend -> VAE decode; checks a finite [1, 512, 512, 3] output and that
-   each of its kernels was launched (the tensor-core backward 500 times each,
-   the CUDA-core template's backward never); prints the time split and peak
+   each of its kernels was launched (the tensor-core LSE forward 500 times,
+   the tensor-core backward 250 times each: the 4096-token layers; the
+   1024-token ones take the gradient of ``reference_attention``, as on the
+   TPU; the CUDA-core templates never); prints the time split and peak
    memory;
 7. the h-Edit-D path, as ``main_p2p --mode h_edit_D_p2p --eta 0 --implicit
    --optimization_steps 2`` runs it: one image, 50-step DDIM inversion, then
@@ -82,14 +91,17 @@ the final result line:
     one of the packed one at each shape of ``flash_attention_packed``'s;
 11. the golden identity in float32 (TF32 off): target = source,
     cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through
-    the general loop under the flagship configuration; the edit decoded: the
-    float32 path of the CUDA-core bounded template, its launches counted;
+    the general loop under the flagship configuration; the edit decoded (the
+    VAE's float32 attention at 4096 tokens is outside the K/V budget: exact
+    ``reference_attention``, no launch), then decoded at 256 px, where it
+    fits: the float32 paths of the CUDA-core bounded template, their
+    launches counted;
 12. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
     substituted here;
 13. the NMG loop in float32 under a neutral control: its edit branch equals
-    plain DDIM sampling computed here; its launches counted (the LSE forward
-    and the CUDA-core template's backward, 500 each);
+    plain DDIM sampling computed here; its launches counted (the CUDA-core
+    LSE forward 500, the CUDA-core template's backward 250 each);
 14. in float32: the EF pair loop without a stored trajectory on the DDPM
     inversion's residuals reconstructs the source latent; explicit h-Edit-D
     with target = source, cfg_tar == cfg_src_edit and a neutral control
@@ -99,9 +111,9 @@ the final result line:
 16. a JSON line of the kernels (each with its launches on its path: rows 1
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
     flagship path, the CUDA-core bounded template on the float32 golden path,
-    3-5 on the NMG path (4 and 5 the tensor-core backward; the CUDA-core
-    template's on the float32 NMG loop), 6 and 7 on their own, 8-12 on their
-    probes' entry points), then the result line ``{"ok": true, "device": {...}}``.
+    3-5 on the NMG path (on the tensor cores; the CUDA-core templates' on the
+    float32 NMG loop), 6 and 7 on their own, 8-12 on their probes' entry
+    points), then the result line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
 
@@ -166,9 +178,7 @@ SOT, EOT = 49406, 49407  # CLIP's start- and end-of-text ids
 # TPU kernels do (the bounded forwards q * scale and p; the backward qs, ks,
 # ds and p for dv), and so do the plain versions, which leave out only the
 # final rounding of their outputs (``out_dtype=float32``); each output is
-# held to that within 2^-8 of its largest value.  (The LSE forward and the
-# exact forward, CUDA-core kernels, are held to their plain versions
-# rounded, or run in float32 on the same input values.)  The tensor-core kernel sums its products in
+# held to that within 2^-8 of its largest value.  The tensor-core kernel sums its products in
 # another order than cuBLAS does for the plain version, so the two float32
 # outputs differ in their last bits and, rounded to bf16, by one ulp of an
 # element where it lies near a rounding boundary; on the saturating input
@@ -238,7 +248,8 @@ def bound(nbytes, *work):
 COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launches"),
             "groupnorm_streamed": (gn, "launches_streamed"),
             "flash_attention_core": (flash, "launches"),
-            "flash_attention_lse": (flash, "launches_lse"),
+            "flash_attention_lse": (flash, "launches_lse_tc"),
+            "flash_attention_lse_core": (flash, "launches_lse"),
             "flash_bwd_dq": (flash, "launches_bwd_dq_tc"),
             "flash_bwd_dkv": (flash, "launches_bwd_dkv_tc"),
             "flash_bwd_dq_core": (flash, "launches_bwd_dq"),
@@ -292,7 +303,7 @@ def check_forward_routing(counts, path, failures, packed):
     call); the tensor-core head-split kernel serves only the VAE's one-head
     attention, one launch in the encoder and one in the decoder; the
     CUDA-core bounded entries (float32) and the exact packed kernel never
-    run.  (Row 3, the CUDA-core LSE forward, has its own counter.)
+    run.  (Row 3, the LSE forward, has its own counters.)
     GroupNorm: ``GN_CALLS[path]`` kernel calls, each on a channels-last
     input, and the streamed regime in the VAE."""
     if (counts["groupnorm"], GN_INPUTS["calls"], GN_INPUTS["channels_last"]) != (
@@ -370,18 +381,29 @@ def _saturating_qkv(g, dtype):
 
 
 def _forward_plain(q, k, v, exact):
-    """The plain version a forward kernel is held to, in float32: the exact
-    one on the same input values (the exact kernel keeps float32 scores and
-    p); the bounded one with q * scale and p rounded to the inputs' dtype at
-    the kernel's steps and its output left unrounded (see ``BF16_ULP``)."""
-    if exact:
-        return flash.reference_attention(q.float(), k.float(), v.float())
-    return flash.flash_attention_bounded_reference(q, k, v, out_dtype=torch.float32)
+    """The plain version a forward kernel is held to, its output left
+    unrounded (see ``BF16_ULP``): the exact one at the kernel's key tile or
+    the bounded one, each with q * scale and p rounded to the inputs' dtype
+    at the kernel's steps."""
+    plain = (flash.flash_attention_exact_reference if exact
+             else flash.flash_attention_bounded_reference)
+    return plain(q, k, v, out_dtype=torch.float32)
 
 
 # shapes at which the tensor-core forward is also timed against the CUDA-core
-# bounded template (row 3's LSE entry: the same work and one float a row)
+# bounded template (its LSE entry in bf16: the same work and one float a row)
 CORE_SHAPES = ((8, 8, 4096, 40), (4, 8, 1024, 80), (1, 1, 4096, 512))
+
+
+def _lse_template_ms(q, k, v):
+    """CUDA-event ms of the CUDA-core template's LSE entry on inputs that the
+    wrappers send to the tensor cores (bf16): row 3 before it moved there.
+    Launched by its entry point directly, as no path launches it so."""
+    bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+    out = torch.empty_like(q)
+    lse2 = torch.empty(bh, 1, sq, device="cuda")
+    return cuda_ms(lambda: flash._launch("hedit_flash_attention_fwd_lse", q, (q, k, v, out, lse2),
+                                         (bh, sq, sk, d, flash.bounded_anchor(sk, d))))
 
 
 def _flash_forward_cases(g, rows, failures):
@@ -417,13 +439,13 @@ def _flash_forward_cases(g, rows, failures):
             bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
             bound_ms, by = bound(q.element_size() * bh * d * 2 * (sq + sk),
                                  (4 * bh * sq * sk * d, dtype))
-            plain = (flash.reference_attention if exact
+            plain = (flash.flash_attention_exact_reference if exact
                      else flash.flash_attention_bounded_reference)
             tc = not exact and dtype == torch.bfloat16
             name, form = (("flash_attention_exact", "exact (CUDA cores)") if exact else
                           ("flash_attention", "bounded (tensor cores)") if tc else
                           ("flash_attention_core", "bounded (CUDA cores)"))
-            extra = ({"core_ms": cuda_ms(lambda: flash.flash_attention_lse_cuda(q, k, v))}
+            extra = ({"core_ms": _lse_template_ms(q, k, v)}
                      if tc and qshape in CORE_SHAPES and sk == qshape[2] else {})
             _row(rows, failures, name, f"flash {form} q{list(qshape)} sk={sk} {str(dtype)[6:]}",
                  err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
@@ -432,7 +454,7 @@ def _flash_forward_cases(g, rows, failures):
                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                  bound_ms=bound_ms, bound_by=by, shape=list(qshape), dtype=str(dtype)[6:], **extra)
             if extra:
-                print(f"  the CUDA-core bounded template (row 3's LSE entry) at the same inputs: "
+                print(f"  the CUDA-core bounded template (its LSE entry) at the same inputs: "
                       f"{extra['core_ms']:.3f} ms, tensor cores {rows[-1]['ms']:.3f} ms "
                       f"({extra['core_ms'] / rows[-1]['ms']:.2f}x faster)")
     for qshape in CORE_SHAPES:
@@ -443,17 +465,17 @@ def _flash_forward_cases(g, rows, failures):
               f"{e_ms:.3f} ms (bounded / exact {b_ms / e_ms:.3f})")
 
     # saturation: the bounded kernels follow their plain versions, the exact
-    # kernel exact attention, and the two forms are far apart
+    # kernel its own, and the two forms are far apart
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _saturating_qkv(g, dtype)
         bounded = flash.flash_attention_cuda(q, k, v).float()
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         exact = flash.flash_attention_exact_cuda(q, k, v).float()
-        want_out, want_lse = flash.flash_attention_lse_reference(q, k, v)
+        want_out, want_lse = flash.flash_attention_lse_reference(q, k, v,
+                                                                 out_dtype=torch.float32)
         want_bounded = _forward_plain(q, k, v, exact=False)
-        want_exact = flash.reference_attention(q.float(), k.float(), v.float())
+        want_exact = _forward_plain(q, k, v, exact=True)
         torch.cuda.synchronize()
-        want_out = want_out.float()
         tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want_out.abs().max().item()
         tol_e = F32_TOL if dtype == torch.float32 else BF16_ULP * want_exact.abs().max().item()
         errs = [(bounded - want_bounded).abs().max().item(),
@@ -463,8 +485,8 @@ def _flash_forward_cases(g, rows, failures):
         gap = (bounded - exact).abs().max().item()
         ok = (errs[0] <= tol and errs[1] <= tol and errs[2] <= tol_e and err_lse <= 1e-5
               and gap > 20 * tol and lse2.min().item() > 100.0)
-        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded "
-              f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores) / LSE / exact "
+        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded / LSE "
+              f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores) / exact "
               f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol {tol:.3g}), "
               f"lse2 relative {err_lse:.3e} (tol 1e-5, min lse2 {lse2.min().item():.2f}); "
               f"max|bounded - exact| {gap:.3e} (must exceed {20 * tol:.3g}) "
@@ -472,7 +494,7 @@ def _flash_forward_cases(g, rows, failures):
         if not ok:
             failures.append(f"flash saturating case {dtype}")
         if dtype == torch.bfloat16:
-            _rounding_diagnostic(q, k, v, bounded, want_out, tol)
+            _rounding_diagnostic(q, k, v, bounded, want_out.to(dtype).float(), tol)
 
 
 def _rounding_diagnostic(q, k, v, got, want_rounded, tol):
@@ -498,8 +520,7 @@ def _rounding_diagnostic(q, k, v, got, want_rounded, tol):
 
 def _flash_packed_cases(g, rows, failures):
     """The forwards on packed heads [B, S, H*D]: kernel 7 (exact, on no path)
-    against its plain version in float32 on the same input values, and the
-    bounded one (bf16 on the tensor cores: the route of every UNet
+    against its plain version at the kernel's key tile, and the bounded one (bf16 on the tensor cores: the route of every UNet
     self-attention on the paths; float32 on the CUDA cores) against its
     plain version, which rounds q * scale and p at the kernel's steps, with
     its output before the final rounding (``BF16_ULP``); beside each the
@@ -508,7 +529,8 @@ def _flash_packed_cases(g, rows, failures):
     ``fused_attention_packed``: the bounded plain version within one output
     ulp, exact attention far off, one launch of the dtype's kernel.  Then the
     tensor-core wrappers' refusals: a misaligned pointer, an odd stride,
-    float16."""
+    float16.  Both plain versions round q * scale and p at the kernel's steps
+    and are read before their final rounding (``BF16_ULP``)."""
     cases = [(8, 4096, 4096, 320, torch.bfloat16, False),   # controlled call, 2 images
              (4, 1024, 1024, 640, torch.bfloat16, False),
              (2, 4096, 4096, 320, torch.float32, False),
@@ -519,7 +541,8 @@ def _flash_packed_cases(g, rows, failures):
              (4, 4096, 4096, 320, torch.float32, True)]
     heads = 8
     for wrapper, plain, exact in (
-            (flash.flash_attention_packed_cuda, flash.flash_attention_packed_reference, True),
+            (flash.flash_attention_packed_cuda, flash.flash_attention_packed_exact_reference,
+             True),
             (flash.flash_attention_packed_bounded_cuda,
              flash.flash_attention_packed_bounded_reference, False)):
         for b, sq, sk, hd, dtype, strided in cases:
@@ -527,8 +550,7 @@ def _flash_packed_cases(g, rows, failures):
             q, k, v = (torch.randn(b, groups, s, hd, generator=g, device="cuda")
                        .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
             got = wrapper(q, k, v, heads)
-            want = (plain(q.float(), k.float(), v.float(), heads) if exact
-                    else plain(q, k, v, heads, out_dtype=torch.float32))
+            want = plain(q, k, v, heads, out_dtype=torch.float32)
             name, form = (("flash_packed", "exact") if exact else
                           ("flash_packed_bounded", "bounded (tensor cores)")
                           if dtype == torch.bfloat16 else
@@ -594,6 +616,7 @@ def _tc_refusals(g, failures):
     cases = (("misaligned pointer, packed", flash.flash_attention_packed_bounded_cuda,
               (misaligned,) * 3 + (8,)),
              ("misaligned pointer, head-split", flash.flash_attention_cuda, (head,) * 3),
+             ("misaligned pointer, LSE", flash.flash_attention_lse_cuda, (head,) * 3),
              ("odd batch stride, packed", flash.flash_attention_packed_bounded_cuda,
               (odd,) * 3 + (8,)),
              ("float16", flash.flash_attention_cuda, (head.contiguous().half(),) * 3))
@@ -612,8 +635,8 @@ def _tc_refusals(g, failures):
             failures.append(f"tensor-core wrapper took {label}")
 
 
-BWD_NAMES = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_core",
-             "flash_bwd_dkv_core")
+BWD_NAMES = ("flash_attention_lse", "flash_attention_lse_core", "flash_bwd_dq", "flash_bwd_dkv",
+             "flash_bwd_dq_core", "flash_bwd_dkv_core")
 
 
 def _bwd_template_ms(part, q, k, v, do, lse2, delta):
@@ -628,22 +651,44 @@ def _bwd_template_ms(part, q, k, v, do, lse2, delta):
                                          (bh, sq, sk, d)))
 
 
+def _diff_route(q, k, dtype, fwd=True):
+    """The launches ``flash_attention_diff`` makes on CUDA tensors of these
+    shapes (or, ``fwd=False``, its backward alone), as JAX routes it on the
+    TPU: the LSE forward of ``lse_entry``; the backward kernels of
+    ``bwd_entry`` where ``bwd_takes_kernels``, else none (autograd of
+    ``reference_attention``)."""
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    tc_lse = flash.lse_entry(dtype).endswith("_tc")
+    kernels = flash.bwd_takes_kernels(sq, sk, d, q.element_size(), interpret=False)
+    tc = flash.bwd_entry(dtype, d)[0].endswith("_tc")
+    return {"flash_attention_lse": int(fwd and tc_lse),
+            "flash_attention_lse_core": int(fwd and not tc_lse),
+            "flash_bwd_dq": int(kernels and tc), "flash_bwd_dkv": int(kernels and tc),
+            "flash_bwd_dq_core": int(kernels and not tc),
+            "flash_bwd_dkv_core": int(kernels and not tc)}
+
+
 def _flash_gradient_cases(g, rows, failures):
     """Kernels 3-5: the bounded LSE forward (out, lse2) against its plain
-    version in the inputs' dtype, and dq, dk / dv through
-    ``flash_attention_diff`` and autograd against the plain backward on the
-    same inputs, fed that forward's out and lse2, before its final rounding
-    (``out_dtype=float32``).  bf16 at the UNet's head dims runs the
-    tensor-core backward (``flash_bwd_dq`` / ``flash_bwd_dkv``), timed beside
-    the CUDA-core template on the same inputs (``core_ms``); float32 and the
-    VAE's d = 512 run the template (``flash_bwd_dq_core`` /
-    ``flash_bwd_dkv_core``).  bf16 tolerance: both sides round qs, ks, ds
-    and p (for dv) to bf16 as the TPU kernels do; the kernels sum in another
-    order, so a ds (or p) value may round to the other bf16 neighbour, and
-    one such flip moves an output by at most 2^-7 |ds| |k| (or |q|), a small
-    part of a sum over hundreds of terms; with half an ulp of the kernel's
-    own rounding, each output is held within 2^-8 of its largest value.
-    Then the tensor-core backward's refusals."""
+    version, out before its final rounding (bf16 on the tensor cores,
+    ``flash_attention_lse``, timed beside the CUDA-core template on the same
+    inputs, ``core_ms``; float32 on the template, ``flash_attention_lse_core``),
+    and dq, dk / dv of the backward kernels (``flash_attention_backward_cuda``)
+    against the plain backward on the same inputs, fed that forward's out and
+    lse2, before its final rounding (``out_dtype=float32``).  bf16 at the
+    UNet's head dims runs the tensor-core backward (``flash_bwd_dq`` /
+    ``flash_bwd_dkv``), timed beside the CUDA-core template on the same
+    inputs (``core_ms``); float32 and the VAE's d = 512 run the template
+    (``flash_bwd_dq_core`` / ``flash_bwd_dkv_core``).  bf16 tolerance: both
+    sides round qs, ks, ds and p (for dv) to bf16 as the TPU kernels do; the
+    kernels sum in another order, so a ds (or p) value may round to the
+    other bf16 neighbour, and one such flip moves an output by at most 2^-7
+    |ds| |k| (or |q|), a small part of a sum over hundreds of terms; with
+    half an ulp of the kernel's own rounding, each output is held within
+    2^-8 of its largest value.  Then ``flash_attention_diff`` through
+    autograd: its launches as JAX routes them (``_diff_route``) and its
+    gradient equal to the kernels' where it takes them, else to autograd of
+    ``reference_attention``.  Then the tensor-core backward's refusals."""
     cases = [((1, 8, 4096, 40), 4096, torch.bfloat16),   # the NMG gradient call, 64^2 level
              ((1, 8, 1024, 80), 1024, torch.bfloat16),   # its 32^2 level
              ((1, 8, 1000, 80), 1064, torch.bfloat16),   # ragged, Sq != Sk
@@ -659,23 +704,15 @@ def _flash_gradient_cases(g, rows, failures):
         bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
         es = q.element_size()
         tc = flash.bwd_entry(dtype, d)[0].endswith("_tc")
+        tc_lse = flash.lse_entry(dtype).endswith("_tc")
         rel = F32_TOL if dtype == torch.float32 else BF16_ULP
         finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
 
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = read_launches()
-        dq, dk, dv = torch.autograd.grad(flash.flash_attention_diff(*leaves), leaves, do)
-        torch.cuda.synchronize()
-        moved = {n: read_launches()[n] - before[n] for n in BWD_NAMES}
-        routed = {"flash_attention_lse": 1, "flash_bwd_dq": int(tc), "flash_bwd_dkv": int(tc),
-                  "flash_bwd_dq_core": int(not tc), "flash_bwd_dkv_core": int(not tc)}
-        if moved != routed:
-            failures.append(f"flash_attention_diff {label} launched {moved}, expected {routed}")
-        # the bounded plain forward in the inputs' dtype rounds at the kernel's
-        # steps; the plain backward reads the kernel forward's out and lse2
-        want_out, want_lse = flash.flash_attention_lse_reference(q, k, v)
-        want_out = want_out.float()
+        dq, dk, dv = flash.flash_attention_backward_cuda(q, k, v, out, lse2, do)
+        # the bounded plain forward rounds at the kernel's steps; the plain
+        # backward reads the kernel forward's out and lse2
+        want_out, want_lse = flash.flash_attention_lse_reference(q, k, v, out_dtype=torch.float32)
         want_dq, want_dk, want_dv = flash.flash_attention_backward_reference(
             q, k, v, out, lse2, do, out_dtype=torch.float32)
         torch.cuda.synchronize()
@@ -686,6 +723,7 @@ def _flash_gradient_cases(g, rows, failures):
         # the library call for the same functions: SDPA's forward under a
         # recorded gradient (it saves its log-sum-exp), and its backward,
         # which gives dq, dk and dv in one call (no call gives one alone)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         with torch.enable_grad():
             lib_out = F.scaled_dot_product_attention(*leaves)
         lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
@@ -699,12 +737,19 @@ def _flash_gradient_cases(g, rows, failures):
                  else math.log2(1 + BF16_ULP))
         bound_ms, by = bound(es * bh * d * 2 * (sq + sk) + 4 * bh * sq,
                              (4 * bh * sq * sk * d, dtype))
-        print(f"flash lse {label}: lse2 max_abs_err {err_l:.3e} (tol {tol_l:.3g})")
-        _row(rows, failures, "flash_attention_lse", f"flash lse {label}",
+        form_lse = "tensor cores" if tc_lse else "CUDA cores"
+        print(f"flash lse ({form_lse}) {label}: lse2 max_abs_err {err_l:.3e} (tol {tol_l:.3g})")
+        core = {"core_ms": _lse_template_ms(q, k, v)} if tc_lse else {}
+        _row(rows, failures, "flash_attention_lse" + ("" if tc_lse else "_core"),
+             f"flash lse ({form_lse}) {label}",
              err_o <= tol_o and err_l <= tol_l and finite(out, lse2), max_abs_err=err_o,
              tol=tol_o, ms=cuda_ms(lambda: flash.flash_attention_lse_cuda(q, k, v)),
              plain_ms=cuda_ms(lambda: flash.flash_attention_lse_reference(q, k, v)),
-             library_ms=lib_fwd, bound_ms=bound_ms, bound_by=by)
+             library_ms=lib_fwd, bound_ms=bound_ms, bound_by=by, shape=list(qshape), **core)
+        if tc_lse:
+            print(f"  the CUDA-core template's LSE entry at the same inputs: "
+                  f"{core['core_ms']:.3f} ms, tensor cores {rows[-1]['ms']:.3f} ms, SDPA forward "
+                  f"{lib_fwd:.3f} ms, bound {bound_ms:.4f} ms")
 
         delta = (do.float() * out.float()).sum(dim=-1)
         # the plain version and the library call give dq, dk and dv in one call
@@ -719,7 +764,7 @@ def _flash_gradient_cases(g, rows, failures):
              err <= tol and finite(dq), max_abs_err=err, tol=tol,
              ms=cuda_ms(lambda: flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)),
              plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-             plain_covers=together, **core)
+             plain_covers=together, shape=list(qshape), **core)
         (err_k, tol_k), (err_v, tol_v) = gap(dk, want_dk), gap(dv, want_dv)
         print(f"flash dk/dv {label}: dk max_abs_err {err_k:.3e} (tol {tol_k:.3g}), "
               f"dv {err_v:.3e} (tol {tol_v:.3g})")
@@ -730,7 +775,7 @@ def _flash_gradient_cases(g, rows, failures):
              err_k <= tol_k and err_v <= tol_v and finite(dk, dv), max_abs_err=worst[0],
              tol=worst[1], ms=cuda_ms(lambda: flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)),
              plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-             plain_covers=together, **core)
+             plain_covers=together, shape=list(qshape), **core)
 
         # dq and dk / dv share one plain version and one library call, so the
         # two are read together: both kernels against each
@@ -740,20 +785,33 @@ def _flash_gradient_cases(g, rows, failures):
                  f"{rows[-2]['core_ms'] + rows[-1]['core_ms']:.3f} ms)" if tc else "")
               + f", plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms")
 
-        if qshape[3] == 512:
-            # the style reward's route: fused_attention under a recorded gradient
-            before = read_launches()
+        # flash_attention_diff's backward, routed as JAX routes it on the TPU;
+        # at the VAE's width also fused_attention, the style reward's route
+        # (float32 there is outside the K/V budget: reference_attention)
+        routes = [("flash_attention_diff", flash.flash_attention_diff, _diff_route(q, k, dtype))]
+        if d == 512:
+            fits = attn.flash_route(sq, sk, d, es)
+            routes.append(("fused_attention", attn.fused_attention,
+                           _diff_route(q, k, dtype, fwd=fits) if fits
+                           else dict.fromkeys(BWD_NAMES, 0)))
+        for what, fn, routed in routes:
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            got = torch.autograd.grad(attn.fused_attention(*leaves), leaves, do)
+            before = read_launches()
+            got = torch.autograd.grad(fn(*leaves), leaves, do)
             torch.cuda.synchronize()
             moved = {n: read_launches()[n] - before[n] for n in BWD_NAMES}
-            gaps = [gap(a, w) for a, w in zip(got, (want_dq, want_dk, want_dv))]
+            kernels = routed["flash_bwd_dq"] + routed["flash_bwd_dq_core"] > 0
+            want = ((dq, dk, dv) if kernels else
+                    torch.autograd.grad(flash.reference_attention(*leaves), leaves, do))
+            gaps = [gap(a, w.float()) for a, w in zip(got, want)]
             ok = moved == routed and all(e <= t for e, t in gaps) and finite(*got)
-            print(f"flash fused_attention gradient {label}: dq / dk / dv max_abs_err "
+            print(f"flash {what} gradient {label}: backward by "
+                  f"{'the kernels' if kernels else 'autograd of reference_attention'}, "
+                  f"dq / dk / dv max_abs_err against it "
                   f"{' / '.join(f'{e:.3e} (tol {t:.3g})' for e, t in gaps)}, launches "
                   f"{moved} {'OK' if ok else 'FAIL'}")
             if not ok:
-                failures.append(f"fused_attention gradient {label}")
+                failures.append(f"{what} gradient {label}: launched {moved}, expected {routed}")
     _bwd_refusals(g, failures)
 
 
@@ -1361,11 +1419,18 @@ def phase_nmg_path(pipe, images, ids):
           f"{(recon - x0).abs().max().item():.3e}")
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         failures.append("NMG path output is not finite [1, 512, 512, 3]")
-    # the gradient call's 10 self-attentions a step: the LSE forward and the
-    # tensor-core backward, never the CUDA-core template's backward
-    if tuple(counts[n] for n in BWD_NAMES) != (10 * STEPS,) * 3 + (0, 0):
-        failures.append(f"the NMG path's gradient kernels were not launched once for each of "
-                        f"10 layers a step, on the tensor cores: {counts}")
+    # the gradient call's 10 self-attentions a step: the LSE forward on the
+    # tensor cores for each; the tensor-core backward for the 5 of 4096
+    # tokens, autograd of reference_attention for the 5 of 1024 (JAX's
+    # _BWD_MIN_SEQ); never a CUDA-core template
+    nmg_routed = {"flash_attention_lse": 10 * STEPS, "flash_attention_lse_core": 0,
+                  "flash_bwd_dq": 5 * STEPS, "flash_bwd_dkv": 5 * STEPS,
+                  "flash_bwd_dq_core": 0, "flash_bwd_dkv_core": 0}
+    print(f"NMG path gradient launches: {json.dumps({n: counts[n] for n in BWD_NAMES})} "
+          f"(predicted {json.dumps(nmg_routed)})")
+    if {n: counts[n] for n in BWD_NAMES} != nmg_routed:
+        failures.append(f"the NMG path's gradient kernels were not launched as predicted "
+                        f"({nmg_routed}): {counts}")
     # the inversion's 50 one-row calls and the controlled call of each step
     check_forward_routing(counts, "NMG", failures, packed=10 * (STEPS + STEPS))
 
@@ -1518,7 +1583,9 @@ def phase_exact_path():
     """Kernels 6 and 7's own path: no editing path of either package runs
     the exact forwards, so each is driven as JAX's callers drive its twin,
     once at each of their shapes, the counts at 0 before and read after; each
-    output checked finite and within tolerance of ``reference_attention``."""
+    output checked finite and within tolerance of its plain version at the
+    kernel's key tile (``flash_attention_exact_reference``, before its final
+    rounding, one output ulp; packed float32 1e-4)."""
     failures = []
     g = torch.Generator(device="cuda").manual_seed(23)
     inputs = [_qkv(g, qshape, sk, torch.bfloat16) for qshape, sk in EXACT_CALLER_SHAPES]
@@ -1530,12 +1597,12 @@ def phase_exact_path():
     torch.cuda.synchronize()
     counts = read_launches()
     for (q, k, v), out in zip(inputs, outs):
-        want = flash.reference_attention(q.float(), k.float(), v.float())
+        want = _forward_plain(q, k, v, exact=True)
         err = (out.float() - want).abs().max().item()
         if not (bool(torch.isfinite(out).all()) and err <= BF16_ULP * want.abs().max().item()):
             failures.append(f"exact forward path q{list(q.shape)} k{list(k.shape)}: err {err:.3e}")
     for args, out in zip(packed, packed_outs):
-        err = (out - flash.flash_attention_packed_reference(*args)).abs().max().item()
+        err = (out - flash.flash_attention_packed_exact_reference(*args)).abs().max().item()
         if not (bool(torch.isfinite(out).all()) and err <= F32_TOL):
             failures.append(f"exact packed path q{list(args[0].shape)}: err {err:.3e}")
     print(f"exact forward path (JAX flash_attention's callers' shapes "
@@ -1551,8 +1618,12 @@ def phase_exact_path():
 def phase_golden(pipe):
     """README golden numerics on the card, SD-1.5 widths in float32, then the
     edit decoded: the float32 path of the CUDA-core bounded template (the
-    UNet's packed self-attentions, the VAE's head-split one), its launches
-    counted from 0.  Returns (counts, failures)."""
+    UNet's packed self-attentions), its launches counted from 0.  The VAE's
+    one-head attention at 512 px (4096 tokens, 16 MiB of float32 K/V) is
+    outside the K/V budget and takes ``reference_attention``, as on the TPU;
+    the edit decoded once more at 256 px (a 32 x 32 latent: 1024 tokens,
+    4 MiB) takes the template's head-split bounded forward.  Returns (counts,
+    failures)."""
     g = torch.Generator(device="cuda").manual_seed(11)
     x0 = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
     xts = sample_xts_from_x0(pipe.schedule, x0, g)[None]
@@ -1567,16 +1638,20 @@ def phase_golden(pipe):
         local_blend=neutral_blend(STEPS, 8, 16).to("cuda"), after_skip_steps=STEPS)
     image = pipe.vae_decode(edited)
     torch.cuda.synchronize()
+    at_512 = read_launches()["flash_attention_core"]
+    small = pipe.vae_decode(edited[:, ::2, ::2])
+    torch.cuda.synchronize()
     counts = read_launches()
     err = (edited - xts[:, 0]).abs().max().item()
-    finite = bool(torch.isfinite(image).all())
-    ok = (err <= GOLDEN_TOL and finite and counts["flash_attention_core"] == 1
+    finite = bool(torch.isfinite(image).all()) and bool(torch.isfinite(small).all())
+    ok = (err <= GOLDEN_TOL and finite and at_512 == 0 and counts["flash_attention_core"] == 1
           and counts["flash_packed_bounded_core"] == 2 * 10 * STEPS
           and counts["flash_attention"] == counts["flash_packed_bounded"] == 0)
     print(f"golden identity (f32, TF32 off, {STEPS} steps, {time.perf_counter() - t0:.1f} s): "
           f"max|edited - xts[0]| {err:.3e} (tol {GOLDEN_TOL:g}); decoded {list(image.shape)} "
-          f"finite={finite}; CUDA-core bounded launches head-split "
-          f"{counts['flash_attention_core']} (predicted 1), packed "
+          f"and {list(small.shape)} finite={finite}; CUDA-core bounded launches head-split "
+          f"{at_512} at 512 px (predicted 0: outside the K/V budget) and "
+          f"{counts['flash_attention_core'] - at_512} at 256 px (predicted 1), packed "
           f"{counts['flash_packed_bounded_core']} (predicted {2 * 10 * STEPS}: two UNet calls "
           f"a step x 10), tensor-core "
           f"{counts['flash_attention']} / {counts['flash_packed_bounded']} (predicted 0) "
@@ -1587,7 +1662,10 @@ def phase_golden(pipe):
 @contextlib.contextmanager
 def plain_versions():
     """Substitute every kernel wrapper by its plain version: the package
-    itself has no switch for this, and no CUDA path of it ever does so."""
+    itself has no switch for this, and no CUDA path of it ever does so.
+    ``flash_diff_backward`` keeps the card's routing: its kernel route calls
+    ``flash_attention_backward_cuda``, substituted here, and its other route
+    is autograd of ``reference_attention``, plain already."""
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (attn, "flash_attention_cuda", flash.flash_attention_bounded_reference),
@@ -1618,8 +1696,9 @@ def phase_unet_gradient(pipe):
     substituted = read_launches() == counts
     rel = ((grad_k - grad_p).abs().max() / grad_p.abs().max()).item()
     rel_eps = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
-    launched = (all(counts[k] > 0 for k in ("groupnorm", "flash_attention_lse",
+    launched = (all(counts[k] > 0 for k in ("groupnorm", "flash_attention_lse_core",
                                             "flash_bwd_dq_core", "flash_bwd_dkv_core"))
+                and counts["flash_attention_lse"] == 0
                 and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0)
     ok = (rel <= UNET_GRAD_TOL and substituted and launched
           and bool(torch.isfinite(grad_k).all()))
@@ -1663,10 +1742,15 @@ def phase_nmg_identity(pipe):
     print(f"NMG identity (f32, TF32 off, {STEPS} steps, loop {t1 - t0:.1f} s): max|x_edit - "
           f"DDIM sampling| / max|x| {err:.3e} (tol {NMG_EDIT_TOL:g}; max|x| {scale:.3e}) "
           f"{'OK' if ok else 'FAIL'}")
-    # float32: the LSE forward and the CUDA-core backward, 10 layers a step
+    # float32: the CUDA-core LSE forward, 10 layers a step, and the
+    # CUDA-core backward for the 5 of 4096 tokens (autograd of
+    # reference_attention for the 5 of 1024)
     bwd = {n: counts[n] for n in BWD_NAMES}
-    print(f"NMG identity launches: {bwd}")
-    if tuple(bwd.values()) != (10 * STEPS, 0, 0, 10 * STEPS, 10 * STEPS):
+    routed = {"flash_attention_lse": 0, "flash_attention_lse_core": 10 * STEPS,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_core": 5 * STEPS,
+              "flash_bwd_dkv_core": 5 * STEPS}
+    print(f"NMG identity launches: {bwd} (predicted {routed})")
+    if bwd != routed:
         ok = False
     return counts, [] if ok else [f"NMG identity error {err:.3e}, launches {bwd}"]
 
@@ -1754,17 +1838,24 @@ def phase_masactrl_identity(pipe):
     return [] if ok else [f"MasaCtrl identity error {err:.3e}"]
 
 
-# Device-time classes of a step, by kernel name (first match wins).  On the
-# bf16 paths the CUDA-core forward template runs only as row 3's LSE forward.
-KERNEL_CLASSES = (("flash kernel (tensor cores)", r"flash_fwd_tc_kernel"),
+# Device-time classes of a step, by kernel name (first match wins).  Row 3,
+# the LSE forward, is the tensor-core forward kernel instantiated with
+# LSE = true (its last template argument; "Lb1E" mangled); on the bf16 paths
+# the CUDA-core forward template runs nowhere.
+KERNEL_CLASSES = (("flash LSE forward (tensor cores)",
+                   r"flash_fwd_tc_kernel(<[^>]*true>|I.*Lb1EE)"),
+                  ("flash kernel (tensor cores)", r"flash_fwd_tc_kernel"),
                   ("flash backward (tensor cores)", r"flash_bwd_(dq|dkv)_tc_kernel"),
                   ("flash backward (CUDA cores)", r"flash_bwd_(dq|dkv)_kernel"),
-                  ("flash LSE forward (CUDA cores)", r"flash_fwd_kernel"),
+                  ("flash forward (CUDA cores)", r"flash_fwd_kernel"),
                   ("GroupNorm kernel", r"gn_slice_kernel|gn_apply_kernel"),
                   ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
                   ("convolutions", r"fprop|conv|dgrad"),
                   ("GEMMs", r"gemm|nvjet|cutlass"),
-                  ("copies", r"copy|Copy|Memcpy|Memset"))
+                  ("copies", r"copy|Copy|Memcpy|Memset"),
+                  # reference_attention's softmax, forward and autograd: the
+                  # cross-attentions and the backward below _BWD_MIN_SEQ
+                  ("softmax", r"[sS]oft[mM]ax"))
 
 
 def _union_us(intervals):
@@ -1953,7 +2044,8 @@ def main(argv=None) -> int:
         entry("groupnorm", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100", "flagship"),
         entry("groupnorm_streamed", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100",
               "flagship"),
-        entry("flash_attention_lse", "cuda", fwd_cu, f"{jax_flash}:464", "nmg"),
+        entry("flash_attention_lse", tc_route, tc_cu, f"{jax_flash}:464", "nmg"),
+        entry("flash_attention_lse_core", "cuda", fwd_cu, f"{jax_flash}:464", "nmg_f32"),
         entry("flash_bwd_dq", tc_route, bwd_tc_cu, f"{jax_flash}:553", "nmg"),
         entry("flash_bwd_dkv", tc_route, bwd_tc_cu, f"{jax_flash}:593", "nmg"),
         entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "nmg_f32"),

@@ -1,18 +1,20 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores (float32
 // FMAs): softmax(q k^T / sqrt(d)) v, optionally with the per-query base-2
 // log-sum-exp as a second output, in one of two softmax modes chosen at
-// compile time (Mode below).  It serves float32 inputs, row 3 (either
-// dtype) and the exact mode; bf16 inputs of row 1 go to the tensor-core
-// kernel of flash_attention_tc.cu (the wrappers dispatch by dtype).
+// compile time (Mode below).  It serves float32 inputs of rows 1 and 3 and
+// the exact mode in either dtype; bf16 inputs of rows 1 and 3 go to the
+// tensor-core kernel of flash_attention_tc.cu (the wrappers dispatch by
+// dtype).
 //
 // Bounded (max-free) replaces the TPU kernels of
 // hedit_tpu/ops/flash_attention.py
 //   row 1 in float32: _flash_bounded_kernel (wrapper flash_attention_bounded,
 //          reached through hedit_tpu/ops/attention.py:fused_attention); entry
 //          point hedit_flash_attention_fwd, wrapper flash_attention_cuda;
-//   row 3: _flash_bounded_lse_kernel (wrapper _flash_bounded_fwd_lse, the
-//          forward of flash_attention_diff on the NMG path); entry point
-//          hedit_flash_attention_fwd_lse, wrapper flash_attention_lse_cuda;
+//   row 3 in float32: _flash_bounded_lse_kernel (wrapper
+//          _flash_bounded_fwd_lse, the forward of flash_attention_diff on the
+//          NMG path); entry point hedit_flash_attention_fwd_lse, wrapper
+//          flash_attention_lse_cuda;
 // and, on packed heads (below), row 1 in float32 as the paths reach it: JAX
 // sends every UNet self-attention of >= 1024 tokens to flash_attention_diff,
 // whose primal is row 1; entry point hedit_flash_attention_fwd_packed_bounded,
@@ -22,13 +24,10 @@
 // by the wrapper; not this kernel's own key tile, or the saturation would
 // land on other keys than on the TPU).  Then one pass over all keys with
 // shift = m0 + 16 and p = exp2(min(s - shift, 100)): no running max, no
-// rescale, no dependency between key tiles but the sum.  As in the TPU
-// kernel, q * scale is rounded to the input dtype, and p is rounded to it
-// before both the PV product and the row sum (the TPU kernel sums p through
-// a ones-column of v); the sum is floored at 1.2e-38, and
-// lse2 = shift + log2(sum).  The two modes agree wherever no key scores more
-// than 116 log2 units above its row's anchor max; beyond that the bounded
-// form saturates such keys at 2^100 as the TPU kernel does.
+// rescale, no dependency between key tiles but the sum.  The sum is floored
+// at 1.2e-38, and lse2 = shift + log2(sum).  The two modes agree wherever no
+// key scores more than 116 log2 units above its row's anchor max; beyond
+// that the bounded form saturates such keys at 2^100 as the TPU kernel does.
 //
 // Exact (running max m and rescale of the accumulator and the row sum l)
 // replaces
@@ -38,7 +37,13 @@
 //   row 7: _flash_packed_kernel (wrapper flash_attention_packed, on no path
 //          of either package); entry point hedit_flash_attention_fwd_packed,
 //          wrapper flash_attention_packed_cuda.
-// q * scale stays float32 and p float32 here.
+// The running max is taken over each key tile of BK keys, so the plain
+// version (flash_attention_exact_reference) runs at the same key block.
+//
+// In both modes, as in the TPU kernels, the scale 1/sqrt(d) * log2(e) (in
+// double, then rounded to float) is rounded to the input dtype, q * scale
+// is rounded to it, and p is rounded to it before both the PV product and
+// the row sum (the TPU kernels sum p through a ones-column of v).
 //
 // Packed heads (row 7, and row 1 on the paths): q [B, Sq, H*D], k and v
 // [B, Sk, H*D] -> out [B, Sq, H*D], head h in columns h*D .. (h+1)*D.  The
@@ -79,10 +84,10 @@
 // the output, so every shared-memory word it loads feeds several FMAs, and
 // the output accumulator never leaves registers.  Odd row strides keep the
 // strided shared-memory reads free of bank conflicts.  bf16 row 1 runs on the
-// tensor cores (flash_attention_tc.cu); row 3 and the exact mode follow it
-// in a later change.  The bounded prologue computes the
-// anchor window's scores a second time (no V, no exp2): anchor / Sk more
-// QK^T work, 1/8 at the UNet's 4096 keys and 1/4 for the VAE's.
+// tensor cores (flash_attention_tc.cu), and so does row 3; the exact mode
+// stays here.  The bounded prologue computes the anchor window's scores a
+// second time (no V, no exp2): anchor / Sk more QK^T work, 1/8 at the UNet's
+// 4096 keys and 1/4 for the VAE's.
 //
 // Block layout: 128 threads as a TQ x TK grid (tid = tq * TK + tk).  A block
 // owns BQ = TQ * RQ query rows of one (batch, head) and loops over key tiles
@@ -156,15 +161,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kg = k + b * ks.batch + h * ks.head;
   const T* vg = v + b * vs.batch + h * vs.head;
 
-  // bounded: q * scale in the input dtype, as the TPU kernel scales q
-  const float qsc = kBounded ? to_float(from_float<T>(qscale)) : qscale;
+  // q * scale in the input dtype, as the TPU kernels scale q
+  const float qsc = to_float(from_float<T>(qscale));
   for (int e = tid; e < BQ * D; e += kThreads) {
     const int r = e / D, c = e - r * D;
     float x = 0.f;
-    if (q0 + r < sq) {
-      x = to_float(qg[r * qs.row + c]) * qsc;
-      if (kBounded) x = to_float(from_float<T>(x));
-    }
+    if (q0 + r < sq) x = to_float(from_float<T>(to_float(qg[r * qs.row + c]) * qsc));
     q_s[r * dp + c] = x;
   }
 
@@ -276,7 +278,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
+        // p in the input dtype, as on the TPU; masked keys give 0
+        const float p = to_float(from_float<T>(exp2f(s[i][j] - m_new)));
         p_s[(tq * RQ + i) * PS + tk + TK * j] = p;
         sum += p;
       }
@@ -331,9 +334,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + Cfg::BQ - 1) / Cfg::BQ, lay.bh);
-  // Bounded: JAX's constant, (1 / sqrt(d)) * log2(e) in double, then rounded
-  const float qscale = M == Mode::Bounded ? float(1.0 / sqrt(double(d)) * 1.4426950408889634)
-                                          : kLog2e / sqrtf(float(d));
+  // JAX's constant, (1 / sqrt(d)) * log2(e) in double, then rounded
+  const float qscale = float(1.0 / sqrt(double(d)) * 1.4426950408889634);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, lay.q, lay.k, lay.v, lay.out,
@@ -388,7 +390,8 @@ extern "C" int hedit_flash_attention_fwd(const void* q, const void* k,
 }
 
 // Row 3: the same forward, also writing lse2 [BH, Sq] float32 (base-2
-// log-sum-exp of the scaled scores of each query, shift + log2(sum)).
+// log-sum-exp of the scaled scores of each query, shift + log2(sum)).  The
+// wrapper sends float32 here and bf16 to hedit_flash_attention_fwd_lse_tc.
 extern "C" int hedit_flash_attention_fwd_lse(const void* q, const void* k,
                                              const void* v, void* out, void* lse,
                                              int bh, int sq, int sk, int d, int anchor,

@@ -1,5 +1,6 @@
 // Bounded (max-free) flash-attention forward in bfloat16 on Hopper's tensor
-// cores (sm_90a): softmax(q k^T / sqrt(d)) v in the TPU kernel's arithmetic.
+// cores (sm_90a): softmax(q k^T / sqrt(d)) v in the TPU kernel's arithmetic,
+// optionally with the base-2 log-sum-exp of each row as a second output.
 //
 // Replaces, for bf16 inputs, the TPU kernel _flash_bounded_kernel
 // (hedit_tpu/ops/flash_attention.py:220, wrapper flash_attention_bounded)
@@ -9,9 +10,19 @@
 //     hedit_flash_attention_fwd_packed_bounded_tc, wrapper
 //     flash_attention_packed_bounded_cuda (every UNet self-attention of
 //     >= 1024 tokens without a gradient: JAX sends those to
-//     flash_attention_diff, whose primal is the same kernel).
-// float32 inputs, the LSE forward (row 3) and the exact mode stay on the
-// CUDA-core template of flash_attention.cu.
+//     flash_attention_diff, whose primal is the same kernel);
+// and the TPU kernel _flash_bounded_lse_kernel (:464, row 3, wrapper
+// _flash_bounded_fwd_lse: the forward of flash_attention_diff, every
+// differentiated self-attention of >= 1024 tokens on the NMG path)
+//   head-split: entry point hedit_flash_attention_fwd_lse_tc, wrapper
+//     flash_attention_lse_cuda.  After the row sum is reduced across its
+//     quad, lane t = 0 of the row's quad (of column quarter 0 at d = 512)
+//     writes lse2 = shift + log2(max(sum, 1.2e-38)): the same kernel, one
+//     float a row more, instantiated with LSE = true (so the other entries'
+//     code is untouched and a trace tells the two apart).  Its tiles are its
+//     own (forward_lse_tc): one image's grid is small.
+// float32 inputs and the exact mode stay on the CUDA-core template of
+// flash_attention.cu.
 //
 // The function, exactly as flash_attention.cu computes it in Bounded mode:
 // q * scale with scale = 1/sqrt(d) * log2(e) formed in double and rounded to
@@ -70,10 +81,11 @@
 // furthest from its bound.
 //
 // Contract: bf16 only (dtype 1).  Head-split: q [BH, Sq, D], k and v
-// [BH, Sk, D], contiguous; packed: as flash_attention.cu's packed entry
-// points (packed_layout).  Every pointer 16-byte aligned and every element
-// stride a multiple of 8 (cp.async copies 16 bytes); D one of 40, 80, 512;
-// any Sq, Sk >= 1; anchor >= 1.  Anything else returns -1.
+// [BH, Sk, D], contiguous, lse2 [BH, Sq] float32 (the LSE entry); packed:
+// as flash_attention.cu's packed entry points (packed_layout).  Every
+// pointer 16-byte aligned and every element stride a multiple of 8
+// (cp.async copies 16 bytes); D one of 40, 80, 512; any Sq, Sk >= 1;
+// anchor >= 1.  Anything else returns -1.
 
 #include <cmath>
 
@@ -114,10 +126,11 @@ struct TcTile {
   }
 };
 
-template <int D, int WR, int WC, int BK, int MINB>
+template <int D, int WR, int WC, int BK, int MINB, bool LSE>
 __global__ void __launch_bounds__(32 * WR * WC, MINB)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, Strides qs, Strides ks,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, Strides qs, Strides ks,
                     Strides vs, Strides os, int heads, int sq, int sk, float qscale,
                     int anchor) {
   using C = TcTile<D, WR, WC, BK, MINB>;
@@ -319,6 +332,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float den = fmaxf(l[r], kDenomFloor);
     const int row = q0 + wr * 16 + g + 8 * r;
     if (row >= sq) continue;
+    // every lane of the quad holds the row's sum; the warps of a row group
+    // hold the same shift and sum
+    if (LSE && t == 0 && wc == 0) lse[size_t(bh) * sq + row] = shift[r] + log2f(den);
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(og + row * os.row + wc * DO + n * 8 + 2 * t) =
@@ -327,11 +343,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int WR, int WC, int BK, int MINB>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, const Layout& lay,
-                      int sq, int sk, int anchor, cudaStream_t stream) {
+template <int D, int WR, int WC, int BK, int MINB, bool LSE = false>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+                      const Layout& lay, int sq, int sk, int anchor, cudaStream_t stream) {
   using C = TcTile<D, WR, WC, BK, MINB>;
-  auto kernel = flash_fwd_tc_kernel<D, WR, WC, BK, MINB>;
+  auto kernel = flash_fwd_tc_kernel<D, WR, WC, BK, MINB, LSE>;
   const int smem = int(C::smem_bytes());
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -341,7 +357,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, co
   const float qscale = float(1.0 / sqrt(double(D)) * 1.4426950408889634);
   kernel<<<grid, C::kThreadsTc, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lay.q, lay.k, lay.v, lay.out, lay.heads, sq, sk, qscale, anchor);
+      static_cast<bf16*>(out), lse, lay.q, lay.k, lay.v, lay.out, lay.heads, sq, sk, qscale,
+      anchor);
   return cudaGetLastError();
 }
 
@@ -349,20 +366,47 @@ bool aligned16(const void* p) { return reinterpret_cast<unsigned long long>(p) %
 
 bool strides_of_8(const Strides& s) { return s.batch % 8 == 0 && s.head % 8 == 0 && s.row % 8 == 0; }
 
+bool takes(const void* q, const void* k, const void* v, void* out, const Layout& lay, int sq,
+           int sk, int anchor, int dtype) {
+  if (dtype != 1 || lay.bh < 1 || lay.bh > 65535 || sq < 1 || sk < 1 || anchor < 1) return false;
+  if (!rows_fit(lay, sq, sk)) return false;
+  // cp.async and the q loads move 16 bytes
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out)) return false;
+  return strides_of_8(lay.q) && strides_of_8(lay.k) && strides_of_8(lay.v) &&
+         strides_of_8(lay.out);
+}
+
 int forward_tc(const void* q, const void* k, const void* v, void* out, const Layout& lay, int sq,
                int sk, int d, int anchor, int dtype, void* stream) {
-  if (dtype != 1 || lay.bh < 1 || lay.bh > 65535 || sq < 1 || sk < 1 || anchor < 1) return -1;
-  if (!rows_fit(lay, sq, sk)) return -1;
-  // cp.async and the q loads move 16 bytes
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out)) return -1;
-  if (!strides_of_8(lay.q) || !strides_of_8(lay.k) || !strides_of_8(lay.v) ||
-      !strides_of_8(lay.out))
-    return -1;
+  if (!takes(q, k, v, out, lay, sq, sk, anchor, dtype)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 40: return int(launch_tc<40, 4, 1, 64, 5>(q, k, v, out, lay, sq, sk, anchor, s));
-    case 80: return int(launch_tc<80, 8, 1, 64, 2>(q, k, v, out, lay, sq, sk, anchor, s));
-    case 512: return int(launch_tc<512, 2, 4, 32, 1>(q, k, v, out, lay, sq, sk, anchor, s));
+    case 40:
+      return int(launch_tc<40, 4, 1, 64, 5>(q, k, v, out, nullptr, lay, sq, sk, anchor, s));
+    case 80:
+      return int(launch_tc<80, 8, 1, 64, 2>(q, k, v, out, nullptr, lay, sq, sk, anchor, s));
+    case 512:
+      return int(launch_tc<512, 2, 4, 32, 1>(q, k, v, out, nullptr, lay, sq, sk, anchor, s));
+    default: return -1;
+  }
+}
+
+// Row 3's tiles, chosen at the NMG gradient call's one-image grids by
+// probes/flash_lse_tiles.py (which rewrites these lines to time others): at
+// [1, 8, 1024, 80] 64-row blocks (128 blocks on 132 SMs) beat the packed
+// forward's 128-row ones (64 blocks) by a fifth; at [1, 8, 4096, 40] 32-row
+// blocks took twice as long as 64-row ones.
+int forward_lse_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+                   const Layout& lay, int sq, int sk, int d, int anchor, int dtype, void* stream) {
+  if (lse == nullptr || !takes(q, k, v, out, lay, sq, sk, anchor, dtype)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 40:
+      return int(launch_tc<40, 4, 1, 64, 5, true>(q, k, v, out, lse, lay, sq, sk, anchor, s));
+    case 80:
+      return int(launch_tc<80, 4, 1, 64, 3, true>(q, k, v, out, lse, lay, sq, sk, anchor, s));
+    case 512:
+      return int(launch_tc<512, 2, 4, 32, 1, true>(q, k, v, out, lse, lay, sq, sk, anchor, s));
     default: return -1;
   }
 }
@@ -379,6 +423,15 @@ extern "C" int hedit_flash_attention_fwd_tc(const void* q, const void* k, const 
                                             void* out, int bh, int sq, int sk, int d,
                                             int anchor, int dtype, void* stream) {
   return forward_tc(q, k, v, out, head_split(bh, sq, sk, d), sq, sk, d, anchor, dtype, stream);
+}
+
+// Row 3 in bf16: the bounded forward, head-split, also writing lse2 [BH, Sq]
+// float32; arguments as flash_attention.cu's hedit_flash_attention_fwd_lse.
+extern "C" int hedit_flash_attention_fwd_lse_tc(const void* q, const void* k, const void* v,
+                                                void* out, void* lse, int bh, int sq, int sk,
+                                                int d, int anchor, int dtype, void* stream) {
+  return forward_lse_tc(q, k, v, out, static_cast<float*>(lse), head_split(bh, sq, sk, d), sq,
+                        sk, d, anchor, dtype, stream);
 }
 
 // Row 1 in bf16 on packed heads.

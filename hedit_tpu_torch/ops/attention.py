@@ -1,15 +1,18 @@
 """Attention dispatch with control hooks (port of ``hedit_tpu/ops/attention.py``).
 
 * fused path: ``softmax(q k^T) v`` without materialised probabilities.  A CUDA
-  tensor with Sq, Sk >= ``FLASH_MIN_SEQ`` goes to the CUDA flash kernels, all
-  in the bounded (max-free) form the JAX package's ``flash_attention_diff``
-  computes there: with several heads and no recorded gradient to the packed
-  bounded forward, which reads the ``[B, S, H*D]`` projections as they are
-  (no head-split copies); with one head (the VAE, whose head split is a
-  view) to the head-split forward; under a recorded gradient to the
-  head-split LSE forward and the backward.  Everything else, the CPU
-  included, goes to the exact plain version, as the JAX package's routing
-  does off the TPU.  The P2P self edit (a q/k
+  tensor goes to the CUDA flash kernels exactly where the JAX package takes
+  its Pallas kernel on the TPU (``flash_route``: Sq, Sk >= ``FLASH_MIN_SEQ``
+  and the K/V pair within ``flash_kv_fits``), all in the bounded (max-free)
+  form the JAX package's ``flash_attention_diff`` computes there: with
+  several heads and no recorded gradient to the packed bounded forward,
+  which reads the ``[B, S, H*D]`` projections as they are (no head-split
+  copies); with one head (the VAE, whose head split is a view) to the
+  head-split forward; under a recorded gradient to ``flash_attention_diff``
+  (the head-split LSE forward, and a backward routed as JAX's).  Everything
+  else, the CPU included, goes to the exact ``reference_attention``, as the
+  JAX package's routing does off the TPU and outside its predicates.  The
+  P2P self edit (a q/k
   row-select, ``map_qkv``) and cross edit (a linear map over the token axis,
   ``linear_token_edit``) both ride this path.
 * probability path: at the P2P store layers only for the (cond_start,
@@ -33,19 +36,23 @@ import torch
 from hedit_tpu_torch.control.base import NO_CONTROL, LayerTag
 from hedit_tpu_torch.ops.flash_attention import (
     flash_attention_cuda, flash_attention_diff, flash_attention_packed_bounded_cuda,
-    reference_attention,
+    flash_kv_fits, reference_attention,
 )
 
-# Shortest query and key length routed to the CUDA flash kernels, with or
-# without a recorded gradient.  For the differentiated call, ``chip_smoke.py``
-# on an H100 80GB HBM3 at 700 W (bfloat16) read the tensor-core backward
-# kernels well below the plain version at both of the UNet's lengths (dq +
-# dk/dv 0.311 against 7.975 ms at [1, 8, 4096, 40], 0.091 against 0.772 ms
-# at [1, 8, 1024, 80]), and the plain version keeps the [8, S, S]
-# probabilities between forward and backward where the kernels keep the
-# output and one float a row: no measured reason for a second, longer
-# threshold.
+# Shortest query and key length routed to the CUDA flash kernels, JAX's value.
+# The routing copies JAX's TPU routing rather than the card's speeds: it
+# decides which function a call computes (bounded or exact, and the
+# gradient's roundings), so the backward's own threshold (``_BWD_MIN_SEQ``,
+# ``flash_diff_backward``) and the K/V budget (``flash_kv_fits``) are JAX's
+# too, though the card's kernels would take those calls.
 FLASH_MIN_SEQ = 1024
+
+
+def flash_route(sq: int, sk: int, d: int, itemsize: int) -> bool:
+    """Whether a CUDA attention of these lengths, head dim and dtype size
+    takes a flash kernel: where ``hedit_tpu/ops/attention.py:fused_attention``
+    takes its Pallas kernel on the TPU."""
+    return min(sq, sk) >= FLASH_MIN_SEQ and flash_kv_fits(sk, d, itemsize)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -77,12 +84,13 @@ def _records_gradient(q, k, v) -> bool:
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[B, H, S, D] attention routed by device and sequence length.  Under a
+    """[B, H, S, D] attention routed by device and ``flash_route``.  Under a
     recorded gradient the kernel path is ``flash_attention_diff`` (the LSE
-    forward, dq and dk / dv kernels); the plain version's gradient is
-    PyTorch's own autograd (the cross-attentions, Sk = 77, and the short
-    self-attentions)."""
-    if q.is_cuda and min(q.shape[2], k.shape[2]) >= FLASH_MIN_SEQ:
+    forward, and dq and dk / dv kernels from ``_BWD_MIN_SEQ`` tokens on);
+    ``reference_attention``'s gradient is PyTorch's own autograd (the
+    cross-attentions, Sk = 77, the short self-attentions and the float32
+    VAE mid block)."""
+    if q.is_cuda and flash_route(q.shape[2], k.shape[2], q.shape[3], q.element_size()):
         if _records_gradient(q, k, v):
             return flash_attention_diff(q, k, v)
         return flash_attention_cuda(q, k, v)
@@ -92,10 +100,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int) -> torch.Tensor:
     """[B, S, H*D] attention -> [B, Sq, H*D].  A CUDA tensor of several heads
-    and kernel-sized sequences without a recorded gradient goes to the packed
+    that ``flash_route`` sends to a kernel (on the per-head D, as JAX's
+    head-split call sees it) without a recorded gradient goes to the packed
     bounded kernel as it is; everything else is split into heads (a view for
     one head) and routed by ``fused_attention``."""
-    if (q.is_cuda and heads > 1 and min(q.shape[1], k.shape[1]) >= FLASH_MIN_SEQ
+    if (q.is_cuda and heads > 1
+            and flash_route(q.shape[1], k.shape[1], q.shape[2] // heads, q.element_size())
             and not _records_gradient(q, k, v)):
         return flash_attention_packed_bounded_cuda(q, k, v, heads)
     return merge_heads(fused_attention(split_heads(q, heads), split_heads(k, heads),

@@ -4,18 +4,19 @@ their plain versions.
 Port of ``hedit_tpu/ops/flash_attention.py``.  Two CUDA forward sources:
 
 * ``csrc/flash_attention_tc.cu``: the **bounded** (max-free) forward in
-  bfloat16 on the tensor cores (``mma.sync``), the TPU kernel
-  ``_flash_bounded_kernel`` as every bf16 path runs it.  Each query row's
-  shift is anchored on the first ``anchor`` keys (``bounded_anchor``: the key
-  block the JAX wrapper picks at that shape), ``shift = m0 + 16`` in base-2
-  units, and every key contributes ``p = exp2(min(s - shift, 100))`` with no
-  running max and no rescale; the denominator is floored at ``1.2e-38``.
+  bfloat16 on the tensor cores (``mma.sync``), the TPU kernels
+  ``_flash_bounded_kernel`` and, with the base-2 log-sum-exp as a second
+  output, ``_flash_bounded_lse_kernel``, as every bf16 path runs them.  Each
+  query row's shift is anchored on the first ``anchor`` keys
+  (``bounded_anchor``: the key block the JAX wrapper picks at that shape),
+  ``shift = m0 + 16`` in base-2 units, and every key contributes
+  ``p = exp2(min(s - shift, 100))`` with no running max and no rescale; the
+  denominator is floored at ``1.2e-38``.
 * ``csrc/flash_attention.cu``: one CUDA-core template (float32 FMAs) that
-  serves the same bounded forward for **float32** inputs, the bounded
-  forward with the log-sum-exp (``_flash_bounded_lse_kernel``, either
-  dtype), and the **exact** mode (running max and rescale: the TPU kernels
-  ``_flash_kernel`` and ``_flash_packed_kernel``, on no path of either
-  package).
+  serves the same two bounded forwards for **float32** inputs, and the
+  **exact** mode (running max and rescale: the TPU kernels ``_flash_kernel``
+  and ``_flash_packed_kernel``, on no path of either package) in either
+  dtype, with their bf16 roundings of q * scale and p.
 
 The wrappers:
 
@@ -29,13 +30,17 @@ The wrappers:
   the CUDA-core template (``bounded_entry``); the tensor-core kernel's
   operands must pass ``check_tc_operands``;
 * ``flash_attention_lse_cuda``: the bounded forward with the base-2
-  log-sum-exp ``lse2 = shift + log2(denom)`` of each row (CUDA-core
-  template), the forward of ``flash_attention_diff``, whose backward launches
-  a dq and a dk / dv kernel (the TPU kernels ``_flash_bwd_dq_kernel`` and
-  ``_flash_bwd_dkv_kernel``; ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``):
-  bf16 at the UNet's head dims on the tensor cores
-  (``csrc/flash_attention_bwd_tc.cu``), float32 and the VAE's d = 512 on the
-  CUDA-core template (``csrc/flash_attention_bwd.cu``), by ``bwd_entry``;
+  log-sum-exp ``lse2 = shift + log2(denom)`` of each row (bf16 on the tensor
+  cores, float32 on the template, by ``lse_entry``), the forward of
+  ``flash_attention_diff``.  Its backward (``flash_diff_backward``) routes
+  as JAX's ``_flash_diff_bwd`` does on the TPU: where the K/V pairs fit
+  ``flash_kv_fits`` and both lengths reach ``_BWD_MIN_SEQ``, a dq and a
+  dk / dv kernel (the TPU kernels ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``; ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``:
+  bf16 at the UNet's head dims on the tensor cores,
+  ``csrc/flash_attention_bwd_tc.cu``; float32 and the VAE's d = 512 on the
+  CUDA-core template, ``csrc/flash_attention_bwd.cu``; by ``bwd_entry``),
+  elsewhere the gradient of ``reference_attention`` by autograd;
 * ``flash_attention_exact_cuda`` (head-split) and
   ``flash_attention_packed_cuda`` (packed heads): the exact mode.
 
@@ -45,22 +50,22 @@ at 2^100 as the TPU kernel does.
 
 The notes at the head of the sources give the designs and what bounds
 them on the H100.  Beside each kernel stands its plain PyTorch version
-(the bounded and the head-split exact forward wrappers take theirs for CPU
-tensors): ``flash_attention_bounded_reference``,
-``flash_attention_lse_reference`` and
-``flash_attention_packed_bounded_reference`` (bounded, JAX's arithmetic
-step by step), ``reference_attention`` (exact, softmax in float32),
-``flash_attention_packed_reference`` and
+(the forward wrappers take theirs for CPU tensors):
+``flash_attention_bounded_reference``, ``flash_attention_lse_reference``
+and ``flash_attention_packed_bounded_reference`` (bounded, JAX's arithmetic
+step by step), ``flash_attention_exact_reference`` and
+``flash_attention_packed_exact_reference`` (exact, JAX's arithmetic step
+by step over key blocks of the kernel's tile) and
 ``flash_attention_backward_reference`` (the backward by its explicit
-formulas, not by autograd of the forward).  The TPU kernels' VMEM residency
-rule (``flash_kv_fits``) has no counterpart: the CUDA kernels stream tiles
-through shared memory and have a tile shape for each head dimension they
-take.
+formulas, not by autograd of the forward).  ``reference_attention`` (and
+``flash_attention_packed_reference`` on packed heads) is JAX's
+``reference_attention``: the route of every attention that takes no
+kernel, and the oracle.
 
-``ops/attention.py`` routes a CUDA tensor by its sequence lengths, its heads
-and whether a gradient is recorded to a kernel or to the plain version
-(``FLASH_MIN_SEQ``); a kernel wrapper raises on any CUDA input it does not
-take and never falls back.
+``ops/attention.py`` routes a CUDA tensor to a kernel exactly where the JAX
+package takes a Pallas kernel on the TPU (``FLASH_MIN_SEQ`` and
+``flash_kv_fits``), and everything else to ``reference_attention``; a kernel
+wrapper raises on any CUDA input it does not take and never falls back.
 """
 
 from __future__ import annotations
@@ -77,7 +82,8 @@ launches_exact = 0    # exact forward, head-split
 launches_packed = 0   # exact forward on packed heads
 launches_packed_bounded = 0      # bounded forward on packed heads, CUDA cores
 launches_packed_bounded_tc = 0   # the same in bf16 on the tensor cores
-launches_lse = 0      # bounded forward with the log-sum-exp
+launches_lse = 0      # bounded forward with the log-sum-exp, CUDA cores (float32)
+launches_lse_tc = 0   # the same in bf16 on the tensor cores
 launches_bwd_dq = 0      # backward dq, CUDA cores (float32; bf16 at d = 512)
 launches_bwd_dkv = 0     # backward dk / dv, CUDA cores
 launches_bwd_dq_tc = 0   # backward dq in bf16 on the tensor cores (d = 40, 80)
@@ -99,6 +105,40 @@ DENOM_FLOOR = 1.2e-38
 TC_ALIGN_BYTES = 16
 TC_STRIDE_MULTIPLE = 8
 
+# JAX's K/V residency budget and its backward threshold, copied with their
+# names and values (``hedit_tpu/ops/flash_attention.py``; the port imports
+# nothing of the JAX package, ``tests/test_torch_flash_routing.py`` holds the
+# copies to the originals).
+FLASH_KV_BUDGET_BYTES = 8 * 1024 * 1024
+_BWD_MIN_SEQ = 2048
+
+
+def flash_kv_fits(sk: int, d: int, itemsize: int) -> bool:
+    """Whether a [*, Sk, D] K/V pair of this dtype fits the TPU kernels' VMEM
+    residency budget, charged on Sk padded to 1024 keys: JAX's routing
+    predicate, copied.
+
+    The card has no VMEM, and its kernels stream K and V through shared
+    memory at any length; the budget is kept because it decides which
+    *function* a call computes, not only where its data lives.  Where it
+    fails, the JAX package computes exact ``reference_attention`` (forward)
+    or its gradient (backward), where it holds the bounded kernels' function;
+    a port that routed by its own memory would compute something else (the
+    VAE's float32 mid-block attention, [*, 1, 4096, 512], 16 MiB of K/V:
+    bounded on the card against exact on the TPU)."""
+    sk_padded = -(-sk // 1024) * 1024
+    return 2 * sk_padded * d * itemsize <= FLASH_KV_BUDGET_BYTES
+
+
+def bwd_takes_kernels(sq: int, sk: int, d: int, itemsize: int, interpret: bool) -> bool:
+    """The backward's route, as JAX's ``_flash_diff_bwd(interpret, ...)``
+    decides it: the dq and dk / dv kernels where the Q and K/V pairs fit
+    ``flash_kv_fits`` and min(Sq, Sk) reaches ``_BWD_MIN_SEQ`` (or, in
+    ``interpret`` mode, at every length), else the gradient of
+    ``reference_attention``."""
+    fits = flash_kv_fits(sq, d, itemsize) and flash_kv_fits(sk, d, itemsize)
+    return fits and (min(sq, sk) >= _BWD_MIN_SEQ or interpret)
+
 
 def bounded_entry(dtype: torch.dtype, packed: bool) -> str:
     """The CUDA entry point of the bounded forward for an input of ``dtype``
@@ -112,6 +152,18 @@ def bounded_entry(dtype: torch.dtype, packed: bool) -> str:
         return ("hedit_flash_attention_fwd_packed_bounded" if packed
                 else "hedit_flash_attention_fwd")
     raise ValueError(f"the bounded forward takes float32 or bfloat16, got {dtype}")
+
+
+def lse_entry(dtype: torch.dtype) -> str:
+    """The CUDA entry point of the bounded forward with the log-sum-exp for
+    an input of ``dtype``: bfloat16 the tensor-core kernel
+    (``csrc/flash_attention_tc.cu``), float32 the CUDA-core template
+    (``csrc/flash_attention.cu``).  Raises for any other dtype."""
+    if dtype == torch.bfloat16:
+        return "hedit_flash_attention_fwd_lse_tc"
+    if dtype == torch.float32:
+        return "hedit_flash_attention_fwd_lse"
+    raise ValueError(f"the LSE forward takes float32 or bfloat16, got {dtype}")
 
 
 def bwd_entry(dtype: torch.dtype, d: int) -> Tuple[str, str]:
@@ -159,8 +211,10 @@ def bounded_anchor(sk: int, d: int) -> int:
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v with float32 scores and softmax: the exact
-    form, plain version of the exact kernels.
+    """softmax(q k^T / sqrt(d)) v with float32 scores and softmax: JAX's
+    ``reference_attention``, the route of every attention that takes no
+    kernel (and, by autograd, of the backward below ``_BWD_MIN_SEQ``), and
+    the oracle.
 
     q [B, H, Sq, D]; k, v [B, H, Sk, D] -> [B, H, Sq, D] in q's dtype.  The
     probabilities are cast to v's dtype before the PV product, as the JAX
@@ -169,6 +223,43 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (d ** 0.5)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v).to(q.dtype)
+
+
+def exact_key_tile(d: int) -> int:
+    """The exact kernel's key tile at head dim ``d`` (``csrc/flash_attention.cu``:
+    64 keys at the UNet's 40 and 80, 32 at the VAE's 512): the block over
+    which its running max, and with it the rounding of p, is taken."""
+    return 32 if d > 128 else 64
+
+
+def flash_attention_exact_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    blk_k: Optional[int] = None,
+                                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of the exact forward (``_flash_kernel``) in JAX's steps:
+    q * (1/sqrt(d) * log2(e)), the constant and the product rounded to the
+    input dtype; float32 scores; over key blocks of ``blk_k`` (default
+    ``exact_key_tile(D)``; the TPU kernel's default is 512) a running max
+    m_new, p = exp2(s - m_new) rounded to the input dtype and summed from the
+    rounded values (the TPU kernel's ones column of v), the accumulator and
+    the sum rescaled by exp2(m_old - m_new); out = acc / sum, no floor.
+    q [B, H, Sq, D], k / v [B, H, Sk, D] -> [B, H, Sq, D] in q's dtype, or in
+    ``out_dtype`` (float32: the output before its final rounding).  The key
+    block decides only which max each p is rounded against."""
+    d, sk = q.shape[-1], k.shape[-2]
+    blk_k = exact_key_tile(d) if blk_k is None else blk_k
+    qs = (q * torch.tensor(1.0 / d ** 0.5 * _LOG2E, dtype=q.dtype)).float()
+    m = torch.full(q.shape[:-1] + (1,), -math.inf, device=q.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],), device=q.device)
+    for k0 in range(0, sk, blk_k):
+        s = torch.matmul(qs, k[..., k0:k0 + blk_k, :].float().transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new).to(v.dtype).float()
+        alpha = torch.exp2(m - m_new)
+        den = den * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, v[..., k0:k0 + blk_k, :].float())
+        m = m_new
+    return (acc / den).to(out_dtype or q.dtype)
 
 
 def _bounded(q, k, v, anchor, out_dtype=None):
@@ -200,14 +291,16 @@ def flash_attention_bounded_reference(q: torch.Tensor, k: torch.Tensor, v: torch
 
 
 def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                  anchor: Optional[int] = None
+                                  anchor: Optional[int] = None,
+                                  out_dtype: Optional[torch.dtype] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the bounded forward with the log-sum-exp
-    (``_flash_bounded_lse_kernel``): (out [B, H, Sq, D] in q's dtype, lse2
-    [B*H, 1, Sq] float32), lse2 = shift + log2(denom) in base-2 units of the
-    scaled scores.  ``anchor`` as ``flash_attention_bounded_reference``."""
+    (``_flash_bounded_lse_kernel``): (out [B, H, Sq, D] in q's dtype or in
+    ``out_dtype``, lse2 [B*H, 1, Sq] float32), lse2 = shift + log2(denom) in
+    base-2 units of the scaled scores.  ``anchor`` as
+    ``flash_attention_bounded_reference``."""
     b, h, sq, _ = q.shape
-    out, lse2 = _bounded(q, k, v, anchor)
+    out, lse2 = _bounded(q, k, v, anchor, out_dtype)
     return out, lse2.reshape(b * h, 1, sq)
 
 
@@ -223,10 +316,23 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      heads: int) -> torch.Tensor:
-    """Plain version of the packed forward: q [B, Sq, H*D], k / v [B, Sk, H*D] ->
-    [B, Sq, H*D]; head h is columns h*D .. (h+1)*D of a row."""
+    """``reference_attention`` on packed heads: q [B, Sq, H*D], k / v
+    [B, Sk, H*D] -> [B, Sq, H*D]; head h is columns h*D .. (h+1)*D of a row."""
     return _merge_heads(reference_attention(_split_heads(q, heads), _split_heads(k, heads),
                                             _split_heads(v, heads)))
+
+
+def flash_attention_packed_exact_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                           heads: int, blk_k: Optional[int] = None,
+                                           out_dtype: Optional[torch.dtype] = None
+                                           ) -> torch.Tensor:
+    """Plain version of the exact forward on packed heads
+    (``_flash_packed_kernel``), layouts as ``flash_attention_packed_reference``:
+    the heads split, ``flash_attention_exact_reference`` with ``blk_k`` and
+    ``out_dtype``, the heads merged."""
+    out = flash_attention_exact_reference(_split_heads(q, heads), _split_heads(k, heads),
+                                          _split_heads(v, heads), blk_k, out_dtype)
+    return _merge_heads(out)
 
 
 def flash_attention_packed_bounded_reference(q: torch.Tensor, k: torch.Tensor,
@@ -351,11 +457,11 @@ def flash_attention_exact_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                ) -> torch.Tensor:
     """The exact forward (running max and rescale; the TPU kernel
     ``_flash_kernel`` of JAX's public ``flash_attention``): a CPU tensor takes
-    ``reference_attention``, a CUDA tensor launches the kernel.  Raises as
-    ``flash_attention_cuda`` does."""
+    ``flash_attention_exact_reference`` at the kernel's key tile, a CUDA
+    tensor launches the kernel.  Raises as ``flash_attention_cuda`` does."""
     global launches_exact
     if _on_cpu(q, k, v):
-        return reference_attention(q, k, v)
+        return flash_attention_exact_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_exact_cuda")
     out = torch.empty_like(q)
     _launch("hedit_flash_attention_fwd_exact", q, (q, k, v, out), (b * h, sq, sk, d))
@@ -438,17 +544,25 @@ def flash_attention_packed_bounded_cuda(q: torch.Tensor, k: torch.Tensor, v: tor
 def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bounded forward with its second output: (out, lse2 [B*H, 1, Sq]
-    float32).  CPU tensors take ``flash_attention_lse_reference``; otherwise
-    as ``flash_attention_cuda``."""
-    global launches_lse
+    float32).  CPU tensors take ``flash_attention_lse_reference``; a CUDA
+    tensor launches the kernel of ``lse_entry`` (bf16 on the tensor cores,
+    whose operands must pass ``check_tc_operands``), otherwise as
+    ``flash_attention_cuda``."""
+    global launches_lse, launches_lse_tc
     if _on_cpu(q, k, v):
         return flash_attention_lse_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_lse_cuda")
     out = torch.empty_like(q)
     lse2 = torch.empty((b * h, 1, sq), dtype=torch.float32, device=q.device)
-    _launch("hedit_flash_attention_fwd_lse", q, (q, k, v, out, lse2),
-            (b * h, sq, sk, d, bounded_anchor(sk, d)))
-    launches_lse += 1
+    entry = lse_entry(q.dtype)
+    tc = entry.endswith("_tc")
+    if tc:
+        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq * d, sk * d, d])
+    _launch(entry, q, (q, k, v, out, lse2), (b * h, sq, sk, d, bounded_anchor(sk, d)))
+    if tc:
+        launches_lse_tc += 1
+    else:
+        launches_lse += 1
     return out, lse2
 
 
@@ -515,10 +629,30 @@ def flash_attention_backward_cuda(q, k, v, out, lse2, do
     return dq, dk, dv
 
 
+def flash_diff_backward(q, k, v, out, lse2, do, interpret: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_diff``, routed as JAX's
+    ``_flash_diff_bwd(interpret, res, do)`` routes them
+    (``bwd_takes_kernels``): the backward kernels from the saved out and
+    lse2 (``flash_attention_backward_cuda`` on CUDA tensors, its plain
+    version ``flash_attention_backward_reference`` on CPU tensors), or the
+    gradient of ``reference_attention`` by autograd, recomputed from the
+    saved q, k and v.  ``interpret=False`` is the card's routing (the TPU's);
+    a CPU caller may ask for it, the plain versions standing in for the
+    kernels."""
+    if bwd_takes_kernels(q.shape[2], k.shape[2], q.shape[3], q.element_size(), interpret):
+        kernels = flash_attention_backward_cuda if q.is_cuda else flash_attention_backward_reference
+        return kernels(q, k, v, out, lse2, do)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(reference_attention(*leaves), leaves, do)
+
+
 class _FlashAttentionDiff(torch.autograd.Function):
-    """Forward (bounded) saves (q, k, v, out, lse2); backward rebuilds the
-    probabilities from lse2.  CUDA tensors launch the kernels, CPU tensors
-    take the plain versions."""
+    """Forward (bounded, with lse2) saves (q, k, v, out, lse2); backward by
+    ``flash_diff_backward``: a CUDA tensor takes the card's routing (the
+    TPU's), a CPU tensor the plain kernels wherever they fit, as JAX's
+    ``interpret=True`` does."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -529,12 +663,12 @@ class _FlashAttentionDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse2 = ctx.saved_tensors
-        bwd = flash_attention_backward_cuda if q.is_cuda else flash_attention_backward_reference
-        return bwd(q, k, v, out, lse2, do)
+        return flash_diff_backward(q, k, v, out, lse2, do, interpret=not q.is_cuda)
 
 
 def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Attention with a gradient through the flash kernels (port of
-    ``flash_attention_diff``): q [B, H, Sq, D], k / v [B, H, Sk, D] ->
+    """Attention with a gradient (port of ``flash_attention_diff``): the
+    bounded LSE forward at every length, the backward of
+    ``flash_diff_backward``.  q [B, H, Sq, D], k / v [B, H, Sk, D] ->
     [B, H, Sq, D].  On CUDA tensors D is one of ``BWD_HEAD_DIMS``."""
     return _FlashAttentionDiff.apply(q, k, v)

@@ -24,8 +24,6 @@ shapes: float32 at [1, 8, 4096, 40] and [1, 1, 4096, 512], bf16 at
 from __future__ import annotations
 
 import argparse
-import ctypes
-import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -34,7 +32,7 @@ import torch
 
 from hedit_tpu_torch import _build
 from hedit_tpu_torch.ops import flash_attention as flash
-from hedit_tpu_torch.probes.timing import cuda_ms, require_cuda
+from hedit_tpu_torch.probes.timing import best_ms, build_alone, require_cuda
 
 TC_SOURCE = _build.CSRC / "flash_attention_bwd_tc.cu"
 # the source's launch lines, keyed by kernel and head dim
@@ -59,26 +57,7 @@ ENTRIES = {"tc": ("hedit_flash_attention_bwd_dq_tc", "hedit_flash_attention_bwd_
 
 
 def _library(source: Path, name: str, include: Path):
-    """``source`` built alone into a shared library: (ctypes library with the
-    loader's argument types, ptxas's register and spill lines)."""
-    out = _build.BUILD_DIR / "bwd_tiles"
-    out.mkdir(parents=True, exist_ok=True)
-    so = out / f"{name}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-I", str(include),
-           str(source), "-o", str(so)]
-    p = subprocess.run(cmd, capture_output=True, text=True)
-    if p.returncode:
-        raise RuntimeError(f"nvcc failed for {source}:\n{p.stderr[-3000:]}")
-    lib = ctypes.CDLL(str(so))
-    for entry, argtypes in _build.ARGTYPES.items():
-        if hasattr(lib, entry):
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = ctypes.c_int
-    info = [re.sub(r".*?(Used \d+ registers).*", r"\1", line) for line in p.stderr.splitlines()
-            if "registers" in line]
-    spills = [line.strip() for line in p.stderr.splitlines()
-              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    return lib, " | ".join(info + spills)
+    return build_alone(source, _build.BUILD_DIR / "bwd_tiles" / f"{name}.so", include)
 
 
 def _variant_source(i: int) -> Path:
@@ -121,10 +100,6 @@ def _timers(lib, kind, q, k, v, do, lse2, delta):
     return (lambda: call(dq_entry, dq)), (lambda: call(dkv_entry, dk, dv)), (dq, dk, dv)
 
 
-def _best_ms(fn):
-    return min(cuda_ms(fn, reps=20) for _ in range(3))
-
-
 def sweep() -> None:
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
         built = list(ex.map(lambda i: _library(_variant_source(i), f"variant{i}", _build.CSRC),
@@ -144,7 +119,7 @@ def sweep() -> None:
             err = max((a.float() - w).abs().max().item() / (2.0 ** -8 * w.abs().max().item())
                       for a, w in zip(got, wants))
             print(f"tiles q{list(shape)} sk={sk} variant {i}: dq {VARIANTS[i][f'dq{d}']} "
-                  f"{_best_ms(fdq):.4f} ms, dk/dv {VARIANTS[i][f'dkv{d}']} {_best_ms(fdkv):.4f} "
+                  f"{best_ms(fdq):.4f} ms, dk/dv {VARIANTS[i][f'dkv{d}']} {best_ms(fdkv):.4f} "
                   f"ms, err / tol {err:.3f}")
 
 
@@ -157,7 +132,7 @@ def parent_template(parent: Path) -> None:
         turns = []
         for who, lib in (("parent", theirs), ("this", mine), ("this", mine), ("parent", theirs)):
             fdq, fdkv, _ = _timers(lib, "core", q, k, v, do, lse2, delta)
-            turns.append(f"{who} {_best_ms(fdq):.4f} / {_best_ms(fdkv):.4f}")
+            turns.append(f"{who} {best_ms(fdq):.4f} / {best_ms(fdkv):.4f}")
         print(f"template q{list(shape)} sk={sk} {str(dtype)[6:]} dq / dk-dv ms: "
               + ", ".join(turns))
 

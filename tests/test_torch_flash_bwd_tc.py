@@ -97,8 +97,9 @@ def test_tc_backward_entry_points_match_their_argument_counts():
 
 
 def _counts():
-    return (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv,
-            flash_mod.launches_bwd_dq_tc, flash_mod.launches_bwd_dkv_tc)
+    return (flash_mod.launches_lse, flash_mod.launches_lse_tc, flash_mod.launches_bwd_dq,
+            flash_mod.launches_bwd_dkv, flash_mod.launches_bwd_dq_tc,
+            flash_mod.launches_bwd_dkv_tc)
 
 
 def _inputs(sq, sk, d, dtype, seed=0):

@@ -164,9 +164,11 @@ def test_bounded_anchor_is_the_jax_key_block():
 
 def test_wrappers_take_the_plain_versions_on_cpu():
     """CPU tensors: the bounded wrappers give the bounded plain versions with
-    the JAX anchor, the exact one ``reference_attention``; nothing launches."""
+    the JAX anchor, the exact one ``flash_attention_exact_reference`` at the
+    kernel's key tile; nothing launches."""
     (q, k, v), _ = _saturating("float32")
-    counts = (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_exact)
+    counts = (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_lse_tc,
+              flash_mod.launches_exact)
     np.testing.assert_array_equal(
         flash_mod.flash_attention_cuda(q, k, v).numpy(),
         flash_mod.flash_attention_bounded_reference(q, k, v, flash_mod.bounded_anchor(320, 40)))
@@ -175,8 +177,9 @@ def test_wrappers_take_the_plain_versions_on_cpu():
     np.testing.assert_array_equal(out.numpy(), want_out.numpy())
     np.testing.assert_array_equal(lse2.numpy(), want_lse.numpy())
     np.testing.assert_array_equal(flash_mod.flash_attention_exact_cuda(q, k, v).numpy(),
-                                  flash_mod.reference_attention(q, k, v).numpy())
-    assert counts == (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_exact)
+                                  flash_mod.flash_attention_exact_reference(q, k, v).numpy())
+    assert counts == (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_lse_tc,
+                      flash_mod.launches_exact)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -14,7 +14,9 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
   added in order, the anchor prologue over tiles, p and the row sum tile by
   tile) against ``flash_attention_bounded_reference`` and JAX's
   ``flash_attention_bounded`` in Pallas interpret mode (128-key blocks, so a
-  128-key anchor window), the saturating input included.
+  128-key anchor window), the saturating input included; with the LSE
+  entry's second output, lse2 = shift + log2(floored sum), against
+  ``flash_attention_lse_reference`` and JAX's ``_flash_bounded_fwd_lse``.
 """
 
 import ctypes
@@ -27,13 +29,14 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from hedit_tpu.ops.flash_attention import flash_attention_bounded
+from hedit_tpu.ops.flash_attention import _flash_bounded_fwd_lse, flash_attention_bounded
 from hedit_tpu_torch import _build
 from hedit_tpu_torch.ops import flash_attention as flash_mod
 
 ANCHOR = 128   # the JAX kernel's blk_k in these runs
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
-TC_ENTRIES = ("hedit_flash_attention_fwd_tc", "hedit_flash_attention_fwd_packed_bounded_tc")
+TC_ENTRIES = ("hedit_flash_attention_fwd_tc", "hedit_flash_attention_fwd_packed_bounded_tc",
+              "hedit_flash_attention_fwd_lse_tc")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -107,7 +110,9 @@ def _c_entry_points():
 def test_c_entry_points_match_their_argument_types():
     """Every entry point the loader binds exists in the sources with the
     parameter list its ``ctypes`` argument types describe (pointers and the
-    stream as ``c_void_p``); the tensor-core ones among them."""
+    stream as ``c_void_p``); the tensor-core ones among them, the LSE
+    entry's with the template's parameter list.  ``lse_entry`` sends bf16 to
+    the tensor cores, float32 to the template, and refuses other dtypes."""
     found = _c_entry_points()
     assert set(TC_ENTRIES) <= set(_build.ARGTYPES)
     for name, argtypes in _build.ARGTYPES.items():
@@ -115,6 +120,12 @@ def test_c_entry_points_match_their_argument_types():
     for dtype in (torch.bfloat16, torch.float32):
         for packed in (False, True):
             assert flash_mod.bounded_entry(dtype, packed) in _build.ARGTYPES
+    assert flash_mod.lse_entry(torch.bfloat16) == "hedit_flash_attention_fwd_lse_tc"
+    assert flash_mod.lse_entry(torch.float32) == "hedit_flash_attention_fwd_lse"
+    assert (_build.ARGTYPES["hedit_flash_attention_fwd_lse_tc"]
+            == _build.ARGTYPES["hedit_flash_attention_fwd_lse"])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_mod.lse_entry(torch.float16)
 
 
 def test_wrappers_on_cpu_launch_nothing():
@@ -142,8 +153,8 @@ def _tiled_forward(q, k, v, anchor, bk, wc):
     parts of the contraction added in order; the shift from the prologue's
     tiles over the first min(anchor, Sk) keys; p rounded to the input dtype,
     the row sum and the PV product accumulated tile by tile; the floored
-    denominator.  Returns the float32 output before the kernel's final
-    rounding."""
+    denominator.  Returns (the float32 output before the kernel's final
+    rounding, lse2 = shift + log2(floored denominator))."""
     d, sk = q.shape[-1], k.shape[-2]
     dk = -(-d // 16) * 16
     qs = F.pad((q * torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=q.dtype)).float(),
@@ -169,7 +180,8 @@ def _tiled_forward(q, k, v, anchor, bk, wc):
         p = torch.exp2(torch.clamp(scores(k0) - shift, max=100.0)).to(v.dtype).float()
         den = den + p.sum(dim=-1, keepdim=True)
         acc = acc + p @ vf[..., k0:k0 + bk, :]
-    return acc / torch.clamp(den, min=flash_mod.DENOM_FLOOR)
+    den = torch.clamp(den, min=flash_mod.DENOM_FLOOR)
+    return acc / den, (shift + torch.log2(den))[..., 0]
 
 
 def _inputs(sq, sk, d, dtype, saturate=False):
@@ -209,14 +221,25 @@ def _tol(dtype, want):
 ])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_tiled_order_matches_the_plain_version_and_jax(dtype, sq, sk, d, bk, wc, saturate):
+    """out (tolerances of ``_tol``) and lse2 (float32 for either dtype: 2e-5
+    in float32; in bf16 a rounding of one p that falls the other way moves a
+    row's sum by at most one ulp of its largest term, log2(1 + 2^-8); 1e-5
+    relative on the saturating rows' ~120) of the rendering against the
+    plain versions and the JAX kernels."""
     (q, k, v), (jq, jk, jv) = _inputs(sq, sk, d, dtype, saturate)
-    got = _tiled_forward(q, k, v, ANCHOR, bk, wc).numpy()
+    got, got_lse = (t.numpy() for t in _tiled_forward(q, k, v, ANCHOR, bk, wc))
     plain = flash_mod.flash_attention_bounded_reference(q, k, v, ANCHOR).float().numpy()
+    _, plain_lse = flash_mod.flash_attention_lse_reference(q, k, v, ANCHOR)
     want = np.asarray(flash_attention_bounded(jq, jk, jv, blk_q=128, blk_k=128,
                                               interpret=True).astype(jnp.float32))
+    _, want_lse = _flash_bounded_fwd_lse(jq, jk, jv, blk_q=128, blk_k=128, interpret=True)
     tol = _tol(dtype, want)
     np.testing.assert_allclose(got, plain, rtol=0, atol=tol)
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    tol_lse = 2e-5 if dtype == "float32" else np.log2(1 + 2.0 ** -8)
+    got_lse = got_lse.reshape(2, 1, sq)
+    np.testing.assert_allclose(got_lse, plain_lse.numpy(), rtol=1e-5, atol=tol_lse)
+    np.testing.assert_allclose(got_lse, np.asarray(want_lse), rtol=1e-5, atol=tol_lse)
     if saturate:
         exact = flash_mod.reference_attention(q.float(), k.float(), v.float()).numpy()
         assert np.abs(got - exact).max() > 20 * tol

@@ -21,8 +21,8 @@ from hedit_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ, fused_attention, fused_attention_packed, merge_heads, split_heads,
 )
 from hedit_tpu_torch.ops.flash_attention import (
-    bounded_anchor, flash_attention_bounded_reference, flash_attention_packed_reference,
-    reference_attention,
+    bounded_anchor, flash_attention_bounded_reference, flash_attention_exact_reference,
+    flash_attention_packed_exact_reference, flash_attention_packed_reference, reference_attention,
 )
 
 
@@ -50,15 +50,12 @@ def test_flash_wrapper_takes_plain_version_on_cpu():
 
 
 def _plain_on_card(fn, *ts):
-    """A plain version on the card, in float32: float32 inputs run in
-    float32; bfloat16 inputs run the bounded plain versions with q * scale
-    and p rounded to bf16 at the kernel's steps and the output before its
-    final rounding (the tensor-core kernel sums in another order than cuBLAS,
-    so the two float32 outputs may round to neighbouring bf16 values), and
-    the exact one in float32 on the same values (the exact kernel keeps
-    float32 scores and p)."""
-    if fn is reference_attention:
-        return fn(*(t.float() for t in ts))
+    """A plain version on the card with its output before the final rounding:
+    float32 inputs run in float32; bfloat16 inputs round q * scale and p to
+    bf16 at the kernel's steps, the bounded and the exact plain versions
+    alike (the exact one at the kernel's key tile), and leave the output
+    unrounded (a kernel sums in another order than cuBLAS, so the two float32
+    outputs may round to neighbouring bf16 values)."""
     return fn(*ts, out_dtype=torch.float32)
 
 
@@ -93,14 +90,15 @@ def _saturating(device, dtype):
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
     """The bounded kernel (kernel 1: bf16 on the tensor cores, float32 on the
     CUDA cores) against its plain version with the same anchor, and the exact
-    kernel (kernel 6) against ``reference_attention`` (tolerances of
-    ``_tol``)."""
+    kernel (kernel 6) against ``flash_attention_exact_reference`` at the
+    kernel's key tile (tolerances of ``_tol``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
     bounded = "launches_tc" if dtype == torch.bfloat16 else "launches"
     for wrapper, plain, counter in (
             (flash_mod.flash_attention_cuda, flash_attention_bounded_reference, bounded),
-            (flash_mod.flash_attention_exact_cuda, reference_attention, "launches_exact")):
+            (flash_mod.flash_attention_exact_cuda, flash_attention_exact_reference,
+             "launches_exact")):
         before = getattr(flash_mod, counter)
         got = wrapper(q, k, v)
         torch.cuda.synchronize()
@@ -114,20 +112,21 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
 def test_bounded_kernels_saturate_as_their_plain_versions_on_card(cuda, dtype):
     """Keys beyond the anchor window far above its max: the bounded kernels
     (forward and LSE forward) match the bounded plain versions, the exact
-    kernel matches exact attention, and the two forms differ by far more
-    than the tolerance."""
+    kernel matches its plain version (exact attention with the kernel's
+    roundings), and the two forms differ by far more than the tolerance."""
     q, k, v = _saturating(cuda, dtype)
     assert bounded_anchor(1024, 40) == 512
     bounded = flash_mod.flash_attention_cuda(q, k, v).float()
     out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
     exact = flash_mod.flash_attention_exact_cuda(q, k, v).float()
-    want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v)
-    want_exact = reference_attention(q.float(), k.float(), v.float())
+    want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v,
+                                                                 out_dtype=torch.float32)
+    want_exact = _plain_on_card(flash_attention_exact_reference, q, k, v)
     torch.cuda.synchronize()
     tol = _tol(dtype, want_out)
     torch.testing.assert_close(bounded, _plain_on_card(flash_attention_bounded_reference, q, k, v),
                                rtol=0, atol=tol)
-    torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(out.float(), want_out, rtol=0, atol=tol)
     torch.testing.assert_close(lse2, want_lse, rtol=1e-5, atol=1e-4)   # ~120: float32 ulps
     torch.testing.assert_close(exact, want_exact, rtol=0, atol=_tol(dtype, want_exact))
     assert (bounded - exact).abs().max().item() > 20 * tol
@@ -210,11 +209,10 @@ def test_flash_diff_on_cpu_takes_plain_versions():
     nothing is launched, and the backward kernels' entry points refuse CPU
     tensors."""
     q, k, v = (torch.randn(1, 2, 48, 8, requires_grad=True) for _ in range(3))
-    before = (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
+    before = _bwd_counts()
     out = flash_mod.flash_attention_diff(q, k, v)
     out.sum().backward()
-    assert before == (flash_mod.launches_lse, flash_mod.launches_bwd_dq,
-                      flash_mod.launches_bwd_dkv)
+    assert before == _bwd_counts()
     torch.testing.assert_close(out, reference_attention(q, k, v), rtol=0, atol=1e-6)
     want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v)
     got_out, got_lse = flash_mod.flash_attention_lse_cuda(q, k, v)
@@ -240,8 +238,9 @@ def _bwd_tols(dtype, wants):
 
 
 def _bwd_counts():
-    return (flash_mod.launches_lse, flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv,
-            flash_mod.launches_bwd_dq_tc, flash_mod.launches_bwd_dkv_tc)
+    return (flash_mod.launches_lse, flash_mod.launches_lse_tc, flash_mod.launches_bwd_dq,
+            flash_mod.launches_bwd_dkv, flash_mod.launches_bwd_dq_tc,
+            flash_mod.launches_bwd_dkv_tc)
 
 
 @pytest.mark.gpu
@@ -249,31 +248,33 @@ def _bwd_counts():
 @pytest.mark.parametrize("shape,sk", [((1, 8, 1024, 40), 1024), ((2, 4, 1024, 80), 1024),
                                       ((1, 8, 1000, 80), 1064), ((1, 2, 300, 40), 140)])
 def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, sk):
-    """The LSE forward (out, lse2) against its bounded plain version in the
-    inputs' dtype, and dq, dk, dv through ``flash_attention_diff`` against the
-    plain backward on the same inputs, fed the kernel forward's out and lse2,
-    before its final rounding; ragged Sq != Sk included: padded keys must not
-    leak into dq, padded queries not into dk / dv.  bf16 runs the
-    tensor-core backward, float32 the CUDA-core template (``bwd_entry``)."""
+    """The LSE forward (out, lse2) against its bounded plain version, out
+    before its final rounding, and dq, dk, dv of the backward kernels
+    (``flash_attention_backward_cuda``, called directly: the routing sends
+    these lengths to autograd of ``reference_attention``) against the plain
+    backward on the same inputs, fed the kernel forward's out and lse2,
+    before its final rounding; ragged Sq != Sk included: padded keys must
+    not leak into dq, padded queries not into dk / dv.  bf16 runs the
+    tensor-core LSE forward and backward, float32 the CUDA-core templates
+    (``lse_entry``, ``bwd_entry``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     kshape = shape[:2] + (sk, shape[3])
-    q = torch.randn(shape, generator=g, device=cuda).to(dtype).requires_grad_()
-    k = torch.randn(kshape, generator=g, device=cuda).to(dtype).requires_grad_()
-    v = torch.randn(kshape, generator=g, device=cuda).to(dtype).requires_grad_()
+    q = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    k = torch.randn(kshape, generator=g, device=cuda).to(dtype)
+    v = torch.randn(kshape, generator=g, device=cuda).to(dtype)
     do = torch.randn(shape, generator=g, device=cuda).to(dtype)
     before = _bwd_counts()
-    out, lse2 = flash_mod.flash_attention_lse_cuda(q.detach(), k.detach(), v.detach())
-    got = torch.autograd.grad(flash_mod.flash_attention_diff(q, k, v), (q, k, v), do)
+    out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
+    got = flash_mod.flash_attention_backward_cuda(q, k, v, out, lse2, do)
     torch.cuda.synchronize()
     tc = dtype == torch.bfloat16
-    assert _bwd_counts() == (before[0] + 2, before[1] + (not tc), before[2] + (not tc),
-                             before[3] + tc, before[4] + tc)
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (not tc, tc, not tc, not tc,
+                                                                  tc, tc)))
     # the bounded plain version in the inputs' dtype rounds at the kernel's steps
-    want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
-                                                                 v.detach())
-    want_out = want_out.float()
-    wants = flash_mod.flash_attention_backward_reference(
-        q.detach(), k.detach(), v.detach(), out, lse2, do, out_dtype=torch.float32)
+    want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v,
+                                                                 out_dtype=torch.float32)
+    wants = flash_mod.flash_attention_backward_reference(q, k, v, out, lse2, do,
+                                                         out_dtype=torch.float32)
     tol_out, = _bwd_tols(dtype, [want_out])
     torch.testing.assert_close(out.float(), want_out, rtol=0, atol=tol_out)
     # lse2 is float32 for either dtype: 1e-4 absolute on values of ~10; in
@@ -287,59 +288,104 @@ def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,sk,saturate", [
+    ((1, 8, 4096, 40), 4096, False), ((1, 8, 1024, 80), 1024, False),
+    ((1, 1, 4096, 512), 4096, False), ((1, 8, 1000, 80), 1064, False),
+    ((1, 1, 1000, 512), 1100, False), ((1, 2, 77, 40), 300, False),
+    ((1, 8, 1024, 40), 1024, True)])
+def test_tc_lse_kernel_matches_bf16_plain_on_card(cuda, shape, sk, saturate):
+    """The tensor-core LSE forward (row 3 in bf16) at d = 40, 80 and 512,
+    the NMG gradient call's and the VAE's shapes, ragged Sq and Sk, and the
+    saturating input: out against the bounded plain version before its final
+    rounding within one output ulp (``_tol``), lse2 against the plain lse2
+    within log2(1 + 2^-8) (a rounding of one p that falls the other way moves
+    a row's sum by at most one ulp of its largest term) and 1e-5 relative
+    (the saturating rows' ~120); one launch of its counter, none of the
+    CUDA-core template's."""
+    if saturate:
+        q, k, v = _saturating(cuda, torch.bfloat16)
+    else:
+        g = torch.Generator(device=cuda).manual_seed(4)
+        q = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+        k, v = (torch.randn(shape[:2] + (sk, shape[3]), generator=g, device=cuda)
+                .to(torch.bfloat16) for _ in range(2))
+    before = _bwd_counts()
+    out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == tuple(c + (i == 1) for i, c in enumerate(before))
+    want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v,
+                                                                 out_dtype=torch.float32)
+    assert torch.isfinite(out).all() and torch.isfinite(lse2).all()
+    torch.testing.assert_close(out.float(), want_out, rtol=0, atol=_tol(torch.bfloat16, want_out))
+    torch.testing.assert_close(lse2, want_lse, rtol=1e-5, atol=math.log2(1 + 2.0 ** -8))
+
+
+@pytest.mark.gpu
 def test_differentiated_attention_routes_by_length_on_card(cuda):
-    """``fused_attention`` under a recorded gradient: the flash kernels (LSE
-    forward, dq, dk / dv) from ``FLASH_MIN_SEQ`` tokens on, autograd of the
-    plain version below it (no launch), and the forward kernel alone when
-    nothing requires a gradient.  Both routes give the plain version's
-    gradient (float32, 1e-4 of its largest value)."""
+    """``fused_attention`` under a recorded gradient routes as JAX on the
+    TPU: from ``FLASH_MIN_SEQ`` tokens the LSE forward, and the dq and dk / dv
+    kernels only from ``_BWD_MIN_SEQ`` (2048) on, the gradient of
+    ``reference_attention`` by autograd below; below ``FLASH_MIN_SEQ`` no
+    launch; the forward kernel alone when nothing requires a gradient.
+    Every route gives the plain version's gradient (float32, 1e-4 of its
+    largest value)."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    for s, launches in ((FLASH_MIN_SEQ, 1), (FLASH_MIN_SEQ // 2, 0)):
+    assert flash_mod._BWD_MIN_SEQ == 2 * FLASH_MIN_SEQ
+    for s, fwd, bwd in ((2 * FLASH_MIN_SEQ, 1, 1), (FLASH_MIN_SEQ, 1, 0),
+                        (FLASH_MIN_SEQ // 2, 0, 0)):
         q, k, v = (torch.randn(1, 2, s, 40, generator=g, device=cuda).requires_grad_()
                    for _ in range(3))
         before = (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_bwd_dq,
                   flash_mod.launches_bwd_dkv)
         got = torch.autograd.grad(fused_attention(q, k, v).square().sum(), (q, k, v))
         assert (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_bwd_dq,
-                flash_mod.launches_bwd_dkv) == (before[0], before[1] + launches,
-                                                before[2] + launches, before[3] + launches)
+                flash_mod.launches_bwd_dkv) == (before[0], before[1] + fwd,
+                                                before[2] + bwd, before[3] + bwd), s
         want = torch.autograd.grad(reference_attention(q, k, v).square().sum(), (q, k, v))
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
         with torch.no_grad():
             fused_attention(q, k, v)
-        assert flash_mod.launches == before[0] + launches
+        assert flash_mod.launches == before[0] + fwd
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
-    """The VAE's head dim, which the backward once refused, now has its own
-    tile: dq, dk, dv of the mid-block attention [1, 1, 4096, 512] through
-    ``fused_attention`` under a recorded gradient (the style reward's route)
-    launch the LSE forward and both backward kernels of the CUDA-core
-    template, in bf16 too (the tensor-core backward takes 40 and 80 only),
-    and match the plain backward on the same inputs before its final
+    """The VAE's mid-block attention [1, 1, 4096, 512] through
+    ``fused_attention`` (the style reward's route), routed as JAX on the
+    TPU by ``flash_kv_fits``: in bf16 (8 MiB of K/V, the budget) under a
+    recorded gradient the tensor-core LSE forward and both backward kernels
+    of the CUDA-core template (the tensor-core backward takes 40 and 80
+    only), matching the plain backward on the same inputs before its final
     rounding, fed the bounded plain forward's out and lse2 (tolerances of
-    ``_bwd_tols``); a head dim the kernels have no tile for is still
-    refused."""
+    ``_bwd_tols``); in float32 (16 MiB) no kernel at all, with or without a
+    gradient: ``reference_attention`` and its autograd.  A head dim the
+    kernels have no tile for is still refused."""
     g = torch.Generator(device=cuda).manual_seed(3)
     shape = (1, 1, 4096, 512)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype).requires_grad_()
                for _ in range(3))
     do = torch.randn(shape, generator=g, device=cuda).to(dtype)
     assert 512 in flash_mod.BWD_HEAD_DIMS
-    before = _bwd_counts()
+    tc = dtype == torch.bfloat16
+    before, forward = _bwd_counts(), _launch_counts()
     got = torch.autograd.grad(fused_attention(q, k, v), (q, k, v), do)
+    with torch.no_grad():
+        fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert _bwd_counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3], before[4])
-    want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
-                                                                 v.detach())
-    wants = flash_mod.flash_attention_backward_reference(
-        q.detach(), k.detach(), v.detach(), want_out, want_lse, do, out_dtype=torch.float32)
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, tc, tc, 0, 0)))
+    assert _launch_counts()[0] == forward[0] and _launch_counts()[6] == forward[6] + tc
+    if tc:
+        want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
+                                                                     v.detach())
+        wants = flash_mod.flash_attention_backward_reference(
+            q.detach(), k.detach(), v.detach(), want_out, want_lse, do, out_dtype=torch.float32)
+    else:
+        wants = torch.autograd.grad(reference_attention(q, k, v), (q, k, v), do)
     for a, b, tol in zip(got, wants, _bwd_tols(dtype, wants)):
         assert torch.isfinite(a).all()
-        torch.testing.assert_close(a.float(), b, rtol=0, atol=tol)
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
     x = torch.randn(1, 1, 1024, 64, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_mod.flash_attention_backward_cuda(x, x, x, x, torch.zeros(1, 1, 1024, device=cuda),
@@ -400,10 +446,12 @@ def test_packed_wrapper_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("b,heads,sq,sk,d", [(2, 8, 1024, 1024, 40), (2, 8, 1024, 1024, 80),
                                              (2, 3, 300, 300, 40), (2, 2, 128, 400, 80)])
 def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
-    """The packed-head kernel against the plain version in float32 on the same
-    input values, ragged and Sq != Sk included, contiguous and as a row slice
-    of a larger batch (a batch stride, no copy).  Tolerances as the head-split
-    forward's: float32 1e-4, bfloat16 one output ulp at the largest output."""
+    """The exact packed-head kernel against its plain version
+    (``flash_attention_packed_exact_reference`` at the kernel's key tile,
+    output before its final rounding), ragged and Sq != Sk included,
+    contiguous and as a row slice of a larger batch (a batch stride, no
+    copy).  Tolerances as the head-split forward's: float32 1e-4, bfloat16
+    one output ulp at the largest output."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(b, 3, sq, heads * d, generator=g, device=cuda).to(dtype)
     k = torch.randn(b, 3, sk, heads * d, generator=g, device=cuda).to(dtype)
@@ -415,7 +463,8 @@ def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
         torch.cuda.synchronize()
         assert _launch_counts() == (before[0], before[1] + 1) + before[2:]
         assert got.shape == qs.shape and got.is_contiguous()
-        want = flash_attention_packed_reference(qs.float(), ks.float(), vs.float(), heads)
+        want = flash_attention_packed_exact_reference(qs, ks, vs, heads,
+                                                      out_dtype=torch.float32)
         tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8 * want.abs().max().item()
         torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
 
@@ -577,17 +626,19 @@ def test_tc_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)
     odd = buf.as_strided((2, 1024, 320), (1024 * 320 + 3, 320, 1))
     head = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)
-    before = _launch_counts()
+    before, lse_before = _launch_counts(), flash_mod.launches_lse_tc
     with pytest.raises(ValueError, match="aligned"):
         flash_mod.flash_attention_packed_bounded_cuda(misaligned, misaligned, misaligned, 8)
     with pytest.raises(ValueError, match="aligned"):
         flash_mod.flash_attention_cuda(head, head, head)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_mod.flash_attention_lse_cuda(head, head, head)
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_mod.flash_attention_packed_bounded_cuda(odd, odd, odd, 8)
     with pytest.raises(ValueError, match="dtypes"):
         flash_mod.flash_attention_cuda(*(head.contiguous().half(),) * 3)
     torch.cuda.synchronize()
-    assert _launch_counts() == before
+    assert _launch_counts() == before and flash_mod.launches_lse_tc == lse_before
 
 
 def _probe_inputs(dtype, shape=(2, 3, 256, 40), seed=0):
