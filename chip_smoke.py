@@ -13,14 +13,14 @@ the final result line:
    shapes: max abs error against a stated tolerance; CUDA-event time of the
    kernel, of the plain version and of the one PyTorch library call for the
    same function (a yardstick only, the port never calls it); the least time
-   the card could take (``bound_ms``).  The bounded (max-free) forward runs
-   bf16 on the tensor cores (``csrc/flash_attention_tc.cu``) and float32 on
-   the CUDA-core template (``csrc/flash_attention.cu``); the tensor-core
-   kernel is also timed beside the CUDA-core template's LSE entry (in bf16,
-   row 3 before this moved it) at the same head-split inputs, and its
-   wrappers' refusals (a misaligned pointer, an odd stride, float16) are
-   checked.  The bounded and the exact forward are timed at the same shapes,
-   head-split and packed (the exact kernels held to
+   the card could take (``bound_ms``).  The bounded (max-free) and the exact
+   forwards run bf16 on the tensor cores (``csrc/flash_attention_tc.cu``)
+   and float32 on the CUDA-core template (``csrc/flash_attention.cu``); the
+   tensor-core bounded kernel is also timed beside the CUDA-core template's
+   LSE entry (in bf16, row 3 before it moved) at the same inputs, and the
+   tensor-core wrappers' refusals (a misaligned pointer, an odd stride,
+   float16) are checked.  The bounded and the exact forward are timed at
+   the same shapes, head-split and packed (the exact kernels held to
    ``flash_attention_exact_reference`` at their key tile, JAX's bf16
    roundings included), and a saturating input shows the two forms apart,
    also laid out packed through ``fused_attention_packed``.  For the
@@ -49,8 +49,9 @@ the final result line:
    ``dots`` one held element by element to its conditioning, the rows it
    excuses counted), the exact float32 forward in its three layouts and
    with a bf16 PV product, and the nudged-matmul loop in its nine cases
-   (all-ones outputs held bit for bit), each against its plain version at
-   its probe's shapes; then the probes' own entry points
+   (all-ones outputs held bit for bit; no library call computes it, 64
+   torch.matmul calls timed for information), each against its plain
+   version at its probe's shapes; then the probes' own entry points
    (``hedit_tpu_torch.probes.flash_nhd_variants``, ``...flash_v4_variants``,
    ``...flash_ablate``, ``...flash_variants``, ``...mm_probe``), each driven
    once with the counts at 0 before and read after;
@@ -85,10 +86,12 @@ the final result line:
    prediction (every bf16 path: the tensor-core packed kernel serves each
    UNet self-attention of >= 1024 tokens without a gradient, the tensor-core
    head-split one the VAE's two attentions; the CUDA-core bounded entries and
-   the exact packed kernel none);
+   the exact kernels none);
 10. the exact forwards' own path (no editing path runs them): one call of
-    the head-split one at each shape of JAX ``flash_attention``'s callers,
-    one of the packed one at each shape of ``flash_attention_packed``'s;
+    the head-split one at each shape of JAX ``flash_attention``'s callers
+    (bf16 on the tensor cores; float32, its oracle test's, on the template),
+    one of the packed one at each shape of ``flash_attention_packed``'s
+    (float32) and one bf16 call at the UNet's controlled call [8, 4096, 320];
 11. the golden identity in float32 (TF32 off): target = source,
     cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through
     the general loop under the flagship configuration; the edit decoded (the
@@ -112,8 +115,9 @@ the final result line:
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
     flagship path, the CUDA-core bounded template on the float32 golden path,
     3-5 on the NMG path (on the tensor cores; the CUDA-core templates' on the
-    float32 NMG loop), 6 and 7 on their own, 8-12 on their probes' entry
-    points), then the result line ``{"ok": true, "device": {...}}``.
+    float32 NMG loop), 6 and 7 on their own (tensor cores and template),
+    8-12 on their probes' entry points), then the result line
+    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
 
@@ -254,8 +258,10 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_bwd_dkv": (flash, "launches_bwd_dkv_tc"),
             "flash_bwd_dq_core": (flash, "launches_bwd_dq"),
             "flash_bwd_dkv_core": (flash, "launches_bwd_dkv"),
-            "flash_packed": (flash, "launches_packed"),
-            "flash_attention_exact": (flash, "launches_exact"),
+            "flash_packed": (flash, "launches_packed_tc"),
+            "flash_packed_core": (flash, "launches_packed"),
+            "flash_attention_exact": (flash, "launches_exact_tc"),
+            "flash_attention_exact_core": (flash, "launches_exact"),
             "flash_packed_bounded": (flash, "launches_packed_bounded_tc"),
             "flash_packed_bounded_core": (flash, "launches_packed_bounded"),
             "flash_packed_t": (fp, "launches_packed_t"),
@@ -292,6 +298,12 @@ def hook_groupnorm(*models):
                 m.register_forward_pre_hook(hook)
 
 
+# rows 6 and 7, the exact forwards: bf16 on the tensor cores, float32 on the
+# CUDA-core template
+EXACT_NAMES = ("flash_attention_exact", "flash_attention_exact_core", "flash_packed",
+               "flash_packed_core")
+
+
 def read_launches():
     return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
@@ -302,8 +314,9 @@ def check_forward_routing(counts, path, failures, packed):
     kernel, ``packed`` launches (10 self-attentions of >= 1024 tokens a UNet
     call); the tensor-core head-split kernel serves only the VAE's one-head
     attention, one launch in the encoder and one in the decoder; the
-    CUDA-core bounded entries (float32) and the exact packed kernel never
-    run.  (Row 3, the LSE forward, has its own counters.)
+    CUDA-core bounded entries (float32) and the exact kernels (rows 6 and
+    7, on either cores) never run.  (Row 3, the LSE forward, has its own
+    counters.)
     GroupNorm: ``GN_CALLS[path]`` kernel calls, each on a channels-last
     input, and the streamed regime in the VAE."""
     if (counts["groupnorm"], GN_INPUTS["calls"], GN_INPUTS["channels_last"]) != (
@@ -315,10 +328,11 @@ def check_forward_routing(counts, path, failures, packed):
     print(f"{path} path GroupNorm: {counts['groupnorm']} kernel calls ({GN_CALLS[path]} "
           f"predicted), {counts['groupnorm_streamed']} of them streamed, "
           f"{GN_INPUTS['channels_last']} of {GN_INPUTS['calls']} inputs channels-last")
-    if counts["flash_packed_bounded"] != packed or counts["flash_packed"] != 0:
+    exact = {n: counts[n] for n in EXACT_NAMES}
+    if counts["flash_packed_bounded"] != packed or any(exact.values()):
         failures.append(f"the {path} path launched the tensor-core packed kernel "
                         f"{counts['flash_packed_bounded']} times (expected {packed}) and the "
-                        f"exact packed kernel {counts['flash_packed']} times (expected 0)")
+                        f"exact kernels {exact} times (expected 0)")
     if counts["flash_attention"] != 2:
         failures.append(f"the tensor-core head-split forward was launched "
                         f"{counts['flash_attention']} times on the {path} path, not by the two "
@@ -407,14 +421,15 @@ def _lse_template_ms(q, k, v):
 
 
 def _flash_forward_cases(g, rows, failures):
-    """Kernels 1 (bounded: bf16 on the tensor cores, float32 on the CUDA
-    cores) and 6 (exact), head-split, each against its plain version and
-    timed at the same shapes; the first case of each is its row's shape in
-    the kernels line (kernel 1: the VAE's attention, its only use on the
+    """Kernels 1 (bounded) and 6 (exact), head-split, each bf16 on the
+    tensor cores and float32 on the CUDA cores, against its plain version
+    and timed at the same shapes; the first case of each is its row's shape
+    in the kernels line (kernel 1: the VAE's attention, its only use on the
     paths; kernel 6: the UNet's self-attention at 64^2, where JAX's
     ``flash_attention`` callers time it).  At ``CORE_SHAPES`` the
-    tensor-core kernel is timed beside the CUDA-core template.  Then the
-    saturating case."""
+    tensor-core bounded kernel is timed beside the CUDA-core template (the
+    exact one beside the parent's template by ``probes/flash_exact_tiles``).
+    Then the saturating case."""
     cases = [((1, 1, 4096, 512), 4096, torch.bfloat16),  # VAE mid block
              ((8, 8, 4096, 40), 4096, torch.bfloat16),   # UNet 64^2 self-attention, 8 rows
              ((4, 8, 1024, 80), 1024, torch.bfloat16),   # UNet 32^2, 4 rows
@@ -441,12 +456,13 @@ def _flash_forward_cases(g, rows, failures):
                                  (4 * bh * sq * sk * d, dtype))
             plain = (flash.flash_attention_exact_reference if exact
                      else flash.flash_attention_bounded_reference)
-            tc = not exact and dtype == torch.bfloat16
-            name, form = (("flash_attention_exact", "exact (CUDA cores)") if exact else
-                          ("flash_attention", "bounded (tensor cores)") if tc else
-                          ("flash_attention_core", "bounded (CUDA cores)"))
+            tc = dtype == torch.bfloat16
+            name = ("flash_attention_exact" if exact else "flash_attention") + (
+                "" if tc else "_core")
+            form = (f"{'exact' if exact else 'bounded'} "
+                    f"({'tensor' if tc else 'CUDA'} cores)")
             extra = ({"core_ms": _lse_template_ms(q, k, v)}
-                     if tc and qshape in CORE_SHAPES and sk == qshape[2] else {})
+                     if tc and not exact and qshape in CORE_SHAPES and sk == qshape[2] else {})
             _row(rows, failures, name, f"flash {form} q{list(qshape)} sk={sk} {str(dtype)[6:]}",
                  err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
                  ms=cuda_ms(lambda: wrapper(q, k, v)),
@@ -461,8 +477,8 @@ def _flash_forward_cases(g, rows, failures):
         b_ms, e_ms = (next(r["ms"] for r in rows if r["name"] == n and r["shape"] == list(qshape)
                            and r["dtype"] == "bfloat16")
                       for n in ("flash_attention", "flash_attention_exact"))
-        print(f"tensor-core bounded vs CUDA-core exact q{list(qshape)} bfloat16: {b_ms:.3f} ms vs "
-              f"{e_ms:.3f} ms (bounded / exact {b_ms / e_ms:.3f})")
+        print(f"tensor-core bounded vs tensor-core exact q{list(qshape)} bfloat16: {b_ms:.3f} ms "
+              f"vs {e_ms:.3f} ms (bounded / exact {b_ms / e_ms:.3f})")
 
     # saturation: the bounded kernels follow their plain versions, the exact
     # kernel its own, and the two forms are far apart
@@ -485,8 +501,8 @@ def _flash_forward_cases(g, rows, failures):
         gap = (bounded - exact).abs().max().item()
         ok = (errs[0] <= tol and errs[1] <= tol and errs[2] <= tol_e and err_lse <= 1e-5
               and gap > 20 * tol and lse2.min().item() > 100.0)
-        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded / LSE "
-              f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores) / exact "
+        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded / LSE / exact "
+              f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores) "
               f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol {tol:.3g}), "
               f"lse2 relative {err_lse:.3e} (tol 1e-5, min lse2 {lse2.min().item():.2f}); "
               f"max|bounded - exact| {gap:.3e} (must exceed {20 * tol:.3g}) "
@@ -519,18 +535,20 @@ def _rounding_diagnostic(q, k, v, got, want_rounded, tol):
 
 
 def _flash_packed_cases(g, rows, failures):
-    """The forwards on packed heads [B, S, H*D]: kernel 7 (exact, on no path)
-    against its plain version at the kernel's key tile, and the bounded one (bf16 on the tensor cores: the route of every UNet
-    self-attention on the paths; float32 on the CUDA cores) against its
-    plain version, which rounds q * scale and p at the kernel's steps, with
-    its output before the final rounding (``BF16_ULP``); beside each the
+    """The forwards on packed heads [B, S, H*D], each bf16 on the tensor
+    cores and float32 on the CUDA cores: kernel 7 (exact, on no path)
+    against its plain version at the kernel's key tile, and the bounded one
+    (the route of every UNet self-attention on the paths) against its plain
+    version, which rounds q * scale and p at the kernel's steps, with its
+    output before the final rounding (``BF16_ULP``); beside each the
     head-split route at the same shape (three head-split copies, kernel 1,
     the merge).  Then the saturating input laid out packed through
     ``fused_attention_packed``: the bounded plain version within one output
     ulp, exact attention far off, one launch of the dtype's kernel.  Then the
     tensor-core wrappers' refusals: a misaligned pointer, an odd stride,
-    float16.  Both plain versions round q * scale and p at the kernel's steps
-    and are read before their final rounding (``BF16_ULP``)."""
+    float16, in either mode.  Both plain versions round q * scale and p at
+    the kernel's steps and are read before their final rounding
+    (``BF16_ULP``)."""
     cases = [(8, 4096, 4096, 320, torch.bfloat16, False),   # controlled call, 2 images
              (4, 1024, 1024, 640, torch.bfloat16, False),
              (2, 4096, 4096, 320, torch.float32, False),
@@ -551,10 +569,9 @@ def _flash_packed_cases(g, rows, failures):
                        .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
             got = wrapper(q, k, v, heads)
             want = plain(q, k, v, heads, out_dtype=torch.float32)
-            name, form = (("flash_packed", "exact") if exact else
-                          ("flash_packed_bounded", "bounded (tensor cores)")
-                          if dtype == torch.bfloat16 else
-                          ("flash_packed_bounded_core", "bounded (CUDA cores)"))
+            tc = dtype == torch.bfloat16
+            name = ("flash_packed" if exact else "flash_packed_bounded") + ("" if tc else "_core")
+            form = f"{'exact' if exact else 'bounded'} ({'tensor' if tc else 'CUDA'} cores)"
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
@@ -580,7 +597,7 @@ def _flash_packed_cases(g, rows, failures):
         b_ms, e_ms = (next(r["ms"] for r in rows if r["name"] == n and r["shape"] == shape
                            and r["dtype"] == "bfloat16")
                       for n in ("flash_packed_bounded", "flash_packed"))
-        print(f"tensor-core bounded vs CUDA-core exact packed q{shape} bfloat16: {b_ms:.3f} ms "
+        print(f"tensor-core bounded vs tensor-core exact packed q{shape} bfloat16: {b_ms:.3f} ms "
               f"vs {e_ms:.3f} ms (bounded / exact {b_ms / e_ms:.3f})")
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -606,9 +623,10 @@ def _flash_packed_cases(g, rows, failures):
 
 
 def _tc_refusals(g, failures):
-    """The tensor-core wrappers raise, and launch nothing, on a pointer that
-    is not 16-byte aligned, a batch stride that is not a multiple of 8, and
-    float16; they never hand such an input to the CUDA-core template."""
+    """The tensor-core wrappers (bounded, LSE and exact) raise, and launch
+    nothing, on a pointer that is not 16-byte aligned, a batch stride that is
+    not a multiple of 8, and float16; they never hand such an input to the
+    CUDA-core template."""
     buf = torch.randn(2 * 1024 * 320 + 8, generator=g, device="cuda").to(torch.bfloat16)
     misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)             # 2 bytes off
     odd = buf.as_strided((2, 1024, 320), (1024 * 320 + 3, 320, 1))     # batch stride 327,683
@@ -619,7 +637,14 @@ def _tc_refusals(g, failures):
              ("misaligned pointer, LSE", flash.flash_attention_lse_cuda, (head,) * 3),
              ("odd batch stride, packed", flash.flash_attention_packed_bounded_cuda,
               (odd,) * 3 + (8,)),
-             ("float16", flash.flash_attention_cuda, (head.contiguous().half(),) * 3))
+             ("float16", flash.flash_attention_cuda, (head.contiguous().half(),) * 3),
+             ("misaligned pointer, packed exact", flash.flash_attention_packed_cuda,
+              (misaligned,) * 3 + (8,)),
+             ("misaligned pointer, head-split exact", flash.flash_attention_exact_cuda,
+              (head,) * 3),
+             ("odd batch stride, packed exact", flash.flash_attention_packed_cuda,
+              (odd,) * 3 + (8,)),
+             ("float16, exact", flash.flash_attention_exact_cuda, (head.contiguous().half(),) * 3))
     for label, wrapper, args in cases:
         before = read_launches()
         try:
@@ -1202,9 +1227,10 @@ def _mm_loop_cases(g, rows, failures):
     seeded input within 4 sqrt(64 K) 2^-24 times the sum of the magnitudes
     of each output's terms (float32 reordering; bf16 products are exact).
     Then the first case of each layout in float32 on seeded input.  Timed on
-    the ones.  Library call: one bf16 torch.matmul of the 64 nudged A
-    concatenated along K against B repeated 64 times (the same sums as one
-    M x N x 64K product; timing only)."""
+    the ones.  No single PyTorch call computes sum_i nudge_i(a) @ b in
+    float32 (``library_ms`` null); for information only, ``matmuls_ms``
+    times 64 torch.matmul calls of the pre-nudged A by B in the case's dtype
+    (bf16 products, each rounded to bf16) added into a float32 sum."""
     from hedit_tpu_torch.probes.mm_probe import CASES, contraction
 
     firsts = {}
@@ -1223,9 +1249,14 @@ def _mm_loop_cases(g, rows, failures):
             exact = bool((ones == kk * mp.REPS * (mp.REPS + 1) // 2).all())
             ratio = ((got - want).abs() / tol).max().item()
             am, bk = mp._canonical(a1, b1, layout)
-            a_cat = torch.cat([mp.nudged(am, i).to(dtype) for i in range(mp.REPS)], dim=1)
-            b_rep = bk.repeat(mp.REPS, 1).contiguous()
+            a_nudged = [mp.nudged(am, i).to(dtype) for i in range(mp.REPS)]
             m, n = ones.shape
+
+            def matmuls():
+                acc = torch.zeros(m, n, device="cuda")
+                for a_i in a_nudged:
+                    acc += torch.matmul(a_i, bk)
+                return acc
             bound_ms, by = bound(a1.numel() * a1.element_size() + b1.numel() * b1.element_size()
                                  + 4 * m * n, (2 * mp.REPS * m * n * kk, dtype))
             label = f"mm_loop {name} ({layout}, K={kk}) {str(dtype)[6:]}"
@@ -1235,10 +1266,12 @@ def _mm_loop_cases(g, rows, failures):
                  max_abs_err=(got - want).abs().max().item(), tol=tol.max().item(),
                  ms=cuda_ms(lambda: mp.mm_loop_cuda(a1, b1, layout)),
                  plain_ms=cuda_ms(lambda: mp.mm_loop_reference(a1, b1, layout), reps=3),
-                 library_ms=cuda_ms(lambda: torch.matmul(a_cat, b_rep)), bound_ms=bound_ms,
+                 library_ms=None, matmuls_ms=cuda_ms(matmuls), bound_ms=bound_ms,
                  bound_by=by, shape=[name, list(a_shape), list(b_shape)],
                  resident=kk <= 128, ones_exact=exact)
-            del a_cat, b_rep
+            print(f"  64 torch.matmul calls added into a float32 sum (information only): "
+                  f"{rows[-1]['matmuls_ms']:.3f} ms")
+            del a_nudged
 
 
 def phase_probes(rows):
@@ -1573,45 +1606,62 @@ def phase_masactrl_path(pipe, images, ids):
 # self-attention at 64^2 and 32^2 and the 64^2 cross-attention, 4 rows, bf16
 EXACT_CALLER_SHAPES = (((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
                        ((4, 8, 4096, 40), 77))
+# JAX's exact ``flash_attention`` in float32: its oracle test
+# (tests/test_models.py:test_flash_attention_oracle) at the head dims the
+# kernels take, [1, 2, Sq, D] against Sk keys
+EXACT_F32_CALLER_SHAPES = (((1, 2, 256, 40), 256), ((1, 2, 300, 40), 300), ((1, 2, 128, 80), 400))
 # JAX's exact ``flash_attention_packed`` has one caller, its oracle test
 # (tests/test_models.py:test_flash_attention_packed_oracle), float32:
 # (batch, heads, Sq, Sk, D)
 EXACT_PACKED_CALLER_SHAPES = ((2, 3, 300, 300, 40), (1, 8, 256, 256, 40), (2, 2, 128, 400, 80))
+# and one bf16 call on packed heads at the UNet's controlled call, 2 images
+# (batch, heads, Sq, Sk, D), so the tensor-core packed entry runs on the path
+EXACT_PACKED_BF16_SHAPES = ((8, 8, 4096, 4096, 40),)
 
 
 def phase_exact_path():
     """Kernels 6 and 7's own path: no editing path of either package runs
     the exact forwards, so each is driven as JAX's callers drive its twin,
-    once at each of their shapes, the counts at 0 before and read after; each
-    output checked finite and within tolerance of its plain version at the
-    kernel's key tile (``flash_attention_exact_reference``, before its final
-    rounding, one output ulp; packed float32 1e-4)."""
+    once at each of their shapes (bf16 on the tensor cores, float32 on the
+    CUDA-core template), the counts at 0 before and read after; each output
+    checked finite and within tolerance of its plain version at the kernel's
+    key tile (``flash_attention_exact_reference`` and its packed twin,
+    before their final rounding: bf16 one output ulp, float32 1e-4)."""
     failures = []
     g = torch.Generator(device="cuda").manual_seed(23)
     inputs = [_qkv(g, qshape, sk, torch.bfloat16) for qshape, sk in EXACT_CALLER_SHAPES]
-    packed = [[torch.randn(b, s, h * d, generator=g, device="cuda") for s in (sq, sk, sk)] + [h]
-              for b, h, sq, sk, d in EXACT_PACKED_CALLER_SHAPES]
+    inputs += [_qkv(g, qshape, sk, torch.float32) for qshape, sk in EXACT_F32_CALLER_SHAPES]
+    packed = [[torch.randn(b, s, h * d, generator=g, device="cuda").to(dtype)
+               for s in (sq, sk, sk)] + [h]
+              for shapes, dtype in ((EXACT_PACKED_CALLER_SHAPES, torch.float32),
+                                    (EXACT_PACKED_BF16_SHAPES, torch.bfloat16))
+              for b, h, sq, sk, d in shapes]
     reset_launches()
     outs = [flash.flash_attention_exact_cuda(q, k, v) for q, k, v in inputs]
     packed_outs = [flash.flash_attention_packed_cuda(*args) for args in packed]
     torch.cuda.synchronize()
     counts = read_launches()
-    for (q, k, v), out in zip(inputs, outs):
-        want = _forward_plain(q, k, v, exact=True)
+    for args, out in zip(inputs + packed, outs + packed_outs):
+        plain = (flash.flash_attention_exact_reference if len(args) == 3
+                 else flash.flash_attention_packed_exact_reference)
+        want = plain(*args, out_dtype=torch.float32)
         err = (out.float() - want).abs().max().item()
-        if not (bool(torch.isfinite(out).all()) and err <= BF16_ULP * want.abs().max().item()):
-            failures.append(f"exact forward path q{list(q.shape)} k{list(k.shape)}: err {err:.3e}")
-    for args, out in zip(packed, packed_outs):
-        err = (out - flash.flash_attention_packed_exact_reference(*args)).abs().max().item()
-        if not (bool(torch.isfinite(out).all()) and err <= F32_TOL):
-            failures.append(f"exact packed path q{list(args[0].shape)}: err {err:.3e}")
+        tol = F32_TOL if out.dtype == torch.float32 else BF16_ULP * want.abs().max().item()
+        if not (bool(torch.isfinite(out).all()) and err <= tol):
+            failures.append(f"exact forward path q{list(args[0].shape)} k{list(args[1].shape)} "
+                            f"{out.dtype}: err {err:.3e} (tol {tol:.3g})")
     print(f"exact forward path (JAX flash_attention's callers' shapes "
-          f"{[list(q.shape) + [k.shape[2]] for q, k, _ in inputs]}, bf16; flash_attention_packed's "
-          f"{[list(s) for s in EXACT_PACKED_CALLER_SHAPES]}, f32): launches "
+          f"{[list(q.shape) + [k.shape[2], str(q.dtype)[6:]] for q, k, _ in inputs]}; "
+          f"flash_attention_packed's {[list(s) for s in EXACT_PACKED_CALLER_SHAPES]}, f32, "
+          f"and {[list(s) for s in EXACT_PACKED_BF16_SHAPES]}, bf16): launches "
           f"{json.dumps(counts)} {'OK' if not failures else 'FAIL'}")
-    if (counts["flash_attention_exact"], counts["flash_packed"]) != (len(inputs), len(packed)):
-        failures.append(f"exact forward launches {counts['flash_attention_exact']}, exact packed "
-                        f"{counts['flash_packed']}")
+    expected = {"flash_attention_exact": len(EXACT_CALLER_SHAPES),
+                "flash_attention_exact_core": len(EXACT_F32_CALLER_SHAPES),
+                "flash_packed": len(EXACT_PACKED_BF16_SHAPES),
+                "flash_packed_core": len(EXACT_PACKED_CALLER_SHAPES)}
+    if {n: counts[n] for n in EXACT_NAMES} != expected:
+        failures.append(f"exact forward launches {({n: counts[n] for n in EXACT_NAMES})}, "
+                        f"expected {expected}")
     return counts, failures
 
 
@@ -2022,7 +2072,7 @@ def main(argv=None) -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                            "plain_covers", "split_path_ms", "pipe_ms", "shape",
-                                           "core_ms",
+                                           "core_ms", "matmuls_ms",
                                            "max_err_over_tol", "excused_rows", "row_count", "resident",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
                                            "eager_ms")
@@ -2050,8 +2100,10 @@ def main(argv=None) -> int:
         entry("flash_bwd_dkv", tc_route, bwd_tc_cu, f"{jax_flash}:593", "nmg"),
         entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "nmg_f32"),
         entry("flash_bwd_dkv_core", "cuda", bwd_cu, f"{jax_flash}:593", "nmg_f32"),
-        entry("flash_attention_exact", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
-        entry("flash_packed", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
+        entry("flash_attention_exact", tc_route, tc_cu, f"{jax_flash}:60", "exact_forward"),
+        entry("flash_attention_exact_core", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
+        entry("flash_packed", tc_route, tc_cu, f"{jax_flash}:340", "exact_forward"),
+        entry("flash_packed_core", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
         entry("flash_packed_bounded", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
         entry("flash_attention_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
         entry("flash_packed_bounded_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),

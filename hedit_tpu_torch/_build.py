@@ -48,6 +48,10 @@ ARGTYPES = {
     "hedit_flash_attention_fwd_packed_bounded_tc": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
     # hedit_flash_attention_fwd_lse in bf16 on the tensor cores, the same arguments
     "hedit_flash_attention_fwd_lse_tc": [_P] * 5 + [_I] * 6 + [_P],
+    # hedit_flash_attention_fwd_exact and ..._packed in bf16 on the tensor
+    # cores, the same arguments
+    "hedit_flash_attention_fwd_exact_tc": [_P] * 4 + [_I] * 5 + [_P],
+    "hedit_flash_attention_fwd_packed_exact_tc": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_I, _P],
     # q, k, v, dout, lse, delta, dq | bh, sq, sk, d, dtype | stream
     "hedit_flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dk, dv | bh, sq, sk, d, dtype | stream

@@ -1,10 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores (float32
 // FMAs): softmax(q k^T / sqrt(d)) v, optionally with the per-query base-2
 // log-sum-exp as a second output, in one of two softmax modes chosen at
-// compile time (Mode below).  It serves float32 inputs of rows 1 and 3 and
-// the exact mode in either dtype; bf16 inputs of rows 1 and 3 go to the
-// tensor-core kernel of flash_attention_tc.cu (the wrappers dispatch by
-// dtype).
+// compile time (Mode below).  It serves float32 inputs of rows 1, 3, 6 and
+// 7; bf16 inputs of every row go to the tensor-core kernel of
+// flash_attention_tc.cu (the wrappers dispatch by dtype).  The bounded
+// mode's bf16 instantiation stays for side-by-side timings only
+// (chip_smoke.py launches its LSE entry by its entry point; no wrapper
+// does); the exact mode takes float32 only.
 //
 // Bounded (max-free) replaces the TPU kernels of
 // hedit_tpu/ops/flash_attention.py
@@ -30,13 +32,14 @@
 // that the bounded form saturates such keys at 2^100 as the TPU kernel does.
 //
 // Exact (running max m and rescale of the accumulator and the row sum l)
-// replaces
+// replaces, in float32 (the template's only dtype in this mode),
 //   row 6: _flash_kernel (wrapper flash_attention, JAX's public exact
 //          forward, on no editing path of either package); entry point
 //          hedit_flash_attention_fwd_exact, wrapper flash_attention_exact_cuda;
 //   row 7: _flash_packed_kernel (wrapper flash_attention_packed, on no path
 //          of either package); entry point hedit_flash_attention_fwd_packed,
 //          wrapper flash_attention_packed_cuda.
+// (bf16 rows 6 and 7: the exact mode of flash_attention_tc.cu.)
 // The running max is taken over each key tile of BK keys, so the plain
 // version (flash_attention_exact_reference) runs at the same key block.
 //
@@ -83,11 +86,10 @@
 // tiling: each thread owns an RQ x RK tile of scores and an RQ x NC tile of
 // the output, so every shared-memory word it loads feeds several FMAs, and
 // the output accumulator never leaves registers.  Odd row strides keep the
-// strided shared-memory reads free of bank conflicts.  bf16 row 1 runs on the
-// tensor cores (flash_attention_tc.cu), and so does row 3; the exact mode
-// stays here.  The bounded prologue computes the anchor window's scores a
-// second time (no V, no exp2): anchor / Sk more QK^T work, 1/8 at the UNet's
-// 4096 keys and 1/4 for the VAE's.
+// strided shared-memory reads free of bank conflicts.  bf16 rows 1, 3, 6 and
+// 7 run on the tensor cores (flash_attention_tc.cu).  The bounded prologue
+// computes the anchor window's scores a second time (no V, no exp2): anchor /
+// Sk more QK^T work, 1/8 at the UNet's 4096 keys and 1/4 for the VAE's.
 //
 // Block layout: 128 threads as a TQ x TK grid (tid = tq * TK + tk).  A block
 // owns BQ = TQ * RQ query rows of one (batch, head) and loops over key tiles
@@ -369,14 +371,17 @@ int forward(const void* q, const void* k, const void* v, void* out, float* lse,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return int(dispatch<float, M>(q, k, v, out, lse, lay, sq, sk, d, anchor, s));
-    case 1: return int(dispatch<__nv_bfloat16, M>(q, k, v, out, lse, lay, sq, sk, d, anchor, s));
+    case 1:  // bf16 exact: the exact mode of flash_attention_tc.cu
+      if constexpr (M == Mode::Exact) return -1;
+      else return int(dispatch<__nv_bfloat16, M>(q, k, v, out, lse, lay, sq, sk, d, anchor, s));
     default: return -1;
   }
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes.  dtype: 0 float32, 1 bfloat16.
+// Plain C entry points for ctypes.  dtype: 0 float32, 1 bfloat16 (bounded
+// entries only).
 // Each returns 0 on success, a cudaError_t code from the launch, or -1 for
 // arguments the kernel does not take.
 
@@ -401,7 +406,8 @@ extern "C" int hedit_flash_attention_fwd_lse(const void* q, const void* k,
                                 head_split(bh, sq, sk, d), sq, sk, d, anchor, dtype, stream);
 }
 
-// Row 6: the exact forward, head-split.
+// Row 6: the exact forward, head-split.  The wrapper sends float32 here and
+// bf16 to hedit_flash_attention_fwd_exact_tc.
 extern "C" int hedit_flash_attention_fwd_exact(const void* q, const void* k,
                                                const void* v, void* out, int bh,
                                                int sq, int sk, int d, int dtype,
@@ -410,7 +416,8 @@ extern "C" int hedit_flash_attention_fwd_exact(const void* q, const void* k,
                               dtype, stream);
 }
 
-// Row 7: the exact forward on packed heads.
+// Row 7: the exact forward on packed heads; float32 here, bf16 to
+// hedit_flash_attention_fwd_packed_exact_tc.
 extern "C" int hedit_flash_attention_fwd_packed(const void* q, const void* k,
                                                 const void* v, void* out, int b,
                                                 int h, int sq, int sk, int d,

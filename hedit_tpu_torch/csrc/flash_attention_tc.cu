@@ -1,6 +1,7 @@
-// Bounded (max-free) flash-attention forward in bfloat16 on Hopper's tensor
-// cores (sm_90a): softmax(q k^T / sqrt(d)) v in the TPU kernel's arithmetic,
-// optionally with the base-2 log-sum-exp of each row as a second output.
+// Flash-attention forward in bfloat16 on Hopper's tensor cores (sm_90a):
+// softmax(q k^T / sqrt(d)) v in the TPU kernels' arithmetic, bounded
+// (max-free), optionally with the base-2 log-sum-exp of each row as a second
+// output, or exact (a running max), chosen at compile time.
 //
 // Replaces, for bf16 inputs, the TPU kernel _flash_bounded_kernel
 // (hedit_tpu/ops/flash_attention.py:220, wrapper flash_attention_bounded)
@@ -20,8 +21,16 @@
 //     writes lse2 = shift + log2(max(sum, 1.2e-38)): the same kernel, one
 //     float a row more, instantiated with LSE = true (so the other entries'
 //     code is untouched and a trace tells the two apart).  Its tiles are its
-//     own (forward_lse_tc): one image's grid is small.
-// float32 inputs and the exact mode stay on the CUDA-core template of
+//     own (forward_lse_tc): one image's grid is small;
+// and the exact TPU kernels (EXACT = true, forward_exact_tc; on no editing
+// path of either package)
+//   _flash_kernel (:60, row 6, wrapper flash_attention, JAX's public exact
+//     forward), head-split: entry point hedit_flash_attention_fwd_exact_tc,
+//     wrapper flash_attention_exact_cuda;
+//   _flash_packed_kernel (:340, row 7, wrapper flash_attention_packed),
+//     packed heads: entry point hedit_flash_attention_fwd_packed_exact_tc,
+//     wrapper flash_attention_packed_cuda.
+// float32 inputs of every mode stay on the CUDA-core template of
 // flash_attention.cu.
 //
 // The function, exactly as flash_attention.cu computes it in Bounded mode:
@@ -34,6 +43,19 @@
 // the sum is floored at 1.2e-38 and the output rounded once to bf16.  That
 // is the operand contract of mma.sync ... .f32.bf16.bf16.f32: the tensor
 // cores compute the same function, in another summation order.
+//
+// The exact mode, as flash_attention.cu computes it in Exact mode: the same
+// q * scale and scores; no prologue and no clamp; over each key tile of BK
+// keys (the tile decides which max each p is rounded against, so BK is
+// exact_key_tile(D) of ops/flash_attention.py: 64 keys, 32 at d = 512) the
+// running max m_new = max(m, tile max), keys at or past Sk set to -1e30
+// before the tile max; alpha = exp2(m - m_new) rescales the accumulators
+// and the row sum; p = exp2(s - m_new) rounded to bf16 feeds both the PV
+// product and the sum; out = acc / sum with no floor (the row's max key
+// adds p = 1), rounded once.  m starts at JAX's NEG_INF = -1e30, not -inf,
+// so no inf - inf can form a NaN.  The quad's four lanes reduce the tile max
+// by __shfl_xor_sync 1 and 2; at d = 512 the four column-quarter warps of a
+// row group hold the same scores (below), so the same m, alpha and p.
 //
 // What bounds it on the H100.  The UNet's self-attention at [8, 4096,
 // 8 x 40] does 4 * 8 * 8 * 4096^2 * 40 = 171.8 GFLOP against 84 MB of q, k,
@@ -70,7 +92,10 @@
 //   SMs, so no key split is needed;
 // - the anchor prologue runs the same score product over the anchor window
 //   (K only): anchor / Sk more QK work, 1/8 at the UNet's 4096 keys, 1/4 for
-//   the VAE's (anchor 1024).
+//   the VAE's (anchor 1024).  The exact mode has no prologue and pays per
+//   key tile instead: the tile max (a max a score, two shuffles a row), two
+//   exp2 for alpha and the rescale of the accumulators and the sum (DO / 4 + 1
+//   floats a row a lane).
 //
 // Why mma.sync and not wgmma yet: wgmma takes 64-row warpgroup tiles with
 // its shared-memory operands in 8-row core matrices or 32/64/128-byte
@@ -85,7 +110,8 @@
 // as flash_attention.cu's packed entry points (packed_layout).  Every
 // pointer 16-byte aligned and every element stride a multiple of 8
 // (cp.async copies 16 bytes); D one of 40, 80, 512; any Sq, Sk >= 1;
-// anchor >= 1.  Anything else returns -1.
+// anchor >= 1 (the bounded entries; the exact ones take none).  Anything
+// else returns -1.
 
 #include <cmath>
 
@@ -99,6 +125,7 @@ using bf16 = __nv_bfloat16;
 constexpr float kShiftMargin = 16.f;   // shift = anchor max + 16 (base 2)
 constexpr float kSaturate = 100.f;     // p = exp2(min(s - shift, 100))
 constexpr float kDenomFloor = 1.2e-38f;
+constexpr float kNegInf = -1e30f;      // JAX's NEG_INF: the exact mode's first max, masked keys
 constexpr int kStages = 2;             // K / V ring depth
 
 // A block of WR x WC warps: WR row groups of 16 query rows, each split into
@@ -126,7 +153,7 @@ struct TcTile {
   }
 };
 
-template <int D, int WR, int WC, int BK, int MINB, bool LSE>
+template <int D, int WR, int WC, int BK, int MINB, bool LSE, bool EXACT>
 __global__ void __launch_bounds__(32 * WR * WC, MINB)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -257,23 +284,27 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  // prologue: each row's max over its anchor window
-  float shift[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  const int a_end = anchor < sk ? anchor : sk;
-  tile_loop(a_end, false, [&](int k0, int stage) {
-    float s[NT][4];
-    scores(stage, s);
+  // what each row's scores are shifted by before exp2: bounded, the anchor
+  // window's max + 16 (the prologue); exact, the running max
+  float shift[2] = {EXACT ? kNegInf : -CUDART_INF_F, EXACT ? kNegInf : -CUDART_INF_F};
+  if constexpr (!EXACT) {
+    // prologue: each row's max over its anchor window
+    const int a_end = anchor < sk ? anchor : sk;
+    tile_loop(a_end, false, [&](int k0, int stage) {
+      float s[NT][4];
+      scores(stage, s);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + j * 8 + 2 * t + (e & 1) < a_end) shift[e >> 1] = fmaxf(shift[e >> 1], s[j][e]);
-  });
+        for (int e = 0; e < 4; ++e)
+          if (k0 + j * 8 + 2 * t + (e & 1) < a_end) shift[e >> 1] = fmaxf(shift[e >> 1], s[j][e]);
+    });
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    shift[r] = fmaxf(shift[r], __shfl_xor_sync(0xffffffffu, shift[r], 1));
-    shift[r] = fmaxf(shift[r], __shfl_xor_sync(0xffffffffu, shift[r], 2));
-    shift[r] += kShiftMargin;  // key 0 is in the window (sk, anchor >= 1): finite
+    for (int r = 0; r < 2; ++r) {
+      shift[r] = fmaxf(shift[r], __shfl_xor_sync(0xffffffffu, shift[r], 1));
+      shift[r] = fmaxf(shift[r], __shfl_xor_sync(0xffffffffu, shift[r], 2));
+      shift[r] += kShiftMargin;  // key 0 is in the window (sk, anchor >= 1): finite
+    }
   }
 
   float o[NO][4], l[2] = {0.f, 0.f};
@@ -287,6 +318,31 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     scores(stage, s);
     const bf16* vt = v_s + stage * BK * SS;
     const bool ragged = k0 + BK > sk;  // only the last tile masks keys
+    if constexpr (EXACT) {
+      // the running max over this tile; keys past Sk (zero-filled rows, score
+      // 0) out of it, and exp2(-1e30 - m) = 0 adds nothing to the sums
+      float mx[2] = {shift[0], shift[1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (ragged && k0 + j * 8 + 2 * t + (e & 1) >= sk) s[j][e] = kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float alpha = exp2f(shift[r] - mx[r]);
+        shift[r] = mx[r];
+        l[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       // p of keys kk*16 .. kk*16 + 16 in bf16: the A fragment of the PV product
@@ -297,11 +353,17 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int key = k0 + j * 8 + 2 * t;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          float p0 = exp2f(fminf(s[j][2 * r] - shift[r], kSaturate));
-          float p1 = exp2f(fminf(s[j][2 * r + 1] - shift[r], kSaturate));
-          if (ragged) {  // keys past Sk (zero-filled rows) add 0
-            p0 = key < sk ? p0 : 0.f;
-            p1 = key + 1 < sk ? p1 : 0.f;
+          float p0, p1;
+          if constexpr (EXACT) {
+            p0 = exp2f(s[j][2 * r] - shift[r]);
+            p1 = exp2f(s[j][2 * r + 1] - shift[r]);
+          } else {
+            p0 = exp2f(fminf(s[j][2 * r] - shift[r], kSaturate));
+            p1 = exp2f(fminf(s[j][2 * r + 1] - shift[r], kSaturate));
+            if (ragged) {  // keys past Sk (zero-filled rows) add 0
+              p0 = key < sk ? p0 : 0.f;
+              p1 = key + 1 < sk ? p1 : 0.f;
+            }
           }
           const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
           l[r] += __low2float(pb) + __high2float(pb);
@@ -329,7 +391,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float den = fmaxf(l[r], kDenomFloor);
+    // exact: the row's max key added p = 1, so no floor
+    const float den = EXACT ? l[r] : fmaxf(l[r], kDenomFloor);
     const int row = q0 + wr * 16 + g + 8 * r;
     if (row >= sq) continue;
     // every lane of the quad holds the row's sum; the warps of a row group
@@ -343,11 +406,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int WR, int WC, int BK, int MINB, bool LSE = false>
+template <int D, int WR, int WC, int BK, int MINB, bool LSE = false, bool EXACT = false>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
                       const Layout& lay, int sq, int sk, int anchor, cudaStream_t stream) {
   using C = TcTile<D, WR, WC, BK, MINB>;
-  auto kernel = flash_fwd_tc_kernel<D, WR, WC, BK, MINB, LSE>;
+  auto kernel = flash_fwd_tc_kernel<D, WR, WC, BK, MINB, LSE, EXACT>;
   const int smem = int(C::smem_bytes());
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -411,6 +474,28 @@ int forward_lse_tc(const void* q, const void* k, const void* v, void* out, float
   }
 }
 
+// Rows 6 and 7: the exact mode at the bounded forward's tiles, whose key
+// tiles (64, 32 at d = 512) are exact_key_tile(D) (the head of this file).
+// probes/flash_exact_tiles.py rewrites the d = 40 and 80 lines to time other
+// tiles; none was faster.  At d = 40 the 5-block budget (96 registers)
+// spills 20 bytes; 4 blocks an SM, without the spill, took as long.  The
+// exact mode reads no anchor; takes() is asked with 1.
+int forward_exact_tc(const void* q, const void* k, const void* v, void* out, const Layout& lay,
+                     int sq, int sk, int d, int dtype, void* stream) {
+  if (!takes(q, k, v, out, lay, sq, sk, 1, dtype)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 40:
+      return int(launch_tc<40, 4, 1, 64, 5, false, true>(q, k, v, out, nullptr, lay, sq, sk, 1, s));
+    case 80:
+      return int(launch_tc<80, 8, 1, 64, 2, false, true>(q, k, v, out, nullptr, lay, sq, sk, 1, s));
+    case 512:
+      return int(launch_tc<512, 2, 4, 32, 1, false, true>(q, k, v, out, nullptr, lay, sq, sk, 1,
+                                                          s));
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes, arguments as flash_attention.cu's bounded
@@ -441,4 +526,22 @@ extern "C" int hedit_flash_attention_fwd_packed_bounded_tc(
   Layout lay;
   if (!packed_layout(b, h, sq, sk, d, q_bs, k_bs, v_bs, &lay)) return -1;
   return forward_tc(q, k, v, out, lay, sq, sk, d, anchor, dtype, stream);
+}
+
+// Row 6 in bf16: the exact forward, head-split; arguments as flash_attention.cu's
+// hedit_flash_attention_fwd_exact.
+extern "C" int hedit_flash_attention_fwd_exact_tc(const void* q, const void* k, const void* v,
+                                                  void* out, int bh, int sq, int sk, int d,
+                                                  int dtype, void* stream) {
+  return forward_exact_tc(q, k, v, out, head_split(bh, sq, sk, d), sq, sk, d, dtype, stream);
+}
+
+// Row 7 in bf16: the exact forward on packed heads; arguments as
+// flash_attention.cu's hedit_flash_attention_fwd_packed.
+extern "C" int hedit_flash_attention_fwd_packed_exact_tc(
+    const void* q, const void* k, const void* v, void* out, int b, int h, int sq, int sk, int d,
+    long long q_bs, long long k_bs, long long v_bs, int dtype, void* stream) {
+  Layout lay;
+  if (!packed_layout(b, h, sq, sk, d, q_bs, k_bs, v_bs, &lay)) return -1;
+  return forward_exact_tc(q, k, v, out, lay, sq, sk, d, dtype, stream);
 }

@@ -3,20 +3,20 @@ their plain versions.
 
 Port of ``hedit_tpu/ops/flash_attention.py``.  Two CUDA forward sources:
 
-* ``csrc/flash_attention_tc.cu``: the **bounded** (max-free) forward in
-  bfloat16 on the tensor cores (``mma.sync``), the TPU kernels
+* ``csrc/flash_attention_tc.cu``: the forwards in bfloat16 on the tensor
+  cores (``mma.sync``).  The **bounded** (max-free) mode: the TPU kernels
   ``_flash_bounded_kernel`` and, with the base-2 log-sum-exp as a second
   output, ``_flash_bounded_lse_kernel``, as every bf16 path runs them.  Each
   query row's shift is anchored on the first ``anchor`` keys
   (``bounded_anchor``: the key block the JAX wrapper picks at that shape),
   ``shift = m0 + 16`` in base-2 units, and every key contributes
   ``p = exp2(min(s - shift, 100))`` with no running max and no rescale; the
-  denominator is floored at ``1.2e-38``.
+  denominator is floored at ``1.2e-38``.  The **exact** mode (a running max
+  over key tiles of ``exact_key_tile(D)`` and the rescale: the TPU kernels
+  ``_flash_kernel`` and ``_flash_packed_kernel``, on no path of either
+  package), with their bf16 roundings of q * scale and p.
 * ``csrc/flash_attention.cu``: one CUDA-core template (float32 FMAs) that
-  serves the same two bounded forwards for **float32** inputs, and the
-  **exact** mode (running max and rescale: the TPU kernels ``_flash_kernel``
-  and ``_flash_packed_kernel``, on no path of either package) in either
-  dtype, with their bf16 roundings of q * scale and p.
+  serves both modes for **float32** inputs.
 
 The wrappers:
 
@@ -42,7 +42,9 @@ The wrappers:
   CUDA-core template, ``csrc/flash_attention_bwd.cu``; by ``bwd_entry``),
   elsewhere the gradient of ``reference_attention`` by autograd;
 * ``flash_attention_exact_cuda`` (head-split) and
-  ``flash_attention_packed_cuda`` (packed heads): the exact mode.
+  ``flash_attention_packed_cuda`` (packed heads): the exact mode (bf16 on
+  the tensor cores, whose operands must pass ``check_tc_operands``, float32
+  on the template, by ``exact_entry``).
 
 The two modes agree wherever no key scores more than 116 log2 units above
 its row's anchor maximum; beyond that the bounded form saturates those keys
@@ -78,8 +80,10 @@ import torch
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
 launches = 0          # bounded forward without the log-sum-exp, head-split, CUDA cores
 launches_tc = 0       # the same in bf16 on the tensor cores
-launches_exact = 0    # exact forward, head-split
-launches_packed = 0   # exact forward on packed heads
+launches_exact = 0    # exact forward, head-split, CUDA cores (float32)
+launches_exact_tc = 0   # the same in bf16 on the tensor cores
+launches_packed = 0   # exact forward on packed heads, CUDA cores (float32)
+launches_packed_tc = 0  # the same in bf16 on the tensor cores
 launches_packed_bounded = 0      # bounded forward on packed heads, CUDA cores
 launches_packed_bounded_tc = 0   # the same in bf16 on the tensor cores
 launches_lse = 0      # bounded forward with the log-sum-exp, CUDA cores (float32)
@@ -154,6 +158,19 @@ def bounded_entry(dtype: torch.dtype, packed: bool) -> str:
     raise ValueError(f"the bounded forward takes float32 or bfloat16, got {dtype}")
 
 
+def exact_entry(dtype: torch.dtype, packed: bool) -> str:
+    """The CUDA entry point of the exact forward for an input of ``dtype``
+    (head-split or ``packed`` heads): bfloat16 the tensor-core kernel
+    (``csrc/flash_attention_tc.cu``), float32 the CUDA-core template
+    (``csrc/flash_attention.cu``).  Raises for any other dtype."""
+    if dtype == torch.bfloat16:
+        return ("hedit_flash_attention_fwd_packed_exact_tc" if packed
+                else "hedit_flash_attention_fwd_exact_tc")
+    if dtype == torch.float32:
+        return "hedit_flash_attention_fwd_packed" if packed else "hedit_flash_attention_fwd_exact"
+    raise ValueError(f"the exact forward takes float32 or bfloat16, got {dtype}")
+
+
 def lse_entry(dtype: torch.dtype) -> str:
     """The CUDA entry point of the bounded forward with the log-sum-exp for
     an input of ``dtype``: bfloat16 the tensor-core kernel
@@ -226,9 +243,10 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 
 
 def exact_key_tile(d: int) -> int:
-    """The exact kernel's key tile at head dim ``d`` (``csrc/flash_attention.cu``:
-    64 keys at the UNet's 40 and 80, 32 at the VAE's 512): the block over
-    which its running max, and with it the rounding of p, is taken."""
+    """The exact kernels' key tile at head dim ``d`` (``csrc/flash_attention.cu``
+    and ``csrc/flash_attention_tc.cu``: 64 keys at the UNet's 40 and 80, 32
+    at the VAE's 512): the block over which their running max, and with it
+    the rounding of p, is taken."""
     return 32 if d > 128 else 64
 
 
@@ -431,25 +449,30 @@ def _launch(name: str, q: torch.Tensor, pointers, ints) -> None:
         raise RuntimeError(f"{name} failed (code {err}) for q{tuple(q.shape)} {q.dtype}")
 
 
+def _launch_forward(entry: str, counter: str, q: torch.Tensor, pointers, ints, d: int,
+                    strides) -> None:
+    """Launch forward entry point ``entry`` on ``pointers`` (q, k, v, out[,
+    lse2]) and count it in the module's ``counter``, or in ``counter +
+    "_tc"`` for a tensor-core entry, whose q, k, v and out must first pass
+    ``check_tc_operands`` with the element ``strides`` of the layout."""
+    tc = entry.endswith("_tc")
+    if tc:
+        check_tc_operands(d, [t.data_ptr() for t in pointers[:4]], strides)
+    _launch(entry, q, pointers, ints)
+    globals()[counter + "_tc" if tc else counter] += 1
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The bounded forward: a CPU tensor takes the plain version, a CUDA
     tensor launches the kernel of ``bounded_entry`` on the current stream
     with the anchor of ``bounded_anchor``.  Raises on any CUDA input the
     kernel does not take, and if the launch is refused."""
-    global launches, launches_tc
     if _on_cpu(q, k, v):
         return flash_attention_bounded_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_cuda")
     out = torch.empty_like(q)
-    entry = bounded_entry(q.dtype, packed=False)
-    tc = entry.endswith("_tc")
-    if tc:
-        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq * d, sk * d, d])
-    _launch(entry, q, (q, k, v, out), (b * h, sq, sk, d, bounded_anchor(sk, d)))
-    if tc:
-        launches_tc += 1
-    else:
-        launches += 1
+    _launch_forward(bounded_entry(q.dtype, packed=False), "launches", q, (q, k, v, out),
+                    (b * h, sq, sk, d, bounded_anchor(sk, d)), d, [sq * d, sk * d, d])
     return out
 
 
@@ -457,15 +480,16 @@ def flash_attention_exact_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                ) -> torch.Tensor:
     """The exact forward (running max and rescale; the TPU kernel
     ``_flash_kernel`` of JAX's public ``flash_attention``): a CPU tensor takes
-    ``flash_attention_exact_reference`` at the kernel's key tile, a CUDA
-    tensor launches the kernel.  Raises as ``flash_attention_cuda`` does."""
-    global launches_exact
+    ``flash_attention_exact_reference`` at the kernels' key tile, a CUDA
+    tensor launches the kernel of ``exact_entry`` (bf16 on the tensor cores,
+    whose operands must pass ``check_tc_operands``).  Raises as
+    ``flash_attention_cuda`` does."""
     if _on_cpu(q, k, v):
         return flash_attention_exact_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_exact_cuda")
     out = torch.empty_like(q)
-    _launch("hedit_flash_attention_fwd_exact", q, (q, k, v, out), (b * h, sq, sk, d))
-    launches_exact += 1
+    _launch_forward(exact_entry(q.dtype, packed=False), "launches_exact", q, (q, k, v, out),
+                    (b * h, sq, sk, d), d, [sq * d, sk * d, d])
     return out
 
 
@@ -498,16 +522,17 @@ def _check_packed(q, k, v, heads: int, what: str):
 
 def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 heads: int) -> torch.Tensor:
-    """Launch the exact forward kernel on packed heads: q [B, Sq, H*D], k / v
-    [B, Sk, H*D] -> contiguous [B, Sq, H*D].  The batch rows of an input may
-    lie any stride apart (a row slice of a larger batch is taken as it is).
-    Raises on any input the kernel does not take, and if the launch is
+    """Launch the exact forward kernel of ``exact_entry`` on packed heads
+    (bf16 on the tensor cores, whose operands must pass
+    ``check_tc_operands``): q [B, Sq, H*D], k / v [B, Sk, H*D] -> contiguous
+    [B, Sq, H*D].  The batch rows of an input may lie any stride apart (a
+    row slice of a larger batch is taken as it is).  Raises on any input the
+    kernel does not take, CPU tensors included, and if the launch is
     refused."""
-    global launches_packed
     b, h, sq, sk, d, *strides = _check_packed(q, k, v, heads, "flash_attention_packed_cuda")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("hedit_flash_attention_fwd_packed", q, (q, k, v, out), (b, h, sq, sk, d, *strides))
-    launches_packed += 1
+    _launch_forward(exact_entry(q.dtype, packed=True), "launches_packed", q, (q, k, v, out),
+                    (b, h, sq, sk, d, *strides), d, [h * d, *strides])
     return out
 
 
@@ -520,7 +545,6 @@ def flash_attention_packed_bounded_cuda(q: torch.Tensor, k: torch.Tensor, v: tor
     kernel of ``bounded_entry`` with ``anchor`` (default
     ``bounded_anchor(Sk, D)``).  Raises on any CUDA input the kernel does not
     take, and if the launch is refused."""
-    global launches_packed_bounded, launches_packed_bounded_tc
     if _on_cpu(q, k, v):
         return flash_attention_packed_bounded_reference(q, k, v, heads, anchor)
     b, h, sq, sk, d, *strides = _check_packed(q, k, v, heads,
@@ -529,15 +553,8 @@ def flash_attention_packed_bounded_cuda(q: torch.Tensor, k: torch.Tensor, v: tor
     if anchor < 1:
         raise ValueError(f"anchor must be positive, got {anchor}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    entry = bounded_entry(q.dtype, packed=True)
-    tc = entry.endswith("_tc")
-    if tc:
-        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [h * d, *strides])
-    _launch(entry, q, (q, k, v, out), (b, h, sq, sk, d, anchor, *strides))
-    if tc:
-        launches_packed_bounded_tc += 1
-    else:
-        launches_packed_bounded += 1
+    _launch_forward(bounded_entry(q.dtype, packed=True), "launches_packed_bounded", q,
+                    (q, k, v, out), (b, h, sq, sk, d, anchor, *strides), d, [h * d, *strides])
     return out
 
 
@@ -548,21 +565,13 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     tensor launches the kernel of ``lse_entry`` (bf16 on the tensor cores,
     whose operands must pass ``check_tc_operands``), otherwise as
     ``flash_attention_cuda``."""
-    global launches_lse, launches_lse_tc
     if _on_cpu(q, k, v):
         return flash_attention_lse_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_lse_cuda")
     out = torch.empty_like(q)
     lse2 = torch.empty((b * h, 1, sq), dtype=torch.float32, device=q.device)
-    entry = lse_entry(q.dtype)
-    tc = entry.endswith("_tc")
-    if tc:
-        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq * d, sk * d, d])
-    _launch(entry, q, (q, k, v, out, lse2), (b * h, sq, sk, d, bounded_anchor(sk, d)))
-    if tc:
-        launches_lse_tc += 1
-    else:
-        launches_lse += 1
+    _launch_forward(lse_entry(q.dtype), "launches_lse", q, (q, k, v, out, lse2),
+                    (b * h, sq, sk, d, bounded_anchor(sk, d)), d, [sq * d, sk * d, d])
     return out, lse2
 
 

@@ -21,8 +21,8 @@ CUDA-core template's entry point ``hedit_flash_attention_fwd_lse`` in bf16
 example ``git archive <commit> | tar -x -C DIR``); its CUDA-core forward
 template (``csrc/flash_attention.cu``) is built beside this tree's and both
 are timed in turns (parent, this, this, parent) at ``TEMPLATE_CASES``: the
-LSE entry in float32 (row 3 on the float32 paths) and the exact entries in
-bf16 (rows 6 and 7 at their callers' shapes).
+LSE entry (row 3 on the float32 paths) and the exact entries (rows 6 and 7
+at their callers' shapes; bf16 takes the tensor cores), in float32.
 """
 
 from __future__ import annotations
@@ -58,8 +58,8 @@ ENTRY = "hedit_flash_attention_fwd_lse_tc"
 # (entry point, q shape [B, H, S, D], Sk, dtype) of the template's timings
 TEMPLATE_CASES = (("hedit_flash_attention_fwd_lse", (1, 8, 4096, 40), 4096, torch.float32),
                   ("hedit_flash_attention_fwd_lse", (1, 1, 4096, 512), 4096, torch.float32),
-                  ("hedit_flash_attention_fwd_exact", (8, 8, 4096, 40), 4096, torch.bfloat16),
-                  ("hedit_flash_attention_fwd_packed", (8, 8, 4096, 40), 4096, torch.bfloat16))
+                  ("hedit_flash_attention_fwd_exact", (8, 8, 4096, 40), 4096, torch.float32),
+                  ("hedit_flash_attention_fwd_packed", (8, 8, 4096, 40), 4096, torch.float32))
 
 
 def _library(source: Path, name: str, include: Path = _build.CSRC):

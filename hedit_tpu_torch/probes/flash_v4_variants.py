@@ -5,7 +5,7 @@ Port of ``scripts/flash_v4_variants.py`` (its TPU kernel is ``kern_exp2``,
 ``ops/flash_probes.py:flash_exp2_t_cuda``):
 
 * base: the port's exact forward, TPU kernel 6 (``flash_attention_exact_cuda``,
-  the script's shipped ``flash_attention``);
+  the script's shipped ``flash_attention``; in bf16 on the tensor cores);
 * exp2: sm_scale * log2(e) folded into q, exp2, p rounded to bf16, the
   transposed ``[B*H, D, S]`` output;
 * exp2+pipe: the same with the software-pipelined key loop (the scores of

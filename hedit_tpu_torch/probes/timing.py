@@ -79,9 +79,27 @@ def build_alone(source: Path, so: Path, include: Path):
         if hasattr(lib, entry):
             getattr(lib, entry).argtypes = argtypes
             getattr(lib, entry).restype = ctypes.c_int
-    lines = p.stderr.splitlines()
-    info = [re.sub(r".*?(Used \d+ registers).*", r"\1", line) for line in lines
-            if "registers" in line]
-    spills = [line.strip() for line in lines
-              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    return lib, " | ".join(info + spills)
+    return lib, " | ".join(_ptxas_kernels(p.stderr))
+
+
+def _ptxas_kernels(log: str):
+    """One line a kernel of ``-Xptxas -v``'s log: its name with its template
+    arguments (``kernel<80,8,1,...>``, read from the mangled name), its
+    registers, and its spills where it has any."""
+    found, name = [], "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            # the kernel's identifier: the one whose length prefix is its length
+            names = [m.group(2) for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)I)", mangled)
+                     if int(m.group(1)) == len(m.group(2))]
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = (names[0] if names else mangled) + (f"<{','.join(args)}>" if args else "")
+        elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            found.append(f"{name}: {line.strip()}")
+        else:
+            used = re.search(r"Used \d+ registers", line)
+            if used:
+                found.append(f"{name}: {used.group(0)}")
+    return found

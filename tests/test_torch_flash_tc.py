@@ -1,10 +1,12 @@
-"""The bf16 tensor-core route of the port's bounded flash forward, on the CPU.
+"""The bf16 tensor-core route of the port's flash forwards (bounded and
+exact), on the CPU.
 
 The kernel (``hedit_tpu_torch/csrc/flash_attention_tc.cu``) runs only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
-* the dispatch by dtype (``bounded_entry``): bf16 to the tensor-core entry
-  points, float32 to the CUDA-core template, anything else refused;
+* the dispatch by dtype (``bounded_entry``, ``exact_entry``): bf16 to the
+  tensor-core entry points, float32 to the CUDA-core template, anything else
+  refused;
 * the operand check (``check_tc_operands``): head dims, 16-byte alignment
   and strides that are multiples of 8, as values;
 * the C entry points' parameter lists against the ``ctypes`` argument types
@@ -16,7 +18,14 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
   ``flash_attention_bounded`` in Pallas interpret mode (128-key blocks, so a
   128-key anchor window), the saturating input included; with the LSE
   entry's second output, lse2 = shift + log2(floored sum), against
-  ``flash_attention_lse_reference`` and JAX's ``_flash_bounded_fwd_lse``.
+  ``flash_attention_lse_reference`` and JAX's ``_flash_bounded_fwd_lse``;
+* the exact mode's order of work (the same partial scores, then a running
+  max, rescale and rounded p per key tile) against
+  ``flash_attention_exact_reference`` at the kernel's key tiles, and at
+  128-key tiles against JAX's ``flash_attention`` and
+  ``flash_attention_packed`` in Pallas interpret mode.  Its cases run as
+  loops inside two items: pytest-xdist's loadfile scheduler queues test
+  files by their number of items.
 """
 
 import ctypes
@@ -29,14 +38,22 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from hedit_tpu.ops.flash_attention import _flash_bounded_fwd_lse, flash_attention_bounded
+from hedit_tpu.ops.flash_attention import (
+    _flash_bounded_fwd_lse, flash_attention, flash_attention_bounded, flash_attention_packed,
+)
 from hedit_tpu_torch import _build
 from hedit_tpu_torch.ops import flash_attention as flash_mod
 
 ANCHOR = 128   # the JAX kernel's blk_k in these runs
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 TC_ENTRIES = ("hedit_flash_attention_fwd_tc", "hedit_flash_attention_fwd_packed_bounded_tc",
-              "hedit_flash_attention_fwd_lse_tc")
+              "hedit_flash_attention_fwd_lse_tc", "hedit_flash_attention_fwd_exact_tc",
+              "hedit_flash_attention_fwd_packed_exact_tc")
+# the exact forward's entry points by dtype: (head-split, packed)
+EXACT_ENTRIES = {torch.bfloat16: ("hedit_flash_attention_fwd_exact_tc",
+                                  "hedit_flash_attention_fwd_packed_exact_tc"),
+                 torch.float32: ("hedit_flash_attention_fwd_exact",
+                                 "hedit_flash_attention_fwd_packed")}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -57,14 +74,19 @@ def _share_cores():
 ])
 def test_bounded_entry_sends_bf16_to_the_tensor_cores(dtype, entry, packed):
     """bf16 CUDA inputs take the tensor-core entry points, float32 ones the
-    CUDA-core template's, head-split and packed alike."""
+    CUDA-core template's, head-split and packed alike, in the bounded mode
+    and in the exact one (``exact_entry``)."""
     assert flash_mod.bounded_entry(dtype, packed) == entry[packed]
+    assert flash_mod.exact_entry(dtype, packed) == EXACT_ENTRIES[dtype][packed]
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
 def test_bounded_entry_refuses_other_dtypes(dtype):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_mod.bounded_entry(dtype, packed=False)
+    for packed in (False, True):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            flash_mod.exact_entry(dtype, packed)
 
 
 @pytest.mark.parametrize("d", [40, 80, 512])
@@ -110,9 +132,10 @@ def _c_entry_points():
 def test_c_entry_points_match_their_argument_types():
     """Every entry point the loader binds exists in the sources with the
     parameter list its ``ctypes`` argument types describe (pointers and the
-    stream as ``c_void_p``); the tensor-core ones among them, the LSE
-    entry's with the template's parameter list.  ``lse_entry`` sends bf16 to
-    the tensor cores, float32 to the template, and refuses other dtypes."""
+    stream as ``c_void_p``); the tensor-core ones among them, the LSE and
+    exact entries' with the template's parameter lists.  ``lse_entry`` sends
+    bf16 to the tensor cores, float32 to the template, and refuses other
+    dtypes; ``exact_entry`` names bound entry points."""
     found = _c_entry_points()
     assert set(TC_ENTRIES) <= set(_build.ARGTYPES)
     for name, argtypes in _build.ARGTYPES.items():
@@ -124,25 +147,35 @@ def test_c_entry_points_match_their_argument_types():
     assert flash_mod.lse_entry(torch.float32) == "hedit_flash_attention_fwd_lse"
     assert (_build.ARGTYPES["hedit_flash_attention_fwd_lse_tc"]
             == _build.ARGTYPES["hedit_flash_attention_fwd_lse"])
+    for packed in (False, True):
+        tc, template = (flash_mod.exact_entry(dt, packed) for dt in (torch.bfloat16, torch.float32))
+        assert _build.ARGTYPES[tc] == _build.ARGTYPES[template], tc
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_mod.lse_entry(torch.float16)
 
 
 def test_wrappers_on_cpu_launch_nothing():
     """CPU tensors of either dtype take the plain versions; no counter of
-    either route moves."""
-    q = torch.randn(1, 1100, 2 * 40).to(torch.bfloat16)
-    counts = (flash_mod.launches, flash_mod.launches_tc, flash_mod.launches_packed_bounded,
-              flash_mod.launches_packed_bounded_tc)
-    got = flash_mod.flash_attention_packed_bounded_cuda(q, q, q, 2)
-    torch.testing.assert_close(got, flash_mod.flash_attention_packed_bounded_reference(q, q, q, 2),
-                               rtol=0, atol=0)
-    qh = q.reshape(1, 1100, 2, 40).transpose(1, 2).contiguous()
-    torch.testing.assert_close(flash_mod.flash_attention_cuda(qh, qh, qh),
-                               flash_mod.flash_attention_bounded_reference(qh, qh, qh),
-                               rtol=0, atol=0)
-    assert counts == (flash_mod.launches, flash_mod.launches_tc,
-                      flash_mod.launches_packed_bounded, flash_mod.launches_packed_bounded_tc)
+    either route moves, the exact forwards' included (the packed exact
+    wrapper has no plain route and refuses CPU tensors)."""
+    names = ("launches", "launches_tc", "launches_packed_bounded", "launches_packed_bounded_tc",
+             "launches_exact", "launches_exact_tc", "launches_packed", "launches_packed_tc")
+    counts = [getattr(flash_mod, n) for n in names]
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, 1100, 2 * 40).to(dtype)
+        got = flash_mod.flash_attention_packed_bounded_cuda(q, q, q, 2)
+        torch.testing.assert_close(
+            got, flash_mod.flash_attention_packed_bounded_reference(q, q, q, 2), rtol=0, atol=0)
+        qh = q.reshape(1, 1100, 2, 40).transpose(1, 2).contiguous()
+        torch.testing.assert_close(flash_mod.flash_attention_cuda(qh, qh, qh),
+                                   flash_mod.flash_attention_bounded_reference(qh, qh, qh),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(flash_mod.flash_attention_exact_cuda(qh, qh, qh),
+                                   flash_mod.flash_attention_exact_reference(qh, qh, qh),
+                                   rtol=0, atol=0)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_mod.flash_attention_packed_cuda(q, q, q, 2)
+    assert counts == [getattr(flash_mod, n) for n in names]
 
 
 def _tiled_forward(q, k, v, anchor, bk, wc):
@@ -243,3 +276,102 @@ def test_tiled_order_matches_the_plain_version_and_jax(dtype, sq, sk, d, bk, wc,
     if saturate:
         exact = flash_mod.reference_attention(q.float(), k.float(), v.float()).numpy()
         assert np.abs(got - exact).max() > 20 * tol
+
+
+def _tiled_exact_forward(q, k, v, bk, wc):
+    """The tensor-core kernel's order of work in its exact mode, in plain
+    torch: the scores of ``_tiled_forward`` (q * scale rounded to the input
+    dtype, the contraction zero-padded to a multiple of 16, ``wc`` partial
+    products over equal parts of it added in order); for each tile of ``bk``
+    keys the running max m_new = max(m, tile max) from m = -1e30, alpha =
+    exp2(m - m_new) rescaling the accumulator and the row sum, p = exp2(s -
+    m_new) rounded to the input dtype into both; out = acc / sum, no floor.
+    Returns the float32 output before the kernel's final rounding."""
+    d, sk = q.shape[-1], k.shape[-2]
+    dk = -(-d // 16) * 16
+    qs = F.pad((q * torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=q.dtype)).float(),
+               (0, dk - d))
+    kf, vf = F.pad(k.float(), (0, dk - d)), v.float()
+    part = dk // wc
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    den = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros(q.shape[:-1] + (d,))
+    for k0 in range(0, sk, bk):
+        kt = kf[..., k0:k0 + bk, :]
+        s = torch.zeros(q.shape[:-1] + (kt.shape[-2],))
+        for c in range(wc):
+            s = s + qs[..., c * part:(c + 1) * part] @ kt[..., c * part:(c + 1) * part].mT
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).to(v.dtype).float()
+        den = den * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ vf[..., k0:k0 + bk, :]
+        m = m_new
+    return acc / den
+
+
+def test_tiled_exact_order_matches_the_plain_version():
+    """The exact mode's order of work at the kernel's tiles ((key tile,
+    warps along D) = (64, 1) at d = 40 and 80, (32, 4) at d = 512), ragged
+    Sq and Sk, a saturating input, both dtypes, against
+    ``flash_attention_exact_reference`` at the same key tile
+    (``exact_key_tile``), both before their final rounding: tolerances of
+    ``_tol``.  On the saturating input the exact result differs from the
+    bounded one by more than 20 tolerances."""
+    for sq, sk, d, bk, wc, saturate in ((300, 300, 40, 64, 1, False),
+                                        (100, 330, 80, 64, 1, False),
+                                        (96, 270, 512, 32, 4, False),
+                                        (128, 320, 40, 64, 1, True),
+                                        (64, 320, 512, 32, 4, True)):
+        assert flash_mod.exact_key_tile(d) == bk
+        for dtype in DTYPES:
+            (q, k, v), _ = _inputs(sq, sk, d, dtype, saturate)
+            where = f"{dtype} {(sq, sk, d, bk, wc, saturate)}"
+            got = _tiled_exact_forward(q, k, v, bk, wc).numpy()
+            want = flash_mod.flash_attention_exact_reference(q, k, v, bk,
+                                                             out_dtype=torch.float32).numpy()
+            tol = _tol(dtype, want)
+            np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=where)
+            assert np.isfinite(got).all(), where
+            if saturate:
+                bounded = flash_mod.flash_attention_bounded_reference(
+                    q, k, v, ANCHOR, out_dtype=torch.float32).numpy()
+                assert np.abs(got - bounded).max() > 20 * tol, where
+
+
+def test_tiled_exact_order_matches_jax_exact_kernels():
+    """At 128-key tiles the exact mode's order of work, rounded once to the
+    input dtype, against JAX's ``flash_attention`` (head-split) and
+    ``flash_attention_packed`` (packed heads, split here into heads) with
+    ``blk_q = blk_k = 128`` in interpret mode, aligned, ragged and Sq != Sk,
+    the VAE's width with four partial score products: the tolerances of
+    ``test_exact_plain_versions_match_jax_exact_kernels``, float32 2e-5;
+    bfloat16 2^-8 of the largest output and at most 2% of the elements
+    differing."""
+    for dtype in DTYPES:
+        tdt, jdt = DTYPES[dtype]
+        for b, heads, sq, sk, d, wc, packed in ((1, 2, 300, 300, 40, 1, False),
+                                                (1, 2, 256, 77, 80, 1, False),
+                                                (1, 1, 128, 200, 512, 4, False),
+                                                (2, 3, 128, 400, 80, 1, True)):
+            rng = np.random.RandomState(b + heads + sq + sk + d)
+            shapes = [(b, s, heads * d) if packed else (b, heads, s, d) for s in (sq, sk, sk)]
+            arrays = [rng.randn(*shape).astype(np.float32) for shape in shapes]
+            q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+            jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in arrays)
+            if packed:
+                split = lambda t: t.reshape(b, -1, heads, d).transpose(1, 2)  # noqa: E731
+                got = _tiled_exact_forward(split(q), split(k), split(v), 128, wc)
+                got = got.transpose(1, 2).reshape(b, sq, heads * d)
+                want = flash_attention_packed(jq, jk, jv, heads=heads, blk_q=128, blk_k=128,
+                                              interpret=True)
+            else:
+                got = _tiled_exact_forward(q, k, v, 128, wc)
+                want = flash_attention(jq, jk, jv, blk_q=128, blk_k=128, interpret=True)
+            got = got.to(tdt).float().numpy()
+            want = np.asarray(want.astype(jnp.float32))
+            where = f"{dtype} {(b, heads, sq, sk, d, wc, packed)}"
+            tol = 2e-5 if dtype == "float32" else 2.0 ** -8 * np.abs(want).max()
+            np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=where)
+            if dtype == "bfloat16":
+                assert np.mean(got != want) <= 0.02, where

@@ -88,17 +88,19 @@ def _saturating(device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 8, 1024, 40), (1, 8, 1000, 80), (1, 1, 1024, 512)])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
-    """The bounded kernel (kernel 1: bf16 on the tensor cores, float32 on the
-    CUDA cores) against its plain version with the same anchor, and the exact
-    kernel (kernel 6) against ``flash_attention_exact_reference`` at the
-    kernel's key tile (tolerances of ``_tol``)."""
+    """The bounded kernel (kernel 1) against its plain version with the same
+    anchor, and the exact kernel (kernel 6) against
+    ``flash_attention_exact_reference`` at the kernel's key tile (tolerances
+    of ``_tol``); each bf16 on the tensor cores, float32 on the CUDA cores
+    (the counters say which ran)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
-    bounded = "launches_tc" if dtype == torch.bfloat16 else "launches"
+    tc = "_tc" if dtype == torch.bfloat16 else ""
     for wrapper, plain, counter in (
-            (flash_mod.flash_attention_cuda, flash_attention_bounded_reference, bounded),
+            (flash_mod.flash_attention_cuda, flash_attention_bounded_reference,
+             "launches" + tc),
             (flash_mod.flash_attention_exact_cuda, flash_attention_exact_reference,
-             "launches_exact")):
+             "launches_exact" + tc)):
         before = getattr(flash_mod, counter)
         got = wrapper(q, k, v)
         torch.cuda.synchronize()
@@ -113,12 +115,17 @@ def test_bounded_kernels_saturate_as_their_plain_versions_on_card(cuda, dtype):
     """Keys beyond the anchor window far above its max: the bounded kernels
     (forward and LSE forward) match the bounded plain versions, the exact
     kernel matches its plain version (exact attention with the kernel's
-    roundings), and the two forms differ by far more than the tolerance."""
+    roundings), and the two forms differ by far more than the tolerance.
+    bf16 runs every one on the tensor cores, float32 on the CUDA cores."""
     q, k, v = _saturating(cuda, dtype)
     assert bounded_anchor(1024, 40) == 512
+    tc = "_tc" if dtype == torch.bfloat16 else ""
+    names = ("launches" + tc, "launches_lse" + tc, "launches_exact" + tc)
+    before = [getattr(flash_mod, n) for n in names]
     bounded = flash_mod.flash_attention_cuda(q, k, v).float()
     out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
     exact = flash_mod.flash_attention_exact_cuda(q, k, v).float()
+    assert [getattr(flash_mod, n) for n in names] == [c + 1 for c in before]
     want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v,
                                                                  out_dtype=torch.float32)
     want_exact = _plain_on_card(flash_attention_exact_reference, q, k, v)
@@ -422,7 +429,8 @@ def _launch_counts():
     return (flash_mod.launches, flash_mod.launches_packed, flash_mod.launches_lse,
             flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv,
             flash_mod.launches_packed_bounded, flash_mod.launches_tc,
-            flash_mod.launches_packed_bounded_tc)
+            flash_mod.launches_packed_bounded_tc, flash_mod.launches_exact_tc,
+            flash_mod.launches_packed_tc)
 
 
 def test_packed_wrapper_takes_plain_version_on_cpu():
@@ -444,14 +452,16 @@ def test_packed_wrapper_takes_plain_version_on_cpu():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,heads,sq,sk,d", [(2, 8, 1024, 1024, 40), (2, 8, 1024, 1024, 80),
-                                             (2, 3, 300, 300, 40), (2, 2, 128, 400, 80)])
+                                             (2, 3, 300, 300, 40), (2, 2, 128, 400, 80),
+                                             (1, 1, 1000, 1100, 512)])
 def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
-    """The exact packed-head kernel against its plain version
+    """The exact packed-head kernel (bf16 on the tensor cores, float32 on
+    the CUDA cores: the counters say which ran) against its plain version
     (``flash_attention_packed_exact_reference`` at the kernel's key tile,
-    output before its final rounding), ragged and Sq != Sk included,
-    contiguous and as a row slice of a larger batch (a batch stride, no
-    copy).  Tolerances as the head-split forward's: float32 1e-4, bfloat16
-    one output ulp at the largest output."""
+    output before its final rounding), ragged and Sq != Sk included, the
+    VAE's width, contiguous and as a row slice of a larger batch (a batch
+    stride, no copy).  Tolerances as the head-split forward's: float32 1e-4,
+    bfloat16 one output ulp at the largest output."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(b, 3, sq, heads * d, generator=g, device=cuda).to(dtype)
     k = torch.randn(b, 3, sk, heads * d, generator=g, device=cuda).to(dtype)
@@ -461,7 +471,8 @@ def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
         before = _launch_counts()
         got = flash_mod.flash_attention_packed_cuda(qs, ks, vs, heads)
         torch.cuda.synchronize()
-        assert _launch_counts() == (before[0], before[1] + 1) + before[2:]
+        moved = 9 if dtype == torch.bfloat16 else 1
+        assert _launch_counts() == tuple(c + (i == moved) for i, c in enumerate(before))
         assert got.shape == qs.shape and got.is_contiguous()
         want = flash_attention_packed_exact_reference(qs, ks, vs, heads,
                                                       out_dtype=torch.float32)
@@ -480,6 +491,26 @@ def test_packed_kernel_refuses_what_it_does_not_take(cuda):
         flash_mod.flash_attention_packed_cuda(q, q[:1], q[:1], 8)
     with pytest.raises(ValueError, match="dtypes"):
         flash_mod.flash_attention_packed_cuda(q, q.double(), q, 8)
+    # bf16 takes the tensor cores, which refuse a batch stride that is not a
+    # multiple of 8 and a pointer off 16 bytes, and never fall back
+    buf = torch.randn(2 * 1024 * 320 + 8, device=cuda).to(torch.bfloat16)
+    odd = buf.as_strided((2, 1024, 320), (1024 * 320 + 3, 320, 1))
+    misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)
+    before = _launch_counts()
+    for t in (odd, misaligned):
+        with pytest.raises(ValueError, match="multiples of 8|aligned"):
+            flash_mod.flash_attention_packed_cuda(t, t, t, 8)
+    head = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_mod.flash_attention_exact_cuda(head, head, head)
+    assert _launch_counts() == before
+    # the CUDA-core template's exact entries take float32 only
+    qb = q.to(torch.bfloat16)
+    for entry, ints in (("hedit_flash_attention_fwd_packed", (2, 8, 1024, 1024, 40,
+                                                              *(1024 * 320,) * 3)),
+                        ("hedit_flash_attention_fwd_exact", (16, 1024, 1024, 40))):
+        with pytest.raises(RuntimeError, match="code -1"):
+            flash_mod._launch(entry, qb, (qb, qb, qb, torch.empty_like(qb)), ints)
 
 
 @pytest.mark.gpu
