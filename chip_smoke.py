@@ -44,7 +44,10 @@ the final result line:
    input at 1e3 + N(0, 1) against the float64 function, its refusals, and
    its gradient (dx channels-last);
 4. the probes (TPU kernels 10, 11, 8, 9 and 12): the three bounded forwards
-   with the packed transposed output and the pipelined exact exp2 forward
+   with the packed transposed output (the two S-minor ones in bf16 on the
+   tensor cores, ``csrc/flash_probes_tc.cu``, held before the final
+   rounding; float32 and the row-major one on the CUDA-core template) and
+   the pipelined exact exp2 forward
    (and a saturating input), the three ablations of the bounded loop (the
    ``dots`` one held element by element to its conditioning, the rows it
    excuses counted), the exact float32 forward in its three layouts and
@@ -54,7 +57,8 @@ the final result line:
    version at its probe's shapes; then the probes' own entry points
    (``hedit_tpu_torch.probes.flash_nhd_variants``, ``...flash_v4_variants``,
    ``...flash_ablate``, ``...flash_variants``, ``...mm_probe``), each driven
-   once with the counts at 0 before and read after;
+   once with the counts at 0 before and read after, ``flash_nhd_variants``
+   also in float32 (the template's S-minor instances);
 5. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
@@ -116,7 +120,8 @@ the final result line:
     flagship path, the CUDA-core bounded template on the float32 golden path,
     3-5 on the NMG path (on the tensor cores; the CUDA-core templates' on the
     float32 NMG loop), 6 and 7 on their own (tensor cores and template),
-    8-12 on their probes' entry points), then the result line
+    8-12 on their probes' entry points, 11b and 11c on the tensor cores in
+    bf16 and on the template in float32), then the result line
     ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
@@ -265,8 +270,10 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_packed_bounded": (flash, "launches_packed_bounded_tc"),
             "flash_packed_bounded_core": (flash, "launches_packed_bounded"),
             "flash_packed_t": (fp, "launches_packed_t"),
-            "flash_packed_t_sminor": (fp, "launches_packed_t_sminor"),
-            "flash_packed_t_all_sminor": (fp, "launches_packed_t_all_sminor"),
+            "flash_packed_t_sminor": (fp, "launches_packed_t_sminor_tc"),
+            "flash_packed_t_all_sminor": (fp, "launches_packed_t_all_sminor_tc"),
+            "flash_packed_t_sminor_core": (fp, "launches_packed_t_sminor"),
+            "flash_packed_t_all_sminor_core": (fp, "launches_packed_t_all_sminor"),
             "flash_exp2_t": (fp, "launches_exp2_t"),
             **{f"flash_ablate_{m}": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_MODES},
             **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "abcd"},
@@ -1034,11 +1041,35 @@ def _sminor(t):
     return t.transpose(-1, -2).contiguous()
 
 
+# the bounded probes' layouts and their operands from [B, H, S, D] tensors
+PROBE_LAYOUTS = {"packed_t": lambda q, k, v: (q, k, v),
+                 "packed_t_sminor": lambda q, k, v: (_sminor(q), _sminor(k), v),
+                 "packed_t_all_sminor": lambda q, k, v: (_sminor(q), _sminor(k), _sminor(v))}
+
+
+def _probe_plain(layout, args, dtype):
+    """The plain version a bounded probe kernel is held to: the S-minor
+    layouts in bf16 (the tensor-core kernel) before the final rounding, as
+    rows 1, 3, 6 and 7; the template's outputs in their dtype."""
+    plain = getattr(fp, f"flash_{layout}_reference")
+    if layout != "packed_t" and dtype == torch.bfloat16:
+        return lambda: plain(*args, out_dtype=torch.float32)
+    return lambda: plain(*args)
+
+
+def _probe_name(layout, dtype):
+    """The kernels line's name of a bounded probe kernel: the S-minor
+    layouts' float32 template instances are ``..._core``."""
+    core = layout != "packed_t" and dtype == torch.float32
+    return f"flash_{layout}{'_core' if core else ''}"
+
+
 def _probe_kernel_cases(g, rows, failures):
     """TPU kernels 11 (three layouts) and 10 (both loops) against their plain
-    versions at the probes' shapes: bf16 within one output ulp, float32
-    within 1e-4; the library call is SDPA on the same [B, H, S, D] values,
-    the bound 4 B H S^2 D operations over the bf16 (or float32) peak.  Then
+    versions at the probes' shapes: bf16 within one output ulp (the S-minor
+    layouts, on the tensor cores, before the final rounding), float32 within
+    1e-4; the library call is SDPA on the same [B, H, S, D] values, the
+    bound 4 B H S^2 D operations over the bf16 (or float32) peak.  Then
     kernel 11 on the saturating input (anchor 512, key 600 beyond it)."""
     def hold(name, label, got, want, dtype, ms, plain_ms, library_ms, shape, **extra):
         want = want.float()
@@ -1054,17 +1085,15 @@ def _probe_kernel_cases(g, rows, failures):
     for shape, dtype in NHD_SHAPES:
         q, k, v = _qkv(g, shape, shape[2], dtype)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        for layout, args in (("packed_t", (q, k, v)),
-                             ("packed_t_sminor", (_sminor(q), _sminor(k), v)),
-                             ("packed_t_all_sminor", (_sminor(q), _sminor(k), _sminor(v)))):
+        for layout, make in PROBE_LAYOUTS.items():
+            args = make(q, k, v)
             wrapper = getattr(fp, f"flash_{layout}_cuda")
-            plain = getattr(fp, f"flash_{layout}_reference")
+            plain = _probe_plain(layout, args, dtype)
             got = wrapper(*args)
-            want = plain(*args)
+            want = plain()
             torch.cuda.synchronize()
-            hold(f"flash_{layout}", f"flash {layout} q{list(shape)} {str(dtype)[6:]}", got, want,
-                 dtype, cuda_ms(lambda: wrapper(*args)), cuda_ms(lambda: plain(*args)), lib,
-                 shape)
+            hold(_probe_name(layout, dtype), f"flash {layout} q{list(shape)} {str(dtype)[6:]}",
+                 got, want, dtype, cuda_ms(lambda: wrapper(*args)), cuda_ms(plain), lib, shape)
             del got, want
             torch.cuda.empty_cache()
         del q, k, v, args
@@ -1098,11 +1127,10 @@ def _probe_kernel_cases(g, rows, failures):
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _saturating_qkv(g, dtype)
         exact = fp._packed_t(flash.reference_attention(q.float(), k.float(), v.float()))
-        for layout, args in (("packed_t", (q, k, v)),
-                             ("packed_t_sminor", (_sminor(q), _sminor(k), v)),
-                             ("packed_t_all_sminor", (_sminor(q), _sminor(k), _sminor(v)))):
+        for layout, make in PROBE_LAYOUTS.items():
+            args = make(q, k, v)
             got = getattr(fp, f"flash_{layout}_cuda")(*args).float()
-            want = getattr(fp, f"flash_{layout}_reference")(*args).float()
+            want = _probe_plain(layout, args, dtype)().float()
             torch.cuda.synchronize()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
             err, gap = (got - want).abs().max().item(), (got - exact).abs().max().item()
@@ -1277,8 +1305,10 @@ def _mm_loop_cases(g, rows, failures):
 def phase_probes(rows):
     """Kernels 10, 11, 8, 9 and 12 against their plain versions, then their
     own path: the five probe entry points (``hedit_tpu_torch.probes``), each
-    driven once with the counts at 0 before and read after.  Returns
-    ({probe: counts}, failures)."""
+    driven once with the counts at 0 before and read after, and
+    ``flash_nhd_variants`` once more in float32 (``flash_nhd_variants_f32``:
+    the template's S-minor instances, which bf16 no longer reaches).
+    Returns ({probe: counts}, failures)."""
     from hedit_tpu_torch.probes import (
         flash_ablate, flash_nhd_variants, flash_v4_variants, flash_variants, mm_probe,
     )
@@ -1292,21 +1322,32 @@ def phase_probes(rows):
     _mm_loop_cases(g, rows, failures)
     torch.cuda.empty_cache()
     counts, results_of = {}, {}
-    for name, module in (("flash_nhd_variants", flash_nhd_variants),
-                         ("flash_v4_variants", flash_v4_variants),
-                         ("flash_ablate", flash_ablate), ("flash_variants", flash_variants),
-                         ("mm_probe", mm_probe)):
+    for name, run in (("flash_nhd_variants", flash_nhd_variants.run),
+                      ("flash_nhd_variants_f32",
+                       lambda: flash_nhd_variants.run(reps=2, dtype=torch.float32)),
+                      ("flash_v4_variants", flash_v4_variants.run),
+                      ("flash_ablate", flash_ablate.run), ("flash_variants", flash_variants.run),
+                      ("mm_probe", mm_probe.run)):
         reset_launches()
         t0 = time.perf_counter()
-        results = results_of[name] = module.run()
+        results = results_of[name] = run()
         torch.cuda.synchronize()
         counts[name] = read_launches()
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
         print(f"probe {name} launches: {json.dumps(counts[name])}")
-    nhd = counts["flash_nhd_variants"]
-    if min(nhd["flash_packed_t"], nhd["flash_packed_t_sminor"],
-           nhd["flash_packed_t_all_sminor"], nhd["flash_packed_bounded"]) <= 0:
-        failures.append(f"a kernel of flash_nhd_variants was not launched: {nhd}")
+    # bf16 chains E and F on the tensor cores, float32 ones on the template
+    for name, launched, idle in (
+            ("flash_nhd_variants", ("flash_packed_t", "flash_packed_t_sminor",
+                                    "flash_packed_t_all_sminor", "flash_packed_bounded"),
+             ("flash_packed_t_sminor_core", "flash_packed_t_all_sminor_core")),
+            ("flash_nhd_variants_f32", ("flash_packed_t", "flash_packed_t_sminor_core",
+                                        "flash_packed_t_all_sminor_core",
+                                        "flash_packed_bounded_core"),
+             ("flash_packed_t_sminor", "flash_packed_t_all_sminor"))):
+        nhd = counts[name]
+        if min(nhd[n] for n in launched) <= 0 or any(nhd[n] for n in idle):
+            failures.append(f"{name} launched {({n: nhd[n] for n in launched + idle})}: "
+                            f"expected each of {launched} and none of {idle}")
     if counts["flash_v4_variants"]["flash_exp2_t"] <= 0:
         failures.append(f"flash_v4_variants launched no exp2_t kernel: {counts}")
     for probe, kernels in (("flash_ablate", [f"flash_ablate_{m}" for m in fp.ABLATE_MODES]),
@@ -2066,7 +2107,8 @@ def main(argv=None) -> int:
         if paths[path][name] <= 0:
             failures.append(f"{name} was not launched on the {path} path")
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "cores": "tensor (mma.sync, bf16)" if source in (tc_cu, bwd_tc_cu) else "CUDA",
+                "cores": ("tensor (mma.sync, bf16)" if source in (tc_cu, bwd_tc_cu, probes_tc_cu)
+                          else "CUDA"),
                 "launches": paths[path][name], "path": path,
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -2078,8 +2120,9 @@ def main(argv=None) -> int:
                                            "eager_ms")
                    if k in mine[0]}}
 
-    tc_cu, bwd_tc_cu = ("hedit_tpu_torch/csrc/flash_attention_tc.cu",
-                        "hedit_tpu_torch/csrc/flash_attention_bwd_tc.cu")
+    tc_cu, bwd_tc_cu, probes_tc_cu = ("hedit_tpu_torch/csrc/flash_attention_tc.cu",
+                                      "hedit_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+                                      "hedit_tpu_torch/csrc/flash_probes_tc.cu")
     tc_route = "cuda"
     fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                                  "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2109,10 +2152,14 @@ def main(argv=None) -> int:
         entry("flash_packed_bounded_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
         entry("flash_packed_t", "cuda", probes_cu, "scripts/flash_nhd_variants.py:93",
               "flash_nhd_variants"),
-        entry("flash_packed_t_sminor", "cuda", probes_cu, "scripts/flash_nhd_variants.py:101",
-              "flash_nhd_variants"),
-        entry("flash_packed_t_all_sminor", "cuda", probes_cu,
+        entry("flash_packed_t_sminor", "cuda", probes_tc_cu,
+              "scripts/flash_nhd_variants.py:101", "flash_nhd_variants"),
+        entry("flash_packed_t_all_sminor", "cuda", probes_tc_cu,
               "scripts/flash_nhd_variants.py:136", "flash_nhd_variants"),
+        entry("flash_packed_t_sminor_core", "cuda", probes_cu,
+              "scripts/flash_nhd_variants.py:101", "flash_nhd_variants_f32"),
+        entry("flash_packed_t_all_sminor_core", "cuda", probes_cu,
+              "scripts/flash_nhd_variants.py:136", "flash_nhd_variants_f32"),
         entry("flash_exp2_t", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
               "flash_v4_variants"),
         *(entry(f"flash_ablate_{m}", "cuda", probes_cu, "scripts/flash_ablate.py:34",

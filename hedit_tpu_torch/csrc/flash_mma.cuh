@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the bf16 flash kernels
-// (flash_attention_tc.cu, flash_attention_bwd_tc.cu): cp.async copies into
-// shared memory, ldmatrix fragment loads and the mma.sync m16n8k16 product
-// (bf16 operands, float32 accumulators).
+// (flash_attention_tc.cu, flash_attention_bwd_tc.cu, flash_probes_tc.cu):
+// cp.async copies into shared memory, ldmatrix fragment loads and the
+// mma.sync m16n8k16 product (bf16 operands, float32 accumulators).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 (row):  a[0] row g, cols 2t, 2t+1;  a[1] row g+8, the same cols;
@@ -51,6 +51,11 @@ __device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
 __device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned addr, unsigned (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 __device__ __forceinline__ void ldsm_x2_t(unsigned addr, unsigned (&r)[2]) {

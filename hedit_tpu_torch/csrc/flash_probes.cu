@@ -8,6 +8,9 @@
 //   _packed_t_kernel            q, k, v [BH, S, D]            flash_packed_t_cuda
 //   _packed_t_kernel_sminor     q, k [BH, D, S]; v [BH, S, D] flash_packed_t_sminor_cuda
 //   _packed_t_kernel_all_sminor q, k, v [BH, D, S]            flash_packed_t_all_sminor_cuda
+// The two S-minor layouts run here in float32 only: in bf16 they run on the
+// tensor cores (flash_probes_tc.cu, hedit_flash_packed_t_tc), and this
+// entry point refuses them.
 // Their arithmetic is the bounded forward's (flash_attention.cu): q * scale
 // rounded to the input dtype, float32 scores, shift = the row's max over the
 // first `anchor` keys (the TPU kernel's blk_k) + 16, p = exp2(min(s - shift,
@@ -343,22 +346,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   return cudaGetLastError();
 }
 
+template <typename T, Probe P>
+int launch_d(const void* q, const void* k, const void* v, void* out, int bh, int sq, int sk,
+             int d, int anchor, cudaStream_t s) {
+  if (d == 40) return int(launch<T, P, 40>(q, k, v, out, bh, sq, sk, anchor, s));
+  if (d == 80) return int(launch<T, P, 80>(q, k, v, out, bh, sq, sk, anchor, s));
+  return -1;
+}
+
 template <Probe P>
 int probe(const void* q, const void* k, const void* v, void* out, int bh, int sq, int sk, int d,
           int anchor, int dtype, void* stream) {
   if (bh < 1 || bh > 65535 || sq < BQ || sk < BK || sq % BQ || sk % BK) return -1;
   if (Traits<P>::bounded && (anchor < BK || anchor % BK || sk % anchor)) return -1;
   if ((long long)(sq > sk ? sq : sk) * d > INT_MAX) return -1;  // 32-bit offsets in an image
-  if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  if (d == 40)
-    return int(dtype ? launch<BF, P, 40>(q, k, v, out, bh, sq, sk, anchor, s)
-                     : launch<float, P, 40>(q, k, v, out, bh, sq, sk, anchor, s));
-  if (d == 80)
-    return int(dtype ? launch<BF, P, 80>(q, k, v, out, bh, sq, sk, anchor, s)
-                     : launch<float, P, 80>(q, k, v, out, bh, sq, sk, anchor, s));
-  return -1;
+  switch (dtype) {
+    case 0: return launch_d<float, P>(q, k, v, out, bh, sq, sk, d, anchor, s);
+    case 1:  // bf16 S-minor: flash_probes_tc.cu
+      if constexpr (Traits<P>::q_sminor) return -1;
+      else return launch_d<__nv_bfloat16, P>(q, k, v, out, bh, sq, sk, d, anchor, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -369,6 +378,7 @@ int probe(const void* q, const void* k, const void* v, void* out, int bh, int sq
 
 // Row 11: the bounded probes.  layout 0: q, k, v [BH, S, D]; 1: q, k
 // [BH, D, S] and v [BH, S, D]; 2: q, k, v [BH, D, S].  out [BH, D, Sq].
+// Layouts 1 and 2 in float32 only (bf16: hedit_flash_packed_t_tc).
 extern "C" int hedit_flash_packed_t(const void* q, const void* k, const void* v, void* out,
                                     int bh, int sq, int sk, int d, int anchor, int layout,
                                     int dtype, void* stream) {

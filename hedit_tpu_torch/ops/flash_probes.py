@@ -14,6 +14,11 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   - ``flash_packed_t_all_sminor_cuda``: q, k, v ``[B, H, D, S]``
     (``_packed_t_kernel_all_sminor``).
 
+  The two S-minor layouts run in bf16 on the tensor cores
+  (``csrc/flash_probes_tc.cu``, ``probe_entry``), in float32 and the
+  row-major layout in both dtypes on the CUDA-core template
+  (``csrc/flash_probes.cu``).
+
 * ``scripts/flash_v4_variants.py``: ``flash_exp2_t_cuda``, the exact forward
   with ``sm_scale * log2(e)`` folded into q, exp2, p rounded to the input
   dtype and a ``[B*H, D, Sq]`` output (``kern_exp2``); ``pipe=True`` runs
@@ -53,17 +58,20 @@ of the probes' shapes take 2-8.6 GB.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from hedit_tpu_torch.ops.flash_attention import (
-    _bounded, _check_device_dtype, _launch, _on_cpu,
+    _bounded, _check_device_dtype, _launch, _on_cpu, check_tc_operands,
 )
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
 launches_packed_t = 0
 launches_packed_t_sminor = 0
 launches_packed_t_all_sminor = 0
+launches_packed_t_sminor_tc = 0       # the same two in bf16 on the tensor cores
+launches_packed_t_all_sminor_tc = 0
 launches_exp2_t = 0
 launches_ablate_dots = 0
 launches_ablate_exp = 0
@@ -103,9 +111,9 @@ def _packed_t(out: torch.Tensor) -> torch.Tensor:
     return out.transpose(-1, -2).reshape(b, h * d, sq)
 
 
-def _bounded_probe_reference(q, k, v, anchor: int, layout: str) -> torch.Tensor:
+def _bounded_probe_reference(q, k, v, anchor: int, layout: str, out_dtype=None) -> torch.Tensor:
     qs, ks, vs = (_to_sd(t, m) for t, m in zip((q, k, v), _LAYOUTS[layout][1]))
-    return _packed_t(_bounded(qs, ks, vs, anchor)[0])
+    return _packed_t(_bounded(qs, ks, vs, anchor, out_dtype)[0])
 
 
 def flash_packed_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,17 +126,21 @@ def flash_packed_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_packed_t_sminor_reference(qt: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
-                                    anchor: int = BLK_K) -> torch.Tensor:
+                                    anchor: int = BLK_K,
+                                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of ``_packed_t_kernel_sminor``: qt, kt [B, H, D, S], v
-    [B, H, S, D] -> [B, H*D, Sq]."""
-    return _bounded_probe_reference(qt, kt, v, anchor, "packed_t_sminor")
+    [B, H, S, D] -> [B, H*D, Sq] in q's dtype, or in ``out_dtype`` (float32:
+    the output before its final rounding)."""
+    return _bounded_probe_reference(qt, kt, v, anchor, "packed_t_sminor", out_dtype)
 
 
 def flash_packed_t_all_sminor_reference(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
-                                        anchor: int = BLK_K) -> torch.Tensor:
+                                        anchor: int = BLK_K,
+                                        out_dtype: Optional[torch.dtype] = None
+                                        ) -> torch.Tensor:
     """Plain version of ``_packed_t_kernel_all_sminor``: qt, kt, vt
-    [B, H, D, S] -> [B, H*D, Sq]."""
-    return _bounded_probe_reference(qt, kt, vt, anchor, "packed_t_all_sminor")
+    [B, H, D, S] -> [B, H*D, Sq] in q's dtype, or in ``out_dtype``."""
+    return _bounded_probe_reference(qt, kt, vt, anchor, "packed_t_all_sminor", out_dtype)
 
 
 def flash_exp2_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,6 +194,21 @@ def _check_cuda(q, k, v, b, h, d, what: str) -> None:
         raise ValueError(f"{what}: q, k, v must be contiguous")
 
 
+def probe_entry(dtype: torch.dtype, layout: str) -> str:
+    """The CUDA entry point of the bounded probe ``layout`` for an input of
+    ``dtype``: bfloat16 in an S-minor layout the tensor-core kernel
+    (``csrc/flash_probes_tc.cu``); float32, and ``packed_t`` in either
+    dtype, the CUDA-core template (``csrc/flash_probes.cu``).  Raises for
+    any other dtype or layout."""
+    if layout not in _LAYOUTS:
+        raise ValueError(f"layout must be one of {tuple(_LAYOUTS)}, not {layout!r}")
+    if dtype == torch.bfloat16 and layout != "packed_t":
+        return "hedit_flash_packed_t_tc"
+    if dtype in (torch.float32, torch.bfloat16):
+        return "hedit_flash_packed_t"
+    raise ValueError(f"the bounded probes take float32 or bfloat16, got {dtype}")
+
+
 def _bounded_probe(q, k, v, anchor: int, layout: str) -> torch.Tensor:
     what = f"flash_{layout}_cuda"
     code, sminor = _LAYOUTS[layout]
@@ -193,9 +220,12 @@ def _bounded_probe(q, k, v, anchor: int, layout: str) -> torch.Tensor:
         return _bounded_probe_reference(q, k, v, anchor, layout)
     _check_cuda(q, k, v, b, h, d, what)
     out = torch.empty((b, h * d, sq), dtype=q.dtype, device=q.device)
-    _launch("hedit_flash_packed_t", q, (q, k, v, out),
-            (b * h, sq, sk, d, anchor, code))
-    globals()[f"launches_{layout}"] += 1
+    entry = probe_entry(q.dtype, layout)
+    tc = entry.endswith("_tc")
+    if tc:  # dense images: the element strides are multiples of S, itself of TILE
+        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq, sk])
+    _launch(entry, q, (q, k, v, out), (b * h, sq, sk, d, anchor, code))
+    globals()[f"launches_{layout}_tc" if tc else f"launches_{layout}"] += 1
     return out
 
 

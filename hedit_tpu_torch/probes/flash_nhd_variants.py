@@ -4,9 +4,11 @@ at the controlled call's hot shape, each layout variant timed on the card.
 
 Port of ``scripts/flash_nhd_variants.py`` (its TPU kernels are the three
 bounded forwards of ``ops/flash_probes.py``).  B = 16 rows (4 images x 4
-rows), S = 4096 tokens, H = 8 heads of D = 40, C = 320 channels, bfloat16;
-x and the four [C, C] weights seeded as the script seeds them.  Every chain
-computes the bounded (max-free) attention anchored on the first 512 keys:
+rows), S = 4096 tokens, H = 8 heads of D = 40, C = 320 channels, bfloat16
+(``run(dtype=torch.float32)``: every chain in float32, on the CUDA-core
+kernels); x and the four [C, C] weights seeded as the script seeds them.
+Every chain computes the bounded (max-free) attention anchored on the first
+512 keys:
 
 * A: the projections, a head split of each (a copy), the head-split bounded
   forward (TPU kernel 1, ``flash_attention_cuda``), the merge (a copy), the
@@ -19,8 +21,9 @@ computes the bounded (max-free) attention anchored on the first 512 keys:
   ``[B, H, S, D]``;
 * E: C with q and k projected straight into the S-minor ``[B, H, D, S]``
   (one matmul of the transposed weight with the transposed x: no copy), v
-  as in D (``flash_packed_t_sminor_cuda``);
-* F: all three S-minor (``flash_packed_t_all_sminor_cuda``);
+  as in D (``flash_packed_t_sminor_cuda``; bf16 on the tensor cores);
+* F: all three S-minor (``flash_packed_t_all_sminor_cuda``; bf16 on the
+  tensor cores);
 * P: the port's own route: the packed bounded forward reads the
   ``[B, S, H*D]`` projections as they are and writes ``[B, S, H*D]``
   (``flash_attention_packed_bounded_cuda``), no copy on either side.
@@ -50,12 +53,12 @@ from hedit_tpu_torch.probes.timing import cuda_ms, require_cuda
 B, S, H, D, C = 16, 4096, 8, 40, 320
 
 
-def make_inputs(seed: int = 0, device="cuda"):
-    """x [B, S, C] and wq, wk, wv, wo [C, C] in bfloat16, drawn as the script
+def make_inputs(seed: int = 0, device="cuda", dtype=torch.bfloat16):
+    """x [B, S, C] and wq, wk, wv, wo [C, C] in ``dtype``, drawn as the script
     draws them (numpy ``RandomState(seed)``: x * 0.2, the weights * 0.05)."""
     rng = np.random.RandomState(seed)
     arrays = [rng.randn(B, S, C) * 0.2] + [rng.randn(C, C) * 0.05 for _ in range(4)]
-    return [torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16) for a in arrays]
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype) for a in arrays]
 
 
 def _split(t):
@@ -112,11 +115,11 @@ def chain_p(x, wq, wk, wv, wo):
 CHAINS = {"A": chain_a, "C": chain_c, "D": chain_d, "E": chain_e, "F": chain_f, "P": chain_p}
 
 
-def run(seed: int = 0, reps: int = 10) -> Dict[str, Dict[str, float]]:
+def run(seed: int = 0, reps: int = 10, dtype=torch.bfloat16) -> Dict[str, Dict[str, float]]:
     """Every chain once against chain A, then timed; returns {chain: {ms,
     max_abs_diff}}."""
     require_cuda("flash_nhd_variants")
-    args = make_inputs(seed)
+    args = make_inputs(seed, dtype=dtype)
     with torch.no_grad():
         ref = chain_a(*args).float()
         results = {}

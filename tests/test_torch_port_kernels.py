@@ -685,11 +685,15 @@ def _sminor(t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["packed_t", "packed_t_sminor", "packed_t_all_sminor"])
 @pytest.mark.parametrize("shape,anchor", [((2, 3, 256, 40), 128), ((1, 2, 512, 80), 512),
-                                          ((1, 2, 1024, 40), 512)])
+                                          ((1, 2, 1024, 40), 512), ((1, 2, 576, 80), 192)])
 def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, anchor):
-    """TPU kernel 11's three layouts against their plain versions in the
-    inputs' dtype (tolerances of ``_tol``), one launch each; the saturating
-    input (a 512-key anchor, keys beyond it far above) included."""
+    """TPU kernel 11's three layouts against their plain versions (tolerances
+    of ``_tol``), one launch each: bf16 S-minor on the tensor cores (its own
+    counter, held before the final rounding), everything else on the
+    CUDA-core template in the inputs' dtype.  The saturating input (a
+    512-key anchor, keys beyond it far above) included, and at d = 80 an Sq
+    of 64 more than a multiple of 128 (the tensor-core kernel's last block
+    half past Sq)."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     q, k, v = _probe_inputs(dtype, shape)
@@ -699,14 +703,16 @@ def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, a
             "packed_t_all_sminor": (_sminor(q), _sminor(k), _sminor(v))}[layout]
     wrapper = getattr(fp, f"flash_{layout}_cuda")
     plain = getattr(fp, f"flash_{layout}_reference")
-    counter = f"launches_{layout}"
-    before = getattr(fp, counter)
+    tc = dtype == torch.bfloat16 and layout != "packed_t"
+    counter = f"launches_{layout}_tc" if tc else f"launches_{layout}"
+    names = [n for n in dir(fp) if n.startswith("launches_packed_t")]
+    before = {n: getattr(fp, n) for n in names}
     got = wrapper(*args, anchor)
     torch.cuda.synchronize()
-    assert getattr(fp, counter) == before + 1
+    assert {n: getattr(fp, n) - before[n] for n in names} == {n: int(n == counter) for n in names}
     b, h, s, d = q.shape
     assert got.shape == (b, h * d, s)
-    want = plain(*args, anchor).float()
+    want = (plain(*args, anchor, out_dtype=torch.float32) if tc else plain(*args, anchor).float())
     torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
 
 
@@ -745,6 +751,29 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         fp.flash_exp2_t_cuda(*(torch.randn(1, 2, 256, 64, device=cuda),) * 3)
     with pytest.raises(ValueError, match="shape"):
         fp.flash_packed_t_sminor_cuda(q, q, q, 128)
+    # the tensor-core entry: layout 0 (row 11a stays on the template), float32
+    # and a misaligned pointer are refused; the wrapper raises on the last first
+    from hedit_tpu_torch._build import cuda_library
+
+    entry = cuda_library().hedit_flash_packed_t_tc
+    stream = torch.cuda.current_stream().cuda_stream
+    qt = _sminor(q).to(torch.bfloat16)
+    out = torch.empty(1, 80, 256, dtype=torch.bfloat16, device=cuda)
+    ptrs = [t.data_ptr() for t in (qt, qt, qt, out)]
+    assert entry(*ptrs, 2, 256, 256, 40, 128, 1, 1, stream) == 0
+    for layout, dtype, shift in ((0, 1, 0), (3, 1, 0), (1, 0, 0), (2, 1, 2)):
+        assert entry(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, 40, 128, layout, dtype,
+                     stream) == -1
+    buf = torch.empty(qt.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    misaligned = buf[1:].view(qt.shape)
+    misaligned.copy_(qt)
+    before = fp.launches_packed_t_sminor_tc, fp.launches_packed_t_all_sminor_tc
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_packed_t_all_sminor_cuda(misaligned, qt, qt, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_packed_t_sminor_cuda(qt, misaligned, q.to(torch.bfloat16), 128)
+    torch.cuda.synchronize()
+    assert (fp.launches_packed_t_sminor_tc, fp.launches_packed_t_all_sminor_tc) == before
 
 
 @pytest.mark.gpu
