@@ -44,21 +44,22 @@ the final result line:
    input at 1e3 + N(0, 1) against the float64 function, its refusals, and
    its gradient (dx channels-last);
 4. the probes (TPU kernels 10, 11, 8, 9 and 12): the three bounded forwards
-   with the packed transposed output (the two S-minor ones in bf16 on the
-   tensor cores, ``csrc/flash_probes_tc.cu``, held before the final
-   rounding; float32 and the row-major one on the CUDA-core template) and
-   the pipelined exact exp2 forward
-   (and a saturating input), the three ablations of the bounded loop (the
-   ``dots`` one held element by element to its conditioning, the rows it
-   excuses counted), the exact float32 forward in its three layouts and
-   with a bf16 PV product, and the nudged-matmul loop in its nine cases
+   with the packed transposed output and the exact exp2 forward in both key
+   loops (bf16 on the tensor cores, ``csrc/flash_probes_tc.cu``, held
+   before the final rounding, the two loops bit for bit; float32 on the
+   CUDA-core template) and a saturating input, the three ablations of the
+   bounded loop (the ``dots`` one held element by element to its
+   conditioning, the rows it excuses counted), the exact float32 forward in
+   its three layouts and with a bf16 PV product, and the nudged-matmul loop
+   in its nine cases
    (all-ones outputs held bit for bit; no library call computes it, 64
    torch.matmul calls timed for information), each against its plain
    version at its probe's shapes; then the probes' own entry points
    (``hedit_tpu_torch.probes.flash_nhd_variants``, ``...flash_v4_variants``,
    ``...flash_ablate``, ``...flash_variants``, ``...mm_probe``), each driven
    once with the counts at 0 before and read after, ``flash_nhd_variants``
-   also in float32 (the template's S-minor instances);
+   and ``flash_v4_variants`` also in float32 (the template's instances of
+   rows 10 and 11);
 5. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
@@ -269,12 +270,10 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_attention_exact_core": (flash, "launches_exact"),
             "flash_packed_bounded": (flash, "launches_packed_bounded_tc"),
             "flash_packed_bounded_core": (flash, "launches_packed_bounded"),
-            "flash_packed_t": (fp, "launches_packed_t"),
-            "flash_packed_t_sminor": (fp, "launches_packed_t_sminor_tc"),
-            "flash_packed_t_all_sminor": (fp, "launches_packed_t_all_sminor_tc"),
-            "flash_packed_t_sminor_core": (fp, "launches_packed_t_sminor"),
-            "flash_packed_t_all_sminor_core": (fp, "launches_packed_t_all_sminor"),
-            "flash_exp2_t": (fp, "launches_exp2_t"),
+            **{f"flash_{lay}": (fp, f"launches_{lay}_tc") for lay in fp._LAYOUTS},
+            **{f"flash_{lay}_core": (fp, f"launches_{lay}") for lay in fp._LAYOUTS},
+            "flash_exp2_t": (fp, "launches_exp2_t_tc"),
+            "flash_exp2_t_core": (fp, "launches_exp2_t"),
             **{f"flash_ablate_{m}": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_MODES},
             **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "abcd"},
             **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS}}
@@ -1047,29 +1046,28 @@ PROBE_LAYOUTS = {"packed_t": lambda q, k, v: (q, k, v),
                  "packed_t_all_sminor": lambda q, k, v: (_sminor(q), _sminor(k), _sminor(v))}
 
 
-def _probe_plain(layout, args, dtype):
-    """The plain version a bounded probe kernel is held to: the S-minor
-    layouts in bf16 (the tensor-core kernel) before the final rounding, as
-    rows 1, 3, 6 and 7; the template's outputs in their dtype."""
-    plain = getattr(fp, f"flash_{layout}_reference")
-    if layout != "packed_t" and dtype == torch.bfloat16:
+def _probe_plain(plain, args, dtype):
+    """The plain version ``plain`` a probe kernel (rows 10, 11) is held to:
+    in bf16 (the tensor-core kernels) before the final rounding, as rows 1,
+    3, 6 and 7; the template's float32 outputs in their dtype."""
+    if dtype == torch.bfloat16:
         return lambda: plain(*args, out_dtype=torch.float32)
     return lambda: plain(*args)
 
 
-def _probe_name(layout, dtype):
-    """The kernels line's name of a bounded probe kernel: the S-minor
-    layouts' float32 template instances are ``..._core``."""
-    core = layout != "packed_t" and dtype == torch.float32
-    return f"flash_{layout}{'_core' if core else ''}"
+def _probe_name(name, dtype):
+    """The kernels line's name of a probe kernel: the float32 template
+    instances are ``..._core``."""
+    return f"{name}{'_core' if dtype == torch.float32 else ''}"
 
 
 def _probe_kernel_cases(g, rows, failures):
     """TPU kernels 11 (three layouts) and 10 (both loops) against their plain
-    versions at the probes' shapes: bf16 within one output ulp (the S-minor
-    layouts, on the tensor cores, before the final rounding), float32 within
-    1e-4; the library call is SDPA on the same [B, H, S, D] values, the
-    bound 4 B H S^2 D operations over the bf16 (or float32) peak.  Then
+    versions at the probes' shapes: bf16 within one output ulp (on the
+    tensor cores, before the final rounding), float32 within 1e-4; the two
+    loops of kernel 10 bit for bit; the library call is SDPA on the same
+    [B, H, S, D] values, the bound 4 B H S^2 D operations over the bf16 (or
+    float32) peak.  Then
     kernel 11 on the saturating input (anchor 512, key 600 beyond it)."""
     def hold(name, label, got, want, dtype, ms, plain_ms, library_ms, shape, **extra):
         want = want.float()
@@ -1088,11 +1086,12 @@ def _probe_kernel_cases(g, rows, failures):
         for layout, make in PROBE_LAYOUTS.items():
             args = make(q, k, v)
             wrapper = getattr(fp, f"flash_{layout}_cuda")
-            plain = _probe_plain(layout, args, dtype)
+            plain = _probe_plain(getattr(fp, f"flash_{layout}_reference"), args, dtype)
             got = wrapper(*args)
             want = plain()
             torch.cuda.synchronize()
-            hold(_probe_name(layout, dtype), f"flash {layout} q{list(shape)} {str(dtype)[6:]}",
+            hold(_probe_name(f"flash_{layout}", dtype),
+                 f"flash {layout} q{list(shape)} {str(dtype)[6:]}",
                  got, want, dtype, cuda_ms(lambda: wrapper(*args)), cuda_ms(plain), lib, shape)
             del got, want
             torch.cuda.empty_cache()
@@ -1101,7 +1100,7 @@ def _probe_kernel_cases(g, rows, failures):
     for shape, dtype in V4_SHAPES:
         q, k, v = _qkv(g, shape, shape[2], dtype)
         got, got_pipe = (fp.flash_exp2_t_cuda(q, k, v, pipe) for pipe in (False, True))
-        want = fp.flash_exp2_t_reference(q, k, v)
+        want = _probe_plain(fp.flash_exp2_t_reference, (q, k, v), dtype)()
         torch.cuda.synchronize()
         pipe_err = (got_pipe.float() - want.float()).abs().max().item()
         same = bool(torch.equal(got, got_pipe))
@@ -1111,7 +1110,8 @@ def _probe_kernel_cases(g, rows, failures):
         print(f"flash exp2_t q{list(shape)} {str(dtype)[6:]}: pipe=True max_abs_err "
               f"{pipe_err:.3e}, identical to pipe=False: {same}; against the plain version "
               f"with 512-key blocks {blk512:.3e}")
-        hold("flash_exp2_t", f"flash exp2_t q{list(shape)} {str(dtype)[6:]} pipe=False", got,
+        hold(_probe_name("flash_exp2_t", dtype),
+             f"flash exp2_t q{list(shape)} {str(dtype)[6:]} pipe=False", got,
              want, dtype, cuda_ms(lambda: fp.flash_exp2_t_cuda(q, k, v, False)),
              cuda_ms(lambda: fp.flash_exp2_t_reference(q, k, v)),
              cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), shape,
@@ -1130,7 +1130,7 @@ def _probe_kernel_cases(g, rows, failures):
         for layout, make in PROBE_LAYOUTS.items():
             args = make(q, k, v)
             got = getattr(fp, f"flash_{layout}_cuda")(*args).float()
-            want = _probe_plain(layout, args, dtype)().float()
+            want = _probe_plain(getattr(fp, f"flash_{layout}_reference"), args, dtype)().float()
             torch.cuda.synchronize()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
             err, gap = (got - want).abs().max().item(), (got - exact).abs().max().item()
@@ -1306,9 +1306,9 @@ def phase_probes(rows):
     """Kernels 10, 11, 8, 9 and 12 against their plain versions, then their
     own path: the five probe entry points (``hedit_tpu_torch.probes``), each
     driven once with the counts at 0 before and read after, and
-    ``flash_nhd_variants`` once more in float32 (``flash_nhd_variants_f32``:
-    the template's S-minor instances, which bf16 no longer reaches).
-    Returns ({probe: counts}, failures)."""
+    ``flash_nhd_variants`` and ``flash_v4_variants`` once more in float32
+    (``..._f32``: the template's instances of rows 10 and 11, which bf16 no
+    longer reaches).  Returns ({probe: counts}, failures)."""
     from hedit_tpu_torch.probes import (
         flash_ablate, flash_nhd_variants, flash_v4_variants, flash_variants, mm_probe,
     )
@@ -1326,6 +1326,8 @@ def phase_probes(rows):
                       ("flash_nhd_variants_f32",
                        lambda: flash_nhd_variants.run(reps=2, dtype=torch.float32)),
                       ("flash_v4_variants", flash_v4_variants.run),
+                      ("flash_v4_variants_f32",
+                       lambda: flash_v4_variants.run(reps=2, dtype=torch.float32)),
                       ("flash_ablate", flash_ablate.run), ("flash_variants", flash_variants.run),
                       ("mm_probe", mm_probe.run)):
         reset_launches()
@@ -1335,21 +1337,21 @@ def phase_probes(rows):
         counts[name] = read_launches()
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
         print(f"probe {name} launches: {json.dumps(counts[name])}")
-    # bf16 chains E and F on the tensor cores, float32 ones on the template
+    # rows 10 and 11: bf16 chains and loops on the tensor cores, float32 ones
+    # on the template, never the other
+    tc = tuple(f"flash_{lay}" for lay in fp._LAYOUTS)
+    core = tuple(f"{n}_core" for n in tc)
     for name, launched, idle in (
-            ("flash_nhd_variants", ("flash_packed_t", "flash_packed_t_sminor",
-                                    "flash_packed_t_all_sminor", "flash_packed_bounded"),
-             ("flash_packed_t_sminor_core", "flash_packed_t_all_sminor_core")),
-            ("flash_nhd_variants_f32", ("flash_packed_t", "flash_packed_t_sminor_core",
-                                        "flash_packed_t_all_sminor_core",
-                                        "flash_packed_bounded_core"),
-             ("flash_packed_t_sminor", "flash_packed_t_all_sminor"))):
-        nhd = counts[name]
-        if min(nhd[n] for n in launched) <= 0 or any(nhd[n] for n in idle):
-            failures.append(f"{name} launched {({n: nhd[n] for n in launched + idle})}: "
+            ("flash_nhd_variants", tc + ("flash_packed_bounded",), core),
+            ("flash_nhd_variants_f32", core + ("flash_packed_bounded_core",), tc),
+            ("flash_v4_variants", ("flash_exp2_t", "flash_attention_exact"),
+             ("flash_exp2_t_core",)),
+            ("flash_v4_variants_f32", ("flash_exp2_t_core", "flash_attention_exact_core"),
+             ("flash_exp2_t",))):
+        seen = counts[name]
+        if min(seen[n] for n in launched) <= 0 or any(seen[n] for n in idle):
+            failures.append(f"{name} launched {({n: seen[n] for n in launched + idle})}: "
                             f"expected each of {launched} and none of {idle}")
-    if counts["flash_v4_variants"]["flash_exp2_t"] <= 0:
-        failures.append(f"flash_v4_variants launched no exp2_t kernel: {counts}")
     for probe, kernels in (("flash_ablate", [f"flash_ablate_{m}" for m in fp.ABLATE_MODES]),
                            ("flash_variants", [f"flash_variant_{v}" for v in "abcd"]),
                            ("mm_probe", [f"mm_loop_{lay}" for lay in mp.LAYOUTS])):
@@ -2098,6 +2100,14 @@ def main(argv=None) -> int:
              "ef": ef_counts, "masactrl": masactrl_counts, "exact_forward": exact_counts,
              "golden_f32": golden_counts, "nmg_f32": nmg_f32_counts,
              **probe_counts}
+    # no path but the probes' own launches a probe kernel (rows 8-12)
+    probe_kernels = [n for n, (module, _) in COUNTERS.items() if module in (fp, mp)]
+    for path in paths.keys() - probe_counts.keys():
+        launched = {n: paths[path][n] for n in probe_kernels if paths[path][n]}
+        if launched:
+            failures.append(f"the {path} path launched probe kernels: {launched}")
+    print(f"probe kernels launched off the probes' paths: none expected, "
+          f"{sum(paths[p][n] for p in paths.keys() - probe_counts.keys() for n in probe_kernels)}")
 
     def entry(name, route, source, replaces, path):
         """The kernel's first comparison (a shape of its path) and its launches
@@ -2150,8 +2160,10 @@ def main(argv=None) -> int:
         entry("flash_packed_bounded", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
         entry("flash_attention_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
         entry("flash_packed_bounded_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
-        entry("flash_packed_t", "cuda", probes_cu, "scripts/flash_nhd_variants.py:93",
+        entry("flash_packed_t", "cuda", probes_tc_cu, "scripts/flash_nhd_variants.py:93",
               "flash_nhd_variants"),
+        entry("flash_packed_t_core", "cuda", probes_cu, "scripts/flash_nhd_variants.py:93",
+              "flash_nhd_variants_f32"),
         entry("flash_packed_t_sminor", "cuda", probes_tc_cu,
               "scripts/flash_nhd_variants.py:101", "flash_nhd_variants"),
         entry("flash_packed_t_all_sminor", "cuda", probes_tc_cu,
@@ -2160,8 +2172,10 @@ def main(argv=None) -> int:
               "scripts/flash_nhd_variants.py:101", "flash_nhd_variants_f32"),
         entry("flash_packed_t_all_sminor_core", "cuda", probes_cu,
               "scripts/flash_nhd_variants.py:136", "flash_nhd_variants_f32"),
-        entry("flash_exp2_t", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
+        entry("flash_exp2_t", "cuda", probes_tc_cu, "scripts/flash_v4_variants.py:34",
               "flash_v4_variants"),
+        entry("flash_exp2_t_core", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
+              "flash_v4_variants_f32"),
         *(entry(f"flash_ablate_{m}", "cuda", probes_cu, "scripts/flash_ablate.py:34",
                 "flash_ablate") for m in fp.ABLATE_MODES),
         *(entry(f"flash_variant_{v}", "cuda", variants_cu,

@@ -61,11 +61,13 @@ ARGTYPES = {
     "hedit_flash_attention_bwd_dkv_tc": [_P] * 8 + [_I] * 5 + [_P],
     # q, k, v, out | bh, sq, sk, d, anchor, layout, dtype | stream
     "hedit_flash_packed_t": [_P] * 4 + [_I] * 7 + [_P],
-    # hedit_flash_packed_t's S-minor layouts in bf16 on the tensor cores
-    # (flash_probes_tc.cu), the same arguments
+    # hedit_flash_packed_t in bf16 on the tensor cores (flash_probes_tc.cu),
+    # the same arguments
     "hedit_flash_packed_t_tc": [_P] * 4 + [_I] * 7 + [_P],
     # q, k, v, out | bh, sq, sk, d, pipe, dtype | stream
     "hedit_flash_exp2_t": [_P] * 4 + [_I] * 6 + [_P],
+    # hedit_flash_exp2_t in bf16 on the tensor cores, the same arguments
+    "hedit_flash_exp2_t_tc": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, out | bh, sq, sk, d, mode, dtype | stream
     "hedit_flash_ablate_t": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, out | bh, sq, sk, d, variant, dtype | stream

@@ -8,9 +8,9 @@
 //   _packed_t_kernel            q, k, v [BH, S, D]            flash_packed_t_cuda
 //   _packed_t_kernel_sminor     q, k [BH, D, S]; v [BH, S, D] flash_packed_t_sminor_cuda
 //   _packed_t_kernel_all_sminor q, k, v [BH, D, S]            flash_packed_t_all_sminor_cuda
-// The two S-minor layouts run here in float32 only: in bf16 they run on the
-// tensor cores (flash_probes_tc.cu, hedit_flash_packed_t_tc), and this
-// entry point refuses them.
+// They run here in float32 only: in bf16 they run on the tensor cores
+// (flash_probes_tc.cu, hedit_flash_packed_t_tc), and this entry point
+// refuses them.
 // Their arithmetic is the bounded forward's (flash_attention.cu): q * scale
 // rounded to the input dtype, float32 scores, shift = the row's max over the
 // first `anchor` keys (the TPU kernel's blk_k) + 16, p = exp2(min(s - shift,
@@ -18,7 +18,8 @@
 // TPU kernel sums p through a ones-column of v), the sum floored at 1.2e-38.
 //
 // Exact with exp2, replacing scripts/flash_v4_variants.py:kern_exp2 (entry
-// point hedit_flash_exp2_t, wrapper flash_exp2_t_cuda): q * scale rounded to
+// point hedit_flash_exp2_t, wrapper flash_exp2_t_cuda; float32 only, bf16
+// on the tensor cores: hedit_flash_exp2_t_tc): q * scale rounded to
 // the input dtype, a running max m, p = exp2(s - m_new) rounded to the input
 // dtype, alpha = exp2(m_old - m_new), the row sum from the rounded p, and no
 // floor (the row's largest p is 1).  The running max moves once a key tile,
@@ -35,7 +36,8 @@
 // loop cut down to measure its floor.  q is NOT scaled (no sm_scale, no
 // log2 e), there is no prologue, no running max and no shift but a
 // constant; p is rounded to the input dtype and summed through the TPU
-// kernel's ones-column of v, and the sum is floored at 1e-30:
+// kernel's ones-column of v, and the sum is floored at 1e-30 (float32 and
+// bf16, the only bf16 instances left here):
 //   dots      p = s                       (the products and the cast alone)
 //   exp       p = exp2(s)
 //   noprolog  p = exp2(min(s - 12.34, 100))
@@ -50,10 +52,11 @@
 // shared memory, then stored as D rows of 64 contiguous elements.
 //
 // Contract: every operand a dense [BH, S, D] or [BH, D, S] image per
-// (batch, head), one dtype (float32 or bfloat16); D is 40 or 80 (the UNet's
-// head dims); Sq and Sk are multiples of the 64-row tile (the TPU kernels'
-// grids cover only whole blocks, and nothing is masked here), and for the
-// bounded probes the anchor is a multiple of 64 that divides Sk.
+// (batch, head), one dtype (float32; bfloat16 for the ablations only); D is
+// 40 or 80 (the UNet's head dims); Sq and Sk are multiples of the 64-row
+// tile (the TPU kernels' grids cover only whole blocks, and nothing is
+// masked here), and for the bounded probes the anchor is a multiple of 64
+// that divides Sk.
 //
 // Tiles and what bounds them are those of flash_attention.cu's d = 40 / 80
 // forward: 128 threads as 16 x 8, 64 queries x 64 keys a block, 4 x 8 scores
@@ -363,8 +366,8 @@ int probe(const void* q, const void* k, const void* v, void* out, int bh, int sq
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_d<float, P>(q, k, v, out, bh, sq, sk, d, anchor, s);
-    case 1:  // bf16 S-minor: flash_probes_tc.cu
-      if constexpr (Traits<P>::q_sminor) return -1;
+    case 1:  // bf16 bounded and exact probes: flash_probes_tc.cu
+      if constexpr (!Traits<P>::ablate) return -1;
       else return launch_d<__nv_bfloat16, P>(q, k, v, out, bh, sq, sk, d, anchor, s);
     default: return -1;
   }
@@ -378,7 +381,7 @@ int probe(const void* q, const void* k, const void* v, void* out, int bh, int sq
 
 // Row 11: the bounded probes.  layout 0: q, k, v [BH, S, D]; 1: q, k
 // [BH, D, S] and v [BH, S, D]; 2: q, k, v [BH, D, S].  out [BH, D, Sq].
-// Layouts 1 and 2 in float32 only (bf16: hedit_flash_packed_t_tc).
+// float32 only (bf16: hedit_flash_packed_t_tc).
 extern "C" int hedit_flash_packed_t(const void* q, const void* k, const void* v, void* out,
                                     int bh, int sq, int sk, int d, int anchor, int layout,
                                     int dtype, void* stream) {
@@ -393,7 +396,8 @@ extern "C" int hedit_flash_packed_t(const void* q, const void* k, const void* v,
 }
 
 // Row 10: the exact exp2 probe, q, k, v [BH, S, D] -> out [BH, D, Sq];
-// pipe: 0 the plain key loop, 1 the software-pipelined one.
+// pipe: 0 the plain key loop, 1 the software-pipelined one.  float32 only
+// (bf16: hedit_flash_exp2_t_tc).
 extern "C" int hedit_flash_exp2_t(const void* q, const void* k, const void* v, void* out,
                                   int bh, int sq, int sk, int d, int pipe, int dtype,
                                   void* stream) {

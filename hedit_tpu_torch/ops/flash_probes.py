@@ -14,15 +14,15 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   - ``flash_packed_t_all_sminor_cuda``: q, k, v ``[B, H, D, S]``
     (``_packed_t_kernel_all_sminor``).
 
-  The two S-minor layouts run in bf16 on the tensor cores
-  (``csrc/flash_probes_tc.cu``, ``probe_entry``), in float32 and the
-  row-major layout in both dtypes on the CUDA-core template
+  All three run in bf16 on the tensor cores (``csrc/flash_probes_tc.cu``,
+  ``probe_entry``), in float32 on the CUDA-core template
   (``csrc/flash_probes.cu``).
 
 * ``scripts/flash_v4_variants.py``: ``flash_exp2_t_cuda``, the exact forward
   with ``sm_scale * log2(e)`` folded into q, exp2, p rounded to the input
   dtype and a ``[B*H, D, Sq]`` output (``kern_exp2``); ``pipe=True`` runs
-  the software-pipelined key loop.
+  the software-pipelined key loop.  bf16 on the tensor cores
+  (``csrc/flash_probes_tc.cu``, ``exp2_entry``), float32 on the template.
 
 * ``scripts/flash_ablate.py``: ``flash_ablate_t_cuda(q, k, v, mode)``, the
   bounded loop cut down to its floor (``make_kernel(mode)``): q unscaled, no
@@ -70,9 +70,11 @@ from hedit_tpu_torch.ops.flash_attention import (
 launches_packed_t = 0
 launches_packed_t_sminor = 0
 launches_packed_t_all_sminor = 0
-launches_packed_t_sminor_tc = 0       # the same two in bf16 on the tensor cores
+launches_packed_t_tc = 0              # the same three in bf16 on the tensor cores
+launches_packed_t_sminor_tc = 0
 launches_packed_t_all_sminor_tc = 0
 launches_exp2_t = 0
+launches_exp2_t_tc = 0                # the same in bf16 on the tensor cores
 launches_ablate_dots = 0
 launches_ablate_exp = 0
 launches_ablate_noprolog = 0
@@ -117,12 +119,14 @@ def _bounded_probe_reference(q, k, v, anchor: int, layout: str, out_dtype=None) 
 
 
 def flash_packed_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             anchor: int = BLK_K) -> torch.Tensor:
+                             anchor: int = BLK_K,
+                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of ``_packed_t_kernel``: q, k, v [B, H, S, D] -> [B, H*D,
-    Sq] in q's dtype; the bounded forward of ``ops/flash_attention.py``
+    Sq] in q's dtype, or in ``out_dtype`` (float32: the output before its
+    final rounding); the bounded forward of ``ops/flash_attention.py``
     (q * scale, p and the output rounded to the input dtype, the shift from
     the first ``anchor`` keys, the denominator floored at 1.2e-38)."""
-    return _bounded_probe_reference(q, k, v, anchor, "packed_t")
+    return _bounded_probe_reference(q, k, v, anchor, "packed_t", out_dtype)
 
 
 def flash_packed_t_sminor_reference(qt: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
@@ -144,9 +148,11 @@ def flash_packed_t_all_sminor_reference(qt: torch.Tensor, kt: torch.Tensor, vt: 
 
 
 def flash_exp2_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           blk_k: int = TILE) -> torch.Tensor:
+                           blk_k: int = TILE,
+                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of ``kern_exp2``: q, k, v [B, H, S, D] -> [B*H, D, Sq] in
-    q's dtype.  q * sm_scale * log2(e) rounded to the input dtype, float32
+    q's dtype, or in ``out_dtype`` (float32: the output before its final
+    rounding).  q * sm_scale * log2(e) rounded to the input dtype, float32
     scores; over key blocks of ``blk_k`` a running max m, p = exp2(s - m_new)
     rounded to the input dtype, alpha = exp2(m_old - m_new), the sum from the
     rounded p; out = acc / sum, no floor.  The key block decides only the
@@ -165,7 +171,7 @@ def flash_exp2_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         denom = denom * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p, v[:, :, k0:k0 + blk_k].float())
         m = m_new
-    return _packed_t((acc / denom).to(q.dtype)).reshape(b * h, d, sq)
+    return _packed_t((acc / denom).to(out_dtype or q.dtype)).reshape(b * h, d, sq)
 
 
 def _dims(q, k, v, sminor: tuple, what: str):
@@ -194,19 +200,31 @@ def _check_cuda(q, k, v, b, h, d, what: str) -> None:
         raise ValueError(f"{what}: q, k, v must be contiguous")
 
 
+def _tc_or_template(dtype: torch.dtype, template: str, what: str) -> str:
+    """``template``'s tensor-core twin (``csrc/flash_probes_tc.cu``) for
+    bfloat16, ``template`` itself (``csrc/flash_probes.cu``) for float32;
+    raises for any other dtype."""
+    if dtype == torch.bfloat16:
+        return f"{template}_tc"
+    if dtype == torch.float32:
+        return template
+    raise ValueError(f"{what} take float32 or bfloat16, got {dtype}")
+
+
 def probe_entry(dtype: torch.dtype, layout: str) -> str:
     """The CUDA entry point of the bounded probe ``layout`` for an input of
-    ``dtype``: bfloat16 in an S-minor layout the tensor-core kernel
-    (``csrc/flash_probes_tc.cu``); float32, and ``packed_t`` in either
-    dtype, the CUDA-core template (``csrc/flash_probes.cu``).  Raises for
+    ``dtype``: bfloat16 the tensor-core kernel (``csrc/flash_probes_tc.cu``),
+    float32 the CUDA-core template (``csrc/flash_probes.cu``).  Raises for
     any other dtype or layout."""
     if layout not in _LAYOUTS:
         raise ValueError(f"layout must be one of {tuple(_LAYOUTS)}, not {layout!r}")
-    if dtype == torch.bfloat16 and layout != "packed_t":
-        return "hedit_flash_packed_t_tc"
-    if dtype in (torch.float32, torch.bfloat16):
-        return "hedit_flash_packed_t"
-    raise ValueError(f"the bounded probes take float32 or bfloat16, got {dtype}")
+    return _tc_or_template(dtype, "hedit_flash_packed_t", "the bounded probes")
+
+
+def exp2_entry(dtype: torch.dtype) -> str:
+    """The CUDA entry point of the exact exp2 probe for an input of
+    ``dtype``, as ``probe_entry`` chooses."""
+    return _tc_or_template(dtype, "hedit_flash_exp2_t", "the exact exp2 probe")
 
 
 def _bounded_probe(q, k, v, anchor: int, layout: str) -> torch.Tensor:
@@ -256,15 +274,19 @@ def flash_exp2_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     running max once a 64-key tile, as ``kern_exp2`` does with ``blk_k=64``
     (its wrapper's default block is 512 keys, which rounds p against other
     points): its plain version is ``flash_exp2_t_reference`` with its default
-    64-key block."""
-    global launches_exp2_t
+    64-key block.  bf16 runs on the tensor cores, float32 on the template
+    (``exp2_entry``)."""
     b, h, sq, sk, d = _dims(q, k, v, (False, False, False), "flash_exp2_t_cuda")
     if _on_cpu(q, k, v):
         return flash_exp2_t_reference(q, k, v)
     _check_cuda(q, k, v, b, h, d, "flash_exp2_t_cuda")
     out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
-    _launch("hedit_flash_exp2_t", q, (q, k, v, out), (b * h, sq, sk, d, int(bool(pipe))))
-    launches_exp2_t += 1
+    entry = exp2_entry(q.dtype)
+    tc = entry.endswith("_tc")
+    if tc:  # dense images: the element strides are multiples of S, itself of TILE
+        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq, sk])
+    _launch(entry, q, (q, k, v, out), (b * h, sq, sk, d, int(bool(pipe))))
+    globals()["launches_exp2_t_tc" if tc else "launches_exp2_t"] += 1
     return out
 
 

@@ -180,9 +180,9 @@ def variants(libs) -> None:
                   f"q{[b, h, s, d]}: {best_ms(call):.4f} ms, out err / tol {err:.3f}")
 
 
-def identity(mine, parent) -> bool:
-    """The bounded and LSE tensor-core forwards of this tree and the parent
-    on the same inputs, bit for bit."""
+def identity(mine, parent, exact=False) -> bool:
+    """The bounded and LSE (and with ``exact`` the exact) tensor-core
+    forwards of this tree and the parent on the same inputs, bit for bit."""
     same = True
     for i, (b, h, sq, sk, d, packed, saturate) in enumerate(IDENTITY_CASES):
         q, k, v = _inputs(b, h, sq, sk, d, packed, seed=i, saturate=saturate)
@@ -190,6 +190,8 @@ def identity(mine, parent) -> bool:
         entries = [(flash.bounded_entry(torch.bfloat16, packed), False)]
         if not packed:
             entries.append((flash.lse_entry(torch.bfloat16), True))
+        if exact:
+            entries.append((flash.exact_entry(torch.bfloat16, packed), False))
         for entry, lse in entries:
             outs = []
             for lib in (mine, parent):

@@ -14,8 +14,8 @@ Every chain computes the bounded (max-free) attention anchored on the first
   forward (TPU kernel 1, ``flash_attention_cuda``), the merge (a copy), the
   out projection;
 * C: the same inputs, but the kernel writes the packed transposed output
-  ``[B, H*D, S]`` (``flash_packed_t_cuda``) and the out projection reads it
-  as a transposed operand, with no copy;
+  ``[B, H*D, S]`` (``flash_packed_t_cuda``; bf16 on the tensor cores) and
+  the out projection reads it as a transposed operand, with no copy;
 * D: C with the projections written as ``einsum('bsc,chd->bhsd')``; torch's
   einsum returns a permuted view, so a copy still makes the kernel's
   ``[B, H, S, D]``;

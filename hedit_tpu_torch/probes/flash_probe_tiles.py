@@ -1,0 +1,241 @@
+"""Rows 10 and 11 (the exact exp2 and the bounded probes) in bf16 on the tensor cores, on the card.
+
+    python -m hedit_tpu_torch.probes.flash_probe_tiles [--parent DIR]
+
+Times ``csrc/flash_probes_tc.cu``:
+
+* row 11 (entry point ``hedit_flash_packed_t_tc``) in its three layouts, 0
+  (q, k, v ``[BH, S, D]``: row 11a, ``_packed_t_kernel``), 1 (q, k
+  ``[BH, D, S]``, v ``[BH, S, D]``: row 11b, ``_packed_t_kernel_sminor``)
+  and 2 (q, k, v ``[BH, D, S]``: row 11c, ``_packed_t_kernel_all_sminor``),
+  at ``CASES``: the probe's [16, 8, 4096, 40] and [16, 8, 1024, 80],
+  anchored on the first 512 keys; beside it the packed bounded tensor-core
+  kernel on ``[B, S, H*D]`` (the port's own route: the ratio is what the
+  probe's layout costs);
+* row 10 (entry point ``hedit_flash_exp2_t_tc``) in its two key loops at
+  ``EXP2_CASES``: the probe's [4, 32, 4096, 40] and [4, 32, 1024, 80]; the
+  two loops' outputs must be bit-identical; and at d = 40 once for each
+  of ``VARIANTS`` (the exact loops' blocks an SM, the source built with
+  ``-DEXP2_MINB_40=n``, one ``nvcc`` each, all started together; variant 0
+  is the source's default, whose ``-Xptxas -v`` lines are the shipped
+  instances'), in turns with variant 0.
+
+Each kernel is launched through its entry point without the wrappers' host
+checks (CUDA-event means of 20 launches, best of 3), beside SDPA on the same
+``[B, H, S, D]`` values and the bound (4 B H S^2 D operations at 989
+TFLOP/s), and its output is held to its plain version before the final
+rounding (largest error over 2^-8 of the largest value, as
+``chip_smoke.py`` holds it).  Each build prints ``-Xptxas -v``'s registers
+and spills of each instance.
+
+``--parent DIR``: a checkout of an earlier commit of this repository (for
+example ``git archive <commit> | tar -x -C DIR``).  Its CUDA-core template's
+entries in bf16 (``csrc/flash_probes.cu``: the rows before they moved to the
+tensor cores; this tree's template takes them in float32 only) are timed in
+turns with this tree's kernels (parent, this, this, parent) where the
+parent's template still takes them, and its
+``csrc/flash_attention_tc.cu`` is built beside this tree's: the bounded,
+LSE and exact tensor-core forwards of the two must agree bit for bit on the
+smoke's inputs (``flash_exact_tiles.identity``); the probe exits non-zero if
+they do not.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from hedit_tpu_torch import _build
+from hedit_tpu_torch.ops import flash_probes as fp
+from hedit_tpu_torch.probes.flash_exact_tiles import _call, identity
+from hedit_tpu_torch.probes.timing import best_ms, build_alone, require_cuda
+
+OUT_DIR = _build.BUILD_DIR / "probe_tiles"
+TC_SOURCE = _build.CSRC / "flash_probes_tc.cu"
+# (batch, heads, S, D): the bounded probe's shape and the UNet's d = 80 level
+CASES = ((16, 8, 4096, 40), (16, 8, 1024, 80))
+# the exp2 probe's shape and its d = 80 counterpart
+EXP2_CASES = ((4, 32, 4096, 40), (4, 32, 1024, 80))
+# the entry point's layout codes and the probes' layout names
+LAYOUTS = {0: "packed_t", 1: "packed_t_sminor", 2: "packed_t_all_sminor"}
+# the blocks an SM of the exact probe's two loops at d = 40 (the source's
+# EXP2_MINB_40; the bounded probes keep 5); variant 0 is the source's default
+VARIANTS = (4, 5, 3)
+PEAK_FLOPS = 989e12
+
+
+def _sminor(t):
+    return t.transpose(-1, -2).contiguous()
+
+
+def _entry_call(lib, entry, args, out, ints):
+    """A launch of ``entry`` on ``args`` writing ``out``; ``ints`` are the
+    entry point's integers before the dtype (bf16)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(lib, entry)
+
+    def call():
+        err = fn(*(t.data_ptr() for t in (*args, out)), *ints, 1, stream)
+        if err:
+            raise RuntimeError(f"{entry} failed (code {err})")
+    return call
+
+
+def _err(out, plain):
+    """The largest error over 2^-8 of the plain output's largest value."""
+    return (out.float() - plain).abs().max().item() / (2.0 ** -8 * plain.abs().max().item())
+
+
+def _turns(mine, parent, entry, args, out, ints):
+    """(who, call) pairs in turns: parent, this, this, parent; this alone
+    where there is no parent, or its ``entry`` refuses the call (the
+    S-minor layouts left the parent's template in bf16 before)."""
+    turns = [("tensor cores", mine)]
+    if parent is None:
+        return turns
+    core = _entry_call(parent, entry, args, torch.empty_like(out), ints)
+    try:
+        core()
+    except RuntimeError as e:
+        print(f"  the parent's {entry} takes no such call ({e}): no parent turns")
+        return turns
+    return [("parent template", core), *turns, *turns, ("parent template", core)]
+
+
+def _timed(label, turns, sdpa, bound_ms, err, extra=""):
+    ms = [best_ms(fn) for _, fn in turns]
+    tc_ms = min(t for (who, _), t in zip(turns, ms) if who == "tensor cores")
+    print(f"{label}: " + ", ".join(f"{who} {t:.4f}" for (who, _), t in zip(turns, ms))
+          + f" ms;{extra} SDPA {sdpa:.4f} ms, kernel / SDPA {tc_ms / sdpa:.3f}; "
+          f"bound {bound_ms:.4f} ms ({bound_ms / tc_ms:.1%}); out err / tol {err:.3f}")
+    return [[who, t] for (who, _), t in zip(turns, ms)]
+
+
+def _qkv(b, h, s, d):
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    return [torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def bounded_timings(mine, parent):
+    """Row 11's three layouts at ``CASES``; one record a case and layout."""
+    records = []
+    for b, h, s, d in CASES:
+        q, k, v = _qkv(b, h, s, d)
+        packed = [t.transpose(1, 2).reshape(b, s, h * d).contiguous() for t in (q, k, v)]
+        route, _ = _call(mine, "hedit_flash_attention_fwd_packed_bounded_tc", *packed, heads=h)
+        p_ms = best_ms(route)
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms = 4 * b * h * s * s * d / PEAK_FLOPS * 1e3
+        del packed
+        for layout, name in LAYOUTS.items():
+            args = {0: (q, k, v), 1: (_sminor(q), _sminor(k), v),
+                    2: (_sminor(q), _sminor(k), _sminor(v))}[layout]
+            out = torch.empty(b, h * d, s, dtype=torch.bfloat16, device="cuda")
+            ints = (b * h, s, s, d, fp.BLK_K, layout)
+            tc = _entry_call(mine, "hedit_flash_packed_t_tc", args, out, ints)
+            tc()
+            plain = getattr(fp, f"flash_{name}_reference")(*args, fp.BLK_K,
+                                                           out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            err = _err(out, plain)
+            del plain
+            torch.cuda.empty_cache()
+            turns = _turns(tc, parent, "hedit_flash_packed_t", args, out, ints)
+            label = f"{name} (layout {layout}) q[{b}, {h}, {s}, {d}] bf16"
+            ms = _timed(label, turns, sdpa, bound_ms, err,
+                        f" packed bounded (tensor cores) {p_ms:.4f} ms;")
+            records.append({"probe": name, "shape": [b, h, s, d], "turns": ms,
+                            "packed_bounded_ms": p_ms, "sdpa_ms": sdpa, "bound_ms": bound_ms,
+                            "err_over_tol": err})
+            del args, out
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def exp2_timings(mine, parent, variants):
+    """Row 10's two loops at ``EXP2_CASES``, then the d = 40 variants; one
+    record a case and loop."""
+    records = []
+    for b, h, s, d in EXP2_CASES:
+        q, k, v = _qkv(b, h, s, d)
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms = 4 * b * h * s * s * d / PEAK_FLOPS * 1e3
+        plain = fp.flash_exp2_t_reference(q, k, v, out_dtype=torch.float32)
+        outs = []
+        for pipe in (0, 1):
+            out = torch.empty(b * h, d, s, dtype=torch.bfloat16, device="cuda")
+            ints = (b * h, s, s, d, pipe)
+            tc = _entry_call(mine, "hedit_flash_exp2_t_tc", (q, k, v), out, ints)
+            tc()
+            torch.cuda.synchronize()
+            err = _err(out, plain)
+            outs.append(out)
+            label = f"exp2_t pipe={pipe} q[{b}, {h}, {s}, {d}] bf16"
+            ms = _timed(label, _turns(tc, parent, "hedit_flash_exp2_t", (q, k, v), out, ints),
+                        sdpa, bound_ms, err)
+            records.append({"probe": f"exp2_t pipe={pipe}", "shape": [b, h, s, d], "turns": ms,
+                            "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
+        same = torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
+        records[-1]["pipe_bit_identical"] = records[-2]["pipe_bit_identical"] = same
+        print(f"exp2_t q[{b}, {h}, {s}, {d}]: pipe=1 "
+              f"{'bit-identical to' if same else 'DIFFERS from'} pipe=0")
+        if d == 40:
+            for pipe in (0, 1):
+                calls = [_entry_call(lib, "hedit_flash_exp2_t_tc", (q, k, v), outs[pipe],
+                                     (b * h, s, s, d, pipe)) for lib in variants]
+                ms = [best_ms(calls[i]) for i in [*range(len(variants)), 0]]
+                print(f"exp2_t pipe={pipe} q[{b}, {h}, {s}, {d}] variants (blocks an SM): "
+                      + ", ".join(
+                          f"{VARIANTS[i]} {t:.4f}" for i, t in
+                          zip([*range(len(variants)), 0], ms)) + " ms")
+        del q, k, v, plain, outs
+        torch.cuda.empty_cache()
+    return records
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
+    args = ap.parse_args(argv)
+    require_cuda("flash_probe_tiles")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    builds = [(TC_SOURCE, f"variant{i}", _build.CSRC, (f"EXP2_MINB_40={n}",))
+              for i, n in enumerate(VARIANTS)]
+    if args.parent is not None:
+        csrc = args.parent / "hedit_tpu_torch" / "csrc"
+        builds += [(csrc / "flash_probes.cu", "parent_template", csrc, ()),
+                   (csrc / "flash_attention_tc.cu", "parent_tc", csrc, ())]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
+                            builds))
+    for (source, name, *_), (_, info) in zip(builds, built):
+        print(f"ptxas, {name} ({source.name}): {info}")
+    mine = _build.cuda_library()
+    n = len(VARIANTS)
+    parent = built[n][0] if args.parent is not None else None
+    records = bounded_timings(mine, parent)
+    records += exp2_timings(mine, parent, [lib for lib, _ in built[:n]])
+    print(json.dumps({"flash_probe_tiles": records}))
+    if args.parent is not None and not identity(mine, built[n + 1][0], exact=True):
+        print("FAILED: a bounded, LSE or exact tensor-core forward differs from the parent's")
+        return 1
+    bad = [r for r in records if not r["err_over_tol"] <= 1.0 or not r.get("pipe_bit_identical",
+                                                                           True)]
+    if bad:
+        print(f"FAILED: outputs beyond 2^-8 of the largest value, or loops that differ: {bad}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,7 @@ Port of ``scripts/flash_v4_variants.py`` (its TPU kernel is ``kern_exp2``,
 * base: the port's exact forward, TPU kernel 6 (``flash_attention_exact_cuda``,
   the script's shipped ``flash_attention``; in bf16 on the tensor cores);
 * exp2: sm_scale * log2(e) folded into q, exp2, p rounded to bf16, the
-  transposed ``[B*H, D, S]`` output;
+  transposed ``[B*H, D, S]`` output (in bf16 on the tensor cores);
 * exp2+pipe: the same with the software-pipelined key loop (the scores of
   tile t before the softmax and PV of tile t - 1).
 
@@ -35,17 +35,17 @@ from hedit_tpu_torch.probes.timing import cuda_ms, require_cuda
 B, H, S, D = 4, 32, 4096, 40
 
 
-def make_inputs(seed: int = 0, device="cuda"):
-    """q, k, v [B, H, S, D] bfloat16 from numpy ``RandomState(seed)``."""
+def make_inputs(seed: int = 0, device="cuda", dtype=torch.bfloat16):
+    """q, k, v [B, H, S, D] in ``dtype`` from numpy ``RandomState(seed)``."""
     rng = np.random.RandomState(seed)
-    return [torch.from_numpy(rng.randn(B, H, S, D).astype(np.float32)).to(device, torch.bfloat16)
+    return [torch.from_numpy(rng.randn(B, H, S, D).astype(np.float32)).to(device, dtype)
             for _ in range(3)]
 
 
-def run(seed: int = 0, reps: int = 10) -> Dict[str, Dict[str, float]]:
+def run(seed: int = 0, reps: int = 10, dtype=torch.bfloat16) -> Dict[str, Dict[str, float]]:
     """Returns {variant: {ms, err_exact_head0[, err_plain_head0]}}."""
     require_cuda("flash_v4_variants")
-    q, k, v = make_inputs(seed)
+    q, k, v = make_inputs(seed, dtype=dtype)
     head0 = [t[:1, :1] for t in (q, k, v)]
     exact0 = reference_attention(*(t.float() for t in head0))[0, 0]      # [S, D]
     plain0 = flash_exp2_t_reference(*head0)[0].T.float()

@@ -64,13 +64,14 @@ def best_ms(fn, reps: int = 20, tries: int = 3) -> float:
     return min(cuda_ms(fn, reps=reps) for _ in range(tries))
 
 
-def build_alone(source: Path, so: Path, include: Path):
+def build_alone(source: Path, so: Path, include: Path, defines=()):
     """``source`` built alone into the shared library ``so`` with the port's
-    nvcc flags: (ctypes library with the loader's argument types for the
-    entry points it has, ptxas's register and spill lines)."""
+    nvcc flags and ``-D`` each of ``defines``: (ctypes library with the
+    loader's argument types for the entry points it has, ptxas's register
+    and spill lines)."""
     so.parent.mkdir(parents=True, exist_ok=True)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-I", str(include),
-           str(source), "-o", str(so)]
+           *(f"-D{d}" for d in defines), str(source), "-o", str(so)]
     p = subprocess.run(cmd, capture_output=True, text=True)
     if p.returncode:
         raise RuntimeError(f"nvcc failed for {source}:\n{p.stderr[-3000:]}")
@@ -94,7 +95,10 @@ def _ptxas_kernels(log: str):
             # the kernel's identifier: the one whose length prefix is its length
             names = [m.group(2) for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)I)", mangled)
                      if int(m.group(1)) == len(m.group(2))]
-            args = re.findall(r"L[ib](\d+)E", mangled)
+            # int and bool arguments (Li40E, Lb1E), and enum ones of the
+            # sources' anonymous namespace (LNS_2OpE3E)
+            args = re.findall(r"L(?:[ib]|NS_\d+\w+?E|N12_GLOBAL__N_1\d+[A-Za-z_]\w*?E)(\d+)E",
+                              mangled)
             name = (names[0] if names else mangled) + (f"<{','.join(args)}>" if args else "")
         elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
             found.append(f"{name}: {line.strip()}")

@@ -1,24 +1,27 @@
-"""The bf16 tensor-core route of the S-minor bounded probes (TPU kernels 11b
-and 11c), on the CPU.
+"""The bf16 tensor-core route of the bounded probes (TPU kernels 11a, 11b
+and 11c) and of the exact exp2 probe (TPU kernel 10, both key loops), on
+the CPU.
 
-The kernel (``hedit_tpu_torch/csrc/flash_probes_tc.cu``) runs only on the
+The kernels (``hedit_tpu_torch/csrc/flash_probes_tc.cu``) run only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
-* the dispatch by dtype and layout (``probe_entry``), as values: bf16
-  S-minor to the tensor-core entry point, float32 and ``packed_t`` to the
-  CUDA-core template, anything else refused; CPU tensors take the plain
-  versions and launch nothing;
-* the C entry point's parameter list, read from the source, against the
-  ``ctypes`` argument types the loader gives it (the sources cannot be
+* the dispatch by dtype (``probe_entry``, ``exp2_entry``), as values: bf16
+  to the tensor-core entry points, float32 to the CUDA-core template,
+  anything else refused; CPU tensors take the plain versions and launch
+  nothing;
+* the C entry points' parameter lists, read from the source, against the
+  ``ctypes`` argument types the loader gives them (the sources cannot be
   compiled here);
-* the kernel's order of work rendered in plain torch: the S-minor operands
-  as they lie, the d = 40 contraction padded to 48, 64-key tiles, the
-  anchor prologue over tiles, p rounded to bf16 and the row sum tile by
-  tile, 64- or 128-row query blocks whose last one may reach past Sq.  It
-  is held against the plain versions and against the scripts' Pallas
-  kernels ``_packed_t_kernel_sminor`` and ``_packed_t_kernel_all_sminor``
-  in interpret mode (128-query and 128-key blocks, so a 128-key anchor
-  window, S = 256), the saturating input included.
+* the kernel's order of work rendered in plain torch: q * scale rounded in
+  blocks of ``bq`` queries, the last one padded with zero queries past Sq,
+  the d = 40 contraction padded to 48, 64-key tiles, the bounded probes'
+  anchor prologue over tiles, the exact probe's running max over each
+  64-key tile (plain and pipelined loops), p rounded to bf16 and the row
+  sum tile by tile.  It is held against the plain versions and against the
+  scripts' Pallas kernels ``_packed_t_kernel``, ``_packed_t_kernel_sminor``,
+  ``_packed_t_kernel_all_sminor`` (128-query and 128-key blocks, so a
+  128-key anchor window, S = 256) and ``kern_exp2`` (128-query blocks,
+  ``blk_k = 64``) in interpret mode, the saturating input included.
 
 The cases run as loops inside few items: pytest-xdist's loadfile scheduler
 queues test files by their number of items.
@@ -44,12 +47,13 @@ from hedit_tpu_torch.ops import flash_probes as fp
 from hedit_tpu_torch.ops.flash_attention import DENOM_FLOOR, reference_attention
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLK = 128          # blk_q and blk_k of the interpret runs: the anchor window
-BK = 64            # the kernel's key tile
-SMINOR = ("packed_t_sminor", "packed_t_all_sminor")
-# per S-minor layout: the script's kernel and whether v is S-minor
-KERNELS = {"packed_t_sminor": ("_packed_t_kernel_sminor", False),
-           "packed_t_all_sminor": ("_packed_t_kernel_all_sminor", True)}
+BLK = 128          # blk_q and blk_k of the bounded interpret runs: the anchor window
+BK = 64            # the kernel's key tile, and kern_exp2's blk_k in the interpret runs
+LAYOUTS = ("packed_t", "packed_t_sminor", "packed_t_all_sminor")
+# per layout: the script's kernel and whether q / k and v are S-minor
+KERNELS = {"packed_t": ("_packed_t_kernel", False, False),
+           "packed_t_sminor": ("_packed_t_kernel_sminor", True, False),
+           "packed_t_all_sminor": ("_packed_t_kernel_all_sminor", True, True)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,36 +66,52 @@ def _share_cores():
     torch.set_num_threads(before)
 
 
+def _layout_args(layout, q, k, v):
+    """The operands of ``layout`` from [B, H, S, D] tensors."""
+    _, qk_minor, v_minor = KERNELS[layout]
+    tr = lambda t, m: t.mT.contiguous() if m else t  # noqa: E731
+    return tr(q, qk_minor), tr(k, qk_minor), tr(v, v_minor)
+
+
 def test_probe_entry_dispatch_and_cpu_tensors():
-    """bf16 S-minor inputs take the tensor-core entry point; float32 inputs,
-    and ``packed_t`` in either dtype, the template's; other dtypes and
-    layouts are refused.  CPU tensors of either dtype take the plain
-    versions bit for bit and move no counter."""
-    for layout in SMINOR:
+    """bf16 inputs of every bounded layout and of the exp2 probe take the
+    tensor-core entry points, float32 inputs the template's; other dtypes
+    and layouts are refused.  CPU tensors of either dtype take the plain
+    versions bit for bit (the exp2 probe in both loops) and move no
+    counter."""
+    for layout in LAYOUTS:
         assert fp.probe_entry(torch.bfloat16, layout) == "hedit_flash_packed_t_tc"
         assert fp.probe_entry(torch.float32, layout) == "hedit_flash_packed_t"
-    for dtype in (torch.bfloat16, torch.float32):
-        assert fp.probe_entry(dtype, "packed_t") == "hedit_flash_packed_t"
+    assert fp.exp2_entry(torch.bfloat16) == "hedit_flash_exp2_t_tc"
+    assert fp.exp2_entry(torch.float32) == "hedit_flash_exp2_t"
     for dtype in (torch.float16, torch.float64, torch.int8):
-        for layout in ("packed_t", *SMINOR):
+        for layout in LAYOUTS:
             with pytest.raises(ValueError, match="float32 or bfloat16"):
                 fp.probe_entry(dtype, layout)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fp.exp2_entry(dtype)
     with pytest.raises(ValueError, match="layout"):
         fp.probe_entry(torch.bfloat16, "sminor")
-    names = [n for n in dir(fp) if n.startswith("launches_packed_t")]
-    assert {f"launches_{layout}_tc" for layout in SMINOR} <= set(names)
+    names = [n for n in dir(fp) if n.startswith(("launches_packed_t", "launches_exp2_t"))]
+    assert {f"launches_{layout}_tc" for layout in LAYOUTS} | {"launches_exp2_t_tc"} <= set(names)
     counts = {n: getattr(fp, n) for n in names}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(1, 2, 128, 40)
                                     .astype(np.float32)).to(dtype) for i in range(3))
-        for layout, (_, v_minor) in KERNELS.items():
-            args = (q.mT.contiguous(), k.mT.contiguous(), v.mT.contiguous() if v_minor else v)
+        for layout in LAYOUTS:
+            args = _layout_args(layout, q, k, v)
             got = getattr(fp, f"flash_{layout}_cuda")(*args, BK)
             want = getattr(fp, f"flash_{layout}_reference")(*args, BK)
             assert torch.equal(got, want) and got.dtype == dtype
             unrounded = getattr(fp, f"flash_{layout}_reference")(*args, BK,
                                                                  out_dtype=torch.float32)
             assert unrounded.dtype == torch.float32 and torch.equal(unrounded.to(dtype), want)
+        want = fp.flash_exp2_t_reference(q, k, v)
+        for pipe in (False, True):
+            got = fp.flash_exp2_t_cuda(q, k, v, pipe)
+            assert torch.equal(got, want) and got.dtype == dtype
+        unrounded = fp.flash_exp2_t_reference(q, k, v, out_dtype=torch.float32)
+        assert unrounded.dtype == torch.float32 and torch.equal(unrounded.to(dtype), want)
     assert counts == {n: getattr(fp, n) for n in names}
 
 
@@ -106,50 +126,83 @@ def _c_params(path, name):
 
 
 def test_tc_entry_point_matches_its_argument_types():
-    """``hedit_flash_packed_t_tc`` in ``csrc/flash_probes_tc.cu`` takes the
-    parameters its ``ctypes`` argument types describe, which are those of
-    the template's ``hedit_flash_packed_t``."""
-    tc = _c_params(_build.CSRC / "flash_probes_tc.cu", "hedit_flash_packed_t_tc")
-    template = _c_params(_build.CSRC / "flash_probes.cu", "hedit_flash_packed_t")
-    assert tc == template == _build.ARGTYPES["hedit_flash_packed_t_tc"]
-    assert _build.ARGTYPES["hedit_flash_packed_t_tc"] == _build.ARGTYPES["hedit_flash_packed_t"]
+    """``hedit_flash_packed_t_tc`` and ``hedit_flash_exp2_t_tc`` in
+    ``csrc/flash_probes_tc.cu`` take the parameters their ``ctypes``
+    argument types describe, which are those of the template's
+    ``hedit_flash_packed_t`` and ``hedit_flash_exp2_t``."""
+    for name in ("hedit_flash_packed_t", "hedit_flash_exp2_t"):
+        tc = _c_params(_build.CSRC / "flash_probes_tc.cu", f"{name}_tc")
+        template = _c_params(_build.CSRC / "flash_probes.cu", name)
+        assert tc == template == _build.ARGTYPES[f"{name}_tc"], name
+        assert _build.ARGTYPES[f"{name}_tc"] == _build.ARGTYPES[name], name
 
 
-def _tiled_probe(qt, kt, vx, v_minor, anchor, bq):
+def _tiled_probe(ops, layout, anchor, bq, exact=False, pipe=False):
     """The tensor-core kernel's order of work in plain torch, float32
-    arithmetic on its bf16 roundings, from the S-minor operands as they lie
-    (qt, kt [B, H, D, S]; vx [B, H, S, D], or [B, H, D, S] when ``v_minor``):
-    (q * scale)^T rounded to the input dtype in slabs of ``bq`` queries, the
-    last one padded with zero queries past Sq, and the contraction
-    zero-padded to a multiple of 16; for each tile of 64 keys the scores of
-    the slab; the shift from the prologue's tiles over the first ``anchor``
-    keys; p rounded to the input dtype, the row sum and the PV product
-    accumulated tile by tile; the floored denominator.  Returns [B, H*D, Sq],
-    the float32 output before the kernel's final rounding."""
-    b, h, d, sq = qt.shape
-    sk = kt.shape[-1]
+    arithmetic on its bf16 roundings, from the operands of ``layout`` (the
+    exact probe: ``packed_t``'s): q * scale rounded to the input dtype in
+    blocks of ``bq`` queries, the last one padded with zero queries past
+    Sq, and the contraction zero-padded to a multiple of 16; for each tile
+    of 64 keys the scores of the block.  Bounded (``exact`` false): the
+    shift from the prologue's tiles over the first ``anchor`` keys, p
+    rounded to the input dtype, the row sum and the PV product accumulated
+    tile by tile, the floored denominator; returns [B, H*D, Sq].  Exact: the
+    running max from -1e30 moved over each tile, alpha rescaling the sum and
+    the accumulator, p = exp2(s - m) rounded, no floor; ``pipe`` takes tile
+    t's scores before tile t - 1's softmax and PV, with a prologue and an
+    epilogue; returns [B*H, D, Sq].  The output before the kernel's final
+    rounding."""
+    _, qk_minor, v_minor = KERNELS[layout]
+    q, k, v = (t.mT if m else t for t, m in zip(ops, (qk_minor, qk_minor, v_minor)))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     dk, sq_blocks = -(-d // 16) * 16, -(-sq // bq) * bq
-    scale = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=qt.dtype)
-    qs = F.pad((qt * scale).float(), (0, sq_blocks - sq, 0, dk - d))   # [B, H, DK, Sq']
-    ks = F.pad(kt.float(), (0, 0, 0, dk - d))                          # [B, H, DK, Sk]
-    vs = (vx.mT if v_minor else vx).float()                            # [B, H, Sk, D]
+    scale = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=q.dtype)
+    qs = F.pad((q * scale).float(), (0, dk - d, 0, sq_blocks - sq))   # [B, H, Sq', DK]
+    ks = F.pad(k.float(), (0, dk - d))                                 # [B, H, Sk, DK]
+    vs = v.float()                                                     # [B, H, Sk, D]
 
     def scores(k0):
-        return qs.mT @ ks[..., k0:k0 + BK]
+        return qs @ ks[..., k0:k0 + BK, :].mT
 
-    m = torch.full((b, h, sq_blocks, 1), -float("inf"))
-    for k0 in range(0, anchor, BK):
-        m = torch.maximum(m, scores(k0).amax(dim=-1, keepdim=True))
-    shift = m + 16.0
     den = torch.zeros((b, h, sq_blocks, 1))
     acc = torch.zeros((b, h, sq_blocks, d))
-    for k0 in range(0, sk, BK):
-        p = torch.exp2(torch.clamp(scores(k0) - shift, max=100.0)).to(qt.dtype).float()
-        den = den + p.sum(dim=-1, keepdim=True)
-        acc = acc + p @ vs[..., k0:k0 + BK, :]
-    out = acc / torch.clamp(den, min=DENOM_FLOOR)
+    if not exact:
+        m = torch.full((b, h, sq_blocks, 1), -float("inf"))
+        for k0 in range(0, anchor, BK):
+            m = torch.maximum(m, scores(k0).amax(dim=-1, keepdim=True))
+        shift = m + 16.0
+        for k0 in range(0, sk, BK):
+            p = torch.exp2(torch.clamp(scores(k0) - shift, max=100.0)).to(q.dtype).float()
+            den = den + p.sum(dim=-1, keepdim=True)
+            acc = acc + p @ vs[..., k0:k0 + BK, :]
+        out = acc / torch.clamp(den, min=DENOM_FLOOR)
+    else:
+        m = torch.full((b, h, sq_blocks, 1), -1e30)
+
+        def softmax_pv(s, k0):
+            nonlocal m, den, acc
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new).to(q.dtype).float()
+            den = den * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p @ vs[..., k0:k0 + BK, :]
+            m = m_new
+
+        if pipe:
+            s_prev = scores(0)
+            for k0 in range(BK, sk, BK):
+                s_next = scores(k0)
+                softmax_pv(s_prev, k0 - BK)
+                s_prev = s_next
+            softmax_pv(s_prev, sk - BK)
+        else:
+            for k0 in range(0, sk, BK):
+                softmax_pv(scores(k0), k0)
+        out = acc / den
     assert torch.isfinite(out).all()   # the zero queries past Sq too
-    return out[:, :, :sq].mT.reshape(b, h * d, sq)
+    out = out[:, :, :sq].mT
+    return out.reshape(b * h, d, sq) if exact else out.reshape(b, h * d, sq)
 
 
 def _import_script(name):
@@ -167,33 +220,53 @@ def _import_script(name):
     return module
 
 
-def _jax_sminor(mod, layout, qt, kt, vx):
-    """The script's S-minor kernel of ``layout`` with interpret=True and BLK
-    blocks, on its own operands (qt, kt [B, H, D, S]; vx as the layout lays
-    v) -> [B, H*D, Sq]."""
-    kernel, v_minor = KERNELS[layout]
-    b, h, d, sq = qt.shape
-    sk = kt.shape[-1]
+def _jax_packed_t(mod, layout, q, k, v):
+    """The script's kernel of ``layout`` with interpret=True and BLK blocks,
+    on its own operands (q, k [B, H, S, D] or S-minor [B, H, D, S]; v as
+    the layout lays it) -> [B, H*D, Sq]."""
+    kernel, qk_minor, v_minor = KERNELS[layout]
+    b, h = q.shape[:2]
+    d, sq = (q.shape[2], q.shape[3]) if qk_minor else (q.shape[3], q.shape[2])
+    sk = k.shape[3] if qk_minor else k.shape[2]
     whole = (lambda bh, i: (bh, 0, 0))
     return pl.pallas_call(
         functools.partial(getattr(mod, kernel), sm_scale=1.0 / d ** 0.5, blk_k=BLK),
         grid=(b * h, sq // BLK),
-        in_specs=[pl.BlockSpec((None, d, BLK), lambda bh, i: (bh, 0, i)),
-                  pl.BlockSpec((None, d, sk), whole),
+        in_specs=[pl.BlockSpec((None, d, BLK), lambda bh, i: (bh, 0, i)) if qk_minor
+                  else pl.BlockSpec((None, BLK, d), lambda bh, i: (bh, i, 0)),
+                  pl.BlockSpec((None, d, sk) if qk_minor else (None, sk, d), whole),
                   pl.BlockSpec((None, d, sk) if v_minor else (None, sk, d), whole)],
         out_specs=pl.BlockSpec((None, d, BLK), lambda bh, i: (bh // h, bh % h, i)),
-        out_shape=jax.ShapeDtypeStruct((b, h * d, sq), qt.dtype),
+        out_shape=jax.ShapeDtypeStruct((b, h * d, sq), q.dtype),
         interpret=True,
-    )(*(t.reshape(b * h, *t.shape[2:]) for t in (qt, kt, vx)))
+    )(*(t.reshape(b * h, *t.shape[2:]) for t in (q, k, v)))
+
+
+def _jax_exp2_t(mod, q, k, v, pipe):
+    """``kern_exp2`` as ``run_variant`` calls it, with interpret=True, BLK
+    query blocks and the kernel's 64-key blocks: q, k, v [B, H, S, D] ->
+    [B*H, D, Sq]."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    return pl.pallas_call(
+        functools.partial(mod.kern_exp2, sm_scale=1.0 / d ** 0.5, blk_k=BK, pipe=pipe),
+        grid=(b * h, sq // BLK),
+        in_specs=[pl.BlockSpec((None, BLK, d), lambda bh, i: (bh, i, 0)),
+                  pl.BlockSpec((None, sk, d), lambda bh, i: (bh, 0, 0)),
+                  pl.BlockSpec((None, sk, d), lambda bh, i: (bh, 0, 0))],
+        out_specs=pl.BlockSpec((None, d, BLK), lambda bh, i: (bh, 0, i)),
+        out_shape=jax.ShapeDtypeStruct((b * h, d, sq), q.dtype),
+        interpret=True,
+    )(*(t.reshape(b * h, -1, d) for t in (q, k, v)))
 
 
 def _inputs(sq, sk, d, layout, saturate):
-    """numpy-seeded bf16 operands of ``layout`` (qt, kt [1, 2, D, S]; v
-    [1, 2, S, D] or S-minor) as (torch, jax) triples, and q, k, v [1, 2, S,
-    D] in float32 for exact attention.  ``saturate``: every query's score
-    with a key is set by the key's first component; key 140 scores ~146 log2
-    units, more than 116 above the 128-key anchor window's max (clamped to
-    2^100), keys 150-213 ~109."""
+    """numpy-seeded bf16 operands of ``layout`` (q, k [1, 2, S, D] or
+    S-minor [1, 2, D, S]; v [1, 2, S, D] or S-minor) as (torch, jax)
+    triples, and q, k, v [1, 2, S, D] in float32 for exact attention.
+    ``saturate``: every query's score with a key is set by the key's first
+    component; key 140 scores ~146 log2 units, more than 116 above the
+    128-key anchor window's max (clamped to 2^100), keys 150-213 ~109."""
     rng = np.random.RandomState(sq + sk + d)
     q, k, v = (rng.randn(1, 2, s, d).astype(np.float32) for s in (sq, sk, sk))
     if saturate:
@@ -201,7 +274,8 @@ def _inputs(sq, sk, d, layout, saturate):
         q[..., 0] = 8.0 * (d / 40) ** 0.5   # the same scores at every d
         k[:, :, 140, 0] = 80.0
         k[:, :, 150:214, 0] = 60.0
-    ops = [q.swapaxes(-1, -2), k.swapaxes(-1, -2), v.swapaxes(-1, -2) if KERNELS[layout][1] else v]
+    _, qk_minor, v_minor = KERNELS[layout]
+    ops = [a.swapaxes(-1, -2) if m else a for a, m in zip((q, k, v), (qk_minor, qk_minor, v_minor))]
     ops = [np.ascontiguousarray(a) for a in ops]
     return ([torch.from_numpy(a).to(torch.bfloat16) for a in ops],
             [jnp.asarray(a).astype(jnp.bfloat16) for a in ops],
@@ -221,26 +295,29 @@ def _tol(want, rounded=False):
 
 
 def test_tiled_order_matches_the_plain_versions_and_jax():
-    """Both layouts at d = 40 (64-query blocks, the contraction padded to
-    48) and d = 80 (128-query blocks), plain and saturating, anchored on the
-    first 128 keys, against the plain versions before their final rounding
-    and the scripts' kernels in interpret mode (tolerances of ``_tol``: the
-    largest error read 5e-5 and 0.8-1.03 of 2^-8 * max); on
-    the saturating input the probe differs from exact attention by more
-    than 20 tolerances.  Then at d = 80 an Sq of 64 more than a multiple of
-    128 (Sq = 320 != Sk = 256), whose last block reaches past Sq, against
-    the plain versions alone (the interpret runs cover whole 128-row
-    blocks)."""
-    scripts = _import_script("flash_nhd_variants")
-    for layout in SMINOR:
+    """The bounded probes in the three layouts at d = 40 (64-query blocks,
+    the contraction padded to 48) and d = 80 (128-query blocks), plain and
+    saturating, anchored on the first 128 keys; the exact exp2 probe in both
+    loops at both head dims.  Each against its plain version before the
+    final rounding and the scripts' kernels in interpret mode (tolerances
+    of ``_tol``: the largest error read up to 1.03 of 2^-8 * max against
+    JAX's rounded outputs); the two exact loops give the same float32
+    values; on the saturating input the bounded probe differs from exact
+    attention by more than 20 tolerances.  Then at d = 80 an Sq of 64 more
+    than a multiple of 128 (Sq = 320 != Sk = 256), whose last block reaches
+    past Sq, against the plain versions alone (the interpret runs cover
+    whole 128-row blocks)."""
+    nhd = _import_script("flash_nhd_variants")
+    v4 = _import_script("flash_v4_variants")
+    for layout in LAYOUTS:
         for d, bq in ((40, 64), (80, 128)):
             for saturate in (False, True):
                 where = f"{layout} d={d} saturate={saturate}"
                 ops, jops, exact_in = _inputs(256, 256, d, layout, saturate)
-                got = _tiled_probe(*ops, KERNELS[layout][1], BLK, bq).numpy()
+                got = _tiled_probe(ops, layout, BLK, bq).numpy()
                 plain = getattr(fp, f"flash_{layout}_reference")(
                     *ops, BLK, out_dtype=torch.float32).numpy()
-                want = np.asarray(_jax_sminor(scripts, layout, *jops).astype(jnp.float32))
+                want = np.asarray(_jax_packed_t(nhd, layout, *jops).astype(jnp.float32))
                 assert got.shape == (1, 2 * d, 256), where
                 tol = _tol(plain)
                 np.testing.assert_allclose(got, plain, rtol=0, atol=tol, err_msg=where)
@@ -250,8 +327,23 @@ def test_tiled_order_matches_the_plain_versions_and_jax():
                     exact = fp._packed_t(reference_attention(*exact_in)).numpy()
                     assert np.abs(got - exact).max() > 20 * tol, where
         ops, _, _ = _inputs(320, 256, 80, layout, False)
-        got = _tiled_probe(*ops, KERNELS[layout][1], BLK, 128).numpy()
+        got = _tiled_probe(ops, layout, BLK, 128).numpy()
         plain = getattr(fp, f"flash_{layout}_reference")(*ops, BLK,
                                                          out_dtype=torch.float32).numpy()
         assert got.shape == (1, 160, 320)
         np.testing.assert_allclose(got, plain, rtol=0, atol=_tol(plain), err_msg=layout)
+    for sq, d, bq in ((256, 40, 64), (256, 80, 128), (320, 80, 128)):
+        ops, jops, _ = _inputs(sq, 256, d, "packed_t", False)
+        loops = [_tiled_probe(ops, "packed_t", None, bq, exact=True, pipe=pipe)
+                 for pipe in (False, True)]
+        assert torch.equal(loops[0], loops[1]), f"exp2 d={d} Sq={sq}: the loops differ"
+        got = loops[0].numpy()
+        plain = fp.flash_exp2_t_reference(*ops, out_dtype=torch.float32).numpy()
+        assert got.shape == (2, d, sq)
+        np.testing.assert_allclose(got, plain, rtol=0, atol=_tol(plain), err_msg=f"exp2 d={d}")
+        if sq % BLK:
+            continue
+        for pipe in (False, True):
+            want = np.asarray(_jax_exp2_t(v4, *jops, pipe).astype(jnp.float32))
+            np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want, rounded=True),
+                                       err_msg=f"exp2 d={d} pipe={pipe}")

@@ -688,9 +688,9 @@ def _sminor(t):
                                           ((1, 2, 1024, 40), 512), ((1, 2, 576, 80), 192)])
 def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, anchor):
     """TPU kernel 11's three layouts against their plain versions (tolerances
-    of ``_tol``), one launch each: bf16 S-minor on the tensor cores (its own
-    counter, held before the final rounding), everything else on the
-    CUDA-core template in the inputs' dtype.  The saturating input (a
+    of ``_tol``), one launch each: bf16 on the tensor cores (its own
+    counter, held before the final rounding), float32 on the CUDA-core
+    template.  The saturating input (a
     512-key anchor, keys beyond it far above) included, and at d = 80 an Sq
     of 64 more than a multiple of 128 (the tensor-core kernel's last block
     half past Sq)."""
@@ -703,7 +703,7 @@ def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, a
             "packed_t_all_sminor": (_sminor(q), _sminor(k), _sminor(v))}[layout]
     wrapper = getattr(fp, f"flash_{layout}_cuda")
     plain = getattr(fp, f"flash_{layout}_reference")
-    tc = dtype == torch.bfloat16 and layout != "packed_t"
+    tc = dtype == torch.bfloat16
     counter = f"launches_{layout}_tc" if tc else f"launches_{layout}"
     names = [n for n in dir(fp) if n.startswith("launches_packed_t")]
     before = {n: getattr(fp, n) for n in names}
@@ -721,21 +721,25 @@ def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, a
 @pytest.mark.parametrize("pipe", [False, True])
 @pytest.mark.parametrize("shape", [(2, 3, 256, 40), (1, 2, 576, 80), (1, 1, 64, 40)])
 def test_probe_exp2_kernel_matches_plain_on_card(cuda, dtype, pipe, shape):
-    """TPU kernel 10, both key loops, against its plain version in the
-    inputs' dtype (with the kernel's 64-key blocks of the running max;
-    tolerances of ``_tol``); the two loops give the same values."""
+    """TPU kernel 10, both key loops, against its plain version (with the
+    kernel's 64-key blocks of the running max; tolerances of ``_tol``): bf16
+    on the tensor cores (its own counter, held before the final rounding),
+    float32 on the CUDA-core template.  The two loops give the same bits."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     q, k, v = _probe_inputs(dtype, shape)
-    before = fp.launches_exp2_t
+    counter = "launches_exp2_t_tc" if dtype == torch.bfloat16 else "launches_exp2_t"
+    names = ("launches_exp2_t", "launches_exp2_t_tc")
+    before = {n: getattr(fp, n) for n in names}
     got = fp.flash_exp2_t_cuda(q, k, v, pipe)
     other = fp.flash_exp2_t_cuda(q, k, v, not pipe)
     torch.cuda.synchronize()
-    assert fp.launches_exp2_t == before + 2
+    assert {n: getattr(fp, n) - before[n] for n in names} == {n: 2 * (n == counter) for n in names}
     assert got.shape == (shape[0] * shape[1], shape[3], shape[2])
-    want = fp.flash_exp2_t_reference(q, k, v).float()
+    want = (fp.flash_exp2_t_reference(q, k, v, out_dtype=torch.float32)
+            if dtype == torch.bfloat16 else fp.flash_exp2_t_reference(q, k, v).float())
     torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
-    torch.testing.assert_close(got, other, rtol=0, atol=0)
+    assert torch.equal(got, other)
 
 
 @pytest.mark.gpu
@@ -751,29 +755,45 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         fp.flash_exp2_t_cuda(*(torch.randn(1, 2, 256, 64, device=cuda),) * 3)
     with pytest.raises(ValueError, match="shape"):
         fp.flash_packed_t_sminor_cuda(q, q, q, 128)
-    # the tensor-core entry: layout 0 (row 11a stays on the template), float32
-    # and a misaligned pointer are refused; the wrapper raises on the last first
+    # the tensor-core entries take bf16 in every layout (layout 0 is row 11a)
+    # and pipe 0 or 1; float32, layout 3, d = 64, pipe 2 and a misaligned
+    # pointer are refused; the wrappers raise on the last first
     from hedit_tpu_torch._build import cuda_library
 
-    entry = cuda_library().hedit_flash_packed_t_tc
+    lib = cuda_library()
+    bounded, exp2 = lib.hedit_flash_packed_t_tc, lib.hedit_flash_exp2_t_tc
     stream = torch.cuda.current_stream().cuda_stream
-    qt = _sminor(q).to(torch.bfloat16)
+    qb = q.to(torch.bfloat16)
     out = torch.empty(1, 80, 256, dtype=torch.bfloat16, device=cuda)
-    ptrs = [t.data_ptr() for t in (qt, qt, qt, out)]
-    assert entry(*ptrs, 2, 256, 256, 40, 128, 1, 1, stream) == 0
-    for layout, dtype, shift in ((0, 1, 0), (3, 1, 0), (1, 0, 0), (2, 1, 2)):
-        assert entry(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, 40, 128, layout, dtype,
-                     stream) == -1
-    buf = torch.empty(qt.numel() + 1, dtype=torch.bfloat16, device=cuda)
-    misaligned = buf[1:].view(qt.shape)
-    misaligned.copy_(qt)
-    before = fp.launches_packed_t_sminor_tc, fp.launches_packed_t_all_sminor_tc
+    ptrs = [t.data_ptr() for t in (qb, qb, qb, out)]
+    for layout in (0, 1, 2):
+        assert bounded(*ptrs, 2, 256, 256, 40, 128, layout, 1, stream) == 0
+    for layout, dtype, d, shift in ((3, 1, 40, 0), (0, 0, 40, 0), (0, 1, 64, 0), (0, 1, 40, 2)):
+        assert bounded(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, 128, layout, dtype,
+                       stream) == -1
+    for pipe in (0, 1):
+        assert exp2(*ptrs, 2, 256, 256, 40, pipe, 1, stream) == 0
+    for pipe, dtype, d, shift in ((2, 1, 40, 0), (-1, 1, 40, 0), (0, 0, 40, 0), (1, 1, 64, 0),
+                                  (0, 1, 40, 2)):
+        assert exp2(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, pipe, dtype, stream) == -1
+
+    def misaligned(t):  # a dense copy of t two bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        return buf[1:].view(t.shape).copy_(t)
+
+    qt = _sminor(qb)
+    names = [n for n in dir(fp) if n.startswith(("launches_packed_t", "launches_exp2_t"))]
+    before = {n: getattr(fp, n) for n in names}
     with pytest.raises(ValueError, match="aligned"):
-        fp.flash_packed_t_all_sminor_cuda(misaligned, qt, qt, 128)
+        fp.flash_packed_t_all_sminor_cuda(misaligned(qt), qt, qt, 128)
     with pytest.raises(ValueError, match="aligned"):
-        fp.flash_packed_t_sminor_cuda(qt, misaligned, q.to(torch.bfloat16), 128)
+        fp.flash_packed_t_sminor_cuda(qt, qt, misaligned(qb), 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_packed_t_cuda(qb, misaligned(qb), qb, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_exp2_t_cuda(qb, qb, misaligned(qb), True)
     torch.cuda.synchronize()
-    assert (fp.launches_packed_t_sminor_tc, fp.launches_packed_t_all_sminor_tc) == before
+    assert {n: getattr(fp, n) for n in names} == before
 
 
 @pytest.mark.gpu
