@@ -274,8 +274,12 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             **{f"flash_{lay}_core": (fp, f"launches_{lay}") for lay in fp._LAYOUTS},
             "flash_exp2_t": (fp, "launches_exp2_t_tc"),
             "flash_exp2_t_core": (fp, "launches_exp2_t"),
-            **{f"flash_ablate_{m}": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_MODES},
-            **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "abcd"},
+            "flash_ablate_dots": (fp, "launches_ablate_dots"),
+            **{f"flash_ablate_{m}": (fp, f"launches_ablate_{m}_tc") for m in fp.ABLATE_TC_MODES},
+            **{f"flash_ablate_{m}_core": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_TC_MODES},
+            **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "abc"},
+            "flash_variant_d": (fp, "launches_variant_d_tc"),
+            "flash_variant_d_core": (fp, "launches_variant_d"),
             **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS}}
 
 
@@ -1047,9 +1051,10 @@ PROBE_LAYOUTS = {"packed_t": lambda q, k, v: (q, k, v),
 
 
 def _probe_plain(plain, args, dtype):
-    """The plain version ``plain`` a probe kernel (rows 10, 11) is held to:
-    in bf16 (the tensor-core kernels) before the final rounding, as rows 1,
-    3, 6 and 7; the template's float32 outputs in their dtype."""
+    """The plain version ``plain`` a probe kernel (rows 8 ``exp`` /
+    ``noprolog``, 9 d, 10, 11) is held to: in bf16 (the tensor-core
+    kernels) before the final rounding, as rows 1, 3, 6 and 7; the
+    template's float32 outputs in their dtype."""
     if dtype == torch.bfloat16:
         return lambda: plain(*args, out_dtype=torch.float32)
     return lambda: plain(*args)
@@ -1154,8 +1159,9 @@ EXCUSED_SHARE = 1e-3
 
 def _ablate_cases(g, rows, failures):
     """TPU kernel 8, each mode, against its plain version, inputs drawn as
-    the probe draws them (q, k * 0.05).  exp, noprolog: bf16 within one
-    output ulp, float32 within 1e-4.  dots: the sum of p is as often
+    the probe draws them (q, k * 0.05).  exp, noprolog: bf16 (on the tensor
+    cores) within one output ulp before the final rounding, float32 (the
+    template) within 1e-4.  dots (the template): the sum of p is as often
     negative as positive (then the floor makes the output acc * 1e30), so
     each element is held within ``ablate_dots_tolerance`` (in bf16 the plain
     version's scores are the kernel's bit for bit), and the rows whose sum
@@ -1170,7 +1176,8 @@ def _ablate_cases(g, rows, failures):
         bound_ms, by = bound(4 * b * h * s * d * q.element_size(), (4 * b * h * s * s * d, dtype))
         for mode in fp.ABLATE_MODES:
             got = fp.flash_ablate_t_cuda(q, k, v, mode)
-            want = fp.flash_ablate_t_reference(q, k, v, mode)
+            want = (fp.flash_ablate_t_reference(q, k, v, mode) if mode == "dots" else
+                    _probe_plain(fp.flash_ablate_t_reference, (q, k, v, mode), dtype)())
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             label = f"flash ablate {mode} q{list(shape)} {str(dtype)[6:]}"
@@ -1196,7 +1203,9 @@ def _ablate_cases(g, rows, failures):
                 tol_at = (F32_TOL if dtype == torch.float32
                           else BF16_ULP * want.float().abs().max().item())
                 ok = max_err <= tol_at
-            _row(rows, failures, f"flash_ablate_{mode}", label,
+            name = "flash_ablate_dots" if mode == "dots" else _probe_name(f"flash_ablate_{mode}",
+                                                                          dtype)
+            _row(rows, failures, name, label,
                  ok and bool(torch.isfinite(got).all()), max_abs_err=max_err, tol=tol_at,
                  ms=cuda_ms(lambda: fp.flash_ablate_t_cuda(q, k, v, mode)),
                  plain_ms=cuda_ms(lambda: fp.flash_ablate_t_reference(q, k, v, mode), reps=3),
@@ -1209,12 +1218,15 @@ def _ablate_cases(g, rows, failures):
 
 def _variant_cases(g, rows, failures):
     """TPU kernel 9's layouts a, b, c and a with pv_bf16 (d) against their
-    plain versions (d with the kernel's 64-key blocks of the running max):
-    bf16 within one output ulp, float32 within 1e-4.  The function is
-    float32 arithmetic (the TPU kernels upcast q, k, v before both
-    products), so a, b and c are bound at the float32 rate; d's PV product
-    takes bf16 p and v (bf16 inputs) at the bf16 rate.  Library call: SDPA
-    on the float32-upcast inputs (a, b, c), SDPA in the inputs' dtype (d)."""
+    plain versions (d with the kernels' 64-key blocks of the running max):
+    bf16 within one output ulp (d on the tensor cores, before the final
+    rounding), float32 within 1e-4.  The TPU kernels upcast q, k, v before
+    both products, but the scale can follow the QK product: with bf16
+    inputs it is a product of bf16 values, bound at the bf16 rate for a, b,
+    c and d alike; PV takes float32 p in a, b and c (the float32 rate), bf16
+    p and v in d (the bf16 rate).  Float32 inputs: both at the float32
+    rate.  Library call: SDPA on the float32-upcast inputs (a, b, c), SDPA
+    in the inputs' dtype (d)."""
     for shape, dtype in VARIANT_SHAPES:
         bh, s, d = shape
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3))
@@ -1232,13 +1244,16 @@ def _variant_cases(g, rows, failures):
             else:
                 kernel = getattr(fp, f"flash_variant_{name}_cuda")
                 plain = getattr(fp, f"flash_variant_{name}_reference")
-            got, want = kernel(q, k, v), plain(q, k, v)
+            got = kernel(q, k, v)
+            want = (_probe_plain(plain, (q, k, v), dtype) if name == "d"
+                    else lambda: plain(q, k, v))()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.float().abs().max().item()
             pv_type = dtype if name == "d" else torch.float32
-            bound_ms, by = bound(nbytes, (product, torch.float32), (product, pv_type))
-            _row(rows, failures, f"flash_variant_{name}",
+            bound_ms, by = bound(nbytes, (product, dtype), (product, pv_type))
+            _row(rows, failures,
+                 _probe_name("flash_variant_d", dtype) if name == "d" else f"flash_variant_{name}",
                  f"flash variant {name} q{list(shape)} {str(dtype)[6:]}",
                  err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
                  ms=cuda_ms(lambda: kernel(q, k, v)), plain_ms=cuda_ms(lambda: plain(q, k, v)),
@@ -1305,10 +1320,10 @@ def _mm_loop_cases(g, rows, failures):
 def phase_probes(rows):
     """Kernels 10, 11, 8, 9 and 12 against their plain versions, then their
     own path: the five probe entry points (``hedit_tpu_torch.probes``), each
-    driven once with the counts at 0 before and read after, and
-    ``flash_nhd_variants`` and ``flash_v4_variants`` once more in float32
-    (``..._f32``: the template's instances of rows 10 and 11, which bf16 no
-    longer reaches).  Returns ({probe: counts}, failures)."""
+    driven once with the counts at 0 before and read after, and the four
+    flash ones once more in float32 (``..._f32``: the template's instances
+    of rows 8 ``exp`` / ``noprolog``, 9 d, 10 and 11, which bf16 no longer
+    reaches).  Returns ({probe: counts}, failures)."""
     from hedit_tpu_torch.probes import (
         flash_ablate, flash_nhd_variants, flash_v4_variants, flash_variants, mm_probe,
     )
@@ -1328,7 +1343,11 @@ def phase_probes(rows):
                       ("flash_v4_variants", flash_v4_variants.run),
                       ("flash_v4_variants_f32",
                        lambda: flash_v4_variants.run(reps=2, dtype=torch.float32)),
-                      ("flash_ablate", flash_ablate.run), ("flash_variants", flash_variants.run),
+                      ("flash_ablate", flash_ablate.run),
+                      ("flash_ablate_f32", lambda: flash_ablate.run(reps=2, dtype=torch.float32)),
+                      ("flash_variants", flash_variants.run),
+                      ("flash_variants_f32",
+                       lambda: flash_variants.run(reps=2, dtype=torch.float32)),
                       ("mm_probe", mm_probe.run)):
         reset_launches()
         t0 = time.perf_counter()
@@ -1337,30 +1356,35 @@ def phase_probes(rows):
         counts[name] = read_launches()
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
         print(f"probe {name} launches: {json.dumps(counts[name])}")
-    # rows 10 and 11: bf16 chains and loops on the tensor cores, float32 ones
-    # on the template, never the other
+    # rows 8 (exp, noprolog), 9 d, 10 and 11: bf16 chains and loops on the
+    # tensor cores, float32 ones on the template, never the other; row 8
+    # dots and rows 9 a-c on the template in both
     tc = tuple(f"flash_{lay}" for lay in fp._LAYOUTS)
     core = tuple(f"{n}_core" for n in tc)
+    ablate_tc = tuple(f"flash_ablate_{m}" for m in fp.ABLATE_TC_MODES)
+    ablate_core = tuple(f"{n}_core" for n in ablate_tc)
+    variants = tuple(f"flash_variant_{v}" for v in "abc")
     for name, launched, idle in (
             ("flash_nhd_variants", tc + ("flash_packed_bounded",), core),
             ("flash_nhd_variants_f32", core + ("flash_packed_bounded_core",), tc),
             ("flash_v4_variants", ("flash_exp2_t", "flash_attention_exact"),
              ("flash_exp2_t_core",)),
             ("flash_v4_variants_f32", ("flash_exp2_t_core", "flash_attention_exact_core"),
-             ("flash_exp2_t",))):
+             ("flash_exp2_t",)),
+            ("flash_ablate", ablate_tc + ("flash_ablate_dots",), ablate_core),
+            ("flash_ablate_f32", ablate_core + ("flash_ablate_dots",), ablate_tc),
+            ("flash_variants", variants + ("flash_variant_d",), ("flash_variant_d_core",)),
+            ("flash_variants_f32", variants + ("flash_variant_d_core",), ("flash_variant_d",)),
+            ("mm_probe", tuple(f"mm_loop_{lay}" for lay in mp.LAYOUTS), ())):
         seen = counts[name]
         if min(seen[n] for n in launched) <= 0 or any(seen[n] for n in idle):
             failures.append(f"{name} launched {({n: seen[n] for n in launched + idle})}: "
                             f"expected each of {launched} and none of {idle}")
-    for probe, kernels in (("flash_ablate", [f"flash_ablate_{m}" for m in fp.ABLATE_MODES]),
-                           ("flash_variants", [f"flash_variant_{v}" for v in "abcd"]),
-                           ("mm_probe", [f"mm_loop_{lay}" for lay in mp.LAYOUTS])):
-        if min(counts[probe][name] for name in kernels) <= 0:
-            failures.append(f"a kernel of {probe} was not launched: {counts[probe]}")
     if not all(r["exact"] for r in results_of["mm_probe"].values()):
         failures.append(f"mm_probe: an all-ones output is not K * 2080: {results_of['mm_probe']}")
-    if not all(results_of["flash_ablate"][m]["finite"] for m in fp.ABLATE_MODES):
-        failures.append(f"flash_ablate: an output is not finite: {results_of['flash_ablate']}")
+    for name in ("flash_ablate", "flash_ablate_f32"):
+        if not all(results_of[name][m]["finite"] for m in fp.ABLATE_MODES):
+            failures.append(f"{name}: an output is not finite: {results_of[name]}")
     torch.cuda.empty_cache()
     return counts, failures
 
@@ -2140,7 +2164,6 @@ def main(argv=None) -> int:
     variants_cu, mm_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
                           "hedit_tpu_torch/csrc/mm_probe.cu")
     gn_cu = "hedit_tpu_torch/csrc/group_norm.cu"
-    variant_lines = {"a": 31, "b": 61, "c": 87, "d": 31}
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
         entry("flash_attention", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
@@ -2176,11 +2199,19 @@ def main(argv=None) -> int:
               "flash_v4_variants"),
         entry("flash_exp2_t_core", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
               "flash_v4_variants_f32"),
-        *(entry(f"flash_ablate_{m}", "cuda", probes_cu, "scripts/flash_ablate.py:34",
-                "flash_ablate") for m in fp.ABLATE_MODES),
+        entry("flash_ablate_dots", "cuda", probes_cu, "scripts/flash_ablate.py:34",
+              "flash_ablate"),
+        *(entry(f"flash_ablate_{m}", "cuda", probes_tc_cu, "scripts/flash_ablate.py:34",
+                "flash_ablate") for m in fp.ABLATE_TC_MODES),
+        *(entry(f"flash_ablate_{m}_core", "cuda", probes_cu, "scripts/flash_ablate.py:34",
+                "flash_ablate_f32") for m in fp.ABLATE_TC_MODES),
         *(entry(f"flash_variant_{v}", "cuda", variants_cu,
                 f"scripts/flash_variants.py:{line}", "flash_variants")
-          for v, line in variant_lines.items()),
+          for v, line in (("a", 31), ("b", 61), ("c", 87))),
+        entry("flash_variant_d", "cuda", probes_tc_cu, "scripts/flash_variants.py:31",
+              "flash_variants"),
+        entry("flash_variant_d_core", "cuda", variants_cu, "scripts/flash_variants.py:31",
+              "flash_variants_f32"),
         *(entry(f"mm_loop_{lay}", "cuda", mm_cu, "scripts/mm_probe.py:37", "mm_probe")
           for lay in mp.LAYOUTS)]}))
     if failures:

@@ -70,8 +70,12 @@ ARGTYPES = {
     "hedit_flash_exp2_t_tc": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, out | bh, sq, sk, d, mode, dtype | stream
     "hedit_flash_ablate_t": [_P] * 4 + [_I] * 6 + [_P],
+    # hedit_flash_ablate_t in bf16 on the tensor cores (modes 1, 2), the same arguments
+    "hedit_flash_ablate_t_tc": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, out | bh, sq, sk, d, variant, dtype | stream
     "hedit_flash_variant": [_P] * 4 + [_I] * 6 + [_P],
+    # hedit_flash_variant in bf16 on the tensor cores (variant 1), the same arguments
+    "hedit_flash_variant_tc": [_P] * 4 + [_I] * 6 + [_P],
     # a, b, o | m, n, k, reps, layout, dtype | stream
     "hedit_mm_loop": [_P] * 3 + [_I] * 6 + [_P],
     # x, w, b, y, partials | batch, hw, c, groups, cb, cluster, pixels, threads,

@@ -1,18 +1,26 @@
-// The bounded and exact-exp2 flash probes in bfloat16 on Hopper's tensor
-// cores (sm_90a), replacing for bf16 inputs the TPU kernels of
-// scripts/flash_nhd_variants.py (entry point hedit_flash_packed_t_tc, the
+// The bounded, exact-exp2, ablation and bf16-PV flash probes in bfloat16 on
+// Hopper's tensor cores (sm_90a), replacing for bf16 inputs the TPU kernels
+// of scripts/flash_nhd_variants.py (entry point hedit_flash_packed_t_tc, the
 // arguments of flash_probes.cu's hedit_flash_packed_t; wrappers
 // flash_packed_t*_cuda in ops/flash_probes.py)
 //   _packed_t_kernel (:93)              q, k, v [BH, S, D]              layout 0
 //   _packed_t_kernel_sminor (:101)      q, k [BH, D, S]; v [BH, S, D]   layout 1
 //   _packed_t_kernel_all_sminor (:136)  q, k, v [BH, D, S]              layout 2
-// and of scripts/flash_v4_variants.py
+// of scripts/flash_v4_variants.py
 //   kern_exp2 (:34)                     q, k, v [BH, S, D], both key loops
 // (entry point hedit_flash_exp2_t_tc, the arguments of flash_probes.cu's
-// hedit_flash_exp2_t; wrapper flash_exp2_t_cuda).  Each writes the
-// transposed output [BH, D, Sq], the same memory as the packed transposed
-// [B, H*D, Sq] the TPU wrappers return.  float32 inputs stay on the
-// CUDA-core template of flash_probes.cu.
+// hedit_flash_exp2_t; wrapper flash_exp2_t_cuda), of scripts/flash_ablate.py
+//   make_kernel("exp"), make_kernel("noprolog") (:34)   q, k, v [BH, S, D]
+// (entry point hedit_flash_ablate_t_tc, the arguments of flash_probes.cu's
+// hedit_flash_ablate_t; wrapper flash_ablate_t_cuda; `dots` stays on the
+// template) and of scripts/flash_variants.py
+//   kern_a(pv_bf16=True) (:31)          q, k, v [BH, S, D], D = 40
+// (entry point hedit_flash_variant_tc, the arguments of flash_variants.cu's
+// hedit_flash_variant; wrapper flash_variant_a_cuda(pv_bf16=True)).  All but
+// the last write the transposed output [BH, D, Sq], the same memory as the
+// packed transposed [B, H*D, Sq] the TPU wrappers return; the last writes
+// [BH, Sq, D].  float32 inputs stay on the CUDA-core templates of
+// flash_probes.cu and flash_variants.cu.
 //
 // The bounded function is the head of flash_probes.cu's: q * scale, the
 // scale rounded to bf16 and the product rounded again; float32 scores;
@@ -28,6 +36,16 @@
 // which max each p is rounded against (kern_exp2 with blk_k = 64).  The
 // tensor cores change only the summation order.
 //
+// The ablations (row 8) are the bounded function without its prologue: q
+// as it is (no scale; the load skips the multiply), the shift a constant
+// (0 for `exp`, 12.34 for `noprolog`), the clamp at 100 for `noprolog`
+// only, the sum floored at 1e-30.  The bf16-PV variant (row 9 d) is the
+// exact function with kern_a's arithmetic: q as it is, each float32 score
+// q.k (products of bf16 values, exact in float32) times c = sm_scale *
+// log2(e) rounded to float32, so that exp2(s c - m) is kern_a's exp(q sm_scale
+// . k - m) up to float32 rounding; the row sum takes p before its rounding,
+// the PV product p rounded to bf16; out = acc / sum, row-major.
+//
 // `pipe` is kern_exp2's software-pipelined loop: the score product of tile
 // t is issued before the softmax and PV of tile t - 1 (a prologue takes
 // tile 0's scores, an epilogue drains the last tile).  Each tile goes
@@ -40,8 +58,9 @@
 // What bounds it on the H100.  At the probes' [16, 8, 4096, 40] and [4, 32,
 // 4096, 40] the work is 4 B H S^2 D = 343.6 GFLOP against 168 MB of q, k, v
 // and out, ~2,000 FLOP a byte: the bound is the tensor cores' 989 TFLOP/s
-// (0.347 ms).  The CUDA-core template reached 24-27 TFLOP/s here (float32
-// FMAs, p through shared memory, one element a thread a load).
+// (0.347 ms); row 9 d's [32, 4096, 40], a quarter of it (0.0869 ms).  The
+// CUDA-core templates reached 24-27 TFLOP/s here (float32 FMAs, p through
+// shared memory, one element a thread a load).
 //
 // Design: flash_attention_tc.cu's forward (a warp owns 16 query rows; d = 40
 // in blocks of 4 warps, contracting the scores over 48; d = 80 in blocks of
@@ -49,35 +68,39 @@
 // bf16 pairs are the A fragments of PV, so p never leaves registers), with
 // the operands where each layout puts them.  ldmatrix's .trans switch
 // absorbs the layouts:
-// - q, row-major (layout 0, row 10): the bounded forward's [BQ][DK + 8]
-//   tile, scaled and rounded, columns D .. DK zero; A fragments (m =
-//   queries, k = d) by plain ldmatrix.  S-minor (layouts 1, 2): the [D, BQ]
-//   slab, D runs of BQ contiguous queries, kept as it lies, [DK][BQ + 8],
-//   rows D .. DK zero; A fragments by ldmatrix.trans.  Read once a block;
+// - q, row-major (layout 0, rows 8, 9 d, 10): the bounded forward's
+//   [BQ][DK + 8] tile, scaled and rounded (or as it is), columns D .. DK
+//   zero; A fragments (m = queries, k = d) by plain ldmatrix.  S-minor
+//   (layouts 1, 2): the [D, BQ] slab, D runs of BQ contiguous queries, kept
+//   as it lies, [DK][BQ + 8], rows D .. DK zero; A fragments by
+//   ldmatrix.trans.  Read once a block;
 // - K, row-major: [BK][DK + 8] ring tiles by 16-byte cp.async runs of 8
 //   contiguous d, columns D .. DK zeroed once; the score product's B
 //   operand (k = d, n = keys) by plain ldmatrix.  S-minor: [DK][BK + 8]
 //   tiles by runs of 8 contiguous keys, rows D .. DK zeroed once; B by
 //   ldmatrix.trans (S-minor K is to the scores what row-major V is to PV);
-// - V, row-major (layouts 0, 1, row 10): the bounded forward's [BK][DK + 8]
+// - V, row-major (all but layout 2): the bounded forward's [BK][DK + 8]
 //   tile and ldmatrix.trans; S-minor (layout 2): a [D][BK + 8] tile read by
 //   plain ldmatrix, since S-minor V is already the col layout of PV's B
 //   operand (k = keys, n = d);
-// - out: acc / sum, rounded to bf16, staged transposed as [D][BQ + 8] over
-//   q's tile (read only into registers before the key loops), then stored
+// - out: acc / sum, rounded to bf16, staged over q's tile (read only into
+//   registers before the key loops): transposed as [D][BQ + 8], then stored
 //   as D runs of BQ contiguous queries, 16 bytes a thread, into
-//   out[bh][c][q0 + r].
-// Shared rows of BQ + 8, BK + 8 or DK + 8 elements (144, 272, 112 or 176
-// bytes) put the eight rows of each 8 x 8 ldmatrix on distinct 16-byte bank
-// groups.  The loaders' index math divides only by compile-time constants.
-// Sq is a multiple of 64 and the d = 80 block holds 128 rows: the last block
-// of an image may hold 64 rows past Sq, read as zeros and never stored.
+//   out[bh][c][q0 + r]; row 9 d row-major as [BQ][D + 8], then stored as the
+//   block's one contiguous run of BQ x D elements, 16 bytes a thread.
+// Shared rows of BQ + 8, BK + 8, D + 8 or DK + 8 elements (144, 272, 96, 112
+// or 176 bytes) put the eight rows of each 8 x 8 ldmatrix on distinct
+// 16-byte bank groups.  The loaders' index math divides only by
+// compile-time constants.  Sq is a multiple of 64 and the d = 80 block holds
+// 128 rows: the last block of an image may hold 64 rows past Sq, read as
+// zeros and never stored.
 //
-// Contract: bf16 only (dtype 1); D 40 or 80; every operand a dense image
-// per (batch, head), 16-byte aligned; Sq and Sk multiples of 64 (the probes
-// cover whole blocks and mask no key); for the bounded probes layout 0, 1
-// or 2 and the anchor a multiple of 64 that divides Sk; for row 10 pipe 0
-// or 1.  Anything else returns -1.
+// Contract: bf16 only (dtype 1); D 40 or 80 (row 9 d: 40); every operand a
+// dense image per (batch, head), 16-byte aligned; Sq and Sk multiples of 64
+// (the probes cover whole blocks and mask no key); for the bounded probes
+// layout 0, 1 or 2 and the anchor a multiple of 64 that divides Sk; for row
+// 10 pipe 0 or 1; for row 8 mode 1 (exp) or 2 (noprolog); for row 9 variant
+// 1 (d).  Anything else returns -1.
 
 #include <climits>
 #include <cmath>
@@ -93,16 +116,28 @@ constexpr float kShiftMargin = 16.f;   // shift = anchor max + 16 (base 2)
 constexpr float kSaturate = 100.f;     // p = exp2(min(s - shift, 100))
 constexpr float kDenomFloor = 1.2e-38f;
 constexpr float kNegInf = -1e30f;      // kern_exp2's first running max
+constexpr float kAblateFloor = 1e-30f;  // flash_ablate.py's floor of the sum
+constexpr float kAblateShift = 12.34f;  // flash_ablate.py's constant shift (noprolog)
 constexpr int BK = 64;                 // keys a tile; Sk and the anchor are multiples of it
 
 // The probe a kernel instance computes; see the head of this file.
-enum class Op { PackedT, PackedTSMinor, PackedTAllSMinor, Exp2, Exp2Pipe };
+enum class Op {
+  PackedT, PackedTSMinor, PackedTAllSMinor, Exp2, Exp2Pipe, AblateExp, AblateNoProlog, VariantBf16PV
+};
 
 template <Op P>
 struct OpTraits {
   static constexpr bool qk_sminor = P == Op::PackedTSMinor || P == Op::PackedTAllSMinor;
   static constexpr bool v_sminor = P == Op::PackedTAllSMinor;
-  static constexpr bool exact = P == Op::Exp2 || P == Op::Exp2Pipe;
+  static constexpr bool ablate = P == Op::AblateExp || P == Op::AblateNoProlog;
+  static constexpr bool variant = P == Op::VariantBf16PV;
+  static constexpr bool exact = P == Op::Exp2 || P == Op::Exp2Pipe || variant;  // running max
+  static constexpr bool anchored = !exact && !ablate;   // the prologue finds the shift
+  static constexpr bool scale_q = !ablate && !variant;  // q * scale rounded on its load
+  static constexpr bool clamp = !exact && P != Op::AblateExp;  // exp2(min(s - shift, 100))
+  static constexpr float const_shift = P == Op::AblateNoProlog ? kAblateShift : 0.f;  // ablations
+  static constexpr float denom_floor = ablate ? kAblateFloor : kDenomFloor;  // not exact
+  static constexpr bool row_out = variant;  // out [BH, Sq, D], else [BH, D, Sq]
   static constexpr bool pipe = P == Op::Exp2Pipe;
   static constexpr int stages = pipe ? 3 : 2;  // K / V ring depth
 };
@@ -117,11 +152,12 @@ struct ProbeTile {
   static constexpr int QS = Tr::qk_sminor ? BQ + 8 : DK + 8;  // q: [DK][BQ] or [BQ][DK]
   static constexpr int KS = Tr::qk_sminor ? BK + 8 : DK + 8;  // K: [DK][BK] or [BK][DK]
   static constexpr int VS = Tr::v_sminor ? BK + 8 : DK + 8;   // V: [D][BK] or [BK][DK]
-  static constexpr int OS = BQ + 8;              // the staged output [D][BQ]
+  static constexpr int OS = Tr::row_out ? D + 8 : BQ + 8;  // staged out [BQ][D] or [D][BQ]
   static constexpr int NT = BK / 8;              // score n-tiles of a key tile
   static constexpr int NO = D / 8;               // output n-tiles
   static constexpr int q_tile = Tr::qk_sminor ? DK * QS : BQ * QS;
-  static constexpr int q_elems = q_tile > D * OS ? q_tile : D * OS;  // q, then the output
+  static constexpr int o_elems = Tr::row_out ? BQ * OS : D * OS;
+  static constexpr int q_elems = q_tile > o_elems ? q_tile : o_elems;  // q, then the output
   static constexpr int k_elems = Tr::qk_sminor ? DK * KS : BK * KS;  // one stage
   static constexpr int v_elems = Tr::v_sminor ? D * VS : BK * VS;
   static_assert(D % 8 == 0 && BQ % 8 == 0, "tile does not fit the mma shapes");
@@ -146,7 +182,7 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // q * scale: [DK][QS] or [BQ][QS]
   bf16* k_s = q_s + C::q_elems;                   // [S] x (k^T [DK][KS] or k [BK][KS])
   bf16* v_s = k_s + S * C::k_elems;               // [S] x (v^T [D][VS] or v [BK][VS])
-  bf16* o_s = q_s;                                // [D][OS]: the output, staged over q's tile
+  bf16* o_s = q_s;                                // [BQ][OS] or [D][OS]: the output over q's tile
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // the mma fragments' row group and column pair
@@ -156,15 +192,18 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vg = v + size_t(bh) * D * sk;
 
   // q * scale rounded to bf16 (the scale itself rounded first), as the TPU
-  // kernels scale q; queries past Sq and the contraction's pad are 0
+  // kernels scale q, or q as it is (rows 8, 9 d); queries past Sq and the
+  // contraction's pad are 0
   const float qsc = __bfloat162float(__float2bfloat16(qscale));
   auto scaled = [&](const bf16* src, bool ok) {
     uint4 x = make_uint4(0, 0, 0, 0);
     if (ok) {
       x = *reinterpret_cast<const uint4*>(src);
-      bf16* xe = reinterpret_cast<bf16*>(&x);
+      if constexpr (Tr::scale_q) {
+        bf16* xe = reinterpret_cast<bf16*>(&x);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) xe[i] = __float2bfloat16(__bfloat162float(xe[i]) * qsc);
+        for (int i = 0; i < 8; ++i) xe[i] = __float2bfloat16(__bfloat162float(xe[i]) * qsc);
+      }
     }
     return x;
   };
@@ -293,9 +332,11 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // what each row's scores are shifted by before exp2: bounded, the anchor
-  // window's max + 16 (the prologue); exact, the running max
-  float shift[2] = {Tr::exact ? kNegInf : -CUDART_INF_F, Tr::exact ? kNegInf : -CUDART_INF_F};
-  if constexpr (!Tr::exact) {
+  // window's max + 16 (the prologue); exact, the running max; the
+  // ablations, their constant
+  const float shift0 = Tr::exact ? kNegInf : Tr::ablate ? Tr::const_shift : -CUDART_INF_F;
+  float shift[2] = {shift0, shift0};
+  if constexpr (Tr::anchored) {
     tile_loop(anchor, false, [&](int j) {
       float s[NT][4];
       scores(j % S, s);
@@ -322,6 +363,12 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // moves over the tile and rescales the sums), the row sums, and acc += p v
   // from V's stage `stage`
   auto softmax_pv = [&](float (&s)[NT][4], int stage) {
+    if constexpr (Tr::variant) {  // the float32 scores times c, each rounded once
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], qscale);
+    }
     if constexpr (Tr::exact) {
       float mx[2] = {shift[0], shift[1]};
 #pragma unroll
@@ -353,11 +400,11 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float d0 = s[j][2 * r] - shift[r], d1 = s[j][2 * r + 1] - shift[r];
-          const __nv_bfloat162 pb =
-              Tr::exact ? __floats2bfloat162_rn(exp2f(d0), exp2f(d1))
-                        : __floats2bfloat162_rn(exp2f(fminf(d0, kSaturate)),
-                                                exp2f(fminf(d1, kSaturate)));
-          l[r] += __low2float(pb) + __high2float(pb);
+          const float p0 = Tr::clamp ? exp2f(fminf(d0, kSaturate)) : exp2f(d0);
+          const float p1 = Tr::clamp ? exp2f(fminf(d1, kSaturate)) : exp2f(d1);
+          const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+          // the row sum of the rounded p (row 9 d: of p before its rounding)
+          l[r] += Tr::variant ? p0 + p1 : __low2float(pb) + __high2float(pb);
           a[hh * 2 + r] = *reinterpret_cast<const unsigned*>(&pb);
         }
       }
@@ -420,31 +467,47 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     });
   }
 
-  // out = acc / sum (bounded: the sum floored; exact: the row's max key
-  // added p = 1), rounded once, staged transposed in o_s (the key loops
+  // out = acc / sum (bounded and ablations: the sum floored; exact: the
+  // row's max key added p = 1), rounded once, staged in o_s (the key loops
   // ended on a barrier, and q's tile was last read before them): element
-  // (row g + 8r, column n*8 + 2t + e) to o_s[column][row]
+  // (row g + 8r, column n*8 + 2t + e) to o_s[column][row], or row-major to
+  // o_s[row][column]
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float den = Tr::exact ? l[r] : fmaxf(l[r], kDenomFloor);
+    const float den = Tr::exact ? l[r] : fmaxf(l[r], Tr::denom_floor);
     const int row = warp * 16 + g + 8 * r;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      o_s[(n * 8 + 2 * t) * OS + row] = __float2bfloat16(o[n][2 * r] / den);
-      o_s[(n * 8 + 2 * t + 1) * OS + row] = __float2bfloat16(o[n][2 * r + 1] / den);
+      if constexpr (Tr::row_out) {
+        *reinterpret_cast<__nv_bfloat162*>(o_s + row * OS + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(o[n][2 * r] / den, o[n][2 * r + 1] / den);
+      } else {
+        o_s[(n * 8 + 2 * t) * OS + row] = __float2bfloat16(o[n][2 * r] / den);
+        o_s[(n * 8 + 2 * t + 1) * OS + row] = __float2bfloat16(o[n][2 * r + 1] / den);
+      }
     }
   }
   __syncthreads();
-  // D runs of BQ contiguous queries into out[bh][c][q0 ..]; queries past Sq
-  // (the last d = 80 block's second half) are not stored
+  // queries past Sq (the last d = 80 block's second half) are not stored
   bf16* og = out + size_t(bh) * D * sq;
-  for (int e = tid; e < D * QCH; e += NTH) {
-    const int c = e / QCH, r = (e - c * QCH) * 8;
-    if (q0 + r < sq)
-      *reinterpret_cast<uint4*>(og + c * sq + q0 + r) =
-          *reinterpret_cast<const uint4*>(o_s + c * OS + r);
+  if constexpr (Tr::row_out) {
+    // the block's rows q0 .. q0 + BQ of out[bh]: one run of BQ x D elements
+    for (int e = tid; e < BQ * CH; e += NTH) {
+      const int r = e / CH, c = e - r * CH;
+      if (q0 + r < sq)
+        *reinterpret_cast<uint4*>(og + (q0 + r) * D + c * 8) =
+            *reinterpret_cast<const uint4*>(o_s + r * OS + c * 8);
+    }
+  } else {
+    // D runs of BQ contiguous queries into out[bh][c][q0 ..]
+    for (int e = tid; e < D * QCH; e += NTH) {
+      const int c = e / QCH, r = (e - c * QCH) * 8;
+      if (q0 + r < sq)
+        *reinterpret_cast<uint4*>(og + c * sq + q0 + r) =
+            *reinterpret_cast<const uint4*>(o_s + c * OS + r);
+    }
   }
 }
 
@@ -458,7 +521,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
-  // JAX's constant, (1 / sqrt(d)) * log2(e) in double, then rounded
+  // JAX's constant, (1 / sqrt(d)) * log2(e) in double, then rounded: q's
+  // scale (rounded to bf16 in the kernel), or row 9 d's score factor c
   const float qscale = float(1.0 / sqrt(double(D)) * 1.4426950408889634);
   kernel<<<grid, C::kThreadsTc, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -479,20 +543,28 @@ bool takes(const void* q, const void* k, const void* v, void* out, int bh, int s
 }
 
 // The launch lines, chosen by probes/flash_probe_tiles.py (which builds
-// this file with -DEXP2_MINB_40=n to time other budgets): d = 40 in blocks
-// of 4 warps, the bounded probes 5 an SM (96 registers), the exact ones 4
-// (128: the pipelined loop's two score fragments fit without a spill, and
-// the plain loop took 2% less time than at 5); d = 80 in blocks of 8 warps,
-// 2 an SM (128 registers; the pipelined loop 1, 178 registers).
+// this file with -DEXP2_MINB_40=n or -DABLATE_MINB_40=n to time other
+// budgets): d = 40 in blocks of 4 warps, the bounded probes and the
+// ablations 5 an SM (96 registers), the exact ones and row 9 d 4 (128: the
+// pipelined loop's two score fragments fit without a spill, and the plain
+// loop took 2% less time than at 5); d = 80 in blocks of 8 warps, 2 an SM
+// (128 registers; the pipelined loop 1, 178 registers).
 #ifndef EXP2_MINB_40
 #define EXP2_MINB_40 4
 #endif
+#ifndef ABLATE_MINB_40
+#define ABLATE_MINB_40 5
+#endif
+template <Op P>
+constexpr int kMinBlocks40 =
+    OpTraits<P>::exact ? EXP2_MINB_40 : OpTraits<P>::ablate ? ABLATE_MINB_40 : 5;
+
 template <Op P>
 int launch_d(const void* q, const void* k, const void* v, void* out, int bh, int sq, int sk,
              int d, int anchor, cudaStream_t s) {
   using Tr = OpTraits<P>;
   switch (d) {
-    case 40: return int(launch<40, 4, Tr::exact ? EXP2_MINB_40 : 5, P>(q, k, v, out, bh, sq, sk, anchor, s));
+    case 40: return int(launch<40, 4, kMinBlocks40<P>, P>(q, k, v, out, bh, sq, sk, anchor, s));
     case 80: return int(launch<80, 8, Tr::pipe ? 1 : 2, P>(q, k, v, out, bh, sq, sk, anchor, s));
     default: return -1;
   }
@@ -530,4 +602,30 @@ extern "C" int hedit_flash_exp2_t_tc(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return pipe ? launch_d<Op::Exp2Pipe>(q, k, v, out, bh, sq, sk, d, 0, s)
               : launch_d<Op::Exp2>(q, k, v, out, bh, sq, sk, d, 0, s);
+}
+
+// Row 8 in bf16, the arguments of flash_probes.cu's hedit_flash_ablate_t:
+// q, k, v [BH, S, D] -> out [BH, D, Sq]; mode 1 exp, 2 noprolog (0, dots,
+// stays on the template).
+extern "C" int hedit_flash_ablate_t_tc(const void* q, const void* k, const void* v, void* out,
+                                       int bh, int sq, int sk, int d, int mode, int dtype,
+                                       void* stream) {
+  if (!takes(q, k, v, out, bh, sq, sk, d, dtype)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 1: return launch_d<Op::AblateExp>(q, k, v, out, bh, sq, sk, d, 0, s);
+    case 2: return launch_d<Op::AblateNoProlog>(q, k, v, out, bh, sq, sk, d, 0, s);
+    default: return -1;
+  }
+}
+
+// Row 9 d in bf16, the arguments of flash_variants.cu's hedit_flash_variant:
+// q, k, v [BH, S, D] -> out [BH, Sq, D]; variant 1 (kern_a with pv_bf16) at
+// D = 40 only (variants 0, 2 and 3 stay on the template).
+extern "C" int hedit_flash_variant_tc(const void* q, const void* k, const void* v, void* out,
+                                      int bh, int sq, int sk, int d, int variant_code, int dtype,
+                                      void* stream) {
+  if (!takes(q, k, v, out, bh, sq, sk, d, dtype) || d != 40 || variant_code != 1) return -1;
+  return int(launch<40, 4, kMinBlocks40<Op::VariantBf16PV>, Op::VariantBf16PV>(
+      q, k, v, out, bh, sq, sk, 0, static_cast<cudaStream_t>(stream)));
 }

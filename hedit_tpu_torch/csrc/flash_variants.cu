@@ -34,8 +34,10 @@
 //   contracts the key axis into the transposed accumulator of b.
 //
 // Contract: q [BH, Sq, D], k and v [BH, Sk, D], contiguous, one dtype
-// (float32 or bfloat16); D = 40 (the probe's head dim); Sq and Sk multiples
-// of the 64-row tile (the TPU grid covers whole blocks; nothing is masked).
+// (float32 or bfloat16; kern_a with pv_bf16 float32 only, bf16 on the
+// tensor cores: hedit_flash_variant_tc in flash_probes_tc.cu); D = 40 (the
+// probe's head dim); Sq and Sk multiples of the 64-row tile (the TPU grid
+// covers whole blocks; nothing is masked).
 //
 // What bounds it: all of it is float32 arithmetic on the CUDA cores, 4 BH
 // Sq Sk D FLOP against 67 TFLOP/s (the function's own rate: the TPU kernels
@@ -314,14 +316,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 template <Variant V>
 int variant(const void* q, const void* k, const void* v, void* out, int bh, int sq, int sk,
             int dtype, cudaStream_t stream) {
-  return int(dtype ? launch<__nv_bfloat16, V>(q, k, v, out, bh, sq, sk, stream)
-                   : launch<float, V>(q, k, v, out, bh, sq, sk, stream));
+  if constexpr (V == Variant::ABf16PV) {  // bf16: flash_probes_tc.cu
+    if (dtype) return -1;
+    return int(launch<float, V>(q, k, v, out, bh, sq, sk, stream));
+  } else {
+    return int(dtype ? launch<__nv_bfloat16, V>(q, k, v, out, bh, sq, sk, stream)
+                     : launch<float, V>(q, k, v, out, bh, sq, sk, stream));
+  }
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes.  variant: 0 kern_a, 1 kern_a with
-// pv_bf16, 2 kern_b, 3 kern_c; dtype: 0 float32, 1 bfloat16.  out is
+// pv_bf16 (float32 only; bf16: hedit_flash_variant_tc), 2 kern_b, 3
+// kern_c; dtype: 0 float32, 1 bfloat16.  out is
 // [BH, Sq, D] for variants 0 and 1, [BH, D, Sq] for 2 and 3.  Returns 0 on
 // success, a cudaError_t code from the launch, or -1 for arguments the
 // kernel does not take.

@@ -28,7 +28,9 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   bounded loop cut down to its floor (``make_kernel(mode)``): q unscaled, no
   prologue, p = s (``dots``), exp2(s) (``exp``) or exp2(min(s - 12.34, 100))
   (``noprolog``) rounded to the input dtype, the sum of p floored at 1e-30,
-  a ``[B*H, D, Sq]`` output (``csrc/flash_probes.cu``).
+  a ``[B*H, D, Sq]`` output.  bf16 ``exp`` and ``noprolog`` on the tensor
+  cores (``csrc/flash_probes_tc.cu``, ``ablate_entry``), ``dots`` and
+  float32 on the template (``csrc/flash_probes.cu``).
 
 * ``scripts/flash_variants.py``: exact forwards entirely in float32 on the
   script's ``[B*H, S, D]`` operands, in three layouts
@@ -36,7 +38,8 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
 
   - ``flash_variant_a_cuda``: ``[Sq, D]`` accumulator and output
     (``kern_a``); ``pv_bf16=True`` rounds p to bf16 for the PV product (the
-    script's ``d_bf16pv``);
+    script's ``d_bf16pv``), in bf16 on the tensor cores
+    (``csrc/flash_probes_tc.cu``, ``variant_entry``);
   - ``flash_variant_b_cuda``: a transposed ``[D, Sq]`` accumulator and
     output (``kern_b``);
   - ``flash_variant_c_cuda``: key-major scores, softmax down the key axis,
@@ -78,14 +81,20 @@ launches_exp2_t_tc = 0                # the same in bf16 on the tensor cores
 launches_ablate_dots = 0
 launches_ablate_exp = 0
 launches_ablate_noprolog = 0
+launches_ablate_exp_tc = 0            # the same two in bf16 on the tensor cores
+launches_ablate_noprolog_tc = 0
 launches_variant_a = 0
 launches_variant_d = 0      # kern_a with pv_bf16 (the script's d_bf16pv)
+launches_variant_d_tc = 0   # the same in bf16 on the tensor cores
 launches_variant_b = 0
 launches_variant_c = 0
 
 PROBE_HEAD_DIMS = (40, 80)
 VARIANT_HEAD_DIM = 40       # flash_variants.py's D; the only one its kernel takes
 ABLATE_MODES = ("dots", "exp", "noprolog")
+# the ablations bf16 runs on the tensor cores; `dots` stays on the template,
+# whose order of the score sums its check needs (ablate_dots_tolerance)
+ABLATE_TC_MODES = ("exp", "noprolog")
 ABLATE_FLOOR = 1e-30        # flash_ablate.py's floor of the sum of p
 _ABLATE_SHIFT = 12.34       # flash_ablate.py's constant shift (noprolog)
 _CHUNK_SCORES = 2 ** 28     # float32 scores a chunk of the plain versions holds (1 GiB)
@@ -200,15 +209,13 @@ def _check_cuda(q, k, v, b, h, d, what: str) -> None:
         raise ValueError(f"{what}: q, k, v must be contiguous")
 
 
-def _tc_or_template(dtype: torch.dtype, template: str, what: str) -> str:
+def _tc_or_template(dtype: torch.dtype, template: str, what: str, tc: bool = True) -> str:
     """``template``'s tensor-core twin (``csrc/flash_probes_tc.cu``) for
-    bfloat16, ``template`` itself (``csrc/flash_probes.cu``) for float32;
-    raises for any other dtype."""
-    if dtype == torch.bfloat16:
-        return f"{template}_tc"
-    if dtype == torch.float32:
-        return template
-    raise ValueError(f"{what} take float32 or bfloat16, got {dtype}")
+    bfloat16 where ``tc``, ``template`` itself (the CUDA-core template)
+    otherwise; raises for a dtype other than float32 and bfloat16."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} take float32 or bfloat16, got {dtype}")
+    return f"{template}_tc" if tc and dtype == torch.bfloat16 else template
 
 
 def probe_entry(dtype: torch.dtype, layout: str) -> str:
@@ -227,6 +234,40 @@ def exp2_entry(dtype: torch.dtype) -> str:
     return _tc_or_template(dtype, "hedit_flash_exp2_t", "the exact exp2 probe")
 
 
+def ablate_entry(dtype: torch.dtype, mode: str) -> str:
+    """The CUDA entry point of the ablation ``mode`` for an input of
+    ``dtype``: bfloat16 ``ABLATE_TC_MODES`` the tensor-core kernel, ``dots``
+    and every float32 mode the template.  Raises for any other dtype or
+    mode."""
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
+    return _tc_or_template(dtype, "hedit_flash_ablate_t", "the ablations",
+                           tc=mode in ABLATE_TC_MODES)
+
+
+def variant_entry(dtype: torch.dtype, name: str) -> str:
+    """The CUDA entry point of variant ``name`` (``a``-``d``) for an input
+    of ``dtype``: bfloat16 ``d`` the tensor-core kernel, the rest the
+    template (``csrc/flash_variants.cu``).  Raises for any other dtype or
+    name."""
+    if name not in _VARIANTS:
+        raise ValueError(f"variant must be one of {tuple(_VARIANTS)}, not {name!r}")
+    return _tc_or_template(dtype, "hedit_flash_variant", "the variants", tc=name == "d")
+
+
+def _launch_probe(entry: str, counter: str, q: torch.Tensor, pointers, ints, d: int,
+                  strides) -> None:
+    """Launch probe entry point ``entry`` on ``pointers`` (q, k, v, out) and
+    count it in ``counter``, or in ``counter + "_tc"`` for a tensor-core
+    entry, whose operands must first pass ``check_tc_operands`` (dense
+    images: the element ``strides`` are multiples of S, itself of TILE)."""
+    tc = entry.endswith("_tc")
+    if tc:
+        check_tc_operands(d, [t.data_ptr() for t in pointers], strides)
+    _launch(entry, q, pointers, ints)
+    globals()[counter + "_tc" if tc else counter] += 1
+
+
 def _bounded_probe(q, k, v, anchor: int, layout: str) -> torch.Tensor:
     what = f"flash_{layout}_cuda"
     code, sminor = _LAYOUTS[layout]
@@ -238,12 +279,8 @@ def _bounded_probe(q, k, v, anchor: int, layout: str) -> torch.Tensor:
         return _bounded_probe_reference(q, k, v, anchor, layout)
     _check_cuda(q, k, v, b, h, d, what)
     out = torch.empty((b, h * d, sq), dtype=q.dtype, device=q.device)
-    entry = probe_entry(q.dtype, layout)
-    tc = entry.endswith("_tc")
-    if tc:  # dense images: the element strides are multiples of S, itself of TILE
-        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq, sk])
-    _launch(entry, q, (q, k, v, out), (b * h, sq, sk, d, anchor, code))
-    globals()[f"launches_{layout}_tc" if tc else f"launches_{layout}"] += 1
+    _launch_probe(probe_entry(q.dtype, layout), f"launches_{layout}", q, (q, k, v, out),
+                  (b * h, sq, sk, d, anchor, code), d, [sq, sk])
     return out
 
 
@@ -281,12 +318,8 @@ def flash_exp2_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_exp2_t_reference(q, k, v)
     _check_cuda(q, k, v, b, h, d, "flash_exp2_t_cuda")
     out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
-    entry = exp2_entry(q.dtype)
-    tc = entry.endswith("_tc")
-    if tc:  # dense images: the element strides are multiples of S, itself of TILE
-        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq, sk])
-    _launch(entry, q, (q, k, v, out), (b * h, sq, sk, d, int(bool(pipe))))
-    globals()["launches_exp2_t_tc" if tc else "launches_exp2_t"] += 1
+    _launch_probe(exp2_entry(q.dtype), "launches_exp2_t", q, (q, k, v, out),
+                  (b * h, sq, sk, d, int(bool(pipe))), d, [sq, sk])
     return out
 
 
@@ -329,16 +362,17 @@ def _ablate_rows(q, k, v, mode: str):
 
 
 def flash_ablate_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             mode: str) -> torch.Tensor:
+                             mode: str, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of ``make_kernel(mode)``: q, k, v [B, H, S, D] -> [B*H,
-    D, Sq] in q's dtype.  Scores of the unscaled q in float32 (summed over D
-    in the kernel's order), p of ``mode`` rounded to the input dtype,
+    D, Sq] in q's dtype, or in ``out_dtype`` (float32: the output before its
+    final rounding).  Scores of the unscaled q in float32 (summed over D in
+    the template's order), p of ``mode`` rounded to the input dtype,
     out = (p v) / max(sum(p), 1e-30)."""
     b, h, sq, d = q.shape
-    out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
+    out = torch.empty((b * h, d, sq), dtype=out_dtype or q.dtype, device=q.device)
     for rows, _, p, vf in _ablate_rows(q, k, v, mode):
         den = torch.clamp(p.sum(dim=-1, keepdim=True), min=ABLATE_FLOOR)
-        out[rows] = (torch.matmul(p, vf) / den).to(q.dtype).transpose(-1, -2)
+        out[rows] = (torch.matmul(p, vf) / den).to(out.dtype).transpose(-1, -2)
     return out
 
 
@@ -401,7 +435,8 @@ def ablate_dots_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_ablate_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mode: str) -> torch.Tensor:
     """``make_kernel(mode)``: q, k, v [B, H, S, D] -> [B*H, D, Sq]; ``mode``
-    one of ``ABLATE_MODES``."""
+    one of ``ABLATE_MODES``.  bf16 ``exp`` and ``noprolog`` run on the
+    tensor cores, the rest on the template (``ablate_entry``)."""
     if mode not in ABLATE_MODES:
         raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
     b, h, sq, sk, d = _dims(q, k, v, (False, False, False), "flash_ablate_t_cuda")
@@ -409,29 +444,29 @@ def flash_ablate_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_ablate_t_reference(q, k, v, mode)
     _check_cuda(q, k, v, b, h, d, "flash_ablate_t_cuda")
     out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
-    _launch("hedit_flash_ablate_t", q, (q, k, v, out),
-            (b * h, sq, sk, d, ABLATE_MODES.index(mode)))
-    globals()[f"launches_ablate_{mode}"] += 1
+    _launch_probe(ablate_entry(q.dtype, mode), f"launches_ablate_{mode}", q, (q, k, v, out),
+                  (b * h, sq, sk, d, ABLATE_MODES.index(mode)), d, [sq, sk])
     return out
 
 
-def _exact_f32(q, k, v, pv_bf16: bool, blk_k: int) -> torch.Tensor:
-    """q, k, v [BH, S, D] -> [BH, Sq, D] in q's dtype: ``kern_a``'s exact
-    softmax in float32 (q upcast and times sm_scale, not rounded).  Without
-    ``pv_bf16`` one softmax over all keys (the key blocks move it by
-    rounding only); with it the loop over ``blk_k``-key blocks of the running
-    max, p rounded to bf16 for the PV product and unrounded in the sum."""
+def _exact_f32(q, k, v, pv_bf16: bool, blk_k: int, out_dtype=None) -> torch.Tensor:
+    """q, k, v [BH, S, D] -> [BH, Sq, D] in q's dtype (or ``out_dtype``):
+    ``kern_a``'s exact softmax in float32 (q upcast and times sm_scale, not
+    rounded).  Without ``pv_bf16`` one softmax over all keys (the key blocks
+    move it by rounding only); with it the loop over ``blk_k``-key blocks of
+    the running max, p rounded to bf16 for the PV product and unrounded in
+    the sum."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     scale = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32)
-    out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((bh, sq, d), dtype=out_dtype or q.dtype, device=q.device)
     for rows in _chunks(bh, sq, sk):
         qs = q[rows].float() * scale
         if not pv_bf16:
             s = torch.matmul(qs, k[rows].float().transpose(-1, -2))
             p = torch.exp(s - torch.clamp(s.amax(dim=-1, keepdim=True), min=_NEG_INF))
             out[rows] = (torch.matmul(p, v[rows].float()) / p.sum(dim=-1, keepdim=True)
-                         ).to(q.dtype)
+                         ).to(out.dtype)
             continue
         m = torch.full((qs.shape[0], sq, 1), _NEG_INF, device=q.device)
         denom = torch.zeros_like(m)
@@ -445,17 +480,19 @@ def _exact_f32(q, k, v, pv_bf16: bool, blk_k: int) -> torch.Tensor:
             acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(),
                                              v[rows, k0:k0 + blk_k].float())
             m = m_new
-        out[rows] = (acc / denom).to(q.dtype)
+        out[rows] = (acc / denom).to(out.dtype)
     return out
 
 
 def flash_variant_a_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              pv_bf16: bool = False, blk_k: int = TILE) -> torch.Tensor:
+                              pv_bf16: bool = False, blk_k: int = TILE,
+                              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of ``kern_a``: q, k, v [BH, S, D] -> [BH, Sq, D] in q's
-    dtype.  ``blk_k`` is the key block of the running max, which decides the
-    point p is rounded against with ``pv_bf16``: the CUDA kernel's 64-key
+    dtype, or in ``out_dtype`` (float32: the output before its final
+    rounding).  ``blk_k`` is the key block of the running max, which decides
+    the point p is rounded against with ``pv_bf16``: the CUDA kernels' 64-key
     tile by default, the TPU kernel's ``BLK_K`` is 512."""
-    return _exact_f32(q, k, v, pv_bf16, blk_k)
+    return _exact_f32(q, k, v, pv_bf16, blk_k, out_dtype)
 
 
 def flash_variant_b_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -496,16 +533,17 @@ def _variant(q, k, v, name: str) -> torch.Tensor:
         raise ValueError(f"{what}: q, k, v must be contiguous")
     out = torch.empty((bh, d, sq) if transposed else (bh, sq, d), dtype=q.dtype,
                       device=q.device)
-    _launch("hedit_flash_variant", q, (q, k, v, out), (bh, sq, sk, d, code))
-    globals()[f"launches_variant_{name}"] += 1
+    _launch_probe(variant_entry(q.dtype, name), f"launches_variant_{name}", q, (q, k, v, out),
+                  (bh, sq, sk, d, code), d, [sq, sk])
     return out
 
 
 def flash_variant_a_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pv_bf16: bool = False) -> torch.Tensor:
-    """``kern_a``: q, k, v [BH, S, D] -> [BH, Sq, D].  The kernel moves its
-    running max once a 64-key tile: its plain version is
-    ``flash_variant_a_reference`` with its default block."""
+    """``kern_a``: q, k, v [BH, S, D] -> [BH, Sq, D].  The kernels move their
+    running max once a 64-key tile: the plain version is
+    ``flash_variant_a_reference`` with its default block.  bf16 with
+    ``pv_bf16`` runs on the tensor cores (``variant_entry``)."""
     return _variant(q, k, v, "d" if pv_bf16 else "a")
 
 

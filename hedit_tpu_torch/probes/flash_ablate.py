@@ -10,6 +10,11 @@ transposed ``[B*H, D, S]`` output from q, k, v with q unscaled:
 * noprolog: p = exp2(min(s - 12.34, 100)), the bounded loop without the
   prologue that finds each row's shift.
 
+In bf16 ``exp`` and ``noprolog`` run on the tensor cores
+(``csrc/flash_probes_tc.cu``), ``dots`` on the CUDA-core template
+(``csrc/flash_probes.cu``); ``run(dtype=torch.float32)`` runs all three in
+float32 on the template.
+
 Inputs are drawn as the script draws them (numpy ``RandomState(seed)``: q
 and k times 0.05, so that exp2(s) stays finite, v unit normal).  The
 script's fourth run repeats ``dots`` with 1024 x 1024 blocks, a VMEM tiling
@@ -39,18 +44,18 @@ NO_COUNTERPART = ("dots with 1024 x 1024 blocks sets the TPU kernel's VMEM tilin
                   "the CUDA kernel's tiles are its own (64 x 64): no counterpart")
 
 
-def make_inputs(seed: int = 0, device="cuda"):
-    """q, k, v [B, H, S, D] bfloat16 from numpy ``RandomState(seed)``: q and
-    k scaled by 0.05, v unit normal."""
+def make_inputs(seed: int = 0, device="cuda", dtype=torch.bfloat16):
+    """q, k, v [B, H, S, D] in ``dtype`` from numpy ``RandomState(seed)``: q
+    and k scaled by 0.05, v unit normal."""
     rng = np.random.RandomState(seed)
     arrays = [rng.randn(B, H, S, D) * 0.05, rng.randn(B, H, S, D) * 0.05, rng.randn(B, H, S, D)]
-    return [torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16) for a in arrays]
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype) for a in arrays]
 
 
-def run(seed: int = 0, reps: int = 10) -> Dict[str, object]:
+def run(seed: int = 0, reps: int = 10, dtype=torch.bfloat16) -> Dict[str, object]:
     """Returns {mode: {ms, finite}, "bounded": {ms}, "dots_1024x1024": reason}."""
     require_cuda("flash_ablate")
-    q, k, v = make_inputs(seed)
+    q, k, v = make_inputs(seed, dtype=dtype)
     results: Dict[str, object] = {}
     with torch.no_grad():
         for mode in ABLATE_MODES:

@@ -1,8 +1,8 @@
-"""Rows 10 and 11 (the exact exp2 and the bounded probes) in bf16 on the tensor cores, on the card.
+"""Rows 8-11 (ablations, bf16-PV variant, exact exp2, bounded probes) in bf16 on the tensor cores.
 
     python -m hedit_tpu_torch.probes.flash_probe_tiles [--parent DIR]
 
-Times ``csrc/flash_probes_tc.cu``:
+Times ``csrc/flash_probes_tc.cu`` on the card:
 
 * row 11 (entry point ``hedit_flash_packed_t_tc``) in its three layouts, 0
   (q, k, v ``[BH, S, D]``: row 11a, ``_packed_t_kernel``), 1 (q, k
@@ -18,7 +18,16 @@ Times ``csrc/flash_probes_tc.cu``:
   of ``VARIANTS`` (the exact loops' blocks an SM, the source built with
   ``-DEXP2_MINB_40=n``, one ``nvcc`` each, all started together; variant 0
   is the source's default, whose ``-Xptxas -v`` lines are the shipped
-  instances'), in turns with variant 0.
+  instances'), in turns with variant 0;
+* row 8 (entry point ``hedit_flash_ablate_t_tc``), ``exp`` and
+  ``noprolog``, at ``ABLATE_CASES``: the probe's [4, 32, 4096, 40] and
+  [4, 32, 1024, 80], q and k times 0.05 as the probe draws them; at d = 40
+  also at 4 blocks an SM (``-DABLATE_MINB_40=4``) in turns with the
+  source's 5; SDPA with scale ln 2 beside it;
+* row 9 d (entry point ``hedit_flash_variant_tc``, ``kern_a`` with
+  ``pv_bf16``) at the probe's [32, 4096, 40], and at each of ``VARIANTS``
+  (its budget is the exact loops' ``EXP2_MINB_40``); SDPA in bf16 beside
+  it.
 
 Each kernel is launched through its entry point without the wrappers' host
 checks (CUDA-event means of 20 launches, best of 3), beside SDPA on the same
@@ -29,21 +38,26 @@ rounding (largest error over 2^-8 of the largest value, as
 and spills of each instance.
 
 ``--parent DIR``: a checkout of an earlier commit of this repository (for
-example ``git archive <commit> | tar -x -C DIR``).  Its CUDA-core template's
-entries in bf16 (``csrc/flash_probes.cu``: the rows before they moved to the
-tensor cores; this tree's template takes them in float32 only) are timed in
-turns with this tree's kernels (parent, this, this, parent) where the
-parent's template still takes them, and its
-``csrc/flash_attention_tc.cu`` is built beside this tree's: the bounded,
-LSE and exact tensor-core forwards of the two must agree bit for bit on the
-smoke's inputs (``flash_exact_tiles.identity``); the probe exits non-zero if
-they do not.
+example ``git archive <commit> | tar -x -C DIR``).  Its CUDA-core
+templates' entries in bf16 (``csrc/flash_probes.cu``,
+``csrc/flash_variants.cu``: the rows before they moved to the tensor cores;
+this tree's templates refuse them) are timed in turns with this tree's
+kernels (parent, this, this, parent) where the parent's template still
+takes them.  Its ``csrc/flash_attention_tc.cu``, ``csrc/flash_probes_tc.cu``,
+``csrc/flash_probes.cu`` and ``csrc/flash_variants.cu`` are built beside
+this tree's, and these outputs of the two must agree bit for bit: the
+bounded, LSE and exact tensor-core forwards on the smoke's inputs
+(``flash_exact_tiles.identity``), rows 10 and 11a-c on the tensor cores,
+and the template instances this tree keeps (rows 8, 10, 11 in float32, row
+8 ``dots`` in bf16, rows 9 a-c in both dtypes, 9 d in float32;
+``kept_identity``).  The probe exits non-zero if any differs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -65,9 +79,16 @@ CASES = ((16, 8, 4096, 40), (16, 8, 1024, 80))
 EXP2_CASES = ((4, 32, 4096, 40), (4, 32, 1024, 80))
 # the entry point's layout codes and the probes' layout names
 LAYOUTS = {0: "packed_t", 1: "packed_t_sminor", 2: "packed_t_all_sminor"}
-# the blocks an SM of the exact probe's two loops at d = 40 (the source's
-# EXP2_MINB_40; the bounded probes keep 5); variant 0 is the source's default
+# the blocks an SM of the exact probe's two loops and row 9 d at d = 40 (the
+# source's EXP2_MINB_40; the bounded probes keep 5); variant 0 is the
+# source's default
 VARIANTS = (4, 5, 3)
+# the ablations' shapes, and their other budget at d = 40 (ABLATE_MINB_40;
+# the source's is 5)
+ABLATE_CASES = ((4, 32, 4096, 40), (4, 32, 1024, 80))
+ABLATE_MINB = 4
+# row 9 d's [B*H, S, D]
+VARIANT_SHAPE = (32, 4096, 40)
 PEAK_FLOPS = 989e12
 
 
@@ -77,12 +98,14 @@ def _sminor(t):
 
 def _entry_call(lib, entry, args, out, ints):
     """A launch of ``entry`` on ``args`` writing ``out``; ``ints`` are the
-    entry point's integers before the dtype (bf16)."""
+    entry point's integers before the dtype (``args[0]``'s: 1 bf16, 0
+    float32)."""
     stream = torch.cuda.current_stream().cuda_stream
     fn = getattr(lib, entry)
+    dtype = int(args[0].dtype == torch.bfloat16)
 
     def call():
-        err = fn(*(t.data_ptr() for t in (*args, out)), *ints, 1, stream)
+        err = fn(*(t.data_ptr() for t in (*args, out)), *ints, dtype, stream)
         if err:
             raise RuntimeError(f"{entry} failed (code {err})")
     return call
@@ -118,10 +141,9 @@ def _timed(label, turns, sdpa, bound_ms, err, extra=""):
     return [[who, t] for (who, _), t in zip(turns, ms)]
 
 
-def _qkv(b, h, s, d):
+def _qkv(b, h, s, d, scales=(1.0, 1.0, 1.0), dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(s + d)
-    return [torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16)
-            for _ in range(3)]
+    return [(torch.randn(b, h, s, d, generator=g, device="cuda") * c).to(dtype) for c in scales]
 
 
 def bounded_timings(mine, parent):
@@ -202,6 +224,121 @@ def exp2_timings(mine, parent, variants):
     return records
 
 
+def ablate_timings(mine, parent, minb):
+    """Row 8's ``exp`` and ``noprolog`` at ``ABLATE_CASES``, at d = 40 in
+    turns with the source built at ``ABLATE_MINB`` blocks an SM; one record
+    a case and mode."""
+    records = []
+    for b, h, s, d in ABLATE_CASES:
+        q, k, v = _qkv(b, h, s, d, scales=(0.05, 0.05, 1.0))
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=math.log(2.0)))
+        bound_ms = 4 * b * h * s * s * d / PEAK_FLOPS * 1e3
+        for mode in fp.ABLATE_TC_MODES:
+            out = torch.empty(b * h, d, s, dtype=torch.bfloat16, device="cuda")
+            ints = (b * h, s, s, d, fp.ABLATE_MODES.index(mode))
+            tc = _entry_call(mine, "hedit_flash_ablate_t_tc", (q, k, v), out, ints)
+            tc()
+            plain = fp.flash_ablate_t_reference(q, k, v, mode, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            err = _err(out, plain)
+            del plain
+            torch.cuda.empty_cache()
+            label = f"ablate {mode} q[{b}, {h}, {s}, {d}] bf16"
+            ms = _timed(label, _turns(tc, parent, "hedit_flash_ablate_t", (q, k, v), out, ints),
+                        sdpa, bound_ms, err)
+            records.append({"probe": f"ablate {mode}", "shape": [b, h, s, d], "turns": ms,
+                            "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
+            if d == 40:
+                other = _entry_call(minb, "hedit_flash_ablate_t_tc", (q, k, v), out, ints)
+                t = [best_ms(fn) for fn in (tc, other, other, tc)]
+                print(f"ablate {mode} q[{b}, {h}, {s}, {d}] blocks an SM: 5 {t[0]:.4f}, "
+                      f"{ABLATE_MINB} {t[1]:.4f}, {ABLATE_MINB} {t[2]:.4f}, 5 {t[3]:.4f} ms")
+                records[-1]["minb_turns"] = [[5, t[0]], [ABLATE_MINB, t[1]],
+                                             [ABLATE_MINB, t[2]], [5, t[3]]]
+            del out
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def variant_timings(mine, parent, variants):
+    """Row 9 d at ``VARIANT_SHAPE``, then at each of ``VARIANTS``; one record."""
+    bh, s, d = VARIANT_SHAPE
+    q, k, v = (t[0] for t in _qkv(1, bh, s, d))
+    sdpa = best_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+    bound_ms = 4 * bh * s * s * d / PEAK_FLOPS * 1e3
+    out = torch.empty(bh, s, d, dtype=torch.bfloat16, device="cuda")
+    ints = (bh, s, s, d, 1)
+    tc = _entry_call(mine, "hedit_flash_variant_tc", (q, k, v), out, ints)
+    tc()
+    plain = fp.flash_variant_a_reference(q, k, v, pv_bf16=True, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = _err(out, plain)
+    del plain
+    label = f"variant d q[{bh}, {s}, {d}] bf16"
+    ms = _timed(label, _turns(tc, parent, "hedit_flash_variant", (q, k, v), out, ints), sdpa,
+                bound_ms, err)
+    calls = [_entry_call(lib, "hedit_flash_variant_tc", (q, k, v), out, ints)
+             for lib in variants]
+    order = [*range(len(variants)), 0]
+    t = [best_ms(calls[i]) for i in order]
+    print(f"{label} variants (blocks an SM): "
+          + ", ".join(f"{VARIANTS[i]} {x:.4f}" for i, x in zip(order, t)) + " ms")
+    return [{"probe": "variant d", "shape": [bh, s, d], "turns": ms, "sdpa_ms": sdpa,
+             "bound_ms": bound_ms, "err_over_tol": err,
+             "minb_ms": [[VARIANTS[i], x] for i, x in zip(order, t)]}]
+
+
+def _same(mine, parent, entry, args, out_shape, ints):
+    """``entry`` of this tree and of the parent on ``args``, bit for bit."""
+    outs = [torch.empty(out_shape, dtype=args[0].dtype, device="cuda") for _ in range(2)]
+    for lib, out in zip((mine, parent), outs):
+        _entry_call(lib, entry, args, out, ints)()
+    torch.cuda.synchronize()
+    return torch.equal(*(o.view(torch.int16 if o.dtype == torch.bfloat16 else torch.int32)
+                         for o in outs))
+
+
+def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
+    """The outputs this tree keeps from the parent, bit for bit: rows 11a-c
+    and 10 on the tensor cores (bf16); the template's rows 11, 10, 8 in
+    float32 and 8 ``dots`` in bf16; rows 9 a-c in both dtypes and 9 d in
+    float32."""
+    cases = []
+    for b, h, s, d in ((2, 4, 1024, 40), (2, 3, 576, 80)):
+        anchor = 64 * 3 if s % fp.BLK_K else fp.BLK_K
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv(b, h, s, d, scales=(0.05, 0.05, 1.0), dtype=dtype)
+            lib = parent_tc if dtype == torch.bfloat16 else parent_template
+            entry = "hedit_flash_packed_t" + ("_tc" if dtype == torch.bfloat16 else "")
+            for layout in LAYOUTS:
+                args = {0: (q, k, v), 1: (_sminor(q), _sminor(k), v),
+                        2: (_sminor(q), _sminor(k), _sminor(v))}[layout]
+                cases.append((f"{entry} layout {layout}", lib, entry, args, (b * h, d, s),
+                              (b * h, s, s, d, anchor, layout), dtype))
+            entry = "hedit_flash_exp2_t" + ("_tc" if dtype == torch.bfloat16 else "")
+            for pipe in (0, 1):
+                cases.append((f"{entry} pipe {pipe}", lib, entry, (q, k, v), (b * h, d, s),
+                              (b * h, s, s, d, pipe), dtype))
+            for code in (0, 1, 2) if dtype == torch.float32 else (0,):
+                cases.append((f"hedit_flash_ablate_t mode {code}", parent_template,
+                              "hedit_flash_ablate_t", (q, k, v), (b * h, d, s),
+                              (b * h, s, s, d, code), dtype))
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t[0] for t in _qkv(1, 8, 1024, 40, dtype=dtype))
+        for code in (0, 2, 3) + ((1,) if dtype == torch.float32 else ()):
+            shape = (8, 40, 1024) if code >= 2 else (8, 1024, 40)
+            cases.append((f"hedit_flash_variant {code}", parent_variants, "hedit_flash_variant",
+                          (q, k, v), shape, (8, 1024, 1024, 40, code), dtype))
+    same = True
+    for label, parent, entry, args, shape, ints, dtype in cases:
+        equal = _same(mine, parent, entry, args, shape, ints)
+        same &= equal
+        print(f"identity {label} {str(dtype)[6:]} q{list(args[0].shape)}: "
+              f"{'bit-identical to the parent' if equal else 'DIFFERS from the parent'}")
+    return same
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
@@ -211,10 +348,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip())
     builds = [(TC_SOURCE, f"variant{i}", _build.CSRC, (f"EXP2_MINB_40={n}",))
               for i, n in enumerate(VARIANTS)]
+    builds.append((TC_SOURCE, "ablate_minb", _build.CSRC, (f"ABLATE_MINB_40={ABLATE_MINB}",)))
+    parents = ("flash_probes.cu", "flash_variants.cu", "flash_attention_tc.cu",
+               "flash_probes_tc.cu")
     if args.parent is not None:
         csrc = args.parent / "hedit_tpu_torch" / "csrc"
-        builds += [(csrc / "flash_probes.cu", "parent_template", csrc, ()),
-                   (csrc / "flash_attention_tc.cu", "parent_tc", csrc, ())]
+        builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in parents]
     with ThreadPoolExecutor(len(builds)) as ex:
         built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
                             builds))
@@ -222,12 +361,19 @@ def main(argv=None) -> int:
         print(f"ptxas, {name} ({source.name}): {info}")
     mine = _build.cuda_library()
     n = len(VARIANTS)
-    parent = built[n][0] if args.parent is not None else None
-    records = bounded_timings(mine, parent)
-    records += exp2_timings(mine, parent, [lib for lib, _ in built[:n]])
+    variants = [lib for lib, _ in built[:n]]
+    parent = dict(zip(parents, (lib for lib, _ in built[n + 1:]))) if args.parent else {}
+    template = parent.get("flash_probes.cu")
+    records = bounded_timings(mine, template)
+    records += exp2_timings(mine, template, variants)
+    records += ablate_timings(mine, template, built[n][0])
+    records += variant_timings(mine, parent.get("flash_variants.cu"), variants)
     print(json.dumps({"flash_probe_tiles": records}))
-    if args.parent is not None and not identity(mine, built[n + 1][0], exact=True):
-        print("FAILED: a bounded, LSE or exact tensor-core forward differs from the parent's")
+    if args.parent is not None and not (
+            identity(mine, parent["flash_attention_tc.cu"], exact=True)
+            & kept_identity(mine, parent["flash_probes_tc.cu"], template,
+                            parent["flash_variants.cu"])):
+        print("FAILED: an output this tree keeps differs from the parent's")
         return 1
     bad = [r for r in records if not r["err_over_tol"] <= 1.0 or not r.get("pipe_bit_identical",
                                                                            True)]

@@ -9,7 +9,10 @@ Each variant computes exact attention in float32 (q upcast and scaled by
 * a_nopad: a [S, D] accumulator and output;
 * b_mixed: a transposed [D, S] accumulator and output;
 * c_trans: key-major scores, softmax down the key axis, transposed output;
-* d_bf16pv: a, with p rounded to bf16 for the PV product.
+* d_bf16pv: a, with p rounded to bf16 for the PV product (in bf16 on the
+  tensor cores, ``csrc/flash_probes_tc.cu``; the rest on the CUDA-core
+  template ``csrc/flash_variants.cu``, and all four there in float32:
+  ``run(dtype=torch.float32)``).
 
 The script draws q, k and v from one ``PRNGKey(0)``, so q = k = v; here one
 tensor from numpy ``RandomState(seed)``, unit normal, serves as all three.
@@ -41,16 +44,16 @@ VARIANTS = {"a_nopad": (flash_variant_a_cuda, False), "b_mixed": (flash_variant_
             "d_bf16pv": (lambda q, k, v: flash_variant_a_cuda(q, k, v, pv_bf16=True), False)}
 
 
-def make_input(seed: int = 0, device="cuda"):
-    """x [B*H, S, D] bfloat16 from numpy ``RandomState(seed)``: q = k = v = x."""
+def make_input(seed: int = 0, device="cuda", dtype=torch.bfloat16):
+    """x [B*H, S, D] in ``dtype`` from numpy ``RandomState(seed)``: q = k = v = x."""
     x = np.random.RandomState(seed).randn(B * H, S, D).astype(np.float32)
-    return torch.from_numpy(x).to(device, torch.bfloat16)
+    return torch.from_numpy(x).to(device, dtype)
 
 
-def run(seed: int = 0, reps: int = 10) -> Dict[str, Dict[str, float]]:
+def run(seed: int = 0, reps: int = 10, dtype=torch.bfloat16) -> Dict[str, Dict[str, float]]:
     """Returns {variant: {ms, err_exact_head0}}."""
     require_cuda("flash_variants")
-    x = make_input(seed)
+    x = make_input(seed, dtype=dtype)
     x0 = x[:1].float()[None]                                  # head 0 as [1, 1, S, D]
     exact0 = reference_attention(x0, x0, x0)[0, 0]
     results = {}

@@ -1,14 +1,15 @@
 """The bf16 tensor-core route of the bounded probes (TPU kernels 11a, 11b
-and 11c) and of the exact exp2 probe (TPU kernel 10, both key loops), on
-the CPU.
+and 11c), of the exact exp2 probe (TPU kernel 10, both key loops), of the
+ablations ``exp`` and ``noprolog`` (TPU kernel 8) and of ``kern_a`` with
+``pv_bf16`` (TPU kernel 9 d), on the CPU.
 
 The kernels (``hedit_tpu_torch/csrc/flash_probes_tc.cu``) run only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
-* the dispatch by dtype (``probe_entry``, ``exp2_entry``), as values: bf16
-  to the tensor-core entry points, float32 to the CUDA-core template,
-  anything else refused; CPU tensors take the plain versions and launch
-  nothing;
+* the dispatch by dtype (``probe_entry``, ``exp2_entry``, ``ablate_entry``,
+  ``variant_entry``), as values: bf16 to the tensor-core entry points (but
+  ``dots`` and variants a-c), float32 to the CUDA-core templates, anything
+  else refused; CPU tensors take the plain versions and launch nothing;
 * the C entry points' parameter lists, read from the source, against the
   ``ctypes`` argument types the loader gives them (the sources cannot be
   compiled here);
@@ -21,7 +22,12 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
   scripts' Pallas kernels ``_packed_t_kernel``, ``_packed_t_kernel_sminor``,
   ``_packed_t_kernel_all_sminor`` (128-query and 128-key blocks, so a
   128-key anchor window, S = 256) and ``kern_exp2`` (128-query blocks,
-  ``blk_k = 64``) in interpret mode, the saturating input included.
+  ``blk_k = 64``) in interpret mode, the saturating input included;
+* the same for rows 8 and 9 d: q as it is, p rounded and summed tile by
+  tile with row 8's floor, or row 9 d's scores times sm_scale * log2(e)
+  after the product, its running max a 64-key tile, its unrounded sum and
+  bf16 p in PV; held against the plain versions and ``make_kernel(mode)``
+  and ``kern_a(pv_bf16=True)`` (``BLK_K`` = 64) in interpret mode.
 
 The cases run as loops inside few items: pytest-xdist's loadfile scheduler
 queues test files by their number of items.
@@ -45,6 +51,8 @@ from jax.experimental import pallas as pl
 from hedit_tpu_torch import _build
 from hedit_tpu_torch.ops import flash_probes as fp
 from hedit_tpu_torch.ops.flash_attention import DENOM_FLOOR, reference_attention
+from test_torch_cost_probes import _blk_k, _jax_ablate, _jax_variant
+from test_torch_cost_probes import _import_script as _import_quietly
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLK = 128          # blk_q and blk_k of the bounded interpret runs: the anchor window
@@ -92,8 +100,28 @@ def test_probe_entry_dispatch_and_cpu_tensors():
             fp.exp2_entry(dtype)
     with pytest.raises(ValueError, match="layout"):
         fp.probe_entry(torch.bfloat16, "sminor")
-    names = [n for n in dir(fp) if n.startswith(("launches_packed_t", "launches_exp2_t"))]
-    assert {f"launches_{layout}_tc" for layout in LAYOUTS} | {"launches_exp2_t_tc"} <= set(names)
+    # rows 8 and 9: bf16 exp, noprolog and d on the tensor cores; dots and
+    # variants a-c on the templates in both dtypes
+    for mode in fp.ABLATE_MODES:
+        assert fp.ablate_entry(torch.bfloat16, mode) == (
+            "hedit_flash_ablate_t" if mode == "dots" else "hedit_flash_ablate_t_tc")
+        assert fp.ablate_entry(torch.float32, mode) == "hedit_flash_ablate_t"
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fp.ablate_entry(torch.float16, mode)
+    for name in "abcd":
+        assert fp.variant_entry(torch.bfloat16, name) == (
+            "hedit_flash_variant_tc" if name == "d" else "hedit_flash_variant")
+        assert fp.variant_entry(torch.float32, name) == "hedit_flash_variant"
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fp.variant_entry(torch.float64, name)
+    with pytest.raises(ValueError, match="mode"):
+        fp.ablate_entry(torch.bfloat16, "softmax")
+    with pytest.raises(ValueError, match="variant"):
+        fp.variant_entry(torch.bfloat16, "e")
+    names = [n for n in dir(fp) if n.startswith("launches_")]
+    assert ({f"launches_{layout}_tc" for layout in LAYOUTS}
+            | {"launches_exp2_t_tc", "launches_ablate_exp_tc", "launches_ablate_noprolog_tc",
+               "launches_variant_d_tc"} <= set(names))
     counts = {n: getattr(fp, n) for n in names}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(1, 2, 128, 40)
@@ -112,6 +140,19 @@ def test_probe_entry_dispatch_and_cpu_tensors():
             assert torch.equal(got, want) and got.dtype == dtype
         unrounded = fp.flash_exp2_t_reference(q, k, v, out_dtype=torch.float32)
         assert unrounded.dtype == torch.float32 and torch.equal(unrounded.to(dtype), want)
+        for mode in fp.ABLATE_MODES:
+            want = fp.flash_ablate_t_reference(q, k, v, mode)
+            got = fp.flash_ablate_t_cuda(q, k, v, mode)
+            assert torch.equal(got, want) and got.dtype == dtype
+            unrounded = fp.flash_ablate_t_reference(q, k, v, mode, out_dtype=torch.float32)
+            assert unrounded.dtype == torch.float32 and torch.equal(unrounded.to(dtype), want)
+        q3, k3, v3 = (t[0] for t in (q, k, v))
+        want = fp.flash_variant_a_reference(q3, k3, v3, pv_bf16=True)
+        got = fp.flash_variant_a_cuda(q3, k3, v3, pv_bf16=True)
+        assert torch.equal(got, want) and got.dtype == dtype
+        unrounded = fp.flash_variant_a_reference(q3, k3, v3, pv_bf16=True,
+                                                 out_dtype=torch.float32)
+        assert unrounded.dtype == torch.float32 and torch.equal(unrounded.to(dtype), want)
     assert counts == {n: getattr(fp, n) for n in names}
 
 
@@ -126,13 +167,19 @@ def _c_params(path, name):
 
 
 def test_tc_entry_point_matches_its_argument_types():
-    """``hedit_flash_packed_t_tc`` and ``hedit_flash_exp2_t_tc`` in
+    """``hedit_flash_packed_t_tc``, ``hedit_flash_exp2_t_tc``,
+    ``hedit_flash_ablate_t_tc`` and ``hedit_flash_variant_tc`` in
     ``csrc/flash_probes_tc.cu`` take the parameters their ``ctypes``
-    argument types describe, which are those of the template's
-    ``hedit_flash_packed_t`` and ``hedit_flash_exp2_t``."""
-    for name in ("hedit_flash_packed_t", "hedit_flash_exp2_t"):
+    argument types describe, which are those of the templates'
+    ``hedit_flash_packed_t``, ``hedit_flash_exp2_t``, ``hedit_flash_ablate_t``
+    (``csrc/flash_probes.cu``) and ``hedit_flash_variant``
+    (``csrc/flash_variants.cu``)."""
+    for name, source in (("hedit_flash_packed_t", "flash_probes.cu"),
+                         ("hedit_flash_exp2_t", "flash_probes.cu"),
+                         ("hedit_flash_ablate_t", "flash_probes.cu"),
+                         ("hedit_flash_variant", "flash_variants.cu")):
         tc = _c_params(_build.CSRC / "flash_probes_tc.cu", f"{name}_tc")
-        template = _c_params(_build.CSRC / "flash_probes.cu", name)
+        template = _c_params(_build.CSRC / source, name)
         assert tc == template == _build.ARGTYPES[f"{name}_tc"], name
         assert _build.ARGTYPES[f"{name}_tc"] == _build.ARGTYPES[name], name
 
@@ -156,11 +203,8 @@ def _tiled_probe(ops, layout, anchor, bq, exact=False, pipe=False):
     q, k, v = (t.mT if m else t for t, m in zip(ops, (qk_minor, qk_minor, v_minor)))
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    dk, sq_blocks = -(-d // 16) * 16, -(-sq // bq) * bq
     scale = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=q.dtype)
-    qs = F.pad((q * scale).float(), (0, dk - d, 0, sq_blocks - sq))   # [B, H, Sq', DK]
-    ks = F.pad(k.float(), (0, dk - d))                                 # [B, H, Sk, DK]
-    vs = v.float()                                                     # [B, H, Sk, D]
+    qs, ks, vs, sq_blocks = _padded(q * scale, k, v, bq)
 
     def scores(k0):
         return qs @ ks[..., k0:k0 + BK, :].mT
@@ -203,6 +247,56 @@ def _tiled_probe(ops, layout, anchor, bq, exact=False, pipe=False):
     assert torch.isfinite(out).all()   # the zero queries past Sq too
     out = out[:, :, :sq].mT
     return out.reshape(b * h, d, sq) if exact else out.reshape(b, h * d, sq)
+
+
+def _padded(q, k, v, bq):
+    """q [B, H, Sq, D] in float32, padded with zero queries to a multiple of
+    ``bq`` and with zero columns to the contraction's multiple of 16; k
+    padded with the same columns; v in float32; the padded Sq."""
+    d, sq = q.shape[-1], q.shape[-2]
+    dk, sq_blocks = -(-d // 16) * 16, -(-sq // bq) * bq
+    return (F.pad(q.float(), (0, dk - d, 0, sq_blocks - sq)), F.pad(k.float(), (0, dk - d)),
+            v.float(), sq_blocks)
+
+
+def _tiled_ablate_or_pv_bf16(q, k, v, what, bq):
+    """Rows 8 (``what`` ``exp`` or ``noprolog``) and 9 d (``pv_bf16``) in
+    the tensor-core kernel's order of work, float32 arithmetic on its bf16
+    roundings, from q, k, v [B, H, S, D]: q as it is, in blocks of ``bq``
+    queries padded as ``_tiled_probe`` pads them; for each tile of 64 keys
+    the block's float32 scores.  Row 8: s - shift (0, or 12.34 clamped at
+    100), exp2, p rounded to the input dtype into the row sum and the PV
+    product tile by tile, the sum floored at 1e-30; returns [B*H, D, Sq].
+    Row 9 d: the scores times c = sm_scale * log2(e) in float32, the running
+    max from -1e30 moved over each tile, alpha rescaling the sum and the
+    accumulator, p = exp2(s c - m) unrounded into the sum and rounded to
+    bf16 into PV, no floor; returns [B*H, Sq, D].  The output before the
+    kernel's final rounding."""
+    b, h, sq, d = q.shape
+    qs, ks, vs, sq_blocks = _padded(q, k, v, bq)
+    c = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=torch.float32)
+    m = torch.full((b, h, sq_blocks, 1), -1e30)
+    den = torch.zeros((b, h, sq_blocks, 1))
+    acc = torch.zeros((b, h, sq_blocks, d))
+    for k0 in range(0, k.shape[2], BK):
+        s = qs @ ks[..., k0:k0 + BK, :].mT
+        if what == "pv_bf16":
+            s = s * c
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            den = den * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(torch.bfloat16).float() @ vs[..., k0:k0 + BK, :]
+            m = m_new
+        else:
+            s = torch.clamp(s - 12.34, max=100.0) if what == "noprolog" else s
+            p = torch.exp2(s).to(q.dtype).float()
+            den = den + p.sum(dim=-1, keepdim=True)
+            acc = acc + p @ vs[..., k0:k0 + BK, :]
+    out = (acc / (den if what == "pv_bf16" else torch.clamp(den, min=fp.ABLATE_FLOOR)))
+    assert torch.isfinite(out).all()   # the zero queries past Sq too
+    out = out[:, :, :sq]
+    return out.reshape(b * h, sq, d) if what == "pv_bf16" else out.mT.reshape(b * h, d, sq)
 
 
 def _import_script(name):
@@ -347,3 +441,56 @@ def test_tiled_order_matches_the_plain_versions_and_jax():
             want = np.asarray(_jax_exp2_t(v4, *jops, pipe).astype(jnp.float32))
             np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want, rounded=True),
                                        err_msg=f"exp2 d={d} pipe={pipe}")
+
+
+def test_tiled_ablations_and_pv_bf16_match_the_plain_versions_and_jax():
+    """Rows 8 (``exp``, ``noprolog``) at d = 40 (64-query blocks, the
+    contraction padded to 48) and d = 80 (128-query blocks), S = 256, q and
+    k times 0.5; ``noprolog`` also on an input whose scores pass 112.34, so
+    that p saturates at 2^100 (the clamp then moves the output by more than
+    20 tolerances); row 9 d at d = 40 on unit-normal inputs.  Each rendering
+    against its plain version before the final rounding (``_tol``) and the
+    script's kernel in interpret mode (``make_kernel(mode)`` with 256-row
+    blocks; ``kern_a(pv_bf16=True)`` with ``BLK_K`` = 64, the kernel's key
+    tile; ``_tol(..., rounded=True)``)."""
+    ablate = _import_quietly("flash_ablate")
+    for d, bq in ((40, 64), (80, 128)):
+        for mode, saturate in (("exp", False), ("noprolog", False), ("noprolog", True)):
+            where = f"{mode} d={d} saturate={saturate}"
+            rng = np.random.RandomState(d + saturate)
+            q, k, v = (rng.randn(1, 2, 256, d).astype(np.float32) * c for c in (0.5, 0.5, 1.0))
+            if saturate:   # key 140 scores ~128, keys 150-159 ~116, every other key < 10
+                q, k = q * 0.1, k * 0.1
+                q[..., 0] = 8.0
+                k[:, :, 140, 0] = 16.0
+                k[:, :, 150:160, 0] = 14.5
+            ops = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+            got = _tiled_ablate_or_pv_bf16(*ops, mode, bq).numpy()
+            plain = fp.flash_ablate_t_reference(*ops, mode, out_dtype=torch.float32).numpy()
+            want = np.asarray(_jax_ablate(ablate, mode, *(jnp.asarray(a).astype(jnp.bfloat16)
+                                                           for a in (q, k, v))
+                                          ).astype(jnp.float32))
+            assert got.shape == (2, d, 256), where
+            tol = _tol(plain)
+            np.testing.assert_allclose(got, plain, rtol=0, atol=tol, err_msg=where)
+            np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want, rounded=True),
+                                       err_msg=where)
+            if saturate:
+                qf, kf, vf = (t.float()[0] for t in ops)
+                w = torch.exp2(qf @ kf.mT - 12.34)          # no clamp
+                unclamped = (w @ vf / w.sum(dim=-1, keepdim=True)).mT.numpy()
+                assert np.abs(got - unclamped).max() > 20 * tol, where
+    variants = _import_quietly("flash_variants")
+    rng = np.random.RandomState(9)
+    q, k, v = (rng.randn(2, 256, 40).astype(np.float32) for _ in range(3))
+    ops = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = _tiled_ablate_or_pv_bf16(*(t[None] for t in ops), "pv_bf16", 64).numpy()
+    plain = fp.flash_variant_a_reference(*ops, pv_bf16=True, out_dtype=torch.float32).numpy()
+    with _blk_k(variants, BK):
+        want = np.asarray(_jax_variant(variants, "d", *(jnp.asarray(a).astype(jnp.bfloat16)
+                                                         for a in (q, k, v))
+                                       ).astype(jnp.float32))
+    assert got.shape == (2, 256, 40)
+    np.testing.assert_allclose(got, plain, rtol=0, atol=_tol(plain), err_msg="pv_bf16")
+    np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want, rounded=True),
+                               err_msg="pv_bf16")

@@ -757,7 +757,8 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         fp.flash_packed_t_sminor_cuda(q, q, q, 128)
     # the tensor-core entries take bf16 in every layout (layout 0 is row 11a)
     # and pipe 0 or 1; float32, layout 3, d = 64, pipe 2 and a misaligned
-    # pointer are refused; the wrappers raise on the last first
+    # pointer are refused; the wrappers raise on the last first (rows 8 and
+    # 9 d below)
     from hedit_tpu_torch._build import cuda_library
 
     lib = cuda_library()
@@ -776,13 +777,29 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
     for pipe, dtype, d, shift in ((2, 1, 40, 0), (-1, 1, 40, 0), (0, 0, 40, 0), (1, 1, 64, 0),
                                   (0, 1, 40, 2)):
         assert exp2(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, pipe, dtype, stream) == -1
+    # row 8: modes 1 (exp) and 2 (noprolog) in bf16, not dots (0), mode 3,
+    # float32, d = 64 or a misaligned pointer; row 9: variant 1 (d) in bf16
+    # at d = 40 into [BH, Sq, D], not variants 0, 2, 3, float32, d = 80 or a
+    # misaligned pointer.  The templates refuse bf16 exp, noprolog and d
+    ablate, variant = lib.hedit_flash_ablate_t_tc, lib.hedit_flash_variant_tc
+    for mode in (1, 2):
+        assert ablate(*ptrs, 2, 256, 256, 40, mode, 1, stream) == 0
+        assert lib.hedit_flash_ablate_t(*ptrs, 2, 256, 256, 40, mode, 1, stream) == -1
+    for mode, dtype, d, shift in ((0, 1, 40, 0), (3, 1, 40, 0), (1, 0, 40, 0), (2, 1, 64, 0),
+                                  (1, 1, 40, 2)):
+        assert ablate(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, mode, dtype, stream) == -1
+    assert variant(*ptrs, 2, 256, 256, 40, 1, 1, stream) == 0
+    assert lib.hedit_flash_variant(*ptrs, 2, 256, 256, 40, 1, 1, stream) == -1
+    for code, dtype, d, shift in ((0, 1, 40, 0), (2, 1, 40, 0), (3, 1, 40, 0), (1, 0, 40, 0),
+                                  (1, 1, 80, 0), (1, 1, 40, 2)):
+        assert variant(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, code, dtype, stream) == -1
 
     def misaligned(t):  # a dense copy of t two bytes past a 16-byte boundary
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
         return buf[1:].view(t.shape).copy_(t)
 
     qt = _sminor(qb)
-    names = [n for n in dir(fp) if n.startswith(("launches_packed_t", "launches_exp2_t"))]
+    names = [n for n in dir(fp) if n.startswith("launches_")]
     before = {n: getattr(fp, n) for n in names}
     with pytest.raises(ValueError, match="aligned"):
         fp.flash_packed_t_all_sminor_cuda(misaligned(qt), qt, qt, 128)
@@ -792,6 +809,10 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         fp.flash_packed_t_cuda(qb, misaligned(qb), qb, 128)
     with pytest.raises(ValueError, match="aligned"):
         fp.flash_exp2_t_cuda(qb, qb, misaligned(qb), True)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_ablate_t_cuda(qb, qb, misaligned(qb), "noprolog")
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_variant_a_cuda(misaligned(qb[0]), qb[0], qb[0], pv_bf16=True)
     torch.cuda.synchronize()
     assert {n: getattr(fp, n) for n in names} == before
 
@@ -803,21 +824,29 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
 def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
     """TPU kernel 8, each mode, against its plain version (q and k scaled by
     0.05 as the probe draws them).  ``exp`` and ``noprolog``: tolerances of
-    ``_tol``.  ``dots``: each element within ``ablate_dots_tolerance`` (in
-    bf16 the plain version's scores are the kernel's bit for bit), rows whose
-    sum of p lies within its reach of zero excused (under 1% here)."""
+    ``_tol``, bf16 on the tensor cores (its own counter, held before the
+    final rounding), float32 on the CUDA-core template.  ``dots``, on the
+    template in both dtypes: each element within ``ablate_dots_tolerance``
+    (in bf16 the plain version's scores are the kernel's bit for bit), rows
+    whose sum of p lies within its reach of zero excused (under 1% here)."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     g = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = (torch.randn(shape, generator=g, device=cuda) * s for s in (0.05, 0.05, 1.0))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    counter = f"launches_ablate_{mode}"
-    before = getattr(fp, counter)
+    tc = dtype == torch.bfloat16 and mode != "dots"
+    counter = f"launches_ablate_{mode}{'_tc' if tc else ''}"
+    names = [n for n in dir(fp) if n.startswith("launches_ablate_")]
+    before = {n: getattr(fp, n) for n in names}
     got = fp.flash_ablate_t_cuda(q, k, v, mode)
     torch.cuda.synchronize()
-    assert getattr(fp, counter) == before + 1
+    assert {n: getattr(fp, n) - before[n] for n in names} == {n: int(n == counter) for n in names}
     b, h, s, d = shape
     assert got.shape == (b * h, d, s) and got.dtype == dtype
+    if tc:
+        want = fp.flash_ablate_t_reference(q, k, v, mode, out_dtype=torch.float32)
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
+        return
     want = fp.flash_ablate_t_reference(q, k, v, mode)
     err = (got.float() - want.float()).abs()
     if mode != "dots":
@@ -834,23 +863,28 @@ def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
 @pytest.mark.parametrize("bh,s,same", [(2, 256, False), (3, 1024, True), (1, 64, False)])
 def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, same):
     """TPU kernel 9's three layouts and ``pv_bf16`` (d) against their plain
-    versions (d with the kernel's 64-key blocks of the running max;
-    tolerances of ``_tol``); ``same``: q = k = v, as the probe feeds them."""
+    versions (d with the kernels' 64-key blocks of the running max;
+    tolerances of ``_tol``); ``same``: q = k = v, as the probe feeds them.
+    bf16 d runs on the tensor cores (its own counter, held before the final
+    rounding), the rest on the CUDA-core template."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     q, k, v = _probe_inputs(dtype, (bh, s, 40), seed=bh)
     if same:
         k = v = q
-    counter = f"launches_variant_{variant}"
-    before = getattr(fp, counter)
+    tc = dtype == torch.bfloat16 and variant == "d"
+    counter = f"launches_variant_{variant}{'_tc' if tc else ''}"
+    names = [n for n in dir(fp) if n.startswith("launches_variant_")]
+    before = {n: getattr(fp, n) for n in names}
     if variant in "ad":
         got = fp.flash_variant_a_cuda(q, k, v, pv_bf16=variant == "d")
-        want = fp.flash_variant_a_reference(q, k, v, pv_bf16=variant == "d")
+        want = fp.flash_variant_a_reference(q, k, v, pv_bf16=variant == "d",
+                                            out_dtype=torch.float32 if tc else None)
     else:
         got = getattr(fp, f"flash_variant_{variant}_cuda")(q, k, v)
         want = fp.flash_variant_b_reference(q, k, v)
     torch.cuda.synchronize()
-    assert getattr(fp, counter) == before + 1
+    assert {n: getattr(fp, n) - before[n] for n in names} == {n: int(n == counter) for n in names}
     assert got.shape == want.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_tol(dtype, want))
 
