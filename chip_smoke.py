@@ -15,9 +15,14 @@ the final result line:
    same function (a yardstick only, the port never calls it); the least time
    the card could take (``bound_ms``).  The bounded (max-free) and the exact
    forwards run bf16 on the tensor cores (``csrc/flash_attention_tc.cu``)
-   and float32 on the CUDA-core template (``csrc/flash_attention.cu``); the
-   tensor-core bounded kernel is also timed beside the CUDA-core template's
-   LSE entry (in bf16, row 3 before it moved) at the same inputs, and the
+   and float32 on the CUDA-core template (``csrc/flash_attention.cu``), but
+   the bounded forward and its LSE form in float32 at d = 40 / 80 on the
+   float32 kernel (``csrc/flash_attention_f32.cu``: the anchor window's
+   scores computed once, CUDA cores), whose refusals (a misaligned pointer,
+   a stride that is not a multiple of 4, an anchor window beyond 512 keys)
+   are checked too; the tensor-core bounded kernel is also timed beside the
+   CUDA-core template's LSE entry (in bf16, row 3 before it moved) at the
+   same inputs, and the
    tensor-core wrappers' refusals (a misaligned pointer, an odd stride,
    float16) are checked.  The bounded and the exact forward are timed at
    the same shapes, head-split and packed (the exact kernels held to
@@ -27,7 +32,8 @@ the final result line:
    packed-head forwards also the time of the head-split route (three
    head-split copies, kernel 1, the merge).  The LSE forward (bf16 on the
    tensor cores, ``csrc/flash_attention_tc.cu``, timed beside the CUDA-core
-   template on the same inputs; float32 on the template) and the backward
+   template on the same inputs; float32 on the float32 kernel, lse2 within
+   1e-5 relative, at d = 512 on the template) and the backward
    at the NMG gradient call's shapes and a ragged one: bf16 dq and dk / dv
    on the tensor cores (``csrc/flash_attention_bwd_tc.cu``), timed beside
    the CUDA-core template (``csrc/flash_attention_bwd.cu``) on the same
@@ -102,14 +108,14 @@ the final result line:
     the general loop under the flagship configuration; the edit decoded (the
     VAE's float32 attention at 4096 tokens is outside the K/V budget: exact
     ``reference_attention``, no launch), then decoded at 256 px, where it
-    fits: the float32 paths of the CUDA-core bounded template, their
-    launches counted;
+    fits: the float32 bounded kernel for the UNet's packed self-attentions
+    and the CUDA-core template for the VAE's d = 512, their launches counted;
 12. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
     substituted here;
 13. the NMG loop in float32 under a neutral control: its edit branch equals
-    plain DDIM sampling computed here; its launches counted (the CUDA-core
-    LSE forward 500, the CUDA-core template's backward 250 each);
+    plain DDIM sampling computed here; its launches counted (the float32
+    LSE kernel 500, the CUDA-core template's backward 250 each);
 14. in float32: the EF pair loop without a stored trajectory on the DDPM
     inversion's residuals reconstructs the source latent; explicit h-Edit-D
     with target = source, cfg_tar == cfg_src_edit and a neutral control
@@ -118,9 +124,10 @@ the final result line:
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
 16. a JSON line of the kernels (each with its launches on its path: rows 1
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
-    flagship path, the CUDA-core bounded template on the float32 golden path,
-    3-5 on the NMG path (on the tensor cores; the CUDA-core templates' on the
-    float32 NMG loop), 6 and 7 on their own (tensor cores and template),
+    flagship path, rows 1p (the float32 kernel) and 1 (the CUDA-core
+    template, d = 512) on the float32 golden path, 3-5 on the NMG path (on
+    the tensor cores; row 3 on the float32 kernel and 4-5 on the CUDA-core
+    template on the float32 NMG loop), 6 and 7 on their own (tensor cores and template),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
     bf16 and on the template in float32), then the result line
     ``{"ok": true, "device": {...}}``.
@@ -270,6 +277,9 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_attention_exact_core": (flash, "launches_exact"),
             "flash_packed_bounded": (flash, "launches_packed_bounded_tc"),
             "flash_packed_bounded_core": (flash, "launches_packed_bounded"),
+            "flash_attention_f32": (flash, "launches_f32"),
+            "flash_packed_bounded_f32": (flash, "launches_packed_bounded_f32"),
+            "flash_attention_lse_f32": (flash, "launches_lse_f32"),
             **{f"flash_{lay}": (fp, f"launches_{lay}_tc") for lay in fp._LAYOUTS},
             **{f"flash_{lay}_core": (fp, f"launches_{lay}") for lay in fp._LAYOUTS},
             "flash_exp2_t": (fp, "launches_exp2_t_tc"),
@@ -325,8 +335,8 @@ def check_forward_routing(counts, path, failures, packed):
     call); the tensor-core head-split kernel serves only the VAE's one-head
     attention, one launch in the encoder and one in the decoder; the
     CUDA-core bounded entries (float32) and the exact kernels (rows 6 and
-    7, on either cores) never run.  (Row 3, the LSE forward, has its own
-    counters.)
+    7, on either cores) never run, nor the float32 kernel.  (Row 3, the LSE
+    forward, has its own counters.)
     GroupNorm: ``GN_CALLS[path]`` kernel calls, each on a channels-last
     input, and the streamed regime in the VAE."""
     if (counts["groupnorm"], GN_INPUTS["calls"], GN_INPUTS["channels_last"]) != (
@@ -347,10 +357,12 @@ def check_forward_routing(counts, path, failures, packed):
         failures.append(f"the tensor-core head-split forward was launched "
                         f"{counts['flash_attention']} times on the {path} path, not by the two "
                         f"VAE attentions alone")
-    if counts["flash_attention_core"] or counts["flash_packed_bounded_core"]:
-        failures.append(f"the {path} path launched the CUDA-core bounded entries "
-                        f"{counts['flash_attention_core']} / "
-                        f"{counts['flash_packed_bounded_core']} times in bf16 (expected 0)")
+    core = {n: counts[n] for n in ("flash_attention_core", "flash_packed_bounded_core",
+                                   "flash_attention_f32", "flash_packed_bounded_f32",
+                                   "flash_attention_lse_f32")}
+    if any(core.values()):
+        failures.append(f"the {path} path launched the CUDA-core bounded entries {core} in "
+                        f"bf16 (expected 0)")
 
 
 def phase_card():
@@ -414,6 +426,17 @@ def _forward_plain(q, k, v, exact):
     return plain(q, k, v, out_dtype=torch.float32)
 
 
+def _route(entry):
+    """(name suffix, label) of a forward entry point's kernel: the
+    tensor-core kernel, the float32 kernel (``csrc/flash_attention_f32.cu``)
+    or the CUDA-core template."""
+    if entry.endswith("_tc"):
+        return "", "tensor cores"
+    if entry.endswith("_f32"):
+        return "_f32", "CUDA cores, float32 kernel"
+    return "_core", "CUDA cores, template"
+
+
 # shapes at which the tensor-core forward is also timed against the CUDA-core
 # bounded template (its LSE entry in bf16: the same work and one float a row)
 CORE_SHAPES = ((8, 8, 4096, 40), (4, 8, 1024, 80), (1, 1, 4096, 512))
@@ -450,6 +473,7 @@ def _flash_forward_cases(g, rows, failures):
              ((2, 8, 1000, 40), 1000, torch.float32),    # ragged Sq and Sk
              ((4, 8, 1024, 80), 1024, torch.float32),
              ((1, 8, 1000, 80), 1064, torch.float32),
+             ((1, 1, 1024, 512), 1024, torch.float32),   # the 256 px decode's VAE attention
              ((1, 1, 4096, 512), 4096, torch.float32)]
     exact_first = [cases[1]] + cases[:1] + cases[2:]
     for wrapper, exact, order in ((flash.flash_attention_cuda, False, cases),
@@ -467,10 +491,10 @@ def _flash_forward_cases(g, rows, failures):
             plain = (flash.flash_attention_exact_reference if exact
                      else flash.flash_attention_bounded_reference)
             tc = dtype == torch.bfloat16
-            name = ("flash_attention_exact" if exact else "flash_attention") + (
-                "" if tc else "_core")
-            form = (f"{'exact' if exact else 'bounded'} "
-                    f"({'tensor' if tc else 'CUDA'} cores)")
+            suffix, where = _route(flash.exact_entry(dtype, False) if exact
+                                   else flash.bounded_entry(dtype, False, d))
+            name = ("flash_attention_exact" if exact else "flash_attention") + suffix
+            form = f"{'exact' if exact else 'bounded'} ({where})"
             extra = ({"core_ms": _lse_template_ms(q, k, v)}
                      if tc and not exact and qshape in CORE_SHAPES and sk == qshape[2] else {})
             _row(rows, failures, name, f"flash {form} q{list(qshape)} sk={sk} {str(dtype)[6:]}",
@@ -494,9 +518,14 @@ def _flash_forward_cases(g, rows, failures):
     # kernel its own, and the two forms are far apart
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _saturating_qkv(g, dtype)
+        before = read_launches()
         bounded = flash.flash_attention_cuda(q, k, v).float()
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         exact = flash.flash_attention_exact_cuda(q, k, v).float()
+        moved = {n: c - before[n] for n, c in read_launches().items() if c != before[n]}
+        suffix = _route(flash.bounded_entry(dtype, False, 40))[0]
+        routed = {"flash_attention" + suffix: 1, "flash_attention_lse" + suffix: 1,
+                  "flash_attention_exact" + ("" if dtype == torch.bfloat16 else "_core"): 1}
         want_out, want_lse = flash.flash_attention_lse_reference(q, k, v,
                                                                  out_dtype=torch.float32)
         want_bounded = _forward_plain(q, k, v, exact=False)
@@ -510,12 +539,12 @@ def _flash_forward_cases(g, rows, failures):
         err_lse = ((lse2 - want_lse).abs() / want_lse.abs()).max().item()
         gap = (bounded - exact).abs().max().item()
         ok = (errs[0] <= tol and errs[1] <= tol and errs[2] <= tol_e and err_lse <= 1e-5
-              and gap > 20 * tol and lse2.min().item() > 100.0)
+              and gap > 20 * tol and lse2.min().item() > 100.0 and moved == routed)
         print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded / LSE / exact "
               f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores) "
               f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol {tol:.3g}), "
               f"lse2 relative {err_lse:.3e} (tol 1e-5, min lse2 {lse2.min().item():.2f}); "
-              f"max|bounded - exact| {gap:.3e} (must exceed {20 * tol:.3g}) "
+              f"max|bounded - exact| {gap:.3e} (must exceed {20 * tol:.3g}); launches {moved} "
               f"{'OK' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash saturating case {dtype}")
@@ -579,9 +608,10 @@ def _flash_packed_cases(g, rows, failures):
                        .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
             got = wrapper(q, k, v, heads)
             want = plain(q, k, v, heads, out_dtype=torch.float32)
-            tc = dtype == torch.bfloat16
-            name = ("flash_packed" if exact else "flash_packed_bounded") + ("" if tc else "_core")
-            form = f"{'exact' if exact else 'bounded'} ({'tensor' if tc else 'CUDA'} cores)"
+            suffix, where = _route(flash.exact_entry(dtype, True) if exact
+                                   else flash.bounded_entry(dtype, True, hd // heads))
+            name = ("flash_packed" if exact else "flash_packed_bounded") + suffix
+            form = f"{'exact' if exact else 'bounded'} ({where})"
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
@@ -619,7 +649,7 @@ def _flash_packed_cases(g, rows, failures):
         exact = flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), 8)
         torch.cuda.synchronize()
         moved = {n: c - before[n] for n, c in read_launches().items() if c != before[n]}
-        kernel = "flash_packed_bounded" if dtype == torch.bfloat16 else "flash_packed_bounded_core"
+        kernel = "flash_packed_bounded" + _route(flash.bounded_entry(dtype, True, 40))[0]
         tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
         err, gap = (got - want).abs().max().item(), (got - exact).abs().max().item()
         ok = err <= tol and gap > 20 * tol and moved == {kernel: 1}
@@ -630,6 +660,7 @@ def _flash_packed_cases(g, rows, failures):
         if not ok:
             failures.append(f"flash packed saturating case {dtype}")
     _tc_refusals(g, failures)
+    _f32_refusals(g, failures)
 
 
 def _tc_refusals(g, failures):
@@ -655,6 +686,12 @@ def _tc_refusals(g, failures):
              ("odd batch stride, packed exact", flash.flash_attention_packed_cuda,
               (odd,) * 3 + (8,)),
              ("float16, exact", flash.flash_attention_exact_cuda, (head.contiguous().half(),) * 3))
+    _check_refusals("tensor-core", cases, failures)
+
+
+def _check_refusals(kind, cases, failures):
+    """Each (label, wrapper, args) of ``cases`` raises ValueError and
+    launches nothing."""
     for label, wrapper, args in cases:
         before = read_launches()
         try:
@@ -664,14 +701,36 @@ def _tc_refusals(g, failures):
             refused, why = True, str(e)
         torch.cuda.synchronize()
         ok = refused and read_launches() == before
-        print(f"tensor-core refusal, {label}: {'refused: ' + why if refused else 'TAKEN'}; "
+        print(f"{kind} refusal, {label}: {'refused: ' + why if refused else 'TAKEN'}; "
               f"{'OK' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"tensor-core wrapper took {label}")
+            failures.append(f"{kind} wrapper took {label}")
 
 
-BWD_NAMES = ("flash_attention_lse", "flash_attention_lse_core", "flash_bwd_dq", "flash_bwd_dkv",
-             "flash_bwd_dq_core", "flash_bwd_dkv_core")
+def _f32_refusals(g, failures):
+    """The float32 kernel's wrappers (bounded head-split and packed, LSE)
+    raise, and launch nothing, on a pointer that is not 16-byte aligned, a
+    batch stride that is not a multiple of 4 and an anchor window beyond its
+    512 keys; they never hand such an input to the template or a plain
+    version."""
+    buf = torch.randn(2 * 1024 * 320 + 8, generator=g, device="cuda")
+    misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)              # 4 bytes off
+    odd = buf.as_strided((2, 1024, 320), (1024 * 320 + 2, 320, 1))      # batch stride 327,682
+    head = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)
+    dense = buf[:1024 * 320].view(1, 1024, 320)
+    cases = (("misaligned pointer, packed", flash.flash_attention_packed_bounded_cuda,
+              (misaligned,) * 3 + (8,)),
+             ("misaligned pointer, head-split", flash.flash_attention_cuda, (head,) * 3),
+             ("misaligned pointer, LSE", flash.flash_attention_lse_cuda, (head,) * 3),
+             ("batch stride not a multiple of 4, packed",
+              flash.flash_attention_packed_bounded_cuda, (odd,) * 3 + (8,)),
+             ("a 600-key anchor window, packed", flash.flash_attention_packed_bounded_cuda,
+              (dense,) * 3 + (8, 600)))
+    _check_refusals("float32 kernel", cases, failures)
+
+
+BWD_NAMES = ("flash_attention_lse", "flash_attention_lse_core", "flash_attention_lse_f32",
+             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_core", "flash_bwd_dkv_core")
 
 
 def _bwd_template_ms(part, q, k, v, do, lse2, delta):
@@ -693,11 +752,12 @@ def _diff_route(q, k, dtype, fwd=True):
     ``bwd_entry`` where ``bwd_takes_kernels``, else none (autograd of
     ``reference_attention``)."""
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
-    tc_lse = flash.lse_entry(dtype).endswith("_tc")
+    lse = "flash_attention_lse" + _route(flash.lse_entry(dtype, d))[0]
     kernels = flash.bwd_takes_kernels(sq, sk, d, q.element_size(), interpret=False)
     tc = flash.bwd_entry(dtype, d)[0].endswith("_tc")
-    return {"flash_attention_lse": int(fwd and tc_lse),
-            "flash_attention_lse_core": int(fwd and not tc_lse),
+    return {**{n: int(fwd and n == lse) for n in ("flash_attention_lse",
+                                                 "flash_attention_lse_core",
+                                                 "flash_attention_lse_f32")},
             "flash_bwd_dq": int(kernels and tc), "flash_bwd_dkv": int(kernels and tc),
             "flash_bwd_dq_core": int(kernels and not tc),
             "flash_bwd_dkv_core": int(kernels and not tc)}
@@ -707,7 +767,8 @@ def _flash_gradient_cases(g, rows, failures):
     """Kernels 3-5: the bounded LSE forward (out, lse2) against its plain
     version, out before its final rounding (bf16 on the tensor cores,
     ``flash_attention_lse``, timed beside the CUDA-core template on the same
-    inputs, ``core_ms``; float32 on the template, ``flash_attention_lse_core``),
+    inputs, ``core_ms``; float32 on the float32 kernel, ``flash_attention_lse_f32``,
+    lse2 within 1e-5 relative, or at d = 512 the template, ``flash_attention_lse_core``),
     and dq, dk / dv of the backward kernels (``flash_attention_backward_cuda``)
     against the plain backward on the same inputs, fed that forward's out and
     lse2, before its final rounding (``out_dtype=float32``).  bf16 at the
@@ -739,7 +800,8 @@ def _flash_gradient_cases(g, rows, failures):
         bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
         es = q.element_size()
         tc = flash.bwd_entry(dtype, d)[0].endswith("_tc")
-        tc_lse = flash.lse_entry(dtype).endswith("_tc")
+        lse_suffix, form_lse = _route(flash.lse_entry(dtype, d))
+        tc_lse = lse_suffix == ""
         rel = F32_TOL if dtype == torch.float32 else BF16_ULP
         finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
 
@@ -765,17 +827,19 @@ def _flash_gradient_cases(g, rows, failures):
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
 
         err_o, tol_o = gap(out, want_out)
-        err_l = (lse2 - want_lse).abs().max().item()
-        # float32: 1e-4 of the largest; bf16: a rounding of one p that falls
-        # the other way moves a row's sum by at most one ulp of its largest term
-        tol_l = (F32_TOL * want_lse.abs().max().item() if dtype == torch.float32
-                 else math.log2(1 + BF16_ULP))
+        # float32: 1e-5 relative to each row's lse2 (float32 ulps of values of
+        # ~10); bf16: a rounding of one p that falls the other way moves a
+        # row's sum by at most one ulp of its largest term
+        if dtype == torch.float32:
+            err_l, tol_l = ((lse2 - want_lse).abs() / want_lse.abs()).max().item(), 1e-5
+        else:
+            err_l, tol_l = (lse2 - want_lse).abs().max().item(), math.log2(1 + BF16_ULP)
         bound_ms, by = bound(es * bh * d * 2 * (sq + sk) + 4 * bh * sq,
                              (4 * bh * sq * sk * d, dtype))
-        form_lse = "tensor cores" if tc_lse else "CUDA cores"
-        print(f"flash lse ({form_lse}) {label}: lse2 max_abs_err {err_l:.3e} (tol {tol_l:.3g})")
+        kind = "rel" if dtype == torch.float32 else "abs"
+        print(f"flash lse ({form_lse}) {label}: lse2 max_{kind}_err {err_l:.3e} (tol {tol_l:.3g})")
         core = {"core_ms": _lse_template_ms(q, k, v)} if tc_lse else {}
-        _row(rows, failures, "flash_attention_lse" + ("" if tc_lse else "_core"),
+        _row(rows, failures, "flash_attention_lse" + lse_suffix,
              f"flash lse ({form_lse}) {label}",
              err_o <= tol_o and err_l <= tol_l and finite(out, lse2), max_abs_err=err_o,
              tol=tol_o, ms=cuda_ms(lambda: flash.flash_attention_lse_cuda(q, k, v)),
@@ -1366,7 +1430,9 @@ def phase_probes(rows):
     variants = tuple(f"flash_variant_{v}" for v in "abc")
     for name, launched, idle in (
             ("flash_nhd_variants", tc + ("flash_packed_bounded",), core),
-            ("flash_nhd_variants_f32", core + ("flash_packed_bounded_core",), tc),
+            ("flash_nhd_variants_f32",
+             core + ("flash_packed_bounded" + _route(flash.bounded_entry(torch.float32, True,
+                                                                         40))[0],), tc),
             ("flash_v4_variants", ("flash_exp2_t", "flash_attention_exact"),
              ("flash_exp2_t_core",)),
             ("flash_v4_variants_f32", ("flash_exp2_t_core", "flash_attention_exact_core"),
@@ -1524,6 +1590,7 @@ def phase_nmg_path(pipe, images, ids):
     # tokens, autograd of reference_attention for the 5 of 1024 (JAX's
     # _BWD_MIN_SEQ); never a CUDA-core template
     nmg_routed = {"flash_attention_lse": 10 * STEPS, "flash_attention_lse_core": 0,
+                  "flash_attention_lse_f32": 0,
                   "flash_bwd_dq": 5 * STEPS, "flash_bwd_dkv": 5 * STEPS,
                   "flash_bwd_dq_core": 0, "flash_bwd_dkv_core": 0}
     print(f"NMG path gradient launches: {json.dumps({n: counts[n] for n in BWD_NAMES})} "
@@ -1734,13 +1801,13 @@ def phase_exact_path():
 
 def phase_golden(pipe):
     """README golden numerics on the card, SD-1.5 widths in float32, then the
-    edit decoded: the float32 path of the CUDA-core bounded template (the
-    UNet's packed self-attentions), its launches counted from 0.  The VAE's
+    edit decoded: the float32 bounded kernel (``csrc/flash_attention_f32.cu``)
+    for the UNet's packed self-attentions, its launches counted from 0.  The VAE's
     one-head attention at 512 px (4096 tokens, 16 MiB of float32 K/V) is
     outside the K/V budget and takes ``reference_attention``, as on the TPU;
     the edit decoded once more at 256 px (a 32 x 32 latent: 1024 tokens,
-    4 MiB) takes the template's head-split bounded forward.  Returns (counts,
-    failures)."""
+    4 MiB) takes the CUDA-core template's head-split bounded forward at
+    d = 512.  Returns (counts, failures)."""
     g = torch.Generator(device="cuda").manual_seed(11)
     x0 = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
     xts = sample_xts_from_x0(pipe.schedule, x0, g)[None]
@@ -1762,15 +1829,17 @@ def phase_golden(pipe):
     err = (edited - xts[:, 0]).abs().max().item()
     finite = bool(torch.isfinite(image).all()) and bool(torch.isfinite(small).all())
     ok = (err <= GOLDEN_TOL and finite and at_512 == 0 and counts["flash_attention_core"] == 1
-          and counts["flash_packed_bounded_core"] == 2 * 10 * STEPS
+          and counts["flash_packed_bounded_f32"] == 2 * 10 * STEPS
+          and counts["flash_packed_bounded_core"] == counts["flash_attention_f32"] == 0
           and counts["flash_attention"] == counts["flash_packed_bounded"] == 0)
     print(f"golden identity (f32, TF32 off, {STEPS} steps, {time.perf_counter() - t0:.1f} s): "
           f"max|edited - xts[0]| {err:.3e} (tol {GOLDEN_TOL:g}); decoded {list(image.shape)} "
-          f"and {list(small.shape)} finite={finite}; CUDA-core bounded launches head-split "
+          f"and {list(small.shape)} finite={finite}; template bounded launches head-split "
           f"{at_512} at 512 px (predicted 0: outside the K/V budget) and "
-          f"{counts['flash_attention_core'] - at_512} at 256 px (predicted 1), packed "
-          f"{counts['flash_packed_bounded_core']} (predicted {2 * 10 * STEPS}: two UNet calls "
-          f"a step x 10), tensor-core "
+          f"{counts['flash_attention_core'] - at_512} at 256 px (predicted 1: d = 512), packed "
+          f"{counts['flash_packed_bounded_core']} (predicted 0); float32 kernel packed "
+          f"{counts['flash_packed_bounded_f32']} (predicted {2 * 10 * STEPS}: two UNet calls "
+          f"a step x 10), head-split {counts['flash_attention_f32']} (predicted 0); tensor-core "
           f"{counts['flash_attention']} / {counts['flash_packed_bounded']} (predicted 0) "
           f"{'OK' if ok else 'FAIL'}")
     return counts, [] if ok else [f"golden identity error {err:.3e}, launches {counts}"]
@@ -1813,9 +1882,9 @@ def phase_unet_gradient(pipe):
     substituted = read_launches() == counts
     rel = ((grad_k - grad_p).abs().max() / grad_p.abs().max()).item()
     rel_eps = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
-    launched = (all(counts[k] > 0 for k in ("groupnorm", "flash_attention_lse_core",
+    launched = (all(counts[k] > 0 for k in ("groupnorm", "flash_attention_lse_f32",
                                             "flash_bwd_dq_core", "flash_bwd_dkv_core"))
-                and counts["flash_attention_lse"] == 0
+                and counts["flash_attention_lse"] == counts["flash_attention_lse_core"] == 0
                 and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0)
     ok = (rel <= UNET_GRAD_TOL and substituted and launched
           and bool(torch.isfinite(grad_k).all()))
@@ -1859,11 +1928,12 @@ def phase_nmg_identity(pipe):
     print(f"NMG identity (f32, TF32 off, {STEPS} steps, loop {t1 - t0:.1f} s): max|x_edit - "
           f"DDIM sampling| / max|x| {err:.3e} (tol {NMG_EDIT_TOL:g}; max|x| {scale:.3e}) "
           f"{'OK' if ok else 'FAIL'}")
-    # float32: the CUDA-core LSE forward, 10 layers a step, and the
-    # CUDA-core backward for the 5 of 4096 tokens (autograd of
+    # float32: the float32 LSE kernel, 10 layers a step (d = 40 and 80), and
+    # the CUDA-core backward for the 5 of 4096 tokens (autograd of
     # reference_attention for the 5 of 1024)
     bwd = {n: counts[n] for n in BWD_NAMES}
-    routed = {"flash_attention_lse": 0, "flash_attention_lse_core": 10 * STEPS,
+    routed = {"flash_attention_lse": 0, "flash_attention_lse_core": 0,
+              "flash_attention_lse_f32": 10 * STEPS,
               "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_core": 5 * STEPS,
               "flash_bwd_dkv_core": 5 * STEPS}
     print(f"NMG identity launches: {bwd} (predicted {routed})")
@@ -1947,7 +2017,7 @@ def phase_masactrl_identity(pipe):
     scale = inv.xts.abs().max().item()
     err = (edited - inv.xts[:, 0]).abs().max().item() / scale
     ok = (err <= GOLDEN_TOL and bool(torch.isfinite(edited).all())
-          and counts["flash_packed_bounded_core"] > 0)
+          and counts["flash_packed_bounded_f32"] > 0)
     print(f"MasaCtrl identity (f32, TF32 off, {STEPS} + {STEPS} steps, "
           f"{time.perf_counter() - t0:.1f} s): max|edited - xts[0]| / max|xts| {err:.3e} "
           f"(tol {GOLDEN_TOL:g}; max|xts| {scale:.3e}); loop launches {json.dumps(counts)} "
@@ -1964,6 +2034,7 @@ KERNEL_CLASSES = (("flash LSE forward (tensor cores)",
                   ("flash kernel (tensor cores)", r"flash_fwd_tc_kernel"),
                   ("flash backward (tensor cores)", r"flash_bwd_(dq|dkv)_tc_kernel"),
                   ("flash backward (CUDA cores)", r"flash_bwd_(dq|dkv)_kernel"),
+                  ("flash forward (CUDA cores, float32 kernel)", r"flash_fwd_f32_kernel"),
                   ("flash forward (CUDA cores)", r"flash_fwd_kernel"),
                   ("GroupNorm kernel", r"gn_slice_kernel|gn_apply_kernel"),
                   ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
@@ -2158,6 +2229,7 @@ def main(argv=None) -> int:
                                       "hedit_tpu_torch/csrc/flash_attention_bwd_tc.cu",
                                       "hedit_tpu_torch/csrc/flash_probes_tc.cu")
     tc_route = "cuda"
+    f32_cu = "hedit_tpu_torch/csrc/flash_attention_f32.cu"
     fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                                  "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "hedit_tpu_torch/csrc/flash_probes.cu")
@@ -2171,7 +2243,7 @@ def main(argv=None) -> int:
         entry("groupnorm_streamed", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100",
               "flagship"),
         entry("flash_attention_lse", tc_route, tc_cu, f"{jax_flash}:464", "nmg"),
-        entry("flash_attention_lse_core", "cuda", fwd_cu, f"{jax_flash}:464", "nmg_f32"),
+        entry("flash_attention_lse_f32", "cuda", f32_cu, f"{jax_flash}:464", "nmg_f32"),
         entry("flash_bwd_dq", tc_route, bwd_tc_cu, f"{jax_flash}:553", "nmg"),
         entry("flash_bwd_dkv", tc_route, bwd_tc_cu, f"{jax_flash}:593", "nmg"),
         entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "nmg_f32"),
@@ -2182,7 +2254,7 @@ def main(argv=None) -> int:
         entry("flash_packed_core", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
         entry("flash_packed_bounded", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
         entry("flash_attention_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
-        entry("flash_packed_bounded_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
+        entry("flash_packed_bounded_f32", "cuda", f32_cu, f"{jax_flash}:220", "golden_f32"),
         entry("flash_packed_t", "cuda", probes_tc_cu, "scripts/flash_nhd_variants.py:93",
               "flash_nhd_variants"),
         entry("flash_packed_t_core", "cuda", probes_cu, "scripts/flash_nhd_variants.py:93",

@@ -48,6 +48,11 @@ ARGTYPES = {
     "hedit_flash_attention_fwd_packed_bounded_tc": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
     # hedit_flash_attention_fwd_lse in bf16 on the tensor cores, the same arguments
     "hedit_flash_attention_fwd_lse_tc": [_P] * 5 + [_I] * 6 + [_P],
+    # the three bounded entries in float32 at d = 40 / 80 (flash_attention_f32.cu),
+    # the same arguments
+    "hedit_flash_attention_fwd_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "hedit_flash_attention_fwd_packed_bounded_f32": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
+    "hedit_flash_attention_fwd_lse_f32": [_P] * 5 + [_I] * 6 + [_P],
     # hedit_flash_attention_fwd_exact and ..._packed in bf16 on the tensor
     # cores, the same arguments
     "hedit_flash_attention_fwd_exact_tc": [_P] * 4 + [_I] * 5 + [_P],

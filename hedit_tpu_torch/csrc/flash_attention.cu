@@ -1,26 +1,30 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores (float32
 // FMAs): softmax(q k^T / sqrt(d)) v, optionally with the per-query base-2
 // log-sum-exp as a second output, in one of two softmax modes chosen at
-// compile time (Mode below).  It serves float32 inputs of rows 1, 3, 6 and
-// 7; bf16 inputs of every row go to the tensor-core kernel of
-// flash_attention_tc.cu (the wrappers dispatch by dtype).  The bounded
-// mode's bf16 instantiation stays for side-by-side timings only
-// (chip_smoke.py launches its LSE entry by its entry point; no wrapper
-// does); the exact mode takes float32 only.
+// compile time (Mode below).  It serves float32 inputs of rows 6 and 7, and
+// of rows 1 and 3 at the VAE's d = 512; float32 rows 1 and 3 at d = 40 and
+// 80 run flash_attention_f32.cu, bf16 inputs of every row the tensor-core
+// kernel of flash_attention_tc.cu (the wrappers dispatch by dtype and head
+// dim).  The bounded mode's bf16 instantiation stays for side-by-side
+// timings only (chip_smoke.py launches its LSE entry by its entry point; no
+// wrapper does); the exact mode takes float32 only.
 //
 // Bounded (max-free) replaces the TPU kernels of
 // hedit_tpu/ops/flash_attention.py
-//   row 1 in float32: _flash_bounded_kernel (wrapper flash_attention_bounded,
+//   row 1 in float32 at d = 512: _flash_bounded_kernel (wrapper flash_attention_bounded,
 //          reached through hedit_tpu/ops/attention.py:fused_attention); entry
 //          point hedit_flash_attention_fwd, wrapper flash_attention_cuda;
-//   row 3 in float32: _flash_bounded_lse_kernel (wrapper
+//   row 3 in float32 at d = 512: _flash_bounded_lse_kernel (wrapper
 //          _flash_bounded_fwd_lse, the forward of flash_attention_diff on the
 //          NMG path); entry point hedit_flash_attention_fwd_lse, wrapper
 //          flash_attention_lse_cuda;
-// and, on packed heads (below), row 1 in float32 as the paths reach it: JAX
-// sends every UNet self-attention of >= 1024 tokens to flash_attention_diff,
-// whose primal is row 1; entry point hedit_flash_attention_fwd_packed_bounded,
-// wrapper flash_attention_packed_bounded_cuda.
+// and, on packed heads (below), row 1 in float32 at d = 512 (on no path:
+// JAX sends every UNet self-attention of >= 1024 tokens to
+// flash_attention_diff, whose primal is row 1, at d = 40 and 80); entry point
+// hedit_flash_attention_fwd_packed_bounded, wrapper
+// flash_attention_packed_bounded_cuda.  The bounded float32 instances at
+// d = 40 and 80 are gone: flash_attention_f32.cu computes the anchor window's
+// scores once, where this prologue computes them twice (below).
 // A prologue takes each query row's max m0 over its anchor window, the first
 // `anchor` keys (the key block the JAX wrapper picks at that shape, passed in
 // by the wrapper; not this kernel's own key tile, or the saturation would
@@ -69,8 +73,9 @@
 // image dense, the images of q, k and v a batch stride apart (so a row slice
 // of a larger batch needs no copy); out dense.  Any Sq, Sk
 // >= 1 (ragged tails are masked here); D is one of the head dims of SD-1.5:
-// 40 and 80 (UNet self-attention) or 512 (VAE mid-block).  Each has its own
-// tile shape below, and any other D is refused.
+// 40 and 80 (UNet self-attention) or 512 (VAE mid-block), in the bounded
+// mode in float32 512 only.  Each has its own tile shape below, and any other
+// D is refused.
 //
 // In both modes the scale 1/sqrt(d) * log2(e) is folded into q, so scores
 // are in base 2 and every exponential is an exp2.
@@ -99,6 +104,7 @@
 // consecutive lanes of one warp, so row max and row sum are warp shuffles.
 
 #include <cmath>
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -349,15 +355,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 // keys, 4 x 8 scores and 4 x d/8 outputs a thread.  d=512 (the VAE mid
 // block): 16 queries x 32 keys, 4 x 1 scores and 4 x 16 outputs a thread,
 // which keeps shared memory under 170 KB.
+// The bounded mode in float32 keeps d = 512 only (forward() refuses 40 and
+// 80, which flash_attention_f32.cu serves), so those two are not instantiated.
 template <typename T, Mode M>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
                      const Layout& lay, int sq, int sk, int d, int anchor, cudaStream_t s) {
-  switch (d) {
-    case 40: return launch<T, M, 16, 8, 4, 8, 5>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
-    case 80: return launch<T, M, 16, 8, 4, 8, 10>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
-    case 512: return launch<T, M, 4, 32, 4, 1, 16>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
-    default: return cudaErrorInvalidValue;
+  constexpr bool kUnetDims = !(std::is_same<T, float>::value && M == Mode::Bounded);
+  if constexpr (kUnetDims) {
+    if (d == 40) return launch<T, M, 16, 8, 4, 8, 5>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
+    if (d == 80) return launch<T, M, 16, 8, 4, 8, 10>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
   }
+  if (d == 512) return launch<T, M, 4, 32, 4, 1, 16>(q, k, v, out, lse, lay, sq, sk, d, anchor, s);
+  return cudaErrorInvalidValue;
 }
 
 // anchor: the bounded mode's anchor window (>= 1); the exact mode reads none.
@@ -367,6 +376,7 @@ int forward(const void* q, const void* k, const void* v, void* out, float* lse,
   if (lay.bh < 1 || sq < 1 || sk < 1 || lay.bh > 65535) return -1;
   if (d != 40 && d != 80 && d != 512) return -1;
   if (M == Mode::Bounded && anchor < 1) return -1;
+  if (M == Mode::Bounded && dtype == 0 && d != 512) return -1;  // flash_attention_f32.cu
   if (!rows_fit(lay, sq, sk)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

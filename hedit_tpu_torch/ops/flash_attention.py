@@ -1,7 +1,7 @@
 """Flash attention, forward and backward: hand-written CUDA kernels and
 their plain versions.
 
-Port of ``hedit_tpu/ops/flash_attention.py``.  Two CUDA forward sources:
+Port of ``hedit_tpu/ops/flash_attention.py``.  Three CUDA forward sources:
 
 * ``csrc/flash_attention_tc.cu``: the forwards in bfloat16 on the tensor
   cores (``mma.sync``).  The **bounded** (max-free) mode: the TPU kernels
@@ -15,8 +15,14 @@ Port of ``hedit_tpu/ops/flash_attention.py``.  Two CUDA forward sources:
   over key tiles of ``exact_key_tile(D)`` and the rescale: the TPU kernels
   ``_flash_kernel`` and ``_flash_packed_kernel``, on no path of either
   package), with their bf16 roundings of q * scale and p.
+* ``csrc/flash_attention_f32.cu``: the bounded mode (with or without the
+  log-sum-exp) in **float32** at the UNet's head dims 40 and 80
+  (``F32_HEAD_DIMS``), the CLIs' default precision, on the CUDA cores
+  (float32 FMAs): the anchor window's scores computed once and kept on
+  chip, as the TPU kernel keeps block 0's.
 * ``csrc/flash_attention.cu``: one CUDA-core template (float32 FMAs) that
-  serves both modes for **float32** inputs.
+  serves both modes for the other **float32** inputs: the exact mode, and
+  the bounded one at the VAE's d = 512.
 
 The wrappers:
 
@@ -26,12 +32,15 @@ The wrappers:
   projections ``[B, S, H*D]``, heads addressed in the kernel: every UNet
   self-attention without a gradient on the paths (JAX sends those to
   ``flash_attention_diff``, whose primal is ``_flash_bounded_kernel``).
-  Both send a bf16 CUDA input to the tensor-core kernel and a float32 one to
-  the CUDA-core template (``bounded_entry``); the tensor-core kernel's
-  operands must pass ``check_tc_operands``;
+  Both send a bf16 CUDA input to the tensor-core kernel, a float32 one at
+  d = 40 / 80 to ``csrc/flash_attention_f32.cu`` and at d = 512 to the
+  CUDA-core template (``bounded_entry``); the tensor-core kernel's operands
+  must pass ``check_tc_operands``, the float32 kernel's
+  ``check_f32_operands``;
 * ``flash_attention_lse_cuda``: the bounded forward with the base-2
   log-sum-exp ``lse2 = shift + log2(denom)`` of each row (bf16 on the tensor
-  cores, float32 on the template, by ``lse_entry``), the forward of
+  cores, float32 at d = 40 / 80 on ``csrc/flash_attention_f32.cu``, at
+  d = 512 on the template, by ``lse_entry``), the forward of
   ``flash_attention_diff``.  Its backward (``flash_diff_backward``) routes
   as JAX's ``_flash_diff_bwd`` does on the TPU: where the K/V pairs fit
   ``flash_kv_fits`` and both lengths reach ``_BWD_MIN_SEQ``, a dq and a
@@ -78,16 +87,19 @@ from typing import Optional, Tuple
 import torch
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
-launches = 0          # bounded forward without the log-sum-exp, head-split, CUDA cores
+launches = 0          # bounded forward without the log-sum-exp, head-split, template
 launches_tc = 0       # the same in bf16 on the tensor cores
 launches_exact = 0    # exact forward, head-split, CUDA cores (float32)
 launches_exact_tc = 0   # the same in bf16 on the tensor cores
 launches_packed = 0   # exact forward on packed heads, CUDA cores (float32)
 launches_packed_tc = 0  # the same in bf16 on the tensor cores
-launches_packed_bounded = 0      # bounded forward on packed heads, CUDA cores
+launches_packed_bounded = 0      # bounded forward on packed heads, template
 launches_packed_bounded_tc = 0   # the same in bf16 on the tensor cores
-launches_lse = 0      # bounded forward with the log-sum-exp, CUDA cores (float32)
+launches_lse = 0      # bounded forward with the log-sum-exp, template (float32, d = 512)
 launches_lse_tc = 0   # the same in bf16 on the tensor cores
+launches_f32 = 0                  # bounded forward, head-split, float32 at d = 40 / 80
+launches_packed_bounded_f32 = 0   # the same on packed heads
+launches_lse_f32 = 0              # the same with the log-sum-exp
 launches_bwd_dq = 0      # backward dq, CUDA cores (float32; bf16 at d = 512)
 launches_bwd_dkv = 0     # backward dk / dv, CUDA cores
 launches_bwd_dq_tc = 0   # backward dq in bf16 on the tensor cores (d = 40, 80)
@@ -108,6 +120,14 @@ DENOM_FLOOR = 1.2e-38
 # address a multiple of 16 bytes, every element stride a multiple of 8
 TC_ALIGN_BYTES = 16
 TC_STRIDE_MULTIPLE = 8
+# the float32 bounded kernel (``csrc/flash_attention_f32.cu``): its head
+# dims; it copies rows 16 bytes at a time (every operand's address a multiple
+# of 16 bytes, every element stride a multiple of 4) and keeps at most
+# ``F32_WINDOW`` anchor keys on chip
+F32_HEAD_DIMS = (40, 80)
+F32_ALIGN_BYTES = 16
+F32_STRIDE_MULTIPLE = 4
+F32_WINDOW = 512
 
 # JAX's K/V residency budget and its backward threshold, copied with their
 # names and values (``hedit_tpu/ops/flash_attention.py``; the port imports
@@ -144,17 +164,20 @@ def bwd_takes_kernels(sq: int, sk: int, d: int, itemsize: int, interpret: bool) 
     return fits and (min(sq, sk) >= _BWD_MIN_SEQ or interpret)
 
 
-def bounded_entry(dtype: torch.dtype, packed: bool) -> str:
+def bounded_entry(dtype: torch.dtype, packed: bool, d: int) -> str:
     """The CUDA entry point of the bounded forward for an input of ``dtype``
-    (head-split or ``packed`` heads): bfloat16 the tensor-core kernel
-    (``csrc/flash_attention_tc.cu``), float32 the CUDA-core template
-    (``csrc/flash_attention.cu``).  Raises for any other dtype."""
+    and head dim ``d`` (head-split or ``packed`` heads): bfloat16 the
+    tensor-core kernel (``csrc/flash_attention_tc.cu``), float32 at
+    ``F32_HEAD_DIMS`` the float32 kernel (``csrc/flash_attention_f32.cu``),
+    other float32 the CUDA-core template (``csrc/flash_attention.cu``).
+    Raises for any other dtype."""
     if dtype == torch.bfloat16:
         return ("hedit_flash_attention_fwd_packed_bounded_tc" if packed
                 else "hedit_flash_attention_fwd_tc")
     if dtype == torch.float32:
-        return ("hedit_flash_attention_fwd_packed_bounded" if packed
-                else "hedit_flash_attention_fwd")
+        entry = ("hedit_flash_attention_fwd_packed_bounded" if packed
+                 else "hedit_flash_attention_fwd")
+        return entry + "_f32" if d in F32_HEAD_DIMS else entry
     raise ValueError(f"the bounded forward takes float32 or bfloat16, got {dtype}")
 
 
@@ -171,15 +194,14 @@ def exact_entry(dtype: torch.dtype, packed: bool) -> str:
     raise ValueError(f"the exact forward takes float32 or bfloat16, got {dtype}")
 
 
-def lse_entry(dtype: torch.dtype) -> str:
+def lse_entry(dtype: torch.dtype, d: int) -> str:
     """The CUDA entry point of the bounded forward with the log-sum-exp for
-    an input of ``dtype``: bfloat16 the tensor-core kernel
-    (``csrc/flash_attention_tc.cu``), float32 the CUDA-core template
-    (``csrc/flash_attention.cu``).  Raises for any other dtype."""
+    an input of ``dtype`` and head dim ``d``, chosen as ``bounded_entry``
+    chooses.  Raises for any other dtype."""
     if dtype == torch.bfloat16:
         return "hedit_flash_attention_fwd_lse_tc"
     if dtype == torch.float32:
-        return "hedit_flash_attention_fwd_lse"
+        return "hedit_flash_attention_fwd_lse" + ("_f32" if d in F32_HEAD_DIMS else "")
     raise ValueError(f"the LSE forward takes float32 or bfloat16, got {dtype}")
 
 
@@ -199,22 +221,46 @@ def bwd_entry(dtype: torch.dtype, d: int) -> Tuple[str, str]:
     raise ValueError(f"the backward takes float32 or bfloat16, got {dtype}")
 
 
+def _check_copies(what: str, head_dims, align: int, multiple: int, d: int, addresses,
+                  strides) -> None:
+    """Raise unless ``what`` (kernels that copy 16 bytes at a time) takes
+    head dim ``d``, every address a multiple of ``align`` bytes and every
+    element stride a multiple of ``multiple``."""
+    if d not in head_dims:
+        raise ValueError(f"{what} take head dims {head_dims}, got {d}")
+    bad = [a for a in addresses if a % align]
+    if bad:
+        raise ValueError(f"{what} need {align}-byte aligned operands, got addresses "
+                         f"{[hex(a) for a in bad]}")
+    bad = [s for s in strides if s % multiple]
+    if bad:
+        raise ValueError(f"{what} need element strides that are multiples of {multiple}, "
+                         f"got {bad}")
+
+
 def check_tc_operands(d: int, addresses, strides) -> None:
     """Raise unless a tensor-core kernel takes these operands: head dim
     ``d`` one of ``HEAD_DIMS``, every address (``data_ptr()``) a multiple of
     ``TC_ALIGN_BYTES`` and every element stride a multiple of
     ``TC_STRIDE_MULTIPLE``.  The kernels refuse the same; the wrappers raise
     first, and never fall back to the CUDA-core template."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the tensor-core kernels take head dims {HEAD_DIMS}, got {d}")
-    bad = [a for a in addresses if a % TC_ALIGN_BYTES]
-    if bad:
-        raise ValueError(f"the tensor-core kernels need {TC_ALIGN_BYTES}-byte aligned "
-                         f"operands, got addresses {[hex(a) for a in bad]}")
-    bad = [s for s in strides if s % TC_STRIDE_MULTIPLE]
-    if bad:
-        raise ValueError(f"the tensor-core kernels need element strides that are multiples "
-                         f"of {TC_STRIDE_MULTIPLE}, got {bad}")
+    _check_copies("the tensor-core kernels", HEAD_DIMS, TC_ALIGN_BYTES, TC_STRIDE_MULTIPLE, d,
+                  addresses, strides)
+
+
+def check_f32_operands(d: int, addresses, strides, window: int) -> None:
+    """Raise unless the float32 kernel (``csrc/flash_attention_f32.cu``)
+    takes these operands: head dim ``d`` one of ``F32_HEAD_DIMS``, every
+    address (``data_ptr()``) a multiple of ``F32_ALIGN_BYTES``, every element
+    stride a multiple of ``F32_STRIDE_MULTIPLE`` and the anchor window
+    ``min(anchor, Sk)`` at most ``F32_WINDOW`` keys.  The kernel refuses the
+    same; the wrappers raise first, and never fall back to the template or a
+    plain version."""
+    _check_copies("the float32 kernels", F32_HEAD_DIMS, F32_ALIGN_BYTES, F32_STRIDE_MULTIPLE, d,
+                  addresses, strides)
+    if not 1 <= window <= F32_WINDOW:
+        raise ValueError(f"the float32 kernels keep 1 to {F32_WINDOW} anchor keys on chip, "
+                         f"got a window of {window}")
 
 
 def bounded_anchor(sk: int, d: int) -> int:
@@ -450,16 +496,23 @@ def _launch(name: str, q: torch.Tensor, pointers, ints) -> None:
 
 
 def _launch_forward(entry: str, counter: str, q: torch.Tensor, pointers, ints, d: int,
-                    strides) -> None:
+                    strides, window: int = 0) -> None:
     """Launch forward entry point ``entry`` on ``pointers`` (q, k, v, out[,
     lse2]) and count it in the module's ``counter``, or in ``counter +
-    "_tc"`` for a tensor-core entry, whose q, k, v and out must first pass
-    ``check_tc_operands`` with the element ``strides`` of the layout."""
-    tc = entry.endswith("_tc")
-    if tc:
-        check_tc_operands(d, [t.data_ptr() for t in pointers[:4]], strides)
+    "_tc"`` for a tensor-core entry and ``counter + "_f32"`` for the float32
+    kernel's, whose q, k, v and out must first pass ``check_tc_operands`` /
+    ``check_f32_operands`` with the element ``strides`` of the layout (and,
+    for the float32 kernel, the anchor ``window`` min(anchor, Sk))."""
+    addresses = [t.data_ptr() for t in pointers[:4]]
+    suffix = ""
+    if entry.endswith("_tc"):
+        check_tc_operands(d, addresses, strides)
+        suffix = "_tc"
+    elif entry.endswith("_f32"):
+        check_f32_operands(d, addresses, strides, window)
+        suffix = "_f32"
     _launch(entry, q, pointers, ints)
-    globals()[counter + "_tc" if tc else counter] += 1
+    globals()[counter + suffix] += 1
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -471,8 +524,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
         return flash_attention_bounded_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_cuda")
     out = torch.empty_like(q)
-    _launch_forward(bounded_entry(q.dtype, packed=False), "launches", q, (q, k, v, out),
-                    (b * h, sq, sk, d, bounded_anchor(sk, d)), d, [sq * d, sk * d, d])
+    anchor = bounded_anchor(sk, d)
+    _launch_forward(bounded_entry(q.dtype, False, d), "launches", q, (q, k, v, out),
+                    (b * h, sq, sk, d, anchor), d, [sq * d, sk * d, d], min(anchor, sk))
     return out
 
 
@@ -553,8 +607,9 @@ def flash_attention_packed_bounded_cuda(q: torch.Tensor, k: torch.Tensor, v: tor
     if anchor < 1:
         raise ValueError(f"anchor must be positive, got {anchor}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_forward(bounded_entry(q.dtype, packed=True), "launches_packed_bounded", q,
-                    (q, k, v, out), (b, h, sq, sk, d, anchor, *strides), d, [h * d, *strides])
+    _launch_forward(bounded_entry(q.dtype, True, d), "launches_packed_bounded", q,
+                    (q, k, v, out), (b, h, sq, sk, d, anchor, *strides), d, [h * d, *strides],
+                    min(anchor, sk))
     return out
 
 
@@ -563,15 +618,17 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """The bounded forward with its second output: (out, lse2 [B*H, 1, Sq]
     float32).  CPU tensors take ``flash_attention_lse_reference``; a CUDA
     tensor launches the kernel of ``lse_entry`` (bf16 on the tensor cores,
-    whose operands must pass ``check_tc_operands``), otherwise as
+    whose operands must pass ``check_tc_operands``; float32 at d = 40 / 80
+    the float32 kernel, ``check_f32_operands``), otherwise as
     ``flash_attention_cuda``."""
     if _on_cpu(q, k, v):
         return flash_attention_lse_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_lse_cuda")
     out = torch.empty_like(q)
     lse2 = torch.empty((b * h, 1, sq), dtype=torch.float32, device=q.device)
-    _launch_forward(lse_entry(q.dtype), "launches_lse", q, (q, k, v, out, lse2),
-                    (b * h, sq, sk, d, bounded_anchor(sk, d)), d, [sq * d, sk * d, d])
+    anchor = bounded_anchor(sk, d)
+    _launch_forward(lse_entry(q.dtype, d), "launches_lse", q, (q, k, v, out, lse2),
+                    (b * h, sq, sk, d, anchor), d, [sq * d, sk * d, d], min(anchor, sk))
     return out, lse2
 
 

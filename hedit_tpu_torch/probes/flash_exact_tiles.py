@@ -140,7 +140,8 @@ def timings(mine, parent) -> None:
             core, _ = _call(parent, "hedit_flash_attention_fwd_packed" if packed
                             else "hedit_flash_attention_fwd_exact", q, k, v, heads)
             turns = [("parent template", core), *turns, *turns, ("parent template", core)]
-        bounded, _ = _call(mine, flash.bounded_entry(torch.bfloat16, packed), q, k, v, heads)
+        bounded, _ = _call(mine, flash.bounded_entry(torch.bfloat16, packed, d), q, k, v,
+                            heads)
         views = [_split(t, h) for t in (q, k, v)] if packed else (q, k, v)
         ms = [best_ms(fn) for _, fn in turns]
         b_ms = best_ms(bounded)
@@ -187,9 +188,9 @@ def identity(mine, parent, exact=False) -> bool:
     for i, (b, h, sq, sk, d, packed, saturate) in enumerate(IDENTITY_CASES):
         q, k, v = _inputs(b, h, sq, sk, d, packed, seed=i, saturate=saturate)
         heads = h if packed else None
-        entries = [(flash.bounded_entry(torch.bfloat16, packed), False)]
+        entries = [(flash.bounded_entry(torch.bfloat16, packed, d), False)]
         if not packed:
-            entries.append((flash.lse_entry(torch.bfloat16), True))
+            entries.append((flash.lse_entry(torch.bfloat16, d), True))
         if exact:
             entries.append((flash.exact_entry(torch.bfloat16, packed), False))
         for entry, lse in entries:

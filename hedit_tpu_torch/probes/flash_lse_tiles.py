@@ -21,8 +21,10 @@ CUDA-core template's entry point ``hedit_flash_attention_fwd_lse`` in bf16
 example ``git archive <commit> | tar -x -C DIR``); its CUDA-core forward
 template (``csrc/flash_attention.cu``) is built beside this tree's and both
 are timed in turns (parent, this, this, parent) at ``TEMPLATE_CASES``: the
-LSE entry (row 3 on the float32 paths) and the exact entries (rows 6 and 7
-at their callers' shapes; bf16 takes the tensor cores), in float32.
+LSE entry at the VAE's d = 512 (the template's float32 LSE instances at
+d = 40 / 80 went to ``csrc/flash_attention_f32.cu``, timed against the
+parent's by ``flash_f32_tiles``) and the exact entries (rows 6 and 7 at
+their callers' shapes; bf16 takes the tensor cores), in float32.
 """
 
 from __future__ import annotations
@@ -56,8 +58,7 @@ VARIANTS = (
 SHAPES = (((1, 8, 4096, 40), 4096), ((1, 8, 1024, 80), 1024), ((1, 1, 4096, 512), 4096))
 ENTRY = "hedit_flash_attention_fwd_lse_tc"
 # (entry point, q shape [B, H, S, D], Sk, dtype) of the template's timings
-TEMPLATE_CASES = (("hedit_flash_attention_fwd_lse", (1, 8, 4096, 40), 4096, torch.float32),
-                  ("hedit_flash_attention_fwd_lse", (1, 1, 4096, 512), 4096, torch.float32),
+TEMPLATE_CASES = (("hedit_flash_attention_fwd_lse", (1, 1, 4096, 512), 4096, torch.float32),
                   ("hedit_flash_attention_fwd_exact", (8, 8, 4096, 40), 4096, torch.float32),
                   ("hedit_flash_attention_fwd_packed", (8, 8, 4096, 40), 4096, torch.float32))
 

@@ -5,8 +5,9 @@ The kernel (``hedit_tpu_torch/csrc/flash_attention_tc.cu``) runs only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
 * the dispatch by dtype (``bounded_entry``, ``exact_entry``): bf16 to the
-  tensor-core entry points, float32 to the CUDA-core template, anything else
-  refused;
+  tensor-core entry points, float32 to the CUDA-core template (the bounded
+  mode at the VAE's d = 512; at d = 40 / 80 it takes the float32 kernel,
+  ``tests/test_torch_flash_f32.py``), anything else refused;
 * the operand check (``check_tc_operands``): head dims, 16-byte alignment
   and strides that are multiples of 8, as values;
 * the C entry points' parameter lists against the ``ctypes`` argument types
@@ -75,15 +76,15 @@ def _share_cores():
 def test_bounded_entry_sends_bf16_to_the_tensor_cores(dtype, entry, packed):
     """bf16 CUDA inputs take the tensor-core entry points, float32 ones the
     CUDA-core template's, head-split and packed alike, in the bounded mode
-    and in the exact one (``exact_entry``)."""
-    assert flash_mod.bounded_entry(dtype, packed) == entry[packed]
+    at the VAE's d = 512 and in the exact one (``exact_entry``)."""
+    assert flash_mod.bounded_entry(dtype, packed, 512) == entry[packed]
     assert flash_mod.exact_entry(dtype, packed) == EXACT_ENTRIES[dtype][packed]
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
 def test_bounded_entry_refuses_other_dtypes(dtype):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        flash_mod.bounded_entry(dtype, packed=False)
+        flash_mod.bounded_entry(dtype, False, 40)
     for packed in (False, True):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             flash_mod.exact_entry(dtype, packed)
@@ -134,24 +135,26 @@ def test_c_entry_points_match_their_argument_types():
     parameter list its ``ctypes`` argument types describe (pointers and the
     stream as ``c_void_p``); the tensor-core ones among them, the LSE and
     exact entries' with the template's parameter lists.  ``lse_entry`` sends
-    bf16 to the tensor cores, float32 to the template, and refuses other
-    dtypes; ``exact_entry`` names bound entry points."""
+    bf16 to the tensor cores, float32 at d = 512 to the template, and refuses
+    other dtypes; ``exact_entry`` names bound entry points."""
     found = _c_entry_points()
     assert set(TC_ENTRIES) <= set(_build.ARGTYPES)
     for name, argtypes in _build.ARGTYPES.items():
         assert found.get(name) == argtypes, name
     for dtype in (torch.bfloat16, torch.float32):
-        for packed in (False, True):
-            assert flash_mod.bounded_entry(dtype, packed) in _build.ARGTYPES
-    assert flash_mod.lse_entry(torch.bfloat16) == "hedit_flash_attention_fwd_lse_tc"
-    assert flash_mod.lse_entry(torch.float32) == "hedit_flash_attention_fwd_lse"
+        for d in flash_mod.HEAD_DIMS:
+            assert flash_mod.lse_entry(dtype, d) in _build.ARGTYPES
+            for packed in (False, True):
+                assert flash_mod.bounded_entry(dtype, packed, d) in _build.ARGTYPES
+    assert flash_mod.lse_entry(torch.bfloat16, 512) == "hedit_flash_attention_fwd_lse_tc"
+    assert flash_mod.lse_entry(torch.float32, 512) == "hedit_flash_attention_fwd_lse"
     assert (_build.ARGTYPES["hedit_flash_attention_fwd_lse_tc"]
             == _build.ARGTYPES["hedit_flash_attention_fwd_lse"])
     for packed in (False, True):
         tc, template = (flash_mod.exact_entry(dt, packed) for dt in (torch.bfloat16, torch.float32))
         assert _build.ARGTYPES[tc] == _build.ARGTYPES[template], tc
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        flash_mod.lse_entry(torch.float16)
+        flash_mod.lse_entry(torch.float16, 40)
 
 
 def test_wrappers_on_cpu_launch_nothing():

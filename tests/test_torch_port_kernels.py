@@ -59,6 +59,15 @@ def _plain_on_card(fn, *ts):
     return fn(*ts, out_dtype=torch.float32)
 
 
+def _bounded_suffix(dtype, d):
+    """The counter suffix of the bounded forward's route (``bounded_entry``):
+    bf16 the tensor cores, float32 at d = 40 / 80 the float32 kernel,
+    float32 at d = 512 the CUDA-core template."""
+    if dtype == torch.bfloat16:
+        return "_tc"
+    return "_f32" if d in flash_mod.F32_HEAD_DIMS else ""
+
+
 def _tol(dtype, want):
     """float32: 1e-4 (summation order); bfloat16: one output ulp at the
     largest output, 2^-8 * max|out|: the kernel rounds its output once (half
@@ -92,13 +101,14 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
     anchor, and the exact kernel (kernel 6) against
     ``flash_attention_exact_reference`` at the kernel's key tile (tolerances
     of ``_tol``); each bf16 on the tensor cores, float32 on the CUDA cores
-    (the counters say which ran)."""
+    (the bounded one at d = 40 / 80 on the float32 kernel; the counters say
+    which ran)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
     tc = "_tc" if dtype == torch.bfloat16 else ""
     for wrapper, plain, counter in (
             (flash_mod.flash_attention_cuda, flash_attention_bounded_reference,
-             "launches" + tc),
+             "launches" + _bounded_suffix(dtype, shape[3])),
             (flash_mod.flash_attention_exact_cuda, flash_attention_exact_reference,
              "launches_exact" + tc)):
         before = getattr(flash_mod, counter)
@@ -116,11 +126,12 @@ def test_bounded_kernels_saturate_as_their_plain_versions_on_card(cuda, dtype):
     (forward and LSE forward) match the bounded plain versions, the exact
     kernel matches its plain version (exact attention with the kernel's
     roundings), and the two forms differ by far more than the tolerance.
-    bf16 runs every one on the tensor cores, float32 on the CUDA cores."""
+    bf16 runs every one on the tensor cores, float32 on the CUDA cores (the
+    bounded ones on the float32 kernel)."""
     q, k, v = _saturating(cuda, dtype)
     assert bounded_anchor(1024, 40) == 512
-    tc = "_tc" if dtype == torch.bfloat16 else ""
-    names = ("launches" + tc, "launches_lse" + tc, "launches_exact" + tc)
+    tc, bounded = "_tc" if dtype == torch.bfloat16 else "", _bounded_suffix(dtype, 40)
+    names = ("launches" + bounded, "launches_lse" + bounded, "launches_exact" + tc)
     before = [getattr(flash_mod, n) for n in names]
     bounded = flash_mod.flash_attention_cuda(q, k, v).float()
     out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
@@ -210,17 +221,46 @@ def test_groupnorm_kernel_refuses_what_it_does_not_take(cuda):
     assert gn_mod.launches == before
 
 
+def _bounded_vs_exact_tol(q, k, v):
+    """How far the bounded forward and ``reference_attention`` may differ in
+    float32 on the same inputs ([B, H, S, D], no key above the anchor
+    window's max + 116, so the two are the same function), from float32
+    rounding and the output's scale; eps = 2^-24, the unit roundoff.
+
+    * A score: each form sums D products (the bounded one of q rounded after
+      its scale, the exact one divided by sqrt(D) after), so each side's
+      score is off by at most (D + 2) eps sum_c |q_c k_c| / sqrt(D) in
+      natural log units (the bounded form's base-2 scores times ln 2), and a
+      weight exp(s - shift) by that relatively, plus the exponential's own
+      error (at most 2 eps each side).  With both sides:
+      w_rel = 2 (D + 2) eps max sum_c |q_c k_c| / sqrt(D) + 4 eps.
+    * The output is sum_j w_j v_j / sum_j w_j: weights off by at most w_rel
+      relatively move it by at most 2 w_rel max|v| (to first order), and
+      each side's two sums over Sk keys and its division add at most
+      (Sk + 1) eps max|v|.
+    """
+    d, sk = q.shape[-1], k.shape[-2]
+    eps = 2.0 ** -24
+    dots = torch.matmul(q.detach().abs(), k.detach().abs().transpose(-1, -2)).max().item()
+    w_rel = 2 * (d + 2) * eps * dots / d ** 0.5 + 4 * eps
+    return (2 * w_rel + 2 * (sk + 1) * eps) * v.detach().abs().max().item()
+
+
 def test_flash_diff_on_cpu_takes_plain_versions():
     """``flash_attention_diff`` on CPU tensors: forward and backward are the
-    plain versions (the bounded forward's wrapper gives its plain version),
-    nothing is launched, and the backward kernels' entry points refuse CPU
-    tensors."""
+    plain versions (the bounded forward's wrapper gives its plain version,
+    bit for bit, which pins the function), nothing is launched, and the
+    backward kernels' entry points refuse CPU tensors.  Against exact
+    ``reference_attention`` the bounded output differs by float32 rounding
+    only, held to the bound ``_bounded_vs_exact_tol`` derives from the
+    inputs."""
     q, k, v = (torch.randn(1, 2, 48, 8, requires_grad=True) for _ in range(3))
     before = _bwd_counts()
     out = flash_mod.flash_attention_diff(q, k, v)
     out.sum().backward()
     assert before == _bwd_counts()
-    torch.testing.assert_close(out, reference_attention(q, k, v), rtol=0, atol=1e-6)
+    torch.testing.assert_close(out, reference_attention(q, k, v), rtol=0,
+                               atol=_bounded_vs_exact_tol(q, k, v))
     want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v)
     got_out, got_lse = flash_mod.flash_attention_lse_cuda(q, k, v)
     torch.testing.assert_close(got_out, want_out, rtol=0, atol=0)
@@ -247,7 +287,7 @@ def _bwd_tols(dtype, wants):
 def _bwd_counts():
     return (flash_mod.launches_lse, flash_mod.launches_lse_tc, flash_mod.launches_bwd_dq,
             flash_mod.launches_bwd_dkv, flash_mod.launches_bwd_dq_tc,
-            flash_mod.launches_bwd_dkv_tc)
+            flash_mod.launches_bwd_dkv_tc, flash_mod.launches_lse_f32)
 
 
 @pytest.mark.gpu
@@ -262,8 +302,8 @@ def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, 
     backward on the same inputs, fed the kernel forward's out and lse2,
     before its final rounding; ragged Sq != Sk included: padded keys must
     not leak into dq, padded queries not into dk / dv.  bf16 runs the
-    tensor-core LSE forward and backward, float32 the CUDA-core templates
-    (``lse_entry``, ``bwd_entry``)."""
+    tensor-core LSE forward and backward, float32 the float32 LSE kernel and
+    the CUDA-core backward template (``lse_entry``, ``bwd_entry``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     kshape = shape[:2] + (sk, shape[3])
     q = torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -275,8 +315,8 @@ def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, 
     got = flash_mod.flash_attention_backward_cuda(q, k, v, out, lse2, do)
     torch.cuda.synchronize()
     tc = dtype == torch.bfloat16
-    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (not tc, tc, not tc, not tc,
-                                                                  tc, tc)))
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, not tc, not tc,
+                                                                  tc, tc, not tc)))
     # the bounded plain version in the inputs' dtype rounds at the kernel's steps
     want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v,
                                                                  out_dtype=torch.float32)
@@ -342,10 +382,10 @@ def test_differentiated_attention_routes_by_length_on_card(cuda):
                         (FLASH_MIN_SEQ // 2, 0, 0)):
         q, k, v = (torch.randn(1, 2, s, 40, generator=g, device=cuda).requires_grad_()
                    for _ in range(3))
-        before = (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_bwd_dq,
-                  flash_mod.launches_bwd_dkv)
+        before = (flash_mod.launches_f32, flash_mod.launches_lse_f32,
+                  flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
         got = torch.autograd.grad(fused_attention(q, k, v).square().sum(), (q, k, v))
-        assert (flash_mod.launches, flash_mod.launches_lse, flash_mod.launches_bwd_dq,
+        assert (flash_mod.launches_f32, flash_mod.launches_lse_f32, flash_mod.launches_bwd_dq,
                 flash_mod.launches_bwd_dkv) == (before[0], before[1] + fwd,
                                                 before[2] + bwd, before[3] + bwd), s
         want = torch.autograd.grad(reference_attention(q, k, v).square().sum(), (q, k, v))
@@ -353,7 +393,7 @@ def test_differentiated_attention_routes_by_length_on_card(cuda):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
         with torch.no_grad():
             fused_attention(q, k, v)
-        assert flash_mod.launches == before[0] + fwd
+        assert flash_mod.launches_f32 == before[0] + fwd
 
 
 @pytest.mark.gpu
@@ -381,7 +421,7 @@ def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
     with torch.no_grad():
         fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, tc, tc, 0, 0)))
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, tc, tc, 0, 0, 0)))
     assert _launch_counts()[0] == forward[0] and _launch_counts()[6] == forward[6] + tc
     if tc:
         want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
@@ -430,7 +470,8 @@ def _launch_counts():
             flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv,
             flash_mod.launches_packed_bounded, flash_mod.launches_tc,
             flash_mod.launches_packed_bounded_tc, flash_mod.launches_exact_tc,
-            flash_mod.launches_packed_tc)
+            flash_mod.launches_packed_tc, flash_mod.launches_f32,
+            flash_mod.launches_packed_bounded_f32, flash_mod.launches_lse_f32)
 
 
 def test_packed_wrapper_takes_plain_version_on_cpu():
@@ -533,7 +574,7 @@ def test_packed_bounded_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, 
         before = _launch_counts()
         got = flash_mod.flash_attention_packed_bounded_cuda(qs, ks, vs, heads, anchor)
         torch.cuda.synchronize()
-        moved = 7 if dtype == torch.bfloat16 else 5
+        moved = 7 if dtype == torch.bfloat16 else 11
         assert _launch_counts() == tuple(c + (i == moved) for i, c in enumerate(before))
         assert got.shape == qs.shape and got.is_contiguous()
         want = flash_mod.flash_attention_packed_bounded_reference(qs, ks, vs, heads, anchor,
@@ -554,7 +595,7 @@ def test_packed_bounded_kernel_saturates_as_its_plain_version_on_card(cuda, dtyp
     with torch.no_grad():
         got = fused_attention_packed(q, k, v, 8).float()
     torch.cuda.synchronize()
-    moved = 7 if dtype == torch.bfloat16 else 5
+    moved = 7 if dtype == torch.bfloat16 else 11
     assert _launch_counts() == tuple(c + (i == moved) for i, c in enumerate(before))
     want = flash_mod.flash_attention_packed_bounded_reference(q, k, v, 8,
                                                               out_dtype=torch.float32)
@@ -577,7 +618,8 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
     q1 = torch.randn(1, S, 512, generator=g, device=cuda)
     short = torch.randn(2, S // 2, 8 * 40, generator=g, device=cuda)
     # (inputs, heads, recorded gradient) -> how far each of launches,
-    # launches_packed, launches_lse, launches_packed_bounded moves
+    # launches_packed, launches_lse_f32, launches_packed_bounded_f32 moves
+    # (float32: d = 40 on the float32 kernel, d = 512 on the template)
     for x, heads, grad, moved in ((q8, 8, False, (0, 0, 0, 1)), (q8, 8, True, (0, 0, 1, 0)),
                                   (q1, 1, False, (1, 0, 0, 0)), (short, 8, False, (0, 0, 0, 0))):
         x = x.clone().requires_grad_(grad)
@@ -586,7 +628,7 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
             got = fused_attention_packed(x, x, x, heads)
         torch.cuda.synchronize()
         after = _launch_counts()
-        assert tuple(after[i] - before[i] for i in (0, 1, 2, 5, 6, 7)) == moved + (0, 0)
+        assert tuple(after[i] - before[i] for i in (0, 1, 12, 11, 6, 7)) == moved + (0, 0)
         want = flash_attention_packed_reference(x.detach(), x.detach(), x.detach(), heads)
         torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-4)
     # a tensor that requires a gradient, with recording off: the packed kernel
@@ -594,7 +636,7 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
     before = _launch_counts()
     with torch.no_grad():
         fused_attention_packed(x, x, x, 8)
-    assert _launch_counts()[5] == before[5] + 1
+    assert _launch_counts()[11] == before[11] + 1
     # head split and merge around the head-split bounded kernel (the same
     # arithmetic) give the same values
     with torch.no_grad():
