@@ -1,6 +1,6 @@
 """End-to-end smoke of the PyTorch port on one CUDA GPU (an NVIDIA H100).
 
-    python3 chip_smoke.py              # the smoke, phases 1-16
+    python3 chip_smoke.py              # the smoke, phases 1-17
     python3 chip_smoke.py --profile    # where a flagship step's time goes
 
 Phases, each printed on its own lines; any failure exits non-zero without
@@ -37,13 +37,18 @@ the final result line:
    at the NMG gradient call's shapes and a ragged one: bf16 dq and dk / dv
    on the tensor cores (``csrc/flash_attention_bwd_tc.cu``), timed beside
    the CUDA-core template (``csrc/flash_attention_bwd.cu``) on the same
-   inputs, float32 on the template; ``flash_attention_diff``'s backward
+   inputs; float32 at d = 40 / 80 on the fused kernel
+   (``csrc/flash_attention_bwd_f32.cu``: dq, dk and dv in one launch,
+   launched twice: dk and dv bit-identical, dq's largest difference printed;
+   its refusals checked); ``flash_attention_diff``'s backward
    routed as JAX routes it on the TPU (the kernels from 2048 tokens, the
    gradient of ``reference_attention`` below); the backward at the VAE's
    head dim [1, 1, 4096, 512] (the template in either dtype), also through
    ``fused_attention`` under a gradient (bf16: the kernels; float32:
    ``reference_attention``, outside the K/V budget); the backward wrappers'
-   refusals (a misaligned pointer, float16).  Then GroupNorm + SiLU
+   refusals (a misaligned pointer, float16; the fused float32 one's a
+   misaligned pointer, a stride that is not a multiple of 4, bf16, and
+   float32 at d = 40 / 80 through the two-kernel wrappers).  Then GroupNorm + SiLU
    (``csrc/group_norm.cu``) on channels-last inputs at every GroupNorm shape
    of the paths' table (``GN_SHAPES``), bf16 and float32, eps 1e-5 and
    1e-6, with its regime and cluster, two launches bit-identical, a float32
@@ -98,36 +103,41 @@ the final result line:
    UNet self-attention of >= 1024 tokens without a gradient, the tensor-core
    head-split one the VAE's two attentions; the CUDA-core bounded entries and
    the exact kernels none);
-10. the exact forwards' own path (no editing path runs them): one call of
+10. the VAE decode's gradient in bf16 at 512 px (the style reward's route,
+    whose mode is not ported yet): the decoder's mid-block attention takes
+    the tensor-core LSE forward and the CUDA-core template's backward at
+    d = 512, once each, the one path that launches the template's backward;
+11. the exact forwards' own path (no editing path runs them): one call of
     the head-split one at each shape of JAX ``flash_attention``'s callers
     (bf16 on the tensor cores; float32, its oracle test's, on the template),
     one of the packed one at each shape of ``flash_attention_packed``'s
     (float32) and one bf16 call at the UNet's controlled call [8, 4096, 320];
-11. the golden identity in float32 (TF32 off): target = source,
+12. the golden identity in float32 (TF32 off): target = source,
     cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through
     the general loop under the flagship configuration; the edit decoded (the
     VAE's float32 attention at 4096 tokens is outside the K/V budget: exact
     ``reference_attention``, no launch), then decoded at 256 px, where it
     fits: the float32 bounded kernel for the UNet's packed self-attentions
     and the CUDA-core template for the VAE's d = 512, their launches counted;
-12. the UNet gradient at full width in float32: d loss / d x of one NMG step
+13. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
     substituted here;
-13. the NMG loop in float32 under a neutral control: its edit branch equals
+14. the NMG loop in float32 under a neutral control: its edit branch equals
     plain DDIM sampling computed here; its launches counted (the float32
-    LSE kernel 500, the CUDA-core template's backward 250 each);
-14. in float32: the EF pair loop without a stored trajectory on the DDPM
+    LSE kernel 500, the fused float32 backward 250, the template's none);
+15. in float32: the EF pair loop without a stored trajectory on the DDPM
     inversion's residuals reconstructs the source latent; explicit h-Edit-D
     with target = source, cfg_tar == cfg_src_edit and a neutral control
     returns the source latent;
-15. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
+16. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
-16. a JSON line of the kernels (each with its launches on its path: rows 1
+17. a JSON line of the kernels (each with its launches on its path: rows 1
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
     flagship path, rows 1p (the float32 kernel) and 1 (the CUDA-core
     template, d = 512) on the float32 golden path, 3-5 on the NMG path (on
-    the tensor cores; row 3 on the float32 kernel and 4-5 on the CUDA-core
-    template on the float32 NMG loop), 6 and 7 on their own (tensor cores and template),
+    the tensor cores; row 3 on the float32 kernel and 4 + 5 on the fused
+    float32 kernel on the float32 NMG loop, 4-5 on the CUDA-core template
+    on the VAE decode's gradient), 6 and 7 on their own (tensor cores and template),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
     bf16 and on the template in float32), then the result line
     ``{"ok": true, "device": {...}}``.
@@ -271,6 +281,7 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_bwd_dkv": (flash, "launches_bwd_dkv_tc"),
             "flash_bwd_dq_core": (flash, "launches_bwd_dq"),
             "flash_bwd_dkv_core": (flash, "launches_bwd_dkv"),
+            "flash_bwd_f32": (flash, "launches_bwd_f32"),
             "flash_packed": (flash, "launches_packed_tc"),
             "flash_packed_core": (flash, "launches_packed"),
             "flash_attention_exact": (flash, "launches_exact_tc"),
@@ -730,7 +741,8 @@ def _f32_refusals(g, failures):
 
 
 BWD_NAMES = ("flash_attention_lse", "flash_attention_lse_core", "flash_attention_lse_f32",
-             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_core", "flash_bwd_dkv_core")
+             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_core", "flash_bwd_dkv_core",
+             "flash_bwd_f32")
 
 
 def _bwd_template_ms(part, q, k, v, do, lse2, delta):
@@ -749,18 +761,21 @@ def _diff_route(q, k, dtype, fwd=True):
     """The launches ``flash_attention_diff`` makes on CUDA tensors of these
     shapes (or, ``fwd=False``, its backward alone), as JAX routes it on the
     TPU: the LSE forward of ``lse_entry``; the backward kernels of
-    ``bwd_entry`` where ``bwd_takes_kernels``, else none (autograd of
+    ``bwd_entry`` where ``bwd_takes_kernels`` (the tensor-core pair, the
+    template's pair or the fused float32 kernel), else none (autograd of
     ``reference_attention``)."""
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
     lse = "flash_attention_lse" + _route(flash.lse_entry(dtype, d))[0]
     kernels = flash.bwd_takes_kernels(sq, sk, d, q.element_size(), interpret=False)
-    tc = flash.bwd_entry(dtype, d)[0].endswith("_tc")
+    entries = flash.bwd_entry(dtype, d)
+    fused, tc = len(entries) == 1, entries[0].endswith("_tc")
+    core = kernels and not (tc or fused)
     return {**{n: int(fwd and n == lse) for n in ("flash_attention_lse",
                                                  "flash_attention_lse_core",
                                                  "flash_attention_lse_f32")},
             "flash_bwd_dq": int(kernels and tc), "flash_bwd_dkv": int(kernels and tc),
-            "flash_bwd_dq_core": int(kernels and not tc),
-            "flash_bwd_dkv_core": int(kernels and not tc)}
+            "flash_bwd_dq_core": int(core), "flash_bwd_dkv_core": int(core),
+            "flash_bwd_f32": int(kernels and fused)}
 
 
 def _flash_gradient_cases(g, rows, failures):
@@ -774,7 +789,8 @@ def _flash_gradient_cases(g, rows, failures):
     lse2, before its final rounding (``out_dtype=float32``).  bf16 at the
     UNet's head dims runs the tensor-core backward (``flash_bwd_dq`` /
     ``flash_bwd_dkv``), timed beside the CUDA-core template on the same
-    inputs (``core_ms``); float32 and the VAE's d = 512 run the template
+    inputs (``core_ms``); float32 there the fused kernel (``flash_bwd_f32``,
+    ``_fused_backward_row``); the VAE's d = 512 the template
     (``flash_bwd_dq_core`` / ``flash_bwd_dkv_core``).  bf16 tolerance: both
     sides round qs, ks, ds and p (for dv) to bf16 as the TPU kernels do; the
     kernels sum in another order, so a ds (or p) value may round to the
@@ -784,7 +800,7 @@ def _flash_gradient_cases(g, rows, failures):
     2^-8 of its largest value.  Then ``flash_attention_diff`` through
     autograd: its launches as JAX routes them (``_diff_route``) and its
     gradient equal to the kernels' where it takes them, else to autograd of
-    ``reference_attention``.  Then the tensor-core backward's refusals."""
+    ``reference_attention``.  Then the backward wrappers' refusals."""
     cases = [((1, 8, 4096, 40), 4096, torch.bfloat16),   # the NMG gradient call, 64^2 level
              ((1, 8, 1024, 80), 1024, torch.bfloat16),   # its 32^2 level
              ((1, 8, 1000, 80), 1064, torch.bfloat16),   # ragged, Sq != Sk
@@ -799,7 +815,8 @@ def _flash_gradient_cases(g, rows, failures):
         label = f"q{list(qshape)} sk={sk} {str(dtype)[6:]}"
         bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
         es = q.element_size()
-        tc = flash.bwd_entry(dtype, d)[0].endswith("_tc")
+        entries = flash.bwd_entry(dtype, d)
+        fused, tc = len(entries) == 1, entries[0].endswith("_tc")
         lse_suffix, form_lse = _route(flash.lse_entry(dtype, d))
         tc_lse = lse_suffix == ""
         rel = F32_TOL if dtype == torch.float32 else BF16_ULP
@@ -814,8 +831,7 @@ def _flash_gradient_cases(g, rows, failures):
             q, k, v, out, lse2, do, out_dtype=torch.float32)
         torch.cuda.synchronize()
 
-        def gap(got, want):  # (largest error, tolerance) of one output
-            return (got.float() - want).abs().max().item(), rel * want.abs().max().item()
+        gap = functools.partial(_gap, rel)
 
         # the library call for the same functions: SDPA's forward under a
         # recorded gradient (it saves its log-sum-exp), and its backward,
@@ -852,37 +868,14 @@ def _flash_gradient_cases(g, rows, failures):
 
         delta = (do.float() * out.float()).sum(dim=-1)
         # the plain version and the library call give dq, dk and dv in one call
-        together = "plain_ms and library_ms are of dq, dk and dv together"
         plain_bwd = cuda_ms(lambda: flash.flash_attention_backward_reference(q, k, v, out, lse2, do))
         in_bytes = es * bh * d * 2 * (sq + sk) + 8 * bh * sq  # q, dO, k, v; lse2, delta
-        suffix, form = ("", "tensor cores") if tc else ("_core", "CUDA cores")
-        err, tol = gap(dq, want_dq)
-        bound_ms, by = bound(in_bytes + es * bh * sq * d, (6 * bh * sq * sk * d, dtype))
-        core = {"core_ms": _bwd_template_ms(0, q, k, v, do, lse2, delta)} if tc else {}
-        _row(rows, failures, "flash_bwd_dq" + suffix, f"flash dq ({form}) {label}",
-             err <= tol and finite(dq), max_abs_err=err, tol=tol,
-             ms=cuda_ms(lambda: flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)),
-             plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-             plain_covers=together, shape=list(qshape), **core)
-        (err_k, tol_k), (err_v, tol_v) = gap(dk, want_dk), gap(dv, want_dv)
-        print(f"flash dk/dv {label}: dk max_abs_err {err_k:.3e} (tol {tol_k:.3g}), "
-              f"dv {err_v:.3e} (tol {tol_v:.3g})")
-        bound_ms, by = bound(in_bytes + es * bh * 2 * sk * d, (8 * bh * sq * sk * d, dtype))
-        worst = max((err_k, tol_k), (err_v, tol_v), key=lambda et: et[0] / et[1])
-        core = {"core_ms": _bwd_template_ms(1, q, k, v, do, lse2, delta)} if tc else {}
-        _row(rows, failures, "flash_bwd_dkv" + suffix, f"flash dk/dv ({form}) {label}",
-             err_k <= tol_k and err_v <= tol_v and finite(dk, dv), max_abs_err=worst[0],
-             tol=worst[1], ms=cuda_ms(lambda: flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)),
-             plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-             plain_covers=together, shape=list(qshape), **core)
-
-        # dq and dk / dv share one plain version and one library call, so the
-        # two are read together: both kernels against each
-        both = rows[-2]["ms"] + rows[-1]["ms"]
-        print(f"flash backward {label}: dq + dk/dv kernels ({form}) {both:.3f} ms"
-              + (f" (the CUDA-core template on the same inputs "
-                 f"{rows[-2]['core_ms'] + rows[-1]['core_ms']:.3f} ms)" if tc else "")
-              + f", plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms")
+        if fused:
+            _fused_backward_row(rows, failures, label, q, k, v, do, lse2, delta, (dq, dk, dv),
+                                (want_dq, want_dk, want_dv), plain_bwd, lib_bwd, in_bytes)
+        else:
+            _backward_rows(rows, failures, label, tc, q, k, v, do, lse2, delta, (dq, dk, dv),
+                           (want_dq, want_dk, want_dv), plain_bwd, lib_bwd, in_bytes)
 
         # flash_attention_diff's backward, routed as JAX routes it on the TPU;
         # at the VAE's width also fused_attention, the style reward's route
@@ -899,7 +892,8 @@ def _flash_gradient_cases(g, rows, failures):
             got = torch.autograd.grad(fn(*leaves), leaves, do)
             torch.cuda.synchronize()
             moved = {n: read_launches()[n] - before[n] for n in BWD_NAMES}
-            kernels = routed["flash_bwd_dq"] + routed["flash_bwd_dq_core"] > 0
+            kernels = (routed["flash_bwd_dq"] + routed["flash_bwd_dq_core"]
+                       + routed["flash_bwd_f32"]) > 0
             want = ((dq, dk, dv) if kernels else
                     torch.autograd.grad(flash.reference_attention(*leaves), leaves, do))
             gaps = [gap(a, w.float()) for a, w in zip(got, want)]
@@ -912,6 +906,89 @@ def _flash_gradient_cases(g, rows, failures):
             if not ok:
                 failures.append(f"{what} gradient {label}: launched {moved}, expected {routed}")
     _bwd_refusals(g, failures)
+
+
+def _gap(rel, got, want):
+    """(largest error, tolerance rel * the largest value) of one output."""
+    return (got.float() - want).abs().max().item(), rel * want.abs().max().item()
+
+
+def _backward_rows(rows, failures, label, tc, q, k, v, do, lse2, delta, got, wants, plain_bwd,
+                   lib_bwd, in_bytes):
+    """Rows 4 and 5 as two kernels (``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``):
+    bf16 on the tensor cores (timed beside the CUDA-core template on the same
+    inputs, ``core_ms``), the VAE's d = 512 on the template."""
+    dtype, es = q.dtype, q.element_size()
+    bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+    rel = F32_TOL if dtype == torch.float32 else BF16_ULP
+    finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
+    together = "plain_ms and library_ms are of dq, dk and dv together"
+    suffix, form = ("", "tensor cores") if tc else ("_core", "CUDA cores")
+    (dq, dk, dv), (want_dq, want_dk, want_dv) = got, wants
+    err, tol = _gap(rel, dq, want_dq)
+    bound_ms, by = bound(in_bytes + es * bh * sq * d, (6 * bh * sq * sk * d, dtype))
+    core = {"core_ms": _bwd_template_ms(0, q, k, v, do, lse2, delta)} if tc else {}
+    _row(rows, failures, "flash_bwd_dq" + suffix, f"flash dq ({form}) {label}",
+         err <= tol and finite(dq), max_abs_err=err, tol=tol,
+         ms=cuda_ms(lambda: flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)),
+         plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
+         plain_covers=together, shape=list(q.shape), **core)
+    (err_k, tol_k), (err_v, tol_v) = _gap(rel, dk, want_dk), _gap(rel, dv, want_dv)
+    print(f"flash dk/dv {label}: dk max_abs_err {err_k:.3e} (tol {tol_k:.3g}), "
+          f"dv {err_v:.3e} (tol {tol_v:.3g})")
+    bound_ms, by = bound(in_bytes + es * bh * 2 * sk * d, (8 * bh * sq * sk * d, dtype))
+    worst = max((err_k, tol_k), (err_v, tol_v), key=lambda et: et[0] / et[1])
+    core = {"core_ms": _bwd_template_ms(1, q, k, v, do, lse2, delta)} if tc else {}
+    _row(rows, failures, "flash_bwd_dkv" + suffix, f"flash dk/dv ({form}) {label}",
+         err_k <= tol_k and err_v <= tol_v and finite(dk, dv), max_abs_err=worst[0],
+         tol=worst[1], ms=cuda_ms(lambda: flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)),
+         plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
+         plain_covers=together, shape=list(q.shape), **core)
+    # dq and dk / dv share one plain version and one library call, so the
+    # two are read together: both kernels against each
+    both = rows[-2]["ms"] + rows[-1]["ms"]
+    print(f"flash backward {label}: dq + dk/dv kernels ({form}) {both:.3f} ms"
+          + (f" (the CUDA-core template on the same inputs "
+             f"{rows[-2]['core_ms'] + rows[-1]['core_ms']:.3f} ms)" if tc else "")
+          + f", plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms")
+
+
+def _fused_backward_row(rows, failures, label, q, k, v, do, lse2, delta, got, wants, plain_bwd,
+                        lib_bwd, in_bytes):
+    """Rows 4 + 5 in float32 at d = 40 / 80 as one fused kernel
+    (``flash_bwd_f32_cuda``, ``csrc/flash_attention_bwd_f32.cu``): dq, dk
+    and dv each within ``F32_TOL`` of its largest value; launched a second
+    time, dk and dv bit-identical and dq (summed over key blocks by atomic
+    adds in launch order) within dq's tolerance, its largest difference
+    printed.  Charged at the function's 5 products, 10 B H Sq Sk D FLOP (the
+    two template kernels' 7 printed beside it)."""
+    bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+    errs = [_gap(F32_TOL, a, w) for a, w in zip(got, wants)]
+    again = flash.flash_bwd_f32_cuda(q, k, v, do, lse2, delta)
+    torch.cuda.synchronize()
+    dq_diff = (again[0] - got[0]).abs().max().item()
+    dq_rel = dq_diff / max(got[0].abs().max().item(), 1e-30)
+    same_dkv = torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    bound_ms, by = bound(in_bytes + 4 * bh * d * 2 * (sq + sk),
+                         (10 * bh * sq * sk * d, torch.float32))
+    bound7, _ = bound(in_bytes + 4 * bh * d * 2 * (sq + sk), (14 * bh * sq * sk * d, torch.float32))
+    worst = max(errs, key=lambda et: et[0] / et[1])
+    print(f"flash dq / dk / dv (CUDA cores, fused float32 kernel) {label}: max_abs_err "
+          f"{' / '.join(f'{e:.3e} (tol {t:.3g})' for e, t in errs)}; second launch: dq largest "
+          f"difference {dq_diff:.3e} ({dq_rel:.3e} of max|dq|), dk and dv "
+          f"{'bit-identical' if same_dkv else 'DIFFER'}; bound at 7 products {bound7:.4f} ms")
+    _row(rows, failures, "flash_bwd_f32", f"flash backward (CUDA cores, fused float32) {label}",
+         all(e <= t for e, t in errs) and finite and same_dkv and dq_diff <= errs[0][1],
+         max_abs_err=worst[0], tol=worst[1],
+         ms=cuda_ms(lambda: flash.flash_bwd_f32_cuda(q, k, v, do, lse2, delta)),
+         plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
+         bound_7_products_ms=bound7, dq_run_to_run=dq_diff, dkv_bit_identical=same_dkv,
+         plain_covers="plain_ms and library_ms are of dq, dk and dv, as the kernel",
+         shape=list(q.shape))
+    print(f"flash backward {label}: fused float32 kernel {rows[-1]['ms']:.3f} ms, plain version "
+          f"{plain_bwd:.3f} ms, library {lib_bwd:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_ms / rows[-1]['ms']:.1%})")
 
 
 def _bwd_refusals(g, failures):
@@ -942,6 +1019,32 @@ def _bwd_refusals(g, failures):
                   f"{'refused: ' + why if refused else 'TAKEN'}; {'OK' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{wrapper.__name__} took {label}")
+    _f32_bwd_refusals(g, failures)
+
+
+def _f32_bwd_refusals(g, failures):
+    """The fused float32 backward's wrapper raises, and launches nothing, on
+    an operand that is not 16-byte aligned, an element stride that is not a
+    multiple of 4 (a one-head view whose head stride is odd) and a bf16
+    input; the two-kernel wrappers raise on float32 at d = 40 / 80 and name
+    the fused one.  None hands such an input to the template or a plain
+    version."""
+    buf = torch.randn(2 * 1024 * 40 + 16, generator=g, device="cuda")
+    misaligned = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)               # 4 bytes off
+    aligned = buf[4:4 + 1024 * 40].view(1, 1, 1024, 40)                  # 16 bytes on
+    odd = buf.as_strided((1, 1, 1024, 40), (1024 * 40 + 2, 1024 * 40 + 2, 40, 1))
+    lse2 = torch.zeros(1, 1, 1024, device="cuda")
+    delta = torch.zeros(1, 1024, device="cuda")
+    rest = (lse2, delta)
+    bf16 = aligned.to(torch.bfloat16)
+    cases = (("misaligned q", flash.flash_bwd_f32_cuda, (misaligned,) + (aligned,) * 3 + rest),
+             ("misaligned dO", flash.flash_bwd_f32_cuda, (aligned,) * 3 + (misaligned,) + rest),
+             ("a head stride not a multiple of 4", flash.flash_bwd_f32_cuda,
+              (odd,) + (aligned,) * 3 + rest),
+             ("bf16", flash.flash_bwd_f32_cuda, (bf16,) * 4 + rest),
+             ("float32 at d = 40, dq alone", flash.flash_bwd_dq_cuda, (aligned,) * 4 + rest),
+             ("float32 at d = 40, dk / dv alone", flash.flash_bwd_dkv_cuda, (aligned,) * 4 + rest))
+    _check_refusals("float32 backward", cases, failures)
 
 
 # Every GroupNorm shape of the paths' table (PERF.md section 6, row 2): the
@@ -1592,7 +1695,7 @@ def phase_nmg_path(pipe, images, ids):
     nmg_routed = {"flash_attention_lse": 10 * STEPS, "flash_attention_lse_core": 0,
                   "flash_attention_lse_f32": 0,
                   "flash_bwd_dq": 5 * STEPS, "flash_bwd_dkv": 5 * STEPS,
-                  "flash_bwd_dq_core": 0, "flash_bwd_dkv_core": 0}
+                  "flash_bwd_dq_core": 0, "flash_bwd_dkv_core": 0, "flash_bwd_f32": 0}
     print(f"NMG path gradient launches: {json.dumps({n: counts[n] for n in BWD_NAMES})} "
           f"(predicted {json.dumps(nmg_routed)})")
     if {n: counts[n] for n in BWD_NAMES} != nmg_routed:
@@ -1733,6 +1836,38 @@ def phase_masactrl_path(pipe, images, ids):
           f"(predicted {want}: 3 UNet calls a step x 10 + the residual pass's 5 calls x 10), "
           f"tensor-core head-split {counts['flash_attention']} (predicted 2)")
     return counts, failures
+
+
+def phase_vae_gradient(pipe, images):
+    """The gradient of a loss on the decoded image with respect to the
+    latent, in bf16 at 512 px: the route of the style reward's gradient
+    through the VAE decode (JAX's ``edit/style.py``; the style mode itself is
+    not ported yet, ROADMAP queue 1 item 10).  The decoder's mid-block
+    attention [1, 1, 4096, 512] fits JAX's K/V budget in bf16, so under the
+    gradient it takes the tensor-core LSE forward and the CUDA-core
+    template's dq and dk / dv kernels at d = 512, once each: the one path
+    that launches the template's backward.  Checks a finite gradient of the
+    latent's shape and those launches, no other backward kernel's.  Returns
+    (counts, failures)."""
+    x0 = pipe.vae_encode(images[:1])
+    reset_launches()
+    t0 = time.perf_counter()
+    latent = x0.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = pipe.vae.decode(latent).float().square().mean()
+    grad, = torch.autograd.grad(loss, latent)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    moved = {n: counts[n] for n in BWD_NAMES}
+    routed = {**dict.fromkeys(BWD_NAMES, 0), "flash_attention_lse": 1, "flash_bwd_dq_core": 1,
+              "flash_bwd_dkv_core": 1}
+    ok = (moved == routed and grad.shape == x0.shape and bool(torch.isfinite(grad).all())
+          and grad.abs().max().item() > 0)
+    print(f"VAE decode gradient (bf16, 512 px, {time.perf_counter() - t0:.2f} s): d loss / d "
+          f"latent {list(grad.shape)} finite, max|grad| {grad.abs().max().item():.3e}; "
+          f"launches {json.dumps(moved)} (predicted {json.dumps(routed)}) "
+          f"{'OK' if ok else 'FAIL'}")
+    return counts, [] if ok else [f"VAE decode gradient: launches {moved}, expected {routed}"]
 
 
 # JAX's public exact ``flash_attention`` is called by the JAX package's kernel
@@ -1883,9 +2018,10 @@ def phase_unet_gradient(pipe):
     rel = ((grad_k - grad_p).abs().max() / grad_p.abs().max()).item()
     rel_eps = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
     launched = (all(counts[k] > 0 for k in ("groupnorm", "flash_attention_lse_f32",
-                                            "flash_bwd_dq_core", "flash_bwd_dkv_core"))
+                                            "flash_bwd_f32"))
                 and counts["flash_attention_lse"] == counts["flash_attention_lse_core"] == 0
-                and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0)
+                and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0
+                and counts["flash_bwd_dq_core"] == counts["flash_bwd_dkv_core"] == 0)
     ok = (rel <= UNET_GRAD_TOL and substituted and launched
           and bool(torch.isfinite(grad_k).all()))
     print(f"UNet gradient (f32, TF32 off, t={t}): max|dx kernels - dx plain| / max|dx plain| "
@@ -1929,13 +2065,13 @@ def phase_nmg_identity(pipe):
           f"DDIM sampling| / max|x| {err:.3e} (tol {NMG_EDIT_TOL:g}; max|x| {scale:.3e}) "
           f"{'OK' if ok else 'FAIL'}")
     # float32: the float32 LSE kernel, 10 layers a step (d = 40 and 80), and
-    # the CUDA-core backward for the 5 of 4096 tokens (autograd of
-    # reference_attention for the 5 of 1024)
+    # the fused float32 backward for the 5 of 4096 tokens (autograd of
+    # reference_attention for the 5 of 1024); the template's parts none
     bwd = {n: counts[n] for n in BWD_NAMES}
     routed = {"flash_attention_lse": 0, "flash_attention_lse_core": 0,
               "flash_attention_lse_f32": 10 * STEPS,
-              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_core": 5 * STEPS,
-              "flash_bwd_dkv_core": 5 * STEPS}
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_core": 0,
+              "flash_bwd_dkv_core": 0, "flash_bwd_f32": 5 * STEPS}
     print(f"NMG identity launches: {bwd} (predicted {routed})")
     if bwd != routed:
         ok = False
@@ -2033,6 +2169,7 @@ KERNEL_CLASSES = (("flash LSE forward (tensor cores)",
                    r"flash_fwd_tc_kernel(<[^>]*true>|I.*Lb1EE)"),
                   ("flash kernel (tensor cores)", r"flash_fwd_tc_kernel"),
                   ("flash backward (tensor cores)", r"flash_bwd_(dq|dkv)_tc_kernel"),
+                  ("flash backward (CUDA cores, fused float32 kernel)", r"flash_bwd_f32_kernel"),
                   ("flash backward (CUDA cores)", r"flash_bwd_(dq|dkv)_kernel"),
                   ("flash forward (CUDA cores, float32 kernel)", r"flash_fwd_f32_kernel"),
                   ("flash forward (CUDA cores)", r"flash_fwd_kernel"),
@@ -2178,6 +2315,8 @@ def main(argv=None) -> int:
     failures += bad
     masactrl_counts, bad = phase_masactrl_path(*inputs[:3])
     failures += bad
+    vae_grad_counts, bad = phase_vae_gradient(*inputs[:2])
+    failures += bad
     del inputs
     exact_counts, bad = phase_exact_path()
     failures += bad
@@ -2192,9 +2331,9 @@ def main(argv=None) -> int:
     failures += phase_reconstructions(pipe)
     failures += phase_masactrl_identity(pipe)
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
-             "ef": ef_counts, "masactrl": masactrl_counts, "exact_forward": exact_counts,
-             "golden_f32": golden_counts, "nmg_f32": nmg_f32_counts,
-             **probe_counts}
+             "ef": ef_counts, "masactrl": masactrl_counts, "vae_gradient": vae_grad_counts,
+             "exact_forward": exact_counts, "golden_f32": golden_counts,
+             "nmg_f32": nmg_f32_counts, **probe_counts}
     # no path but the probes' own launches a probe kernel (rows 8-12)
     probe_kernels = [n for n, (module, _) in COUNTERS.items() if module in (fp, mp)]
     for path in paths.keys() - probe_counts.keys():
@@ -2203,15 +2342,21 @@ def main(argv=None) -> int:
             failures.append(f"the {path} path launched probe kernels: {launched}")
     print(f"probe kernels launched off the probes' paths: none expected, "
           f"{sum(paths[p][n] for p in paths.keys() - probe_counts.keys() for n in probe_kernels)}")
+    # no bf16 path launches the fused float32 backward
+    bf16_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "vae_gradient")
+    fused = {p: paths[p]["flash_bwd_f32"] for p in bf16_paths}
+    print(f"fused float32 backward launched on the bf16 paths: {fused} (none expected)")
+    if any(fused.values()):
+        failures.append(f"a bf16 path launched the fused float32 backward: {fused}")
 
-    def entry(name, route, source, replaces, path):
+    def entry(name, route, source, replaces, path, **extra):
         """The kernel's first comparison (a shape of its path) and its launches
         on ``path``, one of ``paths``; max_abs_err is the largest of all its
         cases."""
         mine = [r for r in rows if r["name"] == name]
         if paths[path][name] <= 0:
             failures.append(f"{name} was not launched on the {path} path")
-        return {"name": name, "route": route, "source": source, "replaces": replaces,
+        return {"name": name, "route": route, "source": source, "replaces": replaces, **extra,
                 "cores": ("tensor (mma.sync, bf16)" if source in (tc_cu, bwd_tc_cu, probes_tc_cu)
                           else "CUDA"),
                 "launches": paths[path][name], "path": path,
@@ -2219,7 +2364,8 @@ def main(argv=None) -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                            "plain_covers", "split_path_ms", "pipe_ms", "shape",
-                                           "core_ms", "matmuls_ms",
+                                           "core_ms", "matmuls_ms", "bound_7_products_ms",
+                                           "dq_run_to_run", "dkv_bit_identical",
                                            "max_err_over_tol", "excused_rows", "row_count", "resident",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
                                            "eager_ms")
@@ -2230,6 +2376,7 @@ def main(argv=None) -> int:
                                       "hedit_tpu_torch/csrc/flash_probes_tc.cu")
     tc_route = "cuda"
     f32_cu = "hedit_tpu_torch/csrc/flash_attention_f32.cu"
+    bwd_f32_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32.cu"
     fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                                  "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "hedit_tpu_torch/csrc/flash_probes.cu")
@@ -2246,8 +2393,10 @@ def main(argv=None) -> int:
         entry("flash_attention_lse_f32", "cuda", f32_cu, f"{jax_flash}:464", "nmg_f32"),
         entry("flash_bwd_dq", tc_route, bwd_tc_cu, f"{jax_flash}:553", "nmg"),
         entry("flash_bwd_dkv", tc_route, bwd_tc_cu, f"{jax_flash}:593", "nmg"),
-        entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "nmg_f32"),
-        entry("flash_bwd_dkv_core", "cuda", bwd_cu, f"{jax_flash}:593", "nmg_f32"),
+        entry("flash_bwd_f32", "cuda", bwd_f32_cu, f"{jax_flash}:553", "nmg_f32",
+              also_replaces=f"{jax_flash}:593"),
+        entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "vae_gradient"),
+        entry("flash_bwd_dkv_core", "cuda", bwd_cu, f"{jax_flash}:593", "vae_gradient"),
         entry("flash_attention_exact", tc_route, tc_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_attention_exact_core", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_packed", tc_route, tc_cu, f"{jax_flash}:340", "exact_forward"),

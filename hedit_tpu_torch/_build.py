@@ -64,6 +64,9 @@ ARGTYPES = {
     # the same two in bf16 on the tensor cores (flash_attention_bwd_tc.cu)
     "hedit_flash_attention_bwd_dq_tc": [_P] * 7 + [_I] * 5 + [_P],
     "hedit_flash_attention_bwd_dkv_tc": [_P] * 8 + [_I] * 5 + [_P],
+    # q, k, v, dout, lse, delta, dq, dk, dv | bh, sq, sk, d, dtype | stream: the
+    # fused float32 backward at d = 40 / 80 (flash_attention_bwd_f32.cu)
+    "hedit_flash_attention_bwd_f32": [_P] * 9 + [_I] * 5 + [_P],
     # q, k, v, out | bh, sq, sk, d, anchor, layout, dtype | stream
     "hedit_flash_packed_t": [_P] * 4 + [_I] * 7 + [_P],
     # hedit_flash_packed_t in bf16 on the tensor cores (flash_probes_tc.cu),

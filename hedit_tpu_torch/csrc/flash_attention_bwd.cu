@@ -4,9 +4,14 @@
 // Replaces the TPU kernels hedit_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel
 // and _flash_bwd_dkv_kernel (wrapper _flash_bwd_pallas, the backward of
 // flash_attention_diff), which carry every mode that differentiates through
-// the UNet (NMG, null-text, the style and face rewards), for float32 inputs
-// and for the VAE's D = 512; the wrappers send bf16 at the UNet's D = 40 and
-// 80 to the tensor-core kernels of flash_attention_bwd_tc.cu (bwd_entry).
+// the UNet (NMG, null-text, the style and face rewards), for the VAE's
+// D = 512 in either dtype (the style reward's gradient through the decode).
+// The wrappers send the UNet's D = 40 and 80 elsewhere (bwd_entry): bf16 to
+// the tensor-core kernels of flash_attention_bwd_tc.cu, float32 to the fused
+// kernel of flash_attention_bwd_f32.cu.  The bf16 instances at D = 40 / 80
+// stay, launched only by their entry points, so that the smoke can time the
+// template beside the tensor cores on the same inputs; the float32 ones at
+// D = 40 / 80 are gone.
 //
 // With s2 = (q k^T) * scale * log2(e), lse2 the forward's base-2 log-sum-exp
 // of each query row and delta = rowsum(dO * O) (computed outside, in plain
@@ -31,9 +36,10 @@
 // Contract: q, dO [BH, Sq, D]; k, v [BH, Sk, D]; lse2, delta [BH, Sq]
 // float32; all contiguous; q, k, v, dO of one dtype (float32 or bfloat16);
 // dq, dk, dv in that dtype.  Any Sq, Sk >= 1: padded keys are masked out of
-// dq and padded queries out of dk and dv.  D is 40 or 80 (the UNet's
-// self-attention) or 512 (the VAE's mid-block attention, which the style
-// reward differentiates through the decoder); any other D is refused.
+// dq and padded queries out of dk and dv.  D is 512 (the VAE's mid-block
+// attention, which the style reward differentiates through the decoder) in
+// either dtype, or 40 or 80 (the UNet's self-attention) in bf16; anything
+// else is refused.
 //
 // What bounds them on the H100.  dq is three products over the Sq x Sk score
 // grid (s, dp, ds k) and dk/dv four (s, dp, p^T dO, ds^T q): 14 * Sq * Sk * D
@@ -45,8 +51,10 @@
 // the rate at which shared memory feeds the FMAs, and the design is the
 // forward's register tiling: each thread owns a 4 x 8 tile of the score grid
 // and a 4 x D/8 tile of each output, so every shared-memory word feeds
-// several FMAs and the gradients accumulate in registers.  In bf16 at D = 40
-// and 80 the tensor-core kernels of flash_attention_bwd_tc.cu replace it.
+// several FMAs and the gradients accumulate in registers.  At D = 40 and 80
+// the tensor-core kernels of flash_attention_bwd_tc.cu (bf16) and the fused
+// float32 kernel of flash_attention_bwd_f32.cu (5 products, not 7) replace
+// it.
 //
 // D = 512 cannot keep that tile: 4 x 64 floats an output, two outputs in
 // dk/dv, is more than a thread's 255 registers.  Its blocks own 16 rows, not
@@ -73,6 +81,8 @@
 // tc).  Thread (tr, tc) owns rows tr*RR + i (i < RR) of the block's own
 // rows, columns tc + TC*j (j < RC) of the streamed tile, and output columns
 // tc + TC*c (c < NC = D / TC) of its rows.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -380,32 +390,35 @@ template <typename T>
 cudaError_t dq_for(int d, const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
                    cudaStream_t s) {
-  switch (d) {
-    case 40: return launch_dq<T, 16, 8, 4, 8, 5>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
-    case 80: return launch_dq<T, 16, 8, 4, 8, 10>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
-    case 512: return launch_dq<T, 4, 32, 4, 1, 16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (d == 40) return launch_dq<T, 16, 8, 4, 8, 5>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
+    if (d == 80)
+      return launch_dq<T, 16, 8, 4, 8, 10>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
   }
+  if (d == 512) return launch_dq<T, 4, 32, 4, 1, 16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t dkv_for(int d, const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
                     int sk, cudaStream_t s) {
-  switch (d) {
-    case 40:
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (d == 40)
       return launch_dkv<T, 16, 8, 4, 8, 5>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, s);
-    case 80:
+    if (d == 80)
       return launch_dkv<T, 16, 8, 4, 8, 10>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, s);
-    case 512:
-      return launch_dkv<T, 4, 32, 4, 1, 16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, s);
-    default: return cudaErrorInvalidValue;
   }
+  if (d == 512)
+    return launch_dkv<T, 4, 32, 4, 1, 16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, s);
+  return cudaErrorInvalidValue;
 }
 
+// d = 512 in either dtype; d = 40 / 80 in bf16 only (float32 there:
+// flash_attention_bwd_f32.cu)
 bool takes(int bh, int sq, int sk, int d, int dtype) {
-  return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && (d == 40 || d == 80 || d == 512) &&
-         (dtype == 0 || dtype == 1);
+  return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && (dtype == 0 || dtype == 1) &&
+         (d == 512 || (dtype == 1 && (d == 40 || d == 80)));
 }
 
 }  // namespace

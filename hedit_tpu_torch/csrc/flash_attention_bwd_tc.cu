@@ -9,8 +9,9 @@
 // the UNet (NMG's guidance, null-text, the style reward).  Entry points
 // hedit_flash_attention_bwd_dq_tc and hedit_flash_attention_bwd_dkv_tc,
 // wrappers flash_bwd_dq_cuda and flash_bwd_dkv_cuda (ops/flash_attention.py,
-// which route by bwd_entry).  float32 inputs and the VAE's D = 512 stay on
-// the CUDA-core template of flash_attention_bwd.cu.
+// which route by bwd_entry).  float32 inputs at D = 40 / 80 go to the fused
+// kernel of flash_attention_bwd_f32.cu, the VAE's D = 512 to the CUDA-core
+// template of flash_attention_bwd.cu.
 //
 // The function, exactly as the TPU kernels round it.  With c = 1/sqrt(d) *
 // log2(e) (formed in double, rounded to float, then to bf16, as the

@@ -1,5 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_attention.cu,
-// flash_attention_tc.cu, flash_attention_bwd.cu, flash_attention_bwd_tc.cu;
+// flash_attention_tc.cu, flash_attention_f32.cu, flash_attention_bwd.cu,
+// flash_attention_bwd_tc.cu, flash_attention_bwd_f32.cu;
 // the tensor-core building blocks are in flash_mma.cuh): element conversion, the
 // block size, the conflict-free shared-memory row stride, and the operand
 // layouts of the forward entry points (head-split and packed heads).

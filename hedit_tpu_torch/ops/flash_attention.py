@@ -47,9 +47,12 @@ The wrappers:
   dk / dv kernel (the TPU kernels ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``; ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``:
   bf16 at the UNet's head dims on the tensor cores,
-  ``csrc/flash_attention_bwd_tc.cu``; float32 and the VAE's d = 512 on the
-  CUDA-core template, ``csrc/flash_attention_bwd.cu``; by ``bwd_entry``),
-  elsewhere the gradient of ``reference_attention`` by autograd;
+  ``csrc/flash_attention_bwd_tc.cu``, the VAE's d = 512 in either dtype on
+  the CUDA-core template, ``csrc/flash_attention_bwd.cu``), or, for float32
+  at d = 40 / 80, one fused dq / dk / dv kernel on the CUDA cores
+  (``flash_bwd_f32_cuda``, ``csrc/flash_attention_bwd_f32.cu``), as
+  ``bwd_entry`` names them; elsewhere the gradient of
+  ``reference_attention`` by autograd;
 * ``flash_attention_exact_cuda`` (head-split) and
   ``flash_attention_packed_cuda`` (packed heads): the exact mode (bf16 on
   the tensor cores, whose operands must pass ``check_tc_operands``, float32
@@ -100,8 +103,9 @@ launches_lse_tc = 0   # the same in bf16 on the tensor cores
 launches_f32 = 0                  # bounded forward, head-split, float32 at d = 40 / 80
 launches_packed_bounded_f32 = 0   # the same on packed heads
 launches_lse_f32 = 0              # the same with the log-sum-exp
-launches_bwd_dq = 0      # backward dq, CUDA cores (float32; bf16 at d = 512)
-launches_bwd_dkv = 0     # backward dk / dv, CUDA cores
+launches_bwd_dq = 0      # backward dq, CUDA-core template (d = 512)
+launches_bwd_dkv = 0     # backward dk / dv, CUDA-core template
+launches_bwd_f32 = 0     # backward dq, dk and dv in one kernel, float32 at d = 40 / 80
 launches_bwd_dq_tc = 0   # backward dq in bf16 on the tensor cores (d = 40, 80)
 launches_bwd_dkv_tc = 0  # backward dk / dv in bf16 on the tensor cores
 
@@ -128,6 +132,9 @@ F32_HEAD_DIMS = (40, 80)
 F32_ALIGN_BYTES = 16
 F32_STRIDE_MULTIPLE = 4
 F32_WINDOW = 512
+# the fused float32 backward at ``F32_HEAD_DIMS`` (``csrc/flash_attention_bwd_f32.cu``):
+# one entry point writes dq, dk and dv; its operands as the forward's
+F32_BWD_ENTRY = "hedit_flash_attention_bwd_f32"
 
 # JAX's K/V residency budget and its backward threshold, copied with their
 # names and values (``hedit_tpu/ops/flash_attention.py``; the port imports
@@ -205,17 +212,21 @@ def lse_entry(dtype: torch.dtype, d: int) -> str:
     raise ValueError(f"the LSE forward takes float32 or bfloat16, got {dtype}")
 
 
-def bwd_entry(dtype: torch.dtype, d: int) -> Tuple[str, str]:
-    """The CUDA entry points (dq, dk / dv) of the backward for an input of
-    ``dtype`` and head dim ``d``: bfloat16 at ``TC_BWD_HEAD_DIMS`` the
-    tensor-core kernels (``csrc/flash_attention_bwd_tc.cu``); float32, and
-    bfloat16 at the VAE's 512, the CUDA-core template
+def bwd_entry(dtype: torch.dtype, d: int) -> Tuple[str, ...]:
+    """The CUDA entry points of the backward for an input of ``dtype`` and
+    head dim ``d``: two, (dq, dk / dv), or one that writes all three.
+    bfloat16 at ``TC_BWD_HEAD_DIMS`` the tensor-core kernels
+    (``csrc/flash_attention_bwd_tc.cu``); float32 at ``F32_HEAD_DIMS`` the
+    fused float32 kernel (``csrc/flash_attention_bwd_f32.cu``,
+    ``F32_BWD_ENTRY``); either dtype at the VAE's 512 the CUDA-core template
     (``csrc/flash_attention_bwd.cu``).  Raises for any other dtype or head
     dim."""
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the backward takes head dims {BWD_HEAD_DIMS}, got {d}")
     if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS:
         return "hedit_flash_attention_bwd_dq_tc", "hedit_flash_attention_bwd_dkv_tc"
+    if dtype == torch.float32 and d in F32_HEAD_DIMS:
+        return (F32_BWD_ENTRY,)
     if dtype in (torch.float32, torch.bfloat16):
         return "hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv"
     raise ValueError(f"the backward takes float32 or bfloat16, got {dtype}")
@@ -246,6 +257,17 @@ def check_tc_operands(d: int, addresses, strides) -> None:
     first, and never fall back to the CUDA-core template."""
     _check_copies("the tensor-core kernels", HEAD_DIMS, TC_ALIGN_BYTES, TC_STRIDE_MULTIPLE, d,
                   addresses, strides)
+
+
+def check_f32_bwd_operands(d: int, addresses, strides) -> None:
+    """Raise unless the fused float32 backward (``csrc/flash_attention_bwd_f32.cu``)
+    takes these operands: head dim ``d`` one of ``F32_HEAD_DIMS``, every
+    address a multiple of ``F32_ALIGN_BYTES`` and every element stride a
+    multiple of ``F32_STRIDE_MULTIPLE``.  The kernel refuses the same
+    addresses; the wrapper raises first, and never falls back to the template
+    or a plain version."""
+    _check_copies("the float32 backward kernel", F32_HEAD_DIMS, F32_ALIGN_BYTES,
+                  F32_STRIDE_MULTIPLE, d, addresses, strides)
 
 
 def check_f32_operands(d: int, addresses, strides, window: int) -> None:
@@ -649,9 +671,15 @@ def _check_bwd(q, k, v, do, lse2, delta, what: str) -> Tuple[int, int, int, int]
 def _bwd_launch(part: int, q, k, v, do, lse2, delta, outs, what: str) -> bool:
     """Launch backward kernel ``part`` (0 dq, 1 dk / dv) of ``bwd_entry`` into
     ``outs``; the tensor-core one only on operands that pass
-    ``check_tc_operands``.  Returns whether it was the tensor-core one."""
+    ``check_tc_operands``.  Returns whether it was the tensor-core one.
+    Raises where ``bwd_entry`` names the fused float32 kernel, which writes
+    all three gradients (``flash_bwd_f32_cuda``)."""
     bh, sq, sk, d = _check_bwd(q, k, v, do, lse2, delta, what)
-    entry = bwd_entry(q.dtype, d)[part]
+    entries = bwd_entry(q.dtype, d)
+    if len(entries) == 1:
+        raise ValueError(f"{what}: float32 at d = {d} takes the fused backward, which writes "
+                         f"dq, dk and dv in one launch: call flash_bwd_f32_cuda")
+    entry = entries[part]
     tc = entry.endswith("_tc")
     if tc:
         check_tc_operands(d, [t.data_ptr() for t in (q, k, v, do, *outs)], [sq * d, sk * d, d])
@@ -684,12 +712,37 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse2, delta) -> Tuple[torch.Tensor, torch.Te
     return dk, dv
 
 
+def flash_bwd_f32_cuda(q, k, v, do, lse2, delta
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused float32 backward (``F32_BWD_ENTRY``): one launch
+    writes dq, dk and dv (dq summed over key blocks by atomic adds, so its
+    last bits may differ from launch to launch; dk and dv do not).
+    Arguments as ``flash_bwd_dq_cuda``.  Raises on anything it does not take,
+    operands that fail ``check_f32_bwd_operands`` included, before any
+    launch."""
+    global launches_bwd_f32
+    bh, sq, sk, d = _check_bwd(q, k, v, do, lse2, delta, "flash_bwd_f32_cuda")
+    if bwd_entry(q.dtype, d) != (F32_BWD_ENTRY,):
+        raise ValueError(f"flash_bwd_f32_cuda takes float32 at head dims {F32_HEAD_DIMS}, got "
+                         f"{q.dtype} at {d}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    operands = (q, k, v, do, dq, dk, dv)
+    check_f32_bwd_operands(d, [t.data_ptr() for t in operands],
+                           [s for t in (q, k, v, do) for s in t.stride()[:-1]])
+    _launch(F32_BWD_ENTRY, q, (q, k, v, do, lse2, delta, dq, dk, dv), (bh, sq, sk, d))
+    launches_bwd_f32 += 1
+    return dq, dk, dv
+
+
 def flash_attention_backward_cuda(q, k, v, out, lse2, do
                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) by the two backward kernels; delta = rowsum(dO * out) is
-    plain tensor code, as in the JAX package."""
+    """(dq, dk, dv) by the backward kernels of ``bwd_entry``: the fused
+    float32 one, or the dq and the dk / dv kernel; delta = rowsum(dO * out)
+    is plain tensor code, as in the JAX package."""
     do = do.contiguous()
     delta = (do.float() * out.float()).sum(dim=-1)
+    if len(bwd_entry(q.dtype, q.shape[-1])) == 1:
+        return flash_bwd_f32_cuda(q, k, v, do, lse2, delta)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse2, delta)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)
     return dq, dk, dv

@@ -1,40 +1,75 @@
-"""The tensor-core flash backward's tiles, and the CUDA-core template, on the card.
+"""The flash backward's kernels on the card: the fused float32 kernel, its
+tile variants, and (with ``--tc``) the tensor-core kernels' tiles.
 
-    python -m hedit_tpu_torch.probes.flash_bwd_tiles [--parent DIR]
+    python -m hedit_tpu_torch.probes.flash_bwd_tiles [--parent DIR [--nmg-loop]] [--tc]
 
-``csrc/flash_attention_bwd_tc.cu`` is built once for each variant of
-``VARIANTS`` (its four launch lines rewritten to other tiles: warps of 16 own
-rows, streamed rows a tile, blocks an SM), one ``nvcc -shared`` each, all
-started together, into ``_build/bwd_tiles/``; ``-Xptxas -v`` gives each
-kernel's registers and spills.  Each variant's dq and dk / dv kernels are
-timed at the NMG gradient call's shapes and a ragged one through their entry
-points, without the wrappers' host checks (CUDA-event means of 20 launches,
-best of 3), in turns with the source's own tiles (variant 0) first and last,
-and held to the plain backward before its final rounding (largest error over
-2^-8 of the largest value, as ``chip_smoke.py`` holds the kernels).
+The fused float32 backward (``csrc/flash_attention_bwd_f32.cu``, entry point
+``hedit_flash_attention_bwd_f32``: dq, dk and dv in one launch) is timed at
+``F32_SHAPES`` (the NMG gradient call's [1, 8, 4096, 40], the 32^2 level's
+[1, 8, 1024, 80] and a ragged 1000 / 1064) through its entry point, without
+the wrapper's host checks (CUDA-event means of 20 launches, best of 3),
+beside SDPA's float32 backward on the same values (TF32 off; its forward
+recorded once, ``torch.autograd.grad`` timed) and the bound (10 B H Sq Sk D
+FLOP, the function's 5 products, at the float32 rate of 67 TFLOP/s), and
+held to the plain backward (1e-4 of each output's largest value).  The
+source is also built once for each of ``F32_VARIANTS`` (``-D`` macros: other
+query tiles and register budgets, the loops unrolled once, and a timing
+ablation whose dq is wrong: no dq atomics), one ``nvcc`` each, all started
+together; each variant is timed in turns with the source's own, and every
+build prints ``-Xptxas -v``'s registers and spills.  SDPA's float32 backward
+is traced once with ``torch.profiler``: the names of its kernels say which
+backend is the yardstick.
 
 ``--parent DIR``: a checkout of an earlier commit of this repository (for
-example ``git archive <commit> | tar -x -C DIR``); its CUDA-core backward
-template (``csrc/flash_attention_bwd.cu``) is built beside this tree's and
-both are timed in turns (parent, this, this, parent) at the template's
-shapes: float32 at [1, 8, 4096, 40] and [1, 1, 4096, 512], bf16 at
-[1, 1, 4096, 512].
+example ``git archive <commit> hedit_tpu_torch chip_smoke.py | tar -x -C
+DIR``).  Its CUDA-core backward template (``csrc/flash_attention_bwd.cu``,
+whose float32 dq and dk / dv kernels served these shapes before) is timed in
+turns with the fused kernel (parent, this, this, parent; dq + dk / dv), and
+its sources are built beside this tree's: these outputs of the two must
+agree bit for bit on the same inputs, or the probe exits non-zero: the 21
+outputs of ``csrc/flash_attention_tc.cu`` (``flash_exact_tiles.identity``),
+the probes' (``flash_probe_tiles.kept_identity``), the tensor-core backward
+in bf16 and the template's backward at d = 512 in both dtypes and in bf16 at
+d = 40 / 80, the float32 forward kernels' (``csrc/flash_attention_f32.cu``)
+and the template's forward outputs (``kept_identity``).
+
+``--nmg-loop`` (with ``--parent``): the float32 NMG loop of ``chip_smoke.py``
+(``phase_nmg_identity``: 50 NMG steps of the SD-1.5 UNet in float32 with
+seeded weights, its gradient calls through the float32 backward) run with
+the parent's package and this tree's in turns (parent, this, this, parent),
+each in a process of its own started in that tree; prints each run's loop
+seconds and backward launches.
+
+``--tc``: ``csrc/flash_attention_bwd_tc.cu`` built once for each of
+``VARIANTS`` (its four launch lines rewritten to other tiles: warps of 16
+own rows, streamed rows a tile, blocks an SM), its dq and dk / dv kernels
+timed at ``SHAPES`` in turns with the source's own tiles (variant 0) first
+and last and held to the plain backward before its final rounding (2^-8 of
+the largest value).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from hedit_tpu_torch import _build
 from hedit_tpu_torch.ops import flash_attention as flash
+from hedit_tpu_torch.probes.flash_exact_tiles import identity
+from hedit_tpu_torch.probes.flash_f32_tiles import _forward, _same
+from hedit_tpu_torch.probes.flash_probe_tiles import kept_identity as probe_identity
 from hedit_tpu_torch.probes.timing import best_ms, build_alone, require_cuda
 
+OUT_DIR = _build.BUILD_DIR / "bwd_tiles"
 TC_SOURCE = _build.CSRC / "flash_attention_bwd_tc.cu"
+F32_SOURCE = _build.CSRC / "flash_attention_bwd_f32.cu"
 # the source's launch lines, keyed by kernel and head dim
 LAUNCHES = {"dq40": "launch_dq<40, 4, 64, 4>", "dkv40": "launch_dkv<40, 4, 64, 4>",
             "dq80": "launch_dq<80, 4, 128, 2>", "dkv80": "launch_dkv<80, 4, 128, 2>"}
@@ -49,15 +84,24 @@ VARIANTS = (
     dict(dq40=(2, 64, 8), dkv40=(2, 64, 8), dq80=(2, 64, 4), dkv80=(2, 64, 4)),
 )
 SHAPES = (((1, 8, 4096, 40), 4096), ((1, 8, 1024, 80), 1024), ((1, 8, 1000, 80), 1064))
-TEMPLATE_SHAPES = (((1, 8, 4096, 40), 4096, torch.float32),
-                   ((1, 1, 4096, 512), 4096, torch.bfloat16),
-                   ((1, 1, 4096, 512), 4096, torch.float32))
-ENTRIES = {"tc": ("hedit_flash_attention_bwd_dq_tc", "hedit_flash_attention_bwd_dkv_tc"),
-           "core": ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")}
-
-
-def _library(source: Path, name: str, include: Path):
-    return build_alone(source, _build.BUILD_DIR / "bwd_tiles" / f"{name}.so", include)
+F32_SHAPES = SHAPES
+# (label, -D defines) of the fused float32 kernel: the source's own first;
+# 32-query tiles at d = 40 (58 KB of shared memory: 2 or 3 blocks an SM);
+# 64-query tiles at d = 80 (137 KB: 1 block an SM); the loops unrolled once;
+# and the ablation, timed only
+F32_VARIANTS = (("the source's tiles", ()),
+                ("d = 40: 32-query tiles", ("BWD_F32_BQ_40=32",)),
+                ("d = 40: 32-query tiles, 3 blocks an SM", ("BWD_F32_BQ_40=32",
+                                                            "BWD_F32_MINB_40=3")),
+                ("d = 80: 64-query tiles, 1 block an SM", ("BWD_F32_BQ_80=64",
+                                                           "BWD_F32_MINB_80=1")),
+                ("loops unrolled once", ("BWD_F32_UNROLL=1",)),
+                ("no dq atomics (dq wrong)", ("BWD_F32_ABLATE=1",)))
+F32_FLOPS = 67e12
+F32_TOL = 1e-4
+PARENT_SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "flash_attention_f32.cu",
+                  "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu", "flash_probes.cu",
+                  "flash_probes_tc.cu", "flash_variants.cu")
 
 
 def _variant_source(i: int) -> Path:
@@ -67,14 +111,14 @@ def _variant_source(i: int) -> Path:
             raise RuntimeError(f"{TC_SOURCE.name} no longer launches {LAUNCHES[key]}")
         text = text.replace(LAUNCHES[key], "launch_%s<%s, %d, %d, %d>" % (key[:-2], key[-2:],
                                                                           *tile))
-    path = _build.BUILD_DIR / "bwd_tiles" / f"variant{i}.cu"
+    path = OUT_DIR / f"variant{i}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
     return path
 
 
-def _inputs(shape, sk, dtype):
-    g = torch.Generator(device="cuda").manual_seed(0)
+def _inputs(shape, sk, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(shape, generator=g, device="cuda").to(dtype)
     k = torch.randn(shape[:2] + (sk, shape[3]), generator=g, device="cuda").to(dtype)
     v = torch.randn(k.shape, generator=g, device="cuda").to(dtype)
@@ -84,71 +128,276 @@ def _inputs(shape, sk, dtype):
     return q, k, v, do, out, lse2, delta
 
 
-def _timers(lib, kind, q, k, v, do, lse2, delta):
-    """(dq launch, dk / dv launch, their outputs) through ``lib``'s entry points."""
+def _calls(lib, entries, q, k, v, do, lse2, delta):
+    """(one launch function an entry point, the outputs dq, dk, dv) through
+    ``lib``: the two-kernel entries write dq, then dk and dv; a fused one all
+    three."""
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ints = (q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3],
             1 if q.dtype == torch.bfloat16 else 0)
+    outs = ((dq, dk, dv),) if len(entries) == 1 else ((dq,), (dk, dv))
 
-    def call(entry, *outs):
-        err = getattr(lib, entry)(*(t.data_ptr() for t in (q, k, v, do, lse2, delta, *outs)),
-                                  *ints, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{entry} failed (code {err})")
+    def launcher(entry, out):
+        fn = getattr(lib, entry)
 
-    dq_entry, dkv_entry = ENTRIES[kind]
-    return (lambda: call(dq_entry, dq)), (lambda: call(dkv_entry, dk, dv)), (dq, dk, dv)
+        def call():
+            err = fn(*(t.data_ptr() for t in (q, k, v, do, lse2, delta, *out)), *ints,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{entry} failed (code {err})")
+        return call
+    return [launcher(e, o) for e, o in zip(entries, outs)], (dq, dk, dv)
+
+
+def _errors(got, wants):
+    return [((a.float() - w).abs().max() / w.abs().max()).item() for a, w in zip(got, wants)]
 
 
 def sweep() -> None:
+    """The tensor-core kernels' tile variants (``--tc``)."""
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        built = list(ex.map(lambda i: _library(_variant_source(i), f"variant{i}", _build.CSRC),
-                            range(len(VARIANTS))))
+        built = list(ex.map(lambda i: build_alone(_variant_source(i), OUT_DIR / f"variant{i}.so",
+                                                  _build.CSRC), range(len(VARIANTS))))
     for i, (_, info) in enumerate(built):
         print(f"variant {i} {VARIANTS[i]}: {info}")
+    entries = flash.bwd_entry(torch.bfloat16, 40)
     for shape, sk in SHAPES:
         q, k, v, do, out, lse2, delta = _inputs(shape, sk, torch.bfloat16)
         wants = flash.flash_attention_backward_reference(q, k, v, out, lse2, do,
                                                          out_dtype=torch.float32)
         d = shape[3]
         for i in [*range(len(VARIANTS)), 0]:
-            fdq, fdkv, got = _timers(built[i][0], "tc", q, k, v, do, lse2, delta)
+            (fdq, fdkv), got = _calls(built[i][0], entries, q, k, v, do, lse2, delta)
             fdq()
             fdkv()
             torch.cuda.synchronize()
-            err = max((a.float() - w).abs().max().item() / (2.0 ** -8 * w.abs().max().item())
-                      for a, w in zip(got, wants))
+            err = max(_errors(got, wants)) / 2.0 ** -8
             print(f"tiles q{list(shape)} sk={sk} variant {i}: dq {VARIANTS[i][f'dq{d}']} "
                   f"{best_ms(fdq):.4f} ms, dk/dv {VARIANTS[i][f'dkv{d}']} {best_ms(fdkv):.4f} "
                   f"ms, err / tol {err:.3f}")
 
 
-def parent_template(parent: Path) -> None:
-    csrc = parent / "hedit_tpu_torch" / "csrc"
-    theirs, _ = _library(csrc / "flash_attention_bwd.cu", "parent_template", csrc)
-    mine, _ = _library(_build.CSRC / "flash_attention_bwd.cu", "template", _build.CSRC)
-    for shape, sk, dtype in TEMPLATE_SHAPES:
-        q, k, v, do, _, lse2, delta = _inputs(shape, sk, dtype)
-        turns = []
-        for who, lib in (("parent", theirs), ("this", mine), ("this", mine), ("parent", theirs)):
-            fdq, fdkv, _ = _timers(lib, "core", q, k, v, do, lse2, delta)
-            turns.append(f"{who} {best_ms(fdq):.4f} / {best_ms(fdkv):.4f}")
-        print(f"template q{list(shape)} sk={sk} {str(dtype)[6:]} dq / dk-dv ms: "
-              + ", ".join(turns))
+def f32_timings(mine, variants, parent):
+    """The fused float32 kernel at ``F32_SHAPES``: in turns with the parent's
+    template (where given), SDPA's backward, the bound and the
+    ``F32_VARIANTS`` in turns.  One record a shape."""
+    records = []
+    fused = flash.bwd_entry(torch.float32, 40)
+    template = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")
+    for shape, sk in F32_SHAPES:
+        q, k, v, do, out, lse2, delta = _inputs(shape, sk, torch.float32)
+        wants = flash.flash_attention_backward_reference(q, k, v, out, lse2, do)
+        (call,), got = _calls(mine, fused, q, k, v, do, lse2, delta)
+        call()
+        torch.cuda.synchronize()
+        errs = _errors(got, wants)
+        turns = [("kernel", call)]
+        if parent is not None:
+            (pdq, pdkv), _ = _calls(parent, template, q, k, v, do, lse2, delta)
+
+            def both(pdq=pdq, pdkv=pdkv):
+                pdq()
+                pdkv()
+            turns = [("parent template", both), *turns, *turns, ("parent template", both)]
+        ms = [best_ms(fn) for _, fn in turns]
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(*leaves)
+        sdpa = best_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+        b, h, sq, d = shape
+        bound_ms = 10 * b * h * sq * sk * d / F32_FLOPS * 1e3
+        kernel_ms = min(t for (who, _), t in zip(turns, ms) if who == "kernel")
+        order = [*range(len(variants)), 0]
+        var_ms, var_err = [], []
+        for i in order:
+            (vcall,), vgot = _calls(variants[i], fused, q, k, v, do, lse2, delta)
+            vcall()
+            torch.cuda.synchronize()
+            # the ablation leaves dq at zero: its dk and dv only
+            var_err.append(max(_errors(vgot, wants)[1 if "ABLATE" in str(F32_VARIANTS[i][1])
+                                                    else 0:]))
+            var_ms.append(best_ms(vcall))
+        print(f"fused f32 q{list(shape)} sk={sk}: "
+              + ", ".join(f"{who} {t:.4f}" for (who, _), t in zip(turns, ms))
+              + f" ms; SDPA backward {sdpa:.4f} ms, kernel / SDPA {kernel_ms / sdpa:.3f}; bound "
+              f"{bound_ms:.4f} ms ({bound_ms / kernel_ms:.1%}); rel err dq / dk / dv "
+              f"{' / '.join(f'{e:.2e}' for e in errs)} (tol {F32_TOL:g}); variants "
+              + ", ".join(f"{F32_VARIANTS[i][0]} {t:.4f} (err {e:.1e})"
+                          for i, t, e in zip(order, var_ms, var_err)) + " ms")
+        records.append({"shape": list(shape), "sk": sk,
+                        "turns": [[w, t] for (w, _), t in zip(turns, ms)], "sdpa_ms": sdpa,
+                        "bound_ms": bound_ms, "rel_err": errs, "variant_err": max(var_err),
+                        "variants_ms": [[F32_VARIANTS[i][0], t] for i, t in zip(order, var_ms)]})
+        del q, k, v, do, out, lse2, delta, lib_out, leaves
+        torch.cuda.empty_cache()
+    return records
 
 
-def main(argv=None) -> None:
+def sdpa_backend():
+    """The kernels SDPA's float32 backward launches (TF32 off), from one trace."""
+    q, k, v, do, *_ = _inputs((1, 8, 4096, 40), 4096, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves)
+    torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if str(e.device_type).endswith("CUDA")})
+    print(f"SDPA float32 backward [1, 8, 4096, 40] launches: {names}")
+    return names
+
+
+def _bwd(lib, q, k, v, do, lse2, delta):
+    calls, got = _calls(lib, flash.bwd_entry(q.dtype, q.shape[3]), q, k, v, do, lse2, delta)
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    return got
+
+
+def kept_identity(mine, parent) -> bool:
+    """The outputs this tree keeps from the parent, bit for bit on the same
+    inputs: the backward kernels other than float32 at d = 40 / 80 (the
+    tensor cores in bf16; the template at d = 512 in both dtypes and, by its
+    entry points, in bf16 at d = 40 / 80), the float32 forward kernels and
+    the template's forward outputs."""
+    same = True
+    cases = [(shape, sk, dtype, lib) for shape, sk in (((1, 8, 1024, 40), 1024),
+                                                       ((1, 8, 1000, 80), 1064))
+             for dtype, lib in ((torch.bfloat16, "flash_attention_bwd_tc.cu"),
+                                (torch.bfloat16, "flash_attention_bwd.cu"))]
+    cases += [((1, 1, 2048, 512), 2048, dtype, "flash_attention_bwd.cu")
+              for dtype in (torch.float32, torch.bfloat16)]
+    for shape, sk, dtype, lib in cases:
+        q, k, v, do, _, lse2, delta = _inputs(shape, sk, dtype, seed=shape[2] + shape[3])
+        lse2 = lse2.contiguous()
+        if lib == "flash_attention_bwd_tc.cu":
+            outs = [_bwd(x, q, k, v, do, lse2, delta) for x in (mine, parent[lib])]
+        else:  # the template by its own entry points
+            outs = []
+            for x in (mine, parent[lib]):
+                calls, got = _calls(x, ("hedit_flash_attention_bwd_dq",
+                                        "hedit_flash_attention_bwd_dkv"),
+                                    q, k, v, do, lse2, delta)
+                for call in calls:
+                    call()
+                torch.cuda.synchronize()
+                outs.append(got)
+        equal = _same(*outs)
+        same &= equal
+        print(f"identity backward ({lib}) q{list(shape)} sk={sk} {str(dtype)[6:]}: "
+              f"{'bit-identical to the parent' if equal else 'DIFFERS from the parent'}")
+    forwards = [(lib, entry, case, packed, lse, dtype) for lib, entry, case, packed, lse, dtype in (
+        ("flash_attention_f32.cu", "hedit_flash_attention_fwd_f32", (2, 8, 1024, 1024, 40),
+         False, False, torch.float32),
+        ("flash_attention_f32.cu", "hedit_flash_attention_fwd_lse_f32", (1, 8, 1000, 1064, 80),
+         False, True, torch.float32),
+        ("flash_attention_f32.cu", "hedit_flash_attention_fwd_packed_bounded_f32",
+         (2, 8, 1024, 1024, 80), True, False, torch.float32),
+        ("flash_attention_f32.cu", "hedit_flash_attention_fwd_lse_f32", (1, 8, 4096, 4096, 40),
+         False, True, torch.float32),
+        ("flash_attention.cu", "hedit_flash_attention_fwd_exact", (2, 8, 1024, 1024, 40), False,
+         False, torch.float32),
+        ("flash_attention.cu", "hedit_flash_attention_fwd_packed", (2, 8, 1000, 1064, 80), True,
+         False, torch.float32),
+        ("flash_attention.cu", "hedit_flash_attention_fwd", (1, 1, 1024, 1024, 512), False,
+         False, torch.float32),
+        ("flash_attention.cu", "hedit_flash_attention_fwd_lse", (1, 1, 1000, 1100, 512), False,
+         True, torch.float32),
+        ("flash_attention.cu", "hedit_flash_attention_fwd_lse", (1, 8, 1024, 1024, 40), False,
+         True, torch.bfloat16))]
+    for lib, entry, (b, h, sq, sk, d), packed, lse, dtype in forwards:
+        g = torch.Generator(device="cuda").manual_seed(sq + sk)
+        q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda") for s in (sq, sk, sk))
+        if packed:
+            q, k, v = (t.transpose(1, 2).reshape(b, -1, h * d) for t in (q, k, v))
+        q, k, v = (t.to(dtype).contiguous() for t in (q, k, v))
+        outs = []
+        for x in (mine, parent[lib]):
+            call, got = _forward(x, entry, q, k, v, h if packed else None, lse)
+            call()
+            outs.append(got)
+        torch.cuda.synchronize()
+        equal = _same(*outs)
+        same &= equal
+        print(f"identity forward {entry} ({lib}) q{list(q.shape)} sk={sk} {str(dtype)[6:]}: "
+              f"{'bit-identical to the parent' if equal else 'DIFFERS from the parent'}")
+    return same
+
+
+NMG_LOOP = """
+import torch, chip_smoke as cs
+from hedit_tpu_torch.pipelines.sd import create_sd_pipeline
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cs.phase_build()
+pipe = create_sd_pipeline(tiny=False, num_inference_steps=cs.STEPS, seed=0,
+                          dtype=torch.float32, device="cuda")
+print("failures", cs.phase_nmg_identity(pipe)[1])
+"""
+
+
+def nmg_loop_turns(parent: Path) -> None:
+    """``chip_smoke.phase_nmg_identity`` of the parent and of this tree in
+    turns, each in its own process in its own tree."""
+    here = Path(__file__).resolve().parents[2]
+    for who, root in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        p = subprocess.run([sys.executable, "-c", NMG_LOOP], cwd=root, capture_output=True,
+                           text=True)
+        lines = [ln for ln in p.stdout.splitlines() if "NMG identity" in ln or "failures" in ln]
+        print(f"nmg_f32 loop, {who} ({root}), rc {p.returncode}: " + " | ".join(lines)
+              + ("" if p.returncode == 0 else p.stderr[-2000:]))
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
+    ap.add_argument("--tc", action="store_true", help="also sweep the tensor-core tiles")
+    ap.add_argument("--nmg-loop", action="store_true",
+                    help="time the float32 NMG loop of the parent and of this tree in turns")
     args = ap.parse_args(argv)
     require_cuda("flash_bwd_tiles")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    sweep()
+    builds = [(F32_SOURCE, f"f32_variant{i}", _build.CSRC, defines)
+              for i, (_, defines) in enumerate(F32_VARIANTS)]
     if args.parent is not None:
-        parent_template(args.parent)
+        csrc = args.parent / "hedit_tpu_torch" / "csrc"
+        builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in PARENT_SOURCES]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
+                            builds))
+    for (source, name, *_), (_, info) in zip(builds, built):
+        print(f"ptxas, {name} ({source.name}): {info}")
+    mine = _build.cuda_library()
+    n = len(F32_VARIANTS)
+    parent = dict(zip(PARENT_SOURCES, (lib for lib, _ in built[n:])))
+    records = f32_timings(mine, [lib for lib, _ in built[:n]],
+                          parent.get("flash_attention_bwd.cu"))
+    backend = sdpa_backend()
+    print(json.dumps({"flash_bwd_f32_tiles": records, "sdpa_float32_backward_kernels": backend}))
+    if args.tc:
+        sweep()
+    if args.nmg_loop and args.parent is not None:
+        nmg_loop_turns(args.parent.resolve())
+    bad = [r for r in records if not (max(r["rel_err"]) <= F32_TOL
+                                      and r["variant_err"] <= F32_TOL)]
+    if bad:
+        print(f"FAILED: outputs beyond their tolerance: {bad}")
+        return 1
+    if args.parent is not None and not (
+            identity(mine, parent["flash_attention_tc.cu"], exact=True)
+            & probe_identity(mine, parent["flash_probes_tc.cu"], parent["flash_probes.cu"],
+                             parent["flash_variants.cu"])
+            & kept_identity(mine, parent)):
+        print("FAILED: an output this tree keeps differs from the parent's")
+        return 1
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

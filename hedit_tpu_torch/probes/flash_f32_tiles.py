@@ -30,7 +30,8 @@ built beside this tree's: these outputs of the two must agree bit for bit
 on the same inputs, or the probe exits non-zero: the 21 outputs of
 ``csrc/flash_attention_tc.cu`` (``flash_exact_tiles.identity``), the
 backward kernels' dq, dk, dv (tensor cores in bf16 at d = 40 / 80, the
-template in float32 at d = 40 / 80 / 512 and bf16 at 512), and the
+template at d = 512 in both dtypes and, by its entry points, in bf16 at
+d = 40 / 80), and the
 template's forward outputs this tree keeps (float32 exact, float32 bounded
 and LSE at d = 512, bf16 bounded LSE at d = 40 / 80).
 """
@@ -211,8 +212,8 @@ def kept_identity(mine, parent) -> bool:
     same = True
     for shape, sk, dtype, tc in (((1, 8, 1024, 40), 1024, torch.bfloat16, True),
                                  ((1, 8, 1000, 80), 1064, torch.bfloat16, True),
-                                 ((1, 8, 1024, 40), 1024, torch.float32, False),
-                                 ((1, 8, 1000, 80), 1064, torch.float32, False),
+                                 ((1, 8, 1024, 40), 1024, torch.bfloat16, False),
+                                 ((1, 8, 1000, 80), 1064, torch.bfloat16, False),
                                  ((1, 1, 2048, 512), 2048, torch.float32, False),
                                  ((1, 1, 2048, 512), 2048, torch.bfloat16, False)):
         b, h, sq, d = shape

@@ -5,8 +5,9 @@ the card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here,
 without JAX:
 
 * the dispatch (``bwd_entry``): bf16 at the UNet's head dims to the
-  tensor-core entry points, float32 and bf16 at the VAE's 512 to the
-  CUDA-core template, anything else refused;
+  tensor-core entry points, float32 there to the fused float32 entry point
+  (``csrc/flash_attention_bwd_f32.cu``), either dtype at the VAE's 512 to
+  the CUDA-core template, anything else refused;
 * the operand check of the tensor-core route (``check_tc_operands``):
   16-byte alignment, strides that are multiples of 8;
 * the C entry points' parameter counts against the ``ctypes`` argument types
@@ -31,6 +32,7 @@ from hedit_tpu_torch.ops import flash_attention as flash_mod
 
 TC_ENTRIES = ("hedit_flash_attention_bwd_dq_tc", "hedit_flash_attention_bwd_dkv_tc")
 CORE_ENTRIES = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")
+F32_ENTRIES = ("hedit_flash_attention_bwd_f32",)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -47,8 +49,8 @@ def _share_cores():
 # pytest-xdist's loadfile scheduler queues test files by their number of
 # items, and a file of few items queues behind the suite's long JAX files.
 ROUTES = ((torch.bfloat16, 40, TC_ENTRIES), (torch.bfloat16, 80, TC_ENTRIES),
-          (torch.bfloat16, 512, CORE_ENTRIES), (torch.float32, 40, CORE_ENTRIES),
-          (torch.float32, 80, CORE_ENTRIES), (torch.float32, 512, CORE_ENTRIES))
+          (torch.bfloat16, 512, CORE_ENTRIES), (torch.float32, 40, F32_ENTRIES),
+          (torch.float32, 80, F32_ENTRIES), (torch.float32, 512, CORE_ENTRIES))
 
 
 def test_bwd_entry_sends_bf16_unet_widths_to_the_tensor_cores():

@@ -287,7 +287,8 @@ def _bwd_tols(dtype, wants):
 def _bwd_counts():
     return (flash_mod.launches_lse, flash_mod.launches_lse_tc, flash_mod.launches_bwd_dq,
             flash_mod.launches_bwd_dkv, flash_mod.launches_bwd_dq_tc,
-            flash_mod.launches_bwd_dkv_tc, flash_mod.launches_lse_f32)
+            flash_mod.launches_bwd_dkv_tc, flash_mod.launches_lse_f32,
+            flash_mod.launches_bwd_f32)
 
 
 @pytest.mark.gpu
@@ -303,7 +304,7 @@ def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, 
     before its final rounding; ragged Sq != Sk included: padded keys must
     not leak into dq, padded queries not into dk / dv.  bf16 runs the
     tensor-core LSE forward and backward, float32 the float32 LSE kernel and
-    the CUDA-core backward template (``lse_entry``, ``bwd_entry``)."""
+    the fused float32 backward (``lse_entry``, ``bwd_entry``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     kshape = shape[:2] + (sk, shape[3])
     q = torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -315,8 +316,8 @@ def test_flash_lse_and_backward_kernels_match_plain_on_card(cuda, dtype, shape, 
     got = flash_mod.flash_attention_backward_cuda(q, k, v, out, lse2, do)
     torch.cuda.synchronize()
     tc = dtype == torch.bfloat16
-    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, not tc, not tc,
-                                                                  tc, tc, not tc)))
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, 0, 0, tc, tc, not tc,
+                                                                  not tc)))
     # the bounded plain version in the inputs' dtype rounds at the kernel's steps
     want_out, want_lse = flash_mod.flash_attention_lse_reference(q, k, v,
                                                                  out_dtype=torch.float32)
@@ -370,8 +371,9 @@ def test_tc_lse_kernel_matches_bf16_plain_on_card(cuda, shape, sk, saturate):
 @pytest.mark.gpu
 def test_differentiated_attention_routes_by_length_on_card(cuda):
     """``fused_attention`` under a recorded gradient routes as JAX on the
-    TPU: from ``FLASH_MIN_SEQ`` tokens the LSE forward, and the dq and dk / dv
-    kernels only from ``_BWD_MIN_SEQ`` (2048) on, the gradient of
+    TPU: from ``FLASH_MIN_SEQ`` tokens the LSE forward, and the backward
+    kernel (float32 here: the fused dq / dk / dv one) only from
+    ``_BWD_MIN_SEQ`` (2048) on, the gradient of
     ``reference_attention`` by autograd below; below ``FLASH_MIN_SEQ`` no
     launch; the forward kernel alone when nothing requires a gradient.
     Every route gives the plain version's gradient (float32, 1e-4 of its
@@ -383,11 +385,11 @@ def test_differentiated_attention_routes_by_length_on_card(cuda):
         q, k, v = (torch.randn(1, 2, s, 40, generator=g, device=cuda).requires_grad_()
                    for _ in range(3))
         before = (flash_mod.launches_f32, flash_mod.launches_lse_f32,
-                  flash_mod.launches_bwd_dq, flash_mod.launches_bwd_dkv)
+                  flash_mod.launches_bwd_f32, flash_mod.launches_bwd_dq)
         got = torch.autograd.grad(fused_attention(q, k, v).square().sum(), (q, k, v))
-        assert (flash_mod.launches_f32, flash_mod.launches_lse_f32, flash_mod.launches_bwd_dq,
-                flash_mod.launches_bwd_dkv) == (before[0], before[1] + fwd,
-                                                before[2] + bwd, before[3] + bwd), s
+        assert (flash_mod.launches_f32, flash_mod.launches_lse_f32, flash_mod.launches_bwd_f32,
+                flash_mod.launches_bwd_dq) == (before[0], before[1] + fwd,
+                                               before[2] + bwd, before[3]), s
         want = torch.autograd.grad(reference_attention(q, k, v).square().sum(), (q, k, v))
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
@@ -421,7 +423,7 @@ def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
     with torch.no_grad():
         fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, tc, tc, 0, 0, 0)))
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, tc, tc, 0, 0, 0, 0)))
     assert _launch_counts()[0] == forward[0] and _launch_counts()[6] == forward[6] + tc
     if tc:
         want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
