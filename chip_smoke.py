@@ -37,18 +37,21 @@ the final result line:
    at the NMG gradient call's shapes and a ragged one: bf16 dq and dk / dv
    on the tensor cores (``csrc/flash_attention_bwd_tc.cu``), timed beside
    the CUDA-core template (``csrc/flash_attention_bwd.cu``) on the same
-   inputs; float32 at d = 40 / 80 on the fused kernel
+   inputs and launched twice, bit-identical; float32 at d = 40 / 80 on the
+   fused kernel
    (``csrc/flash_attention_bwd_f32.cu``: dq, dk and dv in one launch,
    launched twice: dk and dv bit-identical, dq's largest difference printed;
    its refusals checked); ``flash_attention_diff``'s backward
    routed as JAX routes it on the TPU (the kernels from 2048 tokens, the
    gradient of ``reference_attention`` below); the backward at the VAE's
-   head dim [1, 1, 4096, 512] (the template in either dtype), also through
-   ``fused_attention`` under a gradient (bf16: the kernels; float32:
-   ``reference_attention``, outside the K/V budget); the backward wrappers'
-   refusals (a misaligned pointer, float16; the fused float32 one's a
-   misaligned pointer, a stride that is not a multiple of 4, bf16, and
-   float32 at d = 40 / 80 through the two-kernel wrappers).  Then GroupNorm + SiLU
+   head dim [1, 1, 4096, 512] (bf16 on the tensor cores, also
+   ragged at 1000 / 1100; float32 on the template, its launches counted from
+   0 as the path ``backward_f32_512``), also through ``fused_attention``
+   under a gradient (bf16: the kernels; float32: ``reference_attention``,
+   outside the K/V budget); the backward wrappers' refusals (a misaligned
+   pointer at d = 40 and 512, float16; the fused float32 one's a misaligned
+   pointer, a stride that is not a multiple of 4, bf16, and float32 at
+   d = 40 / 80 through the two-kernel wrappers).  Then GroupNorm + SiLU
    (``csrc/group_norm.cu``) on channels-last inputs at every GroupNorm shape
    of the paths' table (``GN_SHAPES``), bf16 and float32, eps 1e-5 and
    1e-6, with its regime and cluster, two launches bit-identical, a float32
@@ -105,8 +108,8 @@ the final result line:
    the exact kernels none);
 10. the VAE decode's gradient in bf16 at 512 px (the style reward's route,
     whose mode is not ported yet): the decoder's mid-block attention takes
-    the tensor-core LSE forward and the CUDA-core template's backward at
-    d = 512, once each, the one path that launches the template's backward;
+    the tensor-core LSE forward and the tensor-core backward at d = 512,
+    once each, and the template's backward none;
 11. the exact forwards' own path (no editing path runs them): one call of
     the head-split one at each shape of JAX ``flash_attention``'s callers
     (bf16 on the tensor cores; float32, its oracle test's, on the template),
@@ -135,9 +138,10 @@ the final result line:
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
     flagship path, rows 1p (the float32 kernel) and 1 (the CUDA-core
     template, d = 512) on the float32 golden path, 3-5 on the NMG path (on
-    the tensor cores; row 3 on the float32 kernel and 4 + 5 on the fused
-    float32 kernel on the float32 NMG loop, 4-5 on the CUDA-core template
-    on the VAE decode's gradient), 6 and 7 on their own (tensor cores and template),
+    the tensor cores, 4 + 5 also on the VAE decode's gradient; row 3 on the
+    float32 kernel and 4 + 5 on the fused float32 kernel on the float32 NMG
+    loop, 4-5 on the CUDA-core template on phase 3's float32 d = 512 case),
+    6 and 7 on their own (tensor cores and template),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
     bf16 and on the template in float32), then the result line
     ``{"ok": true, "device": {...}}``.
@@ -778,7 +782,11 @@ def _diff_route(q, k, dtype, fwd=True):
             "flash_bwd_f32": int(kernels and fused)}
 
 
-def _flash_gradient_cases(g, rows, failures):
+# the VAE decoder's mid-block attention at 512 px: one head of 4096 tokens at d = 512
+VAE_SHAPE = (1, 1, 4096, 512)
+
+
+def _flash_gradient_cases(g, rows, failures, counts):
     """Kernels 3-5: the bounded LSE forward (out, lse2) against its plain
     version, out before its final rounding (bf16 on the tensor cores,
     ``flash_attention_lse``, timed beside the CUDA-core template on the same
@@ -786,12 +794,14 @@ def _flash_gradient_cases(g, rows, failures):
     lse2 within 1e-5 relative, or at d = 512 the template, ``flash_attention_lse_core``),
     and dq, dk / dv of the backward kernels (``flash_attention_backward_cuda``)
     against the plain backward on the same inputs, fed that forward's out and
-    lse2, before its final rounding (``out_dtype=float32``).  bf16 at the
-    UNet's head dims runs the tensor-core backward (``flash_bwd_dq`` /
-    ``flash_bwd_dkv``), timed beside the CUDA-core template on the same
-    inputs (``core_ms``); float32 there the fused kernel (``flash_bwd_f32``,
-    ``_fused_backward_row``); the VAE's d = 512 the template
-    (``flash_bwd_dq_core`` / ``flash_bwd_dkv_core``).  bf16 tolerance: both
+    lse2, before its final rounding (``out_dtype=float32``).  bf16 runs the
+    tensor-core backward (``flash_bwd_dq`` / ``flash_bwd_dkv``; at the VAE's
+    d = 512 at [1, 1, 4096, 512] and a ragged 1000 / 1100), timed
+    beside the CUDA-core template on the same inputs (``core_ms``) and
+    launched twice, bit-identical; float32 at the UNet's head dims the fused
+    kernel (``flash_bwd_f32``, ``_fused_backward_row``); float32 at d = 512
+    the template (``flash_bwd_dq_core`` / ``flash_bwd_dkv_core``, counted
+    from 0 as the path ``backward_f32_512``).  bf16 tolerance: both
     sides round qs, ks, ds and p (for dv) to bf16 as the TPU kernels do; the
     kernels sum in another order, so a ds (or p) value may round to the
     other bf16 neighbour, and one such flip moves an output by at most 2^-7
@@ -807,8 +817,9 @@ def _flash_gradient_cases(g, rows, failures):
              ((1, 8, 4096, 40), 4096, torch.float32),
              ((1, 8, 1024, 80), 1024, torch.float32),
              ((1, 8, 1000, 80), 1064, torch.float32),
-             ((1, 1, 4096, 512), 4096, torch.bfloat16),  # the VAE mid block (style reward)
-             ((1, 1, 4096, 512), 4096, torch.float32)]
+             (VAE_SHAPE, 4096, torch.bfloat16),          # the style reward's route
+             ((1, 1, 1000, 512), 1100, torch.bfloat16),  # ragged at the VAE's width
+             (VAE_SHAPE, 4096, torch.float32)]
     for qshape, sk, dtype in cases:
         q, k, v = _qkv(g, qshape, sk, dtype)
         do = torch.randn(qshape, generator=g, device="cuda").to(dtype)
@@ -822,8 +833,16 @@ def _flash_gradient_cases(g, rows, failures):
         rel = F32_TOL if dtype == torch.float32 else BF16_ULP
         finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
 
+        # the template's backward has no path left but this case (float32 at
+        # d = 512): its launches here are its path's, counted from 0
+        template_path = not (fused or tc)
+        if template_path:
+            reset_launches()
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         dq, dk, dv = flash.flash_attention_backward_cuda(q, k, v, out, lse2, do)
+        if template_path:
+            torch.cuda.synchronize()
+            counts["backward_f32_512"] = read_launches()
         # the bounded plain forward rounds at the kernel's steps; the plain
         # backward reads the kernel forward's out and lse2
         want_out, want_lse = flash.flash_attention_lse_reference(q, k, v, out_dtype=torch.float32)
@@ -916,8 +935,10 @@ def _gap(rel, got, want):
 def _backward_rows(rows, failures, label, tc, q, k, v, do, lse2, delta, got, wants, plain_bwd,
                    lib_bwd, in_bytes):
     """Rows 4 and 5 as two kernels (``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``):
-    bf16 on the tensor cores (timed beside the CUDA-core template on the same
-    inputs, ``core_ms``), the VAE's d = 512 on the template."""
+    bf16 on the tensor cores at d = 40 / 80 / 512 (timed beside the CUDA-core
+    template on the same inputs, ``core_ms``; each launched a second time,
+    its outputs bit-identical: one writer an element, no atomics), float32
+    at d = 512 on the template."""
     dtype, es = q.dtype, q.element_size()
     bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
     rel = F32_TOL if dtype == torch.float32 else BF16_ULP
@@ -925,11 +946,23 @@ def _backward_rows(rows, failures, label, tc, q, k, v, do, lse2, delta, got, wan
     together = "plain_ms and library_ms are of dq, dk and dv together"
     suffix, form = ("", "tensor cores") if tc else ("_core", "CUDA cores")
     (dq, dk, dv), (want_dq, want_dk, want_dv) = got, wants
+    same = True
+    if tc:
+        again_dq = flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)
+        again_dk, again_dv = flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)
+        torch.cuda.synchronize()
+        same_dq = torch.equal(again_dq, dq)
+        same_dkv = torch.equal(again_dk, dk) and torch.equal(again_dv, dv)
+        same = same_dq and same_dkv
+        print(f"flash backward {label}: launched again, dq "
+              f"{'bit-identical' if same_dq else 'DIFFERS'}, dk and dv "
+              f"{'bit-identical' if same_dkv else 'DIFFER'}")
     err, tol = _gap(rel, dq, want_dq)
     bound_ms, by = bound(in_bytes + es * bh * sq * d, (6 * bh * sq * sk * d, dtype))
-    core = {"core_ms": _bwd_template_ms(0, q, k, v, do, lse2, delta)} if tc else {}
+    core = ({"core_ms": _bwd_template_ms(0, q, k, v, do, lse2, delta),
+             "relaunch_bit_identical": same} if tc else {})
     _row(rows, failures, "flash_bwd_dq" + suffix, f"flash dq ({form}) {label}",
-         err <= tol and finite(dq), max_abs_err=err, tol=tol,
+         err <= tol and finite(dq) and same, max_abs_err=err, tol=tol,
          ms=cuda_ms(lambda: flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)),
          plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
          plain_covers=together, shape=list(q.shape), **core)
@@ -938,19 +971,22 @@ def _backward_rows(rows, failures, label, tc, q, k, v, do, lse2, delta, got, wan
           f"dv {err_v:.3e} (tol {tol_v:.3g})")
     bound_ms, by = bound(in_bytes + es * bh * 2 * sk * d, (8 * bh * sq * sk * d, dtype))
     worst = max((err_k, tol_k), (err_v, tol_v), key=lambda et: et[0] / et[1])
-    core = {"core_ms": _bwd_template_ms(1, q, k, v, do, lse2, delta)} if tc else {}
+    core = ({"core_ms": _bwd_template_ms(1, q, k, v, do, lse2, delta),
+             "relaunch_bit_identical": same} if tc else {})
     _row(rows, failures, "flash_bwd_dkv" + suffix, f"flash dk/dv ({form}) {label}",
-         err_k <= tol_k and err_v <= tol_v and finite(dk, dv), max_abs_err=worst[0],
+         err_k <= tol_k and err_v <= tol_v and finite(dk, dv) and same, max_abs_err=worst[0],
          tol=worst[1], ms=cuda_ms(lambda: flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)),
          plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
          plain_covers=together, shape=list(q.shape), **core)
     # dq and dk / dv share one plain version and one library call, so the
     # two are read together: both kernels against each
     both = rows[-2]["ms"] + rows[-1]["ms"]
+    bounds = rows[-2]["bound_ms"] + rows[-1]["bound_ms"]
     print(f"flash backward {label}: dq + dk/dv kernels ({form}) {both:.3f} ms"
           + (f" (the CUDA-core template on the same inputs "
              f"{rows[-2]['core_ms'] + rows[-1]['core_ms']:.3f} ms)" if tc else "")
-          + f", plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms")
+          + f", plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms, bound "
+          f"{bounds:.4f} ms ({bounds / both:.1%})")
 
 
 def _fused_backward_row(rows, failures, label, q, k, v, do, lse2, delta, got, wants, plain_bwd,
@@ -994,17 +1030,19 @@ def _fused_backward_row(rows, failures, label, q, k, v, do, lse2, delta, got, wa
 def _bwd_refusals(g, failures):
     """The backward wrappers raise, and launch nothing, on a bf16 operand
     that is not 16-byte aligned (the tensor-core kernels copy 16 bytes at a
-    time) and on float16; they never hand such an input to the CUDA-core
-    template."""
-    buf = torch.randn(2 * 1024 * 40 + 16, generator=g, device="cuda").to(torch.bfloat16)
-    misaligned = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)   # 2 bytes off
-    aligned = buf[8:8 + 1024 * 40].view(1, 1, 1024, 40)      # 16 bytes on
+    time; at d = 40 and at the VAE's 512) and on float16; they never hand
+    such an input to the CUDA-core template."""
+    cases = []
+    for d in (40, 512):
+        buf = torch.randn(2 * 1024 * d + 16, generator=g, device="cuda").to(torch.bfloat16)
+        misaligned = buf[1:1 + 1024 * d].view(1, 1, 1024, d)   # 2 bytes off
+        aligned = buf[8:8 + 1024 * d].view(1, 1, 1024, d)      # 16 bytes on
+        cases += [(f"misaligned q, d = {d}", (misaligned, aligned, aligned, aligned)),
+                  (f"misaligned dO, d = {d}", (aligned, aligned, aligned, misaligned))]
+    half = aligned.half()
+    cases.append(("float16", (half, half, half, half)))
     lse2 = torch.zeros(1, 1, 1024, device="cuda")
     delta = torch.zeros(1, 1024, device="cuda")
-    half = aligned.half()
-    cases = (("misaligned q", (misaligned, aligned, aligned, aligned)),
-             ("misaligned dO", (aligned, aligned, aligned, misaligned)),
-             ("float16", (half, half, half, half)))
     for label, (q, k, v, do) in cases:
         for wrapper in (flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda):
             before = read_launches()
@@ -1188,16 +1226,19 @@ def _groupnorm_cases(g, rows, failures):
 
 
 def phase_kernels():
-    """Each kernel against its plain version; returns (report rows, failures).
-    The first row of each kernel is at a shape of the main paths and is the
-    one the kernels line reports."""
+    """Each kernel against its plain version; returns (report rows, failures,
+    {path: counts}).  The first row of each kernel is at a shape of the main
+    paths and is the one the kernels line reports.  The one path it drives is
+    ``backward_f32_512``: the backward of the float32 [1, 1, 4096, 512] case
+    through ``flash_attention_backward_cuda``, the CUDA-core template's only
+    caller (the counts at 0 before, read after)."""
     g = torch.Generator(device="cuda").manual_seed(1234)
-    rows, failures = [], []
+    rows, failures, counts = [], [], {}
     _flash_forward_cases(g, rows, failures)
     _flash_packed_cases(g, rows, failures)
-    _flash_gradient_cases(g, rows, failures)
+    _flash_gradient_cases(g, rows, failures, counts)
     _groupnorm_cases(g, rows, failures)
-    return rows, failures
+    return rows, failures, counts
 
 
 # The probes' shapes (scripts/flash_nhd_variants.py: B=16, S=4096, H=8,
@@ -1844,11 +1885,10 @@ def phase_vae_gradient(pipe, images):
     through the VAE decode (JAX's ``edit/style.py``; the style mode itself is
     not ported yet, ROADMAP queue 1 item 10).  The decoder's mid-block
     attention [1, 1, 4096, 512] fits JAX's K/V budget in bf16, so under the
-    gradient it takes the tensor-core LSE forward and the CUDA-core
-    template's dq and dk / dv kernels at d = 512, once each: the one path
-    that launches the template's backward.  Checks a finite gradient of the
-    latent's shape and those launches, no other backward kernel's.  Returns
-    (counts, failures)."""
+    gradient it takes the tensor-core LSE forward and the tensor-core dq and
+    dk / dv kernels at d = 512, once each.  Checks a finite gradient of the
+    latent's shape and those launches, no other backward kernel's (the
+    template's none).  Returns (counts, failures)."""
     x0 = pipe.vae_encode(images[:1])
     reset_launches()
     t0 = time.perf_counter()
@@ -1859,8 +1899,8 @@ def phase_vae_gradient(pipe, images):
     torch.cuda.synchronize()
     counts = read_launches()
     moved = {n: counts[n] for n in BWD_NAMES}
-    routed = {**dict.fromkeys(BWD_NAMES, 0), "flash_attention_lse": 1, "flash_bwd_dq_core": 1,
-              "flash_bwd_dkv_core": 1}
+    routed = {**dict.fromkeys(BWD_NAMES, 0), "flash_attention_lse": 1, "flash_bwd_dq": 1,
+              "flash_bwd_dkv": 1}
     ok = (moved == routed and grad.shape == x0.shape and bool(torch.isfinite(grad).all())
           and grad.abs().max().item() > 0)
     print(f"VAE decode gradient (bf16, 512 px, {time.perf_counter() - t0:.2f} s): d loss / d "
@@ -2300,7 +2340,7 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(PROFILE_STEPS, args.trace)
         return 0
-    rows, bad = phase_kernels()
+    rows, bad, kernel_counts = phase_kernels()
     failures += bad
     probe_counts, bad = phase_probes(rows)
     failures += bad
@@ -2333,7 +2373,7 @@ def main(argv=None) -> int:
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
              "ef": ef_counts, "masactrl": masactrl_counts, "vae_gradient": vae_grad_counts,
              "exact_forward": exact_counts, "golden_f32": golden_counts,
-             "nmg_f32": nmg_f32_counts, **probe_counts}
+             "nmg_f32": nmg_f32_counts, **kernel_counts, **probe_counts}
     # no path but the probes' own launches a probe kernel (rows 8-12)
     probe_kernels = [n for n, (module, _) in COUNTERS.items() if module in (fp, mp)]
     for path in paths.keys() - probe_counts.keys():
@@ -2366,10 +2406,18 @@ def main(argv=None) -> int:
                                            "plain_covers", "split_path_ms", "pipe_ms", "shape",
                                            "core_ms", "matmuls_ms", "bound_7_products_ms",
                                            "dq_run_to_run", "dkv_bit_identical",
+                                           "relaunch_bit_identical",
                                            "max_err_over_tol", "excused_rows", "row_count", "resident",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
                                            "eager_ms")
                    if k in mine[0]}}
+
+    def at_shape(name, shape):
+        """The numbers of ``name``'s row at ``shape`` (a kernel whose first row,
+        the kernels line's, is at another path's shape)."""
+        mine = next(r for r in rows if r["name"] == name and r["shape"] == list(shape))
+        return {k: mine[k] for k in ("ms", "core_ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by", "max_abs_err", "shape") if k in mine}
 
     tc_cu, bwd_tc_cu, probes_tc_cu = ("hedit_tpu_torch/csrc/flash_attention_tc.cu",
                                       "hedit_tpu_torch/csrc/flash_attention_bwd_tc.cu",
@@ -2391,12 +2439,14 @@ def main(argv=None) -> int:
               "flagship"),
         entry("flash_attention_lse", tc_route, tc_cu, f"{jax_flash}:464", "nmg"),
         entry("flash_attention_lse_f32", "cuda", f32_cu, f"{jax_flash}:464", "nmg_f32"),
-        entry("flash_bwd_dq", tc_route, bwd_tc_cu, f"{jax_flash}:553", "nmg"),
-        entry("flash_bwd_dkv", tc_route, bwd_tc_cu, f"{jax_flash}:593", "nmg"),
+        entry("flash_bwd_dq", tc_route, bwd_tc_cu, f"{jax_flash}:553", "nmg",
+              vae_d512=at_shape("flash_bwd_dq", VAE_SHAPE)),
+        entry("flash_bwd_dkv", tc_route, bwd_tc_cu, f"{jax_flash}:593", "nmg",
+              vae_d512=at_shape("flash_bwd_dkv", VAE_SHAPE)),
         entry("flash_bwd_f32", "cuda", bwd_f32_cu, f"{jax_flash}:553", "nmg_f32",
               also_replaces=f"{jax_flash}:593"),
-        entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "vae_gradient"),
-        entry("flash_bwd_dkv_core", "cuda", bwd_cu, f"{jax_flash}:593", "vae_gradient"),
+        entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "backward_f32_512"),
+        entry("flash_bwd_dkv_core", "cuda", bwd_cu, f"{jax_flash}:593", "backward_f32_512"),
         entry("flash_attention_exact", tc_route, tc_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_attention_exact_core", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_packed", tc_route, tc_cu, f"{jax_flash}:340", "exact_forward"),

@@ -4,14 +4,16 @@
 // Replaces the TPU kernels hedit_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel
 // and _flash_bwd_dkv_kernel (wrapper _flash_bwd_pallas, the backward of
 // flash_attention_diff), which carry every mode that differentiates through
-// the UNet (NMG, null-text, the style and face rewards), for the VAE's
-// D = 512 in either dtype (the style reward's gradient through the decode).
-// The wrappers send the UNet's D = 40 and 80 elsewhere (bwd_entry): bf16 to
-// the tensor-core kernels of flash_attention_bwd_tc.cu, float32 to the fused
-// kernel of flash_attention_bwd_f32.cu.  The bf16 instances at D = 40 / 80
-// stay, launched only by their entry points, so that the smoke can time the
-// template beside the tensor cores on the same inputs; the float32 ones at
-// D = 40 / 80 are gone.
+// the UNet (NMG, null-text, the style and face rewards), for float32 at the
+// VAE's D = 512 (outside JAX's K/V budget at the decode's 4096 tokens, so
+// on no path: the smoke's float32 d = 512 case drives it).  The wrappers
+// send everything else elsewhere (bwd_entry): bf16 at every head dim, the
+// VAE's 512 included (the style reward's gradient through the decode), to
+// the tensor-core kernels of flash_attention_bwd_tc.cu, float32 at D = 40 /
+// 80 to the fused kernel of flash_attention_bwd_f32.cu.  The bf16 instances
+// (D = 40, 80, 512) stay, launched only by their entry points, so that the
+// smoke and the tile probe can time the template beside the tensor cores on
+// the same inputs; the float32 ones at D = 40 / 80 are gone.
 //
 // With s2 = (q k^T) * scale * log2(e), lse2 the forward's base-2 log-sum-exp
 // of each query row and delta = rowsum(dO * O) (computed outside, in plain
@@ -51,10 +53,10 @@
 // the rate at which shared memory feeds the FMAs, and the design is the
 // forward's register tiling: each thread owns a 4 x 8 tile of the score grid
 // and a 4 x D/8 tile of each output, so every shared-memory word feeds
-// several FMAs and the gradients accumulate in registers.  At D = 40 and 80
-// the tensor-core kernels of flash_attention_bwd_tc.cu (bf16) and the fused
-// float32 kernel of flash_attention_bwd_f32.cu (5 products, not 7) replace
-// it.
+// several FMAs and the gradients accumulate in registers.  The tensor-core
+// kernels of flash_attention_bwd_tc.cu (bf16, D = 40, 80 and 512) and the
+// fused float32 kernel of flash_attention_bwd_f32.cu (D = 40 / 80, 5
+// products, not 7) replace it on the paths.
 //
 // D = 512 cannot keep that tile: 4 x 64 floats an output, two outputs in
 // dk/dv, is more than a thread's 255 registers.  Its blocks own 16 rows, not
@@ -62,8 +64,9 @@
 // (4 x 1 scores a thread) and split the 512 output columns (4 x 16 of each
 // output a thread: 64 registers for dq, 128 for dk and dv).  The four
 // [rows][513] float32 tiles then take ~197 KB of shared memory, so one block
-// runs on an SM at a time: a simple design, held to the plain version, whose
-// speed is for a later change.
+// runs on an SM at a time: a simple design, held to the plain version.  In
+// bf16 at [1, 1, 4096, 512] it ran 3.3x slower than SDPA's backward, and the
+// tensor-core kernels replaced it there (PERF.md).
 //
 // The TPU programs keep K/V (dq) or Q/dO (dk, dv) of a whole (batch, head)
 // resident in VMEM and walk 512 x 512 blocks.  Here a block owns 64 rows (16

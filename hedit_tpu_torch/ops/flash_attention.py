@@ -46,10 +46,11 @@ The wrappers:
   ``flash_kv_fits`` and both lengths reach ``_BWD_MIN_SEQ``, a dq and a
   dk / dv kernel (the TPU kernels ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``; ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``:
-  bf16 at the UNet's head dims on the tensor cores,
-  ``csrc/flash_attention_bwd_tc.cu``, the VAE's d = 512 in either dtype on
-  the CUDA-core template, ``csrc/flash_attention_bwd.cu``), or, for float32
-  at d = 40 / 80, one fused dq / dk / dv kernel on the CUDA cores
+  bf16 on the tensor cores, ``csrc/flash_attention_bwd_tc.cu``, at the
+  UNet's head dims and at the VAE's d = 512 (the style reward's route
+  through the decode), float32 at d = 512 on the CUDA-core template,
+  ``csrc/flash_attention_bwd.cu``), or, for float32 at d = 40 / 80, one
+  fused dq / dk / dv kernel on the CUDA cores
   (``flash_bwd_f32_cuda``, ``csrc/flash_attention_bwd_f32.cu``), as
   ``bwd_entry`` names them; elsewhere the gradient of
   ``reference_attention`` by autograd;
@@ -103,10 +104,10 @@ launches_lse_tc = 0   # the same in bf16 on the tensor cores
 launches_f32 = 0                  # bounded forward, head-split, float32 at d = 40 / 80
 launches_packed_bounded_f32 = 0   # the same on packed heads
 launches_lse_f32 = 0              # the same with the log-sum-exp
-launches_bwd_dq = 0      # backward dq, CUDA-core template (d = 512)
+launches_bwd_dq = 0      # backward dq, CUDA-core template (float32, d = 512)
 launches_bwd_dkv = 0     # backward dk / dv, CUDA-core template
 launches_bwd_f32 = 0     # backward dq, dk and dv in one kernel, float32 at d = 40 / 80
-launches_bwd_dq_tc = 0   # backward dq in bf16 on the tensor cores (d = 40, 80)
+launches_bwd_dq_tc = 0   # backward dq in bf16 on the tensor cores (d = 40, 80, 512)
 launches_bwd_dkv_tc = 0  # backward dk / dv in bf16 on the tensor cores
 
 # UNet self-attention (40, 80) and the VAE mid-block (512); others are refused
@@ -115,8 +116,9 @@ HEAD_DIMS = (40, 80, 512)
 # reward differentiates through the decoder's mid-block attention)
 BWD_HEAD_DIMS = (40, 80, 512)
 # the head dims of the bf16 backward on the tensor cores
-# (``csrc/flash_attention_bwd_tc.cu``); d = 512 stays on the template
-TC_BWD_HEAD_DIMS = (40, 80)
+# (``csrc/flash_attention_bwd_tc.cu``): all three; float32 at 512 stays on
+# the template
+TC_BWD_HEAD_DIMS = (40, 80, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
 DENOM_FLOOR = 1.2e-38
@@ -218,7 +220,7 @@ def bwd_entry(dtype: torch.dtype, d: int) -> Tuple[str, ...]:
     bfloat16 at ``TC_BWD_HEAD_DIMS`` the tensor-core kernels
     (``csrc/flash_attention_bwd_tc.cu``); float32 at ``F32_HEAD_DIMS`` the
     fused float32 kernel (``csrc/flash_attention_bwd_f32.cu``,
-    ``F32_BWD_ENTRY``); either dtype at the VAE's 512 the CUDA-core template
+    ``F32_BWD_ENTRY``); float32 at the VAE's 512 the CUDA-core template
     (``csrc/flash_attention_bwd.cu``).  Raises for any other dtype or head
     dim."""
     if d not in BWD_HEAD_DIMS:

@@ -1,7 +1,8 @@
 """The flash backward's kernels on the card: the fused float32 kernel, its
-tile variants, and (with ``--tc``) the tensor-core kernels' tiles.
+tile variants, the bf16 tensor-core kernels at d = 512, and (with ``--tc``)
+the tensor-core kernels' tiles.
 
-    python -m hedit_tpu_torch.probes.flash_bwd_tiles [--parent DIR [--nmg-loop]] [--tc]
+    python -m hedit_tpu_torch.probes.flash_bwd_tiles [--parent DIR [--nmg-loop] [--vae-loop]] [--tc]
 
 The fused float32 backward (``csrc/flash_attention_bwd_f32.cu``, entry point
 ``hedit_flash_attention_bwd_f32``: dq, dk and dv in one launch) is timed at
@@ -22,15 +23,17 @@ backend is the yardstick.
 
 ``--parent DIR``: a checkout of an earlier commit of this repository (for
 example ``git archive <commit> hedit_tpu_torch chip_smoke.py | tar -x -C
-DIR``).  Its CUDA-core backward template (``csrc/flash_attention_bwd.cu``,
-whose float32 dq and dk / dv kernels served these shapes before) is timed in
-turns with the fused kernel (parent, this, this, parent; dq + dk / dv), and
-its sources are built beside this tree's: these outputs of the two must
-agree bit for bit on the same inputs, or the probe exits non-zero: the 21
-outputs of ``csrc/flash_attention_tc.cu`` (``flash_exact_tiles.identity``),
-the probes' (``flash_probe_tiles.kept_identity``), the tensor-core backward
-in bf16 and the template's backward at d = 512 in both dtypes and in bf16 at
-d = 40 / 80, the float32 forward kernels' (``csrc/flash_attention_f32.cu``)
+DIR``).  Its float32 backward at d = 40 / 80 (its fused kernel, or, in a
+parent before that kernel, the CUDA-core template's dq and dk / dv) is
+timed in turns with the fused kernel (parent, this, this, parent), and its
+sources are built beside this tree's (those it has): these outputs of the
+two must agree bit for bit on the same inputs, or the probe exits non-zero:
+the 21 outputs of ``csrc/flash_attention_tc.cu``
+(``flash_exact_tiles.identity``), the probes'
+(``flash_probe_tiles.kept_identity``), the tensor-core backward in bf16 at
+d = 40 / 80, the template's backward at d = 512 in both dtypes and in bf16
+at d = 40 / 80, the fused float32 backward's dk and dv (its dq sums by
+atomic adds), the float32 forward kernels' (``csrc/flash_attention_f32.cu``)
 and the template's forward outputs (``kept_identity``).
 
 ``--nmg-loop`` (with ``--parent``): the float32 NMG loop of ``chip_smoke.py``
@@ -40,12 +43,27 @@ the parent's package and this tree's in turns (parent, this, this, parent),
 each in a process of its own started in that tree; prints each run's loop
 seconds and backward launches.
 
+The bf16 tensor-core kernels at the VAE's d = 512 (``SHAPES_512``: the
+decoder's mid-block attention [1, 1, 4096, 512] and a ragged 1000 / 1100)
+through their entry points, dq and dk / dv alone and the pair in turns with
+the parent's CUDA-core template (``--parent``: parent, this, this, parent),
+beside SDPA's backward and the bound (6 + 8 B H Sq Sk D FLOP at 989
+TFLOP/s), held to the plain backward before its final rounding (2^-8 of
+each output's largest value; the probe exits non-zero beyond it).
+
+``--vae-loop`` (with ``--parent``): the bf16 VAE decode's gradient at 512
+px (``chip_smoke.py``'s ``vae_gradient`` path, whose decoder mid-block
+attention takes the d = 512 backward), six calls a run, host clock, of the
+parent's package and this tree's in turns, each in a process of its own.
+
 ``--tc``: ``csrc/flash_attention_bwd_tc.cu`` built once for each of
-``VARIANTS`` (its four launch lines rewritten to other tiles: warps of 16
-own rows, streamed rows a tile, blocks an SM), its dq and dk / dv kernels
-timed at ``SHAPES`` in turns with the source's own tiles (variant 0) first
-and last and held to the plain backward before its final rounding (2^-8 of
-the largest value).
+``VARIANTS`` (its six launch lines rewritten to other tiles: at d = 40 / 80
+warps of 16 own rows, streamed rows a tile, blocks an SM; at d = 512 own
+rows, streamed rows, warps, the score jobs' columns and contraction split,
+blocks an SM), its dq and dk / dv kernels timed at ``SHAPES`` and
+``SHAPES_512`` in turns with the source's own tiles (variant 0) first and
+last and held to the plain backward before its final rounding (2^-8 of the
+largest value; the probe exits non-zero beyond it).
 """
 
 from __future__ import annotations
@@ -70,20 +88,37 @@ from hedit_tpu_torch.probes.timing import best_ms, build_alone, require_cuda
 OUT_DIR = _build.BUILD_DIR / "bwd_tiles"
 TC_SOURCE = _build.CSRC / "flash_attention_bwd_tc.cu"
 F32_SOURCE = _build.CSRC / "flash_attention_bwd_f32.cu"
-# the source's launch lines, keyed by kernel and head dim
-LAUNCHES = {"dq40": "launch_dq<40, 4, 64, 4>", "dkv40": "launch_dkv<40, 4, 64, 4>",
-            "dq80": "launch_dq<80, 4, 128, 2>", "dkv80": "launch_dkv<80, 4, 128, 2>"}
-# (warps, streamed rows, blocks an SM) of each kernel and head dim; variant 0
-# is the source's own
+# the source's launch lines, keyed by kernel and head dim: (the launcher,
+# its tile arguments); a variant's tile replaces the arguments
+LAUNCHES = {"dq40": ("launch_dq<40", (4, 64, 4)), "dkv40": ("launch_dkv<40", (4, 64, 4)),
+            "dq80": ("launch_dq<80", (4, 128, 2)), "dkv80": ("launch_dkv<80", (4, 128, 2)),
+            "dq512": ("launch_dq512<", (32, 32, 8, 32, 2, 1)),
+            "dkv512": ("launch_dkv512<", (32, 32, 8, 32, 2, 1))}
+# D = 40 / 80: (warps, streamed rows, blocks an SM); D = 512: (own rows,
+# streamed rows, warps, job columns JN, contraction split KS, blocks an SM).
+# Variant 0 is the source's own.  At D = 512: 1 jobs of 16 x 16 over the
+# whole contraction; 2 two blocks an SM of 16 rows and 16-row tiles; 3
+# 16-row tiles; 4 blocks of 16 rows (256 blocks at 4096, two waves of one
+# block an SM); 5 64-row dq blocks (64 blocks at 4096: half the card) and
+# 16 x 16 dk/dv jobs over half the contraction.
 VARIANTS = (
-    dict(dq40=(4, 64, 4), dkv40=(4, 64, 4), dq80=(4, 128, 2), dkv80=(4, 128, 2)),
-    dict(dq40=(4, 64, 5), dkv40=(4, 64, 3), dq80=(4, 64, 2), dkv80=(4, 64, 2)),
-    dict(dq40=(8, 64, 2), dkv40=(8, 64, 2), dq80=(2, 128, 4), dkv80=(2, 128, 4)),
-    dict(dq40=(4, 32, 5), dkv40=(4, 32, 4), dq80=(8, 128, 1), dkv80=(8, 128, 1)),
-    dict(dq40=(8, 32, 2), dkv40=(8, 32, 2), dq80=(4, 256, 1), dkv80=(4, 256, 1)),
-    dict(dq40=(2, 64, 8), dkv40=(2, 64, 8), dq80=(2, 64, 4), dkv80=(2, 64, 4)),
+    dict(dq40=(4, 64, 4), dkv40=(4, 64, 4), dq80=(4, 128, 2), dkv80=(4, 128, 2),
+         dq512=(32, 32, 8, 32, 2, 1), dkv512=(32, 32, 8, 32, 2, 1)),
+    dict(dq40=(4, 64, 5), dkv40=(4, 64, 3), dq80=(4, 64, 2), dkv80=(4, 64, 2),
+         dq512=(32, 32, 8, 16, 1, 1), dkv512=(32, 32, 8, 16, 1, 1)),
+    dict(dq40=(8, 64, 2), dkv40=(8, 64, 2), dq80=(2, 128, 4), dkv80=(2, 128, 4),
+         dq512=(16, 16, 4, 16, 2, 2), dkv512=(16, 16, 4, 16, 2, 2)),
+    dict(dq40=(4, 32, 5), dkv40=(4, 32, 4), dq80=(8, 128, 1), dkv80=(8, 128, 1),
+         dq512=(32, 16, 8, 16, 2, 1), dkv512=(32, 16, 8, 16, 2, 1)),
+    dict(dq40=(8, 32, 2), dkv40=(8, 32, 2), dq80=(4, 256, 1), dkv80=(4, 256, 1),
+         dq512=(16, 32, 4, 32, 2, 1), dkv512=(16, 32, 4, 32, 2, 1)),
+    dict(dq40=(2, 64, 8), dkv40=(2, 64, 8), dq80=(2, 64, 4), dkv80=(2, 64, 4),
+         dq512=(64, 16, 8, 16, 2, 1), dkv512=(32, 32, 8, 16, 2, 1)),
 )
 SHAPES = (((1, 8, 4096, 40), 4096), ((1, 8, 1024, 80), 1024), ((1, 8, 1000, 80), 1064))
+# the VAE decoder's mid-block attention at 512 px, and a ragged one
+SHAPES_512 = (((1, 1, 4096, 512), 4096), ((1, 1, 1000, 512), 1100))
+BF16_ULP = 2.0 ** -8
 F32_SHAPES = SHAPES
 # (label, -D defines) of the fused float32 kernel: the source's own first;
 # 32-query tiles at d = 40 (58 KB of shared memory: 2 or 3 blocks an SM);
@@ -98,19 +133,25 @@ F32_VARIANTS = (("the source's tiles", ()),
                 ("loops unrolled once", ("BWD_F32_UNROLL=1",)),
                 ("no dq atomics (dq wrong)", ("BWD_F32_ABLATE=1",)))
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 F32_TOL = 1e-4
 PARENT_SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "flash_attention_f32.cu",
                   "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu", "flash_probes.cu",
-                  "flash_probes_tc.cu", "flash_variants.cu")
+                  "flash_probes_tc.cu", "flash_variants.cu", "flash_attention_bwd_f32.cu")
+
+
+def _launch_line(launcher: str, tile) -> str:
+    return launcher + ("" if launcher.endswith("<") else ", ") + ", ".join(map(str, tile)) + ">"
 
 
 def _variant_source(i: int) -> Path:
     text = TC_SOURCE.read_text()
     for key, tile in VARIANTS[i].items():
-        if LAUNCHES[key] not in text:
-            raise RuntimeError(f"{TC_SOURCE.name} no longer launches {LAUNCHES[key]}")
-        text = text.replace(LAUNCHES[key], "launch_%s<%s, %d, %d, %d>" % (key[:-2], key[-2:],
-                                                                          *tile))
+        launcher, own = LAUNCHES[key]
+        line = _launch_line(launcher, own)
+        if line not in text:
+            raise RuntimeError(f"{TC_SOURCE.name} no longer launches {line}")
+        text = text.replace(line, _launch_line(launcher, tile))
     path = OUT_DIR / f"variant{i}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
@@ -153,15 +194,18 @@ def _errors(got, wants):
     return [((a.float() - w).abs().max() / w.abs().max()).item() for a, w in zip(got, wants)]
 
 
-def sweep() -> None:
-    """The tensor-core kernels' tile variants (``--tc``)."""
+def sweep() -> float:
+    """The tensor-core kernels' tile variants (``--tc``); returns the largest
+    error of any variant over its tolerance."""
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
         built = list(ex.map(lambda i: build_alone(_variant_source(i), OUT_DIR / f"variant{i}.so",
                                                   _build.CSRC), range(len(VARIANTS))))
     for i, (_, info) in enumerate(built):
         print(f"variant {i} {VARIANTS[i]}: {info}")
     entries = flash.bwd_entry(torch.bfloat16, 40)
-    for shape, sk in SHAPES:
+    assert entries == flash.bwd_entry(torch.bfloat16, 512)
+    worst = 0.0
+    for shape, sk in SHAPES + SHAPES_512:
         q, k, v, do, out, lse2, delta = _inputs(shape, sk, torch.bfloat16)
         wants = flash.flash_attention_backward_reference(q, k, v, out, lse2, do,
                                                          out_dtype=torch.float32)
@@ -171,19 +215,79 @@ def sweep() -> None:
             fdq()
             fdkv()
             torch.cuda.synchronize()
-            err = max(_errors(got, wants)) / 2.0 ** -8
+            err = max(_errors(got, wants)) / BF16_ULP
+            worst = max(worst, err)
             print(f"tiles q{list(shape)} sk={sk} variant {i}: dq {VARIANTS[i][f'dq{d}']} "
                   f"{best_ms(fdq):.4f} ms, dk/dv {VARIANTS[i][f'dkv{d}']} {best_ms(fdkv):.4f} "
                   f"ms, err / tol {err:.3f}")
+        del q, k, v, do, out, lse2, delta, wants
+        torch.cuda.empty_cache()
+    return worst
+
+
+def vae_timings(mine, parent):
+    """The tensor-core kernels at ``SHAPES_512`` in bf16 through their entry
+    points (dq, dk / dv, and the two together), the pair in turns with the
+    parent's CUDA-core template (where given: parent, this, this, parent),
+    SDPA's backward on the same values and the bound (6 + 8 B H Sq Sk D FLOP
+    at the bf16 rate); held to the plain backward before its final rounding
+    (2^-8 of each output's largest value).  One record a shape."""
+    records = []
+    entries = flash.bwd_entry(torch.bfloat16, 512)
+    template = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")
+    for shape, sk in SHAPES_512:
+        q, k, v, do, out, lse2, delta = _inputs(shape, sk, torch.bfloat16)
+        wants = flash.flash_attention_backward_reference(q, k, v, out, lse2, do,
+                                                         out_dtype=torch.float32)
+        (fdq, fdkv), got = _calls(mine, entries, q, k, v, do, lse2, delta)
+        fdq()
+        fdkv()
+        torch.cuda.synchronize()
+        errs = [e / BF16_ULP for e in _errors(got, wants)]
+
+        def pair(first, second):
+            def call():
+                first()
+                second()
+            return call
+        turns = [("kernels", pair(fdq, fdkv))]
+        if parent is not None:
+            (pdq, pdkv), _ = _calls(parent, template, q, k, v, do, lse2, delta)
+            turns = [("parent template", pair(pdq, pdkv)), *turns, *turns,
+                     ("parent template", pair(pdq, pdkv))]
+        ms = [best_ms(fn) for _, fn in turns]
+        dq_ms, dkv_ms = best_ms(fdq), best_ms(fdkv)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(*leaves)
+        sdpa = best_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+        b, h, sq, d = shape
+        bounds = [n * b * h * sq * sk * d / BF16_FLOPS * 1e3 for n in (6, 8)]
+        kernel_ms = min(t for (who, _), t in zip(turns, ms) if who == "kernels")
+        print(f"tensor cores d = 512 q{list(shape)} sk={sk}: "
+              + ", ".join(f"{who} {t:.4f}" for (who, _), t in zip(turns, ms))
+              + f" ms; dq {dq_ms:.4f}, dk/dv {dkv_ms:.4f} ms; SDPA backward {sdpa:.4f} ms, "
+              f"kernels / SDPA {kernel_ms / sdpa:.3f}; bound {bounds[0]:.4f} + {bounds[1]:.4f} "
+              f"ms ({sum(bounds) / kernel_ms:.1%}); err / tol dq / dk / dv "
+              f"{' / '.join(f'{e:.3f}' for e in errs)}")
+        records.append({"shape": list(shape), "sk": sk,
+                        "turns": [[w, t] for (w, _), t in zip(turns, ms)], "dq_ms": dq_ms,
+                        "dkv_ms": dkv_ms, "sdpa_ms": sdpa, "bound_ms": bounds,
+                        "err_over_tol": errs})
+        del q, k, v, do, out, lse2, delta, lib_out, leaves
+        torch.cuda.empty_cache()
+    return records
 
 
 def f32_timings(mine, variants, parent):
     """The fused float32 kernel at ``F32_SHAPES``: in turns with the parent's
-    template (where given), SDPA's backward, the bound and the
-    ``F32_VARIANTS`` in turns.  One record a shape."""
+    float32 backward at d = 40 / 80 (where given: its fused kernel, or, in a
+    parent before it, the template's dq and dk / dv), SDPA's backward, the
+    bound and the ``F32_VARIANTS`` in turns.  One record a shape."""
     records = []
     fused = flash.bwd_entry(torch.float32, 40)
     template = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")
+    parent_entries = (fused if parent is not None and hasattr(parent, fused[0]) else template)
     for shape, sk in F32_SHAPES:
         q, k, v, do, out, lse2, delta = _inputs(shape, sk, torch.float32)
         wants = flash.flash_attention_backward_reference(q, k, v, out, lse2, do)
@@ -193,12 +297,13 @@ def f32_timings(mine, variants, parent):
         errs = _errors(got, wants)
         turns = [("kernel", call)]
         if parent is not None:
-            (pdq, pdkv), _ = _calls(parent, template, q, k, v, do, lse2, delta)
+            calls, _ = _calls(parent, parent_entries, q, k, v, do, lse2, delta)
 
-            def both(pdq=pdq, pdkv=pdkv):
-                pdq()
-                pdkv()
-            turns = [("parent template", both), *turns, *turns, ("parent template", both)]
+            def both(calls=calls):
+                for c in calls:
+                    c()
+            who = "parent fused" if parent_entries == fused else "parent template"
+            turns = [(who, both), *turns, *turns, (who, both)]
         ms = [best_ms(fn) for _, fn in turns]
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         with torch.enable_grad():
@@ -289,6 +394,16 @@ def kept_identity(mine, parent) -> bool:
         same &= equal
         print(f"identity backward ({lib}) q{list(shape)} sk={sk} {str(dtype)[6:]}: "
               f"{'bit-identical to the parent' if equal else 'DIFFERS from the parent'}")
+    if "flash_attention_bwd_f32.cu" in parent:
+        for shape, sk in (((1, 8, 1024, 40), 1024), ((1, 8, 1000, 80), 1064)):
+            q, k, v, do, _, lse2, delta = _inputs(shape, sk, torch.float32, seed=shape[2])
+            outs = [_bwd(x, q, k, v, do, lse2, delta)[1:]
+                    for x in (mine, parent["flash_attention_bwd_f32.cu"])]
+            equal = _same(*outs)
+            same &= equal
+            print(f"identity backward (flash_attention_bwd_f32.cu, dk and dv) q{list(shape)} "
+                  f"sk={sk} float32: "
+                  f"{'bit-identical to the parent' if equal else 'DIFFERS from the parent'}")
     forwards = [(lib, entry, case, packed, lse, dtype) for lib, entry, case, packed, lse, dtype in (
         ("flash_attention_f32.cu", "hedit_flash_attention_fwd_f32", (2, 8, 1024, 1024, 40),
          False, False, torch.float32),
@@ -351,12 +466,52 @@ def nmg_loop_turns(parent: Path) -> None:
               + ("" if p.returncode == 0 else p.stderr[-2000:]))
 
 
+VAE_LOOP = """
+import time, torch, chip_smoke as cs
+cs.phase_build()
+pipe, images = cs._main_path_inputs()[:2]
+x0 = pipe.vae_encode(images[:1])
+times = []
+for i in range(6):
+    cs.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latent = x0.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = pipe.vae.decode(latent).float().square().mean()
+    grad, = torch.autograd.grad(loss, latent)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+moved = {n: c for n, c in cs.read_launches().items() if "bwd" in n and c}
+print("vae gradient ms", [round(t, 3) for t in times], "launches", moved,
+      "finite", bool(torch.isfinite(grad).all()))
+"""
+
+
+def vae_loop_turns(parent: Path) -> None:
+    """The bf16 VAE decode's gradient at 512 px (``chip_smoke.py``'s
+    ``vae_gradient`` path: d loss / d latent, the decoder's mid-block
+    attention through the d = 512 backward) six times, host clock around
+    each call ended by a synchronise, of the parent and of this tree in
+    turns, each in its own process in its own tree."""
+    here = Path(__file__).resolve().parents[2]
+    for who, root in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        p = subprocess.run([sys.executable, "-c", VAE_LOOP], cwd=root, capture_output=True,
+                           text=True)
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("vae gradient")]
+        print(f"vae_gradient loop, {who} ({root}), rc {p.returncode}: " + " | ".join(lines)
+              + ("" if p.returncode == 0 else p.stderr[-2000:]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
     ap.add_argument("--tc", action="store_true", help="also sweep the tensor-core tiles")
     ap.add_argument("--nmg-loop", action="store_true",
                     help="time the float32 NMG loop of the parent and of this tree in turns")
+    ap.add_argument("--vae-loop", action="store_true",
+                    help="time the bf16 VAE decode's gradient of the parent and of this tree "
+                         "in turns")
     args = ap.parse_args(argv)
     require_cuda("flash_bwd_tiles")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -368,6 +523,7 @@ def main(argv=None) -> int:
     if args.parent is not None:
         csrc = args.parent / "hedit_tpu_torch" / "csrc"
         builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in PARENT_SOURCES]
+    builds = [b for b in builds if b[0].exists()]  # a parent may predate a source
     with ThreadPoolExecutor(len(builds)) as ex:
         built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
                             builds))
@@ -375,17 +531,24 @@ def main(argv=None) -> int:
         print(f"ptxas, {name} ({source.name}): {info}")
     mine = _build.cuda_library()
     n = len(F32_VARIANTS)
-    parent = dict(zip(PARENT_SOURCES, (lib for lib, _ in built[n:])))
+    parent = {source.name: lib for (source, *_), (lib, _) in zip(builds[n:], built[n:])}
     records = f32_timings(mine, [lib for lib, _ in built[:n]],
-                          parent.get("flash_attention_bwd.cu"))
+                          parent.get("flash_attention_bwd_f32.cu",
+                                     parent.get("flash_attention_bwd.cu")))
     backend = sdpa_backend()
     print(json.dumps({"flash_bwd_f32_tiles": records, "sdpa_float32_backward_kernels": backend}))
-    if args.tc:
-        sweep()
+    vae = vae_timings(mine, parent.get("flash_attention_bwd.cu"))
+    print(json.dumps({"flash_bwd_tc_512": vae}))
+    worst = sweep() if args.tc else 0.0
     if args.nmg_loop and args.parent is not None:
         nmg_loop_turns(args.parent.resolve())
+    if args.vae_loop and args.parent is not None:
+        vae_loop_turns(args.parent.resolve())
     bad = [r for r in records if not (max(r["rel_err"]) <= F32_TOL
                                       and r["variant_err"] <= F32_TOL)]
+    bad += [r for r in vae if max(r["err_over_tol"]) > 1]
+    if worst > 1:
+        bad.append(f"a tile variant at {worst:.3f} of its tolerance")
     if bad:
         print(f"FAILED: outputs beyond their tolerance: {bad}")
         return 1

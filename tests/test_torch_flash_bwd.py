@@ -86,9 +86,11 @@ def test_flash_backward_plain_matches_jax_kernels_and_vjp(sq, sk, d):
 
 
 def test_flash_backward_plain_matches_jax_kernels_in_bf16():
-    """bf16 inputs at (Sq, Sk, D) = (256, 256, 40), (140, 260, 40) and (256,
-    256, 80), one item (pytest-xdist's loadfile scheduler queues files by
-    their number of items): the port's plain LSE forward and plain backward against
+    """bf16 inputs at (Sq, Sk, D) = (256, 256, 40), (140, 260, 40), (256,
+    256, 80) and the VAE's width (256, 300, 512: JAX pads the keys to its
+    256-key block above d = 128), one item (pytest-xdist's loadfile
+    scheduler queues files by their number of items): the port's plain LSE
+    forward and plain backward against
     ``_flash_bounded_fwd_lse`` and the JAX dq and dk / dv kernels in
     interpret mode, which round qs = q * c and ks = k * c, ds on each side
     and p for ``p^T dO`` to bf16.  Both sides round each output to bf16 from
@@ -99,7 +101,7 @@ def test_flash_backward_plain_matches_jax_kernels_in_bf16():
     at all.  That is tighter than the gap a plain backward that computes in
     float32 from the bf16 inputs and rounds once leaves: such a version
     fails every case here."""
-    for sq, sk, d in ((256, 256, 40), (140, 260, 40), (256, 256, 80)):
+    for sq, sk, d in ((256, 256, 40), (140, 260, 40), (256, 256, 80), (256, 300, 512)):
         rng = np.random.RandomState(sq + sk + d)
         arrays = [rng.randn(1, 2, s, d).astype(np.float32) for s in (sq, sk, sk, sq)]
         tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)

@@ -4,10 +4,10 @@ The kernels (``hedit_tpu_torch/csrc/flash_attention_bwd_tc.cu``) run only on
 the card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here,
 without JAX:
 
-* the dispatch (``bwd_entry``): bf16 at the UNet's head dims to the
-  tensor-core entry points, float32 there to the fused float32 entry point
-  (``csrc/flash_attention_bwd_f32.cu``), either dtype at the VAE's 512 to
-  the CUDA-core template, anything else refused;
+* the dispatch (``bwd_entry``): bf16 at the UNet's head dims and at the
+  VAE's 512 to the tensor-core entry points, float32 at the UNet's to the
+  fused float32 entry point (``csrc/flash_attention_bwd_f32.cu``), float32
+  at 512 to the CUDA-core template, anything else refused;
 * the operand check of the tensor-core route (``check_tc_operands``):
   16-byte alignment, strides that are multiples of 8;
 * the C entry points' parameter counts against the ``ctypes`` argument types
@@ -16,7 +16,9 @@ without JAX:
 * the plain backward: in bf16 its output before the final rounding
   (``out_dtype=float32``) rounds to its own bf16 result, its roundings are
   the TPU kernels' (qs and ks, ds, p for dv), and float32 inputs keep the
-  float32 formulas bit for bit.
+  float32 formulas bit for bit;
+* the d = 512 kernels' order of work (32-row tiles, each score contraction
+  summed as two halves) rendered in plain torch against the plain backward.
 """
 
 import math
@@ -49,11 +51,15 @@ def _share_cores():
 # pytest-xdist's loadfile scheduler queues test files by their number of
 # items, and a file of few items queues behind the suite's long JAX files.
 ROUTES = ((torch.bfloat16, 40, TC_ENTRIES), (torch.bfloat16, 80, TC_ENTRIES),
-          (torch.bfloat16, 512, CORE_ENTRIES), (torch.float32, 40, F32_ENTRIES),
+          (torch.bfloat16, 512, TC_ENTRIES), (torch.float32, 40, F32_ENTRIES),
           (torch.float32, 80, F32_ENTRIES), (torch.float32, 512, CORE_ENTRIES))
 
 
 def test_bwd_entry_sends_bf16_unet_widths_to_the_tensor_cores():
+    """Every bf16 head dim (the UNet's 40 and 80, the VAE's 512) to the
+    tensor-core entry points; float32 by head dim to the fused kernel or the
+    template."""
+    assert flash_mod.TC_BWD_HEAD_DIMS == flash_mod.BWD_HEAD_DIMS
     for dtype, d, entries in ROUTES:
         assert flash_mod.bwd_entry(dtype, d) == entries, (dtype, d)
         assert set(entries) <= set(_build.ARGTYPES)
@@ -130,7 +136,7 @@ def test_cpu_tensors_launch_nothing():
     assert _counts() == before
 
 
-@pytest.mark.parametrize("sq,sk,d", [(64, 64, 40), (40, 72, 80)])
+@pytest.mark.parametrize("sq,sk,d", [(64, 64, 40), (40, 72, 80), (32, 48, 512)])
 def test_plain_bf16_output_before_rounding_rounds_to_its_result(sq, sk, d):
     """``out_dtype=float32`` gives the plain backward's outputs before their
     final rounding: rounded to bf16 they are its bf16 outputs, bit for bit."""
@@ -148,7 +154,7 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-@pytest.mark.parametrize("sq,sk,d", [(48, 64, 40), (64, 40, 80)])
+@pytest.mark.parametrize("sq,sk,d", [(48, 64, 40), (64, 40, 80), (32, 48, 512)])
 def test_plain_bf16_takes_the_tpu_kernels_roundings(sq, sk, d):
     """The plain backward in bf16, before its final rounding, against the
     TPU kernels' steps written out once more in float64 with each bf16
@@ -201,3 +207,58 @@ def test_plain_float32_keeps_its_formulas_bit_for_bit():
             torch.matmul(p.transpose(-1, -2), do))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _kernel_order_512(q, k, v, do, lse2, delta, tile=32):
+    """The d = 512 kernels' order of work in plain float32 torch, [S, D] bf16
+    inputs of one head: streamed tiles of 32 rows; each score product
+    contracted as two halves of 256 columns, the first half's sum plus the
+    second's; p = exp2(s - lse2) and ds rounded to bf16 per tile (p too, for
+    dv); the outputs summed over the tiles in order.  Rows past the end are
+    left out (the kernels zero-fill and mask them).  Returns (dq, dk, dv)
+    before their final rounding."""
+    d = q.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    c = _bf16(torch.tensor(scale * math.log2(math.e)))
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    qs, ks = _bf16(qf * c), _bf16(kf * c)
+    h = d // 2
+
+    def halves(a, b):
+        return a[:, :h] @ b[:, :h].T + a[:, h:] @ b[:, h:].T
+
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, k.shape[0], tile):
+        kt, vt = kf[k0:k0 + tile], vf[k0:k0 + tile]
+        p = torch.exp2(halves(qs, kt) - lse2[:, None])
+        dq += _bf16(p * (halves(dof, vt) - delta[:, None])) @ kt
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, q.shape[0], tile):
+        qt, ot = qf[q0:q0 + tile], dof[q0:q0 + tile]
+        pt = torch.exp2(halves(ks, qt) - lse2[None, q0:q0 + tile])
+        dv += _bf16(pt) @ ot
+        dk += _bf16(pt * (halves(vf, ot) - delta[None, q0:q0 + tile])) @ qt
+    return dq * scale, dk * scale, dv
+
+
+def test_kernel_order_at_d512_matches_the_plain_backward():
+    """The d = 512 tensor-core kernels' order of work (``_kernel_order_512``:
+    32-row tiles, each score contraction summed as two halves) against the
+    plain backward before its final rounding, ragged on both sides (100
+    queries, 70 keys): the orders differ only in float32 summation, which
+    may move a ds (or p) to the other bf16 neighbour; each output within
+    2^-10 of its largest value, at most 2% of its elements further apart
+    than 1e-5 of it."""
+    q, k, v, do = _inputs(100, 70, 512, torch.bfloat16, seed=2)
+    out, lse2 = flash_mod.flash_attention_lse_reference(q, k, v)
+    wants = flash_mod.flash_attention_backward_reference(q, k, v, out, lse2, do,
+                                                         out_dtype=torch.float32)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    for h in range(q.shape[1]):
+        got = _kernel_order_512(q[0, h], k[0, h], v[0, h], do[0, h], lse2[h, 0], delta[0, h])
+        for a, w in zip(got, wants):
+            w = w[0, h]
+            largest = w.abs().max().item()
+            gap = (a - w).abs()
+            assert gap.max().item() <= 2.0 ** -10 * largest
+            assert (gap > 1e-5 * largest).double().mean().item() <= 0.02

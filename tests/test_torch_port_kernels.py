@@ -404,9 +404,9 @@ def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
     """The VAE's mid-block attention [1, 1, 4096, 512] through
     ``fused_attention`` (the style reward's route), routed as JAX on the
     TPU by ``flash_kv_fits``: in bf16 (8 MiB of K/V, the budget) under a
-    recorded gradient the tensor-core LSE forward and both backward kernels
-    of the CUDA-core template (the tensor-core backward takes 40 and 80
-    only), matching the plain backward on the same inputs before its final
+    recorded gradient the tensor-core LSE forward and both tensor-core
+    backward kernels (which take 40, 80 and 512; the CUDA-core template's
+    none), matching the plain backward on the same inputs before its final
     rounding, fed the bounded plain forward's out and lse2 (tolerances of
     ``_bwd_tols``); in float32 (16 MiB) no kernel at all, with or without a
     gradient: ``reference_attention`` and its autograd.  A head dim the
@@ -423,7 +423,7 @@ def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
     with torch.no_grad():
         fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, tc, tc, 0, 0, 0, 0)))
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, tc, 0, 0, tc, tc, 0, 0)))
     assert _launch_counts()[0] == forward[0] and _launch_counts()[6] == forward[6] + tc
     if tc:
         want_out, want_lse = flash_mod.flash_attention_lse_reference(q.detach(), k.detach(),
@@ -439,6 +439,55 @@ def test_flash_backward_refuses_the_vae_head_dim(cuda, dtype):
     with pytest.raises(ValueError, match="head dim"):
         flash_mod.flash_attention_backward_cuda(x, x, x, x, torch.zeros(1, 1, 1024, device=cuda),
                                                 x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,sk", [((1, 1, 4096, 512), 4096), ((1, 1, 1000, 512), 1100)])
+def test_flash_backward_tensor_cores_at_the_vae_head_dim(cuda, shape, sk):
+    """bf16 at d = 512 (``csrc/flash_attention_bwd_tc.cu``): dq and dk / dv of
+    ``flash_bwd_dq_cuda`` / ``flash_bwd_dkv_cuda`` against the plain backward
+    before its final rounding, fed the kernel forward's out and lse2, at the
+    decoder's mid-block attention and a ragged 1000 / 1100 (padded keys must
+    not leak into dq, padded queries not into dk / dv); the tensor-core
+    counters move, the template's do not; launched again, every output
+    bit-identical (one writer an element, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    kshape = shape[:2] + (sk, shape[3])
+    q, do = (torch.randn(shape, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(kshape, generator=g, device=cuda).bfloat16() for _ in range(2))
+    out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    before = _bwd_counts()
+    got = [flash_mod.flash_bwd_dq_cuda(q, k, v, do, lse2, delta),
+           *flash_mod.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)]
+    again = [flash_mod.flash_bwd_dq_cuda(q, k, v, do, lse2, delta),
+             *flash_mod.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)]
+    torch.cuda.synchronize()
+    assert _bwd_counts() == tuple(c + m for c, m in zip(before, (0, 0, 0, 0, 2, 2, 0, 0)))
+    wants = flash_mod.flash_attention_backward_reference(q, k, v, out, lse2, do,
+                                                         out_dtype=torch.float32)
+    for a, b, w, tol in zip(got, again, wants, _bwd_tols(torch.bfloat16, wants)):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), w, rtol=0, atol=tol)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_backward_tensor_cores_refuse_a_misaligned_vae_operand(cuda):
+    """At d = 512 too the tensor-core backward's wrappers raise on a bf16
+    operand that is not 16-byte aligned, and launch nothing: no fall back to
+    the CUDA-core template or a plain version."""
+    buf = torch.zeros(2 * 1024 * 512 + 16, device=cuda, dtype=torch.bfloat16)
+    misaligned = buf[1:1 + 1024 * 512].view(1, 1, 1024, 512)    # 2 bytes off
+    aligned = buf[8:8 + 1024 * 512].view(1, 1, 1024, 512)       # 16 bytes on
+    lse2, delta = torch.zeros(1, 1, 1024, device=cuda), torch.zeros(1, 1024, device=cuda)
+    before = _bwd_counts()
+    for operands in ((misaligned, aligned, aligned, aligned), (aligned, aligned, misaligned,
+                                                               aligned)):
+        for wrapper in (flash_mod.flash_bwd_dq_cuda, flash_mod.flash_bwd_dkv_cuda):
+            with pytest.raises(ValueError, match="aligned"):
+                wrapper(*operands, lse2, delta)
+    assert _bwd_counts() == before
 
 
 @pytest.mark.gpu
