@@ -1,6 +1,6 @@
 """End-to-end smoke of the PyTorch port on one CUDA GPU (an NVIDIA H100).
 
-    python3 chip_smoke.py              # the smoke, phases 1-17
+    python3 chip_smoke.py              # the smoke, phases 1-19
     python3 chip_smoke.py --profile    # where a flagship step's time goes
 
 Phases, each printed on its own lines; any failure exits non-zero without
@@ -18,9 +18,15 @@ the final result line:
    and float32 on the CUDA-core template (``csrc/flash_attention.cu``), but
    the bounded forward and its LSE form in float32 at d = 40 / 80 on the
    float32 kernel (``csrc/flash_attention_f32.cu``: the anchor window's
-   scores computed once, CUDA cores), whose refusals (a misaligned pointer,
-   a stride that is not a multiple of 4, an anchor window beyond 512 keys)
-   are checked too; the tensor-core bounded kernel is also timed beside the
+   scores computed once, CUDA cores), and all three modes in float32 at
+   d = 512 on the float32 d = 512 kernel (``csrc/flash_attention_f32_512.cu``:
+   a cluster of CTAs splits the keys, the window scored once; each case at
+   [1, 1, 1024, 512], [1, 1, 4096, 512] and ragged 1000 / 1100 timed beside
+   the template's same mode, ``core_ms``, and SDPA, launched twice,
+   bit-identical, and the saturating input at [1, 1, 4096, 512]), whose
+   refusals (a misaligned pointer, a stride that is not a multiple of 4, an
+   anchor window beyond 512 keys, 1024 at d = 512) are checked too; the
+   tensor-core bounded kernel is also timed beside the
    CUDA-core template's LSE entry (in bf16, row 3 before it moved) at the
    same inputs, and the
    tensor-core wrappers' refusals (a misaligned pointer, an odd stride,
@@ -33,7 +39,8 @@ the final result line:
    head-split copies, kernel 1, the merge).  The LSE forward (bf16 on the
    tensor cores, ``csrc/flash_attention_tc.cu``, timed beside the CUDA-core
    template on the same inputs; float32 on the float32 kernel, lse2 within
-   1e-5 relative, at d = 512 on the template) and the backward
+   1e-5 relative, at d = 512 on the float32 d = 512 kernel, also at
+   [1, 1, 1024, 512] and ragged) and the backward
    at the NMG gradient call's shapes and a ragged one: bf16 dq and dk / dv
    on the tensor cores (``csrc/flash_attention_bwd_tc.cu``), timed beside
    the CUDA-core template (``csrc/flash_attention_bwd.cu``) on the same
@@ -115,13 +122,20 @@ the final result line:
     (bf16 on the tensor cores; float32, its oracle test's, on the template),
     one of the packed one at each shape of ``flash_attention_packed``'s
     (float32) and one bf16 call at the UNet's controlled call [8, 4096, 320];
+    one float32 call of each at the VAE's d = 512 (the float32 d = 512
+    kernel); then the float32 d = 512 kernel's packed bounded entry, once
+    (``packed_bounded_f32_512``: no path packs heads at d = 512);
 12. the golden identity in float32 (TF32 off): target = source,
     cfg_tar == cfg_src_edit and a neutral control reproduce xts[0], through
     the general loop under the flagship configuration; the edit decoded (the
     VAE's float32 attention at 4096 tokens is outside the K/V budget: exact
     ``reference_attention``, no launch), then decoded at 256 px, where it
     fits: the float32 bounded kernel for the UNet's packed self-attentions
-    and the CUDA-core template for the VAE's d = 512, their launches counted;
+    and the float32 d = 512 kernel for the VAE's one head (the template
+    never), their launches counted; then the VAE decode's gradient in
+    float32 at 256 px (``vae_gradient_f32``): row 3 on the float32 d = 512
+    kernel once, its backward autograd of ``reference_attention`` (1024
+    tokens, below ``_BWD_MIN_SEQ``);
 13. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
     substituted here;
@@ -136,12 +150,14 @@ the final result line:
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
 17. a JSON line of the kernels (each with its launches on its path: rows 1
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
-    flagship path, rows 1p (the float32 kernel) and 1 (the CUDA-core
-    template, d = 512) on the float32 golden path, 3-5 on the NMG path (on
+    flagship path, rows 1p (the float32 kernel) and 1 (the float32 d = 512
+    kernel) on the float32 golden path, row 3 on the float32 d = 512 kernel
+    on ``vae_gradient_f32``, 3-5 on the NMG path (on
     the tensor cores, 4 + 5 also on the VAE decode's gradient; row 3 on the
     float32 kernel and 4 + 5 on the fused float32 kernel on the float32 NMG
     loop, 4-5 on the CUDA-core template on phase 3's float32 d = 512 case),
-    6 and 7 on their own (tensor cores and template),
+    6 and 7 on their own (tensor cores, template and the float32 d = 512
+    kernel; its packed bounded entry on ``packed_bounded_f32_512``),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
     bf16 and on the template in float32), then the result line
     ``{"ok": true, "device": {...}}``.
@@ -295,6 +311,11 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_attention_f32": (flash, "launches_f32"),
             "flash_packed_bounded_f32": (flash, "launches_packed_bounded_f32"),
             "flash_attention_lse_f32": (flash, "launches_lse_f32"),
+            "flash_attention_f32_512": (flash, "launches_f32_512"),
+            "flash_attention_lse_f32_512": (flash, "launches_lse_f32_512"),
+            "flash_attention_exact_f32_512": (flash, "launches_exact_f32_512"),
+            "flash_packed_bounded_f32_512": (flash, "launches_packed_bounded_f32_512"),
+            "flash_packed_f32_512": (flash, "launches_packed_f32_512"),
             **{f"flash_{lay}": (fp, f"launches_{lay}_tc") for lay in fp._LAYOUTS},
             **{f"flash_{lay}_core": (fp, f"launches_{lay}") for lay in fp._LAYOUTS},
             "flash_exp2_t": (fp, "launches_exp2_t_tc"),
@@ -334,9 +355,9 @@ def hook_groupnorm(*models):
 
 
 # rows 6 and 7, the exact forwards: bf16 on the tensor cores, float32 on the
-# CUDA-core template
+# CUDA-core template (d = 40 / 80) or the float32 d = 512 kernel
 EXACT_NAMES = ("flash_attention_exact", "flash_attention_exact_core", "flash_packed",
-               "flash_packed_core")
+               "flash_packed_core", "flash_attention_exact_f32_512", "flash_packed_f32_512")
 
 
 def read_launches():
@@ -374,7 +395,9 @@ def check_forward_routing(counts, path, failures, packed):
                         f"VAE attentions alone")
     core = {n: counts[n] for n in ("flash_attention_core", "flash_packed_bounded_core",
                                    "flash_attention_f32", "flash_packed_bounded_f32",
-                                   "flash_attention_lse_f32")}
+                                   "flash_attention_lse_f32", "flash_attention_f32_512",
+                                   "flash_packed_bounded_f32_512",
+                                   "flash_attention_lse_f32_512")}
     if any(core.values()):
         failures.append(f"the {path} path launched the CUDA-core bounded entries {core} in "
                         f"bf16 (expected 0)")
@@ -443,10 +466,13 @@ def _forward_plain(q, k, v, exact):
 
 def _route(entry):
     """(name suffix, label) of a forward entry point's kernel: the
-    tensor-core kernel, the float32 kernel (``csrc/flash_attention_f32.cu``)
-    or the CUDA-core template."""
+    tensor-core kernel, the float32 kernel (``csrc/flash_attention_f32.cu``),
+    the float32 d = 512 kernel (``csrc/flash_attention_f32_512.cu``) or the
+    CUDA-core template."""
     if entry.endswith("_tc"):
         return "", "tensor cores"
+    if entry.endswith(flash.F32_512_SUFFIX):
+        return flash.F32_512_SUFFIX, "CUDA cores, float32 d = 512 kernel"
     if entry.endswith("_f32"):
         return "_f32", "CUDA cores, float32 kernel"
     return "_core", "CUDA cores, template"
@@ -457,15 +483,25 @@ def _route(entry):
 CORE_SHAPES = ((8, 8, 4096, 40), (4, 8, 1024, 80), (1, 1, 4096, 512))
 
 
-def _lse_template_ms(q, k, v):
-    """CUDA-event ms of the CUDA-core template's LSE entry on inputs that the
-    wrappers send to the tensor cores (bf16): row 3 before it moved there.
-    Launched by its entry point directly, as no path launches it so."""
+def _template_ms(entry, q, k, v):
+    """CUDA-event ms of the CUDA-core template's forward ``entry`` (bounded
+    ``hedit_flash_attention_fwd``, LSE ``..._lse`` or exact ``..._exact``,
+    head-split) at the inputs: the template beside the kernel that took its
+    place (``core_ms``: the tensor cores in bf16, the float32 d = 512
+    kernel), launched by its entry point, as no wrapper reaches it there."""
     bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
-    out = torch.empty_like(q)
-    lse2 = torch.empty(bh, 1, sq, device="cuda")
-    return cuda_ms(lambda: flash._launch("hedit_flash_attention_fwd_lse", q, (q, k, v, out, lse2),
-                                         (bh, sq, sk, d, flash.bounded_anchor(sk, d))))
+    ptrs = [q, k, v, torch.empty_like(q)]
+    if entry.endswith("_lse"):
+        ptrs.append(torch.empty(bh, 1, sq, device="cuda"))
+    ints = (bh, sq, sk, d) + (() if entry.endswith("_exact") else (flash.bounded_anchor(sk, d),))
+    return cuda_ms(lambda: flash._launch(entry, q, ptrs, ints))
+
+
+def _relaunch_same(call, outs):
+    """Whether a second launch of ``call`` gives ``outs`` bit for bit."""
+    again = call()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(again, outs))
 
 
 def _flash_forward_cases(g, rows, failures):
@@ -489,7 +525,8 @@ def _flash_forward_cases(g, rows, failures):
              ((4, 8, 1024, 80), 1024, torch.float32),
              ((1, 8, 1000, 80), 1064, torch.float32),
              ((1, 1, 1024, 512), 1024, torch.float32),   # the 256 px decode's VAE attention
-             ((1, 1, 4096, 512), 4096, torch.float32)]
+             ((1, 1, 4096, 512), 4096, torch.float32),
+             ((1, 1, 1000, 512), 1100, torch.float32)]   # ragged, the window shorter than Sk
     exact_first = [cases[1]] + cases[:1] + cases[2:]
     for wrapper, exact, order in ((flash.flash_attention_cuda, False, cases),
                                   (flash.flash_attention_exact_cuda, True, exact_first)):
@@ -506,19 +543,29 @@ def _flash_forward_cases(g, rows, failures):
             plain = (flash.flash_attention_exact_reference if exact
                      else flash.flash_attention_bounded_reference)
             tc = dtype == torch.bfloat16
-            suffix, where = _route(flash.exact_entry(dtype, False) if exact
+            suffix, where = _route(flash.exact_entry(dtype, False, d) if exact
                                    else flash.bounded_entry(dtype, False, d))
             name = ("flash_attention_exact" if exact else "flash_attention") + suffix
             form = f"{'exact' if exact else 'bounded'} ({where})"
-            extra = ({"core_ms": _lse_template_ms(q, k, v)}
+            extra = ({"core_ms": _template_ms("hedit_flash_attention_fwd_lse", q, k, v)}
                      if tc and not exact and qshape in CORE_SHAPES and sk == qshape[2] else {})
+            if suffix == flash.F32_512_SUFFIX:
+                # the float32 d = 512 kernel: beside the template it replaced
+                # (the same mode by its entry point), launched twice
+                extra = {"core_ms": _template_ms("hedit_flash_attention_fwd"
+                                                 + ("_exact" if exact else ""), q, k, v),
+                         "relaunch_bit_identical": _relaunch_same(lambda: (wrapper(q, k, v),),
+                                                                  (got,))}
             _row(rows, failures, name, f"flash {form} q{list(qshape)} sk={sk} {str(dtype)[6:]}",
-                 err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
+                 err <= tol and bool(torch.isfinite(got).all())
+                 and extra.get("relaunch_bit_identical", True), max_abs_err=err, tol=tol,
                  ms=cuda_ms(lambda: wrapper(q, k, v)),
                  plain_ms=cuda_ms(lambda: plain(q, k, v)),
                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                  bound_ms=bound_ms, bound_by=by, shape=list(qshape), dtype=str(dtype)[6:], **extra)
-            if extra:
+            if suffix == flash.F32_512_SUFFIX:
+                _print_512(rows[-1])
+            elif extra:
                 print(f"  the CUDA-core bounded template (its LSE entry) at the same inputs: "
                       f"{extra['core_ms']:.3f} ms, tensor cores {rows[-1]['ms']:.3f} ms "
                       f"({extra['core_ms'] / rows[-1]['ms']:.2f}x faster)")
@@ -529,18 +576,23 @@ def _flash_forward_cases(g, rows, failures):
         print(f"tensor-core bounded vs tensor-core exact q{list(qshape)} bfloat16: {b_ms:.3f} ms "
               f"vs {e_ms:.3f} ms (bounded / exact {b_ms / e_ms:.3f})")
 
+    _f32_512_lse_cases(g, rows, failures)
+
     # saturation: the bounded kernels follow their plain versions, the exact
-    # kernel its own, and the two forms are far apart
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = _saturating_qkv(g, dtype)
+    # kernel its own, and the two forms are far apart; float32 also at
+    # d = 512 (the float32 d = 512 kernel in its three modes)
+    for dtype, sat in ((torch.bfloat16, _saturating_qkv), (torch.float32, _saturating_qkv),
+                       (torch.float32, _saturating_qkv_512)):
+        q, k, v = sat(g, dtype)
+        d = q.shape[-1]
         before = read_launches()
         bounded = flash.flash_attention_cuda(q, k, v).float()
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         exact = flash.flash_attention_exact_cuda(q, k, v).float()
         moved = {n: c - before[n] for n, c in read_launches().items() if c != before[n]}
-        suffix = _route(flash.bounded_entry(dtype, False, 40))[0]
+        suffix = _route(flash.bounded_entry(dtype, False, d))[0]
         routed = {"flash_attention" + suffix: 1, "flash_attention_lse" + suffix: 1,
-                  "flash_attention_exact" + ("" if dtype == torch.bfloat16 else "_core"): 1}
+                  "flash_attention_exact" + _route(flash.exact_entry(dtype, False, d))[0]: 1}
         want_out, want_lse = flash.flash_attention_lse_reference(q, k, v,
                                                                  out_dtype=torch.float32)
         want_bounded = _forward_plain(q, k, v, exact=False)
@@ -555,16 +607,75 @@ def _flash_forward_cases(g, rows, failures):
         gap = (bounded - exact).abs().max().item()
         ok = (errs[0] <= tol and errs[1] <= tol and errs[2] <= tol_e and err_lse <= 1e-5
               and gap > 20 * tol and lse2.min().item() > 100.0 and moved == routed)
-        print(f"flash saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: bounded / LSE / exact "
+        print(f"flash saturating q{list(q.shape)} {str(dtype)[6:]}: bounded / LSE / exact "
               f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores) "
               f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (tol {tol:.3g}), "
               f"lse2 relative {err_lse:.3e} (tol 1e-5, min lse2 {lse2.min().item():.2f}); "
               f"max|bounded - exact| {gap:.3e} (must exceed {20 * tol:.3g}); launches {moved} "
               f"{'OK' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"flash saturating case {dtype}")
+            failures.append(f"flash saturating case {dtype} d = {d}")
         if dtype == torch.bfloat16:
             _rounding_diagnostic(q, k, v, bounded, want_out.to(dtype).float(), tol)
+
+
+def _saturating_qkv_512(g, dtype):
+    """q, k, v [1, 1, 4096, 512], the saturating input at the VAE's width:
+    every query's score with a key is set by the key's first component; the
+    anchor window (the first 1024 keys) scores a few log2 units; key 1500
+    scores ~146, more than 116 above the window's max (clamped to 2^100 by
+    the bounded form); keys 1510-1573 score ~109."""
+    q = torch.randn(1, 1, 4096, 512, generator=g, device="cuda") * 0.1
+    q[..., 0] = 8.0 * (512 / 40) ** 0.5
+    k = torch.randn(1, 1, 4096, 512, generator=g, device="cuda") * 0.5
+    v = torch.randn(1, 1, 4096, 512, generator=g, device="cuda")
+    k[:, :, 1500, 0] = 80.0
+    k[:, :, 1510:1574, 0] = 60.0
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _print_512(row):
+    """The float32 d = 512 kernel's row beside the template it replaced and
+    SDPA, with its share of the bound."""
+    print(f"  float32 d = 512 kernel {row['ms']:.4f} ms, the template's same mode "
+          f"{row['core_ms']:.4f} ms ({row['core_ms'] / row['ms']:.2f}x), SDPA "
+          f"{row['library_ms']:.4f} ms (kernel / SDPA {row['ms'] / row['library_ms']:.2f}), "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%}); relaunched "
+          f"{'bit-identical' if row['relaunch_bit_identical'] else 'DIFFERENT'}")
+
+
+def _f32_512_lse_cases(g, rows, failures):
+    """Row 3 in float32 at d = 512 on the float32 d = 512 kernel at the
+    256 px decode's [1, 1, 1024, 512] (the shape of its path,
+    ``vae_gradient_f32``) and a ragged [1, 1, 1000, 512] against 1100 keys:
+    out within 1e-4 and lse2 within 1e-5 relative of
+    ``flash_attention_lse_reference``; beside the template's LSE entry and
+    SDPA, launched twice, bit-identical.  ([1, 1, 4096, 512] runs with the
+    backward, ``_flash_gradient_cases``.)"""
+    for qshape, sk in (((1, 1, 1024, 512), 1024), ((1, 1, 1000, 512), 1100)):
+        q, k, v = _qkv(g, qshape, sk, torch.float32)
+        out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
+        want, want_lse = flash.flash_attention_lse_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        err_l = ((lse2 - want_lse).abs() / want_lse.abs()).max().item()
+        same = _relaunch_same(lambda: flash.flash_attention_lse_cuda(q, k, v), (out, lse2))
+        sq = qshape[2]
+        bound_ms, by = bound(4 * 512 * 2 * (sq + sk) + 4 * sq, (4 * sq * sk * 512, torch.float32))
+        suffix, where = _route(flash.lse_entry(torch.float32, 512))
+        print(f"flash lse ({where}) q{list(qshape)} sk={sk} float32: lse2 max_rel_err "
+              f"{err_l:.3e} (tol 1e-05)")
+        _row(rows, failures, "flash_attention_lse" + suffix,
+             f"flash lse ({where}) q{list(qshape)} sk={sk} float32",
+             err <= F32_TOL and err_l <= 1e-5 and same and bool(torch.isfinite(out).all()),
+             max_abs_err=err, tol=F32_TOL,
+             ms=cuda_ms(lambda: flash.flash_attention_lse_cuda(q, k, v)),
+             plain_ms=cuda_ms(lambda: flash.flash_attention_lse_reference(q, k, v)),
+             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+             bound_ms=bound_ms, bound_by=by, shape=list(qshape), lse_max_rel_err=err_l,
+             core_ms=_template_ms("hedit_flash_attention_fwd_lse", q, k, v),
+             relaunch_bit_identical=same)
+        _print_512(rows[-1])
 
 
 def _rounding_diagnostic(q, k, v, got, want_rounded, tol):
@@ -602,28 +713,31 @@ def _flash_packed_cases(g, rows, failures):
     tensor-core wrappers' refusals: a misaligned pointer, an odd stride,
     float16, in either mode.  Both plain versions round q * scale and p at
     the kernel's steps and are read before their final rounding
-    (``BF16_ULP``)."""
-    cases = [(8, 4096, 4096, 320, torch.bfloat16, False),   # controlled call, 2 images
-             (4, 1024, 1024, 640, torch.bfloat16, False),
-             (2, 4096, 4096, 320, torch.float32, False),
-             (4, 1024, 1024, 640, torch.float32, False),
-             (2, 1000, 1064, 320, torch.bfloat16, False),   # ragged, Sq != Sk
-             (2, 1000, 1064, 640, torch.float32, False),
-             (4, 1024, 1024, 640, torch.bfloat16, True),    # a row slice of a larger batch
-             (4, 4096, 4096, 320, torch.float32, True)]
-    heads = 8
+    (``BF16_ULP``).  Float32 at d = 512 (one head of the VAE's width, and
+    two heads as a batch-strided slice) runs the float32 d = 512 kernel's
+    packed entries."""
+    cases = [(8, 4096, 4096, 320, torch.bfloat16, False, 8),   # controlled call, 2 images
+             (4, 1024, 1024, 640, torch.bfloat16, False, 8),
+             (2, 4096, 4096, 320, torch.float32, False, 8),
+             (4, 1024, 1024, 640, torch.float32, False, 8),
+             (2, 1000, 1064, 320, torch.bfloat16, False, 8),   # ragged, Sq != Sk
+             (2, 1000, 1064, 640, torch.float32, False, 8),
+             (4, 1024, 1024, 640, torch.bfloat16, True, 8),    # a row slice of a larger batch
+             (4, 4096, 4096, 320, torch.float32, True, 8),
+             (1, 1024, 1024, 512, torch.float32, False, 1),    # d = 512
+             (2, 600, 1100, 1024, torch.float32, True, 2)]
     for wrapper, plain, exact in (
             (flash.flash_attention_packed_cuda, flash.flash_attention_packed_exact_reference,
              True),
             (flash.flash_attention_packed_bounded_cuda,
              flash.flash_attention_packed_bounded_reference, False)):
-        for b, sq, sk, hd, dtype, strided in cases:
+        for b, sq, sk, hd, dtype, strided, heads in cases:
             groups = 3 if strided else 1
             q, k, v = (torch.randn(b, groups, s, hd, generator=g, device="cuda")
                        .to(dtype)[:, groups // 2] for s in (sq, sk, sk))
             got = wrapper(q, k, v, heads)
             want = plain(q, k, v, heads, out_dtype=torch.float32)
-            suffix, where = _route(flash.exact_entry(dtype, True) if exact
+            suffix, where = _route(flash.exact_entry(dtype, True, hd // heads) if exact
                                    else flash.bounded_entry(dtype, True, hd // heads))
             name = ("flash_packed" if exact else "flash_packed_bounded") + suffix
             form = f"{'exact' if exact else 'bounded'} ({where})"
@@ -723,10 +837,11 @@ def _check_refusals(kind, cases, failures):
 
 
 def _f32_refusals(g, failures):
-    """The float32 kernel's wrappers (bounded head-split and packed, LSE)
-    raise, and launch nothing, on a pointer that is not 16-byte aligned, a
-    batch stride that is not a multiple of 4 and an anchor window beyond its
-    512 keys; they never hand such an input to the template or a plain
+    """The float32 kernels' wrappers (bounded head-split and packed, LSE; at
+    d = 512 also exact) raise, and launch nothing, on a pointer that is not
+    16-byte aligned, a batch stride that is not a multiple of 4 and an
+    anchor window beyond the head dim's (512 keys at d = 40 / 80, 1024 at
+    512); they never hand such an input to the template or a plain
     version."""
     buf = torch.randn(2 * 1024 * 320 + 8, generator=g, device="cuda")
     misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)              # 4 bytes off
@@ -742,9 +857,22 @@ def _f32_refusals(g, failures):
              ("a 600-key anchor window, packed", flash.flash_attention_packed_bounded_cuda,
               (dense,) * 3 + (8, 600)))
     _check_refusals("float32 kernel", cases, failures)
+    buf = torch.randn(2 * 1200 * 512 + 8, generator=g, device="cuda")
+    head = buf[1:1 + 1024 * 512].view(1, 1, 1024, 512)                 # 4 bytes off
+    odd = buf.as_strided((2, 1024, 512), (1024 * 512 + 2, 512, 1))      # batch stride 524,290
+    dense = buf[:1200 * 512].view(1, 1200, 512)
+    cases = (("misaligned pointer, head-split", flash.flash_attention_cuda, (head,) * 3),
+             ("misaligned pointer, LSE", flash.flash_attention_lse_cuda, (head,) * 3),
+             ("misaligned pointer, exact", flash.flash_attention_exact_cuda, (head,) * 3),
+             ("batch stride not a multiple of 4, packed exact", flash.flash_attention_packed_cuda,
+              (odd,) * 3 + (1,)),
+             ("a 1100-key anchor window, packed", flash.flash_attention_packed_bounded_cuda,
+              (dense,) * 3 + (1, 1100)))
+    _check_refusals("float32 d = 512 kernel", cases, failures)
 
 
 BWD_NAMES = ("flash_attention_lse", "flash_attention_lse_core", "flash_attention_lse_f32",
+             "flash_attention_lse_f32_512",
              "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_core", "flash_bwd_dkv_core",
              "flash_bwd_f32")
 
@@ -776,7 +904,8 @@ def _diff_route(q, k, dtype, fwd=True):
     core = kernels and not (tc or fused)
     return {**{n: int(fwd and n == lse) for n in ("flash_attention_lse",
                                                  "flash_attention_lse_core",
-                                                 "flash_attention_lse_f32")},
+                                                 "flash_attention_lse_f32",
+                                                 "flash_attention_lse_f32_512")},
             "flash_bwd_dq": int(kernels and tc), "flash_bwd_dkv": int(kernels and tc),
             "flash_bwd_dq_core": int(core), "flash_bwd_dkv_core": int(core),
             "flash_bwd_f32": int(kernels and fused)}
@@ -791,7 +920,8 @@ def _flash_gradient_cases(g, rows, failures, counts):
     version, out before its final rounding (bf16 on the tensor cores,
     ``flash_attention_lse``, timed beside the CUDA-core template on the same
     inputs, ``core_ms``; float32 on the float32 kernel, ``flash_attention_lse_f32``,
-    lse2 within 1e-5 relative, or at d = 512 the template, ``flash_attention_lse_core``),
+    lse2 within 1e-5 relative, or at d = 512 the float32 d = 512 kernel,
+    ``flash_attention_lse_f32_512``, beside the template too),
     and dq, dk / dv of the backward kernels (``flash_attention_backward_cuda``)
     against the plain backward on the same inputs, fed that forward's out and
     lse2, before its final rounding (``out_dtype=float32``).  bf16 runs the
@@ -829,7 +959,8 @@ def _flash_gradient_cases(g, rows, failures, counts):
         entries = flash.bwd_entry(dtype, d)
         fused, tc = len(entries) == 1, entries[0].endswith("_tc")
         lse_suffix, form_lse = _route(flash.lse_entry(dtype, d))
-        tc_lse = lse_suffix == ""
+        # the template's LSE entry beside the kernels that took its place
+        beside_template = lse_suffix in ("", flash.F32_512_SUFFIX)
         rel = F32_TOL if dtype == torch.float32 else BF16_ULP
         finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
 
@@ -873,14 +1004,15 @@ def _flash_gradient_cases(g, rows, failures, counts):
                              (4 * bh * sq * sk * d, dtype))
         kind = "rel" if dtype == torch.float32 else "abs"
         print(f"flash lse ({form_lse}) {label}: lse2 max_{kind}_err {err_l:.3e} (tol {tol_l:.3g})")
-        core = {"core_ms": _lse_template_ms(q, k, v)} if tc_lse else {}
+        core = ({"core_ms": _template_ms("hedit_flash_attention_fwd_lse", q, k, v)}
+                if beside_template else {})
         _row(rows, failures, "flash_attention_lse" + lse_suffix,
              f"flash lse ({form_lse}) {label}",
              err_o <= tol_o and err_l <= tol_l and finite(out, lse2), max_abs_err=err_o,
              tol=tol_o, ms=cuda_ms(lambda: flash.flash_attention_lse_cuda(q, k, v)),
              plain_ms=cuda_ms(lambda: flash.flash_attention_lse_reference(q, k, v)),
              library_ms=lib_fwd, bound_ms=bound_ms, bound_by=by, shape=list(qshape), **core)
-        if tc_lse:
+        if beside_template:
             print(f"  the CUDA-core template's LSE entry at the same inputs: "
                   f"{core['core_ms']:.3f} ms, tensor cores {rows[-1]['ms']:.3f} ms, SDPA forward "
                   f"{lib_fwd:.3f} ms, bound {bound_ms:.4f} ms")
@@ -1734,7 +1866,7 @@ def phase_nmg_path(pipe, images, ids):
     # tokens, autograd of reference_attention for the 5 of 1024 (JAX's
     # _BWD_MIN_SEQ); never a CUDA-core template
     nmg_routed = {"flash_attention_lse": 10 * STEPS, "flash_attention_lse_core": 0,
-                  "flash_attention_lse_f32": 0,
+                  "flash_attention_lse_f32": 0, "flash_attention_lse_f32_512": 0,
                   "flash_bwd_dq": 5 * STEPS, "flash_bwd_dkv": 5 * STEPS,
                   "flash_bwd_dq_core": 0, "flash_bwd_dkv_core": 0, "flash_bwd_f32": 0}
     print(f"NMG path gradient launches: {json.dumps({n: counts[n] for n in BWD_NAMES})} "
@@ -1926,24 +2058,32 @@ EXACT_PACKED_CALLER_SHAPES = ((2, 3, 300, 300, 40), (1, 8, 256, 256, 40), (2, 2,
 # and one bf16 call on packed heads at the UNet's controlled call, 2 images
 # (batch, heads, Sq, Sk, D), so the tensor-core packed entry runs on the path
 EXACT_PACKED_BF16_SHAPES = ((8, 8, 4096, 4096, 40),)
+# JAX's exact forwards have no caller at d = 512: one float32 call each at the
+# VAE's width, the 256 px decode's [1, 1, 1024, 512] (one head), so the
+# float32 d = 512 kernel's exact entries run on the path
+EXACT_F32_512_SHAPES = (((1, 1, 1024, 512), 1024),)
+EXACT_PACKED_F32_512_SHAPES = ((1, 1, 1024, 1024, 512),)
 
 
 def phase_exact_path():
     """Kernels 6 and 7's own path: no editing path of either package runs
     the exact forwards, so each is driven as JAX's callers drive its twin,
     once at each of their shapes (bf16 on the tensor cores, float32 on the
-    CUDA-core template), the counts at 0 before and read after; each output
+    CUDA-core template), and once in float32 at the VAE's d = 512 (the
+    float32 d = 512 kernel), the counts at 0 before and read after; each output
     checked finite and within tolerance of its plain version at the kernel's
     key tile (``flash_attention_exact_reference`` and its packed twin,
     before their final rounding: bf16 one output ulp, float32 1e-4)."""
     failures = []
     g = torch.Generator(device="cuda").manual_seed(23)
     inputs = [_qkv(g, qshape, sk, torch.bfloat16) for qshape, sk in EXACT_CALLER_SHAPES]
-    inputs += [_qkv(g, qshape, sk, torch.float32) for qshape, sk in EXACT_F32_CALLER_SHAPES]
+    inputs += [_qkv(g, qshape, sk, torch.float32)
+               for qshape, sk in EXACT_F32_CALLER_SHAPES + EXACT_F32_512_SHAPES]
     packed = [[torch.randn(b, s, h * d, generator=g, device="cuda").to(dtype)
                for s in (sq, sk, sk)] + [h]
               for shapes, dtype in ((EXACT_PACKED_CALLER_SHAPES, torch.float32),
-                                    (EXACT_PACKED_BF16_SHAPES, torch.bfloat16))
+                                    (EXACT_PACKED_BF16_SHAPES, torch.bfloat16),
+                                    (EXACT_PACKED_F32_512_SHAPES, torch.float32))
               for b, h, sq, sk, d in shapes]
     reset_launches()
     outs = [flash.flash_attention_exact_cuda(q, k, v) for q, k, v in inputs]
@@ -1962,16 +2102,42 @@ def phase_exact_path():
     print(f"exact forward path (JAX flash_attention's callers' shapes "
           f"{[list(q.shape) + [k.shape[2], str(q.dtype)[6:]] for q, k, _ in inputs]}; "
           f"flash_attention_packed's {[list(s) for s in EXACT_PACKED_CALLER_SHAPES]}, f32, "
-          f"and {[list(s) for s in EXACT_PACKED_BF16_SHAPES]}, bf16): launches "
+          f"and {[list(s) for s in EXACT_PACKED_BF16_SHAPES]}, bf16; float32 at d = 512 "
+          f"{[list(s) for s, _ in EXACT_F32_512_SHAPES]}, packed "
+          f"{[list(s) for s in EXACT_PACKED_F32_512_SHAPES]}): launches "
           f"{json.dumps(counts)} {'OK' if not failures else 'FAIL'}")
     expected = {"flash_attention_exact": len(EXACT_CALLER_SHAPES),
                 "flash_attention_exact_core": len(EXACT_F32_CALLER_SHAPES),
                 "flash_packed": len(EXACT_PACKED_BF16_SHAPES),
-                "flash_packed_core": len(EXACT_PACKED_CALLER_SHAPES)}
+                "flash_packed_core": len(EXACT_PACKED_CALLER_SHAPES),
+                "flash_attention_exact_f32_512": len(EXACT_F32_512_SHAPES),
+                "flash_packed_f32_512": len(EXACT_PACKED_F32_512_SHAPES)}
     if {n: counts[n] for n in EXACT_NAMES} != expected:
         failures.append(f"exact forward launches {({n: counts[n] for n in EXACT_NAMES})}, "
                         f"expected {expected}")
     return counts, failures
+
+
+def phase_packed_bounded_512():
+    """The packed entry of the float32 d = 512 kernel's bounded mode: no
+    path of either package packs heads at d = 512 (the VAE's attention has
+    one head and takes the head-split entry), so it is driven once here, as
+    ``flash_attention_packed_bounded_cuda`` would serve one head of the
+    256 px decode's [1, 1024, 512], the counts at 0 before and read after;
+    its output within 1e-4 of the bounded plain version.  Returns (counts,
+    failures)."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    q, k, v = (torch.randn(1, 1024, 512, generator=g, device="cuda") for _ in range(3))
+    reset_launches()
+    out = flash.flash_attention_packed_bounded_cuda(q, k, v, 1)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    err = (out - flash.flash_attention_packed_bounded_reference(q, k, v, 1)).abs().max().item()
+    moved = {n: c for n, c in counts.items() if c}
+    ok = err <= F32_TOL and moved == {"flash_packed_bounded_f32_512": 1}
+    print(f"packed bounded forward at d = 512 (float32, [1, 1024, 512], one head): max_abs_err "
+          f"{err:.3e} (tol {F32_TOL:g}), launches {moved} {'OK' if ok else 'FAIL'}")
+    return counts, [] if ok else [f"packed bounded d = 512: err {err:.3e}, launches {moved}"]
 
 
 def phase_golden(pipe):
@@ -1981,8 +2147,9 @@ def phase_golden(pipe):
     one-head attention at 512 px (4096 tokens, 16 MiB of float32 K/V) is
     outside the K/V budget and takes ``reference_attention``, as on the TPU;
     the edit decoded once more at 256 px (a 32 x 32 latent: 1024 tokens,
-    4 MiB) takes the CUDA-core template's head-split bounded forward at
-    d = 512.  Returns (counts, failures)."""
+    4 MiB) takes the float32 d = 512 kernel's head-split bounded forward
+    (``csrc/flash_attention_f32_512.cu``), once, and the CUDA-core template
+    never.  Returns (counts, failures)."""
     g = torch.Generator(device="cuda").manual_seed(11)
     x0 = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
     xts = sample_xts_from_x0(pipe.schedule, x0, g)[None]
@@ -1997,27 +2164,62 @@ def phase_golden(pipe):
         local_blend=neutral_blend(STEPS, 8, 16).to("cuda"), after_skip_steps=STEPS)
     image = pipe.vae_decode(edited)
     torch.cuda.synchronize()
-    at_512 = read_launches()["flash_attention_core"]
+    at_512 = read_launches()["flash_attention_f32_512"]
+    t1 = time.perf_counter()
     small = pipe.vae_decode(edited[:, ::2, ::2])
     torch.cuda.synchronize()
+    decode_256 = time.perf_counter() - t1
     counts = read_launches()
     err = (edited - xts[:, 0]).abs().max().item()
     finite = bool(torch.isfinite(image).all()) and bool(torch.isfinite(small).all())
-    ok = (err <= GOLDEN_TOL and finite and at_512 == 0 and counts["flash_attention_core"] == 1
+    ok = (err <= GOLDEN_TOL and finite and at_512 == 0 and counts["flash_attention_f32_512"] == 1
           and counts["flash_packed_bounded_f32"] == 2 * 10 * STEPS
-          and counts["flash_packed_bounded_core"] == counts["flash_attention_f32"] == 0
+          and counts["flash_attention_core"] == counts["flash_packed_bounded_core"] == 0
+          and counts["flash_attention_f32"] == 0
           and counts["flash_attention"] == counts["flash_packed_bounded"] == 0)
     print(f"golden identity (f32, TF32 off, {STEPS} steps, {time.perf_counter() - t0:.1f} s): "
           f"max|edited - xts[0]| {err:.3e} (tol {GOLDEN_TOL:g}); decoded {list(image.shape)} "
-          f"and {list(small.shape)} finite={finite}; template bounded launches head-split "
-          f"{at_512} at 512 px (predicted 0: outside the K/V budget) and "
-          f"{counts['flash_attention_core'] - at_512} at 256 px (predicted 1: d = 512), packed "
+          f"and {list(small.shape)} finite={finite} (the 256 px decode {decode_256 * 1e3:.1f} "
+          f"ms, host clock, its first call); float32 d = 512 kernel launches {at_512} at 512 px "
+          f"(predicted 0: outside the K/V budget) and "
+          f"{counts['flash_attention_f32_512'] - at_512} at 256 px (predicted 1); template "
+          f"bounded head-split {counts['flash_attention_core']}, packed "
           f"{counts['flash_packed_bounded_core']} (predicted 0); float32 kernel packed "
           f"{counts['flash_packed_bounded_f32']} (predicted {2 * 10 * STEPS}: two UNet calls "
           f"a step x 10), head-split {counts['flash_attention_f32']} (predicted 0); tensor-core "
           f"{counts['flash_attention']} / {counts['flash_packed_bounded']} (predicted 0) "
           f"{'OK' if ok else 'FAIL'}")
     return counts, [] if ok else [f"golden identity error {err:.3e}, launches {counts}"]
+
+
+def phase_vae_gradient_f32(pipe):
+    """The gradient of a loss on the decoded image with respect to the
+    latent in float32 at 256 px (a 32 x 32 latent): the route of the float32
+    style gradient through such a decode.  The decoder's mid-block attention
+    [1, 1, 1024, 512] fits JAX's K/V budget in float32 (4 MiB), so under the
+    gradient it takes row 3's forward on the float32 d = 512 kernel, once;
+    1024 tokens are below ``_BWD_MIN_SEQ``, so its backward is autograd of
+    ``reference_attention``, as on the TPU: no backward kernel.  Checks a
+    finite, nonzero gradient of the latent's shape and those launches.
+    Returns (counts, failures)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    latent = torch.randn(1, 32, 32, 4, generator=g, device="cuda").requires_grad_()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = pipe.vae.decode(latent).float().square().mean()
+    grad, = torch.autograd.grad(loss, latent)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    moved = {n: counts[n] for n in BWD_NAMES + ("flash_attention_f32_512", "flash_attention_core")}
+    routed = {**dict.fromkeys(moved, 0), "flash_attention_lse_f32_512": 1}
+    ok = (moved == routed and grad.shape == latent.shape and bool(torch.isfinite(grad).all())
+          and grad.abs().max().item() > 0)
+    print(f"VAE decode gradient (f32, 256 px, {time.perf_counter() - t0:.2f} s): d loss / d "
+          f"latent {list(grad.shape)} finite, max|grad| {grad.abs().max().item():.3e}; "
+          f"launches {json.dumps(moved)} (predicted {json.dumps(routed)}) "
+          f"{'OK' if ok else 'FAIL'}")
+    return counts, [] if ok else [f"VAE decode gradient f32: launches {moved}, expected {routed}"]
 
 
 @contextlib.contextmanager
@@ -2109,7 +2311,7 @@ def phase_nmg_identity(pipe):
     # reference_attention for the 5 of 1024); the template's parts none
     bwd = {n: counts[n] for n in BWD_NAMES}
     routed = {"flash_attention_lse": 0, "flash_attention_lse_core": 0,
-              "flash_attention_lse_f32": 10 * STEPS,
+              "flash_attention_lse_f32": 10 * STEPS, "flash_attention_lse_f32_512": 0,
               "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_core": 0,
               "flash_bwd_dkv_core": 0, "flash_bwd_f32": 5 * STEPS}
     print(f"NMG identity launches: {bwd} (predicted {routed})")
@@ -2360,10 +2562,14 @@ def main(argv=None) -> int:
     del inputs
     exact_counts, bad = phase_exact_path()
     failures += bad
+    packed_512_counts, bad = phase_packed_bounded_512()
+    failures += bad
     torch.cuda.empty_cache()
     pipe = create_sd_pipeline(tiny=False, num_inference_steps=STEPS, seed=0,
                               dtype=torch.float32, device="cuda")
     golden_counts, bad = phase_golden(pipe)
+    failures += bad
+    vae_grad_f32_counts, bad = phase_vae_gradient_f32(pipe)
     failures += bad
     failures += phase_unet_gradient(pipe)
     nmg_f32_counts, bad = phase_nmg_identity(pipe)
@@ -2373,6 +2579,7 @@ def main(argv=None) -> int:
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
              "ef": ef_counts, "masactrl": masactrl_counts, "vae_gradient": vae_grad_counts,
              "exact_forward": exact_counts, "golden_f32": golden_counts,
+             "vae_gradient_f32": vae_grad_f32_counts, "packed_bounded_f32_512": packed_512_counts,
              "nmg_f32": nmg_f32_counts, **kernel_counts, **probe_counts}
     # no path but the probes' own launches a probe kernel (rows 8-12)
     probe_kernels = [n for n, (module, _) in COUNTERS.items() if module in (fp, mp)]
@@ -2406,7 +2613,7 @@ def main(argv=None) -> int:
                                            "plain_covers", "split_path_ms", "pipe_ms", "shape",
                                            "core_ms", "matmuls_ms", "bound_7_products_ms",
                                            "dq_run_to_run", "dkv_bit_identical",
-                                           "relaunch_bit_identical",
+                                           "relaunch_bit_identical", "lse_max_rel_err",
                                            "max_err_over_tol", "excused_rows", "row_count", "resident",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
                                            "eager_ms")
@@ -2424,6 +2631,7 @@ def main(argv=None) -> int:
                                       "hedit_tpu_torch/csrc/flash_probes_tc.cu")
     tc_route = "cuda"
     f32_cu = "hedit_tpu_torch/csrc/flash_attention_f32.cu"
+    f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_f32_512.cu"
     bwd_f32_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32.cu"
     fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
                                  "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2452,7 +2660,15 @@ def main(argv=None) -> int:
         entry("flash_packed", tc_route, tc_cu, f"{jax_flash}:340", "exact_forward"),
         entry("flash_packed_core", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
         entry("flash_packed_bounded", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
-        entry("flash_attention_core", "cuda", fwd_cu, f"{jax_flash}:220", "golden_f32"),
+        entry("flash_attention_f32_512", "cuda", f32_512_cu, f"{jax_flash}:220", "golden_f32",
+              vae_4096=at_shape("flash_attention_f32_512", VAE_SHAPE)),
+        entry("flash_attention_lse_f32_512", "cuda", f32_512_cu, f"{jax_flash}:464",
+              "vae_gradient_f32", vae_4096=at_shape("flash_attention_lse_f32_512", VAE_SHAPE)),
+        entry("flash_attention_exact_f32_512", "cuda", f32_512_cu, f"{jax_flash}:60",
+              "exact_forward", vae_4096=at_shape("flash_attention_exact_f32_512", VAE_SHAPE)),
+        entry("flash_packed_bounded_f32_512", "cuda", f32_512_cu, f"{jax_flash}:220",
+              "packed_bounded_f32_512"),
+        entry("flash_packed_f32_512", "cuda", f32_512_cu, f"{jax_flash}:340", "exact_forward"),
         entry("flash_packed_bounded_f32", "cuda", f32_cu, f"{jax_flash}:220", "golden_f32"),
         entry("flash_packed_t", "cuda", probes_tc_cu, "scripts/flash_nhd_variants.py:93",
               "flash_nhd_variants"),

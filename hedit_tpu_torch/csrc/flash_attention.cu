@@ -1,30 +1,26 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores (float32
 // FMAs): softmax(q k^T / sqrt(d)) v, optionally with the per-query base-2
 // log-sum-exp as a second output, in one of two softmax modes chosen at
-// compile time (Mode below).  It serves float32 inputs of rows 6 and 7, and
-// of rows 1 and 3 at the VAE's d = 512; float32 rows 1 and 3 at d = 40 and
-// 80 run flash_attention_f32.cu, bf16 inputs of every row the tensor-core
+// compile time (Mode below).  It serves float32 inputs of rows 6 and 7 at
+// d = 40 and 80; float32 rows 1 and 3 at d = 40 and 80 run
+// flash_attention_f32.cu, float32 rows 1, 3, 6 and 7 at the VAE's d = 512
+// flash_attention_f32_512.cu, bf16 inputs of every row the tensor-core
 // kernel of flash_attention_tc.cu (the wrappers dispatch by dtype and head
-// dim).  The bounded mode's bf16 instantiation stays for side-by-side
-// timings only (chip_smoke.py launches its LSE entry by its entry point; no
-// wrapper does); the exact mode takes float32 only.
+// dim).  The bounded mode (bf16, and float32 at d = 512) and the float32
+// exact mode at d = 512 stay for side-by-side timings only (chip_smoke.py
+// and the tile probes launch them by their entry points; no wrapper does);
+// the exact mode takes float32 only.
 //
-// Bounded (max-free) replaces the TPU kernels of
+// Bounded (max-free) computes the function of the TPU kernels of
 // hedit_tpu/ops/flash_attention.py
-//   row 1 in float32 at d = 512: _flash_bounded_kernel (wrapper flash_attention_bounded,
-//          reached through hedit_tpu/ops/attention.py:fused_attention); entry
-//          point hedit_flash_attention_fwd, wrapper flash_attention_cuda;
-//   row 3 in float32 at d = 512: _flash_bounded_lse_kernel (wrapper
-//          _flash_bounded_fwd_lse, the forward of flash_attention_diff on the
-//          NMG path); entry point hedit_flash_attention_fwd_lse, wrapper
-//          flash_attention_lse_cuda;
-// and, on packed heads (below), row 1 in float32 at d = 512 (on no path:
-// JAX sends every UNet self-attention of >= 1024 tokens to
-// flash_attention_diff, whose primal is row 1, at d = 40 and 80); entry point
-// hedit_flash_attention_fwd_packed_bounded, wrapper
-// flash_attention_packed_bounded_cuda.  The bounded float32 instances at
-// d = 40 and 80 are gone: flash_attention_f32.cu computes the anchor window's
-// scores once, where this prologue computes them twice (below).
+//   row 1: _flash_bounded_kernel (entry point hedit_flash_attention_fwd;
+//          on packed heads hedit_flash_attention_fwd_packed_bounded);
+//   row 3: _flash_bounded_lse_kernel (entry point hedit_flash_attention_fwd_lse);
+// in float32 at d = 512 and in bf16, reached by no wrapper:
+// flash_attention_f32_512.cu and the tensor cores compute the anchor
+// window's scores once, where this prologue computes them twice (below).
+// Float32 at d = 40 and 80 has no bounded instance here
+// (flash_attention_f32.cu).
 // A prologue takes each query row's max m0 over its anchor window, the first
 // `anchor` keys (the key block the JAX wrapper picks at that shape, passed in
 // by the wrapper; not this kernel's own key tile, or the saturation would
@@ -36,7 +32,8 @@
 // that the bounded form saturates such keys at 2^100 as the TPU kernel does.
 //
 // Exact (running max m and rescale of the accumulator and the row sum l)
-// replaces, in float32 (the template's only dtype in this mode),
+// replaces, in float32 at d = 40 and 80 (the template's only dtype in this
+// mode; at d = 512 flash_attention_f32_512.cu),
 //   row 6: _flash_kernel (wrapper flash_attention, JAX's public exact
 //          forward, on no editing path of either package); entry point
 //          hedit_flash_attention_fwd_exact, wrapper flash_attention_exact_cuda;

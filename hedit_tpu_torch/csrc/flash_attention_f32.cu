@@ -16,8 +16,9 @@
 //     tokens on the NMG path): entry point hedit_flash_attention_fwd_lse_f32,
 //     wrapper flash_attention_lse_cuda; the same kernel instantiated with
 //     LSE = true.
-// bf16 inputs go to flash_attention_tc.cu; float32 at d = 512 (the VAE) and
-// the exact mode stay on the CUDA-core template of flash_attention.cu.
+// bf16 inputs go to flash_attention_tc.cu; float32 at d = 512 (the VAE) to
+// flash_attention_f32_512.cu; the exact mode at d = 40 / 80 stays on the
+// CUDA-core template of flash_attention.cu.
 //
 // The function, as the template computes it: q * scale, scale = 1/sqrt(d) *
 // log2(e) formed in double and rounded to float; scores in float32; each

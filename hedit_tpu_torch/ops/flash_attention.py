@@ -1,7 +1,7 @@
 """Flash attention, forward and backward: hand-written CUDA kernels and
 their plain versions.
 
-Port of ``hedit_tpu/ops/flash_attention.py``.  Three CUDA forward sources:
+Port of ``hedit_tpu/ops/flash_attention.py``.  Four CUDA forward sources:
 
 * ``csrc/flash_attention_tc.cu``: the forwards in bfloat16 on the tensor
   cores (``mma.sync``).  The **bounded** (max-free) mode: the TPU kernels
@@ -20,9 +20,14 @@ Port of ``hedit_tpu/ops/flash_attention.py``.  Three CUDA forward sources:
   (``F32_HEAD_DIMS``), the CLIs' default precision, on the CUDA cores
   (float32 FMAs): the anchor window's scores computed once and kept on
   chip, as the TPU kernel keeps block 0's.
+* ``csrc/flash_attention_f32_512.cu``: both modes (bounded with or without
+  the log-sum-exp, and exact) in **float32** at the VAE's d = 512, on the
+  CUDA cores: a thread-block cluster shares a block of query rows and
+  splits the keys, the anchor window's scores computed once and kept on
+  chip, the CTAs' partial results combined in a fixed order.
 * ``csrc/flash_attention.cu``: one CUDA-core template (float32 FMAs) that
-  serves both modes for the other **float32** inputs: the exact mode, and
-  the bounded one at the VAE's d = 512.
+  serves the exact mode for the other **float32** inputs (d = 40 / 80); its
+  float32 d = 512 instances are reached by no wrapper.
 
 The wrappers:
 
@@ -33,14 +38,15 @@ The wrappers:
   self-attention without a gradient on the paths (JAX sends those to
   ``flash_attention_diff``, whose primal is ``_flash_bounded_kernel``).
   Both send a bf16 CUDA input to the tensor-core kernel, a float32 one at
-  d = 40 / 80 to ``csrc/flash_attention_f32.cu`` and at d = 512 to the
-  CUDA-core template (``bounded_entry``); the tensor-core kernel's operands
-  must pass ``check_tc_operands``, the float32 kernel's
+  d = 40 / 80 to ``csrc/flash_attention_f32.cu`` and at d = 512 to
+  ``csrc/flash_attention_f32_512.cu`` (``bounded_entry``); the tensor-core
+  kernel's operands must pass ``check_tc_operands``, the float32 kernels'
   ``check_f32_operands``;
 * ``flash_attention_lse_cuda``: the bounded forward with the base-2
   log-sum-exp ``lse2 = shift + log2(denom)`` of each row (bf16 on the tensor
   cores, float32 at d = 40 / 80 on ``csrc/flash_attention_f32.cu``, at
-  d = 512 on the template, by ``lse_entry``), the forward of
+  d = 512 on ``csrc/flash_attention_f32_512.cu``, by ``lse_entry``), the
+  forward of
   ``flash_attention_diff``.  Its backward (``flash_diff_backward``) routes
   as JAX's ``_flash_diff_bwd`` does on the TPU: where the K/V pairs fit
   ``flash_kv_fits`` and both lengths reach ``_BWD_MIN_SEQ``, a dq and a
@@ -57,7 +63,8 @@ The wrappers:
 * ``flash_attention_exact_cuda`` (head-split) and
   ``flash_attention_packed_cuda`` (packed heads): the exact mode (bf16 on
   the tensor cores, whose operands must pass ``check_tc_operands``, float32
-  on the template, by ``exact_entry``).
+  at d = 40 / 80 on the template, at d = 512 on
+  ``csrc/flash_attention_f32_512.cu``, by ``exact_entry``).
 
 The two modes agree wherever no key scores more than 116 log2 units above
 its row's anchor maximum; beyond that the bounded form saturates those keys
@@ -91,19 +98,24 @@ from typing import Optional, Tuple
 import torch
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
-launches = 0          # bounded forward without the log-sum-exp, head-split, template
+launches = 0          # bounded forward without the log-sum-exp, head-split, template (on no path)
 launches_tc = 0       # the same in bf16 on the tensor cores
-launches_exact = 0    # exact forward, head-split, CUDA cores (float32)
+launches_exact = 0    # exact forward, head-split, CUDA-core template (float32 at d = 40 / 80)
 launches_exact_tc = 0   # the same in bf16 on the tensor cores
-launches_packed = 0   # exact forward on packed heads, CUDA cores (float32)
+launches_packed = 0   # exact forward on packed heads, CUDA-core template (float32 at 40 / 80)
 launches_packed_tc = 0  # the same in bf16 on the tensor cores
 launches_packed_bounded = 0      # bounded forward on packed heads, template
 launches_packed_bounded_tc = 0   # the same in bf16 on the tensor cores
-launches_lse = 0      # bounded forward with the log-sum-exp, template (float32, d = 512)
+launches_lse = 0      # bounded forward with the log-sum-exp, template (on no path)
 launches_lse_tc = 0   # the same in bf16 on the tensor cores
 launches_f32 = 0                  # bounded forward, head-split, float32 at d = 40 / 80
 launches_packed_bounded_f32 = 0   # the same on packed heads
 launches_lse_f32 = 0              # the same with the log-sum-exp
+launches_f32_512 = 0              # bounded forward, head-split, float32 at d = 512
+launches_packed_bounded_f32_512 = 0   # the same on packed heads
+launches_lse_f32_512 = 0          # the same with the log-sum-exp
+launches_exact_f32_512 = 0        # exact forward, head-split, float32 at d = 512
+launches_packed_f32_512 = 0       # the same on packed heads
 launches_bwd_dq = 0      # backward dq, CUDA-core template (float32, d = 512)
 launches_bwd_dkv = 0     # backward dk / dv, CUDA-core template
 launches_bwd_f32 = 0     # backward dq, dk and dv in one kernel, float32 at d = 40 / 80
@@ -126,14 +138,22 @@ DENOM_FLOOR = 1.2e-38
 # address a multiple of 16 bytes, every element stride a multiple of 8
 TC_ALIGN_BYTES = 16
 TC_STRIDE_MULTIPLE = 8
-# the float32 bounded kernel (``csrc/flash_attention_f32.cu``): its head
-# dims; it copies rows 16 bytes at a time (every operand's address a multiple
-# of 16 bytes, every element stride a multiple of 4) and keeps at most
-# ``F32_WINDOW`` anchor keys on chip
+# the float32 bounded kernel at the UNet's head dims (``csrc/flash_attention_f32.cu``)
+# and the fused float32 backward's; float32 at the VAE's 512 has a forward
+# of its own (``csrc/flash_attention_f32_512.cu``, both modes, entry points
+# ending in ``F32_512_SUFFIX``) and keeps the template's backward.  The
+# float32 forwards copy rows 16 bytes at a time (every operand's address a
+# multiple of 16 bytes, every element stride a multiple of 4) and keep at
+# most ``F32_WINDOWS[d]`` anchor keys on chip: the anchor window of
+# ``bounded_anchor`` at that head dim, 512 keys at 40 / 80 and 1024 at 512.
 F32_HEAD_DIMS = (40, 80)
 F32_ALIGN_BYTES = 16
 F32_STRIDE_MULTIPLE = 4
-F32_WINDOW = 512
+F32_WINDOWS = {40: 512, 80: 512, 512: 1024}
+F32_512_SUFFIX = "_f32_512"
+# the float32 d = 512 kernel's key tile: its exact mode's running max is
+# taken over tiles of this many keys
+F32_512_KEY_TILE = 128
 # the fused float32 backward at ``F32_HEAD_DIMS`` (``csrc/flash_attention_bwd_f32.cu``):
 # one entry point writes dq, dk and dv; its operands as the forward's
 F32_BWD_ENTRY = "hedit_flash_attention_bwd_f32"
@@ -178,6 +198,7 @@ def bounded_entry(dtype: torch.dtype, packed: bool, d: int) -> str:
     and head dim ``d`` (head-split or ``packed`` heads): bfloat16 the
     tensor-core kernel (``csrc/flash_attention_tc.cu``), float32 at
     ``F32_HEAD_DIMS`` the float32 kernel (``csrc/flash_attention_f32.cu``),
+    float32 at 512 the float32 d = 512 kernel (``csrc/flash_attention_f32_512.cu``),
     other float32 the CUDA-core template (``csrc/flash_attention.cu``).
     Raises for any other dtype."""
     if dtype == torch.bfloat16:
@@ -186,19 +207,31 @@ def bounded_entry(dtype: torch.dtype, packed: bool, d: int) -> str:
     if dtype == torch.float32:
         entry = ("hedit_flash_attention_fwd_packed_bounded" if packed
                  else "hedit_flash_attention_fwd")
-        return entry + "_f32" if d in F32_HEAD_DIMS else entry
+        return entry + _f32_suffix(d)
     raise ValueError(f"the bounded forward takes float32 or bfloat16, got {dtype}")
 
 
-def exact_entry(dtype: torch.dtype, packed: bool) -> str:
+def _f32_suffix(d: int) -> str:
+    """The entry-point suffix of the float32 forward kernel at head dim
+    ``d``: ``_f32`` at ``F32_HEAD_DIMS``, ``F32_512_SUFFIX`` at 512, none
+    (the template) elsewhere."""
+    return "_f32" if d in F32_HEAD_DIMS else F32_512_SUFFIX if d == 512 else ""
+
+
+def exact_entry(dtype: torch.dtype, packed: bool, d: int) -> str:
     """The CUDA entry point of the exact forward for an input of ``dtype``
-    (head-split or ``packed`` heads): bfloat16 the tensor-core kernel
-    (``csrc/flash_attention_tc.cu``), float32 the CUDA-core template
-    (``csrc/flash_attention.cu``).  Raises for any other dtype."""
+    and head dim ``d`` (head-split or ``packed`` heads): bfloat16 the
+    tensor-core kernel (``csrc/flash_attention_tc.cu``), float32 at 512 the
+    float32 d = 512 kernel (``csrc/flash_attention_f32_512.cu``), other
+    float32 the CUDA-core template (``csrc/flash_attention.cu``).  Raises for
+    any other dtype."""
     if dtype == torch.bfloat16:
         return ("hedit_flash_attention_fwd_packed_exact_tc" if packed
                 else "hedit_flash_attention_fwd_exact_tc")
     if dtype == torch.float32:
+        if d == 512:
+            return ("hedit_flash_attention_fwd_packed_exact" if packed
+                    else "hedit_flash_attention_fwd_exact") + F32_512_SUFFIX
         return "hedit_flash_attention_fwd_packed" if packed else "hedit_flash_attention_fwd_exact"
     raise ValueError(f"the exact forward takes float32 or bfloat16, got {dtype}")
 
@@ -210,7 +243,7 @@ def lse_entry(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.bfloat16:
         return "hedit_flash_attention_fwd_lse_tc"
     if dtype == torch.float32:
-        return "hedit_flash_attention_fwd_lse" + ("_f32" if d in F32_HEAD_DIMS else "")
+        return "hedit_flash_attention_fwd_lse" + _f32_suffix(d)
     raise ValueError(f"the LSE forward takes float32 or bfloat16, got {dtype}")
 
 
@@ -272,19 +305,20 @@ def check_f32_bwd_operands(d: int, addresses, strides) -> None:
                   F32_STRIDE_MULTIPLE, d, addresses, strides)
 
 
-def check_f32_operands(d: int, addresses, strides, window: int) -> None:
-    """Raise unless the float32 kernel (``csrc/flash_attention_f32.cu``)
-    takes these operands: head dim ``d`` one of ``F32_HEAD_DIMS``, every
-    address (``data_ptr()``) a multiple of ``F32_ALIGN_BYTES``, every element
-    stride a multiple of ``F32_STRIDE_MULTIPLE`` and the anchor window
-    ``min(anchor, Sk)`` at most ``F32_WINDOW`` keys.  The kernel refuses the
-    same; the wrappers raise first, and never fall back to the template or a
-    plain version."""
-    _check_copies("the float32 kernels", F32_HEAD_DIMS, F32_ALIGN_BYTES, F32_STRIDE_MULTIPLE, d,
-                  addresses, strides)
-    if not 1 <= window <= F32_WINDOW:
-        raise ValueError(f"the float32 kernels keep 1 to {F32_WINDOW} anchor keys on chip, "
-                         f"got a window of {window}")
+def check_f32_operands(d: int, addresses, strides, window: Optional[int]) -> None:
+    """Raise unless a float32 forward kernel (``csrc/flash_attention_f32.cu``
+    at d = 40 / 80, ``csrc/flash_attention_f32_512.cu`` at 512) takes these
+    operands: head dim ``d`` a key of ``F32_WINDOWS``, every address
+    (``data_ptr()``) a multiple of ``F32_ALIGN_BYTES``, every element stride
+    a multiple of ``F32_STRIDE_MULTIPLE`` and, for the bounded mode, the
+    anchor ``window`` min(anchor, Sk) at most ``F32_WINDOWS[d]`` keys (the
+    exact mode passes None).  The kernels refuse the same; the wrappers
+    raise first, and never fall back to the template or a plain version."""
+    _check_copies("the float32 kernels", tuple(F32_WINDOWS), F32_ALIGN_BYTES,
+                  F32_STRIDE_MULTIPLE, d, addresses, strides)
+    if window is not None and not 1 <= window <= F32_WINDOWS[d]:
+        raise ValueError(f"the float32 kernels keep 1 to {F32_WINDOWS[d]} anchor keys on chip "
+                         f"at d = {d}, got a window of {window}")
 
 
 def bounded_anchor(sk: int, d: int) -> int:
@@ -312,12 +346,17 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.matmul(p.to(v.dtype), v).to(q.dtype)
 
 
-def exact_key_tile(d: int) -> int:
-    """The exact kernels' key tile at head dim ``d`` (``csrc/flash_attention.cu``
-    and ``csrc/flash_attention_tc.cu``: 64 keys at the UNet's 40 and 80, 32
-    at the VAE's 512): the block over which their running max, and with it
-    the rounding of p, is taken."""
-    return 32 if d > 128 else 64
+def exact_key_tile(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The exact kernels' key tile at head dim ``d`` for inputs of
+    ``dtype``: the block over which their running max, and with it the
+    rounding of p, is taken.  64 keys at the UNet's 40 and 80
+    (``csrc/flash_attention_tc.cu``, ``csrc/flash_attention.cu``); at the
+    VAE's 512, 32 on the tensor cores (bf16) and ``F32_512_KEY_TILE`` in
+    float32 (``csrc/flash_attention_f32_512.cu``, over each CTA's share of
+    the keys)."""
+    if d <= 128:
+        return 64
+    return F32_512_KEY_TILE if dtype == torch.float32 else 32
 
 
 def flash_attention_exact_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -334,7 +373,7 @@ def flash_attention_exact_reference(q: torch.Tensor, k: torch.Tensor, v: torch.T
     ``out_dtype`` (float32: the output before its final rounding).  The key
     block decides only which max each p is rounded against."""
     d, sk = q.shape[-1], k.shape[-2]
-    blk_k = exact_key_tile(d) if blk_k is None else blk_k
+    blk_k = exact_key_tile(d, q.dtype) if blk_k is None else blk_k
     qs = (q * torch.tensor(1.0 / d ** 0.5 * _LOG2E, dtype=q.dtype)).float()
     m = torch.full(q.shape[:-1] + (1,), -math.inf, device=q.device)
     den = torch.zeros_like(m)
@@ -520,21 +559,20 @@ def _launch(name: str, q: torch.Tensor, pointers, ints) -> None:
 
 
 def _launch_forward(entry: str, counter: str, q: torch.Tensor, pointers, ints, d: int,
-                    strides, window: int = 0) -> None:
+                    strides, window: Optional[int] = None) -> None:
     """Launch forward entry point ``entry`` on ``pointers`` (q, k, v, out[,
-    lse2]) and count it in the module's ``counter``, or in ``counter +
-    "_tc"`` for a tensor-core entry and ``counter + "_f32"`` for the float32
-    kernel's, whose q, k, v and out must first pass ``check_tc_operands`` /
-    ``check_f32_operands`` with the element ``strides`` of the layout (and,
-    for the float32 kernel, the anchor ``window`` min(anchor, Sk))."""
+    lse2]) and count it in the module's ``counter``, or in ``counter`` plus
+    the entry's suffix for a tensor-core entry (``_tc``) and the float32
+    kernels' (``_f32``, ``F32_512_SUFFIX``), whose q, k, v and out must first
+    pass ``check_tc_operands`` / ``check_f32_operands`` with the element
+    ``strides`` of the layout (and, for the float32 kernels' bounded mode,
+    the anchor ``window`` min(anchor, Sk))."""
     addresses = [t.data_ptr() for t in pointers[:4]]
-    suffix = ""
-    if entry.endswith("_tc"):
+    suffix = next((s for s in ("_tc", F32_512_SUFFIX, "_f32") if entry.endswith(s)), "")
+    if suffix == "_tc":
         check_tc_operands(d, addresses, strides)
-        suffix = "_tc"
-    elif entry.endswith("_f32"):
+    elif suffix:
         check_f32_operands(d, addresses, strides, window)
-        suffix = "_f32"
     _launch(entry, q, pointers, ints)
     globals()[counter + suffix] += 1
 
@@ -560,13 +598,14 @@ def flash_attention_exact_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     ``_flash_kernel`` of JAX's public ``flash_attention``): a CPU tensor takes
     ``flash_attention_exact_reference`` at the kernels' key tile, a CUDA
     tensor launches the kernel of ``exact_entry`` (bf16 on the tensor cores,
-    whose operands must pass ``check_tc_operands``).  Raises as
+    whose operands must pass ``check_tc_operands``; float32 at d = 512 the
+    float32 d = 512 kernel, ``check_f32_operands``).  Raises as
     ``flash_attention_cuda`` does."""
     if _on_cpu(q, k, v):
         return flash_attention_exact_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_exact_cuda")
     out = torch.empty_like(q)
-    _launch_forward(exact_entry(q.dtype, packed=False), "launches_exact", q, (q, k, v, out),
+    _launch_forward(exact_entry(q.dtype, False, d), "launches_exact", q, (q, k, v, out),
                     (b * h, sq, sk, d), d, [sq * d, sk * d, d])
     return out
 
@@ -602,14 +641,15 @@ def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 heads: int) -> torch.Tensor:
     """Launch the exact forward kernel of ``exact_entry`` on packed heads
     (bf16 on the tensor cores, whose operands must pass
-    ``check_tc_operands``): q [B, Sq, H*D], k / v [B, Sk, H*D] -> contiguous
+    ``check_tc_operands``; float32 at d = 512 ``check_f32_operands``):
+    q [B, Sq, H*D], k / v [B, Sk, H*D] -> contiguous
     [B, Sq, H*D].  The batch rows of an input may lie any stride apart (a
     row slice of a larger batch is taken as it is).  Raises on any input the
     kernel does not take, CPU tensors included, and if the launch is
     refused."""
     b, h, sq, sk, d, *strides = _check_packed(q, k, v, heads, "flash_attention_packed_cuda")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_forward(exact_entry(q.dtype, packed=True), "launches_packed", q, (q, k, v, out),
+    _launch_forward(exact_entry(q.dtype, True, d), "launches_packed", q, (q, k, v, out),
                     (b, h, sq, sk, d, *strides), d, [h * d, *strides])
     return out
 
@@ -642,9 +682,8 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """The bounded forward with its second output: (out, lse2 [B*H, 1, Sq]
     float32).  CPU tensors take ``flash_attention_lse_reference``; a CUDA
     tensor launches the kernel of ``lse_entry`` (bf16 on the tensor cores,
-    whose operands must pass ``check_tc_operands``; float32 at d = 40 / 80
-    the float32 kernel, ``check_f32_operands``), otherwise as
-    ``flash_attention_cuda``."""
+    whose operands must pass ``check_tc_operands``; float32 the float32
+    kernels, ``check_f32_operands``), otherwise as ``flash_attention_cuda``."""
     if _on_cpu(q, k, v):
         return flash_attention_lse_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_lse_cuda")

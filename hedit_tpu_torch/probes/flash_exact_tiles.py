@@ -127,7 +127,8 @@ def timings(mine, parent) -> None:
         q, k, v = _inputs(b, h, sq, sk, d, packed)
         heads = h if packed else None
         kind = "packed" if packed else "head-split"
-        exact, (out,) = _call(mine, flash.exact_entry(torch.bfloat16, packed), q, k, v, heads)
+        exact, (out,) = _call(mine, flash.exact_entry(torch.bfloat16, packed, d), q, k,
+                              v, heads)
         exact()
         plain = (flash.flash_attention_packed_exact_reference(q, k, v, h, out_dtype=torch.float32)
                  if packed else flash.flash_attention_exact_reference(q, k, v,
@@ -192,7 +193,7 @@ def identity(mine, parent, exact=False) -> bool:
         if not packed:
             entries.append((flash.lse_entry(torch.bfloat16, d), True))
         if exact:
-            entries.append((flash.exact_entry(torch.bfloat16, packed), False))
+            entries.append((flash.exact_entry(torch.bfloat16, packed, d), False))
         for entry, lse in entries:
             outs = []
             for lib in (mine, parent):

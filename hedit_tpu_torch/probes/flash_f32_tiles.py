@@ -1,6 +1,8 @@
-"""The float32 bounded forward (rows 1, 1p and 3 at d = 40 / 80), on the card.
+"""The float32 forwards on the card: rows 1, 1p and 3 at d = 40 / 80, or
+(``--d512``) rows 1, 3 and 6 at the VAE's d = 512.
 
     python -m hedit_tpu_torch.probes.flash_f32_tiles [--parent DIR]
+    python -m hedit_tpu_torch.probes.flash_f32_tiles --d512 [--parent DIR]
 
 Times ``csrc/flash_attention_f32.cu`` (entry points
 ``hedit_flash_attention_fwd_f32``, ``..._packed_bounded_f32`` and
@@ -34,11 +36,31 @@ template at d = 512 in both dtypes and, by its entry points, in bf16 at
 d = 40 / 80), and the
 template's forward outputs this tree keeps (float32 exact, float32 bounded
 and LSE at d = 512, bf16 bounded LSE at d = 40 / 80).
+
+``--d512``: ``csrc/flash_attention_f32_512.cu`` (entry points
+``hedit_flash_attention_fwd_f32_512``, ``..._lse_f32_512`` and
+``..._exact_f32_512``) at [1, 1, 1024, 512] (the 256 px decode) and
+[1, 1, 4096, 512], each mode held to its plain version and timed through its
+entry point in turns with the parent's CUDA-core template in the same mode
+(``hedit_flash_attention_fwd``, ``..._lse``, ``..._exact``; parent, this,
+this, parent), beside SDPA and the bound; then the source built once for
+each of ``D512_VARIANTS`` (the cluster size, the rows a block, which also
+set a thread's register tiles, the ring's slots, the QK loop's unroll; one
+``nvcc`` each, all started together with the parent's sources) and timed in
+turns with the source's own, each build's ``-Xptxas -v`` registers and
+spills printed, and how many clusters of 1, 2, 4 and 8 CTAs the card runs at
+once.  With ``--parent`` the outputs this tree keeps are held bit
+for bit to the parent's: the 21 tensor-core forward outputs, the backward
+kernels' (tensor cores, the template, the fused float32 kernel's dk and
+dv), the float32 kernel's at d = 40 / 80, the template's kept forward
+instances and the probe kernels' (``flash_probe_tiles.kept_identity``); the
+probe exits non-zero if one differs or an output is beyond its tolerance.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -67,6 +89,20 @@ VARIANTS = (("3 blocks an SM", ()), ("2 blocks an SM", ("F32_MINB_40=2", "F32_MI
 F32_FLOPS = 67e12
 PARENT_SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "flash_attention_bwd.cu",
                   "flash_attention_bwd_tc.cu")
+D512_SOURCE = _build.CSRC / "flash_attention_f32_512.cu"
+# (row, Sq = Sk): rows 1, 3 and 6 at the 256 px decode's and the 512 px
+# decode's VAE attention, one head of d = 512
+D512_CASES = tuple((row, s) for s in (1024, 4096) for row in ("1", "3", "6"))
+# (label, -D defines) of the d = 512 source: its own first
+D512_VARIANTS = (("the source's: clusters of 2 or 8 by the grid, 32 rows, QK split 4", ()),
+                 ("clusters of 8", ("F512_CLUSTER=8",)),
+                 ("clusters of 4", ("F512_CLUSTER=4",)),
+                 ("clusters of 2", ("F512_CLUSTER=2",)),
+                 ("QK split 2 (8 x 4 partials)", ("F512_QK_SPLIT=2",)),
+                 ("QK split 1 (4 x 4 scores)", ("F512_QK_SPLIT=1",)),
+                 ("16 rows a block (PV 4 x 8, QK 8 x 4 partials)", ("F512_ROWS=16",)),
+                 ("QK split 1, 4 ring slots", ("F512_QK_SPLIT=1", "F512_SLOTS=4")),
+                 ("QK loop unrolled once", ("F512_UNROLL=1",)))
 
 
 def _inputs(b, h, sq, sk, d, packed, seed=0, dtype=torch.float32):
@@ -262,15 +298,113 @@ def kept_identity(mine, parent) -> bool:
     return same
 
 
+def _d512_entries(row):
+    """(this tree's entry point, the template's, lse, exact) of a d = 512 row."""
+    lse, exact = row == "3", row == "6"
+    f32 = torch.float32
+    mine = (flash.lse_entry(f32, 512) if lse else flash.exact_entry(f32, False, 512) if exact
+            else flash.bounded_entry(f32, False, 512))
+    return mine, mine[:-len(flash.F32_512_SUFFIX)], lse, exact
+
+
+def d512_timings(mine, parent, variants):
+    """Each d = 512 case: the kernel in turns with the parent's template
+    (where given), SDPA and the bound, its error against the plain
+    version; then ``D512_VARIANTS`` in turns.  One record a case."""
+    records = []
+    for row, s in D512_CASES:
+        entry, template, lse, exact = _d512_entries(row)
+        q, k, v = _inputs(1, 1, s, s, 512, False, seed=s)
+        call, outs = _forward(mine, entry, q, k, v, lse=lse)
+        call()
+        torch.cuda.synchronize()
+        if exact:
+            want = flash.flash_attention_exact_reference(q, k, v)
+            err, lse_err = (outs[0] - want).abs().max().item(), 0.0
+        else:
+            err, lse_err = _errors(row, q, k, v, 1, outs)
+        turns = [("kernel", call)]
+        if parent is not None:
+            core, _ = _forward(parent, template, q, k, v, lse=lse)
+            turns = [("parent template", core), *turns, *turns, ("parent template", core)]
+        ms = [best_ms(fn) for _, fn in turns]
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms = 4 * s * s * 512 / F32_FLOPS * 1e3
+        kernel_ms = min(t for (who, _), t in zip(turns, ms) if who == "kernel")
+        calls = [_forward(lib, entry, q, k, v, lse=lse)[0] for lib in variants]
+        order = [*range(len(variants)), 0]
+        var_ms = [best_ms(calls[i]) for i in order]
+        print(f"row {row} [1, 1, {s}, 512] f32: "
+              + ", ".join(f"{who} {t:.4f}" for (who, _), t in zip(turns, ms))
+              + f" ms; SDPA {sdpa:.4f} ms, kernel / SDPA {kernel_ms / sdpa:.3f}; bound "
+              f"{bound_ms:.4f} ms ({bound_ms / kernel_ms:.1%}); out err {err:.3e} (tol 1e-4)"
+              + (f", lse2 rel err {lse_err:.3e} (tol 1e-5)" if lse else "")
+              + "; variants " + ", ".join(f"{D512_VARIANTS[i][0]} {t:.4f}"
+                                          for i, t in zip(order, var_ms)) + " ms")
+        records.append({"row": row, "shape": [1, 1, s, 512], "turns": [[w, t] for (w, _), t
+                                                                       in zip(turns, ms)],
+                        "sdpa_ms": sdpa, "bound_ms": bound_ms, "err": err, "lse_rel_err": lse_err,
+                        "variants_ms": [[D512_VARIANTS[i][0], t] for i, t in zip(order, var_ms)]})
+        del q, k, v, outs, turns, calls
+        torch.cuda.empty_cache()
+    return records
+
+
+def d512_main(parent_dir) -> int:
+    """``--d512``: the builds, the timings, the identities."""
+    from hedit_tpu_torch.probes import flash_bwd_tiles, flash_probe_tiles
+
+    builds = [(D512_SOURCE, f"d512_variant{i}", _build.CSRC, defines)
+              for i, (_, defines) in enumerate(D512_VARIANTS)]
+    sources = flash_bwd_tiles.PARENT_SOURCES
+    if parent_dir is not None:
+        csrc = parent_dir / "hedit_tpu_torch" / "csrc"
+        builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in sources]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
+                            builds))
+    for (source, name, *_), (_, info) in zip(builds, built):
+        print(f"ptxas, {name} ({source.name}): {info}")
+    mine = _build.cuda_library()
+    active = ctypes.c_int(0)
+    for cluster in (1, 2, 4, 8):
+        err = mine.hedit_flash_attention_f32_512_active_clusters(cluster, ctypes.byref(active))
+        print(f"clusters of {cluster} the card runs at once (cudaOccupancyMaxActiveClusters, one "
+              f"CTA an SM): {active.value if err == 0 else f'error {err}'}")
+    n = len(D512_VARIANTS)
+    parent = dict(zip(sources, (lib for lib, _ in built[n:])))
+    records = d512_timings(mine, parent.get("flash_attention.cu"), [lib for lib, _ in built[:n]])
+    print(json.dumps({"flash_f32_tiles_d512": records}))
+    bad = [r for r in records if not (r["err"] <= 1e-4 and r["lse_rel_err"] <= 1e-5)]
+    if bad:
+        print(f"FAILED: outputs beyond their tolerance: {bad}")
+        return 1
+    if parent_dir is None:
+        return 0
+    same = identity(mine, parent["flash_attention_tc.cu"], exact=True)
+    same &= flash_bwd_tiles.kept_identity(mine, parent)
+    same &= flash_probe_tiles.kept_identity(mine, parent["flash_probes_tc.cu"],
+                                            parent["flash_probes.cu"],
+                                            parent["flash_variants.cu"])
+    if not same:
+        print("FAILED: an output this tree keeps differs from the parent's")
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
+    ap.add_argument("--d512", action="store_true",
+                    help="rows 1, 3 and 6 in float32 at d = 512 (flash_attention_f32_512.cu)")
     args = ap.parse_args(argv)
     require_cuda("flash_f32_tiles")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
+    if args.d512:
+        return d512_main(args.parent)
     builds = [(SOURCE, f"variant{i}", _build.CSRC, defines)
               for i, (_, defines) in enumerate(VARIANTS)]
     if args.parent is not None:

@@ -5,8 +5,9 @@ This file imports no JAX, so it also runs on the machine with the card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_flash_f32.py -q
 
 On the CPU: the route (``bounded_entry``, ``lse_entry``: float32 at d = 40 /
-80 to the float32 kernel, at d = 512 to the CUDA-core template, bf16 to the
-tensor cores), the operand check (``check_f32_operands``), the C entry
+80 to the float32 kernel, at d = 512 to the float32 d = 512 kernel,
+``csrc/flash_attention_f32_512.cu``, bf16 to the tensor cores), the operand
+check (``check_f32_operands``), the C entry
 points against their ``ctypes`` argument types, and the kernel's order of
 work rendered in plain torch (the anchor window's key tiles scored once and
 kept, their max over keys below min(anchor, Sk), then p and PV of every
@@ -29,21 +30,23 @@ TEMPLATE_ENTRIES = ("hedit_flash_attention_fwd", "hedit_flash_attention_fwd_pack
                     "hedit_flash_attention_fwd_lse")
 TC_ENTRIES = ("hedit_flash_attention_fwd_tc", "hedit_flash_attention_fwd_packed_bounded_tc",
               "hedit_flash_attention_fwd_lse_tc")
+F32_512_ENTRIES = tuple(e + "_512" for e in F32_ENTRIES)
 KEY_TILE = 64   # the kernel's key tile (kKeys)
 
 
 @pytest.mark.parametrize("dtype,d,entries", [
     (torch.float32, 40, F32_ENTRIES), (torch.float32, 80, F32_ENTRIES),
-    (torch.float32, 512, TEMPLATE_ENTRIES), (torch.bfloat16, 80, TC_ENTRIES),
+    (torch.float32, 512, F32_512_ENTRIES), (torch.bfloat16, 80, TC_ENTRIES),
 ])
 def test_bounded_route_by_dtype_and_head_dim(dtype, d, entries):
     """``bounded_entry`` (head-split, packed) and ``lse_entry`` name the
-    float32 kernel for float32 at d = 40 / 80, the CUDA-core template at
+    float32 kernel for float32 at d = 40 / 80, the float32 d = 512 kernel at
     d = 512 and the tensor-core kernel for bf16; each entry is bound with the
     template's argument types and defined in ``csrc``.  The float32 operand
     check takes the paths' operands and raises on an address off 16 bytes, a
     stride that is not a multiple of 4, a head dim without a tile and an
-    anchor window beyond 512 keys."""
+    anchor window beyond the head dim's (512 keys at 40 / 80, 1024 at
+    512)."""
     got = (flash_mod.bounded_entry(dtype, False, d), flash_mod.bounded_entry(dtype, True, d),
            flash_mod.lse_entry(dtype, d))
     assert got == entries
@@ -51,16 +54,17 @@ def test_bounded_route_by_dtype_and_head_dim(dtype, d, entries):
     for entry, template in zip(entries, TEMPLATE_ENTRIES):
         assert _build.ARGTYPES[entry] == _build.ARGTYPES[template]
         assert re.search(rf'extern "C" int {entry}\(', sources), entry
-    if entries is not F32_ENTRIES:
+    if entries is TC_ENTRIES:
         return
+    window = 1024 if d == 512 else 512
     good = [0x7F0000000000 + 16 * i for i in range(4)]
     strides = [4096 * d, 1000 * d, d, 8 * d, 3 * 4096 * 8 * d]
-    flash_mod.check_f32_operands(d, good, strides, 512)
-    for args, match in (((d, good[:3] + [good[3] + 4], strides, 512), "aligned"),
-                        ((d, good, strides + [1024 * 320 + 2], 512), "multiples of 4"),
-                        ((d, good, [d + 1], 512), "multiples of 4"),
-                        ((64, good, strides, 512), "head dims"),
-                        ((d, good, strides, 513), "anchor keys")):
+    flash_mod.check_f32_operands(d, good, strides, window)
+    for args, match in (((d, good[:3] + [good[3] + 4], strides, window), "aligned"),
+                        ((d, good, strides + [1024 * 320 + 2], window), "multiples of 4"),
+                        ((d, good, [d + 1], window), "multiples of 4"),
+                        ((64, good, strides, window), "head dims"),
+                        ((d, good, strides, window + 1), "anchor keys")):
         with pytest.raises(ValueError, match=match):
             flash_mod.check_f32_operands(*args)
 

@@ -5,9 +5,10 @@ The kernel (``hedit_tpu_torch/csrc/flash_attention_tc.cu``) runs only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
 * the dispatch by dtype (``bounded_entry``, ``exact_entry``): bf16 to the
-  tensor-core entry points, float32 to the CUDA-core template (the bounded
-  mode at the VAE's d = 512; at d = 40 / 80 it takes the float32 kernel,
-  ``tests/test_torch_flash_f32.py``), anything else refused;
+  tensor-core entry points, float32 at the VAE's d = 512 to its float32
+  kernel (``tests/test_torch_flash_f32_512.py``; at d = 40 / 80 the bounded
+  mode takes the float32 kernel, ``tests/test_torch_flash_f32.py``, the
+  exact one the CUDA-core template), anything else refused;
 * the operand check (``check_tc_operands``): head dims, 16-byte alignment
   and strides that are multiples of 8, as values;
 * the C entry points' parameter lists against the ``ctypes`` argument types
@@ -50,11 +51,11 @@ DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, 
 TC_ENTRIES = ("hedit_flash_attention_fwd_tc", "hedit_flash_attention_fwd_packed_bounded_tc",
               "hedit_flash_attention_fwd_lse_tc", "hedit_flash_attention_fwd_exact_tc",
               "hedit_flash_attention_fwd_packed_exact_tc")
-# the exact forward's entry points by dtype: (head-split, packed)
+# the exact forward's entry points by dtype at d = 512: (head-split, packed)
 EXACT_ENTRIES = {torch.bfloat16: ("hedit_flash_attention_fwd_exact_tc",
                                   "hedit_flash_attention_fwd_packed_exact_tc"),
-                 torch.float32: ("hedit_flash_attention_fwd_exact",
-                                 "hedit_flash_attention_fwd_packed")}
+                 torch.float32: ("hedit_flash_attention_fwd_exact_f32_512",
+                                 "hedit_flash_attention_fwd_packed_exact_f32_512")}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,14 +72,16 @@ def _share_cores():
 @pytest.mark.parametrize("dtype,entry", [
     (torch.bfloat16, ("hedit_flash_attention_fwd_tc",
                       "hedit_flash_attention_fwd_packed_bounded_tc")),
-    (torch.float32, ("hedit_flash_attention_fwd", "hedit_flash_attention_fwd_packed_bounded")),
+    (torch.float32, ("hedit_flash_attention_fwd_f32_512",
+                     "hedit_flash_attention_fwd_packed_bounded_f32_512")),
 ])
 def test_bounded_entry_sends_bf16_to_the_tensor_cores(dtype, entry, packed):
     """bf16 CUDA inputs take the tensor-core entry points, float32 ones the
-    CUDA-core template's, head-split and packed alike, in the bounded mode
-    at the VAE's d = 512 and in the exact one (``exact_entry``)."""
+    float32 d = 512 kernel's (``csrc/flash_attention_f32_512.cu``), head-split
+    and packed alike, in the bounded mode at the VAE's d = 512 and in the
+    exact one (``exact_entry``)."""
     assert flash_mod.bounded_entry(dtype, packed, 512) == entry[packed]
-    assert flash_mod.exact_entry(dtype, packed) == EXACT_ENTRIES[dtype][packed]
+    assert flash_mod.exact_entry(dtype, packed, 512) == EXACT_ENTRIES[dtype][packed]
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
@@ -87,7 +90,7 @@ def test_bounded_entry_refuses_other_dtypes(dtype):
         flash_mod.bounded_entry(dtype, False, 40)
     for packed in (False, True):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
-            flash_mod.exact_entry(dtype, packed)
+            flash_mod.exact_entry(dtype, packed, 40)
 
 
 @pytest.mark.parametrize("d", [40, 80, 512])
@@ -135,8 +138,9 @@ def test_c_entry_points_match_their_argument_types():
     parameter list its ``ctypes`` argument types describe (pointers and the
     stream as ``c_void_p``); the tensor-core ones among them, the LSE and
     exact entries' with the template's parameter lists.  ``lse_entry`` sends
-    bf16 to the tensor cores, float32 at d = 512 to the template, and refuses
-    other dtypes; ``exact_entry`` names bound entry points."""
+    bf16 to the tensor cores, float32 at d = 512 to the float32 d = 512
+    kernel, and refuses other dtypes; ``exact_entry`` names bound entry
+    points."""
     found = _c_entry_points()
     assert set(TC_ENTRIES) <= set(_build.ARGTYPES)
     for name, argtypes in _build.ARGTYPES.items():
@@ -147,12 +151,14 @@ def test_c_entry_points_match_their_argument_types():
             for packed in (False, True):
                 assert flash_mod.bounded_entry(dtype, packed, d) in _build.ARGTYPES
     assert flash_mod.lse_entry(torch.bfloat16, 512) == "hedit_flash_attention_fwd_lse_tc"
-    assert flash_mod.lse_entry(torch.float32, 512) == "hedit_flash_attention_fwd_lse"
+    assert flash_mod.lse_entry(torch.float32, 512) == "hedit_flash_attention_fwd_lse_f32_512"
     assert (_build.ARGTYPES["hedit_flash_attention_fwd_lse_tc"]
             == _build.ARGTYPES["hedit_flash_attention_fwd_lse"])
     for packed in (False, True):
-        tc, template = (flash_mod.exact_entry(dt, packed) for dt in (torch.bfloat16, torch.float32))
-        assert _build.ARGTYPES[tc] == _build.ARGTYPES[template], tc
+        for d in flash_mod.HEAD_DIMS:
+            tc, f32 = (flash_mod.exact_entry(dt, packed, d)
+                       for dt in (torch.bfloat16, torch.float32))
+            assert _build.ARGTYPES[tc] == _build.ARGTYPES[f32], tc
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_mod.lse_entry(torch.float16, 40)
 
@@ -162,7 +168,9 @@ def test_wrappers_on_cpu_launch_nothing():
     either route moves, the exact forwards' included (the packed exact
     wrapper has no plain route and refuses CPU tensors)."""
     names = ("launches", "launches_tc", "launches_packed_bounded", "launches_packed_bounded_tc",
-             "launches_exact", "launches_exact_tc", "launches_packed", "launches_packed_tc")
+             "launches_exact", "launches_exact_tc", "launches_packed", "launches_packed_tc",
+             "launches_f32_512", "launches_packed_bounded_f32_512", "launches_exact_f32_512",
+             "launches_packed_f32_512")
     counts = [getattr(flash_mod, n) for n in names]
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn(1, 1100, 2 * 40).to(dtype)

@@ -62,10 +62,19 @@ def _plain_on_card(fn, *ts):
 def _bounded_suffix(dtype, d):
     """The counter suffix of the bounded forward's route (``bounded_entry``):
     bf16 the tensor cores, float32 at d = 40 / 80 the float32 kernel,
-    float32 at d = 512 the CUDA-core template."""
+    float32 at d = 512 the float32 d = 512 kernel."""
     if dtype == torch.bfloat16:
         return "_tc"
-    return "_f32" if d in flash_mod.F32_HEAD_DIMS else ""
+    return "_f32" if d in flash_mod.F32_HEAD_DIMS else flash_mod.F32_512_SUFFIX
+
+
+def _exact_suffix(dtype, d):
+    """The counter suffix of the exact forward's route (``exact_entry``):
+    bf16 the tensor cores, float32 at d = 512 the float32 d = 512 kernel,
+    float32 at d = 40 / 80 the CUDA-core template."""
+    if dtype == torch.bfloat16:
+        return "_tc"
+    return flash_mod.F32_512_SUFFIX if d == 512 else ""
 
 
 def _tol(dtype, want):
@@ -102,15 +111,14 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
     ``flash_attention_exact_reference`` at the kernel's key tile (tolerances
     of ``_tol``); each bf16 on the tensor cores, float32 on the CUDA cores
     (the bounded one at d = 40 / 80 on the float32 kernel; the counters say
-    which ran)."""
+    which ran; float32 at d = 512 both on the float32 d = 512 kernel)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
-    tc = "_tc" if dtype == torch.bfloat16 else ""
     for wrapper, plain, counter in (
             (flash_mod.flash_attention_cuda, flash_attention_bounded_reference,
              "launches" + _bounded_suffix(dtype, shape[3])),
             (flash_mod.flash_attention_exact_cuda, flash_attention_exact_reference,
-             "launches_exact" + tc)):
+             "launches_exact" + _exact_suffix(dtype, shape[3]))):
         before = getattr(flash_mod, counter)
         got = wrapper(q, k, v)
         torch.cuda.synchronize()
@@ -522,7 +530,10 @@ def _launch_counts():
             flash_mod.launches_packed_bounded, flash_mod.launches_tc,
             flash_mod.launches_packed_bounded_tc, flash_mod.launches_exact_tc,
             flash_mod.launches_packed_tc, flash_mod.launches_f32,
-            flash_mod.launches_packed_bounded_f32, flash_mod.launches_lse_f32)
+            flash_mod.launches_packed_bounded_f32, flash_mod.launches_lse_f32,
+            flash_mod.launches_f32_512, flash_mod.launches_packed_bounded_f32_512,
+            flash_mod.launches_lse_f32_512, flash_mod.launches_exact_f32_512,
+            flash_mod.launches_packed_f32_512)
 
 
 def test_packed_wrapper_takes_plain_version_on_cpu():
@@ -548,7 +559,8 @@ def test_packed_wrapper_takes_plain_version_on_cpu():
                                              (1, 1, 1000, 1100, 512)])
 def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
     """The exact packed-head kernel (bf16 on the tensor cores, float32 on
-    the CUDA cores: the counters say which ran) against its plain version
+    the CUDA cores, at d = 512 on the float32 d = 512 kernel: the counters
+    say which ran) against its plain version
     (``flash_attention_packed_exact_reference`` at the kernel's key tile,
     output before its final rounding), ragged and Sq != Sk included, the
     VAE's width, contiguous and as a row slice of a larger batch (a batch
@@ -563,7 +575,7 @@ def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
         before = _launch_counts()
         got = flash_mod.flash_attention_packed_cuda(qs, ks, vs, heads)
         torch.cuda.synchronize()
-        moved = 9 if dtype == torch.bfloat16 else 1
+        moved = 9 if dtype == torch.bfloat16 else 17 if d == 512 else 1
         assert _launch_counts() == tuple(c + (i == moved) for i, c in enumerate(before))
         assert got.shape == qs.shape and got.is_contiguous()
         want = flash_attention_packed_exact_reference(qs, ks, vs, heads,
@@ -668,9 +680,9 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
     q8 = torch.randn(2, S, 8 * 40, generator=g, device=cuda)
     q1 = torch.randn(1, S, 512, generator=g, device=cuda)
     short = torch.randn(2, S // 2, 8 * 40, generator=g, device=cuda)
-    # (inputs, heads, recorded gradient) -> how far each of launches,
+    # (inputs, heads, recorded gradient) -> how far each of launches_f32_512,
     # launches_packed, launches_lse_f32, launches_packed_bounded_f32 moves
-    # (float32: d = 40 on the float32 kernel, d = 512 on the template)
+    # (float32: d = 40 on the float32 kernel, d = 512 on its own)
     for x, heads, grad, moved in ((q8, 8, False, (0, 0, 0, 1)), (q8, 8, True, (0, 0, 1, 0)),
                                   (q1, 1, False, (1, 0, 0, 0)), (short, 8, False, (0, 0, 0, 0))):
         x = x.clone().requires_grad_(grad)
@@ -679,7 +691,7 @@ def test_packed_attention_routes_by_heads_length_and_gradient_on_card(cuda):
             got = fused_attention_packed(x, x, x, heads)
         torch.cuda.synchronize()
         after = _launch_counts()
-        assert tuple(after[i] - before[i] for i in (0, 1, 12, 11, 6, 7)) == moved + (0, 0)
+        assert tuple(after[i] - before[i] for i in (13, 1, 12, 11, 0, 6, 7)) == moved + (0,) * 3
         want = flash_attention_packed_reference(x.detach(), x.detach(), x.detach(), heads)
         torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-4)
     # a tensor that requires a gradient, with recording off: the packed kernel
@@ -1031,3 +1043,128 @@ def test_cost_probe_kernels_refuse_what_they_do_not_take(cuda):
                                                                    dtype=torch.bfloat16), "nn")
     with pytest.raises(ValueError, match="contiguous"):
         mp.mm_loop_cuda(torch.ones(40, 8, device=cuda).t(), torch.ones(40, 8, device=cuda), "nn")
+
+
+# the float32 d = 512 kernel's counters (``csrc/flash_attention_f32_512.cu``)
+# and the template's float32 forward counters it replaced at d = 512
+F32_512_COUNTERS = ("launches_f32_512", "launches_lse_f32_512", "launches_exact_f32_512",
+                    "launches_packed_bounded_f32_512", "launches_packed_f32_512")
+TEMPLATE_COUNTERS = ("launches", "launches_lse", "launches_exact", "launches_packed_bounded",
+                     "launches_packed")
+
+
+def _f32_512_counts():
+    return {n: getattr(flash_mod, n) for n in F32_512_COUNTERS + TEMPLATE_COUNTERS}
+
+
+def _saturating_512(device):
+    """q, k, v [1, 1, 4096, 512]: every query's score with a key is set by
+    the key's first component; key 1500 scores ~146 log2 units, more than
+    116 above the 1024-key anchor window's max (clamped to 2^100 by the
+    bounded form), keys 1510-1573 ~109: exact attention is key 1500's value
+    row, the bounded form mixes in the 64 keys."""
+    g = torch.Generator(device=device).manual_seed(6)
+    q = torch.randn(1, 1, 4096, 512, generator=g, device=device) * 0.1
+    q[..., 0] = 8.0 * (512 / 40) ** 0.5
+    k = torch.randn(1, 1, 4096, 512, generator=g, device=device) * 0.5
+    v = torch.randn(1, 1, 4096, 512, generator=g, device=device)
+    k[:, :, 1500, 0] = 80.0
+    k[:, :, 1510:1574, 0] = 60.0
+    return q, k, v
+
+
+@pytest.mark.gpu
+def test_f32_512_kernel_matches_plain_on_card(cuda):
+    """The float32 d = 512 kernel in its three modes, through
+    ``flash_attention_cuda``, ``flash_attention_lse_cuda`` and
+    ``flash_attention_exact_cuda``, at [1, 1, 1024, 512] (the 256 px
+    decode), [1, 1, 4096, 512], a ragged [1, 1, 1000, 512] against 1100 keys
+    and the saturating input, against the plain versions: out within 1e-4,
+    lse2 within 1e-5 relative; one launch of each mode's counter, none of
+    the template's; on the saturating input the two forms far apart.  Then
+    packed heads (one head [1, 1024, 512], and two heads [2, 600, 1024]
+    against 1100 keys as a batch-strided row slice), bounded and exact."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    cases = [[torch.randn(1, 1, s, 512, generator=g, device=cuda) for s in (sq, sk, sk)]
+             for sq, sk in ((1024, 1024), (4096, 4096), (1000, 1100))]
+    for q, k, v in cases + [list(_saturating_512(cuda))]:
+        before = _f32_512_counts()
+        out = flash_mod.flash_attention_cuda(q, k, v)
+        lse_out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
+        exact = flash_mod.flash_attention_exact_cuda(q, k, v)
+        torch.cuda.synchronize()
+        moved = {n: c - before[n] for n, c in _f32_512_counts().items()}
+        assert moved == {**dict.fromkeys(before, 0), "launches_f32_512": 1,
+                         "launches_lse_f32_512": 1, "launches_exact_f32_512": 1}
+        want, want_lse = flash_mod.flash_attention_lse_reference(q, k, v)
+        for got in (out, lse_out, exact):
+            assert torch.isfinite(got).all()
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+        torch.testing.assert_close(lse_out, want, rtol=0, atol=1e-4)
+        torch.testing.assert_close(lse2, want_lse, rtol=1e-5, atol=0)
+        torch.testing.assert_close(exact, flash_attention_exact_reference(q, k, v), rtol=0,
+                                   atol=1e-4)
+    assert (out - exact).abs().max().item() > 20 * 1e-4   # the saturating input
+    for b, heads, sq, sk, sliced in ((1, 1, 1024, 1024, False), (2, 2, 600, 1100, True)):
+        q, k, v = (torch.randn(b, 3, s, heads * 512, generator=g, device=cuda)
+                   for s in (sq, sk, sk))
+        q, k, v = (t[:, 1] if sliced else t[:, 0].contiguous() for t in (q, k, v))
+        before = _f32_512_counts()
+        got = flash_mod.flash_attention_packed_bounded_cuda(q, k, v, heads)
+        got_e = flash_mod.flash_attention_packed_cuda(q, k, v, heads)
+        torch.cuda.synchronize()
+        moved = {n: c - before[n] for n, c in _f32_512_counts().items()}
+        assert moved == {**dict.fromkeys(before, 0), "launches_packed_bounded_f32_512": 1,
+                         "launches_packed_f32_512": 1}
+        torch.testing.assert_close(
+            got, flash_mod.flash_attention_packed_bounded_reference(q, k, v, heads), rtol=0,
+            atol=1e-4)
+        torch.testing.assert_close(
+            got_e, flash_attention_packed_exact_reference(q, k, v, heads), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_f32_512_kernel_is_deterministic_on_card(cuda):
+    """Two launches give the same bits in every mode: each CTA sums in a
+    fixed order and the cluster combines its CTAs in rank order, no
+    atomics."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = (torch.randn(1, 1, s, 512, generator=g, device=cuda) for s in (1000, 1100, 1100))
+    for call in (lambda: (flash_mod.flash_attention_cuda(q, k, v),),
+                 lambda: flash_mod.flash_attention_lse_cuda(q, k, v),
+                 lambda: (flash_mod.flash_attention_exact_cuda(q, k, v),)):
+        a, b = call(), call()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_f32_512_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    """A pointer off 16 bytes (bounded, LSE, exact), a batch stride that is
+    not a multiple of 4 and an anchor window beyond 1024 keys are refused
+    before any launch, with no fallback to the template or a plain version;
+    the entry points refuse the same, bf16 and a head dim other than 512."""
+    buf = torch.randn(2 * 1200 * 512 + 8, device=cuda)
+    head = buf[1:1 + 1024 * 512].view(1, 1, 1024, 512)                 # 4 bytes off
+    odd = buf.as_strided((2, 1024, 512), (1024 * 512 + 2, 512, 1))      # batch stride 524,290
+    dense = buf[:1200 * 512].view(1, 1200, 512)
+    before = _f32_512_counts()
+    for call, match in ((lambda: flash_mod.flash_attention_cuda(head, head, head), "aligned"),
+                        (lambda: flash_mod.flash_attention_lse_cuda(head, head, head), "aligned"),
+                        (lambda: flash_mod.flash_attention_exact_cuda(head, head, head),
+                         "aligned"),
+                        (lambda: flash_mod.flash_attention_packed_cuda(odd, odd, odd, 1),
+                         "multiples of 4"),
+                        (lambda: flash_mod.flash_attention_packed_bounded_cuda(
+                            dense, dense, dense, 1, anchor=1100), "anchor keys")):
+        with pytest.raises(ValueError, match=match):
+            call()
+    torch.cuda.synchronize()
+    assert _f32_512_counts() == before
+    q = torch.randn(1, 1, 1200, 512, device=cuda)
+    for entry, t, ints in (("hedit_flash_attention_fwd_f32_512", q, (1, 1200, 1200, 512, 1100)),
+                           ("hedit_flash_attention_fwd_f32_512", q.to(torch.bfloat16),
+                            (1, 1200, 1200, 512, 1024)),
+                           ("hedit_flash_attention_fwd_exact_f32_512", q[..., :256].contiguous(),
+                            (1, 1200, 1200, 256))):
+        with pytest.raises(RuntimeError, match="code -1"):
+            flash_mod._launch(entry, t, (t, t, t, torch.empty_like(t)), ints)
