@@ -51,14 +51,19 @@ the final result line:
    its refusals checked); ``flash_attention_diff``'s backward
    routed as JAX routes it on the TPU (the kernels from 2048 tokens, the
    gradient of ``reference_attention`` below); the backward at the VAE's
-   head dim [1, 1, 4096, 512] (bf16 on the tensor cores, also
-   ragged at 1000 / 1100; float32 on the template, its launches counted from
-   0 as the path ``backward_f32_512``), also through ``fused_attention``
-   under a gradient (bf16: the kernels; float32: ``reference_attention``,
-   outside the K/V budget); the backward wrappers' refusals (a misaligned
-   pointer at d = 40 and 512, float16; the fused float32 one's a misaligned
-   pointer, a stride that is not a multiple of 4, bf16, and float32 at
-   d = 40 / 80 through the two-kernel wrappers).  Then GroupNorm + SiLU
+   head dim (bf16 on the tensor cores at [1, 1, 4096, 512], also ragged at
+   1000 / 1100; float32 on ``csrc/flash_attention_bwd_f32_512.cu``, a dk /
+   dv kernel that stores ds and a dq product over it, at [1, 1, 2048, 512],
+   the one shape JAX's routing sends it, at [1, 1, 4096, 512], its launches
+   counted from 0 as the path ``backward_f32_512``, and ragged 1000 / 1100,
+   each launched twice, bit-identical, beside the CUDA-core template's
+   entry points, ``core_ms``), also through ``fused_attention`` under a
+   gradient (bf16: the kernels; float32: the kernels at 2048 tokens,
+   ``reference_attention`` at 4096, outside the K/V budget); the backward
+   wrappers' refusals (a misaligned pointer at d = 40 and 512, float16; the
+   float32 ones' a misaligned pointer, a stride that is not a multiple of 4,
+   bf16, a head dim of the other float32 kernel, and float32 through the
+   two-kernel wrappers).  Then GroupNorm + SiLU
    (``csrc/group_norm.cu``) on channels-last inputs at every GroupNorm shape
    of the paths' table (``GN_SHAPES``), bf16 and float32, eps 1e-5 and
    1e-6, with its regime and cluster, two launches bit-identical, a float32
@@ -135,7 +140,9 @@ the final result line:
     never), their launches counted; then the VAE decode's gradient in
     float32 at 256 px (``vae_gradient_f32``): row 3 on the float32 d = 512
     kernel once, its backward autograd of ``reference_attention`` (1024
-    tokens, below ``_BWD_MIN_SEQ``);
+    tokens, below ``_BWD_MIN_SEQ``); then at 256 x 512 px (2048 tokens, the
+    budget exactly): row 3 once and the float32 d = 512 backward once, the
+    gradient held to the same gradient with the plain versions substituted;
 13. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
     substituted here;
@@ -155,7 +162,8 @@ the final result line:
     on ``vae_gradient_f32``, 3-5 on the NMG path (on
     the tensor cores, 4 + 5 also on the VAE decode's gradient; row 3 on the
     float32 kernel and 4 + 5 on the fused float32 kernel on the float32 NMG
-    loop, 4-5 on the CUDA-core template on phase 3's float32 d = 512 case),
+    loop, 4 + 5 on the float32 d = 512 kernels on ``vae_gradient_f32``, and
+    on phase 3's float32 [1, 1, 4096, 512] case, ``backward_f32_512``),
     6 and 7 on their own (tensor cores, template and the float32 d = 512
     kernel; its packed bounded entry on ``packed_bounded_f32_512``),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
@@ -299,9 +307,8 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_attention_lse_core": (flash, "launches_lse"),
             "flash_bwd_dq": (flash, "launches_bwd_dq_tc"),
             "flash_bwd_dkv": (flash, "launches_bwd_dkv_tc"),
-            "flash_bwd_dq_core": (flash, "launches_bwd_dq"),
-            "flash_bwd_dkv_core": (flash, "launches_bwd_dkv"),
             "flash_bwd_f32": (flash, "launches_bwd_f32"),
+            "flash_bwd_f32_512": (flash, "launches_bwd_f32_512"),
             "flash_packed": (flash, "launches_packed_tc"),
             "flash_packed_core": (flash, "launches_packed"),
             "flash_attention_exact": (flash, "launches_exact_tc"),
@@ -873,15 +880,15 @@ def _f32_refusals(g, failures):
 
 BWD_NAMES = ("flash_attention_lse", "flash_attention_lse_core", "flash_attention_lse_f32",
              "flash_attention_lse_f32_512",
-             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_core", "flash_bwd_dkv_core",
-             "flash_bwd_f32")
+             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_f32", "flash_bwd_f32_512")
 
 
 def _bwd_template_ms(part, q, k, v, do, lse2, delta):
     """CUDA-event ms of the CUDA-core template's backward entry ``part`` (0
-    dq, 1 dk / dv) on inputs that the wrappers send to the tensor cores: the
-    template's time beside the tensor-core kernel's (``core_ms``).  Launched
-    by its entry point directly, as no path launches it so."""
+    dq, 1 dk / dv) on inputs that the wrappers send to the tensor cores or
+    the float32 d = 512 kernels: the template's time beside theirs
+    (``core_ms``).  Launched by its entry point directly, as no wrapper
+    launches it."""
     bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
     outs = (torch.empty_like(q),) if part == 0 else (torch.empty_like(k), torch.empty_like(v))
     entry = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")[part]
@@ -894,25 +901,26 @@ def _diff_route(q, k, dtype, fwd=True):
     shapes (or, ``fwd=False``, its backward alone), as JAX routes it on the
     TPU: the LSE forward of ``lse_entry``; the backward kernels of
     ``bwd_entry`` where ``bwd_takes_kernels`` (the tensor-core pair, the
-    template's pair or the fused float32 kernel), else none (autograd of
-    ``reference_attention``)."""
+    fused float32 kernel or the float32 d = 512 pair), else none (autograd
+    of ``reference_attention``)."""
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
     lse = "flash_attention_lse" + _route(flash.lse_entry(dtype, d))[0]
     kernels = flash.bwd_takes_kernels(sq, sk, d, q.element_size(), interpret=False)
     entries = flash.bwd_entry(dtype, d)
     fused, tc = len(entries) == 1, entries[0].endswith("_tc")
-    core = kernels and not (tc or fused)
+    f512 = entries == flash.F32_512_BWD_ENTRIES
     return {**{n: int(fwd and n == lse) for n in ("flash_attention_lse",
                                                  "flash_attention_lse_core",
                                                  "flash_attention_lse_f32",
                                                  "flash_attention_lse_f32_512")},
             "flash_bwd_dq": int(kernels and tc), "flash_bwd_dkv": int(kernels and tc),
-            "flash_bwd_dq_core": int(core), "flash_bwd_dkv_core": int(core),
-            "flash_bwd_f32": int(kernels and fused)}
+            "flash_bwd_f32": int(kernels and fused), "flash_bwd_f32_512": int(kernels and f512)}
 
 
 # the VAE decoder's mid-block attention at 512 px: one head of 4096 tokens at d = 512
 VAE_SHAPE = (1, 1, 4096, 512)
+# at 256 x 512 px (a 32 x 64 latent): 2048 tokens, the float32 backward kernels' one shape
+VAE_2048 = (1, 1, 2048, 512)
 
 
 def _flash_gradient_cases(g, rows, failures, counts):
@@ -930,8 +938,9 @@ def _flash_gradient_cases(g, rows, failures, counts):
     beside the CUDA-core template on the same inputs (``core_ms``) and
     launched twice, bit-identical; float32 at the UNet's head dims the fused
     kernel (``flash_bwd_f32``, ``_fused_backward_row``); float32 at d = 512
-    the template (``flash_bwd_dq_core`` / ``flash_bwd_dkv_core``, counted
-    from 0 as the path ``backward_f32_512``).  bf16 tolerance: both
+    the float32 d = 512 pair (``flash_bwd_f32_512``, ``_f32_512_backward_row``:
+    [1, 1, 2048, 512], the routed shape, first; [1, 1, 4096, 512], counted
+    from 0 as the path ``backward_f32_512``; ragged 1000 / 1100).  bf16 tolerance: both
     sides round qs, ks, ds and p (for dv) to bf16 as the TPU kernels do; the
     kernels sum in another order, so a ds (or p) value may round to the
     other bf16 neighbour, and one such flip moves an output by at most 2^-7
@@ -949,7 +958,9 @@ def _flash_gradient_cases(g, rows, failures, counts):
              ((1, 8, 1000, 80), 1064, torch.float32),
              (VAE_SHAPE, 4096, torch.bfloat16),          # the style reward's route
              ((1, 1, 1000, 512), 1100, torch.bfloat16),  # ragged at the VAE's width
-             (VAE_SHAPE, 4096, torch.float32)]
+             (VAE_2048, 2048, torch.float32),            # its float32 route: 256 x 512 px
+             (VAE_SHAPE, 4096, torch.float32),
+             ((1, 1, 1000, 512), 1100, torch.float32)]
     for qshape, sk, dtype in cases:
         q, k, v = _qkv(g, qshape, sk, dtype)
         do = torch.randn(qshape, generator=g, device="cuda").to(dtype)
@@ -957,21 +968,20 @@ def _flash_gradient_cases(g, rows, failures, counts):
         bh, sq, d = qshape[0] * qshape[1], qshape[2], qshape[3]
         es = q.element_size()
         entries = flash.bwd_entry(dtype, d)
-        fused, tc = len(entries) == 1, entries[0].endswith("_tc")
+        fused, f512 = len(entries) == 1, entries == flash.F32_512_BWD_ENTRIES
         lse_suffix, form_lse = _route(flash.lse_entry(dtype, d))
         # the template's LSE entry beside the kernels that took its place
         beside_template = lse_suffix in ("", flash.F32_512_SUFFIX)
         rel = F32_TOL if dtype == torch.float32 else BF16_ULP
         finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
 
-        # the template's backward has no path left but this case (float32 at
-        # d = 512): its launches here are its path's, counted from 0
-        template_path = not (fused or tc)
-        if template_path:
+        # the float32 [1, 1, 4096, 512] case is a path of its own, counted from 0
+        own_path = f512 and tuple(qshape) == VAE_SHAPE
+        if own_path:
             reset_launches()
         out, lse2 = flash.flash_attention_lse_cuda(q, k, v)
         dq, dk, dv = flash.flash_attention_backward_cuda(q, k, v, out, lse2, do)
-        if template_path:
+        if own_path:
             torch.cuda.synchronize()
             counts["backward_f32_512"] = read_launches()
         # the bounded plain forward rounds at the kernel's steps; the plain
@@ -1021,16 +1031,14 @@ def _flash_gradient_cases(g, rows, failures, counts):
         # the plain version and the library call give dq, dk and dv in one call
         plain_bwd = cuda_ms(lambda: flash.flash_attention_backward_reference(q, k, v, out, lse2, do))
         in_bytes = es * bh * d * 2 * (sq + sk) + 8 * bh * sq  # q, dO, k, v; lse2, delta
-        if fused:
-            _fused_backward_row(rows, failures, label, q, k, v, do, lse2, delta, (dq, dk, dv),
-                                (want_dq, want_dk, want_dv), plain_bwd, lib_bwd, in_bytes)
-        else:
-            _backward_rows(rows, failures, label, tc, q, k, v, do, lse2, delta, (dq, dk, dv),
-                           (want_dq, want_dk, want_dv), plain_bwd, lib_bwd, in_bytes)
+        row = (_fused_backward_row if fused else _f32_512_backward_row if f512
+               else _backward_rows)
+        row(rows, failures, label, q, k, v, do, lse2, delta, (dq, dk, dv),
+            (want_dq, want_dk, want_dv), plain_bwd, lib_bwd, in_bytes)
 
         # flash_attention_diff's backward, routed as JAX routes it on the TPU;
         # at the VAE's width also fused_attention, the style reward's route
-        # (float32 there is outside the K/V budget: reference_attention)
+        # (float32 at 4096 tokens is outside the K/V budget: reference_attention)
         routes = [("flash_attention_diff", flash.flash_attention_diff, _diff_route(q, k, dtype))]
         if d == 512:
             fits = attn.flash_route(sq, sk, d, es)
@@ -1043,8 +1051,8 @@ def _flash_gradient_cases(g, rows, failures, counts):
             got = torch.autograd.grad(fn(*leaves), leaves, do)
             torch.cuda.synchronize()
             moved = {n: read_launches()[n] - before[n] for n in BWD_NAMES}
-            kernels = (routed["flash_bwd_dq"] + routed["flash_bwd_dq_core"]
-                       + routed["flash_bwd_f32"]) > 0
+            kernels = (routed["flash_bwd_dq"] + routed["flash_bwd_f32"]
+                       + routed["flash_bwd_f32_512"]) > 0
             want = ((dq, dk, dv) if kernels else
                     torch.autograd.grad(flash.reference_attention(*leaves), leaves, do))
             gaps = [gap(a, w.float()) for a, w in zip(got, want)]
@@ -1064,60 +1072,53 @@ def _gap(rel, got, want):
     return (got.float() - want).abs().max().item(), rel * want.abs().max().item()
 
 
-def _backward_rows(rows, failures, label, tc, q, k, v, do, lse2, delta, got, wants, plain_bwd,
+def _backward_rows(rows, failures, label, q, k, v, do, lse2, delta, got, wants, plain_bwd,
                    lib_bwd, in_bytes):
-    """Rows 4 and 5 as two kernels (``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``):
-    bf16 on the tensor cores at d = 40 / 80 / 512 (timed beside the CUDA-core
-    template on the same inputs, ``core_ms``; each launched a second time,
-    its outputs bit-identical: one writer an element, no atomics), float32
-    at d = 512 on the template."""
-    dtype, es = q.dtype, q.element_size()
+    """Rows 4 and 5 in bf16 as two kernels on the tensor cores
+    (``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``) at d = 40 / 80 / 512,
+    timed beside the CUDA-core template on the same inputs (``core_ms``);
+    each launched a second time, its outputs bit-identical: one writer an
+    element, no atomics."""
+    es = q.element_size()
     bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
-    rel = F32_TOL if dtype == torch.float32 else BF16_ULP
     finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)  # noqa: E731
     together = "plain_ms and library_ms are of dq, dk and dv together"
-    suffix, form = ("", "tensor cores") if tc else ("_core", "CUDA cores")
     (dq, dk, dv), (want_dq, want_dk, want_dv) = got, wants
-    same = True
-    if tc:
-        again_dq = flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)
-        again_dk, again_dv = flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)
-        torch.cuda.synchronize()
-        same_dq = torch.equal(again_dq, dq)
-        same_dkv = torch.equal(again_dk, dk) and torch.equal(again_dv, dv)
-        same = same_dq and same_dkv
-        print(f"flash backward {label}: launched again, dq "
-              f"{'bit-identical' if same_dq else 'DIFFERS'}, dk and dv "
-              f"{'bit-identical' if same_dkv else 'DIFFER'}")
-    err, tol = _gap(rel, dq, want_dq)
-    bound_ms, by = bound(in_bytes + es * bh * sq * d, (6 * bh * sq * sk * d, dtype))
-    core = ({"core_ms": _bwd_template_ms(0, q, k, v, do, lse2, delta),
-             "relaunch_bit_identical": same} if tc else {})
-    _row(rows, failures, "flash_bwd_dq" + suffix, f"flash dq ({form}) {label}",
+    again_dq = flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)
+    again_dk, again_dv = flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)
+    torch.cuda.synchronize()
+    same_dq = torch.equal(again_dq, dq)
+    same_dkv = torch.equal(again_dk, dk) and torch.equal(again_dv, dv)
+    same = same_dq and same_dkv
+    print(f"flash backward {label}: launched again, dq "
+          f"{'bit-identical' if same_dq else 'DIFFERS'}, dk and dv "
+          f"{'bit-identical' if same_dkv else 'DIFFER'}")
+    err, tol = _gap(BF16_ULP, dq, want_dq)
+    bound_ms, by = bound(in_bytes + es * bh * sq * d, (6 * bh * sq * sk * d, q.dtype))
+    _row(rows, failures, "flash_bwd_dq", f"flash dq (tensor cores) {label}",
          err <= tol and finite(dq) and same, max_abs_err=err, tol=tol,
          ms=cuda_ms(lambda: flash.flash_bwd_dq_cuda(q, k, v, do, lse2, delta)),
          plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-         plain_covers=together, shape=list(q.shape), **core)
-    (err_k, tol_k), (err_v, tol_v) = _gap(rel, dk, want_dk), _gap(rel, dv, want_dv)
+         plain_covers=together, shape=list(q.shape),
+         core_ms=_bwd_template_ms(0, q, k, v, do, lse2, delta), relaunch_bit_identical=same)
+    (err_k, tol_k), (err_v, tol_v) = _gap(BF16_ULP, dk, want_dk), _gap(BF16_ULP, dv, want_dv)
     print(f"flash dk/dv {label}: dk max_abs_err {err_k:.3e} (tol {tol_k:.3g}), "
           f"dv {err_v:.3e} (tol {tol_v:.3g})")
-    bound_ms, by = bound(in_bytes + es * bh * 2 * sk * d, (8 * bh * sq * sk * d, dtype))
+    bound_ms, by = bound(in_bytes + es * bh * 2 * sk * d, (8 * bh * sq * sk * d, q.dtype))
     worst = max((err_k, tol_k), (err_v, tol_v), key=lambda et: et[0] / et[1])
-    core = ({"core_ms": _bwd_template_ms(1, q, k, v, do, lse2, delta),
-             "relaunch_bit_identical": same} if tc else {})
-    _row(rows, failures, "flash_bwd_dkv" + suffix, f"flash dk/dv ({form}) {label}",
+    _row(rows, failures, "flash_bwd_dkv", f"flash dk/dv (tensor cores) {label}",
          err_k <= tol_k and err_v <= tol_v and finite(dk, dv) and same, max_abs_err=worst[0],
          tol=worst[1], ms=cuda_ms(lambda: flash.flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)),
          plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
-         plain_covers=together, shape=list(q.shape), **core)
+         plain_covers=together, shape=list(q.shape),
+         core_ms=_bwd_template_ms(1, q, k, v, do, lse2, delta), relaunch_bit_identical=same)
     # dq and dk / dv share one plain version and one library call, so the
     # two are read together: both kernels against each
     both = rows[-2]["ms"] + rows[-1]["ms"]
     bounds = rows[-2]["bound_ms"] + rows[-1]["bound_ms"]
-    print(f"flash backward {label}: dq + dk/dv kernels ({form}) {both:.3f} ms"
-          + (f" (the CUDA-core template on the same inputs "
-             f"{rows[-2]['core_ms'] + rows[-1]['core_ms']:.3f} ms)" if tc else "")
-          + f", plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms, bound "
+    print(f"flash backward {label}: dq + dk/dv kernels (tensor cores) {both:.3f} ms (the "
+          f"CUDA-core template on the same inputs {rows[-2]['core_ms'] + rows[-1]['core_ms']:.3f}"
+          f" ms), plain version {plain_bwd:.3f} ms, library {lib_bwd:.3f} ms, bound "
           f"{bounds:.4f} ms ({bounds / both:.1%})")
 
 
@@ -1159,6 +1160,55 @@ def _fused_backward_row(rows, failures, label, q, k, v, do, lse2, delta, got, wa
           f"({bound_ms / rows[-1]['ms']:.1%})")
 
 
+def _f32_512_backward_row(rows, failures, label, q, k, v, do, lse2, delta, got, wants, plain_bwd,
+                          lib_bwd, in_bytes):
+    """Rows 4 + 5 in float32 at d = 512 (``flash_bwd_f32_512_cuda``,
+    ``csrc/flash_attention_bwd_f32_512.cu``): the dk / dv kernel, which
+    stores ds, then the dq product over it.  dq, dk and dv each within
+    ``F32_TOL`` of its largest value; launched a second time, all three
+    bit-identical (one writer an element, a fixed order); timed whole and by
+    entry point (``dkv_ms``, ``dq_ms``: the workspace allocated once), beside
+    the CUDA-core template's two entry points on the same inputs
+    (``core_ms``).  Charged at the function's 5 products, 10 B H Sq Sk D
+    FLOP (the template's 7 printed beside it)."""
+    bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+    errs = [_gap(F32_TOL, a, w) for a, w in zip(got, wants)]
+    again = flash.flash_bwd_f32_512_cuda(q, k, v, do, lse2, delta)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(again, got))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    out_bytes = 4 * bh * d * (sq + 2 * sk)
+    bound_ms, by = bound(in_bytes + out_bytes, (10 * bh * sq * sk * d, torch.float32))
+    bound7, _ = bound(in_bytes + out_bytes, (14 * bh * sq * sk * d, torch.float32))
+    entry_dq, entry_dkv = flash.F32_512_BWD_ENTRIES
+    ds = torch.empty(flash.bwd_f32_512_workspace(bh, sq, sk), device="cuda")
+    dq_, dk_, dv_ = (torch.empty_like(t) for t in got)
+    dkv_ms = cuda_ms(lambda: flash._launch(entry_dkv, q, (q, k, v, do, lse2, delta, ds, dk_, dv_),
+                                           (bh, sq, sk, d)))
+    dq_ms = cuda_ms(lambda: flash._launch(entry_dq, q, (k, ds, dq_), (bh, sq, sk, d)))
+    core_ms = (_bwd_template_ms(0, q, k, v, do, lse2, delta)
+               + _bwd_template_ms(1, q, k, v, do, lse2, delta))
+    worst = max(errs, key=lambda et: et[0] / et[1])
+    print(f"flash dq / dk / dv (CUDA cores, float32 d = 512 kernels) {label}: max_abs_err "
+          f"{' / '.join(f'{e:.3e} (tol {t:.3g})' for e, t in errs)}; second launch: dq, dk and "
+          f"dv {'bit-identical' if same else 'DIFFER'}; bound at 7 products {bound7:.4f} ms")
+    _row(rows, failures, "flash_bwd_f32_512",
+         f"flash backward (CUDA cores, float32 d = 512) {label}",
+         all(e <= t for e, t in errs) and finite and same, max_abs_err=worst[0], tol=worst[1],
+         ms=cuda_ms(lambda: flash.flash_bwd_f32_512_cuda(q, k, v, do, lse2, delta)),
+         plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=bound_ms, bound_by=by,
+         bound_7_products_ms=bound7, relaunch_bit_identical=same, core_ms=core_ms,
+         dkv_ms=dkv_ms, dq_ms=dq_ms,
+         plain_covers="plain_ms and library_ms are of dq, dk and dv, as the kernels",
+         shape=list(q.shape))
+    ms = rows[-1]["ms"]
+    print(f"flash backward {label}: float32 d = 512 kernels {ms:.3f} ms (dk / dv {dkv_ms:.3f} + "
+          f"dq {dq_ms:.3f} by entry point), the CUDA-core template on the same inputs "
+          f"{core_ms:.3f} ms ({core_ms / ms:.2f}x), plain version {plain_bwd:.3f} ms, library "
+          f"{lib_bwd:.3f} ms ({lib_bwd / ms:.2f}x), bound {bound_ms:.4f} ms ({bound_ms / ms:.1%}; "
+          f"{bound7 / ms:.1%} of the 7-product bound)")
+
+
 def _bwd_refusals(g, failures):
     """The backward wrappers raise, and launch nothing, on a bf16 operand
     that is not 16-byte aligned (the tensor-core kernels copy 16 bytes at a
@@ -1193,12 +1243,13 @@ def _bwd_refusals(g, failures):
 
 
 def _f32_bwd_refusals(g, failures):
-    """The fused float32 backward's wrapper raises, and launches nothing, on
-    an operand that is not 16-byte aligned, an element stride that is not a
-    multiple of 4 (a one-head view whose head stride is odd) and a bf16
-    input; the two-kernel wrappers raise on float32 at d = 40 / 80 and name
-    the fused one.  None hands such an input to the template or a plain
-    version."""
+    """The float32 backward wrappers raise, and launch nothing: the fused
+    one (d = 40 / 80) on an operand that is not 16-byte aligned, an element
+    stride that is not a multiple of 4 (a one-head view whose head stride is
+    odd), a bf16 input and d = 512; the d = 512 one on a misaligned q or dO,
+    a bf16 input and d = 40; the two-kernel (tensor-core) wrappers on float32
+    at d = 40 and 512, naming the float32 wrapper.  None hands such an input
+    to the template or a plain version."""
     buf = torch.randn(2 * 1024 * 40 + 16, generator=g, device="cuda")
     misaligned = buf[1:1 + 1024 * 40].view(1, 1, 1024, 40)               # 4 bytes off
     aligned = buf[4:4 + 1024 * 40].view(1, 1, 1024, 40)                  # 16 bytes on
@@ -1213,7 +1264,22 @@ def _f32_bwd_refusals(g, failures):
               (odd,) + (aligned,) * 3 + rest),
              ("bf16", flash.flash_bwd_f32_cuda, (bf16,) * 4 + rest),
              ("float32 at d = 40, dq alone", flash.flash_bwd_dq_cuda, (aligned,) * 4 + rest),
-             ("float32 at d = 40, dk / dv alone", flash.flash_bwd_dkv_cuda, (aligned,) * 4 + rest))
+             ("float32 at d = 40, dk / dv alone", flash.flash_bwd_dkv_cuda, (aligned,) * 4 + rest),
+             ("float32 at d = 40, the d = 512 wrapper", flash.flash_bwd_f32_512_cuda,
+              (aligned,) * 4 + rest))
+    buf = torch.randn(2 * 1024 * 512 + 16, generator=g, device="cuda")
+    misaligned = buf[1:1 + 1024 * 512].view(1, 1, 1024, 512)             # 4 bytes off
+    aligned = buf[4:4 + 1024 * 512].view(1, 1, 1024, 512)                # 16 bytes on
+    bf16 = aligned.to(torch.bfloat16)
+    cases += (("d = 512, misaligned q", flash.flash_bwd_f32_512_cuda,
+               (misaligned,) + (aligned,) * 3 + rest),
+              ("d = 512, misaligned dO", flash.flash_bwd_f32_512_cuda,
+               (aligned,) * 3 + (misaligned,) + rest),
+              ("d = 512, bf16", flash.flash_bwd_f32_512_cuda, (bf16,) * 4 + rest),
+              ("d = 512, the fused wrapper", flash.flash_bwd_f32_cuda, (aligned,) * 4 + rest),
+              ("float32 at d = 512, dq alone", flash.flash_bwd_dq_cuda, (aligned,) * 4 + rest),
+              ("float32 at d = 512, dk / dv alone", flash.flash_bwd_dkv_cuda,
+               (aligned,) * 4 + rest))
     _check_refusals("float32 backward", cases, failures)
 
 
@@ -1362,8 +1428,8 @@ def phase_kernels():
     {path: counts}).  The first row of each kernel is at a shape of the main
     paths and is the one the kernels line reports.  The one path it drives is
     ``backward_f32_512``: the backward of the float32 [1, 1, 4096, 512] case
-    through ``flash_attention_backward_cuda``, the CUDA-core template's only
-    caller (the counts at 0 before, read after)."""
+    through ``flash_attention_backward_cuda``, on the float32 d = 512
+    kernels (the counts at 0 before, read after)."""
     g = torch.Generator(device="cuda").manual_seed(1234)
     rows, failures, counts = [], [], {}
     _flash_forward_cases(g, rows, failures)
@@ -1867,8 +1933,8 @@ def phase_nmg_path(pipe, images, ids):
     # _BWD_MIN_SEQ); never a CUDA-core template
     nmg_routed = {"flash_attention_lse": 10 * STEPS, "flash_attention_lse_core": 0,
                   "flash_attention_lse_f32": 0, "flash_attention_lse_f32_512": 0,
-                  "flash_bwd_dq": 5 * STEPS, "flash_bwd_dkv": 5 * STEPS,
-                  "flash_bwd_dq_core": 0, "flash_bwd_dkv_core": 0, "flash_bwd_f32": 0}
+                  "flash_bwd_dq": 5 * STEPS, "flash_bwd_dkv": 5 * STEPS, "flash_bwd_f32": 0,
+                  "flash_bwd_f32_512": 0}
     print(f"NMG path gradient launches: {json.dumps({n: counts[n] for n in BWD_NAMES})} "
           f"(predicted {json.dumps(nmg_routed)})")
     if {n: counts[n] for n in BWD_NAMES} != nmg_routed:
@@ -2192,34 +2258,67 @@ def phase_golden(pipe):
     return counts, [] if ok else [f"golden identity error {err:.3e}, launches {counts}"]
 
 
-def phase_vae_gradient_f32(pipe):
-    """The gradient of a loss on the decoded image with respect to the
-    latent in float32 at 256 px (a 32 x 32 latent): the route of the float32
-    style gradient through such a decode.  The decoder's mid-block attention
-    [1, 1, 1024, 512] fits JAX's K/V budget in float32 (4 MiB), so under the
-    gradient it takes row 3's forward on the float32 d = 512 kernel, once;
-    1024 tokens are below ``_BWD_MIN_SEQ``, so its backward is autograd of
-    ``reference_attention``, as on the TPU: no backward kernel.  Checks a
-    finite, nonzero gradient of the latent's shape and those launches.
-    Returns (counts, failures)."""
-    g = torch.Generator(device="cuda").manual_seed(17)
-    latent = torch.randn(1, 32, 32, 4, generator=g, device="cuda").requires_grad_()
-    reset_launches()
-    t0 = time.perf_counter()
+def _vae_latent_grad(pipe, latent):
+    """d loss / d latent of a loss on the decoded image."""
+    latent = latent.detach().requires_grad_()
     with torch.enable_grad():
         loss = pipe.vae.decode(latent).float().square().mean()
     grad, = torch.autograd.grad(loss, latent)
-    torch.cuda.synchronize()
-    counts = read_launches()
-    moved = {n: counts[n] for n in BWD_NAMES + ("flash_attention_f32_512", "flash_attention_core")}
-    routed = {**dict.fromkeys(moved, 0), "flash_attention_lse_f32_512": 1}
-    ok = (moved == routed and grad.shape == latent.shape and bool(torch.isfinite(grad).all())
-          and grad.abs().max().item() > 0)
-    print(f"VAE decode gradient (f32, 256 px, {time.perf_counter() - t0:.2f} s): d loss / d "
-          f"latent {list(grad.shape)} finite, max|grad| {grad.abs().max().item():.3e}; "
-          f"launches {json.dumps(moved)} (predicted {json.dumps(routed)}) "
-          f"{'OK' if ok else 'FAIL'}")
-    return counts, [] if ok else [f"VAE decode gradient f32: launches {moved}, expected {routed}"]
+    return grad
+
+
+def phase_vae_gradient_f32(pipe):
+    """The gradient of a loss on the decoded image with respect to the
+    latent in float32: the route of the float32 style gradient through such
+    a decode, at two sizes, each call's launches counted from 0.
+
+    256 px (a 32 x 32 latent): the decoder's mid-block attention
+    [1, 1, 1024, 512] fits JAX's K/V budget in float32 (4 MiB), so under the
+    gradient it takes row 3's forward on the float32 d = 512 kernel, once;
+    1024 tokens are below ``_BWD_MIN_SEQ``, so its backward is autograd of
+    ``reference_attention``, as on the TPU: no backward kernel.
+
+    256 x 512 px (a 32 x 64 latent): [1, 1, 2048, 512] fills the budget
+    exactly (8 MiB) and reaches ``_BWD_MIN_SEQ``: row 3's forward once and
+    the float32 d = 512 backward (``flash_bwd_f32_512``) once, the template
+    never; the gradient held, within ``UNET_GRAD_TOL`` of its largest value,
+    to the same gradient with ``plain_versions()`` substituted.
+
+    Checks finite, nonzero gradients of the latents' shapes and those
+    launches.  Returns (the 256 x 512 px call's counts, failures)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    failures = []
+    watched = BWD_NAMES + ("flash_attention_f32_512", "flash_attention_core")
+    for hw, routed_bwd in (((32, 32), 0), ((32, 64), 1)):
+        latent = torch.randn(1, *hw, 4, generator=g, device="cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        grad = _vae_latent_grad(pipe, latent)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        moved = {n: counts[n] for n in watched}
+        routed = {**dict.fromkeys(moved, 0), "flash_attention_lse_f32_512": 1,
+                  "flash_bwd_f32_512": routed_bwd}
+        ok = (moved == routed and grad.shape == latent.shape
+              and bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0)
+        against = ""
+        if routed_bwd:
+            with plain_versions():
+                want = _vae_latent_grad(pipe, latent)
+            err = ((grad - want).abs().max() / want.abs().max()).item()
+            ok = ok and err <= UNET_GRAD_TOL
+            against = (f"; against the plain versions max|diff| / max|grad| {err:.3e} (tol "
+                       f"{UNET_GRAD_TOL:g})")
+        px = f"{8 * hw[0]} x {8 * hw[1]} px"
+        print(f"VAE decode gradient (f32, {px}, {seconds:.2f} s): d loss / d latent "
+              f"{list(grad.shape)} finite, max|grad| {grad.abs().max().item():.3e}{against}; "
+              f"launches {json.dumps(moved)} (predicted {json.dumps(routed)}) "
+              f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"VAE decode gradient f32 at {px}: launches {moved}, expected "
+                            f"{routed}{against}")
+    return counts, failures
 
 
 @contextlib.contextmanager
@@ -2263,7 +2362,7 @@ def phase_unet_gradient(pipe):
                                             "flash_bwd_f32"))
                 and counts["flash_attention_lse"] == counts["flash_attention_lse_core"] == 0
                 and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0
-                and counts["flash_bwd_dq_core"] == counts["flash_bwd_dkv_core"] == 0)
+                and counts["flash_bwd_f32_512"] == 0)
     ok = (rel <= UNET_GRAD_TOL and substituted and launched
           and bool(torch.isfinite(grad_k).all()))
     print(f"UNet gradient (f32, TF32 off, t={t}): max|dx kernels - dx plain| / max|dx plain| "
@@ -2312,8 +2411,8 @@ def phase_nmg_identity(pipe):
     bwd = {n: counts[n] for n in BWD_NAMES}
     routed = {"flash_attention_lse": 0, "flash_attention_lse_core": 0,
               "flash_attention_lse_f32": 10 * STEPS, "flash_attention_lse_f32_512": 0,
-              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_core": 0,
-              "flash_bwd_dkv_core": 0, "flash_bwd_f32": 5 * STEPS}
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_f32": 5 * STEPS,
+              "flash_bwd_f32_512": 0}
     print(f"NMG identity launches: {bwd} (predicted {routed})")
     if bwd != routed:
         ok = False
@@ -2589,12 +2688,12 @@ def main(argv=None) -> int:
             failures.append(f"the {path} path launched probe kernels: {launched}")
     print(f"probe kernels launched off the probes' paths: none expected, "
           f"{sum(paths[p][n] for p in paths.keys() - probe_counts.keys() for n in probe_kernels)}")
-    # no bf16 path launches the fused float32 backward
+    # no bf16 path launches a float32 backward kernel
     bf16_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "vae_gradient")
-    fused = {p: paths[p]["flash_bwd_f32"] for p in bf16_paths}
-    print(f"fused float32 backward launched on the bf16 paths: {fused} (none expected)")
+    fused = {p: paths[p]["flash_bwd_f32"] + paths[p]["flash_bwd_f32_512"] for p in bf16_paths}
+    print(f"float32 backward kernels launched on the bf16 paths: {fused} (none expected)")
     if any(fused.values()):
-        failures.append(f"a bf16 path launched the fused float32 backward: {fused}")
+        failures.append(f"a bf16 path launched a float32 backward kernel: {fused}")
 
     def entry(name, route, source, replaces, path, **extra):
         """The kernel's first comparison (a shape of its path) and its launches
@@ -2612,7 +2711,7 @@ def main(argv=None) -> int:
                 **{k: mine[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                            "plain_covers", "split_path_ms", "pipe_ms", "shape",
                                            "core_ms", "matmuls_ms", "bound_7_products_ms",
-                                           "dq_run_to_run", "dkv_bit_identical",
+                                           "dq_run_to_run", "dkv_bit_identical", "dkv_ms", "dq_ms",
                                            "relaunch_bit_identical", "lse_max_rel_err",
                                            "max_err_over_tol", "excused_rows", "row_count", "resident",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
@@ -2624,7 +2723,8 @@ def main(argv=None) -> int:
         the kernels line's, is at another path's shape)."""
         mine = next(r for r in rows if r["name"] == name and r["shape"] == list(shape))
         return {k: mine[k] for k in ("ms", "core_ms", "plain_ms", "library_ms", "bound_ms",
-                                     "bound_by", "max_abs_err", "shape") if k in mine}
+                                     "bound_by", "bound_7_products_ms", "dkv_ms", "dq_ms",
+                                     "max_abs_err", "shape") if k in mine}
 
     tc_cu, bwd_tc_cu, probes_tc_cu = ("hedit_tpu_torch/csrc/flash_attention_tc.cu",
                                       "hedit_tpu_torch/csrc/flash_attention_bwd_tc.cu",
@@ -2633,9 +2733,9 @@ def main(argv=None) -> int:
     f32_cu = "hedit_tpu_torch/csrc/flash_attention_f32.cu"
     f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_f32_512.cu"
     bwd_f32_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32.cu"
-    fwd_cu, bwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
-                                 "hedit_tpu_torch/csrc/flash_attention_bwd.cu",
-                                 "hedit_tpu_torch/csrc/flash_probes.cu")
+    bwd_f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32_512.cu"
+    fwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
+                         "hedit_tpu_torch/csrc/flash_probes.cu")
     variants_cu, mm_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
                           "hedit_tpu_torch/csrc/mm_probe.cu")
     gn_cu = "hedit_tpu_torch/csrc/group_norm.cu"
@@ -2653,8 +2753,10 @@ def main(argv=None) -> int:
               vae_d512=at_shape("flash_bwd_dkv", VAE_SHAPE)),
         entry("flash_bwd_f32", "cuda", bwd_f32_cu, f"{jax_flash}:553", "nmg_f32",
               also_replaces=f"{jax_flash}:593"),
-        entry("flash_bwd_dq_core", "cuda", bwd_cu, f"{jax_flash}:553", "backward_f32_512"),
-        entry("flash_bwd_dkv_core", "cuda", bwd_cu, f"{jax_flash}:593", "backward_f32_512"),
+        entry("flash_bwd_f32_512", "cuda", bwd_f32_512_cu, f"{jax_flash}:553", "vae_gradient_f32",
+              also_replaces=f"{jax_flash}:593",
+              vae_4096=at_shape("flash_bwd_f32_512", VAE_SHAPE),
+              ragged=at_shape("flash_bwd_f32_512", (1, 1, 1000, 512))),
         entry("flash_attention_exact", tc_route, tc_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_attention_exact_core", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_packed", tc_route, tc_cu, f"{jax_flash}:340", "exact_forward"),

@@ -77,6 +77,11 @@ ARGTYPES = {
     # q, k, v, dout, lse, delta, dq, dk, dv | bh, sq, sk, d, dtype | stream: the
     # fused float32 backward at d = 40 / 80 (flash_attention_bwd_f32.cu)
     "hedit_flash_attention_bwd_f32": [_P] * 9 + [_I] * 5 + [_P],
+    # float32 at d = 512 (flash_attention_bwd_f32_512.cu), two launches: q, k,
+    # v, dout, lse, delta, ds (the workspace), dk, dv | bh, sq, sk, d, dtype |
+    # stream; then k, ds, dq | bh, sq, sk, d, dtype | stream
+    "hedit_flash_attention_bwd_dkv_f32_512": [_P] * 9 + [_I] * 5 + [_P],
+    "hedit_flash_attention_bwd_dq_f32_512": [_P] * 3 + [_I] * 5 + [_P],
     # q, k, v, out | bh, sq, sk, d, anchor, layout, dtype | stream
     "hedit_flash_packed_t": [_P] * 4 + [_I] * 7 + [_P],
     # hedit_flash_packed_t in bf16 on the tensor cores (flash_probes_tc.cu),

@@ -1,19 +1,18 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk and dv of
 // out = softmax(q k^T / sqrt(d)) v from the saved per-query log-sum-exp.
 //
-// Replaces the TPU kernels hedit_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel
-// and _flash_bwd_dkv_kernel (wrapper _flash_bwd_pallas, the backward of
-// flash_attention_diff), which carry every mode that differentiates through
-// the UNet (NMG, null-text, the style and face rewards), for float32 at the
-// VAE's D = 512 (outside JAX's K/V budget at the decode's 4096 tokens, so
-// on no path: the smoke's float32 d = 512 case drives it).  The wrappers
-// send everything else elsewhere (bwd_entry): bf16 at every head dim, the
-// VAE's 512 included (the style reward's gradient through the decode), to
-// the tensor-core kernels of flash_attention_bwd_tc.cu, float32 at D = 40 /
-// 80 to the fused kernel of flash_attention_bwd_f32.cu.  The bf16 instances
-// (D = 40, 80, 512) stay, launched only by their entry points, so that the
-// smoke and the tile probe can time the template beside the tensor cores on
-// the same inputs; the float32 ones at D = 40 / 80 are gone.
+// The first port of the TPU kernels hedit_tpu/ops/flash_attention.py:
+// _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel (wrapper _flash_bwd_pallas,
+// the backward of flash_attention_diff), which carry every mode that
+// differentiates through the UNet (NMG, null-text, the style and face
+// rewards).  No wrapper launches it: bwd_entry sends bf16 at every head dim
+// to the tensor-core kernels of flash_attention_bwd_tc.cu, float32 at D = 40
+// / 80 to the fused kernel of flash_attention_bwd_f32.cu and float32 at the
+// VAE's D = 512 to flash_attention_bwd_f32_512.cu.  Its float32 D = 512 and
+// bf16 (D = 40, 80, 512) instances stay, launched only by their entry points,
+// so that the smoke and the tile probes can time the template beside the
+// kernels that replaced it on the same inputs; the float32 ones at D = 40 /
+// 80 are gone.
 //
 // With s2 = (q k^T) * scale * log2(e), lse2 the forward's base-2 log-sum-exp
 // of each query row and delta = rowsum(dO * O) (computed outside, in plain

@@ -54,10 +54,11 @@ The wrappers:
   ``_flash_bwd_dkv_kernel``; ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``:
   bf16 on the tensor cores, ``csrc/flash_attention_bwd_tc.cu``, at the
   UNet's head dims and at the VAE's d = 512 (the style reward's route
-  through the decode), float32 at d = 512 on the CUDA-core template,
-  ``csrc/flash_attention_bwd.cu``), or, for float32 at d = 40 / 80, one
-  fused dq / dk / dv kernel on the CUDA cores
-  (``flash_bwd_f32_cuda``, ``csrc/flash_attention_bwd_f32.cu``), as
+  through the decode)), or, for float32 at d = 40 / 80, one fused dq / dk /
+  dv kernel on the CUDA cores (``flash_bwd_f32_cuda``,
+  ``csrc/flash_attention_bwd_f32.cu``), or, for float32 at d = 512, a dk /
+  dv kernel that also stores ds and a dq product over it, on the CUDA cores
+  (``flash_bwd_f32_512_cuda``, ``csrc/flash_attention_bwd_f32_512.cu``), as
   ``bwd_entry`` names them; elsewhere the gradient of
   ``reference_attention`` by autograd;
 * ``flash_attention_exact_cuda`` (head-split) and
@@ -116,9 +117,10 @@ launches_packed_bounded_f32_512 = 0   # the same on packed heads
 launches_lse_f32_512 = 0          # the same with the log-sum-exp
 launches_exact_f32_512 = 0        # exact forward, head-split, float32 at d = 512
 launches_packed_f32_512 = 0       # the same on packed heads
-launches_bwd_dq = 0      # backward dq, CUDA-core template (float32, d = 512)
-launches_bwd_dkv = 0     # backward dk / dv, CUDA-core template
+launches_bwd_dq = 0      # backward dq, CUDA-core template (on no path)
+launches_bwd_dkv = 0     # backward dk / dv, CUDA-core template (on no path)
 launches_bwd_f32 = 0     # backward dq, dk and dv in one kernel, float32 at d = 40 / 80
+launches_bwd_f32_512 = 0  # backward dk / dv with ds, then dq, float32 at d = 512
 launches_bwd_dq_tc = 0   # backward dq in bf16 on the tensor cores (d = 40, 80, 512)
 launches_bwd_dkv_tc = 0  # backward dk / dv in bf16 on the tensor cores
 
@@ -128,8 +130,7 @@ HEAD_DIMS = (40, 80, 512)
 # reward differentiates through the decoder's mid-block attention)
 BWD_HEAD_DIMS = (40, 80, 512)
 # the head dims of the bf16 backward on the tensor cores
-# (``csrc/flash_attention_bwd_tc.cu``): all three; float32 at 512 stays on
-# the template
+# (``csrc/flash_attention_bwd_tc.cu``): all three
 TC_BWD_HEAD_DIMS = (40, 80, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
@@ -141,8 +142,9 @@ TC_STRIDE_MULTIPLE = 8
 # the float32 bounded kernel at the UNet's head dims (``csrc/flash_attention_f32.cu``)
 # and the fused float32 backward's; float32 at the VAE's 512 has a forward
 # of its own (``csrc/flash_attention_f32_512.cu``, both modes, entry points
-# ending in ``F32_512_SUFFIX``) and keeps the template's backward.  The
-# float32 forwards copy rows 16 bytes at a time (every operand's address a
+# ending in ``F32_512_SUFFIX``) and a backward of its own
+# (``csrc/flash_attention_bwd_f32_512.cu``).  The float32 forwards and
+# backwards copy rows 16 bytes at a time (every operand's address a
 # multiple of 16 bytes, every element stride a multiple of 4) and keep at
 # most ``F32_WINDOWS[d]`` anchor keys on chip: the anchor window of
 # ``bounded_anchor`` at that head dim, 512 keys at 40 / 80 and 1024 at 512.
@@ -157,6 +159,14 @@ F32_512_KEY_TILE = 128
 # the fused float32 backward at ``F32_HEAD_DIMS`` (``csrc/flash_attention_bwd_f32.cu``):
 # one entry point writes dq, dk and dv; its operands as the forward's
 F32_BWD_ENTRY = "hedit_flash_attention_bwd_f32"
+# the float32 backward at d = 512 (``csrc/flash_attention_bwd_f32_512.cu``),
+# (dq, dk / dv) as ``bwd_entry`` orders them: the dk / dv entry runs first and
+# also stores ds into a workspace (``bwd_f32_512_workspace``), which the dq
+# entry's product reads
+F32_512_BWD_ENTRIES = ("hedit_flash_attention_bwd_dq_f32_512",
+                       "hedit_flash_attention_bwd_dkv_f32_512")
+# the head dims of the float32 backward kernels (``check_f32_bwd_operands``)
+F32_BWD_HEAD_DIMS = F32_HEAD_DIMS + (512,)
 
 # JAX's K/V residency budget and its backward threshold, copied with their
 # names and values (``hedit_tpu/ops/flash_attention.py``; the port imports
@@ -253,17 +263,16 @@ def bwd_entry(dtype: torch.dtype, d: int) -> Tuple[str, ...]:
     bfloat16 at ``TC_BWD_HEAD_DIMS`` the tensor-core kernels
     (``csrc/flash_attention_bwd_tc.cu``); float32 at ``F32_HEAD_DIMS`` the
     fused float32 kernel (``csrc/flash_attention_bwd_f32.cu``,
-    ``F32_BWD_ENTRY``); float32 at the VAE's 512 the CUDA-core template
-    (``csrc/flash_attention_bwd.cu``).  Raises for any other dtype or head
-    dim."""
+    ``F32_BWD_ENTRY``); float32 at the VAE's 512 the float32 d = 512 kernels
+    (``csrc/flash_attention_bwd_f32_512.cu``, ``F32_512_BWD_ENTRIES``).  The
+    CUDA-core template (``csrc/flash_attention_bwd.cu``) is named for no
+    input.  Raises for any other dtype or head dim."""
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the backward takes head dims {BWD_HEAD_DIMS}, got {d}")
     if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS:
         return "hedit_flash_attention_bwd_dq_tc", "hedit_flash_attention_bwd_dkv_tc"
-    if dtype == torch.float32 and d in F32_HEAD_DIMS:
-        return (F32_BWD_ENTRY,)
-    if dtype in (torch.float32, torch.bfloat16):
-        return "hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv"
+    if dtype == torch.float32:
+        return (F32_BWD_ENTRY,) if d in F32_HEAD_DIMS else F32_512_BWD_ENTRIES
     raise ValueError(f"the backward takes float32 or bfloat16, got {dtype}")
 
 
@@ -295,13 +304,14 @@ def check_tc_operands(d: int, addresses, strides) -> None:
 
 
 def check_f32_bwd_operands(d: int, addresses, strides) -> None:
-    """Raise unless the fused float32 backward (``csrc/flash_attention_bwd_f32.cu``)
-    takes these operands: head dim ``d`` one of ``F32_HEAD_DIMS``, every
+    """Raise unless a float32 backward kernel (``csrc/flash_attention_bwd_f32.cu``
+    at d = 40 / 80, ``csrc/flash_attention_bwd_f32_512.cu`` at 512) takes
+    these operands: head dim ``d`` one of ``F32_BWD_HEAD_DIMS``, every
     address a multiple of ``F32_ALIGN_BYTES`` and every element stride a
-    multiple of ``F32_STRIDE_MULTIPLE``.  The kernel refuses the same
-    addresses; the wrapper raises first, and never falls back to the template
+    multiple of ``F32_STRIDE_MULTIPLE``.  The kernels refuse the same
+    addresses; the wrappers raise first, and never fall back to the template
     or a plain version."""
-    _check_copies("the float32 backward kernel", F32_HEAD_DIMS, F32_ALIGN_BYTES,
+    _check_copies("the float32 backward kernels", F32_BWD_HEAD_DIMS, F32_ALIGN_BYTES,
                   F32_STRIDE_MULTIPLE, d, addresses, strides)
 
 
@@ -709,47 +719,43 @@ def _check_bwd(q, k, v, do, lse2, delta, what: str) -> Tuple[int, int, int, int]
     return b * h, sq, sk, d
 
 
-def _bwd_launch(part: int, q, k, v, do, lse2, delta, outs, what: str) -> bool:
-    """Launch backward kernel ``part`` (0 dq, 1 dk / dv) of ``bwd_entry`` into
-    ``outs``; the tensor-core one only on operands that pass
-    ``check_tc_operands``.  Returns whether it was the tensor-core one.
-    Raises where ``bwd_entry`` names the fused float32 kernel, which writes
-    all three gradients (``flash_bwd_f32_cuda``)."""
+def _bwd_launch(part: int, q, k, v, do, lse2, delta, outs, what: str) -> None:
+    """Launch tensor-core backward kernel ``part`` (0 dq, 1 dk / dv) of
+    ``bwd_entry`` into ``outs``, on operands that pass ``check_tc_operands``.
+    Raises where ``bwd_entry`` names a float32 kernel: the fused one, which
+    writes all three gradients (``flash_bwd_f32_cuda``), or the d = 512 pair,
+    whose dq reads the ds its dk / dv kernel stores (``flash_bwd_f32_512_cuda``)."""
     bh, sq, sk, d = _check_bwd(q, k, v, do, lse2, delta, what)
     entries = bwd_entry(q.dtype, d)
     if len(entries) == 1:
         raise ValueError(f"{what}: float32 at d = {d} takes the fused backward, which writes "
                          f"dq, dk and dv in one launch: call flash_bwd_f32_cuda")
-    entry = entries[part]
-    tc = entry.endswith("_tc")
-    if tc:
-        check_tc_operands(d, [t.data_ptr() for t in (q, k, v, do, *outs)], [sq * d, sk * d, d])
-    _launch(entry, q, (q, k, v, do, lse2, delta, *outs), (bh, sq, sk, d))
-    return tc
+    if entries == F32_512_BWD_ENTRIES:
+        raise ValueError(f"{what}: float32 at d = {d} takes the float32 d = 512 backward, whose "
+                         f"dq reads the ds its dk / dv kernel stores: call "
+                         f"flash_bwd_f32_512_cuda")
+    check_tc_operands(d, [t.data_ptr() for t in (q, k, v, do, *outs)], [sq * d, sk * d, d])
+    _launch(entries[part], q, (q, k, v, do, lse2, delta, *outs), (bh, sq, sk, d))
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse2, delta) -> torch.Tensor:
-    """Launch the dq kernel of ``bwd_entry``.  lse2 and delta = rowsum(dO *
-    out) hold one float32 per (batch, head, query).  Raises on what the
-    kernel does not take."""
-    global launches_bwd_dq, launches_bwd_dq_tc
+    """Launch the tensor-core dq kernel of ``bwd_entry`` (bf16).  lse2 and
+    delta = rowsum(dO * out) hold one float32 per (batch, head, query).
+    Raises on what the kernel does not take, float32 included."""
+    global launches_bwd_dq_tc
     dq = torch.empty_like(q)
-    if _bwd_launch(0, q, k, v, do, lse2, delta, (dq,), "flash_bwd_dq_cuda"):
-        launches_bwd_dq_tc += 1
-    else:
-        launches_bwd_dq += 1
+    _bwd_launch(0, q, k, v, do, lse2, delta, (dq,), "flash_bwd_dq_cuda")
+    launches_bwd_dq_tc += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse2, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk / dv kernel of ``bwd_entry``; arguments as
+    """Launch the tensor-core dk / dv kernel of ``bwd_entry``; arguments as
     ``flash_bwd_dq_cuda``."""
-    global launches_bwd_dkv, launches_bwd_dkv_tc
+    global launches_bwd_dkv_tc
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if _bwd_launch(1, q, k, v, do, lse2, delta, (dk, dv), "flash_bwd_dkv_cuda"):
-        launches_bwd_dkv_tc += 1
-    else:
-        launches_bwd_dkv += 1
+    _bwd_launch(1, q, k, v, do, lse2, delta, (dk, dv), "flash_bwd_dkv_cuda")
+    launches_bwd_dkv_tc += 1
     return dk, dv
 
 
@@ -775,15 +781,52 @@ def flash_bwd_f32_cuda(q, k, v, do, lse2, delta
     return dq, dk, dv
 
 
+def bwd_f32_512_workspace(bh: int, sq: int, sk: int) -> Tuple[int, int, int]:
+    """The shape of the float32 d = 512 backward's workspace, ds [BH, Sk,
+    ldq] float32 with ldq = Sq rounded up to 4 (rows of 16 bytes): the dk / dv
+    kernel stores every ds once, the dq product reads it."""
+    return bh, sk, -(-sq // 4) * 4
+
+
+def flash_bwd_f32_512_cuda(q, k, v, do, lse2, delta
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the float32 backward at d = 512 (``F32_512_BWD_ENTRIES``): the
+    dk / dv kernel, which forms s and dp once per (key, query) pair and
+    stores ds into a workspace from torch's allocator
+    (``bwd_f32_512_workspace``), then the dq product over it.  Every output
+    has one writer and sums in a fixed order: two calls give the same bits.
+    Arguments as ``flash_bwd_dq_cuda``.  Raises on anything it does not take,
+    operands that fail ``check_f32_bwd_operands`` included, before any
+    launch."""
+    global launches_bwd_f32_512
+    bh, sq, sk, d = _check_bwd(q, k, v, do, lse2, delta, "flash_bwd_f32_512_cuda")
+    if bwd_entry(q.dtype, d) != F32_512_BWD_ENTRIES:
+        raise ValueError(f"flash_bwd_f32_512_cuda takes float32 at d = 512, got {q.dtype} at {d}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ds = torch.empty(bwd_f32_512_workspace(bh, sq, sk), dtype=torch.float32, device=q.device)
+    operands = (q, k, v, do, dq, dk, dv, ds)
+    check_f32_bwd_operands(d, [t.data_ptr() for t in operands],
+                           [s for t in operands for s in t.stride()[:-1]])
+    entry_dq, entry_dkv = F32_512_BWD_ENTRIES
+    _launch(entry_dkv, q, (q, k, v, do, lse2, delta, ds, dk, dv), (bh, sq, sk, d))
+    _launch(entry_dq, q, (k, ds, dq), (bh, sq, sk, d))
+    launches_bwd_f32_512 += 1
+    return dq, dk, dv
+
+
 def flash_attention_backward_cuda(q, k, v, out, lse2, do
                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) by the backward kernels of ``bwd_entry``: the fused
-    float32 one, or the dq and the dk / dv kernel; delta = rowsum(dO * out)
-    is plain tensor code, as in the JAX package."""
+    float32 one, the float32 d = 512 pair, or the tensor-core dq and dk / dv
+    kernels; delta = rowsum(dO * out) is plain tensor code, as in the JAX
+    package."""
     do = do.contiguous()
     delta = (do.float() * out.float()).sum(dim=-1)
-    if len(bwd_entry(q.dtype, q.shape[-1])) == 1:
+    entries = bwd_entry(q.dtype, q.shape[-1])
+    if len(entries) == 1:
         return flash_bwd_f32_cuda(q, k, v, do, lse2, delta)
+    if entries == F32_512_BWD_ENTRIES:
+        return flash_bwd_f32_512_cuda(q, k, v, do, lse2, delta)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse2, delta)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse2, delta)
     return dq, dk, dv

@@ -1,8 +1,10 @@
 """The flash backward's kernels on the card: the fused float32 kernel, its
 tile variants, the bf16 tensor-core kernels at d = 512, and (with ``--tc``)
-the tensor-core kernels' tiles.
+the tensor-core kernels' tiles; or (``--f32-512``) the float32 kernels at
+d = 512.
 
     python -m hedit_tpu_torch.probes.flash_bwd_tiles [--parent DIR [--nmg-loop] [--vae-loop]] [--tc]
+    python -m hedit_tpu_torch.probes.flash_bwd_tiles --f32-512 [--parent DIR]
 
 The fused float32 backward (``csrc/flash_attention_bwd_f32.cu``, entry point
 ``hedit_flash_attention_bwd_f32``: dq, dk and dv in one launch) is timed at
@@ -64,6 +66,28 @@ blocks an SM), its dq and dk / dv kernels timed at ``SHAPES`` and
 ``SHAPES_512`` in turns with the source's own tiles (variant 0) first and
 last and held to the plain backward before its final rounding (2^-8 of the
 largest value; the probe exits non-zero beyond it).
+
+``--f32-512``: the float32 backward at d = 512
+(``csrc/flash_attention_bwd_f32_512.cu``: the dk / dv kernel, which stores
+ds into a workspace, then the dq product over it; entry points
+``hedit_flash_attention_bwd_dkv_f32_512`` and ``..._dq_f32_512``) at
+``F512_SHAPES`` ([1, 1, 2048, 512], the one shape JAX's routing sends it,
+[1, 1, 4096, 512] and a ragged 1000 / 1100), through its entry points: the
+pair in turns with the parent's CUDA-core template (``--parent``: its dq and
+dk / dv entries; parent, this, this, parent), each kernel alone, SDPA's
+float32 backward on the same values (TF32 off) and the bound at five and at
+seven products (67 TFLOP/s); held to the plain backward (1e-4 of each
+output's largest value) and, launched twice, bit for bit.  The source is
+also built once for each of ``F512_VARIANTS`` (``-D``: the score loop's
+unroll, the dq product's rows a CTA, keys a stage and stages, and three
+timing ablations whose outputs are wrong), one ``nvcc`` each, all started
+together with the parent's sources; each variant is timed in turns with the
+source's own, and every build prints ``-Xptxas -v``'s registers and spills.
+With ``--parent`` the outputs this tree keeps are held bit for bit to the
+parent's (the tensor-core forwards, ``kept_identity``'s backward and
+forward kernels, the float32 d = 512 forward's five entry points included,
+and the probe kernels); the probe exits non-zero if one differs or an
+output is beyond its tolerance.
 """
 
 from __future__ import annotations
@@ -137,7 +161,23 @@ BF16_FLOPS = 989e12
 F32_TOL = 1e-4
 PARENT_SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "flash_attention_f32.cu",
                   "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu", "flash_probes.cu",
-                  "flash_probes_tc.cu", "flash_variants.cu", "flash_attention_bwd_f32.cu")
+                  "flash_probes_tc.cu", "flash_variants.cu", "flash_attention_bwd_f32.cu",
+                  "flash_attention_f32_512.cu")
+F512_SOURCE = _build.CSRC / "flash_attention_bwd_f32_512.cu"
+# the float32 d = 512 backward: the routed shape, the 512 px decode's, a ragged one
+F512_SHAPES = (((1, 1, 2048, 512), 2048), ((1, 1, 4096, 512), 4096), ((1, 1, 1000, 512), 1100))
+# (label, -D defines) of its source: its own first; the ablations, timed only
+F512_VARIANTS = (("the source's: score loop unrolled 4, dq 64 x 128 tiles, 16 keys a stage, "
+                  "2 stages", ()),
+                 ("score loop unrolled once", ("BWD512_UNROLL=1",)),
+                 ("score loop unrolled fully", ("BWD512_UNROLL=16",)),
+                 ("dq 32 x 256 tiles", ("BWD512_DQ_BM=32",)),
+                 ("dq 8 keys a stage", ("BWD512_DQ_BK=8",)),
+                 ("dq 3 stages", ("BWD512_DQ_STAGES=3",)),
+                 ("dq 4 stages", ("BWD512_DQ_STAGES=4",)),
+                 ("ablation: no query tile copied after the first two", ("BWD512_ABLATE=1",)),
+                 ("ablation: no score products", ("BWD512_ABLATE=2",)),
+                 ("ablation: no dk / dv products", ("BWD512_ABLATE=3",)))
 
 
 def _launch_line(launcher: str, tile) -> str:
@@ -188,6 +228,132 @@ def _calls(lib, entries, q, k, v, do, lse2, delta):
                 raise RuntimeError(f"{entry} failed (code {err})")
         return call
     return [launcher(e, o) for e, o in zip(entries, outs)], (dq, dk, dv)
+
+
+def _f512_calls(lib, q, k, v, do, lse2, delta):
+    """(the dk / dv launch, the dq launch, the outputs dq, dk, dv) of the
+    float32 d = 512 pair through ``lib``, the workspace allocated once."""
+    bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ds = torch.empty(flash.bwd_f32_512_workspace(bh, sq, sk), device="cuda")
+    entry_dq, entry_dkv = flash.F32_512_BWD_ENTRIES
+
+    def launcher(entry, ptrs):
+        fn = getattr(lib, entry)
+
+        def call():
+            err = fn(*(t.data_ptr() for t in ptrs), bh, sq, sk, d, 0,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{entry} failed (code {err})")
+        return call
+    return (launcher(entry_dkv, (q, k, v, do, lse2, delta, ds, dk, dv)),
+            launcher(entry_dq, (k, ds, dq)), (dq, dk, dv))
+
+
+def _pair(first, second):
+    def call():
+        first()
+        second()
+    return call
+
+
+def f512_timings(mine, variants, parent):
+    """The float32 d = 512 pair at ``F512_SHAPES``: in turns with the
+    parent's template (where given), each kernel alone, SDPA's backward, the
+    bounds at 5 and 7 products, relaunch identity, then ``F512_VARIANTS`` in
+    turns.  One record a shape."""
+    records = []
+    template = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")
+    for shape, sk in F512_SHAPES:
+        q, k, v, do, out, lse2, delta = _inputs(shape, sk, torch.float32)
+        wants = flash.flash_attention_backward_reference(q, k, v, out, lse2, do)
+        fdkv, fdq, got = _f512_calls(mine, q, k, v, do, lse2, delta)
+        call = _pair(fdkv, fdq)
+        call()
+        torch.cuda.synchronize()
+        first = [t.clone() for t in got]
+        call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, got))
+        errs = _errors(got, wants)
+        turns = [("kernels", call)]
+        if parent is not None:
+            calls, _ = _calls(parent, template, q, k, v, do, lse2, delta)
+            turns = [("parent template", _pair(*calls)), *turns, *turns,
+                     ("parent template", _pair(*calls))]
+        ms = [best_ms(fn) for _, fn in turns]
+        dkv_ms, dq_ms = best_ms(fdkv), best_ms(fdq)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(*leaves)
+        sdpa = best_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+        b, h, sq, d = shape
+        bound5, bound7 = (n * b * h * sq * sk * d / F32_FLOPS * 1e3 for n in (10, 14))
+        kernel_ms = min(t for (who, _), t in zip(turns, ms) if who == "kernels")
+        order = [*range(len(variants)), 0]
+        var_ms, var_err = [], []
+        for i in order:
+            vdkv, vdq, vgot = _f512_calls(variants[i], q, k, v, do, lse2, delta)
+            vcall = _pair(vdkv, vdq)
+            vcall()
+            torch.cuda.synchronize()
+            if "ABLATE" not in str(F512_VARIANTS[i][1]):
+                var_err.append(max(_errors(vgot, wants)))
+            var_ms.append((best_ms(vcall), best_ms(vdkv), best_ms(vdq)))
+        print(f"f32 d = 512 q{list(shape)} sk={sk}: "
+              + ", ".join(f"{who} {t:.4f}" for (who, _), t in zip(turns, ms))
+              + f" ms (dk/dv {dkv_ms:.4f}, dq {dq_ms:.4f}); SDPA backward {sdpa:.4f} ms, "
+              f"kernels / SDPA {kernel_ms / sdpa:.3f}; bound {bound5:.4f} ms at 5 products "
+              f"({bound5 / kernel_ms:.1%}), {bound7:.4f} at 7 ({bound7 / kernel_ms:.1%}); rel err "
+              f"dq / dk / dv {' / '.join(f'{e:.2e}' for e in errs)} (tol {F32_TOL:g}); "
+              f"relaunched {'bit-identical' if same else 'DIFFERS'}; variants (pair / dk-dv / dq) "
+              + ", ".join(f"{F512_VARIANTS[i][0]} {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f}"
+                          for i, t in zip(order, var_ms)) + " ms")
+        records.append({"shape": list(shape), "sk": sk,
+                        "turns": [[w, t] for (w, _), t in zip(turns, ms)], "dkv_ms": dkv_ms,
+                        "dq_ms": dq_ms, "sdpa_ms": sdpa, "bound_ms": bound5,
+                        "bound_7_products_ms": bound7, "rel_err": errs, "bit_identical": same,
+                        "variant_err": max(var_err),
+                        "variants_ms": [[F512_VARIANTS[i][0], *t]
+                                        for i, t in zip(order, var_ms)]})
+        del q, k, v, do, out, lse2, delta, lib_out, leaves, got, first
+        torch.cuda.empty_cache()
+    return records
+
+
+def f512_main(parent_dir) -> int:
+    """``--f32-512``: the builds, the timings, the identities."""
+    builds = [(F512_SOURCE, f"f512_variant{i}", _build.CSRC, defines)
+              for i, (_, defines) in enumerate(F512_VARIANTS)]
+    if parent_dir is not None:
+        csrc = parent_dir / "hedit_tpu_torch" / "csrc"
+        builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in PARENT_SOURCES]
+    builds = [b for b in builds if b[0].exists()]  # a parent may predate a source
+    with ThreadPoolExecutor(len(builds)) as ex:
+        built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
+                            builds))
+    for (source, name, *_), (_, info) in zip(builds, built):
+        print(f"ptxas, {name} ({source.name}): {info}")
+    mine = _build.cuda_library()
+    n = len(F512_VARIANTS)
+    parent = {source.name: lib for (source, *_), (lib, _) in zip(builds[n:], built[n:])}
+    records = f512_timings(mine, [lib for lib, _ in built[:n]],
+                           parent.get("flash_attention_bwd.cu"))
+    print(json.dumps({"flash_bwd_f32_512": records}))
+    bad = [r for r in records if not (max(r["rel_err"]) <= F32_TOL and r["bit_identical"]
+                                      and r["variant_err"] <= F32_TOL)]
+    if bad:
+        print(f"FAILED: outputs beyond their tolerance or not bit-identical: {bad}")
+        return 1
+    if parent_dir is not None and not (
+            identity(mine, parent["flash_attention_tc.cu"], exact=True)
+            & probe_identity(mine, parent["flash_probes_tc.cu"], parent["flash_probes.cu"],
+                             parent["flash_variants.cu"])
+            & kept_identity(mine, parent)):
+        print("FAILED: an output this tree keeps differs from the parent's")
+        return 1
+    return 0
 
 
 def _errors(got, wants):
@@ -364,10 +530,11 @@ def _bwd(lib, q, k, v, do, lse2, delta):
 
 def kept_identity(mine, parent) -> bool:
     """The outputs this tree keeps from the parent, bit for bit on the same
-    inputs: the backward kernels other than float32 at d = 40 / 80 (the
-    tensor cores in bf16; the template at d = 512 in both dtypes and, by its
-    entry points, in bf16 at d = 40 / 80), the float32 forward kernels and
-    the template's forward outputs."""
+    inputs: the backward kernels (the tensor cores in bf16; the template by
+    its entry points at d = 512 in both dtypes and in bf16 at d = 40 / 80;
+    the fused float32 kernel's dk and dv), the float32 forward kernels at
+    d = 40 / 80 and at 512 (its five entry points, where the parent has the
+    source) and the template's forward outputs."""
     same = True
     cases = [(shape, sk, dtype, lib) for shape, sk in (((1, 8, 1024, 40), 1024),
                                                        ((1, 8, 1000, 80), 1064))
@@ -422,7 +589,18 @@ def kept_identity(mine, parent) -> bool:
         ("flash_attention.cu", "hedit_flash_attention_fwd_lse", (1, 1, 1000, 1100, 512), False,
          True, torch.float32),
         ("flash_attention.cu", "hedit_flash_attention_fwd_lse", (1, 8, 1024, 1024, 40), False,
-         True, torch.bfloat16))]
+         True, torch.bfloat16),
+        ("flash_attention_f32_512.cu", "hedit_flash_attention_fwd_f32_512",
+         (1, 1, 1024, 1024, 512), False, False, torch.float32),
+        ("flash_attention_f32_512.cu", "hedit_flash_attention_fwd_lse_f32_512",
+         (1, 1, 2048, 2048, 512), False, True, torch.float32),
+        ("flash_attention_f32_512.cu", "hedit_flash_attention_fwd_exact_f32_512",
+         (1, 1, 1000, 1100, 512), False, False, torch.float32),
+        ("flash_attention_f32_512.cu", "hedit_flash_attention_fwd_packed_bounded_f32_512",
+         (1, 2, 1024, 1024, 512), True, False, torch.float32),
+        ("flash_attention_f32_512.cu", "hedit_flash_attention_fwd_packed_exact_f32_512",
+         (2, 2, 300, 300, 512), True, False, torch.float32))
+        if lib in parent]
     for lib, entry, (b, h, sq, sk, d), packed, lse, dtype in forwards:
         g = torch.Generator(device="cuda").manual_seed(sq + sk)
         q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda") for s in (sq, sk, sk))
@@ -512,12 +690,16 @@ def main(argv=None) -> int:
     ap.add_argument("--vae-loop", action="store_true",
                     help="time the bf16 VAE decode's gradient of the parent and of this tree "
                          "in turns")
+    ap.add_argument("--f32-512", action="store_true",
+                    help="the float32 backward at d = 512 (flash_attention_bwd_f32_512.cu)")
     args = ap.parse_args(argv)
     require_cuda("flash_bwd_tiles")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
+    if args.f32_512:
+        return f512_main(args.parent)
     builds = [(F32_SOURCE, f"f32_variant{i}", _build.CSRC, defines)
               for i, (_, defines) in enumerate(F32_VARIANTS)]
     if args.parent is not None:

@@ -92,8 +92,10 @@ def _ptxas_kernels(log: str):
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            # the kernel's identifier: the one whose length prefix is its length
-            names = [m.group(2) for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)I)", mangled)
+            # the kernel's identifier: the one whose length prefix is its length,
+            # followed by its template arguments (I) or its parameters (E)
+            names = [m.group(2) for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)[IE])",
+                                                     mangled)
                      if int(m.group(1)) == len(m.group(2))]
             # int and bool arguments (Li40E, Lb1E), and enum ones of the
             # sources' anonymous namespace (LNS_2OpE3E)

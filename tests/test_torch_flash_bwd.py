@@ -118,6 +118,31 @@ def test_flash_backward_plain_matches_jax_kernels_in_bf16():
             assert np.mean(a != b) <= 0.02, (sq, sk, d)
 
 
+def test_flash_backward_plain_matches_jax_kernels_in_float32_at_512():
+    """float32 at the VAE's width, (Sq, Sk, D) = (256, 300, 512) (JAX pads
+    the keys to its 256-key block above d = 128): the port's plain backward,
+    the plain version of the float32 d = 512 kernels, fed its own LSE
+    forward's out and lse2, against the JAX dq and dk / dv kernels in
+    interpret mode fed JAX's LSE forward, and against ``jax.vjp`` of the JAX
+    oracle; ``flash_attention_diff``'s autograd on the CPU gives the plain
+    backward's bits.  rtol 2e-4 / atol 3e-5, as the float32 cases above."""
+    q, k, v, do = _qkvo(256, 300, 512)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse2 = flash_mod.flash_attention_lse_reference(tq, tk, tv)
+    got = flash_mod.flash_attention_backward_reference(tq, tk, tv, out, lse2, tdo)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jout, jlse = _flash_bounded_fwd_lse(jq, jk, jv, interpret=True)
+    kernels = _flash_bwd_pallas(jq, jk, jv, jout, jlse, jdo, interpret=True)
+    vjp = jax.vjp(j_reference_attention, jq, jk, jv)[1](jdo)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    auto = torch.autograd.grad(flash_mod.flash_attention_diff(*leaves), leaves, tdo)
+    for a, b, c, e in zip(got, kernels, vjp, auto):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=3e-5)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=2e-4, atol=3e-5)
+        np.testing.assert_array_equal(a.numpy(), e.numpy())
+
+
 @pytest.mark.parametrize("act", ["silu", None])
 @pytest.mark.parametrize("shape,groups", [((2, 8, 8, 64), 32), ((1, 4, 4, 96), 8)])
 def test_groupnorm_gradient_matches_jax(shape, groups, act):

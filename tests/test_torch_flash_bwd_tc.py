@@ -7,7 +7,8 @@ without JAX:
 * the dispatch (``bwd_entry``): bf16 at the UNet's head dims and at the
   VAE's 512 to the tensor-core entry points, float32 at the UNet's to the
   fused float32 entry point (``csrc/flash_attention_bwd_f32.cu``), float32
-  at 512 to the CUDA-core template, anything else refused;
+  at 512 to the float32 d = 512 pair (``csrc/flash_attention_bwd_f32_512.cu``),
+  anything else refused;
 * the operand check of the tensor-core route (``check_tc_operands``):
   16-byte alignment, strides that are multiples of 8;
 * the C entry points' parameter counts against the ``ctypes`` argument types
@@ -35,6 +36,7 @@ from hedit_tpu_torch.ops import flash_attention as flash_mod
 TC_ENTRIES = ("hedit_flash_attention_bwd_dq_tc", "hedit_flash_attention_bwd_dkv_tc")
 CORE_ENTRIES = ("hedit_flash_attention_bwd_dq", "hedit_flash_attention_bwd_dkv")
 F32_ENTRIES = ("hedit_flash_attention_bwd_f32",)
+F32_512_ENTRIES = ("hedit_flash_attention_bwd_dq_f32_512", "hedit_flash_attention_bwd_dkv_f32_512")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,13 +54,13 @@ def _share_cores():
 # items, and a file of few items queues behind the suite's long JAX files.
 ROUTES = ((torch.bfloat16, 40, TC_ENTRIES), (torch.bfloat16, 80, TC_ENTRIES),
           (torch.bfloat16, 512, TC_ENTRIES), (torch.float32, 40, F32_ENTRIES),
-          (torch.float32, 80, F32_ENTRIES), (torch.float32, 512, CORE_ENTRIES))
+          (torch.float32, 80, F32_ENTRIES), (torch.float32, 512, F32_512_ENTRIES))
 
 
 def test_bwd_entry_sends_bf16_unet_widths_to_the_tensor_cores():
     """Every bf16 head dim (the UNet's 40 and 80, the VAE's 512) to the
     tensor-core entry points; float32 by head dim to the fused kernel or the
-    template."""
+    float32 d = 512 pair."""
     assert flash_mod.TC_BWD_HEAD_DIMS == flash_mod.BWD_HEAD_DIMS
     for dtype, d, entries in ROUTES:
         assert flash_mod.bwd_entry(dtype, d) == entries, (dtype, d)

@@ -7,8 +7,9 @@ queues test files by their number of items):
 
 * the routes: ``bounded_entry``, ``lse_entry`` and ``exact_entry`` at
   (float32, 512) name the new entry points, bound with the template's
-  argument types and defined in ``csrc``; ``bwd_entry(float32, 512)`` still
-  names the template's backward; ``check_f32_operands`` at d = 512 takes a
+  argument types and defined in ``csrc``; ``bwd_entry(float32, 512)``
+  names the float32 d = 512 backward (``csrc/flash_attention_bwd_f32_512.cu``,
+  ``tests/test_torch_flash_bwd_f32_512.py``); ``check_f32_operands`` at d = 512 takes a
   1024-key window and refuses 1025, while d = 40 / 80 keep 512;
 * the kernel's order of work rendered in plain torch (the anchor window's
   key tiles scored once and kept, the key tiles split over the cluster's
@@ -78,7 +79,7 @@ def test_f32_512_routes_entries_and_operand_check():
     modes, head-split and packed, each with the template's argument types
     and defined in the sources; bf16 at 512 stays on the tensor cores and
     float32 at 40 / 80 on their kernels; the backward at (float32, 512)
-    stays on the template.  The key tile of the exact plain version follows
+    has its own kernels.  The key tile of the exact plain version follows
     the kernel's (``kKeys``) in float32 and stays 32 in bf16.  The operand
     check takes a 1024-key window at d = 512 (512 at 40 / 80), the exact
     mode's None, and refuses an address off 16 bytes, a stride that is not
@@ -93,8 +94,8 @@ def test_f32_512_routes_entries_and_operand_check():
         assert _build.ARGTYPES[entry] == _build.ARGTYPES[template], entry
         assert len(re.findall(rf'extern "C" int {entry}\(', sources)) == 1, entry
         assert re.search(rf'extern "C" int {entry}\(', SOURCE.read_text()), entry
-    assert flash_mod.bwd_entry(f32, 512) == ("hedit_flash_attention_bwd_dq",
-                                             "hedit_flash_attention_bwd_dkv")
+    assert flash_mod.bwd_entry(f32, 512) == ("hedit_flash_attention_bwd_dq_f32_512",
+                                             "hedit_flash_attention_bwd_dkv_f32_512")
     assert flash_mod.bounded_entry(torch.bfloat16, False, 512) == "hedit_flash_attention_fwd_tc"
     assert flash_mod.exact_entry(torch.bfloat16, True, 512) == (
         "hedit_flash_attention_fwd_packed_exact_tc")
