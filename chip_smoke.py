@@ -85,7 +85,7 @@ the final result line:
    ``...flash_ablate``, ``...flash_variants``, ``...mm_probe``), each driven
    once with the counts at 0 before and read after, ``flash_nhd_variants``
    and ``flash_v4_variants`` also in float32 (the template's instances of
-   rows 10 and 11);
+   rows 10 and 11; row 6, the v4 probe's base, on the float32 kernel);
 5. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
@@ -124,7 +124,8 @@ the final result line:
     once each, and the template's backward none;
 11. the exact forwards' own path (no editing path runs them): one call of
     the head-split one at each shape of JAX ``flash_attention``'s callers
-    (bf16 on the tensor cores; float32, its oracle test's, on the template),
+    (bf16 on the tensor cores; float32, its oracle test's, on the float32
+    kernel's exact mode, the template's counters held at 0),
     one of the packed one at each shape of ``flash_attention_packed``'s
     (float32) and one bf16 call at the UNet's controlled call [8, 4096, 320];
     one float32 call of each at the VAE's d = 512 (the float32 d = 512
@@ -164,8 +165,8 @@ the final result line:
     float32 kernel and 4 + 5 on the fused float32 kernel on the float32 NMG
     loop, 4 + 5 on the float32 d = 512 kernels on ``vae_gradient_f32``, and
     on phase 3's float32 [1, 1, 4096, 512] case, ``backward_f32_512``),
-    6 and 7 on their own (tensor cores, template and the float32 d = 512
-    kernel; its packed bounded entry on ``packed_bounded_f32_512``),
+    6 and 7 on their own (tensor cores, the float32 kernel and the float32
+    d = 512 kernel; its packed bounded entry on ``packed_bounded_f32_512``),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
     bf16 and on the template in float32), then the result line
     ``{"ok": true, "device": {...}}``.
@@ -318,6 +319,8 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             "flash_attention_f32": (flash, "launches_f32"),
             "flash_packed_bounded_f32": (flash, "launches_packed_bounded_f32"),
             "flash_attention_lse_f32": (flash, "launches_lse_f32"),
+            "flash_attention_exact_f32": (flash, "launches_exact_f32"),
+            "flash_packed_f32": (flash, "launches_packed_f32"),
             "flash_attention_f32_512": (flash, "launches_f32_512"),
             "flash_attention_lse_f32_512": (flash, "launches_lse_f32_512"),
             "flash_attention_exact_f32_512": (flash, "launches_exact_f32_512"),
@@ -362,9 +365,11 @@ def hook_groupnorm(*models):
 
 
 # rows 6 and 7, the exact forwards: bf16 on the tensor cores, float32 on the
-# CUDA-core template (d = 40 / 80) or the float32 d = 512 kernel
+# float32 kernel (d = 40 / 80) or the float32 d = 512 kernel; the CUDA-core
+# template's counters, which no wrapper moves
 EXACT_NAMES = ("flash_attention_exact", "flash_attention_exact_core", "flash_packed",
-               "flash_packed_core", "flash_attention_exact_f32_512", "flash_packed_f32_512")
+               "flash_packed_core", "flash_attention_exact_f32", "flash_packed_f32",
+               "flash_attention_exact_f32_512", "flash_packed_f32_512")
 
 
 def read_launches():
@@ -490,12 +495,17 @@ def _route(entry):
 CORE_SHAPES = ((8, 8, 4096, 40), (4, 8, 1024, 80), (1, 1, 4096, 512))
 
 
-def _template_ms(entry, q, k, v):
+def _template_ms(entry, q, k, v, heads=None):
     """CUDA-event ms of the CUDA-core template's forward ``entry`` (bounded
     ``hedit_flash_attention_fwd``, LSE ``..._lse`` or exact ``..._exact``,
-    head-split) at the inputs: the template beside the kernel that took its
-    place (``core_ms``: the tensor cores in bf16, the float32 d = 512
-    kernel), launched by its entry point, as no wrapper reaches it there."""
+    head-split; with ``heads``, the exact ``..._packed`` on packed heads) at
+    the inputs: the template beside the kernel that took its place
+    (``core_ms``: the tensor cores in bf16, the float32 kernels), launched by
+    its entry point, as no wrapper reaches it."""
+    if heads is not None:
+        ints = flash._check_packed(q, k, v, heads, entry)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return cuda_ms(lambda: flash._launch(entry, q, [q, k, v, out], ints))
     bh, sq, sk, d = q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
     ptrs = [q, k, v, torch.empty_like(q)]
     if entry.endswith("_lse"):
@@ -519,8 +529,11 @@ def _flash_forward_cases(g, rows, failures):
     paths; kernel 6: the UNet's self-attention at 64^2, where JAX's
     ``flash_attention`` callers time it).  At ``CORE_SHAPES`` the
     tensor-core bounded kernel is timed beside the CUDA-core template (the
-    exact one beside the parent's template by ``probes/flash_exact_tiles``).
-    Then the saturating case."""
+    exact one beside the parent's template by ``probes/flash_exact_tiles``);
+    the float32 kernels' exact rows (d = 40 / 80 and 512) and the float32
+    d = 512 rows beside the template's same mode (``core_ms``), each
+    launched twice (``relaunch_bit_identical``).  Then the saturating
+    case."""
     cases = [((1, 1, 4096, 512), 4096, torch.bfloat16),  # VAE mid block
              ((8, 8, 4096, 40), 4096, torch.bfloat16),   # UNet 64^2 self-attention, 8 rows
              ((4, 8, 1024, 80), 1024, torch.bfloat16),   # UNet 32^2, 4 rows
@@ -556,9 +569,10 @@ def _flash_forward_cases(g, rows, failures):
             form = f"{'exact' if exact else 'bounded'} ({where})"
             extra = ({"core_ms": _template_ms("hedit_flash_attention_fwd_lse", q, k, v)}
                      if tc and not exact and qshape in CORE_SHAPES and sk == qshape[2] else {})
-            if suffix == flash.F32_512_SUFFIX:
-                # the float32 d = 512 kernel: beside the template it replaced
-                # (the same mode by its entry point), launched twice
+            if suffix == flash.F32_512_SUFFIX or (suffix == "_f32" and exact):
+                # the float32 d = 512 kernel, and the float32 kernel's exact
+                # mode: beside the template it replaced (the same mode by its
+                # entry point), launched twice
                 extra = {"core_ms": _template_ms("hedit_flash_attention_fwd"
                                                  + ("_exact" if exact else ""), q, k, v),
                          "relaunch_bit_identical": _relaunch_same(lambda: (wrapper(q, k, v),),
@@ -570,8 +584,8 @@ def _flash_forward_cases(g, rows, failures):
                  plain_ms=cuda_ms(lambda: plain(q, k, v)),
                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                  bound_ms=bound_ms, bound_by=by, shape=list(qshape), dtype=str(dtype)[6:], **extra)
-            if suffix == flash.F32_512_SUFFIX:
-                _print_512(rows[-1])
+            if "relaunch_bit_identical" in extra:
+                _print_redesign(rows[-1], where)
             elif extra:
                 print(f"  the CUDA-core bounded template (its LSE entry) at the same inputs: "
                       f"{extra['core_ms']:.3f} ms, tensor cores {rows[-1]['ms']:.3f} ms "
@@ -641,10 +655,10 @@ def _saturating_qkv_512(g, dtype):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def _print_512(row):
-    """The float32 d = 512 kernel's row beside the template it replaced and
-    SDPA, with its share of the bound."""
-    print(f"  float32 d = 512 kernel {row['ms']:.4f} ms, the template's same mode "
+def _print_redesign(row, where="CUDA cores, float32 d = 512 kernel"):
+    """A float32 kernel's row beside the template it replaced and SDPA, with
+    its share of the bound."""
+    print(f"  {where}: {row['ms']:.4f} ms, the template's same mode "
           f"{row['core_ms']:.4f} ms ({row['core_ms'] / row['ms']:.2f}x), SDPA "
           f"{row['library_ms']:.4f} ms (kernel / SDPA {row['ms'] / row['library_ms']:.2f}), "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%}); relaunched "
@@ -682,7 +696,7 @@ def _f32_512_lse_cases(g, rows, failures):
              bound_ms=bound_ms, bound_by=by, shape=list(qshape), lse_max_rel_err=err_l,
              core_ms=_template_ms("hedit_flash_attention_fwd_lse", q, k, v),
              relaunch_bit_identical=same)
-        _print_512(rows[-1])
+        _print_redesign(rows[-1])
 
 
 def _rounding_diagnostic(q, k, v, got, want_rounded, tol):
@@ -722,7 +736,9 @@ def _flash_packed_cases(g, rows, failures):
     the kernel's steps and are read before their final rounding
     (``BF16_ULP``).  Float32 at d = 512 (one head of the VAE's width, and
     two heads as a batch-strided slice) runs the float32 d = 512 kernel's
-    packed entries."""
+    packed entries.  The float32 exact rows at d = 40 / 80 stand beside the
+    template's packed exact entry (``core_ms``) and are launched twice
+    (``relaunch_bit_identical``)."""
     cases = [(8, 4096, 4096, 320, torch.bfloat16, False, 8),   # controlled call, 2 images
              (4, 1024, 1024, 640, torch.bfloat16, False, 8),
              (2, 4096, 4096, 320, torch.float32, False, 8),
@@ -754,10 +770,19 @@ def _flash_packed_cases(g, rows, failures):
             bound_ms, by = bound(q.element_size() * b * hd * 2 * (sq + sk),
                                  (4 * b * sq * sk * hd, dtype))
             split = lambda t: t.reshape(b, -1, heads, hd // heads).transpose(1, 2)  # noqa: E731
+            extra = {}
+            if exact and suffix == "_f32":
+                # the float32 kernel's exact mode beside the template's packed
+                # exact entry, launched twice
+                extra = {"core_ms": _template_ms("hedit_flash_attention_fwd_packed", q, k, v,
+                                                 heads),
+                         "relaunch_bit_identical": _relaunch_same(
+                             lambda: (wrapper(q, k, v, heads),), (got,))}
             _row(rows, failures, name,
                  f"flash packed {form} q[{b}, {sq}, {hd}] sk={sk} "
                  f"{str(dtype)[6:]}{' batch-strided' if strided else ''}",
-                 err <= tol and bool(torch.isfinite(got).all()) and got.is_contiguous(),
+                 err <= tol and bool(torch.isfinite(got).all()) and got.is_contiguous()
+                 and extra.get("relaunch_bit_identical", True),
                  max_abs_err=err, tol=tol, ms=cuda_ms(lambda: wrapper(q, k, v, heads)),
                  plain_ms=cuda_ms(lambda: plain(q, k, v, heads)),
                  # the library call reads the same packed tensors through strided head views
@@ -766,9 +791,11 @@ def _flash_packed_cases(g, rows, failures):
                  bound_ms=bound_ms, bound_by=by, shape=[b, sq, hd], dtype=str(dtype)[6:],
                  split_path_ms=cuda_ms(lambda: attn.merge_heads(flash.flash_attention_cuda(
                      attn.split_heads(q, heads), attn.split_heads(k, heads),
-                     attn.split_heads(v, heads)))))
+                     attn.split_heads(v, heads)))), **extra)
             print(f"  the head-split route at the same shape (3 copies + kernel 1 + merge): "
                   f"{rows[-1]['split_path_ms']:.3f} ms")
+            if extra:
+                _print_redesign(rows[-1], where)
     for shape in ([8, 4096, 320], [4, 1024, 640]):
         b_ms, e_ms = (next(r["ms"] for r in rows if r["name"] == n and r["shape"] == shape
                            and r["dtype"] == "bfloat16")
@@ -844,11 +871,11 @@ def _check_refusals(kind, cases, failures):
 
 
 def _f32_refusals(g, failures):
-    """The float32 kernels' wrappers (bounded head-split and packed, LSE; at
-    d = 512 also exact) raise, and launch nothing, on a pointer that is not
-    16-byte aligned, a batch stride that is not a multiple of 4 and an
-    anchor window beyond the head dim's (512 keys at d = 40 / 80, 1024 at
-    512); they never hand such an input to the template or a plain
+    """The float32 kernels' wrappers (bounded head-split and packed, LSE,
+    exact head-split and packed) raise, and launch nothing, on a pointer
+    that is not 16-byte aligned, a batch stride that is not a multiple of 4
+    and an anchor window beyond the head dim's (512 keys at d = 40 / 80,
+    1024 at 512); they never hand such an input to the template or a plain
     version."""
     buf = torch.randn(2 * 1024 * 320 + 8, generator=g, device="cuda")
     misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)              # 4 bytes off
@@ -859,8 +886,13 @@ def _f32_refusals(g, failures):
               (misaligned,) * 3 + (8,)),
              ("misaligned pointer, head-split", flash.flash_attention_cuda, (head,) * 3),
              ("misaligned pointer, LSE", flash.flash_attention_lse_cuda, (head,) * 3),
+             ("misaligned pointer, exact", flash.flash_attention_exact_cuda, (head,) * 3),
+             ("misaligned pointer, packed exact", flash.flash_attention_packed_cuda,
+              (misaligned,) * 3 + (8,)),
              ("batch stride not a multiple of 4, packed",
               flash.flash_attention_packed_bounded_cuda, (odd,) * 3 + (8,)),
+             ("batch stride not a multiple of 4, packed exact", flash.flash_attention_packed_cuda,
+              (odd,) * 3 + (8,)),
              ("a 600-key anchor window, packed", flash.flash_attention_packed_bounded_cuda,
               (dense,) * 3 + (8, 600)))
     _check_refusals("float32 kernel", cases, failures)
@@ -1764,7 +1796,8 @@ def phase_probes(rows):
         print(f"probe {name} launches: {json.dumps(counts[name])}")
     # rows 8 (exp, noprolog), 9 d, 10 and 11: bf16 chains and loops on the
     # tensor cores, float32 ones on the template, never the other; row 8
-    # dots and rows 9 a-c on the template in both
+    # dots and rows 9 a-c on the template in both; row 6, the v4 probe's
+    # base, on the tensor cores or the float32 kernel, never the template
     tc = tuple(f"flash_{lay}" for lay in fp._LAYOUTS)
     core = tuple(f"{n}_core" for n in tc)
     ablate_tc = tuple(f"flash_ablate_{m}" for m in fp.ABLATE_TC_MODES)
@@ -1777,8 +1810,10 @@ def phase_probes(rows):
                                                                          40))[0],), tc),
             ("flash_v4_variants", ("flash_exp2_t", "flash_attention_exact"),
              ("flash_exp2_t_core",)),
-            ("flash_v4_variants_f32", ("flash_exp2_t_core", "flash_attention_exact_core"),
-             ("flash_exp2_t",)),
+            ("flash_v4_variants_f32",
+             ("flash_exp2_t_core",
+              "flash_attention_exact" + _route(flash.exact_entry(torch.float32, False, 40))[0]),
+             ("flash_exp2_t", "flash_attention_exact_core")),
             ("flash_ablate", ablate_tc + ("flash_ablate_dots",), ablate_core),
             ("flash_ablate_f32", ablate_core + ("flash_ablate_dots",), ablate_tc),
             ("flash_variants", variants + ("flash_variant_d",), ("flash_variant_d_core",)),
@@ -2135,8 +2170,9 @@ def phase_exact_path():
     """Kernels 6 and 7's own path: no editing path of either package runs
     the exact forwards, so each is driven as JAX's callers drive its twin,
     once at each of their shapes (bf16 on the tensor cores, float32 on the
-    CUDA-core template), and once in float32 at the VAE's d = 512 (the
-    float32 d = 512 kernel), the counts at 0 before and read after; each output
+    float32 kernel's exact mode), and once in float32 at the VAE's d = 512
+    (the float32 d = 512 kernel), the counts at 0 before and read after,
+    the template's at 0 too; each output
     checked finite and within tolerance of its plain version at the kernel's
     key tile (``flash_attention_exact_reference`` and its packed twin,
     before their final rounding: bf16 one output ulp, float32 1e-4)."""
@@ -2173,9 +2209,11 @@ def phase_exact_path():
           f"{[list(s) for s in EXACT_PACKED_F32_512_SHAPES]}): launches "
           f"{json.dumps(counts)} {'OK' if not failures else 'FAIL'}")
     expected = {"flash_attention_exact": len(EXACT_CALLER_SHAPES),
-                "flash_attention_exact_core": len(EXACT_F32_CALLER_SHAPES),
+                "flash_attention_exact_core": 0,
                 "flash_packed": len(EXACT_PACKED_BF16_SHAPES),
-                "flash_packed_core": len(EXACT_PACKED_CALLER_SHAPES),
+                "flash_packed_core": 0,
+                "flash_attention_exact_f32": len(EXACT_F32_CALLER_SHAPES),
+                "flash_packed_f32": len(EXACT_PACKED_CALLER_SHAPES),
                 "flash_attention_exact_f32_512": len(EXACT_F32_512_SHAPES),
                 "flash_packed_f32_512": len(EXACT_PACKED_F32_512_SHAPES)}
     if {n: counts[n] for n in EXACT_NAMES} != expected:
@@ -2734,8 +2772,7 @@ def main(argv=None) -> int:
     f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_f32_512.cu"
     bwd_f32_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32.cu"
     bwd_f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32_512.cu"
-    fwd_cu, probes_cu = ("hedit_tpu_torch/csrc/flash_attention.cu",
-                         "hedit_tpu_torch/csrc/flash_probes.cu")
+    probes_cu = "hedit_tpu_torch/csrc/flash_probes.cu"
     variants_cu, mm_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
                           "hedit_tpu_torch/csrc/mm_probe.cu")
     gn_cu = "hedit_tpu_torch/csrc/group_norm.cu"
@@ -2758,9 +2795,9 @@ def main(argv=None) -> int:
               vae_4096=at_shape("flash_bwd_f32_512", VAE_SHAPE),
               ragged=at_shape("flash_bwd_f32_512", (1, 1, 1000, 512))),
         entry("flash_attention_exact", tc_route, tc_cu, f"{jax_flash}:60", "exact_forward"),
-        entry("flash_attention_exact_core", "cuda", fwd_cu, f"{jax_flash}:60", "exact_forward"),
+        entry("flash_attention_exact_f32", "cuda", f32_cu, f"{jax_flash}:60", "exact_forward"),
         entry("flash_packed", tc_route, tc_cu, f"{jax_flash}:340", "exact_forward"),
-        entry("flash_packed_core", "cuda", fwd_cu, f"{jax_flash}:340", "exact_forward"),
+        entry("flash_packed_f32", "cuda", f32_cu, f"{jax_flash}:340", "exact_forward"),
         entry("flash_packed_bounded", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
         entry("flash_attention_f32_512", "cuda", f32_512_cu, f"{jax_flash}:220", "golden_f32",
               vae_4096=at_shape("flash_attention_f32_512", VAE_SHAPE)),

@@ -53,6 +53,10 @@ ARGTYPES = {
     "hedit_flash_attention_fwd_f32": [_P] * 4 + [_I] * 6 + [_P],
     "hedit_flash_attention_fwd_packed_bounded_f32": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
     "hedit_flash_attention_fwd_lse_f32": [_P] * 5 + [_I] * 6 + [_P],
+    # the exact entries (head-split and packed) in float32 at d = 40 / 80, the
+    # same file, the same arguments
+    "hedit_flash_attention_fwd_exact_f32": [_P] * 4 + [_I] * 5 + [_P],
+    "hedit_flash_attention_fwd_packed_exact_f32": [_P] * 4 + [_I] * 5 + [_L] * 3 + [_I, _P],
     # the bounded, LSE and exact entries (head-split and packed) in float32 at
     # d = 512 (flash_attention_f32_512.cu), the same arguments
     "hedit_flash_attention_fwd_f32_512": [_P] * 4 + [_I] * 6 + [_P],

@@ -1,15 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores (float32
 // FMAs): softmax(q k^T / sqrt(d)) v, optionally with the per-query base-2
 // log-sum-exp as a second output, in one of two softmax modes chosen at
-// compile time (Mode below).  It serves float32 inputs of rows 6 and 7 at
-// d = 40 and 80; float32 rows 1 and 3 at d = 40 and 80 run
-// flash_attention_f32.cu, float32 rows 1, 3, 6 and 7 at the VAE's d = 512
+// compile time (Mode below).  The port's first forward; no wrapper reaches
+// it any more.  Float32 rows 1, 3, 6 and 7 at d = 40 and 80 run
+// flash_attention_f32.cu (its exact mode since rows 6 and 7 left this
+// template), float32 rows 1, 3, 6 and 7 at the VAE's d = 512
 // flash_attention_f32_512.cu, bf16 inputs of every row the tensor-core
 // kernel of flash_attention_tc.cu (the wrappers dispatch by dtype and head
-// dim).  The bounded mode (bf16, and float32 at d = 512) and the float32
-// exact mode at d = 512 stay for side-by-side timings only (chip_smoke.py
-// and the tile probes launch them by their entry points; no wrapper does);
-// the exact mode takes float32 only.
+// dim).  Every instance stays for side-by-side timings only (chip_smoke.py
+// and the tile probes launch them by their entry points); the exact mode
+// takes float32 only.
 //
 // Bounded (max-free) computes the function of the TPU kernels of
 // hedit_tpu/ops/flash_attention.py
@@ -32,15 +32,17 @@
 // that the bounded form saturates such keys at 2^100 as the TPU kernel does.
 //
 // Exact (running max m and rescale of the accumulator and the row sum l)
-// replaces, in float32 at d = 40 and 80 (the template's only dtype in this
-// mode; at d = 512 flash_attention_f32_512.cu),
+// computes, in float32 (the template's only dtype in this mode), the
+// function of
 //   row 6: _flash_kernel (wrapper flash_attention, JAX's public exact
 //          forward, on no editing path of either package); entry point
-//          hedit_flash_attention_fwd_exact, wrapper flash_attention_exact_cuda;
+//          hedit_flash_attention_fwd_exact;
 //   row 7: _flash_packed_kernel (wrapper flash_attention_packed, on no path
-//          of either package); entry point hedit_flash_attention_fwd_packed,
-//          wrapper flash_attention_packed_cuda.
-// (bf16 rows 6 and 7: the exact mode of flash_attention_tc.cu.)
+//          of either package); entry point hedit_flash_attention_fwd_packed;
+// reached by no wrapper: flash_attention_exact_cuda and
+// flash_attention_packed_cuda take the exact mode of flash_attention_f32.cu
+// at d = 40 / 80, of flash_attention_f32_512.cu at 512, and of
+// flash_attention_tc.cu in bf16.
 // The running max is taken over each key tile of BK keys, so the plain
 // version (flash_attention_exact_reference) runs at the same key block.
 //
@@ -402,8 +404,9 @@ extern "C" int hedit_flash_attention_fwd(const void* q, const void* k,
 }
 
 // Row 3: the same forward, also writing lse2 [BH, Sq] float32 (base-2
-// log-sum-exp of the scaled scores of each query, shift + log2(sum)).  The
-// wrapper sends float32 here and bf16 to hedit_flash_attention_fwd_lse_tc.
+// log-sum-exp of the scaled scores of each query, shift + log2(sum)).  No
+// wrapper sends anything here (lse_entry names the _tc, _f32 and _f32_512
+// entries).
 extern "C" int hedit_flash_attention_fwd_lse(const void* q, const void* k,
                                              const void* v, void* out, void* lse,
                                              int bh, int sq, int sk, int d, int anchor,
@@ -413,8 +416,8 @@ extern "C" int hedit_flash_attention_fwd_lse(const void* q, const void* k,
                                 head_split(bh, sq, sk, d), sq, sk, d, anchor, dtype, stream);
 }
 
-// Row 6: the exact forward, head-split.  The wrapper sends float32 here and
-// bf16 to hedit_flash_attention_fwd_exact_tc.
+// Row 6: the exact forward, head-split, float32 only.  No wrapper sends
+// anything here (exact_entry names the _tc, _f32 and _f32_512 entries).
 extern "C" int hedit_flash_attention_fwd_exact(const void* q, const void* k,
                                                const void* v, void* out, int bh,
                                                int sq, int sk, int d, int dtype,
@@ -423,8 +426,8 @@ extern "C" int hedit_flash_attention_fwd_exact(const void* q, const void* k,
                               dtype, stream);
 }
 
-// Row 7: the exact forward on packed heads; float32 here, bf16 to
-// hedit_flash_attention_fwd_packed_exact_tc.
+// Row 7: the exact forward on packed heads, float32 only; no wrapper sends
+// anything here either.
 extern "C" int hedit_flash_attention_fwd_packed(const void* q, const void* k,
                                                 const void* v, void* out, int b,
                                                 int h, int sq, int sk, int d,

@@ -15,19 +15,20 @@ Port of ``hedit_tpu/ops/flash_attention.py``.  Four CUDA forward sources:
   over key tiles of ``exact_key_tile(D)`` and the rescale: the TPU kernels
   ``_flash_kernel`` and ``_flash_packed_kernel``, on no path of either
   package), with their bf16 roundings of q * scale and p.
-* ``csrc/flash_attention_f32.cu``: the bounded mode (with or without the
-  log-sum-exp) in **float32** at the UNet's head dims 40 and 80
+* ``csrc/flash_attention_f32.cu``: both modes (bounded with or without the
+  log-sum-exp, and exact) in **float32** at the UNet's head dims 40 and 80
   (``F32_HEAD_DIMS``), the CLIs' default precision, on the CUDA cores
-  (float32 FMAs): the anchor window's scores computed once and kept on
-  chip, as the TPU kernel keeps block 0's.
+  (float32 FMAs): the bounded mode's anchor window scored once and kept on
+  chip, as the TPU kernel keeps block 0's; the exact mode's running max
+  taken over 64-key tiles.
 * ``csrc/flash_attention_f32_512.cu``: both modes (bounded with or without
   the log-sum-exp, and exact) in **float32** at the VAE's d = 512, on the
   CUDA cores: a thread-block cluster shares a block of query rows and
   splits the keys, the anchor window's scores computed once and kept on
   chip, the CTAs' partial results combined in a fixed order.
-* ``csrc/flash_attention.cu``: one CUDA-core template (float32 FMAs) that
-  serves the exact mode for the other **float32** inputs (d = 40 / 80); its
-  float32 d = 512 instances are reached by no wrapper.
+* ``csrc/flash_attention.cu``: the first CUDA-core template (float32 FMAs),
+  reached by no wrapper: the probes and ``chip_smoke.py`` time it by its
+  entry points beside the kernels that took its place.
 
 The wrappers:
 
@@ -64,8 +65,9 @@ The wrappers:
 * ``flash_attention_exact_cuda`` (head-split) and
   ``flash_attention_packed_cuda`` (packed heads): the exact mode (bf16 on
   the tensor cores, whose operands must pass ``check_tc_operands``, float32
-  at d = 40 / 80 on the template, at d = 512 on
-  ``csrc/flash_attention_f32_512.cu``, by ``exact_entry``).
+  at d = 40 / 80 on ``csrc/flash_attention_f32.cu``, at d = 512 on
+  ``csrc/flash_attention_f32_512.cu``, whose operands must pass
+  ``check_f32_operands``, by ``exact_entry``).
 
 The two modes agree wherever no key scores more than 116 log2 units above
 its row's anchor maximum; beyond that the bounded form saturates those keys
@@ -101,9 +103,9 @@ import torch
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
 launches = 0          # bounded forward without the log-sum-exp, head-split, template (on no path)
 launches_tc = 0       # the same in bf16 on the tensor cores
-launches_exact = 0    # exact forward, head-split, CUDA-core template (float32 at d = 40 / 80)
+launches_exact = 0    # exact forward, head-split, CUDA-core template (on no path)
 launches_exact_tc = 0   # the same in bf16 on the tensor cores
-launches_packed = 0   # exact forward on packed heads, CUDA-core template (float32 at 40 / 80)
+launches_packed = 0   # exact forward on packed heads, CUDA-core template (on no path)
 launches_packed_tc = 0  # the same in bf16 on the tensor cores
 launches_packed_bounded = 0      # bounded forward on packed heads, template
 launches_packed_bounded_tc = 0   # the same in bf16 on the tensor cores
@@ -112,6 +114,8 @@ launches_lse_tc = 0   # the same in bf16 on the tensor cores
 launches_f32 = 0                  # bounded forward, head-split, float32 at d = 40 / 80
 launches_packed_bounded_f32 = 0   # the same on packed heads
 launches_lse_f32 = 0              # the same with the log-sum-exp
+launches_exact_f32 = 0            # exact forward, head-split, float32 at d = 40 / 80
+launches_packed_f32 = 0           # the same on packed heads
 launches_f32_512 = 0              # bounded forward, head-split, float32 at d = 512
 launches_packed_bounded_f32_512 = 0   # the same on packed heads
 launches_lse_f32_512 = 0          # the same with the log-sum-exp
@@ -139,8 +143,8 @@ DENOM_FLOOR = 1.2e-38
 # address a multiple of 16 bytes, every element stride a multiple of 8
 TC_ALIGN_BYTES = 16
 TC_STRIDE_MULTIPLE = 8
-# the float32 bounded kernel at the UNet's head dims (``csrc/flash_attention_f32.cu``)
-# and the fused float32 backward's; float32 at the VAE's 512 has a forward
+# the float32 forward at the UNet's head dims (``csrc/flash_attention_f32.cu``,
+# both modes) and the fused float32 backward's; float32 at the VAE's 512 has a forward
 # of its own (``csrc/flash_attention_f32_512.cu``, both modes, entry points
 # ending in ``F32_512_SUFFIX``) and a backward of its own
 # (``csrc/flash_attention_bwd_f32_512.cu``).  The float32 forwards and
@@ -231,18 +235,21 @@ def _f32_suffix(d: int) -> str:
 def exact_entry(dtype: torch.dtype, packed: bool, d: int) -> str:
     """The CUDA entry point of the exact forward for an input of ``dtype``
     and head dim ``d`` (head-split or ``packed`` heads): bfloat16 the
-    tensor-core kernel (``csrc/flash_attention_tc.cu``), float32 at 512 the
-    float32 d = 512 kernel (``csrc/flash_attention_f32_512.cu``), other
-    float32 the CUDA-core template (``csrc/flash_attention.cu``).  Raises for
-    any other dtype."""
+    tensor-core kernel (``csrc/flash_attention_tc.cu``), float32 at
+    ``F32_HEAD_DIMS`` the float32 kernel (``csrc/flash_attention_f32.cu``),
+    float32 at 512 the float32 d = 512 kernel
+    (``csrc/flash_attention_f32_512.cu``).  The CUDA-core template
+    (``csrc/flash_attention.cu``) is named for no input.  Raises for any
+    other dtype, and for float32 at a head dim neither kernel takes."""
     if dtype == torch.bfloat16:
         return ("hedit_flash_attention_fwd_packed_exact_tc" if packed
                 else "hedit_flash_attention_fwd_exact_tc")
     if dtype == torch.float32:
-        if d == 512:
-            return ("hedit_flash_attention_fwd_packed_exact" if packed
-                    else "hedit_flash_attention_fwd_exact") + F32_512_SUFFIX
-        return "hedit_flash_attention_fwd_packed" if packed else "hedit_flash_attention_fwd_exact"
+        if d not in F32_WINDOWS:
+            raise ValueError(f"the float32 exact forward takes head dims {tuple(F32_WINDOWS)}, "
+                             f"got {d}")
+        return ("hedit_flash_attention_fwd_packed_exact" if packed
+                else "hedit_flash_attention_fwd_exact") + _f32_suffix(d)
     raise ValueError(f"the exact forward takes float32 or bfloat16, got {dtype}")
 
 
@@ -360,7 +367,7 @@ def exact_key_tile(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """The exact kernels' key tile at head dim ``d`` for inputs of
     ``dtype``: the block over which their running max, and with it the
     rounding of p, is taken.  64 keys at the UNet's 40 and 80
-    (``csrc/flash_attention_tc.cu``, ``csrc/flash_attention.cu``); at the
+    (``csrc/flash_attention_tc.cu``, ``csrc/flash_attention_f32.cu``); at the
     VAE's 512, 32 on the tensor cores (bf16) and ``F32_512_KEY_TILE`` in
     float32 (``csrc/flash_attention_f32_512.cu``, over each CTA's share of
     the keys)."""
@@ -608,9 +615,10 @@ def flash_attention_exact_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     ``_flash_kernel`` of JAX's public ``flash_attention``): a CPU tensor takes
     ``flash_attention_exact_reference`` at the kernels' key tile, a CUDA
     tensor launches the kernel of ``exact_entry`` (bf16 on the tensor cores,
-    whose operands must pass ``check_tc_operands``; float32 at d = 512 the
-    float32 d = 512 kernel, ``check_f32_operands``).  Raises as
-    ``flash_attention_cuda`` does."""
+    whose operands must pass ``check_tc_operands``; float32 the float32
+    kernel at d = 40 / 80 or the float32 d = 512 kernel, whose operands must
+    pass ``check_f32_operands`` with no window).  Raises as
+    ``flash_attention_cuda`` does, before any launch, and never falls back."""
     if _on_cpu(q, k, v):
         return flash_attention_exact_reference(q, k, v)
     b, h, sq, sk, d = _check_qkv(q, k, v, HEAD_DIMS, "flash_attention_exact_cuda")
@@ -651,7 +659,9 @@ def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 heads: int) -> torch.Tensor:
     """Launch the exact forward kernel of ``exact_entry`` on packed heads
     (bf16 on the tensor cores, whose operands must pass
-    ``check_tc_operands``; float32 at d = 512 ``check_f32_operands``):
+    ``check_tc_operands``; float32 at d = 40 / 80 the float32 kernel, at
+    d = 512 the float32 d = 512 kernel, ``check_f32_operands`` with no
+    window):
     q [B, Sq, H*D], k / v [B, Sk, H*D] -> contiguous
     [B, Sq, H*D].  The batch rows of an input may lie any stride apart (a
     row slice of a larger batch is taken as it is).  Raises on any input the

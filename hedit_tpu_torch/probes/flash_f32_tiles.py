@@ -1,7 +1,9 @@
-"""The float32 forwards on the card: rows 1, 1p and 3 at d = 40 / 80, or
-(``--d512``) rows 1, 3 and 6 at the VAE's d = 512.
+"""The float32 forwards on the card: rows 1, 1p and 3 at d = 40 / 80,
+(``--exact``) rows 6 and 7 at d = 40 / 80, or (``--d512``) rows 1, 3 and 6
+at the VAE's d = 512.
 
     python -m hedit_tpu_torch.probes.flash_f32_tiles [--parent DIR]
+    python -m hedit_tpu_torch.probes.flash_f32_tiles --exact [--parent DIR]
     python -m hedit_tpu_torch.probes.flash_f32_tiles --d512 [--parent DIR]
 
 Times ``csrc/flash_attention_f32.cu`` (entry points
@@ -35,7 +37,25 @@ backward kernels' dq, dk, dv (tensor cores in bf16 at d = 40 / 80, the
 template at d = 512 in both dtypes and, by its entry points, in bf16 at
 d = 40 / 80), and the
 template's forward outputs this tree keeps (float32 exact, float32 bounded
-and LSE at d = 512, bf16 bounded LSE at d = 40 / 80).
+and LSE at d = 512, bf16 bounded LSE at d = 40 / 80), and the float32
+kernel's bounded, LSE and packed bounded outputs (``kept_identity``).
+
+``--exact``: the exact mode of ``csrc/flash_attention_f32.cu`` (entry points
+``hedit_flash_attention_fwd_exact_f32`` and ``..._packed_exact_f32``) at
+``EXACT_CASES``: row 6 head-split at [2, 8, 4096, 40], [4, 8, 1024, 80] and
+ragged [1, 8, 1000, 80] against 1064 keys, row 7 packed at [2, 4096, 8 x 40]
+and [4, 1024, 8 x 80]; each held within 1e-4 of its plain version at the key
+tile of 64 and relaunched bit for bit, timed in turns with the parent's
+template exact entries (``hedit_flash_attention_fwd_exact``,
+``..._packed``; parent, this, this, parent), beside SDPA and the bound; then
+the source built once for each of ``EXACT_VARIANTS`` (32 query rows a block,
+the register budgets, the unroll, the ablations) and timed in turns with the
+source's own, each held to the plain version where its output is meant to be
+right.  With ``--parent`` only the parent's ``flash_attention.cu`` and
+``flash_attention_f32.cu`` are built, and ``kept_identity`` holds the float32
+kernel's bounded, LSE and packed bounded outputs and the template's kept
+outputs bit for bit to the parent's; the probe exits non-zero if one
+differs or an output is beyond its tolerance.
 
 ``--d512``: ``csrc/flash_attention_f32_512.cu`` (entry points
 ``hedit_flash_attention_fwd_f32_512``, ``..._lse_f32_512`` and
@@ -88,7 +108,23 @@ VARIANTS = (("3 blocks an SM", ()), ("2 blocks an SM", ("F32_MINB_40=2", "F32_MI
             ("no V copies", ("F32_ABLATE=1",)), ("no exp2", ("F32_ABLATE=2",)))
 F32_FLOPS = 67e12
 PARENT_SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "flash_attention_bwd.cu",
-                  "flash_attention_bwd_tc.cu")
+                  "flash_attention_bwd_tc.cu", "flash_attention_f32.cu")
+# (row, (B, H, Sq, D), Sk): rows 6 and 7 (packed) in float32, exact
+EXACT_CASES = (("6", (2, 8, 4096, 40), 4096), ("6", (4, 8, 1024, 80), 1024),
+               ("6", (1, 8, 1000, 80), 1064), ("7", (2, 8, 4096, 40), 4096),
+               ("7", (4, 8, 1024, 80), 1024))
+# (label, -D defines) of the exact mode: the source's own first; the ablations
+# (no V copies, no exp2) give wrong outputs and are timed only
+EXACT_VARIANTS = (("64 rows a block (8 x 4 scores a thread), 2 blocks an SM", ()),
+                  ("32 rows a block (4 x 4 scores), 3 blocks an SM",
+                   ("F32_EXACT_ROWS=32", "F32_EXACT_MINB_40=3", "F32_EXACT_MINB_80=3")),
+                  ("64 rows a block, 1 block an SM",
+                   ("F32_EXACT_MINB_40=1", "F32_EXACT_MINB_80=1")),
+                  ("32 rows, 4 blocks an SM",
+                   ("F32_EXACT_ROWS=32", "F32_EXACT_MINB_40=4", "F32_EXACT_MINB_80=4")),
+                  ("inner loops unrolled once", ("F32_UNROLL=1",)),
+                  ("no V copies", ("F32_ABLATE=1",)), ("no exp2", ("F32_ABLATE=2",)))
+EXACT_PARENT_SOURCES = ("flash_attention.cu", "flash_attention_f32.cu")
 D512_SOURCE = _build.CSRC / "flash_attention_f32_512.cu"
 # (row, Sq = Sk): rows 1, 3 and 6 at the 256 px decode's and the 512 px
 # decode's VAE attention, one head of d = 512
@@ -243,15 +279,21 @@ def _bwd_outputs(lib, tc, q, k, v, do, lse2, delta):
 
 
 def kept_identity(mine, parent) -> bool:
-    """The backward kernels' outputs and the template's kept forward
-    outputs of this tree and the parent on the same inputs, bit for bit."""
+    """The outputs this tree keeps from the parent, on the same inputs, bit
+    for bit, each where ``parent`` holds its source: the backward kernels
+    (tensor cores and template), the template's kept forward outputs, and the
+    float32 kernel's bounded, LSE and packed bounded outputs at d = 40 / 80."""
     same = True
-    for shape, sk, dtype, tc in (((1, 8, 1024, 40), 1024, torch.bfloat16, True),
-                                 ((1, 8, 1000, 80), 1064, torch.bfloat16, True),
-                                 ((1, 8, 1024, 40), 1024, torch.bfloat16, False),
-                                 ((1, 8, 1000, 80), 1064, torch.bfloat16, False),
-                                 ((1, 1, 2048, 512), 2048, torch.float32, False),
-                                 ((1, 1, 2048, 512), 2048, torch.bfloat16, False)):
+    bwd_cases = (((1, 8, 1024, 40), 1024, torch.bfloat16, True),
+                 ((1, 8, 1000, 80), 1064, torch.bfloat16, True),
+                 ((1, 8, 1024, 40), 1024, torch.bfloat16, False),
+                 ((1, 8, 1000, 80), 1064, torch.bfloat16, False),
+                 ((1, 1, 2048, 512), 2048, torch.float32, False),
+                 ((1, 1, 2048, 512), 2048, torch.bfloat16, False))
+    for shape, sk, dtype, tc in bwd_cases:
+        lib = "flash_attention_bwd_tc.cu" if tc else "flash_attention_bwd.cu"
+        if lib not in parent:
+            continue
         b, h, sq, d = shape
         q, k, v = _inputs(b, h, sq, sk, d, False, seed=sq + d, dtype=dtype)
         do = torch.randn(shape, device="cuda").to(dtype)
@@ -259,43 +301,140 @@ def kept_identity(mine, parent) -> bool:
         delta = (do.float() * out.float()).sum(dim=-1)
         lse2 = lse2.contiguous()
         equal = _same(_bwd_outputs(mine, tc, q, k, v, do, lse2, delta),
-                      _bwd_outputs(parent["flash_attention_bwd_tc.cu" if tc
-                                          else "flash_attention_bwd.cu"],
-                                   tc, q, k, v, do, lse2, delta))
+                      _bwd_outputs(parent[lib], tc, q, k, v, do, lse2, delta))
         same &= equal
         print(f"identity backward ({'tensor cores' if tc else 'template'}) q{list(shape)} "
               f"sk={sk} {str(dtype)[6:]}: "
               f"{'bit-identical to the parent' if equal else 'DIFFERS from the parent'}")
-    template = parent["flash_attention.cu"]
-    for entry, (b, h, sq, sk, d), packed, lse, dtype in (
-            ("hedit_flash_attention_fwd_exact", (2, 8, 1024, 1024, 40), False, False,
-             torch.float32),
-            ("hedit_flash_attention_fwd_exact", (1, 1, 1000, 1100, 512), False, False,
-             torch.float32),
-            ("hedit_flash_attention_fwd_packed", (2, 8, 1000, 1064, 80), True, False,
-             torch.float32),
-            ("hedit_flash_attention_fwd", (1, 1, 1024, 1024, 512), False, False, torch.float32),
-            ("hedit_flash_attention_fwd_lse", (1, 1, 1000, 1100, 512), False, True,
-             torch.float32),
-            ("hedit_flash_attention_fwd_packed_bounded", (1, 2, 1024, 1024, 512), True, False,
-             torch.float32),
-            ("hedit_flash_attention_fwd_lse", (1, 8, 1024, 1024, 40), False, True,
-             torch.bfloat16),
-            ("hedit_flash_attention_fwd_lse", (1, 8, 1000, 1064, 80), False, True,
-             torch.bfloat16)):
+    forwards = [("flash_attention.cu", *case) for case in (
+        ("hedit_flash_attention_fwd_exact", (2, 8, 1024, 1024, 40), False, False, torch.float32),
+        ("hedit_flash_attention_fwd_exact", (1, 1, 1000, 1100, 512), False, False,
+         torch.float32),
+        ("hedit_flash_attention_fwd_packed", (2, 8, 1000, 1064, 80), True, False, torch.float32),
+        ("hedit_flash_attention_fwd", (1, 1, 1024, 1024, 512), False, False, torch.float32),
+        ("hedit_flash_attention_fwd_lse", (1, 1, 1000, 1100, 512), False, True, torch.float32),
+        ("hedit_flash_attention_fwd_packed_bounded", (1, 2, 1024, 1024, 512), True, False,
+         torch.float32),
+        ("hedit_flash_attention_fwd_lse", (1, 8, 1024, 1024, 40), False, True, torch.bfloat16),
+        ("hedit_flash_attention_fwd_lse", (1, 8, 1000, 1064, 80), False, True, torch.bfloat16))]
+    forwards += [("flash_attention_f32.cu", *case) for case in (
+        ("hedit_flash_attention_fwd_f32", (2, 8, 1024, 1024, 40), False, False, torch.float32),
+        ("hedit_flash_attention_fwd_f32", (1, 8, 1000, 1064, 80), False, False, torch.float32),
+        ("hedit_flash_attention_fwd_lse_f32", (1, 8, 1000, 1064, 80), False, True,
+         torch.float32),
+        ("hedit_flash_attention_fwd_lse_f32", (1, 8, 4096, 4096, 40), False, True,
+         torch.float32),
+        ("hedit_flash_attention_fwd_packed_bounded_f32", (2, 8, 1024, 1024, 80), True, False,
+         torch.float32),
+        ("hedit_flash_attention_fwd_packed_bounded_f32", (2, 8, 1000, 1064, 40), True, False,
+         torch.float32))]
+    for source, entry, (b, h, sq, sk, d), packed, lse, dtype in forwards:
+        if source not in parent:
+            continue
         q, k, v = _inputs(b, h, sq, sk, d, packed, seed=sq + sk, dtype=dtype)
         heads = h if packed else None
         outs = []
-        for lib in (mine, template):
+        for lib in (mine, parent[source]):
             call, got = _forward(lib, entry, q, k, v, heads, lse)
             call()
             outs.append(got)
         torch.cuda.synchronize()
         equal = _same(*outs)
         same &= equal
-        print(f"identity template {entry} q{list(q.shape)} sk={sk} {str(dtype)[6:]}: "
+        print(f"identity {source} {entry} q{list(q.shape)} sk={sk} {str(dtype)[6:]}: "
               f"{'bit-identical to the parent' if equal else 'DIFFERS from the parent'}")
     return same
+
+
+def exact_timings(mine, parent, variants):
+    """Each of ``EXACT_CASES``: the float32 kernel's exact mode held to its
+    plain version and relaunched, in turns with the parent's template exact
+    entry (where given), beside SDPA and the bound; then ``EXACT_VARIANTS``
+    in turns, each held to the plain version unless it is an ablation.  One
+    record a case."""
+    records = []
+    for row, (b, h, sq, d), sk in EXACT_CASES:
+        packed = row == "7"
+        entry = flash.exact_entry(torch.float32, packed, d)
+        template = ("hedit_flash_attention_fwd_packed" if packed
+                    else "hedit_flash_attention_fwd_exact")
+        q, k, v = _inputs(b, h, sq, sk, d, packed)
+        heads = h if packed else None
+        want = (flash.flash_attention_packed_exact_reference(q, k, v, h) if packed
+                else flash.flash_attention_exact_reference(q, k, v))
+        call, outs = _forward(mine, entry, q, k, v, heads)
+        call()
+        torch.cuda.synchronize()
+        got = outs[0].clone()
+        call()
+        torch.cuda.synchronize()
+        relaunch_same = torch.equal(got, outs[0])
+        err = (got - want).abs().max().item()
+        turns = [("kernel", call)]
+        if parent is not None:
+            core, _ = _forward(parent, template, q, k, v, heads)
+            turns = [("parent template", core), *turns, *turns, ("parent template", core)]
+        ms = [best_ms(fn) for _, fn in turns]
+        views = [_split(t, h) for t in (q, k, v)] if packed else (q, k, v)
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(*views))
+        bound_ms = 4 * b * h * sq * sk * d / F32_FLOPS * 1e3
+        kernel_ms = min(t for (who, _), t in zip(turns, ms) if who == "kernel")
+        var_calls = [_forward(lib, entry, q, k, v, heads) for lib in variants]
+        var_errs = []
+        for (label, defines), (fn, var_outs) in zip(EXACT_VARIANTS, var_calls):
+            fn()
+            torch.cuda.synchronize()
+            ablation = any(x.startswith("F32_ABLATE") for x in defines)
+            var_errs.append(None if ablation else (var_outs[0] - want).abs().max().item())
+        order = [*range(len(variants)), 0]
+        var_ms = [best_ms(var_calls[i][0]) for i in order]
+        shape = list(q.shape)
+        print(f"row {row} {shape} sk={sk} f32 exact: "
+              + ", ".join(f"{who} {t:.4f}" for (who, _), t in zip(turns, ms))
+              + f" ms; SDPA {sdpa:.4f} ms, kernel / SDPA {kernel_ms / sdpa:.3f}; bound "
+              f"{bound_ms:.4f} ms ({bound_ms / kernel_ms:.1%}); out err {err:.3e} (tol 1e-4); "
+              f"relaunched {'bit-identical' if relaunch_same else 'DIFFERENT'}; variants "
+              + ", ".join(f"{EXACT_VARIANTS[i][0]} {t:.4f} ms ({bound_ms / t:.1%})"
+                          for i, t in zip(order, var_ms))
+              + "; variant errors " + ", ".join("ablation" if e is None else f"{e:.2e}"
+                                                for e in var_errs))
+        records.append({"row": row, "shape": shape, "sk": sk,
+                        "turns": [[w, t] for (w, _), t in zip(turns, ms)], "sdpa_ms": sdpa,
+                        "bound_ms": bound_ms, "err": err, "relaunch_bit_identical": relaunch_same,
+                        "variant_errs": var_errs,
+                        "variants_ms": [[EXACT_VARIANTS[i][0], t] for i, t in zip(order, var_ms)]})
+        del q, k, v, outs, turns, var_calls
+        torch.cuda.empty_cache()
+    return records
+
+
+def exact_main(parent_dir) -> int:
+    """``--exact``: the builds, the timings, the identities."""
+    builds = [(SOURCE, f"exact_variant{i}", _build.CSRC, defines)
+              for i, (_, defines) in enumerate(EXACT_VARIANTS)]
+    if parent_dir is not None:
+        csrc = parent_dir / "hedit_tpu_torch" / "csrc"
+        builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in EXACT_PARENT_SOURCES]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
+                            builds))
+    for (source, name, *_), (_, info) in zip(builds, built):
+        print(f"ptxas, {name} ({source.name}): {info}")
+    mine = _build.cuda_library()
+    n = len(EXACT_VARIANTS)
+    parent = dict(zip(EXACT_PARENT_SOURCES, (lib for lib, _ in built[n:])))
+    records = exact_timings(mine, parent.get("flash_attention.cu"), [lib for lib, _ in built[:n]])
+    print(json.dumps({"flash_f32_tiles_exact": records}))
+    bad = [r for r in records
+           if not (r["err"] <= 1e-4 and r["relaunch_bit_identical"]
+                   and all(e is None or e <= 1e-4 for e in r["variant_errs"]))]
+    if bad:
+        print(f"FAILED: outputs beyond their tolerance or not bit-identical when relaunched: {bad}")
+        return 1
+    if parent_dir is not None and not kept_identity(mine, parent):
+        print("FAILED: an output this tree keeps differs from the parent's")
+        return 1
+    return 0
 
 
 def _d512_entries(row):
@@ -397,6 +536,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
     ap.add_argument("--d512", action="store_true",
                     help="rows 1, 3 and 6 in float32 at d = 512 (flash_attention_f32_512.cu)")
+    ap.add_argument("--exact", action="store_true",
+                    help="rows 6 and 7 in float32 at d = 40 / 80, the exact mode of "
+                         "flash_attention_f32.cu")
     args = ap.parse_args(argv)
     require_cuda("flash_f32_tiles")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -405,6 +547,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip())
     if args.d512:
         return d512_main(args.parent)
+    if args.exact:
+        return exact_main(args.parent)
     builds = [(SOURCE, f"variant{i}", _build.CSRC, defines)
               for i, (_, defines) in enumerate(VARIANTS)]
     if args.parent is not None:

@@ -1,18 +1,22 @@
-"""The float32 bounded forward at d = 40 / 80 (``csrc/flash_attention_f32.cu``).
+"""The float32 forward at d = 40 / 80 (``csrc/flash_attention_f32.cu``), bounded
+and exact.
 
 This file imports no JAX, so it also runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_flash_f32.py -q
 
-On the CPU: the route (``bounded_entry``, ``lse_entry``: float32 at d = 40 /
-80 to the float32 kernel, at d = 512 to the float32 d = 512 kernel,
-``csrc/flash_attention_f32_512.cu``, bf16 to the tensor cores), the operand
-check (``check_f32_operands``), the C entry
-points against their ``ctypes`` argument types, and the kernel's order of
-work rendered in plain torch (the anchor window's key tiles scored once and
-kept, their max over keys below min(anchor, Sk), then p and PV of every
-tile) against ``flash_attention_lse_reference``.  Tests marked ``gpu`` hold
-the kernel to its plain versions on the card and skip without one.
+On the CPU: the route (``bounded_entry``, ``lse_entry``, ``exact_entry``:
+float32 at d = 40 / 80 to the float32 kernel, at d = 512 to the float32
+d = 512 kernel, ``csrc/flash_attention_f32_512.cu``, bf16 to the tensor
+cores), the operand check (``check_f32_operands``), the C entry points
+against their ``ctypes`` argument types, and the kernel's order of work
+rendered in plain torch against the plain versions: the bounded mode's
+anchor window scored once and kept, their max over keys below min(anchor,
+Sk), then p and PV of every tile, against ``flash_attention_lse_reference``;
+the exact mode's running max over 64-key tiles, the two key halves' maxima
+combined, at d = 40 two partial outputs, against
+``flash_attention_exact_reference``.  Tests marked ``gpu`` hold the kernel
+to its plain versions on the card and skip without one.
 """
 
 import math
@@ -31,29 +35,42 @@ TEMPLATE_ENTRIES = ("hedit_flash_attention_fwd", "hedit_flash_attention_fwd_pack
 TC_ENTRIES = ("hedit_flash_attention_fwd_tc", "hedit_flash_attention_fwd_packed_bounded_tc",
               "hedit_flash_attention_fwd_lse_tc")
 F32_512_ENTRIES = tuple(e + "_512" for e in F32_ENTRIES)
+# the exact entries (head-split, packed) of each route, and the template's
+F32_EXACT = ("hedit_flash_attention_fwd_exact_f32", "hedit_flash_attention_fwd_packed_exact_f32")
+TEMPLATE_EXACT = ("hedit_flash_attention_fwd_exact", "hedit_flash_attention_fwd_packed")
+TC_EXACT = ("hedit_flash_attention_fwd_exact_tc", "hedit_flash_attention_fwd_packed_exact_tc")
+F32_512_EXACT = ("hedit_flash_attention_fwd_exact_f32_512",
+                 "hedit_flash_attention_fwd_packed_exact_f32_512")
+SOURCE = _build.CSRC / "flash_attention_f32.cu"
 KEY_TILE = 64   # the kernel's key tile (kKeys)
 
 
-@pytest.mark.parametrize("dtype,d,entries", [
-    (torch.float32, 40, F32_ENTRIES), (torch.float32, 80, F32_ENTRIES),
-    (torch.float32, 512, F32_512_ENTRIES), (torch.bfloat16, 80, TC_ENTRIES),
+@pytest.mark.parametrize("dtype,d,entries,exact", [
+    (torch.float32, 40, F32_ENTRIES, F32_EXACT), (torch.float32, 80, F32_ENTRIES, F32_EXACT),
+    (torch.float32, 512, F32_512_ENTRIES, F32_512_EXACT),
+    (torch.bfloat16, 80, TC_ENTRIES, TC_EXACT),
 ])
-def test_bounded_route_by_dtype_and_head_dim(dtype, d, entries):
-    """``bounded_entry`` (head-split, packed) and ``lse_entry`` name the
-    float32 kernel for float32 at d = 40 / 80, the float32 d = 512 kernel at
-    d = 512 and the tensor-core kernel for bf16; each entry is bound with the
-    template's argument types and defined in ``csrc``.  The float32 operand
-    check takes the paths' operands and raises on an address off 16 bytes, a
-    stride that is not a multiple of 4, a head dim without a tile and an
-    anchor window beyond the head dim's (512 keys at 40 / 80, 1024 at
-    512)."""
+def test_bounded_route_by_dtype_and_head_dim(dtype, d, entries, exact):
+    """``bounded_entry`` (head-split, packed), ``lse_entry`` and
+    ``exact_entry`` (head-split, packed) name the float32 kernel for float32
+    at d = 40 / 80, the float32 d = 512 kernel at d = 512 and the
+    tensor-core kernel for bf16, never the template; each entry is bound
+    with the template's argument types and defined once in ``csrc`` (the
+    float32 ones at d = 40 / 80 in ``csrc/flash_attention_f32.cu``).  The
+    float32 operand check takes the paths' operands and raises on an address
+    off 16 bytes, a stride that is not a multiple of 4, a head dim without a
+    tile and an anchor window beyond the head dim's (512 keys at 40 / 80,
+    1024 at 512)."""
     got = (flash_mod.bounded_entry(dtype, False, d), flash_mod.bounded_entry(dtype, True, d),
            flash_mod.lse_entry(dtype, d))
     assert got == entries
+    assert (flash_mod.exact_entry(dtype, False, d), flash_mod.exact_entry(dtype, True, d)) == exact
     sources = " ".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
-    for entry, template in zip(entries, TEMPLATE_ENTRIES):
+    for entry, template in zip(entries + exact, TEMPLATE_ENTRIES + TEMPLATE_EXACT):
         assert _build.ARGTYPES[entry] == _build.ARGTYPES[template]
-        assert re.search(rf'extern "C" int {entry}\(', sources), entry
+        assert len(re.findall(rf'extern "C" int {entry}\(', sources)) == 1, entry
+        if exact is F32_EXACT:
+            assert re.search(rf'extern "C" int {entry}\(', SOURCE.read_text()), entry
     if entries is TC_ENTRIES:
         return
     window = 1024 if d == 512 else 512
@@ -103,15 +120,55 @@ def _kernel_order(q, k, v, anchor):
     return acc / lsum, (shift + torch.log2(lsum))[..., 0]
 
 
-def test_kernel_order_of_work_matches_the_plain_version():
-    """The rendering of the kernel's order of work against
-    ``flash_attention_lse_reference`` with the same anchor: the default
-    anchor at 1024 keys, an anchor that ends inside a key tile (the keys
-    after it in that tile take the kept scores' p but not the max), Sk below
-    the anchor, below one key tile and ragged, and the saturating input
-    (keys far above the anchor window clamp to 2^100).  Both sides are
-    float32 and differ only in summation order: 1e-5 of the largest output
-    and of lse2."""
+def _kernel_order_exact(q, k, v):
+    """The exact mode's order of work in plain float32 torch, [BH, S, D]
+    inputs: 64-key tiles in order; a tile's scores, -inf for keys at or past
+    Sk; each row's max over the tile's two key halves (keys 0-31 and 32-63,
+    the two warps of a row), combined; m_new = max(m, that), alpha =
+    exp2(m - m_new) rescaling the two halves' partial row sums and the
+    accumulators; p = exp2(s - m_new) summed into its half's row sum and,
+    at d = 80, multiplied into one accumulator over all 64 keys, at d = 40
+    into one partial output a key half, the two added at the end; out = acc
+    / (sum of half 0 + sum of half 1), no floor."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    qs = q * torch.tensor(1.0 / d ** 0.5 * math.log2(math.e), dtype=torch.float32)
+    nt = -(-sk // KEY_TILE)
+    pad = nt * KEY_TILE - sk
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    halves = (slice(0, KEY_TILE // 2), slice(KEY_TILE // 2, KEY_TILE))
+    m = torch.full((bh, sq, 1), -math.inf)
+    lsum = [torch.zeros(bh, sq, 1) for _ in halves]
+    acc = [torch.zeros(bh, sq, d) for _ in halves[:2 if d == 40 else 1]]
+    for i in range(nt):
+        s = qs @ kp[:, i * KEY_TILE:(i + 1) * KEY_TILE].transpose(1, 2)
+        s[..., torch.arange(i * KEY_TILE, (i + 1) * KEY_TILE) >= sk] = -math.inf
+        m_new = torch.maximum(m, torch.maximum(*(s[..., h].amax(dim=-1, keepdim=True)
+                                                 for h in halves)))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        lsum = [ls * alpha + p[..., h].sum(dim=-1, keepdim=True) for ls, h in zip(lsum, halves)]
+        vt = vp[:, i * KEY_TILE:(i + 1) * KEY_TILE]
+        if d == 40:
+            acc = [a * alpha + p[..., h] @ vt[:, h] for a, h in zip(acc, halves)]
+        else:
+            acc = [acc[0] * alpha + p @ vt]
+        m = m_new
+    return sum(acc[1:], acc[0]) / (lsum[0] + lsum[1])
+
+
+@pytest.mark.parametrize("mode", ["bounded", "exact"])
+def test_kernel_order_of_work_matches_the_plain_version(mode):
+    """The rendering of the kernel's order of work in each mode against its
+    plain version.  Bounded: ``flash_attention_lse_reference`` with the same
+    anchor: the default anchor at 1024 keys, an anchor that ends inside a key
+    tile (the keys after it in that tile take the kept scores' p but not the
+    max), Sk below the anchor, below one key tile and ragged, and the
+    saturating input (keys far above the anchor window clamp to 2^100).
+    Exact: ``flash_attention_exact_reference`` at the kernel's key tile of
+    64 on the same inputs (the anchor unused; on the saturating input one key
+    takes all the weight).  Both sides are float32 and differ only in
+    summation order: 1e-5 of the largest output and of lse2."""
     g = torch.Generator().manual_seed(7)
     cases = [(4, 256, 1024, 40, 512), (2, 100, 1024, 80, 100), (2, 70, 300, 40, 300),
              (2, 33, 40, 80, 128), (1, 65, 1064, 80, 512), (2, 64, 200, 40, 130)]
@@ -121,6 +178,12 @@ def test_kernel_order_of_work_matches_the_plain_version():
             q, k = q * 0.1, k * 0.5
             q[..., 0] = 8.0
             k[:, 150, 0] = 80.0
+        if mode == "exact":
+            assert flash_mod.exact_key_tile(d, torch.float32) == KEY_TILE
+            want = flash_mod.flash_attention_exact_reference(q[None], k[None], v[None], KEY_TILE)
+            torch.testing.assert_close(_kernel_order_exact(q, k, v), want[0], rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
+            continue
         out, lse2 = _kernel_order(q, k, v, anchor)
         want, want_lse = flash_mod.flash_attention_lse_reference(q[None], k[None], v[None],
                                                                   anchor)
@@ -143,9 +206,12 @@ def cuda():
 
 
 def _counts():
+    """The float32 kernel's counters (bounded 0-2, exact 6-7) and the
+    template's (3-5, 8-9)."""
     return (flash_mod.launches_f32, flash_mod.launches_packed_bounded_f32,
             flash_mod.launches_lse_f32, flash_mod.launches, flash_mod.launches_packed_bounded,
-            flash_mod.launches_lse)
+            flash_mod.launches_lse, flash_mod.launches_exact_f32, flash_mod.launches_packed_f32,
+            flash_mod.launches_exact, flash_mod.launches_packed)
 
 
 def _saturating(device, bh=8, s=1024, d=40):
@@ -220,6 +286,51 @@ def _check_packed(q, k, v):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80])
+def test_f32_exact_kernel_matches_plain_on_card(cuda, d):
+    """The exact mode, head-split against ``flash_attention_exact_reference``
+    and packed against ``flash_attention_packed_exact_reference``, both at
+    the kernel's key tile of 64: within 1e-4, a second launch bit-identical,
+    one launch of ``launches_exact_f32`` / ``launches_packed_f32`` each and
+    none of the template's counters.  Cases: the UNet's shapes ([4, 8, 1024,
+    80] and packed [4, 1024, 8 x 80]; [2, 8, 4096, 40] and [2, 4096, 8 x 40]
+    at d = 40), ragged Sq != Sk (1000 / 1064), Sq above Sk (300 / 140), Sk
+    below one key tile (77 / 40), the saturating input at d = 40, and a
+    packed row slice of a larger batch."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    s = 1024 if d == 80 else 4096
+    for (b, h, sq), sk in (((4 if d == 80 else 2, 8, s), s), ((1, 8, 1000), 1064),
+                           ((2, 3, 300), 140), ((2, 2, 77), 40)):
+        q = torch.randn(b, h, sq, d, generator=g, device=cuda)
+        k, v = (torch.randn(b, h, sk, d, generator=g, device=cuda) for _ in range(2))
+        _check_exact(lambda: flash_mod.flash_attention_exact_cuda(q, k, v),
+                     flash_mod.flash_attention_exact_reference(q, k, v), 6)
+    if d == 40:
+        q, k, v = _saturating(cuda)
+        _check_exact(lambda: flash_mod.flash_attention_exact_cuda(q, k, v),
+                     flash_mod.flash_attention_exact_reference(q, k, v), 6)
+    for rows, (sq, sk), sliced in ((4 if d == 80 else 2, (s, s), False),
+                                   (2, (1000, 1064), False), (2, (1024, 1024), True)):
+        qkv = [torch.randn(rows, 3, n, 8 * d, generator=g, device=cuda) for n in (sq, sk, sk)]
+        qp, kp, vp = ((t[:, 1] if sliced else t[:, 0].contiguous()) for t in qkv)
+        _check_exact(lambda: flash_mod.flash_attention_packed_cuda(qp, kp, vp, 8),
+                     flash_mod.flash_attention_packed_exact_reference(qp, kp, vp, 8), 7)
+
+
+def _check_exact(call, want, counter):
+    """One launch of ``call`` moves only counter ``counter`` of ``_counts``;
+    its output is within 1e-4 of ``want`` and a second launch gives the same
+    bits."""
+    before = _counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + (i == counter) for i, c in enumerate(before))
+    assert got.shape == want.shape and got.is_contiguous() and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
+    assert torch.equal(call(), got)
+
+
+@pytest.mark.gpu
 def test_f32_kernel_is_deterministic_on_card(cuda):
     """Two launches give the same bits: sums run in a fixed order, no
     atomics (head-split with lse2, packed)."""
@@ -236,8 +347,8 @@ def test_f32_kernel_is_deterministic_on_card(cuda):
 def test_f32_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     """A pointer off 16 bytes, a batch stride that is not a multiple of 4 and
     an anchor window beyond 512 keys are refused before any launch, with no
-    fallback to the template or the plain version; the entry points refuse
-    the same."""
+    fallback to the template or the plain version, by the bounded and the
+    exact wrappers; the entry points refuse the same."""
     buf = torch.randn(2 * 1024 * 320 + 8, device=cuda)
     misaligned = buf[1:1 + 1024 * 320].view(1, 1024, 320)           # 4 bytes off
     odd = buf.as_strided((2, 1024, 320), (1024 * 320 + 2, 320, 1))   # batch stride 327,682
@@ -252,14 +363,27 @@ def test_f32_wrappers_refuse_what_the_kernel_does_not_take(cuda):
                         (lambda: flash_mod.flash_attention_packed_bounded_cuda(odd, odd, odd, 8),
                          "multiples of 4"),
                         (lambda: flash_mod.flash_attention_packed_bounded_cuda(
-                            dense, dense, dense, 8, anchor=600), "anchor keys")):
+                            dense, dense, dense, 8, anchor=600), "anchor keys"),
+                        (lambda: flash_mod.flash_attention_exact_cuda(head, head, head),
+                         "aligned"),
+                        (lambda: flash_mod.flash_attention_packed_cuda(
+                            misaligned, misaligned, misaligned, 8), "aligned"),
+                        (lambda: flash_mod.flash_attention_packed_cuda(odd, odd, odd, 8),
+                         "multiples of 4")):
         with pytest.raises(ValueError, match=match):
             call()
     torch.cuda.synchronize()
     assert _counts() == before
     out = torch.empty_like(dense)
-    for ints in ((1, 8, 1024, 1024, 40, 600, *(1024 * 320,) * 3),      # window 600
-                 (2, 8, 1024, 1024, 40, 512, 1024 * 320 + 2, *(1024 * 320,) * 2)):
+    for entry, ints in (
+            ("hedit_flash_attention_fwd_packed_bounded_f32",
+             (1, 8, 1024, 1024, 40, 600, *(1024 * 320,) * 3)),                 # window 600
+            ("hedit_flash_attention_fwd_packed_bounded_f32",
+             (2, 8, 1024, 1024, 40, 512, 1024 * 320 + 2, *(1024 * 320,) * 2)),
+            ("hedit_flash_attention_fwd_packed_exact_f32",
+             (2, 8, 1024, 1024, 40, 1024 * 320 + 2, *(1024 * 320,) * 2))):
         with pytest.raises(RuntimeError, match="code -1"):
-            flash_mod._launch("hedit_flash_attention_fwd_packed_bounded_f32", dense,
-                              (dense, dense, dense, out), ints)
+            flash_mod._launch(entry, dense, (dense, dense, dense, out), ints)
+    with pytest.raises(RuntimeError, match="code -1"):
+        flash_mod._launch("hedit_flash_attention_fwd_exact_f32", dense,
+                          (head, dense, dense, out), (1, 1024, 1024, 40))

@@ -100,7 +100,7 @@ def test_f32_512_routes_entries_and_operand_check():
     assert flash_mod.exact_entry(torch.bfloat16, True, 512) == (
         "hedit_flash_attention_fwd_packed_exact_tc")
     assert flash_mod.lse_entry(f32, 80) == "hedit_flash_attention_fwd_lse_f32"
-    assert flash_mod.exact_entry(f32, False, 80) == "hedit_flash_attention_fwd_exact"
+    assert flash_mod.exact_entry(f32, False, 80) == "hedit_flash_attention_fwd_exact_f32"
     assert flash_mod.F32_512_KEY_TILE == KEYS
     assert flash_mod.exact_key_tile(512, f32) == KEYS
     assert flash_mod.exact_key_tile(512, torch.bfloat16) == 32

@@ -170,7 +170,7 @@ def test_wrappers_on_cpu_launch_nothing():
     names = ("launches", "launches_tc", "launches_packed_bounded", "launches_packed_bounded_tc",
              "launches_exact", "launches_exact_tc", "launches_packed", "launches_packed_tc",
              "launches_f32_512", "launches_packed_bounded_f32_512", "launches_exact_f32_512",
-             "launches_packed_f32_512")
+             "launches_packed_f32_512", "launches_exact_f32", "launches_packed_f32")
     counts = [getattr(flash_mod, n) for n in names]
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn(1, 1100, 2 * 40).to(dtype)

@@ -59,22 +59,14 @@ def _plain_on_card(fn, *ts):
     return fn(*ts, out_dtype=torch.float32)
 
 
-def _bounded_suffix(dtype, d):
-    """The counter suffix of the bounded forward's route (``bounded_entry``):
-    bf16 the tensor cores, float32 at d = 40 / 80 the float32 kernel,
-    float32 at d = 512 the float32 d = 512 kernel."""
+def _route_suffix(dtype, d):
+    """The counter suffix of the bounded and the exact forward's route
+    (``bounded_entry``, ``exact_entry``): bf16 the tensor cores, float32 at
+    d = 40 / 80 the float32 kernel, float32 at d = 512 the float32 d = 512
+    kernel."""
     if dtype == torch.bfloat16:
         return "_tc"
     return "_f32" if d in flash_mod.F32_HEAD_DIMS else flash_mod.F32_512_SUFFIX
-
-
-def _exact_suffix(dtype, d):
-    """The counter suffix of the exact forward's route (``exact_entry``):
-    bf16 the tensor cores, float32 at d = 512 the float32 d = 512 kernel,
-    float32 at d = 40 / 80 the CUDA-core template."""
-    if dtype == torch.bfloat16:
-        return "_tc"
-    return flash_mod.F32_512_SUFFIX if d == 512 else ""
 
 
 def _tol(dtype, want):
@@ -110,15 +102,15 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, shape):
     anchor, and the exact kernel (kernel 6) against
     ``flash_attention_exact_reference`` at the kernel's key tile (tolerances
     of ``_tol``); each bf16 on the tensor cores, float32 on the CUDA cores
-    (the bounded one at d = 40 / 80 on the float32 kernel; the counters say
-    which ran; float32 at d = 512 both on the float32 d = 512 kernel)."""
+    (both at d = 40 / 80 on the float32 kernel, at d = 512 on the float32
+    d = 512 kernel; the counters say which ran)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
     for wrapper, plain, counter in (
             (flash_mod.flash_attention_cuda, flash_attention_bounded_reference,
-             "launches" + _bounded_suffix(dtype, shape[3])),
+             "launches" + _route_suffix(dtype, shape[3])),
             (flash_mod.flash_attention_exact_cuda, flash_attention_exact_reference,
-             "launches_exact" + _exact_suffix(dtype, shape[3]))):
+             "launches_exact" + _route_suffix(dtype, shape[3]))):
         before = getattr(flash_mod, counter)
         got = wrapper(q, k, v)
         torch.cuda.synchronize()
@@ -134,12 +126,12 @@ def test_bounded_kernels_saturate_as_their_plain_versions_on_card(cuda, dtype):
     (forward and LSE forward) match the bounded plain versions, the exact
     kernel matches its plain version (exact attention with the kernel's
     roundings), and the two forms differ by far more than the tolerance.
-    bf16 runs every one on the tensor cores, float32 on the CUDA cores (the
-    bounded ones on the float32 kernel)."""
+    bf16 runs every one on the tensor cores, float32 on the CUDA cores (all
+    three on the float32 kernel)."""
     q, k, v = _saturating(cuda, dtype)
     assert bounded_anchor(1024, 40) == 512
-    tc, bounded = "_tc" if dtype == torch.bfloat16 else "", _bounded_suffix(dtype, 40)
-    names = ("launches" + bounded, "launches_lse" + bounded, "launches_exact" + tc)
+    suffix = _route_suffix(dtype, 40)
+    names = ("launches" + suffix, "launches_lse" + suffix, "launches_exact" + suffix)
     before = [getattr(flash_mod, n) for n in names]
     bounded = flash_mod.flash_attention_cuda(q, k, v).float()
     out, lse2 = flash_mod.flash_attention_lse_cuda(q, k, v)
@@ -533,7 +525,8 @@ def _launch_counts():
             flash_mod.launches_packed_bounded_f32, flash_mod.launches_lse_f32,
             flash_mod.launches_f32_512, flash_mod.launches_packed_bounded_f32_512,
             flash_mod.launches_lse_f32_512, flash_mod.launches_exact_f32_512,
-            flash_mod.launches_packed_f32_512)
+            flash_mod.launches_packed_f32_512, flash_mod.launches_exact_f32,
+            flash_mod.launches_packed_f32)
 
 
 def test_packed_wrapper_takes_plain_version_on_cpu():
@@ -559,12 +552,12 @@ def test_packed_wrapper_takes_plain_version_on_cpu():
                                              (1, 1, 1000, 1100, 512)])
 def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
     """The exact packed-head kernel (bf16 on the tensor cores, float32 on
-    the CUDA cores, at d = 512 on the float32 d = 512 kernel: the counters
-    say which ran) against its plain version
-    (``flash_attention_packed_exact_reference`` at the kernel's key tile,
-    output before its final rounding), ragged and Sq != Sk included, the
-    VAE's width, contiguous and as a row slice of a larger batch (a batch
-    stride, no copy).  Tolerances as the head-split forward's: float32 1e-4,
+    the CUDA cores, at d = 40 / 80 on the float32 kernel and at d = 512 on
+    the float32 d = 512 kernel: the counters say which ran) against its
+    plain version (``flash_attention_packed_exact_reference`` at the
+    kernel's key tile, output before its final rounding), ragged and Sq !=
+    Sk included, the VAE's width, contiguous and as a row slice of a larger
+    batch (a batch stride, no copy).  Tolerances as the head-split forward's: float32 1e-4,
     bfloat16 one output ulp at the largest output."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(b, 3, sq, heads * d, generator=g, device=cuda).to(dtype)
@@ -575,7 +568,7 @@ def test_packed_kernel_matches_plain_on_card(cuda, dtype, b, heads, sq, sk, d):
         before = _launch_counts()
         got = flash_mod.flash_attention_packed_cuda(qs, ks, vs, heads)
         torch.cuda.synchronize()
-        moved = 9 if dtype == torch.bfloat16 else 17 if d == 512 else 1
+        moved = 9 if dtype == torch.bfloat16 else 17 if d == 512 else 19
         assert _launch_counts() == tuple(c + (i == moved) for i, c in enumerate(before))
         assert got.shape == qs.shape and got.is_contiguous()
         want = flash_attention_packed_exact_reference(qs, ks, vs, heads,
