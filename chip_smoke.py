@@ -77,15 +77,19 @@ the final result line:
    bounded loop (the ``dots`` one held element by element to its
    conditioning, the rows it excuses counted), the exact float32 forward in
    its three layouts and with a bf16 PV product, and the nudged-matmul loop
-   in its nine cases
-   (all-ones outputs held bit for bit; no library call computes it, 64
-   torch.matmul calls timed for information), each against its plain
+   in its nine cases and a ragged one a layout (bf16 on the tensor cores,
+   ``csrc/mm_probe_tc.cu``, K split over blocks where its output tiles are
+   few; float32 on the CUDA-core kernel, ``csrc/mm_probe.cu``; all-ones
+   outputs held bit for bit, relaunches bit-identical; the library call one
+   ``torch.mm`` of the nudged A's side by side along K, 64 torch.matmul
+   calls timed for information), each against its plain
    version at its probe's shapes; then the probes' own entry points
    (``hedit_tpu_torch.probes.flash_nhd_variants``, ``...flash_v4_variants``,
    ``...flash_ablate``, ``...flash_variants``, ``...mm_probe``), each driven
    once with the counts at 0 before and read after, ``flash_nhd_variants``
    and ``flash_v4_variants`` also in float32 (the template's instances of
-   rows 10 and 11; row 6, the v4 probe's base, on the float32 kernel);
+   rows 10 and 11; row 6, the v4 probe's base, on the float32 kernel), and
+   ``mm_probe`` in float32 too (row 12's CUDA-core kernel);
 5. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
    VAE encode -> q-sampled trajectory -> 50-step h-Edit-R + P2P flagship loop
@@ -168,7 +172,8 @@ the final result line:
     6 and 7 on their own (tensor cores, the float32 kernel and the float32
     d = 512 kernel; its packed bounded entry on ``packed_bounded_f32_512``),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
-    bf16 and on the template in float32), then the result line
+    bf16 and on the template in float32, 12 on the tensor cores in bf16 and
+    on the CUDA cores in float32), then the result line
     ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing anything when no CUDA device is present.
@@ -336,7 +341,8 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "abc"},
             "flash_variant_d": (fp, "launches_variant_d_tc"),
             "flash_variant_d_core": (fp, "launches_variant_d"),
-            **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS}}
+            **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS},
+            **{f"mm_loop_{lay}_core": (mp, f"launches_{lay}_core") for lay in mp.LAYOUTS}}
 
 
 # GroupNorm calls of the bf16 pipeline's UNet and VAE, and of those the
@@ -1588,11 +1594,16 @@ def _probe_kernel_cases(g, rows, failures):
 # The cost probes' shapes (scripts/flash_ablate.py: [4, 32, 4096, 40];
 # scripts/flash_variants.py: [4 * 8, 4096, 40]), bf16, and one float32 case
 # each at a smaller batch; mm_probe.py's nine cases (hedit_tpu_torch/probes/
-# mm_probe.py:CASES) in bf16 and the first case of each layout in float32.
+# mm_probe.py:CASES) and a ragged one in each layout in bf16, and the first
+# case of each layout in float32.
 ABLATE_SHAPES = (((4, 32, 4096, 40), torch.bfloat16), ((1, 8, 4096, 40), torch.float32))
 VARIANT_SHAPES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.float32))
 # the largest share of rows the dots ablation's check may excuse
 EXCUSED_SHARE = 1e-3
+# TPU kernel 12's ragged case (M, N, K), bf16 in each layout: no contiguous
+# dim a multiple of 8 (the tensor-core kernel's element loads), K split in
+# three with a ragged last split
+MM_RAGGED = (100, 70, 37)
 
 
 def _ablate_cases(g, rows, failures):
@@ -1703,56 +1714,77 @@ def _variant_cases(g, rows, failures):
 
 
 def _mm_loop_cases(g, rows, failures):
-    """TPU kernel 12 in mm_probe.py's nine cases, bf16: on the probe's
-    all-ones input every output is exactly K * 2080, held bit for bit; on
-    seeded input within 4 sqrt(64 K) 2^-24 times the sum of the magnitudes
-    of each output's terms (float32 reordering; bf16 products are exact).
-    Then the first case of each layout in float32 on seeded input.  Timed on
-    the ones.  No single PyTorch call computes sum_i nudge_i(a) @ b in
-    float32 (``library_ms`` null); for information only, ``matmuls_ms``
-    times 64 torch.matmul calls of the pre-nudged A by B in the case's dtype
-    (bf16 products, each rounded to bf16) added into a float32 sum."""
-    from hedit_tpu_torch.probes.mm_probe import CASES, contraction
+    """TPU kernel 12 in mm_probe.py's nine cases and ``MM_RAGGED`` in each
+    layout, bf16 on the tensor cores: on the probe's all-ones input every
+    output is exactly K * 2080, held bit for bit; on seeded input within
+    4 sqrt(64 K) 2^-24 times the sum of the magnitudes of each output's
+    terms (float32 reordering; bf16 products are exact), and launched twice,
+    bit-identical.  Then the first case of each layout in float32 (the
+    CUDA-core kernel, ``..._core``), held alike.  Timed on the ones (the
+    tensor-core kernel and the library call by CUDA-graph replays: a 10-60
+    us call launched from Python takes the host's pace).  Library call: one
+    ``torch.mm`` of ``mm_library_operands`` (the nudged A's side by side
+    along K, B stacked 64 times, made outside the timing), into float32
+    (``out_dtype``) in bf16, plain in float32; for information only,
+    ``matmuls_ms`` times 64 torch.matmul calls of the pre-nudged A by B in
+    the case's dtype (bf16 products, each rounded to bf16) added into a
+    float32 sum."""
+    from hedit_tpu_torch.probes.mm_probe import CASES, contraction, library_mm
 
+    m, n, k = MM_RAGGED
+    cases = [(name, a_shape, b_shape, layout, contraction(name))
+             for name, (a_shape, b_shape, layout) in CASES.items()]
+    cases += [(f"ragged_{lay}", (k, m) if a_t else (m, k), (n, k) if b_t else (k, n), lay, k)
+              for lay, (_, a_t, b_t) in mp.LAYOUTS.items()]
     firsts = {}
-    for name, (a_shape, b_shape, layout) in CASES.items():
+    for name, a_shape, b_shape, layout, kk in cases:
         firsts.setdefault(layout, name)
-        kk = contraction(name)
         for dtype in (torch.bfloat16,) + ((torch.float32,) if firsts[layout] == name else ()):
+            tc = dtype == torch.bfloat16
             a1 = torch.ones(a_shape, dtype=dtype, device="cuda")
             b1 = torch.ones(b_shape, dtype=dtype, device="cuda")
             ones = mp.mm_loop_cuda(a1, b1, layout)
             a = torch.randn(a_shape, generator=g, device="cuda").to(dtype)
             b = torch.randn(b_shape, generator=g, device="cuda").to(dtype)
-            got, want = mp.mm_loop_cuda(a, b, layout), mp.mm_loop_reference(a, b, layout)
+            got, again = mp.mm_loop_cuda(a, b, layout), mp.mm_loop_cuda(a, b, layout)
+            want = mp.mm_loop_reference(a, b, layout)
             tol = 4 * math.sqrt(mp.REPS * kk) * 2.0 ** -24 * mp.mm_loop_magnitude(a, b, layout)
             torch.cuda.synchronize()
             exact = bool((ones == kk * mp.REPS * (mp.REPS + 1) // 2).all())
+            same = torch.equal(got, again)
             ratio = ((got - want).abs() / tol).max().item()
             am, bk = mp._canonical(a1, b1, layout)
             a_nudged = [mp.nudged(am, i).to(dtype) for i in range(mp.REPS)]
-            m, n = ones.shape
+            a_cat, b_rep = mp.mm_library_operands(a1, b1, layout)
+            library = library_mm if tc else torch.mm
+            mo, no = ones.shape
 
             def matmuls():
-                acc = torch.zeros(m, n, device="cuda")
+                acc = torch.zeros(mo, no, device="cuda")
                 for a_i in a_nudged:
                     acc += torch.matmul(a_i, bk)
                 return acc
             bound_ms, by = bound(a1.numel() * a1.element_size() + b1.numel() * b1.element_size()
-                                 + 4 * m * n, (2 * mp.REPS * m * n * kk, dtype))
-            label = f"mm_loop {name} ({layout}, K={kk}) {str(dtype)[6:]}"
+                                 + 4 * mo * no, (2 * mp.REPS * mo * no * kk, dtype))
+            timer = cuda_graph_ms if tc else cuda_ms
+            chunk, splits = mp.split_k_plan(mo, no, kk)
+            label = (f"mm_loop {name} ({layout}, K={kk}) {str(dtype)[6:]} "
+                     f"({'tensor cores, ' + str(splits) + ' splits' if tc else 'CUDA cores'})")
             print(f"{label}: all-ones output exactly K * 2080: {exact}; seeded input "
-                  f"largest err / tol {ratio:.3e}")
-            _row(rows, failures, f"mm_loop_{layout}", label, exact and ratio <= 1.0,
+                  f"largest err / tol {ratio:.3e}; relaunch bit-identical {same}")
+            _row(rows, failures, f"mm_loop_{layout}{'' if tc else '_core'}", label,
+                 exact and same and ratio <= 1.0,
                  max_abs_err=(got - want).abs().max().item(), tol=tol.max().item(),
-                 ms=cuda_ms(lambda: mp.mm_loop_cuda(a1, b1, layout)),
+                 ms=timer(lambda: mp.mm_loop_cuda(a1, b1, layout)),
                  plain_ms=cuda_ms(lambda: mp.mm_loop_reference(a1, b1, layout), reps=3),
-                 library_ms=None, matmuls_ms=cuda_ms(matmuls), bound_ms=bound_ms,
-                 bound_by=by, shape=[name, list(a_shape), list(b_shape)],
-                 resident=kk <= 128, ones_exact=exact)
+                 library_ms=timer(lambda: library(a_cat, b_rep)), matmuls_ms=cuda_ms(matmuls),
+                 bound_ms=bound_ms, bound_by=by, shape=[name, list(a_shape), list(b_shape)],
+                 ones_exact=exact, relaunch_bit_identical=same,
+                 **({"splits": splits, "chunk": chunk} if tc else {}))
             print(f"  64 torch.matmul calls added into a float32 sum (information only): "
                   f"{rows[-1]['matmuls_ms']:.3f} ms")
-            del a_nudged
+            del a_nudged, a_cat, b_rep
+        torch.cuda.empty_cache()
 
 
 def phase_probes(rows):
@@ -1786,7 +1818,8 @@ def phase_probes(rows):
                       ("flash_variants", flash_variants.run),
                       ("flash_variants_f32",
                        lambda: flash_variants.run(reps=2, dtype=torch.float32)),
-                      ("mm_probe", mm_probe.run)):
+                      ("mm_probe", mm_probe.run),
+                      ("mm_probe_f32", lambda: mm_probe.run(reps=2, dtype=torch.float32))):
         reset_launches()
         t0 = time.perf_counter()
         results = results_of[name] = run()
@@ -1803,6 +1836,9 @@ def phase_probes(rows):
     ablate_tc = tuple(f"flash_ablate_{m}" for m in fp.ABLATE_TC_MODES)
     ablate_core = tuple(f"{n}_core" for n in ablate_tc)
     variants = tuple(f"flash_variant_{v}" for v in "abc")
+    # row 12: bf16 on the tensor cores, float32 on the CUDA-core kernel
+    mm_tc = tuple(f"mm_loop_{lay}" for lay in mp.LAYOUTS)
+    mm_core = tuple(f"{n}_core" for n in mm_tc)
     for name, launched, idle in (
             ("flash_nhd_variants", tc + ("flash_packed_bounded",), core),
             ("flash_nhd_variants_f32",
@@ -1818,13 +1854,14 @@ def phase_probes(rows):
             ("flash_ablate_f32", ablate_core + ("flash_ablate_dots",), ablate_tc),
             ("flash_variants", variants + ("flash_variant_d",), ("flash_variant_d_core",)),
             ("flash_variants_f32", variants + ("flash_variant_d_core",), ("flash_variant_d",)),
-            ("mm_probe", tuple(f"mm_loop_{lay}" for lay in mp.LAYOUTS), ())):
+            ("mm_probe", mm_tc, mm_core), ("mm_probe_f32", mm_core, mm_tc)):
         seen = counts[name]
         if min(seen[n] for n in launched) <= 0 or any(seen[n] for n in idle):
             failures.append(f"{name} launched {({n: seen[n] for n in launched + idle})}: "
                             f"expected each of {launched} and none of {idle}")
-    if not all(r["exact"] for r in results_of["mm_probe"].values()):
-        failures.append(f"mm_probe: an all-ones output is not K * 2080: {results_of['mm_probe']}")
+    for name in ("mm_probe", "mm_probe_f32"):
+        if not all(r["exact"] for r in results_of[name].values()):
+            failures.append(f"{name}: an all-ones output is not K * 2080: {results_of[name]}")
     for name in ("flash_ablate", "flash_ablate_f32"):
         if not all(results_of[name][m]["finite"] for m in fp.ABLATE_MODES):
             failures.append(f"{name}: an output is not finite: {results_of[name]}")
@@ -2741,8 +2778,8 @@ def main(argv=None) -> int:
         if paths[path][name] <= 0:
             failures.append(f"{name} was not launched on the {path} path")
         return {"name": name, "route": route, "source": source, "replaces": replaces, **extra,
-                "cores": ("tensor (mma.sync, bf16)" if source in (tc_cu, bwd_tc_cu, probes_tc_cu)
-                          else "CUDA"),
+                "cores": ("tensor (mma.sync, bf16)"
+                          if source in (tc_cu, bwd_tc_cu, probes_tc_cu, mm_tc_cu) else "CUDA"),
                 "launches": paths[path][name], "path": path,
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -2751,7 +2788,7 @@ def main(argv=None) -> int:
                                            "core_ms", "matmuls_ms", "bound_7_products_ms",
                                            "dq_run_to_run", "dkv_bit_identical", "dkv_ms", "dq_ms",
                                            "relaunch_bit_identical", "lse_max_rel_err",
-                                           "max_err_over_tol", "excused_rows", "row_count", "resident",
+                                           "max_err_over_tol", "excused_rows", "row_count",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
                                            "eager_ms")
                    if k in mine[0]}}
@@ -2773,8 +2810,15 @@ def main(argv=None) -> int:
     bwd_f32_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32.cu"
     bwd_f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32_512.cu"
     probes_cu = "hedit_tpu_torch/csrc/flash_probes.cu"
-    variants_cu, mm_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
-                          "hedit_tpu_torch/csrc/mm_probe.cu")
+    variants_cu, mm_cu, mm_tc_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
+                                    "hedit_tpu_torch/csrc/mm_probe.cu",
+                                    "hedit_tpu_torch/csrc/mm_probe_tc.cu")
+
+    def mm_cases(name):
+        """Row 12's numbers in each case of kernel ``name``."""
+        return {r["shape"][0]: {key: r[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "splits")
+            if key in r} for r in rows if r["name"] == name}
     gn_cu = "hedit_tpu_torch/csrc/group_norm.cu"
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
@@ -2838,8 +2882,13 @@ def main(argv=None) -> int:
               "flash_variants"),
         entry("flash_variant_d_core", "cuda", variants_cu, "scripts/flash_variants.py:31",
               "flash_variants_f32"),
-        *(entry(f"mm_loop_{lay}", "cuda", mm_cu, "scripts/mm_probe.py:37", "mm_probe")
-          for lay in mp.LAYOUTS)]}))
+        *(entry(f"mm_loop_{lay}", "cuda", mm_tc_cu, "scripts/mm_probe.py:37", "mm_probe",
+                cases=mm_cases(f"mm_loop_{lay}"),
+                launches_count="eager calls of hedit_mm_loop_tc; a call with splits > 1 "
+                               "launches two kernels, the partials and their sum")
+          for lay in mp.LAYOUTS),
+        *(entry(f"mm_loop_{lay}_core", "cuda", mm_cu, "scripts/mm_probe.py:37", "mm_probe_f32",
+                cases=mm_cases(f"mm_loop_{lay}_core")) for lay in mp.LAYOUTS)]}))
     if failures:
         print("FAILED: " + "; ".join(failures))
         return 1

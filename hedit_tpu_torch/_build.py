@@ -103,8 +103,11 @@ ARGTYPES = {
     "hedit_flash_variant": [_P] * 4 + [_I] * 6 + [_P],
     # hedit_flash_variant in bf16 on the tensor cores (variant 1), the same arguments
     "hedit_flash_variant_tc": [_P] * 4 + [_I] * 6 + [_P],
-    # a, b, o | m, n, k, reps, layout, dtype | stream
+    # a, b, o | m, n, k, reps, layout, dtype | stream (float32, CUDA cores)
     "hedit_mm_loop": [_P] * 3 + [_I] * 6 + [_P],
+    # a, b, o, ws | m, n, k, reps, layout, bm, bn, chunk, splits, dtype | stream
+    # (bf16, tensor cores, mm_probe_tc.cu)
+    "hedit_mm_loop_tc": [_P] * 4 + [_I] * 10 + [_P],
     # x, w, b, y, partials | batch, hw, c, groups, cb, cluster, pixels, threads,
     # apply_pixels, apply_threads | eps | silu, dtype | stream
     "hedit_group_norm_nhwc": [_P] * 5 + [_I] * 10 + [_F] + [_I] * 2 + [_P],

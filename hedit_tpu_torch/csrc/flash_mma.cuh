@@ -1,5 +1,6 @@
-// Tensor-core building blocks shared by the bf16 flash kernels
-// (flash_attention_tc.cu, flash_attention_bwd_tc.cu, flash_probes_tc.cu):
+// Tensor-core building blocks shared by the bf16 kernels
+// (flash_attention_tc.cu, flash_attention_bwd_tc.cu, flash_probes_tc.cu,
+// mm_probe_tc.cu):
 // cp.async copies into shared memory, ldmatrix fragment loads and the
 // mma.sync m16n8k16 product (bf16 operands, float32 accumulators).
 //

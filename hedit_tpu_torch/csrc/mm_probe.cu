@@ -1,13 +1,12 @@
-// The matmul cost probe for Hopper (sm_90a), replacing the TPU kernel
-// scripts/mm_probe.py:_loop_kernel (entry point hedit_mm_loop, wrapper
-// ops/mm_probe.py:mm_loop_cuda):
+// The matmul cost probe in float32 on Hopper's CUDA cores (sm_90a), replacing
+// the TPU kernel scripts/mm_probe.py:_loop_kernel for float32 operands (entry
+// point hedit_mm_loop, wrapper ops/mm_probe.py:mm_loop_cuda; bf16 operands,
+// the script's own, take the tensor-core kernel of mm_probe_tc.cu):
 //
-//   o = sum_{i < reps} dot(nudge_i(A), B),  nudge_i(A) = A + i rounded to A's dtype,
+//   o = sum_{i < reps} dot(nudge_i(A), B),  nudge_i(A) = A + i,
 //
-// accumulated in float32 into a float32 [M, N] output.  The nudge is rounded
-// each rep (bf16: A + i is computed in float32 and rounded to bfloat16, as
-// `a_ref[...] + jnp.bfloat16(i)` does), so it cannot be factored out of the
-// sum.  The operands come in the script's four dimension numbers:
+// accumulated in float32 into a float32 [M, N] output.  The operands come in
+// the script's four dimension numbers:
 //
 //   layout  A        B        the script's dnums
 //   nn      [M, K]   [K, N]   (((1,), (0,)), ((), ()))
@@ -28,16 +27,13 @@
 //   the nudged A tile from the resident one and runs the FMA loop;
 // * K > 128 (the pv-like cases, K = 2048): each rep streams K in chunks of
 //   128 from device memory, nudging A on the way in.  The working set (at
-//   most 2.6 MB of operands) stays in the 50 MB L2, so the re-reads are L2
+//   most 5.2 MB of operands) stays in the 50 MB L2, so the re-reads are L2
 //   traffic.
 // Ragged edges of M and N are masked; K is any length.
 //
-// What bounds it: 2 M N K reps FLOP of float32 FMAs.  The bound a run
-// reports is that work at the bf16 tensor-core rate (the script's products
-// are bf16 x bf16 into float32); this kernel runs them on the CUDA cores at
-// most at 67 TFLOP/s, so it measures no tensor-core K padding (mma / wgmma
-// take K in steps of 16; that question waits for the tensor-core kernels).
-// The pv-like cases have few output blocks (8 or 16 for 132 SMs).
+// What bounds it: 2 M N K reps FLOP of float32 FMAs, at most 67 TFLOP/s on
+// the CUDA cores.  The pv-like cases have few output blocks (8 or 16 for 132
+// SMs).
 
 #include <climits>
 
@@ -53,14 +49,9 @@ constexpr int AS = BM + 1, BS = BN + 1;    // odd strides of a_s [KC][AS], b_s [
 constexpr size_t kTileBytes = sizeof(float) * KC * AS;
 static_assert(AS == BS, "the three shared tiles have one size");
 
-template <typename T>
-__device__ __forceinline__ float nudge(float x, int rep) {
-  return to_float(from_float<T>(x + float(rep)));
-}
-
-template <typename T, bool AT, bool BT>
+template <bool AT, bool BT>
 __global__ void __launch_bounds__(kMmThreads)
-mm_loop_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ o, int m,
+mm_loop_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ o, int m,
                int n, int k, int reps) {
   extern __shared__ float smem[];
   float* a_s = smem;              // [KC][AS]: this rep's nudged A rows of the chunk
@@ -87,8 +78,8 @@ mm_loop_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restri
       }
       float x = 0.f;
       if (r < rows) {
-        x = to_float(AT ? a[size_t(k0 + kk) * m + m0 + r] : a[size_t(m0 + r) * k + k0 + kk]);
-        if (rep >= 0) x = nudge<T>(x, rep);
+        x = AT ? a[size_t(k0 + kk) * m + m0 + r] : a[size_t(m0 + r) * k + k0 + kk];
+        if (rep >= 0) x += float(rep);
       }
       dst[kk * AS + r] = x;
     }
@@ -104,8 +95,8 @@ mm_loop_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restri
         kk = e / BN;
         c = e - kk * BN;
       }
-      b_s[kk * BS + c] = c < cols ? to_float(BT ? b[size_t(n0 + c) * k + k0 + kk]
-                                               : b[size_t(k0 + kk) * n + n0 + c])
+      b_s[kk * BS + c] = c < cols ? (BT ? b[size_t(n0 + c) * k + k0 + kk]
+                                        : b[size_t(k0 + kk) * n + n0 + c])
                                   : 0.f;
     }
   };
@@ -127,7 +118,7 @@ mm_loop_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restri
       if (resident) {
         for (int e = tid; e < BM * kc; e += kMmThreads) {
           const int kk = e / BM, r = e - kk * BM;
-          a_s[kk * AS + r] = r < rows ? nudge<T>(a_raw[kk * AS + r], rep) : 0.f;
+          a_s[kk * AS + r] = r < rows ? a_raw[kk * AS + r] + float(rep) : 0.f;
         }
       } else {
         load_a(a_s, k0, kc, rep);
@@ -160,35 +151,35 @@ mm_loop_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restri
   }
 }
 
-template <typename T, bool AT, bool BT>
+template <bool AT, bool BT>
 cudaError_t launch(const void* a, const void* b, void* o, int m, int n, int k, int reps,
                    cudaStream_t stream) {
-  auto kernel = mm_loop_kernel<T, AT, BT>;
+  auto kernel = mm_loop_kernel<AT, BT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(3 * kTileBytes));
   if (err != cudaSuccess) return err;
   const size_t smem = (k <= KC ? 3 : 2) * kTileBytes;
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, kMmThreads, smem, stream>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+  kernel<<<grid, kMmThreads, smem, stream>>>(static_cast<const float*>(a),
+                                             static_cast<const float*>(b),
                                              static_cast<float*>(o), m, n, k, reps);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t by_layout(const void* a, const void* b, void* o, int m, int n, int k, int reps,
                       int layout, cudaStream_t s) {
   switch (layout) {
-    case 0: return launch<T, false, false>(a, b, o, m, n, k, reps, s);
-    case 1: return launch<T, true, false>(a, b, o, m, n, k, reps, s);
-    case 2: return launch<T, false, true>(a, b, o, m, n, k, reps, s);
-    default: return launch<T, true, true>(a, b, o, m, n, k, reps, s);
+    case 0: return launch<false, false>(a, b, o, m, n, k, reps, s);
+    case 1: return launch<true, false>(a, b, o, m, n, k, reps, s);
+    case 2: return launch<false, true>(a, b, o, m, n, k, reps, s);
+    default: return launch<true, true>(a, b, o, m, n, k, reps, s);
   }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  a, b in dtype (0 float32, 1 bfloat16),
-// o [M, N] float32; layout 0 nn, 1 tl, 2 tr, 3 tm (the table above).
+// Plain C entry point for ctypes.  a, b float32 (dtype 0; anything else is
+// refused), o [M, N] float32; layout 0 nn, 1 tl, 2 tr, 3 tm (the table above).
 // Returns 0 on success, a cudaError_t code from the launch, or -1 for
 // arguments the kernel does not take.
 extern "C" int hedit_mm_loop(const void* a, const void* b, void* o, int m, int n, int k,
@@ -196,8 +187,6 @@ extern "C" int hedit_mm_loop(const void* a, const void* b, void* o, int m, int n
   if (m < 1 || n < 1 || k < 1 || reps < 0 || layout < 0 || layout > 3) return -1;
   if ((m + BM - 1) / BM > 65535) return -1;
   if ((long long)m * k > INT_MAX || (long long)n * k > INT_MAX) return -1;
-  if (dtype != 0 && dtype != 1) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(dtype ? by_layout<__nv_bfloat16>(a, b, o, m, n, k, reps, layout, s)
-                   : by_layout<float>(a, b, o, m, n, k, reps, layout, s));
+  if (dtype != 0) return -1;
+  return int(by_layout(a, b, o, m, n, k, reps, layout, static_cast<cudaStream_t>(stream)));
 }

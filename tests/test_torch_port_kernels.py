@@ -993,15 +993,17 @@ def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, 
 @pytest.mark.parametrize("m,n,k", [(100, 70, 40), (64, 64, 300), (3, 130, 128)])
 def test_mm_loop_kernel_matches_plain_on_card(cuda, dtype, layout, m, n, k):
     """TPU kernel 12 under each dimension numbers, ragged M and N, resident
-    (K <= 128) and streamed K: all-ones inputs give exactly K * (1 + ... +
-    reps); seeded inputs agree with the plain version within 4 sqrt(reps K)
-    2^-24 times the sum of each output's term magnitudes."""
+    (K <= 128) and streamed K (float32, the CUDA-core kernel) or split K
+    (bf16, the tensor-core kernel): all-ones inputs give exactly K * (1 +
+    ... + reps); seeded inputs agree with the plain version within
+    4 sqrt(reps K) 2^-24 times the sum of each output's term magnitudes."""
     from hedit_tpu_torch.ops import mm_probe as mp
 
     reps = 5
     _, a_t, b_t = mp.LAYOUTS[layout]
     a_shape, b_shape = ((k, m) if a_t else (m, k)), ((n, k) if b_t else (k, n))
-    before = getattr(mp, f"launches_{layout}")
+    counter = f"launches_{layout}{mp.ENTRIES[dtype][1]}"
+    before = getattr(mp, counter)
     ones = mp.mm_loop_cuda(torch.ones(a_shape, dtype=dtype, device=cuda),
                            torch.ones(b_shape, dtype=dtype, device=cuda), layout, reps)
     g = torch.Generator(device="cuda").manual_seed(m + n + k)
@@ -1009,12 +1011,33 @@ def test_mm_loop_kernel_matches_plain_on_card(cuda, dtype, layout, m, n, k):
     b = torch.randn(b_shape, generator=g, device=cuda).to(dtype)
     got = mp.mm_loop_cuda(a, b, layout, reps)
     torch.cuda.synchronize()
-    assert getattr(mp, f"launches_{layout}") == before + 2
+    assert getattr(mp, counter) == before + 2
     assert ones.shape == (m, n) and ones.dtype == torch.float32
     assert bool((ones == k * reps * (reps + 1) // 2).all())
     want = mp.mm_loop_reference(a, b, layout, reps)
     tol = 4 * math.sqrt(reps * k) * 2.0 ** -24 * mp.mm_loop_magnitude(a, b, layout, reps)
     assert bool(((got - want).abs() <= tol).all()), ((got - want).abs() / tol).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["nn", "tl", "tr", "tm"])
+def test_mm_loop_tc_kernel_past_256_reps_and_relaunched(cuda, layout):
+    """The tensor-core kernel of TPU kernel 12 at 300 reps (past rep 256 its
+    nudge adds in float32 and rounds, as the plain version does) and at the
+    probe's 64 on a split K against the plain version, each relaunched bit
+    for bit."""
+    from hedit_tpu_torch.ops import mm_probe as mp
+
+    _, a_t, b_t = mp.LAYOUTS[layout]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for (m, n, k), reps in (((40, 48, 96), 300), ((48, 40, 1000), 64)):
+        a = torch.randn((k, m) if a_t else (m, k), generator=g, device=cuda).to(torch.bfloat16)
+        b = torch.randn((n, k) if b_t else (k, n), generator=g, device=cuda).to(torch.bfloat16)
+        got, again = mp.mm_loop_cuda(a, b, layout, reps), mp.mm_loop_cuda(a, b, layout, reps)
+        want = mp.mm_loop_reference(a, b, layout, reps)
+        tol = 4 * math.sqrt(reps * k) * 2.0 ** -24 * mp.mm_loop_magnitude(a, b, layout, reps)
+        assert torch.equal(got, again)
+        assert bool(((got - want).abs() <= tol).all()), ((got - want).abs() / tol).max().item()
 
 
 @pytest.mark.gpu
