@@ -79,7 +79,8 @@ the final result line:
    its three layouts and with a bf16 PV product, and the nudged-matmul loop
    in its nine cases and a ragged one a layout (bf16 on the tensor cores,
    ``csrc/mm_probe_tc.cu``, K split over blocks where its output tiles are
-   few; float32 on the CUDA-core kernel, ``csrc/mm_probe.cu``; all-ones
+   few; float32 on the CUDA-core kernel, ``csrc/mm_probe.cu``, the
+   contraction split over blocks, in every case too; all-ones
    outputs held bit for bit, relaunches bit-identical; the library call one
    ``torch.mm`` of the nudged A's side by side along K, 64 torch.matmul
    calls timed for information), each against its plain
@@ -1594,15 +1595,16 @@ def _probe_kernel_cases(g, rows, failures):
 # The cost probes' shapes (scripts/flash_ablate.py: [4, 32, 4096, 40];
 # scripts/flash_variants.py: [4 * 8, 4096, 40]), bf16, and one float32 case
 # each at a smaller batch; mm_probe.py's nine cases (hedit_tpu_torch/probes/
-# mm_probe.py:CASES) and a ragged one in each layout in bf16, and the first
-# case of each layout in float32.
+# mm_probe.py:CASES) and a ragged one in each layout, in bf16 and float32.
 ABLATE_SHAPES = (((4, 32, 4096, 40), torch.bfloat16), ((1, 8, 4096, 40), torch.float32))
 VARIANT_SHAPES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.float32))
 # the largest share of rows the dots ablation's check may excuse
 EXCUSED_SHARE = 1e-3
-# TPU kernel 12's ragged case (M, N, K), bf16 in each layout: no contiguous
-# dim a multiple of 8 (the tensor-core kernel's element loads), K split in
-# three with a ragged last split
+# TPU kernel 12's ragged case (M, N, K) in each layout and dtype: no
+# contiguous dim a multiple of 8 (the tensor-core kernel's element loads), N
+# not one of 4 (the CUDA-core kernel's element loads of B and stores), K
+# split in three with a ragged last split (in float32 the reps in 64 ranges
+# too)
 MM_RAGGED = (100, 70, 37)
 
 
@@ -1715,31 +1717,24 @@ def _variant_cases(g, rows, failures):
 
 def _mm_loop_cases(g, rows, failures):
     """TPU kernel 12 in mm_probe.py's nine cases and ``MM_RAGGED`` in each
-    layout, bf16 on the tensor cores: on the probe's all-ones input every
-    output is exactly K * 2080, held bit for bit; on seeded input within
-    4 sqrt(64 K) 2^-24 times the sum of the magnitudes of each output's
-    terms (float32 reordering; bf16 products are exact), and launched twice,
-    bit-identical.  Then the first case of each layout in float32 (the
-    CUDA-core kernel, ``..._core``), held alike.  Timed on the ones (the
-    tensor-core kernel and the library call by CUDA-graph replays: a 10-60
-    us call launched from Python takes the host's pace).  Library call: one
-    ``torch.mm`` of ``mm_library_operands`` (the nudged A's side by side
-    along K, B stacked 64 times, made outside the timing), into float32
-    (``out_dtype``) in bf16, plain in float32; for information only,
-    ``matmuls_ms`` times 64 torch.matmul calls of the pre-nudged A by B in
-    the case's dtype (bf16 products, each rounded to bf16) added into a
-    float32 sum."""
-    from hedit_tpu_torch.probes.mm_probe import CASES, contraction, library_mm
+    layout, in bf16 on the tensor cores and in float32 on the CUDA cores
+    (``..._core``): on the probe's all-ones input every output is exactly
+    K * 2080, held bit for bit; on seeded input within 4 sqrt(64 K) 2^-24
+    times the sum of the magnitudes of each output's terms (float32
+    reordering; bf16 products are exact), and launched twice,
+    bit-identical.  Each row prints its plan (bf16: K splits; float32:
+    ``core_plan``'s tile and slices).  Timed on the ones, the kernel and the
+    library call by CUDA-graph replays (a 10-100 us call launched from
+    Python takes the host's pace).  Library call: one ``torch.mm`` of
+    ``mm_library_operands`` (the nudged A's side by side along K, B stacked
+    64 times, made outside the timing) into float32 (``library_mm``); for
+    information only, ``matmuls_ms`` times 64 torch.matmul calls of the
+    pre-nudged A by B in the case's dtype (bf16 products, each rounded to
+    bf16) added into a float32 sum."""
+    from hedit_tpu_torch.probes.mm_probe import library_mm, seeded_cases
 
-    m, n, k = MM_RAGGED
-    cases = [(name, a_shape, b_shape, layout, contraction(name))
-             for name, (a_shape, b_shape, layout) in CASES.items()]
-    cases += [(f"ragged_{lay}", (k, m) if a_t else (m, k), (n, k) if b_t else (k, n), lay, k)
-              for lay, (_, a_t, b_t) in mp.LAYOUTS.items()]
-    firsts = {}
-    for name, a_shape, b_shape, layout, kk in cases:
-        firsts.setdefault(layout, name)
-        for dtype in (torch.bfloat16,) + ((torch.float32,) if firsts[layout] == name else ()):
+    for name, a_shape, b_shape, layout, kk in seeded_cases(MM_RAGGED):
+        for dtype in (torch.bfloat16, torch.float32):
             tc = dtype == torch.bfloat16
             a1 = torch.ones(a_shape, dtype=dtype, device="cuda")
             b1 = torch.ones(b_shape, dtype=dtype, device="cuda")
@@ -1756,7 +1751,6 @@ def _mm_loop_cases(g, rows, failures):
             am, bk = mp._canonical(a1, b1, layout)
             a_nudged = [mp.nudged(am, i).to(dtype) for i in range(mp.REPS)]
             a_cat, b_rep = mp.mm_library_operands(a1, b1, layout)
-            library = library_mm if tc else torch.mm
             mo, no = ones.shape
 
             def matmuls():
@@ -1766,21 +1760,28 @@ def _mm_loop_cases(g, rows, failures):
                 return acc
             bound_ms, by = bound(a1.numel() * a1.element_size() + b1.numel() * b1.element_size()
                                  + 4 * mo * no, (2 * mp.REPS * mo * no * kk, dtype))
-            timer = cuda_graph_ms if tc else cuda_ms
-            chunk, splits = mp.split_k_plan(mo, no, kk)
-            label = (f"mm_loop {name} ({layout}, K={kk}) {str(dtype)[6:]} "
-                     f"({'tensor cores, ' + str(splits) + ' splits' if tc else 'CUDA cores'})")
+            if tc:
+                chunk, splits = mp.split_k_plan(mo, no, kk)
+                plan = {"splits": splits, "chunk": chunk}
+                where = f"tensor cores, {splits} splits"
+            else:
+                core = mp.core_plan(mo, no, kk)
+                plan = {"splits": core.slices, "tile": list(core.tile), "chunk": core.chunk,
+                        "rsplits": core.rsplits}
+                where = (f"CUDA cores, tile {core.tile[0]}x{core.tile[1]}, {core.slices} slices: "
+                         f"{core.ksplits} K chunks of {core.chunk} x {core.rsplits} rep ranges")
+            label = f"mm_loop {name} ({layout}, K={kk}) {str(dtype)[6:]} ({where})"
             print(f"{label}: all-ones output exactly K * 2080: {exact}; seeded input "
                   f"largest err / tol {ratio:.3e}; relaunch bit-identical {same}")
             _row(rows, failures, f"mm_loop_{layout}{'' if tc else '_core'}", label,
                  exact and same and ratio <= 1.0,
                  max_abs_err=(got - want).abs().max().item(), tol=tol.max().item(),
-                 ms=timer(lambda: mp.mm_loop_cuda(a1, b1, layout)),
+                 ms=cuda_graph_ms(lambda: mp.mm_loop_cuda(a1, b1, layout)),
                  plain_ms=cuda_ms(lambda: mp.mm_loop_reference(a1, b1, layout), reps=3),
-                 library_ms=timer(lambda: library(a_cat, b_rep)), matmuls_ms=cuda_ms(matmuls),
-                 bound_ms=bound_ms, bound_by=by, shape=[name, list(a_shape), list(b_shape)],
-                 ones_exact=exact, relaunch_bit_identical=same,
-                 **({"splits": splits, "chunk": chunk} if tc else {}))
+                 library_ms=cuda_graph_ms(lambda: library_mm(a_cat, b_rep)),
+                 matmuls_ms=cuda_ms(matmuls), bound_ms=bound_ms, bound_by=by,
+                 shape=[name, list(a_shape), list(b_shape)], ones_exact=exact,
+                 relaunch_bit_identical=same, **plan)
             print(f"  64 torch.matmul calls added into a float32 sum (information only): "
                   f"{rows[-1]['matmuls_ms']:.3f} ms")
             del a_nudged, a_cat, b_rep
@@ -2817,7 +2818,7 @@ def main(argv=None) -> int:
     def mm_cases(name):
         """Row 12's numbers in each case of kernel ``name``."""
         return {r["shape"][0]: {key: r[key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "splits")
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "splits", "tile")
             if key in r} for r in rows if r["name"] == name}
     gn_cu = "hedit_tpu_torch/csrc/group_norm.cu"
     jax_flash = "hedit_tpu/ops/flash_attention.py"
@@ -2888,7 +2889,10 @@ def main(argv=None) -> int:
                                "launches two kernels, the partials and their sum")
           for lay in mp.LAYOUTS),
         *(entry(f"mm_loop_{lay}_core", "cuda", mm_cu, "scripts/mm_probe.py:37", "mm_probe_f32",
-                cases=mm_cases(f"mm_loop_{lay}_core")) for lay in mp.LAYOUTS)]}))
+                cases=mm_cases(f"mm_loop_{lay}_core"),
+                launches_count="eager calls of hedit_mm_loop; a call with more than one slice "
+                               "launches two kernels, the partials and their sum")
+          for lay in mp.LAYOUTS)]}))
     if failures:
         print("FAILED: " + "; ".join(failures))
         return 1

@@ -103,8 +103,9 @@ ARGTYPES = {
     "hedit_flash_variant": [_P] * 4 + [_I] * 6 + [_P],
     # hedit_flash_variant in bf16 on the tensor cores (variant 1), the same arguments
     "hedit_flash_variant_tc": [_P] * 4 + [_I] * 6 + [_P],
-    # a, b, o | m, n, k, reps, layout, dtype | stream (float32, CUDA cores)
-    "hedit_mm_loop": [_P] * 3 + [_I] * 6 + [_P],
+    # a, b, o, ws | m, n, k, reps, layout, rm, rn, tx, ty, kt, chunk, ksplits,
+    # rchunk, rsplits, dtype | stream (float32, CUDA cores)
+    "hedit_mm_loop": [_P] * 4 + [_I] * 15 + [_P],
     # a, b, o, ws | m, n, k, reps, layout, bm, bn, chunk, splits, dtype | stream
     # (bf16, tensor cores, mm_probe_tc.cu)
     "hedit_mm_loop_tc": [_P] * 4 + [_I] * 10 + [_P],

@@ -40,8 +40,8 @@
 //   fewer than the card's 132 SMs (the pv cases: 8 or 16 tiles), K is split
 //   into chunks that are multiples of 16, one block a tile and a chunk, each
 //   writing its float32 partial to a workspace [splits, M, N]; a second
-//   kernel sums the partials in split order (no atomics: a relaunch is bit
-//   for bit the same).
+//   kernel (mm_split_sum.cuh, shared with mm_probe.cu) sums the partials in
+//   split order (no atomics: a relaunch is bit for bit the same).
 // On the probe's all-ones input every partial and every sum is an integer
 // below 2^24, so the outputs are exact whatever the order.
 
@@ -49,6 +49,7 @@
 #include <cstdint>
 
 #include "flash_mma.cuh"
+#include "mm_split_sum.cuh"
 
 namespace {
 
@@ -63,7 +64,6 @@ constexpr int PAD = 8;           // bf16 padding at the end of each shared row
 constexpr int TILE_ELEMS = KC * (TILE_COLS + PAD) > TILE_COLS * (KC + PAD)
                                ? KC * (TILE_COLS + PAD) : TILE_COLS * (KC + PAD);
 constexpr unsigned kOnePair = 0x3f803f80u;  // bf16 1.0 in both halves
-constexpr int kSumThreads = 256;
 
 // rows [r0, r0 + nr) and columns [c0, c0 + nc) of a row-major global matrix
 // (row length ld) into dst (row stride ds); elements at rows >= rlim or
@@ -217,18 +217,6 @@ mm_loop_tc_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, float*
   }
 }
 
-// o[e] = sum over s of ws[s][e], in split order
-__global__ void __launch_bounds__(kSumThreads)
-mm_split_sum_kernel(const float* __restrict__ ws, float* __restrict__ o, size_t count,
-                    int splits) {
-  for (size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x; e < count;
-       e += size_t(gridDim.x) * blockDim.x) {
-    float s = ws[e];
-    for (int z = 1; z < splits; ++z) s += ws[size_t(z) * count + e];
-    o[e] = s;
-  }
-}
-
 template <bool AT, bool BT, int WN>
 cudaError_t launch(const bf16* a, const bf16* b, float* o, int m, int n, int k, int reps,
                    int bm, int chunk, int splits, bool a_vec, bool b_vec, cudaStream_t s) {
@@ -284,9 +272,6 @@ extern "C" int hedit_mm_loop_tc(const void* a, const void* b, void* o, void* ws,
       ? by_layout<5>(ab, bb, dst, m, n, k, reps, layout, bm, chunk, splits, a_vec, b_vec, s)
       : by_layout<8>(ab, bb, dst, m, n, k, reps, layout, bm, chunk, splits, a_vec, b_vec, s);
   if (err != cudaSuccess || splits == 1) return int(err);
-  const size_t count = size_t(m) * n;
-  const size_t blocks = (count + kSumThreads - 1) / kSumThreads;
-  mm_split_sum_kernel<<<unsigned(blocks < 4096 ? blocks : 4096), kSumThreads, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(o), count, splits);
-  return int(cudaGetLastError());
+  return int(launch_split_sum(static_cast<const float*>(ws), static_cast<float*>(o),
+                              size_t(m) * n, splits, s));
 }

@@ -15,12 +15,13 @@ not factor out of the sum.
 A CPU tensor takes the plain version (``mm_loop_reference``).  A CUDA tensor
 launches a kernel or raises: bf16 (the script's dtype) the tensor-core kernel
 of ``csrc/mm_probe_tc.cu`` (K split over blocks by ``split_k_plan``), float32
-the CUDA-core kernel of ``csrc/mm_probe.cu`` (``ENTRIES``).
+the CUDA-core kernel of ``csrc/mm_probe.cu`` (the contraction split over
+blocks by ``core_plan``; ``ENTRIES``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,10 +44,14 @@ LAYOUTS = {"nn": (0, False, False), "tl": (1, True, False), "tr": (2, False, Tru
            "tm": (3, True, True)}
 # the entry point of each dtype, and the suffix of its launch counters
 ENTRIES = {torch.bfloat16: ("hedit_mm_loop_tc", ""), torch.float32: ("hedit_mm_loop", "_core")}
-# the card's SMs: the tensor-core kernel splits K where its output tiles are
-# fewer, aiming at two blocks an SM
+# the card's SMs: both kernels split the contraction where their output
+# tiles are fewer, aiming at two blocks an SM
 SMS = 132
 MMA_K = 16   # mma.sync's K step: every split but K's ragged end is a multiple
+# the CUDA-core kernel: K rows of its shared tiles at a time, and the
+# shortest K chunk it splits K into
+CORE_KT = 32
+CORE_MIN_CHUNK = 16
 
 
 def _cdiv(x: int, y: int) -> int:
@@ -71,6 +76,99 @@ def split_k_plan(m: int, n: int, k: int) -> Tuple[int, int]:
     want = 1 if tiles >= SMS else _cdiv(2 * SMS, tiles)
     chunk = MMA_K * _cdiv(_cdiv(k, want), MMA_K)
     return chunk, _cdiv(k, chunk)
+
+
+class CorePlan(NamedTuple):
+    """The CUDA-core kernel's plan, the entry point's arguments in order: a
+    thread owns ``rm`` x ``rn`` outputs, a block ``tx`` x ``ty`` threads (a
+    tile of ``tile``), its shared tiles ``kt`` rows of K deep; the
+    contraction, reps x K terms an output, is cut into ``slices``: K chunks
+    of ``chunk`` rows (``ksplits`` of them) times rep ranges of ``rchunk``
+    (``rsplits``); slice s is chunk s // rsplits and rep range s % rsplits,
+    one block a tile and a slice."""
+    rm: int
+    rn: int
+    tx: int
+    ty: int
+    kt: int
+    chunk: int
+    ksplits: int
+    rchunk: int
+    rsplits: int
+
+    @property
+    def tile(self) -> Tuple[int, int]:
+        return self.ty * self.rm, self.tx * self.rn
+
+    @property
+    def slices(self) -> int:
+        return self.ksplits * self.rsplits
+
+    @property
+    def shared_bytes(self) -> int:
+        """The block's shared tiles (``csrc/mm_probe.cu``): ``kt`` rows of A
+        and of B, a thread's rows (columns) in slots rounded up to a
+        multiple of 4, each row padded by 4 floats."""
+        slots = lambda r: 4 * _cdiv(r, 4)  # noqa: E731
+        return 4 * self.kt * (self.ty * slots(self.rm) + 4 + self.tx * slots(self.rn) + 4)
+
+
+def core_tile(m: int, n: int) -> Tuple[int, int, int, int]:
+    """(rm, rn, tx, ty) of the CUDA-core kernel.  A rep costs a thread one
+    FADD a row (the nudge) beside rm x rn FMAs, so a thread takes few rows
+    and many columns: 128 x 128 tiles of 2 x 32 (4 x 64 threads); 256 x 40
+    where N <= 40 (2 x 20, 2 x 128 threads); 40 x 256 where M <= 40 (5 x 8,
+    32 x 8 threads: a 40-row tile covered whole); 40 x 40 where both are
+    (5 x 8, 5 x 8 threads)."""
+    if m <= 40:
+        return 5, 8, (5 if n <= 40 else 32), 8
+    if n <= 40:
+        return 2, 20, 2, 128
+    return 2, 32, 4, 64
+
+
+def _fill(blocks: int) -> float:
+    """The share of the card's SMs that ``blocks`` equal blocks keep busy
+    over the waves they take."""
+    return blocks / (SMS * _cdiv(blocks, SMS))
+
+
+def core_plan(m: int, n: int, k: int, reps: int = REPS) -> CorePlan:
+    """The CUDA-core kernel's plan: ``core_tile``'s tiles; K chunks of at
+    least ``CORE_MIN_CHUNK`` rows, at most two blocks an SM (2 ``SMS``
+    blocks): of the chunk counts that fill the SMs' waves within 5% of the
+    best, the most.  Where the K chunks leave the card below 90% full (K
+    short beside few tiles), the reps are cut into ranges too.  The pv
+    cases: 64 K chunks of 32 at 4 tiles, 128 of 16 at 2; the qk cases at 64
+    tiles: 4 chunks of 32 where K = 128, 2 of 20 or 24 where K = 40 or 48."""
+    rm, rn, tx, ty = core_tile(m, n)
+    tiles = _cdiv(m, ty * rm) * _cdiv(n, tx * rn)
+    want = max(1, 2 * SMS // tiles)
+    counts = {_cdiv(k, _cdiv(k, s)) for s in range(1, min(want, _cdiv(k, CORE_MIN_CHUNK)) + 1)}
+    best = max(_fill(tiles * s) for s in counts)
+    ksplits = max(s for s in counts if _fill(tiles * s) >= best - 0.05)
+    chunk = _cdiv(k, ksplits)
+    rsplits = 1
+    if reps and _fill(tiles * ksplits) < 0.9:
+        rsplits = _cdiv(reps, _cdiv(reps, max(1, min(reps, want // ksplits))))
+    rchunk = _cdiv(reps, rsplits) if reps else 1
+    return CorePlan(rm, rn, tx, ty, min(CORE_KT, chunk), chunk, ksplits, rchunk, rsplits)
+
+
+def core_partials(a: torch.Tensor, b: torch.Tensor, layout: str, plan: CorePlan,
+                  reps: int = REPS) -> torch.Tensor:
+    """The CUDA-core kernel's workspace [slices, M, N] in plain tensor code:
+    slice s is the float32 sum over its rep range of the nudged A's K chunk
+    times B's.  Summed in slice order, it is the function."""
+    am, bk = _canonical(a, b, layout)
+    bf = bk.float()
+    parts = torch.zeros((plan.slices, am.shape[0], bk.shape[1]), device=a.device)
+    for s in range(plan.slices):
+        k0 = (s // plan.rsplits) * plan.chunk
+        r0 = (s % plan.rsplits) * plan.rchunk
+        for i in range(r0, min(reps, r0 + plan.rchunk)):
+            parts[s] += torch.matmul(nudged(am[:, k0:k0 + plan.chunk], i), bf[k0:k0 + plan.chunk])
+    return parts
 
 
 def _canonical(a: torch.Tensor, b: torch.Tensor, layout: str):
@@ -156,6 +254,9 @@ def mm_loop_cuda(a: torch.Tensor, b: torch.Tensor, layout: str,
               if splits > 1 else out)
         _launch(entry, a, (a, b, out, ws), (m, n, k, reps, code, *tc_tile(m, n), chunk, splits))
     else:
-        _launch(entry, a, (a, b, out), (m, n, k, reps, code))
+        plan = core_plan(m, n, k, reps)
+        ws = (torch.empty((plan.slices, m, n), dtype=torch.float32, device=a.device)
+              if plan.slices > 1 else out)
+        _launch(entry, a, (a, b, out, ws), (m, n, k, reps, code, *plan))
     globals()[f"launches_{layout}{suffix}"] += 1
     return out

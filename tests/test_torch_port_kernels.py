@@ -992,11 +992,12 @@ def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, 
 @pytest.mark.parametrize("layout", ["nn", "tl", "tr", "tm"])
 @pytest.mark.parametrize("m,n,k", [(100, 70, 40), (64, 64, 300), (3, 130, 128)])
 def test_mm_loop_kernel_matches_plain_on_card(cuda, dtype, layout, m, n, k):
-    """TPU kernel 12 under each dimension numbers, ragged M and N, resident
-    (K <= 128) and streamed K (float32, the CUDA-core kernel) or split K
-    (bf16, the tensor-core kernel): all-ones inputs give exactly K * (1 +
-    ... + reps); seeded inputs agree with the plain version within
-    4 sqrt(reps K) 2^-24 times the sum of each output's term magnitudes."""
+    """TPU kernel 12 under each dimension numbers, ragged M and N, the
+    contraction split over blocks (float32, the CUDA-core kernel: K chunks
+    and rep ranges) or split K (bf16, the tensor-core kernel): all-ones
+    inputs give exactly K * (1 + ... + reps); seeded inputs agree with the
+    plain version within 4 sqrt(reps K) 2^-24 times the sum of each
+    output's term magnitudes."""
     from hedit_tpu_torch.ops import mm_probe as mp
 
     reps = 5
@@ -1037,6 +1038,36 @@ def test_mm_loop_tc_kernel_past_256_reps_and_relaunched(cuda, layout):
         want = mp.mm_loop_reference(a, b, layout, reps)
         tol = 4 * math.sqrt(reps * k) * 2.0 ** -24 * mp.mm_loop_magnitude(a, b, layout, reps)
         assert torch.equal(got, again)
+        assert bool(((got - want).abs() <= tol).all()), ((got - want).abs() / tol).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["nn", "tl", "tr", "tm"])
+def test_mm_loop_core_kernel_each_plan_kind_relaunched(cuda, layout):
+    """The float32 CUDA-core kernel of TPU kernel 12 at the probe's 64 reps
+    in each kind of ``core_plan``: one slice (the tiles fill the card), K
+    chunks alone, rep ranges alone, both on a ragged shape; all-ones exactly
+    K * 2080, seeded within 4 sqrt(64 K) 2^-24 sum |terms| of the plain
+    version, relaunched bit for bit."""
+    from hedit_tpu_torch.ops import mm_probe as mp
+
+    _, a_t, b_t = mp.LAYOUTS[layout]
+    g = torch.Generator(device="cuda").manual_seed(9)
+    kinds = {(2100, 2050, 24): (1, 1), (512, 128, 2048): (64, 1), (256, 256, 16): (1, 64),
+             (100, 70, 37): (3, 64)}
+    for (m, n, k), splits in kinds.items():
+        plan = mp.core_plan(m, n, k)
+        assert (plan.ksplits, plan.rsplits) == splits, plan
+        a_shape, b_shape = ((k, m) if a_t else (m, k)), ((n, k) if b_t else (k, n))
+        ones = mp.mm_loop_cuda(torch.ones(a_shape, device=cuda), torch.ones(b_shape, device=cuda),
+                               layout)
+        a = torch.randn(a_shape, generator=g, device=cuda)
+        b = torch.randn(b_shape, generator=g, device=cuda)
+        got, again = mp.mm_loop_cuda(a, b, layout), mp.mm_loop_cuda(a, b, layout)
+        want = mp.mm_loop_reference(a, b, layout)
+        tol = 4 * math.sqrt(mp.REPS * k) * 2.0 ** -24 * mp.mm_loop_magnitude(a, b, layout)
+        assert bool((ones == k * mp.REPS * (mp.REPS + 1) // 2).all()), (m, n, k)
+        assert torch.equal(got, again), (m, n, k)
         assert bool(((got - want).abs() <= tol).all()), ((got - want).abs() / tol).max().item()
 
 
