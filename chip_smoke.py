@@ -336,10 +336,13 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             **{f"flash_{lay}_core": (fp, f"launches_{lay}") for lay in fp._LAYOUTS},
             "flash_exp2_t": (fp, "launches_exp2_t_tc"),
             "flash_exp2_t_core": (fp, "launches_exp2_t"),
-            "flash_ablate_dots": (fp, "launches_ablate_dots"),
-            **{f"flash_ablate_{m}": (fp, f"launches_ablate_{m}_tc") for m in fp.ABLATE_TC_MODES},
-            **{f"flash_ablate_{m}_core": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_TC_MODES},
-            **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "abc"},
+            **{f"flash_ablate_{m}": (fp, f"launches_ablate_{m}_tc") for m in fp.ABLATE_MODES},
+            **{f"flash_ablate_{m}_core": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_MODES},
+            # dots' check-only instance: launched by the check alone, on no path
+            "flash_ablate_dots_check": (fp, "launches_ablate_dots_check_tc"),
+            **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "ab"},
+            "flash_variant_c": (fp, "launches_variant_c_tc"),
+            "flash_variant_c_f32": (fp, "launches_variant_c_f32"),
             "flash_variant_d": (fp, "launches_variant_d_tc"),
             "flash_variant_d_core": (fp, "launches_variant_d"),
             **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS},
@@ -1610,12 +1613,21 @@ MM_RAGGED = (100, 70, 37)
 
 def _ablate_cases(g, rows, failures):
     """TPU kernel 8, each mode, against its plain version, inputs drawn as
-    the probe draws them (q, k * 0.05).  exp, noprolog: bf16 (on the tensor
-    cores) within one output ulp before the final rounding, float32 (the
-    template) within 1e-4.  dots (the template): the sum of p is as often
-    negative as positive (then the floor makes the output acc * 1e30), so
-    each element is held within ``ablate_dots_tolerance`` (in bf16 the plain
-    version's scores are the kernel's bit for bit), and the rows whose sum
+    the probe draws them (q, k * 0.05); bf16 on the tensor cores, float32 on
+    the template.  exp, noprolog: bf16 within one output ulp before the
+    final rounding, float32 within 1e-4.  dots: the sum of p is as often
+    negative as positive (then the floor makes the output acc * 1e30).  In
+    bf16 it is held on the kernel's own numbers
+    (``fp.check_ablate_dots_kernel``, every image in passes of 8): (i) the
+    output bit for bit the check instance's, which also stores its float32
+    scores and row sums; (ii) every score within the tensor cores' bound
+    (``ablate_dots_score_tolerance``, three k16 steps at d = 40) of the
+    exact q . k; (iii) every row sum the kernel's order of its own rounded
+    scores, bit for bit; (iv) every output within one ulp, a float32
+    rounding and the numerator's summation bound over the kernel's sum of
+    the exact numerator over that sum.  No row is excused (the share is
+    printed and held to ``EXCUSED_SHARE``).  In float32 (the template) each
+    element is held within ``ablate_dots_tolerance``, and the rows whose sum
     lies within its reach of zero are excused and counted: at most 0.1%.
     Library call: SDPA with scale = ln 2 (softmax(s ln 2) = exp2(s) / sum:
     the exp function up to p's rounding and the layout); none computes dots."""
@@ -1627,15 +1639,35 @@ def _ablate_cases(g, rows, failures):
         bound_ms, by = bound(4 * b * h * s * d * q.element_size(), (4 * b * h * s * s * d, dtype))
         for mode in fp.ABLATE_MODES:
             got = fp.flash_ablate_t_cuda(q, k, v, mode)
-            want = (fp.flash_ablate_t_reference(q, k, v, mode) if mode == "dots" else
-                    _probe_plain(fp.flash_ablate_t_reference, (q, k, v, mode), dtype)())
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
             label = f"flash ablate {mode} q{list(shape)} {str(dtype)[6:]}"
             extra = {}
-            if mode == "dots":
-                tol, excused = fp.ablate_dots_tolerance(q, k, v, want,
-                                                        same_scores=dtype == torch.bfloat16)
+            if mode == "dots" and dtype == torch.bfloat16:
+                worst = fp.check_ablate_dots_kernel(q, k, v, got)
+                torch.cuda.synchronize()
+                share = worst["excused_rows"] / worst["row_count"]
+                ok = (worst["bit_identical"] and worst["sums_differing_rows"] == 0
+                      and worst["score_err_over_tol"] <= 1.0 and worst["out_err_over_tol"] <= 1.0
+                      and share <= EXCUSED_SHARE)
+                max_err, tol_at = worst["err_at_worst"], worst["tol_at_worst"]
+                extra = {"check_bit_identical": worst["bit_identical"],
+                         "score_err_over_tol": worst["score_err_over_tol"],
+                         "sums_differing_rows": worst["sums_differing_rows"],
+                         "max_err_over_tol": worst["out_err_over_tol"],
+                         "excused_rows": worst["excused_rows"], "row_count": worst["row_count"],
+                         "negative_sum_rows": worst["floored_rows"]}
+                print(f"{label}, on its own scores and sums: output "
+                      f"{'bit-identical to' if worst['bit_identical'] else 'DIFFERS from'} the "
+                      f"check instance's; scores err / tol {worst['score_err_over_tol']:.3f}; "
+                      f"{worst['sums_differing_rows']} row sums off the kernel's order; output "
+                      f"err / tol {worst['out_err_over_tol']:.3f}; {worst['excused_rows']} of "
+                      f"{worst['row_count']} rows excused ({100 * share:.4f}%, at most "
+                      f"{100 * EXCUSED_SHARE}%), {worst['floored_rows']} rows floored (sum of p "
+                      f"<= 1e-30); no library call computes dots")
+            elif mode == "dots":
+                want = fp.flash_ablate_t_reference(q, k, v, mode)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                tol, excused = fp.ablate_dots_tolerance(q, k, v, want)
                 ratio = torch.where(excused[:, None, :], torch.zeros_like(err), err / tol)
                 worst = int(ratio.argmax())
                 share = excused.float().mean().item()
@@ -1648,21 +1680,21 @@ def _ablate_cases(g, rows, failures):
                       f"({100 * share:.4f}%, at most {100 * EXCUSED_SHARE}%), "
                       f"{extra['negative_sum_rows']} rows floored (sum of p <= 0); largest "
                       f"err / tol {extra['max_err_over_tol']:.3f}; no library call computes dots")
-                del tol, excused, ratio
+                del tol, excused, ratio, want, err
             else:
-                max_err = err.max().item()
+                want = _probe_plain(fp.flash_ablate_t_reference, (q, k, v, mode), dtype)()
+                torch.cuda.synchronize()
+                max_err = (got.float() - want.float()).abs().max().item()
                 tol_at = (F32_TOL if dtype == torch.float32
                           else BF16_ULP * want.float().abs().max().item())
                 ok = max_err <= tol_at
-            name = "flash_ablate_dots" if mode == "dots" else _probe_name(f"flash_ablate_{mode}",
-                                                                          dtype)
-            _row(rows, failures, name, label,
+            _row(rows, failures, _probe_name(f"flash_ablate_{mode}", dtype), label,
                  ok and bool(torch.isfinite(got).all()), max_abs_err=max_err, tol=tol_at,
                  ms=cuda_ms(lambda: fp.flash_ablate_t_cuda(q, k, v, mode)),
                  plain_ms=cuda_ms(lambda: fp.flash_ablate_t_reference(q, k, v, mode), reps=3),
                  library_ms=None if mode == "dots" else lib, bound_ms=bound_ms, bound_by=by,
                  shape=list(shape), **extra)
-            del got, want, err
+            del got
             torch.cuda.empty_cache()
         del q, k, v
 
@@ -1671,7 +1703,10 @@ def _variant_cases(g, rows, failures):
     """TPU kernel 9's layouts a, b, c and a with pv_bf16 (d) against their
     plain versions (d with the kernels' 64-key blocks of the running max):
     bf16 within one output ulp (d on the tensor cores, before the final
-    rounding), float32 within 1e-4.  The TPU kernels upcast q, k, v before
+    rounding), float32 within 1e-4.  c runs on its own kernel in both
+    dtypes (``flash_variant_c`` in bf16, its scores' product on the tensor
+    cores; ``flash_variant_c_f32``), a and b on the template (one name for
+    both dtypes), d as ``_probe_name`` names it.  The TPU kernels upcast q, k, v before
     both products, but the scale can follow the QK product: with bf16
     inputs it is a product of bf16 values, bound at the bf16 rate for a, b,
     c and d alike; PV takes float32 p in a, b and c (the float32 rate), bf16
@@ -1703,8 +1738,10 @@ def _variant_cases(g, rows, failures):
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.float().abs().max().item()
             pv_type = dtype if name == "d" else torch.float32
             bound_ms, by = bound(nbytes, (product, dtype), (product, pv_type))
-            _row(rows, failures,
-                 _probe_name("flash_variant_d", dtype) if name == "d" else f"flash_variant_{name}",
+            kname = (_probe_name("flash_variant_d", dtype) if name == "d" else
+                     "flash_variant_c_f32" if name == "c" and dtype == torch.float32 else
+                     f"flash_variant_{name}")
+            _row(rows, failures, kname,
                  f"flash variant {name} q{list(shape)} {str(dtype)[6:]}",
                  err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
                  ms=cuda_ms(lambda: kernel(q, k, v)), plain_ms=cuda_ms(lambda: plain(q, k, v)),
@@ -1828,15 +1865,17 @@ def phase_probes(rows):
         counts[name] = read_launches()
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
         print(f"probe {name} launches: {json.dumps(counts[name])}")
-    # rows 8 (exp, noprolog), 9 d, 10 and 11: bf16 chains and loops on the
-    # tensor cores, float32 ones on the template, never the other; row 8
-    # dots and rows 9 a-c on the template in both; row 6, the v4 probe's
-    # base, on the tensor cores or the float32 kernel, never the template
+    # rows 8, 9 d, 10 and 11: bf16 chains and loops on the tensor cores,
+    # float32 ones on the template, never the other; dots' check instance on
+    # neither path; rows 9 a and b on the template in both; row 9 c on its
+    # kernel, the bf16 instance on the bf16 path and the float32 one on the
+    # float32 path; row 6, the v4 probe's base, on the tensor cores or the
+    # float32 kernel, never the template
     tc = tuple(f"flash_{lay}" for lay in fp._LAYOUTS)
     core = tuple(f"{n}_core" for n in tc)
-    ablate_tc = tuple(f"flash_ablate_{m}" for m in fp.ABLATE_TC_MODES)
+    ablate_tc = tuple(f"flash_ablate_{m}" for m in fp.ABLATE_MODES)
     ablate_core = tuple(f"{n}_core" for n in ablate_tc)
-    variants = tuple(f"flash_variant_{v}" for v in "abc")
+    variants = ("flash_variant_a", "flash_variant_b")
     # row 12: bf16 on the tensor cores, float32 on the CUDA-core kernel
     mm_tc = tuple(f"mm_loop_{lay}" for lay in mp.LAYOUTS)
     mm_core = tuple(f"{n}_core" for n in mm_tc)
@@ -1851,10 +1890,12 @@ def phase_probes(rows):
              ("flash_exp2_t_core",
               "flash_attention_exact" + _route(flash.exact_entry(torch.float32, False, 40))[0]),
              ("flash_exp2_t", "flash_attention_exact_core")),
-            ("flash_ablate", ablate_tc + ("flash_ablate_dots",), ablate_core),
-            ("flash_ablate_f32", ablate_core + ("flash_ablate_dots",), ablate_tc),
-            ("flash_variants", variants + ("flash_variant_d",), ("flash_variant_d_core",)),
-            ("flash_variants_f32", variants + ("flash_variant_d_core",), ("flash_variant_d",)),
+            ("flash_ablate", ablate_tc, ablate_core + ("flash_ablate_dots_check",)),
+            ("flash_ablate_f32", ablate_core, ablate_tc + ("flash_ablate_dots_check",)),
+            ("flash_variants", variants + ("flash_variant_c", "flash_variant_d"),
+             ("flash_variant_c_f32", "flash_variant_d_core")),
+            ("flash_variants_f32", variants + ("flash_variant_c_f32", "flash_variant_d_core"),
+             ("flash_variant_c", "flash_variant_d")),
             ("mm_probe", mm_tc, mm_core), ("mm_probe_f32", mm_core, mm_tc)):
         seen = counts[name]
         if min(seen[n] for n in launched) <= 0 or any(seen[n] for n in idle):
@@ -2778,9 +2819,10 @@ def main(argv=None) -> int:
         mine = [r for r in rows if r["name"] == name]
         if paths[path][name] <= 0:
             failures.append(f"{name} was not launched on the {path} path")
+        cores = extra.pop("cores", "tensor (mma.sync, bf16)"
+                          if source in (tc_cu, bwd_tc_cu, probes_tc_cu, mm_tc_cu) else "CUDA")
         return {"name": name, "route": route, "source": source, "replaces": replaces, **extra,
-                "cores": ("tensor (mma.sync, bf16)"
-                          if source in (tc_cu, bwd_tc_cu, probes_tc_cu, mm_tc_cu) else "CUDA"),
+                "cores": cores,
                 "launches": paths[path][name], "path": path,
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -2790,6 +2832,8 @@ def main(argv=None) -> int:
                                            "dq_run_to_run", "dkv_bit_identical", "dkv_ms", "dq_ms",
                                            "relaunch_bit_identical", "lse_max_rel_err",
                                            "max_err_over_tol", "excused_rows", "row_count",
+                                           "negative_sum_rows", "check_bit_identical",
+                                           "score_err_over_tol", "sums_differing_rows",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
                                            "eager_ms")
                    if k in mine[0]}}
@@ -2870,15 +2914,17 @@ def main(argv=None) -> int:
               "flash_v4_variants"),
         entry("flash_exp2_t_core", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
               "flash_v4_variants_f32"),
-        entry("flash_ablate_dots", "cuda", probes_cu, "scripts/flash_ablate.py:34",
-              "flash_ablate"),
         *(entry(f"flash_ablate_{m}", "cuda", probes_tc_cu, "scripts/flash_ablate.py:34",
-                "flash_ablate") for m in fp.ABLATE_TC_MODES),
+                "flash_ablate") for m in fp.ABLATE_MODES),
         *(entry(f"flash_ablate_{m}_core", "cuda", probes_cu, "scripts/flash_ablate.py:34",
-                "flash_ablate_f32") for m in fp.ABLATE_TC_MODES),
+                "flash_ablate_f32") for m in fp.ABLATE_MODES),
         *(entry(f"flash_variant_{v}", "cuda", variants_cu,
                 f"scripts/flash_variants.py:{line}", "flash_variants")
-          for v, line in (("a", 31), ("b", 61), ("c", 87))),
+          for v, line in (("a", 31), ("b", 61))),
+        entry("flash_variant_c", "cuda", variants_cu, "scripts/flash_variants.py:87",
+              "flash_variants", cores="tensor (mma.sync, bf16) for the scores, CUDA for PV"),
+        entry("flash_variant_c_f32", "cuda", variants_cu, "scripts/flash_variants.py:87",
+              "flash_variants_f32"),
         entry("flash_variant_d", "cuda", probes_tc_cu, "scripts/flash_variants.py:31",
               "flash_variants"),
         entry("flash_variant_d_core", "cuda", variants_cu, "scripts/flash_variants.py:31",

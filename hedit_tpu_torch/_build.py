@@ -97,10 +97,15 @@ ARGTYPES = {
     "hedit_flash_exp2_t_tc": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, out | bh, sq, sk, d, mode, dtype | stream
     "hedit_flash_ablate_t": [_P] * 4 + [_I] * 6 + [_P],
-    # hedit_flash_ablate_t in bf16 on the tensor cores (modes 1, 2), the same arguments
+    # hedit_flash_ablate_t in bf16 on the tensor cores, the same arguments
     "hedit_flash_ablate_t_tc": [_P] * 4 + [_I] * 6 + [_P],
+    # q, k, v, out, scores, sums | bh, sq, sk, d, dtype | stream: its dots mode,
+    # also storing the float32 scores and row sums
+    "hedit_flash_ablate_dots_check_tc": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, v, out | bh, sq, sk, d, variant, dtype | stream
     "hedit_flash_variant": [_P] * 4 + [_I] * 6 + [_P],
+    # q, k, v, out | bh, sq, sk, d, dtype | stream: row 9 c (kern_c)
+    "hedit_flash_variant_c": [_P] * 4 + [_I] * 5 + [_P],
     # hedit_flash_variant in bf16 on the tensor cores (variant 1), the same arguments
     "hedit_flash_variant_tc": [_P] * 4 + [_I] * 6 + [_P],
     # a, b, o, ws | m, n, k, reps, layout, rm, rn, tx, ty, kt, chunk, ksplits,

@@ -36,9 +36,8 @@
 // loop cut down to measure its floor.  q is NOT scaled (no sm_scale, no
 // log2 e), there is no prologue, no running max and no shift but a
 // constant; p is rounded to the input dtype and summed through the TPU
-// kernel's ones-column of v, and the sum is floored at 1e-30 (float32; in
-// bf16 `dots` only, the one bf16 instance left here: `exp` and `noprolog`
-// run on the tensor cores, hedit_flash_ablate_t_tc):
+// kernel's ones-column of v, and the sum is floored at 1e-30 (float32 only:
+// in bf16 all three run on the tensor cores, hedit_flash_ablate_t_tc):
 //   dots      p = s                       (the products and the cast alone)
 //   exp       p = exp2(s)
 //   noprolog  p = exp2(min(s - 12.34, 100))
@@ -53,7 +52,7 @@
 // shared memory, then stored as D rows of 64 contiguous elements.
 //
 // Contract: every operand a dense [BH, S, D] or [BH, D, S] image per
-// (batch, head), one dtype (float32; bfloat16 for `dots` only); D is
+// (batch, head), float32 (bfloat16 runs on the tensor cores); D is
 // 40 or 80 (the UNet's head dims); Sq and Sk are multiples of the 64-row
 // tile (the TPU kernels' grids cover only whole blocks, and nothing is
 // masked here), and for the bounded probes the anchor is a multiple of 64
@@ -365,13 +364,8 @@ int probe(const void* q, const void* k, const void* v, void* out, int bh, int sq
   if (Traits<P>::bounded && (anchor < BK || anchor % BK || sk % anchor)) return -1;
   if ((long long)(sq > sk ? sq : sk) * d > INT_MAX) return -1;  // 32-bit offsets in an image
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_d<float, P>(q, k, v, out, bh, sq, sk, d, anchor, s);
-    case 1:  // bf16 but dots: flash_probes_tc.cu
-      if constexpr (P != Probe::AblateDots) return -1;
-      else return launch_d<__nv_bfloat16, P>(q, k, v, out, bh, sq, sk, d, anchor, s);
-    default: return -1;
-  }
+  // float32 only: bf16 runs on the tensor cores (flash_probes_tc.cu)
+  return dtype == 0 ? launch_d<float, P>(q, k, v, out, bh, sq, sk, d, anchor, s) : -1;
 }
 
 }  // namespace
@@ -408,8 +402,7 @@ extern "C" int hedit_flash_exp2_t(const void* q, const void* k, const void* v, v
 }
 
 // Row 8: the ablations, q, k, v [BH, S, D] -> out [BH, D, Sq]; mode 0 dots,
-// 1 exp, 2 noprolog.  bf16 dots only (bf16 exp, noprolog:
-// hedit_flash_ablate_t_tc).
+// 1 exp, 2 noprolog.  float32 only (bf16: hedit_flash_ablate_t_tc).
 extern "C" int hedit_flash_ablate_t(const void* q, const void* k, const void* v, void* out,
                                     int bh, int sq, int sk, int d, int mode, int dtype,
                                     void* stream) {

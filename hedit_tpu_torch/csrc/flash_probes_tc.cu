@@ -10,10 +10,12 @@
 //   kern_exp2 (:34)                     q, k, v [BH, S, D], both key loops
 // (entry point hedit_flash_exp2_t_tc, the arguments of flash_probes.cu's
 // hedit_flash_exp2_t; wrapper flash_exp2_t_cuda), of scripts/flash_ablate.py
-//   make_kernel("exp"), make_kernel("noprolog") (:34)   q, k, v [BH, S, D]
+//   make_kernel(mode) (:34), dots, exp, noprolog     q, k, v [BH, S, D]
 // (entry point hedit_flash_ablate_t_tc, the arguments of flash_probes.cu's
-// hedit_flash_ablate_t; wrapper flash_ablate_t_cuda; `dots` stays on the
-// template) and of scripts/flash_variants.py
+// hedit_flash_ablate_t; wrapper flash_ablate_t_cuda; `dots` also as a
+// check-only instance that stores its scores and row sums:
+// hedit_flash_ablate_dots_check_tc, wrapper flash_ablate_dots_check_cuda)
+// and of scripts/flash_variants.py
 //   kern_a(pv_bf16=True) (:31)          q, k, v [BH, S, D], D = 40
 // (entry point hedit_flash_variant_tc, the arguments of flash_variants.cu's
 // hedit_flash_variant; wrapper flash_variant_a_cuda(pv_bf16=True)).  All but
@@ -39,7 +41,17 @@
 // The ablations (row 8) are the bounded function without its prologue: q
 // as it is (no scale; the load skips the multiply), the shift a constant
 // (0 for `exp`, 12.34 for `noprolog`), the clamp at 100 for `noprolog`
-// only, the sum floored at 1e-30.  The bf16-PV variant (row 9 d) is the
+// only, the sum floored at 1e-30.  `dots` takes p = the float32 score
+// rounded to bf16: no shift, no exp2, no clamp.  Its row sum (the sum of
+// the rounded p) is as often negative as positive, so out = acc / max(sum,
+// 1e-30) is ill-conditioned where the sum nears zero.  Its check therefore
+// reads the kernel's own numbers: the CHECK instance (a compile-time flag,
+// never the timed kernel) also stores each float32 score before its
+// rounding, [BH, Sq, Sk], and each row sum before the floor, [BH, Sq]; the
+// two instances compute the same bits.  The row sum is a chain of float32
+// adds in a fixed order (each lane adds the pair (key 2t, 2t + 1) of every
+// 8-key n-tile, tile after tile; then lanes t ^ 1, then t ^ 2), which
+// ops/flash_probes.py:ablate_dots_row_sums repeats bit for bit.  The bf16-PV variant (row 9 d) is the
 // exact function with kern_a's arithmetic: q as it is, each float32 score
 // q.k (products of bf16 values, exact in float32) times c = sm_scale *
 // log2(e) rounded to float32, so that exp2(s c - m) is kern_a's exp(q sm_scale
@@ -99,8 +111,8 @@
 // dense image per (batch, head), 16-byte aligned; Sq and Sk multiples of 64
 // (the probes cover whole blocks and mask no key); for the bounded probes
 // layout 0, 1 or 2 and the anchor a multiple of 64 that divides Sk; for row
-// 10 pipe 0 or 1; for row 8 mode 1 (exp) or 2 (noprolog); for row 9 variant
-// 1 (d).  Anything else returns -1.
+// 10 pipe 0 or 1; for row 8 mode 0 (dots), 1 (exp) or 2 (noprolog); for row
+// 9 variant 1 (d).  Anything else returns -1.
 
 #include <climits>
 #include <cmath>
@@ -122,19 +134,21 @@ constexpr int BK = 64;                 // keys a tile; Sk and the anchor are mul
 
 // The probe a kernel instance computes; see the head of this file.
 enum class Op {
-  PackedT, PackedTSMinor, PackedTAllSMinor, Exp2, Exp2Pipe, AblateExp, AblateNoProlog, VariantBf16PV
+  PackedT, PackedTSMinor, PackedTAllSMinor, Exp2, Exp2Pipe, AblateDots, AblateExp, AblateNoProlog,
+  VariantBf16PV
 };
 
 template <Op P>
 struct OpTraits {
   static constexpr bool qk_sminor = P == Op::PackedTSMinor || P == Op::PackedTAllSMinor;
   static constexpr bool v_sminor = P == Op::PackedTAllSMinor;
-  static constexpr bool ablate = P == Op::AblateExp || P == Op::AblateNoProlog;
+  static constexpr bool dots = P == Op::AblateDots;  // p = bf16(s): no exp2
+  static constexpr bool ablate = dots || P == Op::AblateExp || P == Op::AblateNoProlog;
   static constexpr bool variant = P == Op::VariantBf16PV;
   static constexpr bool exact = P == Op::Exp2 || P == Op::Exp2Pipe || variant;  // running max
   static constexpr bool anchored = !exact && !ablate;   // the prologue finds the shift
   static constexpr bool scale_q = !ablate && !variant;  // q * scale rounded on its load
-  static constexpr bool clamp = !exact && P != Op::AblateExp;  // exp2(min(s - shift, 100))
+  static constexpr bool clamp = !exact && !dots && P != Op::AblateExp;  // exp2(min(s - shift, 100))
   static constexpr float const_shift = P == Op::AblateNoProlog ? kAblateShift : 0.f;  // ablations
   static constexpr float denom_floor = ablate ? kAblateFloor : kDenomFloor;  // not exact
   static constexpr bool row_out = variant;  // out [BH, Sq, D], else [BH, D, Sq]
@@ -167,13 +181,17 @@ struct ProbeTile {
   }
 };
 
-template <int D, int WR, int MINB, Op P>
+// CHECK: the `dots` instance that also stores its float32 scores s_chk
+// [BH, Sq, Sk] and row sums l_chk [BH, Sq] (see the head of this file)
+template <int D, int WR, int MINB, Op P, bool CHECK>
 __global__ void __launch_bounds__(32 * WR, MINB)
 flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out, int sq, int sk,
-                      float qscale, int anchor) {
+                      float qscale, int anchor, float* __restrict__ s_chk,
+                      float* __restrict__ l_chk) {
   using C = ProbeTile<D, WR, P>;
   using Tr = OpTraits<P>;
+  static_assert(!CHECK || Tr::dots, "only dots has a check instance");
   constexpr int BQ = C::BQ, DK = C::DK, QS = C::QS, KS = C::KS, VS = C::VS, OS = C::OS,
                 NT = C::NT, NO = C::NO, NTH = C::kThreadsTc, S = Tr::stages;
   constexpr int QCH = BQ / 8, KCH = BK / 8, CH = D / 8, DCH = DK / 8;  // 16-byte chunks
@@ -400,8 +418,8 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float d0 = s[j][2 * r] - shift[r], d1 = s[j][2 * r + 1] - shift[r];
-          const float p0 = Tr::clamp ? exp2f(fminf(d0, kSaturate)) : exp2f(d0);
-          const float p1 = Tr::clamp ? exp2f(fminf(d1, kSaturate)) : exp2f(d1);
+          const float p0 = Tr::dots ? d0 : Tr::clamp ? exp2f(fminf(d0, kSaturate)) : exp2f(d0);
+          const float p1 = Tr::dots ? d1 : Tr::clamp ? exp2f(fminf(d1, kSaturate)) : exp2f(d1);
           const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
           // the row sum of the rounded p (row 9 d: of p before its rounding)
           l[r] += Tr::variant ? p0 + p1 : __low2float(pb) + __high2float(pb);
@@ -463,6 +481,18 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tile_loop(sk, true, [&](int j) {
       float s[NT][4];
       scores(j % S, s);
+      if constexpr (CHECK) {  // s[n][2r + e]: row g + 8r, key j * BK + n * 8 + 2t + e
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + warp * 16 + g + 8 * r;
+          if (row < sq) {
+            float* dst = s_chk + (size_t(bh) * sq + row) * sk + size_t(j) * BK + 2 * t;
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              *reinterpret_cast<float2*>(dst + n * 8) = make_float2(s[n][2 * r], s[n][2 * r + 1]);
+          }
+        }
+      }
       softmax_pv(s, j % S);
     });
   }
@@ -478,6 +508,9 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float den = Tr::exact ? l[r] : fmaxf(l[r], Tr::denom_floor);
     const int row = warp * 16 + g + 8 * r;
+    if constexpr (CHECK) {
+      if (t == 0 && q0 + row < sq) l_chk[size_t(bh) * sq + q0 + row] = l[r];
+    }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       if constexpr (Tr::row_out) {
@@ -511,11 +544,12 @@ flash_probe_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int WR, int MINB, Op P>
+template <int D, int WR, int MINB, Op P, bool CHECK = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bh, int sq,
-                   int sk, int anchor, cudaStream_t stream) {
+                   int sk, int anchor, cudaStream_t stream, float* s_chk = nullptr,
+                   float* l_chk = nullptr) {
   using C = ProbeTile<D, WR, P>;
-  auto kernel = flash_probe_tc_kernel<D, WR, MINB, P>;
+  auto kernel = flash_probe_tc_kernel<D, WR, MINB, P, CHECK>;
   const int smem = int(C::smem_bytes());
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -526,7 +560,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   const float qscale = float(1.0 / sqrt(double(D)) * 1.4426950408889634);
   kernel<<<grid, C::kThreadsTc, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), sq, sk, qscale, anchor);
+      static_cast<bf16*>(out), sq, sk, qscale, anchor, s_chk, l_chk);
   return cudaGetLastError();
 }
 
@@ -545,10 +579,11 @@ bool takes(const void* q, const void* k, const void* v, void* out, int bh, int s
 // The launch lines, chosen by probes/flash_probe_tiles.py (which builds
 // this file with -DEXP2_MINB_40=n or -DABLATE_MINB_40=n to time other
 // budgets): d = 40 in blocks of 4 warps, the bounded probes and the
-// ablations 5 an SM (96 registers), the exact ones and row 9 d 4 (128: the
-// pipelined loop's two score fragments fit without a spill, and the plain
-// loop took 2% less time than at 5); d = 80 in blocks of 8 warps, 2 an SM
-// (128 registers; the pipelined loop 1, 178 registers).
+// ablations 5 an SM (96 registers; `dots` read the same at 4, 5 and 6), the
+// exact ones and row 9 d 4 (128: the pipelined loop's two score fragments
+// fit without a spill, and the plain loop took 2% less time than at 5);
+// d = 80 in blocks of 8 warps, 2 an SM (128 registers; the pipelined loop
+// 1, 178 registers).
 #ifndef EXP2_MINB_40
 #define EXP2_MINB_40 4
 #endif
@@ -559,13 +594,17 @@ template <Op P>
 constexpr int kMinBlocks40 =
     OpTraits<P>::exact ? EXP2_MINB_40 : OpTraits<P>::ablate ? ABLATE_MINB_40 : 5;
 
-template <Op P>
+template <Op P, bool CHECK = false>
 int launch_d(const void* q, const void* k, const void* v, void* out, int bh, int sq, int sk,
-             int d, int anchor, cudaStream_t s) {
+             int d, int anchor, cudaStream_t s, float* s_chk = nullptr, float* l_chk = nullptr) {
   using Tr = OpTraits<P>;
   switch (d) {
-    case 40: return int(launch<40, 4, kMinBlocks40<P>, P>(q, k, v, out, bh, sq, sk, anchor, s));
-    case 80: return int(launch<80, 8, Tr::pipe ? 1 : 2, P>(q, k, v, out, bh, sq, sk, anchor, s));
+    case 40:
+      return int(launch<40, 4, kMinBlocks40<P>, P, CHECK>(q, k, v, out, bh, sq, sk, anchor, s,
+                                                          s_chk, l_chk));
+    case 80:
+      return int(launch<80, 8, Tr::pipe ? 1 : 2, P, CHECK>(q, k, v, out, bh, sq, sk, anchor, s,
+                                                          s_chk, l_chk));
     default: return -1;
   }
 }
@@ -605,18 +644,33 @@ extern "C" int hedit_flash_exp2_t_tc(const void* q, const void* k, const void* v
 }
 
 // Row 8 in bf16, the arguments of flash_probes.cu's hedit_flash_ablate_t:
-// q, k, v [BH, S, D] -> out [BH, D, Sq]; mode 1 exp, 2 noprolog (0, dots,
-// stays on the template).
+// q, k, v [BH, S, D] -> out [BH, D, Sq]; mode 0 dots, 1 exp, 2 noprolog.
 extern "C" int hedit_flash_ablate_t_tc(const void* q, const void* k, const void* v, void* out,
                                        int bh, int sq, int sk, int d, int mode, int dtype,
                                        void* stream) {
   if (!takes(q, k, v, out, bh, sq, sk, d, dtype)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
+    case 0: return launch_d<Op::AblateDots>(q, k, v, out, bh, sq, sk, d, 0, s);
     case 1: return launch_d<Op::AblateExp>(q, k, v, out, bh, sq, sk, d, 0, s);
     case 2: return launch_d<Op::AblateNoProlog>(q, k, v, out, bh, sq, sk, d, 0, s);
     default: return -1;
   }
+}
+
+// Row 8's dots in bf16, checked: the output of hedit_flash_ablate_t_tc's
+// mode 0 bit for bit, and also each float32 score before its rounding,
+// scores [BH, Sq, Sk], and each row sum before the floor, sums [BH, Sq]
+// (both 8-byte aligned).
+extern "C" int hedit_flash_ablate_dots_check_tc(const void* q, const void* k, const void* v,
+                                                void* out, void* scores, void* sums, int bh,
+                                                int sq, int sk, int d, int dtype,
+                                                void* stream) {
+  if (!takes(q, k, v, out, bh, sq, sk, d, dtype)) return -1;
+  if (reinterpret_cast<unsigned long long>(scores) % 8 || !sums) return -1;
+  return launch_d<Op::AblateDots, true>(q, k, v, out, bh, sq, sk, d, 0,
+                                        static_cast<cudaStream_t>(stream),
+                                        static_cast<float*>(scores), static_cast<float*>(sums));
 }
 
 // Row 9 d in bf16, the arguments of flash_variants.cu's hedit_flash_variant:

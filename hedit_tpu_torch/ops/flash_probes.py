@@ -28,9 +28,11 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   bounded loop cut down to its floor (``make_kernel(mode)``): q unscaled, no
   prologue, p = s (``dots``), exp2(s) (``exp``) or exp2(min(s - 12.34, 100))
   (``noprolog``) rounded to the input dtype, the sum of p floored at 1e-30,
-  a ``[B*H, D, Sq]`` output.  bf16 ``exp`` and ``noprolog`` on the tensor
-  cores (``csrc/flash_probes_tc.cu``, ``ablate_entry``), ``dots`` and
-  float32 on the template (``csrc/flash_probes.cu``).
+  a ``[B*H, D, Sq]`` output.  bf16 on the tensor cores
+  (``csrc/flash_probes_tc.cu``, ``ablate_entry``), float32 on the template
+  (``csrc/flash_probes.cu``).  ``dots`` in bf16 is checked on the kernel's
+  own scores and row sums (``flash_ablate_dots_check_cuda``,
+  ``check_ablate_dots_kernel``).
 
 * ``scripts/flash_variants.py``: exact forwards entirely in float32 on the
   script's ``[B*H, S, D]`` operands, in three layouts
@@ -43,7 +45,9 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   - ``flash_variant_b_cuda``: a transposed ``[D, Sq]`` accumulator and
     output (``kern_b``);
   - ``flash_variant_c_cuda``: key-major scores, softmax down the key axis,
-    transposed output (``kern_c``).
+    transposed output (``kern_c``), a kernel of its own in both dtypes
+    (``hedit_flash_variant_c``: bf16 scores on the tensor cores, float32
+    ones and PV on the CUDA cores).
 
 ``[B*H, D, Sq]`` and ``[B, H*D, Sq]`` are the same memory: head h of batch
 row b is rows ``h*D .. (h+1)*D`` of that row's image, so the kernels write
@@ -66,7 +70,7 @@ from typing import Optional
 import torch
 
 from hedit_tpu_torch.ops.flash_attention import (
-    _bounded, _check_device_dtype, _launch, _on_cpu, check_tc_operands,
+    _bounded, _check_device_dtype, _launch, _on_cpu, check_f32_operands, check_tc_operands,
 )
 
 # launches of each CUDA kernel since the last reset (read by chip_smoke.py)
@@ -81,20 +85,20 @@ launches_exp2_t_tc = 0                # the same in bf16 on the tensor cores
 launches_ablate_dots = 0
 launches_ablate_exp = 0
 launches_ablate_noprolog = 0
-launches_ablate_exp_tc = 0            # the same two in bf16 on the tensor cores
+launches_ablate_dots_tc = 0           # the same three in bf16 on the tensor cores
+launches_ablate_exp_tc = 0
 launches_ablate_noprolog_tc = 0
+launches_ablate_dots_check_tc = 0     # dots' check-only instance (scores and sums stored)
 launches_variant_a = 0
 launches_variant_d = 0      # kern_a with pv_bf16 (the script's d_bf16pv)
 launches_variant_d_tc = 0   # the same in bf16 on the tensor cores
 launches_variant_b = 0
-launches_variant_c = 0
+launches_variant_c_tc = 0   # kern_c: bf16 (scores on the tensor cores)
+launches_variant_c_f32 = 0  # kern_c: float32, the same kernel
 
 PROBE_HEAD_DIMS = (40, 80)
 VARIANT_HEAD_DIM = 40       # flash_variants.py's D; the only one its kernel takes
 ABLATE_MODES = ("dots", "exp", "noprolog")
-# the ablations bf16 runs on the tensor cores; `dots` stays on the template,
-# whose order of the score sums its check needs (ablate_dots_tolerance)
-ABLATE_TC_MODES = ("exp", "noprolog")
 ABLATE_FLOOR = 1e-30        # flash_ablate.py's floor of the sum of p
 _ABLATE_SHIFT = 12.34       # flash_ablate.py's constant shift (noprolog)
 _CHUNK_SCORES = 2 ** 28     # float32 scores a chunk of the plain versions holds (1 GiB)
@@ -236,23 +240,23 @@ def exp2_entry(dtype: torch.dtype) -> str:
 
 def ablate_entry(dtype: torch.dtype, mode: str) -> str:
     """The CUDA entry point of the ablation ``mode`` for an input of
-    ``dtype``: bfloat16 ``ABLATE_TC_MODES`` the tensor-core kernel, ``dots``
-    and every float32 mode the template.  Raises for any other dtype or
-    mode."""
+    ``dtype``: bfloat16 the tensor-core kernel, float32 the template.
+    Raises for any other dtype or mode."""
     if mode not in ABLATE_MODES:
         raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
-    return _tc_or_template(dtype, "hedit_flash_ablate_t", "the ablations",
-                           tc=mode in ABLATE_TC_MODES)
+    return _tc_or_template(dtype, "hedit_flash_ablate_t", "the ablations")
 
 
 def variant_entry(dtype: torch.dtype, name: str) -> str:
     """The CUDA entry point of variant ``name`` (``a``-``d``) for an input
-    of ``dtype``: bfloat16 ``d`` the tensor-core kernel, the rest the
-    template (``csrc/flash_variants.cu``).  Raises for any other dtype or
-    name."""
+    of ``dtype``: ``c`` its own kernel in both dtypes
+    (``hedit_flash_variant_c``), bfloat16 ``d`` the tensor-core kernel, the
+    rest the template (``csrc/flash_variants.cu``).  Raises for any other
+    dtype or name."""
     if name not in _VARIANTS:
         raise ValueError(f"variant must be one of {tuple(_VARIANTS)}, not {name!r}")
-    return _tc_or_template(dtype, "hedit_flash_variant", "the variants", tc=name == "d")
+    entry = _tc_or_template(dtype, "hedit_flash_variant", "the variants", tc=name == "d")
+    return "hedit_flash_variant_c" if name == "c" else entry
 
 
 def _launch_probe(entry: str, counter: str, q: torch.Tensor, pointers, ints, d: int,
@@ -339,9 +343,8 @@ def _ablate_weights(s: torch.Tensor, mode: str) -> torch.Tensor:
 
 def _scores_in_order(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q [n, Sq, D] k^T in float32, summed over D in order, one rounding a
-    term: the CUDA kernel's FMA chain.  Bit for bit the kernel's scores for
-    bf16 inputs (their products are exact in float32); float32 products
-    may round once more here."""
+    term: the CUDA-core template's FMA chain (its float32 products may
+    round once more here)."""
     qf, kf = q.float(), k.float()
     s = torch.zeros((q.shape[0], q.shape[1], k.shape[1]), device=q.device)
     for c in range(q.shape[-1]):
@@ -384,16 +387,15 @@ def _ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def ablate_dots_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          want: torch.Tensor, same_scores: bool = False):
+                          want: torch.Tensor):
     """(tol [B*H, D, Sq], excused [B*H, Sq]) for the ``dots`` ablation, whose
     sum of p (the denominator) is as often negative as positive.
 
-    Two computations of the same function differ in float32 summation order.
+    Two computations of the same function differ in float32 summation order
+    (the float32 template and the plain version, or JAX's kernel).
     Each Sk-term sum moves by at most gamma = 4 sqrt(Sk) 2^-24 times the sum
-    of its terms' magnitudes.  Unless ``same_scores`` (the other side sums
-    the scores in the plain version's order: the CUDA kernel on bf16
-    inputs), each score moves too, by up to ds = 4 sqrt(D) 2^-24 sum_c
-    |q_c k_c|, and p, rounded to the input dtype, can land on either
+    of its terms' magnitudes.  Each score moves too, by up to ds = 4 sqrt(D)
+    2^-24 sum_c |q_c k_c|, and p, rounded to the input dtype, can land on either
     neighbour: u_k = p(s + ds) - p(s - ds); those moves are independent, so
     their sum is taken as 4 sqrt(sum u^2).  The denominator may so move by
     e_den = gamma sum|p| + 4 sqrt(sum u^2), the numerator by gamma sum|p v| +
@@ -413,15 +415,13 @@ def ablate_dots_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for rows, s, p, vf in _ablate_rows(q, k, v, "dots"):
         e_den = gamma * p.abs().sum(dim=-1)[:, None, :]                    # [n, 1, Sq]
         e_num = gamma * torch.matmul(p.abs(), vf.abs()).transpose(-1, -2)  # [n, D, Sq]
-        if not same_scores:
-            ds = gamma_d * torch.matmul(qf[rows].float().abs(),
-                                        kf[rows].float().abs().transpose(-1, -2))
-            u2 = ((s + ds).to(q.dtype).float() - (s - ds).to(q.dtype).float()).square()
-            del ds
-            e_den = e_den + 4.0 * u2.sum(dim=-1).sqrt()[:, None, :]
-            e_num = e_num + 4.0 * torch.matmul(u2, vf.square()).sqrt().transpose(-1, -2)
-            del u2
-        del s
+        ds = gamma_d * torch.matmul(qf[rows].float().abs(),
+                                    kf[rows].float().abs().transpose(-1, -2))
+        u2 = ((s + ds).to(q.dtype).float() - (s - ds).to(q.dtype).float()).square()
+        del ds
+        e_den = e_den + 4.0 * u2.sum(dim=-1).sqrt()[:, None, :]
+        e_num = e_num + 4.0 * torch.matmul(u2, vf.square()).sqrt().transpose(-1, -2)
+        del u2, s
         den = p.sum(dim=-1)[:, None, :]
         positive = den > e_den
         divisor = torch.clamp(torch.where(positive, den - e_den, torch.zeros_like(den)),
@@ -432,11 +432,182 @@ def ablate_dots_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tol, excused
 
 
+# A model of one mma.sync m16n8k16 step with float32 accumulation, d = c +
+# sum of 16 products of bf16 values: the products are exact in float32, and
+# the hardware's sum (not specified as a chain of IEEE adds; measurements of
+# earlier tensor cores found the addends aligned to the largest exponent and
+# truncated) is taken to lie within MMA_STEP_ULPS units of 2^-23 of the
+# largest magnitude among c and the 16 products: one unit for each of the 17
+# addends' alignment and one more for the result's normalisation, doubled
+# for margin.
+MMA_STEP_ULPS = 2 * 17
+_U23 = 2.0 ** -23
+
+
+def mma_sum_bound(magnitude: torch.Tensor, steps: int) -> torch.Tensor:
+    """How far a sum taken in ``steps`` mma.sync steps may lie from the exact
+    one, given ``magnitude`` = sum over the steps of (|exact partial sum
+    before the step| + the step's largest |product|), or any upper bound of
+    it.  Step k errs by at most g M_k (g = ``MMA_STEP_ULPS`` 2^-23), M_k <=
+    |C_{k-1}| + E_{k-1} + max |x_k|, so E <= g (magnitude + steps E): E <=
+    g magnitude / (1 - g steps)."""
+    g = MMA_STEP_ULPS * _U23
+    return magnitude * (g / (1.0 - g * steps))
+
+
+def ablate_dots_score_tolerance(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """How far the tensor-core kernel's float32 score q . k (bf16 q [n, Sq,
+    D], k [n, Sk, D]) may lie from the exact one: the contraction is D
+    zero-padded to ceil(D / 16) k16 steps (three at D = 40) of exact
+    products, and each step's partial sums and largest product are bounded
+    by sum_c |q_c k_c|, so ``mma_sum_bound(steps * sum_c |q_c k_c|,
+    steps)``; [n, Sq, Sk] in float64."""
+    steps = -(-q.shape[-1] // 16)
+    magnitude = torch.matmul(q.double().abs(), k.double().abs().transpose(-1, -2))
+    return mma_sum_bound(steps * magnitude, steps)
+
+
+def ablate_dots_row_sums(scores: torch.Tensor) -> torch.Tensor:
+    """The tensor-core ``dots`` kernel's row sums from its float32 scores
+    [n, Sq, Sk], in its order, bit for bit: p = bf16(score); lane t of a row
+    adds, n-tile by n-tile (8 keys) from 0, the pair p[8j + 2t] + p[8j + 2t +
+    1]; then lanes t and t ^ 1, then t and t ^ 2 (all float32 adds rounded
+    to nearest, as the CUDA cores add).  [n, Sq] float32."""
+    n, sq, sk = scores.shape
+    p = scores.to(torch.bfloat16).float().reshape(n, sq, sk // 8, 4, 2)
+    pairs = p[..., 0] + p[..., 1]
+    lanes = torch.zeros_like(pairs[:, :, 0])
+    for j in range(sk // 8):
+        lanes += pairs[:, :, j]
+    return (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+
+
+def ablate_dots_output_tolerance(v: torch.Tensor, scores: torch.Tensor, sums: torch.Tensor,
+                                 dtype: torch.dtype = torch.bfloat16):
+    """(want, tol), both [n, D, Sq] float64, for the ``dots`` kernel's output
+    from its own float32 scores [n, Sq, Sk] and row sums [n, Sq], v [n, Sk,
+    D].  want = the exact numerator sum_k bf16(score_k) v_k over the kernel's
+    own denominator max(sum, 1e-30).  The kernel's numerator is a tensor-core
+    sum of those exact products in 16-key steps, key order: it lies within
+    ``mma_sum_bound`` of the exact one, its magnitude the sum over the steps
+    of |the exact partial sum before the step| plus the step's sum of
+    |products|.  Its quotient is rounded to float32 (2^-23 |want|) and to
+    ``dtype`` (one ulp of want): tol = ulp(want) + 2^-23 |want| + bound /
+    max(sum, 1e-30).  Dividing both sides by the kernel's own sum leaves no
+    row ill-conditioned, whatever the sign of its sum."""
+    n, sq, sk = scores.shape
+    d = v.shape[-1]
+    steps = sk // 16
+    p = scores.to(torch.bfloat16).double()
+    vd = v.double()
+    blocks = torch.matmul(p.reshape(n, sq, steps, 16).transpose(1, 2),
+                          vd.reshape(n, steps, 16, d))                 # [n, steps, Sq, D]
+    partial = blocks.cumsum(dim=1)
+    num = partial[:, -1]
+    magnitude = partial[:, :-1].abs().sum(dim=1) + torch.matmul(p.abs(), vd.abs())
+    del blocks, partial
+    den = torch.clamp(sums.float(), min=ABLATE_FLOOR).double()[..., None]  # [n, Sq, 1]
+    want = (num / den).transpose(-1, -2)
+    bound = (mma_sum_bound(magnitude, steps) / den).transpose(-1, -2)
+    tol = _ulp(want, dtype).double() + _U23 * want.abs() + bound
+    return want, tol
+
+
+def ablate_dots_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                      scores: torch.Tensor, sums: torch.Tensor) -> dict:
+    """The ``dots`` kernel held on its own numbers, q, k, v [n, S, D] bf16,
+    its output [n, D, Sq], float32 scores [n, Sq, Sk] and row sums [n, Sq]:
+    (ii) every score within ``ablate_dots_score_tolerance`` of the exact
+    (float64) q . k; (iii) every row sum the kernel's order of its own
+    rounded scores, bit for bit (``ablate_dots_row_sums``); (iv) every
+    output element within ``ablate_dots_output_tolerance`` of the exact
+    numerator over the kernel's sum.  Returns the largest error over
+    tolerance of (ii) and (iv), the error and tolerance at (iv)'s largest
+    ratio, the rows whose sum differs and the rows whose sum the floor
+    replaced (sum <= 1e-30)."""
+    exact = torch.matmul(q.double(), k.double().transpose(-1, -2))
+    score_ratio = ((scores.double() - exact).abs()
+                   / ablate_dots_score_tolerance(q, k)).max().item()
+    del exact
+    plain_sums = ablate_dots_row_sums(scores)
+    differing = int((plain_sums != sums).sum())
+    want, tol = ablate_dots_output_tolerance(v, scores, sums, out.dtype)
+    err = (out.double() - want).abs()
+    ratio = err / tol
+    worst = int(ratio.argmax())
+    return {"score_err_over_tol": score_ratio, "sums_differing_rows": differing,
+            "out_err_over_tol": ratio.flatten()[worst].item(),
+            "err_at_worst": err.flatten()[worst].item(), "tol_at_worst": tol.flatten()[worst].item(),
+            "floored_rows": int((sums <= ABLATE_FLOOR).sum())}
+
+
+def flash_ablate_dots_check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The ``dots`` kernel's check-only instance on bf16 q, k, v [B, H, S,
+    D]: (out [B*H, D, Sq], its float32 scores [B*H, Sq, Sk] before their
+    rounding, its row sums [B*H, Sq] before the floor); the output is the
+    timed kernel's bit for bit.  CPU tensors: the plain version with the
+    kernel's order of the row sums (the scores summed over D in order,
+    ``ablate_dots_row_sums``, out = p v / max(sum, 1e-30)).  Not a kernel of
+    the probe's path: its launches count in ``launches_ablate_dots_check_tc``."""
+    b, h, sq, sk, d = _dims(q, k, v, (False, False, False), "flash_ablate_dots_check_cuda")
+    if _on_cpu(q, k, v):
+        parts = []
+        for _, s, p, vf in _ablate_rows(q, k, v, "dots"):
+            sums = ablate_dots_row_sums(s)
+            den = torch.clamp(sums, min=ABLATE_FLOOR)[..., None]
+            parts.append(((torch.matmul(p, vf) / den).to(q.dtype).transpose(-1, -2), s, sums))
+        return tuple(torch.cat(part) for part in zip(*parts))
+    _check_cuda(q, k, v, b, h, d, "flash_ablate_dots_check_cuda")
+    if q.dtype != torch.bfloat16:
+        raise ValueError("flash_ablate_dots_check_cuda: the check instance is the tensor-core "
+                         f"kernel's, bf16 only, got {q.dtype}")
+    out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
+    scores = torch.empty((b * h, sq, sk), dtype=torch.float32, device=q.device)
+    sums = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    check_tc_operands(d, [t.data_ptr() for t in (q, k, v, out)], [sq, sk])
+    _launch("hedit_flash_ablate_dots_check_tc", q, (q, k, v, out, scores, sums),
+            (b * h, sq, sk, d))
+    global launches_ablate_dots_check_tc
+    launches_ablate_dots_check_tc += 1
+    return out, scores, sums
+
+
+def check_ablate_dots_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, images: int = 8) -> dict:
+    """Hold the bf16 ``dots`` output ``out`` [B*H, D, Sq] of q, k, v [B, H,
+    S, D] on the kernel's own numbers, ``images`` B*H images a pass (the
+    scores of the probe's shape take 8 GiB): (i) ``out`` is the check
+    instance's output bit for bit, then ``ablate_dots_check`` on each pass.
+    Returns the worst of each over all passes (the error and tolerance of
+    the pass with the largest output ratio), the sums over them of the row
+    counts, the row count and the rows excused (none: no row is)."""
+    b, h, sq, d = q.shape
+    qf, kf, vf = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    worst = {"bit_identical": True, "score_err_over_tol": 0.0, "sums_differing_rows": 0,
+             "out_err_over_tol": -1.0, "err_at_worst": 0.0, "tol_at_worst": 0.0,
+             "floored_rows": 0, "row_count": b * h * sq, "excused_rows": 0}
+    bits = torch.int16 if out.element_size() == 2 else torch.int32
+    for i in range(0, b * h, images):
+        rows = slice(i, min(i + images, b * h))
+        got, scores, sums = flash_ablate_dots_check_cuda(qf[None, rows], kf[None, rows],
+                                                         vf[None, rows])
+        worst["bit_identical"] &= torch.equal(got.view(bits), out[rows].view(bits))
+        one = ablate_dots_check(qf[rows], kf[rows], vf[rows], out[rows], scores, sums)
+        del got, scores, sums
+        if one["out_err_over_tol"] > worst["out_err_over_tol"]:
+            worst.update({key: one[key] for key in ("out_err_over_tol", "err_at_worst",
+                                                    "tol_at_worst")})
+        worst["score_err_over_tol"] = max(worst["score_err_over_tol"], one["score_err_over_tol"])
+        for key in ("sums_differing_rows", "floored_rows"):
+            worst[key] += one[key]
+    return worst
+
+
 def flash_ablate_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mode: str) -> torch.Tensor:
     """``make_kernel(mode)``: q, k, v [B, H, S, D] -> [B*H, D, Sq]; ``mode``
-    one of ``ABLATE_MODES``.  bf16 ``exp`` and ``noprolog`` run on the
-    tensor cores, the rest on the template (``ablate_entry``)."""
+    one of ``ABLATE_MODES``.  bf16 runs on the tensor cores, float32 on the
+    template (``ablate_entry``)."""
     if mode not in ABLATE_MODES:
         raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
     b, h, sq, sk, d = _dims(q, k, v, (False, False, False), "flash_ablate_t_cuda")
@@ -533,8 +704,19 @@ def _variant(q, k, v, name: str) -> torch.Tensor:
         raise ValueError(f"{what}: q, k, v must be contiguous")
     out = torch.empty((bh, d, sq) if transposed else (bh, sq, d), dtype=q.dtype,
                       device=q.device)
-    _launch_probe(variant_entry(q.dtype, name), f"launches_variant_{name}", q, (q, k, v, out),
-                  (bh, sq, sk, d, code), d, [sq, sk])
+    if name != "c":
+        _launch_probe(variant_entry(q.dtype, name), f"launches_variant_{name}", q,
+                      (q, k, v, out), (bh, sq, sk, d, code), d, [sq, sk])
+        return out
+    # row 9 c's kernel copies 16 bytes at a time in either dtype
+    addresses = [t.data_ptr() for t in (q, k, v, out)]
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        check_tc_operands(d, addresses, [sq, sk])
+    else:
+        check_f32_operands(d, addresses, [sq, sk], None)
+    _launch(variant_entry(q.dtype, name), q, (q, k, v, out), (bh, sq, sk, d))
+    globals()["launches_variant_c_tc" if bf16 else "launches_variant_c_f32"] += 1
     return out
 
 
@@ -553,5 +735,7 @@ def flash_variant_b_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 
 
 def flash_variant_c_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``kern_c``: q, k, v [BH, S, D] -> [BH, D, Sq], key-major scores."""
+    """``kern_c``: q, k, v [BH, S, D] -> [BH, D, Sq], key-major scores
+    (``hedit_flash_variant_c``: the scores' product on the tensor cores in
+    bf16, by FMAs in float32; the scale after it; PV on the CUDA cores)."""
     return _variant(q, k, v, "c")

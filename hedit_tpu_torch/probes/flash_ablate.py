@@ -10,10 +10,9 @@ transposed ``[B*H, D, S]`` output from q, k, v with q unscaled:
 * noprolog: p = exp2(min(s - 12.34, 100)), the bounded loop without the
   prologue that finds each row's shift.
 
-In bf16 ``exp`` and ``noprolog`` run on the tensor cores
-(``csrc/flash_probes_tc.cu``), ``dots`` on the CUDA-core template
-(``csrc/flash_probes.cu``); ``run(dtype=torch.float32)`` runs all three in
-float32 on the template.
+In bf16 all three run on the tensor cores (``csrc/flash_probes_tc.cu``);
+``run(dtype=torch.float32)`` runs them in float32 on the CUDA-core template
+(``csrc/flash_probes.cu``).
 
 Inputs are drawn as the script draws them (numpy ``RandomState(seed)``: q
 and k times 0.05, so that exp2(s) stays finite, v unit normal).  The

@@ -1,4 +1,4 @@
-"""Rows 8-11 (ablations, bf16-PV variant, exact exp2, bounded probes) in bf16 on the tensor cores.
+"""Rows 8-11 (ablations, variants c and d, exact exp2, bounded probes) in bf16 on the tensor cores.
 
     python -m hedit_tpu_torch.probes.flash_probe_tiles [--parent DIR]
 
@@ -19,15 +19,22 @@ Times ``csrc/flash_probes_tc.cu`` on the card:
   ``-DEXP2_MINB_40=n``, one ``nvcc`` each, all started together; variant 0
   is the source's default, whose ``-Xptxas -v`` lines are the shipped
   instances'), in turns with variant 0;
-* row 8 (entry point ``hedit_flash_ablate_t_tc``), ``exp`` and
+* row 8 (entry point ``hedit_flash_ablate_t_tc``), ``dots``, ``exp`` and
   ``noprolog``, at ``ABLATE_CASES``: the probe's [4, 32, 4096, 40] and
   [4, 32, 1024, 80], q and k times 0.05 as the probe draws them; at d = 40
-  also at 4 blocks an SM (``-DABLATE_MINB_40=4``) in turns with the
-  source's 5; SDPA with scale ln 2 beside it;
+  also at 4 blocks an SM (``-DABLATE_MINB_40=4``) in turns with the source's
+  5; SDPA with scale ln 2 beside it.  ``dots`` is held on its own scores and
+  sums (``fp.check_ablate_dots_kernel``), the others to their plain
+  versions;
 * row 9 d (entry point ``hedit_flash_variant_tc``, ``kern_a`` with
   ``pv_bf16``) at the probe's [32, 4096, 40], and at each of ``VARIANTS``
   (its budget is the exact loops' ``EXP2_MINB_40``); SDPA in bf16 beside
-  it.
+  it;
+* row 9 c (entry point ``hedit_flash_variant_c``, ``kern_c``, in
+  ``csrc/flash_variants.cu``) at ``VARIANT_C_CASES``: the probe's [32,
+  4096, 40] in bf16 and the smoke's [8, 4096, 40] in float32, beside SDPA
+  on the float32 inputs and the bound (QK at the inputs' rate, PV at 67
+  TFLOP/s).
 
 Each kernel is launched through its entry point without the wrappers' host
 checks (CUDA-event means of 20 launches, best of 3), beside SDPA on the same
@@ -39,18 +46,19 @@ and spills of each instance.
 
 ``--parent DIR``: a checkout of an earlier commit of this repository (for
 example ``git archive <commit> | tar -x -C DIR``).  Its CUDA-core
-templates' entries in bf16 (``csrc/flash_probes.cu``,
-``csrc/flash_variants.cu``: the rows before they moved to the tensor cores;
-this tree's templates refuse them) are timed in turns with this tree's
-kernels (parent, this, this, parent) where the parent's template still
-takes them.  Its ``csrc/flash_attention_tc.cu``, ``csrc/flash_probes_tc.cu``,
-``csrc/flash_probes.cu`` and ``csrc/flash_variants.cu`` are built beside
-this tree's, and these outputs of the two must agree bit for bit: the
-bounded, LSE and exact tensor-core forwards on the smoke's inputs
-(``flash_exact_tiles.identity``), rows 10 and 11a-c on the tensor cores,
-and the template instances this tree keeps (rows 8, 10, 11 in float32, row
-8 ``dots`` in bf16, rows 9 a-c in both dtypes, 9 d in float32;
-``kept_identity``).  The probe exits non-zero if any differs.
+templates' entries (``csrc/flash_probes.cu``, ``csrc/flash_variants.cu``:
+the rows before they moved; this tree's templates refuse them) are timed in
+turns with this tree's kernels (parent, this, this, parent) where the
+parent's template still takes them: bf16 ``dots`` and row 9 c in both
+dtypes among them.  Its ``csrc/flash_attention_tc.cu``,
+``csrc/flash_probes_tc.cu``, ``csrc/flash_probes.cu`` and
+``csrc/flash_variants.cu`` are built beside this tree's, and these outputs
+of the two must agree bit for bit: the bounded, LSE and exact tensor-core
+forwards on the smoke's inputs (``flash_exact_tiles.identity``), rows 8
+``exp`` / ``noprolog``, 9 d, 10 and 11a-c on the tensor cores, and the
+template instances this tree keeps (rows 8, 9 d, 10, 11 in float32, rows 9
+a and b in both dtypes; ``kept_identity``).  The probe exits non-zero if
+any differs.
 """
 
 from __future__ import annotations
@@ -89,7 +97,11 @@ ABLATE_CASES = ((4, 32, 4096, 40), (4, 32, 1024, 80))
 ABLATE_MINB = 4
 # row 9 d's [B*H, S, D]
 VARIANT_SHAPE = (32, 4096, 40)
+# row 9 c's: the probe's in bf16, the smoke's float32 case
+VARIANT_C_CASES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.float32))
 PEAK_FLOPS = 989e12
+# the rate of each type's products (row 9 c: QK in the inputs' type, PV in float32)
+RATES = {torch.bfloat16: PEAK_FLOPS, torch.float32: 67e12}
 
 
 def _sminor(t):
@@ -116,14 +128,15 @@ def _err(out, plain):
     return (out.float() - plain).abs().max().item() / (2.0 ** -8 * plain.abs().max().item())
 
 
-def _turns(mine, parent, entry, args, out, ints):
+def _turns(mine, parent, entry, args, out, ints, parent_ints=None):
     """(who, call) pairs in turns: parent, this, this, parent; this alone
     where there is no parent, or its ``entry`` refuses the call (the
-    S-minor layouts left the parent's template in bf16 before)."""
-    turns = [("tensor cores", mine)]
+    S-minor layouts left the parent's template in bf16 before).  The
+    parent's call takes ``parent_ints`` where its entry's differ."""
+    turns = [("this tree", mine)]
     if parent is None:
         return turns
-    core = _entry_call(parent, entry, args, torch.empty_like(out), ints)
+    core = _entry_call(parent, entry, args, torch.empty_like(out), parent_ints or ints)
     try:
         core()
     except RuntimeError as e:
@@ -134,7 +147,7 @@ def _turns(mine, parent, entry, args, out, ints):
 
 def _timed(label, turns, sdpa, bound_ms, err, extra=""):
     ms = [best_ms(fn) for _, fn in turns]
-    tc_ms = min(t for (who, _), t in zip(turns, ms) if who == "tensor cores")
+    tc_ms = min(t for (who, _), t in zip(turns, ms) if who == "this tree")
     print(f"{label}: " + ", ".join(f"{who} {t:.4f}" for (who, _), t in zip(turns, ms))
           + f" ms;{extra} SDPA {sdpa:.4f} ms, kernel / SDPA {tc_ms / sdpa:.3f}; "
           f"bound {bound_ms:.4f} ms ({bound_ms / tc_ms:.1%}); out err / tol {err:.3f}")
@@ -225,29 +238,40 @@ def exp2_timings(mine, parent, variants):
 
 
 def ablate_timings(mine, parent, minb):
-    """Row 8's ``exp`` and ``noprolog`` at ``ABLATE_CASES``, at d = 40 in
-    turns with the source built at ``ABLATE_MINB`` blocks an SM; one record
-    a case and mode."""
+    """Row 8's three modes at ``ABLATE_CASES``, at d = 40 in turns with the
+    source built at ``ABLATE_MINB`` blocks an SM; one record a case and
+    mode.  ``dots`` is held on its own numbers: the record's err_over_tol is
+    its output's largest error over tolerance, and its other checks must
+    hold too."""
     records = []
     for b, h, s, d in ABLATE_CASES:
         q, k, v = _qkv(b, h, s, d, scales=(0.05, 0.05, 1.0))
         sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=math.log(2.0)))
         bound_ms = 4 * b * h * s * s * d / PEAK_FLOPS * 1e3
-        for mode in fp.ABLATE_TC_MODES:
+        for mode in fp.ABLATE_MODES:
             out = torch.empty(b * h, d, s, dtype=torch.bfloat16, device="cuda")
             ints = (b * h, s, s, d, fp.ABLATE_MODES.index(mode))
             tc = _entry_call(mine, "hedit_flash_ablate_t_tc", (q, k, v), out, ints)
             tc()
-            plain = fp.flash_ablate_t_reference(q, k, v, mode, out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            err = _err(out, plain)
-            del plain
+            extra = {}
+            if mode == "dots":
+                worst = fp.check_ablate_dots_kernel(q, k, v, out)
+                held = (worst["bit_identical"] and worst["sums_differing_rows"] == 0
+                        and worst["score_err_over_tol"] <= 1.0)
+                err = worst["out_err_over_tol"] if held else math.inf
+                extra = {"dots_check": worst}
+                print(f"ablate dots q[{b}, {h}, {s}, {d}] on its own numbers: {worst}")
+            else:
+                plain = fp.flash_ablate_t_reference(q, k, v, mode, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                err = _err(out, plain)
+                del plain
             torch.cuda.empty_cache()
             label = f"ablate {mode} q[{b}, {h}, {s}, {d}] bf16"
             ms = _timed(label, _turns(tc, parent, "hedit_flash_ablate_t", (q, k, v), out, ints),
                         sdpa, bound_ms, err)
             records.append({"probe": f"ablate {mode}", "shape": [b, h, s, d], "turns": ms,
-                            "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
+                            "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err, **extra})
             if d == 40:
                 other = _entry_call(minb, "hedit_flash_ablate_t_tc", (q, k, v), out, ints)
                 t = [best_ms(fn) for fn in (tc, other, other, tc)]
@@ -289,6 +313,37 @@ def variant_timings(mine, parent, variants):
              "minb_ms": [[VARIANTS[i], x] for i, x in zip(order, t)]}]
 
 
+def variant_c_timings(mine, parent):
+    """Row 9 c at ``VARIANT_C_CASES`` (``hedit_flash_variant_c``), in turns
+    with the parent's template (``hedit_flash_variant``, variant 3) where
+    it has one; one record a case.  err_over_tol: bf16 over 2^-8 of the
+    largest value, float32 over 1e-4, against ``flash_variant_c_reference``."""
+    records = []
+    for (bh, s, d), dtype in VARIANT_C_CASES:
+        q, k, v = (t[0] for t in _qkv(1, bh, s, d, dtype=dtype))
+        q32, k32, v32 = (t.float()[None] for t in (q, k, v))
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32))
+        del q32, k32, v32
+        bound_ms = 2 * bh * s * s * d * (1 / RATES[dtype] + 1 / RATES[torch.float32]) * 1e3
+        out = torch.empty(bh, d, s, dtype=dtype, device="cuda")
+        ints = (bh, s, s, d)
+        kernel = _entry_call(mine, "hedit_flash_variant_c", (q, k, v), out, ints)
+        kernel()
+        plain = fp.flash_variant_c_reference(q, k, v).float()
+        torch.cuda.synchronize()
+        err = ((out.float() - plain).abs().max().item() / 1e-4 if dtype == torch.float32
+               else _err(out, plain))
+        del plain
+        label = f"variant c q[{bh}, {s}, {d}] {str(dtype)[6:]}"
+        ms = _timed(label, _turns(kernel, parent, "hedit_flash_variant", (q, k, v), out, ints,
+                                  parent_ints=(bh, s, s, d, 3)), sdpa, bound_ms, err)
+        records.append({"probe": f"variant c {str(dtype)[6:]}", "shape": [bh, s, d],
+                        "turns": ms, "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return records
+
+
 def _same(mine, parent, entry, args, out_shape, ints):
     """``entry`` of this tree and of the parent on ``args``, bit for bit."""
     outs = [torch.empty(out_shape, dtype=args[0].dtype, device="cuda") for _ in range(2)]
@@ -300,10 +355,10 @@ def _same(mine, parent, entry, args, out_shape, ints):
 
 
 def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
-    """The outputs this tree keeps from the parent, bit for bit: rows 11a-c
-    and 10 on the tensor cores (bf16); the template's rows 11, 10, 8 in
-    float32 and 8 ``dots`` in bf16; rows 9 a-c in both dtypes and 9 d in
-    float32."""
+    """The outputs this tree keeps from the parent, bit for bit: rows 11a-c,
+    10, 8 ``exp`` / ``noprolog`` and 9 d on the tensor cores (bf16); the
+    template's rows 11, 10 and 8 in float32; rows 9 a and b in both dtypes
+    and 9 d in float32 (row 9 c and bf16 ``dots`` are new kernels)."""
     cases = []
     for b, h, s, d in ((2, 4, 1024, 40), (2, 3, 576, 80)):
         anchor = 64 * 3 if s % fp.BLK_K else fp.BLK_K
@@ -320,16 +375,19 @@ def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
             for pipe in (0, 1):
                 cases.append((f"{entry} pipe {pipe}", lib, entry, (q, k, v), (b * h, d, s),
                               (b * h, s, s, d, pipe), dtype))
-            for code in (0, 1, 2) if dtype == torch.float32 else (0,):
-                cases.append((f"hedit_flash_ablate_t mode {code}", parent_template,
-                              "hedit_flash_ablate_t", (q, k, v), (b * h, d, s),
+            entry = "hedit_flash_ablate_t" + ("_tc" if dtype == torch.bfloat16 else "")
+            for code in (0, 1, 2) if dtype == torch.float32 else (1, 2):
+                cases.append((f"{entry} mode {code}", lib, entry, (q, k, v), (b * h, d, s),
                               (b * h, s, s, d, code), dtype))
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t[0] for t in _qkv(1, 8, 1024, 40, dtype=dtype))
-        for code in (0, 2, 3) + ((1,) if dtype == torch.float32 else ()):
-            shape = (8, 40, 1024) if code >= 2 else (8, 1024, 40)
+        for code in (0, 2) + ((1,) if dtype == torch.float32 else ()):
+            shape = (8, 40, 1024) if code == 2 else (8, 1024, 40)
             cases.append((f"hedit_flash_variant {code}", parent_variants, "hedit_flash_variant",
                           (q, k, v), shape, (8, 1024, 1024, 40, code), dtype))
+        if dtype == torch.bfloat16:
+            cases.append(("hedit_flash_variant_tc 1", parent_tc, "hedit_flash_variant_tc",
+                          (q, k, v), (8, 1024, 40), (8, 1024, 1024, 40, 1), dtype))
     same = True
     for label, parent, entry, args, shape, ints, dtype in cases:
         equal = _same(mine, parent, entry, args, shape, ints)
@@ -349,6 +407,8 @@ def main(argv=None) -> int:
     builds = [(TC_SOURCE, f"variant{i}", _build.CSRC, (f"EXP2_MINB_40={n}",))
               for i, n in enumerate(VARIANTS)]
     builds.append((TC_SOURCE, "ablate_minb", _build.CSRC, (f"ABLATE_MINB_40={ABLATE_MINB}",)))
+    # this tree's variants source alone, for its -Xptxas -v lines (row 9 c)
+    builds.append((_build.CSRC / "flash_variants.cu", "variants", _build.CSRC, ()))
     parents = ("flash_probes.cu", "flash_variants.cu", "flash_attention_tc.cu",
                "flash_probes_tc.cu")
     if args.parent is not None:
@@ -362,12 +422,13 @@ def main(argv=None) -> int:
     mine = _build.cuda_library()
     n = len(VARIANTS)
     variants = [lib for lib, _ in built[:n]]
-    parent = dict(zip(parents, (lib for lib, _ in built[n + 1:]))) if args.parent else {}
+    parent = dict(zip(parents, (lib for lib, _ in built[n + 2:]))) if args.parent else {}
     template = parent.get("flash_probes.cu")
     records = bounded_timings(mine, template)
     records += exp2_timings(mine, template, variants)
     records += ablate_timings(mine, template, built[n][0])
     records += variant_timings(mine, parent.get("flash_variants.cu"), variants)
+    records += variant_c_timings(mine, parent.get("flash_variants.cu"))
     print(json.dumps({"flash_probe_tiles": records}))
     if args.parent is not None and not (
             identity(mine, parent["flash_attention_tc.cu"], exact=True)

@@ -8,11 +8,15 @@ Each variant computes exact attention in float32 (q upcast and scaled by
 
 * a_nopad: a [S, D] accumulator and output;
 * b_mixed: a transposed [D, S] accumulator and output;
-* c_trans: key-major scores, softmax down the key axis, transposed output;
+* c_trans: key-major scores, softmax down the key axis, transposed output
+  (a kernel of its own in both dtypes, ``hedit_flash_variant_c`` in
+  ``csrc/flash_variants.cu``: in bf16 its scores' product on the tensor
+  cores);
 * d_bf16pv: a, with p rounded to bf16 for the PV product (in bf16 on the
-  tensor cores, ``csrc/flash_probes_tc.cu``; the rest on the CUDA-core
-  template ``csrc/flash_variants.cu``, and all four there in float32:
-  ``run(dtype=torch.float32)``).
+  tensor cores, ``csrc/flash_probes_tc.cu``).
+
+a, b and float32 d run on the CUDA-core template ``csrc/flash_variants.cu``;
+``run(dtype=torch.float32)`` runs all four in float32.
 
 The script draws q, k and v from one ``PRNGKey(0)``, so q = k = v; here one
 tensor from numpy ``RandomState(seed)``, unit normal, serves as all three.

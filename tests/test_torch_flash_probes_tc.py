@@ -1,15 +1,17 @@
 """The bf16 tensor-core route of the bounded probes (TPU kernels 11a, 11b
 and 11c), of the exact exp2 probe (TPU kernel 10, both key loops), of the
-ablations ``exp`` and ``noprolog`` (TPU kernel 8) and of ``kern_a`` with
-``pv_bf16`` (TPU kernel 9 d), on the CPU.
+ablations ``dots``, ``exp`` and ``noprolog`` (TPU kernel 8) and of
+``kern_a`` with ``pv_bf16`` (TPU kernel 9 d), and row 9 c's kernel
+(``kern_c``, ``csrc/flash_variants.cu``, both dtypes), on the CPU.
 
 The kernels (``hedit_tpu_torch/csrc/flash_probes_tc.cu``) run only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
 * the dispatch by dtype (``probe_entry``, ``exp2_entry``, ``ablate_entry``,
   ``variant_entry``), as values: bf16 to the tensor-core entry points (but
-  ``dots`` and variants a-c), float32 to the CUDA-core templates, anything
-  else refused; CPU tensors take the plain versions and launch nothing;
+  variants a-c), float32 to the CUDA-core templates (but variant c, its own
+  kernel in both), anything else refused; CPU tensors take the plain
+  versions and launch nothing;
 * the C entry points' parameter lists, read from the source, against the
   ``ctypes`` argument types the loader gives them (the sources cannot be
   compiled here);
@@ -27,7 +29,14 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
   tile with row 8's floor, or row 9 d's scores times sm_scale * log2(e)
   after the product, its running max a 64-key tile, its unrounded sum and
   bf16 p in PV; held against the plain versions and ``make_kernel(mode)``
-  and ``kern_a(pv_bf16=True)`` (``BLK_K`` = 64) in interpret mode.
+  and ``kern_a(pv_bf16=True)`` (``BLK_K`` = 64) in interpret mode.  ``dots``
+  is held on the rendering's own scores and lane-ordered row sums with the
+  smoke's check functions (``fp.ablate_dots_check``), which must also
+  refuse a row sum, an output or a score moved past them;
+* row 9 c's order of work: exact bf16 products, the scale (times log2(e))
+  after the product, key-major scores, the column max and sum down the key
+  axis, the running max over 64-key tiles, exp2, float32 PV; held against
+  ``flash_variant_c_reference`` and ``kern_c`` in interpret mode.
 
 The cases run as loops inside few items: pytest-xdist's loadfile scheduler
 queues test files by their number of items.
@@ -100,18 +109,19 @@ def test_probe_entry_dispatch_and_cpu_tensors():
             fp.exp2_entry(dtype)
     with pytest.raises(ValueError, match="layout"):
         fp.probe_entry(torch.bfloat16, "sminor")
-    # rows 8 and 9: bf16 exp, noprolog and d on the tensor cores; dots and
-    # variants a-c on the templates in both dtypes
+    # rows 8 and 9: bf16 dots, exp, noprolog and d on the tensor cores; c on
+    # its own kernel in both dtypes; a and b on the template in both
     for mode in fp.ABLATE_MODES:
-        assert fp.ablate_entry(torch.bfloat16, mode) == (
-            "hedit_flash_ablate_t" if mode == "dots" else "hedit_flash_ablate_t_tc")
+        assert fp.ablate_entry(torch.bfloat16, mode) == "hedit_flash_ablate_t_tc"
         assert fp.ablate_entry(torch.float32, mode) == "hedit_flash_ablate_t"
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             fp.ablate_entry(torch.float16, mode)
     for name in "abcd":
-        assert fp.variant_entry(torch.bfloat16, name) == (
-            "hedit_flash_variant_tc" if name == "d" else "hedit_flash_variant")
-        assert fp.variant_entry(torch.float32, name) == "hedit_flash_variant"
+        assert fp.variant_entry(torch.bfloat16, name) == {
+            "c": "hedit_flash_variant_c", "d": "hedit_flash_variant_tc"}.get(
+                name, "hedit_flash_variant")
+        assert fp.variant_entry(torch.float32, name) == (
+            "hedit_flash_variant_c" if name == "c" else "hedit_flash_variant")
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             fp.variant_entry(torch.float64, name)
     with pytest.raises(ValueError, match="mode"):
@@ -120,8 +130,10 @@ def test_probe_entry_dispatch_and_cpu_tensors():
         fp.variant_entry(torch.bfloat16, "e")
     names = [n for n in dir(fp) if n.startswith("launches_")]
     assert ({f"launches_{layout}_tc" for layout in LAYOUTS}
-            | {"launches_exp2_t_tc", "launches_ablate_exp_tc", "launches_ablate_noprolog_tc",
-               "launches_variant_d_tc"} <= set(names))
+            | {"launches_exp2_t_tc", "launches_ablate_dots_tc", "launches_ablate_exp_tc",
+               "launches_ablate_noprolog_tc", "launches_ablate_dots_check_tc",
+               "launches_variant_d_tc", "launches_variant_c_tc", "launches_variant_c_f32"}
+            <= set(names))
     counts = {n: getattr(fp, n) for n in names}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(1, 2, 128, 40)
@@ -153,6 +165,12 @@ def test_probe_entry_dispatch_and_cpu_tensors():
         unrounded = fp.flash_variant_a_reference(q3, k3, v3, pv_bf16=True,
                                                  out_dtype=torch.float32)
         assert unrounded.dtype == torch.float32 and torch.equal(unrounded.to(dtype), want)
+        got = fp.flash_variant_c_cuda(q3, k3, v3)
+        assert torch.equal(got, fp.flash_variant_c_reference(q3, k3, v3)) and got.dtype == dtype
+        # dots' check instance: its plain version, the row sums in the kernel's order
+        out, scores, sums = fp.flash_ablate_dots_check_cuda(q, k, v)
+        assert out.dtype == dtype and scores.shape == (2, 128, 128) and sums.shape == (2, 128)
+        assert torch.equal(sums, fp.ablate_dots_row_sums(scores))
     assert counts == {n: getattr(fp, n) for n in names}
 
 
@@ -182,6 +200,10 @@ def test_tc_entry_point_matches_its_argument_types():
         template = _c_params(_build.CSRC / source, name)
         assert tc == template == _build.ARGTYPES[f"{name}_tc"], name
         assert _build.ARGTYPES[f"{name}_tc"] == _build.ARGTYPES[name], name
+    # dots' check instance (two more pointers, no mode) and row 9 c (no variant code)
+    for name, source in (("hedit_flash_ablate_dots_check_tc", "flash_probes_tc.cu"),
+                         ("hedit_flash_variant_c", "flash_variants.cu")):
+        assert _c_params(_build.CSRC / source, name) == _build.ARGTYPES[name], name
 
 
 def _tiled_probe(ops, layout, anchor, bq, exact=False, pipe=False):
@@ -260,15 +282,19 @@ def _padded(q, k, v, bq):
 
 
 def _tiled_ablate_or_pv_bf16(q, k, v, what, bq):
-    """Rows 8 (``what`` ``exp`` or ``noprolog``) and 9 d (``pv_bf16``) in
-    the tensor-core kernel's order of work, float32 arithmetic on its bf16
-    roundings, from q, k, v [B, H, S, D]: q as it is, in blocks of ``bq``
-    queries padded as ``_tiled_probe`` pads them; for each tile of 64 keys
-    the block's float32 scores.  Row 8: s - shift (0, or 12.34 clamped at
-    100), exp2, p rounded to the input dtype into the row sum and the PV
-    product tile by tile, the sum floored at 1e-30; returns [B*H, D, Sq].
-    Row 9 d: the scores times c = sm_scale * log2(e) in float32, the running
-    max from -1e30 moved over each tile, alpha rescaling the sum and the
+    """Rows 8 (``what`` ``dots``, ``exp`` or ``noprolog``) and 9 d
+    (``pv_bf16``) in the tensor-core kernel's order of work, float32
+    arithmetic on its bf16 roundings, from q, k, v [B, H, S, D]: q as it is,
+    in blocks of ``bq`` queries padded as ``_tiled_probe`` pads them; for
+    each tile of 64 keys the block's float32 scores.  Row 8: s - shift (0,
+    or 12.34 clamped at 100), exp2 (``dots``: neither, p = s), p rounded to
+    the input dtype into the row sum and the PV product tile by tile, the
+    sum floored at 1e-30; returns [B*H, D, Sq].  ``dots`` sums each row in
+    the kernel's lanes: lane t adds the pair p[8j + 2t] + p[8j + 2t + 1] of
+    each 8-key n-tile in order, then lanes (0 + 1) + (2 + 3); and returns
+    (out, its float32 scores [B*H, Sq, Sk], those sums [B*H, Sq]).  Row 9
+    d: the scores times c = sm_scale * log2(e) in float32, the running max
+    from -1e30 moved over each tile, alpha rescaling the sum and the
     accumulator, p = exp2(s c - m) unrounded into the sum and rounded to
     bf16 into PV, no floor; returns [B*H, Sq, D].  The output before the
     kernel's final rounding."""
@@ -278,9 +304,17 @@ def _tiled_ablate_or_pv_bf16(q, k, v, what, bq):
     m = torch.full((b, h, sq_blocks, 1), -1e30)
     den = torch.zeros((b, h, sq_blocks, 1))
     acc = torch.zeros((b, h, sq_blocks, d))
+    lanes = torch.zeros((b, h, sq_blocks, 4))
+    tiles = []
     for k0 in range(0, k.shape[2], BK):
         s = qs @ ks[..., k0:k0 + BK, :].mT
-        if what == "pv_bf16":
+        if what == "dots":
+            p = s.to(q.dtype).float()
+            for j in range(BK // 8):
+                lanes = lanes + (p[..., 8 * j:8 * j + 8:2] + p[..., 8 * j + 1:8 * j + 8:2])
+            acc = acc + p @ vs[..., k0:k0 + BK, :]
+            tiles.append(s[:, :, :sq])
+        elif what == "pv_bf16":
             s = s * c
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             alpha = torch.exp2(m - m_new)
@@ -293,10 +327,18 @@ def _tiled_ablate_or_pv_bf16(q, k, v, what, bq):
             p = torch.exp2(s).to(q.dtype).float()
             den = den + p.sum(dim=-1, keepdim=True)
             acc = acc + p @ vs[..., k0:k0 + BK, :]
+    if what == "dots":
+        den = ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
     out = (acc / (den if what == "pv_bf16" else torch.clamp(den, min=fp.ABLATE_FLOOR)))
     assert torch.isfinite(out).all()   # the zero queries past Sq too
     out = out[:, :, :sq]
-    return out.reshape(b * h, sq, d) if what == "pv_bf16" else out.mT.reshape(b * h, d, sq)
+    if what == "pv_bf16":
+        return out.reshape(b * h, sq, d)
+    out = out.mT.reshape(b * h, d, sq)
+    if what != "dots":
+        return out
+    return (out, torch.cat(tiles, dim=-1).reshape(b * h, sq, -1),
+            den[:, :, :sq, 0].reshape(b * h, sq))
 
 
 def _import_script(name):
@@ -494,3 +536,144 @@ def test_tiled_ablations_and_pv_bf16_match_the_plain_versions_and_jax():
     np.testing.assert_allclose(got, plain, rtol=0, atol=_tol(plain), err_msg="pv_bf16")
     np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want, rounded=True),
                                err_msg="pv_bf16")
+
+
+def _dots_inputs(d, scale, seed):
+    """q, k, v [1, 2, 256, d] from numpy: q and k times ``scale`` (0.05 as
+    the probe draws them), v unit normal, as (torch bf16, jax bf16)."""
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(1, 2, 256, d).astype(np.float32) * c for c in (scale, scale, 1.0)]
+    return ([torch.from_numpy(a).to(torch.bfloat16) for a in arrays],
+            [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays])
+
+
+def test_tiled_dots_holds_on_its_own_numbers_and_matches_jax():
+    """Row 8 ``dots`` at d = 40 (64-query blocks, the contraction padded to
+    48) and d = 80 (128-query blocks), S = 256, q and k times 0.5 and times
+    0.05 (the probe's draw): row sums of both signs, so rows straddle the
+    floor.  The rendering is held on its own scores and lane-ordered sums
+    (``fp.ablate_dots_check``, the smoke's check: scores within the tensor
+    cores' bound of the exact q . k, sums bit for bit ``ablate_dots_row_sums``
+    of its scores, outputs within one ulp and the summation bound over the
+    sum of the exact numerator over that sum); against the plain version and
+    ``make_kernel("dots")`` in interpret mode (other scores and sums, so p
+    may round the other way) each element within ``ablate_dots_tolerance``,
+    rows within its reach of zero excused: under 1% (the card test's
+    share)."""
+    ablate = _import_quietly("flash_ablate")
+    for d, bq in ((40, 64), (80, 128)):
+        for scale in (0.5, 0.05):
+            where = f"dots d={d} scale={scale}"
+            (q, k, v), jops = _dots_inputs(d, scale, d)
+            got, scores, sums = _tiled_ablate_or_pv_bf16(q, k, v, "dots", bq)
+            assert bool((sums < 0).any() and (sums > 0).any()), where
+            out = got.to(torch.bfloat16)
+            q3, k3, v3 = (t[0] for t in (q, k, v))
+            worst = fp.ablate_dots_check(q3, k3, v3, out, scores, sums)
+            assert worst["sums_differing_rows"] == 0, where
+            assert worst["score_err_over_tol"] <= 1.0 and worst["out_err_over_tol"] <= 1.0, where
+            tol, excused = fp.ablate_dots_tolerance(q, k, v, out)
+            held = ~excused[:, None, :]
+            assert excused.float().mean().item() < 1e-2, (where, int(excused.sum()))
+            for want in (fp.flash_ablate_t_reference(q, k, v, "dots").float(),
+                         _f32_jax(_jax_ablate(ablate, "dots", *jops))):
+                err = (out.float() - want).abs()
+                assert bool(((err <= tol) | ~held).all()), (where, (err / tol * held).max())
+
+
+def _f32_jax(x):
+    return torch.from_numpy(np.array(x.astype(jnp.float32)))
+
+
+def test_dots_check_functions_refuse_moved_numbers():
+    """The plain-side checks of the bf16 ``dots`` kernel, on the rendering's
+    numbers at [1, 2, 256, 40] (the probe's draw): they hold as they are;
+    a row sum moved by two float32 ulps is off the kernel's order (iii); an
+    output moved by three bf16 ulps of itself is past its tolerance (iv),
+    in a row whose sum is positive and in one the floor replaced; a score
+    moved by twice its bound is past it (ii).  ``check_ablate_dots_kernel``
+    on CPU tensors runs its passes through the plain version of the check
+    instance and excuses no row."""
+    (q, k, v), _ = _dots_inputs(40, 0.05, 7)
+    got, scores, sums = _tiled_ablate_or_pv_bf16(q, k, v, "dots", 64)
+    out = got.to(torch.bfloat16)
+    q3, k3, v3 = (t[0] for t in (q, k, v))
+    ok = fp.ablate_dots_check(q3, k3, v3, out, scores, sums)
+    assert ok["sums_differing_rows"] == 0 and ok["out_err_over_tol"] <= 1.0
+    assert ok["score_err_over_tol"] <= 1.0 and 0 < ok["floored_rows"] < 512
+    moved = sums.clone()
+    moved[1, 9] = torch.nextafter(torch.nextafter(moved[1, 9], torch.tensor(np.inf)),
+                                  torch.tensor(np.inf))
+    assert fp.ablate_dots_check(q3, k3, v3, out, scores, moved)["sums_differing_rows"] == 1
+    for row in (int(sums[0].argmax()), int(sums[0].argmin())):
+        bad = out.clone()
+        bad[0, 5, row] = (bad[0, 5, row].float() * (1 + 3 * 2.0 ** -7)).to(torch.bfloat16)
+        assert fp.ablate_dots_check(q3, k3, v3, bad, scores, sums)["out_err_over_tol"] > 1.0
+    bound = fp.ablate_dots_score_tolerance(q3, k3)
+    bad = scores.clone()
+    bad[0, 3, 17] += float(2 * bound[0, 3, 17])
+    assert fp.ablate_dots_check(q3, k3, v3, out, bad, sums)["score_err_over_tol"] > 1.0
+    worst = fp.check_ablate_dots_kernel(q, k, v, fp.flash_ablate_dots_check_cuda(q, k, v)[0],
+                                        images=1)
+    assert worst["bit_identical"] and worst["sums_differing_rows"] == 0
+    assert worst["out_err_over_tol"] <= 1.0 and worst["excused_rows"] == 0
+    assert worst["row_count"] == 512
+
+
+def _tiled_variant_c(q, k, v):
+    """Row 9 c's kernel in plain torch, float32 arithmetic, from q, k, v
+    [BH, S, D] (bf16 or float32): blocks of 128 queries (the last padded
+    with zero queries), for each tile of 64 keys the key-major scores
+    S^T = K Q^T of the unscaled inputs (exact products), times c = sm_scale
+    log2(e) rounded to float32; each query column's max down the key axis,
+    the running max m from -1e30, alpha = exp2(m - m_new), p = exp2(s - m)
+    in float32, l = l alpha + the column sum, acc^T = acc^T alpha + V^T p;
+    out^T = acc^T / l, [BH, D, Sq] in float32 (before the final rounding)."""
+    bh, sq, d = q.shape
+    blocks = -(-sq // 128) * 128
+    qs = F.pad(q.float(), (0, 0, 0, blocks - sq))
+    c = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=torch.float32)
+    m = torch.full((bh, 1, blocks), -1e30)
+    den = torch.zeros((bh, 1, blocks))
+    acc = torch.zeros((bh, d, blocks))
+    for k0 in range(0, k.shape[1], BK):
+        kt, vt = k[:, k0:k0 + BK].float(), v[:, k0:k0 + BK].float()
+        s = (kt @ qs.mT) * c                                  # [BH, keys, queries]
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        den = den * alpha + p.sum(dim=1, keepdim=True)
+        acc = acc * alpha + vt.mT @ p
+        m = m_new
+    out = acc / den
+    assert torch.isfinite(out).all()   # the zero queries past Sq too
+    return out[..., :sq]
+
+
+def test_tiled_variant_c_matches_the_plain_version_and_jax():
+    """Row 9 c's order of work (``_tiled_variant_c``) at [2, 256, 40] and a
+    ragged Sq of 320 (its last 128-query block half past Sq) in bf16 and
+    float32, against ``flash_variant_c_reference`` (bf16: one output ulp of
+    the largest output; float32: 2e-5, summation order and the base-2 exp)
+    and, at S = 256, ``kern_c`` in interpret mode (the script's ``BLK_K``
+    set to the kernel's 64-key tile; bf16 adds half an ulp for JAX's
+    rounded output)."""
+    variants = _import_quietly("flash_variants")
+    for sq in (256, 320):
+        rng = np.random.RandomState(sq)
+        arrays = [rng.randn(2, s, 40).astype(np.float32) for s in (sq, 256, 256)]
+        for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+            where = f"kern_c Sq={sq} {dtype}"
+            ops = [torch.from_numpy(a).to(dtype) for a in arrays]
+            got = _tiled_variant_c(*ops)
+            plain = fp.flash_variant_c_reference(*ops).float()
+            assert got.shape == (2, 40, sq), where
+            tol = 2e-5 if dtype == torch.float32 else _tol(plain.numpy())
+            torch.testing.assert_close(got, plain, rtol=0, atol=tol, msg=where)
+            if sq != 256:
+                continue
+            with _blk_k(variants, BK):
+                want = _f32_jax(_jax_variant(variants, "c", *(jnp.asarray(a).astype(jdtype)
+                                                              for a in arrays)))
+            tol = 2e-5 if dtype == torch.float32 else _tol(want.numpy(), rounded=True)
+            torch.testing.assert_close(got, want, rtol=0, atol=tol, msg=where)

@@ -875,22 +875,40 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
     for pipe, dtype, d, shift in ((2, 1, 40, 0), (-1, 1, 40, 0), (0, 0, 40, 0), (1, 1, 64, 0),
                                   (0, 1, 40, 2)):
         assert exp2(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, pipe, dtype, stream) == -1
-    # row 8: modes 1 (exp) and 2 (noprolog) in bf16, not dots (0), mode 3,
-    # float32, d = 64 or a misaligned pointer; row 9: variant 1 (d) in bf16
-    # at d = 40 into [BH, Sq, D], not variants 0, 2, 3, float32, d = 80 or a
-    # misaligned pointer.  The templates refuse bf16 exp, noprolog and d
+    # row 8: modes 0 (dots), 1 (exp) and 2 (noprolog) in bf16, not mode 3,
+    # float32, d = 64 or a misaligned pointer, nor dots' check instance on
+    # those or a scores pointer off 8 bytes; row 9: variant 1 (d) in bf16 at
+    # d = 40 into [BH, Sq, D], not variants 0, 2, 3, float32, d = 80 or a
+    # misaligned pointer.  The templates refuse bf16 dots, exp, noprolog and
+    # d, and kern_c (3) in either dtype; kern_c's own entry takes both
+    # dtypes at d = 40, aligned
     ablate, variant = lib.hedit_flash_ablate_t_tc, lib.hedit_flash_variant_tc
-    for mode in (1, 2):
+    check = lib.hedit_flash_ablate_dots_check_tc
+    for mode in (0, 1, 2):
         assert ablate(*ptrs, 2, 256, 256, 40, mode, 1, stream) == 0
         assert lib.hedit_flash_ablate_t(*ptrs, 2, 256, 256, 40, mode, 1, stream) == -1
-    for mode, dtype, d, shift in ((0, 1, 40, 0), (3, 1, 40, 0), (1, 0, 40, 0), (2, 1, 64, 0),
-                                  (1, 1, 40, 2)):
+    for mode, dtype, d, shift in ((3, 1, 40, 0), (1, 0, 40, 0), (2, 1, 64, 0), (1, 1, 40, 2)):
         assert ablate(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, mode, dtype, stream) == -1
+    scores = torch.empty(2, 256, 256, device=cuda)
+    sums = torch.empty(2, 256, device=cuda)
+    assert check(*ptrs, scores.data_ptr(), sums.data_ptr(), 2, 256, 256, 40, 1, stream) == 0
+    for dtype, d, shift, s_shift in ((0, 40, 0, 0), (1, 64, 0, 0), (1, 40, 2, 0), (1, 40, 0, 4)):
+        assert check(ptrs[0] + shift, *ptrs[1:], scores.data_ptr() + s_shift, sums.data_ptr(),
+                     2, 256, 256, d, dtype, stream) == -1
     assert variant(*ptrs, 2, 256, 256, 40, 1, 1, stream) == 0
     assert lib.hedit_flash_variant(*ptrs, 2, 256, 256, 40, 1, 1, stream) == -1
     for code, dtype, d, shift in ((0, 1, 40, 0), (2, 1, 40, 0), (3, 1, 40, 0), (1, 0, 40, 0),
                                   (1, 1, 80, 0), (1, 1, 40, 2)):
         assert variant(ptrs[0] + shift, *ptrs[1:], 2, 256, 256, d, code, dtype, stream) == -1
+    out32 = torch.empty(2, 40, 256, device=cuda)
+    ptrs32 = [t.data_ptr() for t in (q, q, q, out32)]
+    for dtype, pointers in ((0, ptrs32), (1, ptrs)):
+        assert lib.hedit_flash_variant(*pointers, 2, 256, 256, 40, 3, dtype, stream) == -1
+        assert lib.hedit_flash_variant_c(*pointers, 2, 256, 256, 40, dtype, stream) == 0
+    for dtype, d, sq, shift in ((2, 40, 256, 0), (1, 80, 256, 0), (1, 40, 200, 0), (1, 40, 256, 2),
+                                (0, 40, 256, 4)):
+        assert lib.hedit_flash_variant_c(ptrs[0] + shift, *ptrs[1:], 2, sq, 256, d, dtype,
+                                         stream) == -1
 
     def misaligned(t):  # a dense copy of t two bytes past a 16-byte boundary
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
@@ -911,6 +929,13 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         fp.flash_ablate_t_cuda(qb, qb, misaligned(qb), "noprolog")
     with pytest.raises(ValueError, match="aligned"):
         fp.flash_variant_a_cuda(misaligned(qb[0]), qb[0], qb[0], pv_bf16=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_ablate_dots_check_cuda(qb, misaligned(qb), qb)
+    for t in (qb[0], q[0]):
+        with pytest.raises(ValueError, match="aligned"):
+            fp.flash_variant_c_cuda(t, t, misaligned(t))
+    with pytest.raises(ValueError, match="bf16 only"):
+        fp.flash_ablate_dots_check_cuda(q, q, q)
     torch.cuda.synchronize()
     assert {n: getattr(fp, n) for n in names} == before
 
@@ -921,18 +946,22 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("shape", [(1, 4, 1024, 40), (1, 2, 256, 80)])
 def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
     """TPU kernel 8, each mode, against its plain version (q and k scaled by
-    0.05 as the probe draws them).  ``exp`` and ``noprolog``: tolerances of
-    ``_tol``, bf16 on the tensor cores (its own counter, held before the
-    final rounding), float32 on the CUDA-core template.  ``dots``, on the
-    template in both dtypes: each element within ``ablate_dots_tolerance``
-    (in bf16 the plain version's scores are the kernel's bit for bit), rows
-    whose sum of p lies within its reach of zero excused (under 1% here)."""
+    0.05 as the probe draws them); bf16 on the tensor cores (its own
+    counter), float32 on the CUDA-core template.  ``exp`` and ``noprolog``:
+    tolerances of ``_tol``, bf16 held before the final rounding.  ``dots``
+    in bf16: on the kernel's own scores and row sums
+    (``check_ablate_dots_kernel``: the check instance's output bit for bit,
+    every score within the tensor cores' bound of the exact one, every row
+    sum the kernel's order bit for bit, every output within its tolerance of
+    the exact numerator over the kernel's sum; no row excused).  ``dots`` in
+    float32: each element within ``ablate_dots_tolerance``, rows whose sum
+    of p lies within its reach of zero excused (under 1% here)."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     g = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = (torch.randn(shape, generator=g, device=cuda) * s for s in (0.05, 0.05, 1.0))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    tc = dtype == torch.bfloat16 and mode != "dots"
+    tc = dtype == torch.bfloat16
     counter = f"launches_ablate_{mode}{'_tc' if tc else ''}"
     names = [n for n in dir(fp) if n.startswith("launches_ablate_")]
     before = {n: getattr(fp, n) for n in names}
@@ -941,6 +970,13 @@ def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
     assert {n: getattr(fp, n) - before[n] for n in names} == {n: int(n == counter) for n in names}
     b, h, s, d = shape
     assert got.shape == (b * h, d, s) and got.dtype == dtype
+    if tc and mode == "dots":
+        worst = fp.check_ablate_dots_kernel(q, k, v, got, images=3)
+        assert worst["bit_identical"] and worst["sums_differing_rows"] == 0, worst
+        assert worst["score_err_over_tol"] <= 1.0 and worst["out_err_over_tol"] <= 1.0, worst
+        passes = -(-b * h // 3)
+        assert fp.launches_ablate_dots_check_tc - before["launches_ablate_dots_check_tc"] == passes
+        return
     if tc:
         want = fp.flash_ablate_t_reference(q, k, v, mode, out_dtype=torch.float32)
         torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
@@ -950,7 +986,7 @@ def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
     if mode != "dots":
         assert err.max().item() <= _tol(dtype, want)
         return
-    tol, excused = fp.ablate_dots_tolerance(q, k, v, want, same_scores=dtype == torch.bfloat16)
+    tol, excused = fp.ablate_dots_tolerance(q, k, v, want)
     assert excused.float().mean().item() < 1e-2
     assert bool(((err <= tol) | excused[:, None, :]).all()), (err / tol).max().item()
 
@@ -964,7 +1000,8 @@ def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, 
     versions (d with the kernels' 64-key blocks of the running max;
     tolerances of ``_tol``); ``same``: q = k = v, as the probe feeds them.
     bf16 d runs on the tensor cores (its own counter, held before the final
-    rounding), the rest on the CUDA-core template."""
+    rounding), c on its own kernel (a counter a dtype), the rest on the
+    CUDA-core template."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     q, k, v = _probe_inputs(dtype, (bh, s, 40), seed=bh)
@@ -972,6 +1009,8 @@ def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, 
         k = v = q
     tc = dtype == torch.bfloat16 and variant == "d"
     counter = f"launches_variant_{variant}{'_tc' if tc else ''}"
+    if variant == "c":
+        counter += "_tc" if dtype == torch.bfloat16 else "_f32"
     names = [n for n in dir(fp) if n.startswith("launches_variant_")]
     before = {n: getattr(fp, n) for n in names}
     if variant in "ad":
