@@ -76,7 +76,10 @@ the final result line:
    CUDA-core template) and a saturating input, the three ablations of the
    bounded loop (the ``dots`` one held element by element to its
    conditioning, the rows it excuses counted), the exact float32 forward in
-   its three layouts and with a bf16 PV product, and the nudged-matmul loop
+   its three layouts and with a bf16 PV product (a, b and float32 d on one
+   query-major kernel, ``csrc/flash_variants.cu``, c on its own; each
+   relaunch bit-identical, a's output b's transposed bit for bit), and the
+   nudged-matmul loop
    in its nine cases and a ragged one a layout (bf16 on the tensor cores,
    ``csrc/mm_probe_tc.cu``, K split over blocks where its output tiles are
    few; float32 on the CUDA-core kernel, ``csrc/mm_probe.cu``, the
@@ -340,9 +343,9 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
             **{f"flash_ablate_{m}_core": (fp, f"launches_ablate_{m}") for m in fp.ABLATE_MODES},
             # dots' check-only instance: launched by the check alone, on no path
             "flash_ablate_dots_check": (fp, "launches_ablate_dots_check_tc"),
-            **{f"flash_variant_{v}": (fp, f"launches_variant_{v}") for v in "ab"},
-            "flash_variant_c": (fp, "launches_variant_c_tc"),
-            "flash_variant_c_f32": (fp, "launches_variant_c_f32"),
+            # rows 9 a, b (the query-major kernel) and c (its own), bf16 and float32
+            **{f"flash_variant_{v}": (fp, f"launches_variant_{v}_tc") for v in "abc"},
+            **{f"flash_variant_{v}_f32": (fp, f"launches_variant_{v}_f32") for v in "abc"},
             "flash_variant_d": (fp, "launches_variant_d_tc"),
             "flash_variant_d_core": (fp, "launches_variant_d"),
             **{f"mm_loop_{lay}": (mp, f"launches_{lay}") for lay in mp.LAYOUTS},
@@ -1703,15 +1706,18 @@ def _variant_cases(g, rows, failures):
     """TPU kernel 9's layouts a, b, c and a with pv_bf16 (d) against their
     plain versions (d with the kernels' 64-key blocks of the running max):
     bf16 within one output ulp (d on the tensor cores, before the final
-    rounding), float32 within 1e-4.  c runs on its own kernel in both
-    dtypes (``flash_variant_c`` in bf16, its scores' product on the tensor
-    cores; ``flash_variant_c_f32``), a and b on the template (one name for
-    both dtypes), d as ``_probe_name`` names it.  The TPU kernels upcast q, k, v before
-    both products, but the scale can follow the QK product: with bf16
-    inputs it is a product of bf16 values, bound at the bf16 rate for a, b,
-    c and d alike; PV takes float32 p in a, b and c (the float32 rate), bf16
-    p and v in d (the bf16 rate).  Float32 inputs: both at the float32
-    rate.  Library call: SDPA on the float32-upcast inputs (a, b, c), SDPA
+    rounding), float32 within 1e-4.  a and b run on the query-major kernel
+    in both dtypes, c on its own (``flash_variant_{a,b,c}`` in bf16, their
+    scores' product on the tensor cores; ``..._f32``), float32 d on the
+    query-major kernel, bf16 d on the tensor cores (``_probe_name`` names
+    it).  The kernels of ``csrc/flash_variants.cu`` (a, b, c, float32 d)
+    are relaunched and must give the same bits, and b's output must be a's
+    transposed, bit for bit (one arithmetic, two stores).  The TPU kernels
+    upcast q, k, v before both products, but the scale can follow the QK
+    product: with bf16 inputs it is a product of bf16 values, bound at the
+    bf16 rate for a, b, c and d alike; PV takes float32 p in a, b and c (the
+    float32 rate), bf16 p and v in d (the bf16 rate).  Float32 inputs: both
+    at the float32 rate.  Library call: SDPA on the float32-upcast inputs (a, b, c), SDPA
     in the inputs' dtype (d)."""
     for shape, dtype in VARIANT_SHAPES:
         bh, s, d = shape
@@ -1723,6 +1729,7 @@ def _variant_cases(g, rows, failures):
         del q32, k32, v32
         nbytes = 4 * bh * s * d * q.element_size()
         product = 2 * bh * s * s * d
+        outs = {}
         for name in ("a", "b", "c", "d"):
             if name in "ad":
                 kernel = functools.partial(fp.flash_variant_a_cuda, pv_bf16=name == "d")
@@ -1730,7 +1737,7 @@ def _variant_cases(g, rows, failures):
             else:
                 kernel = getattr(fp, f"flash_variant_{name}_cuda")
                 plain = getattr(fp, f"flash_variant_{name}_reference")
-            got = kernel(q, k, v)
+            got = outs[name] = kernel(q, k, v)
             want = (_probe_plain(plain, (q, k, v), dtype) if name == "d"
                     else lambda: plain(q, k, v))()
             torch.cuda.synchronize()
@@ -1739,16 +1746,26 @@ def _variant_cases(g, rows, failures):
             pv_type = dtype if name == "d" else torch.float32
             bound_ms, by = bound(nbytes, (product, dtype), (product, pv_type))
             kname = (_probe_name("flash_variant_d", dtype) if name == "d" else
-                     "flash_variant_c_f32" if name == "c" and dtype == torch.float32 else
-                     f"flash_variant_{name}")
-            _row(rows, failures, kname,
-                 f"flash variant {name} q{list(shape)} {str(dtype)[6:]}",
-                 err <= tol and bool(torch.isfinite(got).all()), max_abs_err=err, tol=tol,
-                 ms=cuda_ms(lambda: kernel(q, k, v)), plain_ms=cuda_ms(lambda: plain(q, k, v)),
+                     f"flash_variant_{name}{'_f32' if dtype == torch.float32 else ''}")
+            extra, same = {}, True
+            if name != "d" or dtype == torch.float32:  # csrc/flash_variants.cu
+                same = _relaunch_same(lambda: (kernel(q, k, v),), (got,))
+                extra["relaunch_bit_identical"] = same
+            if name == "b":
+                extra["transpose_of_a_bit_identical"] = torch.equal(got,
+                                                                    outs["a"].transpose(-1, -2))
+                same &= extra["transpose_of_a_bit_identical"]
+            label = f"flash variant {name} q{list(shape)} {str(dtype)[6:]}"
+            if extra:
+                print(f"{label}: {extra}")
+            _row(rows, failures, kname, label,
+                 err <= tol and same and bool(torch.isfinite(got).all()), max_abs_err=err,
+                 tol=tol, ms=cuda_ms(lambda: kernel(q, k, v)),
+                 plain_ms=cuda_ms(lambda: plain(q, k, v)),
                  library_ms=lib if name == "d" else lib32, bound_ms=bound_ms, bound_by=by,
-                 shape=list(shape))
+                 shape=list(shape), **extra)
             del got, want
-        del q, k, v
+        del q, k, v, outs
         torch.cuda.empty_cache()
 
 
@@ -1830,8 +1847,8 @@ def phase_probes(rows):
     own path: the five probe entry points (``hedit_tpu_torch.probes``), each
     driven once with the counts at 0 before and read after, and the four
     flash ones once more in float32 (``..._f32``: the template's instances
-    of rows 8 ``exp`` / ``noprolog``, 9 d, 10 and 11, which bf16 no longer
-    reaches).  Returns ({probe: counts}, failures)."""
+    of rows 8, 10 and 11, which bf16 no longer reaches, and the float32
+    instances of rows 9 a-d).  Returns ({probe: counts}, failures)."""
     from hedit_tpu_torch.probes import (
         flash_ablate, flash_nhd_variants, flash_v4_variants, flash_variants, mm_probe,
     )
@@ -1865,17 +1882,18 @@ def phase_probes(rows):
         counts[name] = read_launches()
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
         print(f"probe {name} launches: {json.dumps(counts[name])}")
-    # rows 8, 9 d, 10 and 11: bf16 chains and loops on the tensor cores,
-    # float32 ones on the template, never the other; dots' check instance on
-    # neither path; rows 9 a and b on the template in both; row 9 c on its
-    # kernel, the bf16 instance on the bf16 path and the float32 one on the
-    # float32 path; row 6, the v4 probe's base, on the tensor cores or the
-    # float32 kernel, never the template
+    # rows 8, 10 and 11: bf16 chains and loops on the tensor cores, float32
+    # ones on the template, never the other; dots' check instance on neither
+    # path; row 9: bf16 d on the tensor cores, a, b, c and float32 d on the
+    # kernels of csrc/flash_variants.cu, the bf16 instances on the bf16 path
+    # and the float32 ones on the float32 path; row 6, the v4 probe's base,
+    # on the tensor cores or the float32 kernel, never the template
     tc = tuple(f"flash_{lay}" for lay in fp._LAYOUTS)
     core = tuple(f"{n}_core" for n in tc)
     ablate_tc = tuple(f"flash_ablate_{m}" for m in fp.ABLATE_MODES)
     ablate_core = tuple(f"{n}_core" for n in ablate_tc)
-    variants = ("flash_variant_a", "flash_variant_b")
+    variants = ("flash_variant_a", "flash_variant_b", "flash_variant_c")
+    variants_f32 = tuple(f"{n}_f32" for n in variants)
     # row 12: bf16 on the tensor cores, float32 on the CUDA-core kernel
     mm_tc = tuple(f"mm_loop_{lay}" for lay in mp.LAYOUTS)
     mm_core = tuple(f"{n}_core" for n in mm_tc)
@@ -1892,10 +1910,10 @@ def phase_probes(rows):
              ("flash_exp2_t", "flash_attention_exact_core")),
             ("flash_ablate", ablate_tc, ablate_core + ("flash_ablate_dots_check",)),
             ("flash_ablate_f32", ablate_core, ablate_tc + ("flash_ablate_dots_check",)),
-            ("flash_variants", variants + ("flash_variant_c", "flash_variant_d"),
-             ("flash_variant_c_f32", "flash_variant_d_core")),
-            ("flash_variants_f32", variants + ("flash_variant_c_f32", "flash_variant_d_core"),
-             ("flash_variant_c", "flash_variant_d")),
+            ("flash_variants", variants + ("flash_variant_d",),
+             variants_f32 + ("flash_variant_d_core",)),
+            ("flash_variants_f32", variants_f32 + ("flash_variant_d_core",),
+             variants + ("flash_variant_d",)),
             ("mm_probe", mm_tc, mm_core), ("mm_probe_f32", mm_core, mm_tc)):
         seen = counts[name]
         if min(seen[n] for n in launched) <= 0 or any(seen[n] for n in idle):
@@ -2831,6 +2849,7 @@ def main(argv=None) -> int:
                                            "core_ms", "matmuls_ms", "bound_7_products_ms",
                                            "dq_run_to_run", "dkv_bit_identical", "dkv_ms", "dq_ms",
                                            "relaunch_bit_identical", "lse_max_rel_err",
+                                           "transpose_of_a_bit_identical",
                                            "max_err_over_tol", "excused_rows", "row_count",
                                            "negative_sum_rows", "check_bit_identical",
                                            "score_err_over_tol", "sums_differing_rows",
@@ -2919,12 +2938,12 @@ def main(argv=None) -> int:
         *(entry(f"flash_ablate_{m}_core", "cuda", probes_cu, "scripts/flash_ablate.py:34",
                 "flash_ablate_f32") for m in fp.ABLATE_MODES),
         *(entry(f"flash_variant_{v}", "cuda", variants_cu,
-                f"scripts/flash_variants.py:{line}", "flash_variants")
-          for v, line in (("a", 31), ("b", 61))),
-        entry("flash_variant_c", "cuda", variants_cu, "scripts/flash_variants.py:87",
-              "flash_variants", cores="tensor (mma.sync, bf16) for the scores, CUDA for PV"),
-        entry("flash_variant_c_f32", "cuda", variants_cu, "scripts/flash_variants.py:87",
-              "flash_variants_f32"),
+                f"scripts/flash_variants.py:{line}", "flash_variants",
+                cores="tensor (mma.sync, bf16) for the scores, CUDA for PV")
+          for v, line in (("a", 31), ("b", 61), ("c", 87))),
+        *(entry(f"flash_variant_{v}_f32", "cuda", variants_cu,
+                f"scripts/flash_variants.py:{line}", "flash_variants_f32")
+          for v, line in (("a", 31), ("b", 61), ("c", 87))),
         entry("flash_variant_d", "cuda", probes_tc_cu, "scripts/flash_variants.py:31",
               "flash_variants"),
         entry("flash_variant_d_core", "cuda", variants_cu, "scripts/flash_variants.py:31",

@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the bf16 kernels
-// (flash_attention_tc.cu, flash_attention_bwd_tc.cu, flash_probes_tc.cu,
+// (flash_attention_tc.cu, flash_attention_bwd_tc.cu, flash_probes_tc.cu, flash_variants.cu,
 // mm_probe_tc.cu):
 // cp.async copies into shared memory, ldmatrix fragment loads and the
 // mma.sync m16n8k16 product (bf16 operands, float32 accumulators).
@@ -79,6 +79,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b: a 16 x 8 bf16 (row), b 8 x 8 bf16 (col), c 16 x 8 float32; the
+// fragments are the first halves of m16n8k16's: a[0] row g, cols 2t, 2t+1,
+// a[1] row g+8; b0 rows 2t, 2t+1 of col g
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], unsigned a0, unsigned a1,
+                                            unsigned b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 }  // namespace

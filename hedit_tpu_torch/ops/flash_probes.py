@@ -38,16 +38,22 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   script's ``[B*H, S, D]`` operands, in three layouts
   (``csrc/flash_variants.cu``):
 
-  - ``flash_variant_a_cuda``: ``[Sq, D]`` accumulator and output
-    (``kern_a``); ``pv_bf16=True`` rounds p to bf16 for the PV product (the
-    script's ``d_bf16pv``), in bf16 on the tensor cores
-    (``csrc/flash_probes_tc.cu``, ``variant_entry``);
-  - ``flash_variant_b_cuda``: a transposed ``[D, Sq]`` accumulator and
-    output (``kern_b``);
+  - ``flash_variant_a_cuda``: ``[Sq, D]`` output (``kern_a``);
+    ``pv_bf16=True`` rounds p to bf16 for the PV product (the script's
+    ``d_bf16pv``), in bf16 on the tensor cores (``csrc/flash_probes_tc.cu``,
+    ``variant_entry``);
+  - ``flash_variant_b_cuda``: a transposed ``[D, Sq]`` output (``kern_b``);
   - ``flash_variant_c_cuda``: key-major scores, softmax down the key axis,
     transposed output (``kern_c``), a kernel of its own in both dtypes
-    (``hedit_flash_variant_c``: bf16 scores on the tensor cores, float32
-    ones and PV on the CUDA cores).
+    (``hedit_flash_variant_c``).
+
+  a, b and float32 a with ``pv_bf16`` share one query-major kernel
+  (``hedit_flash_variant``): softmax along the row inside a warp, PV on the
+  CUDA cores.  Both kernels take the scores' product on the tensor cores in
+  bf16 and by FMAs in float32, copy 16 bytes at a time (every operand
+  16-byte aligned) and count their launches a dtype
+  (``launches_variant_{a,b,c}_tc`` / ``_f32``; float32 d
+  ``launches_variant_d``).
 
 ``[B*H, D, Sq]`` and ``[B, H*D, Sq]`` are the same memory: head h of batch
 row b is rows ``h*D .. (h+1)*D`` of that row's image, so the kernels write
@@ -89,10 +95,12 @@ launches_ablate_dots_tc = 0           # the same three in bf16 on the tensor cor
 launches_ablate_exp_tc = 0
 launches_ablate_noprolog_tc = 0
 launches_ablate_dots_check_tc = 0     # dots' check-only instance (scores and sums stored)
-launches_variant_a = 0
-launches_variant_d = 0      # kern_a with pv_bf16 (the script's d_bf16pv)
-launches_variant_d_tc = 0   # the same in bf16 on the tensor cores
-launches_variant_b = 0
+launches_variant_a_tc = 0   # kern_a: bf16 (scores on the tensor cores), the query-major kernel
+launches_variant_a_f32 = 0  # kern_a: float32, the same kernel
+launches_variant_b_tc = 0   # kern_b: bf16, the same kernel
+launches_variant_b_f32 = 0  # kern_b: float32, the same kernel
+launches_variant_d = 0      # kern_a with pv_bf16 (the script's d_bf16pv): float32, the same kernel
+launches_variant_d_tc = 0   # the same in bf16 on the tensor cores (csrc/flash_probes_tc.cu)
 launches_variant_c_tc = 0   # kern_c: bf16 (scores on the tensor cores)
 launches_variant_c_f32 = 0  # kern_c: float32, the same kernel
 
@@ -250,9 +258,10 @@ def ablate_entry(dtype: torch.dtype, mode: str) -> str:
 def variant_entry(dtype: torch.dtype, name: str) -> str:
     """The CUDA entry point of variant ``name`` (``a``-``d``) for an input
     of ``dtype``: ``c`` its own kernel in both dtypes
-    (``hedit_flash_variant_c``), bfloat16 ``d`` the tensor-core kernel, the
-    rest the template (``csrc/flash_variants.cu``).  Raises for any other
-    dtype or name."""
+    (``hedit_flash_variant_c``), bfloat16 ``d`` the tensor-core kernel
+    (``csrc/flash_probes_tc.cu``), the rest the query-major kernel
+    (``hedit_flash_variant``, ``csrc/flash_variants.cu``).  Raises for any
+    other dtype or name."""
     if name not in _VARIANTS:
         raise ValueError(f"variant must be one of {tuple(_VARIANTS)}, not {name!r}")
     entry = _tc_or_template(dtype, "hedit_flash_variant", "the variants", tc=name == "d")
@@ -704,19 +713,21 @@ def _variant(q, k, v, name: str) -> torch.Tensor:
         raise ValueError(f"{what}: q, k, v must be contiguous")
     out = torch.empty((bh, d, sq) if transposed else (bh, sq, d), dtype=q.dtype,
                       device=q.device)
-    if name != "c":
-        _launch_probe(variant_entry(q.dtype, name), f"launches_variant_{name}", q,
-                      (q, k, v, out), (bh, sq, sk, d, code), d, [sq, sk])
-        return out
-    # row 9 c's kernel copies 16 bytes at a time in either dtype
-    addresses = [t.data_ptr() for t in (q, k, v, out)]
     bf16 = q.dtype == torch.bfloat16
+    if name == "d" and bf16:
+        _launch_probe(variant_entry(q.dtype, name), "launches_variant_d", q, (q, k, v, out),
+                      (bh, sq, sk, d, code), d, [sq, sk])
+        return out
+    # the query-major kernel and row 9 c's copy 16 bytes at a time in either dtype
+    addresses = [t.data_ptr() for t in (q, k, v, out)]
     if bf16:
         check_tc_operands(d, addresses, [sq, sk])
     else:
         check_f32_operands(d, addresses, [sq, sk], None)
-    _launch(variant_entry(q.dtype, name), q, (q, k, v, out), (bh, sq, sk, d))
-    globals()["launches_variant_c_tc" if bf16 else "launches_variant_c_f32"] += 1
+    _launch(variant_entry(q.dtype, name), q, (q, k, v, out),
+            (bh, sq, sk, d) if name == "c" else (bh, sq, sk, d, code))
+    counter = "d" if name == "d" else f"{name}_{'tc' if bf16 else 'f32'}"
+    globals()[f"launches_variant_{counter}"] += 1
     return out
 
 
@@ -725,12 +736,14 @@ def flash_variant_a_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``kern_a``: q, k, v [BH, S, D] -> [BH, Sq, D].  The kernels move their
     running max once a 64-key tile: the plain version is
     ``flash_variant_a_reference`` with its default block.  bf16 with
-    ``pv_bf16`` runs on the tensor cores (``variant_entry``)."""
+    ``pv_bf16`` runs on the tensor cores, the rest on the query-major kernel
+    (``variant_entry``)."""
     return _variant(q, k, v, "d" if pv_bf16 else "a")
 
 
 def flash_variant_b_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``kern_b``: q, k, v [BH, S, D] -> [BH, D, Sq], a transposed accumulator."""
+    """``kern_b``: q, k, v [BH, S, D] -> [BH, D, Sq], a transposed output
+    (the query-major kernel: a's arithmetic, b's stores)."""
     return _variant(q, k, v, "b")
 
 

@@ -1,4 +1,4 @@
-"""Rows 8-11 (ablations, variants c and d, exact exp2, bounded probes) in bf16 on the tensor cores.
+"""Rows 8-11 (ablations, the variants, exact exp2, bounded probes) on the card, beside the parent's.
 
     python -m hedit_tpu_torch.probes.flash_probe_tiles [--parent DIR]
 
@@ -30,11 +30,13 @@ Times ``csrc/flash_probes_tc.cu`` on the card:
   ``pv_bf16``) at the probe's [32, 4096, 40], and at each of ``VARIANTS``
   (its budget is the exact loops' ``EXP2_MINB_40``); SDPA in bf16 beside
   it;
-* row 9 c (entry point ``hedit_flash_variant_c``, ``kern_c``, in
-  ``csrc/flash_variants.cu``) at ``VARIANT_C_CASES``: the probe's [32,
-  4096, 40] in bf16 and the smoke's [8, 4096, 40] in float32, beside SDPA
-  on the float32 inputs and the bound (QK at the inputs' rate, PV at 67
-  TFLOP/s).
+* rows 9 a, b (entry point ``hedit_flash_variant``, codes 0 and 2, the
+  query-major kernel of ``csrc/flash_variants.cu``), float32 9 d (code 1,
+  the same kernel) and 9 c (``hedit_flash_variant_c``) at
+  ``VARIANT_CORE_CASES``: the probe's [32, 4096, 40] in bf16 and the
+  smoke's [8, 4096, 40] in float32, beside SDPA on the float32 inputs and
+  the bound (QK at the inputs' rate, PV at 67 TFLOP/s; float32 d's PV at
+  67 too: JAX promotes its bf16 p to the float32 v).
 
 Each kernel is launched through its entry point without the wrappers' host
 checks (CUDA-event means of 20 launches, best of 3), beside SDPA on the same
@@ -45,19 +47,20 @@ rounding (largest error over 2^-8 of the largest value, as
 and spills of each instance.
 
 ``--parent DIR``: a checkout of an earlier commit of this repository (for
-example ``git archive <commit> | tar -x -C DIR``).  Its CUDA-core
-templates' entries (``csrc/flash_probes.cu``, ``csrc/flash_variants.cu``:
-the rows before they moved; this tree's templates refuse them) are timed in
-turns with this tree's kernels (parent, this, this, parent) where the
-parent's template still takes them: bf16 ``dots`` and row 9 c in both
-dtypes among them.  Its ``csrc/flash_attention_tc.cu``,
+example ``git archive <commit> | tar -x -C DIR``).  Its entries of the
+rows this tree moved (``csrc/flash_probes.cu``: bf16 rows 8, 10, 11, which
+this tree's template refuses; ``csrc/flash_variants.cu``: rows 9 a, b and
+float32 d on the parent's kernel, and row 9 c where the parent has its
+entry) are timed in turns with this tree's kernels (parent, this, this,
+parent) where the parent takes the call.  Its ``csrc/flash_attention_tc.cu``,
 ``csrc/flash_probes_tc.cu``, ``csrc/flash_probes.cu`` and
 ``csrc/flash_variants.cu`` are built beside this tree's, and these outputs
 of the two must agree bit for bit: the bounded, LSE and exact tensor-core
 forwards on the smoke's inputs (``flash_exact_tiles.identity``), rows 8
-``exp`` / ``noprolog``, 9 d, 10 and 11a-c on the tensor cores, and the
-template instances this tree keeps (rows 8, 9 d, 10, 11 in float32, rows 9
-a and b in both dtypes; ``kept_identity``).  The probe exits non-zero if
+``exp`` / ``noprolog``, 9 d, 10 and 11a-c on the tensor cores, the template
+instances this tree keeps (rows 8, 10, 11 in float32) and row 9 c in both
+dtypes (``kept_identity``; rows 9 a, b and float32 d changed kernels, so
+they are held to their plain versions only).  The probe exits non-zero if
 any differs.
 """
 
@@ -97,10 +100,10 @@ ABLATE_CASES = ((4, 32, 4096, 40), (4, 32, 1024, 80))
 ABLATE_MINB = 4
 # row 9 d's [B*H, S, D]
 VARIANT_SHAPE = (32, 4096, 40)
-# row 9 c's: the probe's in bf16, the smoke's float32 case
-VARIANT_C_CASES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.float32))
+# rows 9 a, b, c and float32 d: the probe's in bf16, the smoke's float32 case
+VARIANT_CORE_CASES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.float32))
 PEAK_FLOPS = 989e12
-# the rate of each type's products (row 9 c: QK in the inputs' type, PV in float32)
+# the rate of each type's products (rows 9 a-c: QK in the inputs' type, PV in float32)
 RATES = {torch.bfloat16: PEAK_FLOPS, torch.float32: 67e12}
 
 
@@ -128,21 +131,21 @@ def _err(out, plain):
     return (out.float() - plain).abs().max().item() / (2.0 ** -8 * plain.abs().max().item())
 
 
-def _turns(mine, parent, entry, args, out, ints, parent_ints=None):
+def _turns(mine, parent, entry, args, out, ints):
     """(who, call) pairs in turns: parent, this, this, parent; this alone
-    where there is no parent, or its ``entry`` refuses the call (the
-    S-minor layouts left the parent's template in bf16 before).  The
-    parent's call takes ``parent_ints`` where its entry's differ."""
+    where there is no parent, it has no ``entry`` or its ``entry`` refuses
+    the call (the S-minor layouts left the parent's template in bf16
+    before)."""
     turns = [("this tree", mine)]
-    if parent is None:
+    if parent is None or not hasattr(parent, entry):
         return turns
-    core = _entry_call(parent, entry, args, torch.empty_like(out), parent_ints or ints)
+    theirs = _entry_call(parent, entry, args, torch.empty_like(out), ints)
     try:
-        core()
+        theirs()
     except RuntimeError as e:
         print(f"  the parent's {entry} takes no such call ({e}): no parent turns")
         return turns
-    return [("parent template", core), *turns, *turns, ("parent template", core)]
+    return [("parent", theirs), *turns, *turns, ("parent", theirs)]
 
 
 def _timed(label, turns, sdpa, bound_ms, err, extra=""):
@@ -313,33 +316,42 @@ def variant_timings(mine, parent, variants):
              "minb_ms": [[VARIANTS[i], x] for i, x in zip(order, t)]}]
 
 
-def variant_c_timings(mine, parent):
-    """Row 9 c at ``VARIANT_C_CASES`` (``hedit_flash_variant_c``), in turns
-    with the parent's template (``hedit_flash_variant``, variant 3) where
-    it has one; one record a case.  err_over_tol: bf16 over 2^-8 of the
-    largest value, float32 over 1e-4, against ``flash_variant_c_reference``."""
+def variant_core_timings(mine, parent):
+    """Rows 9 a, b, float32 d (``hedit_flash_variant``, codes 0, 2, 1) and c
+    (``hedit_flash_variant_c``) at ``VARIANT_CORE_CASES``, each in turns
+    with the parent's entry where it takes the call; one record a case and
+    variant.  err_over_tol: bf16 over 2^-8 of the largest value, float32
+    over 1e-4, against the plain versions (d with its 64-key blocks)."""
     records = []
-    for (bh, s, d), dtype in VARIANT_C_CASES:
+    for (bh, s, d), dtype in VARIANT_CORE_CASES:
         q, k, v = (t[0] for t in _qkv(1, bh, s, d, dtype=dtype))
         q32, k32, v32 = (t.float()[None] for t in (q, k, v))
         sdpa = best_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32))
         del q32, k32, v32
         bound_ms = 2 * bh * s * s * d * (1 / RATES[dtype] + 1 / RATES[torch.float32]) * 1e3
-        out = torch.empty(bh, d, s, dtype=dtype, device="cuda")
-        ints = (bh, s, s, d)
-        kernel = _entry_call(mine, "hedit_flash_variant_c", (q, k, v), out, ints)
-        kernel()
-        plain = fp.flash_variant_c_reference(q, k, v).float()
-        torch.cuda.synchronize()
-        err = ((out.float() - plain).abs().max().item() / 1e-4 if dtype == torch.float32
-               else _err(out, plain))
-        del plain
-        label = f"variant c q[{bh}, {s}, {d}] {str(dtype)[6:]}"
-        ms = _timed(label, _turns(kernel, parent, "hedit_flash_variant", (q, k, v), out, ints,
-                                  parent_ints=(bh, s, s, d, 3)), sdpa, bound_ms, err)
-        records.append({"probe": f"variant c {str(dtype)[6:]}", "shape": [bh, s, d],
-                        "turns": ms, "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
-        del q, k, v, out
+        names = "abc" + ("d" if dtype == torch.float32 else "")
+        for name in names:
+            code = {"a": 0, "d": 1, "b": 2}.get(name)
+            entry = "hedit_flash_variant" + ("_c" if name == "c" else "")
+            ints = (bh, s, s, d) if name == "c" else (bh, s, s, d, code)
+            out = torch.empty((bh, d, s) if name in "bc" else (bh, s, d), dtype=dtype,
+                              device="cuda")
+            kernel = _entry_call(mine, entry, (q, k, v), out, ints)
+            kernel()
+            plain = (fp.flash_variant_b_reference(q, k, v) if name in "bc" else
+                     fp.flash_variant_a_reference(q, k, v, pv_bf16=name == "d")).float()
+            torch.cuda.synchronize()
+            err = ((out.float() - plain).abs().max().item() / 1e-4 if dtype == torch.float32
+                   else _err(out, plain))
+            del plain
+            label = f"variant {name} q[{bh}, {s}, {d}] {str(dtype)[6:]}"
+            ms = _timed(label, _turns(kernel, parent, entry, (q, k, v), out, ints), sdpa,
+                        bound_ms, err)
+            records.append({"probe": f"variant {name} {str(dtype)[6:]}", "shape": [bh, s, d],
+                            "turns": ms, "sdpa_ms": sdpa, "bound_ms": bound_ms,
+                            "err_over_tol": err})
+            del out
+        del q, k, v
         torch.cuda.empty_cache()
     return records
 
@@ -357,8 +369,9 @@ def _same(mine, parent, entry, args, out_shape, ints):
 def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
     """The outputs this tree keeps from the parent, bit for bit: rows 11a-c,
     10, 8 ``exp`` / ``noprolog`` and 9 d on the tensor cores (bf16); the
-    template's rows 11, 10 and 8 in float32; rows 9 a and b in both dtypes
-    and 9 d in float32 (row 9 c and bf16 ``dots`` are new kernels)."""
+    template's rows 11, 10 and 8 in float32; row 9 c in both dtypes where
+    the parent has its kernel (rows 9 a, b and float32 d moved to the
+    query-major kernel)."""
     cases = []
     for b, h, s, d in ((2, 4, 1024, 40), (2, 3, 576, 80)):
         anchor = 64 * 3 if s % fp.BLK_K else fp.BLK_K
@@ -381,10 +394,9 @@ def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
                               (b * h, s, s, d, code), dtype))
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t[0] for t in _qkv(1, 8, 1024, 40, dtype=dtype))
-        for code in (0, 2) + ((1,) if dtype == torch.float32 else ()):
-            shape = (8, 40, 1024) if code == 2 else (8, 1024, 40)
-            cases.append((f"hedit_flash_variant {code}", parent_variants, "hedit_flash_variant",
-                          (q, k, v), shape, (8, 1024, 1024, 40, code), dtype))
+        if hasattr(parent_variants, "hedit_flash_variant_c"):
+            cases.append(("hedit_flash_variant_c", parent_variants, "hedit_flash_variant_c",
+                          (q, k, v), (8, 40, 1024), (8, 1024, 1024, 40), dtype))
         if dtype == torch.bfloat16:
             cases.append(("hedit_flash_variant_tc 1", parent_tc, "hedit_flash_variant_tc",
                           (q, k, v), (8, 1024, 40), (8, 1024, 1024, 40, 1), dtype))
@@ -407,7 +419,7 @@ def main(argv=None) -> int:
     builds = [(TC_SOURCE, f"variant{i}", _build.CSRC, (f"EXP2_MINB_40={n}",))
               for i, n in enumerate(VARIANTS)]
     builds.append((TC_SOURCE, "ablate_minb", _build.CSRC, (f"ABLATE_MINB_40={ABLATE_MINB}",)))
-    # this tree's variants source alone, for its -Xptxas -v lines (row 9 c)
+    # this tree's variants source alone, for its -Xptxas -v lines (rows 9 a-c)
     builds.append((_build.CSRC / "flash_variants.cu", "variants", _build.CSRC, ()))
     parents = ("flash_probes.cu", "flash_variants.cu", "flash_attention_tc.cu",
                "flash_probes_tc.cu")
@@ -428,7 +440,7 @@ def main(argv=None) -> int:
     records += exp2_timings(mine, template, variants)
     records += ablate_timings(mine, template, built[n][0])
     records += variant_timings(mine, parent.get("flash_variants.cu"), variants)
-    records += variant_c_timings(mine, parent.get("flash_variants.cu"))
+    records += variant_core_timings(mine, parent.get("flash_variants.cu"))
     print(json.dumps({"flash_probe_tiles": records}))
     if args.parent is not None and not (
             identity(mine, parent["flash_attention_tc.cu"], exact=True)

@@ -15,8 +15,10 @@ Each variant computes exact attention in float32 (q upcast and scaled by
 * d_bf16pv: a, with p rounded to bf16 for the PV product (in bf16 on the
   tensor cores, ``csrc/flash_probes_tc.cu``).
 
-a, b and float32 d run on the CUDA-core template ``csrc/flash_variants.cu``;
-``run(dtype=torch.float32)`` runs all four in float32.
+a, b and float32 d run on one query-major kernel (``hedit_flash_variant`` in
+``csrc/flash_variants.cu``: in bf16 its scores' product on the tensor
+cores, PV on the CUDA cores); ``run(dtype=torch.float32)`` runs all four
+in float32.
 
 The script draws q, k and v from one ``PRNGKey(0)``, so q = k = v; here one
 tensor from numpy ``RandomState(seed)``, unit normal, serves as all three.

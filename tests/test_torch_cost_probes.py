@@ -295,8 +295,8 @@ def test_cost_probe_wrappers_take_the_plain_versions_on_cpu():
     and launches nothing; inputs the kernels cannot take raise on the CPU as
     on the card."""
     counters = ([f"launches_ablate_{m}{tc}" for m in fp.ABLATE_MODES for tc in ("", "_tc")]
-                + [f"launches_variant_{v}" for v in "abd"]
-                + ["launches_variant_c_tc", "launches_variant_c_f32", "launches_variant_d_tc"])
+                + [f"launches_variant_{v}_{t}" for v in "abc" for t in ("tc", "f32")]
+                + ["launches_variant_d", "launches_variant_d_tc"])
     before = ([getattr(fp, c) for c in counters],
               [getattr(mp, f"launches_{lay}") for lay in mp.LAYOUTS])
     (q, k, v), _ = _ablate_inputs("float32")

@@ -1,16 +1,18 @@
 """The bf16 tensor-core route of the bounded probes (TPU kernels 11a, 11b
 and 11c), of the exact exp2 probe (TPU kernel 10, both key loops), of the
 ablations ``dots``, ``exp`` and ``noprolog`` (TPU kernel 8) and of
-``kern_a`` with ``pv_bf16`` (TPU kernel 9 d), and row 9 c's kernel
-(``kern_c``, ``csrc/flash_variants.cu``, both dtypes), on the CPU.
+``kern_a`` with ``pv_bf16`` (TPU kernel 9 d), and the kernels of
+``csrc/flash_variants.cu`` in both dtypes (rows 9 a, b and float32 d on
+the query-major kernel, row 9 c on its own), on the CPU.
 
 The kernels (``hedit_tpu_torch/csrc/flash_probes_tc.cu``) run only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
 * the dispatch by dtype (``probe_entry``, ``exp2_entry``, ``ablate_entry``,
   ``variant_entry``), as values: bf16 to the tensor-core entry points (but
-  variants a-c), float32 to the CUDA-core templates (but variant c, its own
-  kernel in both), anything else refused; CPU tensors take the plain
+  variants a-c), float32 to the CUDA-core templates (but the variants:
+  ``hedit_flash_variant`` for a, b and d, ``hedit_flash_variant_c`` for c,
+  in both dtypes), anything else refused; CPU tensors take the plain
   versions and launch nothing;
 * the C entry points' parameter lists, read from the source, against the
   ``ctypes`` argument types the loader gives them (the sources cannot be
@@ -36,7 +38,12 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 * row 9 c's order of work: exact bf16 products, the scale (times log2(e))
   after the product, key-major scores, the column max and sum down the key
   axis, the running max over 64-key tiles, exp2, float32 PV; held against
-  ``flash_variant_c_reference`` and ``kern_c`` in interpret mode.
+  ``flash_variant_c_reference`` and ``kern_c`` in interpret mode;
+* rows 9 a, b and float32 d in the query-major kernel's order: 128-query
+  blocks, the row max and sum, the scale after the product with exp2 (a,
+  b) or the template's order (d, p rounded to bf16 for PV); held against
+  the plain versions and ``kern_a`` / ``kern_b`` / ``kern_a(pv_bf16=True)``
+  in interpret mode.
 
 The cases run as loops inside few items: pytest-xdist's loadfile scheduler
 queues test files by their number of items.
@@ -110,7 +117,7 @@ def test_probe_entry_dispatch_and_cpu_tensors():
     with pytest.raises(ValueError, match="layout"):
         fp.probe_entry(torch.bfloat16, "sminor")
     # rows 8 and 9: bf16 dots, exp, noprolog and d on the tensor cores; c on
-    # its own kernel in both dtypes; a and b on the template in both
+    # its own kernel in both dtypes; a, b and float32 d on the query-major one
     for mode in fp.ABLATE_MODES:
         assert fp.ablate_entry(torch.bfloat16, mode) == "hedit_flash_ablate_t_tc"
         assert fp.ablate_entry(torch.float32, mode) == "hedit_flash_ablate_t"
@@ -132,7 +139,8 @@ def test_probe_entry_dispatch_and_cpu_tensors():
     assert ({f"launches_{layout}_tc" for layout in LAYOUTS}
             | {"launches_exp2_t_tc", "launches_ablate_dots_tc", "launches_ablate_exp_tc",
                "launches_ablate_noprolog_tc", "launches_ablate_dots_check_tc",
-               "launches_variant_d_tc", "launches_variant_c_tc", "launches_variant_c_f32"}
+               "launches_variant_d_tc", "launches_variant_d"}
+            | {f"launches_variant_{v}_{t}" for v in "abc" for t in ("tc", "f32")}
             <= set(names))
     counts = {n: getattr(fp, n) for n in names}
     for dtype in (torch.bfloat16, torch.float32):
@@ -677,3 +685,80 @@ def test_tiled_variant_c_matches_the_plain_version_and_jax():
                                                               for a in arrays)))
             tol = 2e-5 if dtype == torch.float32 else _tol(want.numpy(), rounded=True)
             torch.testing.assert_close(got, want, rtol=0, atol=tol, msg=where)
+
+
+def _tiled_variant_ab(q, k, v, name):
+    """Rows 9 a, b and float32 d in the query-major kernel's order of work,
+    plain torch, float32 arithmetic, from q, k, v [BH, S, D] (bf16 or
+    float32): blocks of 128 queries (the last padded with zero queries), for
+    each tile of 64 keys the query-major scores of the block.  a and b: the
+    products of the unscaled inputs (exact for bf16), times c = sm_scale
+    log2(e) rounded to float32 after the product, the running max of each
+    row from -1e30, alpha = exp2(m - m_new), p = exp2(s c - m_new).  d
+    (``pv_bf16``, float32 only): the template's order, q times sm_scale
+    before the product, alpha and p by exp.  Then l = l alpha + the row sum
+    of the unrounded p, acc = acc alpha + p v in float32 with p rounded to
+    bf16 for d; out = acc / l before the final rounding, [BH, Sq, D] (a, d)
+    or [BH, D, Sq] (b)."""
+    bh, sq, d = q.shape
+    blocks = -(-sq // 128) * 128
+    natural = name == "d"
+    sm_scale = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32)
+    c = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=torch.float32)
+    qs = F.pad(q.float() * sm_scale if natural else q.float(), (0, 0, 0, blocks - sq))
+    exp = torch.exp if natural else torch.exp2
+    m = torch.full((bh, blocks, 1), -1e30)
+    den = torch.zeros((bh, blocks, 1))
+    acc = torch.zeros((bh, blocks, d))
+    for k0 in range(0, k.shape[1], BK):
+        s = qs @ k[:, k0:k0 + BK].float().mT                  # [BH, queries, keys]
+        s = s if natural else s * c
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = exp(m - m_new)
+        p = exp(s - m_new)
+        den = den * alpha + p.sum(dim=-1, keepdim=True)
+        pv = p.to(torch.bfloat16).float() if natural else p
+        acc = acc * alpha + pv @ v[:, k0:k0 + BK].float()
+        m = m_new
+    out = acc / den
+    assert torch.isfinite(out).all()   # the zero queries past Sq too
+    out = out[:, :sq]
+    return out.mT if name == "b" else out
+
+
+def test_tiled_variant_ab_matches_the_plain_versions_and_jax():
+    """Rows 9 a and b in bf16 and float32 and row 9 d in float32 in the
+    query-major kernel's order of work (``_tiled_variant_ab``) at [2, 256,
+    40] and a ragged Sq of 320 (its last 128-query block half past Sq),
+    against ``flash_variant_a_reference`` / ``flash_variant_b_reference``
+    (bf16: one output ulp of the largest output; float32: 2e-5, summation
+    order and, for a and b, the base-2 exp after the scale; d takes the
+    plain version's own order, so its p rounds to bf16 at the same points)
+    and, at S = 256, ``kern_a``, ``kern_b`` and ``kern_a(pv_bf16=True)`` in
+    interpret mode (the script's ``BLK_K`` set to the kernel's 64-key tile;
+    bf16 adds half an ulp for JAX's rounded output).  a's rendering is b's
+    transposed, bit for bit, as the kernel's outputs are."""
+    variants = _import_quietly("flash_variants")
+    for sq in (256, 320):
+        rng = np.random.RandomState(sq + 1)
+        arrays = [rng.randn(2, s, 40).astype(np.float32) for s in (sq, 256, 256)]
+        for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+            ops = [torch.from_numpy(a).to(dtype) for a in arrays]
+            got = {}
+            for name in "abd" if dtype == torch.float32 else "ab":
+                where = f"kern_{name} Sq={sq} {dtype}"
+                got[name] = _tiled_variant_ab(*ops, name)
+                plain = (fp.flash_variant_b_reference(*ops) if name == "b" else
+                         fp.flash_variant_a_reference(*ops, pv_bf16=name == "d")).float()
+                assert got[name].shape == plain.shape == ((2, 40, sq) if name == "b"
+                                                          else (2, sq, 40)), where
+                tol = 2e-5 if dtype == torch.float32 else _tol(plain.numpy())
+                torch.testing.assert_close(got[name], plain, rtol=0, atol=tol, msg=where)
+                if sq != 256:
+                    continue
+                with _blk_k(variants, BK):
+                    want = _f32_jax(_jax_variant(variants, name, *(jnp.asarray(a).astype(jdtype)
+                                                                   for a in arrays)))
+                tol = 2e-5 if dtype == torch.float32 else _tol(want.numpy(), rounded=True)
+                torch.testing.assert_close(got[name], want, rtol=0, atol=tol, msg=where)
+            assert torch.equal(got["a"], got["b"].mT), f"Sq={sq} {dtype}"

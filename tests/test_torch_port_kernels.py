@@ -880,8 +880,8 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
     # those or a scores pointer off 8 bytes; row 9: variant 1 (d) in bf16 at
     # d = 40 into [BH, Sq, D], not variants 0, 2, 3, float32, d = 80 or a
     # misaligned pointer.  The templates refuse bf16 dots, exp, noprolog and
-    # d, and kern_c (3) in either dtype; kern_c's own entry takes both
-    # dtypes at d = 40, aligned
+    # d; hedit_flash_variant refuses kern_c (3) in either dtype; kern_c's
+    # own entry takes both dtypes at d = 40, aligned
     ablate, variant = lib.hedit_flash_ablate_t_tc, lib.hedit_flash_variant_tc
     check = lib.hedit_flash_ablate_dots_check_tc
     for mode in (0, 1, 2):
@@ -909,6 +909,19 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
                                 (0, 40, 256, 4)):
         assert lib.hedit_flash_variant_c(ptrs[0] + shift, *ptrs[1:], 2, sq, 256, d, dtype,
                                          stream) == -1
+    # rows 9 a, b (codes 0, 2, both dtypes) and float32 d (1) on the
+    # query-major kernel, aligned; not code -1, d = 80, Sq = 200, dtype 2 or
+    # a pointer off 16 bytes (q, k or out)
+    for dtype, pointers in ((0, ptrs32), (1, ptrs)):
+        for code in (0, 2) + ((1,) if dtype == 0 else ()):
+            assert lib.hedit_flash_variant(*pointers, 2, 256, 256, 40, code, dtype, stream) == 0
+        for code, d, sq, shift, which in ((-1, 40, 256, 0, 0), (0, 80, 256, 0, 0),
+                                          (2, 40, 200, 0, 0), (0, 40, 256, 4, 0),
+                                          (2, 40, 256, 8, 1), (0, 40, 256, 4, 3)):
+            moved = list(pointers)
+            moved[which] += shift
+            assert lib.hedit_flash_variant(*moved, 2, sq, 256, d, code, dtype, stream) == -1
+    assert lib.hedit_flash_variant(*ptrs, 2, 256, 256, 40, 0, 2, stream) == -1
 
     def misaligned(t):  # a dense copy of t two bytes past a 16-byte boundary
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
@@ -934,6 +947,12 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
     for t in (qb[0], q[0]):
         with pytest.raises(ValueError, match="aligned"):
             fp.flash_variant_c_cuda(t, t, misaligned(t))
+        with pytest.raises(ValueError, match="aligned"):
+            fp.flash_variant_a_cuda(misaligned(t), t, t)
+        with pytest.raises(ValueError, match="aligned"):
+            fp.flash_variant_b_cuda(t, misaligned(t), t)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_variant_a_cuda(q[0], q[0], misaligned(q[0]), pv_bf16=True)
     with pytest.raises(ValueError, match="bf16 only"):
         fp.flash_ablate_dots_check_cuda(q, q, q)
     torch.cuda.synchronize()
@@ -998,10 +1017,12 @@ def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
 def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, same):
     """TPU kernel 9's three layouts and ``pv_bf16`` (d) against their plain
     versions (d with the kernels' 64-key blocks of the running max;
-    tolerances of ``_tol``); ``same``: q = k = v, as the probe feeds them.
-    bf16 d runs on the tensor cores (its own counter, held before the final
-    rounding), c on its own kernel (a counter a dtype), the rest on the
-    CUDA-core template."""
+    tolerances of ``_tol``); ``same``: q = k = v, as the probe feeds them;
+    (1, 64): Sq half of a 128-query block.  bf16 d runs on the tensor cores
+    (its own counter, held before the final rounding), c on its own kernel,
+    a, b and float32 d on the query-major kernel (a, b, c: a counter a
+    dtype).  The kernels of ``csrc/flash_variants.cu`` give the same bits
+    when relaunched, and b's output is a's transposed, bit for bit."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     q, k, v = _probe_inputs(dtype, (bh, s, 40), seed=bh)
@@ -1009,7 +1030,7 @@ def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, 
         k = v = q
     tc = dtype == torch.bfloat16 and variant == "d"
     counter = f"launches_variant_{variant}{'_tc' if tc else ''}"
-    if variant == "c":
+    if variant != "d":
         counter += "_tc" if dtype == torch.bfloat16 else "_f32"
     names = [n for n in dir(fp) if n.startswith("launches_variant_")]
     before = {n: getattr(fp, n) for n in names}
@@ -1024,6 +1045,12 @@ def test_probe_variant_kernels_match_plain_on_card(cuda, dtype, variant, bh, s, 
     assert {n: getattr(fp, n) - before[n] for n in names} == {n: int(n == counter) for n in names}
     assert got.shape == want.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_tol(dtype, want))
+    if not tc:
+        again = (fp.flash_variant_a_cuda(q, k, v, pv_bf16=variant == "d") if variant in "ad"
+                 else getattr(fp, f"flash_variant_{variant}_cuda")(q, k, v))
+        assert torch.equal(again, got)
+    if variant == "b":
+        assert torch.equal(got, fp.flash_variant_a_cuda(q, k, v).transpose(-1, -2))
 
 
 @pytest.mark.gpu
