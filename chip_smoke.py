@@ -72,10 +72,13 @@ the final result line:
 4. the probes (TPU kernels 10, 11, 8, 9 and 12): the three bounded forwards
    with the packed transposed output and the exact exp2 forward in both key
    loops (bf16 on the tensor cores, ``csrc/flash_probes_tc.cu``, held
-   before the final rounding, the two loops bit for bit; float32 on the
-   CUDA-core template) and a saturating input, the three ablations of the
-   bounded loop (the ``dots`` one held element by element to its
-   conditioning, the rows it excuses counted), the exact float32 forward in
+   before the final rounding, the two loops bit for bit; float32: the
+   bounded ones on the query-major kernel of ``csrc/flash_variants.cu``,
+   relaunched bit for bit, the exp2 one on the CUDA-core template) and a
+   saturating input, the three ablations of the bounded loop (float32 on
+   the query-major kernel, relaunched bit for bit; the ``dots`` one held
+   element by element to its conditioning, the rows it excuses counted),
+   the exact float32 forward in
    its three layouts and with a bf16 PV product (a, b and float32 d on one
    query-major kernel, ``csrc/flash_variants.cu``, c on its own; each
    relaunch bit-identical, a's output b's transposed bit for bit), and the
@@ -91,8 +94,9 @@ the final result line:
    (``hedit_tpu_torch.probes.flash_nhd_variants``, ``...flash_v4_variants``,
    ``...flash_ablate``, ``...flash_variants``, ``...mm_probe``), each driven
    once with the counts at 0 before and read after, ``flash_nhd_variants``
-   and ``flash_v4_variants`` also in float32 (the template's instances of
-   rows 10 and 11; row 6, the v4 probe's base, on the float32 kernel), and
+   and ``flash_v4_variants`` also in float32 (row 11 on the query-major
+   kernel, row 10 on the template; row 6, the v4 probe's base, on the
+   float32 kernel), and
    ``mm_probe`` in float32 too (row 12's CUDA-core kernel);
 5. the flagship path: the SD-1.5 pipeline at full width with seeded weights
    in bfloat16, two seeded 512x512 images and seeded token ids, CLIP encode ->
@@ -176,7 +180,7 @@ the final result line:
     6 and 7 on their own (tensor cores, the float32 kernel and the float32
     d = 512 kernel; its packed bounded entry on ``packed_bounded_f32_512``),
     8-12 on their probes' entry points, 11b and 11c on the tensor cores in
-    bf16 and on the template in float32, 12 on the tensor cores in bf16 and
+    bf16 and on the query-major kernel in float32, 12 on the tensor cores in bf16 and
     on the CUDA cores in float32), then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -1504,27 +1508,29 @@ PROBE_LAYOUTS = {"packed_t": lambda q, k, v: (q, k, v),
 def _probe_plain(plain, args, dtype):
     """The plain version ``plain`` a probe kernel (rows 8 ``exp`` /
     ``noprolog``, 9 d, 10, 11) is held to: in bf16 (the tensor-core
-    kernels) before the final rounding, as rows 1, 3, 6 and 7; the
-    template's float32 outputs in their dtype."""
+    kernels) before the final rounding, as rows 1, 3, 6 and 7; the CUDA-core
+    kernels' float32 outputs in their dtype."""
     if dtype == torch.bfloat16:
         return lambda: plain(*args, out_dtype=torch.float32)
     return lambda: plain(*args)
 
 
 def _probe_name(name, dtype):
-    """The kernels line's name of a probe kernel: the float32 template
-    instances are ``..._core``."""
+    """The kernels line's name of a probe kernel: the float32 instances on
+    the CUDA cores (rows 8 and 11 on the query-major kernel, row 10 on the
+    template, float32 9 d) are ``..._core``."""
     return f"{name}{'_core' if dtype == torch.float32 else ''}"
 
 
 def _probe_kernel_cases(g, rows, failures):
     """TPU kernels 11 (three layouts) and 10 (both loops) against their plain
     versions at the probes' shapes: bf16 within one output ulp (on the
-    tensor cores, before the final rounding), float32 within 1e-4; the two
-    loops of kernel 10 bit for bit; the library call is SDPA on the same
-    [B, H, S, D] values, the bound 4 B H S^2 D operations over the bf16 (or
-    float32) peak.  Then
-    kernel 11 on the saturating input (anchor 512, key 600 beyond it)."""
+    tensor cores, before the final rounding), float32 within 1e-4 (kernel
+    11 on the query-major kernel, relaunched bit for bit); the two loops of
+    kernel 10 bit for bit; the library call is SDPA on the same [B, H, S,
+    D] values, the bound 4 B H S^2 D operations over the bf16 (or float32)
+    peak.  Then kernel 11 on the saturating input (anchor 512, key 600
+    beyond it), float32 relaunched bit for bit too."""
     def hold(name, label, got, want, dtype, ms, plain_ms, library_ms, shape, **extra):
         want = want.float()
         err = (got.float() - want).abs().max().item()
@@ -1532,7 +1538,11 @@ def _probe_kernel_cases(g, rows, failures):
         b, h, sq, d = shape
         bound_ms, by = bound(4 * b * h * sq * d * got.element_size(),
                              (4 * b * h * sq * sq * d, dtype))
-        _row(rows, failures, name, label, err <= tol and bool(torch.isfinite(got).all()),
+        if "relaunch_bit_identical" in extra:
+            print(f"{label}: relaunch bit-identical {extra['relaunch_bit_identical']}")
+        _row(rows, failures, name, label,
+             err <= tol and extra.get("relaunch_bit_identical", True)
+             and bool(torch.isfinite(got).all()),
              max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
              bound_ms=bound_ms, bound_by=by, shape=list(shape), **extra)
 
@@ -1546,9 +1556,13 @@ def _probe_kernel_cases(g, rows, failures):
             got = wrapper(*args)
             want = plain()
             torch.cuda.synchronize()
+            extra = {}
+            if dtype == torch.float32:  # the query-major kernel
+                extra["relaunch_bit_identical"] = _relaunch_same(lambda: (wrapper(*args),), (got,))
             hold(_probe_name(f"flash_{layout}", dtype),
                  f"flash {layout} q{list(shape)} {str(dtype)[6:]}",
-                 got, want, dtype, cuda_ms(lambda: wrapper(*args)), cuda_ms(plain), lib, shape)
+                 got, want, dtype, cuda_ms(lambda: wrapper(*args)), cuda_ms(plain), lib, shape,
+                 **extra)
             del got, want
             torch.cuda.empty_cache()
         del q, k, v, args
@@ -1585,15 +1599,18 @@ def _probe_kernel_cases(g, rows, failures):
         exact = fp._packed_t(flash.reference_attention(q.float(), k.float(), v.float()))
         for layout, make in PROBE_LAYOUTS.items():
             args = make(q, k, v)
-            got = getattr(fp, f"flash_{layout}_cuda")(*args).float()
+            wrapper = getattr(fp, f"flash_{layout}_cuda")
+            raw = wrapper(*args)
+            got = raw.float()
             want = _probe_plain(getattr(fp, f"flash_{layout}_reference"), args, dtype)().float()
             torch.cuda.synchronize()
             tol = F32_TOL if dtype == torch.float32 else BF16_ULP * want.abs().max().item()
             err, gap = (got - want).abs().max().item(), (got - exact).abs().max().item()
-            ok = err <= tol and gap > 20 * tol
+            same = dtype != torch.float32 or _relaunch_same(lambda: (wrapper(*args),), (raw,))
+            ok = err <= tol and gap > 20 * tol and same
             print(f"flash {layout} saturating q[1, 8, 4096, 40] {str(dtype)[6:]}: max_abs_err "
                   f"{err:.3e} (tol {tol:.3g}), max|probe - exact| {gap:.3e} (must exceed "
-                  f"{20 * tol:.3g}) {'OK' if ok else 'FAIL'}")
+                  f"{20 * tol:.3g}), relaunch bit-identical {same} {'OK' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"flash {layout} saturating case {dtype}")
 
@@ -1618,7 +1635,8 @@ def _ablate_cases(g, rows, failures):
     """TPU kernel 8, each mode, against its plain version, inputs drawn as
     the probe draws them (q, k * 0.05); bf16 on the tensor cores, float32 on
     the template.  exp, noprolog: bf16 within one output ulp before the
-    final rounding, float32 within 1e-4.  dots: the sum of p is as often
+    final rounding, float32 within 1e-4.  Float32 runs on the query-major
+    kernel, and each mode's relaunch gives the same bits.  dots: the sum of p is as often
     negative as positive (then the floor makes the output acc * 1e30).  In
     bf16 it is held on the kernel's own numbers
     (``fp.check_ablate_dots_kernel``, every image in passes of 8): (i) the
@@ -1629,7 +1647,7 @@ def _ablate_cases(g, rows, failures):
     scores, bit for bit; (iv) every output within one ulp, a float32
     rounding and the numerator's summation bound over the kernel's sum of
     the exact numerator over that sum.  No row is excused (the share is
-    printed and held to ``EXCUSED_SHARE``).  In float32 (the template) each
+    printed and held to ``EXCUSED_SHARE``).  In float32 each
     element is held within ``ablate_dots_tolerance``, and the rows whose sum
     lies within its reach of zero are excused and counted: at most 0.1%.
     Library call: SDPA with scale = ln 2 (softmax(s ln 2) = exp2(s) / sum:
@@ -1691,6 +1709,11 @@ def _ablate_cases(g, rows, failures):
                 tol_at = (F32_TOL if dtype == torch.float32
                           else BF16_ULP * want.float().abs().max().item())
                 ok = max_err <= tol_at
+            if dtype == torch.float32:  # the query-major kernel
+                extra["relaunch_bit_identical"] = _relaunch_same(
+                    lambda: (fp.flash_ablate_t_cuda(q, k, v, mode),), (got,))
+                print(f"{label}: relaunch bit-identical {extra['relaunch_bit_identical']}")
+                ok &= extra["relaunch_bit_identical"]
             _row(rows, failures, _probe_name(f"flash_ablate_{mode}", dtype), label,
                  ok and bool(torch.isfinite(got).all()), max_abs_err=max_err, tol=tol_at,
                  ms=cuda_ms(lambda: fp.flash_ablate_t_cuda(q, k, v, mode)),
@@ -1846,9 +1869,10 @@ def phase_probes(rows):
     """Kernels 10, 11, 8, 9 and 12 against their plain versions, then their
     own path: the five probe entry points (``hedit_tpu_torch.probes``), each
     driven once with the counts at 0 before and read after, and the four
-    flash ones once more in float32 (``..._f32``: the template's instances
-    of rows 8, 10 and 11, which bf16 no longer reaches, and the float32
-    instances of rows 9 a-d).  Returns ({probe: counts}, failures)."""
+    flash ones once more in float32 (``..._f32``: the CUDA-core instances
+    of rows 8, 10 and 11, which bf16 no longer reaches (8 and 11 on the
+    query-major kernel, 10 on the template), and the float32 instances of
+    rows 9 a-d).  Returns ({probe: counts}, failures)."""
     from hedit_tpu_torch.probes import (
         flash_ablate, flash_nhd_variants, flash_v4_variants, flash_variants, mm_probe,
     )
@@ -1883,7 +1907,8 @@ def phase_probes(rows):
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
         print(f"probe {name} launches: {json.dumps(counts[name])}")
     # rows 8, 10 and 11: bf16 chains and loops on the tensor cores, float32
-    # ones on the template, never the other; dots' check instance on neither
+    # ones on the CUDA cores (8 and 11 the query-major kernel's counters, 10
+    # the template's), never the other; dots' check instance on neither
     # path; row 9: bf16 d on the tensor cores, a, b, c and float32 d on the
     # kernels of csrc/flash_variants.cu, the bf16 instances on the bf16 path
     # and the float32 ones on the float32 path; row 6, the v4 probe's base,
@@ -2919,15 +2944,15 @@ def main(argv=None) -> int:
         entry("flash_packed_bounded_f32", "cuda", f32_cu, f"{jax_flash}:220", "golden_f32"),
         entry("flash_packed_t", "cuda", probes_tc_cu, "scripts/flash_nhd_variants.py:93",
               "flash_nhd_variants"),
-        entry("flash_packed_t_core", "cuda", probes_cu, "scripts/flash_nhd_variants.py:93",
+        entry("flash_packed_t_core", "cuda", variants_cu, "scripts/flash_nhd_variants.py:93",
               "flash_nhd_variants_f32"),
         entry("flash_packed_t_sminor", "cuda", probes_tc_cu,
               "scripts/flash_nhd_variants.py:101", "flash_nhd_variants"),
         entry("flash_packed_t_all_sminor", "cuda", probes_tc_cu,
               "scripts/flash_nhd_variants.py:136", "flash_nhd_variants"),
-        entry("flash_packed_t_sminor_core", "cuda", probes_cu,
+        entry("flash_packed_t_sminor_core", "cuda", variants_cu,
               "scripts/flash_nhd_variants.py:101", "flash_nhd_variants_f32"),
-        entry("flash_packed_t_all_sminor_core", "cuda", probes_cu,
+        entry("flash_packed_t_all_sminor_core", "cuda", variants_cu,
               "scripts/flash_nhd_variants.py:136", "flash_nhd_variants_f32"),
         entry("flash_exp2_t", "cuda", probes_tc_cu, "scripts/flash_v4_variants.py:34",
               "flash_v4_variants"),
@@ -2935,7 +2960,7 @@ def main(argv=None) -> int:
               "flash_v4_variants_f32"),
         *(entry(f"flash_ablate_{m}", "cuda", probes_tc_cu, "scripts/flash_ablate.py:34",
                 "flash_ablate") for m in fp.ABLATE_MODES),
-        *(entry(f"flash_ablate_{m}_core", "cuda", probes_cu, "scripts/flash_ablate.py:34",
+        *(entry(f"flash_ablate_{m}_core", "cuda", variants_cu, "scripts/flash_ablate.py:34",
                 "flash_ablate_f32") for m in fp.ABLATE_MODES),
         *(entry(f"flash_variant_{v}", "cuda", variants_cu,
                 f"scripts/flash_variants.py:{line}", "flash_variants",

@@ -15,22 +15,24 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
     (``_packed_t_kernel_all_sminor``).
 
   All three run in bf16 on the tensor cores (``csrc/flash_probes_tc.cu``,
-  ``probe_entry``), in float32 on the CUDA-core template
-  (``csrc/flash_probes.cu``).
+  ``probe_entry``), in float32 on the query-major kernel of
+  ``csrc/flash_variants.cu`` (every operand 16-byte aligned).
 
 * ``scripts/flash_v4_variants.py``: ``flash_exp2_t_cuda``, the exact forward
   with ``sm_scale * log2(e)`` folded into q, exp2, p rounded to the input
   dtype and a ``[B*H, D, Sq]`` output (``kern_exp2``); ``pipe=True`` runs
   the software-pipelined key loop.  bf16 on the tensor cores
-  (``csrc/flash_probes_tc.cu``, ``exp2_entry``), float32 on the template.
+  (``csrc/flash_probes_tc.cu``, ``exp2_entry``), float32 on the CUDA-core
+  template (``csrc/flash_probes.cu``).
 
 * ``scripts/flash_ablate.py``: ``flash_ablate_t_cuda(q, k, v, mode)``, the
   bounded loop cut down to its floor (``make_kernel(mode)``): q unscaled, no
   prologue, p = s (``dots``), exp2(s) (``exp``) or exp2(min(s - 12.34, 100))
   (``noprolog``) rounded to the input dtype, the sum of p floored at 1e-30,
   a ``[B*H, D, Sq]`` output.  bf16 on the tensor cores
-  (``csrc/flash_probes_tc.cu``, ``ablate_entry``), float32 on the template
-  (``csrc/flash_probes.cu``).  ``dots`` in bf16 is checked on the kernel's
+  (``csrc/flash_probes_tc.cu``, ``ablate_entry``), float32 on the
+  query-major kernel (``csrc/flash_variants.cu``, every operand 16-byte
+  aligned).  ``dots`` in bf16 is checked on the kernel's
   own scores and row sums (``flash_ablate_dots_check_cuda``,
   ``check_ablate_dots_kernel``).
 
@@ -49,7 +51,9 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
 
   a, b and float32 a with ``pv_bf16`` share one query-major kernel
   (``hedit_flash_variant``): softmax along the row inside a warp, PV on the
-  CUDA cores.  Both kernels take the scores' product on the tensor cores in
+  CUDA cores; the float32 instances of the bounded probes and of the
+  ablations run on it too (``hedit_flash_packed_t``,
+  ``hedit_flash_ablate_t``).  Both kernels take the scores' product on the tensor cores in
   bf16 and by FMAs in float32, copy 16 bytes at a time (every operand
   16-byte aligned) and count their launches a dtype
   (``launches_variant_{a,b,c}_tc`` / ``_f32``; float32 d
@@ -223,7 +227,7 @@ def _check_cuda(q, k, v, b, h, d, what: str) -> None:
 
 def _tc_or_template(dtype: torch.dtype, template: str, what: str, tc: bool = True) -> str:
     """``template``'s tensor-core twin (``csrc/flash_probes_tc.cu``) for
-    bfloat16 where ``tc``, ``template`` itself (the CUDA-core template)
+    bfloat16 where ``tc``, ``template`` itself (a CUDA-core kernel)
     otherwise; raises for a dtype other than float32 and bfloat16."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} take float32 or bfloat16, got {dtype}")
@@ -233,7 +237,7 @@ def _tc_or_template(dtype: torch.dtype, template: str, what: str, tc: bool = Tru
 def probe_entry(dtype: torch.dtype, layout: str) -> str:
     """The CUDA entry point of the bounded probe ``layout`` for an input of
     ``dtype``: bfloat16 the tensor-core kernel (``csrc/flash_probes_tc.cu``),
-    float32 the CUDA-core template (``csrc/flash_probes.cu``).  Raises for
+    float32 the query-major kernel (``csrc/flash_variants.cu``).  Raises for
     any other dtype or layout."""
     if layout not in _LAYOUTS:
         raise ValueError(f"layout must be one of {tuple(_LAYOUTS)}, not {layout!r}")
@@ -242,14 +246,16 @@ def probe_entry(dtype: torch.dtype, layout: str) -> str:
 
 def exp2_entry(dtype: torch.dtype) -> str:
     """The CUDA entry point of the exact exp2 probe for an input of
-    ``dtype``, as ``probe_entry`` chooses."""
+    ``dtype``: bfloat16 the tensor-core kernel, float32 the CUDA-core
+    template (``csrc/flash_probes.cu``)."""
     return _tc_or_template(dtype, "hedit_flash_exp2_t", "the exact exp2 probe")
 
 
 def ablate_entry(dtype: torch.dtype, mode: str) -> str:
     """The CUDA entry point of the ablation ``mode`` for an input of
-    ``dtype``: bfloat16 the tensor-core kernel, float32 the template.
-    Raises for any other dtype or mode."""
+    ``dtype``: bfloat16 the tensor-core kernel, float32 the query-major
+    kernel (``csrc/flash_variants.cu``).  Raises for any other dtype or
+    mode."""
     if mode not in ABLATE_MODES:
         raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
     return _tc_or_template(dtype, "hedit_flash_ablate_t", "the ablations")
@@ -268,15 +274,23 @@ def variant_entry(dtype: torch.dtype, name: str) -> str:
     return "hedit_flash_variant_c" if name == "c" else entry
 
 
+# the float32 entry points of the query-major kernel (``csrc/flash_variants.cu``)
+_QM_F32_ENTRIES = ("hedit_flash_packed_t", "hedit_flash_ablate_t")
+
+
 def _launch_probe(entry: str, counter: str, q: torch.Tensor, pointers, ints, d: int,
                   strides) -> None:
     """Launch probe entry point ``entry`` on ``pointers`` (q, k, v, out) and
     count it in ``counter``, or in ``counter + "_tc"`` for a tensor-core
-    entry, whose operands must first pass ``check_tc_operands`` (dense
-    images: the element ``strides`` are multiples of S, itself of TILE)."""
+    entry.  The operands of a tensor-core entry must first pass
+    ``check_tc_operands``, those of the query-major kernel's float32 entries
+    ``check_f32_operands`` (dense images: the element ``strides`` are
+    multiples of S, itself of TILE)."""
     tc = entry.endswith("_tc")
     if tc:
         check_tc_operands(d, [t.data_ptr() for t in pointers], strides)
+    elif entry in _QM_F32_ENTRIES:
+        check_f32_operands(d, [t.data_ptr() for t in pointers], strides, None)
     _launch(entry, q, pointers, ints)
     globals()[counter + "_tc" if tc else counter] += 1
 
@@ -352,8 +366,8 @@ def _ablate_weights(s: torch.Tensor, mode: str) -> torch.Tensor:
 
 def _scores_in_order(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q [n, Sq, D] k^T in float32, summed over D in order, one rounding a
-    term: the CUDA-core template's FMA chain (its float32 products may
-    round once more here)."""
+    term: the float32 kernels' FMA chain over d (their float32 products
+    may round once more here)."""
     qf, kf = q.float(), k.float()
     s = torch.zeros((q.shape[0], q.shape[1], k.shape[1]), device=q.device)
     for c in range(q.shape[-1]):
@@ -378,7 +392,7 @@ def flash_ablate_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of ``make_kernel(mode)``: q, k, v [B, H, S, D] -> [B*H,
     D, Sq] in q's dtype, or in ``out_dtype`` (float32: the output before its
     final rounding).  Scores of the unscaled q in float32 (summed over D in
-    the template's order), p of ``mode`` rounded to the input dtype,
+    the float32 kernel's order), p of ``mode`` rounded to the input dtype,
     out = (p v) / max(sum(p), 1e-30)."""
     b, h, sq, d = q.shape
     out = torch.empty((b * h, d, sq), dtype=out_dtype or q.dtype, device=q.device)
@@ -401,7 +415,7 @@ def ablate_dots_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sum of p (the denominator) is as often negative as positive.
 
     Two computations of the same function differ in float32 summation order
-    (the float32 template and the plain version, or JAX's kernel).
+    (the float32 kernel and the plain version, or JAX's kernel).
     Each Sk-term sum moves by at most gamma = 4 sqrt(Sk) 2^-24 times the sum
     of its terms' magnitudes.  Each score moves too, by up to ds = 4 sqrt(D)
     2^-24 sum_c |q_c k_c|, and p, rounded to the input dtype, can land on either
@@ -616,7 +630,7 @@ def flash_ablate_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mode: str) -> torch.Tensor:
     """``make_kernel(mode)``: q, k, v [B, H, S, D] -> [B*H, D, Sq]; ``mode``
     one of ``ABLATE_MODES``.  bf16 runs on the tensor cores, float32 on the
-    template (``ablate_entry``)."""
+    query-major kernel (``ablate_entry``)."""
     if mode not in ABLATE_MODES:
         raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
     b, h, sq, sk, d = _dims(q, k, v, (False, False, False), "flash_ablate_t_cuda")

@@ -36,7 +36,17 @@ Times ``csrc/flash_probes_tc.cu`` on the card:
   ``VARIANT_CORE_CASES``: the probe's [32, 4096, 40] in bf16 and the
   smoke's [8, 4096, 40] in float32, beside SDPA on the float32 inputs and
   the bound (QK at the inputs' rate, PV at 67 TFLOP/s; float32 d's PV at
-  67 too: JAX promotes its bf16 p to the float32 v).
+  67 too: JAX promotes its bf16 p to the float32 v);
+* rows 11a-c and 8 in float32 (entry points ``hedit_flash_packed_t`` and
+  ``hedit_flash_ablate_t``, the same query-major kernel) at ``F32_CASES``:
+  the smoke's [2, 8, 4096, 40] (row 11, anchored on 512 keys) and
+  [1, 8, 4096, 40] (row 8, q and k times 0.05), and their d = 80
+  counterparts at 1024 tokens, beside SDPA in float32 (row 8: scale ln 2)
+  and the bound (4 B H S^2 D operations at 67 TFLOP/s); row 11 also in
+  turns with the source built with ``-DQM_WINDOW_PROLOGUE=1`` (the anchor
+  window's max by a QK-only pass before the loop, in place of the online
+  shift).  Outputs held to the plain versions within 1e-4 (``dots``: within
+  ``ablate_dots_tolerance``, at most 0.1% of rows excused).
 
 Each kernel is launched through its entry point without the wrappers' host
 checks (CUDA-event means of 20 launches, best of 3), beside SDPA on the same
@@ -48,20 +58,21 @@ and spills of each instance.
 
 ``--parent DIR``: a checkout of an earlier commit of this repository (for
 example ``git archive <commit> | tar -x -C DIR``).  Its entries of the
-rows this tree moved (``csrc/flash_probes.cu``: bf16 rows 8, 10, 11, which
-this tree's template refuses; ``csrc/flash_variants.cu``: rows 9 a, b and
-float32 d on the parent's kernel, and row 9 c where the parent has its
-entry) are timed in turns with this tree's kernels (parent, this, this,
-parent) where the parent takes the call.  Its ``csrc/flash_attention_tc.cu``,
-``csrc/flash_probes_tc.cu``, ``csrc/flash_probes.cu`` and
-``csrc/flash_variants.cu`` are built beside this tree's, and these outputs
-of the two must agree bit for bit: the bounded, LSE and exact tensor-core
-forwards on the smoke's inputs (``flash_exact_tiles.identity``), rows 8
-``exp`` / ``noprolog``, 9 d, 10 and 11a-c on the tensor cores, the template
-instances this tree keeps (rows 8, 10, 11 in float32) and row 9 c in both
-dtypes (``kept_identity``; rows 9 a, b and float32 d changed kernels, so
-they are held to their plain versions only).  The probe exits non-zero if
-any differs.
+rows this tree's kernels compute (``csrc/flash_probes.cu``: the bf16 rows
+8, 10, 11 of older parents, and the float32 rows 8 and 11 of parents whose
+template still holds them; ``csrc/flash_variants.cu``: rows 9 a, b, c and
+float32 d) are timed in turns with this tree's kernels (parent, this,
+this, parent) where the parent takes the call.  Its
+``csrc/flash_attention_tc.cu``, ``csrc/flash_probes_tc.cu``,
+``csrc/flash_probes.cu`` and ``csrc/flash_variants.cu`` are built beside
+this tree's, and these outputs of the two must agree bit for bit: the
+bounded, LSE and exact tensor-core forwards on the smoke's inputs
+(``flash_exact_tiles.identity``), rows 8 ``exp`` / ``noprolog``, 9 d, 10
+and 11a-c on the tensor cores, the template's row 10 in float32, rows 9 a,
+b and float32 d on the query-major kernel and row 9 c in both dtypes
+(``kept_identity``; rows 8 and 11 in float32 moved from the template to
+the query-major kernel, so they are held to their plain versions only).
+The probe exits non-zero if any differs.
 """
 
 from __future__ import annotations
@@ -102,6 +113,11 @@ ABLATE_MINB = 4
 VARIANT_SHAPE = (32, 4096, 40)
 # rows 9 a, b, c and float32 d: the probe's in bf16, the smoke's float32 case
 VARIANT_CORE_CASES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.float32))
+# rows 11 and 8 in float32: the smoke's shapes and their d = 80 counterparts
+F32_CASES = {"packed_t": ((2, 8, 4096, 40), (2, 8, 1024, 80)),
+             "ablate": ((1, 8, 4096, 40), (1, 8, 1024, 80))}
+F32_PEAK_FLOPS = 67e12
+F32_TOL = 1e-4
 PEAK_FLOPS = 989e12
 # the rate of each type's products (rows 9 a-c: QK in the inputs' type, PV in float32)
 RATES = {torch.bfloat16: PEAK_FLOPS, torch.float32: 67e12}
@@ -356,6 +372,81 @@ def variant_core_timings(mine, parent):
     return records
 
 
+def qm_f32_timings(mine, parent, prologue):
+    """Rows 11a-c and 8 in float32 at ``F32_CASES``, each in turns with the
+    parent's same entry point where it takes the call (the template's
+    instances before this tree), row 11 also in turns with ``prologue``
+    (the source built with the QK-only window pass); one record a case and
+    layout or mode.  err_over_tol: over 1e-4 against the plain version;
+    ``dots`` over ``ablate_dots_tolerance``, the excused rows beside it
+    (inf where more than 0.1% of them)."""
+    records = []
+    for b, h, s, d in F32_CASES["packed_t"]:
+        q, k, v = _qkv(b, h, s, d, dtype=torch.float32)
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms = 4 * b * h * s * s * d / F32_PEAK_FLOPS * 1e3
+        for layout, name in LAYOUTS.items():
+            args = {0: (q, k, v), 1: (_sminor(q), _sminor(k), v),
+                    2: (_sminor(q), _sminor(k), _sminor(v))}[layout]
+            out = torch.empty(b, h * d, s, device="cuda")
+            ints = (b * h, s, s, d, fp.BLK_K, layout)
+            kernel = _entry_call(mine, "hedit_flash_packed_t", args, out, ints)
+            kernel()
+            plain = getattr(fp, f"flash_{name}_reference")(*args, fp.BLK_K)
+            torch.cuda.synchronize()
+            err = (out - plain).abs().max().item() / F32_TOL
+            del plain
+            torch.cuda.empty_cache()
+            label = f"{name} (layout {layout}) q[{b}, {h}, {s}, {d}] float32"
+            ms = _timed(label, _turns(kernel, parent, "hedit_flash_packed_t", args, out, ints),
+                        sdpa, bound_ms, err)
+            other = _entry_call(prologue, "hedit_flash_packed_t", args, torch.empty_like(out),
+                                ints)
+            t = [best_ms(fn) for fn in (kernel, other, other, kernel)]
+            print(f"{label} anchor window: online {t[0]:.4f}, prologue {t[1]:.4f}, prologue "
+                  f"{t[2]:.4f}, online {t[3]:.4f} ms")
+            records.append({"probe": f"{name} float32", "shape": [b, h, s, d], "turns": ms,
+                            "window_turns": [["online", t[0]], ["prologue", t[1]],
+                                             ["prologue", t[2]], ["online", t[3]]],
+                            "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
+            del args, out
+        del q, k, v
+        torch.cuda.empty_cache()
+    for b, h, s, d in F32_CASES["ablate"]:
+        q, k, v = _qkv(b, h, s, d, scales=(0.05, 0.05, 1.0), dtype=torch.float32)
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=math.log(2.0)))
+        bound_ms = 4 * b * h * s * s * d / F32_PEAK_FLOPS * 1e3
+        for code, mode in enumerate(fp.ABLATE_MODES):
+            out = torch.empty(b * h, d, s, device="cuda")
+            ints = (b * h, s, s, d, code)
+            kernel = _entry_call(mine, "hedit_flash_ablate_t", (q, k, v), out, ints)
+            kernel()
+            plain = fp.flash_ablate_t_reference(q, k, v, mode)
+            torch.cuda.synchronize()
+            extra = {}
+            if mode == "dots":
+                tol, excused = fp.ablate_dots_tolerance(q, k, v, plain)
+                ratio = ((out - plain).abs() / tol).masked_fill(excused[:, None, :], 0.0)
+                share = excused.float().mean().item()
+                err = ratio.max().item() if share <= 1e-3 else math.inf
+                extra = {"excused_rows": int(excused.sum()), "row_count": excused.numel()}
+                del tol, excused, ratio
+            else:
+                err = (out - plain).abs().max().item() / F32_TOL
+            del plain
+            torch.cuda.empty_cache()
+            label = f"ablate {mode} q[{b}, {h}, {s}, {d}] float32"
+            ms = _timed(label, _turns(kernel, parent, "hedit_flash_ablate_t", (q, k, v), out,
+                                      ints), sdpa, bound_ms, err, f" {extra}" if extra else "")
+            records.append({"probe": f"ablate {mode} float32", "shape": [b, h, s, d], "turns": ms,
+                            "sdpa_ms": None if mode == "dots" else sdpa, "bound_ms": bound_ms,
+                            "err_over_tol": err, **extra})
+            del out
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
 def _same(mine, parent, entry, args, out_shape, ints):
     """``entry`` of this tree and of the parent on ``args``, bit for bit."""
     outs = [torch.empty(out_shape, dtype=args[0].dtype, device="cuda") for _ in range(2)]
@@ -369,34 +460,41 @@ def _same(mine, parent, entry, args, out_shape, ints):
 def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
     """The outputs this tree keeps from the parent, bit for bit: rows 11a-c,
     10, 8 ``exp`` / ``noprolog`` and 9 d on the tensor cores (bf16); the
-    template's rows 11, 10 and 8 in float32; row 9 c in both dtypes where
-    the parent has its kernel (rows 9 a, b and float32 d moved to the
-    query-major kernel)."""
+    template's row 10 in float32; rows 9 a, b (both dtypes) and float32 d on
+    the query-major kernel (a parent whose ``csrc/flash_variants.cu`` has
+    it), and row 9 c in
+    both dtypes where the parent has its kernel (rows 8 and 11 in float32
+    moved from the template to the query-major kernel)."""
     cases = []
     for b, h, s, d in ((2, 4, 1024, 40), (2, 3, 576, 80)):
         anchor = 64 * 3 if s % fp.BLK_K else fp.BLK_K
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(b, h, s, d, scales=(0.05, 0.05, 1.0), dtype=dtype)
             lib = parent_tc if dtype == torch.bfloat16 else parent_template
-            entry = "hedit_flash_packed_t" + ("_tc" if dtype == torch.bfloat16 else "")
-            for layout in LAYOUTS:
-                args = {0: (q, k, v), 1: (_sminor(q), _sminor(k), v),
-                        2: (_sminor(q), _sminor(k), _sminor(v))}[layout]
-                cases.append((f"{entry} layout {layout}", lib, entry, args, (b * h, d, s),
-                              (b * h, s, s, d, anchor, layout), dtype))
+            if dtype == torch.bfloat16:
+                for layout in LAYOUTS:
+                    args = {0: (q, k, v), 1: (_sminor(q), _sminor(k), v),
+                            2: (_sminor(q), _sminor(k), _sminor(v))}[layout]
+                    cases.append((f"hedit_flash_packed_t_tc layout {layout}", lib,
+                                  "hedit_flash_packed_t_tc", args, (b * h, d, s),
+                                  (b * h, s, s, d, anchor, layout), dtype))
+                for code in (1, 2):
+                    cases.append((f"hedit_flash_ablate_t_tc mode {code}", lib,
+                                  "hedit_flash_ablate_t_tc", (q, k, v), (b * h, d, s),
+                                  (b * h, s, s, d, code), dtype))
             entry = "hedit_flash_exp2_t" + ("_tc" if dtype == torch.bfloat16 else "")
             for pipe in (0, 1):
                 cases.append((f"{entry} pipe {pipe}", lib, entry, (q, k, v), (b * h, d, s),
                               (b * h, s, s, d, pipe), dtype))
-            entry = "hedit_flash_ablate_t" + ("_tc" if dtype == torch.bfloat16 else "")
-            for code in (0, 1, 2) if dtype == torch.float32 else (1, 2):
-                cases.append((f"{entry} mode {code}", lib, entry, (q, k, v), (b * h, d, s),
-                              (b * h, s, s, d, code), dtype))
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t[0] for t in _qkv(1, 8, 1024, 40, dtype=dtype))
         if hasattr(parent_variants, "hedit_flash_variant_c"):
             cases.append(("hedit_flash_variant_c", parent_variants, "hedit_flash_variant_c",
                           (q, k, v), (8, 40, 1024), (8, 1024, 1024, 40), dtype))
+        for code in (0, 2) + ((1,) if dtype == torch.float32 else ()):
+            cases.append((f"hedit_flash_variant {code}", parent_variants, "hedit_flash_variant",
+                          (q, k, v), (8, 40, 1024) if code == 2 else (8, 1024, 40),
+                          (8, 1024, 1024, 40, code), dtype))
         if dtype == torch.bfloat16:
             cases.append(("hedit_flash_variant_tc 1", parent_tc, "hedit_flash_variant_tc",
                           (q, k, v), (8, 1024, 40), (8, 1024, 1024, 40, 1), dtype))
@@ -419,8 +517,11 @@ def main(argv=None) -> int:
     builds = [(TC_SOURCE, f"variant{i}", _build.CSRC, (f"EXP2_MINB_40={n}",))
               for i, n in enumerate(VARIANTS)]
     builds.append((TC_SOURCE, "ablate_minb", _build.CSRC, (f"ABLATE_MINB_40={ABLATE_MINB}",)))
-    # this tree's variants source alone, for its -Xptxas -v lines (rows 9 a-c)
+    # this tree's variants source alone, for its -Xptxas -v lines (rows 8, 9 a-c, 11), and
+    # built with row 11's other window rule
     builds.append((_build.CSRC / "flash_variants.cu", "variants", _build.CSRC, ()))
+    builds.append((_build.CSRC / "flash_variants.cu", "window_prologue", _build.CSRC,
+                   ("QM_WINDOW_PROLOGUE=1",)))
     parents = ("flash_probes.cu", "flash_variants.cu", "flash_attention_tc.cu",
                "flash_probes_tc.cu")
     if args.parent is not None:
@@ -434,13 +535,15 @@ def main(argv=None) -> int:
     mine = _build.cuda_library()
     n = len(VARIANTS)
     variants = [lib for lib, _ in built[:n]]
-    parent = dict(zip(parents, (lib for lib, _ in built[n + 2:]))) if args.parent else {}
+    prologue = built[n + 2][0]
+    parent = dict(zip(parents, (lib for lib, _ in built[n + 3:]))) if args.parent else {}
     template = parent.get("flash_probes.cu")
     records = bounded_timings(mine, template)
     records += exp2_timings(mine, template, variants)
     records += ablate_timings(mine, template, built[n][0])
     records += variant_timings(mine, parent.get("flash_variants.cu"), variants)
     records += variant_core_timings(mine, parent.get("flash_variants.cu"))
+    records += qm_f32_timings(mine, template, prologue)
     print(json.dumps({"flash_probe_tiles": records}))
     if args.parent is not None and not (
             identity(mine, parent["flash_attention_tc.cu"], exact=True)

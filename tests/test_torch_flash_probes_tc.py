@@ -2,18 +2,20 @@
 and 11c), of the exact exp2 probe (TPU kernel 10, both key loops), of the
 ablations ``dots``, ``exp`` and ``noprolog`` (TPU kernel 8) and of
 ``kern_a`` with ``pv_bf16`` (TPU kernel 9 d), and the kernels of
-``csrc/flash_variants.cu`` in both dtypes (rows 9 a, b and float32 d on
-the query-major kernel, row 9 c on its own), on the CPU.
+``csrc/flash_variants.cu`` in both dtypes (rows 9 a, b and float32 d, and
+rows 11a-c and 8 in float32, on the query-major kernel, row 9 c on its
+own), on the CPU.
 
 The kernels (``hedit_tpu_torch/csrc/flash_probes_tc.cu``) run only on the
 card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
 * the dispatch by dtype (``probe_entry``, ``exp2_entry``, ``ablate_entry``,
   ``variant_entry``), as values: bf16 to the tensor-core entry points (but
-  variants a-c), float32 to the CUDA-core templates (but the variants:
-  ``hedit_flash_variant`` for a, b and d, ``hedit_flash_variant_c`` for c,
-  in both dtypes), anything else refused; CPU tensors take the plain
-  versions and launch nothing;
+  variants a-c), float32 to the CUDA-core kernels (``hedit_flash_exp2_t``
+  the template's; ``hedit_flash_packed_t``, ``hedit_flash_ablate_t`` and,
+  for variants a, b and d, ``hedit_flash_variant`` the query-major
+  kernel's; ``hedit_flash_variant_c`` for c, in both dtypes), anything else
+  refused; CPU tensors take the plain versions and launch nothing;
 * the C entry points' parameter lists, read from the source, against the
   ``ctypes`` argument types the loader gives them (the sources cannot be
   compiled here);
@@ -43,7 +45,12 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
   blocks, the row max and sum, the scale after the product with exp2 (a,
   b) or the template's order (d, p rounded to bf16 for PV); held against
   the plain versions and ``kern_a`` / ``kern_b`` / ``kern_a(pv_bf16=True)``
-  in interpret mode.
+  in interpret mode;
+* rows 11a-c and 8 in float32 in the same kernel's order: 128-query blocks
+  and 64-key tiles at d = 40, 64 and 32 at d = 80, row 11's online shift
+  over its anchor window's tiles, the row sums in the kernel's lanes, the
+  S-minor operands transposed on their way as the kernel copies them; held
+  against the plain versions and the scripts' kernels in interpret mode.
 
 The cases run as loops inside few items: pytest-xdist's loadfile scheduler
 queues test files by their number of items.
@@ -99,8 +106,10 @@ def _layout_args(layout, q, k, v):
 
 def test_probe_entry_dispatch_and_cpu_tensors():
     """bf16 inputs of every bounded layout and of the exp2 probe take the
-    tensor-core entry points, float32 inputs the template's; other dtypes
-    and layouts are refused.  CPU tensors of either dtype take the plain
+    tensor-core entry points, float32 inputs the CUDA-core kernels' (the
+    bounded layouts and the ablations the query-major kernel's, the exp2
+    probe the template's: the same entry names); other dtypes and layouts
+    are refused.  CPU tensors of either dtype take the plain
     versions bit for bit (the exp2 probe in both loops) and move no
     counter."""
     for layout in LAYOUTS:
@@ -196,13 +205,14 @@ def test_tc_entry_point_matches_its_argument_types():
     """``hedit_flash_packed_t_tc``, ``hedit_flash_exp2_t_tc``,
     ``hedit_flash_ablate_t_tc`` and ``hedit_flash_variant_tc`` in
     ``csrc/flash_probes_tc.cu`` take the parameters their ``ctypes``
-    argument types describe, which are those of the templates'
-    ``hedit_flash_packed_t``, ``hedit_flash_exp2_t``, ``hedit_flash_ablate_t``
-    (``csrc/flash_probes.cu``) and ``hedit_flash_variant``
-    (``csrc/flash_variants.cu``)."""
-    for name, source in (("hedit_flash_packed_t", "flash_probes.cu"),
+    argument types describe, which are those of the float32 entries
+    ``hedit_flash_packed_t``, ``hedit_flash_ablate_t`` and
+    ``hedit_flash_variant`` (the query-major kernel, ``csrc/flash_variants.cu``)
+    and ``hedit_flash_exp2_t`` (the template, ``csrc/flash_probes.cu``, which
+    keeps no other entry and no bounded or ablation instance)."""
+    for name, source in (("hedit_flash_packed_t", "flash_variants.cu"),
                          ("hedit_flash_exp2_t", "flash_probes.cu"),
-                         ("hedit_flash_ablate_t", "flash_probes.cu"),
+                         ("hedit_flash_ablate_t", "flash_variants.cu"),
                          ("hedit_flash_variant", "flash_variants.cu")):
         tc = _c_params(_build.CSRC / "flash_probes_tc.cu", f"{name}_tc")
         template = _c_params(_build.CSRC / source, name)
@@ -212,6 +222,9 @@ def test_tc_entry_point_matches_its_argument_types():
     for name, source in (("hedit_flash_ablate_dots_check_tc", "flash_probes_tc.cu"),
                          ("hedit_flash_variant_c", "flash_variants.cu")):
         assert _c_params(_build.CSRC / source, name) == _build.ARGTYPES[name], name
+    template = (_build.CSRC / "flash_probes.cu").read_text()
+    assert re.findall(r'extern "C" int (\w+)\(', template) == ["hedit_flash_exp2_t"]
+    assert not re.search(r"PackedT|Ablate", template)
 
 
 def _tiled_probe(ops, layout, anchor, bq, exact=False, pipe=False):
@@ -404,10 +417,11 @@ def _jax_exp2_t(mod, q, k, v, pipe):
     )(*(t.reshape(b * h, -1, d) for t in (q, k, v)))
 
 
-def _inputs(sq, sk, d, layout, saturate):
-    """numpy-seeded bf16 operands of ``layout`` (q, k [1, 2, S, D] or
-    S-minor [1, 2, D, S]; v [1, 2, S, D] or S-minor) as (torch, jax)
-    triples, and q, k, v [1, 2, S, D] in float32 for exact attention.
+def _inputs(sq, sk, d, layout, saturate, dtype=torch.bfloat16):
+    """numpy-seeded operands of ``layout`` in ``dtype`` (q, k [1, 2, S, D]
+    or S-minor [1, 2, D, S]; v [1, 2, S, D] or S-minor) as (torch, jax)
+    triples, and q, k, v [1, 2, S, D] in float32 (rounded to ``dtype``)
+    for exact attention.
     ``saturate``: every query's score with a key is set by the key's first
     component; key 140 scores ~146 log2 units, more than 116 above the
     128-key anchor window's max (clamped to 2^100), keys 150-213 ~109."""
@@ -421,9 +435,10 @@ def _inputs(sq, sk, d, layout, saturate):
     _, qk_minor, v_minor = KERNELS[layout]
     ops = [a.swapaxes(-1, -2) if m else a for a, m in zip((q, k, v), (qk_minor, qk_minor, v_minor))]
     ops = [np.ascontiguousarray(a) for a in ops]
-    return ([torch.from_numpy(a).to(torch.bfloat16) for a in ops],
-            [jnp.asarray(a).astype(jnp.bfloat16) for a in ops],
-            [torch.from_numpy(a).to(torch.bfloat16).float() for a in (q, k, v)])
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    return ([torch.from_numpy(a).to(dtype) for a in ops],
+            [jnp.asarray(a).astype(jdtype) for a in ops],
+            [torch.from_numpy(a).to(dtype).float() for a in (q, k, v)])
 
 
 def _tol(want, rounded=False):
@@ -762,3 +777,127 @@ def test_tiled_variant_ab_matches_the_plain_versions_and_jax():
                 tol = 2e-5 if dtype == torch.float32 else _tol(want.numpy(), rounded=True)
                 torch.testing.assert_close(got[name], want, rtol=0, atol=tol, msg=where)
             assert torch.equal(got["a"], got["b"].mT), f"Sq={sq} {dtype}"
+
+
+def _tiled_qm_f32(ops, what, anchor=None, layout="packed_t"):
+    """Rows 11 (``what`` ``bounded``, the operands of ``layout``) and 8
+    (``dots``, ``exp``, ``noprolog``; [B, H, S, D]) in float32 in the
+    query-major kernel's order of work, plain torch: the S-minor operands
+    read as the kernel reads them (q and each K and V tile transposed to
+    [S, D] on their way, the same values); blocks
+    of 128 queries at d = 40 (the last padded with zero queries past Sq) or
+    64 at d = 80, key tiles of 64 or 32; q times c = sm_scale log2(e) in
+    float32 first (row 11) or as it is (row 8); each tile's float32 scores.
+    Row 11's window: over the tiles of the first ``anchor`` keys a running
+    max m from -1e30, p = exp2(min(s - (m + 16), 100)), alpha = exp2(m_old -
+    m_new) rescaling the sum and the accumulator; then the shift m + 16
+    frozen.  Row 8: p = s, exp2(s) or exp2(min(s - 12.34, 100)).  Each
+    row's sum in the kernel's lanes: lane t of a quad adds, key by key, its
+    keys j*8 + 2t + e of the tile (j-major), the four lanes then (0 + 1) +
+    (2 + 3), and
+    l = l alpha + that sum; acc = acc alpha + p v in float32; out = acc /
+    max(l, floor) (1.2e-38, 1e-30) before any rounding, [B, H*D, Sq] (row
+    11) or [B*H, D, Sq] (row 8)."""
+    _, qk_minor, v_minor = KERNELS[layout]
+    q, k, v = (t.mT if m else t for t, m in zip(ops, (qk_minor, qk_minor, v_minor)))
+    b, h, sq, d = q.shape
+    bq, tk = (128, 64) if d == 40 else (64, 32)
+    bounded = what == "bounded"
+    c = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=torch.float32)
+    blocks = -(-sq // bq) * bq
+    qs = F.pad(q.float() * c if bounded else q.float(), (0, 0, 0, blocks - sq))
+    slots = torch.tensor([[j * 8 + 2 * t + e for j in range(tk // 8) for e in range(2)]
+                          for t in range(4)])                          # [lane, slot] -> key
+    m = torch.full((b, h, blocks, 1), -1e30)
+    den = torch.zeros((b, h, blocks, 1))
+    acc = torch.zeros((b, h, blocks, d))
+    for k0 in range(0, k.shape[2], tk):
+        s = qs @ k[:, :, k0:k0 + tk].float().mT
+        alpha = None
+        if bounded:
+            if k0 < anchor:
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                m = m_new
+            p = torch.exp2(torch.clamp(s - (m + 16.0), max=100.0))
+        elif what == "dots":
+            p = s
+        elif what == "exp":
+            p = torch.exp2(s)
+        else:
+            p = torch.exp2(torch.clamp(s - 12.34, max=100.0))
+        lanes = torch.zeros((b, h, blocks, 4))
+        for slot in range(slots.shape[1]):
+            lanes = lanes + p[..., slots[:, slot]]
+        tile_sum = ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
+        pv = p @ v[:, :, k0:k0 + tk].float()
+        den = den + tile_sum if alpha is None else den * alpha + tile_sum
+        acc = acc + pv if alpha is None else acc * alpha + pv
+    out = acc / torch.clamp(den, min=DENOM_FLOOR if bounded else fp.ABLATE_FLOOR)
+    assert torch.isfinite(out).all()   # the zero queries past Sq too
+    out = out[:, :, :sq].mT
+    return out.reshape(b, h * d, sq) if bounded else out.reshape(b * h, d, sq)
+
+
+def test_tiled_qm_bounded_and_ablations_match_the_plain_versions_and_jax():
+    """Rows 11a-c and 8 in float32 in the query-major kernel's order of work
+    (``_tiled_qm_f32``) at d = 40 and 80: row 11 in its three layouts at S =
+    256 (128-key anchor), plain and saturating (key 140 beyond the window
+    clamped: the rendering then differs from exact attention by more than
+    20 tolerances), and a ragged Sq of 320 against Sk = 256 with a 64-key
+    anchor; row 8's three modes at S = 256 (q, k times 0.5; ``dots`` times
+    0.05, row sums of both signs) and ``noprolog`` saturating.  Each against
+    its plain version (2e-5: summation order, the online shift's rescale)
+    and, at S = 256, ``_packed_t_kernel`` / ``_packed_t_kernel_sminor`` /
+    ``_packed_t_kernel_all_sminor`` (128-query and 128-key blocks) and
+    ``make_kernel(mode)`` in interpret mode (2e-5); ``dots`` within
+    ``ablate_dots_tolerance`` of both, rows within its reach of zero
+    excused: under 1%."""
+    nhd = _import_script("flash_nhd_variants")
+    ablate = _import_quietly("flash_ablate")
+    for d in (40, 80):
+        for layout in LAYOUTS:
+            jitted = jax.jit(functools.partial(_jax_packed_t, nhd, layout))
+            for saturate in (False, True):
+                where = f"{layout} d={d} saturate={saturate}"
+                ops, jops, exact_in = _inputs(256, 256, d, layout, saturate, torch.float32)
+                got = _tiled_qm_f32(ops, "bounded", BLK, layout)
+                plain = getattr(fp, f"flash_{layout}_reference")(*ops, BLK)
+                want = _f32_jax(jitted(*jops))
+                assert got.shape == (1, 2 * d, 256), where
+                torch.testing.assert_close(got, plain, rtol=0, atol=2e-5, msg=where)
+                torch.testing.assert_close(got, want, rtol=0, atol=2e-5, msg=where)
+                if saturate:
+                    exact = fp._packed_t(reference_attention(*exact_in))
+                    assert (got - exact).abs().max().item() > 20 * 2e-5, where
+            ops, _, _ = _inputs(320, 256, d, layout, False, torch.float32)
+            got = _tiled_qm_f32(ops, "bounded", 64, layout)
+            plain = getattr(fp, f"flash_{layout}_reference")(*ops, 64)
+            assert got.shape == (1, 2 * d, 320)
+            torch.testing.assert_close(got, plain, rtol=0, atol=2e-5, msg=f"{layout} d={d} Sq=320")
+        jitted = {mode: jax.jit(functools.partial(_jax_ablate, ablate, mode))
+                  for mode in fp.ABLATE_MODES}
+        for mode, scale, saturate in (("exp", 0.5, False), ("noprolog", 0.5, False),
+                                      ("noprolog", 0.5, True), ("dots", 0.05, False)):
+            where = f"{mode} d={d} saturate={saturate}"
+            rng = np.random.RandomState(d + saturate)
+            q, k, v = (rng.randn(1, 2, 256, d).astype(np.float32) * c for c in (scale, scale, 1.0))
+            if saturate:   # key 140 scores ~128, keys 150-159 ~116, every other key < 10
+                q, k = q * 0.1, k * 0.1
+                q[..., 0] = 8.0
+                k[:, :, 140, 0] = 16.0
+                k[:, :, 150:160, 0] = 14.5
+            ops = [torch.from_numpy(a) for a in (q, k, v)]
+            got = _tiled_qm_f32(ops, mode)
+            plain = fp.flash_ablate_t_reference(*ops, mode)
+            want = _f32_jax(jitted[mode](*(jnp.asarray(a) for a in (q, k, v))))
+            assert got.shape == (2, d, 256), where
+            if mode != "dots":
+                torch.testing.assert_close(got, plain, rtol=0, atol=2e-5, msg=where)
+                torch.testing.assert_close(got, want, rtol=0, atol=2e-5, msg=where)
+                continue
+            for other in (plain, want):
+                tol, excused = fp.ablate_dots_tolerance(*ops, other)
+                assert excused.float().mean().item() < 1e-2, (where, int(excused.sum()))
+                err = (got - other).abs()
+                assert bool(((err <= tol) | excused[:, None, :]).all()), (where, (err / tol).max())

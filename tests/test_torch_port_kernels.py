@@ -783,15 +783,17 @@ def _sminor(t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["packed_t", "packed_t_sminor", "packed_t_all_sminor"])
 @pytest.mark.parametrize("shape,anchor", [((2, 3, 256, 40), 128), ((1, 2, 512, 80), 512),
-                                          ((1, 2, 1024, 40), 512), ((1, 2, 576, 80), 192)])
+                                          ((1, 2, 1024, 40), 512), ((1, 2, 576, 80), 192),
+                                          ((1, 2, 320, 40), 64)])
 def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, anchor):
     """TPU kernel 11's three layouts against their plain versions (tolerances
     of ``_tol``), one launch each: bf16 on the tensor cores (its own
-    counter, held before the final rounding), float32 on the CUDA-core
-    template.  The saturating input (a
-    512-key anchor, keys beyond it far above) included, and at d = 80 an Sq
-    of 64 more than a multiple of 128 (the tensor-core kernel's last block
-    half past Sq)."""
+    counter, held before the final rounding), float32 on the query-major
+    kernel (``csrc/flash_variants.cu``).  The saturating input (a
+    512-key anchor, keys beyond it far above) included, and an Sq of 64
+    more than a multiple of 128 at d = 80 and at d = 40 with a 64-key
+    anchor (a last block half past Sq).  A second launch gives the same
+    bits."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     q, k, v = _probe_inputs(dtype, shape)
@@ -812,6 +814,7 @@ def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, a
     assert got.shape == (b, h * d, s)
     want = (plain(*args, anchor, out_dtype=torch.float32) if tc else plain(*args, anchor).float())
     torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
+    assert torch.equal(wrapper(*args, anchor), got)
 
 
 @pytest.mark.gpu
@@ -879,8 +882,9 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
     # float32, d = 64 or a misaligned pointer, nor dots' check instance on
     # those or a scores pointer off 8 bytes; row 9: variant 1 (d) in bf16 at
     # d = 40 into [BH, Sq, D], not variants 0, 2, 3, float32, d = 80 or a
-    # misaligned pointer.  The templates refuse bf16 dots, exp, noprolog and
-    # d; hedit_flash_variant refuses kern_c (3) in either dtype; kern_c's
+    # misaligned pointer.  The float32 entries (the query-major kernel's)
+    # refuse bf16 dots, exp, noprolog and d; hedit_flash_variant refuses
+    # kern_c (3) in either dtype; kern_c's
     # own entry takes both dtypes at d = 40, aligned
     ablate, variant = lib.hedit_flash_ablate_t_tc, lib.hedit_flash_variant_tc
     check = lib.hedit_flash_ablate_dots_check_tc
@@ -909,6 +913,25 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
                                 (0, 40, 256, 4)):
         assert lib.hedit_flash_variant_c(ptrs[0] + shift, *ptrs[1:], 2, sq, 256, d, dtype,
                                          stream) == -1
+    # rows 11 (layouts 0-2, anchor a multiple of 64 that divides Sk) and 8
+    # (modes 0-2) in float32 on the query-major kernel at d = 40 and 80,
+    # aligned; not bf16, d = 64, anchor 96, layout or mode 3, Sq = 200 or a
+    # pointer off 16 bytes (q, v or out)
+    q80 = torch.randn(1, 2, 256, 80, device=cuda)
+    out80 = torch.empty(2, 80, 256, device=cuda)
+    for d, pointers in ((40, ptrs32), (80, [t.data_ptr() for t in (q80, q80, q80, out80)])):
+        for code in (0, 1, 2):
+            assert lib.hedit_flash_packed_t(*pointers, 2, 256, 256, d, 128, code, 0, stream) == 0
+            assert lib.hedit_flash_ablate_t(*pointers, 2, 256, 256, d, code, 0, stream) == 0
+    for d, sq, anchor, code, dtype, shift, which in (
+            (40, 256, 128, 0, 1, 0, 0), (64, 256, 128, 0, 0, 0, 0), (40, 256, 96, 1, 0, 0, 0),
+            (40, 256, 128, 3, 0, 0, 0), (40, 200, 128, 2, 0, 0, 0), (40, 256, 128, 0, 0, 4, 0),
+            (40, 256, 128, 2, 0, 8, 2), (40, 256, 128, 1, 0, 4, 3)):
+        moved = list(ptrs32)
+        moved[which] += shift
+        assert lib.hedit_flash_packed_t(*moved, 2, sq, 256, d, anchor, code, dtype, stream) == -1
+        if anchor == 128:  # row 8 takes no anchor
+            assert lib.hedit_flash_ablate_t(*moved, 2, sq, 256, d, code, dtype, stream) == -1
     # rows 9 a, b (codes 0, 2, both dtypes) and float32 d (1) on the
     # query-major kernel, aligned; not code -1, d = 80, Sq = 200, dtype 2 or
     # a pointer off 16 bytes (q, k or out)
@@ -953,6 +976,15 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
             fp.flash_variant_b_cuda(t, misaligned(t), t)
     with pytest.raises(ValueError, match="aligned"):
         fp.flash_variant_a_cuda(q[0], q[0], misaligned(q[0]), pv_bf16=True)
+    qt32 = _sminor(q)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_packed_t_cuda(misaligned(q), q, q, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_packed_t_sminor_cuda(qt32, qt32, misaligned(q), 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_packed_t_all_sminor_cuda(qt32, misaligned(qt32), qt32, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_ablate_t_cuda(q, q, misaligned(q), "dots")
     with pytest.raises(ValueError, match="bf16 only"):
         fp.flash_ablate_dots_check_cuda(q, q, q)
     torch.cuda.synchronize()
@@ -962,11 +994,13 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["dots", "exp", "noprolog"])
-@pytest.mark.parametrize("shape", [(1, 4, 1024, 40), (1, 2, 256, 80)])
+@pytest.mark.parametrize("shape", [(1, 4, 1024, 40), (1, 2, 256, 80), (1, 2, 320, 40)])
 def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
     """TPU kernel 8, each mode, against its plain version (q and k scaled by
     0.05 as the probe draws them); bf16 on the tensor cores (its own
-    counter), float32 on the CUDA-core template.  ``exp`` and ``noprolog``:
+    counter), float32 on the query-major kernel (``csrc/flash_variants.cu``),
+    an Sq of 320 included (a last block half past Sq at d = 40).  A second
+    launch gives the same bits.  ``exp`` and ``noprolog``:
     tolerances of ``_tol``, bf16 held before the final rounding.  ``dots``
     in bf16: on the kernel's own scores and row sums
     (``check_ablate_dots_kernel``: the check instance's output bit for bit,
@@ -989,6 +1023,7 @@ def test_probe_ablate_kernel_matches_plain_on_card(cuda, dtype, mode, shape):
     assert {n: getattr(fp, n) - before[n] for n in names} == {n: int(n == counter) for n in names}
     b, h, s, d = shape
     assert got.shape == (b * h, d, s) and got.dtype == dtype
+    assert torch.equal(fp.flash_ablate_t_cuda(q, k, v, mode), got)
     if tc and mode == "dots":
         worst = fp.check_ablate_dots_kernel(q, k, v, got, images=3)
         assert worst["bit_identical"] and worst["sums_differing_rows"] == 0, worst
