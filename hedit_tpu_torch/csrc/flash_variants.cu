@@ -66,12 +66,6 @@
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
-// QM_WINDOW_PROLOGUE=1 builds row 11's other anchor rule (a QK-only pass
-// over the window before the loop) for flash_probe_tiles' turns.
-#ifndef QM_WINDOW_PROLOGUE
-#define QM_WINDOW_PROLOGUE 0
-#endif
-
 namespace {
 
 constexpr int BLOCK_Q = 128;          // queries a block (4 warps) at d = 40
@@ -122,9 +116,7 @@ __device__ __forceinline__ float round_bf16(float x) {
 //   the sum and the accumulator, as the exact rows do; no window score
 //   exceeds the window's max, so min(., 100) never clamps there, and after
 //   the window the shift is frozen and keys take the clamp (the same
-//   function up to float32 rounding).  QM_WINDOW_PROLOGUE instead scores the
-//   window first (QK only, 1/16 more work at Sk = 4096 with a 512-key
-//   window), then runs the loop from key 0 with the shift fixed;
+//   function up to float32 rounding);
 // - p is warp-private: the warp writes it as float32 into its own region,
 //   [key][rows + 4] (conflict-free fragment stores, 16-byte loads of 4
 //   queries), rounded to bf16 for pv_bf16; alpha and, at the end, l go
@@ -177,7 +169,6 @@ struct QmTraits {
   static constexpr bool v_sminor = V == QmVariant::BoundedAllSMinor;
   static constexpr bool rows_out = V == QmVariant::A || natural;  // [BH, Sq, D]; else [BH, D, Sq]
   static constexpr bool scale_q = natural || bounded;             // q times scale as it is loaded
-  static constexpr bool prologue = bounded && QM_WINDOW_PROLOGUE;
   static constexpr float floor = bounded ? kDenomFloor : exact ? 0.f : kAblateFloor;
 };
 
@@ -314,17 +305,15 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int c = 0; c < D; c += 4) cp_async_4(smem_u32(row + c * 4), src + c * sk, true);
     }
   };
-  // keys k0 .. k0 + TK of K and (with_v) V into ring stage `stage` as
-  // [key][d]: a row-major operand 16 bytes a copy, thread tid copying
-  // chunks tid, tid + 128, ... (bf16: the V chunks it converts); an S-minor
-  // one by load_sminor
-  auto load_tile = [&](int k0, int stage, bool with_v) {
+  // keys k0 .. k0 + TK of K and V into ring stage `stage` as [key][d]: a
+  // row-major operand 16 bytes a copy, thread tid copying chunks tid, tid +
+  // 128, ... (bf16: the V chunks it converts); an S-minor one by
+  // load_sminor
+  auto load_tile = [&](int k0, int stage) {
     unsigned char* kd = k_raw + stage * Sm::k_stage;
     unsigned char* vd = v_raw + stage * Sm::v_stage;
     if constexpr (Tr::qk_sminor) load_sminor(kd, kg, k0);
-    if constexpr (Tr::v_sminor) {
-      if (with_v) load_sminor(vd, vg, k0);
-    }
+    if constexpr (Tr::v_sminor) load_sminor(vd, vg, k0);
     for (int e = tid; e < TK * CH; e += kThreads) {
       if constexpr (!Tr::qk_sminor) {
         constexpr int row_bytes = BF ? 2 * ROW_BF : 4 * ROW;
@@ -332,10 +321,8 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         cp_async_16(smem_u32(kd + r * row_bytes + c * 16), kg + (k0 + r) * D + c * (16 / sizeof(T)),
                     true);
       }
-      if constexpr (!Tr::v_sminor) {
-        if (with_v)
-          cp_async_16(smem_u32(vd + e * 16), vg + size_t(k0) * D + e * (16 / sizeof(T)), true);
-      }
+      if constexpr (!Tr::v_sminor)
+        cp_async_16(smem_u32(vd + e * 16), vg + size_t(k0) * D + e * (16 / sizeof(T)), true);
     }
     cp_async_commit();
   };
@@ -532,12 +519,8 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
   };
 
-  // the tiles: row 11's QK-only window tiles first where QM_WINDOW_PROLOGUE
-  // (np of them), then every key tile
   const int nw = Tr::bounded ? anchor / TK : 0;  // the anchor window's tiles
-  const int np = Tr::prologue ? nw : 0;
-  const int nt = np + nk;
-  load_tile(0, 0, !Tr::prologue);
+  load_tile(0, 0);
   __syncthreads();  // q visible
   if constexpr (BF) {
     const __nv_bfloat16* q_s = reinterpret_cast<const __nv_bfloat16*>(q_raw);
@@ -549,7 +532,7 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       ldsm_x2(smem_u32(rows + 32), qa8[i]);
     }
   }
-  for (int tile = 0; tile < nt; ++tile) {
+  for (int tile = 0; tile < nk; ++tile) {
     const int stage = tile & 1;
     cp_async_wait<0>();  // this thread's copies of the tile have landed
     const float* vt;
@@ -562,10 +545,7 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     // the tile (and its float32 V) visible; every warp is past the previous
     // tile, so its stage may be refilled (and, first, is done with q's tile)
     __syncthreads();
-    if (tile + 1 < nt) {
-      const int next = tile + 1 < np ? tile + 1 : tile + 1 - np;
-      load_tile(next * TK, stage ^ 1, !Tr::prologue || tile + 1 >= np);
-    }
+    if (tile + 1 < nk) load_tile((tile + 1) * TK, stage ^ 1);
     zero_s();
     if constexpr (BF) {
 #pragma unroll
@@ -573,14 +553,7 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     } else {
       qk_f32(stage);
     }
-    if (Tr::prologue && tile < np) {  // the window's max, the shift after its last tile
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) m[i][r] = fmaxf(m[i][r], row_max(i, r));
-      continue;
-    }
-    const bool rescale = Tr::exact || (Tr::bounded && !Tr::prologue && tile < nw);
+    const bool rescale = Tr::exact || (Tr::bounded && tile < nw);
     softmax(rescale);
     pv(vt, rescale);
     // bf16: the float32 V tile is rewritten by the next tile's conversion;

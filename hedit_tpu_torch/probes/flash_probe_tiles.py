@@ -42,10 +42,8 @@ Times ``csrc/flash_probes_tc.cu`` on the card:
   the smoke's [2, 8, 4096, 40] (row 11, anchored on 512 keys) and
   [1, 8, 4096, 40] (row 8, q and k times 0.05), and their d = 80
   counterparts at 1024 tokens, beside SDPA in float32 (row 8: scale ln 2)
-  and the bound (4 B H S^2 D operations at 67 TFLOP/s); row 11 also in
-  turns with the source built with ``-DQM_WINDOW_PROLOGUE=1`` (the anchor
-  window's max by a QK-only pass before the loop, in place of the online
-  shift).  Outputs held to the plain versions within 1e-4 (``dots``: within
+  and the bound (4 B H S^2 D operations at 67 TFLOP/s).  Outputs held to
+  the plain versions within 1e-4 (``dots``: within
   ``ablate_dots_tolerance``, at most 0.1% of rows excused).
 
 Each kernel is launched through its entry point without the wrappers' host
@@ -60,19 +58,21 @@ and spills of each instance.
 example ``git archive <commit> | tar -x -C DIR``).  Its entries of the
 rows this tree's kernels compute (``csrc/flash_probes.cu``: the bf16 rows
 8, 10, 11 of older parents, and the float32 rows 8 and 11 of parents whose
-template still holds them; ``csrc/flash_variants.cu``: rows 9 a, b, c and
-float32 d) are timed in turns with this tree's kernels (parent, this,
-this, parent) where the parent takes the call.  Its
+template still holds them; ``csrc/flash_variants.cu``: rows 9 a, b, c,
+float32 d, and float32 8 and 11 where it holds them) are timed in turns
+with this tree's kernels (parent, this, this, parent) where the parent
+takes the call.  Its
 ``csrc/flash_attention_tc.cu``, ``csrc/flash_probes_tc.cu``,
 ``csrc/flash_probes.cu`` and ``csrc/flash_variants.cu`` are built beside
 this tree's, and these outputs of the two must agree bit for bit: the
 bounded, LSE and exact tensor-core forwards on the smoke's inputs
 (``flash_exact_tiles.identity``), rows 8 ``exp`` / ``noprolog``, 9 d, 10
 and 11a-c on the tensor cores, the template's row 10 in float32, rows 9 a,
-b and float32 d on the query-major kernel and row 9 c in both dtypes
-(``kept_identity``; rows 8 and 11 in float32 moved from the template to
-the query-major kernel, so they are held to their plain versions only).
-The probe exits non-zero if any differs.
+b and float32 d on the query-major kernel, row 9 c in both dtypes, and
+float32 rows 8 and 11 where the parent's ``csrc/flash_variants.cu`` holds
+them (``kept_identity``; a parent whose template still computes them is
+not held to, so they are held to their plain versions only).  The probe
+exits non-zero if any differs.
 """
 
 from __future__ import annotations
@@ -372,14 +372,17 @@ def variant_core_timings(mine, parent):
     return records
 
 
-def qm_f32_timings(mine, parent, prologue):
+def qm_f32_timings(mine, template, variants):
     """Rows 11a-c and 8 in float32 at ``F32_CASES``, each in turns with the
-    parent's same entry point where it takes the call (the template's
-    instances before this tree), row 11 also in turns with ``prologue``
-    (the source built with the QK-only window pass); one record a case and
-    layout or mode.  err_over_tol: over 1e-4 against the plain version;
-    ``dots`` over ``ablate_dots_tolerance``, the excused rows beside it
-    (inf where more than 0.1% of them)."""
+    parent's same entry point where it takes the call: its
+    ``csrc/flash_variants.cu`` (``variants``) where that holds the entry,
+    else its template; one record a case and layout or mode.  err_over_tol:
+    over 1e-4 against the plain version; ``dots`` over
+    ``ablate_dots_tolerance``, the excused rows beside it (inf where more
+    than 0.1% of them)."""
+    def parent(entry):
+        return variants if hasattr(variants, entry) else template
+
     records = []
     for b, h, s, d in F32_CASES["packed_t"]:
         q, k, v = _qkv(b, h, s, d, dtype=torch.float32)
@@ -398,16 +401,10 @@ def qm_f32_timings(mine, parent, prologue):
             del plain
             torch.cuda.empty_cache()
             label = f"{name} (layout {layout}) q[{b}, {h}, {s}, {d}] float32"
-            ms = _timed(label, _turns(kernel, parent, "hedit_flash_packed_t", args, out, ints),
+            ms = _timed(label, _turns(kernel, parent("hedit_flash_packed_t"),
+                                      "hedit_flash_packed_t", args, out, ints),
                         sdpa, bound_ms, err)
-            other = _entry_call(prologue, "hedit_flash_packed_t", args, torch.empty_like(out),
-                                ints)
-            t = [best_ms(fn) for fn in (kernel, other, other, kernel)]
-            print(f"{label} anchor window: online {t[0]:.4f}, prologue {t[1]:.4f}, prologue "
-                  f"{t[2]:.4f}, online {t[3]:.4f} ms")
             records.append({"probe": f"{name} float32", "shape": [b, h, s, d], "turns": ms,
-                            "window_turns": [["online", t[0]], ["prologue", t[1]],
-                                             ["prologue", t[2]], ["online", t[3]]],
                             "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
             del args, out
         del q, k, v
@@ -436,8 +433,9 @@ def qm_f32_timings(mine, parent, prologue):
             del plain
             torch.cuda.empty_cache()
             label = f"ablate {mode} q[{b}, {h}, {s}, {d}] float32"
-            ms = _timed(label, _turns(kernel, parent, "hedit_flash_ablate_t", (q, k, v), out,
-                                      ints), sdpa, bound_ms, err, f" {extra}" if extra else "")
+            ms = _timed(label, _turns(kernel, parent("hedit_flash_ablate_t"),
+                                      "hedit_flash_ablate_t", (q, k, v), out, ints),
+                        sdpa, bound_ms, err, f" {extra}" if extra else "")
             records.append({"probe": f"ablate {mode} float32", "shape": [b, h, s, d], "turns": ms,
                             "sdpa_ms": None if mode == "dots" else sdpa, "bound_ms": bound_ms,
                             "err_over_tol": err, **extra})
@@ -461,10 +459,10 @@ def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
     """The outputs this tree keeps from the parent, bit for bit: rows 11a-c,
     10, 8 ``exp`` / ``noprolog`` and 9 d on the tensor cores (bf16); the
     template's row 10 in float32; rows 9 a, b (both dtypes) and float32 d on
-    the query-major kernel (a parent whose ``csrc/flash_variants.cu`` has
-    it), and row 9 c in
-    both dtypes where the parent has its kernel (rows 8 and 11 in float32
-    moved from the template to the query-major kernel)."""
+    the query-major kernel, row 9 c in both dtypes, and rows 11a-c and 8
+    (all three modes) in float32, each where the parent's
+    ``csrc/flash_variants.cu`` has its entry (a parent whose template still
+    computes rows 8 and 11 in float32 is not held to)."""
     cases = []
     for b, h, s, d in ((2, 4, 1024, 40), (2, 3, 576, 80)):
         anchor = 64 * 3 if s % fp.BLK_K else fp.BLK_K
@@ -481,6 +479,17 @@ def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
                 for code in (1, 2):
                     cases.append((f"hedit_flash_ablate_t_tc mode {code}", lib,
                                   "hedit_flash_ablate_t_tc", (q, k, v), (b * h, d, s),
+                                  (b * h, s, s, d, code), dtype))
+            elif hasattr(parent_variants, "hedit_flash_packed_t"):
+                for layout in LAYOUTS:
+                    args = {0: (q, k, v), 1: (_sminor(q), _sminor(k), v),
+                            2: (_sminor(q), _sminor(k), _sminor(v))}[layout]
+                    cases.append((f"hedit_flash_packed_t layout {layout}", parent_variants,
+                                  "hedit_flash_packed_t", args, (b * h, d, s),
+                                  (b * h, s, s, d, anchor, layout), dtype))
+                for code in range(len(fp.ABLATE_MODES)):
+                    cases.append((f"hedit_flash_ablate_t mode {code}", parent_variants,
+                                  "hedit_flash_ablate_t", (q, k, v), (b * h, d, s),
                                   (b * h, s, s, d, code), dtype))
             entry = "hedit_flash_exp2_t" + ("_tc" if dtype == torch.bfloat16 else "")
             for pipe in (0, 1):
@@ -517,11 +526,8 @@ def main(argv=None) -> int:
     builds = [(TC_SOURCE, f"variant{i}", _build.CSRC, (f"EXP2_MINB_40={n}",))
               for i, n in enumerate(VARIANTS)]
     builds.append((TC_SOURCE, "ablate_minb", _build.CSRC, (f"ABLATE_MINB_40={ABLATE_MINB}",)))
-    # this tree's variants source alone, for its -Xptxas -v lines (rows 8, 9 a-c, 11), and
-    # built with row 11's other window rule
+    # this tree's variants source alone, for its -Xptxas -v lines (rows 8, 9 a-c, 11)
     builds.append((_build.CSRC / "flash_variants.cu", "variants", _build.CSRC, ()))
-    builds.append((_build.CSRC / "flash_variants.cu", "window_prologue", _build.CSRC,
-                   ("QM_WINDOW_PROLOGUE=1",)))
     parents = ("flash_probes.cu", "flash_variants.cu", "flash_attention_tc.cu",
                "flash_probes_tc.cu")
     if args.parent is not None:
@@ -535,15 +541,14 @@ def main(argv=None) -> int:
     mine = _build.cuda_library()
     n = len(VARIANTS)
     variants = [lib for lib, _ in built[:n]]
-    prologue = built[n + 2][0]
-    parent = dict(zip(parents, (lib for lib, _ in built[n + 3:]))) if args.parent else {}
+    parent = dict(zip(parents, (lib for lib, _ in built[n + 2:]))) if args.parent else {}
     template = parent.get("flash_probes.cu")
     records = bounded_timings(mine, template)
     records += exp2_timings(mine, template, variants)
     records += ablate_timings(mine, template, built[n][0])
     records += variant_timings(mine, parent.get("flash_variants.cu"), variants)
     records += variant_core_timings(mine, parent.get("flash_variants.cu"))
-    records += qm_f32_timings(mine, template, prologue)
+    records += qm_f32_timings(mine, template, parent.get("flash_variants.cu"))
     print(json.dumps({"flash_probe_tiles": records}))
     if args.parent is not None and not (
             identity(mine, parent["flash_attention_tc.cu"], exact=True)
