@@ -72,9 +72,9 @@ the final result line:
 4. the probes (TPU kernels 10, 11, 8, 9 and 12): the three bounded forwards
    with the packed transposed output and the exact exp2 forward in both key
    loops (bf16 on the tensor cores, ``csrc/flash_probes_tc.cu``, held
-   before the final rounding, the two loops bit for bit; float32: the
-   bounded ones on the query-major kernel of ``csrc/flash_variants.cu``,
-   relaunched bit for bit, the exp2 one on the CUDA-core template) and a
+   before the final rounding, the two loops bit for bit; float32: all four
+   on the query-major kernel of ``csrc/flash_variants.cu``, relaunched bit
+   for bit, the exp2 one at d = 40 and 80) and a
    saturating input, the three ablations of the bounded loop (float32 on
    the query-major kernel, relaunched bit for bit; the ``dots`` one held
    element by element to its conditioning, the rows it excuses counted),
@@ -1490,9 +1490,11 @@ def phase_kernels():
 
 # The probes' shapes (scripts/flash_nhd_variants.py: B=16, S=4096, H=8,
 # D=40; scripts/flash_v4_variants.py: [4, 32, 4096, 40]), bf16, and one
-# float32 case each at a smaller batch.
+# float32 case each at a smaller batch (row 10 also at d = 80, where its
+# float32 kernel takes 32-key tiles).
 NHD_SHAPES = (((16, 8, 4096, 40), torch.bfloat16), ((2, 8, 4096, 40), torch.float32))
-V4_SHAPES = (((4, 32, 4096, 40), torch.bfloat16), ((1, 8, 4096, 40), torch.float32))
+V4_SHAPES = (((4, 32, 4096, 40), torch.bfloat16), ((1, 8, 4096, 40), torch.float32),
+             ((1, 8, 1024, 80), torch.float32))
 
 
 def _sminor(t):
@@ -1517,17 +1519,18 @@ def _probe_plain(plain, args, dtype):
 
 def _probe_name(name, dtype):
     """The kernels line's name of a probe kernel: the float32 instances on
-    the CUDA cores (rows 8 and 11 on the query-major kernel, row 10 on the
-    template, float32 9 d) are ``..._core``."""
+    the CUDA cores (rows 8, 10 and 11 on the query-major kernel, float32 9
+    d) are ``..._core``."""
     return f"{name}{'_core' if dtype == torch.float32 else ''}"
 
 
 def _probe_kernel_cases(g, rows, failures):
     """TPU kernels 11 (three layouts) and 10 (both loops) against their plain
     versions at the probes' shapes: bf16 within one output ulp (on the
-    tensor cores, before the final rounding), float32 within 1e-4 (kernel
-    11 on the query-major kernel, relaunched bit for bit); the two loops of
-    kernel 10 bit for bit; the library call is SDPA on the same [B, H, S,
+    tensor cores, before the final rounding), float32 within 1e-4 (on the
+    query-major kernel, relaunched bit for bit; kernel 10's plain version at
+    the kernel's key tile, ``fp.exp2_key_tile``); the two loops of kernel 10
+    bit for bit; the library call is SDPA on the same [B, H, S,
     D] values, the bound 4 B H S^2 D operations over the bf16 (or float32)
     peak.  Then kernel 11 on the saturating input (anchor 512, key 600
     beyond it), float32 relaunched bit for bit too."""
@@ -1570,23 +1573,30 @@ def _probe_kernel_cases(g, rows, failures):
     for shape, dtype in V4_SHAPES:
         q, k, v = _qkv(g, shape, shape[2], dtype)
         got, got_pipe = (fp.flash_exp2_t_cuda(q, k, v, pipe) for pipe in (False, True))
-        want = _probe_plain(fp.flash_exp2_t_reference, (q, k, v), dtype)()
+        blk_k = fp.exp2_key_tile(dtype, shape[3])
+        plain = functools.partial(fp.flash_exp2_t_reference, blk_k=blk_k)
+        want = _probe_plain(plain, (q, k, v), dtype)()
         torch.cuda.synchronize()
         pipe_err = (got_pipe.float() - want.float()).abs().max().item()
         same = bool(torch.equal(got, got_pipe))
+        extra = {}
+        if dtype == torch.float32:  # the query-major kernel
+            extra["relaunch_bit_identical"] = _relaunch_same(
+                lambda: (fp.flash_exp2_t_cuda(q, k, v, False),
+                         fp.flash_exp2_t_cuda(q, k, v, True)), (got, got_pipe))
         # the TPU wrapper's 512-key blocks round p against other points
         blk512 = (got.float() - fp.flash_exp2_t_reference(q, k, v, blk_k=fp.BLK_K).float()
                   ).abs().max().item()
         print(f"flash exp2_t q{list(shape)} {str(dtype)[6:]}: pipe=True max_abs_err "
               f"{pipe_err:.3e}, identical to pipe=False: {same}; against the plain version "
-              f"with 512-key blocks {blk512:.3e}")
+              f"with 512-key blocks {blk512:.3e} (the kernel's: {blk_k})")
         hold(_probe_name("flash_exp2_t", dtype),
              f"flash exp2_t q{list(shape)} {str(dtype)[6:]} pipe=False", got,
              want, dtype, cuda_ms(lambda: fp.flash_exp2_t_cuda(q, k, v, False)),
-             cuda_ms(lambda: fp.flash_exp2_t_reference(q, k, v)),
+             cuda_ms(lambda: plain(q, k, v)),
              cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), shape,
              pipe_ms=cuda_ms(lambda: fp.flash_exp2_t_cuda(q, k, v, True)),
-             pipe_max_abs_err=pipe_err)
+             pipe_max_abs_err=pipe_err, key_tile=blk_k, **extra)
         print(f"  pipe=True {rows[-1]['pipe_ms']:.3f} ms against pipe=False "
               f"{rows[-1]['ms']:.3f} ms")
         if not same:
@@ -1907,9 +1917,9 @@ def phase_probes(rows):
         print(f"probe {name} ({time.perf_counter() - t0:.1f} s): {json.dumps(results)}")
         print(f"probe {name} launches: {json.dumps(counts[name])}")
     # rows 8, 10 and 11: bf16 chains and loops on the tensor cores, float32
-    # ones on the CUDA cores (8 and 11 the query-major kernel's counters, 10
-    # the template's), never the other; dots' check instance on neither
-    # path; row 9: bf16 d on the tensor cores, a, b, c and float32 d on the
+    # ones on the query-major kernel of the CUDA cores, never the other;
+    # dots' check instance on neither path; row 9: bf16 d on the tensor
+    # cores, a, b, c and float32 d on the
     # kernels of csrc/flash_variants.cu, the bf16 instances on the bf16 path
     # and the float32 ones on the float32 path; row 6, the v4 probe's base,
     # on the tensor cores or the float32 kernel, never the template
@@ -2879,7 +2889,7 @@ def main(argv=None) -> int:
                                            "negative_sum_rows", "check_bit_identical",
                                            "score_err_over_tol", "sums_differing_rows",
                                            "regime", "cluster", "cb", "traffic_bound_ms",
-                                           "eager_ms")
+                                           "eager_ms", "key_tile")
                    if k in mine[0]}}
 
     def at_shape(name, shape):
@@ -2888,6 +2898,7 @@ def main(argv=None) -> int:
         mine = next(r for r in rows if r["name"] == name and r["shape"] == list(shape))
         return {k: mine[k] for k in ("ms", "core_ms", "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "bound_7_products_ms", "dkv_ms", "dq_ms",
+                                     "pipe_ms", "key_tile", "relaunch_bit_identical",
                                      "max_abs_err", "shape") if k in mine}
 
     tc_cu, bwd_tc_cu, probes_tc_cu = ("hedit_tpu_torch/csrc/flash_attention_tc.cu",
@@ -2898,7 +2909,6 @@ def main(argv=None) -> int:
     f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_f32_512.cu"
     bwd_f32_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32.cu"
     bwd_f32_512_cu = "hedit_tpu_torch/csrc/flash_attention_bwd_f32_512.cu"
-    probes_cu = "hedit_tpu_torch/csrc/flash_probes.cu"
     variants_cu, mm_cu, mm_tc_cu = ("hedit_tpu_torch/csrc/flash_variants.cu",
                                     "hedit_tpu_torch/csrc/mm_probe.cu",
                                     "hedit_tpu_torch/csrc/mm_probe_tc.cu")
@@ -2956,8 +2966,8 @@ def main(argv=None) -> int:
               "scripts/flash_nhd_variants.py:136", "flash_nhd_variants_f32"),
         entry("flash_exp2_t", "cuda", probes_tc_cu, "scripts/flash_v4_variants.py:34",
               "flash_v4_variants"),
-        entry("flash_exp2_t_core", "cuda", probes_cu, "scripts/flash_v4_variants.py:34",
-              "flash_v4_variants_f32"),
+        entry("flash_exp2_t_core", "cuda", variants_cu, "scripts/flash_v4_variants.py:34",
+              "flash_v4_variants_f32", d80=at_shape("flash_exp2_t_core", (1, 8, 1024, 80))),
         *(entry(f"flash_ablate_{m}", "cuda", probes_tc_cu, "scripts/flash_ablate.py:34",
                 "flash_ablate") for m in fp.ABLATE_MODES),
         *(entry(f"flash_ablate_{m}_core", "cuda", variants_cu, "scripts/flash_ablate.py:34",

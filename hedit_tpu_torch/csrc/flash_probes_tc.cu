@@ -1,17 +1,17 @@
 // The bounded, exact-exp2, ablation and bf16-PV flash probes in bfloat16 on
 // Hopper's tensor cores (sm_90a), replacing for bf16 inputs the TPU kernels
 // of scripts/flash_nhd_variants.py (entry point hedit_flash_packed_t_tc, the
-// arguments of flash_probes.cu's hedit_flash_packed_t; wrappers
+// arguments of flash_variants.cu's hedit_flash_packed_t; wrappers
 // flash_packed_t*_cuda in ops/flash_probes.py)
 //   _packed_t_kernel (:93)              q, k, v [BH, S, D]              layout 0
 //   _packed_t_kernel_sminor (:101)      q, k [BH, D, S]; v [BH, S, D]   layout 1
 //   _packed_t_kernel_all_sminor (:136)  q, k, v [BH, D, S]              layout 2
 // of scripts/flash_v4_variants.py
 //   kern_exp2 (:34)                     q, k, v [BH, S, D], both key loops
-// (entry point hedit_flash_exp2_t_tc, the arguments of flash_probes.cu's
+// (entry point hedit_flash_exp2_t_tc, the arguments of flash_variants.cu's
 // hedit_flash_exp2_t; wrapper flash_exp2_t_cuda), of scripts/flash_ablate.py
 //   make_kernel(mode) (:34), dots, exp, noprolog     q, k, v [BH, S, D]
-// (entry point hedit_flash_ablate_t_tc, the arguments of flash_probes.cu's
+// (entry point hedit_flash_ablate_t_tc, the arguments of flash_variants.cu's
 // hedit_flash_ablate_t; wrapper flash_ablate_t_cuda; `dots` also as a
 // check-only instance that stores its scores and row sums:
 // hedit_flash_ablate_dots_check_tc, wrapper flash_ablate_dots_check_cuda)
@@ -21,10 +21,10 @@
 // hedit_flash_variant; wrapper flash_variant_a_cuda(pv_bf16=True)).  All but
 // the last write the transposed output [BH, D, Sq], the same memory as the
 // packed transposed [B, H*D, Sq] the TPU wrappers return; the last writes
-// [BH, Sq, D].  float32 inputs stay on the CUDA-core templates of
-// flash_probes.cu and flash_variants.cu.
+// [BH, Sq, D].  float32 inputs stay on the CUDA-core kernels of
+// flash_variants.cu.
 //
-// The bounded function is the head of flash_probes.cu's: q * scale, the
+// The bounded function: q * scale, the
 // scale rounded to bf16 and the product rounded again; float32 scores;
 // shift = the row's max over the first `anchor` keys + 16; p = exp2(min(s -
 // shift, 100)) rounded to bf16, which feeds both the PV product and the row
@@ -614,7 +614,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int bh, int
 // Plain C entry points for ctypes.  Each returns 0 on success, a cudaError_t
 // code from the launch, or -1 for arguments the kernel does not take.
 
-// Row 11 in bf16, the arguments of flash_probes.cu's hedit_flash_packed_t:
+// Row 11 in bf16, the arguments of flash_variants.cu's hedit_flash_packed_t:
 // layout 0 (11a: q, k, v [BH, S, D]), 1 (11b: q, k [BH, D, S], v [BH, S, D])
 // or 2 (11c: q, k, v [BH, D, S]); out [BH, D, Sq].
 extern "C" int hedit_flash_packed_t_tc(const void* q, const void* k, const void* v, void* out,
@@ -631,7 +631,7 @@ extern "C" int hedit_flash_packed_t_tc(const void* q, const void* k, const void*
   }
 }
 
-// Row 10 in bf16, the arguments of flash_probes.cu's hedit_flash_exp2_t:
+// Row 10 in bf16, the arguments of flash_variants.cu's hedit_flash_exp2_t:
 // q, k, v [BH, S, D] -> out [BH, D, Sq]; pipe: 0 the plain key loop, 1 the
 // software-pipelined one.
 extern "C" int hedit_flash_exp2_t_tc(const void* q, const void* k, const void* v, void* out,
@@ -643,7 +643,7 @@ extern "C" int hedit_flash_exp2_t_tc(const void* q, const void* k, const void* v
               : launch_d<Op::Exp2>(q, k, v, out, bh, sq, sk, d, 0, s);
 }
 
-// Row 8 in bf16, the arguments of flash_probes.cu's hedit_flash_ablate_t:
+// Row 8 in bf16, the arguments of flash_variants.cu's hedit_flash_ablate_t:
 // q, k, v [BH, S, D] -> out [BH, D, Sq]; mode 0 dots, 1 exp, 2 noprolog.
 extern "C" int hedit_flash_ablate_t_tc(const void* q, const void* k, const void* v, void* out,
                                        int bh, int sq, int sk, int d, int mode, int dtype,

@@ -2,7 +2,8 @@
 // kernels (wrappers in ops/flash_probes.py):
 //
 // The query-major kernel, flash_qm_kernel (described before it), entry
-// points hedit_flash_variant, hedit_flash_packed_t and hedit_flash_ablate_t:
+// points hedit_flash_variant, hedit_flash_packed_t, hedit_flash_ablate_t and
+// hedit_flash_exp2_t:
 //   rows 9 a, b, float32 d: scripts/flash_variants.py
 //     kern_a (:31)           [Sq, D] output           flash_variant_a_cuda
 //     kern_a, pv_bf16 (:45)  p rounded to bf16 for PV  flash_variant_a_cuda(pv_bf16=True)
@@ -15,6 +16,9 @@
 //     _packed_t_kernel_all_sminor (:136)  q, k, v [BH, D, S]       flash_packed_t_all_sminor_cuda
 //   row 8 in float32: scripts/flash_ablate.py:34 make_kernel(mode), the
 //   bounded loop cut down to measure its floor   flash_ablate_t_cuda
+//   row 10 in float32: scripts/flash_v4_variants.py:34 kern_exp2, the exact
+//   forward with exp2 and the [BH, D, Sq] output, in its plain and its
+//   software-pipelined key loop                  flash_exp2_t_cuda
 // The key-major kernel, row 9 c: kern_c (:87), key-major scores, [D, Sq]
 // output, flash_variant_c_cuda (entry point hedit_flash_variant_c:
 // flash_variant_c_kernel).
@@ -41,7 +45,13 @@
 // scaled, no shift but a constant, p = s (dots), exp2(s) (exp) or
 // exp2(min(s - 12.34, 100)) (noprolog), the sum floored at 1e-30.  In `dots`
 // the sum of p can be negative or near zero; the floor then makes the
-// output acc * 1e30, as on the TPU.
+// output acc * 1e30, as on the TPU.  Row 10's (float32; bf16:
+// hedit_flash_exp2_t_tc): q times c = float(sm_scale * log2(e)) rounded
+// before the product, as row 11's; a running max m from -1e30 moved once a
+// key tile, p = exp2(s - m_new), alpha = exp2(m_old - m_new), l = l * alpha
+// + sum(p) (the TPU kernel's ones column of v_aug), out = acc / l with no
+// floor.  The key tile decides only where p is rounded: 64 keys at d = 40,
+// 32 at d = 80 (flash_probes.py:exp2_key_tile).
 //
 // What bounds them: QK and PV, each 2 BH Sq Sk D FLOP; PV in float32 FMAs at
 // 67 TFLOP/s (0.641 ms at row 9's [32, 4096, 40]); QK of bf16 inputs on the
@@ -54,7 +64,7 @@
 //
 // Contract: each (batch, head) image of an operand a dense [S, D] or (rows
 // 11b, 11c) [D, S], one dtype (float32, or bfloat16 for 9 a, b, c), every
-// operand 16-byte aligned; D = 40 (row 9) or 40 and 80 (rows 8, 11); Sq and
+// operand 16-byte aligned; D = 40 (row 9) or 40 and 80 (rows 8, 10, 11); Sq and
 // Sk multiples of 64 (the TPU grids cover whole blocks; nothing is masked
 // but the queries past Sq of a last block); row 11's anchor a multiple of 64
 // that divides Sk.  A block takes 128 queries (64 at d = 80): the last
@@ -87,8 +97,8 @@ __device__ __forceinline__ float round_bf16(float x) {
 
 // ---------------------------------------------------------------------------
 // The query-major kernel: rows 9 a and 9 b, kern_a (with pv_bf16 in
-// float32) and kern_b (scripts/flash_variants.py:31, 61), rows 11a-c and 8
-// in float32, redesigned for the H100 as one kernel.  They reduce along the
+// float32) and kern_b (scripts/flash_variants.py:31, 61), rows 11a-c, 8 and
+// 10 in float32, redesigned for the H100 as one kernel.  They reduce along the
 // query's row, which is the row of the mma.sync C fragment: the four lanes of
 // a quad hold it.  So each warp keeps its queries' softmax to itself:
 // - at d = 40 a block of 4 warps takes 128 queries, warp w the 32 rows w*32
@@ -135,7 +145,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 //   keeps one float32 V tile and lays q (read once, into registers) over the
 //   p regions: a second barrier a tile (before the next conversion), 70 KB
 //   and at most 168 registers, 3 blocks an SM;
-// - the epilogue: the transposed rows (9 b, 11, 8) store 8-query runs of
+// - row 10's pipelined loop (kern_exp2's pipe) takes tile t's scores before
+//   tile t - 1's softmax and PV, into a second score array (64 floats a
+//   thread at d = 40, 16 at d = 80), with the same code in the same order
+//   for each tile as the plain loop, so its output is the plain loop's bit
+//   for bit.  It needs no third ring stage: K is copied a tile ahead of V.
+//   Iteration t issues K(t + 1) into the slot K(t - 1) left (QK(t - 1) is
+//   done) and V(t) into the slot V(t - 2) left (PV(t - 2) is done), behind
+//   the one barrier a tile, so the shared memory is the plain loop's;
+// - the epilogue: the transposed rows (9 b, 11, 8, 10) store 8-query runs of
 //   each of a thread's 5 d rows straight to [BH, D, Sq]; 9 a stages its
 //   warp's [32][40] tile over the warp's p region and writes the warp's
 //   1,280 contiguous outputs of [BH, Sq, D] as 16-byte vectors.  Both divide
@@ -149,26 +167,31 @@ __device__ __forceinline__ float round_bf16(float x) {
 // only) keeps the template's order instead: q times sm_scale before an
 // in-order FMA chain over d and p = expf(s - m), so that p, rounded to
 // bf16, lands where the plain version's does.  Row 11 takes q times c as
-// it is loaded (its function rounds q c first), row 8 q as it is; both
-// take their exp2 by ex2.approx.ftz.
+// it is loaded (its function rounds q c first), row 10 likewise with p =
+// 2^(s - m) after it, row 8 q as it is; all three take their exp2 by
+// ex2.approx.ftz.
 
 enum class QmVariant {
   A, ABf16PV, B,                             // row 9: kern_a, kern_a with pv_bf16, kern_b
   Bounded, BoundedSMinor, BoundedAllSMinor,  // row 11: layouts 0, 1, 2
-  Dots, Exp, NoProlog                        // row 8's modes
+  Dots, Exp, NoProlog,                       // row 8's modes
+  Exp2, Exp2Pipe                             // row 10: the plain and the pipelined loop
 };
 
 template <QmVariant V>
 struct QmTraits {
   static constexpr bool natural = V == QmVariant::ABf16PV;
-  static constexpr bool exact = V == QmVariant::A || V == QmVariant::B || natural;
+  static constexpr bool exp2_q = V == QmVariant::Exp2 || V == QmVariant::Exp2Pipe;  // row 10
+  static constexpr bool pipe = V == QmVariant::Exp2Pipe;
+  static constexpr bool exact = V == QmVariant::A || V == QmVariant::B || natural || exp2_q;
   static constexpr bool bounded = V == QmVariant::Bounded || V == QmVariant::BoundedSMinor ||
                                   V == QmVariant::BoundedAllSMinor;
   static constexpr bool qk_sminor = V == QmVariant::BoundedSMinor ||
                                     V == QmVariant::BoundedAllSMinor;
   static constexpr bool v_sminor = V == QmVariant::BoundedAllSMinor;
   static constexpr bool rows_out = V == QmVariant::A || natural;  // [BH, Sq, D]; else [BH, D, Sq]
-  static constexpr bool scale_q = natural || bounded;             // q times scale as it is loaded
+  static constexpr bool scale_q = natural || bounded || exp2_q;   // q times scale as it is loaded
+  static constexpr bool scale_after = exact && !scale_q;          // a, b: s times scale
   static constexpr float floor = bounded ? kDenomFloor : exact ? 0.f : kAblateFloor;
 };
 
@@ -234,7 +257,8 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   constexpr int WR = Tl::WR, TK = Tl::TK, NI = Tl::NI, NJ = Tl::NJ, ROW = Tl::ROW, PS = Tl::PS;
   constexpr int VROW = Tr::v_sminor ? ROW : D;  // the V tile's rows
   // pv_bf16: q times sm_scale (= scale) on load and p = expf(s - m); a, b: s
-  // times c (= scale) and p = 2^(s c - m); row 11: q times c (= scale) on load
+  // times c (= scale) and p = 2^(s c - m); rows 10, 11: q times c (= scale)
+  // on load
   constexpr bool NATURAL = Tr::natural;
   static_assert(!BF || (D == HEAD_D && (V == QmVariant::A || V == QmVariant::B)),
                 "bf16: rows 9 a and b (pv_bf16 runs on the tensor cores, flash_probes_tc.cu)");
@@ -305,27 +329,37 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int c = 0; c < D; c += 4) cp_async_4(smem_u32(row + c * 4), src + c * sk, true);
     }
   };
-  // keys k0 .. k0 + TK of K and V into ring stage `stage` as [key][d]: a
-  // row-major operand 16 bytes a copy, thread tid copying chunks tid, tid +
-  // 128, ... (bf16: the V chunks it converts); an S-minor one by
-  // load_sminor
-  auto load_tile = [&](int k0, int stage) {
-    unsigned char* kd = k_raw + stage * Sm::k_stage;
-    unsigned char* vd = v_raw + stage * Sm::v_stage;
-    if constexpr (Tr::qk_sminor) load_sminor(kd, kg, k0);
-    if constexpr (Tr::v_sminor) load_sminor(vd, vg, k0);
+  // keys kk0 .. kk0 + TK of K into ring stage ks and keys vk0 .. vk0 + TK
+  // of V into stage vs (either left out where its first key is negative),
+  // as [key][d], one commit group: a row-major operand 16 bytes a copy,
+  // thread tid copying chunks tid, tid + 128, ... (bf16: the V chunks it
+  // converts); an S-minor one by load_sminor
+  auto load_kv = [&](int kk0, int ks, int vk0, int vs) {
+    unsigned char* kd = k_raw + ks * Sm::k_stage;
+    unsigned char* vd = v_raw + vs * Sm::v_stage;
+    if constexpr (Tr::qk_sminor) {
+      if (kk0 >= 0) load_sminor(kd, kg, kk0);
+    }
+    if constexpr (Tr::v_sminor) {
+      if (vk0 >= 0) load_sminor(vd, vg, vk0);
+    }
     for (int e = tid; e < TK * CH; e += kThreads) {
       if constexpr (!Tr::qk_sminor) {
         constexpr int row_bytes = BF ? 2 * ROW_BF : 4 * ROW;
         const int r = e / CH, c = e - r * CH;
-        cp_async_16(smem_u32(kd + r * row_bytes + c * 16), kg + (k0 + r) * D + c * (16 / sizeof(T)),
-                    true);
+        if (kk0 >= 0)
+          cp_async_16(smem_u32(kd + r * row_bytes + c * 16),
+                      kg + (kk0 + r) * D + c * (16 / sizeof(T)), true);
       }
-      if constexpr (!Tr::v_sminor)
-        cp_async_16(smem_u32(vd + e * 16), vg + size_t(k0) * D + e * (16 / sizeof(T)), true);
+      if constexpr (!Tr::v_sminor) {
+        if (vk0 >= 0)
+          cp_async_16(smem_u32(vd + e * 16), vg + size_t(vk0) * D + e * (16 / sizeof(T)), true);
+      }
     }
     cp_async_commit();
   };
+  // the keys k0 .. k0 + TK of K and V into ring stage `stage`
+  auto load_tile = [&](int k0, int stage) { load_kv(k0, stage, k0, stage); };
   // bf16: this thread's own V chunks of the tile in ring stage `stage`
   // (visible to it once its copies landed) into the float32 V tile
   auto convert_v = [&](int stage) {
@@ -341,7 +375,8 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
   };
 
-  // s[i][j][2r + e]: row warp*WR + i*16 + r*8 + g, key j*8 + 2t + e
+  // s[i][j][2r + e]: row warp*WR + i*16 + r*8 + g, key j*8 + 2t + e (row
+  // 10's pipelined loop: the previous tile's, the next tile's in s_next)
   float s[NI][NJ][4];
   // bf16: the warp's Q fragments for the whole loop, 2 row tiles x (two k16
   // steps, d 0 .. 32, and one k8 step, d 32 .. 40)
@@ -371,17 +406,18 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       mma_bf16_k8(s[i][2 * jp + 1], qa8[i][0], qa8[i][1], b8[1]);
     }
   };
-  auto zero_s = [&] {
+  auto zero_s = [&](float (&sc)[NI][NJ][4]) {
 #pragma unroll
     for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) sc[i][j][e] = 0.f;
   };
-  // float32, the tile's scores by FMAs from [query][d] and [key][d] tiles,
-  // 4 d a 16-byte load, d in order (the template's FMA chain)
-  auto qk_f32 = [&](int stage) {
+  // float32, the scores of the tile in ring stage `stage` into sc, by FMAs
+  // from [query][d] and [key][d] tiles, 4 d a 16-byte load, d in order (the
+  // template's FMA chain)
+  auto qk_f32 = [&](int stage, float (&sc)[NI][NJ][4]) {
     const float* q_s = reinterpret_cast<const float*>(q_raw) + (warp * WR + g) * ROW;
     const float* kt = reinterpret_cast<const float*>(k_raw + stage * Sm::k_stage) + 2 * t * ROW;
 #pragma unroll 2
@@ -401,7 +437,7 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
           for (int i = 0; i < NI; ++i)
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-              float& x = s[i][j][2 * r + e];
+              float& x = sc[i][j][2 * r + e];
               x = fmaf(qv[i][r].x, kv.x, x);
               x = fmaf(qv[i][r].y, kv.y, x);
               x = fmaf(qv[i][r].z, kv.z, x);
@@ -411,9 +447,9 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
   };
 
-  // row (i, r) = warp*WR + i*16 + r*8 + g: its running max (exact: of s c,
-  // or of s for pv_bf16; row 11: of s over the window) and sum, the same in
-  // the 4 lanes of the quad
+  // row (i, r) = warp*WR + i*16 + r*8 + g: its running max (a, b: of s c;
+  // pv_bf16 and row 10: of s; row 11: of s over the window) and sum, the
+  // same in the 4 lanes of the quad
   float m[NI][2], l[NI][2];
   float acc[5][8];  // d rows dy*4 .. + 4, 4 NDY + dy; queries qx*8 .. + 8
 #pragma unroll
@@ -449,7 +485,7 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         if constexpr (Tr::exact) {
           const float mx = row_max(i, r);
           // c > 0 and rounding is monotonic: max(s) c is the max of s c
-          const float m_new = fmaxf(m[i][r], NATURAL ? mx : mx * scale);
+          const float m_new = fmaxf(m[i][r], Tr::scale_after ? mx * scale : mx);
           alpha = NATURAL ? expf(m[i][r] - m_new) : ex2_ftz(m[i][r] - m_new);
           m[i][r] = ref = m_new;
         } else if constexpr (Tr::bounded) {
@@ -469,7 +505,9 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
             const float x = s[i][j][2 * r + e];
             float p;
             if constexpr (Tr::exact) {
-              p = NATURAL ? expf(x - ref) : ex2_ftz(fmaf(x, scale, -ref));
+              p = NATURAL           ? expf(x - ref)
+                  : Tr::scale_after ? ex2_ftz(fmaf(x, scale, -ref))
+                                    : ex2_ftz(x - ref);
             } else if constexpr (Tr::bounded) {
               p = ex2_ftz(fminf(x - ref, kSaturate));
             } else if constexpr (V == QmVariant::Dots) {
@@ -520,45 +558,83 @@ flash_qm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   };
 
   const int nw = Tr::bounded ? anchor / TK : 0;  // the anchor window's tiles
-  load_tile(0, 0);
-  __syncthreads();  // q visible
-  if constexpr (BF) {
-    const __nv_bfloat16* q_s = reinterpret_cast<const __nv_bfloat16*>(q_raw);
+  if constexpr (Tr::pipe) {
+    // row 10's pipelined loop: tile 0's K and V and tile 1's K, then tile
+    // 0's scores (the prologue); iteration t takes tile t's scores, then
+    // tile t - 1's softmax and PV; the epilogue drains the last tile
+    load_tile(0, 0);
+    if (nk > 1) load_kv(TK, 1, -1, 0);
+    cp_async_wait<0>();
+    __syncthreads();  // q, K(0), K(1) and V(0) visible
+    zero_s(s);
+    qk_f32(0, s);
+    for (int tile = 1; tile < nk; ++tile) {
+      const int stage = tile & 1;
+      cp_async_wait<0>();  // this thread's copies of K(tile) and V(tile - 1) have landed
+      // K(tile) and V(tile - 1) visible; every warp is past QK(tile - 1)
+      // and PV(tile - 2), so K(tile - 1)'s and V(tile - 2)'s slots may be
+      // refilled
+      __syncthreads();
+      load_kv(tile + 1 < nk ? (tile + 1) * TK : -1, stage ^ 1, tile * TK, stage);
+      float s_next[NI][NJ][4];
+      zero_s(s_next);
+      qk_f32(stage, s_next);
+      softmax(true);
+      pv(reinterpret_cast<const float*>(v_raw + (stage ^ 1) * Sm::v_stage), true);
 #pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const __nv_bfloat16* rows = q_s + (warp * WR + i * 16 + (lane & 15)) * ROW_BF;
+      for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) ldsm_x4(smem_u32(rows + kk * 16 + (lane >> 4) * 8), qa[i][kk]);
-      ldsm_x2(smem_u32(rows + 32), qa8[i]);
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j][e] = s_next[i][j][e];
+      __syncwarp();  // the warp's p and alpha are rewritten by the next softmax
     }
-  }
-  for (int tile = 0; tile < nk; ++tile) {
-    const int stage = tile & 1;
-    cp_async_wait<0>();  // this thread's copies of the tile have landed
-    const float* vt;
+    cp_async_wait<0>();
+    __syncthreads();  // V(nk - 1) visible
+    softmax(true);
+    pv(reinterpret_cast<const float*>(v_raw + ((nk - 1) & 1) * Sm::v_stage), true);
+  } else {
+    load_tile(0, 0);
+    __syncthreads();  // q visible
     if constexpr (BF) {
-      convert_v(stage);
-      vt = v32_s;
-    } else {
-      vt = reinterpret_cast<const float*>(v_raw + stage * Sm::v_stage);
-    }
-    // the tile (and its float32 V) visible; every warp is past the previous
-    // tile, so its stage may be refilled (and, first, is done with q's tile)
-    __syncthreads();
-    if (tile + 1 < nk) load_tile((tile + 1) * TK, stage ^ 1);
-    zero_s();
-    if constexpr (BF) {
+      const __nv_bfloat16* q_s = reinterpret_cast<const __nv_bfloat16*>(q_raw);
 #pragma unroll
-      for (int jp = 0; jp < NJ / 2; ++jp) qk_bf16_pair(stage, jp);
-    } else {
-      qk_f32(stage);
+      for (int i = 0; i < NI; ++i) {
+        const __nv_bfloat16* rows = q_s + (warp * WR + i * 16 + (lane & 15)) * ROW_BF;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          ldsm_x4(smem_u32(rows + kk * 16 + (lane >> 4) * 8), qa[i][kk]);
+        ldsm_x2(smem_u32(rows + 32), qa8[i]);
+      }
     }
-    const bool rescale = Tr::exact || (Tr::bounded && tile < nw);
-    softmax(rescale);
-    pv(vt, rescale);
-    // bf16: the float32 V tile is rewritten by the next tile's conversion;
-    // float32: the warp's p and alpha are rewritten by the next softmax
-    if constexpr (BF) __syncthreads(); else __syncwarp();
+    for (int tile = 0; tile < nk; ++tile) {
+      const int stage = tile & 1;
+      cp_async_wait<0>();  // this thread's copies of the tile have landed
+      const float* vt;
+      if constexpr (BF) {
+        convert_v(stage);
+        vt = v32_s;
+      } else {
+        vt = reinterpret_cast<const float*>(v_raw + stage * Sm::v_stage);
+      }
+      // the tile (and its float32 V) visible; every warp is past the previous
+      // tile, so its stage may be refilled (and, first, is done with q's tile)
+      __syncthreads();
+      if (tile + 1 < nk) load_tile((tile + 1) * TK, stage ^ 1);
+      zero_s(s);
+      if constexpr (BF) {
+#pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp) qk_bf16_pair(stage, jp);
+      } else {
+        qk_f32(stage, s);
+      }
+      const bool rescale = Tr::exact || (Tr::bounded && tile < nw);
+      softmax(rescale);
+      pv(vt, rescale);
+      // bf16: the float32 V tile is rewritten by the next tile's conversion;
+      // float32: the warp's p and alpha are rewritten by the next softmax
+      if constexpr (BF) __syncthreads(); else __syncwarp();
+    }
   }
 
   // l (floored for rows 8 and 11) to the PV layout; out = acc / l, rounded
@@ -634,8 +710,8 @@ cudaError_t launch_qm(const void* q, const void* k, const void* v, void* out, in
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // JAX's 1 / D**0.5, rounded once; times log2(e) in double first where the
-  // scale follows the product (row 9 d's c) or q is scaled by it (row 11's);
-  // row 8 takes q unscaled
+  // scale follows the product (row 9 d's c) or q is scaled by it (rows 10
+  // and 11); row 8 takes q unscaled
   const double sm_scale = 1.0 / sqrt(double(D));
   const float scale = float(V == QmVariant::ABf16PV ? sm_scale : sm_scale * 1.4426950408889634);
   const dim3 grid((sq + QmTile<D>::BQ - 1) / QmTile<D>::BQ, bh);
@@ -645,7 +721,7 @@ cudaError_t launch_qm(const void* q, const void* k, const void* v, void* out, in
   return cudaGetLastError();
 }
 
-// rows 8 and 11 (float32) at d = 40 or 80
+// rows 8, 10 and 11 (float32) at d = 40 or 80
 template <QmVariant V>
 int launch_qm_d(const void* q, const void* k, const void* v, void* out, int bh, int sq, int sk,
                 int d, int anchor, cudaStream_t s) {
@@ -1075,4 +1151,19 @@ extern "C" int hedit_flash_ablate_t(const void* q, const void* k, const void* v,
     case 2: return launch_qm_d<QmVariant::NoProlog>(q, k, v, out, bh, sq, sk, d, 0, s);
     default: return -1;
   }
+}
+
+// Row 10 (the query-major kernel): the exact exp2 probe, q, k, v [BH, S, D]
+// -> out [BH, D, Sq]; pipe: 0 the plain key loop, 1 the software-pipelined
+// one (the same bits); D = 40 or 80.  float32 only (bf16:
+// hedit_flash_exp2_t_tc).
+extern "C" int hedit_flash_exp2_t(const void* q, const void* k, const void* v, void* out,
+                                  int bh, int sq, int sk, int d, int pipe, int dtype,
+                                  void* stream) {
+  if (!takes(q, k, v, out, bh, sq, sk, d) || (d != 40 && d != 80) || dtype != 0 ||
+      (pipe != 0 && pipe != 1))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pipe ? launch_qm_d<QmVariant::Exp2Pipe>(q, k, v, out, bh, sq, sk, d, 0, s)
+              : launch_qm_d<QmVariant::Exp2>(q, k, v, out, bh, sq, sk, d, 0, s);
 }

@@ -22,8 +22,10 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
   with ``sm_scale * log2(e)`` folded into q, exp2, p rounded to the input
   dtype and a ``[B*H, D, Sq]`` output (``kern_exp2``); ``pipe=True`` runs
   the software-pipelined key loop.  bf16 on the tensor cores
-  (``csrc/flash_probes_tc.cu``, ``exp2_entry``), float32 on the CUDA-core
-  template (``csrc/flash_probes.cu``).
+  (``csrc/flash_probes_tc.cu``, ``exp2_entry``), float32 on the
+  query-major kernel (``csrc/flash_variants.cu``, every operand 16-byte
+  aligned), whose key tile (``exp2_key_tile``) is the block of the running
+  max that its plain version takes.
 
 * ``scripts/flash_ablate.py``: ``flash_ablate_t_cuda(q, k, v, mode)``, the
   bounded loop cut down to its floor (``make_kernel(mode)``): q unscaled, no
@@ -51,11 +53,12 @@ harnesses have their own port under ``hedit_tpu_torch/probes/``):
 
   a, b and float32 a with ``pv_bf16`` share one query-major kernel
   (``hedit_flash_variant``): softmax along the row inside a warp, PV on the
-  CUDA cores; the float32 instances of the bounded probes and of the
-  ablations run on it too (``hedit_flash_packed_t``,
-  ``hedit_flash_ablate_t``).  Both kernels take the scores' product on the tensor cores in
-  bf16 and by FMAs in float32, copy 16 bytes at a time (every operand
-  16-byte aligned) and count their launches a dtype
+  CUDA cores; the float32 instances of the bounded probes, of the exact
+  exp2 probe and of the ablations run on it too (``hedit_flash_packed_t``,
+  ``hedit_flash_exp2_t``, ``hedit_flash_ablate_t``).  Both kernels take the
+  scores' product on the tensor cores in bf16 and by FMAs in float32, copy
+  16 bytes at a time (every operand 16-byte aligned) and count their
+  launches a dtype
   (``launches_variant_{a,b,c}_tc`` / ``_f32``; float32 d
   ``launches_variant_d``).
 
@@ -181,8 +184,9 @@ def flash_exp2_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores; over key blocks of ``blk_k`` a running max m, p = exp2(s - m_new)
     rounded to the input dtype, alpha = exp2(m_old - m_new), the sum from the
     rounded p; out = acc / sum, no floor.  The key block decides only the
-    point p is rounded against: ``blk_k`` defaults to the CUDA kernel's 64-key
-    tile, the TPU wrapper's default is ``BLK_K`` (512)."""
+    point p is rounded against: the CUDA kernels take ``exp2_key_tile`` (64
+    keys, 32 at d = 80 in float32), the TPU wrapper's default is ``BLK_K``
+    (512)."""
     b, h, sq, d = q.shape
     qs = (q * torch.tensor(1.0 / d ** 0.5 * _LOG2E, dtype=q.dtype)).float()
     m = torch.full((b, h, sq, 1), _NEG_INF, device=q.device)
@@ -225,13 +229,13 @@ def _check_cuda(q, k, v, b, h, d, what: str) -> None:
         raise ValueError(f"{what}: q, k, v must be contiguous")
 
 
-def _tc_or_template(dtype: torch.dtype, template: str, what: str, tc: bool = True) -> str:
-    """``template``'s tensor-core twin (``csrc/flash_probes_tc.cu``) for
-    bfloat16 where ``tc``, ``template`` itself (a CUDA-core kernel)
+def _tc_or_core(dtype: torch.dtype, entry: str, what: str, tc: bool = True) -> str:
+    """``entry``'s tensor-core twin (``csrc/flash_probes_tc.cu``) for
+    bfloat16 where ``tc``, ``entry`` itself (a CUDA-core kernel's)
     otherwise; raises for a dtype other than float32 and bfloat16."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} take float32 or bfloat16, got {dtype}")
-    return f"{template}_tc" if tc and dtype == torch.bfloat16 else template
+    return f"{entry}_tc" if tc and dtype == torch.bfloat16 else entry
 
 
 def probe_entry(dtype: torch.dtype, layout: str) -> str:
@@ -241,14 +245,21 @@ def probe_entry(dtype: torch.dtype, layout: str) -> str:
     any other dtype or layout."""
     if layout not in _LAYOUTS:
         raise ValueError(f"layout must be one of {tuple(_LAYOUTS)}, not {layout!r}")
-    return _tc_or_template(dtype, "hedit_flash_packed_t", "the bounded probes")
+    return _tc_or_core(dtype, "hedit_flash_packed_t", "the bounded probes")
 
 
 def exp2_entry(dtype: torch.dtype) -> str:
     """The CUDA entry point of the exact exp2 probe for an input of
-    ``dtype``: bfloat16 the tensor-core kernel, float32 the CUDA-core
-    template (``csrc/flash_probes.cu``)."""
-    return _tc_or_template(dtype, "hedit_flash_exp2_t", "the exact exp2 probe")
+    ``dtype``: bfloat16 the tensor-core kernel (``csrc/flash_probes_tc.cu``),
+    float32 the query-major kernel (``csrc/flash_variants.cu``)."""
+    return _tc_or_core(dtype, "hedit_flash_exp2_t", "the exact exp2 probe")
+
+
+def exp2_key_tile(dtype: torch.dtype, d: int) -> int:
+    """The key tile over which the exact exp2 probe's kernel moves its
+    running max, and so the ``blk_k`` of its plain version: the query-major
+    kernel's 32 keys at d = 80 in float32, 64 otherwise."""
+    return 32 if dtype == torch.float32 and d == 80 else TILE
 
 
 def ablate_entry(dtype: torch.dtype, mode: str) -> str:
@@ -258,7 +269,7 @@ def ablate_entry(dtype: torch.dtype, mode: str) -> str:
     mode."""
     if mode not in ABLATE_MODES:
         raise ValueError(f"mode must be one of {ABLATE_MODES}, not {mode!r}")
-    return _tc_or_template(dtype, "hedit_flash_ablate_t", "the ablations")
+    return _tc_or_core(dtype, "hedit_flash_ablate_t", "the ablations")
 
 
 def variant_entry(dtype: torch.dtype, name: str) -> str:
@@ -270,12 +281,12 @@ def variant_entry(dtype: torch.dtype, name: str) -> str:
     other dtype or name."""
     if name not in _VARIANTS:
         raise ValueError(f"variant must be one of {tuple(_VARIANTS)}, not {name!r}")
-    entry = _tc_or_template(dtype, "hedit_flash_variant", "the variants", tc=name == "d")
+    entry = _tc_or_core(dtype, "hedit_flash_variant", "the variants", tc=name == "d")
     return "hedit_flash_variant_c" if name == "c" else entry
 
 
 # the float32 entry points of the query-major kernel (``csrc/flash_variants.cu``)
-_QM_F32_ENTRIES = ("hedit_flash_packed_t", "hedit_flash_ablate_t")
+_QM_F32_ENTRIES = ("hedit_flash_packed_t", "hedit_flash_exp2_t", "hedit_flash_ablate_t")
 
 
 def _launch_probe(entry: str, counter: str, q: torch.Tensor, pointers, ints, d: int,
@@ -334,15 +345,15 @@ def flash_packed_t_all_sminor_cuda(qt: torch.Tensor, kt: torch.Tensor, vt: torch
 def flash_exp2_t_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       pipe: bool = False) -> torch.Tensor:
     """``kern_exp2``: q, k, v [B, H, S, D] -> [B*H, D, Sq].  ``pipe`` selects
-    the software-pipelined key loop (the same function).  The kernel moves its
-    running max once a 64-key tile, as ``kern_exp2`` does with ``blk_k=64``
-    (its wrapper's default block is 512 keys, which rounds p against other
-    points): its plain version is ``flash_exp2_t_reference`` with its default
-    64-key block.  bf16 runs on the tensor cores, float32 on the template
-    (``exp2_entry``)."""
+    the software-pipelined key loop (the same bits).  The kernel moves its
+    running max once a key tile, ``exp2_key_tile`` (64 keys; 32 at d = 80 in
+    float32), as ``kern_exp2`` does with that ``blk_k`` (its wrapper's
+    default block is 512 keys, which rounds p against other points): its
+    plain version is ``flash_exp2_t_reference`` with that block.  bf16 runs
+    on the tensor cores, float32 on the query-major kernel (``exp2_entry``)."""
     b, h, sq, sk, d = _dims(q, k, v, (False, False, False), "flash_exp2_t_cuda")
     if _on_cpu(q, k, v):
-        return flash_exp2_t_reference(q, k, v)
+        return flash_exp2_t_reference(q, k, v, blk_k=exp2_key_tile(q.dtype, d))
     _check_cuda(q, k, v, b, h, d, "flash_exp2_t_cuda")
     out = torch.empty((b * h, d, sq), dtype=q.dtype, device=q.device)
     _launch_probe(exp2_entry(q.dtype), "launches_exp2_t", q, (q, k, v, out),

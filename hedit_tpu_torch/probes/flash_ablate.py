@@ -11,8 +11,8 @@ transposed ``[B*H, D, S]`` output from q, k, v with q unscaled:
   prologue that finds each row's shift.
 
 In bf16 all three run on the tensor cores (``csrc/flash_probes_tc.cu``);
-``run(dtype=torch.float32)`` runs them in float32 on the CUDA-core template
-(``csrc/flash_probes.cu``).
+``run(dtype=torch.float32)`` runs them in float32 on the query-major kernel
+of the CUDA cores (``csrc/flash_variants.cu``).
 
 Inputs are drawn as the script draws them (numpy ``RandomState(seed)``: q
 and k times 0.05, so that exp2(s) stays finite, v unit normal).  The

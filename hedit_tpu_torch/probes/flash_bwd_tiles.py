@@ -160,9 +160,8 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 F32_TOL = 1e-4
 PARENT_SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "flash_attention_f32.cu",
-                  "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu", "flash_probes.cu",
-                  "flash_probes_tc.cu", "flash_variants.cu", "flash_attention_bwd_f32.cu",
-                  "flash_attention_f32_512.cu")
+                  "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu", "flash_probes_tc.cu",
+                  "flash_variants.cu", "flash_attention_bwd_f32.cu", "flash_attention_f32_512.cu")
 F512_SOURCE = _build.CSRC / "flash_attention_bwd_f32_512.cu"
 # the float32 d = 512 backward: the routed shape, the 512 px decode's, a ragged one
 F512_SHAPES = (((1, 1, 2048, 512), 2048), ((1, 1, 4096, 512), 4096), ((1, 1, 1000, 512), 1100))
@@ -348,8 +347,7 @@ def f512_main(parent_dir) -> int:
         return 1
     if parent_dir is not None and not (
             identity(mine, parent["flash_attention_tc.cu"], exact=True)
-            & probe_identity(mine, parent["flash_probes_tc.cu"], parent["flash_probes.cu"],
-                             parent["flash_variants.cu"])
+            & probe_identity(mine, parent["flash_probes_tc.cu"], parent["flash_variants.cu"])
             & kept_identity(mine, parent)):
         print("FAILED: an output this tree keeps differs from the parent's")
         return 1
@@ -736,8 +734,7 @@ def main(argv=None) -> int:
         return 1
     if args.parent is not None and not (
             identity(mine, parent["flash_attention_tc.cu"], exact=True)
-            & probe_identity(mine, parent["flash_probes_tc.cu"], parent["flash_probes.cu"],
-                             parent["flash_variants.cu"])
+            & probe_identity(mine, parent["flash_probes_tc.cu"], parent["flash_variants.cu"])
             & kept_identity(mine, parent)):
         print("FAILED: an output this tree keeps differs from the parent's")
         return 1

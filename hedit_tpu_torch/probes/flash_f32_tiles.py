@@ -499,6 +499,7 @@ def d512_main(parent_dir) -> int:
     if parent_dir is not None:
         csrc = parent_dir / "hedit_tpu_torch" / "csrc"
         builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in sources]
+    builds = [b for b in builds if b[0].exists()]  # a parent may predate a source
     with ThreadPoolExecutor(len(builds)) as ex:
         built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
                             builds))
@@ -511,7 +512,7 @@ def d512_main(parent_dir) -> int:
         print(f"clusters of {cluster} the card runs at once (cudaOccupancyMaxActiveClusters, one "
               f"CTA an SM): {active.value if err == 0 else f'error {err}'}")
     n = len(D512_VARIANTS)
-    parent = dict(zip(sources, (lib for lib, _ in built[n:])))
+    parent = {source.name: lib for (source, *_), (lib, _) in zip(builds[n:], built[n:])}
     records = d512_timings(mine, parent.get("flash_attention.cu"), [lib for lib, _ in built[:n]])
     print(json.dumps({"flash_f32_tiles_d512": records}))
     bad = [r for r in records if not (r["err"] <= 1e-4 and r["lse_rel_err"] <= 1e-5)]
@@ -523,7 +524,6 @@ def d512_main(parent_dir) -> int:
     same = identity(mine, parent["flash_attention_tc.cu"], exact=True)
     same &= flash_bwd_tiles.kept_identity(mine, parent)
     same &= flash_probe_tiles.kept_identity(mine, parent["flash_probes_tc.cu"],
-                                            parent["flash_probes.cu"],
                                             parent["flash_variants.cu"])
     if not same:
         print("FAILED: an output this tree keeps differs from the parent's")

@@ -44,7 +44,12 @@ Times ``csrc/flash_probes_tc.cu`` on the card:
   counterparts at 1024 tokens, beside SDPA in float32 (row 8: scale ln 2)
   and the bound (4 B H S^2 D operations at 67 TFLOP/s).  Outputs held to
   the plain versions within 1e-4 (``dots``: within
-  ``ablate_dots_tolerance``, at most 0.1% of rows excused).
+  ``ablate_dots_tolerance``, at most 0.1% of rows excused);
+* row 10 in float32 (entry point ``hedit_flash_exp2_t``, the same
+  query-major kernel) in its two key loops at ``EXP2_F32_CASES``: the
+  smoke's [1, 8, 4096, 40] and [1, 8, 1024, 80], beside SDPA in float32 and
+  the same bound; held to the plain version at the kernel's key tile
+  (``fp.exp2_key_tile``) within 1e-4, the two loops bit for bit.
 
 Each kernel is launched through its entry point without the wrappers' host
 checks (CUDA-event means of 20 launches, best of 3), beside SDPA on the same
@@ -56,23 +61,22 @@ and spills of each instance.
 
 ``--parent DIR``: a checkout of an earlier commit of this repository (for
 example ``git archive <commit> | tar -x -C DIR``).  Its entries of the
-rows this tree's kernels compute (``csrc/flash_probes.cu``: the bf16 rows
-8, 10, 11 of older parents, and the float32 rows 8 and 11 of parents whose
-template still holds them; ``csrc/flash_variants.cu``: rows 9 a, b, c,
-float32 d, and float32 8 and 11 where it holds them) are timed in turns
-with this tree's kernels (parent, this, this, parent) where the parent
-takes the call.  Its
+rows this tree's kernels compute are timed in turns with this tree's
+(parent, this, this, parent) where the parent takes the call: the bf16
+rows 8, 9 d, 10 and 11 in its ``csrc/flash_probes_tc.cu``, rows 9 a, b, c,
+float32 d, and float32 8, 10 and 11 in its ``csrc/flash_variants.cu``
+(float32 row 10 in whichever of its sources defines
+``hedit_flash_exp2_t``: an earlier parent's CUDA-core template).  Its
 ``csrc/flash_attention_tc.cu``, ``csrc/flash_probes_tc.cu``,
-``csrc/flash_probes.cu`` and ``csrc/flash_variants.cu`` are built beside
-this tree's, and these outputs of the two must agree bit for bit: the
-bounded, LSE and exact tensor-core forwards on the smoke's inputs
-(``flash_exact_tiles.identity``), rows 8 ``exp`` / ``noprolog``, 9 d, 10
-and 11a-c on the tensor cores, the template's row 10 in float32, rows 9 a,
-b and float32 d on the query-major kernel, row 9 c in both dtypes, and
-float32 rows 8 and 11 where the parent's ``csrc/flash_variants.cu`` holds
-them (``kept_identity``; a parent whose template still computes them is
-not held to, so they are held to their plain versions only).  The probe
-exits non-zero if any differs.
+``csrc/flash_variants.cu`` and that source are built beside this tree's,
+and these outputs of the two must agree bit for bit: the bounded, LSE and exact tensor-core forwards on the
+smoke's inputs (``flash_exact_tiles.identity``), rows 8 ``exp`` /
+``noprolog``, 9 d, 10 and 11a-c on the tensor cores, rows 9 a, b and
+float32 d on the query-major kernel, row 9 c in both dtypes, and float32
+rows 8, 10 and 11 where the parent's ``csrc/flash_variants.cu`` holds them
+(``kept_identity``; a parent whose template still computes one is not
+held to it, which is then held to its plain version only).  The probe exits
+non-zero if any differs.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -116,6 +121,10 @@ VARIANT_CORE_CASES = (((32, 4096, 40), torch.bfloat16), ((8, 4096, 40), torch.fl
 # rows 11 and 8 in float32: the smoke's shapes and their d = 80 counterparts
 F32_CASES = {"packed_t": ((2, 8, 4096, 40), (2, 8, 1024, 80)),
              "ablate": ((1, 8, 4096, 40), (1, 8, 1024, 80))}
+# row 10 in float32: the smoke's shapes
+EXP2_F32_CASES = ((1, 8, 4096, 40), (1, 8, 1024, 80))
+# the parent's sources this probe builds, beside the one that defines float32 row 10
+PARENT_SOURCES = ("flash_variants.cu", "flash_attention_tc.cu", "flash_probes_tc.cu")
 F32_PEAK_FLOPS = 67e12
 F32_TOL = 1e-4
 PEAK_FLOPS = 989e12
@@ -150,8 +159,7 @@ def _err(out, plain):
 def _turns(mine, parent, entry, args, out, ints):
     """(who, call) pairs in turns: parent, this, this, parent; this alone
     where there is no parent, it has no ``entry`` or its ``entry`` refuses
-    the call (the S-minor layouts left the parent's template in bf16
-    before)."""
+    the call."""
     turns = [("this tree", mine)]
     if parent is None or not hasattr(parent, entry):
         return turns
@@ -202,7 +210,7 @@ def bounded_timings(mine, parent):
             err = _err(out, plain)
             del plain
             torch.cuda.empty_cache()
-            turns = _turns(tc, parent, "hedit_flash_packed_t", args, out, ints)
+            turns = _turns(tc, parent, "hedit_flash_packed_t_tc", args, out, ints)
             label = f"{name} (layout {layout}) q[{b}, {h}, {s}, {d}] bf16"
             ms = _timed(label, turns, sdpa, bound_ms, err,
                         f" packed bounded (tensor cores) {p_ms:.4f} ms;")
@@ -234,7 +242,7 @@ def exp2_timings(mine, parent, variants):
             err = _err(out, plain)
             outs.append(out)
             label = f"exp2_t pipe={pipe} q[{b}, {h}, {s}, {d}] bf16"
-            ms = _timed(label, _turns(tc, parent, "hedit_flash_exp2_t", (q, k, v), out, ints),
+            ms = _timed(label, _turns(tc, parent, "hedit_flash_exp2_t_tc", (q, k, v), out, ints),
                         sdpa, bound_ms, err)
             records.append({"probe": f"exp2_t pipe={pipe}", "shape": [b, h, s, d], "turns": ms,
                             "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
@@ -287,7 +295,7 @@ def ablate_timings(mine, parent, minb):
                 del plain
             torch.cuda.empty_cache()
             label = f"ablate {mode} q[{b}, {h}, {s}, {d}] bf16"
-            ms = _timed(label, _turns(tc, parent, "hedit_flash_ablate_t", (q, k, v), out, ints),
+            ms = _timed(label, _turns(tc, parent, "hedit_flash_ablate_t_tc", (q, k, v), out, ints),
                         sdpa, bound_ms, err)
             records.append({"probe": f"ablate {mode}", "shape": [b, h, s, d], "turns": ms,
                             "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err, **extra})
@@ -319,7 +327,7 @@ def variant_timings(mine, parent, variants):
     err = _err(out, plain)
     del plain
     label = f"variant d q[{bh}, {s}, {d}] bf16"
-    ms = _timed(label, _turns(tc, parent, "hedit_flash_variant", (q, k, v), out, ints), sdpa,
+    ms = _timed(label, _turns(tc, parent, "hedit_flash_variant_tc", (q, k, v), out, ints), sdpa,
                 bound_ms, err)
     calls = [_entry_call(lib, "hedit_flash_variant_tc", (q, k, v), out, ints)
              for lib in variants]
@@ -372,17 +380,12 @@ def variant_core_timings(mine, parent):
     return records
 
 
-def qm_f32_timings(mine, template, variants):
+def qm_f32_timings(mine, parent):
     """Rows 11a-c and 8 in float32 at ``F32_CASES``, each in turns with the
-    parent's same entry point where it takes the call: its
-    ``csrc/flash_variants.cu`` (``variants``) where that holds the entry,
-    else its template; one record a case and layout or mode.  err_over_tol:
-    over 1e-4 against the plain version; ``dots`` over
-    ``ablate_dots_tolerance``, the excused rows beside it (inf where more
-    than 0.1% of them)."""
-    def parent(entry):
-        return variants if hasattr(variants, entry) else template
-
+    parent's same entry point (its ``csrc/flash_variants.cu``) where it takes
+    the call; one record a case and layout or mode.  err_over_tol: over 1e-4
+    against the plain version; ``dots`` over ``ablate_dots_tolerance``, the
+    excused rows beside it (inf where more than 0.1% of them)."""
     records = []
     for b, h, s, d in F32_CASES["packed_t"]:
         q, k, v = _qkv(b, h, s, d, dtype=torch.float32)
@@ -401,8 +404,7 @@ def qm_f32_timings(mine, template, variants):
             del plain
             torch.cuda.empty_cache()
             label = f"{name} (layout {layout}) q[{b}, {h}, {s}, {d}] float32"
-            ms = _timed(label, _turns(kernel, parent("hedit_flash_packed_t"),
-                                      "hedit_flash_packed_t", args, out, ints),
+            ms = _timed(label, _turns(kernel, parent, "hedit_flash_packed_t", args, out, ints),
                         sdpa, bound_ms, err)
             records.append({"probe": f"{name} float32", "shape": [b, h, s, d], "turns": ms,
                             "sdpa_ms": sdpa, "bound_ms": bound_ms, "err_over_tol": err})
@@ -433,14 +435,48 @@ def qm_f32_timings(mine, template, variants):
             del plain
             torch.cuda.empty_cache()
             label = f"ablate {mode} q[{b}, {h}, {s}, {d}] float32"
-            ms = _timed(label, _turns(kernel, parent("hedit_flash_ablate_t"),
-                                      "hedit_flash_ablate_t", (q, k, v), out, ints),
+            ms = _timed(label, _turns(kernel, parent, "hedit_flash_ablate_t", (q, k, v), out, ints),
                         sdpa, bound_ms, err, f" {extra}" if extra else "")
             records.append({"probe": f"ablate {mode} float32", "shape": [b, h, s, d], "turns": ms,
                             "sdpa_ms": None if mode == "dots" else sdpa, "bound_ms": bound_ms,
                             "err_over_tol": err, **extra})
             del out
         del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def exp2_f32_timings(mine, parent):
+    """Row 10 in float32, both loops, at ``EXP2_F32_CASES``, each in turns
+    with ``parent``'s ``hedit_flash_exp2_t`` where it takes the call; one
+    record a case and loop.  err_over_tol: over 1e-4 against the plain
+    version with the kernel's key tile; the loops' outputs bit for bit."""
+    records = []
+    for b, h, s, d in EXP2_F32_CASES:
+        q, k, v = _qkv(b, h, s, d, dtype=torch.float32)
+        sdpa = best_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms = 4 * b * h * s * s * d / F32_PEAK_FLOPS * 1e3
+        plain = fp.flash_exp2_t_reference(q, k, v, blk_k=fp.exp2_key_tile(torch.float32, d))
+        outs = []
+        for pipe in (0, 1):
+            out = torch.empty(b * h, d, s, device="cuda")
+            ints = (b * h, s, s, d, pipe)
+            kernel = _entry_call(mine, "hedit_flash_exp2_t", (q, k, v), out, ints)
+            kernel()
+            torch.cuda.synchronize()
+            err = (out - plain).abs().max().item() / F32_TOL
+            outs.append(out)
+            label = f"exp2_t pipe={pipe} q[{b}, {h}, {s}, {d}] float32"
+            ms = _timed(label, _turns(kernel, parent, "hedit_flash_exp2_t", (q, k, v), out, ints),
+                        sdpa, bound_ms, err)
+            records.append({"probe": f"exp2_t pipe={pipe} float32", "shape": [b, h, s, d],
+                            "turns": ms, "sdpa_ms": sdpa, "bound_ms": bound_ms,
+                            "err_over_tol": err})
+        same = torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+        records[-1]["pipe_bit_identical"] = records[-2]["pipe_bit_identical"] = same
+        print(f"exp2_t q[{b}, {h}, {s}, {d}] float32: pipe=1 "
+              f"{'bit-identical to' if same else 'DIFFERS from'} pipe=0")
+        del q, k, v, plain, outs
         torch.cuda.empty_cache()
     return records
 
@@ -455,20 +491,20 @@ def _same(mine, parent, entry, args, out_shape, ints):
                          for o in outs))
 
 
-def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
+def kept_identity(mine, parent_tc, parent_variants) -> bool:
     """The outputs this tree keeps from the parent, bit for bit: rows 11a-c,
-    10, 8 ``exp`` / ``noprolog`` and 9 d on the tensor cores (bf16); the
-    template's row 10 in float32; rows 9 a, b (both dtypes) and float32 d on
-    the query-major kernel, row 9 c in both dtypes, and rows 11a-c and 8
-    (all three modes) in float32, each where the parent's
-    ``csrc/flash_variants.cu`` has its entry (a parent whose template still
-    computes rows 8 and 11 in float32 is not held to)."""
+    10, 8 ``exp`` / ``noprolog`` and 9 d on the tensor cores (bf16); rows 9
+    a, b (both dtypes) and float32 d on the query-major kernel, row 9 c in
+    both dtypes, and rows 11a-c, 8 (all three modes) and 10 (both loops) in
+    float32, each where the parent's ``csrc/flash_variants.cu`` has its entry
+    (a parent whose template still computes one in float32 is not held to
+    it)."""
     cases = []
     for b, h, s, d in ((2, 4, 1024, 40), (2, 3, 576, 80)):
         anchor = 64 * 3 if s % fp.BLK_K else fp.BLK_K
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(b, h, s, d, scales=(0.05, 0.05, 1.0), dtype=dtype)
-            lib = parent_tc if dtype == torch.bfloat16 else parent_template
+            lib = parent_tc if dtype == torch.bfloat16 else parent_variants
             if dtype == torch.bfloat16:
                 for layout in LAYOUTS:
                     args = {0: (q, k, v), 1: (_sminor(q), _sminor(k), v),
@@ -492,9 +528,10 @@ def kept_identity(mine, parent_tc, parent_template, parent_variants) -> bool:
                                   "hedit_flash_ablate_t", (q, k, v), (b * h, d, s),
                                   (b * h, s, s, d, code), dtype))
             entry = "hedit_flash_exp2_t" + ("_tc" if dtype == torch.bfloat16 else "")
-            for pipe in (0, 1):
-                cases.append((f"{entry} pipe {pipe}", lib, entry, (q, k, v), (b * h, d, s),
-                              (b * h, s, s, d, pipe), dtype))
+            if hasattr(lib, entry):
+                for pipe in (0, 1):
+                    cases.append((f"{entry} pipe {pipe}", lib, entry, (q, k, v), (b * h, d, s),
+                                  (b * h, s, s, d, pipe), dtype))
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t[0] for t in _qkv(1, 8, 1024, 40, dtype=dtype))
         if hasattr(parent_variants, "hedit_flash_variant_c"):
@@ -526,34 +563,39 @@ def main(argv=None) -> int:
     builds = [(TC_SOURCE, f"variant{i}", _build.CSRC, (f"EXP2_MINB_40={n}",))
               for i, n in enumerate(VARIANTS)]
     builds.append((TC_SOURCE, "ablate_minb", _build.CSRC, (f"ABLATE_MINB_40={ABLATE_MINB}",)))
-    # this tree's variants source alone, for its -Xptxas -v lines (rows 8, 9 a-c, 11)
+    # this tree's variants source alone, for its -Xptxas -v lines (rows 8,
+    # 9 a-c, 10, 11)
     builds.append((_build.CSRC / "flash_variants.cu", "variants", _build.CSRC, ()))
-    parents = ("flash_probes.cu", "flash_variants.cu", "flash_attention_tc.cu",
-               "flash_probes_tc.cu")
+    n = len(builds)
     if args.parent is not None:
         csrc = args.parent / "hedit_tpu_torch" / "csrc"
-        builds += [(csrc / name, f"parent_{name[:-3]}", csrc, ()) for name in parents]
+        sources = [csrc / name for name in PARENT_SOURCES]
+        # float32 row 10 where the parent defines it in another source (the
+        # CUDA-core template of a parent before the query-major kernel took it)
+        sources += [p for p in sorted(csrc.glob("*.cu")) if p not in sources and re.search(
+            r'extern "C" int hedit_flash_exp2_t\(', p.read_text())]
+        builds += [(p, f"parent_{p.stem}", csrc, ()) for p in sources]
     with ThreadPoolExecutor(len(builds)) as ex:
         built = list(ex.map(lambda a: build_alone(a[0], OUT_DIR / f"{a[1]}.so", a[2], a[3]),
                             builds))
     for (source, name, *_), (_, info) in zip(builds, built):
         print(f"ptxas, {name} ({source.name}): {info}")
     mine = _build.cuda_library()
-    n = len(VARIANTS)
-    variants = [lib for lib, _ in built[:n]]
-    parent = dict(zip(parents, (lib for lib, _ in built[n + 2:]))) if args.parent else {}
-    template = parent.get("flash_probes.cu")
-    records = bounded_timings(mine, template)
-    records += exp2_timings(mine, template, variants)
-    records += ablate_timings(mine, template, built[n][0])
-    records += variant_timings(mine, parent.get("flash_variants.cu"), variants)
-    records += variant_core_timings(mine, parent.get("flash_variants.cu"))
-    records += qm_f32_timings(mine, template, parent.get("flash_variants.cu"))
+    variants = [lib for lib, _ in built[:len(VARIANTS)]]
+    parent = {source.name: lib for (source, *_), (lib, _) in zip(builds[n:], built[n:])}
+    parent_tc, parent_variants = parent.get("flash_probes_tc.cu"), parent.get("flash_variants.cu")
+    parent_exp2 = next((lib for lib in parent.values() if hasattr(lib, "hedit_flash_exp2_t")), None)
+    records = bounded_timings(mine, parent_tc)
+    records += exp2_timings(mine, parent_tc, variants)
+    records += ablate_timings(mine, parent_tc, built[len(VARIANTS)][0])
+    records += variant_timings(mine, parent_tc, variants)
+    records += variant_core_timings(mine, parent_variants)
+    records += qm_f32_timings(mine, parent_variants)
+    records += exp2_f32_timings(mine, parent_exp2)
     print(json.dumps({"flash_probe_tiles": records}))
     if args.parent is not None and not (
             identity(mine, parent["flash_attention_tc.cu"], exact=True)
-            & kept_identity(mine, parent["flash_probes_tc.cu"], template,
-                            parent["flash_variants.cu"])):
+            & kept_identity(mine, parent_tc, parent_variants)):
         print("FAILED: an output this tree keeps differs from the parent's")
         return 1
     bad = [r for r in records if not r["err_over_tol"] <= 1.0 or not r.get("pipe_bit_identical",

@@ -3,7 +3,7 @@ and 11c), of the exact exp2 probe (TPU kernel 10, both key loops), of the
 ablations ``dots``, ``exp`` and ``noprolog`` (TPU kernel 8) and of
 ``kern_a`` with ``pv_bf16`` (TPU kernel 9 d), and the kernels of
 ``csrc/flash_variants.cu`` in both dtypes (rows 9 a, b and float32 d, and
-rows 11a-c and 8 in float32, on the query-major kernel, row 9 c on its
+rows 11a-c, 8 and 10 in float32, on the query-major kernel, row 9 c on its
 own), on the CPU.
 
 The kernels (``hedit_tpu_torch/csrc/flash_probes_tc.cu``) run only on the
@@ -11,10 +11,10 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
 
 * the dispatch by dtype (``probe_entry``, ``exp2_entry``, ``ablate_entry``,
   ``variant_entry``), as values: bf16 to the tensor-core entry points (but
-  variants a-c), float32 to the CUDA-core kernels (``hedit_flash_exp2_t``
-  the template's; ``hedit_flash_packed_t``, ``hedit_flash_ablate_t`` and,
-  for variants a, b and d, ``hedit_flash_variant`` the query-major
-  kernel's; ``hedit_flash_variant_c`` for c, in both dtypes), anything else
+  variants a-c), float32 to the CUDA-core kernels (``hedit_flash_packed_t``,
+  ``hedit_flash_exp2_t``, ``hedit_flash_ablate_t`` and, for variants a, b
+  and d, ``hedit_flash_variant`` the query-major kernel's;
+  ``hedit_flash_variant_c`` for c, in both dtypes), anything else
   refused; CPU tensors take the plain versions and launch nothing;
 * the C entry points' parameter lists, read from the source, against the
   ``ctypes`` argument types the loader gives them (the sources cannot be
@@ -50,7 +50,11 @@ card (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).  Here:
   and 64-key tiles at d = 40, 64 and 32 at d = 80, row 11's online shift
   over its anchor window's tiles, the row sums in the kernel's lanes, the
   S-minor operands transposed on their way as the kernel copies them; held
-  against the plain versions and the scripts' kernels in interpret mode.
+  against the plain versions and the scripts' kernels in interpret mode;
+* row 10 in float32 in the same kernel's order, both key loops: q times c
+  as it is loaded, the key tile of each head dim, the running max; held
+  against ``flash_exp2_t_reference`` at that tile and ``kern_exp2`` in
+  interpret mode, the two loops bit for bit.
 
 The cases run as loops inside few items: pytest-xdist's loadfile scheduler
 queues test files by their number of items.
@@ -76,6 +80,7 @@ from hedit_tpu_torch.ops import flash_probes as fp
 from hedit_tpu_torch.ops.flash_attention import DENOM_FLOOR, reference_attention
 from test_torch_cost_probes import _blk_k, _jax_ablate, _jax_variant
 from test_torch_cost_probes import _import_script as _import_quietly
+from test_torch_flash_probes import _jax_exp2_t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLK = 128          # blk_q and blk_k of the bounded interpret runs: the anchor window
@@ -106,17 +111,18 @@ def _layout_args(layout, q, k, v):
 
 def test_probe_entry_dispatch_and_cpu_tensors():
     """bf16 inputs of every bounded layout and of the exp2 probe take the
-    tensor-core entry points, float32 inputs the CUDA-core kernels' (the
-    bounded layouts and the ablations the query-major kernel's, the exp2
-    probe the template's: the same entry names); other dtypes and layouts
-    are refused.  CPU tensors of either dtype take the plain
-    versions bit for bit (the exp2 probe in both loops) and move no
-    counter."""
+    tensor-core entry points, float32 inputs the query-major kernel's of the
+    CUDA cores (the same entry names); other dtypes and layouts are refused.
+    The exp2 probe's key tile is 64 keys but in float32 at d = 80 (32).  CPU
+    tensors of either dtype take the plain versions bit for bit (the exp2
+    probe in both loops, at its key tile) and move no counter."""
     for layout in LAYOUTS:
         assert fp.probe_entry(torch.bfloat16, layout) == "hedit_flash_packed_t_tc"
         assert fp.probe_entry(torch.float32, layout) == "hedit_flash_packed_t"
     assert fp.exp2_entry(torch.bfloat16) == "hedit_flash_exp2_t_tc"
     assert fp.exp2_entry(torch.float32) == "hedit_flash_exp2_t"
+    assert [fp.exp2_key_tile(dtype, d) for dtype in (torch.bfloat16, torch.float32)
+            for d in (40, 80)] == [64, 64, 64, 32]
     for dtype in (torch.float16, torch.float64, torch.int8):
         for layout in LAYOUTS:
             with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -163,7 +169,7 @@ def test_probe_entry_dispatch_and_cpu_tensors():
             unrounded = getattr(fp, f"flash_{layout}_reference")(*args, BK,
                                                                  out_dtype=torch.float32)
             assert unrounded.dtype == torch.float32 and torch.equal(unrounded.to(dtype), want)
-        want = fp.flash_exp2_t_reference(q, k, v)
+        want = fp.flash_exp2_t_reference(q, k, v, blk_k=fp.exp2_key_tile(dtype, 40))
         for pipe in (False, True):
             got = fp.flash_exp2_t_cuda(q, k, v, pipe)
             assert torch.equal(got, want) and got.dtype == dtype
@@ -206,25 +212,23 @@ def test_tc_entry_point_matches_its_argument_types():
     ``hedit_flash_ablate_t_tc`` and ``hedit_flash_variant_tc`` in
     ``csrc/flash_probes_tc.cu`` take the parameters their ``ctypes``
     argument types describe, which are those of the float32 entries
-    ``hedit_flash_packed_t``, ``hedit_flash_ablate_t`` and
-    ``hedit_flash_variant`` (the query-major kernel, ``csrc/flash_variants.cu``)
-    and ``hedit_flash_exp2_t`` (the template, ``csrc/flash_probes.cu``, which
-    keeps no other entry and no bounded or ablation instance)."""
-    for name, source in (("hedit_flash_packed_t", "flash_variants.cu"),
-                         ("hedit_flash_exp2_t", "flash_probes.cu"),
-                         ("hedit_flash_ablate_t", "flash_variants.cu"),
-                         ("hedit_flash_variant", "flash_variants.cu")):
+    ``hedit_flash_packed_t``, ``hedit_flash_exp2_t``, ``hedit_flash_ablate_t``
+    and ``hedit_flash_variant`` (the query-major kernel,
+    ``csrc/flash_variants.cu``, the only source that defines
+    ``hedit_flash_exp2_t``)."""
+    for name in ("hedit_flash_packed_t", "hedit_flash_exp2_t", "hedit_flash_ablate_t",
+                 "hedit_flash_variant"):
         tc = _c_params(_build.CSRC / "flash_probes_tc.cu", f"{name}_tc")
-        template = _c_params(_build.CSRC / source, name)
-        assert tc == template == _build.ARGTYPES[f"{name}_tc"], name
+        core = _c_params(_build.CSRC / "flash_variants.cu", name)
+        assert tc == core == _build.ARGTYPES[f"{name}_tc"], name
         assert _build.ARGTYPES[f"{name}_tc"] == _build.ARGTYPES[name], name
     # dots' check instance (two more pointers, no mode) and row 9 c (no variant code)
     for name, source in (("hedit_flash_ablate_dots_check_tc", "flash_probes_tc.cu"),
                          ("hedit_flash_variant_c", "flash_variants.cu")):
         assert _c_params(_build.CSRC / source, name) == _build.ARGTYPES[name], name
-    template = (_build.CSRC / "flash_probes.cu").read_text()
-    assert re.findall(r'extern "C" int (\w+)\(', template) == ["hedit_flash_exp2_t"]
-    assert not re.search(r"PackedT|Ablate", template)
+    defining = [p.name for p in sorted(_build.CSRC.glob("*.cu"))
+                if re.search(r'extern "C" int hedit_flash_exp2_t\(', p.read_text())]
+    assert defining == ["flash_variants.cu"], defining
 
 
 def _tiled_probe(ops, layout, anchor, bq, exact=False, pipe=False):
@@ -399,24 +403,6 @@ def _jax_packed_t(mod, layout, q, k, v):
     )(*(t.reshape(b * h, *t.shape[2:]) for t in (q, k, v)))
 
 
-def _jax_exp2_t(mod, q, k, v, pipe):
-    """``kern_exp2`` as ``run_variant`` calls it, with interpret=True, BLK
-    query blocks and the kernel's 64-key blocks: q, k, v [B, H, S, D] ->
-    [B*H, D, Sq]."""
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    return pl.pallas_call(
-        functools.partial(mod.kern_exp2, sm_scale=1.0 / d ** 0.5, blk_k=BK, pipe=pipe),
-        grid=(b * h, sq // BLK),
-        in_specs=[pl.BlockSpec((None, BLK, d), lambda bh, i: (bh, i, 0)),
-                  pl.BlockSpec((None, sk, d), lambda bh, i: (bh, 0, 0)),
-                  pl.BlockSpec((None, sk, d), lambda bh, i: (bh, 0, 0))],
-        out_specs=pl.BlockSpec((None, d, BLK), lambda bh, i: (bh, 0, i)),
-        out_shape=jax.ShapeDtypeStruct((b * h, d, sq), q.dtype),
-        interpret=True,
-    )(*(t.reshape(b * h, -1, d) for t in (q, k, v)))
-
-
 def _inputs(sq, sk, d, layout, saturate, dtype=torch.bfloat16):
     """numpy-seeded operands of ``layout`` in ``dtype`` (q, k [1, 2, S, D]
     or S-minor [1, 2, D, S]; v [1, 2, S, D] or S-minor) as (torch, jax)
@@ -503,7 +489,7 @@ def test_tiled_order_matches_the_plain_versions_and_jax():
         if sq % BLK:
             continue
         for pipe in (False, True):
-            want = np.asarray(_jax_exp2_t(v4, *jops, pipe).astype(jnp.float32))
+            want = np.asarray(_jax_exp2_t(v4, *jops, pipe, BK).astype(jnp.float32))
             np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want, rounded=True),
                                        err_msg=f"exp2 d={d} pipe={pipe}")
 
@@ -779,46 +765,55 @@ def test_tiled_variant_ab_matches_the_plain_versions_and_jax():
             assert torch.equal(got["a"], got["b"].mT), f"Sq={sq} {dtype}"
 
 
-def _tiled_qm_f32(ops, what, anchor=None, layout="packed_t"):
-    """Rows 11 (``what`` ``bounded``, the operands of ``layout``) and 8
-    (``dots``, ``exp``, ``noprolog``; [B, H, S, D]) in float32 in the
-    query-major kernel's order of work, plain torch: the S-minor operands
-    read as the kernel reads them (q and each K and V tile transposed to
-    [S, D] on their way, the same values); blocks
+def _tiled_qm_f32(ops, what, anchor=None, layout="packed_t", pipe=False):
+    """Rows 11 (``what`` ``bounded``, the operands of ``layout``), 8
+    (``dots``, ``exp``, ``noprolog``; [B, H, S, D]) and 10 (``exp2``; [B, H,
+    S, D]) in float32 in the query-major kernel's order of work, plain
+    torch: the S-minor operands read as the kernel reads them (q and each K
+    and V tile transposed to [S, D] on their way, the same values); blocks
     of 128 queries at d = 40 (the last padded with zero queries past Sq) or
     64 at d = 80, key tiles of 64 or 32; q times c = sm_scale log2(e) in
-    float32 first (row 11) or as it is (row 8); each tile's float32 scores.
-    Row 11's window: over the tiles of the first ``anchor`` keys a running
-    max m from -1e30, p = exp2(min(s - (m + 16), 100)), alpha = exp2(m_old -
-    m_new) rescaling the sum and the accumulator; then the shift m + 16
-    frozen.  Row 8: p = s, exp2(s) or exp2(min(s - 12.34, 100)).  Each
-    row's sum in the kernel's lanes: lane t of a quad adds, key by key, its
-    keys j*8 + 2t + e of the tile (j-major), the four lanes then (0 + 1) +
-    (2 + 3), and
-    l = l alpha + that sum; acc = acc alpha + p v in float32; out = acc /
-    max(l, floor) (1.2e-38, 1e-30) before any rounding, [B, H*D, Sq] (row
-    11) or [B*H, D, Sq] (row 8)."""
+    float32 first (rows 11 and 10) or as it is (row 8); each tile's float32
+    scores.  Row 11's window: over the tiles of the first ``anchor`` keys a
+    running max m from -1e30, p = exp2(min(s - (m + 16), 100)), alpha =
+    exp2(m_old - m_new) rescaling the sum and the accumulator; then the
+    shift m + 16 frozen.  Row 8: p = s, exp2(s) or exp2(min(s - 12.34,
+    100)).  Row 10: over every tile the running max m from -1e30, p =
+    exp2(s - m_new), alpha = exp2(m_old - m_new); ``pipe`` takes tile t's
+    scores before tile t - 1's softmax and PV (a prologue takes tile 0's, an
+    epilogue drains the last tile).  Each row's sum in the kernel's lanes:
+    lane t of a quad adds, key by key, its keys j*8 + 2t + e of the tile
+    (j-major), the four lanes then (0 + 1) + (2 + 3), and l = l alpha + that
+    sum; acc = acc alpha + p v in float32; out = acc / max(l, floor)
+    (1.2e-38, 1e-30; row 10 none) before any rounding, [B, H*D, Sq] (row 11)
+    or [B*H, D, Sq] (rows 8 and 10)."""
     _, qk_minor, v_minor = KERNELS[layout]
     q, k, v = (t.mT if m else t for t, m in zip(ops, (qk_minor, qk_minor, v_minor)))
     b, h, sq, d = q.shape
     bq, tk = (128, 64) if d == 40 else (64, 32)
-    bounded = what == "bounded"
+    bounded, exp2 = what == "bounded", what == "exp2"
     c = torch.tensor(1.0 / d ** 0.5 * np.log2(np.e), dtype=torch.float32)
     blocks = -(-sq // bq) * bq
-    qs = F.pad(q.float() * c if bounded else q.float(), (0, 0, 0, blocks - sq))
+    qs = F.pad(q.float() * c if bounded or exp2 else q.float(), (0, 0, 0, blocks - sq))
     slots = torch.tensor([[j * 8 + 2 * t + e for j in range(tk // 8) for e in range(2)]
                           for t in range(4)])                          # [lane, slot] -> key
     m = torch.full((b, h, blocks, 1), -1e30)
     den = torch.zeros((b, h, blocks, 1))
     acc = torch.zeros((b, h, blocks, d))
-    for k0 in range(0, k.shape[2], tk):
-        s = qs @ k[:, :, k0:k0 + tk].float().mT
+
+    def scores(k0):
+        return qs @ k[:, :, k0:k0 + tk].float().mT
+
+    def softmax_pv(s, k0):
+        nonlocal m, den, acc
         alpha = None
-        if bounded:
-            if k0 < anchor:
-                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-                alpha = torch.exp2(m - m_new)
-                m = m_new
+        if exp2 or (bounded and k0 < anchor):
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            m = m_new
+        if exp2:
+            p = torch.exp2(s - m)
+        elif bounded:
             p = torch.exp2(torch.clamp(s - (m + 16.0), max=100.0))
         elif what == "dots":
             p = s
@@ -833,7 +828,20 @@ def _tiled_qm_f32(ops, what, anchor=None, layout="packed_t"):
         pv = p @ v[:, :, k0:k0 + tk].float()
         den = den + tile_sum if alpha is None else den * alpha + tile_sum
         acc = acc + pv if alpha is None else acc * alpha + pv
-    out = acc / torch.clamp(den, min=DENOM_FLOOR if bounded else fp.ABLATE_FLOOR)
+
+    sk = k.shape[2]
+    if pipe:
+        s_prev = scores(0)
+        for k0 in range(tk, sk, tk):
+            s_next = scores(k0)
+            softmax_pv(s_prev, k0 - tk)
+            s_prev = s_next
+        softmax_pv(s_prev, sk - tk)
+    else:
+        for k0 in range(0, sk, tk):
+            softmax_pv(scores(k0), k0)
+    out = acc / (den if exp2 else torch.clamp(den, min=DENOM_FLOOR if bounded
+                                              else fp.ABLATE_FLOOR))
     assert torch.isfinite(out).all()   # the zero queries past Sq too
     out = out[:, :, :sq].mT
     return out.reshape(b, h * d, sq) if bounded else out.reshape(b * h, d, sq)
@@ -901,3 +909,34 @@ def test_tiled_qm_bounded_and_ablations_match_the_plain_versions_and_jax():
                 assert excused.float().mean().item() < 1e-2, (where, int(excused.sum()))
                 err = (got - other).abs()
                 assert bool(((err <= tol) | excused[:, None, :]).all()), (where, (err / tol).max())
+
+
+def test_tiled_qm_exp2_matches_the_plain_version_and_jax():
+    """Row 10 in float32 in the query-major kernel's order of work
+    (``_tiled_qm_f32(..., "exp2")``), both key loops, at d = 40 (128-query
+    blocks, 64-key tiles) and d = 80 (64-query blocks, 32-key tiles), S =
+    256 and a ragged Sq of 320 against Sk = 256 (d = 40: its last block
+    half past Sq).  The two loops give the same bits; each is held to
+    ``flash_exp2_t_reference`` at the kernel's key tile (``exp2_key_tile``)
+    and to ``kern_exp2`` in interpret mode with that ``blk_k`` (2e-5:
+    summation order and the base-2 exp; q padded with zero queries to the
+    interpret run's 128-query blocks, each query's output its own)."""
+    v4 = _import_script("flash_v4_variants")
+    for sq, d in ((256, 40), (256, 80), (320, 40), (320, 80)):
+        where = f"exp2 float32 d={d} Sq={sq}"
+        rng = np.random.RandomState(sq + d)
+        q, k, v = (rng.randn(1, 2, s, d).astype(np.float32) for s in (sq, 256, 256))
+        ops = [torch.from_numpy(a) for a in (q, k, v)]
+        loops = [_tiled_qm_f32(ops, "exp2", pipe=pipe) for pipe in (False, True)]
+        assert torch.equal(loops[0], loops[1]), f"{where}: the loops differ"
+        got = loops[0]
+        blk_k = fp.exp2_key_tile(torch.float32, d)
+        assert blk_k == (64 if d == 40 else 32)
+        plain = fp.flash_exp2_t_reference(*ops, blk_k=blk_k)
+        assert got.shape == plain.shape == (2, d, sq), where
+        torch.testing.assert_close(got, plain, rtol=0, atol=2e-5, msg=where)
+        padded = np.pad(q, ((0, 0), (0, 0), (0, -sq % BLK), (0, 0)))
+        for pipe in (False, True):
+            want = _f32_jax(_jax_exp2_t(v4, *(jnp.asarray(a) for a in (padded, k, v)), pipe,
+                                        blk_k))[..., :sq]
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-5, msg=f"{where} pipe={pipe}")

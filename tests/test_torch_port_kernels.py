@@ -820,12 +820,15 @@ def test_probe_bounded_kernels_match_plain_on_card(cuda, dtype, layout, shape, a
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pipe", [False, True])
-@pytest.mark.parametrize("shape", [(2, 3, 256, 40), (1, 2, 576, 80), (1, 1, 64, 40)])
+@pytest.mark.parametrize("shape", [(2, 3, 256, 40), (1, 2, 576, 80), (1, 1, 64, 40),
+                                   (1, 2, 320, 40)])
 def test_probe_exp2_kernel_matches_plain_on_card(cuda, dtype, pipe, shape):
     """TPU kernel 10, both key loops, against its plain version (with the
-    kernel's 64-key blocks of the running max; tolerances of ``_tol``): bf16
-    on the tensor cores (its own counter, held before the final rounding),
-    float32 on the CUDA-core template.  The two loops give the same bits."""
+    kernel's key tile as the block of the running max, ``exp2_key_tile``:
+    64 keys, 32 at d = 80 in float32; tolerances of ``_tol``): bf16 on the
+    tensor cores (its own counter, held before the final rounding), float32
+    on the query-major kernel (a last block past Sq at 64 and 320 queries).
+    The two loops give the same bits."""
     from hedit_tpu_torch.ops import flash_probes as fp
 
     q, k, v = _probe_inputs(dtype, shape)
@@ -837,8 +840,9 @@ def test_probe_exp2_kernel_matches_plain_on_card(cuda, dtype, pipe, shape):
     torch.cuda.synchronize()
     assert {n: getattr(fp, n) - before[n] for n in names} == {n: 2 * (n == counter) for n in names}
     assert got.shape == (shape[0] * shape[1], shape[3], shape[2])
-    want = (fp.flash_exp2_t_reference(q, k, v, out_dtype=torch.float32)
-            if dtype == torch.bfloat16 else fp.flash_exp2_t_reference(q, k, v).float())
+    blk_k = fp.exp2_key_tile(dtype, shape[3])
+    want = (fp.flash_exp2_t_reference(q, k, v, blk_k=blk_k, out_dtype=torch.float32)
+            if dtype == torch.bfloat16 else fp.flash_exp2_t_reference(q, k, v, blk_k=blk_k).float())
     torch.testing.assert_close(got.float(), want, rtol=0, atol=_tol(dtype, want))
     assert torch.equal(got, other)
 
@@ -932,6 +936,19 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         assert lib.hedit_flash_packed_t(*moved, 2, sq, 256, d, anchor, code, dtype, stream) == -1
         if anchor == 128:  # row 8 takes no anchor
             assert lib.hedit_flash_ablate_t(*moved, 2, sq, 256, d, code, dtype, stream) == -1
+    # row 10 (pipe 0, 1) in float32 on the query-major kernel at d = 40 and
+    # 80, aligned; not bf16, d = 64, pipe 2, Sq = 200 or a pointer off 16
+    # bytes (q, k or out)
+    for d, pointers in ((40, ptrs32), (80, [t.data_ptr() for t in (q80, q80, q80, out80)])):
+        for pipe in (0, 1):
+            assert lib.hedit_flash_exp2_t(*pointers, 2, 256, 256, d, pipe, 0, stream) == 0
+    for d, sq, pipe, dtype, shift, which in ((40, 256, 0, 1, 0, 0), (64, 256, 0, 0, 0, 0),
+                                             (40, 256, 2, 0, 0, 0), (40, 200, 1, 0, 0, 0),
+                                             (40, 256, 0, 0, 4, 0), (40, 256, 1, 0, 8, 1),
+                                             (40, 256, 1, 0, 4, 3)):
+        moved = list(ptrs32)
+        moved[which] += shift
+        assert lib.hedit_flash_exp2_t(*moved, 2, sq, 256, d, pipe, dtype, stream) == -1
     # rows 9 a, b (codes 0, 2, both dtypes) and float32 d (1) on the
     # query-major kernel, aligned; not code -1, d = 80, Sq = 200, dtype 2 or
     # a pointer off 16 bytes (q, k or out)
@@ -985,6 +1002,9 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         fp.flash_packed_t_all_sminor_cuda(qt32, misaligned(qt32), qt32, 128)
     with pytest.raises(ValueError, match="aligned"):
         fp.flash_ablate_t_cuda(q, q, misaligned(q), "dots")
+    for pipe in (False, True):
+        with pytest.raises(ValueError, match="aligned"):
+            fp.flash_exp2_t_cuda(q, misaligned(q), q, pipe)
     with pytest.raises(ValueError, match="bf16 only"):
         fp.flash_ablate_dots_check_cuda(q, q, q)
     torch.cuda.synchronize()
