@@ -129,7 +129,14 @@ the final result line:
    prediction (every bf16 path: the tensor-core packed kernel serves each
    UNet self-attention of >= 1024 tokens without a gradient, the tensor-core
    head-split one the VAE's two attentions; the CUDA-core bounded entries and
-   the exact kernels none);
+   the exact kernels none); then the PnP path, as ``main_plugnplay --mode
+   h_edit_R_pnp`` runs it at its defaults: one image, source and target
+   prompts, the same inversion, then 50 steps of one 1-row base call, one
+   uncontrolled 2-row call and the 2-row PnP pair call (q / k injected into
+   the self-attentions of up blocks 1-3, conv features at up block 1's second
+   resnet), its launches checked the same way (GroupNorm 9,507 calls, every
+   input channels-last, the injected features included), and the same edit
+   with every gate off, which must differ by more than 1e-2 of max|xts|;
 10. the VAE decode's gradient in bf16 at 512 px (the style reward's route,
     whose mode is not ported yet): the decoder's mid-block attention takes
     the tensor-core LSE forward and the tensor-core backward at d = 512,
@@ -168,6 +175,8 @@ the final result line:
     returns the source latent;
 16. in float32: h-Edit-R + MasaCtrl, active at its defaults, with target =
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
+    h-Edit-R + PnP at its default gates with target = source and
+    cfg_tar == cfg_src_edit == 5 likewise, on the float32 packed kernel;
 17. a JSON line of the kernels (each with its launches on its path: rows 1
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
     flagship path, rows 1p (the float32 kernel) and 1 (the float32 d = 512
@@ -223,7 +232,8 @@ from hedit_tpu_torch.control.p2p import (  # noqa: E402
 from hedit_tpu_torch.core.schedule import Schedule  # noqa: E402
 from hedit_tpu_torch.edit.baselines import ef_or_pnp_inv_p2p, nmg_gradient, nmg_p2p  # noqa: E402
 from hedit_tpu_torch.edit.h_edit import HEditConfig  # noqa: E402
-from hedit_tpu_torch.edit.h_edit_ctrl import h_edit_masactrl  # noqa: E402
+from hedit_tpu_torch.control.pnp import pnp_step_gates  # noqa: E402
+from hedit_tpu_torch.edit.h_edit_ctrl import h_edit_masactrl, h_edit_pnp  # noqa: E402
 from hedit_tpu_torch.edit.h_edit_p2p import h_edit_p2p, h_edit_p2p_flagship  # noqa: E402
 from hedit_tpu_torch.invert.ddim import invert_ddim  # noqa: E402
 from hedit_tpu_torch.invert.ddpm import invert_ddpm, sample_xts_from_x0  # noqa: E402
@@ -361,7 +371,8 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
 GN_INPUTS = {"calls": 0, "channels_last": 0}
 # GroupNorm calls of each path (flagship: 61 a UNet call x 100 calls + 22 in
 # the VAE encoder + 30 in the decoder)
-GN_CALLS = {"flagship": 6152, "NMG": 9202, "h-Edit-D": 12252, "EF": 3407, "MasaCtrl": 9507}
+GN_CALLS = {"flagship": 6152, "NMG": 9202, "h-Edit-D": 12252, "EF": 3407, "MasaCtrl": 9507,
+            "PnP": 9507}
 
 
 def reset_launches():
@@ -2244,6 +2255,62 @@ def phase_masactrl_path(pipe, images, ids):
     return counts, failures
 
 
+# main_plugnplay's defaults: the injection fractions and the h-Edit scales
+PNP_F_T, PNP_ATTN_T = 0.45, 0.35
+PNP_CFG = HEditConfig(eta=1.0, cfg_src=1.0, cfg_src_edit=5.0, cfg_tar=7.5)
+# the edit with injection must differ from the edit without by more than this
+# share of max|xts|
+PNP_CONTRAST = 1e-2
+
+
+def phase_pnp_path(pipe, images, ids):
+    """h-Edit-R + PnP, as ``main_plugnplay --mode h_edit_R_pnp`` runs it at its
+    defaults (eta 1, cfg_src 1, cfg_src_edit 5, cfg_tar 7.5, --pnp_f_t 0.45
+    --pnp_attn_t 0.35): the source prompt row 1 of the image's ids, the
+    target row 3, the DDPM inversion with its residual pass (5 calls of 10
+    rows), then 50 steps of one 1-row base call, one uncontrolled 2-row call
+    (cond_out_src and uncond_out_tar) and the 2-row PnP pair call on the
+    trajectory.  Every one of those calls runs the 10 self-attentions of
+    >= 1024 tokens on the packed kernel, the injected q / k included.  Then
+    the same edit with every gate off: injection must move the edit by more
+    than ``PNP_CONTRAST`` of max|xts|."""
+    qk_mask, conv_mask = pnp_step_gates(STEPS, PNP_ATTN_T, PNP_F_T)
+    runs = {}
+
+    def invert(pipe, x0, ctx3):
+        return invert_ddpm(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0],
+                           src_ctx=ctx3[:, 1], cfg_scale_src=PNP_CFG.cfg_src, eta=PNP_CFG.eta,
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           step_chunk=10)
+
+    def edit(pipe, inv, ctx3, control, blend, qk=qk_mask, conv=conv_mask):
+        edited, recon = h_edit_pnp(pipe.unet, pipe.schedule, inv.xts[:, STEPS], inv.zs,
+                                   ctx3=ctx3, cfg=PNP_CFG, after_skip_steps=STEPS, qk_mask=qk,
+                                   conv_mask=conv, xts=inv.xts)
+        runs.update(inv=inv, ctx3=ctx3, edited=edited)
+        return edited, recon
+
+    want = 3 * 10 * STEPS + 5 * 10
+    counts, failures = _one_image_path("PnP", pipe, images, ids, invert, edit,
+                                       "DDPM inversion, 5 calls of 10 rows,", packed=want)
+    print(f"PnP path: tensor-core packed-kernel launches {counts['flash_packed_bounded']} "
+          f"(predicted {want}: 3 UNet calls a step x 10 + the residual pass's 5 calls x 10), "
+          f"tensor-core head-split {counts['flash_attention']} (predicted 2); gates on for "
+          f"{sum(qk_mask)} (q / k) and {sum(conv_mask)} (conv) of {STEPS} steps")
+    inv, edited = runs["inv"], runs["edited"]
+    off, _ = edit(pipe, inv, runs["ctx3"], None, None, [False] * STEPS, [False] * STEPS)
+    torch.cuda.synchronize()
+    scale = inv.xts.abs().max().item()
+    moved = (edited - off).abs().max().item() / scale
+    ok = moved > PNP_CONTRAST and bool(torch.isfinite(off).all())
+    print(f"PnP injection contrast: max|edited - edited without injection| / max|xts| "
+          f"{moved:.3e} (must exceed {PNP_CONTRAST:g}; max|xts| {scale:.3e}) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"PnP injection moved the edit by {moved:.3e} of max|xts|")
+    return counts, failures
+
+
 def phase_vae_gradient(pipe, images):
     """The gradient of a loss on the decoded image with respect to the
     latent, in bf16 at 512 px: the route of the style reward's gradient
@@ -2672,6 +2739,37 @@ def phase_masactrl_identity(pipe):
     return [] if ok else [f"MasaCtrl identity error {err:.3e}"]
 
 
+def phase_pnp_identity(pipe):
+    """h-Edit-R + PnP in float32 with target = source, cfg_tar == cfg_src_edit
+    == 5 and the CLI's default gates: x_opt starts on the trajectory, the
+    pair's rows are equal, so the injection copies equal rows, the correction
+    vanishes, and the edit returns the source latent xts[0]."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x0 = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
+    ids = torch.from_numpy(_token_ids(np.random.RandomState(31), 1))
+    ctx3 = pipe.encode_token_ids(ids[0, [0, 1, 1]]).reshape(1, 3, MAX_LEN, -1)
+    qk_mask, conv_mask = pnp_step_gates(STEPS, PNP_ATTN_T, PNP_F_T)
+    t0 = time.perf_counter()
+    inv = invert_ddpm(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0], src_ctx=ctx3[:, 1],
+                      cfg_scale_src=1.0, eta=1.0, generator=g, step_chunk=10)
+    reset_launches()
+    edited, _ = h_edit_pnp(pipe.unet, pipe.schedule, inv.xT, inv.zs, ctx3=ctx3,
+                           cfg=HEditConfig(cfg_src_edit=5.0, cfg_tar=5.0),
+                           after_skip_steps=STEPS, qk_mask=qk_mask, conv_mask=conv_mask,
+                           xts=inv.xts)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    scale = inv.xts.abs().max().item()
+    err = (edited - inv.xts[:, 0]).abs().max().item() / scale
+    ok = (err <= GOLDEN_TOL and bool(torch.isfinite(edited).all())
+          and counts["flash_packed_bounded_f32"] > 0)
+    print(f"PnP identity (f32, TF32 off, {STEPS} + {STEPS} steps, "
+          f"{time.perf_counter() - t0:.1f} s): max|edited - xts[0]| / max|xts| {err:.3e} "
+          f"(tol {GOLDEN_TOL:g}; max|xts| {scale:.3e}); loop launches {json.dumps(counts)} "
+          f"{'OK' if ok else 'FAIL'}")
+    return [] if ok else [f"PnP identity error {err:.3e}"]
+
+
 # Device-time classes of a step, by kernel name (first match wins).  Row 3,
 # the LSE forward, is the tensor-core forward kernel instantiated with
 # LSE = true (its last template argument; "Lb1E" mangled); on the bf16 paths
@@ -2826,6 +2924,8 @@ def main(argv=None) -> int:
     failures += bad
     masactrl_counts, bad = phase_masactrl_path(*inputs[:3])
     failures += bad
+    pnp_counts, bad = phase_pnp_path(*inputs[:3])
+    failures += bad
     vae_grad_counts, bad = phase_vae_gradient(*inputs[:2])
     failures += bad
     del inputs
@@ -2845,8 +2945,10 @@ def main(argv=None) -> int:
     failures += bad
     failures += phase_reconstructions(pipe)
     failures += phase_masactrl_identity(pipe)
+    failures += phase_pnp_identity(pipe)
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
-             "ef": ef_counts, "masactrl": masactrl_counts, "vae_gradient": vae_grad_counts,
+             "ef": ef_counts, "masactrl": masactrl_counts, "pnp": pnp_counts,
+             "vae_gradient": vae_grad_counts,
              "exact_forward": exact_counts, "golden_f32": golden_counts,
              "vae_gradient_f32": vae_grad_f32_counts, "packed_bounded_f32_512": packed_512_counts,
              "nmg_f32": nmg_f32_counts, **kernel_counts, **probe_counts}
@@ -2859,7 +2961,7 @@ def main(argv=None) -> int:
     print(f"probe kernels launched off the probes' paths: none expected, "
           f"{sum(paths[p][n] for p in paths.keys() - probe_counts.keys() for n in probe_kernels)}")
     # no bf16 path launches a float32 backward kernel
-    bf16_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "vae_gradient")
+    bf16_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "pnp", "vae_gradient")
     fused = {p: paths[p]["flash_bwd_f32"] + paths[p]["flash_bwd_f32_512"] for p in bf16_paths}
     print(f"float32 backward kernels launched on the bf16 paths: {fused} (none expected)")
     if any(fused.values()):

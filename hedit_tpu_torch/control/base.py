@@ -14,7 +14,12 @@ control object, per call:
 A control that intervenes in logit space (mask-guided MasaCtrl) also has
 ``override_attention``: it gets the head-split views of q / k / v before
 ``map_qkv`` and returns the attention output, or None to take the paths
-above.  PnP's ``map_features`` arrives with that control.
+above.
+
+Every control also has ``map_features(h, site)``, called by the UNet's up
+block resnets on their conv branch (after conv2, before the skip add) with
+the block's site name ``up_{block}_resnet_{layer}``: PnP writes its conv
+features there, every other control returns ``h`` unchanged.
 """
 
 from __future__ import annotations
@@ -57,6 +62,9 @@ class NoControl:
 
     def needs_probs(self, layer: LayerTag) -> bool:
         return False
+
+    def map_features(self, h, site: str):
+        return h
 
 
 NO_CONTROL = NoControl()

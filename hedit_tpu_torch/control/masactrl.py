@@ -68,3 +68,6 @@ class MasaCtrlControl:
 
     def needs_probs(self, layer: LayerTag) -> bool:
         return False
+
+    def map_features(self, h, site: str):
+        return h

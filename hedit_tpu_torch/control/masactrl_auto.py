@@ -37,6 +37,9 @@ class CrossMapStore:
     def needs_probs(self, layer: LayerTag) -> bool:
         return layer.is_cross and layer.num_pixels == self.px
 
+    def map_features(self, h, site: str):
+        return h
+
     def edit_probs(self, probs: torch.Tensor, layer: LayerTag
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return probs, {f"cross16_{layer.place}_{layer.store_index}": probs.mean(dim=1)}

@@ -73,6 +73,9 @@ class MasaCtrlMaskControl:
     def needs_probs(self, layer: LayerTag) -> bool:
         return False
 
+    def map_features(self, h, site: str):
+        return h
+
     def override_attention(self, q, k, v, layer: LayerTag):
         """q / k / v [4n, heads, L, D] with rows [u_src, u_tar, c_src, c_tar]
         an image; returns [4n, heads, L, D], or None off the qualifying

@@ -69,6 +69,9 @@ class P2PControl:
     def needs_probs(self, layer: LayerTag) -> bool:
         return self._is_store_layer(layer)
 
+    def map_features(self, h, site: str):
+        return h
+
     def linear_token_edit(self, layer: LayerTag):
         """The cross edit as ``new_repl = base @ A + repl * b`` over the token
         axis: returns (A [n, 77, 77], b [n, 77]) in float32, or None where

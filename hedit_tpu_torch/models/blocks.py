@@ -71,11 +71,16 @@ class Conv2d(nn.Conv2d):
 
 
 class ResnetBlock2D(nn.Module):
-    """GN32+SiLU+conv twice, optional timestep projection and skip conv."""
+    """GN32+SiLU+conv twice, optional timestep projection and skip conv.
+
+    ``feature_site`` names this block for the control's ``map_features``
+    hook, applied to the conv branch after conv2 and before the skip add:
+    PnP's conv-feature injection point."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
-                 groups: int = 32, eps: float = 1e-5):
+                 groups: int = 32, eps: float = 1e-5, feature_site: str = ""):
         super().__init__()
+        self.feature_site = feature_site
         self.norm1 = FusedGroupNorm(groups, in_channels, eps, act="silu")
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_dim is not None:
@@ -85,11 +90,13 @@ class ResnetBlock2D(nn.Module):
         if in_channels != out_channels:
             self.conv_shortcut = Conv2d(in_channels, out_channels, 1)
 
-    def forward(self, x, temb=None):
+    def forward(self, x, temb=None, control=NO_CONTROL):
         h = self.conv1(self.norm1(x))
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
         h = self.conv2(self.norm2(h))
+        if self.feature_site:
+            h = control.map_features(h, self.feature_site)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h

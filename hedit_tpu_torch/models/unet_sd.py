@@ -4,7 +4,9 @@ The public ``forward`` takes and returns NHWC latents, like the JAX model;
 inside, activations are NCHW tensors in ``torch.channels_last`` (the NHWC
 input permuted is one already).  Every attention layer carries the
 same static ``LayerTag`` as in the JAX model (``_build_tags``), so a control
-addresses layers identically in both packages.  Parameter names are the
+addresses layers identically in both packages; the up blocks' resnets carry
+the JAX model's feature sites, ``up_{block}_resnet_{layer}``, for the
+control's ``map_features``.  Parameter names are the
 diffusers ``state_dict`` keys.
 """
 
@@ -135,7 +137,8 @@ class UNet2DCondition(nn.Module):
             if cfg.cross_attn_up[bi]:
                 blk.attentions = nn.ModuleList()
             for li in range(cfg.layers_per_block + 1):
-                blk.resnets.append(ResnetBlock2D(cin + skip_ch.pop(), ch, temb_dim))
+                blk.resnets.append(ResnetBlock2D(cin + skip_ch.pop(), ch, temb_dim,
+                                                 feature_site=f"up_{bi}_resnet_{li}"))
                 cin = ch
                 if cfg.cross_attn_up[bi]:
                     blk.attentions.append(transformer(ch, tags["up"][bi][li]))
@@ -178,7 +181,7 @@ class UNet2DCondition(nn.Module):
         h = self.mid_block.resnets[1](h, temb)
         for blk in self.up_blocks:
             for li, rn in enumerate(blk.resnets):
-                h = rn(torch.cat([h, skips.pop()], dim=1), temb)
+                h = rn(torch.cat([h, skips.pop()], dim=1), temb, control)
                 if hasattr(blk, "attentions"):
                     h = blk.attentions[li](h, ctx, control, store)
             if hasattr(blk, "upsamplers"):
