@@ -137,6 +137,14 @@ the final result line:
    resnet), its launches checked the same way (GroupNorm 9,507 calls, every
    input channels-last, the injected features included), and the same edit
    with every gate off, which must differ by more than 1e-2 of max|xts|;
+   then the null-text + PnP path, as ``main_plugnplay --mode nt_pnp`` runs
+   it at its defaults: one image, the DDIM inversion without its residual
+   pass, then 50 steps of a 1-row source call, up to 10 Adam iterations on
+   the uncond embedding (each a 1-row UNet forward and backward with respect
+   to it) and the two 2-row pair calls; its launches checked against a
+   prediction in terms of K, the Adam iterations taken (rows 1p, 3, 4 and 5,
+   GroupNorm), and its source branch's reconstruction error beside the same
+   run with no Adam iteration;
 10. the VAE decode's gradient in bf16 at 512 px (the style reward's route,
     whose mode is not ported yet): the decoder's mid-block attention takes
     the tensor-core LSE forward and the tensor-core backward at d = 512,
@@ -165,7 +173,10 @@ the final result line:
     gradient held to the same gradient with the plain versions substituted;
 13. the UNet gradient at full width in float32: d loss / d x of one NMG step
     with the kernels against the same gradient with the plain versions
-    substituted here;
+    substituted here; then null-text's d loss / d u (the gradient with
+    respect to the uncond embedding) the same way, and outer step 0's
+    10-iteration Adam chain with the kernels and with the plain versions,
+    the loss trajectories within 1e-3 relative;
 14. the NMG loop in float32 under a neutral control: its edit branch equals
     plain DDIM sampling computed here; its launches counted (the float32
     LSE kernel 500, the fused float32 backward 250, the template's none);
@@ -235,6 +246,7 @@ from hedit_tpu_torch.edit.h_edit import HEditConfig  # noqa: E402
 from hedit_tpu_torch.control.pnp import pnp_step_gates  # noqa: E402
 from hedit_tpu_torch.edit.h_edit_ctrl import h_edit_masactrl, h_edit_pnp  # noqa: E402
 from hedit_tpu_torch.edit.h_edit_p2p import h_edit_p2p, h_edit_p2p_flagship  # noqa: E402
+from hedit_tpu_torch.edit import pnp_baselines  # noqa: E402
 from hedit_tpu_torch.invert.ddim import invert_ddim  # noqa: E402
 from hedit_tpu_torch.invert.ddpm import invert_ddpm, sample_xts_from_x0  # noqa: E402
 from hedit_tpu_torch.ops import attention as attn  # noqa: E402
@@ -370,9 +382,11 @@ COUNTERS = {"flash_attention": (flash, "launches_tc"), "groupnorm": (gn, "launch
 # calls whose input was channels-last (forward pre-hooks, ``hook_groupnorm``)
 GN_INPUTS = {"calls": 0, "channels_last": 0}
 # GroupNorm calls of each path (flagship: 61 a UNet call x 100 calls + 22 in
-# the VAE encoder + 30 in the decoder)
+# the VAE encoder + 30 in the decoder); null-text + PnP's in terms of K, its
+# Adam iterations (one 1-row gradient call each): the inversion's 50 calls, 3
+# a step and K
 GN_CALLS = {"flagship": 6152, "NMG": 9202, "h-Edit-D": 12252, "EF": 3407, "MasaCtrl": 9507,
-            "PnP": 9507}
+            "PnP": 9507, "nt_pnp": lambda K: 61 * (STEPS + 3 * STEPS + K) + 52}
 
 
 def reset_launches():
@@ -404,7 +418,7 @@ def read_launches():
     return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
-def check_forward_routing(counts, path, failures, packed):
+def check_forward_routing(counts, path, failures, packed, gn_calls=None):
     """On a bf16 path every UNet self-attention of kernel size without a
     gradient reads the packed projections through the tensor-core packed
     kernel, ``packed`` launches (10 self-attentions of >= 1024 tokens a UNet
@@ -413,15 +427,16 @@ def check_forward_routing(counts, path, failures, packed):
     CUDA-core bounded entries (float32) and the exact kernels (rows 6 and
     7, on either cores) never run, nor the float32 kernel.  (Row 3, the LSE
     forward, has its own counters.)
-    GroupNorm: ``GN_CALLS[path]`` kernel calls, each on a channels-last
-    input, and the streamed regime in the VAE."""
+    GroupNorm: ``gn_calls`` (default ``GN_CALLS[path]``) kernel calls, each on
+    a channels-last input, and the streamed regime in the VAE."""
+    gn_calls = GN_CALLS[path] if gn_calls is None else gn_calls
     if (counts["groupnorm"], GN_INPUTS["calls"], GN_INPUTS["channels_last"]) != (
-            GN_CALLS[path],) * 3 or counts["groupnorm_streamed"] <= 0:
+            gn_calls,) * 3 or counts["groupnorm_streamed"] <= 0:
         failures.append(f"the {path} path called the GroupNorm kernel {counts['groupnorm']} "
                         f"times (streamed {counts['groupnorm_streamed']}), on "
                         f"{GN_INPUTS['channels_last']} channels-last of {GN_INPUTS['calls']} "
-                        f"inputs (expected {GN_CALLS[path]} of {GN_CALLS[path]})")
-    print(f"{path} path GroupNorm: {counts['groupnorm']} kernel calls ({GN_CALLS[path]} "
+                        f"inputs (expected {gn_calls} of {gn_calls})")
+    print(f"{path} path GroupNorm: {counts['groupnorm']} kernel calls ({gn_calls} "
           f"predicted), {counts['groupnorm_streamed']} of them streamed, "
           f"{GN_INPUTS['channels_last']} of {GN_INPUTS['calls']} inputs channels-last")
     exact = {n: counts[n] for n in EXACT_NAMES}
@@ -2137,11 +2152,13 @@ def phase_nmg_path(pipe, images, ids):
 
 
 def _one_image_path(name, pipe, images, ids, invert, edit, invert_label, packed,
-                    ctx_rows=(0, 1, 3)):
+                    ctx_rows=(0, 1, 3), gn_calls=None):
     """Drive one image through encode -> ``invert`` -> ``edit`` -> decode with
     the launch counts at 0 before and read after; ``ctx_rows`` pick [uncond,
     src, tar] of the image's token ids; ``packed``: the bounded packed
-    kernel's expected launches.  Returns (counts, failures)."""
+    kernel's expected launches, ``gn_calls`` the GroupNorm kernel's (default
+    ``GN_CALLS[name]``), each a number or a function of nothing called after
+    the run.  Returns (counts, failures)."""
     failures = []
     control, blend = (state.to("cuda") for state in _edit_control(STEPS, 8, 0))
     reset_launches()
@@ -2174,7 +2191,8 @@ def _one_image_path(name, pipe, images, ids, invert, edit, invert_label, packed,
           f"{(recon - x0).abs().max().item():.3e}")
     if tuple(out.shape) != (1, 512, 512, 3) or not finite:
         failures.append(f"{name} path output is not finite [1, 512, 512, 3]")
-    check_forward_routing(counts, name, failures, packed)
+    check_forward_routing(counts, name, failures, packed() if callable(packed) else packed,
+                          gn_calls() if callable(gn_calls) else gn_calls)
     return counts, failures
 
 
@@ -2308,6 +2326,91 @@ def phase_pnp_path(pipe, images, ids):
           f"{'OK' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"PnP injection moved the edit by {moved:.3e} of max|xts|")
+    return counts, failures
+
+
+@contextlib.contextmanager
+def adam_record():
+    """Each call of ``pnp_baselines.null_text_adam`` while open: its
+    iterations taken, one list an image, appended to the list yielded."""
+    real, taken = pnp_baselines.null_text_adam, []
+
+    def record(loss_grad, u0, **kw):
+        u, losses = real(loss_grad, u0, **kw)
+        taken.append(torch.isfinite(losses).sum(0).tolist())
+        return u, losses
+
+    with mock.patch.object(pnp_baselines, "null_text_adam", record):
+        yield taken
+
+
+def phase_nt_pnp_path(pipe, images, ids):
+    """Null-text + PnP, as ``main_plugnplay --mode nt_pnp`` runs it at its
+    defaults: the DDIM grid, the source prompt row 1 of the image's ids and
+    the target row 3, a DDIM inversion at cfg_src 1 without its residual
+    pass (the loop reads none), then 50 steps of one 1-row call
+    cond_src = eps(x_orig, t, src), up to 10 Adam iterations on the uncond
+    embedding (each a 1-row UNet forward and backward with respect to it,
+    epsilon 1e-5, lr 1e-2) and the two 2-row pair calls at cfg_tar 7.5,
+    gates 0.45 / 0.35.  Launches, with K the Adam iterations of the run (the
+    routes of ``flash_route`` and ``bwd_takes_kernels``, JAX's on the TPU):
+    the packed kernel 10 x (the inversion's 50 + 3 x 50 calls) + K, the
+    first self-attention of each gradient call coming before any
+    cross-attention, so without a gradient; the LSE forward 9 K (the other
+    self-attentions of >= 1024 tokens), the tensor-core dq and dk / dv 4 K
+    (those of 4096 tokens; the 5 of 1024 take autograd of
+    ``reference_attention``, below ``_BWD_MIN_SEQ``); GroupNorm 61 x (200 +
+    K) + 52; 2 head-split in the VAE; no float32, exact or probe kernel.
+    Then the same edit with no Adam iteration: the source branch's
+    reconstruction error max|x_orig - xts[0]| / max|xts| of both."""
+    pipe = dataclasses.replace(pipe, schedule=Schedule.create(STEPS, steps_offset=0))
+    qk_mask, conv_mask = pnp_step_gates(STEPS, PNP_ATTN_T, PNP_F_T)
+    runs = {}
+
+    def invert(pipe, x0, ctx3):
+        return invert_ddim(pipe.unet, pipe.schedule, x0, uncond_ctx=ctx3[:, 0],
+                           src_ctx=ctx3[:, 1], cfg_scale=1.0, skip_zs=True)
+
+    def edit(pipe, inv, ctx3, control, blend, optimization_steps=10):
+        edited, recon = pnp_baselines.null_text_pnp(
+            pipe.unet, pipe.schedule, inv.xts[:, STEPS], xts=inv.xts, ctx3=ctx3, cfg_tar=7.5,
+            after_skip_steps=STEPS, qk_mask=qk_mask, conv_mask=conv_mask,
+            optimization_steps=optimization_steps)
+        runs.update(inv=inv, ctx3=ctx3, recon=recon)
+        return edited, recon
+
+    with adam_record() as taken:
+        counts, failures = _one_image_path(
+            "nt_pnp", pipe, images, ids, invert, edit, f"{STEPS}-step DDIM inversion",
+            packed=lambda: 10 * (STEPS + 3 * STEPS) + sum(map(sum, taken)),
+            gn_calls=lambda: GN_CALLS["nt_pnp"](sum(map(sum, taken))))
+    K = sum(map(sum, taken))
+    per_step = [sum(n) for n in taken]
+    routed = {"flash_attention_lse": 9 * K, "flash_attention_lse_core": 0,
+              "flash_attention_lse_f32": 0, "flash_attention_lse_f32_512": 0,
+              "flash_bwd_dq": 4 * K, "flash_bwd_dkv": 4 * K, "flash_bwd_f32": 0,
+              "flash_bwd_f32_512": 0}
+    got = {n: counts[n] for n in BWD_NAMES}
+    print(f"nt_pnp path: K = {K} Adam iterations over {len(taken)} steps (fewest "
+          f"{min(per_step)}, most {max(per_step)} a step); packed-kernel launches "
+          f"{counts['flash_packed_bounded']} (predicted 10 x {4 * STEPS} + K = "
+          f"{10 * 4 * STEPS + K}); gradient launches {json.dumps(got)} (predicted 9 K LSE, "
+          f"4 K dq and dk / dv: {json.dumps(routed)})")
+    if got != routed or len(taken) != STEPS:
+        failures.append(f"the nt_pnp path's gradient kernels were not launched as predicted "
+                        f"({routed}, K = {K}): {got}")
+    inv = runs["inv"]
+    scale = inv.xts.abs().max().item()
+    err = (runs["recon"] - inv.xts[:, 0]).abs().max().item() / scale
+    with adam_record() as none:
+        edit(pipe, inv, runs["ctx3"], None, None, optimization_steps=0)
+    torch.cuda.synchronize()
+    err0 = (runs["recon"] - inv.xts[:, 0]).abs().max().item() / scale
+    ok = not none and math.isfinite(err) and math.isfinite(err0)
+    print(f"nt_pnp reconstruction: max|x_orig - xts[0]| / max|xts| {err:.3e} with the Adam "
+          f"loop, {err0:.3e} with 0 iterations (max|xts| {scale:.3e}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"nt_pnp reconstruction {err:.3e} / {err0:.3e}")
     return counts, failures
 
 
@@ -2607,6 +2710,85 @@ def phase_unet_gradient(pipe):
           f"{rel_eps:.3e}; launches with the kernels {json.dumps(counts)}, none more with the "
           f"plain versions: {substituted} {'OK' if ok else 'FAIL'}")
     return [] if ok else [f"UNet gradient relative error {rel:.3e}, launches {counts}"]
+
+
+# the float32 null-text chain, kernels against plain versions: the largest
+# relative difference of the 10 losses
+NULL_TEXT_LOSS_TOL = 1e-3
+
+
+def phase_null_text_gradient(pipe):
+    """Null-text's gradient in float32: d loss / d u of one Adam iteration
+    (``null_text_loss``, the loss of the source branch's CFG step at t = the
+    middle timestep of the DDIM grid against a stored point), the kernels
+    against the plain versions within ``UNET_GRAD_TOL``; the kernels
+    launched are the float32 LSE forward (9), the fused float32 backward (4)
+    and, for the first self-attention, before any cross-attention, the
+    float32 packed kernel (1).  Then outer step 0's whole 10-iteration Adam
+    chain both ways: the loss trajectories within ``NULL_TEXT_LOSS_TOL``
+    relative; the largest |u_opt| difference outside the set |g| <= 1e-8
+    of the first gradient printed, not held (Adam's eps turns a rounding
+    difference there into a step of O(lr))."""
+    schedule = Schedule.create(STEPS, steps_offset=0)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    x = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
+    stored = torch.randn(1, 64, 64, 4, generator=g, device="cuda")
+    ids = torch.from_numpy(_token_ids(np.random.RandomState(37), 1))
+    uncond, src = pipe.encode_token_ids(ids[0, [0, 1]]).chunk(2)
+    rows = torch.arange(1, device="cuda")
+    failures = []
+
+    def loss_grad(t):
+        with torch.no_grad():
+            cond = pipe.unet(x, t, src)
+        return pnp_baselines.null_text_loss(pipe.unet, schedule, x, t, cond, stored, 7.5)
+
+    t = int(schedule.timesteps[STEPS // 2])
+    kernels = loss_grad(t)
+    reset_launches()
+    loss_k, grad_k = kernels(uncond, rows)
+    counts = read_launches()
+    with plain_versions():
+        loss_p, grad_p = loss_grad(t)(uncond, rows)
+    torch.cuda.synchronize()
+    substituted = read_launches() == counts
+    rel = ((grad_k - grad_p).abs().max() / grad_p.abs().max()).item()
+    routed = {"flash_attention_lse_f32": 9, "flash_bwd_f32": 4, "flash_packed_bounded_f32": 1}
+    others = {n: c for n, c in counts.items() if c and n not in routed and n != "groupnorm"}
+    launched = {n: counts[n] for n in routed} == routed and not others
+    ok = rel <= UNET_GRAD_TOL and substituted and launched and bool(torch.isfinite(grad_k).all())
+    print(f"null-text gradient (f32, TF32 off, t={t}): max|du kernels - du plain| / max|du "
+          f"plain| {rel:.3e} (tol {UNET_GRAD_TOL:g}; max|du| {grad_p.abs().max().item():.3e}), "
+          f"loss {loss_k.item():.6e} / {loss_p.item():.6e}; launches {json.dumps(counts)} "
+          f"(predicted {json.dumps(routed)} and GroupNorm), none more with the plain "
+          f"versions: {substituted} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"null-text gradient relative error {rel:.3e}, launches {counts}")
+
+    t0 = time.perf_counter()
+    t = int(schedule.timesteps[0])
+    adam = dict(optimization_steps=10, lr=torch.tensor(1e-2, device="cuda"),
+                thresh=torch.tensor(1e-5, device="cuda"))
+    g0 = loss_grad(t)(uncond, rows)[1].abs()
+    u_k, losses_k = pnp_baselines.null_text_adam(loss_grad(t), uncond, **adam)
+    with plain_versions():
+        u_p, losses_p = pnp_baselines.null_text_adam(loss_grad(t), uncond, **adam)
+    torch.cuda.synchronize()
+    both = torch.isfinite(losses_k) & torch.isfinite(losses_p)
+    rel = ((losses_k - losses_p).abs() / losses_p.abs())[both].max().item()
+    live = g0 > 1e-8
+    du = (u_k - u_p).abs()
+    ok = (rel <= NULL_TEXT_LOSS_TOL and bool(both.all()) and bool(torch.isfinite(u_k).all()))
+    print(f"null-text Adam chain (f32, outer step 0, t={t}, 10 iterations, "
+          f"{time.perf_counter() - t0:.1f} s): losses {losses_k[:, 0].tolist()}; max relative "
+          f"difference kernels / plain {rel:.3e} (tol {NULL_TEXT_LOSS_TOL:g}); max|u_opt "
+          f"kernels - plain| outside |g| <= 1e-8 {du[live].max().item():.3e} "
+          f"({live.float().mean().item():.4f} of the coordinates), inside "
+          f"{du[~live].max().item() if (~live).any() else 0.0:.3e} (printed, not held) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"null-text Adam chain losses differ by {rel:.3e}")
+    return failures
 
 
 def phase_nmg_identity(pipe):
@@ -2926,6 +3108,8 @@ def main(argv=None) -> int:
     failures += bad
     pnp_counts, bad = phase_pnp_path(*inputs[:3])
     failures += bad
+    nt_pnp_counts, bad = phase_nt_pnp_path(*inputs[:3])
+    failures += bad
     vae_grad_counts, bad = phase_vae_gradient(*inputs[:2])
     failures += bad
     del inputs
@@ -2941,6 +3125,7 @@ def main(argv=None) -> int:
     vae_grad_f32_counts, bad = phase_vae_gradient_f32(pipe)
     failures += bad
     failures += phase_unet_gradient(pipe)
+    failures += phase_null_text_gradient(pipe)
     nmg_f32_counts, bad = phase_nmg_identity(pipe)
     failures += bad
     failures += phase_reconstructions(pipe)
@@ -2948,6 +3133,7 @@ def main(argv=None) -> int:
     failures += phase_pnp_identity(pipe)
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
              "ef": ef_counts, "masactrl": masactrl_counts, "pnp": pnp_counts,
+             "nt_pnp": nt_pnp_counts,
              "vae_gradient": vae_grad_counts,
              "exact_forward": exact_counts, "golden_f32": golden_counts,
              "vae_gradient_f32": vae_grad_f32_counts, "packed_bounded_f32_512": packed_512_counts,
@@ -2961,7 +3147,8 @@ def main(argv=None) -> int:
     print(f"probe kernels launched off the probes' paths: none expected, "
           f"{sum(paths[p][n] for p in paths.keys() - probe_counts.keys() for n in probe_kernels)}")
     # no bf16 path launches a float32 backward kernel
-    bf16_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "pnp", "vae_gradient")
+    bf16_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "pnp", "nt_pnp",
+                  "vae_gradient")
     fused = {p: paths[p]["flash_bwd_f32"] + paths[p]["flash_bwd_f32_512"] for p in bf16_paths}
     print(f"float32 backward kernels launched on the bf16 paths: {fused} (none expected)")
     if any(fused.values()):

@@ -1,10 +1,10 @@
 """Shared plumbing of the port's editing CLIs (port of the parts of
-``hedit_tpu/cli/common.py`` that ``main_p2p`` and ``main_masactrl`` need;
-the JAX package's ``jit_with_params`` has no counterpart: PyTorch runs
-eagerly).
+``hedit_tpu/cli/common.py`` that ``main_p2p``, ``main_masactrl``,
+``main_plugnplay`` and ``main_demo`` need; the JAX package's
+``jit_with_params`` has no counterpart: PyTorch runs eagerly).
 
-Both CLIs read one image (``--image``) or a PieBench-style mapping file,
-edit ``--data_parallel B`` images per batched run on one device (one run an
+The CLIs read one image (``--image``), a PieBench-style mapping file or (the
+demo) a demo YAML, edit ``--data_parallel B`` images per batched run on one device (one run an
 image by default), skip written outputs under ``--resume``, and run on the
 card unless ``--device cpu`` asks for the CPU.
 """
@@ -89,7 +89,19 @@ def token_ids(tokenizer, pipe, prompts, tiny: bool) -> np.ndarray:
 
 
 def out_path(out_dir: str, item) -> str:
-    return os.path.join(out_dir, os.path.basename(item["image_path"]).rsplit(".", 1)[0] + ".png")
+    """``<out_dir>/<name>.png``: the sample's ``out_name`` where it has one, else
+    its image's basename (``hedit_tpu/cli/main_p2p.py:_sample_out_path``)."""
+    name = item.get("out_name") or os.path.basename(item["image_path"]).rsplit(".", 1)[0]
+    return os.path.join(out_dir, name + ".png")
+
+
+def result_dir_name(mode: str, args, extra: str = "") -> str:
+    """``<mode>_total_steps_<N>_skip_<S>[_<extra>]``: the hyperparameters in
+    the output directory's name (``hedit_tpu/cli/common.py:result_dir_name``)."""
+    parts = [mode, f"total_steps_{args.num_diffusion_steps}", f"skip_{args.skip}"]
+    if extra:
+        parts.append(extra)
+    return "_".join(parts)
 
 
 def run_batches(args, samples, out_dir: str, edit_batch) -> int:

@@ -13,9 +13,12 @@ the first ``int(N * pnp_f_t)`` editing steps and its self-attention q / k
 over the first ``int(N * pnp_attn_t)``.  The h-Edit modes index their source
 branch from the inversion's trajectory; EF / PnP-Inv + PnP derive the
 inversion's residuals in the loop where they can (cfg_src 1 or a DDIM
-inversion), and then, like NMG and negative-prompt + PnP, which read none,
-run the inversion without its residual pass.  ``nt_pnp`` (null-text + PnP)
-is not ported yet and raises ``NotImplementedError``.
+inversion), and then, like NMG, null-text and negative-prompt + PnP, which
+read none, run the inversion without its residual pass (the JAX CLI runs it
+for ``nmg_pnp``, ``nt_pnp`` and ``np_pnp`` and drops its residuals).
+``nt_pnp`` runs ``null_text_pnp`` at its defaults (up to 10 Adam iterations a
+step, epsilon 1e-5, lr 1e-2), as the JAX CLI passes no
+``--optimization_steps`` to it.
 
 ``--data_parallel B`` edits B images per UNet call on one device, with one
 fixed generator an image, so the outputs are those of one run an image.  It
@@ -105,7 +108,7 @@ def edit_batch(args, pipe, batch, img_size, tokenizer):
                                     args.tiny) for _, it in batch])
     ctx3 = pipe.encode_token_ids(ids).reshape(len(batch), 3, 77, -1)
     unc, src = ctx3[:, 0], ctx3[:, 1]
-    skip_zs = derive or args.mode in ("nmg_pnp", "np_pnp")
+    skip_zs = derive or args.mode in ("nmg_pnp", "nt_pnp", "np_pnp")
     if is_ddim:
         inv = invert_ddim(pipe.unet, pipe.schedule, x0s, uncond_ctx=unc, src_ctx=src,
                           cfg_scale=args.cfg_src, step_chunk=args.step_chunk, skip_zs=skip_zs)
@@ -132,6 +135,9 @@ def edit_batch(args, pipe, batch, img_size, tokenizer):
     elif args.mode == "nmg_pnp":
         edited, _ = pnp_baselines.nmg_pnp_loop(pipe.unet, pipe.schedule, xts=xts, ctx3=ctx3,
                                                cfg_tar=args.cfg_tar, **gates)
+    elif args.mode == "nt_pnp":
+        edited, _ = pnp_baselines.null_text_pnp(pipe.unet, pipe.schedule, xT, xts=xts, ctx3=ctx3,
+                                                cfg_tar=args.cfg_tar, **gates)
     else:
         edited, _ = pnp_baselines.negative_prompt_pnp(pipe.unet, pipe.schedule, xT, ctx3=ctx3,
                                                       cfg_tar=args.cfg_tar, **gates)
@@ -140,9 +146,6 @@ def edit_batch(args, pipe, batch, img_size, tokenizer):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode == "nt_pnp":
-        raise NotImplementedError("nt_pnp (null-text + PnP) is not ported to the PyTorch "
-                                  "package yet")
     from hedit_tpu_torch.models.tokenizer import CLIPTokenizer
 
     pipe = build_pipeline(args, steps_offset=0 if is_ddim_mode(args) else 1)

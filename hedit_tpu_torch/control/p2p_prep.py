@@ -13,14 +13,22 @@ Behaviour parity:
   the reference's ``p2p/ptp_utils.py:297-355``;
 * ``get_equalizer``: ``p2p/ptp_controller_utils.py:92-104``.
 
-The JAX package's optional native aligner and its blend-word heuristic
-(``preprocess_blend_and_eq``, used by the demo CLI) are not carried over: the
-alignment here is the NumPy one, with the same tie-break order.
+* the demo CLI's blend-word / equalizer heuristic (difflib word diff),
+  ``preprocess_blend_and_eq``: ``p2p/ptp_controller_utils.py:13-90``.  Words
+  come from nltk's punkt tokenizer where nltk and its data are installed, else
+  from the regex that JAX's copy falls back on; this copy also takes the regex
+  where nltk itself is missing (JAX's catches only the missing data), so the
+  CLI runs where there is no nltk.
+
+The JAX package's optional native aligner is not carried over: the alignment
+here is the NumPy one, with the same tie-break order.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import difflib
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -212,3 +220,50 @@ def get_equalizer(
         inds = get_word_inds(text, word, tokenizer)
         eq[inds] = val
     return eq
+
+
+# ------------------------------------------------------- blend-word heuristic #
+
+def _word_tokenize(text: str) -> List[str]:
+    try:
+        from nltk.tokenize import word_tokenize
+
+        return word_tokenize(text)
+    except (ImportError, LookupError):  # no nltk, or no punkt data
+        return re.findall(r"\w+|[^\w\s]", text)
+
+
+def preprocess_blend_and_eq(
+    src_prompt: str,
+    tar_prompt: str,
+    *,
+    eq_value: float = 1.5,
+    is_global_edit: bool = True,
+) -> Tuple[Optional[Tuple], Optional[Dict]]:
+    """difflib word-diff heuristic -> (blend_word, eq_params)
+    (``ptp_controller_utils.py:13-52``; eq_value 1.25 variant at :54-90)."""
+    src_words = _word_tokenize(src_prompt)
+    trg_words = _word_tokenize(tar_prompt)
+    matcher = difflib.SequenceMatcher(None, src_words, trg_words)
+    src_text, trg_text = [], []
+    for tag, i1, i2, j1, j2 in matcher.get_opcodes():
+        if tag == "replace":
+            src_text.extend(src_words[i1:i2])
+            trg_text.extend(trg_words[j1:j2])
+        elif tag == "insert":
+            trg_text.extend(trg_words[j1:j2])
+        elif tag == "delete":
+            src_text.extend(src_words[i1:i2])
+    src_text, trg_text = " ".join(src_text), " ".join(trg_text)
+
+    if len(src_text) == 0 or len(trg_text) == 0 or not is_global_edit:
+        blend_word = None
+    else:
+        blend_word = ((src_text,), (trg_text,))
+    words_to_focus = trg_text.split()
+    eq_params = (
+        {"words": tuple(words_to_focus), "values": tuple(eq_value for _ in words_to_focus)}
+        if words_to_focus
+        else None
+    )
+    return blend_word, eq_params

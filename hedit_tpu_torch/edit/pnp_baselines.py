@@ -1,6 +1,5 @@
 """Baseline editing methods under Plug-and-Play injection, batched over
-images (port of ``hedit_tpu/edit/pnp_baselines.py``, null-text + PnP
-excepted).
+images (port of ``hedit_tpu/edit/pnp_baselines.py``).
 
 Semantics of the reference's ``inversion/pnp_baselines.py``.  Each step's
 pair call holds 2 rows an image, [x_orig, x_edit] under [src, tar], with the
@@ -17,6 +16,10 @@ latents are NHWC [B, H, W, C]; the gates are ``pnp_step_gates``'s, unshifted
 * ``nmg_pnp_loop`` (:32-126): the NMG gradient step on the reconstruction
   branch (``nmg_gradient``, the gradient through the UNet), then the PnP pair
   step, eta = 0, the target cfg scale on both rows.
+* ``null_text_pnp`` (:130-238): a step's Adam loop (``null_text_adam``, up to
+  10 iterations, each a one-row UNet forward and backward with respect to the
+  uncond embedding) pulls the source branch's CFG step onto the stored
+  x_{t-1}^orig, then the pair step with the optimised embedding as uncond.
 * ``negative_prompt_pnp`` (:244-309): the pair step with the source prompt as
   the "uncond" context.
 """
@@ -41,9 +44,14 @@ def _gates(qk_mask: Sequence[bool], conv_mask: Sequence[bool], N: int):
     return [bool(g) for g in qk_mask], [bool(g) for g in conv_mask]
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, or in float64 where it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _pairs(eps: torch.Tensor) -> torch.Tensor:
-    """[2B, ...] UNet output -> float32 [B, 2, ...]"""
-    return eps.float().reshape(-1, 2, *eps.shape[1:])
+    """[2B, ...] UNet output -> [B, 2, ...] in float32 (float64 kept)"""
+    return _wide(eps).reshape(-1, 2, *eps.shape[1:])
 
 
 def _pnp_pair_eps(unet, x_orig, x_edit, t, ctx3, cfg_tar: float, qk_on: bool, conv_on: bool,
@@ -153,6 +161,114 @@ def nmg_pnp_loop(unet, schedule: Schedule, *, xts: torch.Tensor, ctx3: torch.Ten
         eps_nmg = eps_u + guidance_noise_map * (eps_cond - eps_u)
         x_orig = schedule.reverse_step(eps_nmg, t, x_orig, eta=0.0)
         eps_src, eps_tar = _pnp_pair_eps(unet, x_orig, x_edit, t, ctx3, cfg_tar, qk[i], conv[i])
+        x_orig, x_edit = (schedule.reverse_step(eps_src, t, x_orig, eta=0.0),
+                          schedule.reverse_step(eps_tar, t, x_edit, eta=0.0))
+    return x_edit, x_orig
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def null_text_adam(loss_grad, u0: torch.Tensor, *, optimization_steps: int, lr: torch.Tensor,
+                   thresh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Null-text's Adam loop over B images' uncond embeddings u0 [B, 77, D],
+    JAX's rule (``hedit_tpu/edit/pnp_baselines.py:195-227``): iteration j takes
+    the loss and its gradient at u_j, applies the update (b1 0.9, b2 0.999,
+    eps 1e-8, bias correction at j + 1), and only then stops if that loss was
+    under ``thresh``: the stopping iteration's update lands.  Each image stops
+    on its own loss; a stopped image keeps its u and Adam state and leaves the
+    later iterations' calls, so an image's result does not depend on the batch
+    it runs in.
+
+    loss_grad(u, rows) -> (loss [n], d loss / d u [n, 77, D]) of the images
+    ``rows`` (an index tensor) at their embeddings u.  lr, thresh: float32
+    scalars, which JAX computes from the step index in float32.
+
+    Dtypes are JAX's: u, m and v take u0's dtype (float32 under the CLIs'
+    default, bfloat16 under ``--bf16``: the text model's output), and so do
+    Adam's constants, which JAX takes as weak types, so m, v and their bias
+    corrections are computed in u0's dtype.  ``lr * mhat / (sqrt(vhat) +
+    eps)`` is float32 (or float64) as in JAX, whose float32 ``lr`` promotes
+    it.  Under ``--bf16`` JAX's while_loop refuses that float32 update of its
+    bfloat16 carry (a TypeError: the carry changes dtype); the port keeps the
+    carry's dtype and rounds the updated u to bfloat16.
+
+    Returns (u_opt, losses [optimization_steps, B]: each iteration's loss, NaN
+    where the image had stopped)."""
+    B = u0.shape[0]
+    u = u0.clone()
+    m, v = torch.zeros_like(u0), torch.zeros_like(u0)
+    wide = torch.promote_types(u.dtype, torch.float32)
+    c = lambda s: torch.tensor(s, dtype=u.dtype, device=u.device)  # noqa: E731
+    losses = torch.full((optimization_steps, B), float("nan"), dtype=torch.float64)
+    active = torch.arange(B, device=u.device)
+    for j in range(optimization_steps):
+        if active.numel() == 0:
+            break
+        loss, g = loss_grad(u[active], active)
+        m_a = c(ADAM_B1) * m[active] + c(1 - ADAM_B1) * g
+        v_a = c(ADAM_B2) * v[active] + c(1 - ADAM_B2) * g * g
+        mhat = m_a / c(1 - ADAM_B1 ** (j + 1))
+        vhat = v_a / c(1 - ADAM_B2 ** (j + 1))
+        step = lr.to(wide) * mhat.to(wide) / (torch.sqrt(vhat) + c(ADAM_EPS)).to(wide)
+        u[active] = (u[active].to(wide) - step).to(u.dtype)
+        m[active], v[active] = m_a, v_a
+        losses[j, active.cpu()] = loss.detach().double().cpu()
+        active = active[~(loss < thresh)]
+    return u, losses
+
+
+def null_text_loss(unet, schedule: Schedule, x: torch.Tensor, t: int, cond_src: torch.Tensor,
+                   target: torch.Tensor, cfg_tar: float):
+    """``null_text_adam``'s loss_grad at step t: per image, mean((reverse_step(
+    eps_u + cfg_tar (cond_src - eps_u), t, x, eta=0) - target)^2) with eps_u the
+    UNet at x under the embedding u, and its gradient with respect to u, from
+    one UNet forward and backward of the images' rows."""
+    def loss_grad(u, rows):
+        with torch.enable_grad():
+            leaf = u.detach().requires_grad_(True)
+            eps = cfg_pair(_wide(unet(x[rows], t, leaf)), cond_src[rows], cfg_tar)
+            pred = schedule.reverse_step(eps, t, x[rows], eta=0.0)
+            loss = ((pred - target[rows]) ** 2).mean(dim=(1, 2, 3))
+            grad, = torch.autograd.grad(loss.sum(), leaf)
+        return loss.detach(), grad
+    return loss_grad
+
+
+@torch.no_grad()
+def null_text_pnp(unet, schedule: Schedule, xT: torch.Tensor, *, xts: torch.Tensor,
+                  ctx3: torch.Tensor, cfg_tar: float, after_skip_steps: int,
+                  qk_mask: Sequence[bool], conv_mask: Sequence[bool],
+                  optimization_steps: int = 10, epsilon: float = 1e-5, lr_base: float = 1e-2
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Null-text + PnP for B images from xT [B, H, W, C] (a DDIM inversion's
+    end), eta = 0 throughout.
+
+    xts: [B, S+1, H, W, C] the inversion's trajectories, S = after_skip_steps;
+    step i's target is x_{t-1}^orig = xts[:, S-1-i].  Step i: one uncontrolled
+    1-row call cond_src = eps(x_orig, t, src); ``null_text_adam`` from the
+    uncond embedding at lr = lr_base (1 - i/100) and threshold epsilon +
+    i 2e-5 (both float32, as in JAX), the target cfg scale in the loss; then
+    the pair step with the optimised embedding as uncond on both rows.
+    Returns (x_edit, x_orig), float32 (float64 kept)."""
+    S = after_skip_steps
+    B = _check_batch(xT, None, ctx3, S)
+    if xts.shape[:2] != (B, S + 1):
+        raise ValueError(f"xts {tuple(xts.shape)} does not hold {S} steps for {B} images")
+    qk, conv = _gates(qk_mask, conv_mask, S)
+    x_orig = x_edit = _wide(xT)
+    xts = xts.to(x_orig.dtype)
+    for i, t in enumerate(schedule.timesteps[-S:].tolist()):
+        u_opt = ctx3[:, 0]
+        if optimization_steps > 0:
+            step = torch.tensor(float(i), dtype=torch.float32, device=xT.device)
+            cond_src = _wide(unet(x_orig, t, ctx3[:, 1]))
+            u_opt, _ = null_text_adam(
+                null_text_loss(unet, schedule, x_orig, t, cond_src, xts[:, S - 1 - i], cfg_tar),
+                u_opt, optimization_steps=optimization_steps,
+                lr=lr_base * (1.0 - step / 100.0), thresh=epsilon + step * 2e-5)
+        eps_src, eps_tar = _pnp_pair_eps(unet, x_orig, x_edit, t, ctx3, cfg_tar, qk[i], conv[i],
+                                         uncond=u_opt)
         x_orig, x_edit = (schedule.reverse_step(eps_src, t, x_orig, eta=0.0),
                           schedule.reverse_step(eps_tar, t, x_edit, eta=0.0))
     return x_edit, x_orig

@@ -3,13 +3,14 @@ needs from ``hedit_tpu/io_utils/images.py``).
 
 Parity: ``*/utils/utils.py`` of the reference and ``p2p/ptp_classes.py:351-372``
 (load_512: centre-crop to a square, resize to 512, scale to [-1, 1]).  Needs
-PIL, so only the CLI imports this module.
+PIL, so only the CLI imports this module; ``dataset_from_yaml`` imports PyYAML
+when it is called.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 from PIL import Image
@@ -50,3 +51,10 @@ def to_pil(x: np.ndarray) -> Image.Image:
 def dataset_from_json(path: str) -> Dict:
     with open(path) as f:
         return json.load(f)
+
+
+def dataset_from_yaml(path: str) -> List[Dict]:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)

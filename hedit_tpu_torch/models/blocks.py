@@ -31,15 +31,15 @@ from hedit_tpu_torch.ops.attention import controlled_attention
 from hedit_tpu_torch.ops.groupnorm import FusedGroupNorm
 
 
-def timestep_embedding(timesteps: torch.Tensor, dim: int,
-                       max_period: float = 10000.0) -> torch.Tensor:
-    """Sinusoidal embedding in float32, [cos, sin] (diffusers
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sinusoidal embedding computed in ``dtype``, [cos, sin] (diffusers
     ``get_timestep_embedding`` with SD-1.x's flip_sin_to_cos=True and
-    freq_shift=0); dim is even."""
+    freq_shift=0); dim is even.  float32 for every model but a float64 one,
+    whose sinusoid JAX's UNet computes in float64."""
     half = dim // 2
-    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
-                                                    device=timesteps.device)
-    emb = timesteps.float()[:, None] * torch.exp(exponent / half)[None, :]
+    exponent = -math.log(max_period) * torch.arange(half, dtype=dtype, device=timesteps.device)
+    emb = timesteps.to(dtype)[:, None] * torch.exp(exponent / half)[None, :]
     return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
 
 

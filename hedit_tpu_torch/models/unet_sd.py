@@ -160,7 +160,8 @@ class UNet2DCondition(nn.Module):
         dtype = self.conv_in.weight.dtype
         b = sample.shape[0]
         t = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
-        temb = timestep_embedding(t, cfg.block_out_channels[0])
+        temb = timestep_embedding(t, cfg.block_out_channels[0], dtype=torch.float64
+                                  if dtype == torch.float64 else torch.float32)
         temb = self.time_embedding(temb.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
 

@@ -4,7 +4,8 @@ tiny models: ``PnPControl`` (``map_qkv`` on every attention layer,
 hook, the loops ``h_edit_pnp`` (R and D), ``ef_or_pnp_inv_w_pnp`` (EF and
 PnP-Inv, residuals derived in the loop), ``negative_prompt_pnp`` and
 ``nmg_pnp_loop``, and ``python -m hedit_tpu_torch.cli.main_plugnplay`` in
-every mode, batched (``--data_parallel 2``) and one image a run.
+every mode, batched (``--data_parallel 2``) and one image a run
+(``null_text_pnp`` itself is held to JAX's in ``test_torch_null_text_pnp.py``).
 
 The loops run on numpy-seeded trajectories, residuals and contexts at the
 tiny UNet's 16x16 latents, with gates that switch off mid-loop, so that
@@ -353,28 +354,44 @@ CLI_LOOPS = {"h_edit_R_pnp": (h_edit_ctrl, "h_edit_pnp"),
              "ef_pnp": (pnp_baselines, "ef_or_pnp_inv_w_pnp"),
              "pnp_inv_w_pnp": (pnp_baselines, "ef_or_pnp_inv_w_pnp"),
              "np_pnp": (pnp_baselines, "negative_prompt_pnp"),
-             "nmg_pnp": (pnp_baselines, "nmg_pnp_loop")}
+             "nmg_pnp": (pnp_baselines, "nmg_pnp_loop"),
+             "nt_pnp": (pnp_baselines, "null_text_pnp")}
+
+
+# nt_pnp's batched and one-an-image PNGs differ by more than rounding: the CPU
+# convolutions round differently at batch 2 and 1, and Adam's eps turns such a
+# difference at a coordinate whose gradient is near 0 into a step of O(lr)
+# there, every iteration.  Measured over 1, 2, 4 and 8 CPU threads: at most
+# 9-32 levels, 0.5-4.5 on the mean (8 threads vary run to run).  In float64,
+# where the convolutions round alike, the loop is batch-independent bit for
+# bit (test_torch_null_text_pnp.py).  (max, mean) in levels of 255:
+BATCH_LEVELS = {"nt_pnp": (64, 8)}
 
 
 def test_main_plugnplay_runs_every_mode(data_dir, tmp_path, monkeypatch):
-    """The CLI with ``--tiny --device cpu`` over two images, in every mode
-    but ``nt_pnp``, in the directory the JAX CLI names:
+    """The CLI with ``--tiny --device cpu`` over two images, in every mode,
+    in the directory the JAX CLI names:
 
     * ``--data_parallel 2`` against one run an image: the same PNGs within 2
       of 255 levels (the batch size the CPU convolutions see, then the PNG's
-      rounding; one fixed generator an image);
+      rounding; one fixed generator an image), ``nt_pnp`` within
+      ``BATCH_LEVELS``;
     * the loop it runs is the JAX CLI's with the JAX CLI's arguments: the
       gates of ``pnp_step_gates(N, 0.35, 0.45)``, unshifted; the DDIM grid
       (no step offset) and eta 1 with ``is_ddim_inversion`` in the D,
       PnP-Inv, NMG and negative-prompt modes; the residuals derived in the
       loop (``derive_zs``) in EF / PnP-Inv, whose inversion then makes no
-      residual pass; the source prompt read from ``original_prompt``.
-      ``test_pnp_loops_match_jax`` holds those loops to the JAX scans."""
+      residual pass; null-text at its defaults (no ``optimization_steps``
+      passed: 10 Adam iterations at most), from the trajectory's end; the
+      source prompt read from ``original_prompt``; the edit finite.
+      ``test_pnp_loops_match_jax`` and ``test_torch_null_text_pnp.py`` hold
+      those loops to the JAX scans."""
     calls, current = {}, []
     for module, name in set(CLI_LOOPS.values()):
         def spy(*args, _real=getattr(module, name), **kw):
-            calls.setdefault(current[-1], []).append((args, kw))
-            return _real(*args, **kw)
+            out = _real(*args, **kw)
+            calls.setdefault(current[-1], []).append((args, kw, out))
+            return out
 
         monkeypatch.setattr(module, name, spy)
     for mode in CLI_LOOPS:
@@ -392,10 +409,12 @@ def test_main_plugnplay_runs_every_mode(data_dir, tmp_path, monkeypatch):
         for a, b in zip(two, one):
             pa, pb = (np.asarray(Image.open(p)).astype(np.int32) for p in (a, b))
             assert pa.shape == (64, 64, 3) and pa.std() > 0
-            assert np.abs(pa - pb).max() <= 2, mode
+            most, mean = BATCH_LEVELS.get(mode, (2, 2))
+            assert np.abs(pa - pb).max() <= most and np.abs(pa - pb).mean() <= mean, mode
 
-        args, kw = calls[mode][0]
+        args, kw, _ = calls[mode][0]
         assert len(calls[mode]) == 3
+        assert all(bool(torch.isfinite(out[0]).all()) for *_, out in calls[mode])
         assert kw["ctx3"].shape[0] == 2
         sched = args[1]
         assert sched.timesteps.tolist() == JSchedule.create(
@@ -413,6 +432,8 @@ def test_main_plugnplay_runs_every_mode(data_dir, tmp_path, monkeypatch):
             assert args[3] is None                           # no residual pass
         elif mode == "nmg_pnp":
             assert kw["cfg_tar"] == 7.5 and kw["xts"].shape[1] == STEPS + 1
+        elif mode == "nt_pnp":
+            assert kw["cfg_tar"] == 7.5 and len(args) == 3 and "optimization_steps" not in kw
         else:
             assert kw["cfg_tar"] == 7.5 and len(args) == 3    # xT only
         if len(args) > 2 and "xts" in kw:                    # xT is the trajectory's end
@@ -420,14 +441,3 @@ def test_main_plugnplay_runs_every_mode(data_dir, tmp_path, monkeypatch):
             np.testing.assert_array_equal(kw["xts"][:, STEPS].numpy(), args[2].numpy())
     assert main_plugnplay.derives_zs(main_plugnplay.parse_args(
         ["--mode", "ef_pnp", "--cfg_src", "2"])) is False
-
-
-def test_nt_pnp_is_refused_before_a_pipeline(monkeypatch, tmp_path):
-    """``nt_pnp`` stays among the modes and raises, naming null-text + PnP,
-    before any pipeline is built."""
-    assert "nt_pnp" in main_plugnplay.MODES
-    monkeypatch.setattr(main_plugnplay, "build_pipeline",
-                        lambda *a, **k: pytest.fail("a pipeline was built"))
-    with pytest.raises(NotImplementedError, match="null-text"):
-        main_plugnplay.main(["--mode", "nt_pnp", "--tiny", "--device", "cpu",
-                             "--output_path", str(tmp_path)])

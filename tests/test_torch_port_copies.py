@@ -1,11 +1,13 @@
 """The port imports nothing of the JAX package: a source scan of every file of
 the port, and the port's own copies of the JAX package's framework-free
-modules (tokenizer, P2P preprocessing, weight-key mapping, safetensors
-reader, image I/O) held to the originals on the same inputs.
+modules (tokenizer, P2P preprocessing and the demo's blend-word heuristic,
+weight-key mapping, safetensors reader, image I/O and the demo YAML reader)
+held to the originals on the same inputs.
 """
 
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -80,11 +82,25 @@ def test_tokenizer_matches(toks):
 @pytest.mark.parametrize("src,tar", [
     ("a photo of a green lizard on a rock", "a photo of a brown lizard on a rock"),
     ("a cat sitting on a bench", "a fluffy orange cat sitting on a wooden bench"),
+    ("a fluffy orange cat sitting on a wooden bench", "a cat sitting on a bench"),
+    ("a photo of a green lizard on a rock", "a photo of a green lizard on a rock"),
 ])
-def test_p2p_prep_matches(toks, src, tar):
+def test_p2p_prep_matches(toks, src, tar, monkeypatch):
     """Mappers, alphas, equalizer and word indices of the own copy against
-    the JAX package's (whose aligner may be the native one: same tie-break)."""
+    the JAX package's (whose aligner may be the native one: same tie-break),
+    and the demo's blend-word heuristic on a replace, an insert, a delete and
+    no difference, with nltk as it is installed and with no nltk at all
+    (where the JAX copy raises; this one takes the regex that JAX's takes
+    without punkt's data)."""
     tok, jtok = toks
+    for kw in ({}, {"eq_value": 1.25}, {"is_global_edit": False}):
+        want = j_prep.preprocess_blend_and_eq(src, tar, **kw)
+        assert p2p_prep.preprocess_blend_and_eq(src, tar, **kw) == want
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "nltk.tokenize", None)
+            assert p2p_prep.preprocess_blend_and_eq(src, tar, **kw) == want
+    blend, _ = p2p_prep.preprocess_blend_and_eq(src, tar)
+    assert (blend is None) == (src == tar or "fluffy" in src or "fluffy" in tar)
     prompts = [src, tar]
     for a, b in zip(p2p_prep.get_refinement_mapper(prompts, tok),
                     j_prep.get_refinement_mapper(prompts, jtok)):
@@ -153,3 +169,21 @@ def test_image_io_matches(tmp_path):
     got, want = images.load_image(path, size=32), j_images.load_image(path, size=32)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(np.asarray(images.to_pil(got)), np.asarray(j_images.to_pil(want)))
+
+
+def test_dataset_from_yaml_matches(tmp_path):
+    """The demo YAML reader on a YAML written here: entries with and without a
+    blend word, an image path with a leading slash, the reference's keys."""
+    path = tmp_path / "demo.yaml"
+    path.write_text("- image: /lizard.jpg\n"
+                    "  source_prompt: a photo of a green lizard on a rock\n"
+                    "  target_prompt: a photo of a brown lizard on a rock\n"
+                    "  blended_word: lizard lizard\n"
+                    "  editing_instruction: make the lizard brown\n"
+                    "- image: /cat.png\n"
+                    "  source_prompt: a cat sitting on a bench\n"
+                    "  target_prompt: a dog sitting on a bench\n"
+                    "  blended_word: ''\n")
+    got = images.dataset_from_yaml(str(path))
+    assert got == j_images.dataset_from_yaml(str(path))
+    assert [item["image"] for item in got] == ["/lizard.jpg", "/cat.png"]
