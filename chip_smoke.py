@@ -1,6 +1,6 @@
 """End-to-end smoke of the PyTorch port on one CUDA GPU (an NVIDIA H100).
 
-    python3 chip_smoke.py              # the smoke, phases 1-19
+    python3 chip_smoke.py              # the smoke, phases 1-18
     python3 chip_smoke.py --profile    # where a flagship step's time goes
 
 Phases, each printed on its own lines; any failure exits non-zero without
@@ -66,7 +66,8 @@ the final result line:
    two-kernel wrappers).  Then GroupNorm + SiLU
    (``csrc/group_norm.cu``) on channels-last inputs at every GroupNorm shape
    of the paths' table (``GN_SHAPES``), bf16 and float32, eps 1e-5 and
-   1e-6, with its regime and cluster, two launches bit-identical, a float32
+   1e-6, and at the face DDPM's largest shapes (``FACE_GN_SHAPES``), with its
+   regime and cluster, two launches bit-identical, a float32
    input at 1e3 + N(0, 1) against the float64 function, its refusals, and
    its gradient (dx channels-last);
 4. the probes (TPU kernels 10, 11, 8, 9 and 12): the three bounded forwards
@@ -188,7 +189,26 @@ the final result line:
     source = the empty prompt and cfg_tar == cfg_src_edit returns xts[0];
     h-Edit-R + PnP at its default gates with target = source and
     cfg_tar == cfg_src_edit == 5 likewise, on the float32 packed kernel;
-17. a JSON line of the kernels (each with its launches on its path: rows 1
+17. the face paths, as ``main_face --mode h_edit_R`` and ``--mode ef`` run
+    them at their defaults: the CelebA-HQ DDPM UNet (256x256, ch 128) and
+    the full IR-SE-50, VGG16-LPIPS and face-parser critics with seeded
+    weights in float32, two seeded 256x256 images; the SDE inversion (100
+    calls of 1 row), the 100-step loop (h-Edit-R: 3 optimisation steps of
+    the ID and LPIPS losses, each with its eps at t-1; EF: the gradients
+    through the UNet, one forward a step), the parser's mask blend and the
+    cosine similarity; checks a finite [1, 256, 256, 3] output, the
+    GroupNorm kernel's launches (71 a DDPM forward, 21 of them streamed,
+    every input channels-last) and no other kernel; then the same edits
+    without losses: the critics moved the edit by more than 1e-2 of max|x0|;
+    then one DDPM forward and its gradient with respect to x, the kernel
+    against the plain GroupNorm; then the reconstruction identities in
+    float32 with the kernel: each of the 100 base steps from the stored
+    trajectory lands on the next stored x, and h-Edit-R and EF without
+    losses over the last 20 steps (``--skip 80``) return xts[0] and xts[1],
+    all within 1e-3 of max|x0| (over all 100 steps the seeded model
+    amplifies rounding ~1.17x a step, so the whole-loop drift is printed,
+    not held);
+18. a JSON line of the kernels (each with its launches on its path: rows 1
     and 1p, the tensor-core kernel, and row 2 in both its regimes on the
     flagship path, rows 1p (the float32 kernel) and 1 (the float32 d = 512
     kernel) on the float32 golden path, row 3 on the float32 d = 512 kernel
@@ -255,6 +275,11 @@ from hedit_tpu_torch.ops import flash_probes as fp  # noqa: E402
 from hedit_tpu_torch.ops import groupnorm as gn  # noqa: E402
 from hedit_tpu_torch.ops import mm_probe as mp  # noqa: E402
 from hedit_tpu_torch.pipelines.sd import create_sd_pipeline  # noqa: E402
+from hedit_tpu_torch.edit.face_swap import ef_face, face_base_step, h_edit_r_face  # noqa: E402
+from hedit_tpu_torch.invert.sde import invert_sde, next_timesteps  # noqa: E402
+from hedit_tpu_torch.models.arcface import cosine_sim  # noqa: E402
+from hedit_tpu_torch.pipelines.face import create_face_pipeline  # noqa: E402
+from hedit_tpu_torch.rewards.face_mask import build_face_mask  # noqa: E402
 from hedit_tpu_torch.probes.timing import cuda_graph_ms, cuda_ms  # noqa: E402
 
 STEPS = 50
@@ -1361,10 +1386,16 @@ def _f32_bwd_refusals(g, failures):
 # Every GroupNorm shape of the paths' table (PERF.md section 6, row 2): the
 # controlled and base calls' 320-channel levels, up_blocks[3]'s and [2]'s
 # norm1, the bottom levels, the VAE's mid block and its two largest levels
-# (streamed; the full resolution first, the kernels line's shape)
+# (streamed; the full resolution first, the kernels line's shape); then the
+# face DDPM's (eps 1e-6 there): the loop's 256x256 levels at 256 and 128
+# channels (the loops' and the inversion's 1-row calls), JAX's 10-row
+# inversion chunk (streamed), and the bottom level's 1024-channel
+# concatenation at 8x8
 GN_SHAPES = ((8, 320, 64, 64), (2, 320, 64, 64), (8, 960, 64, 64), (8, 640, 64, 64),
              (8, 1920, 32, 32), (8, 1280, 8, 8), (8, 2560, 8, 8), (2, 512, 64, 64),
              (2, 128, 512, 512), (2, 256, 256, 256))
+FACE_GN_SHAPES = ((1, 256, 256, 256), (1, 128, 256, 256), (10, 256, 256, 256),
+                  (1, 1024, 8, 8))
 
 
 def _gn_inputs(g, shape, dtype, scale=2.0, offset=0.5):
@@ -1393,7 +1424,7 @@ def _groupnorm_cases(g, rows, failures):
     same input values."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in GN_SHAPES:
+        for shape in GN_SHAPES + FACE_GN_SHAPES:
             bsz, c, h, w_ = shape
             tile = gn.plan(bsz, h * w_, c, 32, dtype.itemsize, sms)
             for eps in (1e-5, 1e-6):
@@ -1431,7 +1462,7 @@ def _groupnorm_cases(g, rows, failures):
                      plain_ms=cuda_graph_ms(lambda: gn.group_norm_reference(x, w, b, **call)),
                      library_ms=cuda_graph_ms(lambda: F.silu(F.group_norm(x, 32, w, b, eps))),
                      bound_ms=bound_ms, bound_by=by, regime=tile.regime, cluster=tile.cluster,
-                     cb=tile.cb, shape=list(shape), **extra)
+                     cb=tile.cb, shape=list(shape), dtype=str(dtype)[6:], eps=eps, **extra)
                 del x, got, again, want
     # cancellation: x = 1e3 + N(0, 1) in float32, against the float64
     # function.  A float32 mean near 1e3 can be no closer to the exact one
@@ -2952,6 +2983,218 @@ def phase_pnp_identity(pipe):
     return [] if ok else [f"PnP identity error {err:.3e}"]
 
 
+# The face-swapping paths (``main_face`` at its defaults): the CelebA-HQ DDPM
+# at 256x256 in float32, 100 steps, the SDE inversion 1 row a UNet call.
+FACE_STEPS = 100
+FACE_CHUNK = 1
+# The loops without losses over the last FACE_TAIL steps (``--skip 80``).
+FACE_TAIL = 20
+FACE_K = 3
+FACE_WEIGHT = 50.0
+# GroupNorm calls of one DDPM forward: 2 in each of 32 resnets, 1 in each of
+# 6 attention blocks, norm_out; 21 of them at the 256x256 and 128x128 levels
+# (128, 256 and 384 channels), which the kernel streams
+FACE_GN, FACE_GN_STREAMED = 71, 21
+# The critics must move the edit: max|edit - the same edit without losses|
+# over max|x0| above this.
+FACE_CONTRAST = 1e-2
+# One DDPM forward and its gradient with respect to x, kernel against the
+# plain GroupNorm, float32: relative to the largest element.
+FACE_EPS_TOL, FACE_GRAD_TOL = 1e-5, 1e-4
+
+
+def _face_inputs():
+    """The face pipeline at full width (the CelebA-HQ DDPM, IR-SE-50,
+    LPIPS-VGG, the parser) with seeded weights, float32, and two seeded
+    256x256 images, ref and source."""
+    t0 = time.perf_counter()
+    pipe = create_face_pipeline(num_inference_steps=FACE_STEPS, seed=0, device="cuda")
+    hook_groupnorm(pipe.unet)
+    g = torch.Generator(device="cuda").manual_seed(30)
+    ref, src = (torch.rand(1, 256, 256, 3, generator=g, device="cuda") * 2 - 1
+                for _ in range(2))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # first calls outside the paths' times: a 1-row forward and gradient
+    # through the UNet and both critics
+    x = src.clone().requires_grad_()
+    loss = (pipe.id_loss_fn(ref)(x) + pipe.lpips_loss_fn(src)(x)
+            + pipe.unet(x, int(pipe.schedule.timesteps[0])).sum())
+    torch.autograd.grad(loss, x)
+    pipe.parse(src)
+    torch.cuda.synchronize()
+    print(f"face paths: CelebA-HQ DDPM and the three critics (float32) on the card in "
+          f"{t1 - t0:.1f} s, their first calls {time.perf_counter() - t1:.1f} s")
+    return pipe, ref, src
+
+
+def check_face_routing(counts, path, forwards, failures):
+    """A face path launches the GroupNorm kernel 71 times a DDPM forward (21
+    of them streamed), each on a channels-last input, and no other kernel of
+    the port: JAX sends this model's attention to no flash kernel."""
+    want = FACE_GN * forwards
+    streamed = FACE_GN_STREAMED * forwards
+    if (counts["groupnorm"], GN_INPUTS["calls"], GN_INPUTS["channels_last"],
+            counts["groupnorm_streamed"]) != (want, want, want, streamed):
+        failures.append(f"the {path} path called the GroupNorm kernel {counts['groupnorm']} "
+                        f"times ({counts['groupnorm_streamed']} streamed) on "
+                        f"{GN_INPUTS['channels_last']} channels-last of {GN_INPUTS['calls']} "
+                        f"inputs (expected {want}, {streamed} streamed)")
+    others = {n: c for n, c in counts.items() if c and not n.startswith("groupnorm")}
+    if others:
+        failures.append(f"the {path} path launched other kernels than GroupNorm: {others}")
+    print(f"{path} path GroupNorm: {counts['groupnorm']} kernel calls ({want} predicted: "
+          f"{FACE_GN} x {forwards} DDPM forwards), {counts['groupnorm_streamed']} streamed "
+          f"({streamed} predicted), {GN_INPUTS['channels_last']} of {GN_INPUTS['calls']} inputs "
+          f"channels-last; other kernels launched: {others or 'none'}")
+
+
+def phase_face_path(mode, pipe, ref, src):
+    """``main_face --mode h_edit_R`` or ``--mode ef`` at its defaults, one
+    pair: the SDE inversion of the source (a seed-42 generator, 100 calls of
+    1 row), the 100-step loop with the ArcFace and LPIPS losses (h-Edit-R:
+    3 optimisation steps, each loss's eps at t-1 a forward, the last step
+    without; EF: one forward a step whose graph both losses' gradients go
+    back through, the last step dropped), weight 50, the parser's mask blend
+    and the cosine similarity; the launch counts at 0 before and read after.
+    Then the same edit without losses (outside the count): the critics must
+    move the edit by more than FACE_CONTRAST of max|x0|; its float32 drift
+    from the trajectory is printed.  Returns (counts, failures)."""
+    failures = []
+    name = f"face {mode}"
+    loop = h_edit_r_face if mode == "h_edit_R" else ef_face
+    extra = dict(optimization_steps=FACE_K) if mode == "h_edit_R" else {}
+    forwards = -(-FACE_STEPS // FACE_CHUNK) + (
+        (FACE_STEPS - 1) * (1 + 2 * FACE_K) + 1 if mode == "h_edit_R" else FACE_STEPS - 1)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inv = invert_sde(pipe.unet, pipe.schedule, src,
+                     generator=torch.Generator(device="cuda").manual_seed(42),
+                     step_chunk=FACE_CHUNK)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    edited = loop(pipe.unet, pipe.schedule, inv.xts[:, FACE_STEPS], inv.zs,
+                  id_loss_fn=pipe.id_loss_fn(ref), lpips_loss_fn=pipe.lpips_loss_fn(src),
+                  weight_edit_face=FACE_WEIGHT, after_skip_steps=FACE_STEPS, **extra)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mask = build_face_mask(pipe.parse(src))
+    out = edited * mask + src * (1 - mask)
+    with torch.no_grad():
+        sim = cosine_sim(pipe.arcface, out, pipe.id_embed(ref)).mean().item()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{name} path: {t3 - t0:.3f} s/image over 1 pair (SDE inversion, "
+          f"{-(-FACE_STEPS // FACE_CHUNK)} calls of up to {FACE_CHUNK} rows, {t1 - t0:.2f} s; {FACE_STEPS}-step loop {t2 - t1:.2f} s = "
+          f"{(t2 - t1) / FACE_STEPS * 1e3:.1f} ms a step; mask blend and similarity "
+          f"{t3 - t2:.2f} s); peak memory {peak:.2f} GiB, weights included; Cosine Similarity: "
+          f"{sim}")
+    print(f"{name} path launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, edited, inv.xts, inv.zs))
+    if tuple(out.shape) != (1, 256, 256, 3) or not finite:
+        failures.append(f"{name} path output is not finite [1, 256, 256, 3]")
+    check_face_routing(counts, name, forwards, failures)
+
+    t0 = time.perf_counter()
+    plain = loop(pipe.unet, pipe.schedule, inv.xts[:, FACE_STEPS], inv.zs,
+                 after_skip_steps=FACE_STEPS)
+    torch.cuda.synchronize()
+    scale = inv.xts[:, 0].abs().max().item()
+    target = 0 if mode == "h_edit_R" else 1
+    drift = (plain - inv.xts[:, target]).abs().max().item() / scale
+    moved = (edited - plain).abs().max().item() / scale
+    ok = moved > FACE_CONTRAST and bool(torch.isfinite(plain).all())
+    print(f"{name} without losses (f32, TF32 off, {time.perf_counter() - t0:.1f} s): the critics "
+          f"moved the edit by {moved:.3e} of max|x0| (must exceed {FACE_CONTRAST:g}; max|x0| "
+          f"{scale:.3e}); free-running float32 drift from xts[{target}] {drift:.3e} of max|x0| "
+          f"(the seeded model amplifies a step's rounding ~1.17x a step: "
+          f"``phase_face_identities``) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name}: the critics moved the edit by {moved:.3e}")
+    return counts, failures
+
+
+def phase_face_identities(pipe, src):
+    """The loops' reconstruction property in float32 with the kernel, from
+    the SDE inversion's own trajectory (1-row calls).  Step by step: from
+    each stored x_t the loops' base step (``face_base_step`` on a 1-row eps)
+    lands on the stored x_{t-1}, all 100 steps.  Free-running over the last
+    FACE_TAIL steps (``--skip 80``), through the loops' own grid, residual
+    order and indexing: h-Edit-R without losses returns xts[0], EF without
+    losses xts[1] (the reference's early break).  All within GOLDEN_TOL of
+    max|x0|.  Over all 100 steps the seeded model amplifies each step's
+    rounding ~1.17x a step (also with the plain versions, 1-row inversion
+    calls, and in float64, whose plain GroupNorm keeps float32 statistics),
+    ~1e6 in all, so that drift is printed on the face paths, not held."""
+    sched = pipe.schedule
+    ts = sched.timesteps
+    tm1s = next_timesteps(ts)
+    t0 = time.perf_counter()
+    inv = invert_sde(pipe.unet, sched, src,
+                     generator=torch.Generator(device="cuda").manual_seed(42),
+                     step_chunk=FACE_CHUNK)
+    scale = inv.xts[:, 0].abs().max().item()
+    zs = inv.zs.flip(1)
+    errs = []
+    with torch.no_grad():
+        for i in range(FACE_STEPS):
+            t, tm1 = int(ts[i]), int(tm1s[i])
+            xt = inv.xts[:, FACE_STEPS - i]
+            x = face_base_step(sched, xt, pipe.unet(xt, t), t, tm1, zs[:, i])
+            errs.append((x - inv.xts[:, FACE_STEPS - i - 1]).abs().max().item() / scale)
+        tail = {}
+        for mode, loop, target in (("h_edit_R", h_edit_r_face, 0), ("ef", ef_face, 1)):
+            x = loop(pipe.unet, sched, inv.xts[:, FACE_TAIL], inv.zs, after_skip_steps=FACE_TAIL)
+            tail[f"{mode} -> xts[{target}]"] = (x - inv.xts[:, target]).abs().max().item() / scale
+    torch.cuda.synchronize()
+    ok = max(errs) <= GOLDEN_TOL and max(tail.values()) <= GOLDEN_TOL
+    print(f"face identities (f32, TF32 off, the kernel, {time.perf_counter() - t0:.1f} s): "
+          f"max over the {FACE_STEPS} steps of |step(xts[k]) - xts[k-1]| / max|x0| "
+          f"{max(errs):.3e} (every 10th step {', '.join(f'{e:.1e}' for e in errs[::10])}); "
+          f"without losses over the last {FACE_TAIL} steps "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in tail.items())} of max|x0| "
+          f"(tol {GOLDEN_TOL:g}) {'OK' if ok else 'FAIL'}")
+    return [] if ok else [f"face identities: step {max(errs):.3e}, last {FACE_TAIL} steps {tail}"]
+
+
+def phase_face_unet_gradient(pipe):
+    """One DDPM forward at 256x256 and d (eps . r) / d x through it, float32,
+    with the GroupNorm kernel against the same with the plain GroupNorm
+    substituted: eps within FACE_EPS_TOL and dx within FACE_GRAD_TOL of their
+    largest elements."""
+    g = torch.Generator(device="cuda").manual_seed(37)
+    x = torch.randn(1, 256, 256, 3, generator=g, device="cuda")
+    r = torch.randn(1, 256, 256, 3, generator=g, device="cuda")
+    t = int(pipe.schedule.timesteps[FACE_STEPS // 2])
+
+    def run():
+        xg = x.clone().requires_grad_()
+        eps = pipe.unet(xg, t)
+        dx, = torch.autograd.grad((eps * r).sum(), xg)
+        return eps.detach(), dx
+
+    reset_launches()
+    eps_k, dx_k = run()
+    counts = read_launches()
+    with plain_versions():
+        eps_p, dx_p = run()
+    torch.cuda.synchronize()
+    substituted = read_launches() == counts
+    rel_eps = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
+    rel_dx = ((dx_k - dx_p).abs().max() / dx_p.abs().max()).item()
+    ok = (rel_eps <= FACE_EPS_TOL and rel_dx <= FACE_GRAD_TOL and substituted
+          and counts["groupnorm"] == FACE_GN and bool(torch.isfinite(dx_k).all()))
+    print(f"face DDPM forward and gradient (f32, TF32 off, t={t}): eps {rel_eps:.3e} (tol "
+          f"{FACE_EPS_TOL:g}), dx {rel_dx:.3e} (tol {FACE_GRAD_TOL:g}) of their largest "
+          f"elements, kernel against plain GroupNorm; {counts['groupnorm']} kernel calls, none "
+          f"with the plain versions: {substituted} {'OK' if ok else 'FAIL'}")
+    return [] if ok else [f"face DDPM eps {rel_eps:.3e}, dx {rel_dx:.3e}"]
+
+
 # Device-time classes of a step, by kernel name (first match wins).  Row 3,
 # the LSE forward, is the tensor-core forward kernel instantiated with
 # LSE = true (its last template argument; "Lb1E" mangled); on the bf16 paths
@@ -3131,13 +3374,25 @@ def main(argv=None) -> int:
     failures += phase_reconstructions(pipe)
     failures += phase_masactrl_identity(pipe)
     failures += phase_pnp_identity(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    face = _face_inputs()
+    face_counts = {}
+    for mode in ("h_edit_R", "ef"):
+        face_counts[mode], bad = phase_face_path(mode, *face)
+        failures += bad
+    failures += phase_face_unet_gradient(face[0])
+    failures += phase_face_identities(face[0], face[2])
+    del face
+    torch.cuda.empty_cache()
     paths = {"flagship": flagship_counts, "nmg": nmg_counts, "h_edit_d": hedit_d_counts,
              "ef": ef_counts, "masactrl": masactrl_counts, "pnp": pnp_counts,
              "nt_pnp": nt_pnp_counts,
              "vae_gradient": vae_grad_counts,
              "exact_forward": exact_counts, "golden_f32": golden_counts,
              "vae_gradient_f32": vae_grad_f32_counts, "packed_bounded_f32_512": packed_512_counts,
-             "nmg_f32": nmg_f32_counts, **kernel_counts, **probe_counts}
+             "nmg_f32": nmg_f32_counts, "face_h_edit_R": face_counts["h_edit_R"],
+             "face_ef": face_counts["ef"], **kernel_counts, **probe_counts}
     # no path but the probes' own launches a probe kernel (rows 8-12)
     probe_kernels = [n for n, (module, _) in COUNTERS.items() if module in (fp, mp)]
     for path in paths.keys() - probe_counts.keys():
@@ -3147,12 +3402,13 @@ def main(argv=None) -> int:
     print(f"probe kernels launched off the probes' paths: none expected, "
           f"{sum(paths[p][n] for p in paths.keys() - probe_counts.keys() for n in probe_kernels)}")
     # no bf16 path launches a float32 backward kernel
-    bf16_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "pnp", "nt_pnp",
-                  "vae_gradient")
-    fused = {p: paths[p]["flash_bwd_f32"] + paths[p]["flash_bwd_f32_512"] for p in bf16_paths}
-    print(f"float32 backward kernels launched on the bf16 paths: {fused} (none expected)")
+    no_f32_bwd_paths = ("flagship", "nmg", "h_edit_d", "ef", "masactrl", "pnp", "nt_pnp",
+                  "vae_gradient", "face_h_edit_R", "face_ef")
+    fused = {p: paths[p]["flash_bwd_f32"] + paths[p]["flash_bwd_f32_512"] for p in no_f32_bwd_paths}
+    print(f"float32 backward kernels launched on the bf16 and face paths: {fused} (none "
+          f"expected)")
     if any(fused.values()):
-        failures.append(f"a bf16 path launched a float32 backward kernel: {fused}")
+        failures.append(f"a bf16 or face path launched a float32 backward kernel: {fused}")
 
     def entry(name, route, source, replaces, path, **extra):
         """The kernel's first comparison (a shape of its path) and its launches
@@ -3208,12 +3464,20 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "splits", "tile")
             if key in r} for r in rows if r["name"] == name}
     gn_cu = "hedit_tpu_torch/csrc/group_norm.cu"
+
+    def gn_face(name):
+        """The GroupNorm kernel's float32 eps-1e-6 rows at the face DDPM's shapes."""
+        return {"x".join(map(str, r["shape"])): {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "regime", "cluster")}
+            for r in rows if r["name"] == name and r.get("dtype") == "float32"
+            and r.get("eps") == 1e-6 and tuple(r["shape"]) in FACE_GN_SHAPES}
     jax_flash = "hedit_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [
         entry("flash_attention", tc_route, tc_cu, f"{jax_flash}:220", "flagship"),
-        entry("groupnorm", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100", "flagship"),
+        entry("groupnorm", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100", "flagship",
+              face_shapes=gn_face("groupnorm")),
         entry("groupnorm_streamed", "cuda", gn_cu, "hedit_tpu/ops/groupnorm.py:100",
-              "flagship"),
+              "flagship", face_shapes=gn_face("groupnorm_streamed")),
         entry("flash_attention_lse", tc_route, tc_cu, f"{jax_flash}:464", "nmg"),
         entry("flash_attention_lse_f32", "cuda", f32_cu, f"{jax_flash}:464", "nmg_f32"),
         entry("flash_bwd_dq", tc_route, bwd_tc_cu, f"{jax_flash}:553", "nmg",

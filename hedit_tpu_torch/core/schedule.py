@@ -17,11 +17,29 @@ import numpy as np
 import torch
 
 
-def scaled_linear_betas(num_train_timesteps: int, beta_start: float = 0.00085,
-                        beta_end: float = 0.012) -> np.ndarray:
-    """SD-1.x betas: linear in sqrt(beta), in float64, stored as float32."""
-    return (np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps,
-                        dtype=np.float64) ** 2).astype(np.float32)
+def make_beta_schedule(schedule: str, num_train_timesteps: int, beta_start: float,
+                       beta_end: float) -> np.ndarray:
+    """Beta table in float64, stored as float32 (own copy of
+    ``hedit_tpu/core/schedule.py:make_beta_schedule``): ``scaled_linear``
+    0.00085 -> 0.012 for Stable Diffusion, ``linear`` 1e-4 -> 2e-2 for the
+    CelebA-HQ pixel DDPM, and the reference's other variants."""
+    T = num_train_timesteps
+    if schedule == "scaled_linear":
+        betas = np.linspace(beta_start**0.5, beta_end**0.5, T, dtype=np.float64) ** 2
+    elif schedule == "linear":
+        betas = np.linspace(beta_start, beta_end, T, dtype=np.float64)
+    elif schedule == "quad":
+        betas = np.linspace(beta_start**0.5, beta_end**0.5, T, dtype=np.float64) ** 2
+    elif schedule == "const":
+        betas = beta_end * np.ones(T, dtype=np.float64)
+    elif schedule == "jsd":
+        betas = 1.0 / np.linspace(T, 1, T, dtype=np.float64)
+    elif schedule == "sigmoid":
+        x = np.linspace(-6, 6, T, dtype=np.float64)
+        betas = 1 / (1 + np.exp(-x)) * (beta_end - beta_start) + beta_start
+    else:
+        raise ValueError(f"unknown beta schedule {schedule!r}")
+    return betas.astype(np.float32)
 
 
 def leading_timesteps(num_train_timesteps: int, num_inference_steps: int,
@@ -44,17 +62,24 @@ class Schedule:
 
     @staticmethod
     def create(num_inference_steps: int, num_train_timesteps: int = 1000,
-               steps_offset: int = 1) -> "Schedule":
+               beta_schedule: str = "scaled_linear", beta_start: float = 0.00085,
+               beta_end: float = 0.012, steps_offset: int = 1,
+               timesteps: Optional[np.ndarray] = None) -> "Schedule":
         """steps_offset: 1 for the DDPM modes, 0 for the DDIM modes (the JAX CLI
-        builds its pipeline so, ``hedit_tpu/cli/main_p2p.py:348-349``)."""
-        betas = scaled_linear_betas(num_train_timesteps)
+        builds its pipeline so, ``hedit_tpu/cli/main_p2p.py:348-349``); the
+        face DDPM takes ``linear`` 1e-4 -> 2e-2 with offset 1
+        (``hedit_tpu/pipelines/face.py:123-126``).  ``timesteps``: a
+        descending grid in place of the leading one."""
+        betas = make_beta_schedule(beta_schedule, num_train_timesteps, beta_start, beta_end)
         alphas = (1.0 - betas).astype(np.float32)
         abar = np.cumprod(alphas, dtype=np.float32)
-        timesteps = leading_timesteps(num_train_timesteps, num_inference_steps, steps_offset)
+        if timesteps is None:
+            timesteps = leading_timesteps(num_train_timesteps, num_inference_steps,
+                                          steps_offset)
         return Schedule(
             alphas_cumprod=torch.from_numpy(abar),
             final_alpha_cumprod=torch.tensor(abar[0]),
-            timesteps=torch.from_numpy(timesteps),
+            timesteps=torch.from_numpy(np.asarray(timesteps, np.int64)),
             num_train_timesteps=num_train_timesteps,
             num_inference_steps=num_inference_steps)
 

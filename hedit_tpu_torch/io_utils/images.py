@@ -48,6 +48,16 @@ def to_pil(x: np.ndarray) -> Image.Image:
     return Image.fromarray((x * 255).astype(np.uint8))
 
 
+def image_grid(images: List[Image.Image], rows: int = 1) -> Image.Image:
+    """Horizontal grid (``utils/utils.py:48-85``)."""
+    cols = (len(images) + rows - 1) // rows
+    w, h = images[0].size
+    grid = Image.new("RGB", (cols * w, rows * h))
+    for i, img in enumerate(images):
+        grid.paste(img, ((i % cols) * w, (i // cols) * h))
+    return grid
+
+
 def dataset_from_json(path: str) -> Dict:
     with open(path) as f:
         return json.load(f)

@@ -2,10 +2,12 @@
 
 The port's parameter names are the diffusers / transformers ``state_dict``
 keys, which ``hedit_tpu/io_utils/weights.py`` (numpy only) maps to Flax
-trees: ``convert_unet``, ``convert_vae`` and ``convert_clip_text``.  The
-converters here are their exact inverses.  Each walks the port module's own
+trees: ``convert_unet``, ``convert_vae`` and ``convert_clip_text``, and the
+face models' ``convert_ddpm_ckpt``, ``convert_irse50``,
+``convert_lpips_vgg`` and ``convert_face_parser``.  The converters here are
+their exact inverses.  Each walks the port module's own
 keys, finds each key's Flax path with the same ``torch_key_to_flax`` rule
-(kept here as an own copy, with the three ``*_FIXUPS`` tables; a test holds
+(kept here as an own copy, with the ``*_FIXUPS`` tables; a test holds
 it to the JAX package's on every key of the three towers),
 and undoes its transposition (Dense kernel [in, out] -> weight [out, in];
 conv kernel HWIO -> OIHW).  So ``convert_unet(unet_state_dict(params,
@@ -55,6 +57,21 @@ CLIP_TEXT_FIXUPS: List[Tuple[str, str]] = [
     (r"embeddings\.position_embedding\.weight", "position_embedding"),
     (r"\.mlp\.fc1", ".mlp_fc1"),
     (r"\.mlp\.fc2", ".mlp_fc2"),
+]
+
+# the CelebA-HQ DDPM's checkpoint keys (``hedit_tpu/models/ddpm_unet.py:convert_ddpm_ckpt``)
+DDPM_FIXUPS: List[Tuple[str, str]] = [
+    (r"^temb\.dense_0", "temb_dense_0"),
+    (r"^temb\.dense_1", "temb_dense_1"),
+    (r"^down_(\d+)\.block_(\d+)", r"down_\1_block_\2"),
+    (r"^down_(\d+)\.attn_(\d+)", r"down_\1_attn_\2"),
+    (r"^down_(\d+)\.downsample", r"down_\1_downsample"),
+    (r"^up_(\d+)\.block_(\d+)", r"up_\1_block_\2"),
+    (r"^up_(\d+)\.attn_(\d+)", r"up_\1_attn_\2"),
+    (r"^up_(\d+)\.upsample", r"up_\1_upsample"),
+    (r"^mid\.block_1", "mid_block_1"),
+    (r"^mid\.attn_1", "mid_attn_1"),
+    (r"^mid\.block_2", "mid_block_2"),
 ]
 
 
@@ -159,3 +176,149 @@ def vae_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
 
 def clip_text_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
     return flax_to_state_dict(params, model, CLIP_TEXT_FIXUPS)
+
+
+def ddpm_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
+    return flax_to_state_dict(params, model, DDPM_FIXUPS)
+
+
+# The face critics' converters name each tensor by hand; their inverses walk
+# the same (torch key, Flax path, layout) table.  Layouts: "plain" as is,
+# "conv" OIHW <-> HWIO, "dense" [out, in] <-> [in, out], "convT" a transposed
+# conv [in, out, H, W] <-> HWIO-like [H, W, in, out] flipped in H and W.
+_TO_TORCH = {
+    "plain": lambda a: a,
+    "conv": lambda a: a.transpose(3, 2, 0, 1),
+    "dense": lambda a: a.T,
+    "convT": lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
+}
+
+
+def _bn_pairs(t: str, f: str):
+    return [(f"{t}.{a}", f"{f}/{b}", "plain") for a, b in (
+        ("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"), ("running_var", "var"))]
+
+
+def _conv_pairs(t: str, f: str, bias: bool, layout: str = "conv"):
+    return [(f"{t}.weight", f"{f}/kernel", layout)] + (
+        [(f"{t}.bias", f"{f}/bias", "plain")] if bias else [])
+
+
+def irse50_pairs():
+    """``convert_irse50``'s table (``hedit_tpu/models/arcface.py:118-165``)."""
+    from hedit_tpu_torch.models.arcface import IR_SE_50_BLOCKS
+
+    pairs = (_conv_pairs("input_layer.0", "input_conv", False)
+             + _bn_pairs("input_layer.1", "input_bn")
+             + [("input_layer.2.weight", "input_prelu/alpha", "plain")])
+    for i, (cin, depth, _) in enumerate(IR_SE_50_BLOCKS):
+        t, f = f"body.{i}", f"body_{i}"
+        if cin != depth:
+            pairs += (_conv_pairs(f"{t}.shortcut_layer.0", f"{f}/shortcut_conv", False)
+                      + _bn_pairs(f"{t}.shortcut_layer.1", f"{f}/shortcut_bn"))
+        pairs += (_bn_pairs(f"{t}.res_layer.0", f"{f}/res_bn1")
+                  + _conv_pairs(f"{t}.res_layer.1", f"{f}/res_conv1", False)
+                  + [(f"{t}.res_layer.2.weight", f"{f}/res_prelu/alpha", "plain")]
+                  + _conv_pairs(f"{t}.res_layer.3", f"{f}/res_conv2", False)
+                  + _bn_pairs(f"{t}.res_layer.4", f"{f}/res_bn2")
+                  + _conv_pairs(f"{t}.res_layer.5.fc1", f"{f}/res_se/fc1", False)
+                  + _conv_pairs(f"{t}.res_layer.5.fc2", f"{f}/res_se/fc2", False))
+    return (pairs + _bn_pairs("output_layer.0", "output_bn2d")
+            + [("output_layer.3.weight", "output_linear/kernel", "dense"),
+               ("output_layer.3.bias", "output_linear/bias", "plain")]
+            + _bn_pairs("output_layer.4", "output_bn1d"))
+
+
+def lpips_vgg_pairs():
+    """``convert_lpips_vgg``'s table in the lpips slice layout
+    (``hedit_tpu/models/lpips_vgg.py:64-101``)."""
+    from hedit_tpu_torch.models.lpips_vgg import TV_CONV_IDX, slice_key
+
+    pairs = []
+    for my_idx, tv_idx in enumerate(TV_CONV_IDX):
+        pairs += _conv_pairs(slice_key(tv_idx), f"net/conv_{my_idx}", True)
+    return pairs + [(f"lin{i}.model.1.weight", f"lin_{i}/kernel", "conv") for i in range(5)]
+
+
+def face_parser_pairs():
+    """``convert_face_parser``'s table (``hedit_tpu/models/face_parser.py:73-114``),
+    its transposed convs flipped in H and W."""
+    def unetconv(t, f):
+        return [p for i in (1, 2) for p in _conv_pairs(f"{t}.conv{i}.0", f"{f}/conv{i}_conv", True)
+                + _bn_pairs(f"{t}.conv{i}.1", f"{f}/conv{i}_bn")]
+
+    pairs = [p for name in ("conv1", "conv2", "conv3", "conv4", "center")
+             for p in unetconv(name, name)]
+    for name in ("up_concat4", "up_concat3", "up_concat2", "up_concat1"):
+        pairs += unetconv(f"{name}.conv", f"{name}/conv")
+        pairs += _conv_pairs(f"{name}.up", f"{name}/up", True, "convT")
+    return pairs + _conv_pairs("final", "final", True)
+
+
+def pairs_to_state_dict(params, pairs, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse of a hand-named converter: each torch key of ``pairs`` from
+    its Flax path; raises unless the keys are exactly ``model``'s, shapes
+    included, and every leaf of ``params`` is used."""
+    flat = _flatten_tree(params["params"] if "params" in params else params)
+    want = model.state_dict()
+    out, errors = {}, []
+    for key, path, layout in pairs:
+        path = tuple(path.split("/"))
+        if path not in flat:
+            errors.append(f"MISSING {key} ({'/'.join(path)})")
+            continue
+        arr = _TO_TORCH[layout](np.asarray(flat[path]))
+        if key not in want or tuple(arr.shape) != tuple(want[key].shape):
+            errors.append(f"SHAPE {key}: got {arr.shape} want "
+                          f"{tuple(want[key].shape) if key in want else 'no such key'}")
+            continue
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))  # a copy
+    used = {tuple(p.split("/")) for _, p, _ in pairs}
+    errors += [f"UNEXPECTED {'/'.join(p)}" for p in flat if p not in used]
+    errors += [f"NOT SET {k}" for k in want if k not in out]
+    if errors:
+        raise ValueError(f"{len(errors)} weight problems:\n" + "\n".join(errors[:50]))
+    return out
+
+
+def irse50_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
+    return pairs_to_state_dict(params, irse50_pairs(), model)
+
+
+def lpips_vgg_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
+    return pairs_to_state_dict(params, lpips_vgg_pairs(), model)
+
+
+def face_parser_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
+    return pairs_to_state_dict(params, face_parser_pairs(), model)
+
+
+def load_torch_state(path: str) -> Dict[str, np.ndarray]:
+    """A .pt / .pth / .ckpt (torch) or .safetensors file as numpy arrays (own
+    copy of ``hedit_tpu/io_utils/weights.py:load_torch_state``): a
+    ``state_dict`` entry unwrapped, a list's first element taken (the
+    reference CelebA checkpoint's quirk)."""
+    if path.endswith(".safetensors"):
+        from hedit_tpu_torch.io_utils.safetensors_io import load_safetensors
+
+        return load_safetensors(path)
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if isinstance(obj, (list, tuple)):  # reference celeba ckpt quirk
+        obj = obj[0]
+    return {k: v.detach().cpu().numpy() for k, v in obj.items()}
+
+
+def load_known(model: nn.Module, state: Dict[str, np.ndarray], name: str) -> None:
+    """Load ``model``'s own keys from ``state`` (numpy), as the JAX package's
+    converters read only the keys they know; raises on a missing or
+    mis-shaped one."""
+    want = model.state_dict()
+    errors = [f"MISSING {k}" for k in want if k not in state]
+    errors += [f"SHAPE {k}: got {tuple(np.shape(state[k]))} want {tuple(v.shape)}"
+               for k, v in want.items() if k in state and tuple(np.shape(state[k])) != tuple(v.shape)]
+    if errors:
+        raise ValueError(f"{name}: {len(errors)} weight problems:\n" + "\n".join(errors[:50]))
+    model.load_state_dict({k: torch.from_numpy(np.array(state[k], dtype=np.float32))
+                           for k in want})

@@ -4,7 +4,8 @@
 Weights come from a local diffusers-layout directory (``unet/``, ``vae/``,
 ``text_encoder/``), read in the JAX package's order (``*.safetensors``, then
 ``*.bin``) and with its legacy VAE attention names, or from a seeded random
-init: every linear and conv weight N(0, 1/fan_in) with bias 0, embeddings
+init: every linear and (transposed) conv weight N(0, 1/fan_in) with bias 0
+(fan_in the product of the weight's dims after the first), embeddings
 N(0, 0.02), norms weight 1 and bias 0, drawn in module order from one
 ``torch.Generator``.
 """
@@ -57,7 +58,7 @@ def seeded_init_(module: torch.nn.Module, generator: torch.Generator) -> None:
         for m in module.modules():
             if isinstance(m, torch.nn.Embedding):
                 m.weight.normal_(0.0, 0.02, generator=generator)
-            elif isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+            elif isinstance(m, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
                 fan_in = float(np.prod(m.weight.shape[1:]))
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
                 if m.bias is not None:

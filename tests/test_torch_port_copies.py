@@ -1,8 +1,9 @@
 """The port imports nothing of the JAX package: a source scan of every file of
 the port, and the port's own copies of the JAX package's framework-free
 modules (tokenizer, P2P preprocessing and the demo's blend-word heuristic,
-weight-key mapping, safetensors reader, image I/O and the demo YAML reader)
-held to the originals on the same inputs.
+weight-key mapping, safetensors reader, image I/O and the demo YAML reader,
+and the face path's beta schedules, image grid, checkpoint reader, erosion
+kernel and segmentation ids) held to the originals on the same inputs.
 """
 
 import os
@@ -52,8 +53,9 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 20
     assert {"masactrl.py", "masactrl_mask.py", "masactrl_auto.py", "h_edit_ctrl.py",
-            "main_masactrl.py", "common.py", "flash_probes.py"} <= {
-                os.path.basename(f) for f in files}
+            "main_masactrl.py", "common.py", "flash_probes.py", "main_face.py", "face_swap.py",
+            "sde.py", "face.py", "face_mask.py", "ddpm_unet.py", "arcface.py", "lpips_vgg.py",
+            "face_parser.py", "frozen_layers.py"} <= {os.path.basename(f) for f in files}
     assert {os.path.join(ROOT, "hedit_tpu_torch", "probes", f"{n}.py")
             for n in ("flash_nhd_variants", "flash_v4_variants", "flash_ablate",
                       "flash_variants", "mm_probe")} <= set(files)
@@ -187,3 +189,44 @@ def test_dataset_from_yaml_matches(tmp_path):
     got = images.dataset_from_yaml(str(path))
     assert got == j_images.dataset_from_yaml(str(path))
     assert [item["image"] for item in got] == ["/lizard.jpg", "/cat.png"]
+
+
+def test_face_copies_match(tmp_path):
+    """The face path's copies: ``make_beta_schedule`` in every variant bit for
+    bit, ``image_grid`` pixel for pixel (one row and two), ``load_torch_state``
+    on a plain file, a ``state_dict`` nesting, the CelebA checkpoint's list and
+    a safetensors file, ``_erosion_kernel`` bit for bit, and the segmentation
+    ids of the face mask."""
+    from PIL import Image
+
+    from hedit_tpu.core.schedule import make_beta_schedule as j_make_beta_schedule
+    from hedit_tpu.rewards import face_mask as j_face_mask
+    from hedit_tpu_torch.core.schedule import make_beta_schedule
+    from hedit_tpu_torch.rewards import face_mask
+
+    for kind in ("scaled_linear", "linear", "quad", "const", "jsd", "sigmoid"):
+        np.testing.assert_array_equal(make_beta_schedule(kind, 1000, 1e-4, 2e-2),
+                                      j_make_beta_schedule(kind, 1000, 1e-4, 2e-2))
+    rs = np.random.RandomState(0)
+    pics = [Image.fromarray(rs.randint(0, 255, (6, 5, 3), dtype=np.uint8)) for _ in range(3)]
+    for rows in (1, 2):
+        np.testing.assert_array_equal(np.asarray(images.image_grid(pics, rows)),
+                                      np.asarray(j_images.image_grid(pics, rows)))
+    sd = {"a.weight": torch.randn(3, 2), "b": torch.arange(4)}
+    for i, obj in enumerate((sd, {"state_dict": sd}, [sd])):
+        path = str(tmp_path / f"ckpt{i}.pth")
+        torch.save(obj, path)
+        got, want = weights.load_torch_state(path), j_weights.load_torch_state(path)
+        assert got.keys() == want.keys() == sd.keys()
+        for k in sd:
+            np.testing.assert_array_equal(got[k], want[k])
+    path = str(tmp_path / "w.safetensors")
+    save_safetensors(path, {"w": rs.randn(3, 4).astype(np.float32)})
+    np.testing.assert_array_equal(weights.load_torch_state(path)["w"],
+                                  j_weights.load_torch_state(path)["w"])
+    for size in (3, 13, 15):
+        np.testing.assert_array_equal(face_mask._erosion_kernel(size),
+                                      j_face_mask._erosion_kernel(size))
+    assert (face_mask.NO_NECK_IDS, face_mask.WITH_NECK_IDS, face_mask.MOUTH_ID,
+            face_mask.HAIR_ID) == (j_face_mask.NO_NECK_IDS, j_face_mask.WITH_NECK_IDS,
+                                   j_face_mask.MOUTH_ID, j_face_mask.HAIR_ID)
